@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` -> shared library -> ctypes.
+
+Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call into
+``tinydiffusion_torch/_build/<hash>/libtdt_kernels.so``, where ``<hash>``
+covers the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the library that is there. The sources have a plain C
+interface and include no PyTorch header, which keeps the build to seconds
+(a ``torch.utils.cpp_extension`` build takes minutes). The build runs on the
+first launch of a kernel, never at import: a machine without ``nvcc`` (the
+CPU test machines) imports this module and never calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
+_LIB_NAME = "libtdt_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Build:
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str  # nvcc's output (ptxas registers / shared memory per kernel)
+
+
+def find_nvcc() -> str:
+    """nvcc from ``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda/bin``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append(shutil.which("nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin); "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Build:
+    """Compile the kernels unless a library for these sources exists."""
+    sources = _sources()
+    out_dir = _BUILD_ROOT / _digest(sources)
+    lib = out_dir / _LIB_NAME
+    if lib.exists():
+        return Build(lib, 0.0, "")
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return Build(lib, seconds, log)
+
+
+_lib: ctypes.CDLL | None = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call), argtypes declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.tdt_flash_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.tdt_flash_fwd_f32.restype = i
+        _lib = lib
+    return _lib
