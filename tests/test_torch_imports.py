@@ -5,7 +5,8 @@ library, and no jax, jaxlib, flax, optax, orbax, ml_dtypes or PIL. This test
 stands in for that machine on the CPU: a subprocess whose import system
 refuses those packages (and ``tinydiffusion_tpu``) imports every module of
 ``tinydiffusion_torch`` and ``chip_smoke``, then loads a conv-VAE from an npz
-of random weights and serves it on ``device="cpu"``.
+of random weights and serves it on ``device="cpu"``; another trains, samples
+and checkpoints a small UNet28 on the CPU.
 """
 
 import json
@@ -20,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_laion_best")
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "PIL", "tinydiffusion_tpu")
 
-_CHILD = textwrap.dedent("""
+_REFUSE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = set(sys.argv[2].split(","))
@@ -32,7 +33,9 @@ _CHILD = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Refuse())
+""")
 
+_CHILD = _REFUSE + textwrap.dedent("""
     import numpy as np
     import torch
 
@@ -98,15 +101,57 @@ def _random_weights_npz(path: str, image_size: int) -> None:
         json.dump({"config": config, "metadata": {}}, f)
 
 
-def test_port_imports_and_serves_without_the_jax_stack(tmp_path):
-    path = str(tmp_path / "vae_random")
-    _random_weights_npz(path, image_size=64)
+# Two train steps of a small UNet28 (the fused q_sample's CPU path), a
+# T = 5 DDPM chain, and the checkpoint written and read back.
+_CHILD_TRAIN = _REFUSE + textwrap.dedent("""
+    import numpy as np
+    import torch
+
+    from tinydiffusion_torch.core.schedule import DiffusionSchedule
+    from tinydiffusion_torch.experiments.common import load_unet28, make_sampler
+    from tinydiffusion_torch.io.checkpoint import save_checkpoint
+    from tinydiffusion_torch.models.unet28 import UNet28
+    from tinydiffusion_torch.train.trainer import create_train_state, make_train_step
+
+    torch.manual_seed(0)
+    model = UNet28(time_dim=32, base_width=8)
+    state = create_train_state(model, torch.optim.Adam(model.parameters(), lr=1e-3), 0)
+    step = make_train_step(DiffusionSchedule.linear(1000))
+    x0 = torch.rand(4, 1, 28, 28) * 2 - 1
+    losses = [step(state, x0).item() for _ in range(2)]
+    assert all(np.isfinite(losses)), losses
+    samples = make_sampler(model, DiffusionSchedule.linear(5), (2, 1, 28, 28))(
+        torch.Generator().manual_seed(0))
+    assert samples.shape == (2, 1, 28, 28) and torch.isfinite(samples).all()
+    path = sys.argv[1]
+    save_checkpoint(path, state, config={"time_dim": 32, "base_width": 8})
+    assert not load_unet28(path, device="cpu").training
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
+def _run_isolated(child: str, path: str, cwd: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD, path, ",".join(BLOCKED)],
-        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
+        [sys.executable, "-c", child, path, ",".join(BLOCKED)],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED_OK" in proc.stdout
+
+
+def test_port_imports_and_serves_without_the_jax_stack(tmp_path):
+    path = str(tmp_path / "vae_random")
+    _random_weights_npz(path, image_size=64)
+    _run_isolated(_CHILD, path, str(tmp_path))
     assert os.path.getsize(path + "_grid.png") > 0
+
+
+def test_port_trains_and_samples_without_the_jax_stack(tmp_path):
+    path = str(tmp_path / "unet_ckpt")
+    _run_isolated(_CHILD_TRAIN, path, str(tmp_path))
+    for ext in (".pt", ".npz", ".json"):
+        assert os.path.getsize(path + ext) > 0

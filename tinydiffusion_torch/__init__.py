@@ -10,8 +10,11 @@ so it runs on a CUDA machine that has none of the JAX stack. Importing it
 does no work: there is no compile cache to set up, and the hand-written CUDA
 kernels (``ops/csrc``) are built with ``nvcc`` on their first launch.
 
-Ported so far: serving the LAION conv beta-VAE (``experiments/vae_laion.py``)
-with a CUDA flash-attention forward (``ops/attention.py``).
+Ported so far: the main path, training and sampling the MNIST UNet28 DDPM
+(``experiments/diffusion.py``) with a CUDA fused q_sample
+(``ops/qsample.py``); and serving the LAION conv beta-VAE
+(``experiments/vae_laion.py``) with a CUDA flash-attention forward
+(``ops/attention.py``).
 """
 
 __version__ = "0.1.0"

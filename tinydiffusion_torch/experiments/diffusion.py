@@ -1,0 +1,220 @@
+"""Unconditional MNIST DDPM: train the UNet28, sample, write grids and a checkpoint.
+
+Counterpart of ``tinydiffusion_tpu/experiments/diffusion.py`` (``run``,
+``main``, ``DiffusionConfig``), the system's main path. Reference recipe:
+MNIST in [-1, 1], batch 128 shuffled, Adam lr 1e-3, T = 1000 linear betas;
+after each epoch, 16 samples from the 1000-step ancestral sampler saved as a
+4x4 PNG grid; at the end, the coarse denoising trajectory and the
+checkpoint (``<checkpoint_path>.pt`` to resume, ``.npz`` in the JAX format,
+``.json``).
+
+Run on the card (the default) or, when asked, on the CPU::
+
+    python -m tinydiffusion_torch.experiments.diffusion --num-epochs 2 \\
+        --max-steps-per-epoch 25 --out-dir /tmp/d --data-root /tmp/d/data \\
+        --checkpoint-path /tmp/d/ckpt [--device cpu]
+
+The flags are the JAX CLI's, plus ``--device`` and ``--base-width``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from tinydiffusion_torch.core.schedule import DiffusionSchedule
+from tinydiffusion_torch.data.loader import BatchIterator
+from tinydiffusion_torch.data.mnist import MNIST_SCALE, MNIST_SHIFT, load_mnist_u8
+from tinydiffusion_torch.device import disable_tf32, resolve_device
+from tinydiffusion_torch.experiments.common import (
+    add_config_flags,
+    config_from_args,
+    make_sampler,
+    make_trajectory_sampler,
+    resolve_dtype,
+)
+from tinydiffusion_torch.io.checkpoint import save_checkpoint
+from tinydiffusion_torch.models.unet28 import UNet28
+from tinydiffusion_torch.obs.images import save_image_grid
+from tinydiffusion_torch.obs.metrics import MetricsLogger, Throughput
+from tinydiffusion_torch.train.trainer import create_train_state, make_train_step
+
+
+@dataclasses.dataclass
+class DiffusionConfig:
+    """The JAX ``DiffusionConfig``'s fields and defaults (all but one, below),
+    plus ``device`` and ``base_width``.
+
+    - ``compute_dtype``: ``"bfloat16"`` (the JAX default) runs the train
+      forward under ``torch.autocast``; ``"float32"`` runs it in full float32.
+      Sampling runs in ``sample_dtype``. On a card ``run`` turns TF32 off for
+      the process, whatever the dtypes, so float32 is full float32.
+    - ``use_mesh`` has no effect on one card; it is kept so the two CLIs take
+      the same flags.
+    - ``data_placement``: ``"auto"`` and ``"host"`` stream uint8 batches from
+      the host. ``"device"`` (the dataset resident on the card, driven by CUDA
+      graphs) is not ported yet and raises.
+    - ``fused_qsample`` has no effect: the port's step always draws its noise
+      with the fused q_sample (the CUDA kernel on a card, its plain version
+      on the CPU). It is kept so the two CLIs take the same flags.
+    - ``checkpoint_path`` defaults under ``runs/``, not to the JAX default
+      ``checkpoints/diffusion_final``: the port's ``.npz`` export would
+      overwrite the committed JAX weights there.
+    """
+
+    num_epochs: int = 100
+    batch_size: int = 128
+    lr: float = 1e-3
+    num_timesteps: int = 1000
+    beta_start: float = 1e-4
+    beta_end: float = 0.02
+    time_dim: int = 256
+    n_samples: int = 16
+    seed: int = 0
+    data_root: str = "./data"
+    out_dir: str = "runs/diffusion"
+    compute_dtype: str = "bfloat16"
+    use_mesh: bool = True
+    log_every: int = 100
+    sample_every_epoch: bool = True
+    visualize_denoising: bool = True
+    denoising_stride: int = 100
+    checkpoint_path: str = "runs/diffusion/diffusion_final"
+    sample_dtype: str = "float32"
+    max_steps_per_epoch: int = 0  # 0 = unlimited
+    fused_qsample: bool = False
+    data_placement: str = "auto"
+    noise_schedule: str = "linear"
+    prediction: str = "eps"
+    ema_decay: float = 0.0
+    base_width: int = 64
+    device: str = "cuda"
+
+
+def _resolve_placement(placement: str) -> None:
+    if placement not in ("host", "device", "auto"):
+        raise ValueError(f"data_placement={placement!r}; choose 'host', 'device', or 'auto'")
+    if placement == "device":
+        raise NotImplementedError(
+            "data_placement='device' (the dataset resident on the card, with CUDA graphs) "
+            "is not ported yet: ROADMAP.md, Queue 1, 'resident data placement and CUDA "
+            "graphs'. Use 'host' or 'auto'."
+        )
+
+
+def _to_nhwc01(x: torch.Tensor) -> np.ndarray:
+    """Samples in [-1, 1] (B, C, H, W) -> [0, 1] NHWC numpy, for the grids."""
+    return ((x.float() + 1) / 2).permute(0, 2, 3, 1).cpu().numpy()
+
+
+def run(config: DiffusionConfig) -> dict:
+    """Train, sample and checkpoint as the config says. Returns ``losses``
+    (the logged ones), ``samples_per_sec`` (the last epoch's), ``epochs``
+    (per epoch: ``samples_per_sec``, ``epoch_seconds``, ``sample_seconds``)
+    and the final ``state``."""
+    _resolve_placement(config.data_placement)
+    device = resolve_device(config.device)
+    dtype = resolve_dtype(config.compute_dtype)
+    sample_dtype = resolve_dtype(config.sample_dtype)
+    if device.type == "cuda":
+        disable_tf32()  # the sampler is float32 in every compute_dtype
+
+    images_u8, _ = load_mnist_u8(config.data_root, train=True)
+    data = BatchIterator([images_u8], config.batch_size, shuffle=True, seed=config.seed,
+                         u8_normalize=(MNIST_SCALE, MNIST_SHIFT))
+    if config.noise_schedule == "linear":
+        schedule = DiffusionSchedule.linear(config.num_timesteps, config.beta_start,
+                                            config.beta_end)
+    else:
+        schedule = DiffusionSchedule.make(config.noise_schedule, config.num_timesteps)
+    schedule = schedule.to(device)
+
+    with torch.random.fork_rng(devices=[]):  # seeded init, global RNG untouched
+        torch.manual_seed(config.seed)
+        model = UNet28(time_dim=config.time_dim, base_width=config.base_width)
+    model = model.to(device)
+    optimizer = torch.optim.Adam(model.parameters(), lr=config.lr)
+    use_ema = config.ema_decay > 0
+    state = create_train_state(model, optimizer, config.seed, ema=use_ema)
+    train_step = make_train_step(
+        schedule, ema_decay=config.ema_decay if use_ema else None,
+        prediction=config.prediction, compute_dtype=dtype,
+    )
+    sampler = make_sampler(model, schedule, (config.n_samples, 1, 28, 28),
+                           dtype=sample_dtype, prediction=config.prediction)
+    sample_gen = torch.Generator(device).manual_seed(config.seed + 2)
+
+    def synchronize():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    logger = MetricsLogger("diffusion", config.out_dir, dataclasses.asdict(config))
+    throughput = Throughput()
+    result = {"losses": [], "samples_per_sec": 0.0, "epochs": []}
+    for epoch in range(config.num_epochs):
+        epoch_t0 = time.perf_counter()
+        throughput.reset()
+        for batch_idx, batch in enumerate(data.epoch(epoch)):
+            if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
+                break
+            (x0,) = data.to_device(batch, device)
+            x0 = x0.permute(0, 3, 1, 2)  # NHWC -> NCHW; C = 1, so no copy
+            loss = train_step(state, x0)
+            throughput.add(config.batch_size)
+            if batch_idx % config.log_every == 0:
+                loss_val = float(loss)  # syncs, at log points only
+                logger.log({"epoch": epoch, "batch": batch_idx, "loss": loss_val},
+                           step=state.step - 1)
+                result["losses"].append(loss_val)
+        synchronize()
+        sps = throughput.samples_per_sec
+        result["samples_per_sec"] = sps
+        sample_seconds = None
+        if config.sample_every_epoch:
+            t0 = time.perf_counter()
+            samples = sampler(sample_gen, params=state.ema_params)
+            synchronize()
+            sample_seconds = time.perf_counter() - t0
+            grid = f"{config.out_dir}/generated_mnist_epoch_{epoch}.png"
+            save_image_grid(_to_nhwc01(samples), grid, nrow=4)
+            logger.log_image("samples", grid, state.step)
+        epoch_seconds = time.perf_counter() - epoch_t0
+        logger.log({"epoch": epoch, "train_samples_per_sec": sps,
+                    "epoch_seconds": epoch_seconds}, step=state.step)
+        result["epochs"].append({"samples_per_sec": sps, "epoch_seconds": epoch_seconds,
+                                 "sample_seconds": sample_seconds})
+
+    if config.visualize_denoising:
+        traj_fn = make_trajectory_sampler(model, schedule, (4, 1, 28, 28),
+                                          stride=config.denoising_stride, dtype=sample_dtype,
+                                          prediction=config.prediction)
+        trajectory = traj_fn(sample_gen, params=state.ema_params)
+        for i, frame in enumerate(trajectory):
+            t_label = config.num_timesteps - i * config.denoising_stride
+            save_image_grid(_to_nhwc01(frame), f"{config.out_dir}/denoising_t{t_label}.png",
+                            nrow=2)
+
+    if config.checkpoint_path:
+        save_checkpoint(config.checkpoint_path, state, config=dataclasses.asdict(config))
+
+    result["state"] = state
+    logger.finish()
+    return result
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_config_flags(parser, DiffusionConfig())
+    config = config_from_args(DiffusionConfig, parser.parse_args(argv))
+    device = resolve_device(config.device)
+    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    run(config)
+
+
+if __name__ == "__main__":
+    main()

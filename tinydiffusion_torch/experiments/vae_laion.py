@@ -26,28 +26,17 @@ import dataclasses
 
 import torch
 
+from tinydiffusion_torch.device import disable_tf32, resolve_device
 from tinydiffusion_torch.io.checkpoint import load_sidecar, load_weights_arrays
 from tinydiffusion_torch.io.from_jax import conv_vae_state_dict
 from tinydiffusion_torch.models.vae_conv import ConvVAE, ConvVAEConfig, reparameterize
-
-
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """``device`` as a ``torch.device``; raises if it asks for an absent card."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "a CUDA device was asked for and none is available; pass device='cpu' "
-            "to run on the CPU"
-        )
-    return dev
 
 
 def load_conv_vae(path: str, device: str | torch.device = "cuda") -> ConvVAE:
     """The conv-VAE of ``<path>.npz`` + ``<path>.json``, in eval mode on ``device``."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        disable_tf32()
     sidecar = load_sidecar(path)["config"]
     config = ConvVAEConfig(**{f.name: sidecar[f.name] for f in dataclasses.fields(ConvVAEConfig)})
     model = ConvVAE(**dataclasses.asdict(config))

@@ -1,19 +1,28 @@
-"""Read the JAX package's portable ``.npz`` weights and their JSON sidecar.
+"""Checkpoints: the JAX package's portable ``.npz`` weights, read and
+written, and the port's own resumable state.
 
-Counterpart of ``tinydiffusion_tpu/io/checkpoint.py`` (``_load_weights_arrays``
-and ``load_sidecar``). The npz stores every float param as a bfloat16 leaf
-viewed as ``uint16``; ``__meta__`` is a JSON byte string whose ``bfloat16``
-list names those keys. The JAX loader decodes them with ``ml_dtypes``; this
-one needs only numpy: a bfloat16 is the top half of a float32, so shifting
-the 16 bits left by 16 gives the exact float32 value.
+Counterpart of ``tinydiffusion_tpu/io/checkpoint.py``. The npz stores every
+float param as a bfloat16 leaf viewed as ``uint16``; ``__meta__`` is a JSON
+byte string whose ``bfloat16`` list names those keys; ``batch_stats`` stay
+float32. The JAX package converts with ``ml_dtypes``; this module needs only
+numpy: a bfloat16 is the top half of a float32, so shifting the 16 bits left
+by 16 decodes it exactly, and rounding the low 16 bits to nearest even
+encodes it as ``ml_dtypes`` does.
+
+``save_checkpoint`` writes three files: ``<path>.pt`` (``torch.save`` of the
+full train state, for an exact resume), ``<path>.npz`` (the serving subset
+in the JAX format, which the JAX package loads) and the ``<path>.json``
+sidecar. The JAX package writes an Orbax directory in place of the ``.pt``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 
 def _abspath(path: str) -> str:
@@ -47,3 +56,51 @@ def load_sidecar(path: str) -> dict:
     """The ``<path>.json`` sidecar: ``{"config": {...}, "metadata": {...}}``."""
     with open(_abspath(path) + ".json") as f:
         return json.load(f)
+
+
+def float32_to_bf16_bits(a: np.ndarray) -> np.ndarray:
+    """uint16 bits of the bfloat16 nearest to each float32 (ties to even);
+    NaNs stay quiet NaNs of the same sign."""
+    a = np.ascontiguousarray(a, np.float32)
+    bits = a.view(np.uint32)
+    rounded = (bits + (0x7FFF + ((bits >> 16) & 1))) >> 16
+    return np.where(np.isnan(a), (bits >> 16) | 0x0040, rounded).astype(np.uint16)
+
+
+def save_weights(path: str, flat: Mapping[str, np.ndarray]) -> str:
+    """Write ``{JAX key: array}`` to ``<path>.npz`` in the JAX package's
+    format: float leaves outside ``batch_stats`` as bfloat16 bits, listed in
+    ``__meta__``; everything else raw. Returns the npz path."""
+    path = _abspath(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays, bf16_keys = {}, []
+    for key in sorted(flat):
+        arr = np.asarray(flat[key])
+        if arr.dtype in (np.float32, np.float64) and not key.startswith("batch_stats"):
+            arr = float32_to_bf16_bits(arr.astype(np.float32))
+            bf16_keys.append(key)
+        arrays[key] = arr
+    arrays["__meta__"] = np.frombuffer(json.dumps({"bfloat16": bf16_keys}).encode(), np.uint8)
+    np.savez(path + ".npz", **arrays)
+    return path + ".npz"
+
+
+def save_checkpoint(path: str, state, config: Mapping[str, Any] | None = None) -> None:
+    """Write ``state`` (a ``train.trainer.DiffusionTrainState``) as
+    ``<path>.pt`` (full state), ``<path>.npz`` (JAX weights) and
+    ``<path>.json`` (the sidecar: ``config`` and empty ``metadata``)."""
+    path = _abspath(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.pt.{os.getpid()}.tmp"
+    torch.save(state.state_dict(), tmp)
+    os.replace(tmp, path + ".pt")  # atomic: a reader sees the old file or the new one
+    save_weights(path, state.jax_weights())
+    sidecar = {"config": dict(config or {}), "metadata": {}}
+    with open(path + ".json", "w") as f:
+        json.dump(sidecar, f, indent=2, default=str)
+
+
+def restore_checkpoint(path: str, state) -> None:
+    """Load ``<path>.pt`` into ``state`` in place (model, optimizer, EMA,
+    step and generators), for an exact resume."""
+    state.load_state_dict(torch.load(_abspath(path) + ".pt", weights_only=True))

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX variable trees (flattened npz keys) -> port ``state_dict``.
+"""Weight bridge between JAX variable trees (flattened npz keys) and the
+port's ``state_dict``s.
 
 Layout rules, JAX -> PyTorch:
 
@@ -14,6 +15,12 @@ Layout rules, JAX -> PyTorch:
 - Spectral-norm ``u`` vectors -> the ``u`` buffers of
   ``nn.layers.SpectralNorm``. The stored ``sigma`` is dropped: flax
   recomputes sigma from ``u`` on every call and never reads it.
+- Embedding ``embedding`` -> Embedding ``weight``.
+
+The UNet28's module names equal the JAX ones, so its bridge is by name in
+both directions: ``unet28_state_dict`` reads a JAX tree and ``jax_variables``
+writes one from any port model built of Conv2d, Linear, Embedding and
+BatchNorm2d.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import re
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def conv_weight(kernel: np.ndarray) -> torch.Tensor:
@@ -94,8 +102,79 @@ def conv_vae_state_dict(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
                 break
         else:
             raise KeyError(f"no ConvVAE state_dict slot for JAX key {key!r}")
+    return _with_bn_counters(out)
+
+
+def _with_bn_counters(out: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     # torch BatchNorm carries a step counter that flax has no counterpart
     # for; with a fixed momentum it is never read.
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    return out
+
+
+_COLLECTIONS = ("params", "ema_params", "batch_stats")
+
+
+def unet28_state_dict(
+    flat: dict[str, np.ndarray], params: str = "params"
+) -> dict[str, torch.Tensor]:
+    """Map a flattened JAX UNet28 variable tree to ``models.unet28.UNet28``'s
+    ``state_dict`` (float32 tensors on the CPU).
+
+    ``params`` names the collection that fills the parameters: ``params``,
+    or ``ema_params`` for a checkpoint's EMA shadow; the other one and the
+    top-level ``step`` are skipped. Raises ``KeyError`` on any other key.
+    """
+    out: dict[str, torch.Tensor] = {}
+    for key, arr in flat.items():
+        if key == "step":
+            continue
+        collection, *path, leaf = key.split("/") if "/" in key else (key, key)
+        if collection in _COLLECTIONS and collection not in (params, "batch_stats"):
+            continue
+        if collection not in _COLLECTIONS or not path:
+            raise KeyError(f"no UNet28 state_dict slot for JAX key {key!r}")
+        arr = np.asarray(arr, np.float32)
+        port = ".".join(path)
+        if leaf == "kernel":
+            convert = conv_weight if arr.ndim == 4 else dense_weight
+            out[f"{port}.weight"] = convert(arr)
+        elif leaf == "embedding":
+            out[f"{port}.weight"] = _vector(arr)
+        elif leaf in _BN_NAMES:
+            out[f"{port}.{_BN_NAMES[leaf]}"] = _vector(arr)
+        else:
+            raise KeyError(f"no UNet28 state_dict slot for JAX key {key!r}")
+    return _with_bn_counters(out)
+
+
+def jax_variables(
+    model: nn.Module, params: dict[str, torch.Tensor] | None = None
+) -> dict[str, np.ndarray]:
+    """The model's variables as ``{JAX key: float32 array}`` in flax's layout:
+    ``params/...`` and ``batch_stats/...``, the inverse of
+    ``unet28_state_dict``. ``params`` (port parameter name -> tensor, such as
+    an EMA shadow) replaces the model's own parameter values."""
+    values = {k: v.detach() for k, v in model.state_dict().items()}
+    values.update(params or {})
+    out: dict[str, np.ndarray] = {}
+    for name, module in model.named_modules():
+        path = name.replace(".", "/")
+
+        def put(collection: str, leaf: str, attr: str, layout=lambda a: a) -> None:
+            arr = values[f"{name}.{attr}"].float().cpu().numpy()
+            out[f"{collection}/{path}/{leaf}"] = np.ascontiguousarray(layout(arr))
+
+        if isinstance(module, (nn.Conv2d, nn.Linear)):
+            to_flax = (lambda a: a.transpose(2, 3, 1, 0)) if isinstance(module, nn.Conv2d) else np.transpose
+            put("params", "kernel", "weight", to_flax)
+            put("params", "bias", "bias")
+        elif isinstance(module, nn.Embedding):
+            put("params", "embedding", "weight")
+        elif isinstance(module, nn.BatchNorm2d):
+            put("params", "scale", "weight")
+            put("params", "bias", "bias")
+            put("batch_stats", "mean", "running_mean")
+            put("batch_stats", "var", "running_var")
     return out

@@ -88,6 +88,20 @@ def build() -> Build:
     return Build(lib, seconds, log)
 
 
+_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+
+# The ctypes signature of every ``extern "C"`` launcher in ``csrc/``. Each
+# returns its launch's cudaError_t as an int. Without argtypes ctypes would
+# pass every Python int as a 32-bit C int and cut the pointers, so
+# ``library()`` declares them all from this one table, and a test checks that
+# it names every launcher the sources define.
+SIGNATURES: dict[str, tuple] = {
+    # qt, kt, vt, out, lse, batch, n, d, c, stream
+    "tdt_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x0, t, sqrt_abar, sqrt_1m_abar, xt, z, batch, feat, num_timesteps, seed, stream
+    "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _U64, _P),
+}
+
 _lib: ctypes.CDLL | None = None
 
 
@@ -96,8 +110,9 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build().path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tdt_flash_fwd_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        lib.tdt_flash_fwd_f32.restype = i
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = _I
         _lib = lib
     return _lib
