@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through their entry points and holds every
+Drives the port's three paths through their entry points and holds every
 hand-written kernel on them against its plain PyTorch version: serving the
-256x256 LAION conv beta-VAE (``checkpoints/vae_laion_best``), and the
-UNet28 MNIST DDPM main path (train, sample, checkpoint: the port's
-``experiments/diffusion.run``). Phases, one JSON line each:
+256x256 LAION conv beta-VAE (``checkpoints/vae_laion_best``), the UNet28
+MNIST DDPM main path (train, sample, checkpoint: the port's
+``experiments/diffusion.run``) and training the conv-VAE (the port's
+``experiments/vae_laion.run``). Phases, one JSON line each:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the kernels, built with one nvcc call from
@@ -39,12 +40,26 @@ UNet28 MNIST DDPM main path (train, sample, checkpoint: the port's
    ``diffusion_final`` through the seam: losses and the direction of the
    weights' update;
 9. sample: the 1000-step DDPM from ``diffusion_final``, 16 samples;
-10. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+10. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
+    at each flash site (B = 4) and at a ragged N, dq, dk and dv; two calls
+    bit-equal; the times of kernel, plain version and the backward of
+    ``scaled_dot_product_attention`` (a yardstick only);
+11. flash_autograd: gradients through ``flash_attention_unscaled_t`` (the
+    autograd Function over both kernels) on the card against the CPU;
+12. vae_train: the conv-VAE's ``run()`` at full width (256x256, batch 4,
+    float32, clip 10, Adam 1e-4), 2 epochs of 20 steps and 2 val batches,
+    outputs in temporary directories; launches counted over the run
+    (flash backward = 3 a step); the loss and its components finite; warm
+    step time, images/s and peak memory;
+13. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
+    B = 2) on the card against the CPU, cuDNN deterministic: loss
+    components, gradients, params, BN statistics, spectral-norm u and sigma;
+14. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds phases before the last two lines: ``torch.profiler`` over
-one warm reconstruct and one prior decode, over 5 warm train steps and over
-20 sampler steps, each with device time by kernel and the device's busy
-share of the window.
+one warm reconstruct and one prior decode, over 5 warm UNet28 train steps,
+over 20 sampler steps and over 3 warm conv-VAE train steps, each with device
+time by kernel and the device's busy share of the window.
 
 Any failure raises and the exit code is non-zero. Without a CUDA card it
 exits 1 before printing any result. Imports nothing of JAX.
@@ -68,7 +83,9 @@ from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.laion import synthesize_image
 from tinydiffusion_torch.experiments.common import load_unet28, make_sampler
 from tinydiffusion_torch.experiments.diffusion import DiffusionConfig, run
+from tinydiffusion_torch.experiments import vae_laion
 from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct, sample_prior
+from tinydiffusion_torch.models.vae_conv import PerceptualNet
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.ops import _build, attention, qsample
 from tinydiffusion_torch.train.trainer import create_train_state, make_train_step
@@ -86,6 +103,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # summation order and exp2 vs exp, ~1e-6 relative on logits of |s| <= ~15.
 # The bound is the JAX package's own flash-vs-dense tolerance.
 KERNEL_ATOL, KERNEL_RTOL = 2e-4, 5e-4
+# Backward kernel vs plain version, both float32 on the card: summation
+# order over up to N = 16384 terms and exp2 vs exp. The bound is the JAX
+# package's flash-gradient tolerance (tests/test_flash_attention.py).
+BWD_ATOL, BWD_RTOL = 5e-4, 1e-3
 # Card vs CPU reconstruction, both float32 with TF32 off: only summation
 # order differs, through ~30 layers; outputs are sigmoids in [0, 1].
 CARD_VS_CPU_ATOL = 1e-3
@@ -125,6 +146,20 @@ UNET_PARITY_BATCH, CHAIN_T, CHAIN_N = 8, 20, 2
 # update); gradients of the wrong sign give a cosine near -1.
 BF16_STEPS, BF16_BATCH = 3, 128
 BF16_LOSS_RTOL, BF16_MIN_UPDATE_COS = 0.02, 0.9
+# Conv-VAE training at the published recipe (256x256, batch 4, float32,
+# clip 10, Adam 1e-4, seeded perceptual net): 88 records leave 80 for
+# training (20 steps an epoch) and 8 for validation (2 batches), 2 epochs.
+VAE_RECORDS, VAE_EPOCHS = 88, 2
+# One clip(10) + SGD step from vae_laion_best, the card against the port on
+# the CPU, float32 with TF32 off and cuDNN deterministic: only the order of
+# sums differs. Loss components relative; each gradient tensor by its
+# relative Frobenius error (train-mode BatchNorms at batch 2 and the
+# attention's cancelling sums amplify summation-order differences, as in
+# tests/test_torch_vae_train.py); params after the step absolute (lr 1e-3
+# times a clipped gradient); BN statistics and spectral-norm u relative.
+VAE_PARITY_BATCH, VAE_PARITY_LR = 2, 1e-3
+VAE_LOSS_RTOL, VAE_GRAD_REL_ERR = 1e-4, 1.5e-2
+VAE_PARAM_ATOL, VAE_STATS_RTOL, VAE_STATS_ATOL = 1e-5, 1e-4, 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -152,6 +187,98 @@ def flash_bound_ms(b: int, n: int, d: int, c: int) -> tuple[float, str]:
     nbytes = 4.0 * b * n * (2 * d + c + c + 1)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bwd_bound_ms(b: int, n: int, d: int, c: int) -> tuple[float, str]:
+    """Least time of the backward on an H100: larger of FLOPs and bytes over
+    peak. Per (query, key) pair: the logit (D), dv (C), dp (C), dk (D) and
+    dq (D) products; the exp and ds are small beside them."""
+    flops = 2.0 * b * n * n * (3 * d + 2 * c)
+    # read qt, kt, vt, dOt, lse, delta once; write dqt, dkt, dvt once (float32)
+    nbytes = 4.0 * b * n * ((2 * d + 2 * c + 2) + (2 * d + c))
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _attention_operands(rng, b: int, n: int, d: int, c: int):
+    """qt, kt (B, D, N), vt (B, C, N) on the card: q, k ~ N(0, a^2) with
+    a^2 = 2 / sqrt(D), so logits have std 2 and their extremes over B*N^2
+    pairs reach +-10 and beyond, as the model's do."""
+    a = (2.0 / d**0.5) ** 0.5
+    qt, kt = (torch.from_numpy(a * rng.standard_normal((b, d, n), np.float32)).cuda()
+              for _ in range(2))
+    vt = torch.from_numpy(rng.standard_normal((b, c, n), np.float32)).cuda()
+    return qt, kt, vt
+
+
+def phase_flash_bwd_kernel() -> list[dict]:
+    """The CUDA backward against ``flash_bwd_reference`` at each flash site
+    (B = 4), with the forward's own lse and a random output gradient; two
+    calls bit-equal; a ragged N; kernel, plain and SDPA-backward times."""
+    rng = np.random.default_rng(SEED + 11)
+    sites = []
+    for n, d, c in KERNEL_SITES + ((1000, 4, 32),):
+        b = KERNEL_BATCH if n != 1000 else 1  # N = 1000: keys and queries past a block
+        qt, kt, vt = _attention_operands(rng, b, n, d, c)
+        out_t, lse = attention.flash_fwd_reference(qt, kt, vt)
+        dot = torch.from_numpy(rng.standard_normal((b, c, n), np.float32)).cuda()
+        delta = (dot * out_t).sum(1, keepdim=True)
+        args = (qt, kt, vt, dot, lse, delta)
+        got = attention.flash_bwd(*args)
+        again = attention.flash_bwd(*args)
+        want = attention.flash_bwd_reference(*args)
+        torch.cuda.synchronize()
+        names = ("dq", "dk", "dv")
+        errs = {name: (g - w).abs().max().item() for name, g, w in zip(names, got, want)}
+        scale = {name: w.abs().max().item() for name, w in zip(names, want)}
+        deterministic = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        site = {"B": b, "N": n, "D": d, "C": c, "max_abs_err": max(errs.values()),
+                "errs": errs, "max_abs_ref": scale, "bit_equal_over_two_calls": deterministic}
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=BWD_RTOL)
+        if not deterministic:
+            raise RuntimeError(f"flash_bwd kernel: two calls differ at N = {n}")
+        if n != 1000:
+            q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous().requires_grad_()
+                          for x in (qt, kt, vt))
+            g4 = dot.transpose(1, 2).unsqueeze(1).contiguous()
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)  # outside the timing
+            site["ms"] = cuda_ms(lambda: attention.flash_bwd(*args), iters=10)
+            site["plain_ms"] = cuda_ms(lambda: attention.flash_bwd_reference(*args), iters=3)
+            site["library_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), iters=3)
+            site["bound_ms"], site["bound_by"] = flash_bwd_bound_ms(b, n, d, c)
+            site["roofline_share"] = site["bound_ms"] / site["ms"]
+            del q4, k4, v4, g4, o4
+        emit("flash_bwd_kernel", name="flash_bwd", atol=BWD_ATOL, rtol=BWD_RTOL, **site)
+        sites.append(site)
+        del qt, kt, vt, dot, out_t, lse, delta, got, again, want
+        torch.cuda.empty_cache()
+    return sites
+
+
+def phase_flash_autograd() -> dict:
+    """Gradients through ``flash_attention_unscaled_t`` (the autograd
+    Function over both kernels) on the card against the port on the CPU."""
+    rng = np.random.default_rng(SEED + 12)
+    errs = {}
+    for b, (n, d, c) in zip((1, 2), KERNEL_SITES):
+        qt, kt, vt = (x.cpu() for x in _attention_operands(rng, b, n, d, c))
+        g = torch.from_numpy(rng.standard_normal((b, c, n), np.float32))
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            leaves = [x.to(dev).requires_grad_() for x in (qt, kt, vt)]
+            before = attention.flash_bwd_launches
+            out = attention.flash_attention_unscaled_t(*leaves)
+            out.backward(g.to(dev))
+            if dev == "cuda" and attention.flash_bwd_launches != before + 1:
+                raise RuntimeError("flash_attention_unscaled_t's backward skipped the kernel")
+            grads[dev] = [x.grad.cpu() for x in leaves]
+        for name, a, w in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
+            torch.testing.assert_close(a, w, atol=BWD_ATOL, rtol=BWD_RTOL)
+            errs[f"N{n}_{name}"] = (a - w).abs().max().item()
+    emit("flash_autograd", atol=BWD_ATOL, rtol=BWD_RTOL, **errs)
+    return errs
 
 
 def phase_device() -> dict:
@@ -301,11 +428,13 @@ def phase_slice() -> int:
 
 def _reset_launches() -> None:
     attention.flash_fwd_launches = 0
+    attention.flash_bwd_launches = 0
     qsample.qsample_launches = 0
 
 
 def _launches() -> dict:
-    return {"flash_fwd": attention.flash_fwd_launches, "qsample": qsample.qsample_launches}
+    return {"flash_fwd": attention.flash_fwd_launches, "flash_bwd": attention.flash_bwd_launches,
+            "qsample": qsample.qsample_launches}
 
 
 def qsample_bound_ms(b: int, feat: int, num_timesteps: int) -> tuple[float, str]:
@@ -377,10 +506,7 @@ def phase_train(compute_dtype: str, data_root: str) -> dict:
             out_dir=os.path.join(tmp, "out"), checkpoint_path=os.path.join(tmp, "ckpt"),
             device="cuda",
         )
-        # The TF32 flags as a fresh process has them (the VAE phase turned
-        # them off): run() must turn them off itself.
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = False
+        _set_default_tf32()  # the VAE phase turned them off; run() must itself
         # The main path, with the kernel launches counted over exactly this run.
         torch.cuda.synchronize()
         _reset_launches()
@@ -536,6 +662,133 @@ def phase_sample() -> dict:
     return fields
 
 
+def _set_default_tf32() -> None:
+    """The TF32 flags as a fresh process has them: a run must turn them off itself."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_vae_train() -> dict:
+    """The conv-VAE's ``run()`` at full width on the card, with the kernel
+    launches counted over exactly that run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        config = vae_laion.VAELaionConfig(
+            n_records=VAE_RECORDS, epochs=VAE_EPOCHS, log_interval=10,
+            out_dir=os.path.join(tmp, "out"), checkpoint_dir=os.path.join(tmp, "ckpt"),
+            device="cuda")
+        _set_default_tf32()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = vae_laion.run(config)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if torch.backends.cudnn.allow_tf32:
+            raise RuntimeError("vae_train: run() left cuDNN's TF32 on")
+        steps = result["state"].step
+        per_epoch = VAE_RECORDS - VAE_RECORDS // 10
+        if steps != VAE_EPOCHS * (per_epoch // config.batch_size):
+            raise RuntimeError(f"vae_train: {steps} steps")
+        if launches["flash_bwd"] != 3 * steps or launches["flash_fwd"] < 3 * steps:
+            raise RuntimeError(f"vae_train: {steps} steps, launches {launches}")
+        if launches["qsample"]:
+            raise RuntimeError("vae_train: the conv-VAE path launched the q_sample kernel")
+        with open(os.path.join(config.out_dir, "vae_laion", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        batches = [r for r in records if "bce" in r]
+        epochs = [r for r in records if "test_loss" in r]
+        keys = ("batch_train_loss", "bce", "perceptual", "kld", "logvar_max", "mu_absmax")
+        values = [r[k] for r in batches for k in keys] + [r["test_loss"] for r in epochs]
+        if not batches or len(epochs) != VAE_EPOCHS or not np.all(np.isfinite(values)):
+            raise RuntimeError(f"vae_train: metrics {records}")
+        want = [os.path.join(config.out_dir, name) for name in (
+            "generated_samples.png", *(f"original_vs_reconstructed_epoch_{e}.png"
+                                       for e in range(1, VAE_EPOCHS + 1)))]
+        want += [os.path.join(config.checkpoint_dir, "vae_laion_best" + ext)
+                 for ext in (".pt", ".npz", ".json")]
+        missing = [os.path.relpath(p, tmp) for p in want if not os.path.getsize(p) > 0]
+        if missing:
+            raise RuntimeError(f"vae_train: missing outputs {missing}")
+        warm = result["epochs"][-1]
+        fields = {
+            "image_size": config.image_size, "batch": config.batch_size, "steps": steps,
+            "launches": launches, "wall_s": wall_s,
+            "warm_step_ms": 1e3 * warm["train_seconds"] / warm["steps"],
+            "warm_images_per_sec": warm["images_per_sec"],
+            "first_epoch_images_per_sec": result["epochs"][0]["images_per_sec"],
+            "first_loss": batches[0]["batch_train_loss"],
+            "last_loss": batches[-1]["batch_train_loss"],
+            "components_last": {k: batches[-1][k] for k in keys[1:]},
+            "test_losses": result["test_losses"], "peak_mem_gib": peak_gib,
+        }
+    emit("vae_train", **fields)
+    return fields
+
+
+def _frobenius_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+
+def phase_vae_train_parity() -> dict:
+    """One clip + SGD step from ``vae_laion_best`` at 256x256 (B = 2), the
+    same x and eps: the card against the port on the CPU."""
+    rng = np.random.default_rng(SEED + 13)
+    x = _nchw(np.stack([synthesize_image(i, 256)[0] for i in range(VAE_PARITY_BATCH)]))
+    eps = torch.from_numpy(rng.standard_normal((VAE_PARITY_BATCH, 128), np.float32))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the card's convolutions, reproducibly
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = load_conv_vae(CHECKPOINT, device=dev)
+            state = vae_laion.create_train_state(
+                model, torch.optim.SGD(model.parameters(), lr=VAE_PARITY_LR), SEED)
+            step = vae_laion.make_conv_vae_train_step(PerceptualNet().to(dev), 1.0, 10.0)
+            before = attention.flash_bwd_launches
+            loss, comps = step(state, x.to(dev), eps=eps.to(dev))
+            if dev == "cuda" and attention.flash_bwd_launches != before + 3:
+                raise RuntimeError("vae_train_parity: the card's step skipped the flash backward")
+            out[dev] = {
+                "loss": loss.item(), "comps": {k: v.item() for k, v in comps.items()},
+                "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+                "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                "stats": {n: b.cpu() for n, b in model.named_buffers()
+                          if n.endswith(("running_mean", "running_var", ".u", ".sigma"))},
+            }
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    card, cpu = out["cuda"], out["cpu"]
+    errs = {"loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])}
+    for k, v in cpu["comps"].items():
+        errs[f"{k}_rel"] = abs(card["comps"][k] - v) / max(abs(v), 1e-30)
+    # key biases: softmax ignores a shift of every key, so their gradient is
+    # 0 and both sides hold rounding noise; the params after the step hold them.
+    grad_errs = {n: _frobenius_rel(card["grads"][n], g) for n, g in cpu["grads"].items()
+                 if not n.endswith("key.bias")}
+    errs["grad_rel_max"] = max(grad_errs.values())
+    errs["grad_rel_argmax"] = max(grad_errs, key=grad_errs.get)
+    errs["params_max_abs"] = max((card["params"][n] - p).abs().max().item()
+                                 for n, p in cpu["params"].items())
+    errs["stats_max_excess"] = max(
+        ((card["stats"][n] - b).abs() / (VAE_STATS_ATOL + VAE_STATS_RTOL * b.abs())).max().item()
+        for n, b in cpu["stats"].items())
+    ok = (max(v for k, v in errs.items() if k.endswith("_rel")) <= VAE_LOSS_RTOL
+          and errs["grad_rel_max"] <= VAE_GRAD_REL_ERR
+          and errs["params_max_abs"] <= VAE_PARAM_ATOL and errs["stats_max_excess"] <= 1.0)
+    fields = {"batch": VAE_PARITY_BATCH, "image_size": 256,
+              "loss": {d: out[d]["loss"] for d in out},
+              "loss_rtol": VAE_LOSS_RTOL, "grad_rel_err": VAE_GRAD_REL_ERR,
+              "param_atol": VAE_PARAM_ATOL, "stats_rtol": VAE_STATS_RTOL,
+              "stats_atol": VAE_STATS_ATOL, "cudnn_deterministic": True, **errs}
+    if not ok:
+        raise RuntimeError(f"conv-VAE step on the card vs the CPU: {fields}")
+    emit("vae_train_parity", **fields)
+    return fields
+
+
 def _profile_window(name: str, fn, **fields) -> None:
     """Device time by kernel over one warm call of ``fn``, and the device's
     busy share of the window."""
@@ -564,9 +817,10 @@ def _profile_window(name: str, fn, **fields) -> None:
 
 
 def phase_profile() -> None:
-    """Three windows: one warm reconstruct + one prior decode of the conv-VAE;
+    """Four windows: one warm reconstruct + one prior decode of the conv-VAE;
     5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample); 20 steps
-    of the fp32 DDPM sampler (16 samples)."""
+    of the fp32 DDPM sampler (16 samples); 3 warm conv-VAE train steps
+    (256x256, batch 4, fp32, Adam) from ``vae_laion_best``."""
     model = load_conv_vae(CHECKPOINT, device="cuda")
     x01, eps, gen = _requests(model)
     _profile_window("vae_requests", lambda: (reconstruct(model, x01, eps),
@@ -582,6 +836,13 @@ def phase_profile() -> None:
     sampler = make_sampler(unet, DiffusionSchedule.linear(20).to("cuda"), (16, 1, 28, 28))
     sample_gen = torch.Generator("cuda").manual_seed(SEED)
     _profile_window("sampler_steps", lambda: sampler(sample_gen), steps=20)
+
+    vae = load_conv_vae(CHECKPOINT, device="cuda")
+    vae_state = vae_laion.create_train_state(vae, vae_laion.make_optimizer(vae, 1e-4), SEED)
+    vae_step = vae_laion.make_conv_vae_train_step(PerceptualNet().cuda(), 1.0, 10.0)
+    x = _nchw(np.stack([synthesize_image(i, 256)[0] for i in range(4)])).cuda()
+    _profile_window("vae_train_steps", lambda: [vae_step(vae_state, x) for _ in range(3)],
+                    steps=3, batch=4)
 
 
 def main() -> int:
@@ -608,6 +869,10 @@ def main() -> int:
     phase_unet_parity()
     phase_train_step_bf16()
     phase_sample()
+    bwd_sites = phase_flash_bwd_kernel()
+    phase_flash_autograd()
+    vae = phase_vae_train()
+    phase_vae_train_parity()
     main_site = sites[0]  # N = 16384: the largest share of the kernel's work
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -616,7 +881,9 @@ def main() -> int:
             "route": "cuda",
             "source": "tinydiffusion_torch/ops/csrc/flash_fwd.cu",
             "replaces": "tinydiffusion_tpu/ops/attention.py:113",
+            # The serving path's run; the training run's count beside it.
             "launches": launches,
+            "launches_vae_train": vae["launches"]["flash_fwd"],
             "max_abs_err": max(s["max_abs_err"] for s in sites),
             **{k: main_site[k] for k in keys},
             "sites": sites,
@@ -631,6 +898,16 @@ def main() -> int:
             "launches_float32_run": trains[1]["launches"]["qsample"],
             "max_abs_err": qsample_site["max_abs_err"],
             **{k: qsample_site[k] for k in keys},
+        },
+        {
+            "name": "flash_bwd",
+            "route": "cuda",
+            "source": "tinydiffusion_torch/ops/csrc/flash_bwd.cu",
+            "replaces": "tinydiffusion_tpu/ops/attention.py:193",
+            "launches": vae["launches"]["flash_bwd"],
+            "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
+            **{k: bwd_sites[0][k] for k in keys},  # N = 16384
+            "sites": bwd_sites,
         },
     ]
     if args.profile:

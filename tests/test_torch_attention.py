@@ -8,6 +8,7 @@ kernel itself is held against the same plain version on the card by
 ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,3 +134,151 @@ def test_flash_fwd_raises_on_a_device_it_has_no_path_for():
     qt, kt, vt = (torch.empty(s, device="meta") for s in ((1, 4, 64), (1, 4, 64), (1, 32, 64)))
     with pytest.raises(ValueError, match="cuda or cpu"):
         attention.flash_fwd(qt, kt, vt)
+
+
+# --- the backward ---------------------------------------------------------------
+
+# The JAX package's own flash-gradient bar (tests/test_flash_attention.py):
+# its backward kernel's bf16x3 logits against the port's float32.
+GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3
+# The Function against autograd of the port's own dense attention, both
+# float32 torch on the CPU: only the order of the sums differs.
+SAME_ATOL, SAME_RTOL = 1e-5, 1e-5
+
+
+@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+def test_flash_bwd_matches_jax_bwd(d, c):
+    """The plain backward (what a CPU tensor runs) against JAX's ``_bwd``
+    (its fused Pallas kernel in interpret mode) on JAX's own residuals."""
+    q, k, v = _qkv(2, 2048, d, c, seed=20 + d)
+    qt, kt, vt = (jnp.asarray(_t(x)) for x in (q, k, v))
+    g = np.random.default_rng(30 + d).standard_normal((2, c, 2048)).astype(np.float32)
+    out_t, lse = jax_attention._fwd(qt, kt, vt, 512, 1024)
+    want = jax_attention._bwd(512, 1024, (qt, kt, vt, out_t, lse), jnp.asarray(g))
+    port = [torch.from_numpy(np.array(x)) for x in (qt, kt, vt, out_t, lse)]
+    delta = (torch.from_numpy(g) * port[3]).sum(1, keepdim=True)
+    got = attention.flash_bwd(*port[:3], torch.from_numpy(g), port[4], delta)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("entry", ["bnd", "bdn"])
+@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+def test_flash_grads_match_jax_grad(entry, d, c, monkeypatch):
+    """Gradients through both entry points (the autograd Function over
+    ``flash_fwd`` and ``flash_bwd``) against ``jax.grad`` of JAX's ``_flash``
+    and ``flash_attention_unscaled_t``, at N = 2048: flash on both sides."""
+    q, k, v = _qkv(2, 2048, d, c, seed=40 + d)
+    g = np.random.default_rng(50 + d).standard_normal((2, 2048, c)).astype(np.float32)
+
+    def no_dense(*args):
+        raise AssertionError("flash dispatch expected")
+
+    calls = []
+    flash_bwd = attention.flash_bwd
+    monkeypatch.setattr(attention, "_dense", no_dense)
+    monkeypatch.setattr(attention, "_dense_t", no_dense)
+    monkeypatch.setattr(attention, "flash_bwd", lambda *a: calls.append(1) or flash_bwd(*a))
+    if entry == "bnd":
+        args, g_in = (q, k, v), g
+        jax_fn = lambda *a: jax_attention._flash(*a, 512, 1024)  # noqa: E731
+        port_fn = attention.flash_attention_unscaled
+    else:
+        args, g_in = tuple(_t(x) for x in (q, k, v)), _t(g)
+        jax_fn = jax_attention.flash_attention_unscaled_t
+        port_fn = attention.flash_attention_unscaled_t
+    want = jax.grad(lambda *a: jnp.sum(jax_fn(*a) * g_in), argnums=(0, 1, 2))(
+        *map(jnp.asarray, args))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in args]
+    (port_fn(*leaves) * torch.from_numpy(g_in)).sum().backward()
+    assert calls == [1]
+    for name, leaf, b in zip(("dq", "dk", "dv"), leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(b), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_flash_function_matches_autograd_of_dense_attention():
+    """N = 256 (which the dispatch sends dense): the Function's gradients
+    against autograd through the port's ``_dense_t``."""
+    qt, kt, vt = (torch.from_numpy(_t(x)) for x in _qkv(2, 256, 4, 32, seed=60))
+    g = torch.from_numpy(np.random.default_rng(61).standard_normal((2, 32, 256))
+                         .astype(np.float32))
+    grads = []
+    for fn in (attention._FlashT.apply, attention._dense_t):
+        leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+        out = fn(*leaves)
+        (out * g).sum().backward()
+        grads.append((out.detach(), [x.grad for x in leaves]))
+    (out_f, grads_f), (out_d, grads_d) = grads
+    torch.testing.assert_close(out_f, out_d, atol=SAME_ATOL, rtol=SAME_RTOL)
+    for a, b in zip(grads_f, grads_d):
+        torch.testing.assert_close(a, b, atol=SAME_ATOL, rtol=SAME_RTOL)
+
+
+def test_cpu_backward_runs_the_plain_version_and_counts_no_launch():
+    qt, kt, vt = (torch.from_numpy(_t(x)) for x in _qkv(1, 2048, 4, 32, seed=62))
+    out, lse = attention.flash_fwd(qt, kt, vt)
+    dot = torch.randn_like(out)
+    delta = (dot * out).sum(1, keepdim=True)
+    before = attention.flash_bwd_launches
+    got = attention.flash_bwd(qt, kt, vt, dot, lse, delta)
+    want = attention.flash_bwd_reference(qt, kt, vt, dot, lse, delta)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert attention.flash_bwd_launches == before
+
+
+def test_backward_reference_chunking_does_not_change_the_result():
+    qt, kt, vt = (torch.from_numpy(_t(x)) for x in _qkv(1, 1000, 4, 32, seed=63))
+    out, lse = attention.flash_fwd_reference(qt, kt, vt)
+    dot = torch.randn_like(out)
+    delta = (dot * out).sum(1, keepdim=True)
+    a = attention.flash_bwd_reference(qt, kt, vt, dot, lse, delta, block_q=1000)
+    b = attention.flash_bwd_reference(qt, kt, vt, dot, lse, delta, block_q=96)  # ragged block
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["dot", "lse", "delta", "device"])
+def test_flash_bwd_rejects_mismatched_operands(bad):
+    qt, kt, vt = torch.zeros(2, 4, 64), torch.zeros(2, 4, 64), torch.zeros(2, 32, 64)
+    dot, lse, delta = torch.zeros(2, 32, 64), torch.zeros(2, 1, 64), torch.zeros(2, 1, 64)
+    if bad == "dot":
+        dot = torch.zeros(2, 32, 32)
+    elif bad == "lse":
+        lse = torch.zeros(2, 64)
+    elif bad == "delta":
+        delta = torch.zeros(1, 1, 64)
+    else:
+        qt, kt, vt, dot, lse, delta = (x.to("meta") for x in (qt, kt, vt, dot, lse, delta))
+    with pytest.raises(ValueError):
+        attention.flash_bwd(qt, kt, vt, dot, lse, delta)
+
+
+# --- _dense_t rounds the weights as JAX does ------------------------------------
+
+
+def test_bf16_dense_t_rounds_the_weights_like_jax():
+    """bf16 q/k/v at N = 1024 (the dense site dec_attn0 of a bf16 model):
+    JAX rounds the softmax weights to bf16 before the value product, which
+    accumulates in float32. The port's ``_dense_t`` does the same, so the
+    bf16 outputs agree but for the few whose float32 sums, taken in another
+    order, round across a bf16 boundary. Without the rounding (the old
+    expression) ~40 % of the outputs miss by up to a bf16 ulp."""
+    q, k, v = _qkv(2, 1024, 4, 32, seed=70)
+    qb, kb, vb = (jnp.asarray(_t(x)).astype(jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jax_attention._dense_t(qb, kb, vb).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+                  for x in (qb, kb, vb))
+
+    def missed(got: torch.Tensor) -> float:
+        """Share of outputs more than half a bf16 ulp (2^-8 relative) off."""
+        diff = np.abs(got.float().numpy() - want)
+        return float((diff > 2.0**-8 * np.abs(want) + 1e-6).mean())
+
+    got = attention._dense_t(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and missed(got) <= 0.005
+    attn = torch.softmax(torch.matmul(tq.float().transpose(1, 2), tk.float()), dim=-1)
+    old = torch.matmul(tv.float(), attn.transpose(1, 2)).to(tv.dtype)
+    assert missed(old) > 0.1

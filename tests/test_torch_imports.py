@@ -6,7 +6,8 @@ stands in for that machine on the CPU: a subprocess whose import system
 refuses those packages (and ``tinydiffusion_tpu``) imports every module of
 ``tinydiffusion_torch`` and ``chip_smoke``, then loads a conv-VAE from an npz
 of random weights and serves it on ``device="cpu"``; another trains, samples
-and checkpoints a small UNet28 on the CPU.
+and checkpoints a small UNet28 on the CPU; a third trains the conv-VAE for
+two steps through its ``run``.
 """
 
 import json
@@ -132,6 +133,22 @@ _CHILD_TRAIN = _REFUSE + textwrap.dedent("""
 """)
 
 
+# Two train steps of the conv-VAE at 64x64 through ``run`` (data, step,
+# eval, checkpoint, samples), on the CPU.
+_CHILD_VAE_TRAIN = _REFUSE + textwrap.dedent("""
+    from tinydiffusion_torch.experiments.vae_laion import VAELaionConfig, run
+
+    path = sys.argv[1]
+    result = run(VAELaionConfig(image_size=64, n_records=12, batch_size=2, epochs=1,
+                                max_steps_per_epoch=2, out_dir=path + "/out",
+                                checkpoint_dir=path + "/ckpt", device="cpu"))
+    assert result["state"].step == 2, result["state"].step
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
 def _run_isolated(child: str, path: str, cwd: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -155,3 +172,10 @@ def test_port_trains_and_samples_without_the_jax_stack(tmp_path):
     _run_isolated(_CHILD_TRAIN, path, str(tmp_path))
     for ext in (".pt", ".npz", ".json"):
         assert os.path.getsize(path + ext) > 0
+
+
+def test_port_trains_the_conv_vae_without_the_jax_stack(tmp_path):
+    _run_isolated(_CHILD_VAE_TRAIN, str(tmp_path), str(tmp_path))
+    for ext in (".pt", ".npz", ".json"):
+        assert os.path.getsize(tmp_path / "ckpt" / f"vae_laion_best{ext}") > 0
+    assert os.path.getsize(tmp_path / "out" / "generated_samples.png") > 0

@@ -1,12 +1,16 @@
-"""The port's conv-VAE serving slice against the JAX package, on the CPU.
+"""The port's conv-VAE (layers, model, weights, serving) against the JAX
+package, on the CPU.
 
 Same weights in both packages (JAX variables flattened to the npz keys and
 carried across with ``conv_vae_state_dict``), same inputs and the same noise
 ``eps``, made with numpy. JAX's flash attention runs its Pallas kernel in
 interpret mode; the port's runs its plain version (the CUDA kernel is held
-against that plain version on the card by ``chip_smoke.py``).
+against that plain version on the card by ``chip_smoke.py``). The model's
+BatchNorms keep flax's running statistics (``nn.layers.BatchNorm2d``); the
+train-mode update is held here, the train step in ``test_torch_vae_train``.
 """
 
+import copy
 import os
 
 import flax.linen as flax_nn
@@ -30,7 +34,13 @@ from tinydiffusion_tpu.obs.images import make_grid as jax_make_grid
 from tinydiffusion_torch.data.laion import synthesize_image
 from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct
 from tinydiffusion_torch.io.checkpoint import load_weights_arrays
-from tinydiffusion_torch.io.from_jax import conv_transpose_weight, conv_vae_state_dict, conv_weight
+from tinydiffusion_torch.io.from_jax import (
+    conv_transpose_kernel,
+    conv_transpose_weight,
+    conv_vae_jax_variables,
+    conv_vae_state_dict,
+    conv_weight,
+)
 from tinydiffusion_torch.models.vae_conv import ConvVAE
 from tinydiffusion_torch.nn.layers import SpectralNorm
 from tinydiffusion_torch.obs.images import encode_png, make_grid
@@ -42,6 +52,12 @@ CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_laion_best")
 # One layer, float32 on both sides: XLA's and torch's convolutions sum in
 # different orders (~1e-6 relative on these widths).
 LAYER_ATOL, LAYER_RTOL = 1e-5, 1e-5
+# A kernel's gradient, summed over the 2 x 8 x 8 (or 16 x 16) positions of
+# an output of O(1): ~2e-6 relative to its largest element (~20).
+GRAD_ATOL = 5e-5
+# Running statistics after one train-mode forward, float32: the batch
+# moments of ~15 layers of activations, summed in different orders.
+STATS_RTOL, STATS_ATOL = 1e-4, 1e-5
 # A whole model, float32 on both sides: ~30 layers of summation-order
 # differences plus the JAX flash kernel's bf16x3 logits (~1e-4 on attention
 # outputs); mu/logvar are O(1-10), the images are sigmoids in [0, 1].
@@ -93,7 +109,8 @@ def _random_kernel(rng, shape):
 def test_layer_matches_flax(case):
     """flax ConvTranspose(4x4, stride 2, SAME) / SpectralNorm(Conv | ConvTranspose)
     against the port's layer, on random non-symmetric kernels. Spectral norm
-    also checks the train-mode ``u`` update."""
+    also checks the train-mode ``u`` and ``sigma`` update and the kernel's
+    gradient, which flax stops at ``u`` and ``v``."""
     rng = np.random.default_rng(1)
     cin, cout = 6, 5
     x = rng.standard_normal((2, 8, 8, cin)).astype(np.float32)  # NHWC
@@ -134,8 +151,28 @@ def test_layer_matches_flax(case):
         got = sn(xt)
         assert torch.equal(sn.u, torch.from_numpy(u)), "eval mode must not write u"
         sn.train()
-        sn(xt)
+        out = sn(xt)
         np.testing.assert_allclose(sn.u.numpy(), want_u, atol=LAYER_ATOL, rtol=LAYER_RTOL)
+        (want_sigma,) = [np.asarray(leaf) for path, leaf in _flat_items(mutated)[0].items()
+                         if path.endswith("/sigma")]
+        np.testing.assert_allclose(sn.sigma.numpy(), want_sigma, atol=LAYER_ATOL,
+                                   rtol=LAYER_RTOL)
+
+        g = rng.standard_normal(want.shape).astype(np.float32)
+
+        def loss(k):
+            with_k = jax.tree_util.tree_map_with_path(
+                lambda p, leaf: k if _norm_key(p).endswith("/kernel") else leaf, variables)
+            y, _ = wrapper.apply(with_k, jnp.asarray(x), update_stats=True,
+                                 mutable=["batch_stats"])
+            return jnp.sum(y * g)
+
+        want_grad = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(kernel)))
+        (out * torch.from_numpy(g).permute(0, 3, 1, 2)).sum().backward()
+        w_grad = torch_layer.weight.grad.numpy()
+        got_grad = (conv_transpose_kernel(w_grad) if transposed
+                    else w_grad.transpose(2, 3, 1, 0))
+        np.testing.assert_allclose(got_grad, want_grad, atol=GRAD_ATOL, rtol=LAYER_RTOL)
     np.testing.assert_allclose(
         got.detach().permute(0, 2, 3, 1).numpy(), want, atol=LAYER_ATOL, rtol=LAYER_RTOL)
 
@@ -159,7 +196,9 @@ def test_unflipped_transposed_kernel_would_be_caught():
 def small_vae():
     """JAX ConvVAE at image_size=128, randomly initialised, with gamma, the BN
     statistics and the attention logits made non-trivial; and the port's
-    ConvVAE with the same weights."""
+    ConvVAE with the same weights (BN statistics and spectral-norm ``u`` and
+    ``sigma`` included), in eval mode. Shared by the module: a test that
+    runs it in train mode works on a copy."""
     size = 128
     jmodel = JaxConvVAE(latent_dim=128, image_size=size)
     variables = jax.jit(lambda: jmodel.init(
@@ -209,6 +248,53 @@ def test_conv_vae_reconstruct_matches_jax(small_vae):
     np.testing.assert_allclose(
         got_logvar.numpy(), np.asarray(logvar), atol=MODEL_ATOL, rtol=MODEL_RTOL)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=IMAGE_ATOL)
+
+
+def test_use_flash_attention_false_runs_every_site_dense(small_vae, monkeypatch):
+    """As JAX's flag: no flash call at all, and the same images as the flash
+    model (both float32 torch: only the order of the sums differs)."""
+    _, _, model = small_vae
+    dense = ConvVAE(latent_dim=128, image_size=128, use_flash_attention=False)
+    dense.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 3, 128, 128)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((2, 128)).astype(np.float32))
+    want = reconstruct(model, x, eps)
+
+    def no_flash(*args):
+        raise AssertionError("dense attention expected")
+
+    monkeypatch.setattr(attention, "flash_fwd", no_flash)
+    got = reconstruct(dense.eval(), x, eps)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=LAYER_ATOL)
+
+
+def test_train_forward_updates_bn_and_sn_statistics_like_flax(small_vae):
+    """One train-mode forward: the port's BN running statistics (flax's:
+    momentum 0.9, the biased batch variance) and spectral-norm ``u`` and
+    ``sigma`` equal JAX's mutated ``batch_stats``. Torch's stock BatchNorm2d
+    moves ``running_var`` with the unbiased variance: at the 8x8 bottleneck
+    with B = 2 (128 values a channel) that is 0.1 * var / 127 too much."""
+    jmodel, variables, model = small_vae
+    rng = np.random.default_rng(9)
+    x = rng.uniform(0, 1, (2, 128, 128, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    _, mutated = jax.jit(lambda v, a: jmodel.apply(
+        v, a, key, train=True, mutable=["batch_stats"]))(variables, jnp.asarray(x))
+    want, _ = _flat_items({"batch_stats": mutated["batch_stats"]})
+    want_eps = np.asarray(jax.random.normal(key, (2, 128)))
+    port = copy.deepcopy(model).train()
+    with torch.no_grad():
+        port(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(want_eps.copy()))
+    got = conv_vae_jax_variables(port)
+    assert {k for k in got if k.startswith("batch_stats/")} == want.keys()
+    before = conv_vae_jax_variables(model)
+    for key_, value in want.items():
+        value = np.asarray(value)
+        np.testing.assert_allclose(got[key_], value, rtol=STATS_RTOL, atol=STATS_ATOL,
+                                   err_msg=key_)
+        if key_.endswith(("/mean", "/var")):  # every BN statistic moved, and the test saw it
+            assert not np.allclose(before[key_], value), key_
 
 
 def test_checkpoint_decode_matches_jax():

@@ -12,9 +12,9 @@ kernels (``ops/csrc``) are built with ``nvcc`` on their first launch.
 
 Ported so far: the main path, training and sampling the MNIST UNet28 DDPM
 (``experiments/diffusion.py``) with a CUDA fused q_sample
-(``ops/qsample.py``); and serving the LAION conv beta-VAE
-(``experiments/vae_laion.py``) with a CUDA flash-attention forward
-(``ops/attention.py``).
+(``ops/qsample.py``); and training and serving the LAION conv beta-VAE
+(``experiments/vae_laion.py``) with a CUDA flash-attention forward and
+backward (``ops/attention.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,35 +1,439 @@
-"""Serve the LAION conv beta-VAE: reconstruct images and decode prior samples.
+"""The LAION conv beta-VAE: train it, and serve it (reconstruct, decode prior samples).
 
-The serving subset of ``tinydiffusion_tpu/experiments/vae_laion.py`` and of
-the conv-VAE rows of ``tools/fid_eval_laion.py``: load the portable ``.npz``
-weights, reconstruct (encode -> reparameterize -> decode), and decode
-z ~ N(0, I). Training comes with a later slice.
+Counterpart of ``tinydiffusion_tpu/experiments/vae_laion.py`` and of the
+conv-VAE rows of ``tools/fid_eval_laion.py``. Reference recipe: 256x256
+images, batch 4, ``clip_by_global_norm(10)`` then Adam 1e-4, float32
+compute, ``BCE(sum) + 0.1 * perceptual MSE(sum) + beta * KLD``; all-zero
+batches skipped; a held-out 10 % split evaluated each epoch with an
+original-vs-reconstructed panel and the best checkpoint kept on its loss;
+16 prior samples at the end. Every flash-attention site of the train step
+runs the CUDA forward and backward kernels on a card
+(``ops.attention._FlashT``).
 
-Precision: the checkpoint was trained and is served in float32
-(``compute_dtype: float32`` in its sidecar). ``load_conv_vae`` therefore
-turns TF32 off for cuDNN convolutions and for matmuls when it loads onto a
-card (process-wide backend flags): PyTorch lets cuDNN convolve float32 in
-TF32 by default, which keeps only ~3 decimal digits.
+Run on the card (the default) or, when asked, on the CPU::
 
-Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
+    python -m tinydiffusion_torch.experiments.vae_laion --epochs 2 \\
+        --max-steps-per-epoch 3 --n-records 40 --image-size 128 \\
+        --out-dir /tmp/v --checkpoint-dir /tmp/v/ckpt [--device cpu]
 
-Usage::
+The flags are the JAX CLI's, plus ``--device``. Serving::
 
     model = load_conv_vae("checkpoints/vae_laion_best")
     recon = reconstruct(model, x01, eps)  # x01 (B, 3, 256, 256) in [0, 1]
     samples = sample_prior(model, 16, torch.Generator("cuda").manual_seed(0))
+
+Precision: the model is trained and served in float32, so on a card
+``run`` and ``load_conv_vae`` turn TF32 off for cuDNN convolutions and for
+matmuls (process-wide backend flags): PyTorch lets cuDNN convolve float32
+in TF32 by default, which keeps only ~3 decimal digits.
+
+Stated deviations from the JAX run (torch cannot draw JAX's bits):
+
+- the perceptual net's seeded init draws flax's distribution from a torch
+  generator, so its weights differ from JAX's ``PRNGKey(123)`` ones;
+- the reparameterisation noise comes from a ``torch.Generator`` on the
+  model's device (``ConvVAETrainState.generator``), the eval noise from one
+  seeded with ``(seed + 5, epoch)`` (JAX: ``fold_in(PRNGKey(seed + 5),
+  epoch * 1000 + i)``), the final samples' latents from one seeded with
+  ``seed + 2``;
+- the model's init is torch's default (JAX: flax init from ``PRNGKey(seed)``).
+
+Value parity with JAX goes through the seams instead: the step's ``eps``,
+the weight bridge (``io.from_jax``) and ``perceptual_state_dict``. The port
+has no JPEG cache: its images are the synthetic bytes, which equal what the
+JAX loader returns on a cold cache (on a warm one it returns the JPEG-95
+copy).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
+import numpy as np
 import torch
 
+from tinydiffusion_torch.compat.vgg import load_vgg16_perceptual
+from tinydiffusion_torch.data.laion import synthesize_image
+from tinydiffusion_torch.data.loader import BatchIterator
 from tinydiffusion_torch.device import disable_tf32, resolve_device
-from tinydiffusion_torch.io.checkpoint import load_sidecar, load_weights_arrays
-from tinydiffusion_torch.io.from_jax import conv_vae_state_dict
-from tinydiffusion_torch.models.vae_conv import ConvVAE, ConvVAEConfig, reparameterize
+from tinydiffusion_torch.experiments.common import add_config_flags, config_from_args
+from tinydiffusion_torch.io.checkpoint import (
+    BestKeeper,
+    checkpoint_exists,
+    load_sidecar,
+    load_weights_arrays,
+    restore_checkpoint,
+)
+from tinydiffusion_torch.io.from_jax import conv_vae_jax_variables, conv_vae_state_dict
+from tinydiffusion_torch.models.vae_conv import (
+    ConvVAE,
+    ConvVAEConfig,
+    PerceptualNet,
+    conv_vae_loss,
+    reparameterize,
+)
+from tinydiffusion_torch.obs.images import save_image_grid
+from tinydiffusion_torch.obs.metrics import LossAccumulator, MetricsLogger
+
+
+@dataclasses.dataclass
+class VAELaionConfig:
+    """Every field of the JAX ``VAELaionConfig`` (its ``ConvVAEConfig``
+    base included), with JAX's defaults but for ``checkpoint_dir``, plus
+    ``device``.
+
+    - ``checkpoint_dir`` defaults under ``runs/``: the JAX default
+      ``checkpoints`` would put the port's ``vae_laion_best.npz`` over the
+      committed JAX weights.
+    - ``use_mesh`` has no effect on one card.
+    - ``hidden_channels``, ``image_cache_dir`` and ``failed_urls_cache``
+      have no effect: the JAX model ignores the first too, and the port
+      makes its images in memory, with no cache.
+    - ``data_placement``: ``"auto"`` and ``"host"`` stream uint8 batches
+      from the host; ``"device"`` is not ported yet and raises.
+    - ``compute_dtype``: ``"float32"`` only; ``"bfloat16"`` raises.
+    - ``offline=False`` (the online LAION dataset) raises: the port has no
+      network path.
+    """
+
+    latent_dim: int = 128
+    hidden_channels: int = 64
+    input_channels: int = 3
+    image_size: int = 256
+    batch_size: int = 4
+    epochs: int = 100
+    learning_rate: float = 1e-4
+    checkpoint_dir: str = "runs/vae_laion/checkpoints"
+    image_cache_dir: str = "data/laion"
+    failed_urls_cache: str = "data/failed_urls.json"
+    n_images_to_log: int = 8
+    log_interval: int = 10
+    beta: float = 1.0
+    seed: int = 42
+    n_records: int = 10_000
+    out_dir: str = "runs/vae_laion"
+    use_mesh: bool = True
+    use_flash_attention: bool = True
+    max_steps_per_epoch: int = 0
+    offline: bool = True
+    clip_norm: float = 10.0
+    data_placement: str = "auto"
+    perceptual: str = "seeded"
+    perceptual_weights: str = ""
+    compute_dtype: str = "float32"
+    resume: bool = False
+    device: str = "cuda"
+
+
+def _check_config(config: VAELaionConfig) -> None:
+    if config.data_placement not in ("host", "device", "auto"):
+        raise ValueError(
+            f"data_placement={config.data_placement!r}; choose 'host', 'device', or 'auto'")
+    if config.data_placement == "device":
+        raise NotImplementedError(
+            "data_placement='device' (the image set resident on the card, the conv-VAE's "
+            "make_conv_vae_resident_step) is not ported yet: ROADMAP.md, Queue 1, 'resident "
+            "data placement and CUDA graphs'. Use 'host' or 'auto'.")
+    if config.compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' for the conv-VAE needs the bf16 flash kernels, which "
+            "are not ported yet: ROADMAP.md, Queue 2 #2. Use 'float32'.")
+    if config.compute_dtype != "float32":
+        raise ValueError(f"compute_dtype={config.compute_dtype!r}; choose 'float32'")
+    if not config.offline:
+        raise NotImplementedError(
+            "offline=False loads the online LAION dataset, which the port does not have; "
+            "use offline=True (synthetic records)")
+    if config.perceptual not in ("seeded", "vgg16"):
+        raise ValueError(f"perceptual={config.perceptual!r}; choose 'seeded' or 'vgg16'")
+
+
+@dataclasses.dataclass
+class ConvVAETrainState:
+    """Everything a step reads and writes (JAX's ``ConvVAETrainState``:
+    step, params + batch_stats in the model, opt_state, rng); ``state_dict``
+    resumes it exactly."""
+
+    model: ConvVAE
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator  # on the model's device: the z noise
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "generator": self.generator.get_state(),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step = int(sd["step"])
+        self.generator.set_state(sd["generator"])
+
+    def jax_weights(self) -> dict[str, np.ndarray]:
+        """The JAX npz keys: ``params``, ``batch_stats`` (BN statistics and
+        the spectral norms' ``u`` and ``sigma``) and ``step``."""
+        flat = conv_vae_jax_variables(self.model)
+        flat["step"] = np.asarray(self.step, np.int32)
+        return flat
+
+
+def create_train_state(model: ConvVAE, optimizer: torch.optim.Optimizer,
+                       seed: int) -> ConvVAETrainState:
+    device = next(model.parameters()).device
+    return ConvVAETrainState(model, optimizer, torch.Generator(device).manual_seed(seed))
+
+
+def make_optimizer(model: ConvVAE, learning_rate: float) -> torch.optim.Adam:
+    """optax ``adam(lr)``'s defaults: betas 0.9 / 0.999, eps 1e-8. The clip
+    that precedes it in the chain is in the step (``clip_by_global_norm_``)."""
+    return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm(max_norm)`` on the gradients, in place:
+    ``g / norm * max_norm`` when the global norm reaches ``max_norm``, else
+    ``g`` unchanged. (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the
+    norm and scales also below the bound.) No host sync. Returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(one, max_norm)))
+    return norm
+
+
+def make_conv_vae_train_step(perceptual: PerceptualNet, beta: float, clip_norm: float = 10.0):
+    """The train step ``step(state, x, eps=None) -> (loss, components)``
+    (JAX's ``_conv_vae_raw_step`` / ``make_conv_vae_train_step``).
+
+    ``x`` (B, C, S, S) float32 in [0, 1] on the model's device. ``state`` is
+    updated in place: the model's parameters (the gradient clipped to
+    ``clip_norm`` by optax's rule, 0 for none, then ``state.optimizer``), its
+    BN statistics and spectral-norm vectors (in its train-mode forward) and
+    the step. ``eps`` (B, latent_dim), when given, replaces the step's own
+    draw from ``state.generator``: the seam the tests use to give the port
+    JAX's noise. The loss and components come back as device tensors.
+    """
+
+    def step(state: ConvVAETrainState, x: torch.Tensor, eps: torch.Tensor | None = None):
+        model = state.model
+        model.train()
+        if eps is None:
+            eps = torch.randn(x.shape[0], model.latent_dim, generator=state.generator,
+                              device=x.device)
+        recon, mu, logvar = model(x, eps)
+        total, components = conv_vae_loss(recon, x, mu, logvar, perceptual(recon),
+                                          perceptual(x), beta)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        if clip_norm:
+            clip_by_global_norm_(model.parameters(), clip_norm)
+        state.optimizer.step()
+        state.step += 1
+        return total.detach(), {k: v.detach() for k, v in components.items()}
+
+    return step
+
+
+def make_conv_vae_eval_step(perceptual: PerceptualNet, beta: float):
+    """``eval_step(model, x, eps) -> (loss, recon)`` with the model in eval
+    mode (running BN statistics, no spectral-norm update), as JAX's
+    ``make_conv_vae_eval_step``."""
+
+    @torch.no_grad()
+    def eval_step(model: ConvVAE, x: torch.Tensor, eps: torch.Tensor):
+        was_training = model.training
+        model.eval()
+        try:
+            recon, mu, logvar = model(x, eps)
+            total, _ = conv_vae_loss(recon, x, mu, logvar, perceptual(recon), perceptual(x),
+                                     beta)
+        finally:
+            model.train(was_training)
+        return total, recon
+
+    return eval_step
+
+
+def load_images(config: VAELaionConfig) -> np.ndarray:
+    """The offline record set as one (n_records, S, S, 3) uint8 array: the
+    synthetic images, made in memory (what the JAX loader returns on a cold
+    cache)."""
+    if not config.offline:
+        raise NotImplementedError("the port loads offline (synthetic) records only")
+    return np.stack([synthesize_image(i, config.image_size)[0] for i in range(config.n_records)])
+
+
+def split_train_val(images: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(train, val)``: the first 10 % (at least one image) are held out,
+    as JAX's ``run`` does (vae_laion.py:260-261)."""
+    n_val = max(len(images) // 10, 1)
+    return images[n_val:], images[:n_val]
+
+
+def _nonzero_batches(epoch_iter):
+    """The all-zero-batch skip (failed downloads, vae_laion.py:377-385),
+    checked on the uint8 bytes before they go to the device."""
+    for batch_idx, (x,) in enumerate(epoch_iter):
+        if not x.any():
+            print(f"Batch {batch_idx} contains all-zero images, skipping.")
+            continue
+        yield (x,)
+
+
+def _perceptual_net(config: VAELaionConfig) -> PerceptualNet:
+    net = PerceptualNet(seed=123)  # JAX: PRNGKey(123) (vae_laion.py:244-249)
+    if config.perceptual == "vgg16":
+        if not config.perceptual_weights:
+            raise ValueError("perceptual='vgg16' needs --perceptual-weights "
+                             "(a torch-saved vgg16 state dict; see compat/vgg.py)")
+        net.load_state_dict(load_vgg16_perceptual(config.perceptual_weights))
+        print(f"loaded VGG16 perceptual weights from {config.perceptual_weights}")
+    return net.eval()
+
+
+def _nhwc(x: torch.Tensor) -> np.ndarray:
+    return x.detach().permute(0, 2, 3, 1).float().cpu().numpy()
+
+
+def run(config: VAELaionConfig) -> dict:
+    """Train, evaluate, checkpoint and sample as the config says. Returns
+    ``test_losses`` (per epoch), ``epochs`` (per epoch: ``train_seconds``,
+    ``images_per_sec``, ``steps``), the metrics ``logger`` path and the final
+    ``state``."""
+    _check_config(config)
+    device = resolve_device(config.device)
+    if device.type == "cuda":
+        disable_tf32()
+
+    with torch.random.fork_rng(devices=[]):  # seeded init, global RNG untouched
+        torch.manual_seed(config.seed)
+        model = ConvVAE(config.latent_dim, config.input_channels, config.image_size,
+                        use_flash_attention=config.use_flash_attention)
+    model = model.to(device)
+    perceptual = _perceptual_net(config).to(device)
+    state = create_train_state(model, make_optimizer(model, config.learning_rate), config.seed)
+    train_step = make_conv_vae_train_step(perceptual, config.beta, config.clip_norm)
+    eval_step = make_conv_vae_eval_step(perceptual, config.beta)
+
+    train_images, val_images = split_train_val(load_images(config))
+    u8 = (1.0 / 255.0, 0.0)  # ToTensor: [0, 1]
+    train_it = BatchIterator([train_images], config.batch_size, shuffle=True,
+                             seed=config.seed, u8_normalize=u8)
+    val_it = BatchIterator([val_images], config.batch_size, shuffle=False, u8_normalize=u8)
+
+    def to_nchw(batch) -> torch.Tensor:
+        (x,) = train_it.to_device(batch, device)
+        return x.permute(0, 3, 1, 2).contiguous()
+
+    def synchronize():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    logger = MetricsLogger("vae_laion", config.out_dir, dataclasses.asdict(config))
+    ckpt_path = f"{config.checkpoint_dir}/vae_laion_best"
+    keeper = BestKeeper(ckpt_path)
+    result = {"test_losses": [], "epochs": []}
+
+    start_epoch = 1
+    if config.resume:
+        if checkpoint_exists(ckpt_path):
+            restore_checkpoint(ckpt_path, state)
+            meta = load_sidecar(ckpt_path).get("metadata", {})
+            keeper.best = float(meta.get("metric", float("inf")))
+            start_epoch = int(meta.get("epoch", 0)) + 1
+            print(f"Resumed from {ckpt_path}: epoch {start_epoch - 1} (best loss "
+                  f"{keeper.best:.4f}), continuing at epoch {start_epoch}")
+        else:
+            print(f"--resume set but {ckpt_path} not found; starting fresh")
+
+    for epoch in range(start_epoch, config.epochs + 1):
+        train_acc, n_seen = LossAccumulator(), 0
+        comp_acc: dict[str, LossAccumulator] = {}
+        synchronize()
+        t0 = time.perf_counter()
+        for batch_idx, batch in enumerate(_nonzero_batches(train_it.epoch(epoch))):
+            if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
+                break
+            x = to_nchw(batch)
+            loss, components = train_step(state, x)
+            train_acc.add(loss)
+            # Every batch's components stay on the device (no sync): the
+            # 256x256 recipe's blow-ups land between log points.
+            for k, v in components.items():
+                comp_acc.setdefault(k, LossAccumulator()).add(v)
+            n_seen += len(x)
+            if batch_idx % config.log_interval == 0:
+                comp = {k: float(v) for k, v in components.items()}  # syncs, log points only
+                if not all(np.isfinite(v) for v in comp.values()):
+                    print(f"Loss components: {comp}")
+                logger.log({"epoch": epoch, "batch": batch_idx,
+                            "batch_train_loss": train_acc.last() / max(len(x), 1), **comp},
+                           step=state.step - 1)
+        synchronize()
+        train_seconds = time.perf_counter() - t0
+        images_per_sec = n_seen / train_seconds if train_seconds > 0 else 0.0
+        avg_train = train_acc.sum() / max(n_seen, 1)
+        comp_max = {f"{k}_epoch_max": float(np.max(acc.values())) for k, acc in comp_acc.items()}
+
+        # The val pass: finite batches only (vae_laion.py:523-545).
+        eval_gen = torch.Generator(device).manual_seed((config.seed + 5) * 100_000 + epoch)
+        test_acc, test_sizes = LossAccumulator(), []
+        for i, batch in enumerate(_nonzero_batches(val_it.epoch())):
+            if config.max_steps_per_epoch and i >= config.max_steps_per_epoch:
+                break
+            x = to_nchw(batch)
+            eps = torch.randn(len(x), config.latent_dim, generator=eval_gen, device=device)
+            loss, recon = eval_step(model, x, eps)
+            test_acc.add(loss)
+            test_sizes.append(len(x))
+            if i == 0:
+                n_img = min(config.n_images_to_log, len(x))
+                panel = np.concatenate([_nhwc(x[:n_img]), _nhwc(recon[:n_img])], axis=0)
+                panel_path = f"{config.out_dir}/original_vs_reconstructed_epoch_{epoch}.png"
+                save_image_grid(panel, panel_path, nrow=n_img, normalize=False)
+                logger.log_image("original_vs_reconstructed", panel_path)
+        eval_bad = 0
+        if not test_sizes:
+            # A tiny config can leave the val split without a full batch:
+            # the train loss stands in for the best-model policy.
+            avg_test = avg_train
+        else:
+            vals, sizes = test_acc.values(), np.asarray(test_sizes, np.float64)
+            finite = np.isfinite(vals)
+            eval_bad = int((~finite).sum())
+            if eval_bad:
+                print(f"Epoch {epoch}: {eval_bad}/{len(vals)} eval batches non-finite, "
+                      "excluded from test loss")
+            avg_test = (float(vals[finite].sum() / sizes[finite].sum())
+                        if finite.any() else float("inf"))
+        result["test_losses"].append(avg_test)
+        result["epochs"].append({"train_seconds": train_seconds,
+                                 "images_per_sec": images_per_sec,
+                                 "steps": train_acc.count})
+        logger.log({"epoch": epoch, "train_loss": avg_train, "test_loss": avg_test,
+                    "eval_nonfinite_batches": eval_bad, "train_images_per_sec": images_per_sec,
+                    **comp_max}, step=state.step)
+        if keeper.update(avg_test, state, config=dataclasses.asdict(config), epoch=epoch):
+            print(f"Saved best model (epoch {epoch}, loss {avg_test:.4f})")
+
+    # Final samples (vae_laion.py:465-477), from the live weights.
+    model.eval()
+    samples = sample_prior(model, 16, torch.Generator(device).manual_seed(config.seed + 2))
+    model.train()
+    samples_path = f"{config.out_dir}/generated_samples.png"
+    save_image_grid(_nhwc(samples), samples_path, nrow=4, normalize=False)
+    logger.log_image("generated_samples", samples_path)
+    result["state"] = state
+    logger.finish()
+    return result
 
 
 def load_conv_vae(path: str, device: str | torch.device = "cuda") -> ConvVAE:
@@ -64,3 +468,18 @@ def sample_prior(model: ConvVAE, n: int, generator: torch.Generator) -> torch.Te
     dev = _device_of(model)
     z = torch.randn(n, model.latent_dim, generator=generator, device=dev)
     return model.decode(z)
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_config_flags(parser, VAELaionConfig())
+    config = config_from_args(VAELaionConfig, parser.parse_args(argv))
+    device = resolve_device(config.device)
+    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    run(config)
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,9 @@ encodes it as ``ml_dtypes`` does.
 ``save_checkpoint`` writes three files: ``<path>.pt`` (``torch.save`` of the
 full train state, for an exact resume), ``<path>.npz`` (the serving subset
 in the JAX format, which the JAX package loads) and the ``<path>.json``
-sidecar. The JAX package writes an Orbax directory in place of the ``.pt``.
+sidecar (``config`` and ``metadata``). The JAX package writes an Orbax
+directory in place of the ``.pt``. ``BestKeeper`` saves when a metric
+improves, as JAX's does.
 """
 
 from __future__ import annotations
@@ -85,17 +87,24 @@ def save_weights(path: str, flat: Mapping[str, np.ndarray]) -> str:
     return path + ".npz"
 
 
-def save_checkpoint(path: str, state, config: Mapping[str, Any] | None = None) -> None:
-    """Write ``state`` (a ``train.trainer.DiffusionTrainState``) as
-    ``<path>.pt`` (full state), ``<path>.npz`` (JAX weights) and
-    ``<path>.json`` (the sidecar: ``config`` and empty ``metadata``)."""
+def save_checkpoint(
+    path: str,
+    state,
+    config: Mapping[str, Any] | None = None,
+    metadata: Mapping[str, Any] | None = None,
+) -> None:
+    """Write ``state`` (a train state with ``state_dict()`` and
+    ``jax_weights()``: ``train.trainer.DiffusionTrainState`` or
+    ``experiments.vae_laion.ConvVAETrainState``) as ``<path>.pt`` (full
+    state), ``<path>.npz`` (JAX weights) and ``<path>.json`` (the sidecar:
+    ``config`` and ``metadata``)."""
     path = _abspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.pt.{os.getpid()}.tmp"
     torch.save(state.state_dict(), tmp)
     os.replace(tmp, path + ".pt")  # atomic: a reader sees the old file or the new one
     save_weights(path, state.jax_weights())
-    sidecar = {"config": dict(config or {}), "metadata": {}}
+    sidecar = {"config": dict(config or {}), "metadata": dict(metadata or {})}
     with open(path + ".json", "w") as f:
         json.dump(sidecar, f, indent=2, default=str)
 
@@ -104,3 +113,31 @@ def restore_checkpoint(path: str, state) -> None:
     """Load ``<path>.pt`` into ``state`` in place (model, optimizer, EMA,
     step and generators), for an exact resume."""
     state.load_state_dict(torch.load(_abspath(path) + ".pt", weights_only=True))
+
+
+def checkpoint_exists(path: str) -> bool:
+    """Whether ``<path>.pt`` and its sidecar exist: a state to resume."""
+    path = _abspath(path)
+    return os.path.exists(path + ".pt") and os.path.exists(path + ".json")
+
+
+class BestKeeper:
+    """Save a checkpoint whenever the metric falls below its best so far,
+    with the metric and the caller's keywords (``epoch``) in the sidecar's
+    ``metadata``: ``BestKeeper`` of ``tinydiffusion_tpu/io/checkpoint.py``
+    in its ``mode="min"``, the only one its callers use."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.best: float | None = None
+
+    def update(
+        self, metric: float, state, config: Mapping[str, Any] | None = None, **metadata: Any
+    ) -> bool:
+        metric = float(metric)
+        better = self.best is None or metric < self.best
+        if better:
+            self.best = metric
+            save_checkpoint(self.path, state, config=config,
+                            metadata={"metric": metric, **metadata})
+        return better

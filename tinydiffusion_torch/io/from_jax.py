@@ -12,15 +12,18 @@ Layout rules, JAX -> PyTorch:
 - Dense kernel (in, out) -> Linear weight (out, in).
 - ``_Proj1x1T`` kernel (1, 1, C, F) -> (F, C).
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
-- Spectral-norm ``u`` vectors -> the ``u`` buffers of
-  ``nn.layers.SpectralNorm``. The stored ``sigma`` is dropped: flax
-  recomputes sigma from ``u`` on every call and never reads it.
+- Spectral-norm ``u`` vectors and ``sigma`` estimates -> the ``u`` and
+  ``sigma`` buffers of ``nn.layers.SpectralNorm``. Neither framework reads
+  ``sigma``; it is carried so that the two checkpoints hold the same keys.
 - Embedding ``embedding`` -> Embedding ``weight``.
 
 The UNet28's module names equal the JAX ones, so its bridge is by name in
 both directions: ``unet28_state_dict`` reads a JAX tree and ``jax_variables``
 writes one from any port model built of Conv2d, Linear, Embedding and
-BatchNorm2d.
+BatchNorm2d. The conv-VAE's bridge is by rule in both directions:
+``conv_vae_state_dict`` and ``conv_vae_jax_variables``. The perceptual net's
+JAX params (``{conv0_0: {kernel, bias}, ...}``) map onto
+``models.vae_conv.PerceptualNet`` with ``perceptual_state_dict``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ def conv_transpose_weight(kernel: np.ndarray) -> torch.Tensor:
     weight (in, out, kh, kw), spatially flipped (see the module docstring)."""
     flipped = kernel[::-1, ::-1]
     return torch.from_numpy(np.array(np.transpose(flipped, (2, 3, 0, 1))))
+
+
+def conv_transpose_kernel(weight: np.ndarray) -> np.ndarray:
+    """The inverse of ``conv_transpose_weight``: torch (in, out, kh, kw) ->
+    flax (kh, kw, in, out), spatially flipped back."""
+    return np.ascontiguousarray(np.transpose(weight, (2, 3, 0, 1))[::-1, ::-1])
 
 
 def dense_weight(kernel: np.ndarray) -> torch.Tensor:
@@ -67,10 +76,10 @@ _CONV_VAE_RULES = [
     (r"params/enc_conv(\d)/kernel", "enc_convs.{0}.layer.weight", conv_weight),
     (r"params/dec_conv(\d)/kernel", "dec_convs.{0}.layer.weight", conv_transpose_weight),
     (r"params/(enc|dec)_conv(\d)/bias", "{0}_convs.{1}.layer.bias", _vector),
-    (r"batch_stats/(enc|dec)_convs_(\d)/\w+/kernel/u", "{0}_convs.{1}.u", _vector),
+    (r"batch_stats/(enc|dec)_convs_(\d)/\w+/kernel/(u|sigma)", "{0}_convs.{1}.{2}", _vector),
     (r"params/(enc|dec)_res(\d)/(conv\d)/kernel", "{0}_res.{1}.{2}.layer.weight", conv_weight),
-    (r"batch_stats/(enc|dec)_res(\d)/SpectralNorm_\d/(conv\d)/kernel/u",
-     "{0}_res.{1}.{2}.u", _vector),
+    (r"batch_stats/(enc|dec)_res(\d)/SpectralNorm_\d/(conv\d)/kernel/(u|sigma)",
+     "{0}_res.{1}.{2}.{3}", _vector),
     (r"(?:params|batch_stats)/(enc|dec)_res(\d)/(bn\d)/(scale|bias|mean|var)",
      "{0}_res.{1}.{2}.{3}", _vector),
     (r"params/(enc|dec)_attn(\d)/(query|key|value)/kernel", "{0}_attn.{1}.{2}.weight",
@@ -80,7 +89,7 @@ _CONV_VAE_RULES = [
     (r"params/(fc_mu|fc_logvar|decoder_input)/kernel", "{0}.weight", dense_weight),
     (r"params/(fc_mu|fc_logvar|decoder_input)/bias", "{0}.bias", _vector),
 ]
-_CONV_VAE_IGNORED = re.compile(r"step|batch_stats/.*/kernel/sigma")
+_CONV_VAE_IGNORED = re.compile(r"step")
 
 
 def conv_vae_state_dict(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -103,6 +112,74 @@ def conv_vae_state_dict(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"no ConvVAE state_dict slot for JAX key {key!r}")
     return _with_bn_counters(out)
+
+
+def _hwio(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+
+
+def _proj_kernel(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.T.reshape(1, 1, *w.T.shape))
+
+
+# The inverse rules: (pattern on the port key, JAX key template, converter).
+_CONV_VAE_EXPORT_RULES = [
+    (r"enc_convs\.(\d)\.layer\.weight", "params/enc_conv{0}/kernel", _hwio),
+    (r"dec_convs\.(\d)\.layer\.weight", "params/dec_conv{0}/kernel", conv_transpose_kernel),
+    (r"(enc|dec)_convs\.(\d)\.layer\.bias", "params/{0}_conv{1}/bias", np.asarray),
+    (r"(enc|dec)_convs\.(\d)\.(u|sigma)", "batch_stats/{0}_convs_{1}/{0}_conv{1}/kernel/{2}",
+     np.asarray),
+    (r"(enc|dec)_res\.(\d)\.(conv\d)\.layer\.weight", "params/{0}_res{1}/{2}/kernel", _hwio),
+    (r"(enc|dec)_res\.(\d)\.conv1\.(u|sigma)",
+     "batch_stats/{0}_res{1}/SpectralNorm_0/conv1/kernel/{2}", np.asarray),
+    (r"(enc|dec)_res\.(\d)\.conv2\.(u|sigma)",
+     "batch_stats/{0}_res{1}/SpectralNorm_1/conv2/kernel/{2}", np.asarray),
+    (r"(enc|dec)_res\.(\d)\.(bn\d)\.weight", "params/{0}_res{1}/{2}/scale", np.asarray),
+    (r"(enc|dec)_res\.(\d)\.(bn\d)\.bias", "params/{0}_res{1}/{2}/bias", np.asarray),
+    (r"(enc|dec)_res\.(\d)\.(bn\d)\.running_mean", "batch_stats/{0}_res{1}/{2}/mean",
+     np.asarray),
+    (r"(enc|dec)_res\.(\d)\.(bn\d)\.running_var", "batch_stats/{0}_res{1}/{2}/var",
+     np.asarray),
+    (r"(enc|dec)_attn\.(\d)\.(query|key|value)\.weight", "params/{0}_attn{1}/{2}/kernel",
+     _proj_kernel),
+    (r"(enc|dec)_attn\.(\d)\.(query|key|value)\.bias", "params/{0}_attn{1}/{2}/bias",
+     np.asarray),
+    (r"(enc|dec)_attn\.(\d)\.gamma", "params/{0}_attn{1}/gamma", np.asarray),
+    (r"(fc_mu|fc_logvar|decoder_input)\.weight", "params/{0}/kernel",
+     lambda w: np.ascontiguousarray(w.T)),
+    (r"(fc_mu|fc_logvar|decoder_input)\.bias", "params/{0}/bias", np.asarray),
+]
+
+
+def conv_vae_jax_variables(model: nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of ``conv_vae_state_dict``: a ``models.vae_conv.ConvVAE``'s
+    parameters and buffers as ``{JAX key: float32 array}`` in flax's layout,
+    ``params/...`` and ``batch_stats/...`` (the spectral norms' ``u`` and
+    ``sigma`` included). BatchNorm's ``num_batches_tracked`` has no JAX
+    counterpart and is left out. Raises ``KeyError`` on any other key."""
+    out: dict[str, np.ndarray] = {}
+    for key, value in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        arr = value.detach().float().cpu().numpy()
+        for pattern, template, convert in _CONV_VAE_EXPORT_RULES:
+            m = re.fullmatch(pattern, key)
+            if m:
+                out[template.format(*m.groups())] = np.asarray(convert(arr), np.float32)
+                break
+        else:
+            raise KeyError(f"no JAX key for ConvVAE state_dict entry {key!r}")
+    return out
+
+
+def perceptual_state_dict(params) -> dict[str, torch.Tensor]:
+    """JAX ``PerceptualNet`` params (``{conv0_0: {kernel, bias}, ...}``, HWIO
+    kernels) -> ``models.vae_conv.PerceptualNet``'s ``state_dict``."""
+    out: dict[str, torch.Tensor] = {}
+    for name, leaves in params.items():
+        out[f"{name}.weight"] = conv_weight(np.asarray(leaves["kernel"], np.float32))
+        out[f"{name}.bias"] = _vector(np.asarray(leaves["bias"], np.float32))
+    return out
 
 
 def _with_bn_counters(out: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:

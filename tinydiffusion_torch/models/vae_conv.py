@@ -1,9 +1,10 @@
-"""Conv beta-VAE with self-attention and spectral norm, NCHW.
+"""Conv beta-VAE with self-attention and spectral norm, NCHW; its frozen
+perceptual net and its loss.
 
-Counterpart of ``tinydiffusion_tpu/models/vae_conv.py`` (serving subset:
-encode, reparameterize, decode; the loss and the perceptual net come with
-the training slice). Module and attribute names follow the JAX ``setup``
-(``enc_convs``, ``enc_res``, ``enc_attn``, ``fc_mu``, ...) so that
+Counterpart of ``tinydiffusion_tpu/models/vae_conv.py``: ``ConvVAE``
+(encode, reparameterize, decode), ``PerceptualNet`` and ``conv_vae_loss``.
+Module and attribute names follow the JAX ``setup`` (``enc_convs``,
+``enc_res``, ``enc_attn``, ``fc_mu``, ...) so that
 ``io.from_jax.conv_vae_state_dict`` maps one onto the other by name.
 
 Where the NCHW port must differ in mechanics to keep the JAX numbers:
@@ -12,8 +13,18 @@ Where the NCHW port must differ in mechanics to keep the JAX numbers:
   ``fc_mu``/``fc_logvar``/``decoder_input`` weights index features that way.
 - ``SelfAttention2D`` runs on the (B, C, N) view of the NCHW map, which is
   the flash kernel's native layout, so it needs no transpose at all.
-- Spectral norm and the transposed convs repeat flax's arithmetic
-  (``nn.layers.SpectralNorm``, ``io.from_jax``).
+- Spectral norm, BatchNorm statistics and the transposed convs repeat
+  flax's arithmetic (``nn.layers.SpectralNorm``, ``nn.layers.BatchNorm2d``,
+  ``io.from_jax``).
+- The reparameterisation noise is an argument (``forward(x, eps)``), not a
+  key drawn inside the model: torch cannot draw JAX's bits, so the tests
+  hand the port JAX's draws.
+- ``PerceptualNet``'s seeded init draws flax's distribution (he_normal: a
+  truncated normal, fan_in, scale 2) from a torch generator, so its values
+  differ from JAX's ``PRNGKey(123)`` init; ``io.from_jax.perceptual_state_dict``
+  carries JAX's weights across when the two must agree.
+- The JAX ``SelfAttention2D`` falls back to dense attention when the flash
+  path raises. The port does not: an error in the kernel is an error.
 """
 
 from __future__ import annotations
@@ -23,24 +34,19 @@ import dataclasses
 import torch
 from torch import nn
 
-from tinydiffusion_torch.nn.layers import SpectralNorm
-from tinydiffusion_torch.ops.attention import flash_attention_unscaled_t
+from tinydiffusion_torch.nn.layers import BatchNorm2d, SpectralNorm
+from tinydiffusion_torch.ops import attention
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvVAEConfig:
     """The architecture fields of the JAX ``ConvVAEConfig`` (vae_laion.py:25-40
-    defaults): the ``ConvVAE`` arguments. Its training fields come with the
-    training slice."""
+    defaults): the ``ConvVAE`` arguments. The training fields are in
+    ``experiments.vae_laion.VAELaionConfig``."""
 
     latent_dim: int = 128
     input_channels: int = 3
     image_size: int = 256
-
-
-def _batch_norm(features: int) -> nn.BatchNorm2d:
-    # flax BatchNorm(momentum=0.9, epsilon=1e-5) in torch's convention.
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 
 class _Proj1x1T(nn.Module):
@@ -59,10 +65,12 @@ class _Proj1x1T(nn.Module):
 class SelfAttention2D(nn.Module):
     """vae_laion.py:50-65: q, k (C -> C/8), v (C -> C) 1x1 projections,
     unscaled ``softmax(Q K^T) V`` over the H*W tokens, ``gamma * attn + x``
-    with a learnable scalar ``gamma`` (init 0)."""
+    with a learnable scalar ``gamma`` (init 0). ``use_flash=False`` takes
+    the dense path at every N, as in JAX."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_flash: bool = True):
         super().__init__()
+        self.use_flash = use_flash
         d = max(channels // 8, 1)
         self.query = _Proj1x1T(channels, d)
         self.key = _Proj1x1T(channels, d)
@@ -72,19 +80,21 @@ class SelfAttention2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         xt = x.reshape(b, c, h * w)  # (B, C, N): the kernel's layout, no copy
-        attn_t = flash_attention_unscaled_t(self.query(xt), self.key(xt), self.value(xt))
+        attend = attention.flash_attention_unscaled_t if self.use_flash else attention._dense_t
+        attn_t = attend(self.query(xt), self.key(xt), self.value(xt))
         return self.gamma * attn_t.reshape(b, c, h, w) + x
 
 
 class ResidualBlockSN(nn.Module):
-    """vae_laion.py:69-85: SN conv -> BN -> ReLU -> SN conv -> BN, + residual."""
+    """vae_laion.py:69-85: SN conv -> BN -> ReLU -> SN conv -> BN, + residual.
+    The BatchNorms keep flax's running statistics (biased variance)."""
 
     def __init__(self, features: int):
         super().__init__()
         self.conv1 = SpectralNorm(nn.Conv2d(features, features, 3, padding=1, bias=False))
-        self.bn1 = _batch_norm(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = SpectralNorm(nn.Conv2d(features, features, 3, padding=1, bias=False))
-        self.bn2 = _batch_norm(features)
+        self.bn2 = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.bn1(self.conv1(x)))
@@ -98,11 +108,13 @@ class ConvVAE(nn.Module):
     ResidualBlockSN after each, SelfAttention2D after stages 0-1, then
     ``fc_mu``/``fc_logvar`` on the flattened 256 x (S/16)^2 map. Decoder: the
     mirror image with transposed convs 256->128->64->32->3 and a sigmoid.
+    ``use_flash_attention=False`` runs every attention site dense.
     """
 
     WIDTHS = (32, 64, 128, 256)
 
-    def __init__(self, latent_dim: int = 128, input_channels: int = 3, image_size: int = 256):
+    def __init__(self, latent_dim: int = 128, input_channels: int = 3, image_size: int = 256,
+                 use_flash_attention: bool = True):
         super().__init__()
         if image_size % 16:
             raise ValueError(f"image_size must be a multiple of 16, not {image_size}")
@@ -115,7 +127,8 @@ class ConvVAE(nn.Module):
             SpectralNorm(nn.Conv2d(i, o, 4, stride=2, padding=1)) for i, o in zip(enc_in, widths)
         )
         self.enc_res = nn.ModuleList(ResidualBlockSN(w) for w in widths)
-        self.enc_attn = nn.ModuleList(SelfAttention2D(w) for w in widths[:2])
+        self.enc_attn = nn.ModuleList(
+            SelfAttention2D(w, use_flash_attention) for w in widths[:2])
         flat = widths[-1] * self._spatial**2
         self.fc_mu = nn.Linear(flat, latent_dim)
         self.fc_logvar = nn.Linear(flat, latent_dim)
@@ -127,7 +140,8 @@ class ConvVAE(nn.Module):
             for i, o in zip(dec_in, dec_out)
         )
         self.dec_res = nn.ModuleList(ResidualBlockSN(w) for w in dec_out[:3])
-        self.dec_attn = nn.ModuleList(SelfAttention2D(w) for w in dec_out[:2])
+        self.dec_attn = nn.ModuleList(
+            SelfAttention2D(w, use_flash_attention) for w in dec_out[:2])
 
     @property
     def _spatial(self) -> int:
@@ -156,8 +170,91 @@ class ConvVAE(nn.Module):
                     h = self.dec_attn[i](h)
         return torch.sigmoid(h)
 
+    def forward(self, x: torch.Tensor, eps: torch.Tensor):
+        """``(recon, mu, logvar)`` of x (B, C, S, S) in [0, 1], with z drawn
+        from the noise ``eps`` (B, latent_dim): the JAX ``__call__``."""
+        mu, logvar = self.encode(x)
+        return self.decode(reparameterize(mu, logvar, eps)), mu, logvar
+
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     """``mu + eps * exp(logvar / 2)`` with the noise ``eps`` given explicitly,
     so a caller (or a test) can replay the JAX package's noise."""
     return mu + eps * torch.exp(0.5 * logvar)
+
+
+def _he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``he_normal``: a normal truncated at two standard deviations,
+    scaled so that the variance is 2 / fan_in (flax's 0.8796 correction)."""
+    fan_in = weight[0].numel()
+    std = (2.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class PerceptualNet(nn.Module):
+    """vae_conv.py:179-205: the frozen feature extractor of the perceptual
+    loss, shaped like VGG16 ``features[:16]``: 3x3 convs 64,64 | max-pool |
+    128,128 | max-pool | 256,256,256, a ReLU after each conv.
+
+    Frozen: its parameters never require a gradient and no optimizer holds
+    them, but gradients flow through it to its input. ``seed`` draws flax's
+    he_normal kernels (zero biases) from a torch generator: the offline
+    substitute for the pretrained VGG16. ``compat.vgg`` loads the real one.
+    """
+
+    WIDTHS = ((64, 64), (128, 128), (256, 256, 256))
+
+    def __init__(self, seed: int = 123):
+        super().__init__()
+        generator = torch.Generator().manual_seed(seed)
+        c_in = 3
+        for stage, widths in enumerate(self.WIDTHS):
+            for i, c_out in enumerate(widths):
+                conv = nn.Conv2d(c_in, c_out, 3, padding=1)
+                with torch.no_grad():
+                    _he_normal_(conv.weight, generator)
+                    conv.bias.zero_()
+                self.add_module(f"conv{stage}_{i}", conv)
+                c_in = c_out
+        self.requires_grad_(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 3, S, S) -> features (B, 256, S/4, S/4)."""
+        h = x
+        for stage, widths in enumerate(self.WIDTHS):
+            for i in range(len(widths)):
+                h = torch.relu(getattr(self, f"conv{stage}_{i}")(h))
+            if stage < 2:
+                h = torch.nn.functional.max_pool2d(h, 2, 2)
+        return h
+
+
+def conv_vae_loss(
+    recon_x: torch.Tensor,
+    x: torch.Tensor,
+    mu: torch.Tensor,
+    logvar: torch.Tensor,
+    recon_features: torch.Tensor,
+    target_features: torch.Tensor,
+    beta: float = 1.0,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """vae_conv.py:322-365: ``BCE(sum) + 0.1 * perceptual MSE(sum) + beta * KLD``,
+    accumulated in float32, and the components ``bce``, ``perceptual``,
+    ``kld``, ``logvar_max`` and ``mu_absmax`` (0-d tensors).
+
+    The log terms are clamped at -100, as torch's ``binary_cross_entropy``
+    and the JAX package do: a saturated sigmoid emits exact 0 and 1 in
+    float32, where an epsilon-clip on p would round back to 1.
+    """
+    x, recon_x, mu, logvar = (t.float() for t in (x, recon_x, mu, logvar))
+    recon_features, target_features = recon_features.float(), target_features.float()
+    log_p = torch.clamp(torch.log(recon_x), min=-100.0)
+    log_1mp = torch.clamp(torch.log1p(-recon_x), min=-100.0)
+    bce = -torch.sum(x * log_p + (1.0 - x) * log_1mp)
+    perc = torch.sum((recon_features - target_features) ** 2)
+    kld = -0.5 * torch.sum(1.0 + logvar - mu**2 - torch.exp(logvar))
+    total = bce + 0.1 * perc + beta * kld
+    return total, {
+        "bce": bce, "perceptual": perc, "kld": kld,
+        "logvar_max": torch.max(logvar), "mu_absmax": torch.max(torch.abs(mu)),
+    }

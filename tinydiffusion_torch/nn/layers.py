@@ -21,8 +21,8 @@ def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 def spectral_normalize(
     weight: torch.Tensor, u: torch.Tensor, out_dim: int, eps: float = 1e-12
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """flax ``SpectralNorm`` (``n_steps=1``): ``(weight / sigma, new u)``.
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """flax ``SpectralNorm`` (``n_steps=1``): ``(weight / sigma, new u, sigma)``.
 
     One power iteration from ``u`` (1, out) on the weight viewed as a
     (-1, out) matrix, as flax views its HWIO kernel. Here the rows come in
@@ -35,7 +35,7 @@ def spectral_normalize(
     v = _l2_normalize(u @ mat.detach().T, eps)
     u_new = _l2_normalize(v @ mat.detach(), eps)
     sigma = (v @ mat @ u_new.T)[0, 0]
-    return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma)), u_new
+    return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma)), u_new, sigma
 
 
 class SpectralNorm(nn.Module):
@@ -44,8 +44,10 @@ class SpectralNorm(nn.Module):
 
     Unlike ``torch.nn.utils.spectral_norm`` this repeats flax's arithmetic
     exactly: one iteration per call in train AND eval mode, from the stored
-    ``u``, with ``_l2_normalize(x) = x * rsqrt(sum(x^2) + 1e-12)``. ``u`` is
-    written back only in train mode (flax's ``update_stats=train``).
+    ``u``, with ``_l2_normalize(x) = x * rsqrt(sum(x^2) + 1e-12)``. ``u`` and
+    the estimate ``sigma`` are written back only in train mode (flax's
+    ``update_stats=train``). Like flax, nothing reads the stored ``sigma``;
+    it is kept so that an exported checkpoint has every key a JAX one has.
     """
 
     def __init__(self, layer: nn.Conv2d | nn.ConvTranspose2d, eps: float = 1e-12):
@@ -56,12 +58,14 @@ class SpectralNorm(nn.Module):
         # Output channels: dim 0 of a Conv2d weight, dim 1 of a ConvTranspose2d's.
         self.out_dim = 1 if self.transposed else 0
         self.register_buffer("u", torch.randn(1, layer.weight.shape[self.out_dim]))
+        self.register_buffer("sigma", torch.ones(()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         layer = self.layer
-        weight, u_new = spectral_normalize(layer.weight, self.u, self.out_dim, self.eps)
+        weight, u_new, sigma = spectral_normalize(layer.weight, self.u, self.out_dim, self.eps)
         if self.training:
             self.u.copy_(u_new)
+            self.sigma.copy_(sigma.detach())
         if self.transposed:
             return F.conv_transpose2d(x, weight, layer.bias, layer.stride, layer.padding)
         return F.conv2d(x, weight, layer.bias, layer.stride, layer.padding)

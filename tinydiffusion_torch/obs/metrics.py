@@ -1,6 +1,7 @@
-"""Experiment tracking: console + JSONL, and a throughput counter.
+"""Experiment tracking: console + JSONL, a throughput counter and a loss
+buffer.
 
-Counterpart of ``MetricsLogger`` and ``Throughput`` in
+Counterpart of ``MetricsLogger``, ``Throughput`` and ``LossAccumulator`` in
 ``tinydiffusion_tpu/obs/metrics.py``, with the same file layout
 (``<run_dir>/<project>/metrics.jsonl``, one JSON object per ``log`` call with
 the wall time ``t`` and the ``step``, and ``config.json``) and the same key
@@ -15,6 +16,9 @@ import json
 import os
 import time
 from typing import Any, Mapping
+
+import numpy as np
+import torch
 
 
 class MetricsLogger:
@@ -72,3 +76,31 @@ class Throughput:
     def samples_per_sec(self) -> float:
         dt = time.perf_counter() - self._start
         return self._samples / dt if dt > 0 else 0.0
+
+
+class LossAccumulator:
+    """Per-step loss scalars buffered as device tensors, without a sync per
+    step. ``last()`` reads one (a sync: log points only); ``sum()`` and
+    ``values()`` read them all in one copy, at epoch end."""
+
+    def __init__(self):
+        self._vals: list = []
+
+    def add(self, loss) -> None:
+        self._vals.append(loss)
+
+    @property
+    def count(self) -> int:
+        return len(self._vals)
+
+    def last(self) -> float:
+        return float(self._vals[-1]) if self._vals else 0.0
+
+    def values(self) -> np.ndarray:
+        """Every buffered value (0-d tensors on one device) as a float64 host array."""
+        if not self._vals:
+            return np.zeros((0,), np.float64)
+        return torch.stack(self._vals).double().cpu().numpy()
+
+    def sum(self) -> float:
+        return float(self.values().sum())

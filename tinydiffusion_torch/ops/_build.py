@@ -98,6 +98,8 @@ _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 SIGNATURES: dict[str, tuple] = {
     # qt, kt, vt, out, lse, batch, n, d, c, stream
     "tdt_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, batch, n, d, c, key_blocks, stream
+    "tdt_flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x0, t, sqrt_abar, sqrt_1m_abar, xt, z, batch, feat, num_timesteps, seed, stream
     "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _U64, _P),
 }

@@ -15,9 +15,14 @@ the flash forward otherwise. The CUDA kernel tiles itself and takes any N.
 The flash forward is ``flash_fwd``: on a CUDA tensor it launches the
 hand-written kernel ``csrc/flash_fwd.cu`` (which replaces the TPU's
 ``_fwd_kernel``) and counts the launch in ``flash_fwd_launches``; on a CPU
-tensor it runs the plain version ``flash_fwd_reference``. There is no
-fallback from one to the other. This slice serves only, so the kernel has
-no backward yet: ``flash_fwd`` refuses inputs that require a gradient.
+tensor it runs the plain version ``flash_fwd_reference``. The backward is
+``flash_bwd`` in the same way: ``csrc/flash_bwd.cu`` (the TPU's
+``_bwd_fused_kernel``), ``flash_bwd_launches``, ``flash_bwd_reference``.
+There is no fallback from a kernel to its plain version. ``_FlashT``, a
+``torch.autograd.Function`` (JAX's ``_flash_t`` custom VJP), joins the two:
+it saves ``(qt, kt, vt, out_t, lse)`` and its backward computes
+``delta = sum_c dO * O`` in torch, outside the kernel, as JAX does. The
+dense dispatch is plain torch, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -37,8 +42,13 @@ _DENSE_N_THRESHOLD = 1024  # below this, dense attention is faster + simpler
 # (C = 128 sees N = 1024 there, which is dense).
 KERNEL_HEAD_WIDTHS = frozenset({(4, 32), (8, 64)})
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernels since import (or since a caller reset them).
 flash_fwd_launches = 0
+flash_bwd_launches = 0
+
+# Keys per block of the backward kernel (``kThreads`` in csrc/flash_bwd.cu):
+# it sizes the kernel's scratch of per-key-block dq partials.
+FLASH_BWD_KEYS_PER_BLOCK = 64
 
 
 def flash_fwd_reference(
@@ -63,16 +73,64 @@ def flash_fwd_reference(
     return out_t, lse
 
 
+def flash_bwd_reference(
+    qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, dot: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, block_q: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel: ``(dqt, dkt, dvt)`` in float32.
+
+    With ``p = exp(q^T k - lse)`` and ``ds = p * (dO^T v - delta)``:
+    ``dv = dO p``, ``dk = q ds`` and ``dq = k ds^T`` in the (B, *, N)
+    layout. Computed over blocks of ``block_q`` queries, so N = 16384 never
+    builds an N x N matrix.
+    """
+    qt, kt, vt, dot, lse, delta = (x.float() for x in (qt, kt, vt, dot, lse, delta))
+    dqt = torch.empty_like(qt)
+    dkt = torch.zeros_like(kt)
+    dvt = torch.zeros_like(vt)
+    for i in range(0, qt.shape[-1], block_q):
+        q_i, do_i = qt[:, :, i:i + block_q], dot[:, :, i:i + block_q]  # (B, D|C, bq)
+        s = torch.matmul(q_i.transpose(1, 2), kt)  # (B, bq, N)
+        p = torch.exp(s - lse[:, 0, i:i + block_q, None])
+        dvt += torch.matmul(do_i, p)  # (B, C, N)
+        dp = torch.matmul(do_i.transpose(1, 2), vt)  # (B, bq, N)
+        ds = p * (dp - delta[:, 0, i:i + block_q, None])
+        dkt += torch.matmul(q_i, ds)  # (B, D, N)
+        dqt[:, :, i:i + block_q] = torch.matmul(kt, ds.transpose(1, 2))  # (B, D, bq)
+    return dqt, dkt, dvt
+
+
 def _check_operands(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> None:
     if qt.dim() != 3 or kt.dim() != 3 or vt.dim() != 3:
-        raise ValueError("flash_fwd takes qt, kt (B, D, N) and vt (B, C, N)")
+        raise ValueError("flash attention takes qt, kt (B, D, N) and vt (B, C, N)")
     if qt.shape != kt.shape or vt.shape[0] != qt.shape[0] or vt.shape[2] != qt.shape[2]:
         raise ValueError(
-            f"flash_fwd shape mismatch: qt {tuple(qt.shape)}, kt {tuple(kt.shape)}, "
+            f"flash attention shape mismatch: qt {tuple(qt.shape)}, kt {tuple(kt.shape)}, "
             f"vt {tuple(vt.shape)}"
         )
     if not (qt.device == kt.device == vt.device):
-        raise ValueError("flash_fwd operands lie on different devices")
+        raise ValueError("flash attention operands lie on different devices")
+
+
+def _check_kernel_operands(
+    name: str, tensors: dict[str, torch.Tensor]
+) -> tuple[int, int, int, int]:
+    """The CUDA kernels' input rules; returns (B, D, N, C) of qt and vt."""
+    for key, x in tensors.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"the CUDA {name} kernel takes float32; {key} is {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"the CUDA {name} kernel takes contiguous operands; {key} is not")
+    b, d, n = tensors["qt"].shape
+    c = tensors["vt"].shape[1]
+    if (d, c) not in KERNEL_HEAD_WIDTHS:
+        raise ValueError(
+            f"the CUDA {name} kernel is built for (D, C) in {sorted(KERNEL_HEAD_WIDTHS)}, "
+            f"not ({d}, {c})"
+        )
+    if b > 65535:  # the batch is the kernel grid's y dimension
+        raise ValueError(f"the CUDA {name} kernel takes B <= 65535, not {b}")
+    return b, d, n, c
 
 
 def flash_fwd(
@@ -91,22 +149,7 @@ def flash_fwd(
         return out_t.to(vt.dtype), lse
     if qt.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu tensors, not {qt.device}")
-    for name, x in (("qt", qt), ("kt", kt), ("vt", vt)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"the CUDA flash_fwd kernel takes float32; {name} is {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"the CUDA flash_fwd kernel takes contiguous operands; {name} is not")
-    if torch.is_grad_enabled() and (qt.requires_grad or kt.requires_grad or vt.requires_grad):
-        raise RuntimeError("the CUDA flash_fwd kernel has no backward yet; call it without grad")
-    b, d, n = qt.shape
-    c = vt.shape[1]
-    if (d, c) not in KERNEL_HEAD_WIDTHS:
-        raise ValueError(
-            f"the CUDA flash_fwd kernel is built for (D, C) in {sorted(KERNEL_HEAD_WIDTHS)}, "
-            f"not ({d}, {c})"
-        )
-    if b > 65535:  # the batch is the kernel grid's y dimension
-        raise ValueError(f"the CUDA flash_fwd kernel takes B <= 65535, not {b}")
+    b, d, n, c = _check_kernel_operands("flash_fwd", {"qt": qt, "kt": kt, "vt": vt})
     lib = _build.library()
     out_t = torch.empty(b, c, n, dtype=torch.float32, device=qt.device)
     lse = torch.empty(b, 1, n, dtype=torch.float32, device=qt.device)
@@ -122,6 +165,75 @@ def flash_fwd(
     return out_t, lse
 
 
+def flash_bwd(
+    qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, dot: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward: ``(dqt, dkt, dvt)`` from the forward's
+    operands, the output's gradient ``dot`` (B, C, N), the forward's ``lse``
+    and ``delta = sum_c dot * out_t`` (both (B, 1, N) float32).
+
+    A CUDA tensor launches the CUDA kernel, which takes contiguous float32
+    operands with (D, C) in ``KERNEL_HEAD_WIDTHS`` and raises on anything
+    else. A CPU tensor runs ``flash_bwd_reference``.
+    """
+    global flash_bwd_launches
+    _check_operands(qt, kt, vt)
+    b, _, n = qt.shape
+    if tuple(dot.shape) != tuple(vt.shape):
+        raise ValueError(f"flash_bwd: dot {tuple(dot.shape)} is not vt's shape {tuple(vt.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if tuple(x.shape) != (b, 1, n):
+            raise ValueError(f"flash_bwd: {name} {tuple(x.shape)} is not {(b, 1, n)}")
+    if not (dot.device == lse.device == delta.device == qt.device):
+        raise ValueError("flash attention operands lie on different devices")
+    if qt.device.type == "cpu":
+        dqt, dkt, dvt = flash_bwd_reference(qt, kt, vt, dot, lse, delta)
+        return dqt.to(qt.dtype), dkt.to(kt.dtype), dvt.to(vt.dtype)
+    if qt.device.type != "cuda":
+        raise ValueError(f"flash_bwd runs on cuda or cpu tensors, not {qt.device}")
+    b, d, n, c = _check_kernel_operands(
+        "flash_bwd", {"qt": qt, "kt": kt, "vt": vt, "dot": dot, "lse": lse, "delta": delta})
+    lib = _build.library()
+    key_blocks = -(-n // FLASH_BWD_KEYS_PER_BLOCK)
+    dqt, dkt = torch.empty_like(qt), torch.empty_like(kt)
+    dvt = torch.empty_like(vt)
+    dq_part = torch.empty(b, key_blocks, d, n, dtype=torch.float32, device=qt.device)
+    with torch.cuda.device(qt.device):
+        stream = torch.cuda.current_stream(qt.device).cuda_stream
+        rc = lib.tdt_flash_bwd_f32(
+            qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), dot.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dqt.data_ptr(), dkt.data_ptr(), dvt.data_ptr(),
+            dq_part.data_ptr(), b, n, d, c, key_blocks, ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd kernel launch failed: cudaError {rc}")
+    flash_bwd_launches += 1
+    return dqt, dkt, dvt
+
+
+class _FlashT(torch.autograd.Function):
+    """``out_t = flash_fwd(qt, kt, vt)[0]`` with ``flash_bwd`` as its
+    backward: JAX's ``_flash_t`` custom VJP (``_flash_t_fwd`` + ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, qt, kt, vt):
+        out_t, lse = flash_fwd(qt, kt, vt)
+        ctx.save_for_backward(qt, kt, vt, out_t, lse)
+        return out_t
+
+    @staticmethod
+    def backward(ctx, g_t):
+        qt, kt, vt, out_t, lse = ctx.saved_tensors
+        g_t = g_t.contiguous()
+        delta = (g_t.float() * out_t.float()).sum(1, keepdim=True)  # (B, 1, N)
+        return flash_bwd(qt, kt, vt, g_t, lse, delta)
+
+
+def _flash_t(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
+    return _FlashT.apply(qt, kt, vt)
+
+
 def _dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     logits = torch.matmul(q.float(), k.float().transpose(1, 2))
     attn = torch.softmax(logits, dim=-1)
@@ -129,9 +241,11 @@ def _dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_t(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
-    """Dense attention in the transposed (B, *, N) layout."""
+    """Dense attention in the transposed (B, *, N) layout. As in JAX, the
+    weights are rounded to ``vt.dtype`` before the value product, which
+    accumulates in float32."""
     logits = torch.matmul(qt.float().transpose(1, 2), kt.float())  # (B, N, M)
-    attn = torch.softmax(logits, dim=-1)
+    attn = torch.softmax(logits, dim=-1).to(vt.dtype).float()
     return torch.matmul(vt.float(), attn.transpose(1, 2)).to(vt.dtype)  # (B, C, N)
 
 
@@ -146,8 +260,7 @@ def flash_attention_unscaled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     if _use_dense(q.shape[1]):
         return _dense(q, k, v)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    out_t, _ = flash_fwd(qt, kt, vt)
-    return out_t.transpose(1, 2)
+    return _flash_t(qt, kt, vt).transpose(1, 2)
 
 
 def flash_attention_unscaled_t(
@@ -157,5 +270,4 @@ def flash_attention_unscaled_t(
     qt/kt (B, D, N), vt (B, C, N) -> (B, C, N)."""
     if _use_dense(qt.shape[-1]):
         return _dense_t(qt, kt, vt)
-    out_t, _ = flash_fwd(qt, kt, vt)
-    return out_t
+    return _flash_t(qt, kt, vt)
