@@ -12,11 +12,16 @@ MNIST DDPM main path (train, sample, checkpoint: the port's
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the kernels, built with one nvcc call from
-   ``tinydiffusion_torch/ops/csrc``;
+   ``tinydiffusion_torch/ops/csrc``: ptxas's registers, spills and shared
+   memory per kernel, the flash kernels' dynamic shared memory, and the
+   tensor-core instructions (HMMA, HGMMA) in each kernel's SASS
+   (``cuobjdump``); fails if a flash forward or backward kernel has none;
 3. kernel: the CUDA flash-attention forward against ``flash_fwd_reference``
-   at each shape the model gives it (B = 4), out and lse, and the times of
-   kernel, plain version and ``scaled_dot_product_attention`` (a yardstick
-   only; the port never calls it);
+   at each shape the model gives it (B = 4) and at two ragged N, out and lse;
+   two calls bit-equal; the times of kernel, plain version and
+   ``scaled_dot_product_attention`` (a yardstick only; the port never calls
+   it); the bound (products at the TF32 tensor-core peak or bytes at the
+   memory rate), the CUDA cores' fp32 bound and the exp unit's time beside it;
 4. slice: reconstruct 4 synthetic images and decode 16 prior samples on the
    card, with the kernel launches counted over exactly that work; check
    shapes, finiteness, the [0, 1] range and the card against the port's own
@@ -41,9 +46,10 @@ MNIST DDPM main path (train, sample, checkpoint: the port's
    weights' update;
 9. sample: the 1000-step DDPM from ``diffusion_final``, 16 samples;
 10. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
-    at each flash site (B = 4) and at a ragged N, dq, dk and dv; two calls
+    at each flash site (B = 4) and at two ragged N, dq, dk and dv; two calls
     bit-equal; the times of kernel, plain version and the backward of
-    ``scaled_dot_product_attention`` (a yardstick only);
+    ``scaled_dot_product_attention`` (a yardstick only), with the bounds of
+    the ``kernel`` phase;
 11. flash_autograd: gradients through ``flash_attention_unscaled_t`` (the
     autograd Function over both kernels) on the card against the CPU;
 12. vae_train: the conv-VAE's ``run()`` at full width (256x256, batch 4,
@@ -95,9 +101,17 @@ CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_laion_best")
 UNET_CHECKPOINT = os.path.join(REPO, "checkpoints", "diffusion_final")
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A float32
+# product takes at least one TF32 tensor-core pass, so the TF32 rate bounds the
+# flash kernels' products whatever computes them; the CUDA cores' fp32 rate is
+# printed beside it (fp32_core_bound_ms) for the one-thread-a-row kernels.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# The exp unit (MUFU): 16 ex2 a clock on each of the 132 SMs at the 1.98 GHz
+# boost clock. One exp per (query, key) pair: context only (sfu_ms), since a
+# kernel may compute some exps on the FMA pipes.
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 # Kernel vs plain version, both float32 on the card: they differ only in
 # summation order and exp2 vs exp, ~1e-6 relative on logits of |s| <= ~15.
@@ -116,6 +130,9 @@ CARD_VS_CPU_ATOL = 1e-3
 # N = 1024) takes the dense path, as in JAX.
 KERNEL_SITES = ((16384, 4, 32), (4096, 8, 64))
 KERNEL_BATCH = 4
+# Ragged sites, B = 1: N = 1000 leaves keys and queries past a tile; N = 1001
+# is not a multiple of 4, so the kernels stage it 4 bytes a copy, not 16.
+RAGGED_SITES = ((1000, 4, 32), (1001, 8, 64))
 N_RECON, N_PRIOR = 4, 16
 
 # q_sample kernel vs plain version on the same Philox stream: z differs only
@@ -180,24 +197,29 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound_ms(b: int, n: int, d: int, c: int) -> tuple[float, str]:
-    """Least time of the forward on an H100: larger of FLOPs and bytes over peak."""
-    flops = 2.0 * b * n * n * (d + c)
-    # read qt, kt, vt once; write out and lse once (float32)
-    nbytes = 4.0 * b * n * (2 * d + c + c + 1)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def _flash_bounds(b: int, n: int, flops: float, nbytes: float) -> dict:
+    """The least time of a flash kernel on an H100: the larger of its products'
+    FLOPs at the TF32 tensor-core peak and its bytes at the memory rate; beside
+    it the CUDA-core fp32 bound and the exp unit's time for one exp a pair."""
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "fp32_core_bound_ms": 1e3 * max(flops / PEAK_FP32_FLOPS, t_bytes),
+            "sfu_ms": 1e3 * b * n * n / SFU_EXP_PER_S}
 
 
-def flash_bwd_bound_ms(b: int, n: int, d: int, c: int) -> tuple[float, str]:
-    """Least time of the backward on an H100: larger of FLOPs and bytes over
-    peak. Per (query, key) pair: the logit (D), dv (C), dp (C), dk (D) and
-    dq (D) products; the exp and ds are small beside them."""
-    flops = 2.0 * b * n * n * (3 * d + 2 * c)
-    # read qt, kt, vt, dOt, lse, delta once; write dqt, dkt, dvt once (float32)
-    nbytes = 4.0 * b * n * ((2 * d + 2 * c + 2) + (2 * d + c))
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def flash_bound_ms(b: int, n: int, d: int, c: int) -> dict:
+    """Bounds of the forward: 2*B*N^2*(D + C) FLOPs (the logit and value
+    products); read qt, kt, vt once, write out and lse once (float32)."""
+    return _flash_bounds(b, n, 2.0 * b * n * n * (d + c), 4.0 * b * n * (2 * d + c + c + 1))
+
+
+def flash_bwd_bound_ms(b: int, n: int, d: int, c: int) -> dict:
+    """Bounds of the backward. Per (query, key) pair: the logit (D), dv (C),
+    dp (C), dk (D) and dq (D) products; the exp and ds are small beside them.
+    Read qt, kt, vt, dOt, lse, delta once; write dqt, dkt, dvt once (float32)."""
+    return _flash_bounds(b, n, 2.0 * b * n * n * (3 * d + 2 * c),
+                         4.0 * b * n * ((2 * d + 2 * c + 2) + (2 * d + c)))
 
 
 def _attention_operands(rng, b: int, n: int, d: int, c: int):
@@ -214,11 +236,11 @@ def _attention_operands(rng, b: int, n: int, d: int, c: int):
 def phase_flash_bwd_kernel() -> list[dict]:
     """The CUDA backward against ``flash_bwd_reference`` at each flash site
     (B = 4), with the forward's own lse and a random output gradient; two
-    calls bit-equal; a ragged N; kernel, plain and SDPA-backward times."""
+    calls bit-equal; two ragged N; kernel, plain and SDPA-backward times."""
     rng = np.random.default_rng(SEED + 11)
     sites = []
-    for n, d, c in KERNEL_SITES + ((1000, 4, 32),):
-        b = KERNEL_BATCH if n != 1000 else 1  # N = 1000: keys and queries past a block
+    for n, d, c in KERNEL_SITES + RAGGED_SITES:
+        b = KERNEL_BATCH if (n, d, c) in KERNEL_SITES else 1
         qt, kt, vt = _attention_operands(rng, b, n, d, c)
         out_t, lse = attention.flash_fwd_reference(qt, kt, vt)
         dot = torch.from_numpy(rng.standard_normal((b, c, n), np.float32)).cuda()
@@ -238,7 +260,7 @@ def phase_flash_bwd_kernel() -> list[dict]:
             torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=BWD_RTOL)
         if not deterministic:
             raise RuntimeError(f"flash_bwd kernel: two calls differ at N = {n}")
-        if n != 1000:
+        if b == KERNEL_BATCH:
             q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous().requires_grad_()
                           for x in (qt, kt, vt))
             g4 = dot.transpose(1, 2).unsqueeze(1).contiguous()
@@ -247,7 +269,7 @@ def phase_flash_bwd_kernel() -> list[dict]:
             site["plain_ms"] = cuda_ms(lambda: attention.flash_bwd_reference(*args), iters=3)
             site["library_ms"] = cuda_ms(
                 lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), iters=3)
-            site["bound_ms"], site["bound_by"] = flash_bwd_bound_ms(b, n, d, c)
+            site.update(flash_bwd_bound_ms(b, n, d, c))
             site["roofline_share"] = site["bound_ms"] / site["ms"]
             del q4, k4, v4, g4, o4
         emit("flash_bwd_kernel", name="flash_bwd", atol=BWD_ATOL, rtol=BWD_RTOL, **site)
@@ -294,44 +316,83 @@ def phase_device() -> dict:
     return device
 
 
+def _tensor_core_counts(library: str) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions in the SASS of each kernel of the library, by
+    demangled name, from ``cuobjdump --dump-sass``: HMMA (mma.sync) and HGMMA
+    (wgmma, Hopper's warpgroup product)."""
+    bin_dir = os.path.dirname(_build.find_nvcc())
+    sass = subprocess.run([os.path.join(bin_dir, "cuobjdump"), "--dump-sass", library],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[name][op] += 1
+    filt = os.path.join(bin_dir, "cu++filt")
+    if counts and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(counts), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+        counts = dict(zip(names, counts.values()))
+    return counts
+
+
 def phase_build() -> None:
     build = _build.build()
     ptxas = [ln.strip() for ln in build.log.splitlines()
              if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+    tensor_core = _tensor_core_counts(str(build.path))
+    flash = {k: v for k, v in tensor_core.items() if "flash_" in k and "dq_sum" not in k}
+    if not any("flash_fwd" in k for k in flash) or not any("flash_bwd" in k for k in flash):
+        raise RuntimeError(f"build: no flash kernels in the SASS: {sorted(tensor_core)}")
+    missing = [k for k, v in flash.items() if not sum(v.values())]
+    if missing:
+        raise RuntimeError(f"build: flash kernels without tensor-core instructions: {missing}")
+    lib = _build.library()
+    smem = {f"{name} ({d}, {c})": getattr(lib, f"tdt_{name}_smem_bytes")(d, c)
+            for name in ("flash_fwd", "flash_bwd") for d, c in sorted(attention.KERNEL_HEAD_WIDTHS)}
     emit("build", seconds=round(build.seconds, 3), cached=build.seconds == 0.0,
-         library=os.path.relpath(build.path, REPO), ptxas=ptxas)
+         library=os.path.relpath(build.path, REPO), ptxas=ptxas, tensor_core=tensor_core,
+         dynamic_smem_bytes=smem)
 
 
 def phase_kernel() -> list[dict]:
+    """The CUDA forward against ``flash_fwd_reference`` at each flash site
+    (B = 4) and at two ragged N, out and lse; two calls bit-equal; kernel,
+    plain and SDPA times at the sites."""
     rng = np.random.default_rng(SEED)
     sites = []
-    for n, d, c in KERNEL_SITES:
-        b = KERNEL_BATCH
-        # q, k ~ N(0, a^2) with a^2 = 2 / sqrt(D): logits have std 2, and their
-        # extremes over B*N^2 pairs reach +-10 and beyond, as the model's do.
-        a = (2.0 / d**0.5) ** 0.5
-        qt, kt = (torch.from_numpy(a * rng.standard_normal((b, d, n), np.float32)).cuda()
-                  for _ in range(2))
-        vt = torch.from_numpy(rng.standard_normal((b, c, n), np.float32)).cuda()
+    for n, d, c in KERNEL_SITES + RAGGED_SITES:
+        b = KERNEL_BATCH if (n, d, c) in KERNEL_SITES else 1
+        qt, kt, vt = _attention_operands(rng, b, n, d, c)
         out_k, lse_k = attention.flash_fwd(qt, kt, vt)
+        again = attention.flash_fwd(qt, kt, vt)
         out_r, lse_r = attention.flash_fwd_reference(qt, kt, vt)
         torch.cuda.synchronize()
         torch.testing.assert_close(out_k, out_r, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
         torch.testing.assert_close(lse_k, lse_r, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+        if not (torch.equal(again[0], out_k) and torch.equal(again[1], lse_k)):
+            raise RuntimeError(f"flash_fwd kernel: two calls differ at N = {n}")
         err = max((out_k - out_r).abs().max().item(), (lse_k - lse_r).abs().max().item())
-        # (B, 1, N, D) views for the library yardstick, made outside its timing.
-        q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous() for x in (qt, kt, vt))
-        ms = cuda_ms(lambda: attention.flash_fwd(qt, kt, vt), iters=20)
-        plain_ms = cuda_ms(lambda: attention.flash_fwd_reference(qt, kt, vt), iters=5)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0),
-                             iters=5)
-        bound_ms, bound_by = flash_bound_ms(b, n, d, c)
-        site = {"B": b, "N": n, "D": d, "C": c, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "roofline_share": bound_ms / ms}
+        site = {"B": b, "N": n, "D": d, "C": c, "max_abs_err": err,
+                "bit_equal_over_two_calls": True}
+        if b == KERNEL_BATCH:
+            # (B, 1, N, D) views for the library yardstick, made outside its timing.
+            q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous() for x in (qt, kt, vt))
+            site["ms"] = cuda_ms(lambda: attention.flash_fwd(qt, kt, vt), iters=20)
+            site["plain_ms"] = cuda_ms(lambda: attention.flash_fwd_reference(qt, kt, vt),
+                                       iters=5)
+            site["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), iters=5)
+            site.update(flash_bound_ms(b, n, d, c))
+            site["roofline_share"] = site["bound_ms"] / site["ms"]
+            del q4, k4, v4
         emit("kernel", name="flash_fwd", atol=KERNEL_ATOL, rtol=KERNEL_RTOL, **site)
         sites.append(site)
-        del qt, kt, vt, q4, k4, v4, out_k, out_r
+        del qt, kt, vt, out_k, lse_k, again, out_r, lse_r
         torch.cuda.empty_cache()
     return sites
 
@@ -790,8 +851,8 @@ def phase_vae_train_parity() -> dict:
 
 
 def _profile_window(name: str, fn, **fields) -> None:
-    """Device time by kernel over one warm call of ``fn``, and the device's
-    busy share of the window."""
+    """Device time by kernel over one warm call of ``fn``, the device's busy
+    share of the window, and the flash kernels' device time in it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
@@ -813,6 +874,7 @@ def _profile_window(name: str, fn, **fields) -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     emit("profile", window=name, window_ms=window_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / window_ms, kernel_launches=sum(n for _, n in kernels.values()),
+         flash_ms=sum(ms for k, (ms, _) in kernels.items() if "flash_" in k),
          top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, (ms, n) in top], **fields)
 
 
@@ -875,6 +937,10 @@ def main() -> int:
     phase_vae_train_parity()
     main_site = sites[0]  # N = 16384: the largest share of the kernel's work
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # fp32_core_bound_ms and sfu_ms are worked out, not measured: they stay in the
+    # phase lines, out of the kernels line.
+    context = ("fp32_core_bound_ms", "sfu_ms")
+    flash_keys = keys + ("roofline_share",)
     kernels = [
         {
             "name": "flash_fwd",
@@ -885,8 +951,8 @@ def main() -> int:
             "launches": launches,
             "launches_vae_train": vae["launches"]["flash_fwd"],
             "max_abs_err": max(s["max_abs_err"] for s in sites),
-            **{k: main_site[k] for k in keys},
-            "sites": sites,
+            **{k: main_site[k] for k in flash_keys},
+            "sites": [{k: v for k, v in s.items() if k not in context} for s in sites],
         },
         {
             "name": "qsample",
@@ -906,8 +972,8 @@ def main() -> int:
             "replaces": "tinydiffusion_tpu/ops/attention.py:193",
             "launches": vae["launches"]["flash_bwd"],
             "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
-            **{k: bwd_sites[0][k] for k in keys},  # N = 16384
-            "sites": bwd_sites,
+            **{k: bwd_sites[0][k] for k in flash_keys},  # N = 16384
+            "sites": [{k: v for k, v in s.items() if k not in context} for s in bwd_sites],
         },
     ]
     if args.profile:

@@ -8,6 +8,9 @@ kernel itself is held against the same plain version on the card by
 ``chip_smoke.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from tinydiffusion_tpu.ops import attention as jax_attention
-from tinydiffusion_torch.ops import attention
+from tinydiffusion_torch.ops import _build, attention
 
 # Both sides float32; the JAX kernel's bf16x3 logit products carry ~4e-6
 # relative logit error, which exp turns into ~1e-4 on the outputs: the JAX
@@ -282,3 +285,61 @@ def test_bf16_dense_t_rounds_the_weights_like_jax():
     attn = torch.softmax(torch.matmul(tq.float().transpose(1, 2), tk.float()), dim=-1)
     old = torch.matmul(tv.float(), attn.transpose(1, 2)).to(tv.dtype)
     assert missed(old) > 0.1
+
+
+# --- the CUDA kernels' precision budget and tile constants, on the CPU -----------
+
+def _tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' split (csrc/tf32_mma.cuh::split) in plain torch: hi is x
+    rounded to the nearest tf32 (ties away from zero, as cvt.rna) with the low
+    13 bits cleared; lo = x - hi is exact, and the tensor core reads only its
+    top 19 bits (the low 13 truncated)."""
+    bits = x.view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """lo_a hi_b + hi_a lo_b + hi_a hi_b in float32: each product of two tf32
+    values is exact in float32, so only the sums round."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+def test_3xtf32_products_keep_float32_accuracy(d, c):
+    """The design's precision choice, checked before any card run: the plain
+    forward with both products (logits and values) in emulated 3xTF32 stays
+    within 1e-5 of the float32 plain version. Inputs as chip_smoke.py draws
+    them: q, k ~ N(0, 2 / sqrt(D)), v ~ N(0, 1)."""
+    qt, kt, vt = (torch.from_numpy(_t(x)) for x in _qkv(2, 2048, d, c, seed=80 + d))
+    s = _matmul_3xtf32(qt.transpose(1, 2).contiguous(), kt)  # (B, N, N)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = _matmul_3xtf32(vt, p.transpose(1, 2).contiguous())  # (B, C, N)
+    want_out, want_lse = attention.flash_fwd_reference(qt, kt, vt)
+    assert (out - want_out).abs().max().item() <= 1e-5
+    assert (lse[:, None] - want_lse).abs().max().item() <= 1e-5
+    # One tf32 pass on the values alone is far outside that budget.
+    vh, _ = _tf32_split(vt)
+    one_pass = torch.matmul(vh, p.transpose(1, 2))
+    assert (one_pass - want_out).abs().max().item() > 1e-4
+
+
+def _source_constant(name: str, source: str) -> int:
+    text = (Path(_build._CSRC) / source).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert len(found) == 1, (name, source, found)
+    return int(found[0])
+
+
+def test_wrapper_tile_constants_match_the_kernel_sources():
+    """The backward's scratch holds ceil(N / keys per block) dq partials: the
+    wrapper's FLASH_BWD_KEYS_PER_BLOCK must be the kernel's kKeysPerBlock, or
+    every launch is refused (the launcher checks key_blocks) or the scratch is
+    sized wrong."""
+    assert attention.FLASH_BWD_KEYS_PER_BLOCK == _source_constant(
+        "kKeysPerBlock", "flash_bwd.cu")
+    launcher = (Path(_build._CSRC) / "flash_bwd.cu").read_text()
+    assert "key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock" in launcher

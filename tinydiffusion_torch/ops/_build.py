@@ -2,10 +2,11 @@
 
 Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call into
 ``tinydiffusion_torch/_build/<hash>/libtdt_kernels.so``, where ``<hash>``
-covers the sources and the flags, so an edited source rebuilds and an
-unchanged one loads the library that is there. The sources have a plain C
-interface and include no PyTorch header, which keeps the build to seconds
-(a ``torch.utils.cpp_extension`` build takes minutes). The build runs on the
+covers the sources, their ``csrc/*.cuh`` headers and the flags, so an
+edited source rebuilds and an unchanged one loads the library that is
+there. The sources have a plain C interface and include no PyTorch header,
+which keeps the build to seconds (a ``torch.utils.cpp_extension`` build takes
+minutes). The build runs on the
 first launch of a kernel, never at import: a machine without ``nvcc`` (the
 CPU test machines) imports this module and never calls it.
 """
@@ -59,8 +60,9 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources: list[Path]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(_CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -90,8 +92,8 @@ def build() -> Build:
 
 _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 
-# The ctypes signature of every ``extern "C"`` launcher in ``csrc/``. Each
-# returns its launch's cudaError_t as an int. Without argtypes ctypes would
+# The ctypes signature of every ``extern "C"`` function in ``csrc/``. Each
+# returns an int: a launcher its launch's cudaError_t. Without argtypes ctypes would
 # pass every Python int as a 32-bit C int and cut the pointers, so
 # ``library()`` declares them all from this one table, and a test checks that
 # it names every launcher the sources define.
@@ -100,6 +102,9 @@ SIGNATURES: dict[str, tuple] = {
     "tdt_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, batch, n, d, c, key_blocks, stream
     "tdt_flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # d, c -> bytes of the kernel's dynamic shared memory (forward; backward pair kernel)
+    "tdt_flash_fwd_smem_bytes": (_I, _I),
+    "tdt_flash_bwd_smem_bytes": (_I, _I),
     # x0, t, sqrt_abar, sqrt_1m_abar, xt, z, batch, feat, num_timesteps, seed, stream
     "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _U64, _P),
 }

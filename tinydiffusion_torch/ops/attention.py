@@ -14,7 +14,8 @@ the flash forward otherwise. The CUDA kernel tiles itself and takes any N.
 
 The flash forward is ``flash_fwd``: on a CUDA tensor it launches the
 hand-written kernel ``csrc/flash_fwd.cu`` (which replaces the TPU's
-``_fwd_kernel``) and counts the launch in ``flash_fwd_launches``; on a CPU
+``_fwd_kernel``; tensor cores, every product in 3xTF32, float32-accurate) and
+counts the launch in ``flash_fwd_launches``; on a CPU
 tensor it runs the plain version ``flash_fwd_reference``. The backward is
 ``flash_bwd`` in the same way: ``csrc/flash_bwd.cu`` (the TPU's
 ``_bwd_fused_kernel``), ``flash_bwd_launches``, ``flash_bwd_reference``.
@@ -46,8 +47,9 @@ KERNEL_HEAD_WIDTHS = frozenset({(4, 32), (8, 64)})
 flash_fwd_launches = 0
 flash_bwd_launches = 0
 
-# Keys per block of the backward kernel (``kThreads`` in csrc/flash_bwd.cu):
-# it sizes the kernel's scratch of per-key-block dq partials.
+# Keys per block of the backward kernel (``kKeysPerBlock`` in
+# csrc/flash_bwd.cu; a test ties the two): it sizes the kernel's scratch of
+# per-key-block dq partials.
 FLASH_BWD_KEYS_PER_BLOCK = 64
 
 

@@ -11,157 +11,371 @@
 // Layout, as the forward: qt, kt (B, D, N), vt, dOt (B, C, N), lse and delta
 // (B, 1, N), all contiguous; outputs dqt, dkt (B, D, N), dvt (B, C, N).
 //
-// Design (one visit per (query, key) pair, as the TPU kernel; simple first):
-// - One block per (batch, block of kThreads keys), one thread per key. Its
-//   k_j, v_j and the accumulators dk_j, dv_j stay in float32 registers.
-// - The block walks all queries in tiles of kThreads. A tile's q, dO, lse
-//   (converted to base 2 once) and delta are staged in shared memory and
-//   read as broadcasts, as flash_fwd.cu stages keys.
-// - Each thread writes its ds_ij for the tile into a shared (query, key)
-//   matrix. After a barrier the roles swap: thread t owns query t of the
-//   tile and sums ds_tj * k_j over the block's keys, a (64 x 64) x (64 x D)
-//   product read from shared memory without bank conflicts (padded rows).
-// - That sum is the block's partial dq for the tile, written to a buffer
-//   (B, N / kThreads, D, N). A second kernel adds the partials of the key
-//   blocks in a fixed order. No atomics: two calls give the same bits.
+// Design (one visit per (query, key) pair, as the TPU kernel). S^T = K Q^T
+// and the two products over C (dP^T and dV), which carry 2C + D of the pair's
+// 2C + 3D multiply-adds, run on the tensor cores by 3xTF32 wgmma (fragments,
+// split and accumulation rule in tf32_mma.cuh); dK and dQ, over D <= 8, run as
+// float32 FMAs on the CUDA cores.
+// - A block is one warpgroup and owns kKeysPerBlock = 64 keys, 16 a warp (the
+//   64 rows of wgmma). Its V, split, sits in shared memory as wgmma's A; each
+//   warp keeps its K fragment (split) and each thread its dK sums in
+//   registers, the warpgroup its dV sums in wgmma accumulators.
+// - Query tiles of kBlockQ queries: the D rows of q, the C rows of dO, lse and
+//   delta, contiguous in the (B, *, N) layout, are copied with cp.async into a
+//   staging buffer. After a barrier the block splits q and dO once into the
+//   layouts wgmma reads (below), takes lse to base 2 (+inf for queries past N)
+//   and copies q, lse and delta out of the staging buffer; after a second
+//   barrier it issues the copy of the next tile, which runs while the warps
+//   compute.
+// - Per tile: S^T = K Q^T (m64n64, k8 over d, K pre-scaled by log2(e)) and
+//   dP^T = V dO^T (m64n64, over C) are issued; P^T = 2^(S^T - lse log2(e))
+//   runs while dP^T computes; then, per k8 step of queries, dV += P^T dO
+//   (m64nC) is issued with P^T taken from registers by the key permutation of
+//   tf32_mma.cuh, and dS^T = P^T (dP^T - delta) and dK += dS^T Q by FMAs (per
+//   thread over its queries; the quad's four partial sums are added once, at
+//   the end) run while it computes.
+// - dQ = dS K needs dS, not dS^T: the warps write dS^T into a shared (query,
+//   key) matrix; after a barrier each thread sums one query's dS row times the
+//   block's K (float32, its share of the D columns) over the block's 64 keys.
+// - That sum is the block's partial dq for the tile, written to scratch
+//   (B, N / kKeysPerBlock, D, N). A second kernel adds the partials of the
+//   key blocks in a fixed order. No atomics: two calls give the same bits.
+// - Keys past N weigh 0 (p forced to 0); queries past N are zero-filled, get
+//   lse = +inf, so p = 0, and are not stored.
 //
-// Bound on an H100: 2*B*N^2*(3D + 2C) float32 FLOPs (one fused multiply-add
-// per pair and per D or C element: the logit, dv, dp, dk and dq products)
-// against a few MB of operands, so the work is compute-bound (N=16384, D=4,
-// C=32, B=4: 163 GFLOP, 2.44 ms at 67 TFLOP/s). The partials add
-// 2 * 4 * B * (N / 64) * D * N bytes (512 MiB moved at N=16384, D=4, B=4).
-// The tensor cores are left for a later version.
+// Bound on an H100: 2*B*N^2*(3D + 2C) FLOPs of products (N=16384, D=4, C=32,
+// B=4: 163 GFLOP, 0.330 ms at the 495 TFLOP/s TF32 tensor-core peak) and one
+// exp per pair (0.257 ms at the MUFU rate). The partials add 2 * 4 * B *
+// (N / 64) * D * N bytes (512 MiB moved at N=16384, D=4, B=4).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 64;  // keys per block (one per thread) = queries per tile
-constexpr int kPad = 4;       // floats of row padding that keep rows 16-byte aligned
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace tdt;
+
+constexpr int kWarps = 4;  // one warpgroup
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKeysPerBlock = 64;  // the wrapper's FLASH_BWD_KEYS_PER_BLOCK
+static_assert(kKeysPerBlock == 16 * kWarps, "one wgmma row tile of keys");
+constexpr int kBlockQ = 64;               // queries per staged tile
+constexpr int kQStride = kBlockQ + 4;     // staged rows: = 4 (mod 32), conflict-free splits
+constexpr int kDsStride = kKeysPerBlock + 4;  // dS rows: conflict-free writes and float4 reads
+constexpr int kQuerySteps = kBlockQ / 8;
+constexpr int kCore = 32;  // one core matrix: 8 rows x 4 tf32 (128 bytes)
 
 template <int D, int C>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_f32_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
-                     const float* __restrict__ vt, const float* __restrict__ dot,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dkt, float* __restrict__ dvt,
-                     float* __restrict__ dq_part, int n) {
-  static_assert(D % 4 == 0 && C % 4 == 0, "float4 shared-memory reads");
-  __shared__ __align__(16) float qs[kThreads][D + kPad];   // the tile's q, query-major
-  __shared__ __align__(16) float dos[kThreads][C + kPad];  // the tile's dO
-  __shared__ float lse2s[kThreads];                        // lse * log2(e)
-  __shared__ float deltas[kThreads];
-  __shared__ __align__(16) float ks[kThreads][D + kPad];   // the block's keys
-  __shared__ float dss[kThreads][kThreads + 1];            // ds[query][key]
+struct Smem {
+  // Split for wgmma, in core matrices (tf32_mma.cuh):
+  // V (A of dP): for each group of 8 keys, the c chunks of 4 in order.
+  uint32_t v_hi[kKeysPerBlock * C], v_lo[kKeysPerBlock * C];
+  // q as B of S^T (K = d): for each group of 8 queries, d 0-3 then d 4-7
+  // (zero for D = 4).
+  uint32_t qd_hi[kBlockQ * 8], qd_lo[kBlockQ * 8];
+  union {
+    // dO as B of dP (K = c): for each group of 8 queries, the c chunks in
+    // order. Dead once dP^T is done, when dS takes its place.
+    struct {
+      uint32_t doc_hi[kBlockQ * C], doc_lo[kBlockQ * C];
+    };
+    float ds[kBlockQ][kDsStride];  // dS of the tile: [query][key]
+  };
+  // dO as B of dV (K = query): for each group of 8 values of c, the query
+  // chunks, P's query order within a k8 step (first 0, 2, 4, 6, then 1, 3, 5, 7).
+  uint32_t doq_hi[kBlockQ * C], doq_lo[kBlockQ * C];
+  float q[D][kQStride];  // the staging buffer cp.async fills
+  float dO[C][kQStride];
+  float lse[kBlockQ];
+  float delta[kBlockQ];
+  float q_s[D][kBlockQ];  // the tile's q, lse and delta, out of the staging buffer
+  float lse2[kBlockQ];    // lse * log2(e); +inf for queries past N
+  float delta_s[kBlockQ];
+  float k[kKeysPerBlock][D];              // the block's K, key-major, for dQ
+};
+
+// Blocks an SM must hold: at C = 32 the registers are capped for 3 (the shared
+// memory allows 3); at C = 64 the shared memory allows only 1.
+template <int C>
+constexpr int kMinBlocks = C == 32 ? 3 : 1;
+
+template <int D, int C, bool kVec4>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<C>)
+flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
+                    const float* __restrict__ vt, const float* __restrict__ dot,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dkt, float* __restrict__ dvt,
+                    float* __restrict__ dq_part, int n) {
+  static_assert(D == 4 || D == 8, "the dQ columns split evenly over the threads");
+  static_assert(C == 32 || C == 64, "dV is one m64n32 or m64n64");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem<D, C>& sm = *reinterpret_cast<Smem<D, C>*>(smem_raw);
 
   const int b = blockIdx.y;
   const int kb = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int key = kb * kThreads + tid;
-  const bool key_active = key < n;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key_base = kb * kKeysPerBlock;
+  const int key0 = key_base + warp * 16 + g;  // this thread's rows: key0 and key0 + 8
+  const bool key_ok0 = key0 < n, key_ok1 = key0 + 8 < n;
   const size_t bn = static_cast<size_t>(b) * n;
-  const float* qb = qt + bn * D;
-  const float* dob = dot + bn * C;
+  const float* kbp = kt + bn * D;
+  const float* vb = vt + bn * C;
 
-  float k[D], v[C], dk[D], dv[C];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    k[d] = key_active ? kt[(bn * D) + static_cast<size_t>(d) * n + key] : 0.f;
-    ks[tid][d] = k[d];
-    dk[d] = 0.f;
+  // This warp's K in base 2 as A of S^T (rows = its 16 keys, columns = d),
+  // split once, and the block's K and V in shared memory.
+  auto k_at = [&](int d, int key) {
+    return (d < D && key < n) ? kbp[static_cast<size_t>(d) * n + key] * kLog2e : 0.f;
+  };
+  const FragA8 ka = split_a8(k_at(t, key0), k_at(t, key0 + 8), k_at(t + 4, key0),
+                             k_at(t + 4, key0 + 8));
+  for (int e = threadIdx.x; e < kKeysPerBlock * D; e += kThreads) {
+    const int key = e % kKeysPerBlock, d = e / kKeysPerBlock;
+    sm.k[key][d] = key_base + key < n ? kbp[static_cast<size_t>(d) * n + key_base + key] : 0.f;
   }
+  for (int e = threadIdx.x; e < kKeysPerBlock * C / 4; e += kThreads) {
+    const int key = e % kKeysPerBlock, cc = e / kKeysPerBlock;
+    Tf32x2 x[4];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    v[c] = key_active ? vt[(bn * C) + static_cast<size_t>(c) * n + key] : 0.f;
-    dv[c] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      x[i] = split(key_base + key < n ? vb[static_cast<size_t>(4 * cc + i) * n + key_base + key]
+                                      : 0.f);
+    }
+    const int off = ((key / 8) * (C / 4) + cc) * kCore + (key % 8) * 4;
+    *reinterpret_cast<uint4*>(sm.v_hi + off) = make_uint4(x[0].hi, x[1].hi, x[2].hi, x[3].hi);
+    *reinterpret_cast<uint4*>(sm.v_lo + off) = make_uint4(x[0].lo, x[1].lo, x[2].lo, x[3].lo);
   }
 
-  for (int q0 = 0; q0 < n; q0 += kThreads) {
-    const int qi = q0 + tid;
-    const bool q_active = qi < n;
-    __syncthreads();  // the previous tile's readers of qs, dos and dss are done
+  float dv[C / 2];  // accumulator layout: element 4i + e of the n8 tile i of c
 #pragma unroll
-    for (int d = 0; d < D; ++d) qs[tid][d] = q_active ? qb[static_cast<size_t>(d) * n + qi] : 0.f;
+  for (int i = 0; i < C / 2; ++i) dv[i] = 0.f;
+  float dk0[D], dk1[D];  // this thread's share (its queries) of dK for its keys
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dos[tid][c] = q_active ? dob[static_cast<size_t>(c) * n + qi] : 0.f;
-    }
-    // A query past N gets lse = +inf, so p = exp2(-inf) = 0 and it adds nothing.
-    lse2s[tid] = q_active ? lse[bn + qi] * kLog2e : INFINITY;
-    deltas[tid] = q_active ? delta[bn + qi] : 0.f;
-    __syncthreads();
+  for (int d = 0; d < D; ++d) dk0[d] = dk1[d] = 0.f;
 
-    // Phase 1: thread = key j; every query i of the tile.
-    for (int i = 0; i < kThreads; ++i) {
-      const float4* qr = reinterpret_cast<const float4*>(qs[i]);
-      float s = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 qv = qr[d4];
-        s = fmaf(qv.x, k[4 * d4 + 0], s);
-        s = fmaf(qv.y, k[4 * d4 + 1], s);
-        s = fmaf(qv.z, k[4 * d4 + 2], s);
-        s = fmaf(qv.w, k[4 * d4 + 3], s);
-      }
-      // A key past N weighs 0 (its k and v are 0, but exp(0 - lse) is not).
-      const float p = key_active ? exp2f(fmaf(s, kLog2e, -lse2s[i])) : 0.f;
-      const float4* gr = reinterpret_cast<const float4*>(dos[i]);
-      float dp0 = 0.f, dp1 = 0.f;  // two chains for the dO . v dot
-#pragma unroll
-      for (int c4 = 0; c4 < C / 4; ++c4) {
-        const float4 g = gr[c4];
-        dv[4 * c4 + 0] = fmaf(p, g.x, dv[4 * c4 + 0]);
-        dv[4 * c4 + 1] = fmaf(p, g.y, dv[4 * c4 + 1]);
-        dv[4 * c4 + 2] = fmaf(p, g.z, dv[4 * c4 + 2]);
-        dv[4 * c4 + 3] = fmaf(p, g.w, dv[4 * c4 + 3]);
-        dp0 = fmaf(g.x, v[4 * c4 + 0], dp0);
-        dp1 = fmaf(g.y, v[4 * c4 + 1], dp1);
-        dp0 = fmaf(g.z, v[4 * c4 + 2], dp0);
-        dp1 = fmaf(g.w, v[4 * c4 + 3], dp1);
-      }
-      const float ds = p * ((dp0 + dp1) - deltas[i]);
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 qv = qr[d4];
-        dk[4 * d4 + 0] = fmaf(ds, qv.x, dk[4 * d4 + 0]);
-        dk[4 * d4 + 1] = fmaf(ds, qv.y, dk[4 * d4 + 1]);
-        dk[4 * d4 + 2] = fmaf(ds, qv.z, dk[4 * d4 + 2]);
-        dk[4 * d4 + 3] = fmaf(ds, qv.w, dk[4 * d4 + 3]);
-      }
-      dss[i][tid] = ds;
-    }
-    __syncthreads();
+  const TileCopy<D, kBlockQ, kQStride, kThreads, kVec4> copy_q(&sm.q[0][0], qt + bn * D, n);
+  const TileCopy<C, kBlockQ, kQStride, kThreads, kVec4> copy_do(&sm.dO[0][0], dot + bn * C, n);
+  const TileCopy<1, kBlockQ, kBlockQ, kThreads, kVec4> copy_lse(sm.lse, lse + bn, n);
+  const TileCopy<1, kBlockQ, kBlockQ, kThreads, kVec4> copy_delta(sm.delta, delta + bn, n);
+  auto stage = [&](int q0) {
+    copy_q.issue(q0, n);
+    copy_do.issue(q0, n);
+    copy_lse.issue(q0, n);
+    copy_delta.issue(q0, n);
+    cp_async_commit();
+  };
+  constexpr uint32_t kCoreBytes = kCore * 4;
 
-    // Phase 2: thread = query q0 + tid; its dq over this block's keys.
-    if (q_active) {
-      float dq[D];
+  const int ntiles = (n + kBlockQ - 1) / kBlockQ;
+  float* part = dq_part + (static_cast<size_t>(b) * gridDim.x + kb) * D * n;
+  stage(0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = it * kBlockQ;
+    cp_async_wait<0>();
+    // Tile it is staged, and every warp is done with the planes, sm.ds and
+    // sm.lse2 (the previous tile); on the first tile, sm.k and V are written.
+    __syncthreads();
+    for (int e = threadIdx.x; e < kBlockQ * C / 4; e += kThreads) {  // dO, K = c
+      const int q = e % kBlockQ, cc = e / kBlockQ;
+      const Tf32x2 a = split(sm.dO[4 * cc][q]), b1 = split(sm.dO[4 * cc + 1][q]);
+      const Tf32x2 c2 = split(sm.dO[4 * cc + 2][q]), d3 = split(sm.dO[4 * cc + 3][q]);
+      const int off = ((q / 8) * (C / 4) + cc) * kCore + (q % 8) * 4;
+      *reinterpret_cast<uint4*>(sm.doc_hi + off) = make_uint4(a.hi, b1.hi, c2.hi, d3.hi);
+      *reinterpret_cast<uint4*>(sm.doc_lo + off) = make_uint4(a.lo, b1.lo, c2.lo, d3.lo);
+    }
+    for (int e = threadIdx.x; e < C * kQuerySteps; e += kThreads) {  // dO, K = query
+      const int c8 = e % 8, j = (e / 8) % kQuerySteps, cg = e / (8 * kQuerySteps);
+      const float4 x = *reinterpret_cast<const float4*>(&sm.dO[8 * cg + c8][8 * j]);
+      const float4 y = *reinterpret_cast<const float4*>(&sm.dO[8 * cg + c8][8 * j + 4]);
+      const Tf32x2 e0 = split(x.x), e1 = split(x.y), e2 = split(x.z), e3 = split(x.w);
+      const Tf32x2 e4 = split(y.x), e5 = split(y.y), e6 = split(y.z), e7 = split(y.w);
+      const int even = ((cg * kQuerySteps + j) * 2 * 8 + c8) * 4;
+      const int odd = even + kCore;
+      *reinterpret_cast<uint4*>(sm.doq_hi + even) = make_uint4(e0.hi, e2.hi, e4.hi, e6.hi);
+      *reinterpret_cast<uint4*>(sm.doq_lo + even) = make_uint4(e0.lo, e2.lo, e4.lo, e6.lo);
+      *reinterpret_cast<uint4*>(sm.doq_hi + odd) = make_uint4(e1.hi, e3.hi, e5.hi, e7.hi);
+      *reinterpret_cast<uint4*>(sm.doq_lo + odd) = make_uint4(e1.lo, e3.lo, e5.lo, e7.lo);
+    }
+    for (int e = threadIdx.x; e < 2 * kBlockQ; e += kThreads) {  // q, K = d
+      const int q = e % kBlockQ, dc = e / kBlockQ;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (4 * dc < D) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) dq[d] = 0.f;
-      for (int j = 0; j < kThreads; ++j) {
-        const float ds = dss[tid][j];  // row stride kThreads + 1: no bank conflicts
-        const float4* kr = reinterpret_cast<const float4*>(ks[j]);
+        for (int i = 0; i < 4; ++i) x[i] = sm.q[4 * dc + i][q];
+      }
+      const Tf32x2 a = split(x[0]), b1 = split(x[1]), c2 = split(x[2]), d3 = split(x[3]);
+      const int off = ((q / 8) * 2 + dc) * kCore + (q % 8) * 4;
+      *reinterpret_cast<uint4*>(sm.qd_hi + off) = make_uint4(a.hi, b1.hi, c2.hi, d3.hi);
+      *reinterpret_cast<uint4*>(sm.qd_lo + off) = make_uint4(a.lo, b1.lo, c2.lo, d3.lo);
+    }
+    for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+      // A query past N gets lse = +inf, so p = 2^-inf = 0 and it adds nothing.
+      sm.lse2[i] = q0 + i < n ? sm.lse[i] * kLog2e : INFINITY;
+      sm.delta_s[i] = sm.delta[i];
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 kv = kr[d4];
-          dq[4 * d4 + 0] = fmaf(ds, kv.x, dq[4 * d4 + 0]);
-          dq[4 * d4 + 1] = fmaf(ds, kv.y, dq[4 * d4 + 1]);
-          dq[4 * d4 + 2] = fmaf(ds, kv.z, dq[4 * d4 + 2]);
-          dq[4 * d4 + 3] = fmaf(ds, kv.w, dq[4 * d4 + 3]);
+      for (int d = 0; d < D; ++d) sm.q_s[d][i] = sm.q[d][i];
+    }
+    fence_proxy_async();  // the planes are read by wgmma
+    __syncthreads();      // the planes hold tile it; the staging buffer is free
+    if (it + 1 < ntiles) stage(q0 + kBlockQ);
+
+    // S^T = K Q^T (m64 x kBlockQ, k8 over d, base 2) and dP^T = V dO^T (over
+    // C): accumulator 4j + e is element e of the n8 tile j of the tile's
+    // queries (key key0 + 8 (e >> 1), tile query 8j + 2t + (e & 1)). dP^T
+    // runs while P^T is computed.
+    float s_acc[kBlockQ / 2], dp[kBlockQ / 2];
+#pragma unroll
+    for (int i = 0; i < kBlockQ / 2; ++i) {
+      s_acc[i] = dp[i] = 0.f;
+      reg_fence(s_acc[i]);
+      reg_fence(dp[i]);
+    }
+    wgmma_fence();
+    wgmma3_tf32<kBlockQ>(s_acc, ka, smem_desc(sm.qd_hi, kCoreBytes, 2 * kCoreBytes),
+                         smem_desc(sm.qd_lo, kCoreBytes, 2 * kCoreBytes));
+    wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < C / 8; ++i) {  // c chunks 2i and 2i + 1
+      wgmma3_tf32_ss<kBlockQ>(dp, smem_desc(sm.v_hi + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes),
+                              smem_desc(sm.v_lo + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes),
+                              smem_desc(sm.doc_hi + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes),
+                              smem_desc(sm.doc_lo + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is done
+#pragma unroll
+    for (int i = 0; i < kBlockQ / 2; ++i) reg_fence(s_acc[i]);
+
+    // P^T = 2^(S^T - lse log2(e)), 0 for keys past N.
+    float p[kBlockQ / 2];
+#pragma unroll
+    for (int j = 0; j < kQuerySteps; ++j) {
+      const float2 ls = *reinterpret_cast<const float2*>(&sm.lse2[8 * j + 2 * t]);
+      p[4 * j + 0] = ex2(s_acc[4 * j + 0] - ls.x);
+      p[4 * j + 1] = ex2(s_acc[4 * j + 1] - ls.y);
+      p[4 * j + 2] = ex2(s_acc[4 * j + 2] - ls.x);
+      p[4 * j + 3] = ex2(s_acc[4 * j + 3] - ls.y);
+    }
+    if (key_base + kKeysPerBlock > n) {  // the ragged last key block
+#pragma unroll
+      for (int j = 0; j < kQuerySteps; ++j) {
+        if (!key_ok0) p[4 * j + 0] = p[4 * j + 1] = 0.f;
+        if (!key_ok1) p[4 * j + 2] = p[4 * j + 3] = 0.f;
+      }
+    }
+    wgmma_wait<0>();  // dP^T is done
+#pragma unroll
+    for (int i = 0; i < kBlockQ / 2; ++i) reg_fence(dp[i]);
+    __syncthreads();  // every warp's dP^T is done: dS may overwrite the dO planes
+
+    // Per k8 step j of the tile's queries: issue dV += P^T dO (m64nC, P^T
+    // split into A by the key permutation), then, while it runs, dS^T = P^T
+    // (dP^T - delta), dK += dS^T Q (FMAs over this thread's queries) and dS
+    // into shared memory for dQ. dV's tile sum starts from zero.
+    float dv_t[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) {
+      dv_t[i] = 0.f;
+      reg_fence(dv_t[i]);
+    }
+    const int kc = warp * 16 + g;
+    FragA8 pa[kQuerySteps];
+#pragma unroll
+    for (int j = 0; j < kQuerySteps; ++j) {
+      const float* pj = p + 4 * j;
+      pa[j] = split_a8(pj[0], pj[2], pj[1], pj[3]);
+      wgmma_fence();
+      wgmma3_tf32<C>(dv_t, pa[j],
+                     smem_desc(sm.doq_hi + 2 * j * kCore, kCoreBytes, kBlockQ / 4 * kCoreBytes),
+                     smem_desc(sm.doq_lo + 2 * j * kCore, kCoreBytes, kBlockQ / 4 * kCoreBytes));
+      wgmma_commit();
+
+      const int qc = 8 * j + 2 * t;
+      const float2 dl = *reinterpret_cast<const float2*>(&sm.delta_s[qc]);
+      const float ds0 = pj[0] * (dp[4 * j + 0] - dl.x);
+      const float ds1 = pj[1] * (dp[4 * j + 1] - dl.y);
+      const float ds2 = pj[2] * (dp[4 * j + 2] - dl.x);
+      const float ds3 = pj[3] * (dp[4 * j + 3] - dl.y);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float2 qv = *reinterpret_cast<const float2*>(&sm.q_s[d][qc]);
+        dk0[d] = fmaf(ds0, qv.x, fmaf(ds1, qv.y, dk0[d]));
+        dk1[d] = fmaf(ds2, qv.x, fmaf(ds3, qv.y, dk1[d]));
+      }
+      sm.ds[qc][kc] = ds0;
+      sm.ds[qc + 1][kc] = ds1;
+      sm.ds[qc][kc + 8] = ds2;
+      sm.ds[qc + 1][kc + 8] = ds3;
+      wgmma_wait<1>();  // step j - 1 is done: its P registers are free
+      if (j > 0) reg_fence(pa[j - 1]);
+    }
+    wgmma_wait<0>();  // dV is done
+    reg_fence(pa[kQuerySteps - 1]);
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) {
+      reg_fence(dv_t[i]);
+      dv[i] += dv_t[i];
+    }
+    __syncthreads();  // the tile's dS is in shared memory
+
+    // dQ: thread = (tile query qi, share h of the D columns), over the 64 keys.
+    {
+      constexpr int kHalf = D * kBlockQ / kThreads;
+      const int qi = threadIdx.x % kBlockQ, h = threadIdx.x / kBlockQ;
+      float acc[kHalf];
+#pragma unroll
+      for (int d = 0; d < kHalf; ++d) acc[d] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < kKeysPerBlock; j += 4) {
+        const float4 dsv = *reinterpret_cast<const float4*>(&sm.ds[qi][j]);
+        const float w[4] = {dsv.x, dsv.y, dsv.z, dsv.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int d = 0; d < kHalf; ++d) acc[d] = fmaf(w[u], sm.k[j + u][h * kHalf + d], acc[d]);
         }
       }
-      float* part = dq_part + (static_cast<size_t>(b) * gridDim.x + kb) * D * n;
+      if (q0 + qi < n) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) part[static_cast<size_t>(d) * n + qi] = dq[d];
+        for (int d = 0; d < kHalf; ++d) {
+          part[static_cast<size_t>(h * kHalf + d) * n + q0 + qi] = acc[d];
+        }
+      }
     }
   }
 
-  if (key_active) {
+  // dK: add the quad's four shares (fixed order), then lane t = 0 stores.
 #pragma unroll
-    for (int d = 0; d < D; ++d) dkt[bn * D + static_cast<size_t>(d) * n + key] = dk[d];
+  for (int d = 0; d < D; ++d) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) dvt[bn * C + static_cast<size_t>(c) * n + key] = dv[c];
+    for (int mask = 1; mask <= 2; mask <<= 1) {
+      dk0[d] += __shfl_xor_sync(0xffffffffu, dk0[d], mask);
+      dk1[d] += __shfl_xor_sync(0xffffffffu, dk1[d], mask);
+    }
+  }
+  float* dkb = dkt + bn * D;
+  if (t == 0) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (key_ok0) dkb[static_cast<size_t>(d) * n + key0] = dk0[d];
+      if (key_ok1) dkb[static_cast<size_t>(d) * n + key0 + 8] = dk1[d];
+    }
+  }
+  // dV (rows key0, key0 + 8; columns c = 8i + 2t, 8i + 2t + 1).
+  float* dvb = dvt + bn * C;
+#pragma unroll
+  for (int i = 0; i < C / 8; ++i) {
+    const size_t c0 = static_cast<size_t>(8 * i + 2 * t) * n;
+    if (key_ok0) {
+      dvb[c0 + key0] = dv[4 * i + 0];
+      dvb[c0 + n + key0] = dv[4 * i + 1];
+    }
+    if (key_ok1) {
+      dvb[c0 + key0 + 8] = dv[4 * i + 2];
+      dvb[c0 + n + key0 + 8] = dv[4 * i + 3];
+    }
   }
 }
 
@@ -179,17 +393,21 @@ __global__ void flash_bwd_dq_sum_kernel(const float* __restrict__ dq_part,
   dqt[idx] = acc;
 }
 
-template <int D, int C>
-cudaError_t launch(const void* qt, const void* kt, const void* vt, const void* dot,
-                   const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
-                   void* dq_part, int b, int n, cudaStream_t stream) {
-  const int nkb = (n + kThreads - 1) / kThreads;
-  flash_bwd_f32_kernel<D, C><<<dim3(nkb, b), kThreads, 0, stream>>>(
+template <int D, int C, bool kVec4>
+cudaError_t launch_as(const void* qt, const void* kt, const void* vt, const void* dot,
+                      const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
+                      void* dq_part, int b, int n, cudaStream_t stream) {
+  constexpr int kSmem = sizeof(Smem<D, C>);  // above 48 KB a kernel must opt in
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_tc_kernel<D, C, kVec4>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const int nkb = (n + kKeysPerBlock - 1) / kKeysPerBlock;
+  flash_bwd_tc_kernel<D, C, kVec4><<<dim3(nkb, b), kThreads, kSmem, stream>>>(
       static_cast<const float*>(qt), static_cast<const float*>(kt),
       static_cast<const float*>(vt), static_cast<const float*>(dot),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dkt), static_cast<float*>(dvt), static_cast<float*>(dq_part), n);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(b) * D * n;
   constexpr int kSumThreads = 256;
@@ -199,20 +417,33 @@ cudaError_t launch(const void* qt, const void* kt, const void* vt, const void* d
   return cudaGetLastError();
 }
 
+template <int D, int C>
+cudaError_t launch(const void* qt, const void* kt, const void* vt, const void* dot,
+                   const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
+                   void* dq_part, int b, int n, cudaStream_t stream) {
+  if (n % 4 == 0 && aligned16(qt) && aligned16(dot) && aligned16(lse) && aligned16(delta)) {
+    return launch_as<D, C, true>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
+                                 stream);
+  }
+  return launch_as<D, C, false>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
+                                stream);
+}
+
 }  // namespace
 
 // Launches the backward (the pair kernel, then the dq sum) on `stream` and
 // returns cudaGetLastError() (0 on success). dq_part is scratch of
-// b * key_blocks * d * n floats, where key_blocks must equal ceil(n / 64), the
-// kernel's keys per block. (d, c) must be one of the instantiated head widths
-// below; anything else returns cudaErrorInvalidValue without launching.
+// b * key_blocks * d * n floats, where key_blocks must equal
+// ceil(n / kKeysPerBlock), the kernel's keys per block. (d, c) must be one of
+// the instantiated head widths below; anything else returns
+// cudaErrorInvalidValue without launching.
 extern "C" int tdt_flash_bwd_f32(const void* qt, const void* kt, const void* vt,
                                  const void* dot, const void* lse, const void* delta,
                                  void* dqt, void* dkt, void* dvt, void* dq_part, int b, int n,
                                  int d, int c, int key_blocks, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || n <= 0 || b > 65535) return cudaErrorInvalidValue;
-  if (key_blocks != (n + kThreads - 1) / kThreads) return cudaErrorInvalidValue;
+  if (key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock) return cudaErrorInvalidValue;
   if (d == 4 && c == 32) {
     return launch<4, 32>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
   }
@@ -220,4 +451,12 @@ extern "C" int tdt_flash_bwd_f32(const void* qt, const void* kt, const void* vt,
     return launch<8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of the pair kernel at (d, c), in bytes (-1 for a
+// pair that is not instantiated), for reports.
+extern "C" int tdt_flash_bwd_smem_bytes(int d, int c) {
+  if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<4, 32>));
+  if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<8, 64>));
+  return -1;
 }
