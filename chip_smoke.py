@@ -27,45 +27,66 @@ MNIST DDPM main path (train, sample, checkpoint: the port's
    shapes, finiteness, the [0, 1] range and the card against the port's own
    CPU run;
 5. qsample_kernel: the CUDA fused q_sample against ``q_sample_fused_reference``
-   at the train path's shape (B = 128, 1x28x28), value for value, and on a
-   view whose rows are not 16-byte aligned (the kernel's scalar path); its
-   determinism, seed sensitivity and moments; kernel and plain times;
-6. train (twice, bfloat16 then float32 compute): ``run()`` at full width,
-   batch 128, 2 epochs of 100 steps, 16 samples of
+   at the train path's shape (B = 128, 1x28x28), value for value, with an int
+   seed and with the seed in device memory, and on a view whose rows are not
+   16-byte aligned (the kernel's scalar path); its determinism, seed
+   sensitivity and moments; a seed drawn on the card and the kernel captured
+   in one CUDA graph, two replays drawing different noise, each equal to the
+   plain version at the seed read back; the eager call's time (``ms``), the
+   kernel's own device time (profiler, ``device_us``), its time per launch in
+   a graph of 100 (``graph_us``) beside that of 100 one-element adds
+   (``graph_floor_us``), and the plain version's time;
+6. train (bfloat16, then float32 compute) and train_host (bfloat16):
+   ``run()`` at full width, batch 128, 2 epochs of 100 steps, 16 samples of
    the 1000-step fp32 sampler after each epoch, the trajectory, metrics and
-   checkpoint in temporary directories; kernel launches counted over the
-   run (q_sample launches must equal the train steps); the loss finite and
-   its last epoch's mean below its first value; warm step time, samples/s
-   and sampling seconds;
-7. unet_parity: the card against the port's CPU run, TF32 off: eps from the
+   checkpoint in temporary directories. ``train`` takes the default
+   placement, the set resident on the card and each step a replay of one
+   captured CUDA graph; ``train_host`` streams batches from the host. Kernel
+   launches counted over the run (q_sample launches, graph replays
+   included, must equal the train steps); the loss finite and its last
+   epoch's mean below its first value; warm step time, samples/s and
+   sampling seconds;
+7. resident_parity: 10 steps of the resident step (2 eager warm-up steps,
+   then 8 graph replays) against the same 10 steps run eagerly from the same
+   state (``diffusion_final``, with an EMA) on the card, float32 and
+   bfloat16: losses, the update's cosine (params, and the EMA shadow on its
+   own), the largest params and BatchNorm statistics gaps, the generator's
+   state after the steps, whether all is bit-equal, beside the same numbers
+   for two eager runs (the noise of the atomics); then resident_restore: a
+   ``.pt`` of the host path (Adam not capturable) restored into a resident
+   state, whose graph captures and replays 4 steps that match the host
+   state's own next steps;
+8. unet_parity: the card against the port's CPU run, TF32 off: eps from the
    committed ``checkpoints/diffusion_final`` weights, one SGD step through
    the step's (t, noise) seam, and a 20-step replayed DDPM chain;
-8. train_step_bf16: the main path's step (bfloat16 autocast, Adam) on the
+9. train_step_bf16: the main path's step (bfloat16 autocast, Adam) on the
    card against the float32 step on the CPU, 3 steps at batch 128 from
    ``diffusion_final`` through the seam: losses and the direction of the
    weights' update;
-9. sample: the 1000-step DDPM from ``diffusion_final``, 16 samples;
-10. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
+10. sample: the 1000-step DDPM from ``diffusion_final``, 16 samples;
+11. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
     at each flash site (B = 4) and at two ragged N, dq, dk and dv; two calls
     bit-equal; the times of kernel, plain version and the backward of
     ``scaled_dot_product_attention`` (a yardstick only), with the bounds of
     the ``kernel`` phase;
-11. flash_autograd: gradients through ``flash_attention_unscaled_t`` (the
+12. flash_autograd: gradients through ``flash_attention_unscaled_t`` (the
     autograd Function over both kernels) on the card against the CPU;
-12. vae_train: the conv-VAE's ``run()`` at full width (256x256, batch 4,
+13. vae_train: the conv-VAE's ``run()`` at full width (256x256, batch 4,
     float32, clip 10, Adam 1e-4), 2 epochs of 20 steps and 2 val batches,
     outputs in temporary directories; launches counted over the run
     (flash backward = 3 a step); the loss and its components finite; warm
     step time, images/s and peak memory;
-13. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
+14. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
     B = 2) on the card against the CPU, cuDNN deterministic: loss
     components, gradients, params, BN statistics, spectral-norm u and sigma;
-14. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+15. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds phases before the last two lines: ``torch.profiler`` over
-one warm reconstruct and one prior decode, over 5 warm UNet28 train steps,
-over 20 sampler steps and over 3 warm conv-VAE train steps, each with device
-time by kernel and the device's busy share of the window.
+one warm reconstruct and one prior decode, over 5 warm UNet28 train steps
+(eager, ``train_steps``, and replayed from a graph over a resident set,
+``train_steps_graph``), over 20 sampler steps and over 3 warm conv-VAE train
+steps, each with device time by kernel, the device's busy share of the
+window and the host's launch calls.
 
 Any failure raises and the exit code is non-zero. Without a CUDA card it
 exits 1 before printing any result. Imports nothing of JAX.
@@ -85,16 +106,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from chip_qsample_ab import graph_us_per_launch, kernel_device_us
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
+from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data.laion import synthesize_image
+from tinydiffusion_torch.device import disable_tf32
 from tinydiffusion_torch.experiments.common import load_unet28, make_sampler
 from tinydiffusion_torch.experiments.diffusion import DiffusionConfig, run
 from tinydiffusion_torch.experiments import vae_laion
 from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct, sample_prior
+from tinydiffusion_torch.io.checkpoint import restore_checkpoint, save_checkpoint
+from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.models.vae_conv import PerceptualNet
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.ops import _build, attention, qsample
-from tinydiffusion_torch.train.trainer import create_train_state, make_train_step
+from tinydiffusion_torch.train.trainer import (
+    GRAPH_WARMUP_STEPS,
+    create_train_state,
+    make_resident_multi_step,
+    make_train_step,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_laion_best")
@@ -144,6 +175,39 @@ QSAMPLE_BATCH, QSAMPLE_SHAPE = 128, (1, 28, 28)
 # call (10 rounds of 2 mulhi, 2 mullo, 4 xor; 9 key bumps of 2 adds) feeds 4
 # elements, ~25 each; the uniform, Box-Muller and the noising add ~10.
 QSAMPLE_OPS_PER_ELEMENT = 35
+# Resident step, graph against eager, from the same trained weights on the
+# card: 2 eager warm-up steps, then replays. Only the order of floating-point
+# atomics (the bilinear resize's backward adds with them) differs, run to run
+# as between the two. It moves the losses by float32 rounding that bfloat16
+# autocast can round up to a bfloat16 step in a few activations; Adam turns
+# the rounding noise of gradients that are zero in exact arithmetic (conv
+# biases ahead of a BatchNorm) into +-lr, so the weights are held by the
+# cosine of their updates, as in train_step_bf16. From a fresh init, whose
+# raw-integer time embedding drives activations into the hundreds, two
+# bfloat16 runs part in the second step, before any replay, and by far within
+# a few: that start cannot tell a fault from this noise. From the trained
+# weights the second step (eager in both runs) already differs in bfloat16,
+# and 10 steps' updates reached a cosine of 0.9985 (H100 80GB HBM3): the
+# bfloat16 bound sits below that noise, the float32 one at 0.999 (read
+# 0.99999). The losses range 0.2-0.35 over these steps, with t; and a replay
+# that reused its draws would leave the generator's state, which must equal
+# the eager run's exactly, behind.
+# The steps keep an EMA of the params (0.99), so that the captured EMA update
+# is held too: its update's cosine is checked on its own, with the params'
+# bound (in 10 steps at 0.99 the shadow moves about 5 % as far as the
+# params, so folded into one cosine with them it would not show). The largest
+# gaps, params absolute and BatchNorm running statistics relative (to
+# max(|x|, 1)), are bounded at 2.5 times and more the largest of two H100 runs'
+# readings, graph vs eager and eager vs eager alike: float32 up to 1.77e-3
+# and 0.0152, bfloat16 up to 1.14e-2 and 0.405. In bfloat16 these gaps are
+# the atomics' noise, amplified, and cannot tell a fault from it; in float32
+# a BatchNorm update missing from the graph (8 of the 10, on a random set far
+# from MNIST's statistics) should stand far out (not tried on the card).
+PARITY_STEPS, PARITY_BATCH, PARITY_EMA_DECAY = 10, 128, 0.99
+PARITY_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+PARITY_MIN_UPDATE_COS = {"float32": 0.999, "bfloat16": 0.99}
+PARITY_MAX_PARAM_ABS = {"float32": 5e-3, "bfloat16": 3e-2}
+PARITY_MAX_STATS_REL = {"float32": 0.04, "bfloat16": 1.0}
 # Train path: full width, batch 128, 2 epochs of 100 steps (the first epoch
 # warms cuDNN up; the second gives the warm step time). The raw-integer time
 # embedding holds the loss near 1 for the first few dozen steps, in the JAX
@@ -544,28 +608,78 @@ def phase_qsample_kernel() -> dict:
     row_corr = torch.corrcoef(rows[:2].double())[0, 1].item()
     if abs(row_corr) > 0.1:
         raise RuntimeError(f"q_sample kernel rows 0 and 1 correlate: {row_corr}")
+    # The seed in device memory, as the train step draws it: the same values
+    # as the same int; and one draw inside a CUDA graph, replayed twice.
+    seed_dev = torch.tensor(seed, dtype=torch.int64, device="cuda")
+    xt_dev, z_dev = qsample.q_sample_fused(schedule, x0, t, seed_dev)
+    torch.cuda.synchronize()
+    if not (torch.equal(xt_dev, xt_k) and torch.equal(z_dev, z_k)):
+        raise RuntimeError("q_sample kernel: a device seed gave other values than the same int")
+    graph_replays = _qsample_graph_replays(schedule, x0, t)
+    err = max([err] + [r["max_abs_err"] for r in graph_replays])
     ms = cuda_ms(lambda: qsample.q_sample_fused(schedule, x0, t, seed), iters=50, warmup=5)
     plain_ms = cuda_ms(lambda: qsample.q_sample_fused_reference(schedule, x0, t, seed),
                        iters=50, warmup=5)
+    device_us = kernel_device_us(lambda: qsample.q_sample_fused(schedule, x0, t, seed_dev),
+                                 "qsample_f32_kernel")
+    graph_us, floor_us = _qsample_graph_us(schedule, x0, t, seed_dev)
     feat = x0[0].numel()
     bound_ms, bound_by = qsample_bound_ms(b, feat, schedule.num_timesteps)
     site = {"B": b, "feat": feat, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "roofline_share": bound_ms / ms, "noise_mean": mean, "noise_std": std,
-            "draws": z_k.numel(), "row_corr_0_1": row_corr}
+            "library_ms": None, "device_us": device_us, "graph_us": graph_us,
+            "graph_floor_us": floor_us, "bound_ms": bound_ms, "bound_by": bound_by,
+            "roofline_share": bound_ms / ms, "graph_replays": graph_replays,
+            "noise_mean": mean, "noise_std": std, "draws": z_k.numel(),
+            "row_corr_0_1": row_corr}
     emit("qsample_kernel", name="qsample", atol=QSAMPLE_ATOL,
          library_note="no one PyTorch call draws the noise and noises x0 together", **site)
     return site
 
 
-def phase_train(compute_dtype: str, data_root: str) -> dict:
+def _qsample_graph_replays(schedule, x0, t) -> list[dict]:
+    """A seed drawn on the card and the kernel, captured in one CUDA graph
+    and replayed twice: each replay's noise equals the plain version at the
+    seed read back from the card, and the two differ."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 14)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)  # else every replay would reuse one draw
+    with torch.cuda.graph(graph):
+        seed_dev = torch.randint(0, 2**31 - 1, (), generator=gen, device="cuda")
+        xt_g, z_g = qsample.q_sample_fused(schedule, x0, t, seed_dev)
+    replays, zs = [], []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        drawn = int(seed_dev)
+        xt_r, z_r = qsample.q_sample_fused_reference(schedule, x0, t, drawn)
+        torch.testing.assert_close(z_g, z_r, atol=QSAMPLE_ATOL, rtol=0)
+        torch.testing.assert_close(xt_g, xt_r, atol=QSAMPLE_ATOL, rtol=0)
+        replays.append({"seed": drawn, "max_abs_err": max((z_g - z_r).abs().max().item(),
+                                                          (xt_g - xt_r).abs().max().item())})
+        zs.append(z_g.clone())
+    if replays[0]["seed"] == replays[1]["seed"] or (zs[0] == zs[1]).float().mean().item() > 1e-3:
+        raise RuntimeError(f"q_sample in a graph: two replays drew the same noise {replays}")
+    return replays
+
+
+def _qsample_graph_us(schedule, x0, t, seed_dev) -> tuple[float, float]:
+    """The kernel's time per launch inside a graph of 100, and the floor: a
+    graph of 100 one-element ``add_`` launches."""
+    per_launch = graph_us_per_launch(lambda: qsample.q_sample_fused(schedule, x0, t, seed_dev))
+    one = torch.zeros(1, device="cuda")
+    return per_launch, graph_us_per_launch(lambda: one.add_(1.0))
+
+
+def phase_train(compute_dtype: str, data_root: str, placement: str = "auto") -> dict:
+    """``run()`` at full width; ``"auto"`` keeps the set on the card and
+    replays each step as a CUDA graph, ``"host"`` streams batches."""
     with tempfile.TemporaryDirectory() as tmp:
         config = DiffusionConfig(
             num_epochs=TRAIN_EPOCHS, max_steps_per_epoch=TRAIN_STEPS, batch_size=128,
             compute_dtype=compute_dtype, log_every=10,
             sample_every_epoch=True, visualize_denoising=True, data_root=data_root,
             out_dir=os.path.join(tmp, "out"), checkpoint_path=os.path.join(tmp, "ckpt"),
-            device="cuda",
+            device="cuda", data_placement=placement,
         )
         _set_default_tf32()  # the VAE phase turned them off; run() must itself
         # The main path, with the kernel launches counted over exactly this run.
@@ -581,6 +695,9 @@ def phase_train(compute_dtype: str, data_root: str) -> dict:
         steps = result["state"].step
         if steps != TRAIN_EPOCHS * TRAIN_STEPS or launches["qsample"] != steps:
             raise RuntimeError(f"train ({compute_dtype}): {steps} steps, launches {launches}")
+        if result["resident"] != (placement == "auto"):
+            raise RuntimeError(f"train ({compute_dtype}, {placement}): resident "
+                               f"{result['resident']}")
         # The loss stays near 1 for ~100 steps (the raw-integer time
         # embedding), so this only catches a run that diverges; the step
         # itself is held against the CPU in train_step_bf16 and unet_parity.
@@ -600,7 +717,8 @@ def phase_train(compute_dtype: str, data_root: str) -> dict:
             records = [json.loads(line) for line in f]
         warm = result["epochs"][-1]
         fields = {
-            "compute_dtype": compute_dtype, "steps": steps, "batch": config.batch_size,
+            "compute_dtype": compute_dtype, "placement": placement,
+            "resident_graph": result["resident"], "steps": steps, "batch": config.batch_size,
             "launches": launches, "losses": losses, "wall_s": wall_s,
             "warm_samples_per_sec": warm["samples_per_sec"],
             "warm_step_ms": 1e3 * config.batch_size / warm["samples_per_sec"],
@@ -611,7 +729,7 @@ def phase_train(compute_dtype: str, data_root: str) -> dict:
                                  for ext in (".pt", ".npz")},
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         }
-    emit("train", **fields)
+    emit("train" if placement == "auto" else f"train_{placement}", **fields)
     return fields
 
 
@@ -700,6 +818,140 @@ def phase_train_step_bf16() -> dict:
     if not (np.isfinite(cos) and max(loss_rel) <= BF16_LOSS_RTOL and cos >= BF16_MIN_UPDATE_COS):
         raise RuntimeError(f"bfloat16 step on the card vs float32 on the CPU: {fields}")
     emit("train_step_bf16", **fields)
+    return fields
+
+
+def _resident_state(images: np.ndarray, model=None, ema: bool = False):
+    """A train state with capturable Adam over ``model`` (default: a
+    full-width UNet28 from a seeded init), with an EMA shadow when asked,
+    and the resident set, on the card."""
+    if model is None:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            model = UNet28()
+        model = model.cuda()
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3, capturable=True)
+    state = create_train_state(model, optimizer, SEED, ema=ema)
+    dataset = DeviceDataset(images, PARITY_BATCH, seed=SEED, device="cuda")
+    return state, dataset
+
+
+def phase_resident_parity() -> dict:
+    """PARITY_STEPS steps of the resident step (GRAPH_WARMUP_STEPS eager, the
+    rest replays of its captured graph) against the same steps run eagerly
+    (``make_train_step`` on the gathered batches) from the same state, the
+    committed ``diffusion_final`` weights, in float32 and in bfloat16."""
+    disable_tf32()
+    images = np.random.default_rng(SEED + 15).integers(
+        0, 256, (PARITY_BATCH * PARITY_STEPS, 28, 28, 1), dtype=np.uint8)
+    schedule = DiffusionSchedule.linear(1000).to("cuda")
+    fields = {"steps": PARITY_STEPS, "replayed": PARITY_STEPS - GRAPH_WARMUP_STEPS,
+              "batch": PARITY_BATCH, "weights": os.path.relpath(UNET_CHECKPOINT, REPO),
+              "loss_rtol": PARITY_LOSS_RTOL, "min_update_cos": PARITY_MIN_UPDATE_COS,
+              "max_params_abs": PARITY_MAX_PARAM_ABS, "max_stats_rel": PARITY_MAX_STATS_REL}
+    failed = []
+
+    def flat(tensors):
+        return torch.cat([x.detach().flatten() for x in tensors])
+
+    def cos(a, b):
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        out = {}
+        for mode in ("graph", "eager", "eager_again"):
+            state, dataset = _resident_state(images, load_unet28(UNET_CHECKPOINT, "cuda"),
+                                             ema=True)
+            params0 = flat(state.model.parameters())
+            ema0 = flat(state.ema_params.values())
+            idxs = dataset.epoch_index_batches(0)[:PARITY_STEPS]
+            _reset_launches()
+            if mode == "graph":
+                losses = make_resident_multi_step(schedule, dataset, ema_decay=PARITY_EMA_DECAY,
+                                                  compute_dtype=dtype)(state, idxs).tolist()
+            else:
+                step = make_train_step(schedule, ema_decay=PARITY_EMA_DECAY, compute_dtype=dtype)
+                losses = [step(state, dataset.gather(torch.from_numpy(row).cuda())
+                               .permute(0, 3, 1, 2)).item() for row in idxs]
+            torch.cuda.synchronize()
+            if qsample.qsample_launches != PARITY_STEPS or state.step != PARITY_STEPS:
+                raise RuntimeError(f"resident_parity ({mode}): {state.step} steps, "
+                                   f"{qsample.qsample_launches} q_sample launches")
+            params, ema = flat(state.model.parameters()), flat(state.ema_params.values())
+            stats = flat(b for n, b in state.model.named_buffers()
+                         if n.endswith(("running_mean", "running_var")))
+            out[mode] = {"losses": losses, "params": params, "update": (params - params0).double(),
+                         "ema": ema, "ema_update": (ema - ema0).double(), "stats": stats,
+                         "generator": state.generator.get_state()}
+        # Graph against eager, and eager against itself: the noise floor of
+        # the atomics, beside what the graph adds to it.
+        fields[name] = {"losses_graph": out["graph"]["losses"],
+                        "losses_eager": out["eager"]["losses"]}
+        for pair, (g, e) in (("graph_vs_eager", (out["graph"], out["eager"])),
+                             ("eager_vs_eager", (out["eager_again"], out["eager"]))):
+            fields[name][pair] = {
+                "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"])),
+                "update_cos": cos(g["update"], e["update"]),
+                "ema_update_cos": cos(g["ema_update"], e["ema_update"]),
+                # The replays advanced the registered generator as eager steps do.
+                "generator_equal": torch.equal(g["generator"], e["generator"]),
+                "bit_equal": (g["losses"] == e["losses"] and torch.equal(g["params"], e["params"])
+                              and torch.equal(g["ema"], e["ema"])
+                              and torch.equal(g["stats"], e["stats"])),
+                "params_max_abs": (g["params"] - e["params"]).abs().max().item(),
+                "stats_max_rel": ((g["stats"] - e["stats"]).abs()
+                                  / e["stats"].abs().clamp_min(1.0)).max().item(),
+            }
+        check = fields[name]["graph_vs_eager"]
+        if not (check["generator_equal"] and check["loss_rel"] <= PARITY_LOSS_RTOL[name]
+                and check["update_cos"] >= PARITY_MIN_UPDATE_COS[name]
+                and check["ema_update_cos"] >= PARITY_MIN_UPDATE_COS[name]
+                and check["params_max_abs"] <= PARITY_MAX_PARAM_ABS[name]
+                and check["stats_max_rel"] <= PARITY_MAX_STATS_REL[name]):
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"resident_parity: graph vs eager in {failed}: {fields}")
+    emit("resident_parity", **fields)
+    return fields
+
+
+def phase_resident_restore() -> dict:
+    """A ``.pt`` written on the host path (Adam not capturable: its param
+    groups say so, its step count lies on the CPU) restored into a resident
+    state on the card, whose step then captures and replays its graph; its
+    float32 losses against the host state's own next steps, eager."""
+    disable_tf32()
+    k = GRAPH_WARMUP_STEPS + 2
+    images = np.random.default_rng(SEED + 16).integers(
+        0, 256, (PARITY_BATCH * (k + 1), 28, 28, 1), dtype=np.uint8)
+    schedule = DiffusionSchedule.linear(1000).to("cuda")
+    model = load_unet28(UNET_CHECKPOINT, "cuda")
+    host = create_train_state(model, torch.optim.Adam(model.parameters(), lr=1e-3), SEED)
+    state, dataset = _resident_state(images, load_unet28(UNET_CHECKPOINT, "cuda"))
+    idxs = dataset.epoch_index_batches(0)
+    step = make_train_step(schedule)
+    step(host, dataset.gather(torch.from_numpy(idxs[0]).cuda()).permute(0, 3, 1, 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(os.path.join(tmp, "host"), host)
+        restore_checkpoint(os.path.join(tmp, "host"), state)
+    adam = state.optimizer
+    if not (all(g["capturable"] for g in adam.param_groups)
+            and all(s["step"].is_cuda for s in adam.state.values())):
+        raise RuntimeError("resident_restore: the restored Adam is not capturable")
+    _reset_launches()
+    losses = make_resident_multi_step(schedule, dataset)(state, idxs[1 : k + 1]).tolist()
+    torch.cuda.synchronize()
+    if qsample.qsample_launches != k or state.step != k + 1:
+        raise RuntimeError(f"resident_restore: {state.step} steps, "
+                           f"{qsample.qsample_launches} q_sample launches")
+    eager = [step(host, dataset.gather(torch.from_numpy(row).cuda()).permute(0, 3, 1, 2)).item()
+             for row in idxs[1 : k + 1]]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager))
+    fields = {"steps": k, "losses": losses, "losses_host_eager": eager, "loss_rel": loss_rel,
+              "loss_rtol": PARITY_LOSS_RTOL["float32"]}
+    if not loss_rel <= PARITY_LOSS_RTOL["float32"]:
+        raise RuntimeError(f"resident_restore: the restored graph's losses {fields}")
+    emit("resident_restore", **fields)
     return fields
 
 
@@ -872,15 +1124,21 @@ def _profile_window(name: str, fn, **fields) -> None:
     }
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    # The host's launch calls: one a kernel when eager, one a graph when replayed.
+    host_launches = {ev.key: ev.count for ev in prof.key_averages()
+                     if ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                   "cuLaunchKernelEx", "cudaGraphLaunch")}
     emit("profile", window=name, window_ms=window_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / window_ms, kernel_launches=sum(n for _, n in kernels.values()),
+         host_launch_calls=host_launches,
          flash_ms=sum(ms for k, (ms, _) in kernels.items() if "flash_" in k),
          top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, (ms, n) in top], **fields)
 
 
 def phase_profile() -> None:
-    """Four windows: one warm reconstruct + one prior decode of the conv-VAE;
-    5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample); 20 steps
+    """Five windows: one warm reconstruct + one prior decode of the conv-VAE;
+    5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample), eager
+    and then replayed from a CUDA graph over a resident set; 20 steps
     of the fp32 DDPM sampler (16 samples); 3 warm conv-VAE train steps
     (256x256, batch 4, fp32, Adam) from ``vae_laion_best``."""
     model = load_conv_vae(CHECKPOINT, device="cuda")
@@ -894,6 +1152,15 @@ def phase_profile() -> None:
     step = make_train_step(schedule, compute_dtype=torch.bfloat16)
     x0 = torch.rand(128, 1, 28, 28, device="cuda") * 2 - 1
     _profile_window("train_steps", lambda: [step(state, x0) for _ in range(5)], steps=5)
+
+    # The same 5 steps as the default run takes them: the set on the card and
+    # each step a replay of one captured graph (the warm-up call captures).
+    images = np.random.default_rng(SEED + 16).integers(0, 256, (128 * 5, 28, 28, 1),
+                                                        dtype=np.uint8)
+    graph_state, dataset = _resident_state(images)
+    graph_step = make_resident_multi_step(schedule, dataset, compute_dtype=torch.bfloat16)
+    idxs = dataset.epoch_index_batches(0)
+    _profile_window("train_steps_graph", lambda: graph_step(graph_state, idxs), steps=5)
 
     sampler = make_sampler(unet, DiffusionSchedule.linear(20).to("cuda"), (16, 1, 28, 28))
     sample_gen = torch.Generator("cuda").manual_seed(SEED)
@@ -928,6 +1195,9 @@ def main() -> int:
     qsample_site = phase_qsample_kernel()
     with tempfile.TemporaryDirectory() as data_root:  # the synthetic MNIST cache
         trains = [phase_train(dtype, data_root) for dtype in ("bfloat16", "float32")]
+        train_host = phase_train("bfloat16", data_root, placement="host")
+    phase_resident_parity()
+    phase_resident_restore()
     phase_unet_parity()
     phase_train_step_bf16()
     phase_sample()
@@ -959,11 +1229,14 @@ def main() -> int:
             "route": "cuda",
             "source": "tinydiffusion_torch/ops/csrc/qsample.cu",
             "replaces": "tinydiffusion_tpu/ops/qsample.py:45",
-            # The main path's run: the default (bfloat16) train run.
+            # The main path's run: the default (bfloat16, resident, graph) train
+            # run; the float32 and host-placement runs beside it.
             "launches": trains[0]["launches"]["qsample"],
             "launches_float32_run": trains[1]["launches"]["qsample"],
+            "launches_host_run": train_host["launches"]["qsample"],
             "max_abs_err": qsample_site["max_abs_err"],
-            **{k: qsample_site[k] for k in keys},
+            **{k: qsample_site[k] for k in keys + (
+                "roofline_share", "device_us", "graph_us", "graph_floor_us")},
         },
         {
             "name": "flash_bwd",

@@ -238,27 +238,33 @@ def test_bfloat16_and_fused_steps_run_and_draw_their_own_noise():
 
 
 def test_the_step_draws_its_noise_with_the_fused_q_sample():
-    """Without a noise argument the step noises x0 with ``q_sample_fused``,
-    seeded from the state's CPU seed generator: the same step given that
-    noise through its seam takes the same loss and weights."""
+    """Without a noise argument the step draws t and then the fused
+    q_sample's seed (a 0-d int64 tensor) from the state's generator, and
+    noises x0 with ``q_sample_fused``: two steps given, through their seam,
+    the t and the noise of ``q_sample_fused_reference`` at the seeds that a
+    probe of that generator draws take the same losses and weights."""
     sched = DiffusionSchedule.linear(1000)
     x0 = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (4, 1, 28, 28))
                           .astype(np.float32))
-    t = torch.tensor([0, 10, 500, 999])
     runs = []
     for replay in (False, True):
         torch.manual_seed(2)
         model = UNet28(**SMALL)
         state = create_train_state(model, torch.optim.SGD(model.parameters(), lr=LR), 5)
-        noise = None
-        if replay:
-            probe = torch.Generator().manual_seed(0)
-            probe.set_state(state.seed_generator.get_state())
-            seed = int(torch.randint(0, 2**31 - 1, (), generator=probe))
-            noise = qsample.q_sample_fused_reference(sched, x0, t, seed)[1]
-        loss = make_train_step(sched)(state, x0, t=t, noise=noise)
-        runs.append((loss.item(), [p.detach().clone() for p in model.parameters()]))
-    assert runs[0][0] == runs[1][0]
+        probe = torch.Generator().manual_seed(0)
+        probe.set_state(state.generator.get_state())
+        step = make_train_step(sched)
+        losses = []
+        for _ in range(2):
+            if replay:
+                t = torch.randint(0, 1000, (4,), generator=probe)
+                seed = torch.randint(0, 2**31 - 1, (), generator=probe)
+                noise = qsample.q_sample_fused_reference(sched, x0, t, int(seed))[1]
+                losses.append(step(state, x0, t=t, noise=noise).item())
+            else:
+                losses.append(step(state, x0).item())
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0] and runs[0][0][0] != runs[0][0][1]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
@@ -483,6 +489,42 @@ def test_resume_continues_bit_identically(tmp_path):
     assert all(torch.equal(state.ema_params[n], resumed.ema_params[n]) for n in state.ema_params)
 
 
+def test_a_state_dict_with_the_old_cpu_seed_generator_loads(tmp_path):
+    """A ``.pt`` written when the seed came from a CPU generator holds its
+    ``seed_generator`` state: it loads, that key ignored, and the resumed
+    state continues as one restored from a current ``.pt``."""
+    state, step, x0, _ = _trained_state(1)
+    sd = state.state_dict()
+    assert "seed_generator" not in sd
+    old = dict(sd, seed_generator=torch.Generator().manual_seed(8).get_state())
+    a, _, _, _ = _trained_state(0)
+    b, _, _, _ = _trained_state(0)
+    a.load_state_dict(old)
+    b.load_state_dict(sd)
+    assert a.restores == b.restores == 1 and a.step == b.step == 1
+    assert step(a, x0).item() == step(b, x0).item()
+
+
+def test_a_restore_keeps_the_optimizers_own_capturable(tmp_path):
+    """The resident step on a card needs Adam built with ``capturable=True``;
+    a ``.pt`` from the host path (or from before the resident path) says
+    False in its param groups, and the other way round. A restore keeps the
+    optimizer's own value either way, with the step count restored."""
+    host, *_ = _trained_state(1)
+    save_checkpoint(str(tmp_path / "host"), host)
+    torch.manual_seed(1)
+    model = UNet28(**SMALL)
+    adam = torch.optim.Adam(model.parameters(), lr=1e-3, capturable=True)
+    resident = create_train_state(model, adam, 7, ema=True)
+    restore_checkpoint(str(tmp_path / "host"), resident)
+    assert [g["capturable"] for g in adam.param_groups] == [True]
+    assert adam.state and all(s["step"].item() == 1 for s in adam.state.values())
+    save_checkpoint(str(tmp_path / "resident"), resident)
+    again, *_ = _trained_state(0)
+    restore_checkpoint(str(tmp_path / "resident"), again)
+    assert [g["capturable"] for g in again.optimizer.param_groups] == [False]
+
+
 # --- the entry point --------------------------------------------------------------
 
 
@@ -529,6 +571,9 @@ def test_run_on_the_cpu_writes_grids_metrics_and_checkpoint(tmp_path):
 
 
 def test_main_parses_the_flags_and_device_placement_is_refused(tmp_path, capsys, monkeypatch):
+    """The CLI takes the JAX flags; ``--data-placement device`` runs on the
+    CPU (the resident step, eagerly); an unknown placement and a card that
+    is asked for and absent are refused."""
     root = _idx_data_root(tmp_path)
     diffusion.main(["--device", "cpu", "--num-epochs", "1", "--max-steps-per-epoch", "1",
                     "--batch-size", "4", "--base-width", "8", "--time-dim", "32",
@@ -537,8 +582,18 @@ def test_main_parses_the_flags_and_device_placement_is_refused(tmp_path, capsys,
                     "--data-root", root, "--out-dir", str(tmp_path / "cli")])
     assert "device: cpu" in capsys.readouterr().out
     assert (tmp_path / "cli" / "diffusion" / "metrics.jsonl").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        diffusion.run(_small_config(tmp_path, data_placement="device"))
+    # The resident path runs on the CPU too (eagerly: no graphs there).
+    diffusion.main(["--device", "cpu", "--num-epochs", "1", "--max-steps-per-epoch", "2",
+                    "--batch-size", "4", "--base-width", "8", "--time-dim", "32",
+                    "--sample-every-epoch", "false", "--visualize-denoising", "false",
+                    "--checkpoint-path", "", "--compute-dtype", "float32",
+                    "--data-placement", "device", "--log-every", "1",
+                    "--data-root", root, "--out-dir", str(tmp_path / "resident")])
+    with open(tmp_path / "resident" / "diffusion" / "metrics.jsonl") as f:
+        batches = [r["batch"] for r in map(json.loads, f) if "loss" in r]
+    assert batches == [0, 1]
+    with pytest.raises(ValueError, match="data_placement"):
+        diffusion.run(_small_config(tmp_path, data_placement="hbm"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         diffusion.run(_small_config(tmp_path, device="cuda"))

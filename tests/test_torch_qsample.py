@@ -129,6 +129,28 @@ def test_the_64_bit_seed_keys_both_words(sched):
             qsample.q_sample_fused(sched, x0, t, seed=bad)
 
 
+def test_a_tensor_seed_gives_the_values_of_the_same_int(sched):
+    """A 0-d int64 seed, as a step draws it on the device, keys the stream as
+    the same Python int does; its int64 bits are the key, so -1 is 2^64 - 1,
+    as the kernel reads them."""
+    x0 = torch.randn(3, 1, 28, 28, generator=torch.Generator().manual_seed(1))
+    t = torch.tensor([1, 400, 999])
+    for seed, same in ((0, 0), (12345, 12345), (2**31 - 2, 2**31 - 2), (-1, 2**64 - 1)):
+        a = qsample.q_sample_fused(sched, x0, t, torch.tensor(seed))
+        b = qsample.q_sample_fused(sched, x0, t, same)
+        assert all(torch.equal(u, v) for u, v in zip(a, b)), seed
+    for bad in (torch.tensor([1]), torch.tensor(1, dtype=torch.int32), torch.tensor(1.0)):
+        with pytest.raises(ValueError, match="0-d int64"):
+            qsample.q_sample_fused(sched, x0, t, bad)
+
+
+def test_graph_replays_add_their_captured_launches():
+    before = qsample.qsample_launches
+    qsample.count_replays(1, 5)
+    qsample.count_replays(0, 3)
+    assert qsample.qsample_launches == before + 5
+
+
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch(sched):
     before = qsample.qsample_launches
     x0 = torch.randn(2, 1, 28, 28, generator=torch.Generator().manual_seed(0))

@@ -2,6 +2,7 @@
 
 Counterpart of ``tinydiffusion_tpu/experiments/common.py`` (``resolve_dtype``,
 the ``ddpm`` branch of ``make_sampler``, ``make_trajectory_sampler``,
+``RESIDENT_AUTO_LIMIT_BYTES`` and ``resolve_data_placement`` for one card,
 ``add_config_flags``, ``config_from_args``). The flag names are the JAX
 ones, so the two CLIs take the same arguments. DDIM, DPM-Solver++,
 inpainting and classifier-free guidance come with the serving slice.
@@ -12,6 +13,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import logging
 
 import torch
 from torch import nn
@@ -144,6 +146,31 @@ def load_unet28(path: str, device: str | torch.device = "cuda") -> UNet28:
     ema = any(k.startswith("ema_params/") for k in flat)
     model.load_state_dict(unet28_state_dict(flat, params="ema_params" if ema else "params"))
     return model.to(dev).eval()
+
+
+# The largest dataset that ``data_placement="auto"`` keeps in device memory:
+# the JAX package's ceiling. MNIST uint8 (47 MB) is far under it, and 4 GiB
+# leaves an 80 GB card its memory for weights, optimizer and activations.
+RESIDENT_AUTO_LIMIT_BYTES = 4 << 30
+
+
+def resolve_data_placement(placement: str, dataset_bytes: int, name: str = "experiment") -> bool:
+    """Whether a config's ``data_placement`` takes the resident path, by the
+    JAX package's rule on one device: ``"host"`` streams batches from the
+    host, ``"device"`` keeps the dataset in device memory
+    (``data.device.DeviceDataset``), and ``"auto"``, the default, does so
+    whenever the dataset fits under ``RESIDENT_AUTO_LIMIT_BYTES``."""
+    if placement not in ("host", "device", "auto"):
+        raise ValueError(f"data_placement={placement!r}; choose 'host', 'device', or 'auto'")
+    if placement == "host":
+        return False
+    if placement == "auto" and dataset_bytes > RESIDENT_AUTO_LIMIT_BYTES:
+        logging.getLogger(f"tinydiffusion_torch.{name}").info(
+            "data_placement=auto: dataset (%.1f GB) exceeds the %.0f GB resident "
+            "ceiling; streaming from host",
+            dataset_bytes / 2**30, RESIDENT_AUTO_LIMIT_BYTES / 2**30)
+        return False
+    return True
 
 
 def add_config_flags(parser: argparse.ArgumentParser, config) -> None:

@@ -14,7 +14,10 @@ Run on the card (the default) or, when asked, on the CPU::
         --max-steps-per-epoch 25 --out-dir /tmp/d --data-root /tmp/d/data \\
         --checkpoint-path /tmp/d/ckpt [--device cpu]
 
-The flags are the JAX CLI's, plus ``--device`` and ``--base-width``.
+The flags are the JAX CLI's, plus ``--device`` and ``--base-width``. By
+default, as in JAX, the set is resident on the device and each chunk of
+``log_every`` steps runs as replays of one captured CUDA graph (eagerly on
+the CPU, which has no graphs).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
+from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data.loader import BatchIterator
 from tinydiffusion_torch.data.mnist import MNIST_SCALE, MNIST_SHIFT, load_mnist_u8
 from tinydiffusion_torch.device import disable_tf32, resolve_device
@@ -34,13 +38,18 @@ from tinydiffusion_torch.experiments.common import (
     config_from_args,
     make_sampler,
     make_trajectory_sampler,
+    resolve_data_placement,
     resolve_dtype,
 )
 from tinydiffusion_torch.io.checkpoint import save_checkpoint
 from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import MetricsLogger, Throughput
-from tinydiffusion_torch.train.trainer import create_train_state, make_train_step
+from tinydiffusion_torch.train.trainer import (
+    create_train_state,
+    make_resident_multi_step,
+    make_train_step,
+)
 
 
 @dataclasses.dataclass
@@ -54,12 +63,19 @@ class DiffusionConfig:
       the process, whatever the dtypes, so float32 is full float32.
     - ``use_mesh`` has no effect on one card; it is kept so the two CLIs take
       the same flags.
-    - ``data_placement``: ``"auto"`` and ``"host"`` stream uint8 batches from
-      the host. ``"device"`` (the dataset resident on the card, driven by CUDA
-      graphs) is not ported yet and raises.
-    - ``fused_qsample`` has no effect: the port's step always draws its noise
-      with the fused q_sample (the CUDA kernel on a card, its plain version
-      on the CPU). It is kept so the two CLIs take the same flags.
+    - ``data_placement``: JAX's rule (``experiments.common.resolve_data_placement``).
+      ``"host"`` streams uint8 batches from the host; ``"device"`` keeps the
+      uint8 set on the device (``data.device.DeviceDataset``) and runs each
+      chunk of ``log_every`` index batches through
+      ``train.trainer.make_resident_multi_step``: on a card, replays of one
+      captured CUDA graph, on the CPU the same step eagerly. ``"auto"`` is
+      ``"device"`` when the set fits under 4 GiB (MNIST always does), and
+      ``"host"`` when ``fused_qsample`` is set, as in JAX, so that the two
+      CLIs take the same path for the same flags.
+    - ``fused_qsample`` selects nothing else: the port's step draws its
+      noise with the fused q_sample on both paths (the CUDA kernel on a
+      card, its plain version on the CPU), where JAX's resident path draws
+      it with ``jax.random``.
     - ``checkpoint_path`` defaults under ``runs/``, not to the JAX default
       ``checkpoints/diffusion_final``: the port's ``.npz`` export would
       overwrite the committed JAX weights there.
@@ -94,15 +110,13 @@ class DiffusionConfig:
     device: str = "cuda"
 
 
-def _resolve_placement(placement: str) -> None:
-    if placement not in ("host", "device", "auto"):
-        raise ValueError(f"data_placement={placement!r}; choose 'host', 'device', or 'auto'")
-    if placement == "device":
-        raise NotImplementedError(
-            "data_placement='device' (the dataset resident on the card, with CUDA graphs) "
-            "is not ported yet: ROADMAP.md, Queue 1, 'resident data placement and CUDA "
-            "graphs'. Use 'host' or 'auto'."
-        )
+def use_resident_path(config: DiffusionConfig, dataset_bytes: int) -> bool:
+    """Whether ``run`` keeps the set on the device: JAX's rule, where
+    ``"auto"`` with ``fused_qsample`` resolves to the host path."""
+    placement = config.data_placement
+    if placement == "auto" and config.fused_qsample:
+        placement = "host"
+    return resolve_data_placement(placement, dataset_bytes, "diffusion")
 
 
 def _to_nhwc01(x: torch.Tensor) -> np.ndarray:
@@ -113,9 +127,9 @@ def _to_nhwc01(x: torch.Tensor) -> np.ndarray:
 def run(config: DiffusionConfig) -> dict:
     """Train, sample and checkpoint as the config says. Returns ``losses``
     (the logged ones), ``samples_per_sec`` (the last epoch's), ``epochs``
-    (per epoch: ``samples_per_sec``, ``epoch_seconds``, ``sample_seconds``)
-    and the final ``state``."""
-    _resolve_placement(config.data_placement)
+    (per epoch: ``samples_per_sec``, ``epoch_seconds``, ``sample_seconds``),
+    ``resident`` (whether the set stayed on the device) and the final
+    ``state``."""
     device = resolve_device(config.device)
     dtype = resolve_dtype(config.compute_dtype)
     sample_dtype = resolve_dtype(config.sample_dtype)
@@ -123,8 +137,12 @@ def run(config: DiffusionConfig) -> dict:
         disable_tf32()  # the sampler is float32 in every compute_dtype
 
     images_u8, _ = load_mnist_u8(config.data_root, train=True)
-    data = BatchIterator([images_u8], config.batch_size, shuffle=True, seed=config.seed,
-                         u8_normalize=(MNIST_SCALE, MNIST_SHIFT))
+    resident = use_resident_path(config, images_u8.nbytes)
+    if resident:
+        data = DeviceDataset(images_u8, config.batch_size, seed=config.seed, device=device)
+    else:
+        data = BatchIterator([images_u8], config.batch_size, shuffle=True, seed=config.seed,
+                             u8_normalize=(MNIST_SCALE, MNIST_SHIFT))
     if config.noise_schedule == "linear":
         schedule = DiffusionSchedule.linear(config.num_timesteps, config.beta_start,
                                             config.beta_end)
@@ -136,13 +154,17 @@ def run(config: DiffusionConfig) -> dict:
         torch.manual_seed(config.seed)
         model = UNet28(time_dim=config.time_dim, base_width=config.base_width)
     model = model.to(device)
-    optimizer = torch.optim.Adam(model.parameters(), lr=config.lr)
+    # A captured step needs Adam's step count on the device.
+    optimizer = torch.optim.Adam(model.parameters(), lr=config.lr,
+                                 capturable=resident and device.type == "cuda")
     use_ema = config.ema_decay > 0
     state = create_train_state(model, optimizer, config.seed, ema=use_ema)
-    train_step = make_train_step(
-        schedule, ema_decay=config.ema_decay if use_ema else None,
-        prediction=config.prediction, compute_dtype=dtype,
-    )
+    step_options = dict(ema_decay=config.ema_decay if use_ema else None,
+                        prediction=config.prediction, compute_dtype=dtype)
+    if resident:
+        train_chunk = make_resident_multi_step(schedule, data, **step_options)
+    else:
+        train_step = make_train_step(schedule, **step_options)
     sampler = make_sampler(model, schedule, (config.n_samples, 1, 28, 28),
                            dtype=sample_dtype, prediction=config.prediction)
     sample_gen = torch.Generator(device).manual_seed(config.seed + 2)
@@ -153,22 +175,37 @@ def run(config: DiffusionConfig) -> dict:
 
     logger = MetricsLogger("diffusion", config.out_dir, dataclasses.asdict(config))
     throughput = Throughput()
-    result = {"losses": [], "samples_per_sec": 0.0, "epochs": []}
+    result = {"losses": [], "samples_per_sec": 0.0, "epochs": [], "resident": resident}
     for epoch in range(config.num_epochs):
         epoch_t0 = time.perf_counter()
         throughput.reset()
-        for batch_idx, batch in enumerate(data.epoch(epoch)):
-            if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
-                break
-            (x0,) = data.to_device(batch, device)
-            x0 = x0.permute(0, 3, 1, 2)  # NHWC -> NCHW; C = 1, so no copy
-            loss = train_step(state, x0)
-            throughput.add(config.batch_size)
-            if batch_idx % config.log_every == 0:
-                loss_val = float(loss)  # syncs, at log points only
-                logger.log({"epoch": epoch, "batch": batch_idx, "loss": loss_val},
-                           step=state.step - 1)
+        if resident:
+            # One chunk of log_every steps a call; losses[0] is the loss at
+            # batch index `start`, as the host path logs it.
+            idxs = data.epoch_index_batches(epoch)
+            if config.max_steps_per_epoch:
+                idxs = idxs[: config.max_steps_per_epoch]
+            for start in range(0, len(idxs), config.log_every):
+                chunk = idxs[start : start + config.log_every]
+                losses = train_chunk(state, chunk)
+                throughput.add(len(chunk) * config.batch_size)
+                loss_val = float(losses[0])  # syncs, once a chunk
+                logger.log({"epoch": epoch, "batch": start, "loss": loss_val},
+                           step=state.step - len(chunk))
                 result["losses"].append(loss_val)
+        else:
+            for batch_idx, batch in enumerate(data.epoch(epoch)):
+                if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
+                    break
+                (x0,) = data.to_device(batch, device)
+                x0 = x0.permute(0, 3, 1, 2)  # NHWC -> NCHW; C = 1, so no copy
+                loss = train_step(state, x0)
+                throughput.add(config.batch_size)
+                if batch_idx % config.log_every == 0:
+                    loss_val = float(loss)  # syncs, at log points only
+                    logger.log({"epoch": epoch, "batch": batch_idx, "loss": loss_val},
+                               step=state.step - 1)
+                    result["losses"].append(loss_val)
         synchronize()
         sps = throughput.samples_per_sec
         result["samples_per_sec"] = sps

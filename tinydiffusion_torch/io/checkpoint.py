@@ -111,7 +111,9 @@ def save_checkpoint(
 
 def restore_checkpoint(path: str, state) -> None:
     """Load ``<path>.pt`` into ``state`` in place (model, optimizer, EMA,
-    step and generators), for an exact resume."""
+    step and generator), for an exact resume. A diffusion ``.pt`` written
+    while the q_sample seed came from a CPU generator still loads: its
+    ``seed_generator`` entry is ignored (``DiffusionTrainState.load_state_dict``)."""
     state.load_state_dict(torch.load(_abspath(path) + ".pt", weights_only=True))
 
 

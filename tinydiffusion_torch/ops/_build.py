@@ -105,8 +105,9 @@ SIGNATURES: dict[str, tuple] = {
     # d, c -> bytes of the kernel's dynamic shared memory (forward; backward pair kernel)
     "tdt_flash_fwd_smem_bytes": (_I, _I),
     "tdt_flash_bwd_smem_bytes": (_I, _I),
-    # x0, t, sqrt_abar, sqrt_1m_abar, xt, z, batch, feat, num_timesteps, seed, stream
-    "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _U64, _P),
+    # x0, t, sqrt_abar, sqrt_1m_abar, xt, z, batch, feat, num_timesteps, seed_ptr
+    # (device int64, or null for the next argument), seed, stream
+    "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _U64, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -8,8 +8,10 @@ where any Gaussian serves the DDPM objective.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/qsample.cu``
 (which replaces the TPU's ``_qsample_kernel``) and counts the launch in
-``qsample_launches``; on a CPU tensor it runs the plain version
+``qsample_launches`` (a launch captured into a CUDA graph counts once for
+each replay); on a CPU tensor it runs the plain version
 ``q_sample_fused_reference``. There is no fallback from one to the other.
+The seed is a Python int or, as on the TPU, a value in device memory.
 
 Both compute the same stream: Philox4x32-10 keyed by the 64-bit ``seed``,
 counter (element group, row, 0, 0), one call per 4 elements of a row; each
@@ -20,7 +22,7 @@ against the plain version value for value.
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
 import math
 
 import torch
@@ -28,13 +30,16 @@ import torch
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.ops import _build
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Kernels run since import (or since a caller reset it): eager launches, and
+# the launches recorded into a CUDA graph once for each of its replays.
 qsample_launches = 0
+# Launches recorded into a CUDA graph under capture, which run only at replay.
+qsample_captured = 0
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_MAX_CHUNKS = 65535  # the kernel grid's y dimension: chunks of 128 groups of 4
+_MAX_GROUPS = 2**31  # groups of 4 elements, one thread each: a uint32 index
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -95,10 +100,21 @@ def _check_seed(seed: int) -> int:
     return seed
 
 
+def _tensor_seed(seed: torch.Tensor) -> torch.Tensor:
+    if seed.shape != () or seed.dtype != torch.int64:
+        raise ValueError(f"a tensor seed must be a 0-d int64 tensor, not {seed.dtype} "
+                         f"{tuple(seed.shape)}")
+    return seed
+
+
 def q_sample_fused_reference(
-    schedule: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor, seed: int
+    schedule: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor, seed: int | torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: ``(x_t, noise)``, float32, shaped like x_0."""
+    """Plain version of the kernel: ``(x_t, noise)``, float32, shaped like x_0.
+    A tensor ``seed`` is read as the kernel reads it: its int64 bits are the
+    64-bit key (reading it syncs)."""
+    if isinstance(seed, torch.Tensor):
+        seed = int(_tensor_seed(seed)) & 0xFFFFFFFFFFFFFFFF
     seed = _check_seed(seed)
     b = x_0.shape[0]
     x2 = x_0.reshape(b, -1).to(torch.float32)
@@ -112,7 +128,7 @@ def q_sample_fused_reference(
 
 
 def q_sample_fused(
-    schedule: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor, seed: int
+    schedule: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor, seed: int | torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused ``(x_t, noise)``, float32, shaped like ``x_0`` (B, ...).
 
@@ -120,14 +136,29 @@ def q_sample_fused(
     (of any alignment: the kernel reads float4 only from aligned rows), an
     integer ``t`` (B,) and the schedule's tables on the same card, and
     raises on anything else. A CPU ``x_0`` runs ``q_sample_fused_reference``.
-    ``seed`` is a Python int in [0, 2^64).
+    ``seed`` is a Python int in [0, 2^64) or, as JAX's ``seed`` may be an
+    array, a 0-d int64 tensor on ``x_0``'s device whose bits the kernel reads
+    there: a step captured in a CUDA graph draws it on the device, so each
+    replay noises with a new seed.
+
+    The checks are the cheap ones that keep a launch from reading out of
+    bounds; nothing here reads a device value. A launch while the current
+    stream is being captured into a CUDA graph counts in
+    ``qsample_captured``, and the graph's owner adds it to
+    ``qsample_launches`` at each replay (``count_replays``).
     """
-    global qsample_launches
-    if x_0.device.type == "cpu":
-        return q_sample_fused_reference(schedule, x_0, t, seed)
-    if x_0.device.type != "cuda":
-        raise ValueError(f"q_sample_fused runs on cuda or cpu tensors, not {x_0.device}")
-    seed = _check_seed(seed)
+    global qsample_launches, qsample_captured
+    device = x_0.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return q_sample_fused_reference(schedule, x_0, t, seed)
+        raise ValueError(f"q_sample_fused runs on cuda or cpu tensors, not {device}")
+    if isinstance(seed, torch.Tensor):
+        if seed.device != device:
+            raise ValueError(f"seed lies on {seed.device}, x_0 on {device}")
+        seed_ptr, seed_value = _tensor_seed(seed).data_ptr(), 0
+    else:
+        seed_ptr, seed_value = None, _check_seed(seed)
     sac = schedule.sqrt_alphas_cumprod
     s1m = schedule.sqrt_one_minus_alphas_cumprod
     if x_0.dtype != torch.float32:
@@ -138,28 +169,40 @@ def q_sample_fused(
     if t.shape != (b,) or t.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"t must be an integer tensor of shape ({b},), not {t.dtype} "
                          f"{tuple(t.shape)}")
-    for name, x in (("t", t), ("sqrt_alphas_cumprod", sac),
-                    ("sqrt_one_minus_alphas_cumprod", s1m)):
-        if x.device != x_0.device:
-            raise ValueError(f"{name} lies on {x.device}, x_0 on {x_0.device}")
+    if t.device != device or sac.device != device or s1m.device != device:
+        raise ValueError(f"t and the schedule's tables must lie on {device}, not "
+                         f"{t.device}, {sac.device}, {s1m.device}")
     if sac.dtype != torch.float32 or s1m.dtype != torch.float32:
         raise TypeError("the CUDA q_sample kernel takes float32 schedule tables")
     feat = x_0.numel() // b if b else 0
-    if feat > 4 * 128 * _MAX_CHUNKS or b > 2**31 - 1:
-        raise ValueError(f"the CUDA q_sample kernel takes up to {4 * 128 * _MAX_CHUNKS} "
-                         f"elements a row, not {feat}")
-    t64 = t.to(torch.int64)  # no copy on the main path: torch.randint gives int64
+    if b * -(-feat // 4) > _MAX_GROUPS:
+        raise ValueError(f"the CUDA q_sample kernel takes up to {_MAX_GROUPS} groups of 4 "
+                         f"elements, not {b} rows of {feat}")
+    if t.dtype != torch.int64:
+        t = t.to(torch.int64)  # torch.randint gives int64: no copy on the main path
     xt = torch.empty_like(x_0)
     z = torch.empty_like(x_0)
-    lib = _build.library()
-    with torch.cuda.device(x_0.device):
-        stream = torch.cuda.current_stream(x_0.device).cuda_stream
-        rc = lib.tdt_qsample_f32(
-            x_0.data_ptr(), t64.data_ptr(), sac.data_ptr(), s1m.data_ptr(),
-            xt.data_ptr(), z.data_ptr(), b, feat, schedule.num_timesteps, seed,
-            ctypes.c_void_p(stream),
-        )
+    on_device = (contextlib.nullcontext() if device.index == torch.cuda.current_device()
+                 else torch.cuda.device(device))
+    with on_device:
+        # The current stream, read at each call: under CUDA graph capture it
+        # is the capture stream, so the launch is recorded into the graph.
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _build.library().tdt_qsample_f32(
+            x_0.data_ptr(), t.data_ptr(), sac.data_ptr(), s1m.data_ptr(), xt.data_ptr(),
+            z.data_ptr(), b, feat, schedule.num_timesteps, seed_ptr, seed_value, stream)
     if rc != 0:
         raise RuntimeError(f"q_sample kernel launch failed: cudaError {rc}")
-    qsample_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        qsample_captured += 1
+    else:
+        qsample_launches += 1
     return xt, z
+
+
+def count_replays(captured: int, replays: int = 1) -> None:
+    """Add the launches of ``replays`` replays of a CUDA graph into which
+    ``captured`` kernels were recorded (a difference of ``qsample_captured``
+    across the capture) to ``qsample_launches``."""
+    global qsample_launches
+    qsample_launches += captured * replays
