@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through their entry points and holds every
+Drives the port's paths through their entry points and holds every
 hand-written kernel on them against its plain PyTorch version: serving the
 256x256 LAION conv beta-VAE (``checkpoints/vae_laion_best``), the UNet28
 MNIST DDPM main path (train, sample, checkpoint: the port's
-``experiments/diffusion.run``) and training the conv-VAE (the port's
-``experiments/vae_laion.run``). Phases, one JSON line each:
+``experiments/diffusion.run``), class-conditional training with label
+dropout (``experiments/conditional_diffusion.run``), the serving CLI
+(``generate.main``: DDPM, DDIM, DPM-Solver++, guidance, img2img,
+inpainting) and training the conv-VAE (``experiments/vae_laion.run``).
+Phases, one JSON line each:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the kernels, built with one nvcc call from
@@ -46,7 +49,14 @@ MNIST DDPM main path (train, sample, checkpoint: the port's
    included, must equal the train steps); the loss finite and its last
    epoch's mean below its first value; warm step time, samples/s and
    sampling seconds;
-7. resident_parity: 10 steps of the resident step (2 eager warm-up steps,
+7. cond_train: the class-conditional ``run()`` at the committed CFG recipe
+   (``conditional_cfg_ema_best.json``: width 64, B = 128, bf16, label
+   dropout 0.1, EMA 0.999, guidance 2.0; resident, graph replays), 2 epochs
+   of 100 steps and 93 val batches; q_sample launches counted over the run,
+   train steps and val passes apart (one a step, one a val batch), the
+   graph's captures and replays, warm samples/s, val losses, the seconds of
+   the 16-sample CFG DDPM-1000 digit-7 grid; the best checkpoint loads back;
+8. resident_parity: 10 steps of the resident step (2 eager warm-up steps,
    then 8 graph replays) against the same 10 steps run eagerly from the same
    state (``diffusion_final``, with an EMA) on the card, float32 and
    bfloat16: losses, the update's cosine (params, and the EMA shadow on its
@@ -56,35 +66,49 @@ MNIST DDPM main path (train, sample, checkpoint: the port's
    ``.pt`` of the host path (Adam not capturable) restored into a resident
    state, whose graph captures and replays 4 steps that match the host
    state's own next steps;
-8. unet_parity: the card against the port's CPU run, TF32 off: eps from the
-   committed ``checkpoints/diffusion_final`` weights, one SGD step through
-   the step's (t, noise) seam, and a 20-step replayed DDPM chain;
-9. train_step_bf16: the main path's step (bfloat16 autocast, Adam) on the
-   card against the float32 step on the CPU, 3 steps at batch 128 from
-   ``diffusion_final`` through the seam: losses and the direction of the
-   weights' update;
-10. sample: the 1000-step DDPM from ``diffusion_final``, 16 samples;
-11. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
+9. cond_parity: the same graph-vs-eager check for 10 conditional steps with
+   label dropout from the CFG checkpoint's params (labels gathered and
+   dropped inside the graph), and one float32 conditional step on the card
+   against the CPU through the (t, noise, keep) seam;
+10. unet_parity: the card against the port's CPU run, TF32 off: eps from the
+    committed ``checkpoints/diffusion_final`` weights, one SGD step through
+    the step's (t, noise) seam, and a 20-step replayed DDPM chain (float32
+    forward);
+11. train_step_bf16: the main path's step (bfloat16 autocast, Adam) on the
+    card against the float32 step on the CPU, 3 steps at batch 128 from
+    ``diffusion_final`` through the seam: losses and the direction of the
+    weights' update;
+12. sample: the 1000-step DDPM from ``diffusion_final``, 16 samples, the
+    forward in bf16 (JAX's) and in float32;
+13. serve: ``generate.main`` on ``conditional_cfg_ema_best`` (CFG 2.0,
+    digit 7, n = 16): DDPM-1000, DDIM-50, DPM++-15, DDIM img2img at
+    strength 0.6 and DDIM inpainting (input PNGs from the port's encoder),
+    each twice, the second's latency and model forwards; the inpainted
+    output equal to x_known where the mask is 1; DDIM-10 and DPM++-10
+    chains at n = 4 from one x_init, the card against the CPU with the
+    float32 forward, and the card's bf16 forward against the CPU's float32;
+14. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
     at each flash site (B = 4) and at two ragged N, dq, dk and dv; two calls
     bit-equal; the times of kernel, plain version and the backward of
     ``scaled_dot_product_attention`` (a yardstick only), with the bounds of
     the ``kernel`` phase;
-12. flash_autograd: gradients through ``flash_attention_unscaled_t`` (the
+15. flash_autograd: gradients through ``flash_attention_unscaled_t`` (the
     autograd Function over both kernels) on the card against the CPU;
-13. vae_train: the conv-VAE's ``run()`` at full width (256x256, batch 4,
+16. vae_train: the conv-VAE's ``run()`` at full width (256x256, batch 4,
     float32, clip 10, Adam 1e-4), 2 epochs of 20 steps and 2 val batches,
     outputs in temporary directories; launches counted over the run
     (flash backward = 3 a step); the loss and its components finite; warm
     step time, images/s and peak memory;
-14. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
+17. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
     B = 2) on the card against the CPU, cuDNN deterministic: loss
     components, gradients, params, BN statistics, spectral-norm u and sigma;
-15. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+18. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds phases before the last two lines: ``torch.profiler`` over
 one warm reconstruct and one prior decode, over 5 warm UNet28 train steps
 (eager, ``train_steps``, and replayed from a graph over a resident set,
-``train_steps_graph``), over 20 sampler steps and over 3 warm conv-VAE train
+``train_steps_graph``), over 20 sampler steps, over the chain of one
+DPM++-15 serving request (``serve_dpmpp15``) and over 3 warm conv-VAE train
 steps, each with device time by kernel, the device's busy share of the
 window and the host's launch calls.
 
@@ -111,14 +135,19 @@ from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data.laion import synthesize_image
 from tinydiffusion_torch.device import disable_tf32
-from tinydiffusion_torch.experiments.common import load_unet28, make_sampler
+from tinydiffusion_torch import generate
+from tinydiffusion_torch.experiments import conditional_diffusion, vae_laion
+from tinydiffusion_torch.experiments.common import (
+    load_pixel_checkpoint,
+    load_unet28,
+    make_sampler,
+)
 from tinydiffusion_torch.experiments.diffusion import DiffusionConfig, run
-from tinydiffusion_torch.experiments import vae_laion
 from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct, sample_prior
-from tinydiffusion_torch.io.checkpoint import restore_checkpoint, save_checkpoint
+from tinydiffusion_torch.io.checkpoint import load_sidecar, restore_checkpoint, save_checkpoint
 from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.models.vae_conv import PerceptualNet
-from tinydiffusion_torch.obs.images import save_image_grid
+from tinydiffusion_torch.obs.images import load_image28, save_image_grid, write_png
 from tinydiffusion_torch.ops import _build, attention, qsample
 from tinydiffusion_torch.train.trainer import (
     GRAPH_WARMUP_STEPS,
@@ -130,6 +159,7 @@ from tinydiffusion_torch.train.trainer import (
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_laion_best")
 UNET_CHECKPOINT = os.path.join(REPO, "checkpoints", "diffusion_final")
+CFG_CHECKPOINT = os.path.join(REPO, "checkpoints", "conditional_cfg_ema_best")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A float32
@@ -241,6 +271,41 @@ VAE_RECORDS, VAE_EPOCHS = 88, 2
 VAE_PARITY_BATCH, VAE_PARITY_LR = 2, 1e-3
 VAE_LOSS_RTOL, VAE_GRAD_REL_ERR = 1e-4, 1.5e-2
 VAE_PARAM_ATOL, VAE_STATS_RTOL, VAE_STATS_ATOL = 1e-5, 1e-4, 1e-5
+# Class-conditional training at the committed CFG recipe
+# (checkpoints/conditional_cfg_ema_best.json: width 64, time_dim 256, B = 128,
+# bf16, Adam 1e-3, label dropout 0.1, EMA 0.999, guidance 2.0; resident, graph
+# replays), cut to 2 epochs of 100 steps with the val pass cut to as many
+# batches (the 12 000-image split has 93). Its labels, NULL_LABEL the null class.
+COND_EPOCHS, COND_STEPS, NULL_LABEL = 2, 100, 10
+# One float32 conditional step (label dropout through the keep seam) on the
+# card against the CPU, from the CFG checkpoint's params: only summation order
+# differs, as in unet_parity.
+COND_PARITY_BATCH, COND_LOSS_RTOL = 32, 1e-4
+# Serving from conditional_cfg_ema_best (the EMA shadow, guidance 2.0, digit
+# 7, n = 16). The requests, as generate.py's flags.
+SERVE_N = 16
+SERVE_REQUESTS = {
+    "ddpm1000": ["--sampler", "ddpm"],
+    "ddim50": ["--sampler", "ddim", "--sample-steps", "50"],
+    "dpmpp15": ["--sampler", "dpmpp", "--sample-steps", "15"],
+    "img2img": ["--sampler", "ddim", "--sample-steps", "50", "--init-image", "INIT",
+                "--strength", "0.6"],
+    "inpaint": ["--sampler", "ddim", "--sample-steps", "50", "--inpaint-image", "INIT",
+                "--inpaint-mask", "MASK"],
+}
+# DDIM-10 and DPM++-10 chains at n = 4 (guidance 2.0, a fixed x_init): the
+# card's float32 forward against the CPU's, TF32 off, within 1e-3. With the
+# bfloat16 forward (autocast) on the card against float32 on the CPU, the
+# bounds were set before the first card reading, from CPU runs of the same
+# chains (bf16 autocast against float32, both on the CPU): mean |diff| 0.0060
+# / 0.0191 and max 0.128 / 0.690 for DDIM / DPM++ at this x_init (0.0029 /
+# 0.0118 and 0.026 / 0.085 at another), samples in [-1.96, 1.35]. The largest
+# difference is one pixel of a chaotic chain and heavy-tailed, so the mean
+# carries the check (about 3 times the CPU's) and the max only catches a
+# chain gone wrong.
+SERVE_CHAIN_N, SERVE_CHAIN_STEPS = 4, 10
+SERVE_F32_ATOL = 1e-3
+SERVE_BF16_MAX_ABS, SERVE_BF16_MEAN_ABS = 1.5, 0.06
 
 
 def emit(phase: str, **fields) -> None:
@@ -776,7 +841,8 @@ def phase_unet_parity() -> dict:
     stream = torch.from_numpy(rng.standard_normal((CHAIN_T, CHAIN_N, 1, 28, 28), np.float32))
     chains = {}
     for dev, model in models.items():
-        sampler = make_sampler(model, chain_schedule.to(dev), (CHAIN_N, 1, 28, 28))
+        sampler = make_sampler(model, chain_schedule.to(dev), (CHAIN_N, 1, 28, 28),
+                               compute_dtype=torch.float32)
         chains[dev] = sampler(x_init=x_init, noise_stream=stream).cpu()
     errs["chain"] = (chains["cuda"] - chains["cpu"]).abs().max().item()
     if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > UNET_CARD_VS_CPU_ATOL:
@@ -821,10 +887,10 @@ def phase_train_step_bf16() -> dict:
     return fields
 
 
-def _resident_state(images: np.ndarray, model=None, ema: bool = False):
+def _resident_state(images: np.ndarray, model=None, ema: bool = False, labels=None):
     """A train state with capturable Adam over ``model`` (default: a
     full-width UNet28 from a seeded init), with an EMA shadow when asked,
-    and the resident set, on the card."""
+    and the resident set (with its labels, when given), on the card."""
     if model is None:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(SEED)
@@ -832,23 +898,23 @@ def _resident_state(images: np.ndarray, model=None, ema: bool = False):
         model = model.cuda()
     optimizer = torch.optim.Adam(model.parameters(), lr=1e-3, capturable=True)
     state = create_train_state(model, optimizer, SEED, ema=ema)
-    dataset = DeviceDataset(images, PARITY_BATCH, seed=SEED, device="cuda")
+    dataset = DeviceDataset(images, PARITY_BATCH, seed=SEED, device="cuda", labels=labels)
     return state, dataset
 
 
-def phase_resident_parity() -> dict:
+def _graph_vs_eager(phase: str, load_model, images: np.ndarray, labels=None,
+                    **step_options) -> dict:
     """PARITY_STEPS steps of the resident step (GRAPH_WARMUP_STEPS eager, the
     rest replays of its captured graph) against the same steps run eagerly
-    (``make_train_step`` on the gathered batches) from the same state, the
-    committed ``diffusion_final`` weights, in float32 and in bfloat16."""
+    (``make_train_step`` on the gathered batches) from the same state
+    (``load_model()``), in float32 and in bfloat16, beside a second eager
+    run: the noise floor of the card's atomics."""
     disable_tf32()
-    images = np.random.default_rng(SEED + 15).integers(
-        0, 256, (PARITY_BATCH * PARITY_STEPS, 28, 28, 1), dtype=np.uint8)
     schedule = DiffusionSchedule.linear(1000).to("cuda")
     fields = {"steps": PARITY_STEPS, "replayed": PARITY_STEPS - GRAPH_WARMUP_STEPS,
-              "batch": PARITY_BATCH, "weights": os.path.relpath(UNET_CHECKPOINT, REPO),
-              "loss_rtol": PARITY_LOSS_RTOL, "min_update_cos": PARITY_MIN_UPDATE_COS,
-              "max_params_abs": PARITY_MAX_PARAM_ABS, "max_stats_rel": PARITY_MAX_STATS_REL}
+              "batch": PARITY_BATCH, "loss_rtol": PARITY_LOSS_RTOL,
+              "min_update_cos": PARITY_MIN_UPDATE_COS, "max_params_abs": PARITY_MAX_PARAM_ABS,
+              "max_stats_rel": PARITY_MAX_STATS_REL}
     failed = []
 
     def flat(tensors):
@@ -859,23 +925,26 @@ def phase_resident_parity() -> dict:
 
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         out = {}
+        options = dict(step_options, ema_decay=PARITY_EMA_DECAY, compute_dtype=dtype)
         for mode in ("graph", "eager", "eager_again"):
-            state, dataset = _resident_state(images, load_unet28(UNET_CHECKPOINT, "cuda"),
-                                             ema=True)
+            state, dataset = _resident_state(images, load_model(), ema=True, labels=labels)
             params0 = flat(state.model.parameters())
             ema0 = flat(state.ema_params.values())
             idxs = dataset.epoch_index_batches(0)[:PARITY_STEPS]
             _reset_launches()
             if mode == "graph":
-                losses = make_resident_multi_step(schedule, dataset, ema_decay=PARITY_EMA_DECAY,
-                                                  compute_dtype=dtype)(state, idxs).tolist()
+                losses = make_resident_multi_step(schedule, dataset, **options)(
+                    state, idxs).tolist()
             else:
-                step = make_train_step(schedule, ema_decay=PARITY_EMA_DECAY, compute_dtype=dtype)
-                losses = [step(state, dataset.gather(torch.from_numpy(row).cuda())
-                               .permute(0, 3, 1, 2)).item() for row in idxs]
+                step = make_train_step(schedule, **options)
+                losses = []
+                for row in idxs:
+                    batch = dataset.gather(torch.from_numpy(row).cuda())
+                    x0, y = batch if labels is not None else (batch, None)
+                    losses.append(step(state, x0.permute(0, 3, 1, 2), y).item())
             torch.cuda.synchronize()
             if qsample.qsample_launches != PARITY_STEPS or state.step != PARITY_STEPS:
-                raise RuntimeError(f"resident_parity ({mode}): {state.step} steps, "
+                raise RuntimeError(f"{phase} ({mode}): {state.step} steps, "
                                    f"{qsample.qsample_launches} q_sample launches")
             params, ema = flat(state.model.parameters()), flat(state.ema_params.values())
             stats = flat(b for n, b in state.model.named_buffers()
@@ -910,7 +979,18 @@ def phase_resident_parity() -> dict:
                 and check["stats_max_rel"] <= PARITY_MAX_STATS_REL[name]):
             failed.append(name)
     if failed:
-        raise RuntimeError(f"resident_parity: graph vs eager in {failed}: {fields}")
+        raise RuntimeError(f"{phase}: graph vs eager in {failed}: {fields}")
+    return fields
+
+
+def phase_resident_parity() -> dict:
+    """The resident step against eager steps from the committed
+    ``diffusion_final`` weights (``_graph_vs_eager``)."""
+    images = np.random.default_rng(SEED + 15).integers(
+        0, 256, (PARITY_BATCH * PARITY_STEPS, 28, 28, 1), dtype=np.uint8)
+    fields = _graph_vs_eager("resident_parity", lambda: load_unet28(UNET_CHECKPOINT, "cuda"),
+                             images)
+    fields["weights"] = os.path.relpath(UNET_CHECKPOINT, REPO)
     emit("resident_parity", **fields)
     return fields
 
@@ -956,22 +1036,244 @@ def phase_resident_restore() -> dict:
 
 
 def phase_sample() -> dict:
+    """16 samples of the 1000-step DDPM from ``diffusion_final``, the model's
+    forward in bfloat16 as JAX serves it (its UNet28 is a bf16 model) and,
+    for continuity with the earlier runs, in float32; the chain in float32."""
     model = load_unet28(UNET_CHECKPOINT, "cuda")
     schedule = DiffusionSchedule.linear(1000).to("cuda")
-    sampler = make_sampler(model, schedule, (16, 1, 28, 28))
-    gen = torch.Generator("cuda").manual_seed(SEED + 9)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    samples = sampler(gen)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    if tuple(samples.shape) != (16, 1, 28, 28) or not torch.isfinite(samples).all():
-        raise RuntimeError(f"samples: shape {tuple(samples.shape)}, finite "
-                           f"{torch.isfinite(samples).all().item()}")
-    fields = {"samples": 16, "steps": 1000, "seconds": seconds,
-              "min": samples.min().item(), "max": samples.max().item(),
-              "share_in_unit_range": (samples.abs() <= 1.05).float().mean().item()}
+    fields = {"samples": 16, "steps": 1000}
+    for name, compute_dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        sampler = make_sampler(model, schedule, (16, 1, 28, 28), compute_dtype=compute_dtype)
+        gen = torch.Generator("cuda").manual_seed(SEED + 9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = sampler(gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if tuple(samples.shape) != (16, 1, 28, 28) or not torch.isfinite(samples).all():
+            raise RuntimeError(f"samples ({name}): shape {tuple(samples.shape)}, finite "
+                               f"{torch.isfinite(samples).all().item()}")
+        fields[name] = {"seconds": seconds, "min": samples.min().item(),
+                        "max": samples.max().item(),
+                        "share_in_unit_range": (samples.abs() <= 1.05).float().mean().item()}
+    fields["seconds"] = fields["bfloat16"]["seconds"]
     emit("sample", **fields)
+    return fields
+
+
+def phase_cond_train(data_root: str) -> dict:
+    """``run()`` of the class-conditional experiment at the committed CFG
+    recipe, resident with graph replays, the kernel launches counted over
+    exactly that run (train steps and val passes apart)."""
+    recipe = load_sidecar(CFG_CHECKPOINT)["config"]
+    with tempfile.TemporaryDirectory() as tmp:
+        fields = {k: recipe[k] for k in ("batch_size", "lr", "num_timesteps", "num_classes",
+                                         "time_dim", "compute_dtype", "sample_dtype",
+                                         "ema_decay", "label_dropout", "guidance_scale",
+                                         "noise_schedule", "prediction", "val_frac",
+                                         "split_seed")}
+        config = conditional_diffusion.ConditionalDiffusionConfig(
+            **fields, num_epochs=COND_EPOCHS, max_steps_per_epoch=COND_STEPS,
+            log_every=COND_STEPS, data_root=data_root, out_dir=os.path.join(tmp, "out"),
+            model_save_path=os.path.join(tmp, "ckpt"), device="cuda")
+        _set_default_tf32()  # run() must turn TF32 off itself
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = conditional_diffusion.run(config)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _launches()
+        steps = result["state"].step
+        val_batches = min(COND_STEPS, int(round(60_000 * config.val_frac)) // config.batch_size)
+        split = result["qsample_launches"]
+        graph = result["graph"]
+        problems = []
+        if torch.backends.cudnn.allow_tf32:
+            problems.append("run() left cuDNN's TF32 on")
+        if steps != COND_EPOCHS * COND_STEPS or not result["resident"]:
+            problems.append(f"{steps} steps, resident {result['resident']}")
+        if split != {"train": steps, "eval": COND_EPOCHS * val_batches}:
+            problems.append(f"q_sample launches {split}, want {steps} train and "
+                            f"{COND_EPOCHS * val_batches} eval")
+        if launches["qsample"] != split["train"] + split["eval"]:
+            problems.append(f"q_sample launches {launches} against {split}")
+        if graph != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
+                     "replays": steps - GRAPH_WARMUP_STEPS}:
+            problems.append(f"graph counts {graph}")
+        # The raw-integer time embedding holds the loss near 1 for the first
+        # hundred steps or so, so this only catches a run that diverges or does
+        # not learn at all, as in the train phase: the last epoch's mean train
+        # loss below the first logged loss. The val losses stay above 1 this
+        # early (eval-mode BatchNorm on running statistics 200 steps old).
+        train_losses = [e["train_loss"] for e in result["epochs"]]
+        values = result["losses"] + train_losses + result["val_losses"]
+        if not np.all(np.isfinite(values)) or not train_losses[-1] < result["losses"][0]:
+            problems.append(f"losses {result['losses']}, epoch means {train_losses}, "
+                            f"val {result['val_losses']}")
+        out = config.out_dir
+        want = [os.path.join(out, f"generated_mnist_epoch_{e}.png") for e in range(COND_EPOCHS)]
+        want += [os.path.join(out, name) for name in (
+            "generated_digit_7.png", f"denoising_t{config.num_timesteps}.png")]
+        want += [config.model_save_path + ext for ext in (".pt", ".npz", ".json")]
+        missing = [os.path.relpath(p, tmp) for p in want if not os.path.getsize(p) > 0]
+        if missing:
+            problems.append(f"missing outputs {missing}")
+        loaded = load_pixel_checkpoint(config.model_save_path, "cuda")
+        if not (loaded["cfg_trained"] and loaded["use_ema"]
+                and loaded["model"].class_embedding.weight.shape == (11, 256)):
+            problems.append("the best checkpoint does not load as a CFG + EMA UNet28")
+        warm = result["epochs"][-1]
+        fields = {
+            "recipe": os.path.relpath(CFG_CHECKPOINT, REPO) + ".json", "epochs": COND_EPOCHS,
+            "steps": steps, "val_batches_per_epoch": val_batches, "launches": launches,
+            "qsample_launches": split, "graph": graph, "losses": result["losses"],
+            "train_losses": [e["train_loss"] for e in result["epochs"]],
+            "val_losses": result["val_losses"], "wall_s": wall_s,
+            "warm_samples_per_sec": warm["samples_per_sec"],
+            "warm_step_ms": 1e3 * config.batch_size / warm["samples_per_sec"],
+            "val_seconds": [e["val_seconds"] for e in result["epochs"]],
+            "sample_seconds": [e["sample_seconds"] for e in result["epochs"]],
+            "digit7_cfg_ddpm1000_seconds": result["digit7_seconds"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+    if problems:
+        raise RuntimeError(f"cond_train: {problems}: {fields}")
+    emit("cond_train", **fields)
+    return fields
+
+
+def phase_cond_parity() -> dict:
+    """The resident conditional step with label dropout, graph against eager
+    (``_graph_vs_eager``, from the CFG checkpoint's params); then one float32
+    conditional step on the card against the CPU through the (t, noise,
+    keep) seam."""
+    images = np.random.default_rng(SEED + 17).integers(
+        0, 256, (PARITY_BATCH * PARITY_STEPS, 28, 28, 1), dtype=np.uint8)
+    labels = np.random.default_rng(SEED + 18).integers(0, 10, len(images))
+    options = dict(conditional=True, label_dropout=0.1, null_label=NULL_LABEL)
+    fields = _graph_vs_eager("cond_parity",
+                             lambda: load_pixel_checkpoint(CFG_CHECKPOINT, "cuda")["model"],
+                             images, labels, **options)
+    fields["weights"] = os.path.relpath(CFG_CHECKPOINT, REPO)
+
+    rng = np.random.default_rng(SEED + 19)
+    b = COND_PARITY_BATCH
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, 1, 28, 28)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, b))
+    t = torch.from_numpy(rng.integers(0, 1000, b))
+    noise = torch.from_numpy(rng.standard_normal((b, 1, 28, 28)).astype(np.float32))
+    keep = torch.from_numpy(rng.uniform(size=b) >= 0.25)  # a quarter to the null class
+    schedule = DiffusionSchedule.linear(1000)
+    losses, params = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = load_pixel_checkpoint(CFG_CHECKPOINT, dev)["model"]
+        state = create_train_state(model, torch.optim.SGD(model.parameters(), lr=1e-2), SEED)
+        step = make_train_step(schedule.to(dev), **options)
+        losses[dev] = step(state, x.to(dev), y.to(dev), t=t.to(dev), noise=noise.to(dev),
+                           keep=keep.to(dev)).item()
+        params[dev] = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    step_fields = {
+        "batch": b, "dropped": int((~keep).sum()), "losses": losses,
+        "loss_rel": abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"]),
+        "loss_rtol": COND_LOSS_RTOL,
+        "params_max_abs": max((params["cuda"][k] - v).abs().max().item()
+                              for k, v in params["cpu"].items()),
+    }
+    fields["card_vs_cpu_step"] = step_fields
+    if not step_fields["loss_rel"] <= COND_LOSS_RTOL:
+        raise RuntimeError(f"cond_parity: the float32 step on the card vs the CPU: {step_fields}")
+    emit("cond_parity", **fields)
+    return fields
+
+
+def _serve_chains() -> dict:
+    """DDIM-10 and DPM++-10 at n = 4 from a fixed x_init (guidance 2.0): the
+    card against the CPU, float32 forward (both TF32-free) and, on the card,
+    the bfloat16 forward."""
+    loaded = {dev: load_pixel_checkpoint(CFG_CHECKPOINT, dev) for dev in ("cuda", "cpu")}
+    n = SERVE_CHAIN_N
+    x_init = torch.from_numpy(np.random.default_rng(SEED + 20).standard_normal(
+        (n, 1, 28, 28)).astype(np.float32))
+    y = torch.tensor([0, 3, 7, 9])
+    out = {}
+    for method in ("ddim", "dpmpp"):
+        chains = {}
+        for dev, compute_dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                                   ("cuda", torch.bfloat16)):
+            ld = loaded[dev]
+            sampler = make_sampler(ld["model"], ld["schedule"], (n, 1, 28, 28),
+                                   conditional=True, method=method,
+                                   sample_steps=SERVE_CHAIN_STEPS, guidance_scale=2.0,
+                                   null_label=NULL_LABEL, compute_dtype=compute_dtype)
+            chains[(dev, compute_dtype)] = sampler(params=ld["params"], y=y.to(dev),
+                                                   x_init=x_init.to(dev)).cpu()
+        ref = chains[("cpu", torch.float32)]
+        f32 = (chains[("cuda", torch.float32)] - ref).abs()
+        bf16 = (chains[("cuda", torch.bfloat16)] - ref).abs()
+        out[method] = {"f32_max_abs": f32.max().item(), "bf16_max_abs": bf16.max().item(),
+                       "bf16_mean_abs": bf16.mean().item(),
+                       "range": [ref.min().item(), ref.max().item()]}
+    return out
+
+
+def phase_serve() -> dict:
+    """The port's serving CLI (``generate.main``) on the CFG checkpoint: each
+    request twice, its warm (second) latency and model forwards; then the
+    chains card against CPU, and the inpainted output against its known
+    region."""
+    fields = {"checkpoint": os.path.relpath(CFG_CHECKPOINT, REPO), "n": SERVE_N,
+              "guidance_scale": 2.0, "digit": 7, "requests": {}}
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_launches()
+        base = ["--checkpoint", CFG_CHECKPOINT, "--device", "cuda", "--n", str(SERVE_N),
+                "--guidance-scale", "2.0", "--digit", "7"]
+        init, mask = os.path.join(tmp, "init.png"), os.path.join(tmp, "mask.png")
+        for name, flags in SERVE_REQUESTS.items():
+            flags = [init if f == "INIT" else mask if f == "MASK" else f for f in flags]
+            argv = base + flags + ["--out", os.path.join(tmp, f"{name}.png")]
+            generate.main(argv)  # cold: cuDNN's first choices
+            result = generate.main(argv)
+            samples = result["samples"]
+            if tuple(samples.shape) != (SERVE_N, 1, 28, 28) or not torch.isfinite(samples).all():
+                problems.append(f"{name}: samples {tuple(samples.shape)}")
+            fields["requests"][name] = {"warm_s": result["sample_seconds"],
+                                        "forwards": result["forwards"],
+                                        "ms_per_forward": 1e3 * result["sample_seconds"]
+                                        / result["forwards"]}
+            if name == "ddpm1000":
+                # The inputs of img2img and inpainting, written by the port's
+                # PNG encoder: the first sample, and a mask keeping its left half.
+                first = ((samples[0, 0].float().clamp(-1, 1) + 1) * 127.5).round()
+                write_png(init, first.to(torch.uint8).cpu().numpy()[..., None])
+                keep = np.zeros((28, 28, 1), np.uint8)
+                keep[:, :14] = 255
+                write_png(mask, keep)
+            if name == "inpaint":
+                x_known = torch.from_numpy(load_image28(init)).permute(2, 0, 1).cuda()
+                known = torch.from_numpy(load_image28(mask) >= 0).permute(2, 0, 1).cuda()
+                kept = samples[:, known] == x_known[known]
+                fields["inpaint_known_equal"] = bool(kept.all().item())
+                if not fields["inpaint_known_equal"]:
+                    problems.append("inpainting: the output differs from x_known where mask == 1")
+        if qsample.qsample_launches or attention.flash_fwd_launches:
+            problems.append(f"serving launched a training or VAE kernel: {_launches()}")
+    forwards = {k: v["forwards"] for k, v in fields["requests"].items()}
+    # img2img at strength 0.6 starts at t = 599: 50 of its 600 timesteps.
+    if forwards != {"ddpm1000": 1000, "ddim50": 50, "dpmpp15": 15, "img2img": 50,
+                    "inpaint": 50}:
+        problems.append(f"model forwards {forwards}")
+    fields["chains"] = _serve_chains()
+    fields.update(f32_atol=SERVE_F32_ATOL, bf16_max_abs_bound=SERVE_BF16_MAX_ABS,
+                  bf16_mean_abs_bound=SERVE_BF16_MEAN_ABS)
+    for method, c in fields["chains"].items():
+        if not (c["f32_max_abs"] <= SERVE_F32_ATOL and c["bf16_max_abs"] <= SERVE_BF16_MAX_ABS
+                and c["bf16_mean_abs"] <= SERVE_BF16_MEAN_ABS):
+            problems.append(f"{method} chain card vs CPU: {c}")
+    if problems:
+        raise RuntimeError(f"serve: {problems}: {fields}")
+    emit("serve", **fields)
     return fields
 
 
@@ -1136,11 +1438,12 @@ def _profile_window(name: str, fn, **fields) -> None:
 
 
 def phase_profile() -> None:
-    """Five windows: one warm reconstruct + one prior decode of the conv-VAE;
+    """Six windows: one warm reconstruct + one prior decode of the conv-VAE;
     5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample), eager
     and then replayed from a CUDA graph over a resident set; 20 steps
-    of the fp32 DDPM sampler (16 samples); 3 warm conv-VAE train steps
-    (256x256, batch 4, fp32, Adam) from ``vae_laion_best``."""
+    of the fp32 DDPM sampler (16 samples); the chain of one DPM++-15
+    serving request (CFG, bf16 forward, 16 samples); 3 warm conv-VAE train
+    steps (256x256, batch 4, fp32, Adam) from ``vae_laion_best``."""
     model = load_conv_vae(CHECKPOINT, device="cuda")
     x01, eps, gen = _requests(model)
     _profile_window("vae_requests", lambda: (reconstruct(model, x01, eps),
@@ -1162,9 +1465,20 @@ def phase_profile() -> None:
     idxs = dataset.epoch_index_batches(0)
     _profile_window("train_steps_graph", lambda: graph_step(graph_state, idxs), steps=5)
 
-    sampler = make_sampler(unet, DiffusionSchedule.linear(20).to("cuda"), (16, 1, 28, 28))
+    sampler = make_sampler(unet, DiffusionSchedule.linear(20).to("cuda"), (16, 1, 28, 28),
+                           compute_dtype=torch.float32)
     sample_gen = torch.Generator("cuda").manual_seed(SEED)
     _profile_window("sampler_steps", lambda: sampler(sample_gen), steps=20)
+
+    # One DPM++-15 serving request's chain, as generate.py runs it (CFG 2.0 at
+    # doubled batch, the bf16 forward, the EMA shadow; n = 16).
+    cfg = load_pixel_checkpoint(CFG_CHECKPOINT, "cuda")
+    serve = make_sampler(cfg["model"], cfg["schedule"], (SERVE_N, 1, 28, 28), conditional=True,
+                         method="dpmpp", sample_steps=15, guidance_scale=2.0,
+                         null_label=NULL_LABEL, compute_dtype=torch.bfloat16)
+    y7 = torch.full((SERVE_N,), 7, dtype=torch.int64, device="cuda")
+    _profile_window("serve_dpmpp15", lambda: serve(sample_gen, params=cfg["params"], y=y7),
+                    steps=15, n=SERVE_N)
 
     vae = load_conv_vae(CHECKPOINT, device="cuda")
     vae_state = vae_laion.create_train_state(vae, vae_laion.make_optimizer(vae, 1e-4), SEED)
@@ -1196,11 +1510,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as data_root:  # the synthetic MNIST cache
         trains = [phase_train(dtype, data_root) for dtype in ("bfloat16", "float32")]
         train_host = phase_train("bfloat16", data_root, placement="host")
+        cond = phase_cond_train(data_root)
     phase_resident_parity()
     phase_resident_restore()
+    phase_cond_parity()
     phase_unet_parity()
     phase_train_step_bf16()
     phase_sample()
+    phase_serve()
     bwd_sites = phase_flash_bwd_kernel()
     phase_flash_autograd()
     vae = phase_vae_train()
@@ -1234,6 +1551,9 @@ def main() -> int:
             "launches": trains[0]["launches"]["qsample"],
             "launches_float32_run": trains[1]["launches"]["qsample"],
             "launches_host_run": train_host["launches"]["qsample"],
+            # The class-conditional run: its train steps and its val passes.
+            "launches_conditional_run": cond["launches"]["qsample"],
+            "launches_conditional_split": cond["qsample_launches"],
             "max_abs_err": qsample_site["max_abs_err"],
             **{k: qsample_site[k] for k in keys + (
                 "roofline_share", "device_us", "graph_us", "graph_floor_us")},

@@ -7,7 +7,10 @@ refuses those packages (and ``tinydiffusion_tpu``) imports every module of
 ``tinydiffusion_torch`` and ``chip_smoke``, then loads a conv-VAE from an npz
 of random weights and serves it on ``device="cpu"``; another trains, samples
 and checkpoints a small UNet28 on the CPU; a third trains the conv-VAE for
-two steps through its ``run``.
+two steps through its ``run``; a fourth trains a small class-conditional
+UNet28 for two steps through its ``run`` and serves the checkpoint with
+``generate.main`` in every mode (guidance, DDIM, DPM-Solver++, img2img and
+inpainting from PNGs).
 """
 
 import json
@@ -149,6 +152,46 @@ _CHILD_VAE_TRAIN = _REFUSE + textwrap.dedent("""
 """)
 
 
+# Two steps of the class-conditional run() at small width (label dropout,
+# EMA, the resident step, the val pass, labelled grids), then the serving
+# CLI on its checkpoint in every mode, with PNG inputs from the port's encoder.
+_CHILD_CONDITIONAL = _REFUSE + textwrap.dedent("""
+    import numpy as np
+    import torch
+
+    from tinydiffusion_torch import generate
+    from tinydiffusion_torch.experiments.conditional_diffusion import (
+        ConditionalDiffusionConfig, run)
+    from tinydiffusion_torch.obs.images import write_png
+
+    torch.set_num_threads(1)  # small ops; the test suite runs beside other workers
+    path = sys.argv[1]
+    result = run(ConditionalDiffusionConfig(
+        device="cpu", num_epochs=1, max_steps_per_epoch=2, batch_size=4, log_every=1,
+        num_timesteps=20, n_samples=4, denoising_stride=10, base_width=8, time_dim=32,
+        label_dropout=0.1, guidance_scale=2.0, ema_decay=0.9, data_root=path + "/data",
+        out_dir=path + "/out", model_save_path=path + "/ckpt"))
+    assert result["state"].step == 2 and result["resident"], result
+    rng = np.random.default_rng(0)
+    write_png(path + "/init.png", rng.integers(0, 256, (28, 28, 3), dtype=np.uint8))
+    write_png(path + "/mask.png", rng.integers(0, 2, (28, 28, 1), dtype=np.uint8) * 255)
+    base = ["--checkpoint", path + "/ckpt", "--device", "cpu", "--n", "2",
+            "--out", path + "/gen.png"]
+    for flags in (["--guidance-scale", "2.0", "--digit", "7"],
+                  ["--sampler", "ddim", "--sample-steps", "4", "--eta", "1.0"],
+                  ["--sampler", "dpmpp", "--sample-steps", "4", "--guidance-scale", "2.0"],
+                  ["--sampler", "ddim", "--sample-steps", "4", "--init-image",
+                   path + "/init.png"],
+                  ["--sampler", "ddim", "--sample-steps", "4", "--inpaint-image",
+                   path + "/init.png", "--inpaint-mask", path + "/mask.png"]):
+        out = generate.main(base + flags)
+        assert out["samples"].shape == (2, 1, 28, 28), flags
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
 def _run_isolated(child: str, path: str, cwd: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -179,3 +222,11 @@ def test_port_trains_the_conv_vae_without_the_jax_stack(tmp_path):
     for ext in (".pt", ".npz", ".json"):
         assert os.path.getsize(tmp_path / "ckpt" / f"vae_laion_best{ext}") > 0
     assert os.path.getsize(tmp_path / "out" / "generated_samples.png") > 0
+
+
+def test_port_trains_conditional_and_serves_every_mode_without_the_jax_stack(tmp_path):
+    _run_isolated(_CHILD_CONDITIONAL, str(tmp_path), str(tmp_path))
+    for ext in (".pt", ".npz", ".json"):
+        assert os.path.getsize(tmp_path / f"ckpt{ext}") > 0
+    assert os.path.getsize(tmp_path / "gen.png") > 0
+    assert os.path.getsize(tmp_path / "out" / "generated_digit_7.png") > 0

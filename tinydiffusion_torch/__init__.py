@@ -12,9 +12,12 @@ kernels (``ops/csrc``) are built with ``nvcc`` on their first launch.
 
 Ported so far: the main path, training and sampling the MNIST UNet28 DDPM
 (``experiments/diffusion.py``) with a CUDA fused q_sample
-(``ops/qsample.py``); and training and serving the LAION conv beta-VAE
-(``experiments/vae_laion.py``) with a CUDA flash-attention forward and
-backward (``ops/attention.py``).
+(``ops/qsample.py``); class-conditional training with label dropout for
+classifier-free guidance (``experiments/conditional_diffusion.py``); the
+serving CLI for pixel-space checkpoints (``generate.py``: DDPM, DDIM,
+DPM-Solver++, guidance, img2img, inpainting); and training and serving the
+LAION conv beta-VAE (``experiments/vae_laion.py``) with a CUDA
+flash-attention forward and backward (``ops/attention.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """MNIST as uint8 (N, 28, 28, 1), from IDX files or a synthetic digit set.
 
-Counterpart of ``tinydiffusion_tpu/data/mnist.py`` (``load_mnist_u8`` and the
-IDX reader). With no IDX files under ``data_root`` a deterministic synthetic
+Counterpart of ``tinydiffusion_tpu/data/mnist.py`` (``load_mnist_u8``, the
+IDX reader and ``train_val_split``). With no IDX files under ``data_root`` a deterministic synthetic
 set (pixel-font glyphs + translation + intensity + noise) is generated and
 cached as ``data_root/synthetic_mnist_<split>_<n>.npz``; its bytes equal the
 JAX package's. The cache is written under ``data_root``, so a run that must
@@ -114,3 +114,15 @@ def load_mnist_u8(
     os.makedirs(data_root, exist_ok=True)
     np.savez_compressed(cache, images=images, labels=labels)
     return images, labels
+
+
+def train_val_split(
+    images: np.ndarray, labels: np.ndarray, val_frac: float, seed: int = 42
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Deterministic shuffled split, JAX's (the reference's 80/20 with seed
+    42): ``default_rng(seed).permutation(n)``, the first ``round(n *
+    val_frac)`` rows for validation. Returns (xt, yt, xv, yv)."""
+    perm = np.random.default_rng(seed).permutation(len(images))
+    n_val = int(round(len(images) * val_frac))
+    val_idx, train_idx = perm[:n_val], perm[n_val:]
+    return images[train_idx], labels[train_idx], images[val_idx], labels[val_idx]

@@ -1,11 +1,12 @@
-"""Shared experiment plumbing: dtypes, the sampler factories, weights, CLI.
+"""Shared experiment plumbing: dtypes, checkpoints, the sampler factories, CLI.
 
 Counterpart of ``tinydiffusion_tpu/experiments/common.py`` (``resolve_dtype``,
-the ``ddpm`` branch of ``make_sampler``, ``make_trajectory_sampler``,
+``load_pixel_checkpoint``, ``make_sampler``, ``make_trajectory_sampler``,
 ``RESIDENT_AUTO_LIMIT_BYTES`` and ``resolve_data_placement`` for one card,
 ``add_config_flags``, ``config_from_args``). The flag names are the JAX
-ones, so the two CLIs take the same arguments. DDIM, DPM-Solver++,
-inpainting and classifier-free guidance come with the serving slice.
+ones, so the two CLIs take the same arguments. The latent-family loaders
+(``load_latent_checkpoint``, ``make_latent_pixel_sampler``) come with the
+latent slice.
 """
 
 from __future__ import annotations
@@ -15,11 +16,17 @@ import contextlib
 import dataclasses
 import logging
 
+import numpy as np
 import torch
 from torch import nn
 
 from tinydiffusion_torch.core.process import eps_from_v
-from tinydiffusion_torch.core.sampler import ddpm_denoising_trajectory, ddpm_sample
+from tinydiffusion_torch.core.sampler import (
+    ddim_sample,
+    ddpm_denoising_trajectory,
+    ddpm_sample,
+    dpmpp_sample,
+)
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.device import disable_tf32, resolve_device
 from tinydiffusion_torch.io.checkpoint import load_sidecar, load_weights_arrays
@@ -34,6 +41,73 @@ def resolve_dtype(name: str) -> torch.dtype:
     return table[name]
 
 
+def load_pixel_checkpoint(path: str, device: str | torch.device = "cuda") -> dict:
+    """A pixel-space UNet28 rebuilt from ``<path>.npz`` + ``<path>.json`` (a
+    checkpoint of the JAX package or of the port), everything serving needs
+    derived from the sidecar's config, as in JAX: conditionality, time_dim,
+    the noise schedule, T, the prediction target and the EMA.
+
+    Returns ``model`` (eval mode on ``device``, holding the trained params
+    and the BatchNorm statistics), ``step``, ``params`` (name -> tensor on
+    ``device``: the EMA shadow when the run kept one, else the model's own
+    parameters; pass it to a sampler), ``schedule`` (on ``device``), ``cfg``,
+    ``conditional``, ``num_classes``, ``cfg_trained`` and ``use_ema``.
+
+    A run trained with ``label_dropout > 0`` (classifier-free guidance)
+    reserves one more embedding row, the null class ``num_classes``: the
+    table has ``num_classes + 1`` rows, and only such a checkpoint can serve
+    a guidance scale other than 1. The npz may hold float32 or the
+    bfloat16-bits format (``io.checkpoint.load_weights_arrays`` reads both).
+    On a card TF32 is turned off: a float32 forward is full float32.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        disable_tf32()
+    cfg = load_sidecar(path).get("config", {})
+    num_classes = int(cfg["num_classes"]) if "num_classes" in cfg else None
+    conditional = num_classes is not None
+    cfg_trained = conditional and float(cfg.get("label_dropout", 0.0)) > 0
+    flat = load_weights_arrays(path)
+    model = UNet28(
+        time_dim=int(cfg.get("time_dim", 256)),
+        num_classes=(num_classes + 1) if cfg_trained else num_classes,
+        base_width=int(cfg.get("base_width", 64)),
+    )
+    model.load_state_dict(unet28_state_dict(flat, params="params"))
+    model = model.to(dev).eval()
+    use_ema = any(k.startswith("ema_params/") for k in flat)
+    if use_ema:
+        ema = unet28_state_dict(flat, params="ema_params")
+        params = {n: ema[n].to(dev) for n, _ in model.named_parameters()}
+    else:
+        params = {n: p.detach() for n, p in model.named_parameters()}
+    schedule = DiffusionSchedule.make(cfg.get("noise_schedule", "linear"),
+                                      int(cfg.get("num_timesteps", 1000))).to(dev)
+    return {
+        "model": model,
+        "step": int(flat["step"]) if "step" in flat else 0,
+        "params": params,
+        "schedule": schedule,
+        "cfg": cfg,
+        "conditional": conditional,
+        "num_classes": num_classes,
+        "cfg_trained": cfg_trained,
+        "use_ema": use_ema,
+    }
+
+
+def load_unet28(path: str, device: str | torch.device = "cuda") -> UNet28:
+    """The UNet28 of a checkpoint (``load_pixel_checkpoint``) in eval mode on
+    ``device``, with its serving params (the EMA shadow when the run kept
+    one) loaded into it."""
+    loaded = load_pixel_checkpoint(path, device)
+    model = loaded["model"]
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(loaded["params"][name])
+    return model
+
+
 @contextlib.contextmanager
 def _eval_mode(model: nn.Module):
     was_training = model.training
@@ -44,21 +118,43 @@ def _eval_mode(model: nn.Module):
         model.train(was_training)
 
 
-def _denoiser(model, schedule, params, y, conditional, prediction, dtype):
+def _denoiser(model, schedule, params, y, conditional, prediction, compute_dtype,
+              guidance_scale=1.0, null_label=None):
     """``apply_fn(x, t) -> eps_hat`` over ``model`` in eval mode, with
-    ``params`` (name -> tensor, e.g. an EMA shadow) in place of its own."""
-    args = (y,) if conditional else ()
-    autocast = dtype != torch.float32
+    ``params`` (name -> tensor, e.g. an EMA shadow) in place of its own. The
+    model runs in ``compute_dtype`` (bfloat16: under ``torch.autocast``),
+    whatever the chain's dtype; its float32 output goes back to the chain.
 
-    def apply_fn(x, t_vec):
-        with torch.autocast(x.device.type, dtype=dtype, enabled=autocast):
+    With guidance, the conditional and the null-label predictions come from
+    one forward at doubled batch (``[y, null]`` stacked; eval-mode BatchNorm
+    makes the rows independent): ``eps_n + s * (eps_c - eps_n)``."""
+    guided = conditional and guidance_scale != 1.0
+    if guided:
+        y = torch.cat([y, torch.full_like(y, null_label)])
+    args = (y,) if conditional else ()
+
+    def forward(x, t_vec):
+        with torch.autocast(x.device.type, dtype=compute_dtype,
+                            enabled=compute_dtype != torch.float32):
             if params is None:
                 out = model(x, t_vec, *args)
             else:
                 out = torch.func.functional_call(model, params, (x, t_vec, *args))
         return eps_from_v(schedule, x, out, t_vec) if prediction == "v" else out
 
+    def apply_fn(x, t_vec):
+        x = x.float()
+        if not guided:
+            return forward(x, t_vec)
+        eps_c, eps_n = forward(torch.cat([x, x]), torch.cat([t_vec, t_vec])).chunk(2)
+        return eps_n + guidance_scale * (eps_c - eps_n)
+
     return apply_fn
+
+
+def to_nhwc01(x: torch.Tensor) -> np.ndarray:
+    """Samples in [-1, 1] (B, C, H, W) -> [0, 1] NHWC numpy, for the grids."""
+    return ((x.float() + 1) / 2).permute(0, 2, 3, 1).cpu().numpy()
 
 
 def _check_prediction(prediction: str) -> None:
@@ -80,26 +176,68 @@ def make_sampler(
     sample_shape: tuple[int, ...],
     conditional: bool = False,
     dtype: torch.dtype = torch.float32,
+    method: str = "ddpm",
+    sample_steps: int = 50,
+    eta: float = 0.0,
+    guidance_scale: float = 1.0,
+    null_label: int | None = None,
     prediction: str = "eps",
+    t_start: int | None = None,
+    mask: torch.Tensor | None = None,
+    x_known: torch.Tensor | None = None,
+    compute_dtype: torch.dtype = torch.float32,
 ):
-    """The T-step ancestral DDPM sampler over ``model`` in eval mode:
-    ``sample_fn(generator, params=None, y=None, n=None, x_init=None,
-    noise_stream=None) -> x_0`` of ``sample_shape`` (NCHW), on the
-    schedule's device, with the chain in ``dtype``.
+    """The sampler over ``model`` in eval mode: ``sample_fn(generator,
+    params=None, y=None, n=None, x_init=None, noise_stream=None,
+    known_stream=None) -> x_0`` of ``sample_shape`` (NCHW), on the
+    schedule's device.
+
+    - ``method``: ``"ddpm"``, the T-step ancestral chain; ``"ddim"``,
+      ``sample_steps`` forwards (deterministic at ``eta`` = 0); ``"dpmpp"``,
+      DPM-Solver++(2M) in ``sample_steps`` forwards (``core.sampler``).
+    - ``dtype`` is the chain's; ``compute_dtype`` the model's forward (JAX's
+      model dtype: its serving path runs a bfloat16 UNet28 under a float32
+      chain).
+    - ``guidance_scale`` != 1 on a conditional model trained with label
+      dropout samples with classifier-free guidance against ``null_label``,
+      the reserved embedding row.
+    - ``prediction="v"`` converts the output to eps (``core.process.eps_from_v``).
+    - ``t_start`` (DDIM only) runs the img2img partial chain: pass the noised
+      image as ``x_init``. ``mask``/``x_known`` inpaint (DDPM or DDIM).
 
     ``params`` replaces the model's parameters (an EMA shadow); the model's
-    own buffers (BatchNorm statistics) are used, as JAX samples with the
-    live ``batch_stats``. ``prediction='v'`` converts the model's output to
-    eps (``core.process.eps_from_v``)."""
+    own buffers (BatchNorm statistics) are used, as JAX samples with the live
+    ``batch_stats``. The arguments are checked here, on the host, with JAX's
+    ``ValueError``s."""
+    if method not in ("ddpm", "ddim", "dpmpp"):
+        raise ValueError(f"unknown sampler method {method!r}; use 'ddpm', 'ddim', or 'dpmpp'")
     _check_prediction(prediction)
+    if t_start is not None and method != "ddim":
+        raise ValueError("t_start (img2img) requires method='ddim'")
+    if method == "dpmpp" and (mask is not None or x_known is not None):
+        raise ValueError("inpainting (mask/x_known) requires 'ddpm' or 'ddim'")
+    if conditional and guidance_scale != 1.0 and null_label is None:
+        raise ValueError("guidance_scale != 1 needs null_label (a model trained with "
+                         "label_dropout; the reserved null embedding row)")
 
-    def sample_fn(generator=None, params=None, y=None, n=None, x_init=None, noise_stream=None):
-        shape = sample_shape if n is None else (n,) + tuple(sample_shape[1:])
+    def sample_fn(generator=None, params=None, y=None, n=None, x_init=None, noise_stream=None,
+                  known_stream=None):
+        shape = tuple(sample_shape) if n is None else (n,) + tuple(sample_shape[1:])
         _check_labels(conditional, y, shape[0])
-        apply_fn = _denoiser(model, schedule, params, y, conditional, prediction, dtype)
+        apply_fn = _denoiser(model, schedule, params, y, conditional, prediction, compute_dtype,
+                             guidance_scale, null_label)
         with _eval_mode(model):
-            return ddpm_sample(apply_fn, schedule, shape, generator, dtype=dtype,
-                               x_init=x_init, noise_stream=noise_stream)
+            if method == "dpmpp":
+                return dpmpp_sample(apply_fn, schedule, shape, generator,
+                                    num_steps=sample_steps, dtype=dtype, x_init=x_init)
+            if method == "ddim":
+                return ddim_sample(apply_fn, schedule, shape, generator, num_steps=sample_steps,
+                                   eta=eta, dtype=dtype, x_init=x_init, t_start=t_start,
+                                   mask=mask, x_known=x_known, noise_stream=noise_stream,
+                                   known_stream=known_stream)
+            return ddpm_sample(apply_fn, schedule, shape, generator, dtype=dtype, x_init=x_init,
+                               noise_stream=noise_stream, mask=mask, x_known=x_known,
+                               known_stream=known_stream)
 
     return sample_fn
 
@@ -109,43 +247,26 @@ def make_trajectory_sampler(
     schedule: DiffusionSchedule,
     sample_shape: tuple[int, ...],
     stride: int = 100,
+    conditional: bool = False,
     dtype: torch.dtype = torch.float32,
     prediction: str = "eps",
+    compute_dtype: torch.dtype = torch.float32,
 ):
-    """The coarse denoising-trajectory sampler of an unconditional model (the
-    reference's ``visualize_denoising_process``): ``traj_fn(generator,
-    params=None, x_init=None, noise_stream=None) -> (T // stride,
-    *sample_shape)``."""
+    """The coarse denoising-trajectory sampler (the reference's
+    ``visualize_denoising_process``): ``traj_fn(generator, params=None,
+    y=None, x_init=None, noise_stream=None) -> (T // stride,
+    *sample_shape)``, the chain in ``dtype``, the model in ``compute_dtype``."""
     _check_prediction(prediction)
 
-    def traj_fn(generator=None, params=None, x_init=None, noise_stream=None):
-        apply_fn = _denoiser(model, schedule, params, None, False, prediction, dtype)
+    def traj_fn(generator=None, params=None, y=None, x_init=None, noise_stream=None):
+        _check_labels(conditional, y, sample_shape[0])
+        apply_fn = _denoiser(model, schedule, params, y, conditional, prediction, compute_dtype)
         with _eval_mode(model):
             return ddpm_denoising_trajectory(apply_fn, schedule, sample_shape, generator,
                                              stride=stride, dtype=dtype, x_init=x_init,
                                              noise_stream=noise_stream)
 
     return traj_fn
-
-
-def load_unet28(path: str, device: str | torch.device = "cuda") -> UNet28:
-    """The UNet28 of ``<path>.npz`` + ``<path>.json`` (a checkpoint of the
-    JAX package or of the port), in eval mode on ``device``; its EMA shadow
-    when the run kept one. On a card it turns TF32 off: the model is served
-    in float32."""
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        disable_tf32()
-    config = load_sidecar(path)["config"]
-    flat = load_weights_arrays(path)
-    model = UNet28(
-        time_dim=config.get("time_dim", 256),
-        num_classes=config.get("num_classes"),
-        base_width=config.get("base_width", 64),
-    )
-    ema = any(k.startswith("ema_params/") for k in flat)
-    model.load_state_dict(unet28_state_dict(flat, params="ema_params" if ema else "params"))
-    return model.to(dev).eval()
 
 
 # The largest dataset that ``data_placement="auto"`` keeps in device memory:

@@ -25,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
@@ -40,6 +39,7 @@ from tinydiffusion_torch.experiments.common import (
     make_trajectory_sampler,
     resolve_data_placement,
     resolve_dtype,
+    to_nhwc01,
 )
 from tinydiffusion_torch.io.checkpoint import save_checkpoint
 from tinydiffusion_torch.models.unet28 import UNet28
@@ -57,10 +57,11 @@ class DiffusionConfig:
     """The JAX ``DiffusionConfig``'s fields and defaults (all but one, below),
     plus ``device`` and ``base_width``.
 
-    - ``compute_dtype``: ``"bfloat16"`` (the JAX default) runs the train
-      forward under ``torch.autocast``; ``"float32"`` runs it in full float32.
-      Sampling runs in ``sample_dtype``. On a card ``run`` turns TF32 off for
-      the process, whatever the dtypes, so float32 is full float32.
+    - ``compute_dtype``: ``"bfloat16"`` (the JAX default) runs the model's
+      forward, in training and in sampling, under ``torch.autocast``;
+      ``"float32"`` runs it in full float32. The sampling chain runs in
+      ``sample_dtype``, as in JAX. On a card ``run`` turns TF32 off for the
+      process, whatever the dtypes, so float32 is full float32.
     - ``use_mesh`` has no effect on one card; it is kept so the two CLIs take
       the same flags.
     - ``data_placement``: JAX's rule (``experiments.common.resolve_data_placement``).
@@ -119,11 +120,6 @@ def use_resident_path(config: DiffusionConfig, dataset_bytes: int) -> bool:
     return resolve_data_placement(placement, dataset_bytes, "diffusion")
 
 
-def _to_nhwc01(x: torch.Tensor) -> np.ndarray:
-    """Samples in [-1, 1] (B, C, H, W) -> [0, 1] NHWC numpy, for the grids."""
-    return ((x.float() + 1) / 2).permute(0, 2, 3, 1).cpu().numpy()
-
-
 def run(config: DiffusionConfig) -> dict:
     """Train, sample and checkpoint as the config says. Returns ``losses``
     (the logged ones), ``samples_per_sec`` (the last epoch's), ``epochs``
@@ -134,7 +130,7 @@ def run(config: DiffusionConfig) -> dict:
     dtype = resolve_dtype(config.compute_dtype)
     sample_dtype = resolve_dtype(config.sample_dtype)
     if device.type == "cuda":
-        disable_tf32()  # the sampler is float32 in every compute_dtype
+        disable_tf32()  # float32 is full float32, in the step and in the chain
 
     images_u8, _ = load_mnist_u8(config.data_root, train=True)
     resident = use_resident_path(config, images_u8.nbytes)
@@ -166,7 +162,7 @@ def run(config: DiffusionConfig) -> dict:
     else:
         train_step = make_train_step(schedule, **step_options)
     sampler = make_sampler(model, schedule, (config.n_samples, 1, 28, 28),
-                           dtype=sample_dtype, prediction=config.prediction)
+                           dtype=sample_dtype, prediction=config.prediction, compute_dtype=dtype)
     sample_gen = torch.Generator(device).manual_seed(config.seed + 2)
 
     def synchronize():
@@ -216,7 +212,7 @@ def run(config: DiffusionConfig) -> dict:
             synchronize()
             sample_seconds = time.perf_counter() - t0
             grid = f"{config.out_dir}/generated_mnist_epoch_{epoch}.png"
-            save_image_grid(_to_nhwc01(samples), grid, nrow=4)
+            save_image_grid(to_nhwc01(samples), grid, nrow=4)
             logger.log_image("samples", grid, state.step)
         epoch_seconds = time.perf_counter() - epoch_t0
         logger.log({"epoch": epoch, "train_samples_per_sec": sps,
@@ -227,11 +223,11 @@ def run(config: DiffusionConfig) -> dict:
     if config.visualize_denoising:
         traj_fn = make_trajectory_sampler(model, schedule, (4, 1, 28, 28),
                                           stride=config.denoising_stride, dtype=sample_dtype,
-                                          prediction=config.prediction)
+                                          prediction=config.prediction, compute_dtype=dtype)
         trajectory = traj_fn(sample_gen, params=state.ema_params)
         for i, frame in enumerate(trajectory):
             t_label = config.num_timesteps - i * config.denoising_stride
-            save_image_grid(_to_nhwc01(frame), f"{config.out_dir}/denoising_t{t_label}.png",
+            save_image_grid(to_nhwc01(frame), f"{config.out_dir}/denoising_t{t_label}.png",
                             nrow=2)
 
     if config.checkpoint_path:

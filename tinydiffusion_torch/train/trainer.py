@@ -1,21 +1,25 @@
-"""Diffusion training: one step for every model, and K steps over a
-resident dataset.
+"""Diffusion training: one step for every model, K steps over a resident
+dataset, and the validation loss.
 
 Counterpart of ``tinydiffusion_tpu/train/trainer.py`` (``DiffusionTrainState``,
 ``create_train_state``, ``_ema_update``, ``_raw_step_fn``,
-``make_resident_multi_step``; label dropout comes with the class-conditional
-slice). Per batch: ``t ~ randint(0, T)``, q_sample, the model forward, the
-MSE on eps (or v), the optimizer step, the BatchNorm running-stat update (in
-the model's forward, flax's convention: ``nn.layers.BatchNorm2d``) and, when
-asked, the EMA of the params.
+``make_resident_multi_step``, ``raw_eval_fn`` and ``make_eval_step`` (one
+function here), ``make_resident_eval``). Per batch: ``t ~ randint(0, T)``,
+q_sample, for a class-conditional model with ``label_dropout`` each label
+replaced by the null class at that rate (classifier-free-guidance
+training), the model forward, the MSE on eps (or v), the optimizer step,
+the BatchNorm running-stat update (in the model's forward, flax's
+convention: ``nn.layers.BatchNorm2d``) and, when asked, the EMA of the
+params.
 
 The noise comes from the fused q_sample (``ops.qsample.q_sample_fused``: the
 CUDA kernel on a card, its plain version on the CPU), which draws and noises
-in one pass. The step never waits for the device: ``t`` and then the
-kernel's seed come from the state's generator on the model's device, as JAX
-draws both from the step's keys, and the loss comes back as a device tensor.
-So a step reads nothing from the host that changes between steps, and the
-resident step on a card runs as one CUDA graph, captured once and replayed.
+in one pass. The step never waits for the device: ``t``, the kernel's seed
+and the label-dropout draw come from the state's generator on the model's
+device, as JAX draws them from the step's keys, and the loss comes back as a
+device tensor. So a step reads nothing from the host that changes between
+steps, and the resident step on a card runs as one CUDA graph, captured once
+and replayed.
 """
 
 from __future__ import annotations
@@ -131,18 +135,26 @@ def _step_body(
     ema_decay: float | None,
     prediction: str,
     compute_dtype: torch.dtype,
+    conditional: bool = False,
+    label_dropout: float = 0.0,
+    null_label: int | None = None,
 ) -> Callable:
-    """``body(state, x0, t=None, noise=None) -> loss``: one step's device
-    work, without the host's ``state.step`` count, so that a CUDA graph can
-    capture it."""
+    """``body(state, x0, y=None, t=None, noise=None, keep=None) -> loss``:
+    one step's device work, without the host's ``state.step`` count, so that
+    a CUDA graph can capture it."""
     if prediction not in ("eps", "v"):
         raise ValueError(f"unknown prediction {prediction!r}; use 'eps' or 'v'")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype {compute_dtype} is not float32 or bfloat16")
+    if label_dropout > 0 and (not conditional or null_label is None):
+        raise ValueError("label_dropout requires conditional=True and a null_label")
 
-    def body(state: DiffusionTrainState, x0: torch.Tensor, t=None, noise=None):
+    def body(state: DiffusionTrainState, x0: torch.Tensor, y=None, t=None, noise=None,
+             keep=None):
         model = state.model
         model.train()
+        if conditional and y is None:
+            raise ValueError("a conditional step needs labels y")
         if t is None:
             t = torch.randint(
                 0, schedule.num_timesteps, (x0.shape[0],), generator=state.generator,
@@ -156,13 +168,21 @@ def _step_body(
             seed = torch.randint(0, 2**31 - 1, (), generator=state.generator,
                                  device=x0.device)
             x_t, noise = q_sample_fused(schedule, x0, t, seed)
+        if label_dropout > 0:
+            # JAX's bernoulli(1 - p): a label is kept where its uniform
+            # falls below 1 - p, and becomes the null class elsewhere.
+            if keep is None:
+                keep = torch.rand(y.shape, generator=state.generator,
+                                  device=y.device) < 1.0 - label_dropout
+            y = y.masked_fill(~keep, null_label)
+        args = (y,) if conditional else ()
         # cache_enabled=False: autocast's cache of cast weights may not
         # outlive a CUDA graph capture; each weight is cast once a step anyway.
         with torch.autocast(
             x0.device.type, dtype=compute_dtype, enabled=compute_dtype != torch.float32,
             cache_enabled=False,
         ):
-            out = model(x_t, t)
+            out = model(x_t, t, *args)
         target = v_from_eps(schedule, x0, noise, t) if prediction == "v" else noise
         loss = F.mse_loss(out.float(), target)
         state.optimizer.zero_grad(set_to_none=True)
@@ -180,21 +200,29 @@ def make_train_step(
     ema_decay: float | None = None,
     prediction: str = "eps",
     compute_dtype: torch.dtype = torch.float32,
+    conditional: bool = False,
+    label_dropout: float = 0.0,
+    null_label: int | None = None,
 ) -> Callable:
-    """The train step ``step(state, x0, t=None, noise=None) -> loss`` of an
-    unconditional model.
+    """The train step ``step(state, x0, y=None, t=None, noise=None,
+    keep=None) -> loss``.
 
-    ``x0`` (B, C, H, W) float32 on the model's device. ``state`` is updated
-    in place; the loss is a 0-d float32 device tensor (reading it syncs).
-    ``t`` and ``noise``, when given, replace the step's own draws: the seam
-    the tests use to give the port and the JAX package the same step.
-    ``compute_dtype=torch.bfloat16`` runs the
+    ``x0`` (B, C, H, W) float32 on the model's device, and for a
+    ``conditional`` model its integer labels ``y`` (B,). ``state`` is
+    updated in place; the loss is a 0-d float32 device tensor (reading it
+    syncs). ``t``, ``noise`` and ``keep`` (B,) bool, when given, replace the
+    step's own draws: the seam the tests use to give the port and the JAX
+    package the same step. ``label_dropout`` > 0 replaces each label by
+    ``null_label`` where ``keep`` is False (drawn as JAX's Bernoulli of
+    1 - ``label_dropout``). ``compute_dtype=torch.bfloat16`` runs the
     forward under ``torch.autocast``; the params and the loss stay float32.
     """
-    body = _step_body(schedule, ema_decay, prediction, compute_dtype)
+    body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
+                      label_dropout, null_label)
 
-    def step(state: DiffusionTrainState, x0: torch.Tensor, t=None, noise=None):
-        loss = body(state, x0, t, noise)
+    def step(state: DiffusionTrainState, x0: torch.Tensor, y=None, t=None, noise=None,
+             keep=None):
+        loss = body(state, x0, y, t, noise, keep)
         state.step += 1
         return loss
 
@@ -222,38 +250,51 @@ def make_resident_multi_step(
     ema_decay: float | None = None,
     prediction: str = "eps",
     compute_dtype: torch.dtype = torch.float32,
+    conditional: bool = False,
+    label_dropout: float = 0.0,
+    null_label: int | None = None,
 ) -> Callable:
     """Train over a resident dataset: ``step(state, idxs) -> losses``, where
     ``idxs`` (K, B) are index batches from ``dataset.epoch_index_batches``
     and ``losses`` (K,) float32 stay on the device.
 
-    Each of the K steps gathers its uint8 batch from ``dataset`` (NHWC, as in
-    JAX), normalises it inside the step and runs ``make_train_step``'s
-    per-batch logic: the same draws, in the same order, as the host path.
+    Each of the K steps gathers its uint8 batch (NHWC, as in JAX) and, for a
+    ``conditional`` model, its label row from ``dataset``, normalises it
+    inside the step and runs ``make_train_step``'s per-batch logic: the same
+    draws, in the same order, as the host path.
 
     On a card, one step is captured in a ``torch.cuda.CUDAGraph`` and
     replayed K times: the host does nothing between steps but launch the
     graph. Everything that changes from one step to the next is read from
-    device memory: the position in the chunk, its index row, the ``t`` and
-    seed draws (the state's generator, registered with the graph) and the
-    loss slot it writes. The first ``GRAPH_WARMUP_STEPS`` steps of a state
-    run eagerly on a side stream before the capture; a restore of the state
-    (``restores``), another state or a larger chunk captures again. A failed
-    capture raises: there is no fallback to eager steps. The graph keeps the
-    math mode of its capture, so the caller turns TF32 off first
-    (``device.disable_tf32``), and the optimizer must be built with
-    ``capturable=True`` (Adam's step count then lives on the device).
+    device memory: the position in the chunk, its index row, the ``t``,
+    seed and label-dropout draws (the state's generator, registered with the
+    graph) and the loss slot it writes. The first ``GRAPH_WARMUP_STEPS``
+    steps of a state run eagerly on a side stream before the capture; a
+    restore of the state (``restores``), another state or a larger chunk
+    captures again. A failed capture raises: there is no fallback to eager
+    steps. The graph keeps the math mode of its capture, so the caller turns
+    TF32 off first (``device.disable_tf32``), and the optimizer must be built
+    with ``capturable=True`` (Adam's step count then lives on the device).
 
     On the CPU, which has no graphs, the same step runs eagerly K times; there
-    ``t`` (K, B) and ``noise`` (K, B, C, H, W) may replace the step's own
-    draws, the seam through which the tests replay JAX's.
-    """
-    body = _step_body(schedule, ema_decay, prediction, compute_dtype)
+    ``t`` (K, B), ``noise`` (K, B, C, H, W) and ``keep`` (K, B) may replace
+    the step's own draws, the seam through which the tests replay JAX's.
 
-    def one_step(state: DiffusionTrainState, chunk: _Chunk, t=None, noise=None) -> None:
+    ``step.counts`` tallies the steps run ``eager`` (warm-ups, and every step
+    on the CPU), the graph ``captures`` and the graph ``replays``.
+    """
+    if conditional and dataset.labels is None:
+        raise ValueError("a conditional resident step needs a DeviceDataset with labels")
+    body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
+                      label_dropout, null_label)
+
+    def one_step(state: DiffusionTrainState, chunk: _Chunk, t=None, noise=None,
+                 keep=None) -> None:
         at = chunk.pos.view(1)
-        x0 = dataset.gather(chunk.idxs.index_select(0, at)[0])
-        loss = body(state, x0.permute(0, 3, 1, 2), t, noise)  # NHWC -> NCHW: C = 1, a view
+        batch = dataset.gather(chunk.idxs.index_select(0, at)[0])
+        x0, y = batch if conditional else (batch, None)
+        # NHWC -> NCHW: C = 1, a view
+        loss = body(state, x0.permute(0, 3, 1, 2), y, t, noise, keep)
         chunk.losses.index_copy_(0, at, loss.view(1))
         chunk.pos.add_(1)
 
@@ -263,19 +304,21 @@ def make_resident_multi_step(
                       device=device), torch.zeros(len(idxs), dtype=torch.float32, device=device))
 
     captured: dict = {}  # the graph of one step and what it was captured for
+    counts = {"eager": 0, "captures": 0, "replays": 0}
 
-    def step(state: DiffusionTrainState, idxs, t=None, noise=None) -> torch.Tensor:
+    def step(state: DiffusionTrainState, idxs, t=None, noise=None, keep=None) -> torch.Tensor:
         idxs = torch.as_tensor(idxs, dtype=torch.int64)
         k = len(idxs)
         if dataset.device.type != "cuda":
             chunk = new_chunk(idxs)
             for i in range(k):
-                one_step(state, chunk, None if t is None else t[i],
-                         None if noise is None else noise[i])
+                one_step(state, chunk, *(None if a is None else a[i] for a in (t, noise, keep)))
             state.step += k
+            counts["eager"] += k
             return chunk.losses
-        if t is not None or noise is not None:
-            raise ValueError("the (t, noise) seam runs on the CPU; a card replays its own draws")
+        if t is not None or noise is not None or keep is not None:
+            raise ValueError("the (t, noise, keep) seam runs on the CPU; a card replays its "
+                             "own draws")
         key = (id(state), state.restores, idxs.shape[1])
         if captured.get("key") != key or captured["chunk"].idxs.shape[0] < k:
             captured.clear()  # frees the old graph's memory pool
@@ -294,12 +337,13 @@ def make_resident_multi_step(
             main.wait_stream(side)
             captured["warm"] += 1
             done += 1
+        counts["eager"] += done
         if done < k and "graph" not in captured:
             graph = torch.cuda.CUDAGraph()
-            # The step draws t and its seed from the state's own generator. A
-            # generator that is not registered fails the capture, or would
-            # replay the captured draws every step; registered, each replay
-            # advances it as an eager step does.
+            # The step draws t, its seed and the kept labels from the state's
+            # own generator. A generator that is not registered fails the
+            # capture, or would replay the captured draws every step;
+            # registered, each replay advances it as an eager step does.
             graph.register_generator_state(state.generator)
             # The graph keeps the math mode of this capture: TF32 is off by now.
             before = qsample.qsample_captured
@@ -307,10 +351,86 @@ def make_resident_multi_step(
                 one_step(state, chunk)
             captured["graph"] = graph
             captured["qsample_per_replay"] = qsample.qsample_captured - before
+            counts["captures"] += 1
         for _ in range(k - done):
             captured["graph"].replay()
+        counts["replays"] += k - done
         qsample.count_replays(captured.get("qsample_per_replay", 0), k - done)
         state.step += k
         return chunk.losses[:k].clone()
 
+    step.counts = counts
     return step
+
+
+def _eval_draws(num_timesteps: int, batch: int, key: tuple[int, int]) -> tuple[np.ndarray, int]:
+    """The validation batch's timesteps (B,) and q_sample seed, made on the
+    host from ``key`` = (base seed, fold), JAX's ``fold_in(PRNGKey(seed + 1),
+    epoch * 10000 + i)``: a deterministic draw per (epoch, batch), so that
+    every validation pass of a run, host-streamed or resident, is the same."""
+    rng = np.random.default_rng([int(key[0]), int(key[1])])
+    return rng.integers(0, num_timesteps, batch), int(rng.integers(0, 2**63))
+
+
+def make_eval_step(
+    schedule: DiffusionSchedule,
+    conditional: bool = False,
+    prediction: str = "eps",
+    compute_dtype: torch.dtype = torch.float32,
+) -> Callable:
+    """The validation step ``eval_step(model, x0, key, y=None) -> loss``
+    (JAX's ``raw_eval_fn`` and ``make_eval_step``; the reference's val pass,
+    conditional_diffusion.py:274-292): one batch's loss, a 0-d float32
+    device tensor, with the model in eval mode (the running BatchNorm
+    statistics) and no gradients. ``key`` (base seed, fold) fixes t and the
+    fused q_sample's seed (``_eval_draws``), so a batch noised by the CUDA
+    kernel on a card, or its plain version on the CPU, gets the same noise
+    in every pass. ``prediction`` must match the training target."""
+    if prediction not in ("eps", "v"):
+        raise ValueError(f"unknown prediction {prediction!r}; use 'eps' or 'v'")
+
+    @torch.no_grad()
+    def eval_step(model: nn.Module, x0: torch.Tensor, key: tuple[int, int],
+                  y=None) -> torch.Tensor:
+        t_host, seed = _eval_draws(schedule.num_timesteps, x0.shape[0], key)
+        t = torch.from_numpy(t_host).to(x0.device)
+        x_t, noise = q_sample_fused(schedule, x0, t, seed)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.autocast(x0.device.type, dtype=compute_dtype,
+                                enabled=compute_dtype != torch.float32):
+                out = model(x_t, t, *((y,) if conditional else ()))
+        finally:
+            model.train(was_training)
+        target = v_from_eps(schedule, x0, noise, t) if prediction == "v" else noise
+        return F.mse_loss(out.float(), target)
+
+    return eval_step
+
+
+def make_resident_eval(
+    eval_step: Callable,
+    dataset: DeviceDataset,
+    base_seed: int,
+    fold_stride: int = 10000,
+) -> Callable:
+    """The validation pass over a resident split: ``call(model, epoch, idxs)
+    -> (G,) losses`` on the device, one host read for the whole pass.
+
+    Batch i of ``idxs`` (from ``dataset.epoch_index_batches``) is gathered
+    on the device and scored by ``eval_step(model, x0, key, y)`` with the host
+    loop's key ``(base_seed, epoch * fold_stride + i)``: the same batches,
+    t and noise as the host-streamed pass, so the same losses to the bit."""
+
+    def call(model: nn.Module, epoch: int, idxs) -> torch.Tensor:
+        idxs = torch.as_tensor(idxs, dtype=torch.int64).to(dataset.device)
+        losses = torch.empty(len(idxs), dtype=torch.float32, device=dataset.device)
+        for i in range(len(idxs)):
+            batch = dataset.gather(idxs[i])
+            x0, y = batch if dataset.labels is not None else (batch, None)
+            key = (base_seed, epoch * fold_stride + i)
+            losses[i] = eval_step(model, x0.permute(0, 3, 1, 2), key, y)
+        return losses
+
+    return call
