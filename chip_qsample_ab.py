@@ -38,18 +38,36 @@ def kernel_device_us(launch, kernel: str, calls: int = 20) -> float:
     """Device time in us of one launch of ``kernel``: torch.profiler's events
     of the kernels whose name holds ``kernel``, over ``calls`` calls of
     ``launch``, each of which must launch it once."""
+    return kernel_device_us_each([launch], kernel, calls)[0]
+
+
+def kernel_device_us_each(launches, kernel: str, calls: int = 20,
+                          sessions: int = 3) -> list[float]:
+    """``kernel_device_us`` of each of ``launches`` from one profiler session:
+    ``calls`` calls of each in turn, the kernel events split by start time.
+    A session whose events fall short of the launches is taken again, up to
+    ``sessions`` in all: CUPTI does not always hand over a later session's
+    kernel records."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            launch()
+    counts = []
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    events = [ev for ev in prof.key_averages()
-              if kernel in ev.key and ev.self_device_time_total > 0]
-    if sum(ev.count for ev in events) != calls:
-        raise RuntimeError(f"{kernel} profile: {[(ev.key, ev.count) for ev in events]}")
-    return sum(ev.self_device_time_total for ev in events) / calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for launch in launches:
+                for _ in range(calls):
+                    launch()
+            torch.cuda.synchronize()
+        events = sorted((ev for ev in prof.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA
+                         and kernel in ev.name and ev.self_device_time_total > 0),
+                        key=lambda ev: ev.time_range.start)
+        counts.append(len(events))
+        if len(events) == calls * len(launches):
+            return [sum(ev.self_device_time_total for ev in events[i:i + calls]) / calls
+                    for i in range(0, len(events), calls)]
+    raise RuntimeError(f"{kernel} profile: {counts} events in {sessions} sessions, "
+                       f"{calls * len(launches)} launched in each")
 
 
 def graph_us_per_launch(launch, launches: int = 100, replays: int = 20) -> float:

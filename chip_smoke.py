@@ -10,8 +10,10 @@ MNIST DDPM main path (train, sample, checkpoint: the port's
 ``experiments/diffusion.run``), class-conditional training with label
 dropout (``experiments/conditional_diffusion.run``), the serving CLI
 (``generate.main``: DDPM, DDIM, DPM-Solver++, guidance, img2img,
-inpainting) and training the conv-VAE (``experiments/vae_laion.run``).
-Phases, one JSON line each:
+inpainting) and training the conv-VAE (``experiments/vae_laion.run``), and
+the latent family: the MNIST MLP VAE (``experiments/vae.run``), latent
+diffusion with the MLP UNet and the DiT (``experiments/latent_diffusion.run``)
+and the serving CLI on their checkpoints. Phases, one JSON line each:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the kernels, built with one nvcc call from
@@ -38,7 +40,9 @@ Phases, one JSON line each:
    plain version at the seed read back; the eager call's time (``ms``), the
    kernel's own device time (profiler, ``device_us``), its time per launch in
    a graph of 100 (``graph_us``) beside that of 100 one-element adds
-   (``graph_floor_us``), and the plain version's time;
+   (``graph_floor_us``), and the plain version's time; then the latent
+   step's shape (128, 20) and a ragged (128, 18), each bit-equal to the plain
+   version, with their times;
 6. train (bfloat16, then float32 compute) and train_host (bfloat16):
    ``run()`` at full width, batch 128, 2 epochs of 100 steps, 16 samples of
    the 1000-step fp32 sampler after each epoch, the trajectory, metrics and
@@ -56,6 +60,17 @@ Phases, one JSON line each:
    train steps and val passes apart (one a step, one a val batch), the
    graph's captures and replays, warm samples/s, val losses, the seconds of
    the 16-sample CFG DDPM-1000 digit-7 grid; the best checkpoint loads back;
+   vae_mnist_train: the MNIST VAE's ``run()`` at the published recipe
+   (Adam 1e-3, B = 128, fp32; resident, graph replays), 2 epochs of 100
+   steps and the 78-batch test pass: graph counts, warm samples/s, the last
+   epoch's mean loss below the first logged one, the checkpoint loads as
+   latent diffusion's VAE; latent_train, once per backbone (``mlp_unet``,
+   ``dit``): ``run()`` at the committed checkpoint's recipe (bf16, B = 128;
+   the DiT's per-epoch cosine rate) from ``vae_mnist_best``, 2 epochs of
+   100 steps and the 93-batch val pass: q_sample launches at (128, 20),
+   train and val apart, graph counts, the rate of each epoch, warm step,
+   the digit-7 grid's seconds; for the DiT, a replayed step after the rate
+   is set on the device tensor against the same step eager;
 8. resident_parity: 10 steps of the resident step (2 eager warm-up steps,
    then 8 graph replays) against the same 10 steps run eagerly from the same
    state (``diffusion_final``, with an EMA) on the card, float32 and
@@ -69,7 +84,10 @@ Phases, one JSON line each:
 9. cond_parity: the same graph-vs-eager check for 10 conditional steps with
    label dropout from the CFG checkpoint's params (labels gathered and
    dropped inside the graph), and one float32 conditional step on the card
-   against the CPU through the (t, noise, keep) seam;
+   against the CPU through the (t, noise, keep) seam; latent_parity: the
+   same graph-vs-eager check for 10 latent steps from each committed latent
+   checkpoint, and one float32 latent step card vs CPU through the (z_eps,
+   t, noise, masks) seam;
 10. unet_parity: the card against the port's CPU run, TF32 off: eps from the
     committed ``checkpoints/diffusion_final`` weights, one SGD step through
     the step's (t, noise) seam, and a 20-step replayed DDPM chain (float32
@@ -87,6 +105,10 @@ Phases, one JSON line each:
     output equal to x_known where the mask is 1; DDIM-10 and DPM++-10
     chains at n = 4 from one x_init, the card against the CPU with the
     float32 forward, and the card's bf16 forward against the CPU's float32;
+    latent_serve: ``generate.main`` on ``latent_diffusion_best`` and
+    ``diffusion_transformer_best`` (n = 16, digit 7): DDPM-1000, DDIM-50 and
+    DPM++-15 twice each, warm latency and forwards; DDIM-10 decoded images
+    card vs CPU, float32 and bf16 forward;
 14. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
     at each flash site (B = 4) and at two ragged N, dq, dk and dv; two calls
     bit-equal; the times of kernel, plain version and the backward of
@@ -108,9 +130,11 @@ Phases, one JSON line each:
 one warm reconstruct and one prior decode, over 5 warm UNet28 train steps
 (eager, ``train_steps``, and replayed from a graph over a resident set,
 ``train_steps_graph``), over 20 sampler steps, over the chain of one
-DPM++-15 serving request (``serve_dpmpp15``) and over 3 warm conv-VAE train
-steps, each with device time by kernel, the device's busy share of the
-window and the host's launch calls.
+DPM++-15 serving request (``serve_dpmpp15``), over 3 warm conv-VAE train
+steps, over 5 latent MLP UNet train steps replayed from a graph
+(``latent_train_steps_graph``) and over one DPM++-15 latent request on the
+DiT (``latent_serve_dpmpp15``), each with device time by kernel, the
+device's busy share of the window and the host's launch calls.
 
 Any failure raises and the exit code is non-zero. Without a CUDA card it
 exits 1 before printing any result. Imports nothing of JAX.
@@ -119,6 +143,7 @@ exits 1 before printing any result. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -130,16 +155,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from chip_qsample_ab import graph_us_per_launch, kernel_device_us
+from chip_qsample_ab import graph_us_per_launch, kernel_device_us_each
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data.laion import synthesize_image
 from tinydiffusion_torch.device import disable_tf32
 from tinydiffusion_torch import generate
-from tinydiffusion_torch.experiments import conditional_diffusion, vae_laion
+from tinydiffusion_torch.experiments import conditional_diffusion, latent_diffusion, vae, vae_laion
 from tinydiffusion_torch.experiments.common import (
+    load_latent_checkpoint,
     load_pixel_checkpoint,
     load_unet28,
+    make_latent_pixel_sampler,
     make_sampler,
 )
 from tinydiffusion_torch.experiments.diffusion import DiffusionConfig, run
@@ -152,6 +179,8 @@ from tinydiffusion_torch.ops import _build, attention, qsample
 from tinydiffusion_torch.train.trainer import (
     GRAPH_WARMUP_STEPS,
     create_train_state,
+    make_latent_train_step,
+    make_resident_latent_multi_step,
     make_resident_multi_step,
     make_train_step,
 )
@@ -304,6 +333,50 @@ SERVE_REQUESTS = {
 # carries the check (about 3 times the CPU's) and the max only catches a
 # chain gone wrong.
 SERVE_CHAIN_N, SERVE_CHAIN_STEPS = 4, 10
+# The latent family (slice 5): the committed MNIST VAE and the two latent
+# denoisers, whose sidecars give the train recipes (B = 128, bf16, Adam 1e-3,
+# or the DiT's 3e-4 with a per-epoch cosine; fp32 sampling).
+VAE_MNIST_CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_mnist_best")
+LATENT_CHECKPOINTS = {"mlp_unet": os.path.join(REPO, "checkpoints", "latent_diffusion_best"),
+                      "dit": os.path.join(REPO, "checkpoints", "diffusion_transformer_best")}
+# q_sample at the latent step's shape, (B, latent_dim) = (128, 20): 80-byte
+# rows, the float4 path; and a ragged (128, 18), 72-byte rows, the scalar
+# path. The same Philox stream and arithmetic as the plain version on the
+# card: bit-equal.
+LATENT_QSAMPLE_SITES = ((128, 20), (128, 18))
+# MNIST VAE training at the published recipe (Adam 1e-3, B = 128, float32),
+# cut from 100 epochs of 468 steps to 2 of 100; the test pass is the whole
+# 10k split (78 batches). Latent training at each committed recipe, cut from
+# 100 epochs of 375 steps to 2 of 100, the val pass the whole 12k split (93
+# batches): q_sample launches once a step and once a val batch.
+MNIST_VAE_EPOCHS, MNIST_VAE_STEPS, MNIST_VAE_TEST_BATCHES = 2, 100, 78
+LATENT_EPOCHS, LATENT_STEPS, LATENT_VAL_BATCHES = 2, 100, 93
+# One float32 latent step (frozen encode, q_sample through the noise seam,
+# SGD) on the card against the CPU from each committed checkpoint: only
+# summation order differs, as in unet_parity.
+LATENT_PARITY_BATCH, LATENT_LOSS_RTOL = 128, 1e-4
+# The DiT's learning rate under a captured graph: 3 steps at the cosine's
+# epoch-0 rate, then the epoch-1 rate (num_epochs = 2) set on the device
+# tensor and one replayed step, against the same steps eager. The replayed
+# step's update against the eager one: the cosine with params' fp32 bound and
+# a norm ratio within 1 % (a replay that kept the old rate reads 2).
+LR_REPLAY_MAX_NORM_GAP = 0.01
+# Latent serving from both committed checkpoints (n = 16, digit 7, bf16
+# forward, fp32 chain), each request twice.
+LATENT_SERVE_REQUESTS = {
+    "ddpm1000": (["--sampler", "ddpm"], 1000),
+    "ddim50": (["--sampler", "ddim", "--sample-steps", "50"], 50),
+    "dpmpp15": (["--sampler", "dpmpp", "--sample-steps", "15"], 15),
+}
+# DDIM-10 decoded images at n = 4 from a fixed x_init: the card's float32
+# forward against the CPU's within 1e-3. The card's bfloat16 forward against
+# the CPU's float32: bounds set before any card reading, from CPU runs of the
+# same chains (bf16 autocast against float32, both on the CPU): mean |diff|
+# 0.0030 / 0.0023 and max 0.062 / 0.079 for the MLP UNet / DiT at this
+# x_init (0.0045 / 0.0084 and 0.096 / 0.35 at another); pixels in [-1, 1].
+# The mean carries the check, the max only catches a chain gone wrong.
+LATENT_SERVE_F32_ATOL = 1e-3
+LATENT_SERVE_BF16_MEAN_ABS, LATENT_SERVE_BF16_MAX_ABS = 0.03, 1.0
 SERVE_F32_ATOL = 1e-3
 SERVE_BF16_MAX_ABS, SERVE_BF16_MEAN_ABS = 1.5, 0.06
 
@@ -685,20 +758,55 @@ def phase_qsample_kernel() -> dict:
     ms = cuda_ms(lambda: qsample.q_sample_fused(schedule, x0, t, seed), iters=50, warmup=5)
     plain_ms = cuda_ms(lambda: qsample.q_sample_fused_reference(schedule, x0, t, seed),
                        iters=50, warmup=5)
-    device_us = kernel_device_us(lambda: qsample.q_sample_fused(schedule, x0, t, seed_dev),
-                                 "qsample_f32_kernel")
     graph_us, floor_us = _qsample_graph_us(schedule, x0, t, seed_dev)
     feat = x0[0].numel()
     bound_ms, bound_by = qsample_bound_ms(b, feat, schedule.num_timesteps)
     site = {"B": b, "feat": feat, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "device_us": device_us, "graph_us": graph_us,
+            "library_ms": None, "graph_us": graph_us,
             "graph_floor_us": floor_us, "bound_ms": bound_ms, "bound_by": bound_by,
             "roofline_share": bound_ms / ms, "graph_replays": graph_replays,
             "noise_mean": mean, "noise_std": std, "draws": z_k.numel(),
             "row_corr_0_1": row_corr}
+    latent_sites, latent_launches = _qsample_latent_sites(schedule)
+    # One profiler session for every site: one launch shape after another.
+    site["device_us"], *latent_us = kernel_device_us_each(
+        [lambda: qsample.q_sample_fused(schedule, x0, t, seed_dev)] + latent_launches,
+        "qsample_f32_kernel")
+    for latent, us in zip(latent_sites, latent_us):
+        latent["device_us"] = us
+    site["latent_sites"] = latent_sites
     emit("qsample_kernel", name="qsample", atol=QSAMPLE_ATOL,
          library_note="no one PyTorch call draws the noise and noises x0 together", **site)
     return site
+
+
+def _qsample_latent_sites(schedule) -> tuple[list[dict], list]:
+    """The kernel at the latent step's (128, 20) and at a ragged (128, 18),
+    bit-equal to the plain version on the card, with the main site's times
+    (the device time apart), and a launch of each for the profiler."""
+    rng = np.random.default_rng(SEED + 22)
+    sites, launches = [], []
+    for b, feat in LATENT_QSAMPLE_SITES:
+        z0 = torch.from_numpy(rng.standard_normal((b, feat), np.float32)).cuda()
+        t = torch.from_numpy(rng.integers(0, 1000, b)).cuda()
+        seed = 20261017 + feat
+        xt_k, z_k = qsample.q_sample_fused(schedule, z0, t, seed)
+        xt_r, z_r = qsample.q_sample_fused_reference(schedule, z0, t, seed)
+        torch.cuda.synchronize()
+        err = max((z_k - z_r).abs().max().item(), (xt_k - xt_r).abs().max().item())
+        if err != 0.0:
+            raise RuntimeError(f"q_sample kernel at ({b}, {feat}): {err} from the plain version")
+        seed_dev = torch.tensor(seed, dtype=torch.int64, device="cuda")
+        ms = cuda_ms(lambda: qsample.q_sample_fused(schedule, z0, t, seed), iters=50, warmup=5)
+        plain_ms = cuda_ms(lambda: qsample.q_sample_fused_reference(schedule, z0, t, seed),
+                           iters=50, warmup=5)
+        launches.append(functools.partial(qsample.q_sample_fused, schedule, z0, t, seed_dev))
+        bound_ms, bound_by = qsample_bound_ms(b, feat, schedule.num_timesteps)
+        sites.append({"B": b, "feat": feat, "row_bytes": 4 * feat, "max_abs_err": err,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "roofline_share": bound_ms / ms})
+    return sites, launches
 
 
 def _qsample_graph_replays(schedule, x0, t) -> list[dict]:
@@ -902,13 +1010,15 @@ def _resident_state(images: np.ndarray, model=None, ema: bool = False, labels=No
     return state, dataset
 
 
-def _graph_vs_eager(phase: str, load_model, images: np.ndarray, labels=None,
+def _graph_vs_eager(phase: str, load_model, images: np.ndarray, labels=None, vae=None,
                     **step_options) -> dict:
     """PARITY_STEPS steps of the resident step (GRAPH_WARMUP_STEPS eager, the
     rest replays of its captured graph) against the same steps run eagerly
     (``make_train_step`` on the gathered batches) from the same state
     (``load_model()``), in float32 and in bfloat16, beside a second eager
-    run: the noise floor of the card's atomics."""
+    run: the noise floor of the card's atomics. With a frozen ``vae`` the
+    steps are the latent ones (``make_resident_latent_multi_step`` against
+    ``make_latent_train_step``)."""
     disable_tf32()
     schedule = DiffusionSchedule.linear(1000).to("cuda")
     fields = {"steps": PARITY_STEPS, "replayed": PARITY_STEPS - GRAPH_WARMUP_STEPS,
@@ -933,22 +1043,27 @@ def _graph_vs_eager(phase: str, load_model, images: np.ndarray, labels=None,
             idxs = dataset.epoch_index_batches(0)[:PARITY_STEPS]
             _reset_launches()
             if mode == "graph":
-                losses = make_resident_multi_step(schedule, dataset, **options)(
-                    state, idxs).tolist()
+                resident = (make_resident_multi_step(schedule, dataset, **options) if vae is None
+                            else make_resident_latent_multi_step(vae, schedule, dataset,
+                                                                 **options))
+                losses = resident(state, idxs).tolist()
             else:
-                step = make_train_step(schedule, **options)
+                step = (make_train_step(schedule, **options) if vae is None
+                        else make_latent_train_step(vae, schedule, **options))
                 losses = []
                 for row in idxs:
                     batch = dataset.gather(torch.from_numpy(row).cuda())
                     x0, y = batch if labels is not None else (batch, None)
-                    losses.append(step(state, x0.permute(0, 3, 1, 2), y).item())
+                    x0 = x0.permute(0, 3, 1, 2)  # NCHW; the latent VAE reads either
+                    losses.append(step(state, x0, y).item())
             torch.cuda.synchronize()
             if qsample.qsample_launches != PARITY_STEPS or state.step != PARITY_STEPS:
                 raise RuntimeError(f"{phase} ({mode}): {state.step} steps, "
                                    f"{qsample.qsample_launches} q_sample launches")
             params, ema = flat(state.model.parameters()), flat(state.ema_params.values())
-            stats = flat(b for n, b in state.model.named_buffers()
-                         if n.endswith(("running_mean", "running_var")))
+            stats = flat([b for n, b in state.model.named_buffers()
+                          if n.endswith(("running_mean", "running_var"))]
+                         or [torch.zeros(1, device="cuda")])  # the DiT has no BatchNorm
             out[mode] = {"losses": losses, "params": params, "update": (params - params0).double(),
                          "ema": ema, "ema_update": (ema - ema0).double(), "stats": stats,
                          "generator": state.generator.get_state()}
@@ -1277,6 +1392,331 @@ def phase_serve() -> dict:
     return fields
 
 
+def phase_vae_mnist_train(data_root: str) -> dict:
+    """``experiments.vae.run`` at the published recipe on the default resident
+    graph path, cut to 2 epochs of 100 steps; the test pass is the whole
+    split."""
+    with tempfile.TemporaryDirectory() as tmp:
+        config = vae.VAEExperimentConfig(
+            epochs=MNIST_VAE_EPOCHS, max_steps_per_epoch=MNIST_VAE_STEPS, data_root=data_root,
+            out_dir=os.path.join(tmp, "out"), checkpoint_dir=os.path.join(tmp, "ckpt"),
+            device="cuda")
+        _set_default_tf32()  # run() must turn TF32 off itself
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = vae.run(config)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _launches()
+        steps = result["state"].step
+        problems = []
+        if torch.backends.cudnn.allow_tf32:
+            problems.append("run() left cuDNN's TF32 on")
+        if steps != MNIST_VAE_EPOCHS * MNIST_VAE_STEPS or not result["resident"]:
+            problems.append(f"{steps} steps, resident {result['resident']}")
+        if result["graph"] != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
+                               "replays": steps - GRAPH_WARMUP_STEPS}:
+            problems.append(f"graph counts {result['graph']}")
+        if any(launches.values()):
+            problems.append(f"the MNIST VAE launched a hand-written kernel: {launches}")
+        test_batches = [e["test_batches"] for e in result["epochs"]]
+        if test_batches != [MNIST_VAE_TEST_BATCHES] * MNIST_VAE_EPOCHS:
+            problems.append(f"test batches {test_batches}")
+        per_sample = [e["loss_per_sample"] for e in result["epochs"]]
+        values = result["losses"] + per_sample + result["test_losses"]
+        if not np.all(np.isfinite(values)) or not per_sample[-1] < result["losses"][0]:
+            problems.append(f"losses per sample {result['losses']}, epoch means {per_sample}, "
+                            f"test {result['test_losses']}")
+        ckpt = os.path.join(config.checkpoint_dir, "vae_mnist_best")
+        want = [os.path.join(config.out_dir, name) for name in (
+            "generated_samples.png", *(f"original_vs_reconstructed_epoch_{e}.png"
+                                       for e in range(1, MNIST_VAE_EPOCHS + 1)))]
+        want += [ckpt + ext for ext in (".pt", ".npz", ".json")]
+        missing = [os.path.relpath(p, tmp) for p in want if not os.path.getsize(p) > 0]
+        if missing:
+            problems.append(f"missing outputs {missing}")
+        _, latent_dim = latent_diffusion.load_vae(
+            latent_diffusion.LatentDiffusionConfig(vae_checkpoint=ckpt), "cuda")
+        warm = result["epochs"][-1]
+        fields = {
+            "epochs": MNIST_VAE_EPOCHS, "steps": steps, "batch": config.batch_size,
+            "launches": launches, "graph": result["graph"], "test_batches": test_batches,
+            "losses_per_sample": result["losses"], "epoch_loss_per_sample": per_sample,
+            "test_losses": result["test_losses"], "wall_s": wall_s,
+            "warm_samples_per_sec": warm["samples_per_sec"],
+            "warm_step_ms": 1e3 * config.batch_size / warm["samples_per_sec"],
+            "test_seconds": [e["test_seconds"] for e in result["epochs"]],
+            "checkpoint_latent_dim": latent_dim,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+    if problems:
+        raise RuntimeError(f"vae_mnist_train: {problems}: {fields}")
+    emit("vae_mnist_train", **fields)
+    return fields
+
+
+def _dit_lr_replay() -> dict:
+    """The DiT's rate under a captured graph: from ``diffusion_transformer_best``
+    (float32, dropout on), 3 resident steps at the cosine's epoch-0 rate, the
+    epoch-1 rate set on the capturable Adam's device tensor, one more step
+    replayed; against the same 4 steps eager (the rate set between them),
+    and a second eager run. The fourth step's update is compared."""
+    disable_tf32()
+    schedule = DiffusionSchedule.linear(1000).to("cuda")
+    frozen, _ = latent_diffusion.load_vae(
+        latent_diffusion.LatentDiffusionConfig(vae_checkpoint=VAE_MNIST_CHECKPOINT), "cuda")
+    rates = latent_diffusion.cosine_decay(latent_diffusion.DIT_LR, 2)
+    rng = np.random.default_rng(SEED + 23)
+    images = rng.integers(0, 256, (PARITY_BATCH * 4, 28, 28, 1), dtype=np.uint8)
+    labels = rng.integers(0, 10, len(images))
+    out = {}
+    for mode in ("graph", "eager", "eager_again"):
+        model = load_latent_checkpoint(LATENT_CHECKPOINTS["dit"], device="cuda")["model"]
+        optimizer = torch.optim.Adam(model.parameters(), capturable=True,
+                                     lr=torch.tensor(rates(0), device="cuda"))
+        state = create_train_state(model, optimizer, SEED)
+        dataset = DeviceDataset(images, PARITY_BATCH, seed=SEED, device="cuda", labels=labels)
+        idxs = dataset.epoch_index_batches(0)
+
+        def params():
+            return torch.cat([p.detach().flatten() for p in model.parameters()]).double()
+
+        _reset_launches()
+        if mode == "graph":
+            step = make_resident_latent_multi_step(frozen, schedule, dataset)
+            step(state, idxs[:3])
+            before = params()
+            latent_diffusion.set_lr(optimizer, rates(1))
+            step(state, idxs[3:])
+            replays = step.counts["replays"]
+        else:
+            step = make_latent_train_step(frozen, schedule)
+            for i, row in enumerate(idxs):
+                if i == 3:
+                    before = params()
+                    latent_diffusion.set_lr(optimizer, rates(1))
+                x0, y = dataset.gather(torch.from_numpy(row).cuda())
+                step(state, x0, y)
+        torch.cuda.synchronize()
+        out[mode] = {"update": params() - before, "generator": state.generator.get_state(),
+                     "lr": float(optimizer.param_groups[0]["lr"]),
+                     "launches": qsample.qsample_launches}
+    fields = {"lrs": [rates(0), rates(1)], "lr_read_after_set": out["graph"]["lr"],
+              "graph_replays": replays, "max_norm_gap": LR_REPLAY_MAX_NORM_GAP,
+              "min_update_cos": PARITY_MIN_UPDATE_COS["float32"]}
+    for pair, (a, b) in (("graph_vs_eager", (out["graph"], out["eager"])),
+                         ("eager_vs_eager", (out["eager_again"], out["eager"]))):
+        u, v = a["update"], b["update"]
+        fields[pair] = {"update_cos": (u @ v / (u.norm() * v.norm())).item(),
+                        "update_norm_ratio": (u.norm() / v.norm()).item(),
+                        "generator_equal": torch.equal(a["generator"], b["generator"])}
+    check = fields["graph_vs_eager"]
+    if not (check["generator_equal"] and replays == 2 and out["graph"]["launches"] == 4
+            and abs(out["graph"]["lr"] - rates(1)) <= 1e-6 * rates(1)
+            and check["update_cos"] >= PARITY_MIN_UPDATE_COS["float32"]
+            and abs(check["update_norm_ratio"] - 1.0) <= LR_REPLAY_MAX_NORM_GAP):
+        raise RuntimeError(f"the DiT's rate under the graph: {fields}")
+    return fields
+
+
+def phase_latent_train(backbone: str, data_root: str) -> dict:
+    """``experiments.latent_diffusion.run`` at the committed checkpoint's
+    recipe from the committed VAE, resident with graph replays, cut to 2
+    epochs of 100 steps; the q_sample kernel's launches counted over exactly
+    that run, train steps and val passes apart."""
+    recipe = load_sidecar(LATENT_CHECKPOINTS[backbone])["config"]
+    keys = ("backbone", "batch_size", "lr", "num_timesteps", "num_classes", "time_dim",
+            "compute_dtype", "sample_dtype", "ema_decay", "noise_schedule", "prediction",
+            "val_frac", "split_seed", "sample_every_epoch", "visualize_denoising")
+    with tempfile.TemporaryDirectory() as tmp:
+        config = latent_diffusion.LatentDiffusionConfig(
+            **{k: recipe[k] for k in keys}, num_epochs=LATENT_EPOCHS,
+            max_steps_per_epoch=LATENT_STEPS, log_every=LATENT_STEPS,
+            vae_checkpoint=VAE_MNIST_CHECKPOINT, data_root=data_root,
+            out_dir=os.path.join(tmp, "out"), model_save_path=os.path.join(tmp, "ckpt"),
+            device="cuda")
+        _set_default_tf32()  # run() must turn TF32 off itself
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = latent_diffusion.run(config)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _launches()
+        steps = result["state"].step
+        split = result["qsample_launches"]
+        graph = result["graph"]
+        problems = []
+        if torch.backends.cudnn.allow_tf32:
+            problems.append("run() left cuDNN's TF32 on")
+        if steps != LATENT_EPOCHS * LATENT_STEPS or not result["resident"]:
+            problems.append(f"{steps} steps, resident {result['resident']}")
+        if split != {"train": steps, "eval": LATENT_EPOCHS * LATENT_VAL_BATCHES}:
+            problems.append(f"q_sample launches {split}, want {steps} train and "
+                            f"{LATENT_EPOCHS * LATENT_VAL_BATCHES} eval")
+        if launches != {"flash_fwd": 0, "flash_bwd": 0, "qsample": steps + split["eval"]}:
+            problems.append(f"launches {launches} against {split}")
+        if graph != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
+                     "replays": steps - GRAPH_WARMUP_STEPS}:
+            problems.append(f"graph counts {graph}")
+        train_losses = [e["train_loss"] for e in result["epochs"]]
+        values = result["losses"] + train_losses + result["val_losses"]
+        if not np.all(np.isfinite(values)) or not train_losses[-1] < result["losses"][0]:
+            problems.append(f"losses {result['losses']}, epoch means {train_losses}, "
+                            f"val {result['val_losses']}")
+        lrs = [e["lr"] for e in result["epochs"]]
+        if backbone == "dit":
+            rates = latent_diffusion.cosine_decay(latent_diffusion.DIT_LR, LATENT_EPOCHS)
+            want_lrs = [rates(e) for e in range(LATENT_EPOCHS)]  # 3e-4, 3e-4 (1 + cos(pi/2)) / 2
+        else:
+            want_lrs = [config.lr] * LATENT_EPOCHS
+        if not np.allclose(lrs, want_lrs, rtol=1e-6, atol=0):
+            problems.append(f"learning rates {lrs}, want {want_lrs}")
+        want = [os.path.join(config.out_dir, "generated_digit_7.png")]
+        want += [config.model_save_path + ext for ext in (".pt", ".npz", ".json")]
+        missing = [os.path.relpath(p, tmp) for p in want if not os.path.getsize(p) > 0]
+        if missing:
+            problems.append(f"missing outputs {missing}")
+        loaded = load_latent_checkpoint(config.model_save_path, device="cuda")
+        if loaded["cfg"]["backbone"] != backbone:
+            problems.append("the best checkpoint does not load as its backbone")
+        warm = result["epochs"][-1]
+        fields = {
+            "backbone": backbone, "recipe": os.path.relpath(LATENT_CHECKPOINTS[backbone], REPO)
+            + ".json", "compute_dtype": config.compute_dtype, "epochs": LATENT_EPOCHS,
+            "steps": steps, "val_batches_per_epoch": LATENT_VAL_BATCHES, "launches": launches,
+            "qsample_launches": split, "graph": graph, "lrs": lrs, "losses": result["losses"],
+            "train_losses": train_losses, "val_losses": result["val_losses"], "wall_s": wall_s,
+            "warm_samples_per_sec": warm["samples_per_sec"],
+            "warm_step_ms": 1e3 * config.batch_size / warm["samples_per_sec"],
+            "val_seconds": [e["val_seconds"] for e in result["epochs"]],
+            "digit7_ddpm1000_seconds": result["digit7_seconds"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+    if problems:
+        raise RuntimeError(f"latent_train ({backbone}): {problems}: {fields}")
+    if backbone == "dit":
+        fields["lr_replay"] = _dit_lr_replay()
+    emit("latent_train", **fields)
+    return fields
+
+
+def phase_latent_parity() -> dict:
+    """For each committed latent checkpoint: the resident latent step, graph
+    against eager (``_graph_vs_eager``, the ``resident_parity`` quantities
+    and bounds), and one float32 step on the card against the CPU through
+    the (z_eps, t, noise, masks) seam."""
+    fields = {}
+    for i, (backbone, path) in enumerate(LATENT_CHECKPOINTS.items()):
+        rng = np.random.default_rng(SEED + 24 + i)
+        images = rng.integers(0, 256, (PARITY_BATCH * PARITY_STEPS, 28, 28, 1), dtype=np.uint8)
+        labels = rng.integers(0, 10, len(images))
+        frozen = load_latent_checkpoint(path, device="cuda")["vae"]
+        out = _graph_vs_eager(f"latent_parity ({backbone})",
+                              lambda: load_latent_checkpoint(path, device="cuda")["model"],
+                              images, labels, vae=frozen)
+        b = LATENT_PARITY_BATCH
+        x = torch.from_numpy(rng.uniform(-1, 1, (b, 1, 28, 28)).astype(np.float32))
+        y = torch.from_numpy(rng.integers(0, 10, b))
+        z_eps = torch.from_numpy(rng.standard_normal((b, 20)).astype(np.float32))
+        t = torch.from_numpy(rng.integers(0, 1000, b))
+        noise = torch.from_numpy(rng.standard_normal((b, 20)).astype(np.float32))
+        masks = None
+        if backbone == "dit":  # dropout 0.05: masks drawn once, the same on both sides
+            masks = load_latent_checkpoint(path, device="cpu")["model"].draw_dropout_masks(
+                b, torch.Generator().manual_seed(SEED + 25))
+        losses, params = {}, {}
+        for dev in ("cuda", "cpu"):
+            loaded = load_latent_checkpoint(path, device=dev)
+            model = loaded["model"]
+            state = create_train_state(model, torch.optim.SGD(model.parameters(), lr=1e-2), SEED)
+            step = make_latent_train_step(loaded["vae"], DiffusionSchedule.linear(1000).to(dev))
+            losses[dev] = step(
+                state, x.to(dev), y.to(dev), z_eps=z_eps.to(dev), t=t.to(dev), noise=noise.to(dev),
+                masks=None if masks is None else [tuple(m.to(dev) for m in block)
+                                                  for block in masks]).item()
+            params[dev] = {k: v.detach().cpu() for k, v in model.named_parameters()}
+        out["card_vs_cpu_step"] = {
+            "batch": b, "losses": losses,
+            "loss_rel": abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"]),
+            "loss_rtol": LATENT_LOSS_RTOL,
+            "params_max_abs": max((params["cuda"][k] - v).abs().max().item()
+                                  for k, v in params["cpu"].items())}
+        out["weights"] = os.path.relpath(path, REPO)
+        if not out["card_vs_cpu_step"]["loss_rel"] <= LATENT_LOSS_RTOL:
+            raise RuntimeError(f"latent_parity ({backbone}): the float32 step on the card vs "
+                               f"the CPU: {out['card_vs_cpu_step']}")
+        fields[backbone] = out
+    emit("latent_parity", **fields)
+    return fields
+
+
+def _latent_serve_chains(path: str) -> dict:
+    """DDIM-10 decoded images at n = 4 from a fixed x_init: the card against
+    the CPU, float32 forward (both TF32-free) and, on the card, the bfloat16
+    forward of the committed recipe."""
+    loaded = {dev: load_latent_checkpoint(path, device=dev) for dev in ("cuda", "cpu")}
+    x_init = torch.from_numpy(np.random.default_rng(SEED + 21).standard_normal(
+        (4, 20)).astype(np.float32))
+    y = torch.tensor([0, 3, 7, 9])
+    images = {}
+    for dev, compute_dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                               ("cuda", torch.bfloat16)):
+        sampler = make_latent_pixel_sampler(dict(loaded[dev], compute_dtype=compute_dtype), 4,
+                                            method="ddim", sample_steps=10)
+        images[(dev, compute_dtype)] = sampler(None, y.to(dev), x_init=x_init.to(dev)).cpu()
+    ref = images[("cpu", torch.float32)]
+    f32 = (images[("cuda", torch.float32)] - ref).abs()
+    bf16 = (images[("cuda", torch.bfloat16)] - ref).abs()
+    return {"f32_max_abs": f32.max().item(), "bf16_max_abs": bf16.max().item(),
+            "bf16_mean_abs": bf16.mean().item(), "range": [ref.min().item(), ref.max().item()]}
+
+
+def phase_latent_serve() -> dict:
+    """``generate.main`` on both committed latent checkpoints (n = 16, digit
+    7, bf16 forward, fp32 chain): each request twice, the warm latency and
+    model forwards; then DDIM-10 chains card against CPU."""
+    fields = {"n": SERVE_N, "digit": 7, "checkpoints": {}}
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_launches()
+        for backbone, path in LATENT_CHECKPOINTS.items():
+            requests = {}
+            for name, (flags, forwards) in LATENT_SERVE_REQUESTS.items():
+                argv = ["--checkpoint", path, "--device", "cuda", "--n", str(SERVE_N),
+                        "--digit", "7", *flags, "--out", os.path.join(tmp, f"{name}.png")]
+                generate.main(argv)  # cold
+                result = generate.main(argv)
+                samples = result["samples"]
+                if not (tuple(samples.shape) == (SERVE_N, 1, 28, 28)
+                        and torch.isfinite(samples).all() and samples.abs().max() <= 1.0):
+                    problems.append(f"{backbone} {name}: samples {tuple(samples.shape)}")
+                if result["forwards"] != forwards or result["labels"] != [7] * SERVE_N:
+                    problems.append(f"{backbone} {name}: {result['forwards']} forwards")
+                requests[name] = {"warm_s": result["sample_seconds"],
+                                  "forwards": result["forwards"],
+                                  "ms_per_forward": 1e3 * result["sample_seconds"]
+                                  / result["forwards"]}
+            chains = _latent_serve_chains(path)
+            if not (chains["f32_max_abs"] <= LATENT_SERVE_F32_ATOL
+                    and chains["bf16_mean_abs"] <= LATENT_SERVE_BF16_MEAN_ABS
+                    and chains["bf16_max_abs"] <= LATENT_SERVE_BF16_MAX_ABS):
+                problems.append(f"{backbone} DDIM-10 card vs CPU: {chains}")
+            fields["checkpoints"][backbone] = {"checkpoint": os.path.relpath(path, REPO),
+                                               "requests": requests, "chains": chains}
+        if any(_launches().values()):
+            problems.append(f"latent serving launched a hand-written kernel: {_launches()}")
+    fields.update(f32_atol=LATENT_SERVE_F32_ATOL, bf16_mean_abs_bound=LATENT_SERVE_BF16_MEAN_ABS,
+                  bf16_max_abs_bound=LATENT_SERVE_BF16_MAX_ABS)
+    if problems:
+        raise RuntimeError(f"latent_serve: {problems}: {fields}")
+    emit("latent_serve", **fields)
+    return fields
+
+
 def _set_default_tf32() -> None:
     """The TF32 flags as a fresh process has them: a run must turn them off itself."""
     torch.backends.cudnn.allow_tf32 = True
@@ -1438,12 +1878,14 @@ def _profile_window(name: str, fn, **fields) -> None:
 
 
 def phase_profile() -> None:
-    """Six windows: one warm reconstruct + one prior decode of the conv-VAE;
+    """Eight windows: one warm reconstruct + one prior decode of the conv-VAE;
     5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample), eager
     and then replayed from a CUDA graph over a resident set; 20 steps
     of the fp32 DDPM sampler (16 samples); the chain of one DPM++-15
     serving request (CFG, bf16 forward, 16 samples); 3 warm conv-VAE train
-    steps (256x256, batch 4, fp32, Adam) from ``vae_laion_best``."""
+    steps (256x256, batch 4, fp32, Adam) from ``vae_laion_best``; 5 latent
+    MLP UNet train steps replayed from a graph; one DPM++-15 latent serving
+    request on the DiT."""
     model = load_conv_vae(CHECKPOINT, device="cuda")
     x01, eps, gen = _requests(model)
     _profile_window("vae_requests", lambda: (reconstruct(model, x01, eps),
@@ -1480,12 +1922,33 @@ def phase_profile() -> None:
     _profile_window("serve_dpmpp15", lambda: serve(sample_gen, params=cfg["params"], y=y7),
                     steps=15, n=SERVE_N)
 
-    vae = load_conv_vae(CHECKPOINT, device="cuda")
-    vae_state = vae_laion.create_train_state(vae, vae_laion.make_optimizer(vae, 1e-4), SEED)
+    conv_vae = load_conv_vae(CHECKPOINT, device="cuda")
+    vae_state = vae_laion.create_train_state(conv_vae, vae_laion.make_optimizer(conv_vae, 1e-4),
+                                             SEED)
     vae_step = vae_laion.make_conv_vae_train_step(PerceptualNet().cuda(), 1.0, 10.0)
     x = _nchw(np.stack([synthesize_image(i, 256)[0] for i in range(4)])).cuda()
     _profile_window("vae_train_steps", lambda: [vae_step(vae_state, x) for _ in range(3)],
                     steps=3, batch=4)
+
+    # 5 latent MLP UNet steps (B = 128, bf16, from latent_diffusion_best),
+    # replayed from a graph over a resident set, as the default run takes them.
+    mlp = load_latent_checkpoint(LATENT_CHECKPOINTS["mlp_unet"], device="cuda")
+    rng = np.random.default_rng(SEED + 26)
+    images = rng.integers(0, 256, (PARITY_BATCH * 5, 28, 28, 1), dtype=np.uint8)
+    latent_state, latent_data = _resident_state(images, mlp["model"],
+                                                labels=rng.integers(0, 10, len(images)))
+    latent_step = make_resident_latent_multi_step(mlp["vae"], mlp["schedule"], latent_data,
+                                                  compute_dtype=torch.bfloat16)
+    latent_idxs = latent_data.epoch_index_batches(0)
+    _profile_window("latent_train_steps_graph", lambda: latent_step(latent_state, latent_idxs),
+                    steps=5)
+
+    # One DPM++-15 latent serving request's chain and decode, as generate.py
+    # runs it on the DiT (bf16 forward, fp32 chain; n = 16).
+    dit = load_latent_checkpoint(LATENT_CHECKPOINTS["dit"], device="cuda")
+    latent_serve = make_latent_pixel_sampler(dit, SERVE_N, method="dpmpp", sample_steps=15)
+    _profile_window("latent_serve_dpmpp15", lambda: latent_serve(sample_gen, y7), steps=15,
+                    n=SERVE_N)
 
 
 def main() -> int:
@@ -1499,6 +1962,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    os.chdir(REPO)  # the committed latent sidecars name their VAE from the repo root
     device = phase_device()
     phase_build()
     sites = phase_kernel()
@@ -1511,13 +1975,18 @@ def main() -> int:
         trains = [phase_train(dtype, data_root) for dtype in ("bfloat16", "float32")]
         train_host = phase_train("bfloat16", data_root, placement="host")
         cond = phase_cond_train(data_root)
+        phase_vae_mnist_train(data_root)
+        latents = {backbone: phase_latent_train(backbone, data_root)
+                   for backbone in LATENT_CHECKPOINTS}
     phase_resident_parity()
     phase_resident_restore()
     phase_cond_parity()
+    phase_latent_parity()
     phase_unet_parity()
     phase_train_step_bf16()
     phase_sample()
     phase_serve()
+    phase_latent_serve()
     bwd_sites = phase_flash_bwd_kernel()
     phase_flash_autograd()
     vae = phase_vae_train()
@@ -1554,9 +2023,15 @@ def main() -> int:
             # The class-conditional run: its train steps and its val passes.
             "launches_conditional_run": cond["launches"]["qsample"],
             "launches_conditional_split": cond["qsample_launches"],
-            "max_abs_err": qsample_site["max_abs_err"],
+            # The latent runs, at (128, 20): their train steps and val passes.
+            "launches_latent_runs": {b: f["qsample_launches"] for b, f in latents.items()},
+            "max_abs_err": max([qsample_site["max_abs_err"]]
+                               + [s["max_abs_err"] for s in qsample_site["latent_sites"]]),
             **{k: qsample_site[k] for k in keys + (
                 "roofline_share", "device_us", "graph_us", "graph_floor_us")},
+            # The main site (128, 784) above; the latent step's (128, 20) and a
+            # ragged (128, 18) here.
+            "latent_sites": qsample_site["latent_sites"],
         },
         {
             "name": "flash_bwd",

@@ -242,7 +242,10 @@ def test_generate_refuses_what_jax_refuses(tmp_path, capsys, flags, message):
     assert exc.value.code == 2 and message in capsys.readouterr().err
 
 
-def test_generate_refuses_a_latent_checkpoint(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        _main(LATENT_CHECKPOINT, str(tmp_path / "x.png"))
+def test_generate_refuses_a_latent_checkpoint(tmp_path, capsys):
+    """A latent checkpoint is served (tests/test_torch_latent_serving.py),
+    but not in a pixel mode: guidance is refused with JAX's message."""
+    with pytest.raises(SystemExit) as exc:
+        _main(LATENT_CHECKPOINT, str(tmp_path / "x.png"), "--guidance-scale", "2.0")
+    assert exc.value.code == 2 and "pixel-checkpoint modes" in capsys.readouterr().err
     assert not (tmp_path / "x.png").exists()

@@ -10,7 +10,9 @@ and checkpoints a small UNet28 on the CPU; a third trains the conv-VAE for
 two steps through its ``run``; a fourth trains a small class-conditional
 UNet28 for two steps through its ``run`` and serves the checkpoint with
 ``generate.main`` in every mode (guidance, DDIM, DPM-Solver++, img2img and
-inpainting from PNGs).
+inpainting from PNGs); a fifth trains the MNIST VAE for two steps, each
+latent backbone for two steps on that VAE, and serves a latent checkpoint
+with ``generate.main``.
 """
 
 import json
@@ -192,6 +194,50 @@ _CHILD_CONDITIONAL = _REFUSE + textwrap.dedent("""
 """)
 
 
+# Two steps of the MNIST VAE's run() on small IDX files, two steps of each
+# latent backbone's run() on that VAE, then generate.main on the DiT's
+# checkpoint, which finds its VAE through the sidecar.
+_CHILD_LATENT = _REFUSE + textwrap.dedent("""
+    import gzip, os, struct
+
+    import torch
+
+    from tinydiffusion_torch import generate
+    from tinydiffusion_torch.data.mnist import load_mnist_u8
+    from tinydiffusion_torch.experiments import latent_diffusion, vae
+
+    torch.set_num_threads(1)  # small ops; the test suite runs beside other workers
+    path = sys.argv[1]
+    root = path + "/idx"
+    os.makedirs(root)
+    for train, n, name in ((True, 40, "train"), (False, 16, "t10k")):
+        images, labels = load_mnist_u8(path + "/synth", train=train, synthetic_n=n)
+        for suffix, array in (("images-idx3", images[..., 0]), ("labels-idx1", labels)):
+            header = struct.pack(">I", 0x0800 | array.ndim)
+            header += struct.pack(f">{array.ndim}I", *array.shape)
+            with gzip.open(f"{root}/{name}-{suffix}-ubyte.gz", "wb") as f:
+                f.write(header + array.astype("uint8").tobytes())
+    result = vae.run(vae.VAEExperimentConfig(
+        device="cpu", epochs=1, max_steps_per_epoch=2, batch_size=4, log_every=1,
+        data_root=root, out_dir=path + "/vae", checkpoint_dir=path + "/ckpt"))
+    assert result["state"].step == 2 and result["resident"], result
+    for backbone in ("mlp_unet", "dit"):
+        result = latent_diffusion.run(latent_diffusion.LatentDiffusionConfig(
+            backbone=backbone, device="cpu", num_epochs=1, max_steps_per_epoch=2,
+            batch_size=4, log_every=1, num_timesteps=20, n_samples=4, denoising_stride=10,
+            vae_checkpoint=path + "/ckpt/vae_mnist_best", data_root=root,
+            out_dir=path + "/" + backbone, model_save_path=path + "/" + backbone + "/ckpt"))
+        assert result["state"].step == 2 and result["resident"], result
+    out = generate.main(["--checkpoint", path + "/dit/ckpt", "--device", "cpu", "--n", "2",
+                         "--sampler", "dpmpp", "--sample-steps", "3", "--out",
+                         path + "/gen.png"])
+    assert out["samples"].shape == (2, 1, 28, 28) and out["forwards"] == 3, out
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
 def _run_isolated(child: str, path: str, cwd: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -230,3 +276,12 @@ def test_port_trains_conditional_and_serves_every_mode_without_the_jax_stack(tmp
         assert os.path.getsize(tmp_path / f"ckpt{ext}") > 0
     assert os.path.getsize(tmp_path / "gen.png") > 0
     assert os.path.getsize(tmp_path / "out" / "generated_digit_7.png") > 0
+
+
+def test_port_trains_the_latent_family_and_serves_it_without_the_jax_stack(tmp_path):
+    _run_isolated(_CHILD_LATENT, str(tmp_path), str(tmp_path))
+    for ext in (".pt", ".npz", ".json"):
+        assert os.path.getsize(tmp_path / "ckpt" / f"vae_mnist_best{ext}") > 0
+        assert os.path.getsize(tmp_path / "mlp_unet" / f"ckpt{ext}") > 0
+    assert os.path.getsize(tmp_path / "dit" / "generated_digit_7.png") > 0
+    assert os.path.getsize(tmp_path / "gen.png") > 0

@@ -14,8 +14,11 @@ Ported so far: the main path, training and sampling the MNIST UNet28 DDPM
 (``experiments/diffusion.py``) with a CUDA fused q_sample
 (``ops/qsample.py``); class-conditional training with label dropout for
 classifier-free guidance (``experiments/conditional_diffusion.py``); the
-serving CLI for pixel-space checkpoints (``generate.py``: DDPM, DDIM,
-DPM-Solver++, guidance, img2img, inpainting); and training and serving the
+MNIST MLP VAE (``experiments/vae.py``) and class-conditional latent
+diffusion over it with the MLP UNet or the DiT
+(``experiments/latent_diffusion.py``); the serving CLI for pixel-space and
+latent checkpoints (``generate.py``: DDPM, DDIM, DPM-Solver++, and for pixel
+checkpoints guidance, img2img, inpainting); and training and serving the
 LAION conv beta-VAE (``experiments/vae_laion.py``) with a CUDA
 flash-attention forward and backward (``ops/attention.py``).
 """

@@ -3,10 +3,9 @@
 Counterpart of ``tinydiffusion_tpu/experiments/common.py`` (``resolve_dtype``,
 ``load_pixel_checkpoint``, ``make_sampler``, ``make_trajectory_sampler``,
 ``RESIDENT_AUTO_LIMIT_BYTES`` and ``resolve_data_placement`` for one card,
-``add_config_flags``, ``config_from_args``). The flag names are the JAX
-ones, so the two CLIs take the same arguments. The latent-family loaders
-(``load_latent_checkpoint``, ``make_latent_pixel_sampler``) come with the
-latent slice.
+``add_config_flags``, ``config_from_args``, and the latent family's
+``load_latent_checkpoint`` and ``make_latent_pixel_sampler``). The flag
+names are the JAX ones, so the two CLIs take the same arguments.
 """
 
 from __future__ import annotations
@@ -29,8 +28,8 @@ from tinydiffusion_torch.core.sampler import (
 )
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.device import disable_tf32, resolve_device
-from tinydiffusion_torch.io.checkpoint import load_sidecar, load_weights_arrays
-from tinydiffusion_torch.io.from_jax import unet28_state_dict
+from tinydiffusion_torch.io.checkpoint import load_sidecar, load_weights_arrays, weights_exist
+from tinydiffusion_torch.io.from_jax import state_dict_by_name
 from tinydiffusion_torch.models.unet28 import UNet28
 
 
@@ -39,6 +38,21 @@ def resolve_dtype(name: str) -> torch.dtype:
     if name not in table:
         raise ValueError(f"unsupported compute dtype {name!r}; choose one of {sorted(table)}")
     return table[name]
+
+
+def _load_for_serving(model: nn.Module, flat: dict, device: torch.device):
+    """``(model, params, use_ema)``: ``model`` holding the npz's ``params``
+    (and BatchNorm statistics), in eval mode on ``device``; ``params`` (name
+    -> tensor) the EMA shadow when the npz holds one, else the model's own."""
+    model.load_state_dict(state_dict_by_name(flat, params="params"))
+    model = model.to(device).eval()
+    use_ema = any(k.startswith("ema_params/") for k in flat)
+    if use_ema:
+        ema = state_dict_by_name(flat, params="ema_params")
+        params = {n: ema[n].to(device) for n, _ in model.named_parameters()}
+    else:
+        params = {n: p.detach() for n, p in model.named_parameters()}
+    return model, params, use_ema
 
 
 def load_pixel_checkpoint(path: str, device: str | torch.device = "cuda") -> dict:
@@ -73,14 +87,7 @@ def load_pixel_checkpoint(path: str, device: str | torch.device = "cuda") -> dic
         num_classes=(num_classes + 1) if cfg_trained else num_classes,
         base_width=int(cfg.get("base_width", 64)),
     )
-    model.load_state_dict(unet28_state_dict(flat, params="params"))
-    model = model.to(dev).eval()
-    use_ema = any(k.startswith("ema_params/") for k in flat)
-    if use_ema:
-        ema = unet28_state_dict(flat, params="ema_params")
-        params = {n: ema[n].to(dev) for n, _ in model.named_parameters()}
-    else:
-        params = {n: p.detach() for n, p in model.named_parameters()}
+    model, params, use_ema = _load_for_serving(model, flat, dev)
     schedule = DiffusionSchedule.make(cfg.get("noise_schedule", "linear"),
                                       int(cfg.get("num_timesteps", 1000))).to(dev)
     return {
@@ -106,6 +113,86 @@ def load_unet28(path: str, device: str | torch.device = "cuda") -> UNet28:
         for name, p in model.named_parameters():
             p.copy_(loaded["params"][name])
     return model
+
+
+def load_latent_checkpoint(path: str, vae_checkpoint: str | None = None, *,
+                           device: str | torch.device = "cuda") -> dict:
+    """A latent-family denoiser (the MLP UNet or the DiT) and its VAE decoder
+    rebuilt from ``<path>.npz`` + ``<path>.json`` (the JAX package's or the
+    port's), for serving: the sidecar's ``backbone`` marks such a
+    checkpoint, and the VAE is the one it recorded at train time
+    (``vae_checkpoint`` overrides the path, for relocated files).
+
+    Unlike training's ``load_vae`` this raises ``FileNotFoundError`` when the
+    VAE checkpoint is missing: a fresh random decoder would serve noise.
+
+    Returns ``model`` (eval mode on ``device``), ``step``, ``params`` (name
+    -> tensor: the EMA shadow when the run kept one, else the model's own),
+    ``vae``, ``latent_dim``, ``schedule``, ``cfg``, ``num_classes``,
+    ``prediction``, ``use_ema`` and ``compute_dtype`` (the sidecar's, the
+    denoiser's forward dtype in serving: bfloat16 in the committed recipes).
+    On a card TF32 is turned off."""
+    from tinydiffusion_torch.experiments.latent_diffusion import (
+        LatentDiffusionConfig,
+        build_denoiser,
+        load_vae,
+    )
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        disable_tf32()
+    cfg = load_sidecar(path).get("config", {})
+    if "backbone" not in cfg:
+        raise ValueError(f"{path} is not a latent-family checkpoint (sidecar has no "
+                         "'backbone'); pixel checkpoints load via load_pixel_checkpoint")
+    known = {f.name for f in dataclasses.fields(LatentDiffusionConfig)}
+    lcfg = LatentDiffusionConfig(**{k: v for k, v in cfg.items() if k in known})
+    if vae_checkpoint is not None:
+        lcfg = dataclasses.replace(lcfg, vae_checkpoint=vae_checkpoint)
+    if not weights_exist(lcfg.vae_checkpoint):
+        raise FileNotFoundError(
+            f"VAE checkpoint {lcfg.vae_checkpoint!r} (recorded in {path}'s sidecar) not "
+            "found; pass vae_checkpoint= to point at it")
+    vae, latent_dim = load_vae(lcfg, dev)
+    flat = load_weights_arrays(path)
+    model, params, use_ema = _load_for_serving(build_denoiser(lcfg, latent_dim), flat, dev)
+    return {
+        "model": model,
+        "step": int(flat["step"]) if "step" in flat else 0,
+        "params": params,
+        "vae": vae,
+        "latent_dim": latent_dim,
+        "schedule": DiffusionSchedule.make(lcfg.noise_schedule, lcfg.num_timesteps).to(dev),
+        "cfg": cfg,
+        "num_classes": lcfg.num_classes,
+        "prediction": lcfg.prediction,
+        "use_ema": use_ema,
+        "compute_dtype": resolve_dtype(lcfg.compute_dtype),
+    }
+
+
+def make_latent_pixel_sampler(loaded: dict, n: int, method: str = "ddpm",
+                              sample_steps: int = 50, eta: float = 0.0,
+                              dtype: torch.dtype = torch.float32):
+    """The pixel-space sampler of a ``load_latent_checkpoint``: the latent
+    reverse chain (``make_sampler``'s DDPM, DDIM or DPM++ over (n,
+    latent_dim), the denoiser in the checkpoint's ``compute_dtype``, the
+    chain in ``dtype``) and the VAE's decode. ``fn(generator, y,
+    x_init=None, noise_stream=None) -> (n, 1, 28, 28)`` images in [-1, 1],
+    as the pixel models serve them."""
+    from tinydiffusion_torch.experiments.latent_diffusion import make_latent_sampler
+
+    sampler = make_latent_sampler(
+        loaded["vae"], loaded["model"], loaded["schedule"], n, loaded["latent_dim"],
+        dtype=dtype, prediction=loaded["prediction"], compute_dtype=loaded["compute_dtype"],
+        method=method, sample_steps=sample_steps, eta=eta)
+
+    def sample_fn(generator, y, x_init=None, noise_stream=None):
+        x = sampler(generator, params=loaded["params"], y=y, x_init=x_init,
+                    noise_stream=noise_stream)
+        return x * 2.0 - 1.0  # the decoder's [0, 1] to the pixel models' [-1, 1]
+
+    return sample_fn
 
 
 @contextlib.contextmanager

@@ -1,8 +1,8 @@
-"""Serving CLI: sample images from a trained pixel-space UNet28 checkpoint.
+"""Serving CLI: sample images from a trained checkpoint of the MNIST zoo.
 
-Counterpart of the pixel branch of the root ``generate.py`` (the JAX
-package's one serving entry point), with its flags and its parser errors,
-plus ``--device``. It serves any UNet28 checkpoint of the zoo (``.npz`` +
+Counterpart of the root ``generate.py`` (the JAX package's one serving entry
+point), with its flags and its parser errors, plus ``--device``. It serves
+any UNet28 checkpoint of the zoo (``.npz`` +
 ``.json``, from the JAX package or the port): the 1000-step ancestral DDPM,
 DDIM (eta, img2img from a PNG, inpainting from a PNG and a mask), the
 second-order DPM-Solver++(2M), classifier-free guidance on a checkpoint
@@ -15,8 +15,14 @@ As in JAX the model runs in bfloat16 and the chain in ``--sample-dtype``::
     python -m tinydiffusion_torch.generate --checkpoint checkpoints/diffusion_final \\
         --sampler ddim --init-image in.png --strength 0.6 --device cpu
 
-Latent-family checkpoints (a ``backbone`` in the sidecar) are not served yet
-(ROADMAP Queue 1, slice 5).
+A latent-family checkpoint (a ``backbone`` in the sidecar: the MLP UNet or
+the DiT over the MNIST VAE) is served with any ``--sampler`` through its
+recorded VAE, which decodes the latent chain's end
+(``experiments.common.load_latent_checkpoint``); img2img, inpainting and
+guidance are pixel modes, and a latent checkpoint refuses them::
+
+    python -m tinydiffusion_torch.generate --checkpoint checkpoints/diffusion_transformer_best \\
+        --digit 7 --sampler dpmpp --sample-steps 15 --out out.png
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from tinydiffusion_torch.core.process import q_sample_with_noise
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.device import resolve_device
 from tinydiffusion_torch.experiments.common import (
+    load_latent_checkpoint,
     load_pixel_checkpoint,
+    make_latent_pixel_sampler,
     make_sampler,
     resolve_dtype,
     to_nhwc01,
@@ -79,6 +87,67 @@ def _nchw(image28: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(image28.reshape(1, 1, 28, 28).copy()).to(device)
 
 
+def _labels(args, num_classes: int | None, generator, device) -> torch.Tensor | None:
+    if num_classes is None:
+        return None
+    if args.digit is not None:
+        return torch.full((args.n,), args.digit, dtype=torch.int64, device=device)
+    return torch.randint(0, num_classes, (args.n,), generator=generator, device=device)
+
+
+def _serve(args, device: torch.device, model: torch.nn.Module, request) -> dict:
+    """Run ``request() -> (samples in [-1, 1], labels or None)`` timed to the
+    device's end and with ``model``'s forwards counted, write the grid, and
+    return ``main``'s result."""
+    forwards = 0
+
+    def count_forward(*_):
+        nonlocal forwards
+        forwards += 1
+
+    hook = model.register_forward_pre_hook(count_forward)
+
+    def synchronize():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    synchronize()
+    t0 = time.perf_counter()
+    samples, y = request()
+    synchronize()
+    sample_seconds = time.perf_counter() - t0
+    hook.remove()
+
+    labels = None if y is None else y.tolist()
+    save_image_grid(to_nhwc01(samples), args.out, nrow=max(int(np.sqrt(args.n)), 1), labels=labels)
+    print(f"wrote {args.n} samples to {args.out} ({forwards} model forwards, "
+          f"{sample_seconds:.3f} s)")
+    return {"samples": samples, "labels": labels, "forwards": forwards,
+            "sample_seconds": sample_seconds, "out": args.out}
+
+
+def _generate_latent(args, parser: argparse.ArgumentParser, device: torch.device) -> dict:
+    """A latent-family checkpoint: the latent chain (any ``--sampler``), the
+    denoiser in the sidecar's compute dtype, then the recorded VAE's decode
+    (latent_diffusion.py:308-347, outside the training loop)."""
+    if args.init_image or args.inpaint_image or args.guidance_scale != 1.0:
+        parser.error("img2img/inpainting/guidance are pixel-checkpoint modes; latent "
+                     "checkpoints support plain sampling with any --sampler")
+    loaded = load_latent_checkpoint(args.checkpoint, device=device)
+    print(f"loaded {args.checkpoint} (backbone {loaded['cfg']['backbone']}, step "
+          f"{loaded['step']}" + (", sampling from EMA params)" if loaded["use_ema"] else ")"))
+    sampler = make_latent_pixel_sampler(loaded, args.n, method=args.sampler,
+                                        sample_steps=args.sample_steps, eta=args.eta,
+                                        dtype=resolve_dtype(args.sample_dtype))
+
+    def request():
+        generator = torch.Generator(device).manual_seed(args.seed)
+        y = _labels(args, loaded["num_classes"], generator, device)
+        return sampler(generator, y), y
+
+    return _serve(args, device, loaded["model"], request)
+
+
 def main(argv=None) -> dict:
     """Serve one request. Returns ``samples`` ((n, 1, 28, 28) in [-1, 1], on
     the device), ``labels`` (or None), ``forwards`` (model forwards run),
@@ -87,11 +156,10 @@ def main(argv=None) -> dict:
     parser = _parser()
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    # One serving CLI for the MNIST zoo: the sidecar's 'backbone' marks a
+    # latent checkpoint, which samples in latent space and decodes.
     if "backbone" in load_sidecar(args.checkpoint).get("config", {}):
-        raise NotImplementedError(
-            f"{args.checkpoint} is a latent-family checkpoint (its sidecar names a "
-            "'backbone'); the port serves pixel-space UNet28 checkpoints only, and the latent "
-            "family comes with ROADMAP Queue 1, slice 5")
+        return _generate_latent(args, parser, device)
 
     loaded = load_pixel_checkpoint(args.checkpoint, device)
     model, cfg, schedule = loaded["model"], loaded["cfg"], loaded["schedule"]
@@ -132,46 +200,21 @@ def main(argv=None) -> dict:
         null_label=num_classes if loaded["cfg_trained"] else None,
         prediction=cfg.get("prediction", "eps"), t_start=t_start, mask=mask, x_known=x_known,
         compute_dtype=torch.bfloat16)
-    forwards = 0
 
-    def count_forward(*_):
-        nonlocal forwards
-        forwards += 1
+    def request():
+        generator = torch.Generator(device).manual_seed(args.seed)
+        x_init = None
+        if args.init_image:
+            x0 = _nchw(load_image28(args.init_image), device).expand(args.n, 1, 28, 28)
+            noise = torch.randn(x0.shape, generator=generator, device=device)
+            t_vec = torch.full((args.n,), t_start, dtype=torch.int64, device=device)
+            x_init = q_sample_with_noise(schedule, x0, t_vec, noise)
+            print(f"img2img from {args.init_image} at t_start={t_start} "
+                  f"(strength {args.strength})")
+        y = _labels(args, num_classes if conditional else None, generator, device)
+        return sampler(generator, params=loaded["params"], y=y, x_init=x_init), y
 
-    hook = model.register_forward_pre_hook(count_forward)
-
-    def synchronize():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    synchronize()
-    t0 = time.perf_counter()
-    generator = torch.Generator(device).manual_seed(args.seed)
-    x_init = None
-    if args.init_image:
-        x0 = _nchw(load_image28(args.init_image), device).expand(args.n, 1, 28, 28)
-        noise = torch.randn(x0.shape, generator=generator, device=device)
-        t_vec = torch.full((args.n,), t_start, dtype=torch.int64, device=device)
-        x_init = q_sample_with_noise(schedule, x0, t_vec, noise)
-        print(f"img2img from {args.init_image} at t_start={t_start} "
-              f"(strength {args.strength})")
-    y = None
-    if conditional:
-        if args.digit is not None:
-            y = torch.full((args.n,), args.digit, dtype=torch.int64, device=device)
-        else:
-            y = torch.randint(0, num_classes, (args.n,), generator=generator, device=device)
-    samples = sampler(generator, params=loaded["params"], y=y, x_init=x_init)
-    synchronize()
-    sample_seconds = time.perf_counter() - t0
-    hook.remove()
-
-    labels = None if y is None else y.tolist()
-    save_image_grid(to_nhwc01(samples), args.out, nrow=max(int(np.sqrt(args.n)), 1), labels=labels)
-    print(f"wrote {args.n} samples to {args.out} ({forwards} model forwards, "
-          f"{sample_seconds:.3f} s)")
-    return {"samples": samples, "labels": labels, "forwards": forwards,
-            "sample_seconds": sample_seconds, "out": args.out}
+    return _serve(args, device, model, request)
 
 
 if __name__ == "__main__":

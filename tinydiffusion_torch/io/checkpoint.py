@@ -94,7 +94,8 @@ def save_checkpoint(
     metadata: Mapping[str, Any] | None = None,
 ) -> None:
     """Write ``state`` (a train state with ``state_dict()`` and
-    ``jax_weights()``: ``train.trainer.DiffusionTrainState`` or
+    ``jax_weights()``: ``train.trainer.DiffusionTrainState``, which also
+    holds the MNIST VAE's and the latent denoisers' runs, or
     ``experiments.vae_laion.ConvVAETrainState``) as ``<path>.pt`` (full
     state), ``<path>.npz`` (JAX weights) and ``<path>.json`` (the sidecar:
     ``config`` and ``metadata``)."""
@@ -121,6 +122,13 @@ def checkpoint_exists(path: str) -> bool:
     """Whether ``<path>.pt`` and its sidecar exist: a state to resume."""
     path = _abspath(path)
     return os.path.exists(path + ".pt") and os.path.exists(path + ".json")
+
+
+def weights_exist(path: str) -> bool:
+    """Whether ``<path>.npz`` and its sidecar exist: weights to serve or
+    to build on (a JAX package's checkpoint or the port's)."""
+    path = _abspath(path)
+    return os.path.exists(path + ".npz") and os.path.exists(path + ".json")
 
 
 class BestKeeper:

@@ -17,11 +17,21 @@ Layout rules, JAX -> PyTorch:
   ``sigma``; it is carried so that the two checkpoints hold the same keys.
 - Embedding ``embedding`` -> Embedding ``weight``.
 
-The UNet28's module names equal the JAX ones, so its bridge is by name in
-both directions: ``unet28_state_dict`` reads a JAX tree and ``jax_variables``
-writes one from any port model built of Conv2d, Linear, Embedding and
-BatchNorm2d. The conv-VAE's bridge is by rule in both directions:
-``conv_vae_state_dict`` and ``conv_vae_jax_variables``. The perceptual net's
+- flax ``MultiHeadDotProductAttention`` kernels: query/key/value
+  (in, heads, head_dim) -> Linear weight ``kernel.reshape(in, -1).T``, their
+  (heads, head_dim) biases flattened; out (heads, head_dim, out) ->
+  ``kernel.reshape(-1, out).T``.
+- A param that is a leaf of its module (the DiT's ``pos_encoding``) -> the
+  port's parameter of that name, as it is.
+
+The module names of the UNet28, the MNIST VAE, the latent MLP UNet and the
+DiT equal the JAX ones, so their bridge is by name in both directions:
+``state_dict_by_name`` (as ``unet28_state_dict``, ``vae_mnist_state_dict``,
+``mlp_unet_state_dict`` and ``dit_state_dict``) reads a JAX tree and
+``jax_variables`` writes one from any port model built of Conv2d, Linear,
+Embedding, BatchNorm, LayerNorm and flax-layout attention. The conv-VAE's
+bridge is by rule in both directions: ``conv_vae_state_dict`` and
+``conv_vae_jax_variables``. The perceptual net's
 JAX params (``{conv0_0: {kernel, bias}, ...}``) map onto
 ``models.vae_conv.PerceptualNet`` with ``perceptual_state_dict``.
 """
@@ -193,15 +203,35 @@ def _with_bn_counters(out: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 _COLLECTIONS = ("params", "ema_params", "batch_stats")
 
 
-def unet28_state_dict(
+def _by_name_leaf(path: list[str], leaf: str, arr: np.ndarray) -> tuple[str, torch.Tensor]:
+    port = ".".join(path)
+    if leaf == "kernel":
+        if arr.ndim == 4:
+            return f"{port}.weight", conv_weight(arr)
+        if arr.ndim == 3:  # attention: q/k/v (in, heads, head_dim), out (heads, head_dim, out)
+            flat = arr.reshape(-1, arr.shape[-1]) if path[-1] == "out" else arr.reshape(
+                arr.shape[0], -1)
+            return f"{port}.weight", dense_weight(flat)
+        return f"{port}.weight", dense_weight(arr)
+    if leaf == "embedding":
+        return f"{port}.weight", _vector(arr)
+    if leaf in _BN_NAMES:  # BatchNorm and LayerNorm leaves, Dense biases
+        return f"{port}.{_BN_NAMES[leaf]}", _vector(arr.reshape(-1) if leaf == "bias" else arr)
+    return ".".join(path + [leaf]), _vector(arr)  # a module's own param (pos_encoding)
+
+
+def state_dict_by_name(
     flat: dict[str, np.ndarray], params: str = "params"
 ) -> dict[str, torch.Tensor]:
-    """Map a flattened JAX UNet28 variable tree to ``models.unet28.UNet28``'s
-    ``state_dict`` (float32 tensors on the CPU).
+    """Map a flattened JAX variable tree onto the ``state_dict`` of the port
+    model of the same module names (float32 tensors on the CPU): the UNet28,
+    the MNIST VAE, the latent MLP UNet or the DiT.
 
     ``params`` names the collection that fills the parameters: ``params``,
     or ``ema_params`` for a checkpoint's EMA shadow; the other one and the
-    top-level ``step`` are skipped. Raises ``KeyError`` on any other key.
+    top-level ``step`` are skipped. Raises ``KeyError`` on a key outside
+    these collections; a key the model has no slot for fails its
+    ``load_state_dict``.
     """
     out: dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
@@ -210,20 +240,15 @@ def unet28_state_dict(
         collection, *path, leaf = key.split("/") if "/" in key else (key, key)
         if collection in _COLLECTIONS and collection not in (params, "batch_stats"):
             continue
-        if collection not in _COLLECTIONS or not path:
-            raise KeyError(f"no UNet28 state_dict slot for JAX key {key!r}")
-        arr = np.asarray(arr, np.float32)
-        port = ".".join(path)
-        if leaf == "kernel":
-            convert = conv_weight if arr.ndim == 4 else dense_weight
-            out[f"{port}.weight"] = convert(arr)
-        elif leaf == "embedding":
-            out[f"{port}.weight"] = _vector(arr)
-        elif leaf in _BN_NAMES:
-            out[f"{port}.{_BN_NAMES[leaf]}"] = _vector(arr)
-        else:
-            raise KeyError(f"no UNet28 state_dict slot for JAX key {key!r}")
+        if collection not in _COLLECTIONS:
+            raise KeyError(f"no state_dict slot for JAX key {key!r}")
+        name, value = _by_name_leaf(path, leaf, np.asarray(arr, np.float32))
+        out[name] = value
     return _with_bn_counters(out)
+
+
+unet28_state_dict = vae_mnist_state_dict = mlp_unet_state_dict = dit_state_dict = (
+    state_dict_by_name)
 
 
 def jax_variables(
@@ -231,27 +256,46 @@ def jax_variables(
 ) -> dict[str, np.ndarray]:
     """The model's variables as ``{JAX key: float32 array}`` in flax's layout:
     ``params/...`` and ``batch_stats/...``, the inverse of
-    ``unet28_state_dict``. ``params`` (port parameter name -> tensor, such as
-    an EMA shadow) replaces the model's own parameter values."""
+    ``state_dict_by_name``. ``params`` (port parameter name -> tensor, such
+    as an EMA shadow) replaces the model's own parameter values."""
     values = {k: v.detach() for k, v in model.state_dict().items()}
     values.update(params or {})
+    # A Linear inside an attention module (one with ``num_heads``) has flax's
+    # (in, heads, head_dim) / (heads, head_dim, out) kernel layout.
+    heads = {name: m.num_heads for name, m in model.named_modules() if hasattr(m, "num_heads")}
     out: dict[str, np.ndarray] = {}
     for name, module in model.named_modules():
         path = name.replace(".", "/")
 
         def put(collection: str, leaf: str, attr: str, layout=lambda a: a) -> None:
-            arr = values[f"{name}.{attr}"].float().cpu().numpy()
-            out[f"{collection}/{path}/{leaf}"] = np.ascontiguousarray(layout(arr))
+            arr = values[f"{name}.{attr}" if name else attr].float().cpu().numpy()
+            key = f"{collection}/{path}/{leaf}" if path else f"{collection}/{leaf}"
+            out[key] = np.ascontiguousarray(layout(arr))
 
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
+        parent, _, own = name.rpartition(".")
+        if isinstance(module, nn.Linear) and parent in heads:
+            h = heads[parent]
+            if own == "out":
+                put("params", "kernel", "weight", lambda a: a.T.reshape(h, -1, a.shape[0]))
+                put("params", "bias", "bias")
+            else:
+                put("params", "kernel", "weight", lambda a: a.T.reshape(a.shape[1], h, -1))
+                put("params", "bias", "bias", lambda a: a.reshape(h, -1))
+        elif isinstance(module, (nn.Conv2d, nn.Linear)):
             to_flax = (lambda a: a.transpose(2, 3, 1, 0)) if isinstance(module, nn.Conv2d) else np.transpose
             put("params", "kernel", "weight", to_flax)
             put("params", "bias", "bias")
         elif isinstance(module, nn.Embedding):
             put("params", "embedding", "weight")
-        elif isinstance(module, nn.BatchNorm2d):
+        elif isinstance(module, nn.LayerNorm):
+            put("params", "scale", "weight")
+            put("params", "bias", "bias")
+        elif isinstance(module, nn.modules.batchnorm._BatchNorm):
             put("params", "scale", "weight")
             put("params", "bias", "bias")
             put("batch_stats", "mean", "running_mean")
             put("batch_stats", "var", "running_var")
+        else:  # a module's own params (the DiT's pos_encoding)
+            for leaf in module._parameters:
+                put("params", leaf, leaf)
     return out

@@ -1,0 +1,162 @@
+"""The latent diffusion transformer (DiT-style eps-predictor) over the MNIST
+VAE's latents.
+
+Counterpart of ``tinydiffusion_tpu/models/dit.py`` (``TransformerBlock``,
+``DiT``; the reference's diffusion_transformer.py:16-109). Module names are
+the JAX ones, so ``io.from_jax.dit_state_dict`` maps them by name.
+
+- ``TransformerBlock``: flax ``MultiHeadDotProductAttention`` (4 heads,
+  dropout on the attention weights), then **post**-LayerNorm residuals,
+  ``x = norm1(x + dropout(attn(x)))`` and ``x = norm2(x + dropout(ff(x)))``
+  with an exact-GELU feed-forward ``dim -> 4 dim -> dim``;
+- the timestep enters as ``t / 1000`` (``TimeEmbedMLP(normalize=1000)``),
+  the class embedding is added to it and the sum to every projected token,
+  then the learned ``pos_encoding`` (1, S, D);
+- head ``LayerNorm -> Linear(dim, latent_dim / S)``.
+
+The attention is written out as products and a softmax, as JAX computes it
+outside any kernel: q scaled by ``1 / sqrt(head_dim)``, softmax over keys.
+The reference feeds ONE token (``num_tokens = 1``), so the softmax is
+exactly 1 and attention reduces to the value and output projections;
+``num_tokens > 1`` splits the latent into tokens, as in JAX.
+
+Dropout follows flax and draws nothing itself. Flax's attention dropout
+broadcasts its mask over batch and heads (``broadcast_dropout=True``): ONE
+(1, 1, S, S) keep mask per layer and step, shared by the whole batch; the
+two residual dropouts are elementwise over (B, S, D). A train-mode forward
+with dropout takes these masks as an argument (``draw_dropout_masks`` draws
+them from a caller's generator), so a step's draws all come from its
+state's generator, whether it runs eagerly or replayed in a CUDA graph, and
+a test can hand it JAX's masks. Kept elements are scaled by
+``1 / (1 - dropout)``, flax's arithmetic.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tinydiffusion_torch.nn.layers import LayerNorm, TimeEmbedMLP
+
+
+class MultiHeadAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention(qkv_features=dim, out_features=dim)``
+    over (B, S, dim) tokens, self-attention. ``query``/``key``/``value`` and
+    ``out`` are (dim, dim) ``nn.Linear``s; flax keeps their kernels as
+    (dim, heads, head_dim) and (heads, head_dim, dim) (``io.from_jax``)."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None,
+                keep_prob: float = 1.0) -> torch.Tensor:
+        """``keep`` (1, 1, S, S) bool masks the attention weights (train mode)."""
+        b, s, d = x.shape
+        h = self.num_heads
+        q = self.query(x).view(b, s, h, d // h)
+        k = self.key(x).view(b, s, h, d // h)
+        v = self.value(x).view(b, s, h, d // h)
+        q = q / math.sqrt(d // h)
+        weights = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        if keep is not None:
+            weights = weights * (keep.to(weights.dtype) / keep_prob)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, s, d)
+        return self.out(out)
+
+
+def _dropout(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float) -> torch.Tensor:
+    """flax ``Dropout``: ``x / keep_prob`` where kept, 0 elsewhere."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout: float = 0.1):
+        super().__init__()
+        self.keep_prob = 1.0 - dropout
+        self.attention = MultiHeadAttention(dim, num_heads)
+        self.norm1 = LayerNorm(dim)
+        self.ff1 = nn.Linear(dim, ff_dim)
+        self.ff2 = nn.Linear(ff_dim, dim)
+        self.norm2 = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
+        """``masks``: ``(attention (1, 1, S, S), output (B, S, D), ff (B, S,
+        D))`` bool keep masks, or None (no dropout)."""
+        attn_keep, out_keep, ff_keep = masks if masks is not None else (None, None, None)
+        attn = self.attention(x, attn_keep, self.keep_prob)
+        x = self.norm1(x + _dropout(attn, out_keep, self.keep_prob))
+        h = self.ff2(F.gelu(self.ff1(x)))
+        return self.norm2(x + _dropout(h, ff_keep, self.keep_prob))
+
+
+class DiT(nn.Module):
+    def __init__(self, time_dim: int = 256, num_classes: int = 10, latent_dim: int = 20,
+                 num_heads: int = 4, num_layers: int = 4, dropout: float = 0.05,
+                 num_tokens: int = 1):
+        super().__init__()
+        if latent_dim % num_tokens:
+            raise ValueError(f"latent_dim {latent_dim} does not split into {num_tokens} tokens")
+        self.latent_dim = latent_dim
+        self.num_tokens = num_tokens
+        self.time_dim = time_dim
+        self.dropout = dropout
+        self.time_embedding = TimeEmbedMLP(time_dim, normalize=1000.0)
+        self.class_embedding = nn.Embedding(num_classes, time_dim)  # N(0, 1) init
+        self.input_proj = nn.Linear(latent_dim // num_tokens, time_dim)
+        self.pos_encoding = nn.Parameter(torch.randn(1, num_tokens, time_dim))
+        self.num_layers = num_layers
+        for i in range(num_layers):  # flax's names: block0, block1, ...
+            self.add_module(f"block{i}", TransformerBlock(time_dim, num_heads, 4 * time_dim,
+                                                          dropout))
+        self.final_norm = LayerNorm(time_dim)
+        self.final_proj = nn.Linear(time_dim, latent_dim // num_tokens)
+
+    def draw_dropout_masks(self, batch: int, generator: torch.Generator) -> list | None:
+        """One train step's keep masks, per block ``(attention (1, 1, S, S),
+        output (B, S, D), ff (B, S, D))``, drawn in that order from
+        ``generator`` (on the model's device) as Bernoulli(1 - dropout); None
+        when the model has no dropout."""
+        if self.dropout == 0.0:
+            return None
+        keep_prob = 1.0 - self.dropout
+        device = self.pos_encoding.device
+        s, d = self.num_tokens, self.time_dim
+
+        def keep(shape):
+            return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+        return [(keep((1, 1, s, s)), keep((batch, s, d)), keep((batch, s, d)))
+                for _ in range(self.num_layers)]
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
+                dropout_masks: list | None = None) -> torch.Tensor:
+        """eps (B, latent_dim) float32 of latents ``x`` (B, latent_dim) at
+        timesteps ``t`` with labels ``y``. In train mode with dropout the
+        step's ``dropout_masks`` (``draw_dropout_masks``) are required; eval
+        mode ignores them."""
+        if not self.training or self.dropout == 0.0:
+            dropout_masks = None
+        elif dropout_masks is None:
+            raise ValueError("a train-mode DiT forward with dropout needs dropout_masks "
+                             "(draw_dropout_masks, from the step's generator)")
+        batch = x.shape[0]
+        emb = self.time_embedding(t)
+        dtype = emb.dtype  # the compute dtype: bfloat16 under autocast, as in JAX
+        emb = emb + self.class_embedding(y).to(dtype)
+        tokens = self.input_proj(x.reshape(batch, self.num_tokens, -1))
+        tokens = tokens + emb[:, None, :] + self.pos_encoding.to(dtype)
+        for i in range(self.num_layers):
+            tokens = getattr(self, f"block{i}")(
+                tokens, None if dropout_masks is None else dropout_masks[i])
+        out = self.final_proj(self.final_norm(tokens))
+        return out.reshape(batch, self.latent_dim).float()

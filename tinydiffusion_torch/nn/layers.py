@@ -1,11 +1,12 @@
 """Building blocks with the JAX package's (flax's) semantics.
 
 Counterpart of ``tinydiffusion_tpu/nn/layers.py``: the UNet blocks
-(``ConvBNRelu``, ``DoubleConvBlock``, ``TimeEmbedMLP``), a ``BatchNorm2d``
-that keeps flax's running statistics, and the spectral-norm wrapper of the
-conv-VAE. Convolutions and dense layers are torch's own ``nn.Conv2d`` and
-``nn.Linear``: their default init (kaiming_uniform(a=sqrt(5)) weights,
-U(+-1/sqrt(fan_in)) biases) is the one the JAX package copies.
+(``ConvBNRelu``, ``DoubleConvBlock``, ``TimeEmbedMLP``), ``BatchNorm2d`` and
+``BatchNorm1d`` that keep flax's running statistics, flax's ``LayerNorm``,
+and the spectral-norm wrapper of the conv-VAE. Convolutions and dense layers
+are torch's own ``nn.Conv2d`` and ``nn.Linear``: their default init
+(kaiming_uniform(a=sqrt(5)) weights, U(+-1/sqrt(fan_in)) biases) is the one
+the JAX package copies.
 """
 
 from __future__ import annotations
@@ -71,6 +72,17 @@ class SpectralNorm(nn.Module):
         return F.conv2d(x, weight, layer.bias, layer.stride, layer.padding)
 
 
+def _flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                     dims: tuple[int, ...]) -> torch.Tensor:
+    """Train mode: normalise over ``dims`` with the batch statistics and move
+    the running ones flax's way (see ``BatchNorm2d``)."""
+    with torch.no_grad():
+        var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax ``BatchNorm(momentum=0.9, epsilon=1e-5)``'s
     running statistics.
@@ -92,11 +104,44 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return _flax_batch_norm(self, x, (0, 2, 3))
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``BatchNorm2d``'s flax statistics over (B, C) features: the MLP UNet's
+    ``Dense -> BatchNorm`` blocks."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        return _flax_batch_norm(self, x, (0,))
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a flax module of the model's dtype computes in: autocast's
+    when it is on for ``x``'s device, else ``x``'s own."""
+    device = x.device.type
+    return torch.get_autocast_dtype(device) if torch.is_autocast_enabled(device) else x.dtype
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``LayerNorm(epsilon=1e-5)`` over the last dim: the statistics in
+    float32 with flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, returned in the
+    compute dtype (``compute_dtype``), as a flax module of that dtype does."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
+        return y.to(compute_dtype(x))
 
 
 class ConvBNRelu(nn.Module):
@@ -125,13 +170,22 @@ class DoubleConvBlock(nn.Module):
 
 class TimeEmbedMLP(nn.Module):
     """``Linear(1, D) -> SiLU -> Linear(D, D)`` time embedding. The integer
-    timestep enters as a raw float, as in the reference."""
+    timestep enters as a raw float, as in the reference, or, with
+    ``normalize``, divided by it (the DiT's ``t / 1000``).
 
-    def __init__(self, dim: int):
+    As in JAX, t is cast to the compute dtype before the division: under
+    bfloat16 autocast t = 999 rounds to 1000 and enters as 1.0. Dividing in
+    float32 and rounding the quotient would enter another value at 190 of
+    the 1000 timesteps."""
+
+    def __init__(self, dim: int, normalize: float | None = None):
         super().__init__()
+        self.normalize = normalize
         self.fc1 = nn.Linear(1, dim)
         self.fc2 = nn.Linear(dim, dim)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        t = t.to(self.fc1.weight.dtype)[:, None]
+        t = t.to(compute_dtype(self.fc1.weight))[:, None]
+        if self.normalize is not None:
+            t = t / self.normalize
         return self.fc2(F.silu(self.fc1(t)))

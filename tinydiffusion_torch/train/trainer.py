@@ -4,7 +4,10 @@ dataset, and the validation loss.
 Counterpart of ``tinydiffusion_tpu/train/trainer.py`` (``DiffusionTrainState``,
 ``create_train_state``, ``_ema_update``, ``_raw_step_fn``,
 ``make_resident_multi_step``, ``raw_eval_fn`` and ``make_eval_step`` (one
-function here), ``make_resident_eval``). Per batch: ``t ~ randint(0, T)``,
+function here), ``make_resident_eval``, and the latent family's
+``_raw_latent_step_fn``, ``make_latent_train_step``,
+``make_resident_latent_multi_step``, ``raw_latent_eval_fn`` and
+``make_latent_eval_step``). Per batch: ``t ~ randint(0, T)``,
 q_sample, for a class-conditional model with ``label_dropout`` each label
 replaced by the null class at that rate (classifier-free-guidance
 training), the model forward, the MSE on eps (or v), the optimizer step,
@@ -19,7 +22,7 @@ and the label-dropout draw come from the state's generator on the model's
 device, as JAX draws them from the step's keys, and the loss comes back as a
 device tensor. So a step reads nothing from the host that changes between
 steps, and the resident step on a card runs as one CUDA graph, captured once
-and replayed.
+and replayed (``make_resident_steps``, which any per-batch step can use).
 """
 
 from __future__ import annotations
@@ -244,57 +247,40 @@ class _Chunk:
     losses: torch.Tensor  # (capacity,) float32
 
 
-def make_resident_multi_step(
-    schedule: DiffusionSchedule,
-    dataset: DeviceDataset,
-    ema_decay: float | None = None,
-    prediction: str = "eps",
-    compute_dtype: torch.dtype = torch.float32,
-    conditional: bool = False,
-    label_dropout: float = 0.0,
-    null_label: int | None = None,
-) -> Callable:
-    """Train over a resident dataset: ``step(state, idxs) -> losses``, where
-    ``idxs`` (K, B) are index batches from ``dataset.epoch_index_batches``
-    and ``losses`` (K,) float32 stay on the device.
-
-    Each of the K steps gathers its uint8 batch (NHWC, as in JAX) and, for a
-    ``conditional`` model, its label row from ``dataset``, normalises it
-    inside the step and runs ``make_train_step``'s per-batch logic: the same
-    draws, in the same order, as the host path.
+def make_resident_steps(dataset: DeviceDataset, batch_step: Callable) -> Callable:
+    """K steps over a resident dataset: ``step(state, idxs, **seams) ->
+    losses``, where ``idxs`` (K, B) are index batches from
+    ``dataset.epoch_index_batches`` and ``losses`` (K,) float32 stay on the
+    device. Step i gathers its batch from ``dataset`` (NHWC images, and
+    labels when it holds them) and runs ``batch_step(state, batch,
+    **seams_i) -> loss``, which must update ``state`` without reading a
+    device value and leave ``state.step`` alone.
 
     On a card, one step is captured in a ``torch.cuda.CUDAGraph`` and
     replayed K times: the host does nothing between steps but launch the
     graph. Everything that changes from one step to the next is read from
-    device memory: the position in the chunk, its index row, the ``t``,
-    seed and label-dropout draws (the state's generator, registered with the
-    graph) and the loss slot it writes. The first ``GRAPH_WARMUP_STEPS``
-    steps of a state run eagerly on a side stream before the capture; a
-    restore of the state (``restores``), another state or a larger chunk
-    captures again. A failed capture raises: there is no fallback to eager
-    steps. The graph keeps the math mode of its capture, so the caller turns
-    TF32 off first (``device.disable_tf32``), and the optimizer must be built
-    with ``capturable=True`` (Adam's step count then lives on the device).
+    device memory: the position in the chunk, its index row, the draws (the
+    state's generator, registered with the graph) and the loss slot it
+    writes. The first ``GRAPH_WARMUP_STEPS`` steps of a state run eagerly on
+    a side stream before the capture; a restore of the state (``restores``),
+    another state or a larger chunk captures again. A failed capture raises:
+    there is no fallback to eager steps. The graph keeps the math mode of its
+    capture, so the caller turns TF32 off first (``device.disable_tf32``),
+    and the optimizer must be built with ``capturable=True`` (Adam's step
+    count then lives on the device; a tensor learning rate is read there at
+    each replay).
 
     On the CPU, which has no graphs, the same step runs eagerly K times; there
-    ``t`` (K, B), ``noise`` (K, B, C, H, W) and ``keep`` (K, B) may replace
-    the step's own draws, the seam through which the tests replay JAX's.
+    ``seams`` (name -> K-long sequence, or None) hand step i their i-th
+    entries, the seam through which the tests replay JAX's draws.
 
     ``step.counts`` tallies the steps run ``eager`` (warm-ups, and every step
     on the CPU), the graph ``captures`` and the graph ``replays``.
     """
-    if conditional and dataset.labels is None:
-        raise ValueError("a conditional resident step needs a DeviceDataset with labels")
-    body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
-                      label_dropout, null_label)
 
-    def one_step(state: DiffusionTrainState, chunk: _Chunk, t=None, noise=None,
-                 keep=None) -> None:
+    def one_step(state, chunk: _Chunk, **seams) -> None:
         at = chunk.pos.view(1)
-        batch = dataset.gather(chunk.idxs.index_select(0, at)[0])
-        x0, y = batch if conditional else (batch, None)
-        # NHWC -> NCHW: C = 1, a view
-        loss = body(state, x0.permute(0, 3, 1, 2), y, t, noise, keep)
+        loss = batch_step(state, dataset.gather(chunk.idxs.index_select(0, at)[0]), **seams)
         chunk.losses.index_copy_(0, at, loss.view(1))
         chunk.pos.add_(1)
 
@@ -306,18 +292,19 @@ def make_resident_multi_step(
     captured: dict = {}  # the graph of one step and what it was captured for
     counts = {"eager": 0, "captures": 0, "replays": 0}
 
-    def step(state: DiffusionTrainState, idxs, t=None, noise=None, keep=None) -> torch.Tensor:
+    def step(state, idxs, **seams) -> torch.Tensor:
         idxs = torch.as_tensor(idxs, dtype=torch.int64)
         k = len(idxs)
+        seams = {name: v for name, v in seams.items() if v is not None}
         if dataset.device.type != "cuda":
             chunk = new_chunk(idxs)
             for i in range(k):
-                one_step(state, chunk, *(None if a is None else a[i] for a in (t, noise, keep)))
+                one_step(state, chunk, **{name: v[i] for name, v in seams.items()})
             state.step += k
             counts["eager"] += k
             return chunk.losses
-        if t is not None or noise is not None or keep is not None:
-            raise ValueError("the (t, noise, keep) seam runs on the CPU; a card replays its "
+        if seams:
+            raise ValueError(f"the seams {sorted(seams)} run on the CPU; a card replays its "
                              "own draws")
         key = (id(state), state.restores, idxs.shape[1])
         if captured.get("key") != key or captured["chunk"].idxs.shape[0] < k:
@@ -340,10 +327,10 @@ def make_resident_multi_step(
         counts["eager"] += done
         if done < k and "graph" not in captured:
             graph = torch.cuda.CUDAGraph()
-            # The step draws t, its seed and the kept labels from the state's
-            # own generator. A generator that is not registered fails the
-            # capture, or would replay the captured draws every step;
-            # registered, each replay advances it as an eager step does.
+            # The step draws from the state's own generator. A generator that
+            # is not registered fails the capture, or would replay the
+            # captured draws every step; registered, each replay advances it
+            # as an eager step does.
             graph.register_generator_state(state.generator)
             # The graph keeps the math mode of this capture: TF32 is off by now.
             before = qsample.qsample_captured
@@ -363,13 +350,63 @@ def make_resident_multi_step(
     return step
 
 
-def _eval_draws(num_timesteps: int, batch: int, key: tuple[int, int]) -> tuple[np.ndarray, int]:
-    """The validation batch's timesteps (B,) and q_sample seed, made on the
-    host from ``key`` = (base seed, fold), JAX's ``fold_in(PRNGKey(seed + 1),
-    epoch * 10000 + i)``: a deterministic draw per (epoch, batch), so that
-    every validation pass of a run, host-streamed or resident, is the same."""
-    rng = np.random.default_rng([int(key[0]), int(key[1])])
-    return rng.integers(0, num_timesteps, batch), int(rng.integers(0, 2**63))
+def make_resident_multi_step(
+    schedule: DiffusionSchedule,
+    dataset: DeviceDataset,
+    ema_decay: float | None = None,
+    prediction: str = "eps",
+    compute_dtype: torch.dtype = torch.float32,
+    conditional: bool = False,
+    label_dropout: float = 0.0,
+    null_label: int | None = None,
+) -> Callable:
+    """Train over a resident dataset: ``step(state, idxs, t=None,
+    noise=None, keep=None) -> losses`` (``make_resident_steps``).
+
+    Each of the K steps gathers its uint8 batch (NHWC, as in JAX) and, for a
+    ``conditional`` model, its label row from ``dataset``, normalises it
+    inside the step and runs ``make_train_step``'s per-batch logic: the same
+    draws (t, the q_sample seed and the label dropout), in the same order,
+    as the host path. On the CPU ``t`` (K, B), ``noise`` (K, B, C, H, W) and
+    ``keep`` (K, B) may replace them.
+    """
+    if conditional and dataset.labels is None:
+        raise ValueError("a conditional resident step needs a DeviceDataset with labels")
+    body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
+                      label_dropout, null_label)
+
+    def batch_step(state, batch, t=None, noise=None, keep=None):
+        x0, y = batch if conditional else (batch, None)
+        return body(state, x0.permute(0, 3, 1, 2), y, t, noise, keep)  # NCHW: C = 1, a view
+
+    return make_resident_steps(dataset, batch_step)
+
+
+def _eval_rng(key: tuple[int, int]) -> np.random.Generator:
+    """The host generator of a validation batch's draws, from ``key`` = (base
+    seed, fold), JAX's ``fold_in(PRNGKey(base seed), epoch * 10000 + i)``: a
+    deterministic draw per (epoch, batch), so that every validation pass of
+    a run, host-streamed or resident, is the same."""
+    return np.random.default_rng([int(key[0]), int(key[1])])
+
+
+def _eval_loss(model: nn.Module, schedule: DiffusionSchedule, x0: torch.Tensor,
+               t_host: np.ndarray, seed: int, args: tuple, prediction: str,
+               compute_dtype: torch.dtype) -> torch.Tensor:
+    """The loss of ``model`` in eval mode on ``x0`` noised by the fused
+    q_sample at ``t_host`` and ``seed``."""
+    t = torch.from_numpy(t_host).to(x0.device)
+    x_t, noise = q_sample_fused(schedule, x0, t, seed)
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.autocast(x0.device.type, dtype=compute_dtype,
+                            enabled=compute_dtype != torch.float32):
+            out = model(x_t, t, *args)
+    finally:
+        model.train(was_training)
+    target = v_from_eps(schedule, x0, noise, t) if prediction == "v" else noise
+    return F.mse_loss(out.float(), target)
 
 
 def make_eval_step(
@@ -382,8 +419,8 @@ def make_eval_step(
     (JAX's ``raw_eval_fn`` and ``make_eval_step``; the reference's val pass,
     conditional_diffusion.py:274-292): one batch's loss, a 0-d float32
     device tensor, with the model in eval mode (the running BatchNorm
-    statistics) and no gradients. ``key`` (base seed, fold) fixes t and the
-    fused q_sample's seed (``_eval_draws``), so a batch noised by the CUDA
+    statistics) and no gradients. ``key`` (base seed, fold) fixes t and then
+    the fused q_sample's seed (``_eval_rng``), so a batch noised by the CUDA
     kernel on a card, or its plain version on the CPU, gets the same noise
     in every pass. ``prediction`` must match the training target."""
     if prediction not in ("eps", "v"):
@@ -392,19 +429,11 @@ def make_eval_step(
     @torch.no_grad()
     def eval_step(model: nn.Module, x0: torch.Tensor, key: tuple[int, int],
                   y=None) -> torch.Tensor:
-        t_host, seed = _eval_draws(schedule.num_timesteps, x0.shape[0], key)
-        t = torch.from_numpy(t_host).to(x0.device)
-        x_t, noise = q_sample_fused(schedule, x0, t, seed)
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.autocast(x0.device.type, dtype=compute_dtype,
-                                enabled=compute_dtype != torch.float32):
-                out = model(x_t, t, *((y,) if conditional else ()))
-        finally:
-            model.train(was_training)
-        target = v_from_eps(schedule, x0, noise, t) if prediction == "v" else noise
-        return F.mse_loss(out.float(), target)
+        rng = _eval_rng(key)
+        t_host, seed = rng.integers(0, schedule.num_timesteps, x0.shape[0]), int(
+            rng.integers(0, 2**63))
+        return _eval_loss(model, schedule, x0, t_host, seed, (y,) if conditional else (),
+                          prediction, compute_dtype)
 
     return eval_step
 
@@ -434,3 +463,143 @@ def make_resident_eval(
         return losses
 
     return call
+
+
+# --- the latent family: a frozen MNIST VAE in front of the denoiser ------------
+
+
+def _latent_step_body(vae: nn.Module, schedule: DiffusionSchedule, ema_decay: float | None,
+                      prediction: str, compute_dtype: torch.dtype) -> Callable:
+    """``body(state, x0, y, z_eps=None, t=None, noise=None, masks=None) ->
+    loss``: one latent step's device work (JAX's ``_raw_latent_step_fn``),
+    without the host's ``state.step`` count, so that a CUDA graph can
+    capture it."""
+    if prediction not in ("eps", "v"):
+        raise ValueError(f"unknown prediction {prediction!r}; use 'eps' or 'v'")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {compute_dtype} is not float32 or bfloat16")
+
+    def body(state: DiffusionTrainState, x0: torch.Tensor, y: torch.Tensor, z_eps=None,
+             t=None, noise=None, masks=None):
+        model, gen = state.model, state.generator
+        model.train()
+        # The draws in JAX's split order (z_key, t_key, noise_key, drop_key),
+        # all from the state's generator on the device.
+        with torch.no_grad():  # the frozen VAE, float32
+            mu, logvar = vae.encode(x0)
+            if z_eps is None:
+                z_eps = torch.randn(mu.shape, generator=gen, device=mu.device)
+            z0 = vae.reparameterize(mu, logvar, z_eps)
+        if t is None:
+            t = torch.randint(0, schedule.num_timesteps, (z0.shape[0],), generator=gen,
+                              device=z0.device)
+        if noise is not None:
+            z_t = q_sample_with_noise(schedule, z0, t, noise)
+        else:
+            seed = torch.randint(0, 2**31 - 1, (), generator=gen, device=z0.device)
+            z_t, noise = q_sample_fused(schedule, z0, t, seed)
+        options = {}
+        draw_masks = getattr(model, "draw_dropout_masks", None)  # the DiT's
+        if draw_masks is not None:
+            options["dropout_masks"] = masks if masks is not None else draw_masks(
+                z0.shape[0], gen)
+        with torch.autocast(z0.device.type, dtype=compute_dtype,
+                            enabled=compute_dtype != torch.float32, cache_enabled=False):
+            out = model(z_t, t, y, **options)
+        target = v_from_eps(schedule, z0, noise, t) if prediction == "v" else noise
+        loss = F.mse_loss(out.float(), target)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        if ema_decay is not None:
+            _ema_update(state, ema_decay)
+        return loss.detach()
+
+    return body
+
+
+def make_latent_train_step(
+    vae: nn.Module,
+    schedule: DiffusionSchedule,
+    ema_decay: float | None = None,
+    prediction: str = "eps",
+    compute_dtype: torch.dtype = torch.float32,
+) -> Callable:
+    """The latent train step ``step(state, x0, y, z_eps=None, t=None,
+    noise=None, masks=None) -> loss`` (JAX's ``make_latent_train_step``; the
+    reference's latent_diffusion.py:201-224).
+
+    ``x0`` (B, 1, 28, 28) float32 images in [-1, 1] and their labels ``y``
+    on the model's device. The frozen ``vae`` (``models.vae_mnist.VAEMnist``,
+    float32) encodes and reparameterises them without a gradient; the
+    (B, latent_dim) latents are noised by the fused q_sample (the CUDA
+    kernel on a card, its plain version on the CPU) and the class-conditional
+    denoiser (``state.model``: the MLP UNet or the DiT, whose dropout masks
+    the step draws) is trained on eps (or v) under ``compute_dtype``. The
+    draws come from ``state.generator`` in JAX's order: the reparameterising
+    noise, t, the q_sample seed, the dropout masks. ``z_eps`` (B,
+    latent_dim), ``t``, ``noise`` (B, latent_dim) and ``masks`` (the DiT's
+    ``draw_dropout_masks`` layout), when given, replace them: the seam the
+    tests use to give the port JAX's draws.
+    """
+    body = _latent_step_body(vae, schedule, ema_decay, prediction, compute_dtype)
+
+    def step(state: DiffusionTrainState, x0, y, z_eps=None, t=None, noise=None, masks=None):
+        loss = body(state, x0, y, z_eps, t, noise, masks)
+        state.step += 1
+        return loss
+
+    return step
+
+
+def make_resident_latent_multi_step(
+    vae: nn.Module,
+    schedule: DiffusionSchedule,
+    dataset: DeviceDataset,
+    ema_decay: float | None = None,
+    prediction: str = "eps",
+    compute_dtype: torch.dtype = torch.float32,
+) -> Callable:
+    """Latent training over a resident labelled dataset: ``step(state, idxs,
+    z_eps=None, t=None, noise=None, masks=None) -> losses``
+    (``make_resident_steps`` over ``make_latent_train_step``'s per-batch
+    logic). On a card each step, the gather, the frozen encode and the
+    q_sample launch included, is a replay of one CUDA graph; on the CPU the
+    seams are K-long sequences of the step's own."""
+    if dataset.labels is None:
+        raise ValueError("a latent resident step needs a DeviceDataset with labels")
+    body = _latent_step_body(vae, schedule, ema_decay, prediction, compute_dtype)
+
+    def batch_step(state, batch, z_eps=None, t=None, noise=None, masks=None):
+        x0, y = batch
+        return body(state, x0, y, z_eps, t, noise, masks)
+
+    return make_resident_steps(dataset, batch_step)
+
+
+def make_latent_eval_step(
+    vae: nn.Module,
+    schedule: DiffusionSchedule,
+    prediction: str = "eps",
+    compute_dtype: torch.dtype = torch.float32,
+) -> Callable:
+    """The latent validation step ``eval_step(model, x0, key, y) -> loss``
+    (JAX's ``raw_latent_eval_fn`` / ``make_latent_eval_step``; the
+    reference's latent_diffusion.py:231-249): ``make_eval_step`` on the
+    frozen VAE's latents. ``key`` fixes, in JAX's split order, the
+    reparameterising noise (B, latent_dim), t and the q_sample seed."""
+    if prediction not in ("eps", "v"):
+        raise ValueError(f"unknown prediction {prediction!r}; use 'eps' or 'v'")
+
+    @torch.no_grad()
+    def eval_step(model: nn.Module, x0: torch.Tensor, key: tuple[int, int],
+                  y: torch.Tensor) -> torch.Tensor:
+        rng = _eval_rng(key)
+        mu, logvar = vae.encode(x0)
+        z_eps = torch.from_numpy(rng.standard_normal(mu.shape, np.float32)).to(mu.device)
+        t_host, seed = rng.integers(0, schedule.num_timesteps, mu.shape[0]), int(
+            rng.integers(0, 2**63))
+        z0 = vae.reparameterize(mu, logvar, z_eps)
+        return _eval_loss(model, schedule, z0, t_host, seed, (y,), prediction, compute_dtype)
+
+    return eval_step
