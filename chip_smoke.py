@@ -13,7 +13,9 @@ dropout (``experiments/conditional_diffusion.run``), the serving CLI
 inpainting) and training the conv-VAE (``experiments/vae_laion.run``), and
 the latent family: the MNIST MLP VAE (``experiments/vae.run``), latent
 diffusion with the MLP UNet and the DiT (``experiments/latent_diffusion.run``)
-and the serving CLI on their checkpoints. Phases, one JSON line each:
+and the serving CLI on their checkpoints, and the LAION text-conditional
+latent UNet (``experiments/conditional_diffusion_laion.run`` and
+``generate_laion.main``). Phases, one JSON line each:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the kernels, built with one nvcc call from
@@ -41,8 +43,8 @@ and the serving CLI on their checkpoints. Phases, one JSON line each:
    kernel's own device time (profiler, ``device_us``), its time per launch in
    a graph of 100 (``graph_us``) beside that of 100 one-element adds
    (``graph_floor_us``), and the plain version's time; then the latent
-   step's shape (128, 20) and a ragged (128, 18), each bit-equal to the plain
-   version, with their times;
+   step's shape (128, 20), a ragged (128, 18) and the LAION step's
+   (8, 4096), each bit-equal to the plain version, with their times;
 6. train (bfloat16, then float32 compute) and train_host (bfloat16):
    ``run()`` at full width, batch 128, 2 epochs of 100 steps, 16 samples of
    the 1000-step fp32 sampler after each epoch, the trajectory, metrics and
@@ -70,7 +72,14 @@ and the serving CLI on their checkpoints. Phases, one JSON line each:
    100 steps and the 93-batch val pass: q_sample launches at (128, 20),
    train and val apart, graph counts, the rate of each epoch, warm step,
    the digit-7 grid's seconds; for the DiT, a replayed step after the rate
-   is set on the device tensor against the same step eager;
+   is set on the device tensor against the same step eager; laion_train:
+   the LAION ``run()`` at the published recipe (``laion_diffusion_1000ep.json``:
+   256² images, 4x32x32 latents, time_dim 768, B = 8, bf16, Adam 1e-4 to
+   1e-6 cosine over T_max 1000 steps, clip 10; resident, graph replays),
+   cut to 800 records (80 steps an epoch, 20 val batches) and 2 epochs:
+   q_sample launches at (8, 4096), train and val apart, graph counts, each
+   epoch's rate against the host formula, warm step, samples/s, the val
+   pass's and the grids' seconds, peak memory;
 8. resident_parity: 10 steps of the resident step (2 eager warm-up steps,
    then 8 graph replays) against the same 10 steps run eagerly from the same
    state (``diffusion_final``, with an EMA) on the card, float32 and
@@ -87,7 +96,11 @@ and the serving CLI on their checkpoints. Phases, one JSON line each:
    against the CPU through the (t, noise, keep) seam; latent_parity: the
    same graph-vs-eager check for 10 latent steps from each committed latent
    checkpoint, and one float32 latent step card vs CPU through the (z_eps,
-   t, noise, masks) seam;
+   t, noise, masks) seam; laion_parity: the same check for 10 LAION steps
+   from ``laion_diffusion_1000ep`` (caption dropout 0.1, EMA; the gather,
+   encode, q_sample, clip and rate inside the graph), one step a call, the
+   rate each step wrote on the card against the host's formula across
+   T_max = 4;
 10. unet_parity: the card against the port's CPU run, TF32 off: eps from the
     committed ``checkpoints/diffusion_final`` weights, one SGD step through
     the step's (t, noise) seam, and a 20-step replayed DDPM chain (float32
@@ -108,7 +121,11 @@ and the serving CLI on their checkpoints. Phases, one JSON line each:
     latent_serve: ``generate.main`` on ``latent_diffusion_best`` and
     ``diffusion_transformer_best`` (n = 16, digit 7): DDPM-1000, DDIM-50 and
     DPM++-15 twice each, warm latency and forwards; DDIM-10 decoded images
-    card vs CPU, float32 and bf16 forward;
+    card vs CPU, float32 and bf16 forward; laion_serve: ``generate_laion.main``
+    on ``laion_diffusion_1000ep`` (the four prompts, bf16 forward, fp32
+    chain): DDPM-1000 and DDIM-50 twice each; DDIM-10 decoded images card vs
+    CPU; a checkpoint trained for 20 steps with caption dropout 0.1, served
+    with guidance 2;
 14. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
     at each flash site (B = 4) and at two ragged N, dq, dk and dv; two calls
     bit-equal; the times of kernel, plain version and the backward of
@@ -143,6 +160,7 @@ exits 1 before printing any result. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -160,8 +178,14 @@ from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data.laion import synthesize_image
 from tinydiffusion_torch.device import disable_tf32
-from tinydiffusion_torch import generate
-from tinydiffusion_torch.experiments import conditional_diffusion, latent_diffusion, vae, vae_laion
+from tinydiffusion_torch import generate, generate_laion
+from tinydiffusion_torch.experiments import (
+    conditional_diffusion,
+    conditional_diffusion_laion,
+    latent_diffusion,
+    vae,
+    vae_laion,
+)
 from tinydiffusion_torch.experiments.common import (
     load_latent_checkpoint,
     load_pixel_checkpoint,
@@ -179,7 +203,9 @@ from tinydiffusion_torch.ops import _build, attention, qsample
 from tinydiffusion_torch.train.trainer import (
     GRAPH_WARMUP_STEPS,
     create_train_state,
+    make_laion_train_step,
     make_latent_train_step,
+    make_resident_laion_multi_step,
     make_resident_latent_multi_step,
     make_resident_multi_step,
     make_train_step,
@@ -340,10 +366,10 @@ VAE_MNIST_CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_mnist_best")
 LATENT_CHECKPOINTS = {"mlp_unet": os.path.join(REPO, "checkpoints", "latent_diffusion_best"),
                       "dit": os.path.join(REPO, "checkpoints", "diffusion_transformer_best")}
 # q_sample at the latent step's shape, (B, latent_dim) = (128, 20): 80-byte
-# rows, the float4 path; and a ragged (128, 18), 72-byte rows, the scalar
-# path. The same Philox stream and arithmetic as the plain version on the
-# card: bit-equal.
-LATENT_QSAMPLE_SITES = ((128, 20), (128, 18))
+# rows, the float4 path; a ragged (128, 18), 72-byte rows, the scalar path;
+# and the LAION step's (B, 4 * 32 * 32) = (8, 4096). The same Philox stream
+# and arithmetic as the plain version on the card: bit-equal.
+LATENT_QSAMPLE_SITES = ((128, 20), (128, 18), (8, 4096))
 # MNIST VAE training at the published recipe (Adam 1e-3, B = 128, float32),
 # cut from 100 epochs of 468 steps to 2 of 100; the test pass is the whole
 # 10k split (78 batches). Latent training at each committed recipe, cut from
@@ -379,6 +405,36 @@ LATENT_SERVE_F32_ATOL = 1e-3
 LATENT_SERVE_BF16_MEAN_ABS, LATENT_SERVE_BF16_MAX_ABS = 0.03, 1.0
 SERVE_F32_ATOL = 1e-3
 SERVE_BF16_MAX_ABS, SERVE_BF16_MEAN_ABS = 1.5, 0.06
+# The LAION text-conditional family (slice 6): the committed checkpoint,
+# whose sidecar gives the published recipe (256² images, 4x32x32 latents,
+# time_dim 768, B = 8, bf16, Adam 1e-4 to 1e-6 cosine with T_max 1000
+# scheduler steps, clip 10; resident, 10 steps a chunk) and the codec basis.
+LAION_CHECKPOINT = os.path.join(REPO, "checkpoints", "laion_diffusion_1000ep")
+# Training cut from 10 000 records to 800 (the host synthesizes ~11 ms an
+# image): 640 train (80 steps an epoch) and 160 val (20 batches), 2 epochs;
+# a mid-epoch grid every 50 batches, the epoch grid at the last epoch.
+LAION_RECORDS, LAION_EPOCHS, LAION_SAMPLE_EVERY = 800, 2, 50
+LAION_TRAIN_STEPS, LAION_VAL_BATCHES = 80, 20
+# laion_parity: resident_parity's graph-vs-eager check on 10 LAION steps (B = 8, caption
+# dropout 0.1, EMA) from the committed weights, one step a call so that the
+# rate the step wrote on the card is read after each; T_max 4, so that the 10
+# steps cross it twice. The rate against the host's float64 formula: 1e-6
+# relative, and one float32 ulp of the cosine times (lr - lr_min) / 2 where
+# 1 + cos cancels next to T_max.
+LAION_PARITY_T_MAX, LAION_CAPTION_DROPOUT = 4, 0.1
+LAION_LR_RTOL = 1e-6
+# laion_serve: the four prompts, bf16 forward and fp32 chain (the sidecar's),
+# each request twice. DDIM-10 decoded images card vs CPU from one x_init:
+# fp32 within 1e-3 (summation order only), the card's bf16 forward against
+# the CPU's fp32 by the mean |diff| (as latent_serve).
+LAION_SERVE_REQUESTS = {
+    "ddpm1000": (["--sampler", "ddpm"], 1000),
+    "ddim50": (["--sampler", "ddim", "--sample-steps", "50"], 50),
+}
+LAION_SERVE_F32_ATOL, LAION_SERVE_BF16_MEAN_ABS = 1e-3, 0.03
+# A guided checkpoint trained for a few steps at the recipe with caption
+# dropout 0.1, then served with --guidance-scale 2 (DDIM-50).
+LAION_GUIDED_RECORDS, LAION_GUIDED_STEPS = 200, 20
 
 
 def emit(phase: str, **fields) -> None:
@@ -1010,6 +1066,60 @@ def _resident_state(images: np.ndarray, model=None, ema: bool = False, labels=No
     return state, dataset
 
 
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([x.detach().flatten() for x in tensors])
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def _parity_record(state, losses: list, params0: torch.Tensor, ema0: torch.Tensor) -> dict:
+    """What one run of the parity steps left: its losses, params, EMA shadow,
+    BatchNorm statistics and generator state, and the updates."""
+    params, ema = _flat(state.model.parameters()), _flat(state.ema_params.values())
+    stats = _flat([b for n, b in state.model.named_buffers()
+                   if n.endswith(("running_mean", "running_var"))]
+                  or [torch.zeros(1, device="cuda")])  # the DiT has no BatchNorm
+    return {"losses": losses, "params": params, "update": (params - params0).double(),
+            "ema": ema, "ema_update": (ema - ema0).double(), "stats": stats,
+            "generator": state.generator.get_state()}
+
+
+def _parity_fields(name: str, out: dict) -> tuple[dict, bool]:
+    """Graph against eager, and eager against itself (the noise floor of the
+    atomics, beside what the graph adds to it), for one compute dtype
+    ``name``; and whether graph against eager is inside the bounds."""
+    fields = {"losses_graph": out["graph"]["losses"], "losses_eager": out["eager"]["losses"]}
+    for pair, (g, e) in (("graph_vs_eager", (out["graph"], out["eager"])),
+                         ("eager_vs_eager", (out["eager_again"], out["eager"]))):
+        fields[pair] = {
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"])),
+            "update_cos": _cos(g["update"], e["update"]),
+            "ema_update_cos": _cos(g["ema_update"], e["ema_update"]),
+            # The replays advanced the registered generator as eager steps do.
+            "generator_equal": torch.equal(g["generator"], e["generator"]),
+            "bit_equal": (g["losses"] == e["losses"] and torch.equal(g["params"], e["params"])
+                          and torch.equal(g["ema"], e["ema"])
+                          and torch.equal(g["stats"], e["stats"])),
+            "params_max_abs": (g["params"] - e["params"]).abs().max().item(),
+            "stats_max_rel": ((g["stats"] - e["stats"]).abs()
+                              / e["stats"].abs().clamp_min(1.0)).max().item(),
+        }
+    check = fields["graph_vs_eager"]
+    ok = (check["generator_equal"] and check["loss_rel"] <= PARITY_LOSS_RTOL[name]
+          and check["update_cos"] >= PARITY_MIN_UPDATE_COS[name]
+          and check["ema_update_cos"] >= PARITY_MIN_UPDATE_COS[name]
+          and check["params_max_abs"] <= PARITY_MAX_PARAM_ABS[name]
+          and check["stats_max_rel"] <= PARITY_MAX_STATS_REL[name])
+    return fields, ok
+
+
+def _parity_bounds() -> dict:
+    return {"loss_rtol": PARITY_LOSS_RTOL, "min_update_cos": PARITY_MIN_UPDATE_COS,
+            "max_params_abs": PARITY_MAX_PARAM_ABS, "max_stats_rel": PARITY_MAX_STATS_REL}
+
+
 def _graph_vs_eager(phase: str, load_model, images: np.ndarray, labels=None, vae=None,
                     **step_options) -> dict:
     """PARITY_STEPS steps of the resident step (GRAPH_WARMUP_STEPS eager, the
@@ -1022,24 +1132,14 @@ def _graph_vs_eager(phase: str, load_model, images: np.ndarray, labels=None, vae
     disable_tf32()
     schedule = DiffusionSchedule.linear(1000).to("cuda")
     fields = {"steps": PARITY_STEPS, "replayed": PARITY_STEPS - GRAPH_WARMUP_STEPS,
-              "batch": PARITY_BATCH, "loss_rtol": PARITY_LOSS_RTOL,
-              "min_update_cos": PARITY_MIN_UPDATE_COS, "max_params_abs": PARITY_MAX_PARAM_ABS,
-              "max_stats_rel": PARITY_MAX_STATS_REL}
+              "batch": PARITY_BATCH, **_parity_bounds()}
     failed = []
-
-    def flat(tensors):
-        return torch.cat([x.detach().flatten() for x in tensors])
-
-    def cos(a, b):
-        return (a @ b / (a.norm() * b.norm())).item()
-
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         out = {}
         options = dict(step_options, ema_decay=PARITY_EMA_DECAY, compute_dtype=dtype)
         for mode in ("graph", "eager", "eager_again"):
             state, dataset = _resident_state(images, load_model(), ema=True, labels=labels)
-            params0 = flat(state.model.parameters())
-            ema0 = flat(state.ema_params.values())
+            params0, ema0 = _flat(state.model.parameters()), _flat(state.ema_params.values())
             idxs = dataset.epoch_index_batches(0)[:PARITY_STEPS]
             _reset_launches()
             if mode == "graph":
@@ -1060,38 +1160,9 @@ def _graph_vs_eager(phase: str, load_model, images: np.ndarray, labels=None, vae
             if qsample.qsample_launches != PARITY_STEPS or state.step != PARITY_STEPS:
                 raise RuntimeError(f"{phase} ({mode}): {state.step} steps, "
                                    f"{qsample.qsample_launches} q_sample launches")
-            params, ema = flat(state.model.parameters()), flat(state.ema_params.values())
-            stats = flat([b for n, b in state.model.named_buffers()
-                          if n.endswith(("running_mean", "running_var"))]
-                         or [torch.zeros(1, device="cuda")])  # the DiT has no BatchNorm
-            out[mode] = {"losses": losses, "params": params, "update": (params - params0).double(),
-                         "ema": ema, "ema_update": (ema - ema0).double(), "stats": stats,
-                         "generator": state.generator.get_state()}
-        # Graph against eager, and eager against itself: the noise floor of
-        # the atomics, beside what the graph adds to it.
-        fields[name] = {"losses_graph": out["graph"]["losses"],
-                        "losses_eager": out["eager"]["losses"]}
-        for pair, (g, e) in (("graph_vs_eager", (out["graph"], out["eager"])),
-                             ("eager_vs_eager", (out["eager_again"], out["eager"]))):
-            fields[name][pair] = {
-                "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"])),
-                "update_cos": cos(g["update"], e["update"]),
-                "ema_update_cos": cos(g["ema_update"], e["ema_update"]),
-                # The replays advanced the registered generator as eager steps do.
-                "generator_equal": torch.equal(g["generator"], e["generator"]),
-                "bit_equal": (g["losses"] == e["losses"] and torch.equal(g["params"], e["params"])
-                              and torch.equal(g["ema"], e["ema"])
-                              and torch.equal(g["stats"], e["stats"])),
-                "params_max_abs": (g["params"] - e["params"]).abs().max().item(),
-                "stats_max_rel": ((g["stats"] - e["stats"]).abs()
-                                  / e["stats"].abs().clamp_min(1.0)).max().item(),
-            }
-        check = fields[name]["graph_vs_eager"]
-        if not (check["generator_equal"] and check["loss_rel"] <= PARITY_LOSS_RTOL[name]
-                and check["update_cos"] >= PARITY_MIN_UPDATE_COS[name]
-                and check["ema_update_cos"] >= PARITY_MIN_UPDATE_COS[name]
-                and check["params_max_abs"] <= PARITY_MAX_PARAM_ABS[name]
-                and check["stats_max_rel"] <= PARITY_MAX_STATS_REL[name]):
+            out[mode] = _parity_record(state, losses, params0, ema0)
+        fields[name], ok = _parity_fields(name, out)
+        if not ok:
             failed.append(name)
     if failed:
         raise RuntimeError(f"{phase}: graph vs eager in {failed}: {fields}")
@@ -1717,6 +1788,264 @@ def phase_latent_serve() -> dict:
     return fields
 
 
+def _laion_recipe(**overrides) -> "conditional_diffusion_laion.LaionDiffusionConfig":
+    """The committed LAION checkpoint's recipe (its sidecar's config), on the
+    card, with JAX's default T_max of num_epochs = 1000 scheduler steps kept
+    whatever num_epochs says, and ``overrides``."""
+    config = conditional_diffusion_laion.config_from_sidecar(
+        load_sidecar(LAION_CHECKPOINT)["config"])
+    return dataclasses.replace(config, scheduler_t_max=config.scheduler_t_max
+                               or config.num_epochs, device="cuda", **overrides)
+
+
+def _host_lr(count: int, t_max: int, lr: float, lr_min: float) -> float:
+    """torch's CosineAnnealingLR at ``count``, in float64 on the host."""
+    return lr_min + (lr - lr_min) * 0.5 * (1.0 + np.cos(np.pi * count / t_max))
+
+
+def phase_laion_train() -> dict:
+    """``experiments.conditional_diffusion_laion.run`` at the published
+    recipe (``laion_diffusion_1000ep.json``), resident with graph replays,
+    cut to 800 records and 2 epochs; the q_sample kernel's launches counted
+    over exactly that run, train steps and val passes apart."""
+    with tempfile.TemporaryDirectory() as tmp:
+        config = _laion_recipe(
+            num_epochs=LAION_EPOCHS, n_records=LAION_RECORDS,
+            sample_every_batches=LAION_SAMPLE_EVERY, sample_every_epochs=LAION_EPOCHS,
+            out_dir=os.path.join(tmp, "out"), model_save_path=os.path.join(tmp, "ckpt"))
+        _set_default_tf32()  # run() must turn TF32 off itself
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = conditional_diffusion_laion.run(config)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _launches()
+        steps = result["state"].step
+        split = result["qsample_launches"]
+        graph = result["graph"]
+        problems = []
+        if torch.backends.cudnn.allow_tf32:
+            problems.append("run() left cuDNN's TF32 on")
+        if steps != LAION_EPOCHS * LAION_TRAIN_STEPS or not result["resident"]:
+            problems.append(f"{steps} steps, resident {result['resident']}")
+        if split != {"train": steps, "eval": LAION_EPOCHS * LAION_VAL_BATCHES}:
+            problems.append(f"q_sample launches {split}, want {steps} train and "
+                            f"{LAION_EPOCHS * LAION_VAL_BATCHES} eval")
+        if launches != {"flash_fwd": 0, "flash_bwd": 0, "qsample": steps + split["eval"]}:
+            problems.append(f"launches {launches} against {split}")
+        if graph != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
+                     "replays": steps - GRAPH_WARMUP_STEPS}:
+            problems.append(f"graph counts {graph}")
+        train_losses = [e["train_loss"] for e in result["epochs"]]
+        values = result["losses"] + train_losses + result["val_losses"]
+        if not np.all(np.isfinite(values)) or not train_losses[-1] < result["losses"][0]:
+            problems.append(f"losses {result['losses']}, epoch means {train_losses}, "
+                            f"val {result['val_losses']}")
+        # Each epoch's rate is its last update's: count = steps so far - 1.
+        lrs = [e["lr"] for e in result["epochs"]]
+        want_lrs = [_host_lr((e + 1) * LAION_TRAIN_STEPS - 1, config.scheduler_t_max, config.lr,
+                             config.lr_min) for e in range(LAION_EPOCHS)]
+        if not np.allclose(lrs, want_lrs, rtol=LAION_LR_RTOL, atol=0):
+            problems.append(f"learning rates {lrs}, want {want_lrs}")
+        grids = sorted(os.path.basename(p) for p in result["grids"])
+        want_grids = sorted(["sampled_epoch0_batch59.png", "sampled_epoch1_batch59.png",
+                             f"samples_epoch_{LAION_EPOCHS - 1}.png", "final_samples.png"])
+        outputs = result["grids"] + [config.model_save_path + ext
+                                     for ext in (".pt", ".npz", ".json")]
+        if grids != want_grids or not all(os.path.getsize(p) > 0 for p in outputs):
+            problems.append(f"grids {grids}, want {want_grids}")
+        if "codec_state" not in load_sidecar(config.model_save_path)["metadata"]:
+            problems.append("the checkpoint's sidecar has no codec_state")
+        warm = result["epochs"][-1]
+        fields = {
+            "recipe": os.path.relpath(LAION_CHECKPOINT, REPO) + ".json",
+            "records": LAION_RECORDS, "compute_dtype": config.compute_dtype,
+            "batch": config.batch_size, "scheduler_t_max": config.scheduler_t_max,
+            "epochs": LAION_EPOCHS, "steps": steps, "val_batches_per_epoch": LAION_VAL_BATCHES,
+            "launches": launches, "qsample_launches": split, "graph": graph, "lrs": lrs,
+            "losses": result["losses"], "train_losses": train_losses,
+            "val_losses": result["val_losses"], "wall_s": wall_s,
+            "data_seconds": result["data_seconds"],
+            "warm_samples_per_sec": warm["samples_per_sec"],
+            "warm_step_ms": 1e3 * warm["train_seconds"] / warm["steps"],
+            "val_seconds": [e["val_seconds"] for e in result["epochs"]],
+            "grid_seconds": [e["sample_seconds"] for e in result["epochs"]],
+            "final_ddpm1000_seconds": result["final_seconds"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+    if problems:
+        raise RuntimeError(f"laion_train: {problems}: {fields}")
+    emit("laion_train", **fields)
+    return fields
+
+
+def phase_laion_parity() -> dict:
+    """The resident LAION step (caption dropout, EMA, the clip and the rate
+    inside the graph), graph against eager from the committed weights, with
+    ``resident_parity``'s quantities and bounds, one step a call: the rate
+    the step wrote on the card read after each, against the host formula
+    across T_max."""
+    disable_tf32()
+    loaded = generate_laion.load_laion_checkpoint(LAION_CHECKPOINT, "cuda")
+    codec, schedule, recipe = loaded["codec"], loaded["schedule"], loaded["config"]
+    b = recipe.batch_size
+    records = [synthesize_image(i, recipe.image_size) for i in range(b * PARITY_STEPS)]
+    images = np.stack([image for image, _ in records])
+    encoder = loaded["text_encoder"]
+    embeds = encoder.encode([caption for _, caption in records])
+    null = torch.from_numpy(encoder.encode([""])[0]).cuda()
+    lr, lr_min = recipe.lr, recipe.lr_min
+    want_lrs = [_host_lr(c, LAION_PARITY_T_MAX, lr, lr_min) for c in range(PARITY_STEPS)]
+    lr_atol = 0.5 * (lr - lr_min) * 2.0**-23
+    fields = {"steps": PARITY_STEPS, "replayed": PARITY_STEPS - GRAPH_WARMUP_STEPS, "batch": b,
+              "caption_dropout": LAION_CAPTION_DROPOUT, "scheduler_t_max": LAION_PARITY_T_MAX,
+              **_parity_bounds(), "lr_rtol": LAION_LR_RTOL, "lr_atol": lr_atol,
+              "lrs_host": want_lrs}
+    failed = []
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        out, lrs = {}, {}
+        options = dict(lr_schedule=conditional_diffusion_laion.cosine_annealing_lr(
+                           lr, lr_min, LAION_PARITY_T_MAX),
+                       clip_norm=recipe.clip_norm, ema_decay=PARITY_EMA_DECAY,
+                       compute_dtype=dtype, caption_dropout=LAION_CAPTION_DROPOUT,
+                       null_embed=null)
+        for mode in ("graph", "eager", "eager_again"):
+            model = generate_laion.load_laion_checkpoint(LAION_CHECKPOINT, "cuda")["model"]
+            optimizer = torch.optim.Adam(model.parameters(), lr=torch.tensor(lr, device="cuda"),
+                                         capturable=True)
+            state = create_train_state(model, optimizer, SEED, ema=True)
+            dataset = DeviceDataset(images, b, seed=SEED, device="cuda", embeds=embeds,
+                                    u8_normalize=conditional_diffusion_laion.LAION_U8_NORMALIZE)
+            params0, ema0 = _flat(model.parameters()), _flat(state.ema_params.values())
+            idxs = dataset.epoch_index_batches(0)[:PARITY_STEPS]
+            _reset_launches()
+            losses, lrs[mode] = [], []
+            if mode == "graph":
+                resident = make_resident_laion_multi_step(codec, schedule, dataset, **options)
+                for i in range(PARITY_STEPS):
+                    losses.append(resident(state, idxs[i : i + 1]).item())
+                    lrs[mode].append(optimizer.param_groups[0]["lr"].item())
+                if resident.counts != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
+                                       "replays": PARITY_STEPS - GRAPH_WARMUP_STEPS}:
+                    raise RuntimeError(f"laion_parity: graph counts {resident.counts}")
+            else:
+                step = make_laion_train_step(codec, schedule, **options)
+                for row in idxs:
+                    x, e = dataset.gather(torch.from_numpy(row).cuda())
+                    losses.append(step(state, x.permute(0, 3, 1, 2), e).item())
+                    lrs[mode].append(optimizer.param_groups[0]["lr"].item())
+            torch.cuda.synchronize()
+            if qsample.qsample_launches != PARITY_STEPS or state.step != PARITY_STEPS:
+                raise RuntimeError(f"laion_parity ({mode}): {state.step} steps, "
+                                   f"{qsample.qsample_launches} q_sample launches")
+            out[mode] = _parity_record(state, losses, params0, ema0)
+        fields[name], ok = _parity_fields(name, out)
+        gap = np.abs(np.array(lrs["graph"]) - want_lrs)
+        fields[name]["lrs_graph"] = lrs["graph"]
+        fields[name]["lr_max_rel"] = float((gap / np.array(want_lrs)).max())
+        fields[name]["lrs_graph_equal_eager"] = lrs["graph"] == lrs["eager"]
+        if not (ok and fields[name]["lrs_graph_equal_eager"]
+                and np.all(gap <= lr_atol + LAION_LR_RTOL * np.array(want_lrs))):
+            failed.append(name)
+    fields["weights"] = os.path.relpath(LAION_CHECKPOINT, REPO)
+    if failed:
+        raise RuntimeError(f"laion_parity: graph vs eager in {failed}: {fields}")
+    emit("laion_parity", **fields)
+    return fields
+
+
+def _laion_serve_chains() -> dict:
+    """DDIM-10 on the four prompts from one x_init, decoded images: the card
+    against the CPU with the float32 forward (both TF32-free), and the
+    card's bfloat16 forward (the sidecar's) against the CPU's float32."""
+    prompts = conditional_diffusion_laion.SAMPLE_PROMPTS
+    x_init = torch.from_numpy(np.random.default_rng(SEED + 31).standard_normal(
+        (len(prompts), 4, 32, 32)).astype(np.float32))
+    images = {}
+    for dev, compute_dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                               ("cuda", torch.bfloat16)):
+        loaded = generate_laion.load_laion_checkpoint(LAION_CHECKPOINT, dev)
+        embeds = torch.from_numpy(loaded["text_encoder"].encode(prompts)).to(dev)
+        sampler = conditional_diffusion_laion.make_laion_sampler(
+            loaded["model"], loaded["schedule"], loaded["codec"], len(prompts), 32, 4,
+            compute_dtype=compute_dtype, method="ddim", sample_steps=10)
+        images[(dev, compute_dtype)] = sampler(None, embeds, x_init=x_init.to(dev)).cpu()
+    ref = images[("cpu", torch.float32)]
+    f32 = (images[("cuda", torch.float32)] - ref).abs()
+    bf16 = (images[("cuda", torch.bfloat16)] - ref).abs()
+    return {"f32_max_abs": f32.max().item(), "bf16_max_abs": bf16.max().item(),
+            "bf16_mean_abs": bf16.mean().item(), "range": [ref.min().item(), ref.max().item()]}
+
+
+def _laion_guided(tmp: str) -> dict:
+    """A checkpoint trained for a few steps at the recipe with caption
+    dropout 0.1, served with guidance 2 (DDIM-50): the guided grid against
+    the same request at guidance 1."""
+    config = _laion_recipe(
+        num_epochs=1, n_records=LAION_GUIDED_RECORDS, max_steps_per_epoch=LAION_GUIDED_STEPS,
+        caption_dropout=0.1, guidance_scale=2.0, sample_every_batches=0,
+        sample_every_epoch=False, out_dir=os.path.join(tmp, "guided"),
+        model_save_path=os.path.join(tmp, "guided", "ckpt"))
+    trained = conditional_diffusion_laion.run(config)
+    argv = ["--checkpoint", config.model_save_path, "--device", "cuda", "--sampler", "ddim",
+            "--sample-steps", "50", "--out", os.path.join(tmp, "guided.png")]
+    generate_laion.main(argv + ["--guidance-scale", "2.0"])  # cold
+    guided = generate_laion.main(argv + ["--guidance-scale", "2.0"])
+    plain = generate_laion.main(argv)
+    images = guided["images"]
+    return {"train_steps": trained["state"].step, "qsample_launches": trained["qsample_launches"],
+            "forwards": guided["forwards"], "warm_s": guided["sample_seconds"],
+            "ms_per_forward": 1e3 * guided["sample_seconds"] / guided["forwards"],
+            "ok": bool(guided["forwards"] == 50 and tuple(images.shape) == (4, 3, 256, 256)
+                       and torch.isfinite(images).all()
+                       and not torch.equal(images, plain["images"])),
+            "mean_abs_vs_unguided": (images - plain["images"]).abs().mean().item()}
+
+
+def phase_laion_serve() -> dict:
+    """``generate_laion.main`` on the committed checkpoint (the four
+    prompts, bf16 forward, fp32 chain): each request twice, the warm latency
+    and model forwards; DDIM-10 chains card against CPU; then a guided
+    checkpoint trained for a few steps and served with guidance 2."""
+    fields = {"checkpoint": os.path.relpath(LAION_CHECKPOINT, REPO),
+              "prompts": conditional_diffusion_laion.SAMPLE_PROMPTS, "requests": {}}
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_launches()
+        for name, (flags, forwards) in LAION_SERVE_REQUESTS.items():
+            argv = ["--checkpoint", LAION_CHECKPOINT, "--device", "cuda", *flags,
+                    "--out", os.path.join(tmp, f"{name}.png")]
+            generate_laion.main(argv)  # cold
+            result = generate_laion.main(argv)
+            images = result["images"]
+            if not (tuple(images.shape) == (4, 3, 256, 256) and torch.isfinite(images).all()
+                    and images.min() >= 0 and images.max() <= 1):
+                problems.append(f"{name}: images {tuple(images.shape)}")
+            if result["forwards"] != forwards:
+                problems.append(f"{name}: {result['forwards']} forwards")
+            fields["requests"][name] = {"warm_s": result["sample_seconds"],
+                                        "forwards": result["forwards"],
+                                        "ms_per_forward": 1e3 * result["sample_seconds"]
+                                        / result["forwards"]}
+        chains = _laion_serve_chains()
+        if not (chains["f32_max_abs"] <= LAION_SERVE_F32_ATOL
+                and chains["bf16_mean_abs"] <= LAION_SERVE_BF16_MEAN_ABS):
+            problems.append(f"DDIM-10 card vs CPU: {chains}")
+        fields["chains"] = chains
+        if any(_launches().values()):
+            problems.append(f"LAION serving launched a hand-written kernel: {_launches()}")
+        fields["guided"] = _laion_guided(tmp)
+        if not fields["guided"]["ok"]:
+            problems.append(f"guided checkpoint: {fields['guided']}")
+    fields.update(f32_atol=LAION_SERVE_F32_ATOL, bf16_mean_abs_bound=LAION_SERVE_BF16_MEAN_ABS)
+    if problems:
+        raise RuntimeError(f"laion_serve: {problems}: {fields}")
+    emit("laion_serve", **fields)
+    return fields
+
+
 def _set_default_tf32() -> None:
     """The TF32 flags as a fresh process has them: a run must turn them off itself."""
     torch.backends.cudnn.allow_tf32 = True
@@ -1978,15 +2307,18 @@ def main() -> int:
         phase_vae_mnist_train(data_root)
         latents = {backbone: phase_latent_train(backbone, data_root)
                    for backbone in LATENT_CHECKPOINTS}
+    laion = phase_laion_train()
     phase_resident_parity()
     phase_resident_restore()
     phase_cond_parity()
     phase_latent_parity()
+    phase_laion_parity()
     phase_unet_parity()
     phase_train_step_bf16()
     phase_sample()
     phase_serve()
     phase_latent_serve()
+    phase_laion_serve()
     bwd_sites = phase_flash_bwd_kernel()
     phase_flash_autograd()
     vae = phase_vae_train()
@@ -2025,12 +2357,14 @@ def main() -> int:
             "launches_conditional_split": cond["qsample_launches"],
             # The latent runs, at (128, 20): their train steps and val passes.
             "launches_latent_runs": {b: f["qsample_launches"] for b, f in latents.items()},
+            # The LAION run, at (8, 4096): its train steps and val passes.
+            "launches_laion_run": laion["qsample_launches"],
             "max_abs_err": max([qsample_site["max_abs_err"]]
                                + [s["max_abs_err"] for s in qsample_site["latent_sites"]]),
             **{k: qsample_site[k] for k in keys + (
                 "roofline_share", "device_us", "graph_us", "graph_floor_us")},
-            # The main site (128, 784) above; the latent step's (128, 20) and a
-            # ragged (128, 18) here.
+            # The main site (128, 784) above; the latent step's (128, 20), a
+            # ragged (128, 18) and the LAION step's (8, 4096) here.
             "latent_sites": qsample_site["latent_sites"],
         },
         {

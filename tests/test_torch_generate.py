@@ -139,8 +139,8 @@ def test_labelled_grid_equals_jax_byte_for_byte(tmp_path):
     images.save_image_grid(tiles, str(tmp_path / "port.png"), nrow=2)
     np.testing.assert_array_equal(images.read_png(str(tmp_path / "port.png"))[..., 0],
                                   np.asarray(Image.open(tmp_path / "jax.png")))
-    with pytest.raises(ValueError, match="digit"):
-        images.draw_label(np.zeros((8, 8, 3), np.uint8), 0, 0, "-1")
+    with pytest.raises(ValueError, match="printable ASCII"):
+        images.draw_label(np.zeros((8, 8, 3), np.uint8), 0, 0, "-1\u00e9")
 
 
 # --- the serving CLI -------------------------------------------------------------------

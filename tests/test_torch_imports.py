@@ -12,7 +12,9 @@ UNet28 for two steps through its ``run`` and serves the checkpoint with
 ``generate.main`` in every mode (guidance, DDIM, DPM-Solver++, img2img and
 inpainting from PNGs); a fifth trains the MNIST VAE for two steps, each
 latent backbone for two steps on that VAE, and serves a latent checkpoint
-with ``generate.main``.
+with ``generate.main``; a sixth trains the LAION text-conditional latent
+UNet for two steps and serves it with ``python -m
+tinydiffusion_torch.generate_laion``, ``--dump-dir`` included.
 """
 
 import json
@@ -238,6 +240,35 @@ _CHILD_LATENT = _REFUSE + textwrap.dedent("""
 """)
 
 
+# Two steps of the LAION text-conditional run() at 64² images and a narrow
+# time embedding (caption dropout, EMA, the resident step, the val pass,
+# labelled grids), then ``python -m tinydiffusion_torch.generate_laion`` on
+# its checkpoint (run as ``-m`` runs it), guided, with --dump-dir.
+_CHILD_LAION = _REFUSE + textwrap.dedent("""
+    import runpy
+
+    import torch
+
+    from tinydiffusion_torch.experiments import conditional_diffusion_laion as laion
+
+    torch.set_num_threads(1)  # small ops; the test suite runs beside other workers
+    path = sys.argv[1]
+    result = laion.run(laion.LaionDiffusionConfig(
+        device="cpu", num_epochs=1, max_steps_per_epoch=2, batch_size=2, n_records=12,
+        image_size=64, time_dim=32, log_every=1, num_timesteps=4, caption_dropout=0.1,
+        guidance_scale=2.0, ema_decay=0.9, out_dir=path + "/out",
+        model_save_path=path + "/ckpt"))
+    assert result["state"].step == 2 and result["resident"], result
+    sys.argv = ["generate_laion", "--checkpoint", path + "/ckpt", "--device", "cpu",
+                "--sampler", "ddim", "--sample-steps", "2", "--guidance-scale", "2.0",
+                "--out", path + "/gen.png", "--dump-dir", path + "/dump"]
+    runpy.run_module("tinydiffusion_torch.generate_laion", run_name="__main__")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
 def _run_isolated(child: str, path: str, cwd: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -285,3 +316,12 @@ def test_port_trains_the_latent_family_and_serves_it_without_the_jax_stack(tmp_p
         assert os.path.getsize(tmp_path / "mlp_unet" / f"ckpt{ext}") > 0
     assert os.path.getsize(tmp_path / "dit" / "generated_digit_7.png") > 0
     assert os.path.getsize(tmp_path / "gen.png") > 0
+
+
+def test_port_trains_and_serves_laion_without_the_jax_stack(tmp_path):
+    _run_isolated(_CHILD_LAION, str(tmp_path), str(tmp_path))
+    for ext in (".pt", ".npz", ".json"):
+        assert os.path.getsize(tmp_path / f"ckpt{ext}") > 0
+    assert os.path.getsize(tmp_path / "out" / "final_samples.png") > 0
+    assert os.path.getsize(tmp_path / "gen.png") > 0
+    assert sorted(os.listdir(tmp_path / "dump")) == [f"sample_000_0{i}.png" for i in range(4)]

@@ -21,7 +21,7 @@ import optax
 import pytest
 import torch
 
-from tests.test_torch_diffusion import _idx_data_root, _same_tables
+from tests.test_torch_diffusion import _idx_data_root, _same_tables, _write_idx
 from tinydiffusion_tpu.core import process as jax_process
 from tinydiffusion_tpu.core.schedule import DiffusionSchedule as JaxSchedule
 from tinydiffusion_tpu.experiments import latent_diffusion as jax_latent
@@ -34,9 +34,11 @@ from tinydiffusion_tpu.train.trainer import DiffusionTrainState as JaxTrainState
 from tinydiffusion_tpu.train.trainer import _raw_latent_step_fn
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
-from tinydiffusion_torch.experiments import latent_diffusion
+from tinydiffusion_torch.data.mnist import load_mnist_u8
+from tinydiffusion_torch.experiments import diffusion_transformer, latent_diffusion, vae
 from tinydiffusion_torch.experiments.common import load_latent_checkpoint
 from tinydiffusion_torch.io.checkpoint import (
+    load_sidecar,
     load_weights_arrays,
     restore_checkpoint,
     save_checkpoint,
@@ -486,11 +488,71 @@ def test_dit_cosine_lr_per_epoch_matches_optax():
 
 
 def test_config_takes_the_jax_flags():
+    """JAX's fields and defaults, plus ``device``; the port's paths under
+    ``runs/``: the denoiser's, and the VAE its own stage A writes there."""
     ours = {f.name: f.default for f in dataclasses.fields(latent_diffusion.LatentDiffusionConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(jax_latent.LatentDiffusionConfig)}
-    assert {k for k in theirs if ours[k] != theirs[k]} == {"model_save_path"}
+    assert {k for k in theirs if ours[k] != theirs[k]} == {"model_save_path", "vae_checkpoint"}
     assert not ours["model_save_path"].startswith("checkpoints")
+    assert ours["vae_checkpoint"] == f"{vae.VAEExperimentConfig().checkpoint_dir}/vae_mnist_best"
     assert set(ours) - set(theirs) == {"device"}
+
+
+def _idx_train_and_test(root) -> str:
+    """Small IDX train and test splits (48 and 16 synthetic digits) under ``root / "idx"``."""
+    for train, n, name in ((True, 48, "train"), (False, 16, "t10k")):
+        images, labels = load_mnist_u8(str(root / "synth"), train=train, synthetic_n=n)
+        os.makedirs(root / "idx", exist_ok=True)
+        _write_idx(root / "idx" / f"{name}-images-idx3-ubyte.gz", images[..., 0])
+        _write_idx(root / "idx" / f"{name}-labels-idx1-ubyte.gz", labels)
+    return str(root / "idx")
+
+
+LATENT_CLI_FLAGS = ["--num-epochs", "1", "--max-steps-per-epoch", "2", "--batch-size", "4",
+                    "--log-every", "1", "--num-timesteps", "20", "--n-samples", "4",
+                    "--sample-every-epoch", "false", "--visualize-denoising", "false",
+                    "--device", "cpu"]
+
+
+def test_stage_b_trains_on_the_vae_that_stage_a_wrote(tmp_path, monkeypatch, capsys):
+    """The two CLIs in a row with their default paths, from a fresh working
+    directory: the VAE that ``latent_diffusion`` loads is the one that
+    ``vae`` saved, value for value."""
+    root = _idx_train_and_test(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    vae.main(["--epochs", "1", "--max-steps-per-epoch", "2", "--batch-size", "4",
+              "--log-every", "1", "--data-root", root, "--device", "cpu"])
+    saved = "runs/vae/checkpoints/vae_mnist_best"
+    assert os.path.exists(saved + ".npz")
+    loaded = []
+    load_vae = latent_diffusion.load_vae
+    monkeypatch.setattr(latent_diffusion, "load_vae",
+                        lambda *a, **k: loaded.append(load_vae(*a, **k)) or loaded[-1])
+    latent_diffusion.main(LATENT_CLI_FLAGS + ["--data-root", root])
+    assert f"Loaded VAE from checkpoint: {saved}" in capsys.readouterr().out
+    (model, _), = loaded
+    want = state_dict_by_name(load_weights_arrays(saved))
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, want[name]), name
+
+
+def test_dit_entry_writes_under_its_own_paths(tmp_path, monkeypatch):
+    """``python -m tinydiffusion_torch.experiments.diffusion_transformer``
+    trains the DiT into ``runs/diffusion_transformer/`` and leaves the MLP
+    UNet's checkpoint of a run before it as it was."""
+    root = _idx_train_and_test(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    flags = LATENT_CLI_FLAGS + ["--data-root", root, "--vae-checkpoint", VAE_CHECKPOINT]
+    latent_diffusion.main(flags)
+    mlp = "runs/latent_diffusion/latent_diffusion_best"
+    before = {ext: open(mlp + ext, "rb").read() for ext in (".npz", ".json", ".pt")}
+    diffusion_transformer.main(flags)
+    dit = "runs/diffusion_transformer/diffusion_transformer_best"
+    assert load_sidecar(dit)["config"]["backbone"] == "dit"
+    assert os.path.exists(dit + ".npz") and os.path.exists(dit + ".pt")
+    assert os.path.isdir("runs/diffusion_transformer/dit-latent-diffusion-mnist")
+    for ext, data in before.items():
+        assert open(mlp + ext, "rb").read() == data, ext
 
 
 @pytest.mark.parametrize("backbone", ["mlp_unet", "dit"])

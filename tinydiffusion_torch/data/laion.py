@@ -1,14 +1,31 @@
-"""Deterministic synthetic LAION-style images, numpy only.
+"""The offline LAION-style records: synthetic images and captions, numpy only.
 
-Copy of ``synthesize_caption`` / ``synthesize_image`` from
-``tinydiffusion_tpu/data/laion.py`` (the offline record source), kept here so
-the port needs neither that module's PIL import nor the JAX package. The
-tests hold both to the same bytes.
+Copy of ``synthesize_caption``, ``synthesize_image`` and the offline branch of
+``load_laion_dataset`` from ``tinydiffusion_tpu/data/laion.py``, kept here so
+the port needs neither that module's PIL import nor the JAX package, and the
+valid-subset rule of its ``precache_dataset`` (a record is kept when its
+caption is not empty and its image not all black; the reference's
+conditional_diffusion_laion.py:165-204). The tests hold both to the same
+bytes.
+
+JAX serves a ``synthetic://i`` record through its URL-fetch machinery and a
+JPEG cache (``LAIONImageTextDataset``, laion.py:219-251): a cold cache hands
+back the synthesized bytes (and writes a quality-95 JPEG of them), a warm
+one the lossy JPEG decode. The port has no PIL, no cache and no network,
+and synthesizes each image directly: its images equal JAX's first read
+from a fresh ``image_cache_dir``. JAX's ``run`` reads each record twice
+(``precache_dataset``, then the stacking read), so it trains on the JPEG
+decodes, which differ from the synthesized bytes by 3.2 levels of 255 on
+average (up to 96; 40 records at 256², read with JAX's dataset on the CPU).
+The online loader (HTTP, the md5-named cache, the failed-URL list) and the
+JPEG round trip are not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+SYNTHETIC_SCHEME = "synthetic://"
 
 _CLASSES = ("cat", "dog", "horse", "cow")
 
@@ -54,3 +71,33 @@ def synthesize_image(i: int, size: int) -> tuple[np.ndarray, str]:
     img = img + rng.normal(0.0, 0.015, img.shape).astype(np.float32)
     img = np.clip(img, 0.0, 1.0)
     return (img * 255).astype(np.uint8), synthesize_caption(i)
+
+
+def load_laion_dataset(n_records: int, offline: bool = True) -> list[dict]:
+    """Records with the reference's column names (``URL``, ``TEXT``): with
+    ``offline``, ``synthetic://i`` and its caption for i < ``n_records``.
+    ``offline=False`` (the HF dataset and HTTP fetches) raises: not ported."""
+    if not offline:
+        raise NotImplementedError("the online LAION loader (HTTP and the JPEG cache) is not "
+                                  "ported; use offline=True (synthetic records)")
+    return [{"URL": f"{SYNTHETIC_SCHEME}{i}", "TEXT": synthesize_caption(i)}
+            for i in range(n_records)]
+
+
+def precache_records(records: list[dict], image_size: int) -> tuple[np.ndarray, list[str]]:
+    """The valid records as ``(images, texts)``: (N, S, S, 3) uint8 images
+    and their captions, in record order, keeping a record only when its
+    caption is not empty and its image not all black (JAX's
+    ``precache_dataset`` then ``ds[i]`` for each valid i)."""
+    images, texts = [], []
+    for record in records:
+        url, text = record["URL"], record.get("TEXT", "")
+        if not url.startswith(SYNTHETIC_SCHEME):
+            raise NotImplementedError(f"{url!r}: the port reads synthetic:// records only")
+        image, _ = synthesize_image(int(url[len(SYNTHETIC_SCHEME):]), image_size)
+        if text and image.any():
+            images.append(image)
+            texts.append(text)
+    if not images:
+        return np.zeros((0, image_size, image_size, 3), np.uint8), []
+    return np.stack(images), texts

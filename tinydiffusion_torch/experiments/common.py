@@ -214,10 +214,14 @@ def _denoiser(model, schedule, params, y, conditional, prediction, compute_dtype
 
     With guidance, the conditional and the null-label predictions come from
     one forward at doubled batch (``[y, null]`` stacked; eval-mode BatchNorm
-    makes the rows independent): ``eps_n + s * (eps_c - eps_n)``."""
+    makes the rows independent): ``eps_n + s * (eps_c - eps_n)``. The null
+    condition is a class index, or a tensor row broadcast over ``y``'s rows
+    (a text model's empty-string embedding)."""
     guided = conditional and guidance_scale != 1.0
     if guided:
-        y = torch.cat([y, torch.full_like(y, null_label)])
+        null = (null_label.to(y.dtype).expand_as(y) if isinstance(null_label, torch.Tensor)
+                else torch.full_like(y, null_label))
+        y = torch.cat([y, null])
     args = (y,) if conditional else ()
 
     def forward(x, t_vec):
@@ -253,8 +257,9 @@ def _check_labels(conditional: bool, y, n: int) -> None:
     if conditional:
         if y is None:
             raise ValueError("Conditional model requires labels y for sampling")
-        if tuple(y.shape) != (n,):
-            raise ValueError(f"y must have shape ({n},) to match n_samples, got {tuple(y.shape)}")
+        if y.shape[:1] != (n,) or (y.dim() != 1 and not y.is_floating_point()):
+            raise ValueError(f"y must have shape ({n},) (labels) or ({n}, D) (a context) to "
+                             f"match n_samples, got {tuple(y.shape)}")
 
 
 def make_sampler(
@@ -267,7 +272,7 @@ def make_sampler(
     sample_steps: int = 50,
     eta: float = 0.0,
     guidance_scale: float = 1.0,
-    null_label: int | None = None,
+    null_label: int | torch.Tensor | None = None,
     prediction: str = "eps",
     t_start: int | None = None,
     mask: torch.Tensor | None = None,
@@ -287,7 +292,8 @@ def make_sampler(
       chain).
     - ``guidance_scale`` != 1 on a conditional model trained with label
       dropout samples with classifier-free guidance against ``null_label``,
-      the reserved embedding row.
+      the reserved embedding row (or, for a model conditioned on a context
+      ``y`` of (n, D) rows, a (D,) tensor: the null context).
     - ``prediction="v"`` converts the output to eps (``core.process.eps_from_v``).
     - ``t_start`` (DDIM only) runs the img2img partial chain: pass the noised
       image as ``x_init``. ``mask``/``x_known`` inpaint (DDPM or DDIM).

@@ -102,8 +102,11 @@ class LatentDiffusionConfig:
 
     - ``model_save_path`` defaults under ``runs/``, not to the JAX default
       ``checkpoints/latent_diffusion_best``: the port's ``.npz`` would
-      overwrite the committed JAX weights there. ``vae_checkpoint`` keeps
-      JAX's default, the committed VAE, which the run only reads.
+      overwrite the committed JAX weights there. ``vae_checkpoint`` defaults
+      to what the port's stage A (``experiments/vae.py``) writes,
+      ``runs/vae/checkpoints/vae_mnist_best``, as JAX's stage B reads what
+      its stage A writes; the committed VAE is
+      ``checkpoints/vae_mnist_best``, passed by name.
     - ``compute_dtype`` is the denoiser's (train, val and sampling forwards,
       bfloat16 under ``torch.autocast``); the frozen VAE runs in float32
       and the sampling chain in ``sample_dtype``. On a card ``run`` turns
@@ -125,7 +128,7 @@ class LatentDiffusionConfig:
     split_seed: int = 42
     data_root: str = "./data"
     out_dir: str = "runs/latent_diffusion"
-    vae_checkpoint: str = "checkpoints/vae_mnist_best"
+    vae_checkpoint: str = "runs/vae/checkpoints/vae_mnist_best"
     model_save_path: str = "runs/latent_diffusion/latent_diffusion_best"
     compute_dtype: str = "bfloat16"
     sample_dtype: str = "float32"

@@ -75,6 +75,7 @@ from tinydiffusion_torch.models.vae_conv import (
 )
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import LossAccumulator, MetricsLogger
+from tinydiffusion_torch.train.trainer import clip_by_global_norm_
 
 
 @dataclasses.dataclass
@@ -192,21 +193,6 @@ def make_optimizer(model: ConvVAE, learning_rate: float) -> torch.optim.Adam:
     """optax ``adam(lr)``'s defaults: betas 0.9 / 0.999, eps 1e-8. The clip
     that precedes it in the chain is in the step (``clip_by_global_norm_``)."""
     return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
-
-
-@torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
-    """optax ``clip_by_global_norm(max_norm)`` on the gradients, in place:
-    ``g / norm * max_norm`` when the global norm reaches ``max_norm``, else
-    ``g`` unchanged. (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the
-    norm and scales also below the bound.) No host sync. Returns the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    keep = norm < max_norm
-    one = torch.ones((), device=norm.device)
-    torch._foreach_div_(grads, torch.where(keep, one, norm))
-    torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(one, max_norm)))
-    return norm
 
 
 def make_conv_vae_train_step(perceptual: PerceptualNet, beta: float, clip_norm: float = 10.0):

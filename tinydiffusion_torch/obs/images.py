@@ -4,15 +4,16 @@ Counterpart of ``tinydiffusion_tpu/obs/images.py`` (``make_grid``,
 ``save_image_grid`` with its per-tile labels) and of the serving CLI's
 ``load_image28`` (``generate.py``). The port's machines may have no PIL, so
 this module encodes and decodes PNG itself with ``zlib`` and ``struct``,
-draws labels from a bitmap digit font kept here, and converts and resizes
-images with Pillow's own integer arithmetic:
+draws labels from a bitmap font kept as data (``obs/font.py``), and
+converts and resizes images with Pillow's own integer arithmetic:
 
-- labels: the JAX grid draws ``str(label)`` at ``(left + 1, top + 1)`` of
-  each tile in ``(255, 64, 64)`` with PIL's default font (FreeType's
-  Aileron at size 10 in Pillow >= 10.1). ``_DIGITS`` holds that font's
-  anti-aliased coverage of each digit, 6 pixels wide, and ``draw_label``
-  blends it as Pillow's ``draw_bitmap`` does, so a tile's pixels equal the
-  JAX grid's byte for byte;
+- labels: the JAX grid draws each tile's label at ``(left + 1, top + 1)``
+  in ``(255, 64, 64)`` with PIL's default font (FreeType's Aileron at size
+  10 in Pillow >= 10.1). ``obs/font.py`` holds that font's anti-aliased
+  coverage of each printable ASCII character, and ``draw_label`` composes a
+  string and blends it as Pillow does, so a labelled grid's pixels equal the
+  JAX grid's byte for byte (digits and the LAION prompts alike). A
+  character outside printable ASCII raises: the table does not hold it;
 - ``to_grey``: Pillow's ``convert("L")``, ``(R 19595 + G 38470 + B 7471 +
   2^15) >> 16`` (its fixed-point ITU-R 601-2 luma), alpha dropped;
 - ``resize_u8``: Pillow's default ``resize`` filter (bicubic, a = -0.5, its
@@ -22,55 +23,78 @@ images with Pillow's own integer arithmetic:
 
 from __future__ import annotations
 
+import functools
 import os
 import struct
 import zlib
 
 import numpy as np
 
-# PIL's default font's coverage (0-255) of each digit: 8 rows of 6 columns,
-# the top row 2 pixels below the text origin; the advance is 6 pixels.
-_DIGITS = [
-    "0fb0c4b00f00 8a7200738800 d41a001bd300 eb020002ea00 eb020002ea00 d41a001bd300 8a7200738900 0fb0c4b00f00",  # noqa: E501
-    "0010a0f10000 00c36df00000 001800f00000 000000f00000 000000f00000 000000f00000 000000f00000 000000f00000",  # noqa: E501
-    "0062c3d04600 15c10228d700 2855000bea00 0000005f9d00 000023d41500 000ccc370000 01ad59000000 61f4c0c0b400",  # noqa: E501
-    "0aa9c0cd4b00 76740019e000 11060044db00 0000a3f54300 0000004fa200 93040003ed00 a254003dc600 1ebfc1bb2800",  # noqa: E501
-    "0000004af700 00000dc6f200 00009556f000 003caf00f000 07c81a00f000 5ad5c0c0fca2 00000000f000 00000000f000",  # noqa: E501
-    "45dec0c08400 5d6800000000 764f00000000 8f9ac4b22300 8e6b0052be00 20030003eb00 a84f003abe00 25c4c0b82300",  # noqa: E501
-    "0292c7c22200 6a850051ae00 c52400067600 eb72c0af2000 f1530053bd00 da030003eb00 98410041bc00 16b3bfbb2300",  # noqa: E501
-    "a8c0c0c6ec00 000000648200 000001cf1600 00004e9a0000 0000c1270000 0037b1000000 00ad3e000000 24c700000000",  # noqa: E501
-    "43c6bfc33900 e0210023d600 cd340036e100 35f8d3f84c00 c15300559e00 ee020003ec00 c73d003ccc00 2fc1c1c03000",  # noqa: E501
-    "21b9c0b41700 bb4300439700 eb030003d900 bd510054f000 21afbf73ea00 7a060025c400 ae5000856b00 24c4c7930200",  # noqa: E501
-]
-_GLYPH_TOP, _ADVANCE = 2, 6
+from tinydiffusion_torch.obs.font import GLYPHS
+
 _LABEL_FILL = np.array([255, 64, 64], np.int64)
 
 
-def _glyph(digit: str) -> np.ndarray:
-    rows = _DIGITS[int(digit)].split()
-    return np.array([[int(r[i : i + 2], 16) for i in range(0, len(r), 2)] for r in rows],
-                    np.int64)
+def _div255(v: np.ndarray) -> np.ndarray:
+    """``v / 255`` rounded as Pillow's ``DIV255`` macro."""
+    v = v + 128
+    return ((v >> 8) + v) >> 8
+
+
+@functools.lru_cache(maxsize=None)
+def _glyph(ch: str) -> tuple[int, int, int, np.ndarray]:
+    """(left, top, advance, coverage (h, w) int64) of a printable ASCII character."""
+    if ch not in GLYPHS:
+        raise ValueError(f"cannot draw {ch!r}: the label font holds printable ASCII "
+                         "(32-126) only")
+    left, top, advance, hex_rows = GLYPHS[ch]
+    rows = hex_rows.split()
+    width = len(rows[0]) // 2 if rows else 0
+    cov = np.array([[int(r[i : i + 2], 16) for i in range(0, len(r), 2)] for r in rows],
+                   np.int64).reshape(len(rows), width)
+    return left, top, advance, cov
+
+
+def _text_mask(text: str) -> tuple[np.ndarray, int, int]:
+    """The coverage of ``text`` in the label font: ``(mask, dx, dy)``, the
+    (h, w) int64 mask's top left at ``(dx, dy)`` from the text origin. The
+    pen advances by whole pixels; where two glyphs overlap, coverage
+    combines as ``a + b - a b / 255``, as FreeType's glyphs do in Pillow's
+    ``font_render``."""
+    glyphs, pen = [], 0
+    for ch in text:
+        left, top, advance, cov = _glyph(ch)
+        if cov.size:
+            glyphs.append((pen + left, top, cov))
+        pen += advance
+    if not glyphs:
+        return np.zeros((0, 0), np.int64), 0, 0
+    x0 = min(x for x, _, _ in glyphs)
+    y0 = min(y for _, y, _ in glyphs)
+    x1 = max(x + c.shape[1] for x, _, c in glyphs)
+    y1 = max(y + c.shape[0] for _, y, c in glyphs)
+    mask = np.zeros((y1 - y0, x1 - x0), np.int64)
+    for x, y, cov in glyphs:
+        sub = mask[y - y0 : y - y0 + cov.shape[0], x - x0 : x - x0 + cov.shape[1]]
+        sub[...] = sub + cov - _div255(sub * cov)
+    return mask, x0, y0
 
 
 def draw_label(pixels: np.ndarray, x: int, y: int, text: str) -> None:
-    """Draw the digits ``text`` in (255, 64, 64) into RGB uint8 ``pixels``
-    (H, W, 3) in place, at text origin (x, y), clipped to the image: each
-    pixel becomes ``(bg (255 - m) + fill m) / 255`` rounded as Pillow's
-    ``DIV255``, for the glyph's coverage m."""
-    if not text.isdigit():
-        raise ValueError(f"labels are drawn from a digit font; cannot draw {text!r}")
+    """Draw ``text`` (printable ASCII) in (255, 64, 64) into RGB uint8
+    ``pixels`` (H, W, 3) in place, at text origin (x, y), clipped to the
+    image: each pixel becomes ``(bg (255 - m) + fill m) / 255`` rounded as
+    Pillow's ``DIV255``, for the text's coverage m (``_text_mask``)."""
+    m, dx, dy = _text_mask(text)
     h, w = pixels.shape[:2]
-    for i, ch in enumerate(text):
-        m = _glyph(ch)
-        top, left = y + _GLYPH_TOP, x + i * _ADVANCE
-        r0, c0 = max(top, 0), max(left, 0)
-        r1, c1 = min(top + m.shape[0], h), min(left + m.shape[1], w)
-        if r0 >= r1 or c0 >= c1:
-            continue
-        m = m[r0 - top : r1 - top, c0 - left : c1 - left, None]
-        bg = pixels[r0:r1, c0:c1].astype(np.int64)
-        v = bg * (255 - m) + _LABEL_FILL * m + 128
-        pixels[r0:r1, c0:c1] = (((v >> 8) + v) >> 8).astype(np.uint8)
+    top, left = y + dy, x + dx
+    r0, c0 = max(top, 0), max(left, 0)
+    r1, c1 = min(top + m.shape[0], h), min(left + m.shape[1], w)
+    if r0 >= r1 or c0 >= c1:
+        return
+    m = m[r0 - top : r1 - top, c0 - left : c1 - left, None]
+    bg = pixels[r0:r1, c0:c1].astype(np.int64)
+    pixels[r0:r1, c0:c1] = _div255(bg * (255 - m) + _LABEL_FILL * m).astype(np.uint8)
 
 
 def make_grid(
@@ -281,8 +305,9 @@ def save_image_grid(
     labels=None,
 ) -> None:
     """Write NHWC images as one PNG sample sheet. ``labels`` (optional, one
-    non-negative integer a tile) are drawn at the top left of each tile in
-    red, on an RGB sheet, as the JAX package's grid draws them."""
+    a tile: an integer or a string of printable ASCII) are drawn at the top
+    left of each tile in red, on an RGB sheet, as the JAX package's grid
+    draws them."""
     grid = make_grid(images, nrow=nrow, normalize=normalize)
     pixels = (np.clip(grid, 0.0, 1.0) * 255).astype(np.uint8)
     if labels is not None:
@@ -293,5 +318,5 @@ def save_image_grid(
         for i, label in enumerate(labels):
             r, col = divmod(i, nrow)
             draw_label(pixels, padding + col * (w + padding) + 1,
-                       padding + r * (h + padding) + 1, str(int(label)))
+                       padding + r * (h + padding) + 1, str(label))
     write_png(path, pixels)

@@ -7,7 +7,10 @@ Counterpart of ``tinydiffusion_tpu/train/trainer.py`` (``DiffusionTrainState``,
 function here), ``make_resident_eval``, and the latent family's
 ``_raw_latent_step_fn``, ``make_latent_train_step``,
 ``make_resident_latent_multi_step``, ``raw_latent_eval_fn`` and
-``make_latent_eval_step``). Per batch: ``t ~ randint(0, T)``,
+``make_latent_eval_step``), and of the LAION text-conditional family's
+step and eval step (``_laion_raw_step``, ``make_laion_resident_step`` and
+``make_laion_eval_step`` of
+``tinydiffusion_tpu/experiments/conditional_diffusion_laion.py``). Per batch: ``t ~ randint(0, T)``,
 q_sample, for a class-conditional model with ``label_dropout`` each label
 replaced by the null class at that rate (classifier-free-guidance
 training), the model forward, the MSE on eps (or v), the optimizer step,
@@ -133,6 +136,37 @@ def _ema_update(state: DiffusionTrainState, ema_decay: float) -> None:
     torch._foreach_add_(ema, [params[n].detach() for n in names], alpha=1.0 - ema_decay)
 
 
+@torch.no_grad()
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm(max_norm)`` on the gradients, in place:
+    ``g / norm * max_norm`` when the global norm reaches ``max_norm``, else
+    ``g`` unchanged. (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the
+    norm and scales also below the bound.) No host sync. Returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(one, max_norm)))
+    return norm
+
+
+def _scheduled_lr_(optimizer: torch.optim.Optimizer, schedule: Callable) -> None:
+    """Write ``schedule(count)`` into each group's learning-rate tensor, in
+    place, ``count`` being the group's update count before this update (the
+    optimizer's own step tensor; 0 before its first step): optax's schedule
+    read at the count before the increment. Device work only, so a captured
+    step recomputes the rate at every replay."""
+    for group in optimizer.param_groups:
+        if not isinstance(group["lr"], torch.Tensor):
+            raise TypeError("a scheduled learning rate needs the optimizer built with a "
+                            "tensor lr, which the step writes in place")
+        count = optimizer.state.get(group["params"][0], {}).get("step")
+        if count is None:
+            count = torch.zeros((), device=group["lr"].device)
+        group["lr"].copy_(schedule(count.to(torch.float32)))
+
+
 def _step_body(
     schedule: DiffusionSchedule,
     ema_decay: float | None,
@@ -252,7 +286,7 @@ def make_resident_steps(dataset: DeviceDataset, batch_step: Callable) -> Callabl
     losses``, where ``idxs`` (K, B) are index batches from
     ``dataset.epoch_index_batches`` and ``losses`` (K,) float32 stay on the
     device. Step i gathers its batch from ``dataset`` (NHWC images, and
-    labels when it holds them) and runs ``batch_step(state, batch,
+    the label and embedding rows it holds) and runs ``batch_step(state, batch,
     **seams_i) -> loss``, which must update ``state`` without reading a
     device value and leave ``state.step`` alone.
 
@@ -260,8 +294,9 @@ def make_resident_steps(dataset: DeviceDataset, batch_step: Callable) -> Callabl
     replayed K times: the host does nothing between steps but launch the
     graph. Everything that changes from one step to the next is read from
     device memory: the position in the chunk, its index row, the draws (the
-    state's generator, registered with the graph) and the loss slot it
-    writes. The first ``GRAPH_WARMUP_STEPS`` steps of a state run eagerly on
+    state's generator, registered with the graph), a scheduled learning rate
+    (computed on the device from the optimizer's step count) and the loss
+    slot it writes. The first ``GRAPH_WARMUP_STEPS`` steps of a state run eagerly on
     a side stream before the capture; a restore of the state (``restores``),
     another state or a larger chunk captures again. A failed capture raises:
     there is no fallback to eager steps. The graph keeps the math mode of its
@@ -448,7 +483,8 @@ def make_resident_eval(
     -> (G,) losses`` on the device, one host read for the whole pass.
 
     Batch i of ``idxs`` (from ``dataset.epoch_index_batches``) is gathered
-    on the device and scored by ``eval_step(model, x0, key, y)`` with the host
+    on the device and scored by ``eval_step(model, x0, key, *rows)`` (``rows``:
+    the labels and/or text embeddings the dataset holds) with the host
     loop's key ``(base_seed, epoch * fold_stride + i)``: the same batches,
     t and noise as the host-streamed pass, so the same losses to the bit."""
 
@@ -457,9 +493,9 @@ def make_resident_eval(
         losses = torch.empty(len(idxs), dtype=torch.float32, device=dataset.device)
         for i in range(len(idxs)):
             batch = dataset.gather(idxs[i])
-            x0, y = batch if dataset.labels is not None else (batch, None)
+            x0, *rows = batch if isinstance(batch, tuple) else (batch,)
             key = (base_seed, epoch * fold_stride + i)
-            losses[i] = eval_step(model, x0.permute(0, 3, 1, 2), key, y)
+            losses[i] = eval_step(model, x0.permute(0, 3, 1, 2), key, *rows)
         return losses
 
     return call
@@ -601,5 +637,149 @@ def make_latent_eval_step(
             rng.integers(0, 2**63))
         z0 = vae.reparameterize(mu, logvar, z_eps)
         return _eval_loss(model, schedule, z0, t_host, seed, (y,), prediction, compute_dtype)
+
+    return eval_step
+
+
+# --- the LAION text-conditional family: a frozen patch codec in front of the
+# latent UNet ----------------------------------------------------------------------
+
+
+def _laion_step_body(codec, schedule: DiffusionSchedule, lr_schedule: Callable,
+                     clip_norm: float, ema_decay: float | None, compute_dtype: torch.dtype,
+                     caption_dropout: float, null_embed: torch.Tensor | None) -> Callable:
+    """``body(state, images, embeds, t=None, noise=None, keep=None) ->
+    loss``: one LAION step's device work (JAX's ``_laion_raw_step``), without
+    the host's ``state.step`` count, so that a CUDA graph can capture it."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {compute_dtype} is not float32 or bfloat16")
+    if caption_dropout > 0 and null_embed is None:
+        raise ValueError("caption_dropout requires a null_embed")
+
+    def body(state: DiffusionTrainState, images: torch.Tensor, embeds: torch.Tensor, t=None,
+             noise=None, keep=None):
+        model, gen = state.model, state.generator
+        model.train()
+        with torch.no_grad():
+            x0 = codec.encode(images)
+        # The draws from the state's generator: t, the q_sample seed, then the
+        # caption dropout.
+        if t is None:
+            t = torch.randint(0, schedule.num_timesteps, (x0.shape[0],), generator=gen,
+                              device=x0.device)
+        if noise is not None:
+            x_t = q_sample_with_noise(schedule, x0, t, noise)
+        else:
+            seed = torch.randint(0, 2**31 - 1, (), generator=gen, device=x0.device)
+            x_t, noise = q_sample_fused(schedule, x0, t, seed)
+        if caption_dropout > 0:
+            # JAX's bernoulli(1 - p): a row is kept where its uniform falls
+            # below 1 - p, and becomes the empty-string embedding elsewhere.
+            if keep is None:
+                keep = torch.rand(embeds.shape[0], generator=gen,
+                                  device=embeds.device) < 1.0 - caption_dropout
+            embeds = torch.where(keep[:, None], embeds, null_embed.to(embeds.dtype))
+        with torch.autocast(x0.device.type, dtype=compute_dtype,
+                            enabled=compute_dtype != torch.float32, cache_enabled=False):
+            out = model(x_t, t, embeds)
+        loss = F.mse_loss(out.float(), noise)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        clip_by_global_norm_(model.parameters(), clip_norm)
+        _scheduled_lr_(state.optimizer, lr_schedule)
+        state.optimizer.step()
+        if ema_decay is not None:
+            _ema_update(state, ema_decay)
+        return loss.detach()
+
+    return body
+
+
+def make_laion_train_step(
+    codec,
+    schedule: DiffusionSchedule,
+    lr_schedule: Callable,
+    clip_norm: float = 10.0,
+    ema_decay: float | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+    caption_dropout: float = 0.0,
+    null_embed: torch.Tensor | None = None,
+) -> Callable:
+    """The LAION train step ``step(state, images, embeds, t=None, noise=None,
+    keep=None) -> loss`` (JAX's ``make_laion_train_step``; the reference's
+    conditional_diffusion_laion.py:441-473).
+
+    ``images`` (B, 3, S, S) float32 in [-1, 1] and their text embeddings
+    ``embeds`` (B, D) on the model's device. The frozen ``codec``
+    (``compat.latent_codec.LinearPatchCodec``, on that device) encodes them
+    to (B, 4, 32, 32) latents, which the fused q_sample noises (the CUDA
+    kernel on a card, its plain version on the CPU); the latent UNet
+    (``state.model``) is trained on eps under ``compute_dtype``; the
+    gradients are clipped to ``clip_norm`` by optax's rule, the learning
+    rate set to ``lr_schedule(count)`` (on the device, from the optimizer's
+    update count: the optimizer needs a tensor lr) and the optimizer steps.
+    ``caption_dropout`` > 0 replaces each embedding row by ``null_embed``
+    (D,), the empty-string embedding, where ``keep`` is False. The draws come
+    from ``state.generator``: t, the q_sample seed, ``keep``; ``t`` (B,),
+    ``noise`` (B, 4, 32, 32) and ``keep`` (B,) bool, when given, replace them:
+    the seam the tests use to give the port JAX's draws.
+    """
+    body = _laion_step_body(codec, schedule, lr_schedule, clip_norm, ema_decay, compute_dtype,
+                            caption_dropout, null_embed)
+
+    def step(state: DiffusionTrainState, images, embeds, t=None, noise=None, keep=None):
+        loss = body(state, images, embeds, t, noise, keep)
+        state.step += 1
+        return loss
+
+    return step
+
+
+def make_resident_laion_multi_step(
+    codec,
+    schedule: DiffusionSchedule,
+    dataset: DeviceDataset,
+    lr_schedule: Callable,
+    clip_norm: float = 10.0,
+    ema_decay: float | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+    caption_dropout: float = 0.0,
+    null_embed: torch.Tensor | None = None,
+) -> Callable:
+    """LAION training over a resident set of images and text embeddings:
+    ``step(state, idxs, t=None, noise=None, keep=None) -> losses``
+    (``make_resident_steps`` over ``make_laion_train_step``'s per-batch
+    logic; JAX's ``make_laion_resident_step``). On a card each step, the
+    gather, the codec's encode, the q_sample launch, the clip and the rate
+    included, is a replay of one CUDA graph; on the CPU the seams are K-long
+    sequences of the step's own."""
+    if dataset.embeds is None or dataset.labels is not None:
+        raise ValueError("a LAION resident step needs a DeviceDataset of images and embeds")
+    body = _laion_step_body(codec, schedule, lr_schedule, clip_norm, ema_decay, compute_dtype,
+                            caption_dropout, null_embed)
+
+    def batch_step(state, batch, t=None, noise=None, keep=None):
+        images, embeds = batch
+        return body(state, images.permute(0, 3, 1, 2), embeds, t, noise, keep)
+
+    return make_resident_steps(dataset, batch_step)
+
+
+def make_laion_eval_step(codec, schedule: DiffusionSchedule,
+                         compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """The LAION validation step ``eval_step(model, images, key, embeds) ->
+    loss`` (JAX's ``make_laion_eval_step``; the reference's
+    conditional_diffusion_laion.py:499-530): ``make_eval_step`` on the
+    codec's latents, the text embeddings as the model's context. ``key``
+    (base seed, fold) fixes t and the q_sample seed."""
+
+    @torch.no_grad()
+    def eval_step(model: nn.Module, images: torch.Tensor, key: tuple[int, int],
+                  embeds: torch.Tensor) -> torch.Tensor:
+        rng = _eval_rng(key)
+        t_host, seed = rng.integers(0, schedule.num_timesteps, images.shape[0]), int(
+            rng.integers(0, 2**63))
+        return _eval_loss(model, schedule, codec.encode(images), t_host, seed, (embeds,),
+                          "eps", compute_dtype)
 
     return eval_step
