@@ -29,6 +29,10 @@ latent UNet (``experiments/conditional_diffusion_laion.run`` and
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
    it); the bound (products at the TF32 tensor-core peak or bytes at the
    memory rate), the CUDA cores' fp32 bound and the exp unit's time beside it;
+   kernel_bf16: the same for the bfloat16 kernel on the operands rounded to
+   bf16, compared in float32 (within one bf16 ulp; the share of outputs
+   beyond one ulp, lse's error), SDPA in bf16 beside it (each site names
+   the backend torch picked), the bound at the bf16 tensor-core peak;
 4. slice: reconstruct 4 synthetic images and decode 16 prior samples on the
    card, with the kernel launches counted over exactly that work; check
    shapes, finiteness, the [0, 1] range and the card against the port's own
@@ -130,25 +134,40 @@ latent UNet (``experiments/conditional_diffusion_laion.run`` and
     at each flash site (B = 4) and at two ragged N, dq, dk and dv; two calls
     bit-equal; the times of kernel, plain version and the backward of
     ``scaled_dot_product_attention`` (a yardstick only), with the bounds of
-    the ``kernel`` phase;
+    the ``kernel`` phase; flash_bwd_kernel_bf16: the bfloat16 kernel the same
+    way (dq within two bf16 ulps of its largest value, dk and dv one);
 15. flash_autograd: gradients through ``flash_attention_unscaled_t`` (the
     autograd Function over both kernels) on the card against the CPU;
 16. vae_train: the conv-VAE's ``run()`` at full width (256x256, batch 4,
-    float32, clip 10, Adam 1e-4), 2 epochs of 20 steps and 2 val batches,
-    outputs in temporary directories; launches counted over the run
-    (flash backward = 3 a step); the loss and its components finite; warm
-    step time, images/s and peak memory;
+    float32, clip 10, Adam 1e-4) on the default placement (both splits
+    resident, each train step a replay of one captured graph), 2 epochs of
+    20 steps and 2 val batches, outputs in temporary directories; launches
+    counted over the run (flash backward = 3 a step run, eager or
+    replayed); the graph's counts; the loss and its components finite; warm
+    step time, images/s and peak memory; vae_train_host: the same,
+    host-streamed; vae_train_bf16: resident in bfloat16, only the bf16
+    kernels launched; vae_resident_parity: 10 resident steps (2 eager, 8
+    replays) against the same 10 eager, beside a second eager run, from
+    ``vae_laion_best``, float32 and bfloat16, cuDNN deterministic: losses,
+    the update's cosine, params and BN / spectral-norm statistics gaps, the
+    generator's state; vae_resident_full: JAX's full set (10 000 images of
+    256², 1.97 GB, random bytes) pinned on the card, a chunk of 10 steps
+    that captures, then 10 replays timed; peak memory;
 17. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
     B = 2) on the card against the CPU, cuDNN deterministic: loss
     components, gradients, params, BN statistics, spectral-norm u and sigma;
-18. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+18. the ``kernels`` line (the float32 flash kernels, q_sample, and the
+    bfloat16 flash kernels with launches from ``vae_train_bf16``), then
+    ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds phases before the last two lines: ``torch.profiler`` over
 one warm reconstruct and one prior decode, over 5 warm UNet28 train steps
 (eager, ``train_steps``, and replayed from a graph over a resident set,
 ``train_steps_graph``), over 20 sampler steps, over the chain of one
 DPM++-15 serving request (``serve_dpmpp15``), over 3 warm conv-VAE train
-steps, over 5 latent MLP UNet train steps replayed from a graph
+steps (eager, ``vae_train_steps``, and replayed from a graph over a resident
+set, ``vae_train_steps_graph``), over 5 latent MLP UNet train steps replayed
+from a graph
 (``latent_train_steps_graph``) and over one DPM++-15 latent request on the
 DiT (``latent_serve_dpmpp15``), each with device time by kernel, the
 device's busy share of the window and the host's launch calls.
@@ -224,6 +243,9 @@ SEED = 0
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# A bfloat16 kernel's products are bf16 values, so its bound takes them at the
+# bf16 tensor-core peak, whatever passes the kernel spends on them.
+PEAK_BF16_FLOPS = 989e12
 # The exp unit (MUFU): 16 ex2 a clock on each of the 132 SMs at the 1.98 GHz
 # boost clock. One exp per (query, key) pair: context only (sfu_ms), since a
 # kernel may compute some exps on the FMA pipes.
@@ -237,6 +259,18 @@ KERNEL_ATOL, KERNEL_RTOL = 2e-4, 5e-4
 # order over up to N = 16384 terms and exp2 vs exp. The bound is the JAX
 # package's flash-gradient tolerance (tests/test_flash_attention.py).
 BWD_ATOL, BWD_RTOL = 5e-4, 1e-3
+# The bfloat16 kernels against their plain versions on the same bf16 inputs,
+# compared in float32. Both compute in float32 (a product of two bf16 values
+# is exact there) and round where JAX rounds; their float32 results differ by
+# the float32 kernels' noise above, which carries a rounding across a bf16
+# boundary now and then. out, dk and dv are rounded once: within one bf16 ulp
+# (at most 2^-7 relative) beyond the float32 atol. dq is rounded once per
+# 1024 keys into a bf16 running sum whose terms cancel (sum_j ds_ij = 0), so
+# a flip is an ulp of a run's sum, not of dq: within two ulps of the largest
+# |dq| of the tensor. lse is float32, held as the float32 kernel's. Each site
+# also reports the share of outputs more than one ulp (of the plain value) off.
+BF16_RTOL = 2.0**-7
+BF16_DQ_ULPS_OF_MAX = 2
 # Card vs CPU reconstruction, both float32 with TF32 off: only summation
 # order differs, through ~30 layers; outputs are sigmoids in [0, 1].
 CARD_VS_CPU_ATOL = 1e-3
@@ -315,7 +349,35 @@ BF16_LOSS_RTOL, BF16_MIN_UPDATE_COS = 0.02, 0.9
 # Conv-VAE training at the published recipe (256x256, batch 4, float32,
 # clip 10, Adam 1e-4, seeded perceptual net): 88 records leave 80 for
 # training (20 steps an epoch) and 8 for validation (2 batches), 2 epochs.
+# The default placement keeps both splits on the card, each train step a
+# replay of one captured graph: 2 eager warm-up steps, 1 capture, 38
+# replays over the run; the val pass runs eagerly.
 VAE_RECORDS, VAE_EPOCHS = 88, 2
+# vae_resident_parity: 10 resident steps (2 eager warm-ups, then 8 replays)
+# against the same 10 steps eager from the same state (vae_laion_best, B = 4,
+# Adam 1e-4, clip 10), beside a second eager run, in float32 and bfloat16,
+# as resident_parity does. The bounds, set before the first card run:
+# resident_parity's for the losses, the cosine of the updates and the BN and
+# spectral-norm statistics; params absolute at a fifth (float32) and all
+# (bfloat16) of what 10 Adam steps at 1e-4 can move one (1e-3), since Adam
+# moves each param by about lr a step whatever its gradient's size. The
+# float32 runs differ by cuDNN's atomics only (the LAION UNet's steps at 256²
+# read 3.8e-7 / 3.1e-5 eager vs eager); bf16 rounds that noise up.
+# They were more here: with cuDNN free to pick, two eager float32 runs of the
+# conv-VAE read 3.7e-4 in the losses and 5.6e-4 in the params (H100 80GB HBM3,
+# 700 W), above these bounds, while the bf16 runs were bit-equal. The phase
+# therefore runs cuDNN deterministic, as vae_train_parity does, so that the
+# pair measures what the graph adds and not cuDNN's noise; the bounds stayed.
+VAE_PARITY_STEPS = 10
+VAE_PARITY_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+VAE_PARITY_MIN_UPDATE_COS = {"float32": 0.999, "bfloat16": 0.99}
+VAE_PARITY_MAX_PARAM_ABS = {"float32": 2e-4, "bfloat16": 1e-3}
+VAE_PARITY_MAX_STATS_REL = {"float32": 0.04, "bfloat16": 1.0}
+# vae_resident_full: JAX's full train set, 10 000 images of 256² x 3 uint8
+# (1.97 GB; random bytes from numpy, since synthesizing them takes about a
+# minute), pinned on the card; a chunk of 10 steps that captures, then one
+# of 10 replays, timed.
+VAE_FULL_IMAGES, VAE_FULL_CHUNK = 10_000, 10
 # One clip(10) + SGD step from vae_laion_best, the card against the port on
 # the CPU, float32 with TF32 off and cuDNN deterministic: only the order of
 # sums differs. Loss components relative; each gradient tensor by its
@@ -455,29 +517,67 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _flash_bounds(b: int, n: int, flops: float, nbytes: float) -> dict:
+def _flash_bounds(b: int, n: int, flops: float, nbytes: float,
+                  peak: float = PEAK_TF32_FLOPS) -> dict:
     """The least time of a flash kernel on an H100: the larger of its products'
-    FLOPs at the TF32 tensor-core peak and its bytes at the memory rate; beside
-    it the CUDA-core fp32 bound and the exp unit's time for one exp a pair."""
-    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    FLOPs at the tensor-core ``peak`` of its operands (TF32 for float32, bf16
+    for bfloat16) and its bytes at the memory rate; beside it the CUDA-core
+    fp32 bound and the exp unit's time for one exp a pair."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "fp32_core_bound_ms": 1e3 * max(flops / PEAK_FP32_FLOPS, t_bytes),
             "sfu_ms": 1e3 * b * n * n / SFU_EXP_PER_S}
 
 
-def flash_bound_ms(b: int, n: int, d: int, c: int) -> dict:
+# Bytes of an operand element and the tensor-core peak of each kernel dtype.
+_DTYPE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+_DTYPE_PEAK = {torch.float32: PEAK_TF32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+
+
+def flash_bound_ms(b: int, n: int, d: int, c: int, dtype=torch.float32) -> dict:
     """Bounds of the forward: 2*B*N^2*(D + C) FLOPs (the logit and value
-    products); read qt, kt, vt once, write out and lse once (float32)."""
-    return _flash_bounds(b, n, 2.0 * b * n * n * (d + c), 4.0 * b * n * (2 * d + c + c + 1))
+    products); read qt, kt, vt once, write out once (in ``dtype``) and lse
+    once (float32)."""
+    e = _DTYPE_BYTES[dtype]
+    return _flash_bounds(b, n, 2.0 * b * n * n * (d + c),
+                         e * b * n * (2 * d + c + c) + 4.0 * b * n, _DTYPE_PEAK[dtype])
 
 
-def flash_bwd_bound_ms(b: int, n: int, d: int, c: int) -> dict:
+def flash_bwd_bound_ms(b: int, n: int, d: int, c: int, dtype=torch.float32) -> dict:
     """Bounds of the backward. Per (query, key) pair: the logit (D), dv (C),
     dp (C), dk (D) and dq (D) products; the exp and ds are small beside them.
-    Read qt, kt, vt, dOt, lse, delta once; write dqt, dkt, dvt once (float32)."""
+    Read qt, kt, vt, dOt (in ``dtype``), lse, delta (float32) once; write
+    dqt, dkt, dvt (in ``dtype``) once."""
+    e = _DTYPE_BYTES[dtype]
     return _flash_bounds(b, n, 2.0 * b * n * n * (3 * d + 2 * c),
-                         4.0 * b * n * ((2 * d + 2 * c + 2) + (2 * d + c)))
+                         e * b * n * ((2 * d + 2 * c) + (2 * d + c)) + 4.0 * b * n * 2,
+                         _DTYPE_PEAK[dtype])
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at each value of ``x`` (float32): 2^(e - 8) for
+    |x| in [2^(e-1), 2^e)."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
+def _bf16_check(name: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> dict:
+    """A bf16 kernel output against its plain version, in float32: raises
+    beyond ``atol`` + one ulp (BF16_RTOL); returns the max abs error and the
+    share of values more than one ulp off."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    torch.testing.assert_close(g, w, atol=atol, rtol=BF16_RTOL, msg=lambda m: f"{name}: {m}")
+    return {"max_abs_err": diff.max().item(),
+            "beyond_one_ulp_share": (diff > _bf16_ulp(w)).float().mean().item()}
+
+
+def _sdpa_backend(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs."""
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "unknown"
+    return torch.nn.attention.SDPBackend(choose(q4, k4, v4, scale=1.0)).name
 
 
 def _attention_operands(rng, b: int, n: int, d: int, c: int):
@@ -491,33 +591,48 @@ def _attention_operands(rng, b: int, n: int, d: int, c: int):
     return qt, kt, vt
 
 
-def phase_flash_bwd_kernel() -> list[dict]:
+def phase_flash_bwd_kernel(dtype=torch.float32) -> list[dict]:
     """The CUDA backward against ``flash_bwd_reference`` at each flash site
     (B = 4), with the forward's own lse and a random output gradient; two
-    calls bit-equal; two ragged N; kernel, plain and SDPA-backward times."""
+    calls bit-equal; two ragged N; kernel, plain and SDPA-backward times.
+    ``dtype=torch.bfloat16``: the bf16 kernel on the same operands rounded to
+    bf16 (``flash_bwd_kernel_bf16``)."""
+    bf16 = dtype == torch.bfloat16
+    phase = "flash_bwd_kernel_bf16" if bf16 else "flash_bwd_kernel"
     rng = np.random.default_rng(SEED + 11)
     sites = []
     for n, d, c in KERNEL_SITES + RAGGED_SITES:
         b = KERNEL_BATCH if (n, d, c) in KERNEL_SITES else 1
-        qt, kt, vt = _attention_operands(rng, b, n, d, c)
+        qt, kt, vt = (x.to(dtype) for x in _attention_operands(rng, b, n, d, c))
         out_t, lse = attention.flash_fwd_reference(qt, kt, vt)
-        dot = torch.from_numpy(rng.standard_normal((b, c, n), np.float32)).cuda()
-        delta = (dot * out_t).sum(1, keepdim=True)
+        dot = torch.from_numpy(rng.standard_normal((b, c, n), np.float32)).cuda().to(dtype)
+        delta = (dot.float() * out_t.float()).sum(1, keepdim=True)
         args = (qt, kt, vt, dot, lse, delta)
         got = attention.flash_bwd(*args)
         again = attention.flash_bwd(*args)
         want = attention.flash_bwd_reference(*args)
         torch.cuda.synchronize()
         names = ("dq", "dk", "dv")
-        errs = {name: (g - w).abs().max().item() for name, g, w in zip(names, got, want)}
         scale = {name: w.abs().max().item() for name, w in zip(names, want)}
         deterministic = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        if bf16:
+            checks = {name: _bf16_check(
+                f"{phase} {name} N={n}", g, w,
+                BWD_ATOL + (BF16_DQ_ULPS_OF_MAX * 2.0**-8 * scale[name] if name == "dq" else 0))
+                for name, g, w in zip(names, got, want)}
+            errs = {name: v["max_abs_err"] for name, v in checks.items()}
+            extra = {"beyond_one_ulp_share": {k: v["beyond_one_ulp_share"]
+                                              for k, v in checks.items()}}
+        else:
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=BWD_RTOL)
+            errs = {name: (g - w).abs().max().item() for name, g, w in zip(names, got, want)}
+            extra = {}
         site = {"B": b, "N": n, "D": d, "C": c, "max_abs_err": max(errs.values()),
-                "errs": errs, "max_abs_ref": scale, "bit_equal_over_two_calls": deterministic}
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=BWD_RTOL)
+                "errs": errs, "max_abs_ref": scale, "bit_equal_over_two_calls": deterministic,
+                **extra}
         if not deterministic:
-            raise RuntimeError(f"flash_bwd kernel: two calls differ at N = {n}")
+            raise RuntimeError(f"{phase}: two calls differ at N = {n}")
         if b == KERNEL_BATCH:
             q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous().requires_grad_()
                           for x in (qt, kt, vt))
@@ -527,10 +642,13 @@ def phase_flash_bwd_kernel() -> list[dict]:
             site["plain_ms"] = cuda_ms(lambda: attention.flash_bwd_reference(*args), iters=3)
             site["library_ms"] = cuda_ms(
                 lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), iters=3)
-            site.update(flash_bwd_bound_ms(b, n, d, c))
+            site["library_backend"] = _sdpa_backend(q4, k4, v4)
+            site.update(flash_bwd_bound_ms(b, n, d, c, dtype))
             site["roofline_share"] = site["bound_ms"] / site["ms"]
             del q4, k4, v4, g4, o4
-        emit("flash_bwd_kernel", name="flash_bwd", atol=BWD_ATOL, rtol=BWD_RTOL, **site)
+        tol = ({"atol": BWD_ATOL, "rtol": BF16_RTOL, "dq_ulps_of_max": BF16_DQ_ULPS_OF_MAX}
+               if bf16 else {"atol": BWD_ATOL, "rtol": BWD_RTOL})
+        emit(phase, name="flash_bwd_bf16" if bf16 else "flash_bwd", **tol, **site)
         sites.append(site)
         del qt, kt, vt, dot, out_t, lse, delta, got, again, want
         torch.cuda.empty_cache()
@@ -611,32 +729,44 @@ def phase_build() -> None:
         raise RuntimeError(f"build: flash kernels without tensor-core instructions: {missing}")
     lib = _build.library()
     smem = {f"{name} ({d}, {c})": getattr(lib, f"tdt_{name}_smem_bytes")(d, c)
-            for name in ("flash_fwd", "flash_bwd") for d, c in sorted(attention.KERNEL_HEAD_WIDTHS)}
+            for name in _FLASH_KERNELS for d, c in sorted(attention.KERNEL_HEAD_WIDTHS)}
     emit("build", seconds=round(build.seconds, 3), cached=build.seconds == 0.0,
          library=os.path.relpath(build.path, REPO), ptxas=ptxas, tensor_core=tensor_core,
          dynamic_smem_bytes=smem)
 
 
-def phase_kernel() -> list[dict]:
+def phase_kernel(dtype=torch.float32) -> list[dict]:
     """The CUDA forward against ``flash_fwd_reference`` at each flash site
     (B = 4) and at two ragged N, out and lse; two calls bit-equal; kernel,
-    plain and SDPA times at the sites."""
+    plain and SDPA times at the sites. ``dtype=torch.bfloat16``: the bf16
+    kernel on the same operands rounded to bf16 (``kernel_bf16``)."""
+    bf16 = dtype == torch.bfloat16
+    phase = "kernel_bf16" if bf16 else "kernel"
     rng = np.random.default_rng(SEED)
     sites = []
     for n, d, c in KERNEL_SITES + RAGGED_SITES:
         b = KERNEL_BATCH if (n, d, c) in KERNEL_SITES else 1
-        qt, kt, vt = _attention_operands(rng, b, n, d, c)
+        qt, kt, vt = (x.to(dtype) for x in _attention_operands(rng, b, n, d, c))
         out_k, lse_k = attention.flash_fwd(qt, kt, vt)
         again = attention.flash_fwd(qt, kt, vt)
         out_r, lse_r = attention.flash_fwd_reference(qt, kt, vt)
         torch.cuda.synchronize()
-        torch.testing.assert_close(out_k, out_r, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
         torch.testing.assert_close(lse_k, lse_r, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+        extra = {}
+        if bf16:
+            if out_k.dtype != torch.bfloat16:
+                raise RuntimeError(f"{phase}: out is {out_k.dtype}")
+            check = _bf16_check(f"{phase} out N={n}", out_k, out_r, KERNEL_ATOL)
+            extra = {"beyond_one_ulp_share": check["beyond_one_ulp_share"],
+                     "lse_max_abs_err": (lse_k - lse_r).abs().max().item()}
+        else:
+            torch.testing.assert_close(out_k, out_r, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
         if not (torch.equal(again[0], out_k) and torch.equal(again[1], lse_k)):
-            raise RuntimeError(f"flash_fwd kernel: two calls differ at N = {n}")
-        err = max((out_k - out_r).abs().max().item(), (lse_k - lse_r).abs().max().item())
+            raise RuntimeError(f"{phase}: two calls differ at N = {n}")
+        err = max((out_k.float() - out_r.float()).abs().max().item(),
+                  (lse_k - lse_r).abs().max().item())
         site = {"B": b, "N": n, "D": d, "C": c, "max_abs_err": err,
-                "bit_equal_over_two_calls": True}
+                "bit_equal_over_two_calls": True, **extra}
         if b == KERNEL_BATCH:
             # (B, 1, N, D) views for the library yardstick, made outside its timing.
             q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous() for x in (qt, kt, vt))
@@ -645,10 +775,13 @@ def phase_kernel() -> list[dict]:
                                        iters=5)
             site["library_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), iters=5)
-            site.update(flash_bound_ms(b, n, d, c))
+            site["library_backend"] = _sdpa_backend(q4, k4, v4)
+            site.update(flash_bound_ms(b, n, d, c, dtype))
             site["roofline_share"] = site["bound_ms"] / site["ms"]
             del q4, k4, v4
-        emit("kernel", name="flash_fwd", atol=KERNEL_ATOL, rtol=KERNEL_RTOL, **site)
+        tol = ({"atol": KERNEL_ATOL, "rtol": BF16_RTOL, "lse_rtol": KERNEL_RTOL} if bf16
+               else {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL})
+        emit(phase, name="flash_fwd_bf16" if bf16 else "flash_fwd", **tol, **site)
         sites.append(site)
         del qt, kt, vt, out_k, lse_k, again, out_r, lse_r
         torch.cuda.empty_cache()
@@ -745,14 +878,17 @@ def phase_slice() -> int:
     return launches
 
 
+_FLASH_KERNELS = ("flash_fwd", "flash_bwd", "flash_fwd_bf16", "flash_bwd_bf16")
+
+
 def _reset_launches() -> None:
-    attention.flash_fwd_launches = 0
-    attention.flash_bwd_launches = 0
+    for kernel in _FLASH_KERNELS:
+        setattr(attention, f"{kernel}_launches", 0)
     qsample.qsample_launches = 0
 
 
 def _launches() -> dict:
-    return {"flash_fwd": attention.flash_fwd_launches, "flash_bwd": attention.flash_bwd_launches,
+    return {**{k: getattr(attention, f"{k}_launches") for k in _FLASH_KERNELS},
             "qsample": qsample.qsample_launches}
 
 
@@ -1086,32 +1222,37 @@ def _parity_record(state, losses: list, params0: torch.Tensor, ema0: torch.Tenso
             "generator": state.generator.get_state()}
 
 
-def _parity_fields(name: str, out: dict) -> tuple[dict, bool]:
+def _parity_fields(name: str, out: dict, bounds: dict | None = None) -> tuple[dict, bool]:
     """Graph against eager, and eager against itself (the noise floor of the
     atomics, beside what the graph adds to it), for one compute dtype
-    ``name``; and whether graph against eager is inside the bounds."""
+    ``name``; and whether graph against eager is inside the ``bounds``
+    (``_parity_bounds()`` by default). Records without an EMA shadow skip
+    its checks."""
+    bounds = bounds or _parity_bounds()
+    ema = "ema" in out["graph"]
     fields = {"losses_graph": out["graph"]["losses"], "losses_eager": out["eager"]["losses"]}
     for pair, (g, e) in (("graph_vs_eager", (out["graph"], out["eager"])),
                          ("eager_vs_eager", (out["eager_again"], out["eager"]))):
         fields[pair] = {
             "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"])),
             "update_cos": _cos(g["update"], e["update"]),
-            "ema_update_cos": _cos(g["ema_update"], e["ema_update"]),
             # The replays advanced the registered generator as eager steps do.
             "generator_equal": torch.equal(g["generator"], e["generator"]),
             "bit_equal": (g["losses"] == e["losses"] and torch.equal(g["params"], e["params"])
-                          and torch.equal(g["ema"], e["ema"])
+                          and (not ema or torch.equal(g["ema"], e["ema"]))
                           and torch.equal(g["stats"], e["stats"])),
             "params_max_abs": (g["params"] - e["params"]).abs().max().item(),
             "stats_max_rel": ((g["stats"] - e["stats"]).abs()
                               / e["stats"].abs().clamp_min(1.0)).max().item(),
         }
+        if ema:
+            fields[pair]["ema_update_cos"] = _cos(g["ema_update"], e["ema_update"])
     check = fields["graph_vs_eager"]
-    ok = (check["generator_equal"] and check["loss_rel"] <= PARITY_LOSS_RTOL[name]
-          and check["update_cos"] >= PARITY_MIN_UPDATE_COS[name]
-          and check["ema_update_cos"] >= PARITY_MIN_UPDATE_COS[name]
-          and check["params_max_abs"] <= PARITY_MAX_PARAM_ABS[name]
-          and check["stats_max_rel"] <= PARITY_MAX_STATS_REL[name])
+    ok = (check["generator_equal"] and check["loss_rel"] <= bounds["loss_rtol"][name]
+          and check["update_cos"] >= bounds["min_update_cos"][name]
+          and (not ema or check["ema_update_cos"] >= bounds["min_update_cos"][name])
+          and check["params_max_abs"] <= bounds["max_params_abs"][name]
+          and check["stats_max_rel"] <= bounds["max_stats_rel"][name])
     return fields, ok
 
 
@@ -1628,7 +1769,7 @@ def phase_latent_train(backbone: str, data_root: str) -> dict:
         if split != {"train": steps, "eval": LATENT_EPOCHS * LATENT_VAL_BATCHES}:
             problems.append(f"q_sample launches {split}, want {steps} train and "
                             f"{LATENT_EPOCHS * LATENT_VAL_BATCHES} eval")
-        if launches != {"flash_fwd": 0, "flash_bwd": 0, "qsample": steps + split["eval"]}:
+        if launches != {**dict.fromkeys(_FLASH_KERNELS, 0), "qsample": steps + split["eval"]}:
             problems.append(f"launches {launches} against {split}")
         if graph != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
                      "replays": steps - GRAPH_WARMUP_STEPS}:
@@ -1833,7 +1974,7 @@ def phase_laion_train() -> dict:
         if split != {"train": steps, "eval": LAION_EPOCHS * LAION_VAL_BATCHES}:
             problems.append(f"q_sample launches {split}, want {steps} train and "
                             f"{LAION_EPOCHS * LAION_VAL_BATCHES} eval")
-        if launches != {"flash_fwd": 0, "flash_bwd": 0, "qsample": steps + split["eval"]}:
+        if launches != {**dict.fromkeys(_FLASH_KERNELS, 0), "qsample": steps + split["eval"]}:
             problems.append(f"launches {launches} against {split}")
         if graph != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
                      "replays": steps - GRAPH_WARMUP_STEPS}:
@@ -2052,12 +2193,18 @@ def _set_default_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def phase_vae_train() -> dict:
+def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32") -> dict:
     """The conv-VAE's ``run()`` at full width on the card, with the kernel
-    launches counted over exactly that run."""
+    launches counted over exactly that run: ``vae_train`` (the default, the
+    set resident and each step a graph replay), ``vae_train_host`` (batches
+    streamed from the host) and ``vae_train_bf16`` (resident, bfloat16: the
+    bf16 kernels only)."""
+    phase = {("auto", "float32"): "vae_train", ("host", "float32"): "vae_train_host",
+             ("auto", "bfloat16"): "vae_train_bf16"}[placement, compute_dtype]
     with tempfile.TemporaryDirectory() as tmp:
         config = vae_laion.VAELaionConfig(
             n_records=VAE_RECORDS, epochs=VAE_EPOCHS, log_interval=10,
+            data_placement=placement, compute_dtype=compute_dtype,
             out_dir=os.path.join(tmp, "out"), checkpoint_dir=os.path.join(tmp, "ckpt"),
             device="cuda")
         _set_default_tf32()
@@ -2071,15 +2218,28 @@ def phase_vae_train() -> dict:
         launches = _launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if torch.backends.cudnn.allow_tf32:
-            raise RuntimeError("vae_train: run() left cuDNN's TF32 on")
+            raise RuntimeError(f"{phase}: run() left cuDNN's TF32 on")
         steps = result["state"].step
         per_epoch = VAE_RECORDS - VAE_RECORDS // 10
         if steps != VAE_EPOCHS * (per_epoch // config.batch_size):
-            raise RuntimeError(f"vae_train: {steps} steps")
-        if launches["flash_bwd"] != 3 * steps or launches["flash_fwd"] < 3 * steps:
-            raise RuntimeError(f"vae_train: {steps} steps, launches {launches}")
-        if launches["qsample"]:
-            raise RuntimeError("vae_train: the conv-VAE path launched the q_sample kernel")
+            raise RuntimeError(f"{phase}: {steps} steps")
+        graph = result["graph"]
+        if (graph is None) != (placement == "host"):
+            raise RuntimeError(f"{phase}: resident {result['resident']}, graph {graph}")
+        if graph is not None and (graph["eager"] + graph["replays"] != steps
+                                  or graph["captures"] != 1 or graph["replays"] == 0):
+            raise RuntimeError(f"{phase}: {steps} steps, graph {graph}")
+        # Three flash sites a step, each one backward: launches per step times
+        # the steps run (eager ones and graph replays, which count in the
+        # launch counts through the graph's captured launches).
+        fwd, bwd = ("flash_fwd_bf16", "flash_bwd_bf16") if compute_dtype == "bfloat16" else (
+            "flash_fwd", "flash_bwd")
+        ran = steps if graph is None else graph["eager"] + graph["replays"]
+        if launches[bwd] != 3 * ran or launches[fwd] < 3 * ran:
+            raise RuntimeError(f"{phase}: {ran} steps run, launches {launches}")
+        others = {k: v for k, v in launches.items() if k not in (fwd, bwd) and v}
+        if others:
+            raise RuntimeError(f"{phase}: other kernels launched: {others}")
         with open(os.path.join(config.out_dir, "vae_laion", "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         batches = [r for r in records if "bce" in r]
@@ -2087,7 +2247,7 @@ def phase_vae_train() -> dict:
         keys = ("batch_train_loss", "bce", "perceptual", "kld", "logvar_max", "mu_absmax")
         values = [r[k] for r in batches for k in keys] + [r["test_loss"] for r in epochs]
         if not batches or len(epochs) != VAE_EPOCHS or not np.all(np.isfinite(values)):
-            raise RuntimeError(f"vae_train: metrics {records}")
+            raise RuntimeError(f"{phase}: metrics {records}")
         want = [os.path.join(config.out_dir, name) for name in (
             "generated_samples.png", *(f"original_vs_reconstructed_epoch_{e}.png"
                                        for e in range(1, VAE_EPOCHS + 1)))]
@@ -2095,10 +2255,11 @@ def phase_vae_train() -> dict:
                  for ext in (".pt", ".npz", ".json")]
         missing = [os.path.relpath(p, tmp) for p in want if not os.path.getsize(p) > 0]
         if missing:
-            raise RuntimeError(f"vae_train: missing outputs {missing}")
+            raise RuntimeError(f"{phase}: missing outputs {missing}")
         warm = result["epochs"][-1]
         fields = {
             "image_size": config.image_size, "batch": config.batch_size, "steps": steps,
+            "placement": placement, "compute_dtype": compute_dtype, "graph": graph,
             "launches": launches, "wall_s": wall_s,
             "warm_step_ms": 1e3 * warm["train_seconds"] / warm["steps"],
             "warm_images_per_sec": warm["images_per_sec"],
@@ -2108,7 +2269,130 @@ def phase_vae_train() -> dict:
             "components_last": {k: batches[-1][k] for k in keys[1:]},
             "test_losses": result["test_losses"], "peak_mem_gib": peak_gib,
         }
-    emit("vae_train", **fields)
+    emit(phase, **fields)
+    return fields
+
+
+def _conv_vae(dtype: torch.dtype) -> "vae_laion.ConvVAE":
+    """The conv-VAE of ``vae_laion_best`` on the card in the compute ``dtype``."""
+    model = vae_laion.ConvVAE(dtype=dtype)
+    model.load_state_dict(load_conv_vae(CHECKPOINT, device="cpu").state_dict())
+    return model.cuda().train()
+
+
+def _vae_record(state, losses: list, params0: torch.Tensor) -> dict:
+    """What one run of the conv-VAE parity steps left (``_parity_record``'s
+    fields; the statistics are the BN running ones and the spectral norms'
+    ``u`` and ``sigma``)."""
+    params = _flat(state.model.parameters())
+    stats = _flat([b for n, b in state.model.named_buffers()
+                   if n.endswith(("running_mean", "running_var", ".u", ".sigma"))])
+    return {"losses": losses, "params": params, "update": (params - params0).double(),
+            "stats": stats, "generator": state.generator.get_state()}
+
+
+def phase_vae_resident_parity() -> dict:
+    """VAE_PARITY_STEPS conv-VAE steps of the resident step (2 eager, then
+    replays of its graph) against the same steps eager (the train step on the
+    gathered batches), and a second eager run, from ``vae_laion_best``, in
+    float32 and bfloat16, cuDNN deterministic."""
+    disable_tf32()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _vae_resident_parity()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _vae_resident_parity() -> dict:
+    b = 4
+    images = np.random.default_rng(SEED + 27).integers(
+        0, 256, (b * VAE_PARITY_STEPS, 256, 256, 3), dtype=np.uint8)
+    bounds = {"loss_rtol": VAE_PARITY_LOSS_RTOL, "min_update_cos": VAE_PARITY_MIN_UPDATE_COS,
+              "max_params_abs": VAE_PARITY_MAX_PARAM_ABS,
+              "max_stats_rel": VAE_PARITY_MAX_STATS_REL}
+    fields = {"steps": VAE_PARITY_STEPS, "replayed": VAE_PARITY_STEPS - GRAPH_WARMUP_STEPS,
+              "batch": b, **bounds, "cudnn_deterministic": True}
+    failed = []
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        perceptual = PerceptualNet(dtype=dtype).cuda()
+        out = {}
+        for mode in ("graph", "eager", "eager_again"):
+            model = _conv_vae(dtype)
+            state = vae_laion.create_train_state(
+                model, vae_laion.make_optimizer(model, 1e-4, capturable=True), SEED)
+            dataset = DeviceDataset(images, b, seed=SEED, device="cuda",
+                                    u8_normalize=(1.0 / 255.0, 0.0))
+            idxs = dataset.epoch_index_batches(0)[:VAE_PARITY_STEPS]
+            params0 = _flat(model.parameters())
+            if mode == "graph":
+                step = vae_laion.make_conv_vae_resident_step(perceptual, 1.0, 10.0, dataset)
+                losses = step(state, idxs)[0].tolist()
+                if step.counts["replays"] != VAE_PARITY_STEPS - GRAPH_WARMUP_STEPS:
+                    raise RuntimeError(f"vae_resident_parity: graph counts {step.counts}")
+            else:
+                step = vae_laion.make_conv_vae_train_step(perceptual, 1.0, 10.0)
+                losses = [step(state, dataset.gather(torch.from_numpy(row).cuda())
+                               .permute(0, 3, 1, 2).contiguous())[0].item() for row in idxs]
+            torch.cuda.synchronize()
+            out[mode] = _vae_record(state, losses, params0)
+            del model, state, dataset
+        fields[name], ok = _parity_fields(name, out, bounds)
+        if not ok:
+            failed.append(name)
+        del perceptual
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"vae_resident_parity: graph vs eager in {failed}: {fields}")
+    fields["weights"] = os.path.relpath(CHECKPOINT, REPO)
+    emit("vae_resident_parity", **fields)
+    return fields
+
+
+def phase_vae_resident_full() -> dict:
+    """JAX's full 256² train set (VAE_FULL_IMAGES uint8 images) pinned on the
+    card, a float32 model from a seeded init: one chunk of VAE_FULL_CHUNK
+    steps (warm-ups and the capture), then one of replays, timed; the peak
+    device memory."""
+    disable_tf32()
+    t0 = time.perf_counter()
+    images = np.random.default_rng(SEED + 28).integers(
+        0, 256, (VAE_FULL_IMAGES, 256, 256, 3), dtype=np.uint8)
+    make_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dataset = DeviceDataset(images, 4, seed=SEED, device="cuda", u8_normalize=(1.0 / 255.0, 0.0))
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t0
+    pinned_gib = dataset.images.numel() / 2**30
+    del images
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = vae_laion.ConvVAE().cuda()
+    state = vae_laion.create_train_state(
+        model, vae_laion.make_optimizer(model, 1e-4, capturable=True), SEED)
+    step = vae_laion.make_conv_vae_resident_step(PerceptualNet().cuda(), 1.0, 10.0, dataset)
+    idxs = dataset.epoch_index_batches(1)
+    first, _ = step(state, idxs[:VAE_FULL_CHUNK])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second, comps = step(state, idxs[VAE_FULL_CHUNK:2 * VAE_FULL_CHUNK])
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    losses = torch.cat([first, second]).tolist()
+    if not np.all(np.isfinite(losses)) or step.counts["captures"] != 1:
+        raise RuntimeError(f"vae_resident_full: losses {losses}, counts {step.counts}")
+    fields = {"images": VAE_FULL_IMAGES, "image_size": 256, "pinned_gib": pinned_gib,
+              "make_s": make_s, "pin_s": pin_s, "graph": dict(step.counts),
+              "replayed_chunk_steps": VAE_FULL_CHUNK,
+              "graph_step_ms": 1e3 * chunk_s / VAE_FULL_CHUNK,
+              "graph_images_per_sec": 4 * VAE_FULL_CHUNK / chunk_s,
+              "losses": losses, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit("vae_resident_full", **fields)
+    del dataset, model, state, step
+    torch.cuda.empty_cache()
     return fields
 
 
@@ -2207,12 +2491,13 @@ def _profile_window(name: str, fn, **fields) -> None:
 
 
 def phase_profile() -> None:
-    """Eight windows: one warm reconstruct + one prior decode of the conv-VAE;
+    """Nine windows: one warm reconstruct + one prior decode of the conv-VAE;
     5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample), eager
     and then replayed from a CUDA graph over a resident set; 20 steps
     of the fp32 DDPM sampler (16 samples); the chain of one DPM++-15
     serving request (CFG, bf16 forward, 16 samples); 3 warm conv-VAE train
-    steps (256x256, batch 4, fp32, Adam) from ``vae_laion_best``; 5 latent
+    steps (256x256, batch 4, fp32, Adam) from ``vae_laion_best``, eager and
+    replayed from a graph over a resident set; 5 latent
     MLP UNet train steps replayed from a graph; one DPM++-15 latent serving
     request on the DiT."""
     model = load_conv_vae(CHECKPOINT, device="cuda")
@@ -2259,6 +2544,21 @@ def phase_profile() -> None:
     _profile_window("vae_train_steps", lambda: [vae_step(vae_state, x) for _ in range(3)],
                     steps=3, batch=4)
 
+    # The same 3 steps as the default run takes them: the set on the card and
+    # each step a replay of one captured graph (the warm-up call captures).
+    graph_vae = _conv_vae(torch.float32)
+    graph_vae_state = vae_laion.create_train_state(
+        graph_vae, vae_laion.make_optimizer(graph_vae, 1e-4, capturable=True), SEED)
+    vae_images = np.random.default_rng(SEED + 29).integers(0, 256, (4 * 3, 256, 256, 3),
+                                                            dtype=np.uint8)
+    vae_data = DeviceDataset(vae_images, 4, seed=SEED, device="cuda",
+                             u8_normalize=(1.0 / 255.0, 0.0))
+    vae_graph_step = vae_laion.make_conv_vae_resident_step(PerceptualNet().cuda(), 1.0, 10.0,
+                                                           vae_data)
+    vae_idxs = vae_data.epoch_index_batches(0)
+    _profile_window("vae_train_steps_graph", lambda: vae_graph_step(graph_vae_state, vae_idxs),
+                    steps=3, batch=4)
+
     # 5 latent MLP UNet steps (B = 128, bf16, from latent_diffusion_best),
     # replayed from a graph over a resident set, as the default run takes them.
     mlp = load_latent_checkpoint(LATENT_CHECKPOINTS["mlp_unet"], device="cuda")
@@ -2295,6 +2595,7 @@ def main() -> int:
     device = phase_device()
     phase_build()
     sites = phase_kernel()
+    bf16_sites = phase_kernel(torch.bfloat16)
     _reset_launches()
     launches = phase_slice()
     if qsample.qsample_launches != 0:
@@ -2320,8 +2621,13 @@ def main() -> int:
     phase_latent_serve()
     phase_laion_serve()
     bwd_sites = phase_flash_bwd_kernel()
+    bwd_bf16_sites = phase_flash_bwd_kernel(torch.bfloat16)
     phase_flash_autograd()
     vae = phase_vae_train()
+    phase_vae_train("host")
+    vae_bf16 = phase_vae_train("auto", "bfloat16")
+    phase_vae_resident_parity()
+    phase_vae_resident_full()
     phase_vae_train_parity()
     main_site = sites[0]  # N = 16384: the largest share of the kernel's work
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2372,10 +2678,34 @@ def main() -> int:
             "route": "cuda",
             "source": "tinydiffusion_torch/ops/csrc/flash_bwd.cu",
             "replaces": "tinydiffusion_tpu/ops/attention.py:193",
+            # The default conv-VAE run (resident, graph replays).
             "launches": vae["launches"]["flash_bwd"],
             "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
             **{k: bwd_sites[0][k] for k in flash_keys},  # N = 16384
             "sites": [{k: v for k, v in s.items() if k not in context} for s in bwd_sites],
+        },
+        # The bfloat16 instantiations, launched by the bf16 conv-VAE run.
+        {
+            "name": "flash_fwd_bf16",
+            "route": "cuda",
+            "dtype": "bfloat16",
+            "source": "tinydiffusion_torch/ops/csrc/flash_fwd.cu",
+            "replaces": "tinydiffusion_tpu/ops/attention.py:113",
+            "launches": vae_bf16["launches"]["flash_fwd_bf16"],
+            "max_abs_err": max(s["max_abs_err"] for s in bf16_sites),
+            **{k: bf16_sites[0][k] for k in flash_keys},  # N = 16384
+            "sites": [{k: v for k, v in s.items() if k not in context} for s in bf16_sites],
+        },
+        {
+            "name": "flash_bwd_bf16",
+            "route": "cuda",
+            "dtype": "bfloat16",
+            "source": "tinydiffusion_torch/ops/csrc/flash_bwd.cu",
+            "replaces": "tinydiffusion_tpu/ops/attention.py:193",
+            "launches": vae_bf16["launches"]["flash_bwd_bf16"],
+            "max_abs_err": max(s["max_abs_err"] for s in bwd_bf16_sites),
+            **{k: bwd_bf16_sites[0][k] for k in flash_keys},  # N = 16384
+            "sites": [{k: v for k, v in s.items() if k not in context} for s in bwd_bf16_sites],
         },
     ]
     if args.profile:

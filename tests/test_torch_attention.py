@@ -343,3 +343,133 @@ def test_wrapper_tile_constants_match_the_kernel_sources():
         "kKeysPerBlock", "flash_bwd.cu")
     launcher = (Path(_build._CSRC) / "flash_bwd.cu").read_text()
     assert "key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock" in launcher
+
+
+# --- bfloat16 operands -------------------------------------------------------------
+
+# bf16 operands: both sides compute in float32 (a product of two bf16 values is
+# exact there) and round where JAX rounds, out, dk and dv once; their float32
+# results differ as the float32 ones do (ATOL, GRAD_ATOL), which carries a
+# rounding across a bf16 boundary now and then: one bf16 ulp, at most 2^-7
+# relative. dq is rounded once per 1024-key block into a bf16 running sum
+# whose terms cancel (sum_j ds_ij = 0), so a flip there is an ulp of a block's
+# sum: dq is held within two ulps of its largest value.
+BF16_RTOL = 2.0**-7
+BF16_DQ_ULPS_OF_MAX = 2
+
+
+def _bf16_pair(*arrays):
+    """Each float32 array as a bf16 torch tensor and the same values as a
+    bf16 JAX array."""
+    port = [torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16) for x in arrays]
+    return port, [jnp.asarray(p.float().numpy()).astype(jnp.bfloat16) for p in port]
+
+
+def _f32(x) -> np.ndarray:
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+def test_bf16_flash_fwd_matches_jax_fwd(d, c):
+    """bf16 q/k/v at N = 2048 (B = 2): out in bf16, lse in float32, against
+    JAX's ``_fwd`` in interpret mode (its single exact logit pass)."""
+    q, k, v = _qkv(2, 2048, d, c, seed=90 + d)
+    port, jx = _bf16_pair(*(_t(x) for x in (q, k, v)))
+    want_out, want_lse = jax_attention._fwd(*jx, 512, 1024)
+    got_out, got_lse = attention.flash_fwd(*port)
+    assert got_out.dtype == torch.bfloat16 and want_out.dtype == jnp.bfloat16
+    assert got_lse.dtype == torch.float32
+    np.testing.assert_allclose(_f32(got_out), _f32(want_out), atol=ATOL, rtol=BF16_RTOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+def test_bf16_flash_bwd_matches_jax_bwd(d, c):
+    """The plain bf16 backward against JAX's ``_bwd`` (its fused kernel in
+    interpret mode, dq accumulated in bf16 over two 1024-key blocks) on
+    JAX's own residuals."""
+    q, k, v = _qkv(2, 2048, d, c, seed=100 + d)
+    g = np.random.default_rng(110 + d).standard_normal((2, c, 2048)).astype(np.float32)
+    (qt, kt, vt, gt), jx = _bf16_pair(*(_t(x) for x in (q, k, v)), g)
+    out_t, lse = jax_attention._fwd(*jx[:3], 512, 1024)
+    want = jax_attention._bwd(512, 1024, (*jx[:3], out_t, lse), jx[3])
+    out = torch.from_numpy(_f32(out_t)).to(torch.bfloat16)
+    delta = (gt.float() * out.float()).sum(1, keepdim=True)
+    got = attention.flash_bwd(qt, kt, vt, gt, torch.from_numpy(np.array(lse)), delta)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16, name
+        ref = _f32(b)
+        atol = GRAD_ATOL + (BF16_DQ_ULPS_OF_MAX * 2.0**-8 * np.abs(ref).max()
+                            if name == "dq" else 0.0)
+        np.testing.assert_allclose(_f32(a), ref, atol=atol, rtol=BF16_RTOL, err_msg=name)
+
+
+def test_bf16_dq_rounds_once_per_key_block_like_jax():
+    """The plain bf16 dq is JAX's: each 1024-key block's float32 dq rounded
+    to bf16 and added to the bf16 running dq. Summed in float32 and rounded
+    once, it misses JAX's on a share of the elements (N = 4096: four blocks)."""
+    q, k, v = _qkv(1, 4096, 4, 32, seed=120)
+    g = np.random.default_rng(121).standard_normal((1, 32, 4096)).astype(np.float32)
+    (qt, kt, vt, gt), jx = _bf16_pair(*(_t(x) for x in (q, k, v)), g)
+    out_t, lse = jax_attention._fwd(*jx[:3], 512, 1024)
+    want = _f32(jax_attention._bwd(512, 1024, (*jx[:3], out_t, lse), jx[3])[0])
+    out = torch.from_numpy(_f32(out_t)).to(torch.bfloat16)
+    stats = (torch.from_numpy(np.array(lse)), (gt.float() * out.float()).sum(1, keepdim=True))
+    got = _f32(attention.flash_bwd_reference(qt, kt, vt, gt, *stats)[0])
+    once = _f32(attention.flash_bwd_reference(*(x.float() for x in (qt, kt, vt, gt)), *stats)[0]
+                .to(torch.bfloat16))
+    assert np.mean(got != want) < 0.02
+    assert np.mean(once != want) > 0.1
+
+
+def test_bf16_flash_grads_match_jax_grad():
+    """Gradients through ``flash_attention_unscaled_t`` (``_FlashT`` over
+    both wrappers) with bf16 leaves against ``jax.grad`` of JAX's, N = 2048."""
+    q, k, v = _qkv(2, 2048, 8, 64, seed=130)
+    g = np.random.default_rng(131).standard_normal((2, 64, 2048)).astype(np.float32)
+    port, jx = _bf16_pair(*(_t(x) for x in (q, k, v)))
+    want = jax.grad(
+        lambda *a: jnp.sum(jax_attention.flash_attention_unscaled_t(*a).astype(jnp.float32)
+                           * g), argnums=(0, 1, 2))(*jx)
+    leaves = [x.clone().requires_grad_() for x in port]
+    out = attention.flash_attention_unscaled_t(*leaves)
+    assert out.dtype == torch.bfloat16
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    for name, leaf, b in zip(("dq", "dk", "dv"), leaves, want):
+        assert leaf.grad.dtype == torch.bfloat16, name
+        ref = _f32(b)
+        atol = GRAD_ATOL + (BF16_DQ_ULPS_OF_MAX * 2.0**-8 * np.abs(ref).max()
+                            if name == "dq" else 0.0)
+        np.testing.assert_allclose(_f32(leaf.grad), ref, atol=atol, rtol=BF16_RTOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("bad", ["fwd_mixed", "fwd_float16", "bwd_dot", "bwd_lse", "bwd_delta"])
+def test_flash_wrappers_refuse_mixed_dtypes(bad):
+    """q, k, v (and dO) in one dtype, float32 or bfloat16; lse and delta float32."""
+    qt, kt, vt = torch.zeros(1, 4, 64), torch.zeros(1, 4, 64), torch.zeros(1, 32, 64)
+    dot, lse, delta = torch.zeros(1, 32, 64), torch.zeros(1, 1, 64), torch.zeros(1, 1, 64)
+    if bad.startswith("fwd"):
+        if bad == "fwd_mixed":
+            vt = vt.to(torch.bfloat16)
+        else:
+            qt, kt, vt = (x.to(torch.float16) for x in (qt, kt, vt))
+        with pytest.raises(TypeError):
+            attention.flash_fwd(qt, kt, vt)
+        return
+    qt, kt, vt = (x.to(torch.bfloat16) for x in (qt, kt, vt))
+    dot = dot.to(torch.bfloat16)
+    if bad == "bwd_dot":
+        dot = dot.float()
+    elif bad == "bwd_lse":
+        lse = lse.to(torch.bfloat16)
+    else:
+        delta = delta.to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        attention.flash_bwd(qt, kt, vt, dot, lse, delta)
+
+
+def test_bf16_dq_block_matches_the_kernel_source():
+    """The plain bf16 dq rounds per DEFAULT_BLOCK_K keys (JAX's key block);
+    the CUDA dq sum must round per as many (its kDqRunKeys)."""
+    assert attention.DEFAULT_BLOCK_K == _source_constant("kDqRunKeys", "flash_bwd.cu")

@@ -156,6 +156,21 @@ _CHILD_VAE_TRAIN = _REFUSE + textwrap.dedent("""
 """)
 
 
+# The same two steps through the CLI in bfloat16 with the set resident.
+_CHILD_VAE_TRAIN_BF16 = _REFUSE + textwrap.dedent("""
+    from tinydiffusion_torch.experiments import vae_laion
+
+    path = sys.argv[1]
+    vae_laion.main(["--image-size", "64", "--n-records", "12", "--batch-size", "2",
+                    "--epochs", "1", "--max-steps-per-epoch", "2", "--out-dir", path + "/out",
+                    "--checkpoint-dir", path + "/ckpt", "--device", "cpu",
+                    "--compute-dtype", "bfloat16", "--data-placement", "device"])
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
 # Two steps of the class-conditional run() at small width (label dropout,
 # EMA, the resident step, the val pass, labelled grids), then the serving
 # CLI on its checkpoint in every mode, with PNG inputs from the port's encoder.
@@ -299,6 +314,14 @@ def test_port_trains_the_conv_vae_without_the_jax_stack(tmp_path):
     for ext in (".pt", ".npz", ".json"):
         assert os.path.getsize(tmp_path / "ckpt" / f"vae_laion_best{ext}") > 0
     assert os.path.getsize(tmp_path / "out" / "generated_samples.png") > 0
+
+
+def test_port_trains_the_bf16_conv_vae_resident_without_the_jax_stack(tmp_path):
+    _run_isolated(_CHILD_VAE_TRAIN_BF16, str(tmp_path), str(tmp_path))
+    with open(tmp_path / "out" / "vae_laion" / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert sum("bce" in r for r in records) == 1  # one chunk of 2 steps, its first logged
+    assert os.path.getsize(tmp_path / "ckpt" / "vae_laion_best.npz") > 0
 
 
 def test_port_trains_conditional_and_serves_every_mode_without_the_jax_stack(tmp_path):

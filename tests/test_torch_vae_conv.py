@@ -297,6 +297,96 @@ def test_train_forward_updates_bn_and_sn_statistics_like_flax(small_vae):
             assert not np.allclose(before[key_], value), key_
 
 
+# A bfloat16 model against JAX's ConvVAE(dtype=bfloat16) on the same weights.
+# Both round every conv, projection and attention output to bf16 but sum in
+# different orders, so a rounding flips now and then and the flips travel:
+# at 64² the port's and JAX's bf16 models sit as far apart as JAX's bf16 and
+# float32 models do (CPU: recon 2e-4, mu 2e-3 in eval mode). The bounds are
+# 10 times that. The BN statistics of a train-mode forward come from bf16
+# activations: within 2 % of each tensor's largest value (CPU: 0.4 %); the
+# spectral norms' u and sigma come from the float32 kernels alone.
+BF16_IMAGE_ATOL, BF16_LATENT_ATOL = 2e-3, 2e-2
+BF16_BN_STATS_OF_MAX = 0.02
+
+
+@pytest.fixture(scope="module")
+def bf16_vae():
+    """JAX ConvVAE(dtype=bfloat16) at 64x64 from a seeded init with gamma
+    0.8, and the port's ConvVAE(dtype=torch.bfloat16) with its weights."""
+    size = 64
+    jmodel = JaxConvVAE(latent_dim=128, image_size=size, dtype=jnp.bfloat16)
+    variables = jax.jit(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3)), jax.random.PRNGKey(1),
+        train=False))()
+    flat, _ = _flat_items(variables)
+    flat = {k: (np.full_like(v, 0.8) if k.endswith("/gamma") else np.asarray(v))
+            for k, v in flat.items()}
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, _: jnp.asarray(flat[_norm_key(p)]), variables)
+    model = ConvVAE(latent_dim=128, image_size=size, dtype=torch.bfloat16)
+    model.load_state_dict(conv_vae_state_dict(flat))
+    return jmodel, variables, model
+
+
+def test_bf16_conv_vae_forward_matches_jax(bf16_vae):
+    """Eval mode at 64²: recon, mu and logvar float32 (JAX's Dense layers and
+    final sigmoid), every conv, BN, projection and attention site bf16, the
+    params float32."""
+    jmodel, variables, model = bf16_vae
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    eps = rng.standard_normal((2, 128)).astype(np.float32)
+    mu, logvar = jax.jit(lambda v, a: jmodel.apply(
+        v, a, train=False, method=JaxConvVAE.encode))(variables, jnp.asarray(x))
+    z = mu + jnp.asarray(eps) * jnp.exp(0.5 * logvar)
+    want = _jax_apply(jmodel, variables, z, train=False, method=JaxConvVAE.decode)
+    seen = {}
+    hooks = [m.register_forward_hook(lambda m, i, o, name=name: seen.__setitem__(name, o.dtype))
+             for name, m in model.named_modules()
+             if name.count(".") == 1 and name.split(".")[0] in (
+                 "enc_convs", "enc_res", "enc_attn", "dec_convs", "dec_res", "dec_attn")]
+    try:
+        with torch.no_grad():
+            recon, got_mu, got_logvar = model.eval()(
+                torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(eps))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(seen) == 4 + 4 + 2 + 4 + 3 + 2 and set(seen.values()) == {torch.bfloat16}
+    assert recon.dtype == got_mu.dtype == got_logvar.dtype == torch.float32
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    np.testing.assert_allclose(got_mu.numpy(), np.asarray(mu), atol=BF16_LATENT_ATOL)
+    np.testing.assert_allclose(got_logvar.numpy(), np.asarray(logvar), atol=BF16_LATENT_ATOL)
+    np.testing.assert_allclose(recon.permute(0, 2, 3, 1).numpy(), want, atol=BF16_IMAGE_ATOL)
+
+
+def test_bf16_train_forward_writes_statistics_like_flax(bf16_vae):
+    """One bf16 train-mode forward (B = 4): the BN running statistics and the
+    spectral norms' ``u`` and ``sigma`` it writes against JAX's mutated
+    ``batch_stats``; they stay float32."""
+    jmodel, variables, model = bf16_vae
+    x = np.random.default_rng(12).uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    _, mutated = jax.jit(lambda v, a: jmodel.apply(
+        v, a, key, train=True, mutable=["batch_stats"]))(variables, jnp.asarray(x))
+    want, _ = _flat_items({"batch_stats": mutated["batch_stats"]})
+    port = copy.deepcopy(model).train()
+    eps = np.asarray(jax.random.normal(key, (4, 128)))
+    with torch.no_grad():
+        port(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(eps.copy()))
+    assert {b.dtype for b in port.buffers() if b.is_floating_point()} == {torch.float32}
+    got = conv_vae_jax_variables(port)
+    for key_, value in want.items():
+        value = np.asarray(value)
+        if key_.endswith(("/mean", "/var")):
+            np.testing.assert_allclose(got[key_], value, rtol=0,
+                                       atol=BF16_BN_STATS_OF_MAX * np.abs(value).max(),
+                                       err_msg=key_)
+        else:
+            np.testing.assert_allclose(got[key_], value, rtol=STATS_RTOL, atol=STATS_ATOL,
+                                       err_msg=key_)
+
+
 def test_checkpoint_decode_matches_jax():
     """Full width from the committed checkpoint at 256x256: dec_attn1 sees a
     64x64 map (N = 4096, flash), dec_attn0 a 32x32 one (N = 1024, dense)."""

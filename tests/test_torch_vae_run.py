@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from tinydiffusion_tpu.data.loader import BatchIterator as JaxBatchIterator
+from tinydiffusion_tpu.experiments import common as jax_common
+from tinydiffusion_tpu.experiments import vae_laion as jax_vae_laion
 from tinydiffusion_tpu.experiments.vae_laion import ConvVAETrainState as JaxState
 from tinydiffusion_tpu.experiments.vae_laion import VAELaionConfig as JaxConfig
 from tinydiffusion_tpu.experiments.vae_laion import load_images as jax_load_images
@@ -38,6 +40,9 @@ from tinydiffusion_torch.ops import attention
 # The decoder in both packages from the same npz, float32: summation order
 # through ~15 layers; the images are sigmoids in [0, 1].
 IMAGE_ATOL = 1e-4
+# The same in bfloat16: both round each layer's output to bf16, in other
+# orders (test_torch_vae_conv.py's bound for a bf16 model's images).
+BF16_IMAGE_ATOL = 2e-3
 
 
 def test_config_has_every_jax_flag():
@@ -178,8 +183,6 @@ def test_run_needs_a_card_unless_asked_for_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("data_placement", "device", "Queue 1"),
-    ("compute_dtype", "bfloat16", "Queue 2 #2"),
     ("offline", False, "offline"),
     ("perceptual", "vgg19", "seeded"),
 ])
@@ -191,3 +194,137 @@ def test_run_refuses_what_is_not_ported(field, value, match, tmp_path):
 def test_vgg16_perceptual_needs_a_weights_file(tmp_path):
     with pytest.raises(ValueError, match="perceptual-weights"):
         vae_laion.run(_run_config(tmp_path, perceptual="vgg16"))
+
+
+# --- the resident path and bfloat16 ------------------------------------------------
+
+
+class _Resolved(Exception):
+    """Stops a run where it has resolved its data placement."""
+
+
+@pytest.mark.parametrize("placement", ["auto", "host", "device"])
+def test_both_runs_take_the_same_path_for_the_same_flags(tmp_path, monkeypatch, placement):
+    """JAX's ``run`` and the port's resolve the placement from the train
+    split's bytes; both are stopped there and their decisions compared.
+    ``"auto"`` is resident: the set fits."""
+    seen = {}
+
+    def recorder(side, resolve):
+        def record(placement, dataset_bytes, *args, **kwargs):
+            seen[side] = (resolve(placement, dataset_bytes, *args, **kwargs), dataset_bytes)
+            raise _Resolved
+        return record
+
+    monkeypatch.setattr(jax_common, "resolve_data_placement",
+                        recorder("jax", jax_common.resolve_data_placement))
+    monkeypatch.setattr(vae_laion, "resolve_data_placement",
+                        recorder("port", vae_laion.resolve_data_placement))
+    small = dict(image_size=32, n_records=20, batch_size=2, latent_dim=16,
+                 data_placement=placement)
+    with pytest.raises(_Resolved):
+        jax_vae_laion.run(JaxConfig(use_mesh=False, out_dir=str(tmp_path / "jax"),
+                                    image_cache_dir=str(tmp_path / "cache"),
+                                    failed_urls_cache=str(tmp_path / "failed.json"), **small))
+    with pytest.raises(_Resolved):
+        vae_laion.run(_run_config(tmp_path, **small))
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][0] == (placement != "host")
+
+
+def _metrics(config: VAELaionConfig) -> tuple[list, list]:
+    with open(os.path.join(config.out_dir, "vae_laion", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return ([r["batch_train_loss"] for r in records if "bce" in r],
+            [r["test_loss"] for r in records if "test_loss" in r])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_resident_run_equals_the_host_run(tmp_path, compute_dtype):
+    """On the CPU the resident path runs the same step eagerly on batches
+    gathered from the pinned set: every step's loss, the val losses (the
+    resident pass against the streamed one) and the final weights equal the
+    host path's. 32x32: every attention site dense, a fast step."""
+    small = dict(image_size=32, n_records=20, batch_size=2, latent_dim=16, log_interval=1,
+                 compute_dtype=compute_dtype)
+    runs = {}
+    for placement in ("host", "device"):
+        config = _run_config(tmp_path / placement, data_placement=placement, **small)
+        result = vae_laion.run(config)
+        runs[placement] = (result, *_metrics(config))
+    (host, host_steps, host_val), (dev, dev_steps, dev_val) = runs["host"], runs["device"]
+    assert not host["resident"] and dev["resident"]
+    assert dev["graph"] == {"eager": 6, "captures": 0, "replays": 0}
+    assert len(dev_steps) == 6 and dev_steps == host_steps
+    assert dev_val == host_val and dev["test_losses"] == host["test_losses"]
+    a, b = host["state"].model.state_dict(), dev["state"].model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _with_zero_image(monkeypatch, *where: int) -> None:
+    """``load_images`` with the images ``where`` all zeros (failed downloads)."""
+    load = vae_laion.load_images
+
+    def load_with_zero(config):
+        images = load(config).copy()
+        images[list(where)] = 0
+        return images
+
+    monkeypatch.setattr(vae_laion, "load_images", load_with_zero)
+
+
+def test_resident_set_excludes_an_all_zero_image_once(tmp_path, monkeypatch, capsys):
+    """JAX's rule: the resident set leaves all-zero images out once, when it
+    is pinned (the host path skips a batch that holds one, each epoch)."""
+    _with_zero_image(monkeypatch, 5)  # in the train split (the first 2 are val)
+    small = dict(image_size=32, n_records=20, batch_size=2, latent_dim=16, epochs=1,
+                 max_steps_per_epoch=0, data_placement="device")
+    result = vae_laion.run(_run_config(tmp_path, **small))
+    out = capsys.readouterr().out
+    assert out.count("Excluding 1 all-zero images from the device-resident set.") == 1
+    assert result["state"].step == (18 - 1) // 2  # 17 images pinned, 8 full batches
+
+
+def test_val_split_with_an_all_zero_image_stays_streamed(tmp_path, monkeypatch, capsys):
+    """A val split holding an all-zero image keeps the host-streamed val pass
+    and its all-zero-batch skip, on the resident path as on the host's: the
+    same val losses."""
+    _with_zero_image(monkeypatch, 0, 1)  # the first val batch
+    small = dict(image_size=32, n_records=40, batch_size=2, latent_dim=16, epochs=1)
+    losses = {}
+    for placement in ("host", "device"):
+        result = vae_laion.run(_run_config(tmp_path / placement, data_placement=placement,
+                                           **small))
+        losses[placement] = result["test_losses"]
+    out = capsys.readouterr().out
+    assert out.count("val split contains all-zero images; keeping the host-streamed") == 1
+    assert "Batch 0 contains all-zero images, skipping." in out
+    assert losses["device"] == losses["host"]
+
+
+def test_bf16_run_writes_a_checkpoint_jax_reads(tmp_path):
+    """A bfloat16 resident run at 64x64: its npz restores into JAX's
+    ConvVAE(dtype=bfloat16), whose decode of the restored weights agrees with
+    the port's bf16 model (the bf16 noise of test_torch_vae_conv's bound)."""
+    config = _run_config(tmp_path, image_size=64, n_records=20, batch_size=2, epochs=1,
+                         max_steps_per_epoch=2, compute_dtype="bfloat16",
+                         data_placement="device")
+    result = vae_laion.run(config)
+    model = result["state"].model
+    assert model.dtype == torch.bfloat16
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    jmodel = JaxConvVAE(latent_dim=128, image_size=64, dtype=jnp.bfloat16)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), jax.random.PRNGKey(1), train=False))
+    template = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+    variables = restore_weights(os.path.join(config.checkpoint_dir, "vae_laion_best"), template)
+    z = np.random.default_rng(2).standard_normal((2, 128)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v, a: jmodel.apply(
+        v, a, train=False, method=JaxConvVAE.decode))(variables, jnp.asarray(z)))
+    assert want.dtype == np.float32 and np.isfinite(want).all()
+    served = ConvVAE(latent_dim=128, image_size=64, dtype=torch.bfloat16)
+    served.load_state_dict(vae_laion.load_conv_vae(
+        os.path.join(config.checkpoint_dir, "vae_laion_best"), device="cpu").state_dict())
+    with torch.no_grad():
+        got = served.eval().decode(torch.from_numpy(z)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, atol=BF16_IMAGE_ATOL)

@@ -54,6 +54,7 @@ from tinydiffusion_torch.obs.metrics import MetricsLogger, Throughput
 from tinydiffusion_torch.train.trainer import (
     DiffusionTrainState,
     create_train_state,
+    keyed_normal,
     make_resident_eval,
     make_resident_steps,
 )
@@ -138,12 +139,6 @@ def make_vae_resident_step(dataset: DeviceDataset) -> Callable:
     return make_resident_steps(dataset, lambda state, x, eps=None: body(state, x, eps))
 
 
-def _test_eps(key: tuple[int, int], batch: int, latent_dim: int,
-              device: torch.device) -> torch.Tensor:
-    rng = np.random.default_rng([int(key[0]), int(key[1])])
-    return torch.from_numpy(rng.standard_normal((batch, latent_dim), np.float32)).to(device)
-
-
 def make_vae_eval_step() -> Callable:
     """``eval_step(model, x, key, y=None) -> loss`` (JAX's
     ``make_vae_eval_step``'s loss): the reparameterising noise of ``key`` =
@@ -152,7 +147,7 @@ def make_vae_eval_step() -> Callable:
 
     @torch.no_grad()
     def eval_step(model: VAEMnist, x: torch.Tensor, key: tuple[int, int], y=None):
-        recon, mu, logvar = model(x, _test_eps(key, x.shape[0], model.latent_dim, x.device))
+        recon, mu, logvar = model(x, keyed_normal(key, (x.shape[0], model.latent_dim), x.device))
         return vae_loss(recon, x, mu, logvar)
 
     return eval_step
@@ -270,8 +265,8 @@ def run(config: VAEExperimentConfig) -> dict:
         result["test_losses"].append(avg_test_loss)
         n_img = config.n_images_to_log
         with torch.no_grad():
-            eps0 = _test_eps((config.seed + 7, epoch * TEST_FOLD_STRIDE), len(x_first),
-                             config.latent_dim, device)
+            eps0 = keyed_normal((config.seed + 7, epoch * TEST_FOLD_STRIDE),
+                                (len(x_first), config.latent_dim), device)
             recon0, _, _ = model(x_first, eps0)
         originals = (x_first[:n_img].reshape(-1, 28, 28, 1).cpu().numpy() + 1) / 2
         recons = recon0[:n_img].reshape(-1, 28, 28, 1).cpu().numpy()

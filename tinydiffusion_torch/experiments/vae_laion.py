@@ -8,7 +8,17 @@ batches skipped; a held-out 10 % split evaluated each epoch with an
 original-vs-reconstructed panel and the best checkpoint kept on its loss;
 16 prior samples at the end. Every flash-attention site of the train step
 runs the CUDA forward and backward kernels on a card
-(``ops.attention._FlashT``).
+(``ops.attention._FlashT``), their bfloat16 instantiations with
+``--compute-dtype bfloat16``.
+
+Data placement, JAX's rule (``experiments.common.resolve_data_placement``):
+``"auto"`` (the default) keeps the uint8 train set on the device whenever it
+fits (10 000 images at 256² are 1.97 GB), with all-zero images (failed
+downloads) excluded once, when it is pinned; each step gathers its batch
+there and, on a card, is a replay of one captured CUDA graph
+(``make_conv_vae_resident_step``, JAX's ``make_conv_vae_resident_step``);
+the val split is resident too when it holds no all-zero image. ``"host"``
+streams uint8 batches from the host and skips all-zero batches.
 
 Run on the card (the default) or, when asked, on the CPU::
 
@@ -22,18 +32,19 @@ The flags are the JAX CLI's, plus ``--device``. Serving::
     recon = reconstruct(model, x01, eps)  # x01 (B, 3, 256, 256) in [0, 1]
     samples = sample_prior(model, 16, torch.Generator("cuda").manual_seed(0))
 
-Precision: the model is trained and served in float32, so on a card
-``run`` and ``load_conv_vae`` turn TF32 off for cuDNN convolutions and for
-matmuls (process-wide backend flags): PyTorch lets cuDNN convolve float32
-in TF32 by default, which keeps only ~3 decimal digits.
+Precision: the model is served and, by default, trained in float32, so on
+a card ``run`` and ``load_conv_vae`` turn TF32 off for cuDNN convolutions
+and for matmuls (process-wide backend flags): PyTorch lets cuDNN convolve
+float32 in TF32 by default, which keeps only ~3 decimal digits.
 
 Stated deviations from the JAX run (torch cannot draw JAX's bits):
 
 - the perceptual net's seeded init draws flax's distribution from a torch
   generator, so its weights differ from JAX's ``PRNGKey(123)`` ones;
 - the reparameterisation noise comes from a ``torch.Generator`` on the
-  model's device (``ConvVAETrainState.generator``), the eval noise from one
-  seeded with ``(seed + 5, epoch)`` (JAX: ``fold_in(PRNGKey(seed + 5),
+  model's device (``ConvVAETrainState.generator``), each val batch's from a
+  host generator seeded with ``(seed + 5, epoch * 1000 + i)``
+  (``train.trainer.keyed_normal``; JAX: ``fold_in(PRNGKey(seed + 5),
   epoch * 1000 + i)``), the final samples' latents from one seeded with
   ``seed + 2``;
 - the model's init is torch's default (JAX: flax init from ``PRNGKey(seed)``).
@@ -49,15 +60,21 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
 from tinydiffusion_torch.compat.vgg import load_vgg16_perceptual
+from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data.laion import synthesize_image
 from tinydiffusion_torch.data.loader import BatchIterator
 from tinydiffusion_torch.device import disable_tf32, resolve_device
-from tinydiffusion_torch.experiments.common import add_config_flags, config_from_args
+from tinydiffusion_torch.experiments.common import (
+    add_config_flags,
+    config_from_args,
+    resolve_data_placement,
+)
 from tinydiffusion_torch.io.checkpoint import (
     BestKeeper,
     checkpoint_exists,
@@ -75,7 +92,13 @@ from tinydiffusion_torch.models.vae_conv import (
 )
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import LossAccumulator, MetricsLogger
-from tinydiffusion_torch.train.trainer import clip_by_global_norm_
+from tinydiffusion_torch.train.trainer import (
+    clip_by_global_norm_,
+    keyed_normal,
+    load_optimizer_state_,
+    make_resident_eval,
+    make_resident_steps,
+)
 
 
 @dataclasses.dataclass
@@ -91,9 +114,10 @@ class VAELaionConfig:
     - ``hidden_channels``, ``image_cache_dir`` and ``failed_urls_cache``
       have no effect: the JAX model ignores the first too, and the port
       makes its images in memory, with no cache.
-    - ``data_placement``: ``"auto"`` and ``"host"`` stream uint8 batches
-      from the host; ``"device"`` is not ported yet and raises.
-    - ``compute_dtype``: ``"float32"`` only; ``"bfloat16"`` raises.
+    - ``data_placement``: JAX's rule; ``"auto"`` and ``"device"`` keep the
+      train set (and an all-nonzero val split) on the device.
+    - ``compute_dtype``: ``"float32"`` or ``"bfloat16"`` (the model's and
+      the perceptual net's flax ``dtype``; the params stay float32).
     - ``offline=False`` (the online LAION dataset) raises: the port has no
       network path.
     """
@@ -127,21 +151,19 @@ class VAELaionConfig:
     device: str = "cuda"
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The val pass's noise key: (seed + 5, epoch * VAL_FOLD_STRIDE + batch), JAX's
+# fold_in(PRNGKey(seed + 5), epoch * 1000 + i).
+VAL_FOLD_STRIDE = 1000
+
+
 def _check_config(config: VAELaionConfig) -> None:
     if config.data_placement not in ("host", "device", "auto"):
         raise ValueError(
             f"data_placement={config.data_placement!r}; choose 'host', 'device', or 'auto'")
-    if config.data_placement == "device":
-        raise NotImplementedError(
-            "data_placement='device' (the image set resident on the card, the conv-VAE's "
-            "make_conv_vae_resident_step) is not ported yet: ROADMAP.md, Queue 1, 'resident "
-            "data placement and CUDA graphs'. Use 'host' or 'auto'.")
-    if config.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' for the conv-VAE needs the bf16 flash kernels, which "
-            "are not ported yet: ROADMAP.md, Queue 2 #2. Use 'float32'.")
-    if config.compute_dtype != "float32":
-        raise ValueError(f"compute_dtype={config.compute_dtype!r}; choose 'float32'")
+    if config.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype={config.compute_dtype!r}; choose 'float32' or 'bfloat16'")
     if not config.offline:
         raise NotImplementedError(
             "offline=False loads the online LAION dataset, which the port does not have; "
@@ -160,6 +182,8 @@ class ConvVAETrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator  # on the model's device: the z noise
     step: int = 0
+    # Bumped by ``load_state_dict``: a resident step captures its graph again.
+    restores: int = 0
 
     def state_dict(self) -> dict:
         return {
@@ -170,10 +194,13 @@ class ConvVAETrainState:
         }
 
     def load_state_dict(self, sd: dict) -> None:
+        """Restore a ``state_dict``; the optimizer keeps its own
+        ``capturable`` (``train.trainer.load_optimizer_state_``)."""
         self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        load_optimizer_state_(self.optimizer, sd["optimizer"])
         self.step = int(sd["step"])
         self.generator.set_state(sd["generator"])
+        self.restores += 1
 
     def jax_weights(self) -> dict[str, np.ndarray]:
         """The JAX npz keys: ``params``, ``batch_stats`` (BN statistics and
@@ -189,10 +216,38 @@ def create_train_state(model: ConvVAE, optimizer: torch.optim.Optimizer,
     return ConvVAETrainState(model, optimizer, torch.Generator(device).manual_seed(seed))
 
 
-def make_optimizer(model: ConvVAE, learning_rate: float) -> torch.optim.Adam:
+def make_optimizer(model: ConvVAE, learning_rate: float,
+                   capturable: bool = False) -> torch.optim.Adam:
     """optax ``adam(lr)``'s defaults: betas 0.9 / 0.999, eps 1e-8. The clip
-    that precedes it in the chain is in the step (``clip_by_global_norm_``)."""
-    return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    that precedes it in the chain is in the step (``clip_by_global_norm_``).
+    ``capturable=True`` keeps Adam's step count on the device, as a step
+    captured in a CUDA graph needs."""
+    return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
+
+
+def _conv_vae_step_body(perceptual: PerceptualNet, beta: float, clip_norm: float):
+    """``body(state, x, eps=None) -> (loss, components)``: one step's device
+    work (JAX's ``_conv_vae_raw_step``), without the host's ``state.step``
+    count, so that a CUDA graph can capture it."""
+
+    def body(state: ConvVAETrainState, x: torch.Tensor, eps: torch.Tensor | None = None):
+        model = state.model
+        model.train()
+        if eps is None:
+            eps = torch.randn(x.shape[0], model.latent_dim, generator=state.generator,
+                              device=x.device)
+        recon, mu, logvar = model(x, eps)
+        total, components = conv_vae_loss(recon, x, mu, logvar, perceptual(recon),
+                                          perceptual(x), beta)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        if clip_norm:
+            clip_by_global_norm_(model.parameters(), clip_norm)
+        state.optimizer.step()
+        return total.detach(), {k: v.detach() for k, v in components.items()}
+
+    return body
 
 
 def make_conv_vae_train_step(perceptual: PerceptualNet, beta: float, clip_norm: float = 10.0):
@@ -207,25 +262,38 @@ def make_conv_vae_train_step(perceptual: PerceptualNet, beta: float, clip_norm: 
     draw from ``state.generator``: the seam the tests use to give the port
     JAX's noise. The loss and components come back as device tensors.
     """
+    body = _conv_vae_step_body(perceptual, beta, clip_norm)
 
     def step(state: ConvVAETrainState, x: torch.Tensor, eps: torch.Tensor | None = None):
-        model = state.model
-        model.train()
-        if eps is None:
-            eps = torch.randn(x.shape[0], model.latent_dim, generator=state.generator,
-                              device=x.device)
-        recon, mu, logvar = model(x, eps)
-        total, components = conv_vae_loss(recon, x, mu, logvar, perceptual(recon),
-                                          perceptual(x), beta)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if clip_norm:
-            clip_by_global_norm_(model.parameters(), clip_norm)
-        state.optimizer.step()
+        out = body(state, x, eps)
         state.step += 1
-        return total.detach(), {k: v.detach() for k, v in components.items()}
+        return out
 
     return step
+
+
+# The loss components a step returns beside its loss.
+COMPONENTS = ("bce", "perceptual", "kld", "logvar_max", "mu_absmax")
+
+
+def make_conv_vae_resident_step(perceptual: PerceptualNet, beta: float, clip_norm: float,
+                                dataset: DeviceDataset) -> Callable:
+    """Training over the resident image set (JAX's
+    ``make_conv_vae_resident_step``): ``step(state, idxs, eps=None) ->
+    (losses, components)``, ``losses`` (K,) and each of ``COMPONENTS`` (K,)
+    on the device, one value a step. Each step gathers its uint8 NHWC batch
+    from ``dataset``, normalises it and goes to NCHW inside the step, then
+    runs the train step's body; on a card each is a replay of one captured
+    CUDA graph (``train.trainer.make_resident_steps``: the clip, the
+    spectral norms' ``u`` and ``sigma``, the BN statistics and the z draw
+    from the state's generator are inside it). On the CPU ``eps`` (K, B,
+    latent_dim) may replace the draws."""
+    body = _conv_vae_step_body(perceptual, beta, clip_norm)
+
+    def batch_step(state, x: torch.Tensor, eps=None):
+        return body(state, x.permute(0, 3, 1, 2).contiguous(), eps)
+
+    return make_resident_steps(dataset, batch_step, outputs=COMPONENTS)
 
 
 def make_conv_vae_eval_step(perceptual: PerceptualNet, beta: float):
@@ -275,7 +343,8 @@ def _nonzero_batches(epoch_iter):
 
 
 def _perceptual_net(config: VAELaionConfig) -> PerceptualNet:
-    net = PerceptualNet(seed=123)  # JAX: PRNGKey(123) (vae_laion.py:244-249)
+    # JAX: PRNGKey(123) (vae_laion.py:244-249), in the compute dtype.
+    net = PerceptualNet(seed=123, dtype=COMPUTE_DTYPES[config.compute_dtype])
     if config.perceptual == "vgg16":
         if not config.perceptual_weights:
             raise ValueError("perceptual='vgg16' needs --perceptual-weights "
@@ -292,31 +361,62 @@ def _nhwc(x: torch.Tensor) -> np.ndarray:
 def run(config: VAELaionConfig) -> dict:
     """Train, evaluate, checkpoint and sample as the config says. Returns
     ``test_losses`` (per epoch), ``epochs`` (per epoch: ``train_seconds``,
-    ``images_per_sec``, ``steps``), the metrics ``logger`` path and the final
-    ``state``."""
+    ``images_per_sec``, ``steps``), ``resident``, ``graph`` (the resident
+    step's counts of eager steps, captures and replays; None on the host
+    path) and the final ``state``."""
     _check_config(config)
     device = resolve_device(config.device)
     if device.type == "cuda":
         disable_tf32()
+    dtype = COMPUTE_DTYPES[config.compute_dtype]
 
     with torch.random.fork_rng(devices=[]):  # seeded init, global RNG untouched
         torch.manual_seed(config.seed)
         model = ConvVAE(config.latent_dim, config.input_channels, config.image_size,
-                        use_flash_attention=config.use_flash_attention)
+                        use_flash_attention=config.use_flash_attention, dtype=dtype)
     model = model.to(device)
     perceptual = _perceptual_net(config).to(device)
-    state = create_train_state(model, make_optimizer(model, config.learning_rate), config.seed)
-    train_step = make_conv_vae_train_step(perceptual, config.beta, config.clip_norm)
-    eval_step = make_conv_vae_eval_step(perceptual, config.beta)
-
     train_images, val_images = split_train_val(load_images(config))
+    resident = resolve_data_placement(config.data_placement, train_images.nbytes, "vae_laion")
+    # A captured step needs Adam's step count on the device.
+    optimizer = make_optimizer(model, config.learning_rate,
+                               capturable=resident and device.type == "cuda")
+    state = create_train_state(model, optimizer, config.seed)
+    eval_step = make_conv_vae_eval_step(perceptual, config.beta)
+    b = config.batch_size
     u8 = (1.0 / 255.0, 0.0)  # ToTensor: [0, 1]
-    train_it = BatchIterator([train_images], config.batch_size, shuffle=True,
-                             seed=config.seed, u8_normalize=u8)
-    val_it = BatchIterator([val_images], config.batch_size, shuffle=False, u8_normalize=u8)
+    val_it = BatchIterator([val_images], b, shuffle=False, u8_normalize=u8)
+    resident_eval = None
+    if resident:
+        # The host path skips all-zero batches per step (failed downloads);
+        # the resident set leaves all-zero images out once, as JAX's does.
+        nonzero = train_images.reshape(len(train_images), -1).any(axis=1)
+        if not nonzero.all():
+            print(f"Excluding {int((~nonzero).sum())} all-zero images from the "
+                  "device-resident set.")
+        train_data = DeviceDataset(train_images[nonzero], b, seed=config.seed, device=device,
+                                   u8_normalize=u8)
+        train_chunk = make_conv_vae_resident_step(perceptual, config.beta, config.clip_norm,
+                                                  train_data)
+        # The val split on the device too when no all-zero batch would be
+        # skipped, so that the resident pass sees the host pass's batches.
+        if val_images.reshape(len(val_images), -1).any(axis=1).all():
+            val_data = DeviceDataset(val_images, b, device=device, shuffle=False,
+                                     u8_normalize=u8)
+            resident_eval = make_resident_eval(
+                lambda m, x, key: eval_step(m, x.contiguous(), keyed_normal(
+                    key, (len(x), config.latent_dim), device))[0],
+                val_data, config.seed + 5, VAL_FOLD_STRIDE)
+        else:
+            print("val split contains all-zero images; keeping the host-streamed val pass "
+                  "(all-zero-batch-skip parity).")
+    else:
+        train_it = BatchIterator([train_images], b, shuffle=True, seed=config.seed,
+                                 u8_normalize=u8)
+        train_step = make_conv_vae_train_step(perceptual, config.beta, config.clip_norm)
 
     def to_nchw(batch) -> torch.Tensor:
-        (x,) = train_it.to_device(batch, device)
+        (x,) = val_it.to_device(batch, device)
         return x.permute(0, 3, 1, 2).contiguous()
 
     def synchronize():
@@ -326,7 +426,7 @@ def run(config: VAELaionConfig) -> dict:
     logger = MetricsLogger("vae_laion", config.out_dir, dataclasses.asdict(config))
     ckpt_path = f"{config.checkpoint_dir}/vae_laion_best"
     keeper = BestKeeper(ckpt_path)
-    result = {"test_losses": [], "epochs": []}
+    result = {"test_losses": [], "epochs": [], "resident": resident}
 
     start_epoch = 1
     if config.resume:
@@ -340,52 +440,102 @@ def run(config: VAELaionConfig) -> dict:
         else:
             print(f"--resume set but {ckpt_path} not found; starting fresh")
 
+    def log_batch(epoch: int, batch: int, step: int, loss: float, comp: dict) -> None:
+        if not all(np.isfinite(v) for v in comp.values()):
+            print(f"Loss components: {comp}")
+        logger.log({"epoch": epoch, "batch": batch, "batch_train_loss": loss / b, **comp},
+                   step=step)
+
     for epoch in range(start_epoch, config.epochs + 1):
         train_acc, n_seen = LossAccumulator(), 0
-        comp_acc: dict[str, LossAccumulator] = {}
+        comp_acc = {k: LossAccumulator() for k in COMPONENTS}
         synchronize()
         t0 = time.perf_counter()
-        for batch_idx, batch in enumerate(_nonzero_batches(train_it.epoch(epoch))):
-            if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
-                break
-            x = to_nchw(batch)
-            loss, components = train_step(state, x)
-            train_acc.add(loss)
-            # Every batch's components stay on the device (no sync): the
-            # 256x256 recipe's blow-ups land between log points.
-            for k, v in components.items():
-                comp_acc.setdefault(k, LossAccumulator()).add(v)
-            n_seen += len(x)
-            if batch_idx % config.log_interval == 0:
-                comp = {k: float(v) for k, v in components.items()}  # syncs, log points only
-                if not all(np.isfinite(v) for v in comp.values()):
-                    print(f"Loss components: {comp}")
-                logger.log({"epoch": epoch, "batch": batch_idx,
-                            "batch_train_loss": train_acc.last() / max(len(x), 1), **comp},
-                           step=state.step - 1)
+        if resident:
+            idxs = train_data.epoch_index_batches(epoch)
+            if config.max_steps_per_epoch:
+                idxs = idxs[: config.max_steps_per_epoch]
+
+            def drain(pending) -> None:
+                """One host read of a chunk: its first step's loss and
+                components are logged (JAX's ``_drain``)."""
+                start, step0, losses, comps = pending
+                first = torch.stack([losses[0], *(comps[k][0] for k in COMPONENTS)]).tolist()
+                log_batch(epoch, start, step0, first[0], dict(zip(COMPONENTS, first[1:])))
+
+            # One chunk in flight: chunk i + 1 is queued before chunk i is read.
+            pending = None
+            for start in range(0, len(idxs), config.log_interval):
+                chunk = idxs[start : start + config.log_interval]
+                losses, comps = train_chunk(state, chunk)
+                train_acc.add(losses)
+                for k in COMPONENTS:  # every step's, for the epoch maxima
+                    comp_acc[k].add(comps[k])
+                n_seen += len(chunk) * b
+                if pending is not None:
+                    drain(pending)
+                pending = (start, state.step - len(chunk), losses, comps)
+            if pending is not None:
+                drain(pending)
+        else:
+            for batch_idx, batch in enumerate(_nonzero_batches(train_it.epoch(epoch))):
+                if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
+                    break
+                x = to_nchw(batch)
+                loss, components = train_step(state, x)
+                train_acc.add(loss)
+                # Every batch's components stay on the device (no sync): the
+                # 256x256 recipe's blow-ups land between log points.
+                for k, v in components.items():
+                    comp_acc[k].add(v)
+                n_seen += len(x)
+                if batch_idx % config.log_interval == 0:
+                    comp = {k: float(v) for k, v in components.items()}  # syncs, log points only
+                    log_batch(epoch, batch_idx, state.step - 1, float(loss), comp)
         synchronize()
         train_seconds = time.perf_counter() - t0
         images_per_sec = n_seen / train_seconds if train_seconds > 0 else 0.0
         avg_train = train_acc.sum() / max(n_seen, 1)
-        comp_max = {f"{k}_epoch_max": float(np.max(acc.values())) for k, acc in comp_acc.items()}
+        comp_max = {f"{k}_epoch_max": float(np.max(acc.values()))
+                    for k, acc in comp_acc.items() if acc.count}
 
         # The val pass: finite batches only (vae_laion.py:523-545).
-        eval_gen = torch.Generator(device).manual_seed((config.seed + 5) * 100_000 + epoch)
         test_acc, test_sizes = LossAccumulator(), []
-        for i, batch in enumerate(_nonzero_batches(val_it.epoch())):
-            if config.max_steps_per_epoch and i >= config.max_steps_per_epoch:
-                break
-            x = to_nchw(batch)
-            eps = torch.randn(len(x), config.latent_dim, generator=eval_gen, device=device)
-            loss, recon = eval_step(model, x, eps)
-            test_acc.add(loss)
-            test_sizes.append(len(x))
-            if i == 0:
-                n_img = min(config.n_images_to_log, len(x))
-                panel = np.concatenate([_nhwc(x[:n_img]), _nhwc(recon[:n_img])], axis=0)
-                panel_path = f"{config.out_dir}/original_vs_reconstructed_epoch_{epoch}.png"
-                save_image_grid(panel, panel_path, nrow=n_img, normalize=False)
-                logger.log_image("original_vs_reconstructed", panel_path)
+        panel = None
+        if resident_eval is not None:
+            vidxs = val_data.epoch_index_batches(0)
+            if config.max_steps_per_epoch:
+                vidxs = vidxs[: config.max_steps_per_epoch]
+            if len(vidxs):
+                test_acc.add(resident_eval(model, epoch, vidxs))
+                test_sizes = [b] * len(vidxs)
+            # The panel from one streamed first batch: the pass returns losses only.
+            first = next(iter(val_it.epoch()), None)
+            if first is not None:
+                x = to_nchw(first)
+                key = (config.seed + 5, epoch * VAL_FOLD_STRIDE)
+                _, recon = eval_step(model, x, keyed_normal(key, (len(x), config.latent_dim),
+                                                            device))
+                panel = (x, recon)
+        else:
+            for i, batch in enumerate(_nonzero_batches(val_it.epoch())):
+                if config.max_steps_per_epoch and i >= config.max_steps_per_epoch:
+                    break
+                x = to_nchw(batch)
+                key = (config.seed + 5, epoch * VAL_FOLD_STRIDE + i)
+                loss, recon = eval_step(model, x, keyed_normal(
+                    key, (len(x), config.latent_dim), device))
+                test_acc.add(loss)
+                test_sizes.append(len(x))
+                if i == 0:
+                    panel = (x, recon)
+        if panel is not None:
+            x, recon = panel
+            n_img = min(config.n_images_to_log, len(x))
+            grid = np.concatenate([_nhwc(x[:n_img]), _nhwc(recon[:n_img])], axis=0)
+            panel_path = f"{config.out_dir}/original_vs_reconstructed_epoch_{epoch}.png"
+            save_image_grid(grid, panel_path, nrow=n_img, normalize=False)
+            logger.log_image("original_vs_reconstructed", panel_path)
         eval_bad = 0
         if not test_sizes:
             # A tiny config can leave the val split without a full batch:
@@ -417,6 +567,7 @@ def run(config: VAELaionConfig) -> dict:
     samples_path = f"{config.out_dir}/generated_samples.png"
     save_image_grid(_nhwc(samples), samples_path, nrow=4, normalize=False)
     logger.log_image("generated_samples", samples_path)
+    result["graph"] = dict(train_chunk.counts) if resident else None
     result["state"] = state
     logger.finish()
     return result

@@ -25,6 +25,14 @@ Where the NCHW port must differ in mechanics to keep the JAX numbers:
   carries JAX's weights across when the two must agree.
 - The JAX ``SelfAttention2D`` falls back to dense attention when the flash
   path raises. The port does not: an error in the kernel is an error.
+
+``dtype`` is flax's ``dtype=`` (JAX's ``compute_dtype``): the parameters stay
+float32 and each layer casts its input and its parameters to ``dtype`` where
+the flax layer does. With bfloat16 the convs, the 1x1 projections and the
+attention (the bf16 flash kernels) run in bf16, the BatchNorms keep float32
+statistics and emit bf16, and, as in JAX, ``fc_mu``, ``fc_logvar`` and
+``decoder_input`` (flax Dense layers of no dtype, which promote to float32),
+the reparameterisation and the final sigmoid stay float32.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusion_torch.nn.layers import BatchNorm2d, SpectralNorm
@@ -50,31 +59,35 @@ class ConvVAEConfig:
 
 
 class _Proj1x1T(nn.Module):
-    """1x1 projection of a (B, C, N) map to (B, F, N): weight (F, C), bias (F,)."""
+    """1x1 projection of a (B, C, N) map to (B, F, N): weight (F, C), bias (F,),
+    computed in ``dtype`` (input, weight and bias cast, as JAX's ``_Proj1x1T``)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         bound = in_features ** -0.5  # torch's default Conv2d/Linear init range
         self.weight = nn.Parameter(torch.empty(features, in_features).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.empty(features).uniform_(-bound, bound))
+        self.dtype = dtype
 
     def forward(self, xt: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(self.weight, xt) + self.bias[:, None]
+        dt = self.dtype
+        return torch.matmul(self.weight.to(dt), xt.to(dt)) + self.bias.to(dt)[:, None]
 
 
 class SelfAttention2D(nn.Module):
     """vae_laion.py:50-65: q, k (C -> C/8), v (C -> C) 1x1 projections,
     unscaled ``softmax(Q K^T) V`` over the H*W tokens, ``gamma * attn + x``
-    with a learnable scalar ``gamma`` (init 0). ``use_flash=False`` takes
-    the dense path at every N, as in JAX."""
+    with a learnable scalar ``gamma`` (init 0, float32; the product runs in
+    x's dtype, as JAX's ``gamma.astype(x.dtype)``). ``use_flash=False``
+    takes the dense path at every N, as in JAX."""
 
-    def __init__(self, channels: int, use_flash: bool = True):
+    def __init__(self, channels: int, use_flash: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.use_flash = use_flash
         d = max(channels // 8, 1)
-        self.query = _Proj1x1T(channels, d)
-        self.key = _Proj1x1T(channels, d)
-        self.value = _Proj1x1T(channels, channels)
+        self.query = _Proj1x1T(channels, d, dtype)
+        self.key = _Proj1x1T(channels, d, dtype)
+        self.value = _Proj1x1T(channels, channels, dtype)
         self.gamma = nn.Parameter(torch.zeros(1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -82,18 +95,20 @@ class SelfAttention2D(nn.Module):
         xt = x.reshape(b, c, h * w)  # (B, C, N): the kernel's layout, no copy
         attend = attention.flash_attention_unscaled_t if self.use_flash else attention._dense_t
         attn_t = attend(self.query(xt), self.key(xt), self.value(xt))
-        return self.gamma * attn_t.reshape(b, c, h, w) + x
+        return self.gamma.to(x.dtype) * attn_t.reshape(b, c, h, w) + x
 
 
 class ResidualBlockSN(nn.Module):
     """vae_laion.py:69-85: SN conv -> BN -> ReLU -> SN conv -> BN, + residual.
     The BatchNorms keep flax's running statistics (biased variance)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = SpectralNorm(nn.Conv2d(features, features, 3, padding=1, bias=False))
+        self.conv1 = SpectralNorm(nn.Conv2d(features, features, 3, padding=1, bias=False),
+                                  dtype=dtype)
         self.bn1 = BatchNorm2d(features)
-        self.conv2 = SpectralNorm(nn.Conv2d(features, features, 3, padding=1, bias=False))
+        self.conv2 = SpectralNorm(nn.Conv2d(features, features, 3, padding=1, bias=False),
+                                  dtype=dtype)
         self.bn2 = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -108,27 +123,32 @@ class ConvVAE(nn.Module):
     ResidualBlockSN after each, SelfAttention2D after stages 0-1, then
     ``fc_mu``/``fc_logvar`` on the flattened 256 x (S/16)^2 map. Decoder: the
     mirror image with transposed convs 256->128->64->32->3 and a sigmoid.
-    ``use_flash_attention=False`` runs every attention site dense.
+    ``use_flash_attention=False`` runs every attention site dense. ``dtype``
+    is the compute dtype (float32 or bfloat16; the module docstring).
     """
 
     WIDTHS = (32, 64, 128, 256)
 
     def __init__(self, latent_dim: int = 128, input_channels: int = 3, image_size: int = 256,
-                 use_flash_attention: bool = True):
+                 use_flash_attention: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         if image_size % 16:
             raise ValueError(f"image_size must be a multiple of 16, not {image_size}")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, not {dtype}")
+        self.dtype = dtype
         self.latent_dim = latent_dim
         self.input_channels = input_channels
         self.image_size = image_size
         widths = self.WIDTHS
         enc_in = (input_channels, *widths[:-1])
         self.enc_convs = nn.ModuleList(
-            SpectralNorm(nn.Conv2d(i, o, 4, stride=2, padding=1)) for i, o in zip(enc_in, widths)
+            SpectralNorm(nn.Conv2d(i, o, 4, stride=2, padding=1), dtype=dtype)
+            for i, o in zip(enc_in, widths)
         )
-        self.enc_res = nn.ModuleList(ResidualBlockSN(w) for w in widths)
+        self.enc_res = nn.ModuleList(ResidualBlockSN(w, dtype) for w in widths)
         self.enc_attn = nn.ModuleList(
-            SelfAttention2D(w, use_flash_attention) for w in widths[:2])
+            SelfAttention2D(w, use_flash_attention, dtype) for w in widths[:2])
         flat = widths[-1] * self._spatial**2
         self.fc_mu = nn.Linear(flat, latent_dim)
         self.fc_logvar = nn.Linear(flat, latent_dim)
@@ -136,39 +156,41 @@ class ConvVAE(nn.Module):
         dec_out = (128, 64, 32, input_channels)
         dec_in = (widths[-1], *dec_out[:-1])
         self.dec_convs = nn.ModuleList(
-            SpectralNorm(nn.ConvTranspose2d(i, o, 4, stride=2, padding=1))
+            SpectralNorm(nn.ConvTranspose2d(i, o, 4, stride=2, padding=1), dtype=dtype)
             for i, o in zip(dec_in, dec_out)
         )
-        self.dec_res = nn.ModuleList(ResidualBlockSN(w) for w in dec_out[:3])
+        self.dec_res = nn.ModuleList(ResidualBlockSN(w, dtype) for w in dec_out[:3])
         self.dec_attn = nn.ModuleList(
-            SelfAttention2D(w, use_flash_attention) for w in dec_out[:2])
+            SelfAttention2D(w, use_flash_attention, dtype) for w in dec_out[:2])
 
     @property
     def _spatial(self) -> int:
         return self.image_size // 16
 
     def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """x (B, C, S, S) in [0, 1] -> (mu, logvar), each (B, latent_dim)."""
-        h = x
+        """x (B, C, S, S) in [0, 1] -> (mu, logvar), each (B, latent_dim) float32."""
+        h = x.to(self.dtype)
         for i in range(4):
             h = self.enc_res[i](torch.relu(self.enc_convs[i](h)))
             if i < 2:
                 h = self.enc_attn[i](h)
-        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # NHWC order, as JAX
+        # NHWC order, as JAX; fc_mu and fc_logvar promote to float32.
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1).float()
         # logvar clamp: see the JAX ConvVAE.encode for why +10.
         return self.fc_mu(h), torch.clamp(self.fc_logvar(h), -30.0, 10.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """z (B, latent_dim) -> images (B, C, S, S) in [0, 1]."""
+        """z (B, latent_dim) -> images (B, C, S, S) in [0, 1], float32."""
         s = self._spatial
         h = self.decoder_input(z).reshape(-1, s, s, self.WIDTHS[-1]).permute(0, 3, 1, 2)
+        h = h.to(self.dtype)
         for i in range(4):
             h = self.dec_convs[i](h)
             if i < 3:
                 h = self.dec_res[i](torch.relu(h))
                 if i < 2:
                     h = self.dec_attn[i](h)
-        return torch.sigmoid(h)
+        return torch.sigmoid(h.float())
 
     def forward(self, x: torch.Tensor, eps: torch.Tensor):
         """``(recon, mu, logvar)`` of x (B, C, S, S) in [0, 1], with z drawn
@@ -200,12 +222,15 @@ class PerceptualNet(nn.Module):
     them, but gradients flow through it to its input. ``seed`` draws flax's
     he_normal kernels (zero biases) from a torch generator: the offline
     substitute for the pretrained VGG16. ``compat.vgg`` loads the real one.
+    ``dtype`` is flax's ``dtype=``: each conv casts its input, kernel and
+    bias to it, so the features come out in ``dtype``.
     """
 
     WIDTHS = ((64, 64), (128, 128), (256, 256, 256))
 
-    def __init__(self, seed: int = 123):
+    def __init__(self, seed: int = 123, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         generator = torch.Generator().manual_seed(seed)
         c_in = 3
         for stage, widths in enumerate(self.WIDTHS):
@@ -220,12 +245,15 @@ class PerceptualNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, 3, S, S) -> features (B, 256, S/4, S/4)."""
+        dt = self.dtype
         h = x
         for stage, widths in enumerate(self.WIDTHS):
             for i in range(len(widths)):
-                h = torch.relu(getattr(self, f"conv{stage}_{i}")(h))
+                conv = getattr(self, f"conv{stage}_{i}")
+                h = torch.relu(F.conv2d(h.to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                                        padding=1))
             if stage < 2:
-                h = torch.nn.functional.max_pool2d(h, 2, 2)
+                h = F.max_pool2d(h, 2, 2)
         return h
 
 

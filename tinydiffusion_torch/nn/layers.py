@@ -43,6 +43,11 @@ class SpectralNorm(nn.Module):
     """Wraps a ``Conv2d`` or ``ConvTranspose2d``: its weight is divided by a
     power-iteration estimate of its largest singular value on every call.
 
+    ``dtype`` is the wrapped flax conv's: the power iteration and the
+    division run on the float32 kernel (flax's ``SpectralNorm`` normalises
+    the parameter before the conv sees it), and the conv casts its input,
+    the normalised kernel and the bias to ``dtype`` and convolves there.
+
     Unlike ``torch.nn.utils.spectral_norm`` this repeats flax's arithmetic
     exactly: one iteration per call in train AND eval mode, from the stored
     ``u``, with ``_l2_normalize(x) = x * rsqrt(sum(x^2) + 1e-12)``. ``u`` and
@@ -51,10 +56,12 @@ class SpectralNorm(nn.Module):
     it is kept so that an exported checkpoint has every key a JAX one has.
     """
 
-    def __init__(self, layer: nn.Conv2d | nn.ConvTranspose2d, eps: float = 1e-12):
+    def __init__(self, layer: nn.Conv2d | nn.ConvTranspose2d, eps: float = 1e-12,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layer = layer
         self.eps = eps
+        self.dtype = dtype
         self.transposed = isinstance(layer, nn.ConvTranspose2d)
         # Output channels: dim 0 of a Conv2d weight, dim 1 of a ConvTranspose2d's.
         self.out_dim = 1 if self.transposed else 0
@@ -67,9 +74,12 @@ class SpectralNorm(nn.Module):
         if self.training:
             self.u.copy_(u_new)
             self.sigma.copy_(sigma.detach())
+        dt = self.dtype
+        x, weight = x.to(dt), weight.to(dt)
+        bias = None if layer.bias is None else layer.bias.to(dt)
         if self.transposed:
-            return F.conv_transpose2d(x, weight, layer.bias, layer.stride, layer.padding)
-        return F.conv2d(x, weight, layer.bias, layer.stride, layer.padding)
+            return F.conv_transpose2d(x, weight, bias, layer.stride, layer.padding)
+        return F.conv2d(x, weight, bias, layer.stride, layer.padding)
 
 
 def _flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
@@ -96,6 +106,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance, computed in float32. ``num_batches_tracked`` is kept for
     ``state_dict`` compatibility and never advanced (the momentum is fixed).
     Eval mode is torch's, which is flax's.
+
+    A bfloat16 input (a flax BatchNorm of ``dtype=bfloat16`` after a bf16
+    conv) is normalised with float32 statistics, scale and bias, and the
+    output comes back in bfloat16, as flax's does.
     """
 
     def __init__(self, num_features: int):

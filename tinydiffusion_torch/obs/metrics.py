@@ -80,27 +80,28 @@ class Throughput:
 
 class LossAccumulator:
     """Per-step loss scalars buffered as device tensors, without a sync per
-    step. ``last()`` reads one (a sync: log points only); ``sum()`` and
-    ``values()`` read them all in one copy, at epoch end."""
+    step: ``add`` takes one step's 0-d tensor or a chunk's (K,) tensor of
+    steps. ``last()`` reads the last one (a sync: log points only); ``sum()``
+    and ``values()`` read them all in one copy, at epoch end."""
 
     def __init__(self):
         self._vals: list = []
 
-    def add(self, loss) -> None:
-        self._vals.append(loss)
+    def add(self, loss: torch.Tensor) -> None:
+        self._vals.append(loss.reshape(-1))
 
     @property
     def count(self) -> int:
-        return len(self._vals)
+        return sum(len(v) for v in self._vals)
 
     def last(self) -> float:
-        return float(self._vals[-1]) if self._vals else 0.0
+        return float(self._vals[-1][-1]) if self._vals else 0.0
 
     def values(self) -> np.ndarray:
-        """Every buffered value (0-d tensors on one device) as a float64 host array."""
+        """Every buffered value (on one device) as a float64 host array."""
         if not self._vals:
             return np.zeros((0,), np.float64)
-        return torch.stack(self._vals).double().cpu().numpy()
+        return torch.cat(self._vals).double().cpu().numpy()
 
     def sum(self) -> float:
         return float(self.values().sum())

@@ -98,13 +98,19 @@ _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 # ``library()`` declares them all from this one table, and a test checks that
 # it names every launcher the sources define.
 SIGNATURES: dict[str, tuple] = {
-    # qt, kt, vt, out, lse, batch, n, d, c, stream
+    # qt, kt, vt, out, lse, batch, n, d, c, stream (float32; bfloat16 operands and out)
     "tdt_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tdt_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, batch, n, d, c, key_blocks, stream
+    # (float32; bfloat16 operands and gradients)
     "tdt_flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # d, c -> bytes of the kernel's dynamic shared memory (forward; backward pair kernel)
+    "tdt_flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # d, c -> bytes of the kernel's dynamic shared memory (forward; backward pair
+    # kernel), float32 and bfloat16
     "tdt_flash_fwd_smem_bytes": (_I, _I),
     "tdt_flash_bwd_smem_bytes": (_I, _I),
+    "tdt_flash_fwd_bf16_smem_bytes": (_I, _I),
+    "tdt_flash_bwd_bf16_smem_bytes": (_I, _I),
     # x0, t, sqrt_abar, sqrt_1m_abar, xt, z, batch, feat, num_timesteps, seed_ptr
     # (device int64, or null for the next argument), seed, stream
     "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _U64, _P),

@@ -19,6 +19,16 @@ counts the launch in ``flash_fwd_launches``; on a CPU
 tensor it runs the plain version ``flash_fwd_reference``. The backward is
 ``flash_bwd`` in the same way: ``csrc/flash_bwd.cu`` (the TPU's
 ``_bwd_fused_kernel``), ``flash_bwd_launches``, ``flash_bwd_reference``.
+
+Both take float32 or bfloat16 operands (qt, kt, vt and the output gradient
+in one dtype; ``lse`` and ``delta`` always float32) and return outputs in
+the operands' dtype, as JAX's kernels do. bfloat16 runs each kernel's bf16
+instantiation, counted apart (``flash_fwd_bf16_launches``,
+``flash_bwd_bf16_launches``): its logit products are one exact pass, as
+JAX's are for bf16 inputs, and its outputs are rounded where JAX rounds
+them, out once and dq once per 1024-key block. A launch under a CUDA graph
+capture counts in ``captured``, and in the launch counts at each replay of
+the graph (``count_replays``).
 There is no fallback from a kernel to its plain version. ``_FlashT``, a
 ``torch.autograd.Function`` (JAX's ``_flash_t`` custom VJP), joins the two:
 it saves ``(qt, kt, vt, out_t, lse)`` and its backward computes
@@ -43,9 +53,36 @@ _DENSE_N_THRESHOLD = 1024  # below this, dense attention is faster + simpler
 # (C = 128 sees N = 1024 there, which is dense).
 KERNEL_HEAD_WIDTHS = frozenset({(4, 32), (8, 64)})
 
-# Launches of the CUDA kernels since import (or since a caller reset them).
+# The operand dtypes the kernels take, and the suffix of each one's launcher.
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# Launches of the CUDA kernels since import (or since a caller reset them):
+# the float32 instantiations, and the bfloat16 ones apart.
 flash_fwd_launches = 0
 flash_bwd_launches = 0
+flash_fwd_bf16_launches = 0
+flash_bwd_bf16_launches = 0
+# Launches recorded into a CUDA graph while its stream was captured, by
+# kernel: the graph's owner adds them to the counts above at each replay
+# (``count_replays``), as ``ops.qsample`` does for its kernel.
+captured = {"flash_fwd": 0, "flash_bwd": 0, "flash_fwd_bf16": 0, "flash_bwd_bf16": 0}
+
+
+def _count_launch(kernel: str) -> None:
+    """One launch of ``kernel`` (a key of ``captured``): into
+    ``<kernel>_launches``, or into ``captured`` under a graph capture."""
+    if torch.cuda.is_current_stream_capturing():
+        captured[kernel] += 1
+    else:
+        globals()[f"{kernel}_launches"] += 1
+
+
+def count_replays(per_replay: dict[str, int], replays: int = 1) -> None:
+    """Add the launches of ``replays`` replays of a CUDA graph into which
+    ``per_replay`` launches (by kernel: a difference of ``captured`` across
+    the capture) were recorded to the ``<kernel>_launches`` counts."""
+    for kernel, n in per_replay.items():
+        globals()[f"{kernel}_launches"] += n * replays
 
 # Keys per block of the backward kernel (``kKeysPerBlock`` in
 # csrc/flash_bwd.cu; a test ties the two): it sizes the kernel's scratch of
@@ -56,12 +93,16 @@ FLASH_BWD_KEYS_PER_BLOCK = 64
 def flash_fwd_reference(
     qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, block_q: int = 512
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: ``(out_t, lse)`` in float32.
+    """Plain version of the kernel: ``(out_t, lse)``, out_t in vt's dtype,
+    lse in float32.
 
     out_t (B, C, N) = unscaled softmax(Q K^T) V, lse (B, 1, N) = the row
-    log-sum-exp of the logits. Computed over blocks of ``block_q`` queries,
+    log-sum-exp of the logits, both computed in float32 (a product of two
+    bf16 values is exact there) and out_t rounded to vt's dtype once, as
+    JAX's ``_fwd_kernel`` does. Computed over blocks of ``block_q`` queries,
     so N = 16384 never builds an N x N matrix.
     """
+    dtype = vt.dtype
     qt, kt, vt = (x.float() for x in (qt, kt, vt))
     b, _, n = qt.shape
     out_t = torch.empty(b, vt.shape[1], n, dtype=torch.float32, device=qt.device)
@@ -72,20 +113,27 @@ def flash_fwd_reference(
         p = torch.exp(s - row_lse[..., None])
         out_t[:, :, i:i + block_q] = torch.matmul(vt, p.transpose(1, 2))  # (B, C, bq)
         lse[:, 0, i:i + block_q] = row_lse
-    return out_t, lse
+    return out_t.to(dtype), lse
 
 
 def flash_bwd_reference(
     qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, dot: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, block_q: int = 512,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the backward kernel: ``(dqt, dkt, dvt)`` in float32.
+    """Plain version of the backward kernel: ``(dqt, dkt, dvt)`` in the
+    operands' dtype.
 
     With ``p = exp(q^T k - lse)`` and ``ds = p * (dO^T v - delta)``:
     ``dv = dO p``, ``dk = q ds`` and ``dq = k ds^T`` in the (B, *, N)
-    layout. Computed over blocks of ``block_q`` queries, so N = 16384 never
+    layout, computed in float32. dk and dv are rounded to the dtype once.
+    For bfloat16, dq follows JAX's ``_bwd_fused_kernel``, which accumulates
+    it in bf16 over its key blocks (``DEFAULT_BLOCK_K`` keys): each block's
+    float32 dq is rounded to bf16 and added to the bf16 running dq, rounding
+    again. Computed over blocks of ``block_q`` queries, so N = 16384 never
     builds an N x N matrix.
     """
+    dtype = qt.dtype
+    n = qt.shape[-1]
     qt, kt, vt, dot, lse, delta = (x.float() for x in (qt, kt, vt, dot, lse, delta))
     dqt = torch.empty_like(qt)
     dkt = torch.zeros_like(kt)
@@ -98,8 +146,16 @@ def flash_bwd_reference(
         dp = torch.matmul(do_i.transpose(1, 2), vt)  # (B, bq, N)
         ds = p * (dp - delta[:, 0, i:i + block_q, None])
         dkt += torch.matmul(q_i, ds)  # (B, D, N)
-        dqt[:, :, i:i + block_q] = torch.matmul(kt, ds.transpose(1, 2))  # (B, D, bq)
-    return dqt, dkt, dvt
+        if dtype == torch.float32:
+            dqt[:, :, i:i + block_q] = torch.matmul(kt, ds.transpose(1, 2))  # (B, D, bq)
+            continue
+        dq = torch.zeros_like(q_i)
+        for k0 in range(0, n, DEFAULT_BLOCK_K):
+            keys = slice(k0, k0 + DEFAULT_BLOCK_K)
+            part = torch.matmul(kt[:, :, keys], ds[:, :, keys].transpose(1, 2))
+            dq = (dq + part.to(dtype).float()).to(dtype).float()
+        dqt[:, :, i:i + block_q] = dq
+    return dqt.to(dtype), dkt.to(dtype), dvt.to(dtype)
 
 
 def _check_operands(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> None:
@@ -114,13 +170,28 @@ def _check_operands(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> Non
         raise ValueError("flash attention operands lie on different devices")
 
 
+def _check_dtypes(name: str, operands: dict[str, torch.Tensor],
+                  stats: dict[str, torch.Tensor] | None = None) -> torch.dtype:
+    """The dtype rules of both kernels and their plain versions: the
+    ``operands`` in one dtype of ``KERNEL_DTYPES``, the ``stats`` (lse,
+    delta) float32. Returns the operands' dtype."""
+    dtypes = {key: x.dtype for key, x in operands.items()}
+    if len(set(dtypes.values())) != 1:
+        raise TypeError(f"{name} takes its operands in one dtype, not {dtypes}")
+    dtype = next(iter(dtypes.values()))
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16 operands, not {dtype}")
+    for key, x in (stats or {}).items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} takes {key} in float32, not {x.dtype}")
+    return dtype
+
+
 def _check_kernel_operands(
     name: str, tensors: dict[str, torch.Tensor]
 ) -> tuple[int, int, int, int]:
-    """The CUDA kernels' input rules; returns (B, D, N, C) of qt and vt."""
+    """The CUDA kernels' layout rules; returns (B, D, N, C) of qt and vt."""
     for key, x in tensors.items():
-        if x.dtype != torch.float32:
-            raise TypeError(f"the CUDA {name} kernel takes float32; {key} is {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"the CUDA {name} kernel takes contiguous operands; {key} is not")
     b, d, n = tensors["qt"].shape
@@ -138,32 +209,32 @@ def _check_kernel_operands(
 def flash_fwd(
     qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flash-attention forward: ``(out_t (B, C, N), lse (B, 1, N) float32)``.
+    """Flash-attention forward: ``(out_t (B, C, N), lse (B, 1, N) float32)``,
+    out_t in the operands' dtype (float32 or bfloat16, one for all three).
 
-    A CUDA tensor launches the CUDA kernel, which takes contiguous float32
-    operands with (D, C) in ``KERNEL_HEAD_WIDTHS`` and raises on anything
-    else. A CPU tensor runs ``flash_fwd_reference``.
+    A CUDA tensor launches the CUDA kernel of that dtype, which takes
+    contiguous operands with (D, C) in ``KERNEL_HEAD_WIDTHS`` and raises on
+    anything else. A CPU tensor runs ``flash_fwd_reference``.
     """
-    global flash_fwd_launches
     _check_operands(qt, kt, vt)
+    dtype = _check_dtypes("flash_fwd", {"qt": qt, "kt": kt, "vt": vt})
     if qt.device.type == "cpu":
-        out_t, lse = flash_fwd_reference(qt, kt, vt)
-        return out_t.to(vt.dtype), lse
+        return flash_fwd_reference(qt, kt, vt)
     if qt.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu tensors, not {qt.device}")
     b, d, n, c = _check_kernel_operands("flash_fwd", {"qt": qt, "kt": kt, "vt": vt})
-    lib = _build.library()
-    out_t = torch.empty(b, c, n, dtype=torch.float32, device=qt.device)
+    launcher = getattr(_build.library(), f"tdt_flash_fwd_{KERNEL_DTYPES[dtype]}")
+    out_t = torch.empty(b, c, n, dtype=dtype, device=qt.device)
     lse = torch.empty(b, 1, n, dtype=torch.float32, device=qt.device)
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream(qt.device).cuda_stream
-        rc = lib.tdt_flash_fwd_f32(
+        rc = launcher(
             qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out_t.data_ptr(), lse.data_ptr(),
             b, n, d, c, ctypes.c_void_p(stream),
         )
     if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {rc}")
-    flash_fwd_launches += 1
+        raise RuntimeError(f"flash_fwd ({dtype}) kernel launch failed: cudaError {rc}")
+    _count_launch("flash_fwd_bf16" if dtype == torch.bfloat16 else "flash_fwd")
     return out_t, lse
 
 
@@ -173,13 +244,14 @@ def flash_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-attention backward: ``(dqt, dkt, dvt)`` from the forward's
     operands, the output's gradient ``dot`` (B, C, N), the forward's ``lse``
-    and ``delta = sum_c dot * out_t`` (both (B, 1, N) float32).
+    and ``delta = sum_c dot * out_t`` (both (B, 1, N) float32). qt, kt, vt
+    and dot take one dtype, float32 or bfloat16, which the gradients come
+    back in.
 
-    A CUDA tensor launches the CUDA kernel, which takes contiguous float32
-    operands with (D, C) in ``KERNEL_HEAD_WIDTHS`` and raises on anything
-    else. A CPU tensor runs ``flash_bwd_reference``.
+    A CUDA tensor launches the CUDA kernel of that dtype, which takes
+    contiguous operands with (D, C) in ``KERNEL_HEAD_WIDTHS`` and raises on
+    anything else. A CPU tensor runs ``flash_bwd_reference``.
     """
-    global flash_bwd_launches
     _check_operands(qt, kt, vt)
     b, _, n = qt.shape
     if tuple(dot.shape) != tuple(vt.shape):
@@ -189,28 +261,29 @@ def flash_bwd(
             raise ValueError(f"flash_bwd: {name} {tuple(x.shape)} is not {(b, 1, n)}")
     if not (dot.device == lse.device == delta.device == qt.device):
         raise ValueError("flash attention operands lie on different devices")
+    dtype = _check_dtypes("flash_bwd", {"qt": qt, "kt": kt, "vt": vt, "dot": dot},
+                          {"lse": lse, "delta": delta})
     if qt.device.type == "cpu":
-        dqt, dkt, dvt = flash_bwd_reference(qt, kt, vt, dot, lse, delta)
-        return dqt.to(qt.dtype), dkt.to(kt.dtype), dvt.to(vt.dtype)
+        return flash_bwd_reference(qt, kt, vt, dot, lse, delta)
     if qt.device.type != "cuda":
         raise ValueError(f"flash_bwd runs on cuda or cpu tensors, not {qt.device}")
     b, d, n, c = _check_kernel_operands(
         "flash_bwd", {"qt": qt, "kt": kt, "vt": vt, "dot": dot, "lse": lse, "delta": delta})
-    lib = _build.library()
+    launcher = getattr(_build.library(), f"tdt_flash_bwd_{KERNEL_DTYPES[dtype]}")
     key_blocks = -(-n // FLASH_BWD_KEYS_PER_BLOCK)
     dqt, dkt = torch.empty_like(qt), torch.empty_like(kt)
     dvt = torch.empty_like(vt)
     dq_part = torch.empty(b, key_blocks, d, n, dtype=torch.float32, device=qt.device)
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream(qt.device).cuda_stream
-        rc = lib.tdt_flash_bwd_f32(
+        rc = launcher(
             qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), dot.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dqt.data_ptr(), dkt.data_ptr(), dvt.data_ptr(),
             dq_part.data_ptr(), b, n, d, c, key_blocks, ctypes.c_void_p(stream),
         )
     if rc != 0:
-        raise RuntimeError(f"flash_bwd kernel launch failed: cudaError {rc}")
-    flash_bwd_launches += 1
+        raise RuntimeError(f"flash_bwd ({dtype}) kernel launch failed: cudaError {rc}")
+    _count_launch("flash_bwd_bf16" if dtype == torch.bfloat16 else "flash_bwd")
     return dqt, dkt, dvt
 
 

@@ -42,7 +42,7 @@ from tinydiffusion_torch.core.process import q_sample_with_noise, v_from_eps
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.io.from_jax import jax_variables
-from tinydiffusion_torch.ops import qsample
+from tinydiffusion_torch.ops import attention, qsample
 from tinydiffusion_torch.ops.qsample import q_sample_fused
 
 
@@ -79,10 +79,7 @@ class DiffusionTrainState:
         resident path) says False, which a captured step cannot run with.
         Kept True, torch moves Adam's step count to the device as it loads."""
         self.model.load_state_dict(sd["model"])
-        opt = sd["optimizer"]
-        groups = [dict(saved, capturable=ours["capturable"]) if "capturable" in ours else saved
-                  for saved, ours in zip(opt["param_groups"], self.optimizer.param_groups)]
-        self.optimizer.load_state_dict(dict(opt, param_groups=groups))
+        load_optimizer_state_(self.optimizer, sd["optimizer"])
         if (sd["ema_params"] is None) != (self.ema_params is None):
             raise ValueError("the checkpoint and this state disagree on having an EMA")
         if self.ema_params is not None:
@@ -102,6 +99,14 @@ class DiffusionTrainState:
             flat.update({"ema_" + k: v for k, v in ema.items() if k.startswith("params/")})
         flat["step"] = np.asarray(self.step, np.int32)
         return flat
+
+
+def load_optimizer_state_(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """``optimizer.load_state_dict(saved)``, keeping the optimizer's own
+    ``capturable`` (``DiffusionTrainState.load_state_dict`` says why)."""
+    groups = [dict(old, capturable=ours["capturable"]) if "capturable" in ours else old
+              for old, ours in zip(saved["param_groups"], optimizer.param_groups)]
+    optimizer.load_state_dict(dict(saved, param_groups=groups))
 
 
 def create_train_state(
@@ -279,16 +284,21 @@ class _Chunk:
     idxs: torch.Tensor  # (capacity, B) int64
     pos: torch.Tensor  # () int64
     losses: torch.Tensor  # (capacity,) float32
+    outputs: dict[str, torch.Tensor]  # name -> (capacity,) float32
 
 
-def make_resident_steps(dataset: DeviceDataset, batch_step: Callable) -> Callable:
+def make_resident_steps(dataset: DeviceDataset, batch_step: Callable,
+                        outputs: tuple[str, ...] = ()) -> Callable:
     """K steps over a resident dataset: ``step(state, idxs, **seams) ->
     losses``, where ``idxs`` (K, B) are index batches from
     ``dataset.epoch_index_batches`` and ``losses`` (K,) float32 stay on the
     device. Step i gathers its batch from ``dataset`` (NHWC images, and
     the label and embedding rows it holds) and runs ``batch_step(state, batch,
     **seams_i) -> loss``, which must update ``state`` without reading a
-    device value and leave ``state.step`` alone.
+    device value and leave ``state.step`` alone. With named ``outputs``,
+    ``batch_step`` returns ``(loss, {name: 0-d tensor})`` and ``step``
+    returns ``(losses, {name: (K,) float32})``: per-step device values
+    beside the loss (JAX's ``n_extra_out``; the conv-VAE's loss components).
 
     On a card, one step is captured in a ``torch.cuda.CUDAGraph`` and
     replayed K times: the host does nothing between steps but launch the
@@ -310,19 +320,35 @@ def make_resident_steps(dataset: DeviceDataset, batch_step: Callable) -> Callabl
     entries, the seam through which the tests replay JAX's draws.
 
     ``step.counts`` tallies the steps run ``eager`` (warm-ups, and every step
-    on the CPU), the graph ``captures`` and the graph ``replays``.
+    on the CPU), the graph ``captures`` and the graph ``replays``. Kernel
+    launches recorded in the graph (q_sample, flash attention) count once a
+    replay in their modules' launch counts.
     """
 
     def one_step(state, chunk: _Chunk, **seams) -> None:
         at = chunk.pos.view(1)
-        loss = batch_step(state, dataset.gather(chunk.idxs.index_select(0, at)[0]), **seams)
+        out = batch_step(state, dataset.gather(chunk.idxs.index_select(0, at)[0]), **seams)
+        loss, values = out if outputs else (out, {})
         chunk.losses.index_copy_(0, at, loss.view(1))
+        for name in outputs:
+            chunk.outputs[name].index_copy_(0, at, values[name].reshape(1).float())
         chunk.pos.add_(1)
 
     def new_chunk(idxs: torch.Tensor) -> _Chunk:
         device = dataset.device
-        return _Chunk(idxs.to(device, non_blocking=True), torch.zeros((), dtype=torch.int64,
-                      device=device), torch.zeros(len(idxs), dtype=torch.float32, device=device))
+
+        def zeros():
+            return torch.zeros(len(idxs), dtype=torch.float32, device=device)
+
+        return _Chunk(idxs.to(device, non_blocking=True),
+                      torch.zeros((), dtype=torch.int64, device=device), zeros(),
+                      {name: zeros() for name in outputs})
+
+    def result(chunk: _Chunk, k: int):
+        losses = chunk.losses[:k].clone()
+        if not outputs:
+            return losses
+        return losses, {name: v[:k].clone() for name, v in chunk.outputs.items()}
 
     captured: dict = {}  # the graph of one step and what it was captured for
     counts = {"eager": 0, "captures": 0, "replays": 0}
@@ -337,7 +363,7 @@ def make_resident_steps(dataset: DeviceDataset, batch_step: Callable) -> Callabl
                 one_step(state, chunk, **{name: v[i] for name, v in seams.items()})
             state.step += k
             counts["eager"] += k
-            return chunk.losses
+            return result(chunk, k)
         if seams:
             raise ValueError(f"the seams {sorted(seams)} run on the CPU; a card replays its "
                              "own draws")
@@ -369,17 +395,21 @@ def make_resident_steps(dataset: DeviceDataset, batch_step: Callable) -> Callabl
             graph.register_generator_state(state.generator)
             # The graph keeps the math mode of this capture: TF32 is off by now.
             before = qsample.qsample_captured
+            flash_before = dict(attention.captured)
             with torch.cuda.graph(graph):
                 one_step(state, chunk)
             captured["graph"] = graph
             captured["qsample_per_replay"] = qsample.qsample_captured - before
+            captured["flash_per_replay"] = {k_: n - flash_before[k_]
+                                            for k_, n in attention.captured.items()}
             counts["captures"] += 1
         for _ in range(k - done):
             captured["graph"].replay()
         counts["replays"] += k - done
         qsample.count_replays(captured.get("qsample_per_replay", 0), k - done)
+        attention.count_replays(captured.get("flash_per_replay", {}), k - done)
         state.step += k
-        return chunk.losses[:k].clone()
+        return result(chunk, k)
 
     step.counts = counts
     return step
@@ -423,6 +453,14 @@ def _eval_rng(key: tuple[int, int]) -> np.random.Generator:
     deterministic draw per (epoch, batch), so that every validation pass of
     a run, host-streamed or resident, is the same."""
     return np.random.default_rng([int(key[0]), int(key[1])])
+
+
+def keyed_normal(key: tuple[int, int], shape: tuple[int, ...],
+                 device: torch.device) -> torch.Tensor:
+    """Standard normal float32 noise of ``shape`` on ``device``, drawn on the
+    host from ``_eval_rng(key)``: a validation batch's reparameterising noise,
+    the same in every pass."""
+    return torch.from_numpy(_eval_rng(key).standard_normal(shape, np.float32)).to(device)
 
 
 def _eval_loss(model: nn.Module, schedule: DiffusionSchedule, x0: torch.Tensor,
