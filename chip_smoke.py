@@ -19,10 +19,12 @@ latent UNet (``experiments/conditional_diffusion_laion.run`` and
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the kernels, built with one nvcc call from
-   ``tinydiffusion_torch/ops/csrc``: ptxas's registers, spills and shared
-   memory per kernel, the flash kernels' dynamic shared memory, and the
-   tensor-core instructions (HMMA, HGMMA) in each kernel's SASS
-   (``cuobjdump``); fails if a flash forward or backward kernel has none;
+   ``tinydiffusion_torch/ops/csrc``: ptxas's registers, spills, shared
+   memory and performance remarks per kernel, the flash kernels' dynamic
+   shared memory, and the tensor-core instructions (HMMA, HGMMA, and HGMMA
+   by operand type) in each kernel's SASS (``cuobjdump``); fails if a flash
+   forward or backward kernel has none, if a bfloat16 flash kernel has a
+   tf32 HGMMA or no bf16 one, or if a bfloat16 flash kernel spills;
 3. kernel: the CUDA flash-attention forward against ``flash_fwd_reference``
    at each shape the model gives it (B = 4) and at two ragged N, out and lse;
    two calls bit-equal; the times of kernel, plain version and
@@ -32,7 +34,8 @@ latent UNet (``experiments/conditional_diffusion_laion.run`` and
    kernel_bf16: the same for the bfloat16 kernel on the operands rounded to
    bf16, compared in float32 (within one bf16 ulp; the share of outputs
    beyond one ulp, lse's error), SDPA in bf16 beside it (each site names
-   the backend torch picked), the bound at the bf16 tensor-core peak;
+   the backend torch picked), the bound at the bf16 tensor-core peak, and
+   ptxas's report and the dynamic shared memory of the kernel at the site;
 4. slice: reconstruct 4 synthetic images and decode 16 prior samples on the
    card, with the kernel launches counted over exactly that work; check
    shapes, finiteness, the [0, 1] range and the card against the port's own
@@ -166,7 +169,9 @@ one warm reconstruct and one prior decode, over 5 warm UNet28 train steps
 ``train_steps_graph``), over 20 sampler steps, over the chain of one
 DPM++-15 serving request (``serve_dpmpp15``), over 3 warm conv-VAE train
 steps (eager, ``vae_train_steps``, and replayed from a graph over a resident
-set, ``vae_train_steps_graph``), over 5 latent MLP UNet train steps replayed
+set, ``vae_train_steps_graph``, and the same in bfloat16,
+``vae_train_bf16_steps_graph``, its flash kernels by name from one profiler
+session), over 5 latent MLP UNet train steps replayed
 from a graph
 (``latent_train_steps_graph``) and over one DPM++-15 latent request on the
 DiT (``latent_serve_dpmpp15``), each with device time by kernel, the
@@ -192,6 +197,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from chip_flash_ab import ptxas_report
 from chip_qsample_ab import graph_us_per_launch, kernel_device_us_each
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
@@ -591,6 +597,15 @@ def _attention_operands(rng, b: int, n: int, d: int, c: int):
     return qt, kt, vt
 
 
+def _kernel_build(name: str, d: int, c: int) -> dict:
+    """What the build says of the bf16 kernel ``name`` at (d, c): ptxas's
+    registers, spills and remarks of its instantiations there (the vector and
+    the one-value load paths) and its dynamic shared memory."""
+    tag = f"ILi{d}ELi{c}E"
+    return {"ptxas": [r for r in _PTXAS[f"{name}_kernel"] if tag in r["kernel"]],
+            "dynamic_smem_bytes": getattr(_build.library(), f"tdt_{name}_smem_bytes")(d, c)}
+
+
 def phase_flash_bwd_kernel(dtype=torch.float32) -> list[dict]:
     """The CUDA backward against ``flash_bwd_reference`` at each flash site
     (B = 4), with the forward's own lse and a random output gradient; two
@@ -648,7 +663,8 @@ def phase_flash_bwd_kernel(dtype=torch.float32) -> list[dict]:
             del q4, k4, v4, g4, o4
         tol = ({"atol": BWD_ATOL, "rtol": BF16_RTOL, "dq_ulps_of_max": BF16_DQ_ULPS_OF_MAX}
                if bf16 else {"atol": BWD_ATOL, "rtol": BWD_RTOL})
-        emit(phase, name="flash_bwd_bf16" if bf16 else "flash_bwd", **tol, **site)
+        emit(phase, name="flash_bwd_bf16" if bf16 else "flash_bwd", **tol, **site,
+             **(_kernel_build("flash_bwd_bf16", d, c) if bf16 else {}))
         sites.append(site)
         del qt, kt, vt, dot, out_t, lse, delta, got, again, want
         torch.cuda.empty_cache()
@@ -695,7 +711,8 @@ def phase_device() -> dict:
 def _tensor_core_counts(library: str) -> dict[str, dict[str, int]]:
     """Tensor-core instructions in the SASS of each kernel of the library, by
     demangled name, from ``cuobjdump --dump-sass``: HMMA (mma.sync) and HGMMA
-    (wgmma, Hopper's warpgroup product)."""
+    (wgmma, Hopper's warpgroup product), and the HGMMA by operand type
+    (``HGMMA_BF16``: ``HGMMA.64xNx16.F32.BF16``, ``HGMMA_TF32``: ``...x8.F32.TF32``)."""
     bin_dir = os.path.dirname(_build.find_nvcc())
     sass = subprocess.run([os.path.join(bin_dir, "cuobjdump"), "--dump-sass", library],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -703,11 +720,15 @@ def _tensor_core_counts(library: str) -> dict[str, dict[str, int]]:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = {"HMMA": 0, "HGMMA": 0}
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "HGMMA_BF16": 0, "HGMMA_TF32": 0}
         elif name is not None:
             for op in ("HGMMA", "HMMA"):
                 if f" {op}." in line or f" {op} " in line:
                     counts[name][op] += 1
+                    if op == "HGMMA":
+                        for kind in ("BF16", "TF32"):
+                            if f".{kind}" in line.split(";")[0]:
+                                counts[name][f"HGMMA_{kind}"] += 1
     filt = os.path.join(bin_dir, "cu++filt")
     if counts and os.path.exists(filt):
         names = subprocess.run([filt], input="\n".join(counts), capture_output=True,
@@ -716,10 +737,16 @@ def _tensor_core_counts(library: str) -> dict[str, dict[str, int]]:
     return counts
 
 
+# ptxas's report of the flash kernels of the build, by kernel name (set by
+# phase_build; the bf16 kernel phases add theirs to their lines).
+_PTXAS: dict[str, list[dict]] = {}
+
+
 def phase_build() -> None:
     build = _build.build()
     ptxas = [ln.strip() for ln in build.log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln
+             or "Potential Performance Loss" in ln]
     tensor_core = _tensor_core_counts(str(build.path))
     flash = {k: v for k, v in tensor_core.items() if "flash_" in k and "dq_sum" not in k}
     if not any("flash_fwd" in k for k in flash) or not any("flash_bwd" in k for k in flash):
@@ -727,6 +754,19 @@ def phase_build() -> None:
     missing = [k for k, v in flash.items() if not sum(v.values())]
     if missing:
         raise RuntimeError(f"build: flash kernels without tensor-core instructions: {missing}")
+    # The bf16 kernels run their products as bf16 wgmma (k16), none as tf32.
+    bf16 = {k: v for k, v in flash.items() if "_bf16_kernel" in k}
+    wrong = [k for k, v in bf16.items() if not v["HGMMA_BF16"] or v["HGMMA_TF32"] or v["HMMA"]]
+    if len(bf16) != 8 or wrong:
+        raise RuntimeError(f"build: bf16 flash kernels not all bf16 wgmma: {wrong or sorted(bf16)}")
+    reports = ptxas_report(build.log)
+    for kernel in ("flash_fwd_bf16_kernel", "flash_bwd_bf16_kernel"):
+        _PTXAS[kernel] = [{"kernel": k, **v} for k, v in sorted(reports.items())
+                          if k and kernel in k]
+        spills = [r["kernel"] for r in _PTXAS[kernel]
+                  if r.get("spill_stores") or r.get("spill_loads")]
+        if spills or not _PTXAS[kernel]:
+            raise RuntimeError(f"build: {kernel} spills registers or is missing: {spills}")
     lib = _build.library()
     smem = {f"{name} ({d}, {c})": getattr(lib, f"tdt_{name}_smem_bytes")(d, c)
             for name in _FLASH_KERNELS for d, c in sorted(attention.KERNEL_HEAD_WIDTHS)}
@@ -781,7 +821,8 @@ def phase_kernel(dtype=torch.float32) -> list[dict]:
             del q4, k4, v4
         tol = ({"atol": KERNEL_ATOL, "rtol": BF16_RTOL, "lse_rtol": KERNEL_RTOL} if bf16
                else {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL})
-        emit(phase, name="flash_fwd_bf16" if bf16 else "flash_fwd", **tol, **site)
+        emit(phase, name="flash_fwd_bf16" if bf16 else "flash_fwd", **tol, **site,
+             **(_kernel_build("flash_fwd_bf16", d, c) if bf16 else {}))
         sites.append(site)
         del qt, kt, vt, out_k, lse_k, again, out_r, lse_r
         torch.cuda.empty_cache()
@@ -2457,47 +2498,65 @@ def phase_vae_train_parity() -> dict:
     return fields
 
 
-def _profile_window(name: str, fn, **fields) -> None:
+def _profile_window(name: str, fn, expect_flash: int = 0, sessions: int = 3,
+                    **fields) -> None:
     """Device time by kernel over one warm call of ``fn``, the device's busy
-    share of the window, and the flash kernels' device time in it."""
+    share of the window, and the flash kernels' device time in it.
+    ``expect_flash``: the flash kernel launches the call makes; a session
+    whose flash events fall short is taken again, up to ``sessions`` in all
+    (CUPTI does not always hand over a later session's kernel records), so
+    every site comes from one session."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        window_ms = 1e3 * (time.perf_counter() - t0)
-    # Device-side events only: CPU ops would count their kernels twice, and so
-    # would a user annotation's range on the device (``Optimizer.step#...``).
-    kernels = {
-        ev.key: (ev.self_device_time_total / 1e3, ev.count)
-        for ev in prof.key_averages()
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0
-        and not getattr(ev, "is_user_annotation", False)
-    }
+    counts = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window_ms = 1e3 * (time.perf_counter() - t0)
+        # Device-side events only: CPU ops would count their kernels twice, and
+        # so would a user annotation's range on the device (``Optimizer.step#...``).
+        kernels = {
+            ev.key: (ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0
+            and not getattr(ev, "is_user_annotation", False)
+        }
+        counts.append(sum(n for k, (_, n) in kernels.items() if "flash_" in k))
+        if counts[-1] >= expect_flash:
+            break
+    else:
+        raise RuntimeError(f"profile {name}: {counts} flash events in {sessions} sessions, "
+                           f"{expect_flash} launched in each")
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     # The host's launch calls: one a kernel when eager, one a graph when replayed.
     host_launches = {ev.key: ev.count for ev in prof.key_averages()
                      if ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                                    "cuLaunchKernelEx", "cudaGraphLaunch")}
+    flash = {k: (ms, n) for k, (ms, n) in kernels.items() if "flash_" in k}
+    flash_ms = sum(ms for ms, _ in flash.values())
     emit("profile", window=name, window_ms=window_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / window_ms, kernel_launches=sum(n for _, n in kernels.values()),
-         host_launch_calls=host_launches,
-         flash_ms=sum(ms for k, (ms, _) in kernels.items() if "flash_" in k),
+         host_launch_calls=host_launches, flash_ms=flash_ms,
+         flash_share_of_busy=flash_ms / busy_ms if busy_ms else None,
+         flash=[{"kernel": k[:120], "ms": ms, "calls": n} for k, (ms, n) in sorted(flash.items())],
+         sessions=len(counts),
          top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, (ms, n) in top], **fields)
 
 
 def phase_profile() -> None:
-    """Nine windows: one warm reconstruct + one prior decode of the conv-VAE;
+    """Ten windows: one warm reconstruct + one prior decode of the conv-VAE;
     5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample), eager
     and then replayed from a CUDA graph over a resident set; 20 steps
     of the fp32 DDPM sampler (16 samples); the chain of one DPM++-15
     serving request (CFG, bf16 forward, 16 samples); 3 warm conv-VAE train
     steps (256x256, batch 4, fp32, Adam) from ``vae_laion_best``, eager and
-    replayed from a graph over a resident set; 5 latent
+    replayed from a graph over a resident set, and the same replayed steps in
+    bfloat16 (all flash sites from one profiler session); 5 latent
     MLP UNet train steps replayed from a graph; one DPM++-15 latent serving
     request on the DiT."""
     model = load_conv_vae(CHECKPOINT, device="cuda")
@@ -2558,6 +2617,19 @@ def phase_profile() -> None:
     vae_idxs = vae_data.epoch_index_batches(0)
     _profile_window("vae_train_steps_graph", lambda: vae_graph_step(graph_vae_state, vae_idxs),
                     steps=3, batch=4)
+
+    # The same 3 steps in bfloat16, model and perceptual net, as
+    # ``vae_train_bf16``'s run builds them: the bf16 flash kernels at the three
+    # sites, a forward and a backward (and its dq sum) each, 9 flash launches a
+    # step.
+    bf16_vae = _conv_vae(torch.bfloat16)
+    bf16_vae_state = vae_laion.create_train_state(
+        bf16_vae, vae_laion.make_optimizer(bf16_vae, 1e-4, capturable=True), SEED)
+    bf16_vae_step = vae_laion.make_conv_vae_resident_step(
+        PerceptualNet(seed=123, dtype=torch.bfloat16).cuda(), 1.0, 10.0, vae_data)
+    _profile_window("vae_train_bf16_steps_graph",
+                    lambda: bf16_vae_step(bf16_vae_state, vae_idxs), expect_flash=3 * 9,
+                    steps=3, batch=4, compute_dtype="bfloat16")
 
     # 5 latent MLP UNet steps (B = 128, bf16, from latent_diffusion_best),
     # replayed from a graph over a resident set, as the default run takes them.
@@ -2684,12 +2756,12 @@ def main() -> int:
             **{k: bwd_sites[0][k] for k in flash_keys},  # N = 16384
             "sites": [{k: v for k, v in s.items() if k not in context} for s in bwd_sites],
         },
-        # The bfloat16 instantiations, launched by the bf16 conv-VAE run.
+        # The bfloat16 kernels, launched by the bf16 conv-VAE run.
         {
             "name": "flash_fwd_bf16",
             "route": "cuda",
             "dtype": "bfloat16",
-            "source": "tinydiffusion_torch/ops/csrc/flash_fwd.cu",
+            "source": "tinydiffusion_torch/ops/csrc/flash_fwd_bf16.cu",
             "replaces": "tinydiffusion_tpu/ops/attention.py:113",
             "launches": vae_bf16["launches"]["flash_fwd_bf16"],
             "max_abs_err": max(s["max_abs_err"] for s in bf16_sites),
@@ -2700,7 +2772,7 @@ def main() -> int:
             "name": "flash_bwd_bf16",
             "route": "cuda",
             "dtype": "bfloat16",
-            "source": "tinydiffusion_torch/ops/csrc/flash_bwd.cu",
+            "source": "tinydiffusion_torch/ops/csrc/flash_bwd_bf16.cu",
             "replaces": "tinydiffusion_tpu/ops/attention.py:193",
             "launches": vae_bf16["launches"]["flash_bwd_bf16"],
             "max_abs_err": max(s["max_abs_err"] for s in bwd_bf16_sites),

@@ -327,6 +327,62 @@ def test_3xtf32_products_keep_float32_accuracy(d, c):
     assert (one_pass - want_out).abs().max().item() > 1e-4
 
 
+def _bf16_planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernels' split (csrc/bf16_mma.cuh::split_bf16) in plain torch:
+    hi = x rounded to bf16 (nearest even), lo = x - hi rounded to bf16; the
+    tensor core multiplies each plane by a bf16 operand exactly."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+# The card checks' bounds (chip_smoke.py): out within KERNEL_ATOL + one bf16
+# ulp, dq, dk, dv within BWD_ATOL + one ulp, dq also two ulps of its largest
+# value. The design's rounding must use at most 1/16 of them.
+CARD_FWD_ATOL, CARD_BWD_ATOL = 2e-4, 5e-4
+PLANES_SHARE_OF_BOUND = 1 / 16
+
+
+def _share_of_bound(got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
+    return ((got - want).abs() / (atol + BF16_RTOL * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+def test_bf16_planes_keep_the_card_bounds(d, c):
+    """The bf16 kernels' precision choice, checked before any card run: the
+    plain forward and backward with P and dS taken as two bf16 planes (and q,
+    k, v, dO in bf16, the products float32) stay within 1/16 of the card
+    checks' bounds of the unrounded plain version, at N = 2048, B = 2, inputs
+    drawn as chip_smoke.py draws them. One plane of P (the TPU's DEFAULT
+    precision for the value product) is recorded beside it: it lands outside
+    the bounds themselves, so the kernels take two."""
+    qt, kt, vt = (torch.from_numpy(_t(x)).to(torch.bfloat16).float()
+                  for x in _qkv(2, 2048, d, c, seed=100 + d))
+    dot = torch.from_numpy(np.random.default_rng(110 + d).standard_normal(
+        (2, c, 2048), np.float32)).to(torch.bfloat16).float()
+    s = torch.matmul(qt.transpose(1, 2), kt)  # (B, N, N), exact products
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    ph, pl = _bf16_planes(p)
+    out = torch.matmul(vt, p.transpose(1, 2))
+    shares = {"out": _share_of_bound(
+        torch.matmul(vt, ph.transpose(1, 2)) + torch.matmul(vt, pl.transpose(1, 2)), out,
+        CARD_FWD_ATOL)}
+    one_plane = {"out": _share_of_bound(torch.matmul(vt, ph.transpose(1, 2)), out,
+                                        CARD_FWD_ATOL)}
+    delta = (dot * out).sum(1, keepdim=True).transpose(1, 2)  # (B, N, 1)
+    ds = p * (torch.matmul(dot.transpose(1, 2), vt) - delta)  # (B, N, N)
+    dh, dl = _bf16_planes(ds)
+    want = {"dv": torch.matmul(dot, p), "dk": torch.matmul(qt, ds),
+            "dq": torch.matmul(kt, ds.transpose(1, 2))}
+    got = {"dv": torch.matmul(dot, ph) + torch.matmul(dot, pl),
+           "dk": torch.matmul(qt, dh) + torch.matmul(qt, dl),
+           "dq": torch.matmul(kt, dh.transpose(1, 2)) + torch.matmul(kt, dl.transpose(1, 2))}
+    for name, w in want.items():
+        atol = CARD_BWD_ATOL + (2 * 2.0**-8 * w.abs().max().item() if name == "dq" else 0.0)
+        shares[name] = _share_of_bound(got[name], w, atol)
+    assert max(shares.values()) <= PLANES_SHARE_OF_BOUND, shares
+    assert one_plane["out"] > 1.0, one_plane
+
+
 def _source_constant(name: str, source: str) -> int:
     text = (Path(_build._CSRC) / source).read_text()
     found = re.findall(rf"constexpr int {name} = (\d+);", text)
@@ -336,13 +392,15 @@ def _source_constant(name: str, source: str) -> int:
 
 def test_wrapper_tile_constants_match_the_kernel_sources():
     """The backward's scratch holds ceil(N / keys per block) dq partials: the
-    wrapper's FLASH_BWD_KEYS_PER_BLOCK must be the kernel's kKeysPerBlock, or
-    every launch is refused (the launcher checks key_blocks) or the scratch is
-    sized wrong."""
-    assert attention.FLASH_BWD_KEYS_PER_BLOCK == _source_constant(
-        "kKeysPerBlock", "flash_bwd.cu")
-    launcher = (Path(_build._CSRC) / "flash_bwd.cu").read_text()
-    assert "key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock" in launcher
+    wrapper's keys per block of each dtype (FLASH_BWD_KEYS_PER_BLOCK for
+    float32, FLASH_BWD_BF16_KEYS_PER_BLOCK for bfloat16) must be its kernel's
+    kKeysPerBlock, or every launch is refused (the launcher checks key_blocks)
+    or the scratch is sized wrong."""
+    for keys, source in ((attention.FLASH_BWD_KEYS_PER_BLOCK, "flash_bwd.cu"),
+                         (attention.FLASH_BWD_BF16_KEYS_PER_BLOCK, "flash_bwd_bf16.cu")):
+        assert keys == _source_constant("kKeysPerBlock", source)
+        launcher = (Path(_build._CSRC) / source).read_text()
+        assert "key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock" in launcher
 
 
 # --- bfloat16 operands -------------------------------------------------------------
@@ -471,5 +529,9 @@ def test_flash_wrappers_refuse_mixed_dtypes(bad):
 
 def test_bf16_dq_block_matches_the_kernel_source():
     """The plain bf16 dq rounds per DEFAULT_BLOCK_K keys (JAX's key block);
-    the CUDA dq sum must round per as many (its kDqRunKeys)."""
-    assert attention.DEFAULT_BLOCK_K == _source_constant("kDqRunKeys", "flash_bwd.cu")
+    the bf16 kernel's dq sum must round per as many (its kDqRunKeys), a whole
+    number of its key blocks."""
+    run = _source_constant("kDqRunKeys", "flash_bwd_bf16.cu")
+    assert attention.DEFAULT_BLOCK_K == run
+    assert run % _source_constant("kKeysPerBlock", "flash_bwd_bf16.cu") == 0
+    assert run % attention.FLASH_BWD_BF16_KEYS_PER_BLOCK == 0

@@ -4,7 +4,7 @@ The CUDA machines that serve the port have torch, numpy and the standard
 library, and no jax, jaxlib, flax, optax, orbax, ml_dtypes or PIL. This test
 stands in for that machine on the CPU: a subprocess whose import system
 refuses those packages (and ``tinydiffusion_tpu``) imports every module of
-``tinydiffusion_torch`` and ``chip_smoke``, then loads a conv-VAE from an npz
+``tinydiffusion_torch``, ``chip_smoke`` and ``chip_flash_ab``, then loads a conv-VAE from an npz
 of random weights and serves it on ``device="cpu"``; another trains, samples
 and checkpoints a small UNet28 on the CPU; a third trains the conv-VAE for
 two steps through its ``run``; a fourth trains a small class-conditional
@@ -51,6 +51,7 @@ _CHILD = _REFUSE + textwrap.dedent("""
     for mod in pkgutil.walk_packages(tinydiffusion_torch.__path__, "tinydiffusion_torch."):
         importlib.import_module(mod.name)
     import chip_smoke  # its work sits behind `if __name__ == "__main__"`
+    import chip_flash_ab  # likewise
 
     from tinydiffusion_torch.data.laion import synthesize_image
     from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct, sample_prior

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 class Build:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output (ptxas registers / shared memory per kernel)
+    log: str  # nvcc's output (ptxas registers / shared memory per kernel), kept beside the library
 
 
 def find_nvcc() -> str:
@@ -73,8 +73,9 @@ def build() -> Build:
     sources = _sources()
     out_dir = _BUILD_ROOT / _digest(sources)
     lib = out_dir / _LIB_NAME
+    log_path = out_dir / "nvcc.log"
     if lib.exists():
-        return Build(lib, 0.0, "")
+        return Build(lib, 0.0, log_path.read_text() if log_path.exists() else "")
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
@@ -86,6 +87,7 @@ def build() -> Build:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return Build(lib, seconds, log)
 

@@ -22,11 +22,12 @@ tensor it runs the plain version ``flash_fwd_reference``. The backward is
 
 Both take float32 or bfloat16 operands (qt, kt, vt and the output gradient
 in one dtype; ``lse`` and ``delta`` always float32) and return outputs in
-the operands' dtype, as JAX's kernels do. bfloat16 runs each kernel's bf16
-instantiation, counted apart (``flash_fwd_bf16_launches``,
-``flash_bwd_bf16_launches``): its logit products are one exact pass, as
-JAX's are for bf16 inputs, and its outputs are rounded where JAX rounds
-them, out once and dq once per 1024-key block. A launch under a CUDA graph
+the operands' dtype, as JAX's kernels do. bfloat16 runs kernels of its own,
+``csrc/flash_fwd_bf16.cu`` and ``csrc/flash_bwd_bf16.cu`` (bf16 ``wgmma``),
+counted apart (``flash_fwd_bf16_launches``, ``flash_bwd_bf16_launches``):
+their logit products are one exact pass, as JAX's are for bf16 inputs, and
+their outputs are rounded where JAX rounds them, out once and dq once per
+1024-key block. A launch under a CUDA graph
 capture counts in ``captured``, and in the launch counts at each replay of
 the graph (``count_replays``).
 There is no fallback from a kernel to its plain version. ``_FlashT``, a
@@ -57,7 +58,7 @@ KERNEL_HEAD_WIDTHS = frozenset({(4, 32), (8, 64)})
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # Launches of the CUDA kernels since import (or since a caller reset them):
-# the float32 instantiations, and the bfloat16 ones apart.
+# the float32 kernels, and the bfloat16 ones apart.
 flash_fwd_launches = 0
 flash_bwd_launches = 0
 flash_fwd_bf16_launches = 0
@@ -84,10 +85,11 @@ def count_replays(per_replay: dict[str, int], replays: int = 1) -> None:
     for kernel, n in per_replay.items():
         globals()[f"{kernel}_launches"] += n * replays
 
-# Keys per block of the backward kernel (``kKeysPerBlock`` in
-# csrc/flash_bwd.cu; a test ties the two): it sizes the kernel's scratch of
-# per-key-block dq partials.
+# Keys per block of the backward kernels (``kKeysPerBlock`` in
+# csrc/flash_bwd.cu and csrc/flash_bwd_bf16.cu; a test ties them): it sizes
+# each kernel's scratch of per-key-block dq partials.
 FLASH_BWD_KEYS_PER_BLOCK = 64
+FLASH_BWD_BF16_KEYS_PER_BLOCK = 128
 
 
 def flash_fwd_reference(
@@ -270,7 +272,9 @@ def flash_bwd(
     b, d, n, c = _check_kernel_operands(
         "flash_bwd", {"qt": qt, "kt": kt, "vt": vt, "dot": dot, "lse": lse, "delta": delta})
     launcher = getattr(_build.library(), f"tdt_flash_bwd_{KERNEL_DTYPES[dtype]}")
-    key_blocks = -(-n // FLASH_BWD_KEYS_PER_BLOCK)
+    keys_per_block = (FLASH_BWD_BF16_KEYS_PER_BLOCK if dtype == torch.bfloat16
+                      else FLASH_BWD_KEYS_PER_BLOCK)
+    key_blocks = -(-n // keys_per_block)
     dqt, dkt = torch.empty_like(qt), torch.empty_like(kt)
     dvt = torch.empty_like(vt)
     dq_part = torch.empty(b, key_blocks, d, n, dtype=torch.float32, device=qt.device)

@@ -1,4 +1,5 @@
-// Unscaled flash-attention backward for Hopper (sm_90a), float32 and bfloat16.
+// Unscaled flash-attention backward for Hopper (sm_90a), float32 (the bfloat16
+// kernel is flash_bwd_bf16.cu).
 //
 // Replaces the TPU kernel tinydiffusion_tpu/ops/attention.py::_bwd_fused_kernel
 // (launched by _bwd). Given the forward's operands, its output's gradient dO,
@@ -9,9 +10,8 @@
 // without ever building the N x N matrices. No 1/sqrt(d) scaling.
 //
 // Layout, as the forward: qt, kt (B, D, N), vt, dOt (B, C, N), lse and delta
-// (B, 1, N), all contiguous; outputs dqt, dkt (B, D, N), dvt (B, C, N). qt, kt,
-// vt, dOt and the outputs are all float32 or all bfloat16; lse, delta and the
-// dq scratch are float32.
+// (B, 1, N), all contiguous; outputs dqt, dkt (B, D, N), dvt (B, C, N); all
+// float32, as is the dq scratch.
 //
 // Design (one visit per (query, key) pair, as the TPU kernel). S^T = K Q^T
 // and the two products over C (dP^T and dV), which carry 2C + D of the pair's
@@ -44,17 +44,6 @@
 //   key blocks in a fixed order. No atomics: two calls give the same bits.
 // - Keys past N weigh 0 (p forced to 0); queries past N are zero-filled, get
 //   lse = +inf, so p = 0, and are not stored.
-// - bfloat16 operands are staged as bf16 and widened as they are split; their
-//   lo planes are zero (tf32_mma.cuh). S^T = K Q^T and dP^T = V dO^T are then
-//   one exact pass each (JAX's single bf16 logit pass, attention.py:197; its
-//   dp product is float32 on bf16 values, exact too), dV += P^T dO two (P keeps
-//   float32 accuracy), and K is not pre-scaled by log2(e): S^T is scaled after
-//   the product. p, ds, dK and dQ are float32, as for float32 operands; dK and
-//   dV are rounded to bf16 once, at the store. dq follows JAX's order of
-//   roundings (attention.py:224-229), which accumulates dq in bf16 across its
-//   key blocks of kDqRunKeys = 1024: the sum kernel adds the partials of each
-//   run of 1024 keys in float32, rounds that run's sum to bf16, and adds it to
-//   the bf16 running dq, rounding again.
 //
 // Bound on an H100: 2*B*N^2*(3D + 2C) FLOPs of products (N=16384, D=4, C=32,
 // B=4: 163 GFLOP, 0.330 ms at the 495 TFLOP/s TF32 tensor-core peak) and one
@@ -75,15 +64,14 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kKeysPerBlock = 64;  // the wrapper's FLASH_BWD_KEYS_PER_BLOCK
 static_assert(kKeysPerBlock == 16 * kWarps, "one wgmma row tile of keys");
 constexpr int kBlockQ = 64;               // queries per staged tile
-// Staged rows: one 16-byte chunk past the tile (float32: 68 = 4 (mod 32) words,
+// Staged rows: one 16-byte chunk past the tile (68 = 4 (mod 32) words,
 // conflict-free splits).
-template <typename T>
-constexpr int kQStride = kBlockQ + 16 / static_cast<int>(sizeof(T));
+constexpr int kQStride = kBlockQ + 4;
 constexpr int kDsStride = kKeysPerBlock + 4;  // dS rows: conflict-free writes and float4 reads
 constexpr int kQuerySteps = kBlockQ / 8;
 constexpr int kCore = 32;  // one core matrix: 8 rows x 4 tf32 (128 bytes)
 
-template <typename T, int D, int C>
+template <int D, int C>
 struct Smem {
   // Split for wgmma, in core matrices (tf32_mma.cuh):
   // V (A of dP): for each group of 8 keys, the c chunks of 4 in order.
@@ -102,8 +90,8 @@ struct Smem {
   // dO as B of dV (K = query): for each group of 8 values of c, the query
   // chunks, P's query order within a k8 step (first 0, 2, 4, 6, then 1, 3, 5, 7).
   uint32_t doq_hi[kBlockQ * C], doq_lo[kBlockQ * C];
-  T q[D][kQStride<T>];  // the staging buffer cp.async fills
-  T dO[C][kQStride<T>];
+  float q[D][kQStride];  // the staging buffer cp.async fills
+  float dO[C][kQStride];
   float lse[kBlockQ];
   float delta[kBlockQ];
   float q_s[D][kBlockQ];  // the tile's q, lse and delta, out of the staging buffer
@@ -117,20 +105,17 @@ struct Smem {
 template <int C>
 constexpr int kMinBlocks = C == 32 ? 3 : 1;
 
-template <typename T, int D, int C, bool kVec>
+template <int D, int C, bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<C>)
-flash_bwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
-                    const T* __restrict__ vt, const T* __restrict__ dot,
+flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
+                    const float* __restrict__ vt, const float* __restrict__ dot,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dkt, T* __restrict__ dvt,
+                    float* __restrict__ dkt, float* __restrict__ dvt,
                     float* __restrict__ dq_part, int n) {
   static_assert(D == 4 || D == 8, "the dQ columns split evenly over the threads");
   static_assert(C == 32 || C == 64, "dV is one m64n32 or m64n64");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<T, D, C>& sm = *reinterpret_cast<Smem<T, D, C>*>(smem_raw);
-  constexpr bool kExact = kTf32Exact<T>;
-  // S^T's factor to base 2: in K for float32 (pre-scaled), on S^T for bf16.
-  constexpr float kKScale = kExact ? 1.f : kLog2e;
+  Smem<D, C>& sm = *reinterpret_cast<Smem<D, C>*>(smem_raw);
 
   const int b = blockIdx.y;
   const int kb = blockIdx.x;
@@ -140,35 +125,32 @@ flash_bwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
   const int key0 = key_base + warp * 16 + g;  // this thread's rows: key0 and key0 + 8
   const bool key_ok0 = key0 < n, key_ok1 = key0 + 8 < n;
   const size_t bn = static_cast<size_t>(b) * n;
-  const T* kbp = kt + bn * D;
-  const T* vb = vt + bn * C;
+  const float* kbp = kt + bn * D;
+  const float* vb = vt + bn * C;
 
   // This warp's K as A of S^T (rows = its 16 keys, columns = d), split once,
-  // in base 2 for float32, and the block's K and V in shared memory.
+  // in base 2, and the block's K and V in shared memory.
   auto k_at = [&](int d, int key) {
-    return (d < D && key < n) ? to_float(kbp[static_cast<size_t>(d) * n + key]) * kKScale : 0.f;
+    return (d < D && key < n) ? kbp[static_cast<size_t>(d) * n + key] * kLog2e : 0.f;
   };
   const FragA8 ka = split_a8(k_at(t, key0), k_at(t, key0 + 8), k_at(t + 4, key0),
                              k_at(t + 4, key0 + 8));
   for (int e = threadIdx.x; e < kKeysPerBlock * D; e += kThreads) {
     const int key = e % kKeysPerBlock, d = e / kKeysPerBlock;
     sm.k[key][d] =
-        key_base + key < n ? to_float(kbp[static_cast<size_t>(d) * n + key_base + key]) : 0.f;
+        key_base + key < n ? kbp[static_cast<size_t>(d) * n + key_base + key] : 0.f;
   }
   for (int e = threadIdx.x; e < kKeysPerBlock * C / 4; e += kThreads) {
     const int key = e % kKeysPerBlock, cc = e / kKeysPerBlock;
     Tf32x2 x[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      x[i] = split(key_base + key < n
-                       ? to_float(vb[static_cast<size_t>(4 * cc + i) * n + key_base + key])
-                       : 0.f);
+      x[i] = split(key_base + key < n ? vb[static_cast<size_t>(4 * cc + i) * n + key_base + key]
+                                      : 0.f);
     }
     const int off = ((key / 8) * (C / 4) + cc) * kCore + (key % 8) * 4;
     *reinterpret_cast<uint4*>(sm.v_hi + off) = make_uint4(x[0].hi, x[1].hi, x[2].hi, x[3].hi);
-    if constexpr (!kExact) {
-      *reinterpret_cast<uint4*>(sm.v_lo + off) = make_uint4(x[0].lo, x[1].lo, x[2].lo, x[3].lo);
-    }
+    *reinterpret_cast<uint4*>(sm.v_lo + off) = make_uint4(x[0].lo, x[1].lo, x[2].lo, x[3].lo);
   }
 
   float dv[C / 2];  // accumulator layout: element 4i + e of the n8 tile i of c
@@ -178,11 +160,10 @@ flash_bwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
 #pragma unroll
   for (int d = 0; d < D; ++d) dk0[d] = dk1[d] = 0.f;
 
-  const TileCopy<T, D, kBlockQ, kQStride<T>, kThreads, kVec> copy_q(&sm.q[0][0], qt + bn * D, n);
-  const TileCopy<T, C, kBlockQ, kQStride<T>, kThreads, kVec> copy_do(&sm.dO[0][0], dot + bn * C,
-                                                                   n);
-  const TileCopy<float, 1, kBlockQ, kBlockQ, kThreads, kVec> copy_lse(sm.lse, lse + bn, n);
-  const TileCopy<float, 1, kBlockQ, kBlockQ, kThreads, kVec> copy_delta(sm.delta, delta + bn, n);
+  const TileCopy<D, kBlockQ, kQStride, kThreads, kVec> copy_q(&sm.q[0][0], qt + bn * D, n);
+  const TileCopy<C, kBlockQ, kQStride, kThreads, kVec> copy_do(&sm.dO[0][0], dot + bn * C, n);
+  const TileCopy<1, kBlockQ, kBlockQ, kThreads, kVec> copy_lse(sm.lse, lse + bn, n);
+  const TileCopy<1, kBlockQ, kBlockQ, kThreads, kVec> copy_delta(sm.delta, delta + bn, n);
   auto stage = [&](int q0) {
     copy_q.issue(q0, n);
     copy_do.issue(q0, n);
@@ -203,15 +184,13 @@ flash_bwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
     __syncthreads();
     for (int e = threadIdx.x; e < kBlockQ * C / 4; e += kThreads) {  // dO, K = c
       const int q = e % kBlockQ, cc = e / kBlockQ;
-      const Tf32x2 a = split(to_float(sm.dO[4 * cc][q]));
-      const Tf32x2 b1 = split(to_float(sm.dO[4 * cc + 1][q]));
-      const Tf32x2 c2 = split(to_float(sm.dO[4 * cc + 2][q]));
-      const Tf32x2 d3 = split(to_float(sm.dO[4 * cc + 3][q]));
+      const Tf32x2 a = split(sm.dO[4 * cc][q]);
+      const Tf32x2 b1 = split(sm.dO[4 * cc + 1][q]);
+      const Tf32x2 c2 = split(sm.dO[4 * cc + 2][q]);
+      const Tf32x2 d3 = split(sm.dO[4 * cc + 3][q]);
       const int off = ((q / 8) * (C / 4) + cc) * kCore + (q % 8) * 4;
       *reinterpret_cast<uint4*>(sm.doc_hi + off) = make_uint4(a.hi, b1.hi, c2.hi, d3.hi);
-      if constexpr (!kExact) {
-        *reinterpret_cast<uint4*>(sm.doc_lo + off) = make_uint4(a.lo, b1.lo, c2.lo, d3.lo);
-      }
+      *reinterpret_cast<uint4*>(sm.doc_lo + off) = make_uint4(a.lo, b1.lo, c2.lo, d3.lo);
     }
     for (int e = threadIdx.x; e < C * kQuerySteps; e += kThreads) {  // dO, K = query
       const int c8 = e % 8, j = (e / 8) % kQuerySteps, cg = e / (8 * kQuerySteps);
@@ -223,31 +202,27 @@ flash_bwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
       const int odd = even + kCore;
       *reinterpret_cast<uint4*>(sm.doq_hi + even) = make_uint4(e0.hi, e2.hi, e4.hi, e6.hi);
       *reinterpret_cast<uint4*>(sm.doq_hi + odd) = make_uint4(e1.hi, e3.hi, e5.hi, e7.hi);
-      if constexpr (!kExact) {
-        *reinterpret_cast<uint4*>(sm.doq_lo + even) = make_uint4(e0.lo, e2.lo, e4.lo, e6.lo);
-        *reinterpret_cast<uint4*>(sm.doq_lo + odd) = make_uint4(e1.lo, e3.lo, e5.lo, e7.lo);
-      }
+      *reinterpret_cast<uint4*>(sm.doq_lo + even) = make_uint4(e0.lo, e2.lo, e4.lo, e6.lo);
+      *reinterpret_cast<uint4*>(sm.doq_lo + odd) = make_uint4(e1.lo, e3.lo, e5.lo, e7.lo);
     }
     for (int e = threadIdx.x; e < 2 * kBlockQ; e += kThreads) {  // q, K = d
       const int q = e % kBlockQ, dc = e / kBlockQ;
       float x[4] = {0.f, 0.f, 0.f, 0.f};
       if (4 * dc < D) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = to_float(sm.q[4 * dc + i][q]);
+        for (int i = 0; i < 4; ++i) x[i] = sm.q[4 * dc + i][q];
       }
       const Tf32x2 a = split(x[0]), b1 = split(x[1]), c2 = split(x[2]), d3 = split(x[3]);
       const int off = ((q / 8) * 2 + dc) * kCore + (q % 8) * 4;
       *reinterpret_cast<uint4*>(sm.qd_hi + off) = make_uint4(a.hi, b1.hi, c2.hi, d3.hi);
-      if constexpr (!kExact) {
-        *reinterpret_cast<uint4*>(sm.qd_lo + off) = make_uint4(a.lo, b1.lo, c2.lo, d3.lo);
-      }
+      *reinterpret_cast<uint4*>(sm.qd_lo + off) = make_uint4(a.lo, b1.lo, c2.lo, d3.lo);
     }
     for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
       // A query past N gets lse = +inf, so p = 2^-inf = 0 and it adds nothing.
       sm.lse2[i] = q0 + i < n ? sm.lse[i] * kLog2e : INFINITY;
       sm.delta_s[i] = sm.delta[i];
 #pragma unroll
-      for (int d = 0; d < D; ++d) sm.q_s[d][i] = to_float(sm.q[d][i]);
+      for (int d = 0; d < D; ++d) sm.q_s[d][i] = sm.q[d][i];
     }
     fence_proxy_async();  // the planes are read by wgmma
     __syncthreads();      // the planes hold tile it; the staging buffer is free
@@ -266,32 +241,20 @@ flash_bwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
     }
     wgmma_fence();
     const uint64_t qd_hi = smem_desc(sm.qd_hi, kCoreBytes, 2 * kCoreBytes);
-    if constexpr (kExact) {
-      wgmma1_tf32<kBlockQ>(s_acc, ka, qd_hi);
-    } else {
-      wgmma3_tf32<kBlockQ>(s_acc, ka, qd_hi, smem_desc(sm.qd_lo, kCoreBytes, 2 * kCoreBytes));
-    }
+    wgmma3_tf32<kBlockQ>(s_acc, ka, qd_hi, smem_desc(sm.qd_lo, kCoreBytes, 2 * kCoreBytes));
     wgmma_commit();
 #pragma unroll
     for (int i = 0; i < C / 8; ++i) {  // c chunks 2i and 2i + 1
       const uint64_t v_hi = smem_desc(sm.v_hi + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes);
       const uint64_t do_hi = smem_desc(sm.doc_hi + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes);
-      if constexpr (kExact) {
-        Wgmma<kBlockQ>::ss(dp, v_hi, do_hi);
-      } else {
-        wgmma3_tf32_ss<kBlockQ>(
-            dp, v_hi, smem_desc(sm.v_lo + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes), do_hi,
-            smem_desc(sm.doc_lo + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes));
-      }
+      wgmma3_tf32_ss<kBlockQ>(
+          dp, v_hi, smem_desc(sm.v_lo + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes), do_hi,
+          smem_desc(sm.doc_lo + 2 * i * kCore, kCoreBytes, C / 4 * kCoreBytes));
     }
     wgmma_commit();
     wgmma_wait<1>();  // S^T is done
 #pragma unroll
     for (int i = 0; i < kBlockQ / 2; ++i) reg_fence(s_acc[i]);
-    if constexpr (kExact) {
-#pragma unroll
-      for (int i = 0; i < kBlockQ / 2; ++i) s_acc[i] *= kLog2e;
-    }
 
     // P^T = 2^(S^T - lse log2(e)), 0 for keys past N.
     float p[kBlockQ / 2];
@@ -334,12 +297,8 @@ flash_bwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
       wgmma_fence();
       const uint64_t doq_hi =
           smem_desc(sm.doq_hi + 2 * j * kCore, kCoreBytes, kBlockQ / 4 * kCoreBytes);
-      if constexpr (kExact) {
-        wgmma2_tf32<C>(dv_t, pa[j], doq_hi);
-      } else {
-        wgmma3_tf32<C>(dv_t, pa[j], doq_hi,
-                       smem_desc(sm.doq_lo + 2 * j * kCore, kCoreBytes, kBlockQ / 4 * kCoreBytes));
-      }
+      wgmma3_tf32<C>(dv_t, pa[j], doq_hi,
+                     smem_desc(sm.doq_lo + 2 * j * kCore, kCoreBytes, kBlockQ / 4 * kCoreBytes));
       wgmma_commit();
 
       const int qc = 8 * j + 2 * t;
@@ -405,26 +364,26 @@ flash_bwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
       dk1[d] += __shfl_xor_sync(0xffffffffu, dk1[d], mask);
     }
   }
-  T* dkb = dkt + bn * D;
+  float* dkb = dkt + bn * D;
   if (t == 0) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      if (key_ok0) dkb[static_cast<size_t>(d) * n + key0] = from_float<T>(dk0[d]);
-      if (key_ok1) dkb[static_cast<size_t>(d) * n + key0 + 8] = from_float<T>(dk1[d]);
+      if (key_ok0) dkb[static_cast<size_t>(d) * n + key0] = dk0[d];
+      if (key_ok1) dkb[static_cast<size_t>(d) * n + key0 + 8] = dk1[d];
     }
   }
   // dV (rows key0, key0 + 8; columns c = 8i + 2t, 8i + 2t + 1).
-  T* dvb = dvt + bn * C;
+  float* dvb = dvt + bn * C;
 #pragma unroll
   for (int i = 0; i < C / 8; ++i) {
     const size_t c0 = static_cast<size_t>(8 * i + 2 * t) * n;
     if (key_ok0) {
-      dvb[c0 + key0] = from_float<T>(dv[4 * i + 0]);
-      dvb[c0 + n + key0] = from_float<T>(dv[4 * i + 1]);
+      dvb[c0 + key0] = dv[4 * i + 0];
+      dvb[c0 + n + key0] = dv[4 * i + 1];
     }
     if (key_ok1) {
-      dvb[c0 + key0 + 8] = from_float<T>(dv[4 * i + 2]);
-      dvb[c0 + n + key0 + 8] = from_float<T>(dv[4 * i + 3]);
+      dvb[c0 + key0 + 8] = dv[4 * i + 2];
+      dvb[c0 + n + key0 + 8] = dv[4 * i + 3];
     }
   }
 }
@@ -443,104 +402,40 @@ __global__ void flash_bwd_dq_sum_kernel(const float* __restrict__ dq_part,
   dqt[idx] = acc;
 }
 
-// JAX's bf16 dq (attention.py:224-229): its kernel adds each 1024-key block's
-// float32 dq, rounded to bf16, to a bf16 running dq.
-constexpr int kDqRunKeys = 1024;
-static_assert(kDqRunKeys % kKeysPerBlock == 0, "a run is whole key blocks");
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The bf16 dqt: the partials of each run of kDqRunKeys keys added in order in
-// float32, and each run's sum, rounded to bf16, added to the running dq, which
-// is rounded to bf16 after each add.
-__global__ void flash_bwd_dq_sum_bf16_kernel(const float* __restrict__ dq_part,
-                                             bf16* __restrict__ dqt, int b_total, int nkb,
-                                             int row) {
-  constexpr int kRunBlocks = kDqRunKeys / kKeysPerBlock;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<size_t>(b_total) * row) return;
-  const size_t b = idx / row, r = idx % row;
-  const float* p = dq_part + b * nkb * row + r;
-  float dq = 0.f;
-  for (int kb0 = 0; kb0 < nkb; kb0 += kRunBlocks) {
-    const int kb1 = min(kb0 + kRunBlocks, nkb);
-    float acc = 0.f;
-    for (int kb = kb0; kb < kb1; ++kb) acc += p[static_cast<size_t>(kb) * row];
-    dq = round_bf16(dq + round_bf16(acc));
-  }
-  dqt[idx] = __float2bfloat16_rn(dq);
-}
-
-template <typename T>
-void launch_dq_sum(const float* dq_part, T* dqt, int b, int nkb, int row, unsigned blocks,
-                   int threads, cudaStream_t stream) {
-  if constexpr (kTf32Exact<T>) {
-    flash_bwd_dq_sum_bf16_kernel<<<blocks, threads, 0, stream>>>(dq_part, dqt, b, nkb, row);
-  } else {
-    flash_bwd_dq_sum_kernel<<<blocks, threads, 0, stream>>>(dq_part, dqt, b, nkb, row);
-  }
-}
-
-template <typename T, int D, int C, bool kVec>
+template <int D, int C, bool kVec>
 cudaError_t launch_as(const void* qt, const void* kt, const void* vt, const void* dot,
                       const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
                       void* dq_part, int b, int n, cudaStream_t stream) {
-  constexpr int kSmem = sizeof(Smem<T, D, C>);  // above 48 KB a kernel must opt in
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_tc_kernel<T, D, C, kVec>,
+  constexpr int kSmem = sizeof(Smem<D, C>);  // above 48 KB a kernel must opt in
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_tc_kernel<D, C, kVec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   const int nkb = (n + kKeysPerBlock - 1) / kKeysPerBlock;
-  flash_bwd_tc_kernel<T, D, C, kVec><<<dim3(nkb, b), kThreads, kSmem, stream>>>(
-      static_cast<const T*>(qt), static_cast<const T*>(kt), static_cast<const T*>(vt),
-      static_cast<const T*>(dot), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dkt), static_cast<T*>(dvt),
+  flash_bwd_tc_kernel<D, C, kVec><<<dim3(nkb, b), kThreads, kSmem, stream>>>(
+      static_cast<const float*>(qt), static_cast<const float*>(kt), static_cast<const float*>(vt),
+      static_cast<const float*>(dot), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dkt), static_cast<float*>(dvt),
       static_cast<float*>(dq_part), n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(b) * D * n;
   constexpr int kSumThreads = 256;
   const unsigned blocks = static_cast<unsigned>((total + kSumThreads - 1) / kSumThreads);
-  launch_dq_sum<T>(static_cast<const float*>(dq_part), static_cast<T*>(dqt), b, nkb, D * n,
-                   blocks, kSumThreads, stream);
+  flash_bwd_dq_sum_kernel<<<blocks, kSumThreads, 0, stream>>>(
+      static_cast<const float*>(dq_part), static_cast<float*>(dqt), b, nkb, D * n);
   return cudaGetLastError();
 }
 
-template <typename T, int D, int C>
+template <int D, int C>
 cudaError_t launch(const void* qt, const void* kt, const void* vt, const void* dot,
                    const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
                    void* dq_part, int b, int n, cudaStream_t stream) {
-  if (n % (16 / sizeof(T)) == 0 && aligned16(qt) && aligned16(dot) && aligned16(lse) &&
-      aligned16(delta)) {
-    return launch_as<T, D, C, true>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
-                                    stream);
+  if (n % 4 == 0 && aligned16(qt) && aligned16(dot) && aligned16(lse) && aligned16(delta)) {
+    return launch_as<D, C, true>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
+                                 stream);
   }
-  return launch_as<T, D, C, false>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
-                                   stream);
-}
-
-template <typename T>
-int launch_any(const void* qt, const void* kt, const void* vt, const void* dot, const void* lse,
-               const void* delta, void* dqt, void* dkt, void* dvt, void* dq_part, int b, int n,
-               int d, int c, int key_blocks, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || n <= 0 || b > 65535) return cudaErrorInvalidValue;
-  if (key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock) return cudaErrorInvalidValue;
-  if (d == 4 && c == 32) {
-    return launch<T, 4, 32>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
-  }
-  if (d == 8 && c == 64) {
-    return launch<T, 8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-int smem_bytes(int d, int c) {
-  if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<T, 4, 32>));
-  if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<T, 8, 64>));
-  return -1;
+  return launch_as<D, C, false>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
+                                stream);
 }
 
 }  // namespace
@@ -550,25 +445,27 @@ int smem_bytes(int d, int c) {
 // b * key_blocks * d * n floats, where key_blocks must equal
 // ceil(n / kKeysPerBlock), the kernel's keys per block. (d, c) must be one of
 // the instantiated head widths below; anything else returns
-// cudaErrorInvalidValue without launching. qt, kt, vt, dot, dqt, dkt, dvt
-// float32 (_f32) or bfloat16 (_bf16); lse, delta float32.
+// cudaErrorInvalidValue without launching. All tensors float32.
 extern "C" int tdt_flash_bwd_f32(const void* qt, const void* kt, const void* vt,
                                  const void* dot, const void* lse, const void* delta,
                                  void* dqt, void* dkt, void* dvt, void* dq_part, int b, int n,
                                  int d, int c, int key_blocks, void* stream) {
-  return launch_any<float>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, d, c,
-                           key_blocks, stream);
-}
-
-extern "C" int tdt_flash_bwd_bf16(const void* qt, const void* kt, const void* vt,
-                                  const void* dot, const void* lse, const void* delta,
-                                  void* dqt, void* dkt, void* dvt, void* dq_part, int b, int n,
-                                  int d, int c, int key_blocks, void* stream) {
-  return launch_any<bf16>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, d, c,
-                          key_blocks, stream);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || n <= 0 || b > 65535) return cudaErrorInvalidValue;
+  if (key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock) return cudaErrorInvalidValue;
+  if (d == 4 && c == 32) {
+    return launch<4, 32>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+  }
+  if (d == 8 && c == 64) {
+    return launch<8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The dynamic shared memory of the pair kernel at (d, c), in bytes (-1 for a
 // pair that is not instantiated), for reports.
-extern "C" int tdt_flash_bwd_smem_bytes(int d, int c) { return smem_bytes<float>(d, c); }
-extern "C" int tdt_flash_bwd_bf16_smem_bytes(int d, int c) { return smem_bytes<bf16>(d, c); }
+extern "C" int tdt_flash_bwd_smem_bytes(int d, int c) {
+  if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<4, 32>));
+  if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<8, 64>));
+  return -1;
+}

@@ -1,4 +1,5 @@
-// Unscaled flash-attention forward for Hopper (sm_90a), float32 and bfloat16.
+// Unscaled flash-attention forward for Hopper (sm_90a), float32 (the bfloat16
+// kernel is flash_fwd_bf16.cu).
 //
 // Replaces the TPU kernel tinydiffusion_tpu/ops/attention.py::_fwd_kernel
 // (launched by _fwd): out = softmax(Q K^T) V with NO 1/sqrt(d) scaling, plus
@@ -7,7 +8,7 @@
 // Layout: the conv-VAE's SelfAttention2D produces q, k, v with the token
 // axis N minor, so the kernel takes qt, kt (B, D, N) and vt (B, C, N), all
 // contiguous, and writes out (B, C, N) and lse (B, 1, N) in natural-log units.
-// qt, kt, vt and out are all float32 or all bfloat16; lse is float32.
+// qt, kt, vt, out and lse are float32.
 //
 // Design (tensor cores, every product by 3xTF32 wgmma; fragments, split and
 // accumulation rule in tf32_mma.cuh):
@@ -30,14 +31,6 @@
 //   step's exps run.
 // - Keys past N get s = -inf (weight 0); queries past N are computed on zeros
 //   and not stored. No atomics: two calls give the same bits.
-// - bfloat16 operands are staged as bf16 (16-byte copies of 8 values) and
-//   widened as they are split; their lo planes are zero (tf32_mma.cuh). S =
-//   Q K^T is then one exact pass, JAX's single bf16 pass (attention.py:117):
-//   Q is not pre-scaled by log2(e), which would make it inexact, and S is
-//   scaled after the product. P V takes two passes, P_hi V + P_lo V, so P keeps
-//   float32 accuracy, as JAX's float32 value product does. The softmax and the
-//   sums are float32 as for float32 operands; out is rounded to bf16 once, at
-//   the store.
 //
 // Bound on an H100: 2*B*N^2*(D+C) FLOPs of products (N=16384, D=4, C=32, B=4:
 // 77 GFLOP, 0.156 ms at the 495 TFLOP/s TF32 tensor-core peak) and one exp per
@@ -59,42 +52,39 @@ constexpr int kWarps = 4;                // one warpgroup
 constexpr int kThreads = 32 * kWarps;
 constexpr int kQueriesPerBlock = 16 * kWarps;
 constexpr int kBlockK = 64;              // keys per staged tile
-// Staged rows: one 16-byte chunk past the tile (float32: 68 = 4 (mod 32) words,
+// Staged rows: one 16-byte chunk past the tile (68 = 4 (mod 32) words,
 // conflict-free splits).
-template <typename T>
-constexpr int kKStride = kBlockK + 16 / static_cast<int>(sizeof(T));
+constexpr int kKStride = kBlockK + 4;
 constexpr int kKeySteps = kBlockK / 8;   // n8 tiles of S = k8 steps of P V
 constexpr int kCore = 32;                // one core matrix: 8 rows x 4 tf32 (128 bytes)
 
-template <typename T, int D, int C>
+template <int D, int C>
 struct Smem {
   // The tile split for wgmma, in core matrices (tf32_mma.cuh). K: for each
   // group of 8 keys, d 0-3 then d 4-7 (zero for D = 4). V: for each group of
   // 8 values of c, the tile's key chunks in order, P's key order within a k8
-  // step (split_v). The lo planes stay unused for bf16.
+  // step (split_v).
   uint32_t k_hi[kKeySteps * 2 * kCore], k_lo[kKeySteps * 2 * kCore];
   uint32_t v_hi[C * kBlockK], v_lo[C * kBlockK];
-  T k[D][kKStride<T>];  // the staging buffer cp.async fills
-  T v[C][kKStride<T>];
+  float k[D][kKStride];  // the staging buffer cp.async fills
+  float v[C][kKStride];
 };
 
 // The tile's K, split into the wgmma planes: core matrix (key group, d chunk)
 // holds 8 keys x 4 values of d.
-template <typename T, int D>
-__device__ __forceinline__ void split_k(const T (*k)[kKStride<T>], uint32_t* hi, uint32_t* lo) {
+template <int D>
+__device__ __forceinline__ void split_k(const float (*k)[kKStride], uint32_t* hi, uint32_t* lo) {
   for (int e = threadIdx.x; e < 2 * kBlockK; e += kThreads) {
     const int key = e % kBlockK, dc = e / kBlockK;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (4 * dc < D) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = to_float(k[4 * dc + i][key]);
+      for (int i = 0; i < 4; ++i) x[i] = k[4 * dc + i][key];
     }
     const Tf32x2 a = split(x[0]), b = split(x[1]), c = split(x[2]), d = split(x[3]);
     const int off = ((key / 8) * 2 + dc) * kCore + (key % 8) * 4;
     *reinterpret_cast<uint4*>(hi + off) = make_uint4(a.hi, b.hi, c.hi, d.hi);
-    if constexpr (!kTf32Exact<T>) {
-      *reinterpret_cast<uint4*>(lo + off) = make_uint4(a.lo, b.lo, c.lo, d.lo);
-    }
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(a.lo, b.lo, c.lo, d.lo);
   }
 }
 
@@ -102,8 +92,8 @@ __device__ __forceinline__ void split_k(const T (*k)[kKStride<T>], uint32_t* hi,
 // a k8 step in column t and key 2t + 1 in column t + 4 (tf32_mma.cuh), so the
 // planes hold the step's keys in the same order: its first core matrix keys
 // 0, 2, 4, 6 and its second keys 1, 3, 5, 7.
-template <typename T, int C>
-__device__ __forceinline__ void split_v(const T (*v)[kKStride<T>], uint32_t* hi, uint32_t* lo) {
+template <int C>
+__device__ __forceinline__ void split_v(const float (*v)[kKStride], uint32_t* hi, uint32_t* lo) {
   for (int e = threadIdx.x; e < C * kKeySteps; e += kThreads) {
     const int c8 = e % 8, j = (e / 8) % kKeySteps, cg = e / (8 * kKeySteps);
     float x[8];
@@ -114,37 +104,31 @@ __device__ __forceinline__ void split_v(const T (*v)[kKStride<T>], uint32_t* hi,
     const int odd = even + kCore;                               // core matrix 2j + 1
     *reinterpret_cast<uint4*>(hi + even) = make_uint4(k0.hi, k2.hi, k4.hi, k6.hi);
     *reinterpret_cast<uint4*>(hi + odd) = make_uint4(k1.hi, k3.hi, k5.hi, k7.hi);
-    if constexpr (!kTf32Exact<T>) {
-      *reinterpret_cast<uint4*>(lo + even) = make_uint4(k0.lo, k2.lo, k4.lo, k6.lo);
-      *reinterpret_cast<uint4*>(lo + odd) = make_uint4(k1.lo, k3.lo, k5.lo, k7.lo);
-    }
+    *reinterpret_cast<uint4*>(lo + even) = make_uint4(k0.lo, k2.lo, k4.lo, k6.lo);
+    *reinterpret_cast<uint4*>(lo + odd) = make_uint4(k1.lo, k3.lo, k5.lo, k7.lo);
   }
 }
 
-template <typename T, int D, int C, bool kVec>
+template <int D, int C, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
-                    const T* __restrict__ vt, T* __restrict__ out,
+flash_fwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
+                    const float* __restrict__ vt, float* __restrict__ out,
                     float* __restrict__ lse, int n) {
   static_assert(D == 4 || D == 8, "the logit product is one k8 step");
   static_assert(C == 32 || C == 64, "the value product is one m64n32 or m64n64");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<T, D, C>& sm = *reinterpret_cast<Smem<T, D, C>*>(smem_raw);
-  constexpr bool kExact = kTf32Exact<T>;
-  // S's factor to base 2: in Q for float32 (pre-scaled), on S for bf16.
-  constexpr float kQScale = kExact ? 1.f : kLog2e;
+  Smem<D, C>& sm = *reinterpret_cast<Smem<D, C>*>(smem_raw);
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kQueriesPerBlock + warp * 16 + g;  // and row0 + 8
   const size_t bn = static_cast<size_t>(b) * n;
-  const T* qb = qt + bn * D;
+  const float* qb = qt + bn * D;
 
-  // Q fragment (rows g, g + 8; columns d = t, t + 4), split once; in base 2
-  // for float32.
+  // Q fragment (rows g, g + 8; columns d = t, t + 4), split once; in base 2.
   auto q_at = [&](int d, int row) {
-    return (d < D && row < n) ? to_float(qb[static_cast<size_t>(d) * n + row]) * kQScale : 0.f;
+    return (d < D && row < n) ? qb[static_cast<size_t>(d) * n + row] * kLog2e : 0.f;
   };
   const FragA8 qa = split_a8(q_at(t, row0), q_at(t, row0 + 8), q_at(t + 4, row0),
                              q_at(t + 4, row0 + 8));
@@ -157,8 +141,8 @@ flash_fwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (base 2)
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the running sums
 
-  const TileCopy<T, D, kBlockK, kKStride<T>, kThreads, kVec> copy_k(&sm.k[0][0], kt + bn * D, n);
-  const TileCopy<T, C, kBlockK, kKStride<T>, kThreads, kVec> copy_v(&sm.v[0][0], vt + bn * C, n);
+  const TileCopy<D, kBlockK, kKStride, kThreads, kVec> copy_k(&sm.k[0][0], kt + bn * D, n);
+  const TileCopy<C, kBlockK, kKStride, kThreads, kVec> copy_v(&sm.v[0][0], vt + bn * C, n);
   const int ntiles = (n + kBlockK - 1) / kBlockK;
   copy_k.issue(0, n);
   copy_v.issue(0, n);
@@ -167,8 +151,8 @@ flash_fwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
     const int k0 = it * kBlockK;
     cp_async_wait<0>();
     __syncthreads();  // tile it is staged; every warp is done with the planes
-    split_k<T, D>(sm.k, sm.k_hi, sm.k_lo);
-    split_v<T, C>(sm.v, sm.v_hi, sm.v_lo);
+    split_k<D>(sm.k, sm.k_hi, sm.k_lo);
+    split_v<C>(sm.v, sm.v_hi, sm.v_lo);
     fence_proxy_async();  // the planes are read by wgmma
     __syncthreads();      // the planes hold tile it; the staging buffer is free
     if (it + 1 < ntiles) {
@@ -185,19 +169,11 @@ flash_fwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
       reg_fence(s[i]);
     }
     wgmma_fence();
-    if constexpr (kExact) {
-      wgmma1_tf32<kBlockK>(s, qa, k_hi);
-    } else {
-      wgmma3_tf32<kBlockK>(s, qa, k_hi, k_lo);
-    }
+    wgmma3_tf32<kBlockK>(s, qa, k_hi, k_lo);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) reg_fence(s[i]);
-    if constexpr (kExact) {
-#pragma unroll
-      for (int i = 0; i < kBlockK / 2; ++i) s[i] *= kLog2e;
-    }
 
     if (k0 + kBlockK > n) {  // the ragged last tile: keys past N weigh 0
 #pragma unroll
@@ -250,12 +226,8 @@ flash_fwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
       pa[j] = split_a8(p[0], p[2], p[1], p[3]);
       wgmma_fence();
       const uint64_t v_hi = smem_desc(sm.v_hi + 2 * j * kCore, kCore * 4, kBlockK / 4 * kCore * 4);
-      if constexpr (kExact) {
-        wgmma2_tf32<C>(pv, pa[j], v_hi);
-      } else {
-        wgmma3_tf32<C>(pv, pa[j], v_hi,
-                       smem_desc(sm.v_lo + 2 * j * kCore, kCore * 4, kBlockK / 4 * kCore * 4));
-      }
+      wgmma3_tf32<C>(pv, pa[j], v_hi,
+                     smem_desc(sm.v_lo + 2 * j * kCore, kCore * 4, kBlockK / 4 * kCore * 4));
       wgmma_commit();
       wgmma_wait<1>();  // step j - 1 is done: its P registers are free
       if (j > 0) reg_fence(pa[j - 1]);
@@ -282,17 +254,17 @@ flash_fwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
     l1 += __shfl_xor_sync(0xffffffffu, l1, mask);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  T* ob = out + bn * C;
+  float* ob = out + bn * C;
 #pragma unroll
   for (int i = 0; i < C / 8; ++i) {
     const size_t c = 8 * i + 2 * t;
     if (row0 < n) {
-      ob[c * n + row0] = from_float<T>(o[4 * i + 0] * inv0);
-      ob[(c + 1) * n + row0] = from_float<T>(o[4 * i + 1] * inv0);
+      ob[c * n + row0] = o[4 * i + 0] * inv0;
+      ob[(c + 1) * n + row0] = o[4 * i + 1] * inv0;
     }
     if (row0 + 8 < n) {
-      ob[c * n + row0 + 8] = from_float<T>(o[4 * i + 2] * inv1);
-      ob[(c + 1) * n + row0 + 8] = from_float<T>(o[4 * i + 3] * inv1);
+      ob[c * n + row0 + 8] = o[4 * i + 2] * inv1;
+      ob[(c + 1) * n + row0 + 8] = o[4 * i + 3] * inv1;
     }
   }
   if (t == 0) {
@@ -301,44 +273,27 @@ flash_fwd_tc_kernel(const T* __restrict__ qt, const T* __restrict__ kt,
   }
 }
 
-template <typename T, int D, int C, bool kVec>
+template <int D, int C, bool kVec>
 cudaError_t launch_as(const void* qt, const void* kt, const void* vt, void* out, void* lse,
                       int b, int n, cudaStream_t stream) {
-  constexpr int kSmem = sizeof(Smem<T, D, C>);  // above 48 KB a kernel must opt in
+  constexpr int kSmem = sizeof(Smem<D, C>);  // above 48 KB a kernel must opt in
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<T, D, C, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd_tc_kernel<D, C, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, b);
-  flash_fwd_tc_kernel<T, D, C, kVec><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(qt), static_cast<const T*>(kt), static_cast<const T*>(vt),
-      static_cast<T*>(out), static_cast<float*>(lse), n);
+  flash_fwd_tc_kernel<D, C, kVec><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const float*>(qt), static_cast<const float*>(kt), static_cast<const float*>(vt),
+      static_cast<float*>(out), static_cast<float*>(lse), n);
   return cudaGetLastError();
 }
 
-template <typename T, int D, int C>
+template <int D, int C>
 cudaError_t launch(const void* qt, const void* kt, const void* vt, void* out, void* lse,
                    int b, int n, cudaStream_t stream) {
-  if (n % (16 / sizeof(T)) == 0 && aligned16(kt) && aligned16(vt)) {
-    return launch_as<T, D, C, true>(qt, kt, vt, out, lse, b, n, stream);
+  if (n % 4 == 0 && aligned16(kt) && aligned16(vt)) {
+    return launch_as<D, C, true>(qt, kt, vt, out, lse, b, n, stream);
   }
-  return launch_as<T, D, C, false>(qt, kt, vt, out, lse, b, n, stream);
-}
-
-template <typename T>
-int launch_any(const void* qt, const void* kt, const void* vt, void* out, void* lse, int b,
-               int n, int d, int c, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || n <= 0 || b > 65535) return cudaErrorInvalidValue;
-  if (d == 4 && c == 32) return launch<T, 4, 32>(qt, kt, vt, out, lse, b, n, s);
-  if (d == 8 && c == 64) return launch<T, 8, 64>(qt, kt, vt, out, lse, b, n, s);
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-int smem_bytes(int d, int c) {
-  if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<T, 4, 32>));
-  if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<T, 8, 64>));
-  return -1;
+  return launch_as<D, C, false>(qt, kt, vt, out, lse, b, n, stream);
 }
 
 }  // namespace
@@ -346,18 +301,20 @@ int smem_bytes(int d, int c) {
 // Launches the forward on `stream` and returns cudaGetLastError() (0 on
 // success). (d, c) must be one of the instantiated head widths below; any
 // other pair returns cudaErrorInvalidValue without launching. qt, kt, vt, out
-// float32 (_f32) or bfloat16 (_bf16); lse float32.
+// and lse float32.
 extern "C" int tdt_flash_fwd_f32(const void* qt, const void* kt, const void* vt, void* out,
                                  void* lse, int b, int n, int d, int c, void* stream) {
-  return launch_any<float>(qt, kt, vt, out, lse, b, n, d, c, stream);
-}
-
-extern "C" int tdt_flash_fwd_bf16(const void* qt, const void* kt, const void* vt, void* out,
-                                  void* lse, int b, int n, int d, int c, void* stream) {
-  return launch_any<bf16>(qt, kt, vt, out, lse, b, n, d, c, stream);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || n <= 0 || b > 65535) return cudaErrorInvalidValue;
+  if (d == 4 && c == 32) return launch<4, 32>(qt, kt, vt, out, lse, b, n, s);
+  if (d == 8 && c == 64) return launch<8, 64>(qt, kt, vt, out, lse, b, n, s);
+  return cudaErrorInvalidValue;
 }
 
 // The dynamic shared memory of the kernel at (d, c), in bytes (-1 for a pair
 // that is not instantiated), for reports.
-extern "C" int tdt_flash_fwd_smem_bytes(int d, int c) { return smem_bytes<float>(d, c); }
-extern "C" int tdt_flash_fwd_bf16_smem_bytes(int d, int c) { return smem_bytes<bf16>(d, c); }
+extern "C" int tdt_flash_fwd_smem_bytes(int d, int c) {
+  if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<4, 32>));
+  if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<8, 64>));
+  return -1;
+}

@@ -1,6 +1,7 @@
-// Building blocks shared by flash_fwd.cu and flash_bwd.cu: float32 products
-// on the tensor cores by 3xTF32 wgmma, and cp.async staging of (rows, N) tiles
-// of float32 or bfloat16 operands.
+// Building blocks shared by flash_fwd.cu and flash_bwd.cu (float32): float32
+// products on the tensor cores by 3xTF32 wgmma, and cp.async staging of
+// (rows, N) tiles of float32 operands. The bfloat16 kernels have their own
+// (bf16_mma.cuh).
 //
 // 3xTF32. A tensor core reads a "tf32" operand as the top 19 bits of a 32-bit
 // register (sign, 8 exponent bits, 10 mantissa bits) and ignores the low 13.
@@ -13,12 +14,6 @@
 // dropped lo_a*lo_b is ~2^-22 of the product. One tf32 pass would carry ~2^-11
 // relative per operand. This is the CUDA counterpart of the TPU kernel's bf16x3
 // split (tinydiffusion_tpu/ops/attention.py:70-103).
-//
-// bfloat16 operands. A bf16 value (8 exponent bits, 7 mantissa bits) is exactly
-// a tf32 value, so its split has lo = 0: a product with a bf16 operand on one
-// side drops the terms of that side's lo plane (wgmma2_tf32: two passes), and a
-// product of two bf16 operands is one exact pass (wgmma1_tf32), the counterpart
-// of the TPU kernel's single bf16 pass (attention.py:117).
 //
 // Accumulation. The tensor core adds into its float32 accumulators with
 // truncation, so a sum kept in tensor-core accumulators over thousands of steps
@@ -46,54 +41,17 @@
 // bytes apart, and the groups of 8 rows lie sbo bytes apart.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace tdt {
 
-using bf16 = __nv_bfloat16;
-
-// Whether every value of an element type is exact in tf32 (its lo plane is 0).
-template <typename T>
-constexpr bool kTf32Exact = false;
-template <>
-constexpr bool kTf32Exact<bf16> = true;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-// x stored as T: float as it is, bf16 rounded to nearest even.
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Eight consecutive values from 16-byte aligned shared memory, widened to float.
+// Eight consecutive values from 16-byte aligned shared memory.
 __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
   x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
 }
-__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // a bf16 is the top half of its float
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Tf32x2 {
   uint32_t hi, lo;
@@ -106,13 +64,6 @@ __device__ __forceinline__ Tf32x2 split(float x) {
   return {hi, __float_as_uint(x - __uint_as_float(hi))};
 }
 
-// 2^x on the exp unit (MUFU.EX2); 2^-inf = 0, results below 2^-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The A registers of a warp's 16 x 8 share of a k8 step, split: a[i] holds a_i.
 struct FragA8 {
   Tf32x2 a[4];
@@ -123,31 +74,6 @@ __device__ __forceinline__ FragA8 split_a8(float a0, float a1, float a2, float a
 }
 
 // --- wgmma ---------------------------------------------------------------------
-
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return ((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);  // no swizzle, base offset 0
-}
-
-// Orders this thread's generic-proxy shared-memory writes before the async
-// proxy's (wgmma's) reads; a barrier then publishes them to the warpgroup.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
-}
-// Keeps a register in place across asynchronous wgmma reads and writes.
-__device__ __forceinline__ void reg_fence(float& x) { asm volatile("" : "+f"(x)::"memory"); }
-__device__ __forceinline__ void reg_fence(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
 
 // d (m64nN, f32) += A (m64k8) B (k8nN), tf32; A in registers (rs) or in
 // shared memory (ss), B in shared memory. The accumulate flag goes through a
@@ -216,20 +142,6 @@ __device__ __forceinline__ void wgmma3_tf32(float (&d)[N / 2], const FragA8& a, 
   Wgmma<N>::rs(d, a.a[0].hi, a.a[1].hi, a.a[2].hi, a.a[3].hi, b_hi);
 }
 
-// d += A B over k8 where B is exact in tf32 (bf16): its lo plane is zero, so
-// lo_a*hi_b + hi_a*hi_b, two passes.
-template <int N>
-__device__ __forceinline__ void wgmma2_tf32(float (&d)[N / 2], const FragA8& a, uint64_t b_hi) {
-  Wgmma<N>::rs(d, a.a[0].lo, a.a[1].lo, a.a[2].lo, a.a[3].lo, b_hi);
-  Wgmma<N>::rs(d, a.a[0].hi, a.a[1].hi, a.a[2].hi, a.a[3].hi, b_hi);
-}
-
-// d += A B over k8 where A and B are exact in tf32 (bf16): one exact pass.
-template <int N>
-__device__ __forceinline__ void wgmma1_tf32(float (&d)[N / 2], const FragA8& a, uint64_t b_hi) {
-  Wgmma<N>::rs(d, a.a[0].hi, a.a[1].hi, a.a[2].hi, a.a[3].hi, b_hi);
-}
-
 // d += A B in 3xTF32 over k8, A's and B's hi and lo planes by descriptor.
 template <int N>
 __device__ __forceinline__ void wgmma3_tf32_ss(float (&d)[N / 2], uint64_t a_hi, uint64_t a_lo,
@@ -249,25 +161,15 @@ __device__ __forceinline__ void reg_fence(FragA8& f) {
 
 // --- cp.async staging --------------------------------------------------------
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending));
-}
-
-// The copies of one (kRows, kCols) tile of a (kRows, n) row-major matrix of T
-// (float or bf16) into dst[kRows][kStride] (shared memory) by kThreads
-// threads, 16 bytes each where kVec (n a multiple of 16 bytes' values and src
-// 16-byte aligned), else one value each: 4 bytes by cp.async for float, and
-// for bf16, which cp.async cannot copy 2 bytes at a time, an ordinary load and
-// store (complete when issue() returns; the barrier after the next
-// cp_async_wait publishes them as it does the copies). A thread's chunks are
-// fixed, so their offsets are computed once; issue(c0) copies columns
-// [c0, c0 + kCols), zero-filling columns at or past n (src-size 0 reads
-// nothing). Does not commit.
-template <typename T, int kRows, int kCols, int kStride, int kThreads, bool kVec>
+// The copies of one (kRows, kCols) tile of a (kRows, n) row-major float
+// matrix into dst[kRows][kStride] (shared memory) by kThreads threads, 16
+// bytes each where kVec (n a multiple of 4 and src 16-byte aligned), else 4
+// bytes each. A thread's chunks are fixed, so their offsets are computed once;
+// issue(c0) copies columns [c0, c0 + kCols), zero-filling columns at or past n
+// (src-size 0 reads nothing). Does not commit.
+template <int kRows, int kCols, int kStride, int kThreads, bool kVec>
 struct TileCopy {
+  using T = float;
   static constexpr int kWidth = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
   static constexpr int kChunks = kRows * kCols / kWidth;
   static constexpr int kPerThread = (kChunks + kThreads - 1) / kThreads;
@@ -297,17 +199,12 @@ struct TileCopy {
       if constexpr (kVec) {
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst[r]), "l"(s),
                      "r"(in ? 16 : 0));
-      } else if constexpr (sizeof(T) == 4) {
+      } else {
         asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst[r]), "l"(s),
                      "r"(in ? 4 : 0));
-      } else {
-        const unsigned short v = in ? *reinterpret_cast<const unsigned short*>(s) : 0;
-        asm volatile("st.shared.u16 [%0], %1;" ::"r"(dst[r]), "h"(v) : "memory");
       }
     }
   }
 };
-
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace tdt
