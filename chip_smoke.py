@@ -15,7 +15,8 @@ the latent family: the MNIST MLP VAE (``experiments/vae.run``), latent
 diffusion with the MLP UNet and the DiT (``experiments/latent_diffusion.run``)
 and the serving CLI on their checkpoints, and the LAION text-conditional
 latent UNet (``experiments/conditional_diffusion_laion.run`` and
-``generate_laion.main``). Phases, one JSON line each:
+``generate_laion.main``), on the patch codec and the hash encoder and on the
+pretrained seams, CLIP-L and the SD v1.4 VAE. Phases, one JSON line each:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the kernels, built with one nvcc call from
@@ -132,7 +133,31 @@ latent UNet (``experiments/conditional_diffusion_laion.run`` and
     on ``laion_diffusion_1000ep`` (the four prompts, bf16 forward, fp32
     chain): DDPM-1000 and DDIM-50 twice each; DDIM-10 decoded images card vs
     CPU; a checkpoint trained for 20 steps with caption dropout 0.1, served
-    with guidance 2;
+    with guidance 2; then the pretrained seams at their published widths on
+    synthetic weights (``write_synthetic_clip`` puts CLIP-L's files in a
+    temporary directory): clip_encode (CLIP-L through
+    ``get_text_encoder("clip", clip_local_dir=...)`` on the card against the
+    same files on the CPU, 16 captions, beside two card runs and the CPU's
+    float32 against float64; the 800 records' captions encoded, the
+    forward's time, FLOPs and share of the float32 peak), sdvae_codec (the SD
+    v1.4 AutoencoderKL from a seeded init through
+    ``SDVAECodec.from_torch_state_dict``, its keys and shapes against
+    ``tests/fixtures/sd_v1_4_vae_state_dict.json``; encode moments of 8
+    images of 256² and decode of 4 latents of 32², card against CPU, each
+    one's time, peak memory, FLOPs and share of the float32 peak),
+    laion_sd_train (the LAION recipe with the SD codec and CLIP's
+    embeddings: 10 graph steps against eager with laion_parity's check,
+    then 2 epochs of 20 resident steps, each a replay holding the stochastic
+    encode and the q_sample kernel at (8, 4096), and the val passes, through
+    ``make_resident_laion_multi_step`` and ``make_laion_eval_step``; the
+    launches, graph counts, warm step, the encode's share of the step's
+    device time by CUDA events and by one profiler session, the patch-codec
+    step of laion_train beside), laion_sd_serve (DDIM-50 on the SD-trained
+    UNet with CLIP's embeddings of the four prompts and the SD decode; the
+    decode's time apart) and laion_clip_run (``python -m
+    tinydiffusion_torch.experiments.conditional_diffusion_laion
+    --text-encoder clip --clip-local-dir DIR`` for 20 steps and ``python -m
+    tinydiffusion_torch.generate_laion`` on its checkpoint, DDIM-50);
 14. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
     at each flash site (B = 4) and at two ragged N, dq, dk and dv; two calls
     bit-equal; the times of kernel, plain version and the backward of
@@ -159,8 +184,9 @@ latent UNet (``experiments/conditional_diffusion_laion.run`` and
 17. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
     B = 2) on the card against the CPU, cuDNN deterministic: loss
     components, gradients, params, BN statistics, spectral-norm u and sigma;
-18. the ``kernels`` line (the float32 flash kernels, q_sample, and the
-    bfloat16 flash kernels with launches from ``vae_train_bf16``), then
+18. the ``kernels`` line (the float32 flash kernels, q_sample, with the
+    launches of laion_sd_train beside, and the bfloat16 flash kernels with
+    launches from ``vae_train_bf16``), then
     ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds phases before the last two lines: ``torch.profiler`` over
@@ -199,9 +225,13 @@ import torch.nn.functional as F
 
 from chip_flash_ab import ptxas_report
 from chip_qsample_ab import graph_us_per_launch, kernel_device_us_each
+from tinydiffusion_torch.compat import sdvae, text_encoder
+from tinydiffusion_torch.compat.clip import PREFIX as CLIP_PREFIX
+from tinydiffusion_torch.compat.clip import CLIPTextConfig, CLIPTextEncoder, CLIPTextTransformer
+from tinydiffusion_torch.compat.clip_tokenizer import BOS_TOKEN, EOS_TOKEN, byte_to_unicode
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
-from tinydiffusion_torch.data.laion import synthesize_image
+from tinydiffusion_torch.data.laion import synthesize_caption, synthesize_image
 from tinydiffusion_torch.device import disable_tf32
 from tinydiffusion_torch import generate, generate_laion
 from tinydiffusion_torch.experiments import (
@@ -222,14 +252,17 @@ from tinydiffusion_torch.experiments.diffusion import DiffusionConfig, run
 from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct, sample_prior
 from tinydiffusion_torch.io.checkpoint import load_sidecar, restore_checkpoint, save_checkpoint
 from tinydiffusion_torch.models.unet28 import UNet28
+from tinydiffusion_torch.models.unet_latent import LatentUNet
 from tinydiffusion_torch.models.vae_conv import PerceptualNet
 from tinydiffusion_torch.obs.images import load_image28, save_image_grid, write_png
 from tinydiffusion_torch.ops import _build, attention, qsample
 from tinydiffusion_torch.train.trainer import (
     GRAPH_WARMUP_STEPS,
     create_train_state,
+    make_laion_eval_step,
     make_laion_train_step,
     make_latent_train_step,
+    make_resident_eval,
     make_resident_laion_multi_step,
     make_resident_latent_multi_step,
     make_resident_multi_step,
@@ -503,6 +536,88 @@ LAION_SERVE_F32_ATOL, LAION_SERVE_BF16_MEAN_ABS = 1e-3, 0.03
 # A guided checkpoint trained for a few steps at the recipe with caption
 # dropout 0.1, then served with --guidance-scale 2 (DDIM-50).
 LAION_GUIDED_RECORDS, LAION_GUIDED_STEPS = 200, 20
+
+
+# The pretrained seams (slice 11) at their published widths, on synthetic
+# weights: no real CLIP or SD-VAE file can be fetched. CLIP-L from
+# CLIPTextConfig's defaults, weights N(0, 0.02) from a seeded generator, the
+# LayerNorms' weights 1 and the biases 0, saved with transformers' keys
+# beside a vocabulary of the 256 byte symbols, their </w> forms, the merges
+# that spell CLIP_WORDS and the two specials at 49406 and 49407.
+CLIP_INIT_STD = 0.02
+CLIP_WORDS = (
+    "a photo of the cat dog horse cow and in on with at by for from to is are this that "
+    "red green blue yellow orange black white brown small large big little old young "
+    "painting drawing picture image portrait landscape sketch illustration render view "
+    "house tree river mountain city street sky sea beach forest flower garden field road "
+    "sunset night morning winter summer snow rain cloud light shadow color style art"
+).split()
+CLIP_BOS_ID, CLIP_EOS_ID = 49406, 49407
+CLIP_SEED = SEED + 40
+# clip_encode: the card against the CPU on 16 captions, float32 with TF32 off
+# on both: only summation order differs, through 12 layers of 768-wide
+# products; the pooled rows are LayerNorm outputs of order 1. The bound is
+# set at 1e-3, ~100 times the float32 rounding the CPU's float32 run shows
+# against its float64 run (printed beside it, as are two card runs).
+CLIP_CHECK_CAPTIONS, CLIP_CARD_VS_CPU_ATOL = 16, 1e-3
+# sdvae_codec: the SD v1.4 VAE (83 653 863 params) from a seeded init, encode
+# moments of 8 images of 256² and decode of 4 latents of 32², the card against
+# the CPU, float32 with TF32 off on both. On the CPU the float32 run is
+# 6e-6 of the largest value from a float64 run (128² images); cuDNN may
+# take Winograd or FFT convolutions, whose rounding is larger: bound 1e-3 of
+# the largest value.
+SD_SEED, SD_PARAMS = SEED + 41, 83_653_863
+SD_ENCODE_BATCH, SD_DECODE_BATCH, SD_CARD_VS_CPU_REL = 8, 4, 1e-3
+# laion_sd_train: the LAION recipe with the SD codec and CLIP's embeddings on
+# 200 records (160 train: 20 steps an epoch; 40 val: 5 batches), 2 epochs.
+LAION_SD_RECORDS, LAION_SD_EPOCHS, LAION_SD_STEPS = 200, 2, 20
+# laion_clip_run: the train CLI on CLIP, 1 epoch of 20 steps over 200 records.
+LAION_CLIP_RECORDS, LAION_CLIP_STEPS = 200, 20
+
+
+def synthetic_clip_vocab() -> tuple[dict[str, int], list[tuple[str, str]]]:
+    """A CLIP vocabulary and merge table: the byte symbols and their </w>
+    forms, then the merges that join each of ``CLIP_WORDS`` left to right
+    (the merged symbols added as they come), the specials at 49406-49407."""
+    symbols = list(byte_to_unicode().values())
+    tokens = symbols + [s + "</w>" for s in symbols]
+    merges: list[tuple[str, str]] = []
+    for word in CLIP_WORDS:
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            pair = (parts[0], parts[1])
+            if pair not in merges:
+                merges.append(pair)
+                tokens.append(pair[0] + pair[1])
+            parts = [pair[0] + pair[1]] + parts[2:]
+    vocab = {tok: i for i, tok in enumerate(dict.fromkeys(tokens))}
+    vocab.update({BOS_TOKEN: CLIP_BOS_ID, EOS_TOKEN: CLIP_EOS_ID})
+    return vocab, merges
+
+
+def write_synthetic_clip(directory: str, seed: int, config: CLIPTextConfig = CLIPTextConfig()
+                         ) -> None:
+    """``clip_text.pth`` (a ``CLIPTextModel`` state dict of ``config``'s
+    shapes, ``text_model.`` keys), ``vocab.json`` and ``merges.txt`` in
+    ``directory``: what ``get_text_encoder("clip", clip_local_dir=...)`` reads."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in CLIPTextTransformer(config).state_dict().items()}
+    state = {}
+    for key, shape in shapes.items():
+        if "norm" in key and key.endswith(".weight"):
+            value = torch.ones(shape)
+        elif key.endswith(".bias"):
+            value = torch.zeros(shape)
+        else:
+            value = torch.empty(shape).normal_(0.0, CLIP_INIT_STD, generator=gen)
+        state[CLIP_PREFIX + key] = value
+    torch.save(state, os.path.join(directory, "clip_text.pth"))
+    vocab, merges = synthetic_clip_vocab()
+    with open(os.path.join(directory, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(directory, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
 
 
 def emit(phase: str, **fields) -> None:
@@ -2071,13 +2186,27 @@ def phase_laion_parity() -> dict:
     across T_max."""
     disable_tf32()
     loaded = generate_laion.load_laion_checkpoint(LAION_CHECKPOINT, "cuda")
-    codec, schedule, recipe = loaded["codec"], loaded["schedule"], loaded["config"]
-    b = recipe.batch_size
-    records = [synthesize_image(i, recipe.image_size) for i in range(b * PARITY_STEPS)]
-    images = np.stack([image for image, _ in records])
+    b = loaded["config"].batch_size
+    records = [synthesize_image(i, loaded["config"].image_size) for i in range(b * PARITY_STEPS)]
     encoder = loaded["text_encoder"]
-    embeds = encoder.encode([caption for _, caption in records])
-    null = torch.from_numpy(encoder.encode([""])[0]).cuda()
+    fields = _laion_graph_vs_eager(
+        "laion_parity", loaded["codec"], np.stack([image for image, _ in records]),
+        encoder.encode([caption for _, caption in records]),
+        torch.from_numpy(encoder.encode([""])[0]).cuda())
+    emit("laion_parity", **fields)
+    return fields
+
+
+def _laion_graph_vs_eager(phase: str, codec, images: np.ndarray, embeds: np.ndarray,
+                          null: torch.Tensor) -> dict:
+    """PARITY_STEPS LAION steps with ``codec`` from the committed weights,
+    resident (graph replays) against eager and eager against itself, in
+    float32 and bfloat16, one step a call; the rate each step wrote on the
+    card against the host formula. Raises when graph against eager is out of
+    ``_parity_bounds()`` or the rates disagree."""
+    loaded = generate_laion.load_laion_checkpoint(LAION_CHECKPOINT, "cuda")
+    schedule, recipe = loaded["schedule"], loaded["config"]
+    b = recipe.batch_size
     lr, lr_min = recipe.lr, recipe.lr_min
     want_lrs = [_host_lr(c, LAION_PARITY_T_MAX, lr, lr_min) for c in range(PARITY_STEPS)]
     lr_atol = 0.5 * (lr - lr_min) * 2.0**-23
@@ -2111,7 +2240,7 @@ def phase_laion_parity() -> dict:
                     lrs[mode].append(optimizer.param_groups[0]["lr"].item())
                 if resident.counts != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
                                        "replays": PARITY_STEPS - GRAPH_WARMUP_STEPS}:
-                    raise RuntimeError(f"laion_parity: graph counts {resident.counts}")
+                    raise RuntimeError(f"{phase}: graph counts {resident.counts}")
             else:
                 step = make_laion_train_step(codec, schedule, **options)
                 for row in idxs:
@@ -2120,7 +2249,7 @@ def phase_laion_parity() -> dict:
                     lrs[mode].append(optimizer.param_groups[0]["lr"].item())
             torch.cuda.synchronize()
             if qsample.qsample_launches != PARITY_STEPS or state.step != PARITY_STEPS:
-                raise RuntimeError(f"laion_parity ({mode}): {state.step} steps, "
+                raise RuntimeError(f"{phase} ({mode}): {state.step} steps, "
                                    f"{qsample.qsample_launches} q_sample launches")
             out[mode] = _parity_record(state, losses, params0, ema0)
         fields[name], ok = _parity_fields(name, out)
@@ -2133,8 +2262,7 @@ def phase_laion_parity() -> dict:
             failed.append(name)
     fields["weights"] = os.path.relpath(LAION_CHECKPOINT, REPO)
     if failed:
-        raise RuntimeError(f"laion_parity: graph vs eager in {failed}: {fields}")
-    emit("laion_parity", **fields)
+        raise RuntimeError(f"{phase}: graph vs eager in {failed}: {fields}")
     return fields
 
 
@@ -2225,6 +2353,376 @@ def phase_laion_serve() -> dict:
     if problems:
         raise RuntimeError(f"laion_serve: {problems}: {fields}")
     emit("laion_serve", **fields)
+    return fields
+
+
+def _clip_captions() -> list[str]:
+    """CLIP_CHECK_CAPTIONS captions: the four prompts, the empty one and
+    sentences of CLIP_WORDS, some with words past the vocabulary's."""
+    words = CLIP_WORDS
+    made = [" ".join(words[(7 * i + 3 * j) % len(words)] for j in range(3 + i))
+            + ("" if i % 3 else ", zebra crossing!") for i in range(CLIP_CHECK_CAPTIONS - 5)]
+    return list(conditional_diffusion_laion.SAMPLE_PROMPTS) + [""] + made
+
+
+def clip_flops(config: CLIPTextConfig, rows: int, tokens: int) -> float:
+    """The transformer's products for (rows, tokens) ids: per token and layer
+    the q, k, v and out projections (4 C^2), the MLP (2 C F) and the
+    attention's two products over the tokens (2 N C), two FLOPs a MAC."""
+    c, f, n = config.hidden_size, config.intermediate_size, tokens
+    return 2.0 * rows * n * config.num_hidden_layers * (4 * c * c + 2 * c * f + 2 * n * c)
+
+
+def phase_clip_encode(clip_dir: str) -> dict:
+    """CLIP-L from the synthetic directory through ``get_text_encoder("clip",
+    clip_local_dir=...)`` on the card, against the same files' encoder on the
+    CPU (float32, TF32 off) on CLIP_CHECK_CAPTIONS captions, beside two card
+    runs and the CPU's float32 against float64; then the 800 records'
+    captions encoded on the card (host clock: tokenizing, the forward and
+    the copy back) and the forward alone (CUDA events), its FLOPs and share
+    of the float32 peak. Returns the card encoder and the records' embeddings."""
+    disable_tf32()
+    card = text_encoder.get_text_encoder("clip", 768, clip_dir, device="cuda")
+    cpu = text_encoder.get_text_encoder("clip", 768, clip_dir, device="cpu")
+    if not isinstance(card, CLIPTextEncoder) or card.config != CLIPTextConfig():
+        raise RuntimeError(f"clip_encode: {type(card).__name__} {getattr(card, 'config', None)}")
+    captions = _clip_captions()
+    got, again, want = card.encode(captions), card.encode(captions), cpu.encode(captions)
+    ids = torch.from_numpy(cpu.tokenizer(captions)["input_ids"])
+    with torch.no_grad():
+        want64 = cpu.model.double()(ids)[:, -1].numpy()
+    fields = {"config": dataclasses.asdict(card.config), "captions": len(captions),
+              "atol": CLIP_CARD_VS_CPU_ATOL,
+              "card_vs_cpu_max_abs": float(np.abs(got - want).max()),
+              "card_vs_card_max_abs": float(np.abs(got - again).max()),
+              "cpu_f32_vs_f64_max_abs": float(np.abs(want - want64).max()),
+              "max_abs": float(np.abs(want).max())}
+    if not (got.shape == (len(captions), 768) and np.isfinite(got).all()
+            and fields["card_vs_cpu_max_abs"] <= CLIP_CARD_VS_CPU_ATOL):
+        raise RuntimeError(f"clip_encode: card vs CPU {fields}")
+    records = [synthesize_caption(i) for i in range(LAION_RECORDS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    embeds = card.encode(records)
+    encode_s = time.perf_counter() - t0
+    record_ids = torch.from_numpy(card.tokenizer(records)["input_ids"]).cuda()
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: card.model(record_ids), iters=3, warmup=1)
+    flops = clip_flops(card.config, *record_ids.shape)
+    fields.update(records=len(records), encode_records_s=encode_s, forward_ms=forward_ms,
+                  forward_gflop=flops / 1e9,
+                  fp32_peak_share=flops / (forward_ms * 1e-3) / PEAK_FP32_FLOPS,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    emit("clip_encode", **fields)
+    return {"encoder": card, "embeds": embeds, **fields}
+
+
+def sdvae_flops(vae, fn) -> float:
+    """The products of one call of ``fn`` on ``vae``, from the shapes that
+    its convolutions, Dense layers and mid-block attentions see (hooks): two
+    FLOPs a MAC; norms and activations not counted."""
+    total = [0.0]
+
+    def conv(m, inp, out):
+        total[0] += 2.0 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] \
+            * m.kernel_size[1]
+
+    def dense(m, inp, out):
+        total[0] += 2.0 * out.numel() * m.in_features
+
+    def attn(m, inp, out):
+        b, c, h, w = inp[0].shape
+        total[0] += 2.0 * 2 * b * (h * w) ** 2 * c  # q k^T and p v
+
+    hooks = []
+    for module in vae.modules():
+        if isinstance(module, torch.nn.Conv2d):
+            hooks.append(module.register_forward_hook(conv))
+        elif isinstance(module, torch.nn.Linear):
+            hooks.append(module.register_forward_hook(dense))
+        elif isinstance(module, sdvae.Attention):
+            hooks.append(module.register_forward_hook(attn))
+    try:
+        fn()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return total[0]
+
+
+def phase_sdvae_codec() -> dict:
+    """The SD v1.4 AutoencoderKL at the fixture's config from a seeded init,
+    through ``SDVAECodec.from_torch_state_dict``: its keys and shapes against
+    ``tests/fixtures/sd_v1_4_vae_state_dict.json``; encode moments of 8
+    synthetic 256² images and decode of 4 latents of 32², the card against
+    the CPU (float32, TF32 off); each one's time (CUDA events), peak memory,
+    FLOPs and share of the float32 peak. Returns the card codec."""
+    disable_tf32()
+    with open(os.path.join(REPO, "tests", "fixtures", "sd_v1_4_vae_state_dict.json")) as f:
+        manifest = {k: tuple(v) for k, v in json.load(f).items()}
+    with open(os.path.join(REPO, "tests", "fixtures", "sd_v1_4_vae_config.json")) as f:
+        upstream = json.load(f)
+    config = {k: upstream[k] for k in sdvae.SD_VAE_CONFIG}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SD_SEED)
+        state = sdvae.AutoencoderKL(**config).state_dict()
+    shapes = {k: tuple(v.shape) for k, v in state.items()}
+    n_params = sum(v.numel() for v in state.values())
+    if shapes != manifest or n_params != SD_PARAMS:
+        raise RuntimeError(f"sdvae_codec: {n_params} params, keys off the manifest: "
+                           f"{sorted(set(shapes) ^ set(manifest))[:8]}")
+    codec = sdvae.SDVAECodec.from_torch_state_dict(state, config,
+                                                   upstream["scaling_factor"]).to("cuda")
+    cpu = sdvae.SDVAECodec.from_torch_state_dict(state, config, upstream["scaling_factor"])
+    x = _nchw(np.stack([synthesize_image(i, 256)[0] for i in range(SD_ENCODE_BATCH)]))
+    x = x * 2.0 - 1.0
+    z = torch.from_numpy(np.random.default_rng(SEED + 42).standard_normal(
+        (SD_DECODE_BATCH, 4, 32, 32)).astype(np.float32))
+    fields = {"params": n_params, "config": config, "rel_bound": SD_CARD_VS_CPU_REL}
+    problems = []
+    for name, fn, arg, shape in (("encode", codec.vae.encode_moments, x,
+                                  (SD_ENCODE_BATCH, 8, 32, 32)),
+                                 ("decode", codec.vae.decode, z, (SD_DECODE_BATCH, 3, 256, 256))):
+        cpu_fn = getattr(cpu.vae, fn.__name__)
+        arg_card = arg.cuda()
+        with torch.no_grad():
+            got, want = fn(arg_card).cpu(), cpu_fn(arg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: fn(arg_card), iters=5)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            flops = sdvae_flops(codec.vae, lambda: fn(arg_card))
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        fields[name] = {"input": list(arg.shape), "output": list(got.shape), "ms": ms,
+                        "peak_mem_gib": peak, "gflop": flops / 1e9,
+                        "gflop_per_image": flops / 1e9 / len(arg),
+                        "fp32_peak_share": flops / (ms * 1e-3) / PEAK_FP32_FLOPS,
+                        "card_vs_cpu_rel": rel, "max_abs": want.abs().max().item()}
+        if tuple(got.shape) != shape or not torch.isfinite(got).all() or rel > SD_CARD_VS_CPU_REL:
+            problems.append(f"{name}: {fields[name]}")
+    if problems:
+        raise RuntimeError(f"sdvae_codec: {problems}")
+    emit("sdvae_codec", **fields)
+    return {"codec": codec, **fields}
+
+
+def _encode_share(codec, step, state, data, idxs, gen) -> dict:
+    """The codec's share of the SD step's device time: CUDA-event times of
+    ``len(idxs)`` graph-replayed steps and of as many encodes of the same
+    batches; then one profiler session over the encodes and the steps
+    (``record_function`` ranges apart, each ended by a synchronize), its
+    kernels summed by the range they start in, taken again when a range
+    holds no kernel or a kernel lies outside both (up to 3 sessions)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def encodes():
+        for row in idxs:
+            x, _ = data.gather(torch.from_numpy(row).cuda())
+            codec.encode(x.permute(0, 3, 1, 2), generator=gen)
+
+    steps_ms = cuda_ms(lambda: step(state, idxs), iters=1, warmup=1)
+    encodes_ms = cuda_ms(encodes, iters=1, warmup=1)
+    fields = {"steps": len(idxs), "steps_ms": steps_ms, "encodes_ms": encodes_ms,
+              "event_share": encodes_ms / steps_ms}
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for name, fn in (("encodes", encodes), ("steps", lambda: step(state, idxs))):
+                with record_function(name):
+                    fn()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        ranges = {ev.name: ev.time_range for ev in events
+                  if ev.name in ("encodes", "steps") and ev.device_type
+                  == torch.autograd.DeviceType.CPU}
+        busy = {"encodes": 0.0, "steps": 0.0, "outside": 0.0}
+        for ev in events:
+            if (ev.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(ev, "is_user_annotation", False) or ev.name in ranges):
+                continue
+            where = next((n for n, r in ranges.items() if r.start <= ev.time_range.start
+                          <= r.end), "outside")
+            busy[where] += ev.time_range.elapsed_us() / 1e3
+        if len(ranges) == 2 and busy["encodes"] > 0 and busy["steps"] > 0 \
+                and busy["outside"] == 0:
+            fields.update(profile_sessions=session + 1, encodes_busy_ms=busy["encodes"],
+                          steps_busy_ms=busy["steps"],
+                          profile_share=busy["encodes"] / busy["steps"])
+            return fields
+    fields.update(profile_sessions=3, profile_share=None, profile_busy_ms=busy)
+    return fields
+
+
+def phase_laion_sd_train(codec, clip: dict, patch: dict) -> dict:
+    """The LAION recipe (``laion_diffusion_1000ep.json``: LatentUNet at
+    time_dim 768, B = 8, bf16, Adam 1e-4 cosine, clip 10, 10 steps a chunk)
+    with the SD codec and CLIP-L's embeddings of the synthetic records,
+    through ``make_resident_laion_multi_step`` and ``make_laion_eval_step``:
+    first 10 graph steps against 10 eager (``laion_parity``'s check and
+    bounds), then 2 epochs of 20 steps and the val pass, the q_sample
+    launches counted over them, the warm step, the codec's share of the
+    step's device time, and the patch-codec step of ``laion_train`` beside.
+    Returns the trained model."""
+    disable_tf32()
+    recipe = _laion_recipe()
+    b = recipe.batch_size
+    records = [synthesize_image(i, recipe.image_size) for i in range(LAION_SD_RECORDS)]
+    images = np.stack([image for image, _ in records])
+    embeds = clip["embeds"][:LAION_SD_RECORDS]
+    null = torch.from_numpy(clip["encoder"].encode([""])[0]).cuda()
+    parity = _laion_graph_vs_eager("laion_sd_train", codec, images[: b * PARITY_STEPS],
+                                   embeds[: b * PARITY_STEPS], null)
+
+    schedule = DiffusionSchedule.linear(recipe.num_timesteps).to("cuda")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = LatentUNet(time_dim=recipe.time_dim, in_channels=recipe.latent_channels,
+                           latent_size=recipe.latent_size)
+    model = model.cuda()
+    optimizer = torch.optim.Adam(model.parameters(), lr=torch.tensor(recipe.lr, device="cuda"),
+                                 capturable=True)
+    state = create_train_state(model, optimizer, SEED)
+    perm = np.random.default_rng(recipe.split_seed).permutation(len(images))
+    n_val = len(images) // 5
+    common = dict(batch_size=b, seed=SEED, device="cuda",
+                  u8_normalize=conditional_diffusion_laion.LAION_U8_NORMALIZE)
+    train = DeviceDataset(images[perm[n_val:]], embeds=embeds[perm[n_val:]], **common)
+    val = DeviceDataset(images[perm[:n_val]], embeds=embeds[perm[:n_val]], shuffle=False,
+                        **common)
+    chunk = make_resident_laion_multi_step(
+        codec, schedule, train, clip_norm=recipe.clip_norm, compute_dtype=torch.bfloat16,
+        lr_schedule=conditional_diffusion_laion.cosine_annealing_lr(
+            recipe.lr, recipe.lr_min, recipe.scheduler_t_max))
+    evaluate = make_resident_eval(
+        make_laion_eval_step(codec, schedule, torch.bfloat16), val, SEED + 3,
+        conditional_diffusion_laion.VAL_FOLD_STRIDE)
+    g = max(recipe.steps_per_dispatch, recipe.log_every, 1)  # run()'s chunk
+    _reset_launches()
+    split = {"train": 0, "eval": 0}
+    epochs = []
+    for epoch in range(LAION_SD_EPOCHS):
+        idxs = train.epoch_index_batches(epoch)[:LAION_SD_STEPS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = qsample.qsample_launches
+        losses = torch.cat([chunk(state, idxs[i : i + g])
+                            for i in range(0, len(idxs), g)]).tolist()
+        train_s = time.perf_counter() - t0
+        split["train"] += qsample.qsample_launches - before
+        before = qsample.qsample_launches
+        t0 = time.perf_counter()
+        val_losses = evaluate(model, epoch, val.epoch_index_batches(0)).tolist()
+        val_s = time.perf_counter() - t0
+        split["eval"] += qsample.qsample_launches - before
+        epochs.append({"losses": losses, "train_s": train_s, "step_ms": 1e3 * train_s / len(idxs),
+                       "samples_per_sec": len(idxs) * b / train_s, "val_losses": val_losses,
+                       "val_s": val_s})
+    steps = LAION_SD_EPOCHS * LAION_SD_STEPS
+    val_batches = LAION_SD_EPOCHS * (n_val // b)
+    graph, launches = dict(chunk.counts), _launches()
+    share = _encode_share(codec, chunk, state, train, train.epoch_index_batches(2)[:g],
+                          torch.Generator("cuda").manual_seed(SEED))
+    fields = {"recipe": os.path.relpath(LAION_CHECKPOINT, REPO) + ".json", "batch": b,
+              "records": LAION_SD_RECORDS, "epochs": epochs, "graph": graph,
+              "qsample_launches": split, "launches": launches, "parity": parity,
+              "warm_step_ms": epochs[-1]["step_ms"],
+              "warm_samples_per_sec": epochs[-1]["samples_per_sec"], "encode_share": share,
+              "patch_codec_warm_step_ms": patch["warm_step_ms"],
+              "patch_codec_warm_samples_per_sec": patch["warm_samples_per_sec"]}
+    problems = []
+    if split != {"train": steps, "eval": val_batches}:
+        problems.append(f"q_sample launches {split}, want {steps} train, {val_batches} eval")
+    if graph != {"eager": GRAPH_WARMUP_STEPS, "captures": 1,
+                 "replays": steps - GRAPH_WARMUP_STEPS}:
+        problems.append(f"graph counts {graph}")
+    values = [v for e in epochs for v in e["losses"] + e["val_losses"]]
+    if not np.all(np.isfinite(values)):
+        problems.append("a loss is not finite")
+    if problems:
+        raise RuntimeError(f"laion_sd_train: {problems}: {fields}")
+    emit("laion_sd_train", **fields)
+    return {"model": model, "schedule": schedule, **fields}
+
+
+def phase_laion_sd_serve(model, schedule, codec, clip_encoder) -> dict:
+    """A request on the SD-trained UNet: the four prompts' CLIP embeddings,
+    DDIM-50 (bf16 forward, fp32 chain) and the SD decode, as
+    ``make_laion_sampler`` serves it; cold, then timed warm, with the text
+    encode and the decode's time (CUDA events) apart."""
+    prompts = conditional_diffusion_laion.SAMPLE_PROMPTS
+    sampler = conditional_diffusion_laion.make_laion_sampler(
+        model.eval(), schedule, codec, len(prompts), 32, 4, compute_dtype=torch.bfloat16,
+        method="ddim", sample_steps=50)
+    forwards = [0]
+    hook = model.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+
+    def request():
+        embeds = torch.from_numpy(clip_encoder.encode(prompts)).cuda()
+        return sampler(torch.Generator("cuda").manual_seed(SEED), embeds)
+
+    request()  # cold
+    forwards[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = request()
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    hook.remove()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clip_encoder.encode(prompts)
+    text_s = time.perf_counter() - t0
+    latents = torch.randn(len(prompts), 4, 32, 32, device="cuda")
+    decode_ms = cuda_ms(lambda: codec.decode(latents), iters=3)
+    fields = {"prompts": prompts, "sampler": "ddim50", "forwards": forwards[0],
+              "request_s": request_s, "text_encode_s": text_s, "decode_ms": decode_ms,
+              "ms_per_forward_and_step": (1e3 * request_s - decode_ms) / max(forwards[0], 1)}
+    if not (forwards[0] == 50 and tuple(images.shape) == (4, 3, 256, 256)
+            and torch.isfinite(images).all() and images.min() >= 0 and images.max() <= 1):
+        raise RuntimeError(f"laion_sd_serve: images {tuple(images.shape)}: {fields}")
+    emit("laion_sd_serve", **fields)
+    return fields
+
+
+def phase_laion_clip_run(clip_dir: str) -> dict:
+    """The normal entry points on CLIP: ``python -m
+    tinydiffusion_torch.experiments.conditional_diffusion_laion
+    --text-encoder clip --clip-local-dir DIR`` cut to 1 epoch of 20 steps,
+    then ``python -m tinydiffusion_torch.generate_laion`` on its checkpoint
+    (DDIM-50, the four prompts), each a process of its own."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        train = [sys.executable, "-m", "tinydiffusion_torch.experiments.conditional_diffusion_laion",
+                 "--text-encoder", "clip", "--clip-local-dir", clip_dir, "--num-epochs", "1",
+                 "--max-steps-per-epoch", str(LAION_CLIP_STEPS), "--n-records",
+                 str(LAION_CLIP_RECORDS), "--sample-every-epoch", "false",
+                 "--out-dir", os.path.join(tmp, "out"), "--model-save-path", ckpt]
+        serve = [sys.executable, "-m", "tinydiffusion_torch.generate_laion", "--checkpoint", ckpt,
+                 "--sampler", "ddim", "--sample-steps", "50", "--out",
+                 os.path.join(tmp, "gen.png")]
+        fields = {}
+        for name, cmd in (("train", train), ("serve", serve)):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+            fields[name] = {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+                            "tail": proc.stdout.strip().splitlines()[-3:]}
+            if proc.returncode:
+                raise RuntimeError(f"laion_clip_run {name}: rc {proc.returncode}\n"
+                                   f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        sidecar = load_sidecar(ckpt)
+        with open(os.path.join(tmp, "out", "laion-diffusion-model", "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        losses = [m["batch_train_loss"] for m in metrics if "batch_train_loss" in m]
+        fields.update(steps=LAION_CLIP_STEPS, records=LAION_CLIP_RECORDS, losses=losses,
+                      val_loss=[m["val_loss"] for m in metrics if "val_loss" in m])
+        ok = (sidecar["config"]["text_encoder"] == "clip" and losses
+              and np.all(np.isfinite(losses + fields["val_loss"]))
+              and "wrote 4 samples" in " ".join(fields["serve"]["tail"])
+              and "50 model forwards" in " ".join(fields["serve"]["tail"])
+              and os.path.getsize(os.path.join(tmp, "gen.png")) > 0)
+    if not ok:
+        raise RuntimeError(f"laion_clip_run: {fields}")
+    emit("laion_clip_run", **fields)
     return fields
 
 
@@ -2692,6 +3190,17 @@ def main() -> int:
     phase_serve()
     phase_latent_serve()
     phase_laion_serve()
+    # The pretrained seams at their published widths, on synthetic weights:
+    # CLIP-L's files in a temporary directory (0.47 GiB), never in the tree.
+    with tempfile.TemporaryDirectory() as clip_dir:
+        write_synthetic_clip(clip_dir, CLIP_SEED)
+        clip = phase_clip_encode(clip_dir)
+        sd_codec = phase_sdvae_codec()["codec"]
+        sd_train = phase_laion_sd_train(sd_codec, clip, laion)
+        sd_launches = sd_train["qsample_launches"]
+        phase_laion_sd_serve(sd_train["model"], sd_train["schedule"], sd_codec, clip["encoder"])
+        del sd_train, clip
+        phase_laion_clip_run(clip_dir)
     bwd_sites = phase_flash_bwd_kernel()
     bwd_bf16_sites = phase_flash_bwd_kernel(torch.bfloat16)
     phase_flash_autograd()
@@ -2735,8 +3244,10 @@ def main() -> int:
             "launches_conditional_split": cond["qsample_launches"],
             # The latent runs, at (128, 20): their train steps and val passes.
             "launches_latent_runs": {b: f["qsample_launches"] for b, f in latents.items()},
-            # The LAION run, at (8, 4096): its train steps and val passes.
+            # The LAION run, at (8, 4096): its train steps and val passes;
+            # and the LAION steps on the SD codec's latents, the same shape.
             "launches_laion_run": laion["qsample_launches"],
+            "launches_laion_sd_train": sd_launches,
             "max_abs_err": max([qsample_site["max_abs_err"]]
                                + [s["max_abs_err"] for s in qsample_site["latent_sites"]]),
             **{k: qsample_site[k] for k in keys + (

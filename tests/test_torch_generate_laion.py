@@ -7,7 +7,8 @@ JAX's draws handed to the port through ``x_init`` / ``noise_stream``), the
 four prompts' labelled grid against JAX's ``save_image_grid`` (PIL's
 default font), and ``python -m tinydiffusion_torch.generate_laion``: the
 committed checkpoint served with ``--dump-dir`` and ``--repeat``, the EMA
-shadow and guidance of a caption-dropout checkpoint, and its parser errors.
+shadow and guidance of a caption-dropout checkpoint, its parser errors, a
+checkpoint trained on CLIP embeddings, and one whose codec is the SD-VAE.
 """
 
 import json
@@ -21,6 +22,7 @@ import pytest
 import torch
 from PIL import Image
 
+from chip_smoke import write_synthetic_clip
 from tests.test_torch_diffusion import _same_tables
 from tests.test_torch_sampler import _draws
 from tinydiffusion_tpu.compat.latent_codec import LinearPatchCodec as JaxCodec
@@ -30,7 +32,9 @@ from tinydiffusion_tpu.io.checkpoint import restore_weights
 from tinydiffusion_tpu.models.unet_latent import LatentUNet as JaxLatentUNet
 from tinydiffusion_tpu.obs.images import save_image_grid as jax_save_image_grid
 from tinydiffusion_torch import generate_laion
+from tinydiffusion_torch.compat.clip import CLIPTextEncoder
 from tinydiffusion_torch.compat.latent_codec import LinearPatchCodec
+from tinydiffusion_torch.compat.sdvae import AutoencoderKL, SDVAECodec
 from tinydiffusion_torch.compat.text_encoder import HashTextEncoder
 from tinydiffusion_torch.experiments import conditional_diffusion_laion as exp
 from tinydiffusion_torch.io.checkpoint import load_sidecar, load_weights_arrays, save_weights
@@ -186,3 +190,54 @@ def test_cli_refuses_a_sidecar_without_its_codec_basis(tmp_path, capsys):
     with pytest.raises(SystemExit):
         _cli(tmp_path, "--checkpoint", path)
     assert "codec_state" in capsys.readouterr().err
+
+
+def test_cli_serves_a_clip_checkpoint(tmp_path):
+    """A checkpoint trained by ``run`` with ``text_encoder="clip"`` (a
+    synthetic CLIP-L directory, two steps on the CPU) served by the CLI:
+    ``load_laion_checkpoint`` builds CLIP from the sidecar's
+    ``clip_local_dir`` on the asked device, and the prompts' embeddings the
+    chain reads are CLIP's."""
+    clip_dir = tmp_path / "clip"
+    clip_dir.mkdir()
+    write_synthetic_clip(str(clip_dir), seed=5)
+    out = tmp_path / "run"
+    exp.run(exp.LaionDiffusionConfig(
+        device="cpu", num_epochs=1, max_steps_per_epoch=2, batch_size=2, n_records=12,
+        image_size=64, log_every=1, num_timesteps=4, compute_dtype="float32",
+        sample_every_batches=0, sample_every_epoch=False, text_encoder="clip",
+        clip_local_dir=str(clip_dir), out_dir=str(out), model_save_path=str(out / "ckpt")))
+    loaded = generate_laion.load_laion_checkpoint(str(out / "ckpt"), "cpu")
+    encoder = loaded["text_encoder"]
+    assert isinstance(encoder, CLIPTextEncoder) and encoder.device == torch.device("cpu")
+    prompts = ["a photo of a horse", "a red cow"]
+    want = CLIPTextEncoder.from_local(*(str(clip_dir / f) for f in (
+        "clip_text.pth", "vocab.json", "merges.txt")), device="cpu").encode(prompts)
+    np.testing.assert_array_equal(encoder.encode(prompts), want)
+    served = _cli(tmp_path, "--checkpoint", str(out / "ckpt"), "--sampler", "ddim",
+                  "--sample-steps", "2", "--prompt", prompts[0], "--prompt", prompts[1])
+    assert served["forwards"] == 2 and served["images"].shape == (2, 3, 64, 64)
+    assert torch.isfinite(served["images"]).all()
+
+
+def test_cli_serves_an_sd_codec_checkpoint_without_a_basis(tmp_path, monkeypatch):
+    """A sidecar whose codec is the SD-VAE needs no ``codec_state``: the
+    codec (here a tiny random one standing in for ``from_pretrained``, which
+    needs diffusers) decodes the chain's latents, 2x up at its two widths."""
+    path = _variant(tmp_path, "sd", ema=False, latent_codec="sd")
+    with open(path + ".json") as f:
+        sidecar = json.load(f)
+    del sidecar["metadata"]["codec_state"]
+    with open(path + ".json", "w") as f:
+        json.dump(sidecar, f)
+    torch.manual_seed(0)
+    tiny = {"block_out_channels": (16, 32), "layers_per_block": 1, "latent_channels": 4,
+            "norm_num_groups": 4}
+    codec = SDVAECodec(AutoencoderKL(**tiny))
+    names = []
+    monkeypatch.setattr(generate_laion, "get_latent_codec",
+                        lambda name, image_size: names.append(name) or codec)
+    served = _cli(tmp_path, "--checkpoint", path, "--sampler", "ddim", "--sample-steps", "2",
+                  "--prompt", PROMPTS[0])
+    assert names == ["sd"] and served["images"].shape == (1, 3, 64, 64)
+    assert torch.isfinite(served["images"]).all()

@@ -14,7 +14,11 @@ inpainting from PNGs); a fifth trains the MNIST VAE for two steps, each
 latent backbone for two steps on that VAE, and serves a latent checkpoint
 with ``generate.main``; a sixth trains the LAION text-conditional latent
 UNet for two steps and serves it with ``python -m
-tinydiffusion_torch.generate_laion``, ``--dump-dir`` included.
+tinydiffusion_torch.generate_laion``, ``--dump-dir`` included; a seventh,
+with ``regex``, ``ftfy``, ``transformers``, ``diffusers`` and
+``safetensors`` refused too, trains it for two steps on a synthetic CLIP-L
+directory through ``from_local``, serves that checkpoint, and takes resident
+LAION steps with a small SD-VAE codec.
 """
 
 import json
@@ -27,10 +31,14 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_laion_best")
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "PIL", "tinydiffusion_tpu")
+# The JAX stack and PIL, which the card's machine lacks, and what the CLIP and
+# SD-VAE seams of the JAX package and the reference reach for: regex, ftfy,
+# transformers, diffusers and safetensors.
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "PIL", "tinydiffusion_tpu",
+           "regex", "ftfy", "transformers", "diffusers", "safetensors")
 
 _REFUSE = textwrap.dedent("""
-    import importlib, importlib.abc, pkgutil, sys
+    import importlib, importlib.abc, os, pkgutil, sys
 
     BLOCKED = set(sys.argv[2].split(","))
 
@@ -285,6 +293,56 @@ _CHILD_LAION = _REFUSE + textwrap.dedent("""
 """)
 
 
+# The pretrained seams: run() on CLIP embeddings from a synthetic CLIP-L
+# directory, ``generate_laion.main`` on its checkpoint, and two resident LAION
+# steps with a small SD-VAE codec's stochastic encode.
+_CHILD_SEAMS = _REFUSE + textwrap.dedent("""
+    import numpy as np
+    import torch
+
+    from chip_smoke import write_synthetic_clip
+    from tinydiffusion_torch import generate_laion
+    from tinydiffusion_torch.compat.sdvae import AutoencoderKL, SDVAECodec
+    from tinydiffusion_torch.core.schedule import DiffusionSchedule
+    from tinydiffusion_torch.data.device import DeviceDataset
+    from tinydiffusion_torch.experiments import conditional_diffusion_laion as laion
+    from tinydiffusion_torch.models.unet_latent import LatentUNet
+    from tinydiffusion_torch.train.trainer import create_train_state, make_resident_laion_multi_step
+
+    torch.set_num_threads(1)
+    path = sys.argv[1]
+    os.makedirs(path + "/clip")
+    write_synthetic_clip(path + "/clip", seed=0)
+    result = laion.run(laion.LaionDiffusionConfig(
+        device="cpu", num_epochs=1, max_steps_per_epoch=2, batch_size=2, n_records=12,
+        image_size=64, log_every=1, num_timesteps=4, compute_dtype="float32",
+        sample_every_batches=0, sample_every_epoch=False, text_encoder="clip",
+        clip_local_dir=path + "/clip", out_dir=path + "/out", model_save_path=path + "/ckpt"))
+    assert result["state"].step == 2, result
+    served = generate_laion.main(["--checkpoint", path + "/ckpt", "--device", "cpu",
+                                  "--sampler", "ddim", "--sample-steps", "2",
+                                  "--out", path + "/gen.png"])
+    assert served["images"].shape == (4, 3, 64, 64), served
+
+    torch.manual_seed(0)
+    codec = SDVAECodec(AutoencoderKL((16, 32), 1, 4, 4))
+    images = np.random.default_rng(0).integers(0, 256, (4, 16, 16, 3), dtype=np.uint8)
+    data = DeviceDataset(images, 2, seed=0, device="cpu",
+                         embeds=np.zeros((4, 32), np.float32),
+                         u8_normalize=laion.LAION_U8_NORMALIZE)
+    model = LatentUNet(time_dim=32, base_width=4, latent_size=8)
+    state = create_train_state(model, torch.optim.Adam(model.parameters(),
+                                                       lr=torch.tensor(1e-4)), 0)
+    step = make_resident_laion_multi_step(codec, DiffusionSchedule.linear(10), data,
+                                          laion.cosine_annealing_lr(1e-4, 1e-6, 10))
+    losses = step(state, data.epoch_index_batches(0))
+    assert losses.shape == (2,) and torch.isfinite(losses).all(), losses
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
 def _run_isolated(child: str, path: str, cwd: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -349,3 +407,10 @@ def test_port_trains_and_serves_laion_without_the_jax_stack(tmp_path):
     assert os.path.getsize(tmp_path / "out" / "final_samples.png") > 0
     assert os.path.getsize(tmp_path / "gen.png") > 0
     assert sorted(os.listdir(tmp_path / "dump")) == [f"sample_000_0{i}.png" for i in range(4)]
+
+
+def test_port_trains_on_the_pretrained_seams_without_the_jax_stack(tmp_path):
+    _run_isolated(_CHILD_SEAMS, str(tmp_path), str(tmp_path))
+    for ext in (".pt", ".npz", ".json"):
+        assert os.path.getsize(tmp_path / f"ckpt{ext}") > 0
+    assert os.path.getsize(tmp_path / "gen.png") > 0

@@ -18,6 +18,7 @@ decodes, which the port does not make: ``data/laion.py``).
 import dataclasses
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -26,8 +27,11 @@ import optax
 import pytest
 import torch
 
+from chip_smoke import write_synthetic_clip
 from tests.test_torch_diffusion import _same_tables
+from tinydiffusion_tpu.compat import sdvae as jax_sdvae
 from tinydiffusion_tpu.compat.latent_codec import LinearPatchCodec as JaxCodec
+from tinydiffusion_tpu.compat.sdvae import SDVAEFlaxCodec as JaxSDVAECodec
 from tinydiffusion_tpu.compat.text_encoder import HashTextEncoder as JaxHashTextEncoder
 from tinydiffusion_tpu.core import process as jax_process
 from tinydiffusion_tpu.core.embeddings import sinusoidal_time_embedding as jax_sinusoid
@@ -37,7 +41,7 @@ from tinydiffusion_tpu.experiments import conditional_diffusion_laion as jax_exp
 from tinydiffusion_tpu.io.checkpoint import _flat_items, restore_weights
 from tinydiffusion_tpu.models.unet_latent import LatentUNet as JaxLatentUNet
 from tinydiffusion_tpu.train.trainer import DiffusionTrainState as JaxTrainState
-from tinydiffusion_torch.compat import latent_codec, text_encoder
+from tinydiffusion_torch.compat import latent_codec, sdvae, text_encoder
 from tinydiffusion_torch.core.embeddings import sinusoidal_time_embedding
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data import laion
@@ -194,16 +198,25 @@ def test_eval_forward_matches_jax_in_bfloat16():
 # --- the offline seams and records ----------------------------------------------------
 
 
-def test_hash_embeddings_are_jax_bits():
+def test_hash_embeddings_are_jax_bits(monkeypatch):
+    """The hash embeddings to the bit; ``"hash"`` and ``"auto"`` without a
+    CLIP directory give the hash encoder. The pretrained seams reach their
+    loaders: ``"clip"`` without a directory and ``"sd"`` go to
+    ``from_pretrained`` (``ImportError`` without transformers and diffusers,
+    refused here so that nothing reaches for the network), and a CLIP
+    directory that holds no files fails its load."""
     texts = PROMPTS + ["", "A Photo  of a CAT", "zebra ünïcode"]
     np.testing.assert_array_equal(text_encoder.HashTextEncoder().encode(texts),
                                   JaxHashTextEncoder().encode(texts))
     assert isinstance(text_encoder.get_text_encoder("hash"), text_encoder.HashTextEncoder)
     assert isinstance(text_encoder.get_text_encoder("auto"), text_encoder.HashTextEncoder)
-    for name, local in (("clip", ""), ("auto", "/some/clip_dir")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #1"):
-            text_encoder.get_text_encoder(name, clip_local_dir=local)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #1"):
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    monkeypatch.setitem(sys.modules, "diffusers", None)
+    with pytest.raises(ImportError, match="transformers"):
+        text_encoder.get_text_encoder("clip", device="cpu")
+    with pytest.raises(FileNotFoundError, match="clip_text.pth"):
+        text_encoder.get_text_encoder("auto", clip_local_dir="/some/clip_dir", device="cpu")
+    with pytest.raises(ImportError, match="diffusers"):
         latent_codec.get_latent_codec("sd")
 
 
@@ -457,6 +470,179 @@ def test_resident_laion_steps_match_host_steps():
         assert torch.equal(e, host_state.ema_params[name])
 
 
+# --- the SD-VAE codec in the step --------------------------------------------------------
+
+# The JAX tests' tiny AutoencoderKL: 16² images to 4 x 8 x 8 latents.
+TINY_VAE_CFG = {"block_out_channels": (16, 32), "layers_per_block": 1, "latent_channels": 4,
+                "norm_num_groups": 4}
+SD_IMAGE, SD_LATENT, SD_TIME_DIM, SD_WIDTH = 16, 8, 32, 4
+
+
+def _sd_codec_pair(seed: int = 0):
+    """The port's SD codec and JAX's from one random diffusers-named state dict."""
+    torch.manual_seed(seed)
+    state = sdvae.AutoencoderKL(**TINY_VAE_CFG).state_dict()
+    return (JaxSDVAECodec.from_torch_state_dict(state, TINY_VAE_CFG),
+            sdvae.SDVAECodec.from_torch_state_dict(state, TINY_VAE_CFG))
+
+
+def _tiny_unet_pair():
+    """A JAX ``LatentUNet`` at the tiny widths (seed 0) and the port's with its weights."""
+    jmodel = JaxLatentUNet(time_dim=SD_TIME_DIM, in_channels=4, base_width=SD_WIDTH)
+    variables = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((2, SD_LATENT, SD_LATENT, 4)),
+                            jnp.zeros((2,), jnp.int32), jnp.zeros((2, SD_TIME_DIM)))
+    model = LatentUNet(time_dim=SD_TIME_DIM, base_width=SD_WIDTH, latent_size=SD_LATENT)
+    flat, _ = _flat_items(variables)
+    model.load_state_dict(state_dict_by_name({k: np.asarray(v) for k, v in flat.items()}))
+    return jmodel, variables, model
+
+
+def _sd_images(seed: int, n: int = BATCH) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, SD_IMAGE, SD_IMAGE, 3)) * (2.0 / 255.0) - 1.0).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("caption_dropout", [0.0, 0.5])
+def test_laion_step_with_the_sd_codec_matches_jax(caption_dropout):
+    """One clip(10) + Adam step with the SD codec's stochastic encode, as in
+    ``test_laion_step_matches_jax``: the port gets JAX's t, noise, caption
+    mask and the encoder's Gaussian (``normal(enc_key)`` of
+    ``split(state.rng, 4 or 5)``, NCHW) through ``(t, noise, keep,
+    enc_noise)``; the loss, the update's direction and size, and the
+    BatchNorm statistics after the step."""
+    jcodec, codec = _sd_codec_pair()
+    jmodel, variables, model = _tiny_unet_pair()
+    t_max, count = 10, 13
+    tx = optax.chain(optax.clip_by_global_norm(10.0),
+                     optax.adam(jax_exp.cosine_annealing_lr(LR, LR_MIN, t_max)))
+    clip_state, (adam_state, sched_state) = tx.init(variables["params"])
+    c = jnp.asarray(count, jnp.int32)
+    nu = jax.tree_util.tree_map(lambda p: jnp.full_like(p, ADAM_NU), variables["params"])
+    opt_state = (clip_state, (adam_state._replace(count=c, nu=nu), sched_state._replace(count=c)))
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                           batch_stats=variables["batch_stats"], opt_state=opt_state,
+                           rng=jax.random.PRNGKey(11))
+    images = _sd_images(12)
+    hasher = text_encoder.HashTextEncoder(SD_TIME_DIM)
+    ctx, null = hasher.encode(PROMPTS[1:3]), hasher.encode([""])[0]
+    keys = jax.random.split(jstate.rng, 5 if caption_dropout else 4)
+    t = np.array(jax.random.randint(keys[1], (BATCH,), 0, 1000))
+    noise = np.array(jax.random.normal(keys[2], (BATCH, SD_LATENT, SD_LATENT, 4)))
+    enc_noise = np.array(jax.random.normal(keys[3], (BATCH, SD_LATENT, SD_LATENT, 4)))
+    keep = (np.array(jax.random.bernoulli(keys[4], 1.0 - caption_dropout, (BATCH,)))
+            if caption_dropout else None)
+    jstep = jax.jit(jax_exp._laion_raw_step(
+        jmodel, tx, JaxSchedule.linear(1000), jcodec, caption_dropout=caption_dropout,
+        null_embed=jnp.asarray(null) if caption_dropout else None))
+    new_jstate, jloss = jstep(jstate, jnp.asarray(images), jnp.asarray(ctx))
+
+    start = jax_variables(model)
+    optimizer = torch.optim.Adam(model.parameters(), lr=torch.tensor(LR))
+    state = create_train_state(model, optimizer, 0)
+    for p in model.parameters():
+        optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": torch.zeros_like(p),
+                              "exp_avg_sq": torch.full_like(p, ADAM_NU)}
+    step = make_laion_train_step(codec, _same_tables(JaxSchedule.linear(1000)),
+                                 exp.cosine_annealing_lr(LR, LR_MIN, t_max),
+                                 caption_dropout=caption_dropout,
+                                 null_embed=torch.from_numpy(null) if caption_dropout else None)
+    loss = step(state, _nchw(images), torch.from_numpy(ctx), t=torch.from_numpy(t).long(),
+                noise=_nchw(noise), keep=None if keep is None else torch.from_numpy(keep),
+                enc_noise=_nchw(enc_noise))
+    if caption_dropout:
+        assert 0 < keep.sum() < BATCH
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=STEP_LOSS_RTOL)
+    want, _ = _flat_items({"params": new_jstate.params, "batch_stats": new_jstate.batch_stats})
+    got = state.jax_weights()
+    assert {k for k in got if k != "step"} == set(want)
+    ups, jups = [], []
+    for key, value in want.items():
+        value = np.asarray(value)
+        if key.startswith("batch_stats/"):
+            np.testing.assert_allclose(got[key], value, rtol=STATS_RTOL, atol=STATS_ATOL,
+                                       err_msg=key)
+        else:
+            ups.append((got[key] - start[key]).ravel())
+            jups.append((value - start[key]).ravel())
+    ups, jups = np.concatenate(ups).astype(np.float64), np.concatenate(jups).astype(np.float64)
+    cos = ups @ jups / (np.linalg.norm(ups) * np.linalg.norm(jups))
+    assert cos >= STEP_MIN_UPDATE_COS, cos
+    np.testing.assert_allclose(np.linalg.norm(ups), np.linalg.norm(jups), rtol=1e-3)
+    # Without the seam the encoder's Gaussian comes from the state's
+    # generator: another draw, so another loss.
+    state.generator.manual_seed(0)
+    drawn = step(state, _nchw(images), torch.from_numpy(ctx), t=torch.from_numpy(t).long(),
+                 noise=_nchw(noise), keep=None if keep is None else torch.from_numpy(keep))
+    assert np.isfinite(drawn.item()) and drawn.item() != loss.item()
+
+
+def test_laion_eval_step_with_the_sd_codec_matches_jax_on_its_draws():
+    """The validation step: t, the q_sample seed and the seed of the
+    encoder's generator come from the batch's key in that order; JAX's
+    codec and eval math on those draws give the same loss."""
+    jcodec, codec = _sd_codec_pair(1)
+    jmodel, variables, model = _tiny_unet_pair()
+    images = _sd_images(13)
+    ctx = text_encoder.HashTextEncoder(SD_TIME_DIM).encode(PROMPTS[:BATCH])
+    key = (3, 10000 + 2)
+    rng = np.random.default_rng(list(key))
+    t = rng.integers(0, 1000, BATCH)
+    seed, enc_seed = int(rng.integers(0, 2**63)), int(rng.integers(0, 2**63))
+    schedule = DiffusionSchedule.linear(1000)
+    shape = (BATCH, 4, SD_LATENT, SD_LATENT)
+    noise = qsample.q_sample_fused_reference(schedule, torch.zeros(shape), torch.from_numpy(t),
+                                             seed)[1].numpy().transpose(0, 2, 3, 1)
+    enc_noise = torch.randn(shape, generator=torch.Generator().manual_seed(enc_seed)).numpy()
+    moments = jax_sdvae.vae_encode_moments(jcodec.params, jnp.asarray(images), TINY_VAE_CFG)
+    mean, logvar = jnp.split(moments, 2, axis=-1)
+    latents = (mean + jnp.exp(0.5 * jnp.clip(logvar, -30.0, 20.0))
+               * enc_noise.transpose(0, 2, 3, 1)) * jcodec.scaling_factor
+    x_t = jax_process.q_sample_with_noise(JaxSchedule.linear(1000), latents, jnp.asarray(t), noise)
+    out = jmodel.apply(variables, x_t, jnp.asarray(t), ctx, train=False)
+    want = float(jnp.mean((out - noise) ** 2))
+    eval_step = make_laion_eval_step(codec, _same_tables(JaxSchedule.linear(1000)))
+    got = eval_step(model.train(), _nchw(images), key, torch.from_numpy(ctx))
+    np.testing.assert_allclose(got.item(), want, rtol=STEP_LOSS_RTOL)
+    assert eval_step(model, _nchw(images), key, torch.from_numpy(ctx)).item() == got.item()
+
+
+def test_resident_sd_steps_match_host_steps():
+    """K = 3 resident steps with the SD codec (caption dropout, EMA) against
+    host steps on the gathered batches: the encoder's Gaussian, t, the seed
+    and the mask come from the generator in the same order, so the same
+    losses and weights to the bit."""
+    _, codec = _sd_codec_pair(2)
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (8, SD_IMAGE, SD_IMAGE, 3), dtype=np.uint8)
+    hasher = text_encoder.HashTextEncoder(SD_TIME_DIM)
+    embeds = hasher.encode([PROMPTS[i % 4] for i in range(8)])
+    options = dict(lr_schedule=exp.cosine_annealing_lr(LR, LR_MIN, 2), ema_decay=0.9,
+                   caption_dropout=0.5, null_embed=torch.from_numpy(hasher.encode([""])[0]))
+    schedule = DiffusionSchedule.linear(1000)
+
+    def fresh():
+        torch.manual_seed(0)
+        model = LatentUNet(time_dim=SD_TIME_DIM, base_width=SD_WIDTH, latent_size=SD_LATENT)
+        return create_train_state(model, torch.optim.Adam(model.parameters(),
+                                                          lr=torch.tensor(LR)), 3, ema=True)
+
+    data = DeviceDataset(images, 2, seed=1, device="cpu", embeds=embeds,
+                         u8_normalize=exp.LAION_U8_NORMALIZE)
+    idxs = data.epoch_index_batches(0)[:3]
+    resident_state = fresh()
+    losses = make_resident_laion_multi_step(codec, schedule, data, **options)(resident_state, idxs)
+    host_state = fresh()
+    step = make_laion_train_step(codec, schedule, **options)
+    host = [step(host_state, x.permute(0, 3, 1, 2), e).item()
+            for x, e in (data.gather(torch.from_numpy(row)) for row in idxs)]
+    assert losses.tolist() == host and resident_state.step == host_state.step == 3
+    for a, b in zip(resident_state.model.state_dict().values(),
+                    host_state.model.state_dict().values()):
+        assert torch.equal(a, b)
+    assert torch.equal(resident_state.generator.get_state(), host_state.generator.get_state())
+
+
 # --- the entry point --------------------------------------------------------------------
 
 
@@ -473,13 +659,21 @@ def test_config_takes_the_jax_flags():
                     == jax_exp._window_contains_multiple(lo, hi, every, positive))
 
 
-@pytest.mark.parametrize("field, value, match", [
-    ("offline", False, "offline=True"), ("latent_codec", "sd", "SD-VAE"),
-    ("text_encoder", "clip", "CLIP")])
-def test_online_seams_raise(tmp_path, field, value, match):
+@pytest.mark.parametrize("field, value, error, match", [
+    pytest.param("offline", False, NotImplementedError, "offline=True",
+                 id="offline-False-offline=True"),
+    pytest.param("latent_codec", "sd", ImportError, "SD-VAE", id="latent_codec-sd-SD-VAE"),
+    pytest.param("text_encoder", "clip", ImportError, "CLIP", id="text_encoder-clip-CLIP")])
+def test_online_seams_raise(tmp_path, monkeypatch, field, value, error, match):
+    """What needs the network fails ``run``: the online loader is not ported
+    (``offline=False``), and the SD-VAE and CLIP without a local directory
+    go to ``from_pretrained``, which needs diffusers or transformers (both
+    refused here)."""
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    monkeypatch.setitem(sys.modules, "diffusers", None)
     config = exp.LaionDiffusionConfig(device="cpu", n_records=4, out_dir=str(tmp_path),
                                       model_save_path=str(tmp_path / "ckpt"), **{field: value})
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         exp.run(config)
 
 
@@ -528,3 +722,30 @@ def test_run_alike_on_both_placements_and_resumes_in_its_codec_basis(tmp_path):
     for a, b in zip((again["codec"].w, again["codec"].mean, again["codec"].scale),
                     (resident["codec"].w, resident["codec"].mean, resident["codec"].scale)):
         assert torch.equal(a, b)
+
+
+def test_run_trains_on_clip_embeddings(tmp_path):
+    """``run`` with ``text_encoder="clip"`` and a synthetic CLIP-L directory
+    (``chip_smoke.write_synthetic_clip``) on the CPU: the seams resolve to
+    the patch codec and CLIP, the steps run, and the sidecar keeps the
+    directory and the codec's basis for serving (``test_torch_generate_laion``
+    serves such a checkpoint)."""
+    clip_dir = tmp_path / "clip"
+    clip_dir.mkdir()
+    write_synthetic_clip(str(clip_dir), seed=4)
+    out = tmp_path / "run"
+    config = exp.LaionDiffusionConfig(
+        device="cpu", num_epochs=1, max_steps_per_epoch=2, batch_size=2, n_records=12,
+        image_size=64, log_every=1, num_timesteps=4, compute_dtype="float32",
+        sample_every_batches=0, sample_every_epoch=False, text_encoder="clip",
+        clip_local_dir=str(clip_dir), out_dir=str(out), model_save_path=str(out / "ckpt"))
+    assert exp.resolve_seams(config) == ("patch", "clip")
+    assert exp.resolve_seams(dataclasses.replace(config, text_encoder="auto")) == ("patch", "clip")
+    result = exp.run(config)
+    assert result["state"].step == 2 and result["resident"] and len(result["losses"]) == 2
+    assert np.all(np.isfinite(result["losses"] + result["val_losses"]))
+    sidecar = load_sidecar(str(out / "ckpt"))
+    assert sidecar["config"]["text_encoder"] == "clip"
+    assert sidecar["config"]["clip_local_dir"] == str(clip_dir)
+    assert sidecar["metadata"]["codec_state"] == result["codec"].state_dict()
+    assert (out / "final_samples.png").read_bytes()[:4] == b"\x89PNG"

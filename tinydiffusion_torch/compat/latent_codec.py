@@ -1,4 +1,4 @@
-"""The offline latent codec: a fixed linear projection of image patches.
+"""The latent codecs: the SD-VAE and the offline linear projection of image patches.
 
 Copy of ``LinearPatchCodec`` from ``tinydiffusion_tpu/compat/latent_codec.py``
 (the reference encodes with the frozen Stable Diffusion VAE, 256² images to
@@ -17,8 +17,12 @@ is flattened in JAX's NHWC order (row in the patch, column, channel), the
 only order in which a committed basis means anything: the permutes happen
 at this class's boundary, never inside a patch.
 
-The SD-VAE path (``compat/sdvae.py`` in the JAX package) is not ported yet:
-its weights cannot be fetched here. ``get_latent_codec("sd")`` raises.
+``get_latent_codec("sd")`` is ``compat/sdvae.py``'s ``SDVAECodec`` through
+diffusers' ``from_pretrained``; a codec built from a state dict in hand
+(``SDVAECodec.from_torch_state_dict``) goes to the LAION step builders as
+this one does. Both take ``encode(images, noise=None, generator=None)``:
+the SD codec samples its latent from them, this one is deterministic and
+ignores them.
 """
 
 from __future__ import annotations
@@ -28,9 +32,7 @@ import logging
 import numpy as np
 import torch
 
-SD_SCALING_FACTOR = 0.18215
-SD_NOT_PORTED = ("the SD-VAE latent codec is not ported yet (ROADMAP Queue 1 #1: the "
-                 "converters for CLIP, its tokenizer and the SD-VAE); use latent_codec='patch'")
+from tinydiffusion_torch.compat.sdvae import SD_SCALING_FACTOR, SDVAECodec
 
 
 class LinearPatchCodec:
@@ -67,9 +69,11 @@ class LinearPatchCodec:
         x = patches.reshape(b, s, s, p, p, self.channels).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, s * p, s * p, self.channels).permute(0, 3, 1, 2).contiguous()
 
-    def encode(self, images: torch.Tensor) -> torch.Tensor:
+    def encode(self, images: torch.Tensor, noise=None, generator=None) -> torch.Tensor:
         """(B, 3, H, W) images in [-1, 1] -> (B, 4, 32, 32) scaled latents,
-        float32 and contiguous (the fused q_sample takes them as they are)."""
+        float32 and contiguous (the fused q_sample takes them as they are).
+        ``noise`` and ``generator`` are ignored: this codec is deterministic."""
+        del noise, generator
         z = (self._to_patches(images) - self.mean) @ self.w
         return (z * self.scale).permute(0, 3, 1, 2).contiguous()
 
@@ -116,11 +120,12 @@ class LinearPatchCodec:
         self.scaling_factor = float(d["scaling_factor"])
 
 
-def get_latent_codec(name: str = "auto", image_size: int = 256) -> LinearPatchCodec:
-    """``"patch"``, or ``"auto"``: the patch codec (JAX's ``"auto"`` ends
-    there offline, with the same warning). ``"sd"`` raises: not ported."""
+def get_latent_codec(name: str = "auto", image_size: int = 256):
+    """``"sd"``: ``SDVAECodec.from_pretrained()`` (``ImportError`` without
+    diffusers). ``"patch"``, or ``"auto"``: the patch codec (JAX's
+    ``"auto"`` ends there offline, with the same warning)."""
     if name == "sd":
-        raise NotImplementedError(SD_NOT_PORTED)
+        return SDVAECodec.from_pretrained()
     if name not in ("patch", "auto"):
         raise ValueError(f"latent_codec={name!r}; choose 'sd', 'patch' or 'auto'")
     if name == "auto":

@@ -1,4 +1,4 @@
-"""Text conditioning: the offline hash encoder.
+"""Text conditioning: the CLIP-L encoder and the offline hash encoder.
 
 Copy of ``HashTextEncoder`` from ``tinydiffusion_tpu/compat/text_encoder.py``
 (the reference conditions on CLIP-L's last-token embedding, 768-d; the
@@ -9,23 +9,22 @@ bytes of its md5 seed ``np.random.default_rng``); a text's embedding is
 ``sqrt(dim)``; an empty text is the token ``<empty>``. Numpy only, so the
 embeddings equal the JAX package's to the bit.
 
-The CLIP encoder (``compat/clip.py`` and its tokenizer in the JAX package)
-is not ported yet: it needs converted weights and a vocabulary that cannot
-be fetched here. ``get_text_encoder`` raises for it rather than handing back
-the hash encoder in its place.
+``get_text_encoder("clip")`` is ``compat/clip.py``'s ``CLIPTextEncoder``: from
+a local directory (``clip_text.pth``, ``vocab.json``, ``merges.txt``) with no
+network, else through transformers' ``from_pretrained``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import os
 from typing import Sequence
 
 import numpy as np
+import torch
 
-CLIP_NOT_PORTED = ("the CLIP text encoder is not ported yet (ROADMAP Queue 1 #1: the "
-                   "converters for CLIP, its tokenizer and the SD-VAE); use "
-                   "text_encoder='hash'")
+from tinydiffusion_torch.compat.clip import CLIPTextEncoder
 
 
 class HashTextEncoder:
@@ -53,17 +52,26 @@ class HashTextEncoder:
         return out
 
 
-def get_text_encoder(name: str = "auto", dim: int = 768, clip_local_dir: str = ""):
-    """``"hash"``, or ``"auto"`` without a ``clip_local_dir``: the hash
-    encoder (JAX's ``"auto"`` ends there offline, with the same warning).
-    ``"clip"``, and ``"auto"`` with a ``clip_local_dir``, raise: the CLIP
-    encoder is not ported."""
+def get_text_encoder(name: str = "auto", dim: int = 768, clip_local_dir: str = "",
+                     device: str | torch.device = "cuda"):
+    """``"hash"``: the hash encoder. ``"clip"`` or ``"auto"`` with a
+    ``clip_local_dir``: ``CLIPTextEncoder.from_local`` on its
+    ``clip_text.pth``, ``vocab.json`` and ``merges.txt``, the transformer on
+    ``device``. ``"clip"`` without one: ``from_pretrained`` (``ImportError``
+    without transformers). ``"auto"`` without one: the hash encoder, with
+    JAX's offline warning (JAX's ``"auto"`` tries ``from_pretrained`` first;
+    the port, offline as every run of the LAION path is, does not)."""
     if name == "hash":
         return HashTextEncoder(dim)
-    if name == "clip" or (name == "auto" and clip_local_dir):
-        raise NotImplementedError(CLIP_NOT_PORTED)
-    if name != "auto":
+    if name not in ("clip", "auto"):
         raise ValueError(f"text_encoder={name!r}; choose 'clip', 'hash' or 'auto'")
+    if clip_local_dir:
+        return CLIPTextEncoder.from_local(os.path.join(clip_local_dir, "clip_text.pth"),
+                                          os.path.join(clip_local_dir, "vocab.json"),
+                                          os.path.join(clip_local_dir, "merges.txt"),
+                                          device=device)
+    if name == "clip":
+        return CLIPTextEncoder.from_pretrained(device=device)
     logging.getLogger("tinydiffusion_torch.text").warning(
         "CLIP weights unavailable (offline) — using deterministic hash text-encoder substitute")
     return HashTextEncoder(dim)

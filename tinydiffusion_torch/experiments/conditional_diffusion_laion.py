@@ -1,5 +1,5 @@
-"""Text-conditional latent diffusion on LAION-style data, offline: train,
-validate, keep the best checkpoint, sample the fixed prompts.
+"""Text-conditional latent diffusion on LAION-style data: train, validate,
+keep the best checkpoint, sample the fixed prompts.
 
 Counterpart of ``tinydiffusion_tpu/experiments/conditional_diffusion_laion.py``
 (``LaionDiffusionConfig``, ``SAMPLE_PROMPTS``, ``cosine_annealing_lr``,
@@ -15,14 +15,19 @@ rate oscillates with period ``2 T_max``), gradients clipped to norm 10; an
 80/20 split (seed 42); the batch loss every ``log_every`` batches, a
 1000-step sample of the four ``SAMPLE_PROMPTS`` every
 ``sample_every_batches`` batches and per epoch; a per-epoch val pass and the
-best-val checkpoint, whose sidecar keeps the codec's basis.
+best-val checkpoint, whose sidecar keeps the patch codec's basis.
 
-Offline only, as the committed checkpoint was trained: the codec is the
-patch codec (``compat/latent_codec.py``), calibrated on the first 64 images
-or restored from an existing checkpoint's sidecar, the text encoder the
-hash encoder (``compat/text_encoder.py``) and the records synthetic
-(``data/laion.py``). ``offline=False``, ``latent_codec="sd"`` and
-``text_encoder="clip"`` raise: their weights and data need the network.
+The seams (``resolve_seams``): the latent codec is the patch codec
+(``compat/latent_codec.py``; ``"auto"`` offline), calibrated on the first 64
+images or restored from an existing checkpoint's sidecar, or the SD-VAE
+(``"sd"``, ``compat/sdvae.py``, through diffusers' ``from_pretrained``); the
+text encoder is the hash encoder (``compat/text_encoder.py``; ``"auto"``
+without a ``clip_local_dir``) or CLIP-L (``"clip"``, ``compat/clip.py``:
+from ``clip_local_dir``'s ``clip_text.pth``, ``vocab.json`` and
+``merges.txt`` with no network, else ``from_pretrained``), run on the run's
+device. The records are synthetic (``data/laion.py``): ``offline=False``
+raises, as the online loader (HF ``datasets``, HTTP fetches, JPEG decoding)
+is not ported.
 
 Run on the card (the default) or, when asked, on the CPU::
 
@@ -40,8 +45,8 @@ from Adam's step count) and the update. The val split sits there too.
 
 Stated deviations from the JAX run (torch cannot draw JAX's bits): the
 UNet's init is torch's default from ``torch.manual_seed(seed)``; the step's
-draws come from the state's generator on the model's device (t, the
-q_sample seed, the caption dropout); the val pass's from
+draws come from the state's generator on the model's device (the SD codec's
+Gaussian, t, the q_sample seed, the caption dropout); the val pass's from
 ``np.random.default_rng([seed + 3, epoch * 10000 + i])`` (JAX:
 ``fold_in(PRNGKey(seed + 3), epoch * 10000 + i)``); the sampling chains from
 a generator seeded with ``seed + 2``. The images are synthesized, never read
@@ -111,11 +116,9 @@ class LaionDiffusionConfig:
     - ``model_save_path`` defaults under ``runs/``, not to the JAX default
       ``checkpoints/laion_diffusion_best``: the port's files would land
       beside the committed sidecars there.
-    - ``offline`` must stay True, ``latent_codec`` and ``text_encoder`` must
-      resolve to the patch codec and the hash encoder (``"auto"`` does,
-      offline, without a ``clip_local_dir``); ``image_cache_dir`` and
-      ``failed_urls_cache`` are kept for the flags and not used;
-      ``use_mesh`` has no effect on one card.
+    - ``offline`` must stay True (the online loader is not ported);
+      ``image_cache_dir`` and ``failed_urls_cache`` are kept for the flags
+      and not used; ``use_mesh`` has no effect on one card.
     - On a card ``run`` turns TF32 off for the process.
     """
 
@@ -254,9 +257,13 @@ def to_nhwc(images: torch.Tensor) -> np.ndarray:
 
 
 def _restore_codec(config: LaionDiffusionConfig, codec, images: np.ndarray) -> None:
-    """The codec's basis: an existing checkpoint's (its sidecar's
+    """The patch codec's basis: an existing checkpoint's (its sidecar's
     ``codec_state``), so that a resumed denoiser keeps the latent basis it
-    was trained in; else calibrated on the first 64 images."""
+    was trained in; else calibrated on the first 64 images. A codec without
+    ``calibrate`` (the SD-VAE, whose scaling factor ships with its weights)
+    is left as it is."""
+    if not hasattr(codec, "calibrate"):
+        return
     codec_state = None
     if checkpoint_exists(config.model_save_path):
         try:
@@ -298,7 +305,8 @@ def run(config: LaionDiffusionConfig) -> dict:
 
     codec_name, encoder_name = resolve_seams(config)
     codec = get_latent_codec(codec_name, config.image_size)
-    text_encoder = get_text_encoder(encoder_name, config.time_dim, config.clip_local_dir)
+    text_encoder = get_text_encoder(encoder_name, config.time_dim, config.clip_local_dir,
+                                    device=device)
 
     # Data: the valid subset and the 80/20 split (conditional_diffusion_laion.py:403-433).
     # offline=False raises here: the online loader is not ported.
@@ -458,8 +466,10 @@ def run(config: LaionDiffusionConfig) -> dict:
         result["val_losses"].append(avg_val_loss)
         logger.log({"epoch": epoch, "epoch_train_loss": avg_train_loss, "val_loss": avg_val_loss,
                     "train_samples_per_sec": sps, "lr": epoch_lr}, step=state.step)
+        # The patch codec's basis goes with the checkpoint; the SD-VAE has none.
+        codec_meta = {"codec_state": codec.state_dict()} if hasattr(codec, "state_dict") else {}
         if keeper.update(avg_val_loss, state, config=dataclasses.asdict(config), epoch=epoch,
-                         codec_state=codec.state_dict()):
+                         **codec_meta):
             print(f"Saved best model at epoch {epoch} with val loss: {avg_val_loss:.4f}")
 
         if config.sample_every_epoch and (epoch + 1) % max(1, config.sample_every_epochs) == 0:

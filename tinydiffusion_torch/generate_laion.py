@@ -3,14 +3,15 @@
 Counterpart of the root ``generate_laion.py``, with its flags and its parser
 errors, plus ``--device``. It restores a checkpoint written by
 ``conditional_diffusion_laion.py`` (the JAX package's or the port's:
-``<path>.npz`` weights and the ``<path>.json`` sidecar with the config and
-the codec's calibrated basis), embeds the ``--prompt`` strings with the
-checkpoint's text encoder, and samples with the T-step DDPM chain or DDIM,
-with classifier-free guidance on a checkpoint trained with caption dropout.
-The UNet runs in the sidecar's compute dtype, the chain in
-``--sample-dtype`` (the sidecar's by default); the EMA shadow is served when
-the run kept one. Offline seams only, as in training: the patch codec and
-the hash text encoder::
+``<path>.npz`` weights and the ``<path>.json`` sidecar with the config and,
+for the patch codec, its calibrated basis), embeds the ``--prompt`` strings
+with the checkpoint's text encoder (the hash encoder, or CLIP-L from the
+sidecar's ``clip_local_dir``), and samples with the T-step DDPM chain or
+DDIM, with classifier-free guidance on a checkpoint trained with caption
+dropout, decoding with the checkpoint's codec (the patch codec, or the
+SD-VAE through diffusers). The UNet runs in the sidecar's compute dtype, the
+chain in ``--sample-dtype`` (the sidecar's by default); the EMA shadow is
+served when the run kept one::
 
     python -m tinydiffusion_torch.generate_laion --checkpoint checkpoints/laion_diffusion_1000ep \\
         --prompt "a photo of a cat" --prompt "a photo of a dog" \\
@@ -80,10 +81,11 @@ def load_laion_checkpoint(path: str, device: str | torch.device = "cuda") -> dic
     """A LAION diffusion checkpoint rebuilt for serving from ``<path>.npz`` +
     ``<path>.json``: ``model`` (the ``LatentUNet``, eval mode on ``device``,
     holding the EMA shadow when the sidecar says the run kept one), ``codec``
-    (in the sidecar's calibrated basis, on ``device``), ``text_encoder``,
-    ``schedule``, ``config`` (the sidecar's, as a ``LaionDiffusionConfig``),
-    ``step`` and ``use_ema``. Raises ``ValueError`` when the sidecar has no
-    ``codec_state``, or says EMA where the npz has none. On a card TF32 is
+    (on ``device``; the patch codec in the sidecar's calibrated basis),
+    ``text_encoder`` (CLIP on ``device``), ``schedule``, ``config`` (the
+    sidecar's, as a ``LaionDiffusionConfig``), ``step`` and ``use_ema``.
+    Raises ``ValueError`` when the sidecar has no ``codec_state`` for a codec
+    that takes one, or says EMA where the npz has none. On a card TF32 is
     turned off."""
     device = resolve_device(device)
     if device.type == "cuda":
@@ -92,11 +94,12 @@ def load_laion_checkpoint(path: str, device: str | torch.device = "cuda") -> dic
     config = config_from_sidecar(sidecar.get("config", {}))
     codec_name, encoder_name = resolve_seams(config)
     codec = get_latent_codec(codec_name, config.image_size)
-    codec_state = sidecar.get("metadata", {}).get("codec_state")
-    if codec_state is None:
-        raise ValueError("checkpoint sidecar has no codec_state — the denoiser's latent basis "
-                         "is unrecoverable (re-save from a run that persists it)")
-    codec.load_state_dict(codec_state)
+    if hasattr(codec, "load_state_dict"):  # the patch codec's basis; the SD-VAE has none
+        codec_state = sidecar.get("metadata", {}).get("codec_state")
+        if codec_state is None:
+            raise ValueError("checkpoint sidecar has no codec_state — the denoiser's latent "
+                             "basis is unrecoverable (re-save from a run that persists it)")
+        codec.load_state_dict(codec_state)
     flat = load_weights_arrays(path)
     use_ema = config.ema_decay > 0
     if use_ema and not any(k.startswith("ema_params/") for k in flat):
@@ -107,7 +110,8 @@ def load_laion_checkpoint(path: str, device: str | torch.device = "cuda") -> dic
     return {
         "model": model.to(device).eval(),
         "codec": codec.to(device),
-        "text_encoder": get_text_encoder(encoder_name, config.time_dim, config.clip_local_dir),
+        "text_encoder": get_text_encoder(encoder_name, config.time_dim, config.clip_local_dir,
+                                         device=device),
         "schedule": DiffusionSchedule.linear(config.num_timesteps).to(device),
         "config": config,
         "step": int(flat["step"]) if "step" in flat else 0,

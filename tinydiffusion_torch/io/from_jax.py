@@ -34,6 +34,13 @@ bridge is by rule in both directions: ``conv_vae_state_dict`` and
 ``conv_vae_jax_variables``. The perceptual net's
 JAX params (``{conv0_0: {kernel, bias}, ...}``) map onto
 ``models.vae_conv.PerceptualNet`` with ``perceptual_state_dict``.
+
+The pretrained seams' trees, as the JAX package converts them from the
+upstream state dicts (``convert_clip_text``, ``convert_diffusers_vae``: keys
+that keep transformers' and diffusers' names, nested by their dots), map
+back by rule with ``clip_text_from_jax`` and ``sdvae_from_jax``: conv
+kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in), embedding tables
+and norm parameters as they are.
 """
 
 from __future__ import annotations
@@ -298,4 +305,41 @@ def jax_variables(
         else:  # a module's own params (the DiT's pos_encoding)
             for leaf in module._parameters:
                 put("params", leaf, leaf)
+    return out
+
+
+def _flatten_dotted(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested tree -> ``{dotted path: float32 array}``."""
+    out: dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten_dotted(value, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = np.asarray(value, np.float32)
+    return out
+
+
+def clip_text_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX's CLIP text tree (``convert_clip_text``) -> the state dict of
+    ``compat.clip.CLIPTextTransformer``: a 2-D ``weight`` outside the
+    embeddings is a Dense kernel, transposed."""
+    out: dict[str, torch.Tensor] = {}
+    for key, arr in _flatten_dotted(tree).items():
+        dense = key.endswith(".weight") and arr.ndim == 2 and "embedding" not in key
+        out[key] = dense_weight(arr) if dense else _vector(arr)
+    return out
+
+
+def sdvae_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX's AutoencoderKL tree (``convert_diffusers_vae``) -> the state dict
+    of ``compat.sdvae.AutoencoderKL`` (diffusers' keys): 4-D ``weight``s are
+    HWIO conv kernels, 2-D ones Dense kernels."""
+    out: dict[str, torch.Tensor] = {}
+    for key, arr in _flatten_dotted(tree).items():
+        if key.endswith(".weight") and arr.ndim == 4:
+            out[key] = conv_weight(arr)
+        elif key.endswith(".weight") and arr.ndim == 2:
+            out[key] = dense_weight(arr)
+        else:
+            out[key] = _vector(arr)
     return out

@@ -679,29 +679,32 @@ def make_latent_eval_step(
     return eval_step
 
 
-# --- the LAION text-conditional family: a frozen patch codec in front of the
-# latent UNet ----------------------------------------------------------------------
+# --- the LAION text-conditional family: a frozen codec (the patch codec or the
+# SD-VAE) in front of the latent UNet ---------------------------------------------
 
 
 def _laion_step_body(codec, schedule: DiffusionSchedule, lr_schedule: Callable,
                      clip_norm: float, ema_decay: float | None, compute_dtype: torch.dtype,
                      caption_dropout: float, null_embed: torch.Tensor | None) -> Callable:
-    """``body(state, images, embeds, t=None, noise=None, keep=None) ->
-    loss``: one LAION step's device work (JAX's ``_laion_raw_step``), without
-    the host's ``state.step`` count, so that a CUDA graph can capture it."""
+    """``body(state, images, embeds, t=None, noise=None, keep=None,
+    enc_noise=None) -> loss``: one LAION step's device work (JAX's
+    ``_laion_raw_step``), without the host's ``state.step`` count, so that a
+    CUDA graph can capture it."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype {compute_dtype} is not float32 or bfloat16")
     if caption_dropout > 0 and null_embed is None:
         raise ValueError("caption_dropout requires a null_embed")
 
     def body(state: DiffusionTrainState, images: torch.Tensor, embeds: torch.Tensor, t=None,
-             noise=None, keep=None):
+             noise=None, keep=None, enc_noise=None):
         model, gen = state.model, state.generator
         model.train()
+        # The draws from the state's generator: the codec's Gaussian (the SD
+        # codec's only; the patch codec draws nothing), t, the q_sample seed,
+        # then the caption dropout. The encode runs in float32, outside the
+        # autocast, on the codec's float32 weights.
         with torch.no_grad():
-            x0 = codec.encode(images)
-        # The draws from the state's generator: t, the q_sample seed, then the
-        # caption dropout.
+            x0 = codec.encode(images, noise=enc_noise, generator=gen)
         if t is None:
             t = torch.randint(0, schedule.num_timesteps, (x0.shape[0],), generator=gen,
                               device=x0.device)
@@ -744,29 +747,34 @@ def make_laion_train_step(
     null_embed: torch.Tensor | None = None,
 ) -> Callable:
     """The LAION train step ``step(state, images, embeds, t=None, noise=None,
-    keep=None) -> loss`` (JAX's ``make_laion_train_step``; the reference's
-    conditional_diffusion_laion.py:441-473).
+    keep=None, enc_noise=None) -> loss`` (JAX's ``make_laion_train_step``;
+    the reference's conditional_diffusion_laion.py:441-473).
 
     ``images`` (B, 3, S, S) float32 in [-1, 1] and their text embeddings
     ``embeds`` (B, D) on the model's device. The frozen ``codec``
-    (``compat.latent_codec.LinearPatchCodec``, on that device) encodes them
-    to (B, 4, 32, 32) latents, which the fused q_sample noises (the CUDA
-    kernel on a card, its plain version on the CPU); the latent UNet
+    (``compat.latent_codec.LinearPatchCodec`` or ``compat.sdvae.SDVAECodec``,
+    on that device) encodes them to (B, 4, S/8, S/8) latents (the SD codec
+    samples them, the reference's ``latent_dist.sample()``), which the fused
+    q_sample noises (the CUDA kernel on a card, its plain version on the
+    CPU); the latent UNet
     (``state.model``) is trained on eps under ``compute_dtype``; the
     gradients are clipped to ``clip_norm`` by optax's rule, the learning
     rate set to ``lr_schedule(count)`` (on the device, from the optimizer's
     update count: the optimizer needs a tensor lr) and the optimizer steps.
     ``caption_dropout`` > 0 replaces each embedding row by ``null_embed``
     (D,), the empty-string embedding, where ``keep`` is False. The draws come
-    from ``state.generator``: t, the q_sample seed, ``keep``; ``t`` (B,),
-    ``noise`` (B, 4, 32, 32) and ``keep`` (B,) bool, when given, replace them:
-    the seam the tests use to give the port JAX's draws.
+    from ``state.generator``, in this order: the SD codec's standard normal
+    (B, 4, S/8, S/8), t, the q_sample seed, ``keep``; ``enc_noise``, ``t``
+    (B,), ``noise`` (B, 4, S/8, S/8) and ``keep`` (B,) bool, when given,
+    replace them: the seam the tests use to give the port JAX's draws
+    (JAX's ``enc_key`` draw, transposed to NCHW, is ``enc_noise``).
     """
     body = _laion_step_body(codec, schedule, lr_schedule, clip_norm, ema_decay, compute_dtype,
                             caption_dropout, null_embed)
 
-    def step(state: DiffusionTrainState, images, embeds, t=None, noise=None, keep=None):
-        loss = body(state, images, embeds, t, noise, keep)
+    def step(state: DiffusionTrainState, images, embeds, t=None, noise=None, keep=None,
+             enc_noise=None):
+        loss = body(state, images, embeds, t, noise, keep, enc_noise)
         state.step += 1
         return loss
 
@@ -785,20 +793,21 @@ def make_resident_laion_multi_step(
     null_embed: torch.Tensor | None = None,
 ) -> Callable:
     """LAION training over a resident set of images and text embeddings:
-    ``step(state, idxs, t=None, noise=None, keep=None) -> losses``
-    (``make_resident_steps`` over ``make_laion_train_step``'s per-batch
-    logic; JAX's ``make_laion_resident_step``). On a card each step, the
-    gather, the codec's encode, the q_sample launch, the clip and the rate
-    included, is a replay of one CUDA graph; on the CPU the seams are K-long
-    sequences of the step's own."""
+    ``step(state, idxs, t=None, noise=None, keep=None, enc_noise=None) ->
+    losses`` (``make_resident_steps`` over ``make_laion_train_step``'s
+    per-batch logic; JAX's ``make_laion_resident_step``). On a card each
+    step, the gather, the codec's encode (the SD codec's Gaussian drawn from
+    the state's generator, which the graph registers), the q_sample launch,
+    the clip and the rate included, is a replay of one CUDA graph; on the
+    CPU the seams are K-long sequences of the step's own."""
     if dataset.embeds is None or dataset.labels is not None:
         raise ValueError("a LAION resident step needs a DeviceDataset of images and embeds")
     body = _laion_step_body(codec, schedule, lr_schedule, clip_norm, ema_decay, compute_dtype,
                             caption_dropout, null_embed)
 
-    def batch_step(state, batch, t=None, noise=None, keep=None):
+    def batch_step(state, batch, t=None, noise=None, keep=None, enc_noise=None):
         images, embeds = batch
-        return body(state, images.permute(0, 3, 1, 2), embeds, t, noise, keep)
+        return body(state, images.permute(0, 3, 1, 2), embeds, t, noise, keep, enc_noise)
 
     return make_resident_steps(dataset, batch_step)
 
@@ -809,7 +818,10 @@ def make_laion_eval_step(codec, schedule: DiffusionSchedule,
     loss`` (JAX's ``make_laion_eval_step``; the reference's
     conditional_diffusion_laion.py:499-530): ``make_eval_step`` on the
     codec's latents, the text embeddings as the model's context. ``key``
-    (base seed, fold) fixes t and the q_sample seed."""
+    (base seed, fold) fixes, in this order, t, the q_sample seed and the
+    seed of the generator that the SD codec's Gaussian is drawn from (JAX's
+    ``enc_key``; the patch codec draws nothing): every pass scores a batch
+    on the same draws."""
 
     @torch.no_grad()
     def eval_step(model: nn.Module, images: torch.Tensor, key: tuple[int, int],
@@ -817,7 +829,8 @@ def make_laion_eval_step(codec, schedule: DiffusionSchedule,
         rng = _eval_rng(key)
         t_host, seed = rng.integers(0, schedule.num_timesteps, images.shape[0]), int(
             rng.integers(0, 2**63))
-        return _eval_loss(model, schedule, codec.encode(images), t_host, seed, (embeds,),
-                          "eps", compute_dtype)
+        enc_gen = torch.Generator(images.device).manual_seed(int(rng.integers(0, 2**63)))
+        return _eval_loss(model, schedule, codec.encode(images, generator=enc_gen), t_host, seed,
+                          (embeds,), "eps", compute_dtype)
 
     return eval_step
