@@ -16,7 +16,9 @@ diffusion with the MLP UNet and the DiT (``experiments/latent_diffusion.run``)
 and the serving CLI on their checkpoints, and the LAION text-conditional
 latent UNet (``experiments/conditional_diffusion_laion.run`` and
 ``generate_laion.main``), on the patch codec and the hash encoder and on the
-pretrained seams, CLIP-L and the SD v1.4 VAE. Phases, one JSON line each:
+pretrained seams, CLIP-L and the SD v1.4 VAE; and the FID tools on every
+committed checkpoint and the reference-checkpoint importer. Phases, one JSON
+line each:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the kernels, built with one nvcc call from
@@ -133,8 +135,28 @@ pretrained seams, CLIP-L and the SD v1.4 VAE. Phases, one JSON line each:
     on ``laion_diffusion_1000ep`` (the four prompts, bf16 forward, fp32
     chain): DDPM-1000 and DDIM-50 twice each; DDIM-10 decoded images card vs
     CPU; a checkpoint trained for 20 steps with caption dropout 0.1, served
-    with guidance 2; then the pretrained seams at their published widths on
-    synthetic weights (``write_synthetic_clip`` puts CLIP-L's files in a
+    with guidance 2; fid_mnist: ``tools/fid_eval.py`` at n = 512 (sample
+    batch 128) on every committed MNIST checkpoint (``diffusion_final``
+    DDIM-50, DPM++-20, DDPM-1000; ``conditional_cfg_ema_best`` DDIM-50 at
+    guidance 1 and 2 with label accuracy; ``latent_diffusion_best`` and
+    ``diffusion_transformer_best`` DPM++-20), each row beside JAX's
+    (BASELINE.md), failing only on a gross fault (over 2x JAX's, or a label
+    accuracy under 0.9 where JAX's is 0.97 or more); the calibration rows and
+    512 test images' features card against CPU; the seconds to featurize the
+    10 000 test images and to sample each row; one row at a second seed;
+    fid_laion: ``tools/fid_eval_laion.py`` at 256², n = 512, batch 32: the
+    calibration rows (card against CPU), ``vae_recon`` and
+    ``vae_prior_decode`` on ``vae_laion_best`` (the flash forward at B = 32,
+    64 launches counted over exactly that run), ``samples_dir[256]`` on 64
+    DDIM-50 requests dumped by ``generate_laion.main --dump-dir``, beside
+    JAX's rows; ``vae_recon``'s first 32 images with the flash forward and
+    with the plain attention (B = 4), images and FIDs; ``train_feature_net``
+    for 1 epoch on 256 images, saved, read back, its accuracy;
+    torch_import: a seeded synthetic upstream UNet28 ``.pth`` (the
+    reference's names, full width) through
+    ``tools/import_torch_checkpoint.py``, then ``load_pixel_checkpoint`` and
+    DDIM-10 from one x_init on the card against the CPU; then the pretrained
+    seams at their published widths on synthetic weights (``write_synthetic_clip`` puts CLIP-L's files in a
     temporary directory): clip_encode (CLIP-L through
     ``get_text_encoder("clip", clip_local_dir=...)`` on the card against the
     same files on the CPU, 16 captions, beside two card runs and the CPU's
@@ -184,8 +206,9 @@ pretrained seams, CLIP-L and the SD v1.4 VAE. Phases, one JSON line each:
 17. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
     B = 2) on the card against the CPU, cuDNN deterministic: loss
     components, gradients, params, BN statistics, spectral-norm u and sigma;
-18. the ``kernels`` line (the float32 flash kernels, q_sample, with the
-    launches of laion_sd_train beside, and the bfloat16 flash kernels with
+18. the ``kernels`` line (the float32 flash kernels, with the launches of
+    the conv-VAE run and of fid_laion beside; q_sample, with the launches of
+    laion_sd_train beside, and the bfloat16 flash kernels with
     launches from ``vae_train_bf16``), then
     ``{"ok": true, "device": {...}}`` last.
 
@@ -232,7 +255,18 @@ from tinydiffusion_torch.compat.clip_tokenizer import BOS_TOKEN, EOS_TOKEN, byte
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data.laion import synthesize_caption, synthesize_image
+from tinydiffusion_torch.data.mnist import load_mnist
 from tinydiffusion_torch.device import disable_tf32
+from tinydiffusion_torch.eval.fid import (
+    FeatureNet,
+    classifier_accuracy,
+    featurize,
+    fid_from_stats,
+    frechet_gaussian_stats,
+    load_feature_net,
+    save_feature_net,
+    train_feature_net,
+)
 from tinydiffusion_torch import generate, generate_laion
 from tinydiffusion_torch.experiments import (
     conditional_diffusion,
@@ -256,6 +290,7 @@ from tinydiffusion_torch.models.unet_latent import LatentUNet
 from tinydiffusion_torch.models.vae_conv import PerceptualNet
 from tinydiffusion_torch.obs.images import load_image28, save_image_grid, write_png
 from tinydiffusion_torch.ops import _build, attention, qsample
+from tinydiffusion_torch.tools import fid_eval, fid_eval_laion, import_torch_checkpoint
 from tinydiffusion_torch.train.trainer import (
     GRAPH_WARMUP_STEPS,
     create_train_state,
@@ -536,6 +571,55 @@ LAION_SERVE_F32_ATOL, LAION_SERVE_BF16_MEAN_ABS = 1e-3, 0.03
 # A guided checkpoint trained for a few steps at the recipe with caption
 # dropout 0.1, then served with --guidance-scale 2 (DDIM-50).
 LAION_GUIDED_RECORDS, LAION_GUIDED_STEPS = 200, 20
+
+# FID on the card (slice 12): tools/fid_eval.py's rows at n = 512 and sample
+# batch 128, beside JAX's (BASELINE.md:62-133, TPU runs; n = 512). Each
+# entry: checkpoint, variants, guidance scale, JAX's FID per variant and
+# JAX's label accuracy (conditional checkpoints). A row fails only on a
+# gross fault: above FID_MAX_RATIO x JAX's, or a label accuracy under
+# FID_MIN_LABEL_ACC where JAX's is at least FID_LABEL_ACC_FLOORED. The seed
+# spread: the first row again at --seed FID_SPREAD_SEED.
+FID_N, FID_SAMPLE_BATCH = 512, 128
+FID_MNIST_ROWS = (
+    ("diffusion_final", "ddim50,dpmpp20,ddpm", 1.0,
+     {"ddim50": 104.8, "dpmpp20": 116.3, "ddpm": 124.5}, None),
+    ("conditional_cfg_ema_best", "ddim50", 1.0, {"ddim50": 65.3}, 0.973),
+    ("conditional_cfg_ema_best", "ddim50", 2.0, {"ddim50": 247.8}, 1.0),
+    ("latent_diffusion_best", "dpmpp20", 1.0, {"dpmpp20": 47.5}, 0.900),
+    ("diffusion_transformer_best", "dpmpp20", 1.0, {"dpmpp20": 23.3}, 0.984),
+)
+FID_JAX_CALIBRATION = {"real-train": 7.8, "noise": 21989.0}
+FID_MAX_RATIO, FID_MIN_LABEL_ACC, FID_LABEL_ACC_FLOORED = 2.0, 0.9, 0.97
+FID_SPREAD_SEED = 1
+# Card against CPU: the calibration rows (the same images, float32 features
+# summed in other orders) within 1e-3 relative; the features of 512 test
+# images within 1e-4 of the largest.
+FID_CARD_VS_CPU_RTOL, FID_FEATURE_RTOL = 1e-3, 1e-4
+# fid_laion: tools/fid_eval_laion.py at 256², n = 512, batch 32 (the flash
+# forward at B = 32, N = 16384 and 4096), JAX's rows from
+# docs/evidence/fid_laion_r5.jsonl (TPU). The samples: 64 DDIM-50 requests of
+# the four prompts from laion_diffusion_1000ep, 256 PNGs. Flash forward
+# launches: 3 a reconstruct batch, 1 a prior decode, 16 batches.
+FID_LAION_JAX = {"calibration_floor_real_vs_real": 24.238,
+                 "calibration_ceiling_real_vs_noise": 8984.886, "vae_recon": 35.618,
+                 "vae_prior_decode": 942.659, "samples_dir[256]": 261.401}
+FID_LAION_BATCH, FID_LAION_REPEAT = 32, 64
+FID_LAION_FLASH_LAUNCHES = (FID_N // FID_LAION_BATCH) * (3 + 1)
+# The kernel against its plain version on vae_recon's first 32 images at
+# B = 4 (the plain N² logits at B = 32 would take 34 GB): images within
+# slice's card-vs-CPU bound for the same reconstruct (read 2.5e-4: the
+# decoder carries the attention's 3xTF32 rounding into the pixels), the two
+# sets' FIDs against the real set within 1e-3 relative (read 5.5e-6).
+FID_KERNEL_IMAGES, FID_KERNEL_BATCH = 32, 4
+FID_KERNEL_IMAGE_ATOL, FID_KERNEL_FID_RTOL = CARD_VS_CPU_ATOL, 1e-3
+# train_feature_net on the card: an RGB net on 256 synthetic images, 1 epoch.
+FID_TRAIN_IMAGES = 256
+# torch_import: a seeded synthetic upstream UNet28 (the reference's names,
+# full width) through the import tool, served by DDIM-10 at n = 4 from one
+# x_init, float32 forward, card against CPU. Its random weights carry the
+# chain to values of a few hundred, so the serve bound (1e-3 on values of
+# order 1) applies relative to the largest value.
+IMPORT_SEED, IMPORT_RTOL = SEED + 50, SERVE_F32_ATOL
 
 
 # The pretrained seams (slice 11) at their published widths, on synthetic
@@ -941,7 +1025,42 @@ def phase_kernel(dtype=torch.float32) -> list[dict]:
         sites.append(site)
         del qt, kt, vt, out_k, lse_k, again, out_r, lse_r
         torch.cuda.empty_cache()
+    if not bf16:
+        sites += [_fid_kernel_site(rng, n, d, c) for n, d, c in KERNEL_SITES]
     return sites
+
+
+def _fid_kernel_site(rng, n: int, d: int, c: int) -> dict:
+    """The float32 forward at fid_laion's batch (B = 32) against its plain
+    version run on slices of KERNEL_BATCH rows (its N² logits at B = 32 would
+    take 34 GB at N = 16384); kernel, plain and SDPA times at B = 32."""
+    b = FID_LAION_BATCH
+    qt, kt, vt = _attention_operands(rng, b, n, d, c)
+
+    def plain():
+        parts = [attention.flash_fwd_reference(qt[i:i + KERNEL_BATCH], kt[i:i + KERNEL_BATCH],
+                                               vt[i:i + KERNEL_BATCH])
+                 for i in range(0, b, KERNEL_BATCH)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    out_k, lse_k = attention.flash_fwd(qt, kt, vt)
+    out_r, lse_r = plain()
+    torch.testing.assert_close(out_k, out_r, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    torch.testing.assert_close(lse_k, lse_r, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous() for x in (qt, kt, vt))
+    site = {"B": b, "N": n, "D": d, "C": c, "path": "fid_laion",
+            "max_abs_err": max((out_k - out_r).abs().max().item(),
+                               (lse_k - lse_r).abs().max().item()),
+            "ms": cuda_ms(lambda: attention.flash_fwd(qt, kt, vt), iters=10),
+            "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), iters=5),
+            "library_backend": _sdpa_backend(q4, k4, v4), **flash_bound_ms(b, n, d, c)}
+    site["roofline_share"] = site["bound_ms"] / site["ms"]
+    emit("kernel", name="flash_fwd", atol=KERNEL_ATOL, rtol=KERNEL_RTOL, **site)
+    del qt, kt, vt, q4, k4, v4, out_k, lse_k, out_r, lse_r
+    torch.cuda.empty_cache()
+    return site
 
 
 def _nchw(images_uint8: np.ndarray) -> torch.Tensor:
@@ -2356,6 +2475,239 @@ def phase_laion_serve() -> dict:
     return fields
 
 
+def phase_fid_mnist(data_root: str) -> dict:
+    """``tools/fid_eval.py`` on the card at n = 512: every committed MNIST
+    checkpoint's rows beside JAX's (BASELINE.md), the calibration rows and
+    512 test images' features against the port's CPU run, the seconds to
+    featurize the 10 000 test images and to sample each row, and the spread
+    of one row over two seeds."""
+    base = ["--n", str(FID_N), "--sample-batch", str(FID_SAMPLE_BATCH), "--data-root", data_root,
+            "--device", "cuda"]
+    rows, problems = [], []
+    _reset_launches()
+    calibration = featurize_s = None
+    for name, variants, scale, jax_fid, jax_acc in FID_MNIST_ROWS:
+        result = fid_eval.main(["--checkpoint", os.path.join("checkpoints", name), "--variants",
+                                variants, "--guidance-scale", str(scale), *base])
+        calibration = calibration or {r["variant"]: r["fid"] for r in result["rows"][:2]}
+        featurize_s = featurize_s or result["featurize_real_s"]
+        for row in result["rows"][2:]:
+            want = jax_fid[row["variant"]]
+            entry = {"checkpoint": name, "variant": row["variant"], "guidance_scale": scale,
+                     "fid": row["fid"], "jax_fid": want, "ratio": row["fid"] / want,
+                     "sample_s": result["sample_s"][row["variant"]]}
+            if "label_acc" in row:
+                entry.update(label_acc=row["label_acc"], jax_label_acc=jax_acc)
+                if jax_acc >= FID_LABEL_ACC_FLOORED and row["label_acc"] < FID_MIN_LABEL_ACC:
+                    problems.append(f"{name} {row['variant']} s={scale}: label_acc "
+                                    f"{row['label_acc']}")
+            if not (np.isfinite(row["fid"]) and row["fid"] <= FID_MAX_RATIO * want):
+                problems.append(f"{name} {row['variant']} s={scale}: FID {row['fid']} vs "
+                                f"JAX's {want}")
+            rows.append(entry)
+            print(f"fid_mnist: {name:<28s} {row['variant']:<8s} s={scale:<4} FID "
+                  f"{row['fid']:9.3f}  (JAX {want:7.1f})"
+                  + (f"  label-acc {row['label_acc']:.4f} (JAX {jax_acc})"
+                     if "label_acc" in row else ""), flush=True)
+    if any(_launches().values()):
+        problems.append(f"the MNIST FID path launched a hand-written kernel: {_launches()}")
+    # The seed spread of the first row.
+    name, variants = FID_MNIST_ROWS[0][0], FID_MNIST_ROWS[0][1].split(",")[0]
+    again = fid_eval.main(["--checkpoint", os.path.join("checkpoints", name), "--variants",
+                           variants, "--seed", str(FID_SPREAD_SEED), *base])
+    fid0, fid1 = rows[0]["fid"], again["rows"][2]["fid"]
+    spread = {"checkpoint": name, "variant": variants,
+              "fid_by_seed": {"0": fid0, str(FID_SPREAD_SEED): fid1},
+              "rel_spread": abs(fid0 - fid1) / fid0}
+    # The port's CPU rows: the same calibration images, and 512 test images' features.
+    cpu = fid_eval.main(["--checkpoint", os.path.join("checkpoints", name), "--variants", "",
+                         *base, "--device", "cpu"])  # the last --device counts
+    cpu_calibration = {r["variant"]: r["fid"] for r in cpu["rows"]}
+    cal_gap = max(abs(calibration[k] - v) / v for k, v in cpu_calibration.items())
+    if not cal_gap <= FID_CARD_VS_CPU_RTOL:
+        problems.append(f"calibration card {calibration} vs CPU {cpu_calibration}")
+    x_test, _ = load_mnist(data_root, train=False)
+    feats = {dev: featurize(load_feature_net(os.path.join("checkpoints", "fid_classifier"),
+                                             FeatureNet()).to(dev).eval(), x_test[:FID_N])
+             for dev in ("cuda", "cpu")}
+    feature_gap = np.abs(feats["cuda"] - feats["cpu"]).max() / np.abs(feats["cpu"]).max()
+    if not feature_gap <= FID_FEATURE_RTOL:
+        problems.append(f"features card vs CPU {feature_gap}")
+    fields = {"n": FID_N, "sample_batch": FID_SAMPLE_BATCH, "rows": rows,
+              "calibration": calibration, "calibration_cpu": cpu_calibration,
+              "calibration_jax": FID_JAX_CALIBRATION, "calibration_card_vs_cpu_rel": cal_gap,
+              "features_card_vs_cpu_rel": float(feature_gap), "featurize_10000_s": featurize_s,
+              "seed_spread": spread, "max_ratio": FID_MAX_RATIO,
+              "card_vs_cpu_rtol": FID_CARD_VS_CPU_RTOL, "feature_rtol": FID_FEATURE_RTOL}
+    if problems:
+        raise RuntimeError(f"fid_mnist: {problems}: {fields}")
+    emit("fid_mnist", **fields)
+    return fields
+
+
+def _plain_attention(model) -> None:
+    """Every attention site of a conv-VAE on its plain version."""
+    for module in model.modules():
+        if hasattr(module, "use_flash"):
+            module.use_flash = False
+
+
+def phase_fid_laion() -> dict:
+    """``tools/fid_eval_laion.py`` on the card at n = 512: the calibration
+    rows, ``vae_recon`` and ``vae_prior_decode`` on ``vae_laion_best`` (the
+    flash forward at B = 32, launches counted over exactly that run) and
+    ``samples_dir[256]`` on DDIM-50 dumps of ``laion_diffusion_1000ep``,
+    beside JAX's; the calibration rows against the port's CPU run; the kernel
+    against its plain version on vae_recon's first 32 images; and
+    ``train_feature_net`` once on the card."""
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "dump")
+        t0 = time.perf_counter()
+        generate_laion.main(["--checkpoint", LAION_CHECKPOINT, "--device", "cuda",
+                             "--sampler", "ddim", "--sample-steps", "50", "--dump-dir", dump,
+                             "--repeat", str(FID_LAION_REPEAT),
+                             "--out", os.path.join(tmp, "grid.png")])
+        dump_s = time.perf_counter() - t0
+        argv = ["--n", str(FID_N), "--batch", str(FID_LAION_BATCH), "--samples-dir", dump]
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = fid_eval_laion.main(argv + ["--device", "cuda"])
+        tool_s = time.perf_counter() - t0
+        launches = _launches()
+        # The calibration rows on the CPU (no VAE there: its plain attention
+        # at B = 32 would take 34 GB).
+        cpu = fid_eval_laion.main(argv[:4] + ["--vae-checkpoint", os.path.join(tmp, "none"),
+                                              "--device", "cpu"])
+    if launches != {**{k: 0 for k in launches}, "flash_fwd": FID_LAION_FLASH_LAUNCHES}:
+        problems.append(f"launches {launches}, want {FID_LAION_FLASH_LAUNCHES} flash_fwd")
+    calibration = [k for k in FID_LAION_JAX if k.startswith("calibration")]
+    cal_gap = max(abs(rows[k] - cpu[k]) / cpu[k] for k in calibration)
+    if not cal_gap <= FID_CARD_VS_CPU_RTOL:
+        problems.append(f"calibration card vs CPU: {rows} vs {cpu}")
+    for key, want in FID_LAION_JAX.items():
+        if key not in rows or not rows[key] <= FID_MAX_RATIO * want:
+            problems.append(f"{key}: {rows.get(key)} vs JAX's {want}")
+        print(f"fid_laion: {key:<36s} {rows.get(key)}  (JAX {want})", flush=True)
+
+    # The kernel against its plain version on vae_recon's first 32 images.
+    models = {"flash": load_conv_vae(CHECKPOINT, device="cuda"),
+              "plain": load_conv_vae(CHECKPOINT, device="cuda")}
+    _plain_attention(models["plain"])
+    real = fid_eval_laion.synth_set(FID_N, 256)[0]
+    clf = load_feature_net(os.path.join("checkpoints", "fid_classifier_rgb256"), FeatureNet(
+        num_classes=4, channels=fid_eval_laion.rgb_channels(256), in_channels=3,
+        image_size=256)).to("cuda").eval()
+    real_stats = frechet_gaussian_stats(featurize(clf, fid_eval_laion.to_m1(real), 32))
+    recon = {k: fid_eval_laion.vae_images(m, real[:FID_KERNEL_IMAGES], FID_KERNEL_BATCH, SEED)[0]
+             for k, m in models.items()}
+    image_gap = float(np.abs(recon["flash"] - recon["plain"]).max())
+    kernel_fid = {k: fid_from_stats(*real_stats, *frechet_gaussian_stats(featurize(clf, v, 32)))
+                  for k, v in recon.items()}
+    fid_gap = abs(kernel_fid["flash"] - kernel_fid["plain"]) / kernel_fid["plain"]
+    if not (image_gap <= FID_KERNEL_IMAGE_ATOL and fid_gap <= FID_KERNEL_FID_RTOL):
+        problems.append(f"flash vs plain vae_recon: images {image_gap}, FIDs {kernel_fid}")
+    del models, recon
+    torch.cuda.empty_cache()
+
+    # train_feature_net once on the card: 1 epoch, saved and read back.
+    x_tr, y_tr = fid_eval_laion.synth_set(FID_TRAIN_IMAGES, 256)
+    x_te, y_te = fid_eval_laion.synth_set(FID_TRAIN_IMAGES, 256, offset=FID_TRAIN_IMAGES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = train_feature_net(fid_eval_laion.to_m1(x_tr), y_tr, epochs=1,
+                            batch_size=FID_LAION_BATCH, num_classes=4,
+                            channels=fid_eval_laion.rgb_channels(256), device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        save_feature_net(os.path.join(tmp, "clf"), net, {"num_classes": 4}, {})
+        back = load_feature_net(os.path.join(tmp, "clf"), FeatureNet(
+            num_classes=4, channels=fid_eval_laion.rgb_channels(256), in_channels=3,
+            image_size=256)).to("cuda").eval()
+    trained = {"accuracy": classifier_accuracy(net, fid_eval_laion.to_m1(x_te), y_te, 32),
+               "accuracy_read_back": classifier_accuracy(back, fid_eval_laion.to_m1(x_te),
+                                                         y_te, 32),
+               "train_s": train_s, "images": FID_TRAIN_IMAGES, "epochs": 1}
+    if not np.isfinite(trained["accuracy"]):
+        problems.append(f"train_feature_net: {trained}")
+    fields = {"n": FID_N, "batch": FID_LAION_BATCH, "rows": rows, "rows_jax": FID_LAION_JAX,
+              "calibration_cpu": {k: cpu[k] for k in calibration},
+              "calibration_card_vs_cpu_rel": cal_gap, "launches": launches,
+              "dump_s": dump_s, "tool_s": tool_s,
+              "kernel_vs_plain": {"images": FID_KERNEL_IMAGES, "batch": FID_KERNEL_BATCH,
+                                  "image_max_abs": image_gap, "fid": kernel_fid,
+                                  "fid_rel_gap": fid_gap, "image_atol": FID_KERNEL_IMAGE_ATOL,
+                                  "fid_rtol": FID_KERNEL_FID_RTOL},
+              "train_feature_net": trained}
+    if problems:
+        raise RuntimeError(f"fid_laion: {problems}: {fields}")
+    emit("fid_laion", **fields)
+    return fields
+
+
+_UPSTREAM_RENAMES = (
+    (r"^time_embedding\.fc([12])\.", lambda m: f"time_embedding.{2 * int(m[1]) - 2}."),
+    (r"\.block1\.conv\.", ".0."), (r"\.block1\.bn\.", ".1."),
+    (r"\.block2\.conv\.", ".3."), (r"\.block2\.bn\.", ".4."),
+    (r"^bottleneck\.conv\.", "bottleneck.0."), (r"^bottleneck\.bn\.", "bottleneck.1."),
+)
+
+
+def synthetic_upstream_unet28(seed: int) -> dict[str, torch.Tensor]:
+    """A seeded UNet28 state dict under the tiny-diffusion reference's names
+    and layouts (``enc1.0``, ``time_embedding.2``, 1x1-conv ``time_proj``)
+    at full width."""
+    import re
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, t in UNet28().state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            value = torch.tensor(100)
+        elif name.endswith("running_var"):
+            value = 0.5 + torch.rand(t.shape, generator=gen)
+        else:
+            value = 0.05 * torch.randn(t.shape, generator=gen)
+        if re.match(r"^time_proj\d\.weight$", name):
+            value = value[:, :, None, None]
+        for pattern, repl in _UPSTREAM_RENAMES:
+            name = re.sub(pattern, repl, name)
+        out[name] = value
+    return out
+
+
+def phase_torch_import() -> dict:
+    """A synthetic upstream UNet28 ``.pth`` through the import tool, served
+    by ``load_pixel_checkpoint`` on the card and on the CPU: DDIM-10 chains
+    from one x_init (float32 forward) against each other."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, out = os.path.join(tmp, "upstream.pth"), os.path.join(tmp, "imported")
+        torch.save(synthetic_upstream_unet28(IMPORT_SEED), pth)
+        t0 = time.perf_counter()
+        result = import_torch_checkpoint.main(["--model", "unet28", "--pth", pth, "--out", out])
+        import_s = time.perf_counter() - t0
+        loaded = {dev: load_pixel_checkpoint(out, dev) for dev in ("cuda", "cpu")}
+    x_init = torch.from_numpy(np.random.default_rng(IMPORT_SEED).standard_normal(
+        (SERVE_CHAIN_N, 1, 28, 28)).astype(np.float32))
+    chains = {}
+    for dev, ld in loaded.items():
+        sampler = make_sampler(ld["model"], ld["schedule"], (SERVE_CHAIN_N, 1, 28, 28),
+                               method="ddim", sample_steps=SERVE_CHAIN_STEPS)
+        chains[dev] = sampler(params=ld["params"], x_init=x_init.to(dev)).cpu()
+    largest = chains["cpu"].abs().max().item()
+    gap = (chains["cuda"] - chains["cpu"]).abs().max().item() / largest
+    fields = {"params": result["params"], "config": result["config"], "import_s": import_s,
+              "ddim_steps": SERVE_CHAIN_STEPS, "n": SERVE_CHAIN_N, "largest_abs": largest,
+              "card_vs_cpu_rel": gap, "rtol": IMPORT_RTOL,
+              "finite": bool(torch.isfinite(chains["cuda"]).all())}
+    if not (fields["finite"] and gap <= IMPORT_RTOL):
+        raise RuntimeError(f"torch_import: {fields}")
+    emit("torch_import", **fields)
+    return fields
+
+
 def _clip_captions() -> list[str]:
     """CLIP_CHECK_CAPTIONS captions: the four prompts, the empty one and
     sentences of CLIP_WORDS, some with words past the vocabulary's."""
@@ -3171,13 +3523,15 @@ def main() -> int:
     if qsample.qsample_launches != 0:
         raise RuntimeError("the conv-VAE serving path launched the q_sample kernel")
     qsample_site = phase_qsample_kernel()
-    with tempfile.TemporaryDirectory() as data_root:  # the synthetic MNIST cache
-        trains = [phase_train(dtype, data_root) for dtype in ("bfloat16", "float32")]
-        train_host = phase_train("bfloat16", data_root, placement="host")
-        cond = phase_cond_train(data_root)
-        phase_vae_mnist_train(data_root)
-        latents = {backbone: phase_latent_train(backbone, data_root)
-                   for backbone in LATENT_CHECKPOINTS}
+    # The synthetic MNIST cache, kept for fid_mnist.
+    data_dir = tempfile.TemporaryDirectory()
+    data_root = data_dir.name
+    trains = [phase_train(dtype, data_root) for dtype in ("bfloat16", "float32")]
+    train_host = phase_train("bfloat16", data_root, placement="host")
+    cond = phase_cond_train(data_root)
+    phase_vae_mnist_train(data_root)
+    latents = {backbone: phase_latent_train(backbone, data_root)
+               for backbone in LATENT_CHECKPOINTS}
     laion = phase_laion_train()
     phase_resident_parity()
     phase_resident_restore()
@@ -3190,6 +3544,10 @@ def main() -> int:
     phase_serve()
     phase_latent_serve()
     phase_laion_serve()
+    phase_fid_mnist(data_root)
+    data_dir.cleanup()
+    fid_laion = phase_fid_laion()
+    phase_torch_import()
     # The pretrained seams at their published widths, on synthetic weights:
     # CLIP-L's files in a temporary directory (0.47 GiB), never in the tree.
     with tempfile.TemporaryDirectory() as clip_dir:
@@ -3225,6 +3583,8 @@ def main() -> int:
             # The serving path's run; the training run's count beside it.
             "launches": launches,
             "launches_vae_train": vae["launches"]["flash_fwd"],
+            # The LAION FID tool's conv-VAE rows, at B = 32.
+            "launches_fid_laion": fid_laion["launches"]["flash_fwd"],
             "max_abs_err": max(s["max_abs_err"] for s in sites),
             **{k: main_site[k] for k in flash_keys},
             "sites": [{k: v for k, v in s.items() if k not in context} for s in sites],

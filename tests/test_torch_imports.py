@@ -18,7 +18,11 @@ tinydiffusion_torch.generate_laion``, ``--dump-dir`` included; a seventh,
 with ``regex``, ``ftfy``, ``transformers``, ``diffusers`` and
 ``safetensors`` refused too, trains it for two steps on a synthetic CLIP-L
 directory through ``from_local``, serves that checkpoint, and takes resident
-LAION steps with a small SD-VAE codec.
+LAION steps with a small SD-VAE codec; an eighth runs the FID tools and the
+checkpoint importer as ``python -m`` modules (``runpy``): ``fid_eval`` on
+``diffusion_final``, ``fid_eval_laion`` at 64² training its feature net and
+scoring a random conv-VAE and a PNG directory, ``import_torch_checkpoint`` on
+a ``.pth``.
 """
 
 import json
@@ -343,6 +347,52 @@ _CHILD_SEAMS = _REFUSE + textwrap.dedent("""
 """)
 
 
+# The FID tools and the importer, each as ``python -m``: the MNIST tool on a
+# small IDX data root, the LAION tool at 64² (its feature net trained and
+# saved, a random conv-VAE, two PNGs), the importer on a VAE ``.pth``.
+_CHILD_TOOLS = _REFUSE + textwrap.dedent("""
+    import gzip, runpy, struct
+
+    import numpy as np
+    import torch
+
+    from tinydiffusion_torch.data.mnist import load_mnist_u8
+    from tinydiffusion_torch.models.vae_mnist import VAEMnist
+    from tinydiffusion_torch.obs.images import write_png
+
+    torch.set_num_threads(1)
+    path, repo = sys.argv[1], os.environ["PYTHONPATH"]
+    for train, prefix in ((True, "train"), (False, "t10k")):
+        images, labels = load_mnist_u8(path + "/synth", train=train, synthetic_n=64)
+        for kind, array in (("images-idx3", images[..., 0]), ("labels-idx1", labels)):
+            with gzip.open(f"{path}/{prefix}-{kind}-ubyte.gz", "wb") as f:
+                f.write(struct.pack(">I", 0x0800 | array.ndim)
+                        + struct.pack(f">{array.ndim}I", *array.shape)
+                        + array.astype(np.uint8).tobytes())
+
+    def run(module, *argv):
+        sys.argv = [module, *argv, "--device", "cpu"]
+        runpy.run_module(f"tinydiffusion_torch.tools.{module}", run_name="__main__")
+
+    run("fid_eval", "--checkpoint", repo + "/checkpoints/diffusion_final", "--variants",
+        "ddim2", "--n", "8", "--sample-batch", "8", "--data-root", path,
+        "--classifier", repo + "/checkpoints/fid_classifier", "--json-out", path + "/m.jsonl")
+    os.makedirs(path + "/samples")
+    for i in range(2):
+        write_png(f"{path}/samples/{i}.png", np.full((40, 40, 3), 60 * i, np.uint8))
+    run("fid_eval_laion", "--image-size", "64", "--n", "8", "--batch", "8", "--n-train", "32",
+        "--classifier", path + "/clf", "--vae-checkpoint", path + "/vae",
+        "--samples-dir", path + "/samples", "--json-out", path + "/l.jsonl")
+    torch.save({"model_state_dict": VAEMnist().state_dict(), "config": {}}, path + "/vae.pth")
+    sys.argv = ["import_torch_checkpoint", "--model", "vae_mnist", "--pth", path + "/vae.pth",
+                "--out", path + "/imported"]
+    runpy.run_module("tinydiffusion_torch.tools.import_torch_checkpoint", run_name="__main__")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
 def _run_isolated(child: str, path: str, cwd: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -414,3 +464,17 @@ def test_port_trains_on_the_pretrained_seams_without_the_jax_stack(tmp_path):
     for ext in (".pt", ".npz", ".json"):
         assert os.path.getsize(tmp_path / f"ckpt{ext}") > 0
     assert os.path.getsize(tmp_path / "gen.png") > 0
+
+
+def test_port_fid_tools_and_importer_run_without_the_jax_stack(tmp_path):
+    _random_weights_npz(str(tmp_path / "vae"), image_size=64)
+    _run_isolated(_CHILD_TOOLS, str(tmp_path), str(tmp_path))
+    with open(tmp_path / "m.jsonl") as f:
+        assert [json.loads(line)["variant"] for line in f] == ["real-train", "noise", "ddim2"]
+    with open(tmp_path / "l.jsonl") as f:
+        row = json.loads(f.readline())
+    assert {"vae_recon", "vae_prior_decode", "samples_dir[2]"} <= set(row)
+    for ext in (".npz", ".json"):
+        assert os.path.getsize(tmp_path / f"clf{ext}") > 0
+    for ext in (".pt", ".npz", ".json"):
+        assert os.path.getsize(tmp_path / f"imported{ext}") > 0

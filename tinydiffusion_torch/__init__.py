@@ -20,7 +20,10 @@ diffusion over it with the MLP UNet or the DiT
 latent checkpoints (``generate.py``: DDPM, DDIM, DPM-Solver++, and for pixel
 checkpoints guidance, img2img, inpainting); and training and serving the
 LAION conv beta-VAE (``experiments/vae_laion.py``) with a CUDA
-flash-attention forward and backward (``ops/attention.py``).
+flash-attention forward and backward (``ops/attention.py``); FID evaluation
+(``eval/fid.py``, ``tools/fid_eval.py``, ``tools/fid_eval_laion.py``), the
+debug helpers (``obs/debug.py``) and the importer of reference checkpoints
+(``compat/torch_import.py``, ``tools/import_torch_checkpoint.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """MNIST as uint8 (N, 28, 28, 1), from IDX files or a synthetic digit set.
 
-Counterpart of ``tinydiffusion_tpu/data/mnist.py`` (``load_mnist_u8``, the
-IDX reader and ``train_val_split``). With no IDX files under ``data_root`` a deterministic synthetic
+Counterpart of ``tinydiffusion_tpu/data/mnist.py`` (``load_mnist_u8``,
+``load_mnist``, the IDX reader and ``train_val_split``). With no IDX files under ``data_root`` a deterministic synthetic
 set (pixel-font glyphs + translation + intensity + noise) is generated and
 cached as ``data_root/synthetic_mnist_<split>_<n>.npz``; its bytes equal the
 JAX package's. The cache is written under ``data_root``, so a run that must
@@ -113,6 +113,21 @@ def load_mnist_u8(
     images, labels = _synthesize(n, seed=1234 if train else 5678)
     os.makedirs(data_root, exist_ok=True)
     np.savez_compressed(cache, images=images, labels=labels)
+    return images, labels
+
+
+def load_mnist(
+    data_root: str, train: bool = True, synthetic_n: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """float32 images (N, 28, 28, 1) in [-1, 1] (the reference's transform)
+    + int32 labels."""
+    images_u8, labels = load_mnist_u8(data_root, train=train, synthetic_n=synthetic_n)
+    # u8 * scale + shift rounded once to float32, as the JAX package's native
+    # loader's fused multiply-add rounds it (float64 holds the product and the
+    # sum exactly). 255 * (2/255) lands 1 ulp above 1; JAX clips it back.
+    images = (images_u8.astype(np.float64) * float(np.float32(MNIST_SCALE))
+              + float(np.float32(MNIST_SHIFT))).astype(np.float32)
+    np.clip(images, -1.0, 1.0, out=images)
     return images, labels
 
 

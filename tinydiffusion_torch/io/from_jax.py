@@ -40,7 +40,8 @@ upstream state dicts (``convert_clip_text``, ``convert_diffusers_vae``: keys
 that keep transformers' and diffusers' names, nested by their dots), map
 back by rule with ``clip_text_from_jax`` and ``sdvae_from_jax``: conv
 kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in), embedding tables
-and norm parameters as they are.
+and norm parameters as they are. The FID feature net's flat params map by
+name with ``feature_net_from_jax``.
 """
 
 from __future__ import annotations
@@ -343,3 +344,12 @@ def sdvae_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         else:
             out[key] = _vector(arr)
     return out
+
+
+def feature_net_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """The FID feature net's flat params (``conv{i}/kernel|bias``,
+    ``fc{1,2}/kernel|bias``, as ``checkpoints/fid_classifier{,_rgb256}.npz``
+    hold them) -> the state dict of ``eval.fid.FeatureNet``. ``fc1``'s rows
+    stay in flax's H, W, C order: the port's ``FeatureNet`` flattens its last
+    map in that order."""
+    return state_dict_by_name({f"params/{key}": arr for key, arr in flat.items()})

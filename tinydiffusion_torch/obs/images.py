@@ -16,9 +16,11 @@ converts and resizes images with Pillow's own integer arithmetic:
   character outside printable ASCII raises: the table does not hold it;
 - ``to_grey``: Pillow's ``convert("L")``, ``(R 19595 + G 38470 + B 7471 +
   2^15) >> 16`` (its fixed-point ITU-R 601-2 luma), alpha dropped;
+  ``to_rgb``: its ``convert("RGB")``, grey repeated, alpha dropped;
 - ``resize_u8``: Pillow's default ``resize`` filter (bicubic, a = -0.5, its
   support widened by the scale when shrinking), in its 22-bit fixed point,
-  the horizontal pass first and rounded to uint8 before the vertical one.
+  the horizontal pass first and rounded to uint8 before the vertical one,
+  each channel of an RGB image alike.
 """
 
 from __future__ import annotations
@@ -240,6 +242,14 @@ def to_grey(pixels: np.ndarray) -> np.ndarray:
     return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
 
 
+def to_rgb(pixels: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 -> (H, W, 3) uint8, as Pillow's ``convert("RGB")``: a
+    grey channel repeated three times, alpha dropped."""
+    if pixels.shape[-1] <= 2:
+        return np.repeat(pixels[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(pixels[..., :3])
+
+
 _PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed point for 8-bit images
 
 
@@ -278,16 +288,19 @@ def _resample_pass(img: np.ndarray, weights: np.ndarray) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_u8(grey: np.ndarray, width: int, height: int) -> np.ndarray:
-    """(H, W) uint8 -> (height, width) uint8, as Pillow's
-    ``Image.resize((width, height))`` of an "L" image."""
-    h, w = grey.shape
-    out = grey
+def resize_u8(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W) or (H, W, C) uint8 -> (height, width) or (height, width, C),
+    as Pillow's ``Image.resize((width, height))`` of an "L" or "RGB" image:
+    every channel by the same two passes."""
+    planes = np.moveaxis(pixels if pixels.ndim == 3 else pixels[..., None], -1, 0)
+    h, w = planes.shape[1:]
     if w != width:
-        out = _resample_pass(out, _resample_weights(w, width))
+        planes = _resample_pass(planes, _resample_weights(w, width))
     if h != height:
-        out = _resample_pass(out.T, _resample_weights(h, height)).T
-    return np.ascontiguousarray(out)
+        planes = np.swapaxes(
+            _resample_pass(np.swapaxes(planes, 1, 2), _resample_weights(h, height)), 1, 2)
+    out = np.ascontiguousarray(np.moveaxis(planes, 0, -1))
+    return out if pixels.ndim == 3 else out[..., 0]
 
 
 def load_image28(path: str) -> np.ndarray:

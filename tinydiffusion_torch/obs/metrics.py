@@ -81,14 +81,22 @@ class Throughput:
 class LossAccumulator:
     """Per-step loss scalars buffered as device tensors, without a sync per
     step: ``add`` takes one step's 0-d tensor or a chunk's (K,) tensor of
-    steps. ``last()`` reads the last one (a sync: log points only); ``sum()``
-    and ``values()`` read them all in one copy, at epoch end."""
+    steps (``add_many`` names the latter). ``last()`` reads the last one (a
+    sync: log points only); ``sum()``, ``mean()``, ``values()`` and
+    ``finite_mean_and_bad_count()`` read them all in one copy, at epoch end."""
 
     def __init__(self):
-        self._vals: list = []
+        self.reset()
 
     def add(self, loss: torch.Tensor) -> None:
         self._vals.append(loss.reshape(-1))
+
+    def add_many(self, losses: torch.Tensor) -> None:
+        """Buffer a chunk's (K,) per-step losses as one entry: K steps."""
+        self.add(losses)
+
+    def reset(self) -> None:
+        self._vals: list = []
 
     @property
     def count(self) -> int:
@@ -105,3 +113,14 @@ class LossAccumulator:
 
     def sum(self) -> float:
         return float(self.values().sum())
+
+    def mean(self) -> float:
+        return float(self.values().mean()) if self._vals else 0.0
+
+    def finite_mean_and_bad_count(self) -> tuple[float, int]:
+        """The mean of the finite entries (inf when none is) and how many
+        were not finite, so that a caller can log a skip instead of an epoch
+        mean of inf."""
+        vals = self.values()
+        finite = vals[np.isfinite(vals)]
+        return (float(finite.mean()) if len(finite) else float("inf")), len(vals) - len(finite)
