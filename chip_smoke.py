@@ -110,7 +110,17 @@ line each:
    from ``laion_diffusion_1000ep`` (caption dropout 0.1, EMA; the gather,
    encode, q_sample, clip and rate inside the graph), one step a call, the
    rate each step wrote on the card against the host's formula across
-   T_max = 4;
+   T_max = 4; dp: the data-parallel code path (``parallel/``) at world size
+   1 on NCCL (the environment torchrun would set, then
+   ``maybe_initialize_distributed``): the resident UNet28 graph step
+   (``diffusion_final``, bf16, B = 128, Adam 1e-3, an EMA) and the resident
+   MLP-UNet latent step (``latent_diffusion_best``), each with its
+   BatchNorm statistics and gradient bucket all-reduced inside the captured
+   graph, 12 steps (2 eager warm-ups, 10 replays) against the same steps of
+   the non-DP graph step, beside a second non-DP run, to resident_parity's
+   bfloat16 bounds; each step's ms a replay (CUDA events), its kernels a
+   step (one profiler session) and the peak memory, DP and non-DP; the
+   group destroyed after;
 10. unet_parity: the card against the port's CPU run, TF32 off: eps from the
     committed ``checkpoints/diffusion_final`` weights, one SGD step through
     the step's (t, noise) seam, and a 20-step replayed DDPM chain (float32
@@ -139,17 +149,20 @@ line each:
     batch 128) on every committed MNIST checkpoint (``diffusion_final``
     DDIM-50, DPM++-20, DDPM-1000; ``conditional_cfg_ema_best`` DDIM-50 at
     guidance 1 and 2 with label accuracy; ``latent_diffusion_best`` and
-    ``diffusion_transformer_best`` DPM++-20), each row beside JAX's
-    (BASELINE.md), failing only on a gross fault (over 2x JAX's, or a label
-    accuracy under 0.9 where JAX's is 0.97 or more); the calibration rows and
-    512 test images' features card against CPU; the seconds to featurize the
-    10 000 test images and to sample each row; one row at a second seed;
+    ``diffusion_transformer_best`` DPM++-20), each row beside JAX's own
+    tool's row on the CPU at the same n and seed
+    (``tests/fixtures/fid_jax_cpu_rows.json``), failing only on a gross
+    fault (over 2x JAX's, or a label accuracy under 0.9 where JAX's is 0.97
+    or more); the calibration rows and 512 test images' features card
+    against CPU; the seconds to featurize the 10 000 test images and to
+    sample each row; one row at a second seed, beside JAX's at that seed;
     fid_laion: ``tools/fid_eval_laion.py`` at 256², n = 512, batch 32: the
     calibration rows (card against CPU), ``vae_recon`` and
     ``vae_prior_decode`` on ``vae_laion_best`` (the flash forward at B = 32,
     64 launches counted over exactly that run), ``samples_dir[256]`` on 64
     DDIM-50 requests dumped by ``generate_laion.main --dump-dir``, beside
-    JAX's rows; ``vae_recon``'s first 32 images with the flash forward and
+    JAX's own tool's CPU rows (``tests/fixtures/fid_laion_jax_cpu_rows.json``);
+    ``vae_recon``'s first 32 images with the flash forward and
     with the plain attention (B = 4), images and FIDs; ``train_feature_net``
     for 1 epoch on 256 images, saved, read back, its accuracy;
     torch_import: a seeded synthetic upstream UNet28 ``.pth`` (the
@@ -235,6 +248,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -290,6 +304,8 @@ from tinydiffusion_torch.models.unet_latent import LatentUNet
 from tinydiffusion_torch.models.vae_conv import PerceptualNet
 from tinydiffusion_torch.obs.images import load_image28, save_image_grid, write_png
 from tinydiffusion_torch.ops import _build, attention, qsample
+from tinydiffusion_torch.parallel.distributed import destroy, maybe_initialize_distributed
+from tinydiffusion_torch.parallel.mesh import make_mesh_for_batch
 from tinydiffusion_torch.tools import fid_eval, fid_eval_laion, import_torch_checkpoint
 from tinydiffusion_torch.train.trainer import (
     GRAPH_WARMUP_STEPS,
@@ -364,6 +380,9 @@ N_RECON, N_PRIOR = 4, 16
 # x_t by the same through one multiply-add.
 QSAMPLE_ATOL = 1e-5
 QSAMPLE_BATCH, QSAMPLE_SHAPE = 128, (1, 28, 28)
+# A data-parallel rank's launch on its rows of the global batch (row_offset):
+# two ranks' halves and a middle span, bit-equal to the rows of one launch.
+QSAMPLE_ROW_SPANS = ((0, 64), (64, 128), (40, 104))
 # Integer and float operations per element of the kernel: a Philox4x32-10
 # call (10 rounds of 2 mulhi, 2 mullo, 4 xor; 9 key bumps of 2 adds) feeds 4
 # elements, ~25 each; the uniform, Box-Muller and the noising add ~10.
@@ -558,6 +577,15 @@ LAION_TRAIN_STEPS, LAION_VAL_BATCHES = 80, 20
 # relative, and one float32 ulp of the cosine times (lr - lr_min) / 2 where
 # 1 + cos cancels next to T_max.
 LAION_PARITY_T_MAX, LAION_CAPTION_DROPOUT = 4, 0.1
+# dp: the data-parallel code path at world size 1 on NCCL. The card's machine
+# has one H100 and NCCL refuses two ranks on one device, so no world size
+# above 1 runs here (the CPU tests hold 2 ranks on gloo to one process). The
+# DP graph step against the non-DP graph step: DP_REPLAYS replays after the
+# warm-ups, resident_parity's bfloat16 bounds (the DP step normalises BN
+# with float64 sums where cuDNN's kernel takes its own; the bf16 forward
+# carries that); the times over DP_TIMED_CALLS calls of DP_REPLAYS + 2
+# replays each.
+DP_REPLAYS, DP_TIMED_CALLS = 10, 5
 LAION_LR_RTOL = 1e-6
 # laion_serve: the four prompts, bf16 forward and fp32 chain (the sidecar's),
 # each request twice. DDIM-10 decoded images card vs CPU from one x_init:
@@ -573,36 +601,38 @@ LAION_SERVE_F32_ATOL, LAION_SERVE_BF16_MEAN_ABS = 1e-3, 0.03
 LAION_GUIDED_RECORDS, LAION_GUIDED_STEPS = 200, 20
 
 # FID on the card (slice 12): tools/fid_eval.py's rows at n = 512 and sample
-# batch 128, beside JAX's (BASELINE.md:62-133, TPU runs; n = 512). Each
-# entry: checkpoint, variants, guidance scale, JAX's FID per variant and
-# JAX's label accuracy (conditional checkpoints). A row fails only on a
-# gross fault: above FID_MAX_RATIO x JAX's, or a label accuracy under
-# FID_MIN_LABEL_ACC where JAX's is at least FID_LABEL_ACC_FLOORED. The seed
-# spread: the first row again at --seed FID_SPREAD_SEED.
-FID_N, FID_SAMPLE_BATCH = 512, 128
-FID_MNIST_ROWS = (
-    ("diffusion_final", "ddim50,dpmpp20,ddpm", 1.0,
-     {"ddim50": 104.8, "dpmpp20": 116.3, "ddpm": 124.5}, None),
-    ("conditional_cfg_ema_best", "ddim50", 1.0, {"ddim50": 65.3}, 0.973),
-    ("conditional_cfg_ema_best", "ddim50", 2.0, {"ddim50": 247.8}, 1.0),
-    ("latent_diffusion_best", "dpmpp20", 1.0, {"dpmpp20": 47.5}, 0.900),
-    ("diffusion_transformer_best", "dpmpp20", 1.0, {"dpmpp20": 23.3}, 0.984),
-)
-FID_JAX_CALIBRATION = {"real-train": 7.8, "noise": 21989.0}
+# batch 128, beside JAX's own tool's rows on the CPU at the same n, sample
+# batch and seeds (tests/fixtures/fid_jax_cpu_rows.json, which names the
+# command that made them; BASELINE.md's TPU figures were stale: 65.3 on the
+# CFG s = 1 row where JAX's tool gives 12.78). Each entry: checkpoint,
+# variants, guidance scale, JAX's FID per variant and JAX's label accuracy
+# (conditional checkpoints). A row fails only on a gross fault: above
+# FID_MAX_RATIO x JAX's, or a label accuracy under FID_MIN_LABEL_ACC where
+# JAX's is at least FID_LABEL_ACC_FLOORED. The seed spread: the first row
+# again at --seed FID_SPREAD_SEED, held to JAX's row at that seed.
+FID_JAX_FIXTURE = os.path.join(REPO, "tests", "fixtures", "fid_jax_cpu_rows.json")
+with open(FID_JAX_FIXTURE) as _f:
+    FID_JAX = json.load(_f)
+FID_N, FID_SAMPLE_BATCH = FID_JAX["n"], FID_JAX["sample_batch"]
+FID_MNIST_ROWS = tuple((r["checkpoint"], r["variants"], r["guidance_scale"], r["fid"],
+                        r["label_acc"]) for r in FID_JAX["rows"])
+FID_JAX_CALIBRATION = FID_JAX["calibration"]
 FID_MAX_RATIO, FID_MIN_LABEL_ACC, FID_LABEL_ACC_FLOORED = 2.0, 0.9, 0.97
-FID_SPREAD_SEED = 1
+FID_SPREAD_SEED = FID_JAX["spread_row"]["seed"]
 # Card against CPU: the calibration rows (the same images, float32 features
 # summed in other orders) within 1e-3 relative; the features of 512 test
 # images within 1e-4 of the largest.
 FID_CARD_VS_CPU_RTOL, FID_FEATURE_RTOL = 1e-3, 1e-4
 # fid_laion: tools/fid_eval_laion.py at 256², n = 512, batch 32 (the flash
-# forward at B = 32, N = 16384 and 4096), JAX's rows from
-# docs/evidence/fid_laion_r5.jsonl (TPU). The samples: 64 DDIM-50 requests of
-# the four prompts from laion_diffusion_1000ep, 256 PNGs. Flash forward
-# launches: 3 a reconstruct batch, 1 a prior decode, 16 batches.
-FID_LAION_JAX = {"calibration_floor_real_vs_real": 24.238,
-                 "calibration_ceiling_real_vs_noise": 8984.886, "vae_recon": 35.618,
-                 "vae_prior_decode": 942.659, "samples_dir[256]": 261.401}
+# forward at B = 32, N = 16384 and 4096), beside JAX's own tool's rows on the
+# CPU at n = 512 (tests/fixtures/fid_laion_jax_cpu_rows.json, with the
+# command; it replaced docs/evidence/fid_laion_r5.jsonl's TPU rows). The
+# samples: 64 DDIM-50 requests of the four prompts from
+# laion_diffusion_1000ep, 256 PNGs. Flash forward launches: 3 a reconstruct
+# batch, 1 a prior decode, 16 batches.
+FID_LAION_JAX_FIXTURE = os.path.join(REPO, "tests", "fixtures", "fid_laion_jax_cpu_rows.json")
+with open(FID_LAION_JAX_FIXTURE) as _f:
+    FID_LAION_JAX = json.load(_f)["rows"]
 FID_LAION_BATCH, FID_LAION_REPEAT = 32, 64
 FID_LAION_FLASH_LAUNCHES = (FID_N // FID_LAION_BATCH) * (3 + 1)
 # The kernel against its plain version on vae_recon's first 32 images at
@@ -1222,6 +1252,8 @@ def phase_qsample_kernel() -> dict:
         raise RuntimeError("q_sample kernel: a device seed gave other values than the same int")
     graph_replays = _qsample_graph_replays(schedule, x0, t)
     err = max([err] + [r["max_abs_err"] for r in graph_replays])
+    row_spans = _qsample_row_offsets(schedule, x0, t, seed, xt_k, z_k)
+    err = max([err] + [r["plain_max_abs_err"] for r in row_spans])
     ms = cuda_ms(lambda: qsample.q_sample_fused(schedule, x0, t, seed), iters=50, warmup=5)
     plain_ms = cuda_ms(lambda: qsample.q_sample_fused_reference(schedule, x0, t, seed),
                        iters=50, warmup=5)
@@ -1233,7 +1265,7 @@ def phase_qsample_kernel() -> dict:
             "graph_floor_us": floor_us, "bound_ms": bound_ms, "bound_by": bound_by,
             "roofline_share": bound_ms / ms, "graph_replays": graph_replays,
             "noise_mean": mean, "noise_std": std, "draws": z_k.numel(),
-            "row_corr_0_1": row_corr}
+            "row_corr_0_1": row_corr, "row_offset_spans": row_spans}
     latent_sites, latent_launches = _qsample_latent_sites(schedule)
     # One profiler session for every site: one launch shape after another.
     site["device_us"], *latent_us = kernel_device_us_each(
@@ -1245,6 +1277,28 @@ def phase_qsample_kernel() -> dict:
     emit("qsample_kernel", name="qsample", atol=QSAMPLE_ATOL,
          library_note="no one PyTorch call draws the noise and noises x0 together", **site)
     return site
+
+
+def _qsample_row_offsets(schedule, x0, t, seed, xt_all, z_all) -> list[dict]:
+    """The kernel on rows [lo, hi) of the batch with ``row_offset=lo``, as a
+    data-parallel rank launches it: bit-equal to those rows of the launch on
+    the whole batch, and within QSAMPLE_ATOL of the plain version at the
+    same offset."""
+    spans = []
+    for lo, hi in QSAMPLE_ROW_SPANS:
+        xs, ts = x0[lo:hi].contiguous(), t[lo:hi].contiguous()
+        xt_o, z_o = qsample.q_sample_fused(schedule, xs, ts, seed, row_offset=lo)
+        xt_p, z_p = qsample.q_sample_fused_reference(schedule, xs, ts, seed, row_offset=lo)
+        torch.cuda.synchronize()
+        span = {"rows": [lo, hi],
+                "bit_equal_to_global": torch.equal(xt_o, xt_all[lo:hi])
+                and torch.equal(z_o, z_all[lo:hi]),
+                "plain_max_abs_err": max((z_o - z_p).abs().max().item(),
+                                         (xt_o - xt_p).abs().max().item())}
+        if not (span["bit_equal_to_global"] and span["plain_max_abs_err"] <= QSAMPLE_ATOL):
+            raise RuntimeError(f"q_sample kernel at a row offset: {span}")
+        spans.append(span)
+    return spans
 
 
 def _qsample_latent_sites(schedule) -> tuple[list[dict], list]:
@@ -2385,6 +2439,134 @@ def _laion_graph_vs_eager(phase: str, codec, images: np.ndarray, embeds: np.ndar
     return fields
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _graph_step_cost(resident, state, idxs, base: int) -> dict:
+    """A captured step's cost: ms a replay by CUDA events over
+    DP_TIMED_CALLS calls of ``len(idxs)`` replays each; its kernels a step
+    from one profiler session over one call (taken again, up to 3 times, when
+    it comes back without kernel events); the peak memory since the peak
+    statistics were reset, above ``base`` bytes (what was live before the
+    state was built: the state, its set, the graph's pool and the steps')."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(DP_TIMED_CALLS):
+        resident(state, idxs)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (DP_TIMED_CALLS * len(idxs))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            resident(state, idxs)
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and ev.self_device_time_total > 0
+                 and not getattr(ev, "is_user_annotation", False)]
+        if names:
+            break
+    else:
+        raise RuntimeError("dp: three profiler sessions without kernel events")
+    return {"ms_per_step": ms, "kernels_per_step": len(names) / len(idxs),
+            "nccl_kernels_per_step": sum("nccl" in n.lower() for n in names) / len(idxs),
+            "peak_mib": peak}
+
+
+def phase_dp() -> dict:
+    """The data-parallel code path at world size 1: NCCL joined through
+    ``maybe_initialize_distributed`` from torchrun's variables, the data
+    axis from ``make_mesh_for_batch``; the UNet28 and MLP-UNet resident graph
+    steps with ``dp`` (BN statistics and the gradient bucket all-reduced
+    inside the graph) against the same steps without it, and their costs."""
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()))
+    try:
+        if not maybe_initialize_distributed("cuda"):
+            raise RuntimeError("dp: the process group did not form")
+        backend = torch.distributed.get_backend()
+        dp = make_mesh_for_batch(PARITY_BATCH)
+        if backend != "nccl" or dp is None or (dp.rank, dp.size) != (0, 1):
+            raise RuntimeError(f"dp: backend {backend}, data axis {dp}")
+        fields = {"backend": backend, "world_size": 1, "batch": PARITY_BATCH,
+                  "steps": GRAPH_WARMUP_STEPS + DP_REPLAYS, "replayed": DP_REPLAYS,
+                  **_parity_bounds()}
+        disable_tf32()
+        schedule = DiffusionSchedule.linear(1000).to("cuda")
+        steps = GRAPH_WARMUP_STEPS + DP_REPLAYS
+        rng = np.random.default_rng(SEED + 40)
+        images = rng.integers(0, 256, (PARITY_BATCH * steps, 28, 28, 1), dtype=np.uint8)
+        labels = rng.integers(0, 10, len(images))
+        latent = load_latent_checkpoint(LATENT_CHECKPOINTS["mlp_unet"], device="cuda")
+        families = {
+            "unet28": (lambda: load_unet28(UNET_CHECKPOINT, "cuda"), None,
+                       lambda ds, **o: make_resident_multi_step(schedule, ds, **o)),
+            "mlp_unet": (lambda: load_latent_checkpoint(LATENT_CHECKPOINTS["mlp_unet"],
+                                                        device="cuda")["model"], labels,
+                         lambda ds, **o: make_resident_latent_multi_step(
+                             latent["vae"], schedule, ds, **o)),
+        }
+        failed = []
+        for name, (load_model, rows, make_step) in families.items():
+            out, costs = {}, {}
+            for mode, axis in (("dp", dp), ("graph", None), ("graph_again", None)):
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                state, dataset = _resident_state(images, load_model(), ema=True, labels=rows)
+                params0, ema0 = _flat(state.model.parameters()), _flat(state.ema_params.values())
+                idxs = dataset.epoch_index_batches(0)[:steps]
+                resident = make_step(dataset, ema_decay=PARITY_EMA_DECAY,
+                                     compute_dtype=torch.bfloat16, dp=axis)
+                _reset_launches()
+                losses = resident(state, idxs).tolist()
+                torch.cuda.synchronize()
+                counts = dict(resident.counts)
+                if counts != {"eager": GRAPH_WARMUP_STEPS, "captures": 1, "replays": DP_REPLAYS} \
+                        or qsample.qsample_launches != steps:
+                    raise RuntimeError(f"dp ({name}, {mode}): graph {counts}, "
+                                       f"{qsample.qsample_launches} q_sample launches")
+                out[mode] = _parity_record(state, losses, params0, ema0)
+                if mode != "graph_again":
+                    costs[mode] = {**_graph_step_cost(resident, state, idxs, base),
+                                   "qsample_launches_per_step":
+                                   qsample.qsample_launches / state.step}
+                del state, dataset, resident
+            check, ok = _parity_fields("bfloat16", {"graph": out["dp"], "eager": out["graph"],
+                                                    "eager_again": out["graph_again"]})
+            check["dp_vs_graph"] = check.pop("graph_vs_eager")
+            check["graph_vs_graph"] = check.pop("eager_vs_eager")
+            check["losses_dp"] = check.pop("losses_graph")
+            check["losses_graph"] = check.pop("losses_eager")
+            fields[name] = {**check, "cost": costs, "qsample_launches_dp_run": steps}
+            with_dp, without = costs["dp"], costs["graph"]
+            print(f"dp: {name:<8s} step {with_dp['ms_per_step']:.4f} ms with DP, "
+                  f"{without['ms_per_step']:.4f} ms without; kernels a step "
+                  f"{with_dp['kernels_per_step']:.1f} / {without['kernels_per_step']:.1f}; "
+                  f"peak {with_dp['peak_mib']:.0f} / {without['peak_mib']:.0f} MiB", flush=True)
+            if not ok:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"dp: the DP graph step left the non-DP one in {failed}: {fields}")
+    finally:
+        destroy()
+        for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(var, None)
+    emit("dp", **fields)
+    return fields
+
+
 def _laion_serve_chains() -> dict:
     """DDIM-10 on the four prompts from one x_init, decoded images: the card
     against the CPU with the float32 forward (both TF32-free), and the
@@ -2477,7 +2659,7 @@ def phase_laion_serve() -> dict:
 
 def phase_fid_mnist(data_root: str) -> dict:
     """``tools/fid_eval.py`` on the card at n = 512: every committed MNIST
-    checkpoint's rows beside JAX's (BASELINE.md), the calibration rows and
+    checkpoint's rows beside JAX's CPU rows (``FID_JAX_FIXTURE``), the calibration rows and
     512 test images' features against the port's CPU run, the seconds to
     featurize the 10 000 test images and to sample each row, and the spread
     of one row over two seeds."""
@@ -2506,7 +2688,7 @@ def phase_fid_mnist(data_root: str) -> dict:
                                 f"JAX's {want}")
             rows.append(entry)
             print(f"fid_mnist: {name:<28s} {row['variant']:<8s} s={scale:<4} FID "
-                  f"{row['fid']:9.3f}  (JAX {want:7.1f})"
+                  f"{row['fid']:9.3f}  (JAX on the CPU {want:8.3f})"
                   + (f"  label-acc {row['label_acc']:.4f} (JAX {jax_acc})"
                      if "label_acc" in row else ""), flush=True)
     if any(_launches().values()):
@@ -2516,9 +2698,15 @@ def phase_fid_mnist(data_root: str) -> dict:
     again = fid_eval.main(["--checkpoint", os.path.join("checkpoints", name), "--variants",
                            variants, "--seed", str(FID_SPREAD_SEED), *base])
     fid0, fid1 = rows[0]["fid"], again["rows"][2]["fid"]
+    jax_fid1 = FID_JAX["spread_row"]["fid"]
     spread = {"checkpoint": name, "variant": variants,
               "fid_by_seed": {"0": fid0, str(FID_SPREAD_SEED): fid1},
+              "jax_fid_by_seed": {"0": FID_MNIST_ROWS[0][3][variants],
+                                  str(FID_SPREAD_SEED): jax_fid1},
               "rel_spread": abs(fid0 - fid1) / fid0}
+    if not (np.isfinite(fid1) and fid1 <= FID_MAX_RATIO * jax_fid1):
+        problems.append(f"{name} {variants} seed {FID_SPREAD_SEED}: FID {fid1} vs JAX's "
+                        f"{jax_fid1}")
     # The port's CPU rows: the same calibration images, and 512 test images' features.
     cpu = fid_eval.main(["--checkpoint", os.path.join("checkpoints", name), "--variants", "",
                          *base, "--device", "cpu"])  # the last --device counts
@@ -2589,7 +2777,7 @@ def phase_fid_laion() -> dict:
     for key, want in FID_LAION_JAX.items():
         if key not in rows or not rows[key] <= FID_MAX_RATIO * want:
             problems.append(f"{key}: {rows.get(key)} vs JAX's {want}")
-        print(f"fid_laion: {key:<36s} {rows.get(key)}  (JAX {want})", flush=True)
+        print(f"fid_laion: {key:<36s} {rows.get(key)}  (JAX on the CPU {want})", flush=True)
 
     # The kernel against its plain version on vae_recon's first 32 images.
     models = {"flash": load_conv_vae(CHECKPOINT, device="cuda"),
@@ -3538,6 +3726,7 @@ def main() -> int:
     phase_cond_parity()
     phase_latent_parity()
     phase_laion_parity()
+    dp = phase_dp()
     phase_unet_parity()
     phase_train_step_bf16()
     phase_sample()
@@ -3608,6 +3797,8 @@ def main() -> int:
             # and the LAION steps on the SD codec's latents, the same shape.
             "launches_laion_run": laion["qsample_launches"],
             "launches_laion_sd_train": sd_launches,
+            # The data-parallel graph steps at world size 1 (dp), each run's.
+            "launches_dp": {k: dp[k]["qsample_launches_dp_run"] for k in ("unet28", "mlp_unet")},
             "max_abs_err": max([qsample_site["max_abs_err"]]
                                + [s["max_abs_err"] for s in qsample_site["latent_sites"]]),
             **{k: qsample_site[k] for k in keys + (

@@ -16,7 +16,7 @@ import zlib
 import numpy as np
 import pytest
 import torch
-from PIL import Image
+from PIL import Image, ImageDraw
 
 from tests.test_torch_diffusion import SMALL
 from tinydiffusion_tpu.obs.images import save_image_grid as jax_save_image_grid
@@ -139,8 +139,13 @@ def test_labelled_grid_equals_jax_byte_for_byte(tmp_path):
     images.save_image_grid(tiles, str(tmp_path / "port.png"), nrow=2)
     np.testing.assert_array_equal(images.read_png(str(tmp_path / "port.png"))[..., 0],
                                   np.asarray(Image.open(tmp_path / "jax.png")))
-    with pytest.raises(ValueError, match="printable ASCII"):
-        images.draw_label(np.zeros((8, 8, 3), np.uint8), 0, 0, "-1\u00e9")
+    # A character beyond printable ASCII is drawn as Pillow draws it (here
+    # the font's missing-glyph box), where it once raised.
+    canvas = Image.new("RGB", (24, 16))
+    ImageDraw.Draw(canvas).text((0, 0), "-1\u00e9", fill=(255, 64, 64))
+    pixels = np.zeros((16, 24, 3), np.uint8)
+    images.draw_label(pixels, 0, 0, "-1\u00e9")
+    np.testing.assert_array_equal(pixels, np.asarray(canvas))
 
 
 # --- the serving CLI -------------------------------------------------------------------

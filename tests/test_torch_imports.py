@@ -64,6 +64,15 @@ _CHILD = _REFUSE + textwrap.dedent("""
         importlib.import_module(mod.name)
     import chip_smoke  # its work sits behind `if __name__ == "__main__"`
     import chip_flash_ab  # likewise
+    # Data parallelism and the JPEG round trip: no group without torchrun's
+    # variables, and no Pillow.
+    from tinydiffusion_torch.data.jpeg import jpeg_round_trip
+    from tinydiffusion_torch.parallel import distributed, mesh
+    for var in ("RANK", "WORLD_SIZE"):
+        os.environ.pop(var, None)
+    assert not distributed.maybe_initialize_distributed("cpu")
+    assert mesh.make_mesh_for_batch(16) is None
+    assert jpeg_round_trip(np.zeros((16, 16, 3), np.uint8)).shape == (16, 16, 3)
 
     from tinydiffusion_torch.data.laion import synthesize_image
     from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct, sample_prior

@@ -10,9 +10,9 @@ noise, keep)`` seam against JAX's ``_laion_raw_step`` with and without
 caption dropout, the eval step, the cosine learning rate over 2500 Adam
 steps against optax's chain, the resident steps against host steps, and
 ``experiments/conditional_diffusion_laion.py::run`` on both placements and
-on resume. JAX runs on the CPU as its own tests run it; its image records
-come from a fresh ``image_cache_dir`` (a warm one would hand back JPEG
-decodes, which the port does not make: ``data/laion.py``).
+on resume. JAX runs on the CPU as its own tests run it; the port's image
+records are the JPEG decodes that JAX's ``run`` stacks from a warm
+``image_cache_dir`` (``data/laion.py``).
 """
 
 import dataclasses
@@ -222,10 +222,10 @@ def test_hash_embeddings_are_jax_bits(monkeypatch):
 
 def test_offline_records_and_valid_subset_are_jax_bits(tmp_path):
     """The synthetic records, the valid subset (an empty caption is dropped)
-    and each image as JAX's dataset first reads it, from a cold cache:
-    bit-equal. A second JAX read decodes the JPEG that the first one cached,
-    which is what JAX's ``run`` stacks (after ``precache_dataset``'s read);
-    the port makes no JPEG, so that read differs (``data/laion.py``)."""
+    and each image bit-equal: ``synthesize_image`` as JAX's dataset first
+    reads it, from a cold cache, and ``precache_records`` as a second JAX
+    read, which decodes the JPEG that the first one cached: what JAX's
+    ``run`` stacks (after ``precache_dataset``'s read)."""
     n, size = 10, 64
     records = laion.load_laion_dataset(n)
     assert records == jax_laion.load_laion_dataset(n, offline=True)
@@ -242,9 +242,11 @@ def test_offline_records_and_valid_subset_are_jax_bits(tmp_path):
     cold = [ds[i] for i in valid]
     images, texts = laion.precache_records(records, size)
     assert texts == [text for _, text in cold]
-    np.testing.assert_array_equal(images, np.stack([x for x, _ in cold]))
+    np.testing.assert_array_equal(np.stack([laion.synthesize_image(i, size)[0] for i in valid]),
+                                  np.stack([x for x, _ in cold]))
     warm = np.stack([ds[i][0] for i in valid])
-    assert not np.array_equal(images, warm)
+    np.testing.assert_array_equal(images, warm)
+    assert not np.array_equal(warm, np.stack([x for x, _ in cold]))
     with pytest.raises(NotImplementedError, match="offline=True"):
         laion.load_laion_dataset(n, offline=False)
 

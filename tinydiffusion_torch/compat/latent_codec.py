@@ -69,6 +69,10 @@ class LinearPatchCodec:
         x = patches.reshape(b, s, s, p, p, self.channels).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, s * p, s * p, self.channels).permute(0, 3, 1, 2).contiguous()
 
+    def noise_shape(self, images: torch.Tensor) -> None:
+        """None: ``encode`` draws no noise."""
+        return None
+
     def encode(self, images: torch.Tensor, noise=None, generator=None) -> torch.Tensor:
         """(B, 3, H, W) images in [-1, 1] -> (B, 4, 32, 32) scaled latents,
         float32 and contiguous (the fused q_sample takes them as they are).

@@ -198,6 +198,7 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(widths, layers_per_block, latent_channels, norm_num_groups)
         self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
+        self.latent_channels, self.factor = latent_channels, 2 ** (len(widths) - 1)
 
     def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
         return self.quant_conv(self.encoder(x))
@@ -265,6 +266,13 @@ class SDVAECodec:
         return self
 
     @torch.no_grad()
+    def noise_shape(self, images: torch.Tensor) -> tuple[int, ...]:
+        """The shape of the standard normal that ``encode`` draws for
+        ``images``: the latents'."""
+        b, _, h, w = images.shape
+        f = self.vae.factor
+        return (b, self.vae.latent_channels, h // f, w // f)
+
     def encode(self, images: torch.Tensor, noise: torch.Tensor | None = None,
                generator: torch.Generator | None = None) -> torch.Tensor:
         moments = self.vae.encode_moments(images)

@@ -11,19 +11,22 @@ bytes.
 JAX serves a ``synthetic://i`` record through its URL-fetch machinery and a
 JPEG cache (``LAIONImageTextDataset``, laion.py:219-251): a cold cache hands
 back the synthesized bytes (and writes a quality-95 JPEG of them), a warm
-one the lossy JPEG decode. The port has no PIL, no cache and no network,
-and synthesizes each image directly: its images equal JAX's first read
-from a fresh ``image_cache_dir``. JAX's ``run`` reads each record twice
-(``precache_dataset``, then the stacking read), so it trains on the JPEG
-decodes, which differ from the synthesized bytes by 3.2 levels of 255 on
-average (up to 96; 40 records at 256², read with JAX's dataset on the CPU).
-The online loader (HTTP, the md5-named cache, the failed-URL list) and the
-JPEG round trip are not ported.
+one the lossy JPEG decode. The port has no PIL, no cache and no network.
+JAX's text-conditional ``run`` reads each record twice (``precache_dataset``,
+then the stacking read), so it trains on the JPEG decodes, which differ from
+the synthesized bytes by 3.2 levels of 255 on average (up to 96; 40 records
+at 256²): ``precache_records`` hands back those decodes, computed by
+``data/jpeg.py::jpeg_round_trip``. JAX's conv-VAE ``run`` reads each record
+once (``experiments/vae_laion.py:215``), on the synthesized bytes, so the
+port's conv-VAE takes ``synthesize_image`` as it is. The online loader
+(HTTP, the md5-named cache, the failed-URL list) is not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from tinydiffusion_torch.data.jpeg import jpeg_round_trip
 
 SYNTHETIC_SCHEME = "synthetic://"
 
@@ -84,11 +87,17 @@ def load_laion_dataset(n_records: int, offline: bool = True) -> list[dict]:
             for i in range(n_records)]
 
 
+# Records a batch of the JPEG round trip (its int64 planes: ~100 MB at 256²).
+_JPEG_CHUNK = 64
+
+
 def precache_records(records: list[dict], image_size: int) -> tuple[np.ndarray, list[str]]:
     """The valid records as ``(images, texts)``: (N, S, S, 3) uint8 images
     and their captions, in record order, keeping a record only when its
     caption is not empty and its image not all black (JAX's
-    ``precache_dataset`` then ``ds[i]`` for each valid i)."""
+    ``precache_dataset``, which caches each image as a quality-95 JPEG, then
+    ``ds[i]`` for each valid i, which reads that JPEG back: each image here
+    is ``jpeg_round_trip`` of the synthesized one)."""
     images, texts = [], []
     for record in records:
         url, text = record["URL"], record.get("TEXT", "")
@@ -100,4 +109,7 @@ def precache_records(records: list[dict], image_size: int) -> tuple[np.ndarray, 
             texts.append(text)
     if not images:
         return np.zeros((0, image_size, image_size, 3), np.uint8), []
-    return np.stack(images), texts
+    images = np.stack(images)
+    for start in range(0, len(images), _JPEG_CHUNK):
+        images[start:start + _JPEG_CHUNK] = jpeg_round_trip(images[start:start + _JPEG_CHUNK])
+    return images, texts

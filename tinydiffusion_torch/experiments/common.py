@@ -368,12 +368,16 @@ def make_trajectory_sampler(
 RESIDENT_AUTO_LIMIT_BYTES = 4 << 30
 
 
-def resolve_data_placement(placement: str, dataset_bytes: int, name: str = "experiment") -> bool:
+def resolve_data_placement(placement: str, dataset_bytes: int, name: str = "experiment",
+                           batch_size: int = 0, data_axis: int = 1) -> bool:
     """Whether a config's ``data_placement`` takes the resident path, by the
-    JAX package's rule on one device: ``"host"`` streams batches from the
-    host, ``"device"`` keeps the dataset in device memory
+    JAX package's rule: ``"host"`` streams batches from the host,
+    ``"device"`` keeps the dataset in device memory
     (``data.device.DeviceDataset``), and ``"auto"``, the default, does so
-    whenever the dataset fits under ``RESIDENT_AUTO_LIMIT_BYTES``."""
+    whenever the dataset fits under ``RESIDENT_AUTO_LIMIT_BYTES``. Under data
+    parallelism (``data_axis`` ranks) a ``batch_size`` that the axis does not
+    divide streams from the host, with a warning (``parallel.mesh``'s gcd
+    rule always gives an axis that divides it)."""
     if placement not in ("host", "device", "auto"):
         raise ValueError(f"data_placement={placement!r}; choose 'host', 'device', or 'auto'")
     if placement == "host":
@@ -383,6 +387,11 @@ def resolve_data_placement(placement: str, dataset_bytes: int, name: str = "expe
             "data_placement=auto: dataset (%.1f GB) exceeds the %.0f GB resident "
             "ceiling; streaming from host",
             dataset_bytes / 2**30, RESIDENT_AUTO_LIMIT_BYTES / 2**30)
+        return False
+    if data_axis > 1 and batch_size % data_axis != 0:
+        logging.getLogger(f"tinydiffusion_torch.{name}").warning(
+            "data_placement=%s: batch %d not divisible by the %d-device data axis; "
+            "falling back to host streaming", placement, batch_size, data_axis)
         return False
     return True
 

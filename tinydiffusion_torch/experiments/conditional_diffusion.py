@@ -21,6 +21,9 @@ Run on the card (the default) or, when asked, on the CPU::
 By default, as in JAX, the train split sits on the device and each chunk of
 ``log_every`` steps runs as replays of one captured CUDA graph (eagerly on
 the CPU); the val split sits there too and its pass reads the losses once.
+Under ``torchrun --nproc_per_node N`` the run is data-parallel over N
+processes (``parallel/``; ``--batch-size`` is the global batch); rank 0
+alone samples, logs and writes.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ from tinydiffusion_torch.io.checkpoint import BestKeeper
 from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import MetricsLogger, Throughput
+from tinydiffusion_torch.parallel.distributed import maybe_initialize_distributed
+from tinydiffusion_torch.parallel.mesh import is_main, make_mesh_for_batch, shard
 from tinydiffusion_torch.ops import qsample
 from tinydiffusion_torch.train.trainer import (
     create_train_state,
@@ -77,8 +82,8 @@ class ConditionalDiffusionConfig:
       ``sample_dtype``. On a card ``run`` turns TF32 off for the process.
     - ``data_placement``: JAX's rule (``experiments.common.resolve_data_placement``);
       ``"auto"`` keeps both splits on the device.
-    - ``use_mesh`` has no effect on one card; it is kept so the two CLIs take
-      the same flags.
+    - ``use_mesh``: data parallelism over the processes of the group that
+      ``main`` joins, as in ``experiments.diffusion``.
     - ``model_save_path`` defaults under ``runs/``, not to the JAX default
       ``checkpoints/conditional_diffusion_best``: the port's ``.npz`` export
       would overwrite the committed JAX weights there.
@@ -123,7 +128,12 @@ def run(config: ConditionalDiffusionConfig) -> dict:
     ``sample_seconds``), ``resident``, ``graph`` (the resident step's
     counts of eager steps, captures and replays), ``qsample_launches`` (the
     kernel's launches in the ``train`` steps and the ``eval`` passes; 0 on
-    the CPU), ``digit7_seconds`` and the final ``state``."""
+    the CPU), ``digit7_seconds`` and the final ``state``. A rank left idle
+    by the data axis's gcd rule returns ``{"idle": True}``."""
+    dp = make_mesh_for_batch(config.batch_size) if config.use_mesh else None
+    if dp is not None and not dp.active:
+        return {"idle": True}
+    main = is_main(dp)
     device = resolve_device(config.device)
     dtype = resolve_dtype(config.compute_dtype)
     sample_dtype = resolve_dtype(config.sample_dtype)
@@ -137,7 +147,8 @@ def run(config: ConditionalDiffusionConfig) -> dict:
     images_u8, labels = load_mnist_u8(config.data_root, train=True)
     xt, yt, xv, yv = train_val_split(images_u8, labels, config.val_frac, seed=config.split_seed)
     resident = resolve_data_placement(config.data_placement, xt.nbytes + yt.nbytes,
-                                      "conditional")
+                                      "conditional", config.batch_size,
+                                      1 if dp is None else dp.size)
     schedule = DiffusionSchedule.make(config.noise_schedule, config.num_timesteps).to(device)
     use_cfg = config.label_dropout > 0
     null_label = config.num_classes
@@ -153,9 +164,9 @@ def run(config: ConditionalDiffusionConfig) -> dict:
     state = create_train_state(model, optimizer, config.seed, ema=use_ema)
     step_options = dict(ema_decay=config.ema_decay if use_ema else None,
                         prediction=config.prediction, compute_dtype=dtype, conditional=True,
-                        label_dropout=config.label_dropout, null_label=null_label)
+                        label_dropout=config.label_dropout, null_label=null_label, dp=dp)
     eval_step = make_eval_step(schedule, conditional=True, prediction=config.prediction,
-                               compute_dtype=dtype)
+                               compute_dtype=dtype, dp=dp)
     u8 = (MNIST_SCALE, MNIST_SHIFT)
     if resident:
         train_data = DeviceDataset(xt, config.batch_size, seed=config.seed, device=device,
@@ -176,8 +187,8 @@ def run(config: ConditionalDiffusionConfig) -> dict:
     sample_gen = torch.Generator(device).manual_seed(config.seed + 2)
 
     logger = MetricsLogger("conditional-diffusion-mnist", config.out_dir,
-                           dataclasses.asdict(config))
-    keeper = BestKeeper(config.model_save_path)
+                           dataclasses.asdict(config), enabled=main)
+    keeper = BestKeeper(config.model_save_path, enabled=main)
     throughput = Throughput()
     result = {"losses": [], "val_losses": [], "samples_per_sec": 0.0, "epochs": [],
               "resident": resident, "qsample_launches": {"train": 0, "eval": 0}}
@@ -193,7 +204,7 @@ def run(config: ConditionalDiffusionConfig) -> dict:
                 idxs = idxs[: config.max_steps_per_epoch]
             for start in range(0, len(idxs), config.log_every):
                 chunk = idxs[start : start + config.log_every]
-                chunk_losses = train_chunk(state, chunk)
+                chunk_losses = train_chunk(state, shard(dp, chunk, dim=1))
                 losses.append(chunk_losses)
                 throughput.add(len(chunk) * config.batch_size)
                 loss_val = float(chunk_losses[0])  # syncs, once a chunk
@@ -204,7 +215,7 @@ def run(config: ConditionalDiffusionConfig) -> dict:
             for batch_idx, batch in enumerate(train_it.epoch(epoch)):
                 if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
                     break
-                x0, y = train_it.to_device(batch, device)
+                x0, y = train_it.to_device([shard(dp, a) for a in batch], device)
                 loss = train_step(state, x0.permute(0, 3, 1, 2), y.long())
                 losses.append(loss.view(1))
                 throughput.add(config.batch_size)
@@ -226,13 +237,13 @@ def run(config: ConditionalDiffusionConfig) -> dict:
             vidxs = val_data.epoch_index_batches(0)
             if config.max_steps_per_epoch:
                 vidxs = vidxs[: config.max_steps_per_epoch]
-            val_losses = resident_eval(state.model, epoch, vidxs)
+            val_losses = resident_eval(state.model, epoch, shard(dp, vidxs, dim=1))
         else:
             val_losses = []
             for batch_idx, batch in enumerate(val_it.epoch()):
                 if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
                     break
-                x0, y = val_it.to_device(batch, device)
+                x0, y = val_it.to_device([shard(dp, a) for a in batch], device)
                 key = (config.seed + 1, epoch * VAL_FOLD_STRIDE + batch_idx)
                 val_losses.append(eval_step(state.model, x0.permute(0, 3, 1, 2), key,
                                             y.long()).view(1))
@@ -244,11 +255,12 @@ def run(config: ConditionalDiffusionConfig) -> dict:
         result["val_losses"].append(avg_val_loss)
         logger.log({"epoch": epoch, "train_loss": avg_train_loss, "val_loss": avg_val_loss,
                     "train_samples_per_sec": sps}, step=state.step)
-        if keeper.update(avg_val_loss, state, config=dataclasses.asdict(config), epoch=epoch):
+        if keeper.update(avg_val_loss, state, config=dataclasses.asdict(config),
+                         epoch=epoch) and main:
             print(f"Saved best model at epoch {epoch} with val loss: {avg_val_loss:.4f}")
 
         sample_seconds = None
-        if config.sample_every_epoch:
+        if config.sample_every_epoch and main:
             t0 = time.perf_counter()
             y_sample = torch.randint(0, config.num_classes, (config.n_samples,),
                                      generator=sample_gen, device=device)
@@ -263,17 +275,19 @@ def run(config: ConditionalDiffusionConfig) -> dict:
                                  "sample_seconds": sample_seconds})
 
     # The digit-7 grid (conditional_diffusion.py:474-485).
-    synchronize()
-    t0 = time.perf_counter()
-    y7 = torch.full((config.n_samples,), 7, dtype=torch.int64, device=device)
-    samples = sampler(sample_gen, params=state.ema_params, y=y7)
-    synchronize()
-    result["digit7_seconds"] = time.perf_counter() - t0
-    grid = f"{config.out_dir}/generated_digit_7.png"
-    save_image_grid(to_nhwc01(samples), grid, nrow=4, labels=[7] * config.n_samples)
-    logger.log_image("final_samples", grid, state.step)
+    result["digit7_seconds"] = None
+    if main:
+        synchronize()
+        t0 = time.perf_counter()
+        y7 = torch.full((config.n_samples,), 7, dtype=torch.int64, device=device)
+        samples = sampler(sample_gen, params=state.ema_params, y=y7)
+        synchronize()
+        result["digit7_seconds"] = time.perf_counter() - t0
+        grid = f"{config.out_dir}/generated_digit_7.png"
+        save_image_grid(to_nhwc01(samples), grid, nrow=4, labels=[7] * config.n_samples)
+        logger.log_image("final_samples", grid, state.step)
 
-    if config.visualize_denoising:
+    if config.visualize_denoising and main:
         traj_fn = make_trajectory_sampler(
             model, schedule, (4, 1, 28, 28), stride=config.denoising_stride, conditional=True,
             dtype=sample_dtype, prediction=config.prediction, compute_dtype=dtype)
@@ -299,6 +313,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_config_flags(parser, ConditionalDiffusionConfig())
     config = config_from_args(ConditionalDiffusionConfig, parser.parse_args(argv))
+    maybe_initialize_distributed(config.device)
     device = resolve_device(config.device)
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
     run(config)

@@ -87,6 +87,8 @@ from tinydiffusion_torch.io.checkpoint import (
 from tinydiffusion_torch.models.unet_latent import LatentUNet
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import MetricsLogger
+from tinydiffusion_torch.parallel.distributed import maybe_initialize_distributed
+from tinydiffusion_torch.parallel.mesh import is_main, make_mesh_for_batch, shard
 from tinydiffusion_torch.ops import qsample
 from tinydiffusion_torch.train.trainer import (
     create_train_state,
@@ -118,7 +120,10 @@ class LaionDiffusionConfig:
       beside the committed sidecars there.
     - ``offline`` must stay True (the online loader is not ported);
       ``image_cache_dir`` and ``failed_urls_cache`` are kept for the flags
-      and not used; ``use_mesh`` has no effect on one card.
+      and not used.
+    - ``use_mesh``: data parallelism over the processes of the group that
+      ``main`` joins (``parallel/``; ``batch_size`` is the global batch), as
+      in ``experiments.diffusion``; rank 0 alone samples, logs and writes.
     - On a card ``run`` turns TF32 off for the process.
     """
 
@@ -292,7 +297,12 @@ def run(config: LaionDiffusionConfig) -> dict:
     ``qsample_launches`` (the kernel's launches in the ``train`` steps and
     the ``eval`` passes; 0 on the CPU), ``data_seconds`` (synthesizing and
     embedding the records), ``final_seconds`` (the final grid), ``codec`` and
-    the final ``state``."""
+    the final ``state``. A rank left idle by the data axis's gcd rule
+    returns ``{"idle": True}``."""
+    dp = make_mesh_for_batch(config.batch_size) if config.use_mesh else None
+    if dp is not None and not dp.active:
+        return {"idle": True}
+    main = is_main(dp)
     device = resolve_device(config.device)
     dtype = resolve_dtype(config.compute_dtype)
     sample_dtype = resolve_dtype(config.sample_dtype)
@@ -330,7 +340,8 @@ def run(config: LaionDiffusionConfig) -> dict:
         model = LatentUNet(time_dim=config.time_dim, in_channels=config.latent_channels)
     model = model.to(device)
     resident = resolve_data_placement(
-        config.data_placement, images[train_idx].nbytes + embeds[train_idx].nbytes, "laion")
+        config.data_placement, images[train_idx].nbytes + embeds[train_idx].nbytes, "laion",
+        config.batch_size, 1 if dp is None else dp.size)
     # The rate is a tensor that the step writes from Adam's step count; on a
     # card Adam keeps that count on the device (capturable) on either path.
     optimizer = torch.optim.Adam(model.parameters(), lr=torch.tensor(config.lr, device=device),
@@ -353,8 +364,8 @@ def run(config: LaionDiffusionConfig) -> dict:
 
     step_options = dict(lr_schedule=lr_schedule, clip_norm=config.clip_norm,
                         ema_decay=config.ema_decay if use_ema else None, compute_dtype=dtype,
-                        caption_dropout=config.caption_dropout, null_embed=null_embed)
-    eval_step = make_laion_eval_step(codec, schedule, dtype)
+                        caption_dropout=config.caption_dropout, null_embed=null_embed, dp=dp)
+    eval_step = make_laion_eval_step(codec, schedule, dtype, dp=dp)
     if resident:
         common = dict(batch_size=config.batch_size, seed=config.seed, device=device,
                       u8_normalize=LAION_U8_NORMALIZE)
@@ -374,15 +385,19 @@ def run(config: LaionDiffusionConfig) -> dict:
     sample_embeds = torch.from_numpy(text_encoder.encode(SAMPLE_PROMPTS)).to(device)
     sample_gen = torch.Generator(device).manual_seed(config.seed + 2)
 
-    logger = MetricsLogger("laion-diffusion-model", config.out_dir, dataclasses.asdict(config))
-    keeper = BestKeeper(config.model_save_path)
+    logger = MetricsLogger("laion-diffusion-model", config.out_dir, dataclasses.asdict(config),
+                           enabled=main)
+    keeper = BestKeeper(config.model_save_path, enabled=main)
     result = {"losses": [], "val_losses": [], "samples_per_sec": 0.0, "epochs": [],
               "grids": [], "resident": resident, "qsample_launches": {"train": 0, "eval": 0},
               "data_seconds": data_seconds}
     launches = result["qsample_launches"]
 
     def grid(path: str, labels=None) -> float:
-        """Sample the prompts (the EMA shadow when kept) into ``path``; its seconds."""
+        """Sample the prompts (the EMA shadow when kept) into ``path``; its
+        seconds (rank 0's work: 0 elsewhere)."""
+        if not main:
+            return 0.0
         synchronize()
         t0 = time.perf_counter()
         imgs = sampler(sample_gen, sample_embeds, params=state.ema_params)
@@ -406,7 +421,7 @@ def run(config: LaionDiffusionConfig) -> dict:
                 idxs = idxs[: config.max_steps_per_epoch]
             g = max(config.steps_per_dispatch, config.log_every, 1)
             for start in range(0, len(idxs), g):
-                chunk_losses = train_chunk(state, idxs[start : start + g])
+                chunk_losses = train_chunk(state, shard(dp, idxs[start : start + g], dim=1))
                 losses.append(chunk_losses)
                 end = start + len(chunk_losses) - 1
                 host = chunk_losses.tolist()  # syncs, once a chunk
@@ -424,7 +439,7 @@ def run(config: LaionDiffusionConfig) -> dict:
             for batch_idx, batch in enumerate(train_it.epoch(epoch)):
                 if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
                     break
-                x, emb = train_it.to_device(batch, device)
+                x, emb = train_it.to_device([shard(dp, a) for a in batch], device)
                 loss = train_step(state, x.permute(0, 3, 1, 2), emb)
                 losses.append(loss.view(1))
                 steps += 1
@@ -447,13 +462,13 @@ def run(config: LaionDiffusionConfig) -> dict:
             vidxs = val_data.epoch_index_batches(0)
             if config.max_steps_per_epoch:
                 vidxs = vidxs[: config.max_steps_per_epoch]
-            val_losses = resident_eval(model, epoch, vidxs)
+            val_losses = resident_eval(model, epoch, shard(dp, vidxs, dim=1))
         else:
             val_losses = []
             for i, batch in enumerate(val_it.epoch()):
                 if config.max_steps_per_epoch and i >= config.max_steps_per_epoch:
                     break
-                x, emb = val_it.to_device(batch, device)
+                x, emb = val_it.to_device([shard(dp, a) for a in batch], device)
                 key = (config.seed + 3, epoch * VAL_FOLD_STRIDE + i)
                 val_losses.append(eval_step(model, x.permute(0, 3, 1, 2), key, emb).view(1))
             val_losses = torch.cat(val_losses) if val_losses else torch.zeros(0)
@@ -469,7 +484,7 @@ def run(config: LaionDiffusionConfig) -> dict:
         # The patch codec's basis goes with the checkpoint; the SD-VAE has none.
         codec_meta = {"codec_state": codec.state_dict()} if hasattr(codec, "state_dict") else {}
         if keeper.update(avg_val_loss, state, config=dataclasses.asdict(config), epoch=epoch,
-                         **codec_meta):
+                         **codec_meta) and main:
             print(f"Saved best model at epoch {epoch} with val loss: {avg_val_loss:.4f}")
 
         if config.sample_every_epoch and (epoch + 1) % max(1, config.sample_every_epochs) == 0:
@@ -497,6 +512,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_config_flags(parser, LaionDiffusionConfig())
     config = config_from_args(LaionDiffusionConfig, parser.parse_args(argv))
+    maybe_initialize_distributed(config.device)
     device = resolve_device(config.device)
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
     run(config)

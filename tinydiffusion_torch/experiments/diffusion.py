@@ -17,7 +17,10 @@ Run on the card (the default) or, when asked, on the CPU::
 The flags are the JAX CLI's, plus ``--device`` and ``--base-width``. By
 default, as in JAX, the set is resident on the device and each chunk of
 ``log_every`` steps runs as replays of one captured CUDA graph (eagerly on
-the CPU, which has no graphs).
+the CPU, which has no graphs). Under ``torchrun --nproc_per_node N`` the run
+is data-parallel over N processes (one a card, or gloo on the CPU;
+``parallel/``): ``--batch-size`` is the global batch, and rank 0 alone
+samples, logs and writes.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ from tinydiffusion_torch.io.checkpoint import save_checkpoint
 from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import MetricsLogger, Throughput
+from tinydiffusion_torch.parallel.distributed import maybe_initialize_distributed
+from tinydiffusion_torch.parallel.mesh import is_main, make_mesh_for_batch, shard
 from tinydiffusion_torch.train.trainer import (
     create_train_state,
     make_resident_multi_step,
@@ -62,8 +67,10 @@ class DiffusionConfig:
       ``"float32"`` runs it in full float32. The sampling chain runs in
       ``sample_dtype``, as in JAX. On a card ``run`` turns TF32 off for the
       process, whatever the dtypes, so float32 is full float32.
-    - ``use_mesh`` has no effect on one card; it is kept so the two CLIs take
-      the same flags.
+    - ``use_mesh``: as in JAX, the run is data-parallel over every process
+      of the group that ``main`` joins (``parallel.mesh.make_mesh_for_batch``:
+      the largest count that divides ``batch_size``); one process, or
+      ``use_mesh`` false, trains on one device.
     - ``data_placement``: JAX's rule (``experiments.common.resolve_data_placement``).
       ``"host"`` streams uint8 batches from the host; ``"device"`` keeps the
       uint8 set on the device (``data.device.DeviceDataset``) and runs each
@@ -111,13 +118,14 @@ class DiffusionConfig:
     device: str = "cuda"
 
 
-def use_resident_path(config: DiffusionConfig, dataset_bytes: int) -> bool:
+def use_resident_path(config: DiffusionConfig, dataset_bytes: int, data_axis: int = 1) -> bool:
     """Whether ``run`` keeps the set on the device: JAX's rule, where
     ``"auto"`` with ``fused_qsample`` resolves to the host path."""
     placement = config.data_placement
     if placement == "auto" and config.fused_qsample:
         placement = "host"
-    return resolve_data_placement(placement, dataset_bytes, "diffusion")
+    return resolve_data_placement(placement, dataset_bytes, "diffusion", config.batch_size,
+                                  data_axis)
 
 
 def run(config: DiffusionConfig) -> dict:
@@ -125,7 +133,13 @@ def run(config: DiffusionConfig) -> dict:
     (the logged ones), ``samples_per_sec`` (the last epoch's), ``epochs``
     (per epoch: ``samples_per_sec``, ``epoch_seconds``, ``sample_seconds``),
     ``resident`` (whether the set stayed on the device) and the final
-    ``state``."""
+    ``state``. Under data parallelism every rank returns these (the losses
+    are the group's); a rank left idle by the gcd rule returns
+    ``{"idle": True}`` without training."""
+    dp = make_mesh_for_batch(config.batch_size) if config.use_mesh else None
+    if dp is not None and not dp.active:
+        return {"idle": True}
+    main = is_main(dp)
     device = resolve_device(config.device)
     dtype = resolve_dtype(config.compute_dtype)
     sample_dtype = resolve_dtype(config.sample_dtype)
@@ -133,7 +147,7 @@ def run(config: DiffusionConfig) -> dict:
         disable_tf32()  # float32 is full float32, in the step and in the chain
 
     images_u8, _ = load_mnist_u8(config.data_root, train=True)
-    resident = use_resident_path(config, images_u8.nbytes)
+    resident = use_resident_path(config, images_u8.nbytes, 1 if dp is None else dp.size)
     if resident:
         data = DeviceDataset(images_u8, config.batch_size, seed=config.seed, device=device)
     else:
@@ -156,7 +170,7 @@ def run(config: DiffusionConfig) -> dict:
     use_ema = config.ema_decay > 0
     state = create_train_state(model, optimizer, config.seed, ema=use_ema)
     step_options = dict(ema_decay=config.ema_decay if use_ema else None,
-                        prediction=config.prediction, compute_dtype=dtype)
+                        prediction=config.prediction, compute_dtype=dtype, dp=dp)
     if resident:
         train_chunk = make_resident_multi_step(schedule, data, **step_options)
     else:
@@ -169,7 +183,7 @@ def run(config: DiffusionConfig) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    logger = MetricsLogger("diffusion", config.out_dir, dataclasses.asdict(config))
+    logger = MetricsLogger("diffusion", config.out_dir, dataclasses.asdict(config), enabled=main)
     throughput = Throughput()
     result = {"losses": [], "samples_per_sec": 0.0, "epochs": [], "resident": resident}
     for epoch in range(config.num_epochs):
@@ -183,7 +197,7 @@ def run(config: DiffusionConfig) -> dict:
                 idxs = idxs[: config.max_steps_per_epoch]
             for start in range(0, len(idxs), config.log_every):
                 chunk = idxs[start : start + config.log_every]
-                losses = train_chunk(state, chunk)
+                losses = train_chunk(state, shard(dp, chunk, dim=1))
                 throughput.add(len(chunk) * config.batch_size)
                 loss_val = float(losses[0])  # syncs, once a chunk
                 logger.log({"epoch": epoch, "batch": start, "loss": loss_val},
@@ -193,7 +207,7 @@ def run(config: DiffusionConfig) -> dict:
             for batch_idx, batch in enumerate(data.epoch(epoch)):
                 if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
                     break
-                (x0,) = data.to_device(batch, device)
+                (x0,) = data.to_device([shard(dp, a) for a in batch], device)
                 x0 = x0.permute(0, 3, 1, 2)  # NHWC -> NCHW; C = 1, so no copy
                 loss = train_step(state, x0)
                 throughput.add(config.batch_size)
@@ -206,7 +220,7 @@ def run(config: DiffusionConfig) -> dict:
         sps = throughput.samples_per_sec
         result["samples_per_sec"] = sps
         sample_seconds = None
-        if config.sample_every_epoch:
+        if config.sample_every_epoch and main:
             t0 = time.perf_counter()
             samples = sampler(sample_gen, params=state.ema_params)
             synchronize()
@@ -220,7 +234,7 @@ def run(config: DiffusionConfig) -> dict:
         result["epochs"].append({"samples_per_sec": sps, "epoch_seconds": epoch_seconds,
                                  "sample_seconds": sample_seconds})
 
-    if config.visualize_denoising:
+    if config.visualize_denoising and main:
         traj_fn = make_trajectory_sampler(model, schedule, (4, 1, 28, 28),
                                           stride=config.denoising_stride, dtype=sample_dtype,
                                           prediction=config.prediction, compute_dtype=dtype)
@@ -230,7 +244,7 @@ def run(config: DiffusionConfig) -> dict:
             save_image_grid(to_nhwc01(frame), f"{config.out_dir}/denoising_t{t_label}.png",
                             nrow=2)
 
-    if config.checkpoint_path:
+    if config.checkpoint_path and main:
         save_checkpoint(config.checkpoint_path, state, config=dataclasses.asdict(config))
 
     result["state"] = state
@@ -244,6 +258,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_config_flags(parser, DiffusionConfig())
     config = config_from_args(DiffusionConfig, parser.parse_args(argv))
+    maybe_initialize_distributed(config.device)
     device = resolve_device(config.device)
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
     run(config)

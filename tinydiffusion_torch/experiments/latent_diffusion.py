@@ -79,6 +79,8 @@ from tinydiffusion_torch.models.mlp_unet import MLPUNetLatent
 from tinydiffusion_torch.models.vae_mnist import VAEMnist
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import MetricsLogger, Throughput
+from tinydiffusion_torch.parallel.distributed import maybe_initialize_distributed
+from tinydiffusion_torch.parallel.mesh import is_main, make_mesh_for_batch, shard
 from tinydiffusion_torch.ops import qsample
 from tinydiffusion_torch.train.trainer import (
     create_train_state,
@@ -112,7 +114,8 @@ class LatentDiffusionConfig:
       and the sampling chain in ``sample_dtype``. On a card ``run`` turns
       TF32 off for the process.
     - ``data_placement``: JAX's rule; ``"auto"`` keeps both splits on the device.
-    - ``use_mesh`` has no effect on one card.
+    - ``use_mesh``: data parallelism over the processes of the group that
+      ``main`` joins, as in ``experiments.diffusion``.
     """
 
     backbone: str = "mlp_unet"
@@ -261,7 +264,13 @@ def run(config: LatentDiffusionConfig) -> dict:
     ``val_seconds``, ``sample_seconds``), ``resident``, ``graph`` (the
     resident step's counts), ``qsample_launches`` (the kernel's launches in
     the ``train`` steps and the ``eval`` passes; 0 on the CPU),
-    ``digit7_seconds`` and the final ``state``."""
+    ``digit7_seconds`` and the final ``state``. A rank left idle by the data
+    axis's gcd rule returns ``{"idle": True}``; rank 0 alone samples, logs
+    and writes."""
+    dp = make_mesh_for_batch(config.batch_size) if config.use_mesh else None
+    if dp is not None and not dp.active:
+        return {"idle": True}
+    main = is_main(dp)
     device = resolve_device(config.device)
     dtype = resolve_dtype(config.compute_dtype)
     sample_dtype = resolve_dtype(config.sample_dtype)
@@ -280,7 +289,8 @@ def run(config: LatentDiffusionConfig) -> dict:
     schedule = DiffusionSchedule.make(config.noise_schedule, config.num_timesteps).to(device)
     images_u8, labels = load_mnist_u8(config.data_root, train=True)
     xt, yt, xv, yv = train_val_split(images_u8, labels, config.val_frac, seed=config.split_seed)
-    resident = resolve_data_placement(config.data_placement, xt.nbytes + yt.nbytes, "latent")
+    resident = resolve_data_placement(config.data_placement, xt.nbytes + yt.nbytes, "latent",
+                                      config.batch_size, 1 if dp is None else dp.size)
     capturable = resident and device.type == "cuda"
     dit = config.backbone == "dit"
     steps_per_epoch = steps_per_epoch_from_split(len(xt), config.batch_size,
@@ -295,9 +305,9 @@ def run(config: LatentDiffusionConfig) -> dict:
     use_ema = config.ema_decay > 0
     state = create_train_state(model, optimizer, config.seed, ema=use_ema)
     step_options = dict(ema_decay=config.ema_decay if use_ema else None,
-                        prediction=config.prediction, compute_dtype=dtype)
+                        prediction=config.prediction, compute_dtype=dtype, dp=dp)
     eval_step = make_latent_eval_step(vae, schedule, prediction=config.prediction,
-                                      compute_dtype=dtype)
+                                      compute_dtype=dtype, dp=dp)
     if resident:
         train_data = DeviceDataset(xt, config.batch_size, seed=config.seed, device=device,
                                    labels=yt)
@@ -320,8 +330,8 @@ def run(config: LatentDiffusionConfig) -> dict:
 
     project = ("dit-latent-diffusion-mnist" if dit
                else "conditional-latent-diffusion-mnist")
-    logger = MetricsLogger(project, config.out_dir, dataclasses.asdict(config))
-    keeper = BestKeeper(config.model_save_path)
+    logger = MetricsLogger(project, config.out_dir, dataclasses.asdict(config), enabled=main)
+    keeper = BestKeeper(config.model_save_path, enabled=main)
     throughput = Throughput()
     result = {"losses": [], "val_losses": [], "samples_per_sec": 0.0, "epochs": [],
               "resident": resident, "qsample_launches": {"train": 0, "eval": 0}}
@@ -340,7 +350,7 @@ def run(config: LatentDiffusionConfig) -> dict:
                 idxs = idxs[: config.max_steps_per_epoch]
             for start in range(0, len(idxs), config.log_every):
                 chunk = idxs[start : start + config.log_every]
-                chunk_losses = train_chunk(state, chunk)
+                chunk_losses = train_chunk(state, shard(dp, chunk, dim=1))
                 losses.append(chunk_losses)
                 throughput.add(len(chunk) * config.batch_size)
                 loss_val = float(chunk_losses[0])  # syncs, once a chunk
@@ -351,7 +361,7 @@ def run(config: LatentDiffusionConfig) -> dict:
             for batch_idx, batch in enumerate(train_it.epoch(epoch)):
                 if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
                     break
-                x0, y = train_it.to_device(batch, device)
+                x0, y = train_it.to_device([shard(dp, a) for a in batch], device)
                 loss = train_step(state, x0.permute(0, 3, 1, 2), y.long())
                 losses.append(loss.view(1))
                 throughput.add(config.batch_size)
@@ -372,13 +382,13 @@ def run(config: LatentDiffusionConfig) -> dict:
             vidxs = val_data.epoch_index_batches(0)
             if config.max_steps_per_epoch:
                 vidxs = vidxs[: config.max_steps_per_epoch]
-            val_losses = resident_eval(model, epoch, vidxs)
+            val_losses = resident_eval(model, epoch, shard(dp, vidxs, dim=1))
         else:
             val_losses = []
             for batch_idx, batch in enumerate(val_it.epoch()):
                 if config.max_steps_per_epoch and batch_idx >= config.max_steps_per_epoch:
                     break
-                x0, y = val_it.to_device(batch, device)
+                x0, y = val_it.to_device([shard(dp, a) for a in batch], device)
                 key = (config.seed + 11, epoch * VAL_FOLD_STRIDE + batch_idx)
                 val_losses.append(eval_step(model, x0.permute(0, 3, 1, 2), key,
                                             y.long()).view(1))
@@ -390,11 +400,12 @@ def run(config: LatentDiffusionConfig) -> dict:
         result["val_losses"].append(avg_val_loss)
         logger.log({"epoch": epoch, "train_loss": avg_train_loss, "val_loss": avg_val_loss,
                     "train_samples_per_sec": sps, "lr": epoch_lr}, step=state.step)
-        if keeper.update(avg_val_loss, state, config=dataclasses.asdict(config), epoch=epoch):
+        if keeper.update(avg_val_loss, state, config=dataclasses.asdict(config),
+                         epoch=epoch) and main:
             print(f"Saved best model at epoch {epoch} with val loss: {avg_val_loss:.4f}")
 
         sample_seconds = None
-        if config.sample_every_epoch:
+        if config.sample_every_epoch and main:
             t0 = time.perf_counter()
             y_sample = torch.randint(0, config.num_classes, (config.n_samples,),
                                      generator=sample_gen, device=device)
@@ -409,7 +420,7 @@ def run(config: LatentDiffusionConfig) -> dict:
                                  "samples_per_sec": sps, "train_seconds": train_seconds,
                                  "val_seconds": val_seconds, "sample_seconds": sample_seconds})
 
-    if config.visualize_denoising:
+    if config.visualize_denoising and main:
         traj_fn = make_latent_trajectory_sampler(
             vae, model, schedule, 4, latent_dim, config.denoising_stride, dtype=sample_dtype,
             prediction=config.prediction, compute_dtype=dtype)
@@ -421,15 +432,17 @@ def run(config: LatentDiffusionConfig) -> dict:
                             nrow=2)
 
     # The digit-7 grid (latent_diffusion.py:450-456).
-    synchronize()
-    t0 = time.perf_counter()
-    y7 = torch.full((config.n_samples,), 7, dtype=torch.int64, device=device)
-    samples = sampler(sample_gen, params=state.ema_params, y=y7)
-    synchronize()
-    result["digit7_seconds"] = time.perf_counter() - t0
-    grid = f"{config.out_dir}/generated_digit_7.png"
-    save_image_grid(to_nhwc01(samples), grid, nrow=4, labels=[7] * config.n_samples)
-    logger.log_image("final_samples", grid, state.step)
+    result["digit7_seconds"] = None
+    if main:
+        synchronize()
+        t0 = time.perf_counter()
+        y7 = torch.full((config.n_samples,), 7, dtype=torch.int64, device=device)
+        samples = sampler(sample_gen, params=state.ema_params, y=y7)
+        synchronize()
+        result["digit7_seconds"] = time.perf_counter() - t0
+        grid = f"{config.out_dir}/generated_digit_7.png"
+        save_image_grid(to_nhwc01(samples), grid, nrow=4, labels=[7] * config.n_samples)
+        logger.log_image("final_samples", grid, state.step)
 
     result["graph"] = dict(train_chunk.counts) if resident else None
     result["state"] = state
@@ -443,6 +456,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_config_flags(parser, LatentDiffusionConfig())
     config = config_from_args(LatentDiffusionConfig, parser.parse_args(argv))
+    maybe_initialize_distributed(config.device)
     device = resolve_device(config.device)
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
     run(config)

@@ -53,7 +53,13 @@ Value parity with JAX goes through the seams instead: the step's ``eps``,
 the weight bridge (``io.from_jax``) and ``perceptual_state_dict``. The port
 has no JPEG cache: its images are the synthetic bytes, which equal what the
 JAX loader returns on a cold cache (on a warm one it returns the JPEG-95
-copy).
+copy); JAX's ``run`` here reads each record once, so it trains on those bytes.
+
+Under ``torchrun --nproc_per_node N`` the run is data-parallel over N
+processes (``parallel/``; ``--batch-size`` is the global batch, and the
+reference's batch 4 spreads over up to 4 ranks by the gcd rule): the summed
+loss and its gradients are summed over the ranks before the clip, and rank 0
+alone logs and writes.
 """
 
 from __future__ import annotations
@@ -92,6 +98,15 @@ from tinydiffusion_torch.models.vae_conv import (
 )
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import LossAccumulator, MetricsLogger
+from tinydiffusion_torch.parallel.distributed import maybe_initialize_distributed
+from tinydiffusion_torch.parallel.mesh import (
+    DataParallel,
+    global_batch,
+    is_main,
+    make_mesh_for_batch,
+    shard,
+    sync_batch_norm_,
+)
 from tinydiffusion_torch.train.trainer import (
     clip_by_global_norm_,
     keyed_normal,
@@ -110,7 +125,8 @@ class VAELaionConfig:
     - ``checkpoint_dir`` defaults under ``runs/``: the JAX default
       ``checkpoints`` would put the port's ``vae_laion_best.npz`` over the
       committed JAX weights.
-    - ``use_mesh`` has no effect on one card.
+    - ``use_mesh``: data parallelism over the processes of the group that
+      ``main`` joins, as in ``experiments.diffusion``.
     - ``hidden_channels``, ``image_cache_dir`` and ``failed_urls_cache``
       have no effect: the JAX model ignores the first too, and the port
       makes its images in memory, with no cache.
@@ -226,7 +242,8 @@ def make_optimizer(model: ConvVAE, learning_rate: float,
                             capturable=capturable)
 
 
-def _conv_vae_step_body(perceptual: PerceptualNet, beta: float, clip_norm: float):
+def _conv_vae_step_body(perceptual: PerceptualNet, beta: float, clip_norm: float,
+                        dp: DataParallel | None = None):
     """``body(state, x, eps=None) -> (loss, components)``: one step's device
     work (JAX's ``_conv_vae_raw_step``), without the host's ``state.step``
     count, so that a CUDA graph can capture it."""
@@ -234,23 +251,35 @@ def _conv_vae_step_body(perceptual: PerceptualNet, beta: float, clip_norm: float
     def body(state: ConvVAETrainState, x: torch.Tensor, eps: torch.Tensor | None = None):
         model = state.model
         model.train()
+        sync_batch_norm_(model, dp)
         if eps is None:
-            eps = torch.randn(x.shape[0], model.latent_dim, generator=state.generator,
-                              device=x.device)
-        recon, mu, logvar = model(x, eps)
+            eps = torch.randn(global_batch(dp, x.shape[0]), model.latent_dim,
+                              generator=state.generator, device=x.device)
+        recon, mu, logvar = model(x, shard(dp, eps))
         total, components = conv_vae_loss(recon, x, mu, logvar, perceptual(recon),
                                           perceptual(x), beta)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        total = total.detach()
+        components = {k: v.detach() for k, v in components.items()}
+        if dp is not None:
+            # Sums over the batch: the gradients, the loss and its sums are
+            # summed over the ranks before the clip; the maxima maximised.
+            total, *sums = dp.all_reduce_grads_(
+                model.parameters(), total, *(components[k] for k in SUM_COMPONENTS), op="sum")
+            maxima = dp.all_reduce_(torch.stack([components[k] for k in MAX_COMPONENTS]), "max")
+            components = {**dict(zip(SUM_COMPONENTS, sums)),
+                          **dict(zip(MAX_COMPONENTS, maxima.unbind()))}
         if clip_norm:
             clip_by_global_norm_(model.parameters(), clip_norm)
         state.optimizer.step()
-        return total.detach(), {k: v.detach() for k, v in components.items()}
+        return total, components
 
     return body
 
 
-def make_conv_vae_train_step(perceptual: PerceptualNet, beta: float, clip_norm: float = 10.0):
+def make_conv_vae_train_step(perceptual: PerceptualNet, beta: float, clip_norm: float = 10.0,
+                             dp: DataParallel | None = None):
     """The train step ``step(state, x, eps=None) -> (loss, components)``
     (JAX's ``_conv_vae_raw_step`` / ``make_conv_vae_train_step``).
 
@@ -260,9 +289,11 @@ def make_conv_vae_train_step(perceptual: PerceptualNet, beta: float, clip_norm: 
     BN statistics and spectral-norm vectors (in its train-mode forward) and
     the step. ``eps`` (B, latent_dim), when given, replaces the step's own
     draw from ``state.generator``: the seam the tests use to give the port
-    JAX's noise. The loss and components come back as device tensors.
+    JAX's noise. The loss and components come back as device tensors. Under
+    ``dp`` (``train.trainer``'s rules) ``x`` is this rank's rows, ``eps``
+    the global batch's, and the loss and components the global batch's.
     """
-    body = _conv_vae_step_body(perceptual, beta, clip_norm)
+    body = _conv_vae_step_body(perceptual, beta, clip_norm, dp)
 
     def step(state: ConvVAETrainState, x: torch.Tensor, eps: torch.Tensor | None = None):
         out = body(state, x, eps)
@@ -272,12 +303,16 @@ def make_conv_vae_train_step(perceptual: PerceptualNet, beta: float, clip_norm: 
     return step
 
 
-# The loss components a step returns beside its loss.
-COMPONENTS = ("bce", "perceptual", "kld", "logvar_max", "mu_absmax")
+# The loss components a step returns beside its loss: sums over the batch,
+# then maxima.
+SUM_COMPONENTS = ("bce", "perceptual", "kld")
+MAX_COMPONENTS = ("logvar_max", "mu_absmax")
+COMPONENTS = SUM_COMPONENTS + MAX_COMPONENTS
 
 
 def make_conv_vae_resident_step(perceptual: PerceptualNet, beta: float, clip_norm: float,
-                                dataset: DeviceDataset) -> Callable:
+                                dataset: DeviceDataset,
+                                dp: DataParallel | None = None) -> Callable:
     """Training over the resident image set (JAX's
     ``make_conv_vae_resident_step``): ``step(state, idxs, eps=None) ->
     (losses, components)``, ``losses`` (K,) and each of ``COMPONENTS`` (K,)
@@ -288,7 +323,7 @@ def make_conv_vae_resident_step(perceptual: PerceptualNet, beta: float, clip_nor
     spectral norms' ``u`` and ``sigma``, the BN statistics and the z draw
     from the state's generator are inside it). On the CPU ``eps`` (K, B,
     latent_dim) may replace the draws."""
-    body = _conv_vae_step_body(perceptual, beta, clip_norm)
+    body = _conv_vae_step_body(perceptual, beta, clip_norm, dp)
 
     def batch_step(state, x: torch.Tensor, eps=None):
         return body(state, x.permute(0, 3, 1, 2).contiguous(), eps)
@@ -296,10 +331,12 @@ def make_conv_vae_resident_step(perceptual: PerceptualNet, beta: float, clip_nor
     return make_resident_steps(dataset, batch_step, outputs=COMPONENTS)
 
 
-def make_conv_vae_eval_step(perceptual: PerceptualNet, beta: float):
+def make_conv_vae_eval_step(perceptual: PerceptualNet, beta: float,
+                            dp: DataParallel | None = None):
     """``eval_step(model, x, eps) -> (loss, recon)`` with the model in eval
     mode (running BN statistics, no spectral-norm update), as JAX's
-    ``make_conv_vae_eval_step``."""
+    ``make_conv_vae_eval_step``. Under ``dp`` ``x`` and ``eps`` are this
+    rank's rows and the loss is summed over the ranks."""
 
     @torch.no_grad()
     def eval_step(model: ConvVAE, x: torch.Tensor, eps: torch.Tensor):
@@ -311,7 +348,7 @@ def make_conv_vae_eval_step(perceptual: PerceptualNet, beta: float):
                                      beta)
         finally:
             model.train(was_training)
-        return total, recon
+        return (total if dp is None else dp.all_reduce_(total, "sum")), recon
 
     return eval_step
 
@@ -363,8 +400,13 @@ def run(config: VAELaionConfig) -> dict:
     ``test_losses`` (per epoch), ``epochs`` (per epoch: ``train_seconds``,
     ``images_per_sec``, ``steps``), ``resident``, ``graph`` (the resident
     step's counts of eager steps, captures and replays; None on the host
-    path) and the final ``state``."""
+    path) and the final ``state``. A rank left idle by the data axis's gcd
+    rule returns ``{"idle": True}``."""
     _check_config(config)
+    dp = make_mesh_for_batch(config.batch_size) if config.use_mesh else None
+    if dp is not None and not dp.active:
+        return {"idle": True}
+    main = is_main(dp)
     device = resolve_device(config.device)
     if device.type == "cuda":
         disable_tf32()
@@ -377,13 +419,20 @@ def run(config: VAELaionConfig) -> dict:
     model = model.to(device)
     perceptual = _perceptual_net(config).to(device)
     train_images, val_images = split_train_val(load_images(config))
-    resident = resolve_data_placement(config.data_placement, train_images.nbytes, "vae_laion")
+    resident = resolve_data_placement(config.data_placement, train_images.nbytes, "vae_laion",
+                                      config.batch_size, 1 if dp is None else dp.size)
     # A captured step needs Adam's step count on the device.
     optimizer = make_optimizer(model, config.learning_rate,
                                capturable=resident and device.type == "cuda")
     state = create_train_state(model, optimizer, config.seed)
-    eval_step = make_conv_vae_eval_step(perceptual, config.beta)
+    eval_step = make_conv_vae_eval_step(perceptual, config.beta, dp)
+    panel_step = make_conv_vae_eval_step(perceptual, config.beta)  # rank 0's, alone
     b = config.batch_size
+
+    def val_eps(key, rows: int) -> torch.Tensor:
+        """A val batch's noise: the global batch's, this rank's rows."""
+        return shard(dp, keyed_normal(key, (global_batch(dp, rows), config.latent_dim), device))
+
     u8 = (1.0 / 255.0, 0.0)  # ToTensor: [0, 1]
     val_it = BatchIterator([val_images], b, shuffle=False, u8_normalize=u8)
     resident_eval = None
@@ -397,15 +446,14 @@ def run(config: VAELaionConfig) -> dict:
         train_data = DeviceDataset(train_images[nonzero], b, seed=config.seed, device=device,
                                    u8_normalize=u8)
         train_chunk = make_conv_vae_resident_step(perceptual, config.beta, config.clip_norm,
-                                                  train_data)
+                                                  train_data, dp)
         # The val split on the device too when no all-zero batch would be
         # skipped, so that the resident pass sees the host pass's batches.
         if val_images.reshape(len(val_images), -1).any(axis=1).all():
             val_data = DeviceDataset(val_images, b, device=device, shuffle=False,
                                      u8_normalize=u8)
             resident_eval = make_resident_eval(
-                lambda m, x, key: eval_step(m, x.contiguous(), keyed_normal(
-                    key, (len(x), config.latent_dim), device))[0],
+                lambda m, x, key: eval_step(m, x.contiguous(), val_eps(key, len(x)))[0],
                 val_data, config.seed + 5, VAL_FOLD_STRIDE)
         else:
             print("val split contains all-zero images; keeping the host-streamed val pass "
@@ -413,19 +461,21 @@ def run(config: VAELaionConfig) -> dict:
     else:
         train_it = BatchIterator([train_images], b, shuffle=True, seed=config.seed,
                                  u8_normalize=u8)
-        train_step = make_conv_vae_train_step(perceptual, config.beta, config.clip_norm)
+        train_step = make_conv_vae_train_step(perceptual, config.beta, config.clip_norm, dp)
 
-    def to_nchw(batch) -> torch.Tensor:
-        (x,) = val_it.to_device(batch, device)
+    def to_nchw(batch, rows=True) -> torch.Tensor:
+        """A global batch on the device, NCHW: this rank's rows, or all of
+        them with ``rows=False``."""
+        (x,) = val_it.to_device([shard(dp, a) if rows else a for a in batch], device)
         return x.permute(0, 3, 1, 2).contiguous()
 
     def synchronize():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    logger = MetricsLogger("vae_laion", config.out_dir, dataclasses.asdict(config))
+    logger = MetricsLogger("vae_laion", config.out_dir, dataclasses.asdict(config), enabled=main)
     ckpt_path = f"{config.checkpoint_dir}/vae_laion_best"
-    keeper = BestKeeper(ckpt_path)
+    keeper = BestKeeper(ckpt_path, enabled=main)
     result = {"test_losses": [], "epochs": [], "resident": resident}
 
     start_epoch = 1
@@ -467,7 +517,7 @@ def run(config: VAELaionConfig) -> dict:
             pending = None
             for start in range(0, len(idxs), config.log_interval):
                 chunk = idxs[start : start + config.log_interval]
-                losses, comps = train_chunk(state, chunk)
+                losses, comps = train_chunk(state, shard(dp, chunk, dim=1))
                 train_acc.add(losses)
                 for k in COMPONENTS:  # every step's, for the epoch maxima
                     comp_acc[k].add(comps[k])
@@ -488,7 +538,7 @@ def run(config: VAELaionConfig) -> dict:
                 # 256x256 recipe's blow-ups land between log points.
                 for k, v in components.items():
                     comp_acc[k].add(v)
-                n_seen += len(x)
+                n_seen += global_batch(dp, len(x))
                 if batch_idx % config.log_interval == 0:
                     comp = {k: float(v) for k, v in components.items()}  # syncs, log points only
                     log_batch(epoch, batch_idx, state.step - 1, float(loss), comp)
@@ -507,15 +557,15 @@ def run(config: VAELaionConfig) -> dict:
             if config.max_steps_per_epoch:
                 vidxs = vidxs[: config.max_steps_per_epoch]
             if len(vidxs):
-                test_acc.add(resident_eval(model, epoch, vidxs))
+                test_acc.add(resident_eval(model, epoch, shard(dp, vidxs, dim=1)))
                 test_sizes = [b] * len(vidxs)
             # The panel from one streamed first batch: the pass returns losses only.
-            first = next(iter(val_it.epoch()), None)
+            first = next(iter(val_it.epoch()), None) if main else None
             if first is not None:
-                x = to_nchw(first)
+                x = to_nchw(first, rows=False)
                 key = (config.seed + 5, epoch * VAL_FOLD_STRIDE)
-                _, recon = eval_step(model, x, keyed_normal(key, (len(x), config.latent_dim),
-                                                            device))
+                _, recon = panel_step(model, x, keyed_normal(key, (len(x), config.latent_dim),
+                                                             device))
                 panel = (x, recon)
         else:
             for i, batch in enumerate(_nonzero_batches(val_it.epoch())):
@@ -523,13 +573,12 @@ def run(config: VAELaionConfig) -> dict:
                     break
                 x = to_nchw(batch)
                 key = (config.seed + 5, epoch * VAL_FOLD_STRIDE + i)
-                loss, recon = eval_step(model, x, keyed_normal(
-                    key, (len(x), config.latent_dim), device))
+                loss, recon = eval_step(model, x, val_eps(key, len(x)))
                 test_acc.add(loss)
-                test_sizes.append(len(x))
+                test_sizes.append(global_batch(dp, len(x)))
                 if i == 0:
                     panel = (x, recon)
-        if panel is not None:
+        if panel is not None and main:  # rank 0's rows lead the first batch
             x, recon = panel
             n_img = min(config.n_images_to_log, len(x))
             grid = np.concatenate([_nhwc(x[:n_img]), _nhwc(recon[:n_img])], axis=0)
@@ -557,16 +606,18 @@ def run(config: VAELaionConfig) -> dict:
         logger.log({"epoch": epoch, "train_loss": avg_train, "test_loss": avg_test,
                     "eval_nonfinite_batches": eval_bad, "train_images_per_sec": images_per_sec,
                     **comp_max}, step=state.step)
-        if keeper.update(avg_test, state, config=dataclasses.asdict(config), epoch=epoch):
+        if keeper.update(avg_test, state, config=dataclasses.asdict(config),
+                         epoch=epoch) and main:
             print(f"Saved best model (epoch {epoch}, loss {avg_test:.4f})")
 
     # Final samples (vae_laion.py:465-477), from the live weights.
-    model.eval()
-    samples = sample_prior(model, 16, torch.Generator(device).manual_seed(config.seed + 2))
-    model.train()
-    samples_path = f"{config.out_dir}/generated_samples.png"
-    save_image_grid(_nhwc(samples), samples_path, nrow=4, normalize=False)
-    logger.log_image("generated_samples", samples_path)
+    if main:
+        model.eval()
+        samples = sample_prior(model, 16, torch.Generator(device).manual_seed(config.seed + 2))
+        model.train()
+        samples_path = f"{config.out_dir}/generated_samples.png"
+        save_image_grid(_nhwc(samples), samples_path, nrow=4, normalize=False)
+        logger.log_image("generated_samples", samples_path)
     result["graph"] = dict(train_chunk.counts) if resident else None
     result["state"] = state
     logger.finish()
@@ -613,6 +664,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_config_flags(parser, VAELaionConfig())
     config = config_from_args(VAELaionConfig, parser.parse_args(argv))
+    maybe_initialize_distributed(config.device)
     device = resolve_device(config.device)
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
     run(config)

@@ -135,10 +135,12 @@ class BestKeeper:
     """Save a checkpoint whenever the metric falls below its best so far,
     with the metric and the caller's keywords (``epoch``) in the sidecar's
     ``metadata``: ``BestKeeper`` of ``tinydiffusion_tpu/io/checkpoint.py``
-    in its ``mode="min"``, the only one its callers use."""
+    in its ``mode="min"``, the only one its callers use. ``enabled=False``
+    (a data-parallel rank other than 0) keeps the best but writes nothing."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, enabled: bool = True):
         self.path = path
+        self.enabled = enabled
         self.best: float | None = None
 
     def update(
@@ -148,6 +150,7 @@ class BestKeeper:
         better = self.best is None or metric < self.best
         if better:
             self.best = metric
+        if better and self.enabled:
             save_checkpoint(self.path, state, config=config,
                             metadata={"metric": metric, **metadata})
         return better

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tinydiffusion_torch.parallel.mesh import all_reduce_sum
+
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum() + eps)
@@ -82,15 +84,52 @@ class SpectralNorm(nn.Module):
         return F.conv2d(x, weight, bias, layer.stride, layer.padding)
 
 
+def _move_running_stats(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor,
+                        var: torch.Tensor) -> None:
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+
+
 def _flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                      dims: tuple[int, ...]) -> torch.Tensor:
     """Train mode: normalise over ``dims`` with the batch statistics and move
-    the running ones flax's way (see ``BatchNorm2d``)."""
+    the running ones flax's way (see ``BatchNorm2d``). Under data
+    parallelism (``bn.data_parallel``) the batch is the global one."""
+    if bn.data_parallel is not None:
+        return _global_batch_norm(bn, x, dims, bn.data_parallel)
     with torch.no_grad():
         var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
-        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
-        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+    _move_running_stats(bn, mean, var)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def _global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                       dims: tuple[int, ...], dp) -> torch.Tensor:
+    """``_flax_batch_norm`` over the group's global batch, as flax's
+    BatchNorm under GSPMD: the per-channel sum and sum of squares of the
+    float32 input are summed over the group in one collective, and the mean
+    and biased variance ``E[x^2] - E[x]^2`` (flax's fast variance, floored at
+    0) of the global batch normalise ``x`` and move the running statistics.
+    The sums accumulate in float64: in float32 the difference loses a few
+    ulps of the variance where the mean is large (4 ulps on a variance of
+    391 in the small UNet28's decoder), where one process's two-pass
+    ``var_mean`` loses none. The sum is differentiable across ranks
+    (``parallel.mesh.all_reduce_sum``), so the backward carries the
+    statistics' gradient terms of every rank's loss."""
+    xf = x.float()
+    c = xf.shape[1]
+    count = xf.numel() // c * dp.size
+    sums = all_reduce_sum(torch.cat([xf.sum(dims, dtype=torch.float64),
+                                     (xf * xf).sum(dims, dtype=torch.float64)]), dp)
+    mean64 = sums[:c] / count
+    var = torch.clamp(sums[c:] / count - mean64 * mean64, min=0.0).float()
+    mean = mean64.float()
+    _move_running_stats(bn, mean.detach(), var.detach())
+    shape = [1, c] + [1] * (xf.dim() - 2)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (xf - mean.view(shape)) * scale.view(shape) + bn.bias.float().view(shape)
+    return y.to(x.dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -112,6 +151,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     output comes back in bfloat16, as flax's does.
     """
 
+    # The data axis whose global batch train mode normalises over
+    # (``parallel.mesh.sync_batch_norm_``); None: this process's batch.
+    data_parallel = None
+
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
@@ -124,6 +167,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 class BatchNorm1d(nn.BatchNorm1d):
     """``BatchNorm2d``'s flax statistics over (B, C) features: the MLP UNet's
     ``Dense -> BatchNorm`` blocks."""
+
+    data_parallel = None  # as BatchNorm2d's
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)

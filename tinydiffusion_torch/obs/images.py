@@ -10,10 +10,10 @@ converts and resizes images with Pillow's own integer arithmetic:
 - labels: the JAX grid draws each tile's label at ``(left + 1, top + 1)``
   in ``(255, 64, 64)`` with PIL's default font (FreeType's Aileron at size
   10 in Pillow >= 10.1). ``obs/font.py`` holds that font's anti-aliased
-  coverage of each printable ASCII character, and ``draw_label`` composes a
-  string and blends it as Pillow does, so a labelled grid's pixels equal the
-  JAX grid's byte for byte (digits and the LAION prompts alike). A
-  character outside printable ASCII raises: the table does not hold it;
+  coverage of every glyph it holds and of its missing-glyph box, and
+  ``draw_label`` composes a string and blends it as Pillow does, so a
+  labelled grid's pixels equal the JAX grid's byte for byte (digits and any
+  prompt alike: a character the font lacks is drawn as Pillow's box);
 - ``to_grey``: Pillow's ``convert("L")``, ``(R 19595 + G 38470 + B 7471 +
   2^15) >> 16`` (its fixed-point ITU-R 601-2 luma), alpha dropped;
   ``to_rgb``: its ``convert("RGB")``, grey repeated, alpha dropped;
@@ -32,7 +32,7 @@ import zlib
 
 import numpy as np
 
-from tinydiffusion_torch.obs.font import GLYPHS
+from tinydiffusion_torch.obs.font import GLYPHS, MISSING_GLYPH
 
 _LABEL_FILL = np.array([255, 64, 64], np.int64)
 
@@ -45,11 +45,9 @@ def _div255(v: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _glyph(ch: str) -> tuple[int, int, int, np.ndarray]:
-    """(left, top, advance, coverage (h, w) int64) of a printable ASCII character."""
-    if ch not in GLYPHS:
-        raise ValueError(f"cannot draw {ch!r}: the label font holds printable ASCII "
-                         "(32-126) only")
-    left, top, advance, hex_rows = GLYPHS[ch]
+    """(left, top, advance, coverage (h, w) int64) of a character: its glyph,
+    or the font's missing-glyph box."""
+    left, top, advance, hex_rows = GLYPHS.get(ch, MISSING_GLYPH)
     rows = hex_rows.split()
     width = len(rows[0]) // 2 if rows else 0
     cov = np.array([[int(r[i : i + 2], 16) for i in range(0, len(r), 2)] for r in rows],
@@ -82,11 +80,22 @@ def _text_mask(text: str) -> tuple[np.ndarray, int, int]:
     return mask, x0, y0
 
 
+# Pillow's line spacing for multiline text in the label font: the bottom of
+# "A" (its top at 2, 8 rows) plus its default spacing of 4.
+_LINE_SPACING = 14
+
+
 def draw_label(pixels: np.ndarray, x: int, y: int, text: str) -> None:
-    """Draw ``text`` (printable ASCII) in (255, 64, 64) into RGB uint8
-    ``pixels`` (H, W, 3) in place, at text origin (x, y), clipped to the
-    image: each pixel becomes ``(bg (255 - m) + fill m) / 255`` rounded as
-    Pillow's ``DIV255``, for the text's coverage m (``_text_mask``)."""
+    """Draw ``text`` in (255, 64, 64) into RGB uint8 ``pixels`` (H, W, 3) in
+    place, at text origin (x, y), clipped to the image: each pixel becomes
+    ``(bg (255 - m) + fill m) / 255`` rounded as Pillow's ``DIV255``, for
+    the text's coverage m (``_text_mask``). A newline starts a line
+    ``_LINE_SPACING`` lower, left-aligned, as Pillow's multiline text."""
+    lines = text.split("\n")
+    if len(lines) > 1:
+        for i, line in enumerate(lines):
+            draw_label(pixels, x, y + i * _LINE_SPACING, line)
+        return
     m, dx, dy = _text_mask(text)
     h, w = pixels.shape[:2]
     top, left = y + dy, x + dx

@@ -28,18 +28,26 @@ class MetricsLogger:
         run_dir: str = "runs",
         config: Mapping[str, Any] | None = None,
         quiet: bool = False,
+        enabled: bool = True,
     ):
+        """``enabled=False`` (a data-parallel rank other than 0) writes and
+        prints nothing."""
         self.project = project
         self.run_dir = os.path.join(run_dir, project)
-        os.makedirs(self.run_dir, exist_ok=True)
+        self.enabled = enabled
         self.quiet = quiet
         self._t0 = time.time()
+        if not enabled:
+            return
+        os.makedirs(self.run_dir, exist_ok=True)
         self._jsonl = open(os.path.join(self.run_dir, "metrics.jsonl"), "a")
         if config:
             with open(os.path.join(self.run_dir, "config.json"), "w") as f:
                 json.dump(dict(config), f, indent=2, default=str)
 
     def log(self, metrics: Mapping[str, Any], step: int | None = None) -> None:
+        if not self.enabled:
+            return
         scalars = {k: (float(v) if hasattr(v, "__float__") else v) for k, v in metrics.items()}
         record = {"t": round(time.time() - self._t0, 3), **scalars}
         if step is not None:
@@ -55,7 +63,8 @@ class MetricsLogger:
         self.log({key: path}, step=step)
 
     def finish(self) -> None:
-        self._jsonl.close()
+        if self.enabled:
+            self._jsonl.close()
 
 
 class Throughput:

@@ -92,7 +92,7 @@ def build() -> Build:
     return Build(lib, seconds, log)
 
 
-_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+_P, _I, _U32, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint64
 
 # The ctypes signature of every ``extern "C"`` function in ``csrc/``. Each
 # returns an int: a launcher its launch's cudaError_t. Without argtypes ctypes would
@@ -114,8 +114,9 @@ SIGNATURES: dict[str, tuple] = {
     "tdt_flash_fwd_bf16_smem_bytes": (_I, _I),
     "tdt_flash_bwd_bf16_smem_bytes": (_I, _I),
     # x0, t, sqrt_abar, sqrt_1m_abar, xt, z, batch, feat, num_timesteps, seed_ptr
-    # (device int64, or null for the next argument), seed, stream
-    "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _U64, _P),
+    # (device int64, or null for the next argument), seed, row_offset (the
+    # global index of the first row: the Philox counter's row), stream
+    "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _U64, _U32, _P),
 }
 
 _lib: ctypes.CDLL | None = None

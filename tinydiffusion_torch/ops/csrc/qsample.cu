@@ -10,7 +10,10 @@
 // kernel computes a counter-based Philox4x32-10 (Salmon et al., SC'11,
 // the Random123 constants). Its key is a 64-bit seed and its counter is
 // (element group, row, 0, 0): every row has its own stream, as `seed + row`
-// gives on the TPU, and a run is a pure function of (seed, shape). One
+// gives on the TPU, and a run is a pure function of (seed, shape). The row
+// is the global one: a launch on rows [r, r + b) of a data-parallel batch
+// passes row_offset = r and draws exactly those rows of the global launch's
+// noise (t and the buffers are indexed by the local row). One
 // Philox call gives 4 uint32 for the 4 elements of one group. Each becomes a
 // uniform in (0, 1] with the JAX kernel's rule (the top 24 bits times 2^-24,
 // plus 2^-25, never 0), and Box-Muller turns the two pairs into 4 normals,
@@ -97,7 +100,7 @@ qsample_f32_kernel(const float* __restrict__ x0, const int64_t* __restrict__ t,
                    const float* __restrict__ sac, const float* __restrict__ s1m,
                    float* __restrict__ xt, float* __restrict__ z, uint32_t groups,
                    uint32_t groups_per_row, int feat, bool vec4, int num_timesteps,
-                   const int64_t* __restrict__ seed_ptr, uint2 key) {
+                   const int64_t* __restrict__ seed_ptr, uint2 key, uint32_t row_offset) {
   const uint32_t gid = blockIdx.x * kThreads + threadIdx.x;
   if (gid >= groups) return;
   const uint32_t row = gid / groups_per_row;
@@ -115,7 +118,7 @@ qsample_f32_kernel(const float* __restrict__ x0, const int64_t* __restrict__ t,
   const float a = sac[tr];
   const float b = s1m[tr];
 
-  const uint4 bits = philox4x32_10(make_uint4(group, row, 0u, 0u), key);
+  const uint4 bits = philox4x32_10(make_uint4(group, row + row_offset, 0u, 0u), key);
   const float2 n01 = box_muller(bits.x, bits.y);
   const float2 n23 = box_muller(bits.z, bits.w);
 
@@ -142,12 +145,13 @@ qsample_f32_kernel(const float* __restrict__ x0, const int64_t* __restrict__ t,
 
 // x0 (batch, feat) float32, t (batch,) int64, sac/s1m (num_timesteps,)
 // float32 -> xt, z (batch, feat) float32. The key is the int64 at seed_ptr
-// (device memory) or, when seed_ptr is null, `seed`. Returns the launch's
-// cudaError_t.
+// (device memory) or, when seed_ptr is null, `seed`; the noise of local row i
+// is the stream's row row_offset + i. Returns the launch's cudaError_t.
 extern "C" int tdt_qsample_f32(const float* x0, const int64_t* t, const float* sac,
                                const float* s1m, float* xt, float* z, int batch,
                                int feat, int num_timesteps, const int64_t* seed_ptr,
-                               unsigned long long seed, cudaStream_t stream) {
+                               unsigned long long seed, unsigned int row_offset,
+                               cudaStream_t stream) {
   if (batch <= 0 || feat <= 0) return 0;
   const uint64_t groups_per_row = (static_cast<uint64_t>(feat) + 3) / 4;
   const uint64_t groups = static_cast<uint64_t>(batch) * groups_per_row;
@@ -159,6 +163,7 @@ extern "C" int tdt_qsample_f32(const float* x0, const int64_t* t, const float* s
   const bool vec4 = (feat & 3) == 0 && (bases & 15) == 0;
   qsample_f32_kernel<<<blocks, kThreads, 0, stream>>>(
       x0, t, sac, s1m, xt, z, static_cast<uint32_t>(groups),
-      static_cast<uint32_t>(groups_per_row), feat, vec4, num_timesteps, seed_ptr, key);
+      static_cast<uint32_t>(groups_per_row), feat, vec4, num_timesteps, seed_ptr, key,
+      row_offset);
   return static_cast<int>(cudaGetLastError());
 }

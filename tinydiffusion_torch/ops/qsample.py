@@ -18,6 +18,13 @@ counter (element group, row, 0, 0), one call per 4 elements of a row; each
 uint32 becomes a uniform in (0, 1] by the JAX kernel's rule, and Box-Muller
 turns the pairs into normals (cosine, then sine). So the kernel can be held
 against the plain version value for value.
+
+``row_offset`` numbers the rows from there: a call on rows ``[r, r + b)`` of
+a global batch with ``row_offset=r`` draws exactly those rows of the global
+call's noise. That is how a data-parallel step draws its shard (see
+``parallel/mesh.py``). JAX's fused q_sample refuses a multi-device mesh,
+because its stream is tied to the launch; this counter-based stream is tied
+to the global row, so the sharded draw is exact and the port does not refuse.
 """
 
 from __future__ import annotations
@@ -80,12 +87,14 @@ def _box_muller(bits_r: torch.Tensor, bits_theta: torch.Tensor):
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
-def _fused_noise(batch: int, feat: int, seed: int, device: torch.device) -> torch.Tensor:
-    """The kernel's noise for ``batch`` rows of ``feat`` elements: (batch, feat)
-    float32 from the Philox stream of ``seed``, computed with torch ops."""
+def _fused_noise(batch: int, feat: int, seed: int, device: torch.device,
+                 row_offset: int = 0) -> torch.Tensor:
+    """The kernel's noise for ``batch`` rows of ``feat`` elements, numbered
+    from ``row_offset``: (batch, feat) float32 from the Philox stream of
+    ``seed``, computed with torch ops."""
     groups = -(-feat // 4)
     g = torch.arange(groups, dtype=torch.int64, device=device)[None, :]
-    row = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    row = torch.arange(row_offset, row_offset + batch, dtype=torch.int64, device=device)[:, None]
     zero = torch.zeros((), dtype=torch.int64, device=device)
     bits = philox4x32_10((g, row, zero, zero), (seed & _MASK32, (seed >> 32) & _MASK32))
     z0, z1 = _box_muller(bits[0], bits[1])
@@ -100,6 +109,14 @@ def _check_seed(seed: int) -> int:
     return seed
 
 
+def _check_row_offset(row_offset: int, batch: int) -> int:
+    row_offset = int(row_offset)
+    if row_offset < 0 or row_offset + batch > 2**32:
+        raise ValueError(f"rows {row_offset}..{row_offset + batch} do not fit the kernel's "
+                         "32-bit row counter")
+    return row_offset
+
+
 def _tensor_seed(seed: torch.Tensor) -> torch.Tensor:
     if seed.shape != () or seed.dtype != torch.int64:
         raise ValueError(f"a tensor seed must be a 0-d int64 tensor, not {seed.dtype} "
@@ -108,17 +125,20 @@ def _tensor_seed(seed: torch.Tensor) -> torch.Tensor:
 
 
 def q_sample_fused_reference(
-    schedule: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor, seed: int | torch.Tensor
+    schedule: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor, seed: int | torch.Tensor,
+    row_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: ``(x_t, noise)``, float32, shaped like x_0.
     A tensor ``seed`` is read as the kernel reads it: its int64 bits are the
-    64-bit key (reading it syncs)."""
+    64-bit key (reading it syncs). The rows' noise is drawn as rows
+    ``row_offset ..`` of the stream."""
     if isinstance(seed, torch.Tensor):
         seed = int(_tensor_seed(seed)) & 0xFFFFFFFFFFFFFFFF
     seed = _check_seed(seed)
     b = x_0.shape[0]
+    row_offset = _check_row_offset(row_offset, b)
     x2 = x_0.reshape(b, -1).to(torch.float32)
-    z = _fused_noise(b, x2.shape[1], seed, x2.device)
+    z = _fused_noise(b, x2.shape[1], seed, x2.device, row_offset)
     # Out-of-range timesteps clamp, as in the kernel (and a JAX gather).
     tc = t.to(torch.int64).clamp(0, schedule.num_timesteps - 1)
     sac = schedule.sqrt_alphas_cumprod[tc][:, None]
@@ -128,7 +148,8 @@ def q_sample_fused_reference(
 
 
 def q_sample_fused(
-    schedule: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor, seed: int | torch.Tensor
+    schedule: DiffusionSchedule, x_0: torch.Tensor, t: torch.Tensor, seed: int | torch.Tensor,
+    row_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused ``(x_t, noise)``, float32, shaped like ``x_0`` (B, ...).
 
@@ -139,7 +160,8 @@ def q_sample_fused(
     ``seed`` is a Python int in [0, 2^64) or, as JAX's ``seed`` may be an
     array, a 0-d int64 tensor on ``x_0``'s device whose bits the kernel reads
     there: a step captured in a CUDA graph draws it on the device, so each
-    replay noises with a new seed.
+    replay noises with a new seed. ``row_offset`` is the global index of
+    ``x_0``'s first row (a data-parallel shard's; 0 otherwise).
 
     The checks are the cheap ones that keep a launch from reading out of
     bounds; nothing here reads a device value. A launch while the current
@@ -151,7 +173,7 @@ def q_sample_fused(
     device = x_0.device
     if device.type != "cuda":
         if device.type == "cpu":
-            return q_sample_fused_reference(schedule, x_0, t, seed)
+            return q_sample_fused_reference(schedule, x_0, t, seed, row_offset)
         raise ValueError(f"q_sample_fused runs on cuda or cpu tensors, not {device}")
     if isinstance(seed, torch.Tensor):
         if seed.device != device:
@@ -166,6 +188,7 @@ def q_sample_fused(
     if not x_0.is_contiguous():
         raise ValueError("the CUDA q_sample kernel takes a contiguous x_0")
     b = x_0.shape[0]
+    row_offset = _check_row_offset(row_offset, b)
     if t.shape != (b,) or t.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"t must be an integer tensor of shape ({b},), not {t.dtype} "
                          f"{tuple(t.shape)}")
@@ -190,7 +213,8 @@ def q_sample_fused(
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _build.library().tdt_qsample_f32(
             x_0.data_ptr(), t.data_ptr(), sac.data_ptr(), s1m.data_ptr(), xt.data_ptr(),
-            z.data_ptr(), b, feat, schedule.num_timesteps, seed_ptr, seed_value, stream)
+            z.data_ptr(), b, feat, schedule.num_timesteps, seed_ptr, seed_value, row_offset,
+            stream)
     if rc != 0:
         raise RuntimeError(f"q_sample kernel launch failed: cudaError {rc}")
     if torch.cuda.is_current_stream_capturing():

@@ -26,6 +26,19 @@ device, as JAX draws them from the step's keys, and the loss comes back as a
 device tensor. So a step reads nothing from the host that changes between
 steps, and the resident step on a card runs as one CUDA graph, captured once
 and replayed (``make_resident_steps``, which any per-batch step can use).
+
+Every step and eval step takes ``dp``, the data axis
+(``parallel.mesh.DataParallel``; None is one device), and then computes the
+one-device step on the global batch, as JAX's step does under GSPMD: the
+step is given this rank's rows; it draws t, the label or caption dropout,
+the reparameterising noise, the DiT's dropout masks and the SD codec's
+Gaussian for the global batch from the generator (seeded alike on every
+rank) and keeps its rows (a seam, when given, is the global batch's value
+too); the fused q_sample draws its rows of the global stream
+(``row_offset``); the BatchNorms normalise with the global statistics
+(``parallel.mesh.sync_batch_norm_``); and the gradients and the loss are
+reduced over the group in one collective before the clip and the optimizer.
+On a card the collectives are captured in the step's CUDA graph.
 """
 
 from __future__ import annotations
@@ -44,6 +57,13 @@ from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.io.from_jax import jax_variables
 from tinydiffusion_torch.ops import attention, qsample
 from tinydiffusion_torch.ops.qsample import q_sample_fused
+from tinydiffusion_torch.parallel.mesh import (
+    DataParallel,
+    global_batch,
+    row_offset,
+    shard,
+    sync_batch_norm_,
+)
 
 
 @dataclasses.dataclass
@@ -180,6 +200,7 @@ def _step_body(
     conditional: bool = False,
     label_dropout: float = 0.0,
     null_label: int | None = None,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """``body(state, x0, y=None, t=None, noise=None, keep=None) -> loss``:
     one step's device work, without the host's ``state.step`` count, so that
@@ -195,28 +216,30 @@ def _step_body(
              keep=None):
         model = state.model
         model.train()
+        sync_batch_norm_(model, dp)
         if conditional and y is None:
             raise ValueError("a conditional step needs labels y")
+        n = global_batch(dp, x0.shape[0])
         if t is None:
-            t = torch.randint(
-                0, schedule.num_timesteps, (x0.shape[0],), generator=state.generator,
-                device=x0.device,
-            )
+            t = torch.randint(0, schedule.num_timesteps, (n,), generator=state.generator,
+                              device=x0.device)
+        t = shard(dp, t)
         if noise is not None:
+            noise = shard(dp, noise)
             x_t = q_sample_with_noise(schedule, x0, t, noise)
         else:
             # After t, from the same generator (JAX: t_key, then noise_key):
             # a device value that the kernel reads, never the host.
             seed = torch.randint(0, 2**31 - 1, (), generator=state.generator,
                                  device=x0.device)
-            x_t, noise = q_sample_fused(schedule, x0, t, seed)
+            x_t, noise = q_sample_fused(schedule, x0, t, seed, row_offset(dp, x0.shape[0]))
         if label_dropout > 0:
             # JAX's bernoulli(1 - p): a label is kept where its uniform
             # falls below 1 - p, and becomes the null class elsewhere.
             if keep is None:
-                keep = torch.rand(y.shape, generator=state.generator,
+                keep = torch.rand((n,), generator=state.generator,
                                   device=y.device) < 1.0 - label_dropout
-            y = y.masked_fill(~keep, null_label)
+            y = y.masked_fill(~shard(dp, keep), null_label)
         args = (y,) if conditional else ()
         # cache_enabled=False: autocast's cache of cast weights may not
         # outlive a CUDA graph capture; each weight is cast once a step anyway.
@@ -229,12 +252,24 @@ def _step_body(
         loss = F.mse_loss(out.float(), target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = reduce_grads(dp, model, loss.detach())
         state.optimizer.step()
         if ema_decay is not None:
             _ema_update(state, ema_decay)
-        return loss.detach()
+        return loss
 
     return body
+
+
+def reduce_grads(dp: DataParallel | None, model: nn.Module, loss: torch.Tensor,
+                 op: str = "mean") -> torch.Tensor:
+    """Under data parallelism, the gradients and the loss averaged over the
+    group (``op="sum"`` for a loss summed over the batch); the loss as it is
+    on one device."""
+    if dp is None:
+        return loss
+    (loss,) = dp.all_reduce_grads_(model.parameters(), loss, op=op)
+    return loss
 
 
 def make_train_step(
@@ -245,6 +280,7 @@ def make_train_step(
     conditional: bool = False,
     label_dropout: float = 0.0,
     null_label: int | None = None,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """The train step ``step(state, x0, y=None, t=None, noise=None,
     keep=None) -> loss``.
@@ -258,9 +294,11 @@ def make_train_step(
     ``null_label`` where ``keep`` is False (drawn as JAX's Bernoulli of
     1 - ``label_dropout``). ``compute_dtype=torch.bfloat16`` runs the
     forward under ``torch.autocast``; the params and the loss stay float32.
+    With ``dp``, ``x0`` and ``y`` are this rank's rows, the seams the global
+    batch's, and the loss the global one (see the module's docstring).
     """
     body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
-                      label_dropout, null_label)
+                      label_dropout, null_label, dp)
 
     def step(state: DiffusionTrainState, x0: torch.Tensor, y=None, t=None, noise=None,
              keep=None):
@@ -424,6 +462,7 @@ def make_resident_multi_step(
     conditional: bool = False,
     label_dropout: float = 0.0,
     null_label: int | None = None,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """Train over a resident dataset: ``step(state, idxs, t=None,
     noise=None, keep=None) -> losses`` (``make_resident_steps``).
@@ -433,12 +472,13 @@ def make_resident_multi_step(
     inside the step and runs ``make_train_step``'s per-batch logic: the same
     draws (t, the q_sample seed and the label dropout), in the same order,
     as the host path. On the CPU ``t`` (K, B), ``noise`` (K, B, C, H, W) and
-    ``keep`` (K, B) may replace them.
+    ``keep`` (K, B) may replace them. With ``dp``, ``idxs`` are this rank's
+    columns of the epoch's index batches.
     """
     if conditional and dataset.labels is None:
         raise ValueError("a conditional resident step needs a DeviceDataset with labels")
     body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
-                      label_dropout, null_label)
+                      label_dropout, null_label, dp)
 
     def batch_step(state, batch, t=None, noise=None, keep=None):
         x0, y = batch if conditional else (batch, None)
@@ -463,13 +503,22 @@ def keyed_normal(key: tuple[int, int], shape: tuple[int, ...],
     return torch.from_numpy(_eval_rng(key).standard_normal(shape, np.float32)).to(device)
 
 
+def _eval_draws(rng: np.random.Generator, schedule: DiffusionSchedule,
+                dp: DataParallel | None, b: int) -> tuple[np.ndarray, int]:
+    """t (this rank's rows of the global batch's) and the q_sample seed of a
+    validation batch, in that order from ``rng``."""
+    t_host = rng.integers(0, schedule.num_timesteps, global_batch(dp, b))
+    seed = int(rng.integers(0, 2**63))
+    return t_host[row_offset(dp, b):row_offset(dp, b) + b], seed
+
+
 def _eval_loss(model: nn.Module, schedule: DiffusionSchedule, x0: torch.Tensor,
                t_host: np.ndarray, seed: int, args: tuple, prediction: str,
-               compute_dtype: torch.dtype) -> torch.Tensor:
+               compute_dtype: torch.dtype, dp: DataParallel | None = None) -> torch.Tensor:
     """The loss of ``model`` in eval mode on ``x0`` noised by the fused
-    q_sample at ``t_host`` and ``seed``."""
+    q_sample at ``t_host`` and ``seed`` (the global batch's under ``dp``)."""
     t = torch.from_numpy(t_host).to(x0.device)
-    x_t, noise = q_sample_fused(schedule, x0, t, seed)
+    x_t, noise = q_sample_fused(schedule, x0, t, seed, row_offset(dp, x0.shape[0]))
     was_training = model.training
     model.eval()
     try:
@@ -479,7 +528,8 @@ def _eval_loss(model: nn.Module, schedule: DiffusionSchedule, x0: torch.Tensor,
     finally:
         model.train(was_training)
     target = v_from_eps(schedule, x0, noise, t) if prediction == "v" else noise
-    return F.mse_loss(out.float(), target)
+    loss = F.mse_loss(out.float(), target)
+    return loss if dp is None else dp.all_reduce_(loss, "mean")
 
 
 def make_eval_step(
@@ -487,6 +537,7 @@ def make_eval_step(
     conditional: bool = False,
     prediction: str = "eps",
     compute_dtype: torch.dtype = torch.float32,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """The validation step ``eval_step(model, x0, key, y=None) -> loss``
     (JAX's ``raw_eval_fn`` and ``make_eval_step``; the reference's val pass,
@@ -495,18 +546,17 @@ def make_eval_step(
     statistics) and no gradients. ``key`` (base seed, fold) fixes t and then
     the fused q_sample's seed (``_eval_rng``), so a batch noised by the CUDA
     kernel on a card, or its plain version on the CPU, gets the same noise
-    in every pass. ``prediction`` must match the training target."""
+    in every pass. ``prediction`` must match the training target. With
+    ``dp``, ``x0`` is this rank's rows and the loss the global batch's."""
     if prediction not in ("eps", "v"):
         raise ValueError(f"unknown prediction {prediction!r}; use 'eps' or 'v'")
 
     @torch.no_grad()
     def eval_step(model: nn.Module, x0: torch.Tensor, key: tuple[int, int],
                   y=None) -> torch.Tensor:
-        rng = _eval_rng(key)
-        t_host, seed = rng.integers(0, schedule.num_timesteps, x0.shape[0]), int(
-            rng.integers(0, 2**63))
+        t_host, seed = _eval_draws(_eval_rng(key), schedule, dp, x0.shape[0])
         return _eval_loss(model, schedule, x0, t_host, seed, (y,) if conditional else (),
-                          prediction, compute_dtype)
+                          prediction, compute_dtype, dp)
 
     return eval_step
 
@@ -543,7 +593,8 @@ def make_resident_eval(
 
 
 def _latent_step_body(vae: nn.Module, schedule: DiffusionSchedule, ema_decay: float | None,
-                      prediction: str, compute_dtype: torch.dtype) -> Callable:
+                      prediction: str, compute_dtype: torch.dtype,
+                      dp: DataParallel | None = None) -> Callable:
     """``body(state, x0, y, z_eps=None, t=None, noise=None, masks=None) ->
     loss``: one latent step's device work (JAX's ``_raw_latent_step_fn``),
     without the host's ``state.step`` count, so that a CUDA graph can
@@ -557,26 +608,33 @@ def _latent_step_body(vae: nn.Module, schedule: DiffusionSchedule, ema_decay: fl
              t=None, noise=None, masks=None):
         model, gen = state.model, state.generator
         model.train()
+        sync_batch_norm_(model, dp)
+        n = global_batch(dp, x0.shape[0])
         # The draws in JAX's split order (z_key, t_key, noise_key, drop_key),
         # all from the state's generator on the device.
         with torch.no_grad():  # the frozen VAE, float32
             mu, logvar = vae.encode(x0)
             if z_eps is None:
-                z_eps = torch.randn(mu.shape, generator=gen, device=mu.device)
-            z0 = vae.reparameterize(mu, logvar, z_eps)
+                z_eps = torch.randn((n, *mu.shape[1:]), generator=gen, device=mu.device)
+            z0 = vae.reparameterize(mu, logvar, shard(dp, z_eps))
         if t is None:
-            t = torch.randint(0, schedule.num_timesteps, (z0.shape[0],), generator=gen,
-                              device=z0.device)
+            t = torch.randint(0, schedule.num_timesteps, (n,), generator=gen, device=z0.device)
+        t = shard(dp, t)
         if noise is not None:
+            noise = shard(dp, noise)
             z_t = q_sample_with_noise(schedule, z0, t, noise)
         else:
             seed = torch.randint(0, 2**31 - 1, (), generator=gen, device=z0.device)
-            z_t, noise = q_sample_fused(schedule, z0, t, seed)
+            z_t, noise = q_sample_fused(schedule, z0, t, seed, row_offset(dp, z0.shape[0]))
         options = {}
         draw_masks = getattr(model, "draw_dropout_masks", None)  # the DiT's
         if draw_masks is not None:
-            options["dropout_masks"] = masks if masks is not None else draw_masks(
-                z0.shape[0], gen)
+            if masks is None:
+                masks = draw_masks(n, gen)
+            # The attention masks (1, 1, S, S) are the batch's; the others
+            # (B, S, D) have a row a sample.
+            options["dropout_masks"] = None if masks is None else [
+                (attn, shard(dp, out), shard(dp, ff)) for attn, out, ff in masks]
         with torch.autocast(z0.device.type, dtype=compute_dtype,
                             enabled=compute_dtype != torch.float32, cache_enabled=False):
             out = model(z_t, t, y, **options)
@@ -584,10 +642,11 @@ def _latent_step_body(vae: nn.Module, schedule: DiffusionSchedule, ema_decay: fl
         loss = F.mse_loss(out.float(), target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = reduce_grads(dp, model, loss.detach())
         state.optimizer.step()
         if ema_decay is not None:
             _ema_update(state, ema_decay)
-        return loss.detach()
+        return loss
 
     return body
 
@@ -598,6 +657,7 @@ def make_latent_train_step(
     ema_decay: float | None = None,
     prediction: str = "eps",
     compute_dtype: torch.dtype = torch.float32,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """The latent train step ``step(state, x0, y, z_eps=None, t=None,
     noise=None, masks=None) -> loss`` (JAX's ``make_latent_train_step``; the
@@ -614,9 +674,9 @@ def make_latent_train_step(
     noise, t, the q_sample seed, the dropout masks. ``z_eps`` (B,
     latent_dim), ``t``, ``noise`` (B, latent_dim) and ``masks`` (the DiT's
     ``draw_dropout_masks`` layout), when given, replace them: the seam the
-    tests use to give the port JAX's draws.
+    tests use to give the port JAX's draws. ``dp`` as in ``make_train_step``.
     """
-    body = _latent_step_body(vae, schedule, ema_decay, prediction, compute_dtype)
+    body = _latent_step_body(vae, schedule, ema_decay, prediction, compute_dtype, dp)
 
     def step(state: DiffusionTrainState, x0, y, z_eps=None, t=None, noise=None, masks=None):
         loss = body(state, x0, y, z_eps, t, noise, masks)
@@ -633,6 +693,7 @@ def make_resident_latent_multi_step(
     ema_decay: float | None = None,
     prediction: str = "eps",
     compute_dtype: torch.dtype = torch.float32,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """Latent training over a resident labelled dataset: ``step(state, idxs,
     z_eps=None, t=None, noise=None, masks=None) -> losses``
@@ -642,7 +703,7 @@ def make_resident_latent_multi_step(
     seams are K-long sequences of the step's own."""
     if dataset.labels is None:
         raise ValueError("a latent resident step needs a DeviceDataset with labels")
-    body = _latent_step_body(vae, schedule, ema_decay, prediction, compute_dtype)
+    body = _latent_step_body(vae, schedule, ema_decay, prediction, compute_dtype, dp)
 
     def batch_step(state, batch, z_eps=None, t=None, noise=None, masks=None):
         x0, y = batch
@@ -656,6 +717,7 @@ def make_latent_eval_step(
     schedule: DiffusionSchedule,
     prediction: str = "eps",
     compute_dtype: torch.dtype = torch.float32,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """The latent validation step ``eval_step(model, x0, key, y) -> loss``
     (JAX's ``raw_latent_eval_fn`` / ``make_latent_eval_step``; the
@@ -670,11 +732,12 @@ def make_latent_eval_step(
                   y: torch.Tensor) -> torch.Tensor:
         rng = _eval_rng(key)
         mu, logvar = vae.encode(x0)
-        z_eps = torch.from_numpy(rng.standard_normal(mu.shape, np.float32)).to(mu.device)
-        t_host, seed = rng.integers(0, schedule.num_timesteps, mu.shape[0]), int(
-            rng.integers(0, 2**63))
+        b = mu.shape[0]
+        z_eps = rng.standard_normal((global_batch(dp, b), *mu.shape[1:]), np.float32)
+        z_eps = torch.from_numpy(z_eps[row_offset(dp, b):row_offset(dp, b) + b]).to(mu.device)
+        t_host, seed = _eval_draws(rng, schedule, dp, b)
         z0 = vae.reparameterize(mu, logvar, z_eps)
-        return _eval_loss(model, schedule, z0, t_host, seed, (y,), prediction, compute_dtype)
+        return _eval_loss(model, schedule, z0, t_host, seed, (y,), prediction, compute_dtype, dp)
 
     return eval_step
 
@@ -685,7 +748,8 @@ def make_latent_eval_step(
 
 def _laion_step_body(codec, schedule: DiffusionSchedule, lr_schedule: Callable,
                      clip_norm: float, ema_decay: float | None, compute_dtype: torch.dtype,
-                     caption_dropout: float, null_embed: torch.Tensor | None) -> Callable:
+                     caption_dropout: float, null_embed: torch.Tensor | None,
+                     dp: DataParallel | None = None) -> Callable:
     """``body(state, images, embeds, t=None, noise=None, keep=None,
     enc_noise=None) -> loss``: one LAION step's device work (JAX's
     ``_laion_raw_step``), without the host's ``state.step`` count, so that a
@@ -699,39 +763,46 @@ def _laion_step_body(codec, schedule: DiffusionSchedule, lr_schedule: Callable,
              noise=None, keep=None, enc_noise=None):
         model, gen = state.model, state.generator
         model.train()
+        sync_batch_norm_(model, dp)
+        n = global_batch(dp, images.shape[0])
         # The draws from the state's generator: the codec's Gaussian (the SD
         # codec's only; the patch codec draws nothing), t, the q_sample seed,
         # then the caption dropout. The encode runs in float32, outside the
         # autocast, on the codec's float32 weights.
+        if dp is not None and enc_noise is None:
+            shape = codec.noise_shape(images)
+            if shape is not None:
+                enc_noise = torch.randn((n, *shape[1:]), generator=gen, device=images.device)
         with torch.no_grad():
-            x0 = codec.encode(images, noise=enc_noise, generator=gen)
+            x0 = codec.encode(images, noise=shard(dp, enc_noise), generator=gen)
         if t is None:
-            t = torch.randint(0, schedule.num_timesteps, (x0.shape[0],), generator=gen,
-                              device=x0.device)
+            t = torch.randint(0, schedule.num_timesteps, (n,), generator=gen, device=x0.device)
+        t = shard(dp, t)
         if noise is not None:
+            noise = shard(dp, noise)
             x_t = q_sample_with_noise(schedule, x0, t, noise)
         else:
             seed = torch.randint(0, 2**31 - 1, (), generator=gen, device=x0.device)
-            x_t, noise = q_sample_fused(schedule, x0, t, seed)
+            x_t, noise = q_sample_fused(schedule, x0, t, seed, row_offset(dp, x0.shape[0]))
         if caption_dropout > 0:
             # JAX's bernoulli(1 - p): a row is kept where its uniform falls
             # below 1 - p, and becomes the empty-string embedding elsewhere.
             if keep is None:
-                keep = torch.rand(embeds.shape[0], generator=gen,
-                                  device=embeds.device) < 1.0 - caption_dropout
-            embeds = torch.where(keep[:, None], embeds, null_embed.to(embeds.dtype))
+                keep = torch.rand(n, generator=gen, device=embeds.device) < 1.0 - caption_dropout
+            embeds = torch.where(shard(dp, keep)[:, None], embeds, null_embed.to(embeds.dtype))
         with torch.autocast(x0.device.type, dtype=compute_dtype,
                             enabled=compute_dtype != torch.float32, cache_enabled=False):
             out = model(x_t, t, embeds)
         loss = F.mse_loss(out.float(), noise)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = reduce_grads(dp, model, loss.detach())
         clip_by_global_norm_(model.parameters(), clip_norm)
         _scheduled_lr_(state.optimizer, lr_schedule)
         state.optimizer.step()
         if ema_decay is not None:
             _ema_update(state, ema_decay)
-        return loss.detach()
+        return loss
 
     return body
 
@@ -745,6 +816,7 @@ def make_laion_train_step(
     compute_dtype: torch.dtype = torch.float32,
     caption_dropout: float = 0.0,
     null_embed: torch.Tensor | None = None,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """The LAION train step ``step(state, images, embeds, t=None, noise=None,
     keep=None, enc_noise=None) -> loss`` (JAX's ``make_laion_train_step``;
@@ -767,10 +839,11 @@ def make_laion_train_step(
     (B, 4, S/8, S/8), t, the q_sample seed, ``keep``; ``enc_noise``, ``t``
     (B,), ``noise`` (B, 4, S/8, S/8) and ``keep`` (B,) bool, when given,
     replace them: the seam the tests use to give the port JAX's draws
-    (JAX's ``enc_key`` draw, transposed to NCHW, is ``enc_noise``).
+    (JAX's ``enc_key`` draw, transposed to NCHW, is ``enc_noise``). ``dp``
+    as in ``make_train_step``: the gradients are reduced before the clip.
     """
     body = _laion_step_body(codec, schedule, lr_schedule, clip_norm, ema_decay, compute_dtype,
-                            caption_dropout, null_embed)
+                            caption_dropout, null_embed, dp)
 
     def step(state: DiffusionTrainState, images, embeds, t=None, noise=None, keep=None,
              enc_noise=None):
@@ -791,6 +864,7 @@ def make_resident_laion_multi_step(
     compute_dtype: torch.dtype = torch.float32,
     caption_dropout: float = 0.0,
     null_embed: torch.Tensor | None = None,
+    dp: DataParallel | None = None,
 ) -> Callable:
     """LAION training over a resident set of images and text embeddings:
     ``step(state, idxs, t=None, noise=None, keep=None, enc_noise=None) ->
@@ -803,7 +877,7 @@ def make_resident_laion_multi_step(
     if dataset.embeds is None or dataset.labels is not None:
         raise ValueError("a LAION resident step needs a DeviceDataset of images and embeds")
     body = _laion_step_body(codec, schedule, lr_schedule, clip_norm, ema_decay, compute_dtype,
-                            caption_dropout, null_embed)
+                            caption_dropout, null_embed, dp)
 
     def batch_step(state, batch, t=None, noise=None, keep=None, enc_noise=None):
         images, embeds = batch
@@ -813,7 +887,8 @@ def make_resident_laion_multi_step(
 
 
 def make_laion_eval_step(codec, schedule: DiffusionSchedule,
-                         compute_dtype: torch.dtype = torch.float32) -> Callable:
+                         compute_dtype: torch.dtype = torch.float32,
+                         dp: DataParallel | None = None) -> Callable:
     """The LAION validation step ``eval_step(model, images, key, embeds) ->
     loss`` (JAX's ``make_laion_eval_step``; the reference's
     conditional_diffusion_laion.py:499-530): ``make_eval_step`` on the
@@ -827,10 +902,15 @@ def make_laion_eval_step(codec, schedule: DiffusionSchedule,
     def eval_step(model: nn.Module, images: torch.Tensor, key: tuple[int, int],
                   embeds: torch.Tensor) -> torch.Tensor:
         rng = _eval_rng(key)
-        t_host, seed = rng.integers(0, schedule.num_timesteps, images.shape[0]), int(
-            rng.integers(0, 2**63))
+        t_host, seed = _eval_draws(rng, schedule, dp, images.shape[0])
         enc_gen = torch.Generator(images.device).manual_seed(int(rng.integers(0, 2**63)))
-        return _eval_loss(model, schedule, codec.encode(images, generator=enc_gen), t_host, seed,
-                          (embeds,), "eps", compute_dtype)
+        enc_noise = None
+        shape = codec.noise_shape(images) if dp is not None else None
+        if shape is not None:  # the global batch's Gaussian, this rank's rows
+            enc_noise = shard(dp, torch.randn((global_batch(dp, images.shape[0]), *shape[1:]),
+                                              generator=enc_gen, device=images.device))
+        latents = codec.encode(images, noise=enc_noise, generator=enc_gen)
+        return _eval_loss(model, schedule, latents, t_host, seed, (embeds,), "eps",
+                          compute_dtype, dp)
 
     return eval_step
