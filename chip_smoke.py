@@ -40,7 +40,9 @@ line each:
    the backend torch picked), the bound at the bf16 tensor-core peak, and
    ptxas's report and the dynamic shared memory of the kernel at the site;
 4. slice: reconstruct 4 synthetic images and decode 16 prior samples on the
-   card, with the kernel launches counted over exactly that work; check
+   card (a first eager request of each, then the requests as their CUDA
+   graphs replay them), with the kernel launches counted over exactly the
+   replayed work; check
    shapes, finiteness, the [0, 1] range and the card against the port's own
    CPU run;
 5. qsample_kernel: the CUDA fused q_sample against ``q_sample_fused_reference``
@@ -145,9 +147,21 @@ line each:
     on ``laion_diffusion_1000ep`` (the four prompts, bf16 forward, fp32
     chain): DDPM-1000 and DDIM-50 twice each; DDIM-10 decoded images card vs
     CPU; a checkpoint trained for 20 steps with caption dropout 0.1, served
-    with guidance 2; fid_mnist: ``tools/fid_eval.py`` at n = 512 (sample
-    batch 128) on every committed MNIST checkpoint (``diffusion_final``
-    DDIM-50, DPM++-20, DDPM-1000; ``conditional_cfg_ema_best`` DDIM-50 at
+    with guidance 2; chain_graph: each chain as the card runs it (its
+    steps captured in CUDA graphs and replayed, the decode a graph of its
+    own) against the same chain run eagerly from the host
+    (``sample_fn.eager``), from one generator seed, cuDNN deterministic:
+    ``diffusion_final`` DDPM-1000 at n = 16, DDPM-20 with inpainting and the
+    stride-100 trajectory; the CFG checkpoint at guidance 2, DDIM-50 at eta 0
+    and 1, img2img from t = 599 and DPM++-15; both latent checkpoints
+    DPM++-15 with the decode; LAION DDIM-50 at guidance 2 with the patch
+    codec's decode; the conv-VAE's ``reconstruct`` and ``sample_prior`` in
+    float32 and bfloat16 at B = 4 and 32: the largest difference (bit-equal
+    expected), the generators' states, warm eager and replayed ms, the
+    captures' ms, kernels a step, forwards; fid_mnist:
+    ``tools/fid_eval.py`` at n = 512 (sample batch 128) on every committed
+    MNIST checkpoint (``diffusion_final`` DDIM-50, DPM++-20, DDPM-1000;
+    ``conditional_cfg_ema_best`` DDIM-50 at
     guidance 1 and 2 with label accuracy; ``latent_diffusion_best`` and
     ``diffusion_transformer_best`` DPM++-20), each row beside JAX's own
     tool's row on the CPU at the same n and seed
@@ -229,8 +243,9 @@ line each:
 one warm reconstruct and one prior decode, over 5 warm UNet28 train steps
 (eager, ``train_steps``, and replayed from a graph over a resident set,
 ``train_steps_graph``), over 20 sampler steps, over the chain of one
-DPM++-15 serving request (``serve_dpmpp15``), over 3 warm conv-VAE train
-steps (eager, ``vae_train_steps``, and replayed from a graph over a resident
+DPM++-15 serving request (``serve_dpmpp15``; these and the conv-VAE's
+requests replayed from their graphs, and eager beside them), over 3 warm
+conv-VAE train steps (eager, ``vae_train_steps``, and replayed from a graph over a resident
 set, ``vae_train_steps_graph``, and the same in bfloat16,
 ``vae_train_bf16_steps_graph``, its flash kernels by name from one profiler
 session), over 5 latent MLP UNet train steps replayed
@@ -295,6 +310,7 @@ from tinydiffusion_torch.experiments.common import (
     load_unet28,
     make_latent_pixel_sampler,
     make_sampler,
+    make_trajectory_sampler,
 )
 from tinydiffusion_torch.experiments.diffusion import DiffusionConfig, run
 from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct, sample_prior
@@ -503,6 +519,9 @@ SERVE_REQUESTS = {
     "inpaint": ["--sampler", "ddim", "--sample-steps", "50", "--inpaint-image", "INIT",
                 "--inpaint-mask", "MASK"],
 }
+# Their model forwards (img2img at strength 0.6 starts at t = 599: 50 of its
+# 600 timesteps), counted by the chains' runners, graph replays included.
+SERVE_FORWARDS = {"ddpm1000": 1000, "ddim50": 50, "dpmpp15": 15, "img2img": 50, "inpaint": 50}
 # DDIM-10 and DPM++-10 chains at n = 4 (guidance 2.0, a fixed x_init): the
 # card's float32 forward against the CPU's, TF32 off, within 1e-3. With the
 # bfloat16 forward (autocast) on the card against float32 on the CPU, the
@@ -514,6 +533,17 @@ SERVE_REQUESTS = {
 # carries the check (about 3 times the CPU's) and the max only catches a
 # chain gone wrong.
 SERVE_CHAIN_N, SERVE_CHAIN_STEPS = 4, 10
+# chain_graph: every sampler chain as the card runs it, its steps captured in
+# CUDA graphs and replayed (core.graphs.ChainRunner), and the conv-VAE's two
+# serving calls as graphs (GraphedCall), against the same work run eagerly
+# from the host (sample_fn.eager: core.sampler's loop over the same bodies),
+# from one generator seed, cuDNN deterministic. The same kernels on the same
+# inputs: bit-equal expected. A chain that is not stays within
+# CHAIN_GRAPH_REL of its largest value (a chain gone wrong differs by its
+# whole scale), beside the gap of two eager runs; the generators must end
+# equal. n = 16 (serving's); the conv-VAE at B = 4 (serving's) and 32 (the
+# LAION FID tool's), float32 and bfloat16.
+CHAIN_GRAPH_REL, CHAIN_GRAPH_VAE_BATCHES = 1e-3, (4, 32)
 # The latent family (slice 5): the committed MNIST VAE and the two latent
 # denoisers, whose sidecars give the train recipes (B = 128, bf16, Adam 1e-3,
 # or the DiT's 3e-4 with a per-epoch cosine; fp32 sampling).
@@ -1117,22 +1147,30 @@ def phase_slice() -> int:
     size = model.image_size
     x01, eps, gen = _requests(model)
 
-    # The main path, with the kernel launches counted over exactly this work.
-    torch.cuda.synchronize()
-    attention.flash_fwd_launches = 0
+    # The first request of each runs eagerly (the warm-up of its graph).
     t0 = time.perf_counter()
-    recon = reconstruct(model, x01, eps)
+    reconstruct(model, x01, eps)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches_recon = attention.flash_fwd_launches
-    prior = sample_prior(model, N_PRIOR, gen)
+    sample_prior(model, N_PRIOR, gen)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    # The main path, with the kernel launches counted over exactly this work:
+    # each request captured in its CUDA graph and replayed, the flash
+    # forwards counted at the replay.
+    replays = [vae_laion._RECONSTRUCT.counts["replays"], vae_laion._SAMPLE_PRIOR.counts["replays"]]
+    attention.flash_fwd_launches = 0
+    recon = reconstruct(model, x01, eps)
+    launches_recon = attention.flash_fwd_launches
+    prior = sample_prior(model, N_PRIOR, gen)
     launches = attention.flash_fwd_launches
-    if (launches_recon, launches) != (3, 4):
+    torch.cuda.synchronize()
+    replays = [vae_laion._RECONSTRUCT.counts["replays"] - replays[0],
+               vae_laion._SAMPLE_PRIOR.counts["replays"] - replays[1]]
+    if (launches_recon, launches, replays) != (3, 4, [1, 1]):
         raise RuntimeError(
             f"flash_fwd launches: {launches_recon} in reconstruct (want 3), "
-            f"{launches} with the prior decode (want 4)")
+            f"{launches} with the prior decode (want 4); graph replays {replays} (want 1, 1)")
 
     if tuple(recon.shape) != (N_RECON, 3, size, size):
         raise RuntimeError(f"reconstruction shape {tuple(recon.shape)}")
@@ -1144,7 +1182,7 @@ def phase_slice() -> int:
         if t.min().item() < 0.0 or t.max().item() > 1.0:
             raise RuntimeError(f"{name} leave [0, 1]")
 
-    # Warm steady-state request times (the counted run above was the first).
+    # Warm steady-state request times (graph replays).
     steady = {"reconstruct": [], "sample_prior": []}
     for _ in range(3):
         t_a = time.perf_counter()
@@ -1173,7 +1211,7 @@ def phase_slice() -> int:
     emit("slice", checkpoint=os.path.relpath(CHECKPOINT, REPO), image_size=size,
          load_s=load_s, recon_images=N_RECON, prior_images=N_PRIOR,
          first_reconstruct_ms=1e3 * (t1 - t0), first_sample_prior_ms=1e3 * (t2 - t1),
-         steady_reconstruct_ms=steady["reconstruct"],
+         steady_reconstruct_ms=steady["reconstruct"], graph_replays=replays,
          steady_sample_prior_ms=steady["sample_prior"],
          flash_fwd_launches=launches,
          recon_l1_to_input=(recon.cpu() - x01).abs().mean().item(),
@@ -1897,7 +1935,9 @@ def phase_serve() -> dict:
             fields["requests"][name] = {"warm_s": result["sample_seconds"],
                                         "forwards": result["forwards"],
                                         "ms_per_forward": 1e3 * result["sample_seconds"]
-                                        / result["forwards"]}
+                                        / result["forwards"],
+                                        "captures": result["captures"],
+                                        "replays": result["replays"]}
             if name == "ddpm1000":
                 # The inputs of img2img and inpainting, written by the port's
                 # PNG encoder: the first sample, and a mask keeping its left half.
@@ -1916,9 +1956,7 @@ def phase_serve() -> dict:
         if qsample.qsample_launches or attention.flash_fwd_launches:
             problems.append(f"serving launched a training or VAE kernel: {_launches()}")
     forwards = {k: v["forwards"] for k, v in fields["requests"].items()}
-    # img2img at strength 0.6 starts at t = 599: 50 of its 600 timesteps.
-    if forwards != {"ddpm1000": 1000, "ddim50": 50, "dpmpp15": 15, "img2img": 50,
-                    "inpaint": 50}:
+    if forwards != SERVE_FORWARDS:
         problems.append(f"model forwards {forwards}")
     fields["chains"] = _serve_chains()
     fields.update(f32_atol=SERVE_F32_ATOL, bf16_max_abs_bound=SERVE_BF16_MAX_ABS,
@@ -1930,6 +1968,189 @@ def phase_serve() -> dict:
     if problems:
         raise RuntimeError(f"serve: {problems}: {fields}")
     emit("serve", **fields)
+    return fields
+
+
+def _timed(fn):
+    """``(ms, fn())``, host clock, the device's work included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def _kernel_events(fn) -> int:
+    """Kernel events on the device in one profiler session over ``fn()``
+    (taken again, up to 3 times, when a session returns none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.self_device_time_total > 0 and not getattr(ev, "is_user_annotation", False))
+        if n:
+            return n
+    raise RuntimeError("chain_graph: three profiler sessions without kernel events")
+
+
+def _chain_graph_case(fn, eager, counts: dict, steps: int, seed: int, profiled=None) -> dict:
+    """``fn(generator)`` (the graphs) three times and ``eager(generator)``
+    twice, each from a generator seeded ``seed``: the first graph request
+    warms up and captures, the last is timed warm; each against the first
+    eager run (and the second eager run against the first), the generators'
+    states after each, the warm times, the captures' host time, the kernels
+    a step (a profiler session over ``profiled = (fn, its steps)``, else over
+    a warm graph request) and the forwards a request."""
+
+    def gen():
+        return torch.Generator("cuda").manual_seed(seed)
+
+    before = dict(counts)
+    flash_before = _launches()
+    graph_gens = [gen() for _ in range(3)]
+    first = fn(graph_gens[0])
+    second = fn(graph_gens[1])
+    graph_ms, third = _timed(lambda: fn(graph_gens[2]))
+    flash = {k: v - flash_before[k] for k, v in _launches().items() if v != flash_before[k]}
+    done = {k: counts[k] - before[k] for k in ("eager", "captures", "replays", "forwards")}
+    eager_gens = [gen(), gen()]
+    _, want = _timed(lambda: eager(eager_gens[0]))
+    eager_ms, again = _timed(lambda: eager(eager_gens[1]))
+    scale = want.float().abs().max().item()
+
+    def gap(a):
+        return (a.float() - want.float()).abs().max().item()
+
+    max_abs = max(gap(x) for x in (first, second, third))
+    profiled_fn, profiled_steps = profiled or (fn, steps)
+    return {
+        "max_abs": max_abs, "bit_equal": max_abs == 0.0, "eager_vs_eager_max_abs": gap(again),
+        "bound": CHAIN_GRAPH_REL * scale, "scale": scale,
+        "generator_equal": all(torch.equal(g.get_state(), eager_gens[0].get_state())
+                               for g in graph_gens + eager_gens[1:]),
+        "eager_ms": eager_ms, "replay_ms": graph_ms, "speedup": eager_ms / graph_ms,
+        "capture_ms": counts["capture_ms"] - before["capture_ms"],
+        "kernels_per_step": _kernel_events(lambda: profiled_fn(gen())) / profiled_steps,
+        "forwards": done["forwards"] / 3, "steps": steps, "counts": done,
+        "flash_launches_graph": flash,
+    }
+
+
+def _chain_graph_flash(fields: dict, kernel: str) -> int:
+    return sum(c["flash_launches_graph"].get(kernel, 0) for c in fields["chains"].values())
+
+
+def phase_chain_graph() -> dict:
+    """Each sampler chain of the serving and evaluation paths replayed from
+    CUDA graphs against the same chain run eagerly, and the conv-VAE's
+    ``reconstruct`` and ``sample_prior`` graphs against their eager calls
+    (see CHAIN_GRAPH_REL)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    n, bf16 = SERVE_N, torch.bfloat16
+    y7 = torch.full((n,), 7, dtype=torch.int64, device="cuda")
+    rng = np.random.default_rng(SEED + 60)
+    chains = {}
+
+    def sampler_case(name, sampler, steps, seed, *args, profiled=None, **kwargs):
+        chains[name] = _chain_graph_case(
+            lambda g: sampler(g, *args, **kwargs), lambda g: sampler.eager(g, *args, **kwargs),
+            sampler.counts, steps, seed, profiled)
+
+    # UNet28 diffusion_final: the bf16 forward under the fp32 chain (JAX's).
+    unet = load_pixel_checkpoint(UNET_CHECKPOINT, "cuda")
+    model, params = unet["model"], unet["params"]
+    sched20 = DiffusionSchedule.linear(20).to("cuda")
+    # The DDPM-1000 chain's kernels a step, from the same step at T = 20.
+    twin = make_sampler(model, sched20, (n, 1, 28, 28), compute_dtype=bf16)
+    twin(torch.Generator("cuda").manual_seed(0), params=params)
+    sampler_case("unet28_ddpm1000", make_sampler(model, unet["schedule"], (n, 1, 28, 28),
+                                                 compute_dtype=bf16),
+                 1000, SEED + 61, params=params,
+                 profiled=(lambda g: twin(g, params=params), 20))
+    x_known = torch.from_numpy(rng.uniform(-1, 1, (1, 1, 28, 28)).astype(np.float32)).cuda()
+    mask = torch.zeros(1, 1, 28, 28, device="cuda")
+    mask[..., :14] = 1.0
+    sampler_case("unet28_ddpm20_inpaint", make_sampler(
+        model, sched20, (n, 1, 28, 28), mask=mask, x_known=x_known, compute_dtype=bf16),
+        20, SEED + 62, params=params)
+    sampler_case("unet28_trajectory_stride100", make_trajectory_sampler(
+        model, unet["schedule"], (4, 1, 28, 28), stride=100, compute_dtype=bf16),
+        10, SEED + 63, params=params)
+    # The CFG UNet28 at guidance 2 (generate.py's requests).
+    cfg = load_pixel_checkpoint(CFG_CHECKPOINT, "cuda")
+    guided = dict(conditional=True, guidance_scale=2.0, null_label=NULL_LABEL,
+                  compute_dtype=bf16)
+    x_noised = torch.from_numpy(rng.standard_normal((n, 1, 28, 28)).astype(np.float32)).cuda()
+    for name, options, steps, inputs in (
+            ("cfg_ddim50_eta0", dict(method="ddim", sample_steps=50), 50, {}),
+            ("cfg_ddim50_eta1", dict(method="ddim", sample_steps=50, eta=1.0), 50, {}),
+            ("cfg_img2img_t599", dict(method="ddim", sample_steps=50, t_start=599), 50,
+             {"x_init": x_noised}),
+            ("cfg_dpmpp15", dict(method="dpmpp", sample_steps=15), 15, {})):
+        sampler_case(name, make_sampler(cfg["model"], cfg["schedule"], (n, 1, 28, 28),
+                                        **guided, **options),
+                     steps, SEED + 64, params=cfg["params"], y=y7, **inputs)
+    # The latent checkpoints: DPM++-15 and the VAE's decode.
+    for backbone, path in LATENT_CHECKPOINTS.items():
+        loaded = load_latent_checkpoint(path, device="cuda")
+        sampler_case(f"{backbone}_dpmpp15_decode", make_latent_pixel_sampler(
+            loaded, n, method="dpmpp", sample_steps=15), 15, SEED + 65, y7)
+    # LAION on the patch codec at guidance 2: DDIM-50 and the decode.
+    laion = generate_laion.load_laion_checkpoint(LAION_CHECKPOINT, "cuda")
+    prompts = conditional_diffusion_laion.SAMPLE_PROMPTS
+    encoder = laion["text_encoder"]
+    embeds = torch.from_numpy(encoder.encode(prompts)).cuda()
+    sampler_case("laion_ddim50_guided_decode", conditional_diffusion_laion.make_laion_sampler(
+        laion["model"], laion["schedule"], laion["codec"], len(prompts), 32, 4,
+        compute_dtype=bf16, guidance_scale=2.0,
+        null_embed=torch.from_numpy(encoder.encode([""])[0]).cuda(), method="ddim",
+        sample_steps=50), 50, SEED + 66, embeds)
+    # The conv-VAE's serving calls, float32 and bfloat16.
+    for dtype in (torch.float32, bf16):
+        vae = (load_conv_vae(CHECKPOINT, device="cuda") if dtype == torch.float32
+               else _conv_vae(bf16).eval())
+        tag = "float32" if dtype == torch.float32 else "bfloat16"
+        for b in CHAIN_GRAPH_VAE_BATCHES:
+            x01 = _nchw(np.stack([synthesize_image(i, vae.image_size)[0]
+                                  for i in range(b)])).cuda()
+            eps = torch.from_numpy(rng.standard_normal((b, vae.latent_dim)).astype(
+                np.float32)).cuda()
+            with torch.inference_mode():
+                chains[f"vae_{tag}_reconstruct_b{b}"] = _chain_graph_case(
+                    lambda g: reconstruct(vae, x01, eps),
+                    lambda g: vae_laion._reconstruct(vae, x01, eps),
+                    vae_laion._RECONSTRUCT.counts, 1, SEED + 67)
+                chains[f"vae_{tag}_sample_prior_b{b}"] = _chain_graph_case(
+                    lambda g: sample_prior(vae, b, g),
+                    lambda g: vae.decode(torch.randn(b, vae.latent_dim, generator=g,
+                                                     device="cuda")),
+                    vae_laion._SAMPLE_PRIOR.counts, 1, SEED + 68)
+    torch.backends.cudnn.deterministic = deterministic
+
+    problems = []
+    for name, c in chains.items():
+        if not (c["max_abs"] <= c["bound"] and c["generator_equal"]
+                and c["forwards"] == c["steps"] and c["counts"]["captures"] >= 1
+                and c["counts"]["replays"] >= 1):
+            problems.append(f"{name}: {c}")
+        print(f"chain_graph: {name:<32s} max|graph - eager| {c['max_abs']:.3g} "
+              f"(eager vs eager {c['eager_vs_eager_max_abs']:.3g}), generator equal "
+              f"{c['generator_equal']}, eager {c['eager_ms']:.2f} ms, replayed "
+              f"{c['replay_ms']:.2f} ms, capture {c['capture_ms']:.1f} ms, "
+              f"{c['kernels_per_step']:.1f} kernels a step, {c['forwards']:.0f} forwards",
+              flush=True)
+    del model, params, unet, cfg, laion, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields = {"chains": chains, "rel_bound": CHAIN_GRAPH_REL, "cudnn_deterministic": True}
+    if problems:
+        raise RuntimeError(f"chain_graph: {problems}")
+    emit("chain_graph", **fields)
     return fields
 
 
@@ -2240,7 +2461,8 @@ def phase_latent_serve() -> dict:
                 requests[name] = {"warm_s": result["sample_seconds"],
                                   "forwards": result["forwards"],
                                   "ms_per_forward": 1e3 * result["sample_seconds"]
-                                  / result["forwards"]}
+                                  / result["forwards"],
+                                  "captures": result["captures"], "replays": result["replays"]}
             chains = _latent_serve_chains(path)
             if not (chains["f32_max_abs"] <= LATENT_SERVE_F32_ATOL
                     and chains["bf16_mean_abs"] <= LATENT_SERVE_BF16_MEAN_ABS
@@ -2639,7 +2861,9 @@ def phase_laion_serve() -> dict:
             fields["requests"][name] = {"warm_s": result["sample_seconds"],
                                         "forwards": result["forwards"],
                                         "ms_per_forward": 1e3 * result["sample_seconds"]
-                                        / result["forwards"]}
+                                        / result["forwards"],
+                                        "captures": result["captures"],
+                                        "replays": result["replays"]}
         chains = _laion_serve_chains()
         if not (chains["f32_max_abs"] <= LAION_SERVE_F32_ATOL
                 and chains["bf16_mean_abs"] <= LAION_SERVE_BF16_MEAN_ABS):
@@ -3187,37 +3411,37 @@ def phase_laion_sd_train(codec, clip: dict, patch: dict) -> dict:
 def phase_laion_sd_serve(model, schedule, codec, clip_encoder) -> dict:
     """A request on the SD-trained UNet: the four prompts' CLIP embeddings,
     DDIM-50 (bf16 forward, fp32 chain) and the SD decode, as
-    ``make_laion_sampler`` serves it; cold, then timed warm, with the text
-    encode and the decode's time (CUDA events) apart."""
+    ``make_laion_sampler`` serves it; twice cold (the chain's and the
+    decode's captures), then timed warm, every step and the decode replayed
+    (forwards from the sampler's counts), with the text encode and the
+    decode's time (CUDA events) apart."""
     prompts = conditional_diffusion_laion.SAMPLE_PROMPTS
     sampler = conditional_diffusion_laion.make_laion_sampler(
         model.eval(), schedule, codec, len(prompts), 32, 4, compute_dtype=torch.bfloat16,
         method="ddim", sample_steps=50)
-    forwards = [0]
-    hook = model.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
-
     def request():
         embeds = torch.from_numpy(clip_encoder.encode(prompts)).cuda()
         return sampler(torch.Generator("cuda").manual_seed(SEED), embeds)
 
-    request()  # cold
-    forwards[0] = 0
+    request()  # cold: the chain's capture
+    request()  # the decode's capture
+    before = dict(sampler.counts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     images = request()
     torch.cuda.synchronize()
     request_s = time.perf_counter() - t0
-    hook.remove()
-    torch.cuda.synchronize()
+    forwards, replays = (sampler.counts[k] - before[k] for k in ("forwards", "replays"))
     t0 = time.perf_counter()
     clip_encoder.encode(prompts)
     text_s = time.perf_counter() - t0
     latents = torch.randn(len(prompts), 4, 32, 32, device="cuda")
     decode_ms = cuda_ms(lambda: codec.decode(latents), iters=3)
-    fields = {"prompts": prompts, "sampler": "ddim50", "forwards": forwards[0],
-              "request_s": request_s, "text_encode_s": text_s, "decode_ms": decode_ms,
-              "ms_per_forward_and_step": (1e3 * request_s - decode_ms) / max(forwards[0], 1)}
-    if not (forwards[0] == 50 and tuple(images.shape) == (4, 3, 256, 256)
+    fields = {"prompts": prompts, "sampler": "ddim50", "forwards": forwards,
+              "graph_replays": replays, "request_s": request_s, "text_encode_s": text_s,
+              "decode_ms": decode_ms,
+              "ms_per_forward_and_step": (1e3 * request_s - decode_ms) / max(forwards, 1)}
+    if not (forwards == 50 and replays == 51 and tuple(images.shape) == (4, 3, 256, 256)
             and torch.isfinite(images).all() and images.min() >= 0 and images.max() <= 1):
         raise RuntimeError(f"laion_sd_serve: images {tuple(images.shape)}: {fields}")
     emit("laion_sd_serve", **fields)
@@ -3536,17 +3760,20 @@ def phase_vae_train_parity() -> dict:
     return fields
 
 
-def _profile_window(name: str, fn, expect_flash: int = 0, sessions: int = 3,
+def _profile_window(name: str, fn, expect_flash: int = 0, sessions: int = 3, warm: int = 1,
                     **fields) -> None:
-    """Device time by kernel over one warm call of ``fn``, the device's busy
-    share of the window, and the flash kernels' device time in it.
+    """Device time by kernel over one warm call of ``fn`` (after ``warm``
+    calls: a sampler's first request captures its chain, its second its
+    decode's graph), the device's busy share of the window, and the flash
+    kernels' device time in it.
     ``expect_flash``: the flash kernel launches the call makes; a session
     whose flash events fall short is taken again, up to ``sessions`` in all
     (CUPTI does not always hand over a later session's kernel records), so
     every site comes from one session."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # warm-up
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
     counts = []
     for _ in range(sessions):
@@ -3587,20 +3814,31 @@ def _profile_window(name: str, fn, expect_flash: int = 0, sessions: int = 3,
 
 
 def phase_profile() -> None:
-    """Ten windows: one warm reconstruct + one prior decode of the conv-VAE;
+    """Fourteen windows: one warm reconstruct + one prior decode of the
+    conv-VAE, replayed from their graphs and eager (``vae_requests_eager``);
     5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample), eager
     and then replayed from a CUDA graph over a resident set; 20 steps
-    of the fp32 DDPM sampler (16 samples); the chain of one DPM++-15
-    serving request (CFG, bf16 forward, 16 samples); 3 warm conv-VAE train
+    of the fp32 DDPM sampler (16 samples) and the chain of one DPM++-15
+    serving request (CFG, bf16 forward, 16 samples), each replayed from its
+    graphs and eager (``_eager``); 3 warm conv-VAE train
     steps (256x256, batch 4, fp32, Adam) from ``vae_laion_best``, eager and
     replayed from a graph over a resident set, and the same replayed steps in
     bfloat16 (all flash sites from one profiler session); 5 latent
     MLP UNet train steps replayed from a graph; one DPM++-15 latent serving
-    request on the DiT."""
+    request on the DiT, replayed and eager."""
     model = load_conv_vae(CHECKPOINT, device="cuda")
     x01, eps, gen = _requests(model)
     _profile_window("vae_requests", lambda: (reconstruct(model, x01, eps),
-                                             sample_prior(model, N_PRIOR, gen)))
+                                             sample_prior(model, N_PRIOR, gen)), warm=2)
+    # The same requests eager, as the port ran them before their graphs.
+    x01_card, eps_card = x01.cuda(), eps.cuda()
+
+    def vae_eager():
+        with torch.inference_mode():
+            vae_laion._reconstruct(model, x01_card, eps_card)
+            model.decode(torch.randn(N_PRIOR, model.latent_dim, generator=gen, device="cuda"))
+
+    _profile_window("vae_requests_eager", vae_eager)
 
     unet = load_unet28(UNET_CHECKPOINT, "cuda").train()
     schedule = DiffusionSchedule.linear(1000).to("cuda")
@@ -3622,6 +3860,7 @@ def phase_profile() -> None:
                            compute_dtype=torch.float32)
     sample_gen = torch.Generator("cuda").manual_seed(SEED)
     _profile_window("sampler_steps", lambda: sampler(sample_gen), steps=20)
+    _profile_window("sampler_steps_eager", lambda: sampler.eager(sample_gen), steps=20)
 
     # One DPM++-15 serving request's chain, as generate.py runs it (CFG 2.0 at
     # doubled batch, the bf16 forward, the EMA shadow; n = 16).
@@ -3632,6 +3871,9 @@ def phase_profile() -> None:
     y7 = torch.full((SERVE_N,), 7, dtype=torch.int64, device="cuda")
     _profile_window("serve_dpmpp15", lambda: serve(sample_gen, params=cfg["params"], y=y7),
                     steps=15, n=SERVE_N)
+    _profile_window("serve_dpmpp15_eager",
+                    lambda: serve.eager(sample_gen, params=cfg["params"], y=y7), steps=15,
+                    n=SERVE_N)
 
     conv_vae = load_conv_vae(CHECKPOINT, device="cuda")
     vae_state = vae_laion.create_train_state(conv_vae, vae_laion.make_optimizer(conv_vae, 1e-4),
@@ -3687,7 +3929,9 @@ def phase_profile() -> None:
     dit = load_latent_checkpoint(LATENT_CHECKPOINTS["dit"], device="cuda")
     latent_serve = make_latent_pixel_sampler(dit, SERVE_N, method="dpmpp", sample_steps=15)
     _profile_window("latent_serve_dpmpp15", lambda: latent_serve(sample_gen, y7), steps=15,
-                    n=SERVE_N)
+                    n=SERVE_N, warm=2)
+    _profile_window("latent_serve_dpmpp15_eager", lambda: latent_serve.eager(sample_gen, y7),
+                    steps=15, n=SERVE_N)
 
 
 def main() -> int:
@@ -3733,6 +3977,7 @@ def main() -> int:
     phase_serve()
     phase_latent_serve()
     phase_laion_serve()
+    chain_graph = phase_chain_graph()
     phase_fid_mnist(data_root)
     data_dir.cleanup()
     fid_laion = phase_fid_laion()
@@ -3774,6 +4019,9 @@ def main() -> int:
             "launches_vae_train": vae["launches"]["flash_fwd"],
             # The LAION FID tool's conv-VAE rows, at B = 32.
             "launches_fid_laion": fid_laion["launches"]["flash_fwd"],
+            # chain_graph's float32 conv-VAE requests (3 each: an eager first,
+            # then a capture and replays).
+            "launches_chain_graph": _chain_graph_flash(chain_graph, "flash_fwd"),
             "max_abs_err": max(s["max_abs_err"] for s in sites),
             **{k: main_site[k] for k in flash_keys},
             "sites": [{k: v for k, v in s.items() if k not in context} for s in sites],
@@ -3826,6 +4074,8 @@ def main() -> int:
             "source": "tinydiffusion_torch/ops/csrc/flash_fwd_bf16.cu",
             "replaces": "tinydiffusion_tpu/ops/attention.py:113",
             "launches": vae_bf16["launches"]["flash_fwd_bf16"],
+            # chain_graph's bfloat16 conv-VAE serving requests.
+            "launches_chain_graph": _chain_graph_flash(chain_graph, "flash_fwd_bf16"),
             "max_abs_err": max(s["max_abs_err"] for s in bf16_sites),
             **{k: bf16_sites[0][k] for k in flash_keys},  # N = 16384
             "sites": [{k: v for k, v in s.items() if k not in context} for s in bf16_sites],

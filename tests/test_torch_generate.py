@@ -18,9 +18,12 @@ import pytest
 import torch
 from PIL import Image, ImageDraw
 
+from chip_smoke import SERVE_FORWARDS, SERVE_REQUESTS
 from tests.test_torch_diffusion import SMALL
+from tests.test_torch_sampler_graph import stand_in  # noqa: F401 (a fixture)
+from tinydiffusion_torch.core.graphs import GRAPH_WARMUP_STEPS
 from tinydiffusion_tpu.obs.images import save_image_grid as jax_save_image_grid
-from tinydiffusion_torch import generate
+from tinydiffusion_torch import generate, generate_laion
 from tinydiffusion_torch.io.checkpoint import save_checkpoint
 from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.obs import images
@@ -28,6 +31,7 @@ from tinydiffusion_torch.train.trainer import create_train_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_CHECKPOINT = os.path.join(REPO, "checkpoints", "conditional_cfg_ema_best")
+LAION_CHECKPOINT = os.path.join(REPO, "checkpoints", "laion_diffusion_1000ep")
 LATENT_CHECKPOINT = os.path.join(REPO, "checkpoints", "latent_diffusion_best")
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
 
@@ -151,7 +155,7 @@ def test_labelled_grid_equals_jax_byte_for_byte(tmp_path):
 # --- the serving CLI -------------------------------------------------------------------
 
 
-def _small_cfg_checkpoint(path: str) -> str:
+def _small_cfg_checkpoint(path: str, num_timesteps: int = 20) -> str:
     """A base-width-8 class-conditional UNet28 with the null row and an EMA
     shadow, saved as the port's run saves it."""
     torch.manual_seed(0)
@@ -160,7 +164,7 @@ def _small_cfg_checkpoint(path: str) -> str:
     with torch.no_grad():
         for e in state.ema_params.values():
             e.mul_(0.5)  # a shadow unlike the params
-    config = {**SMALL, "num_classes": 10, "label_dropout": 0.1, "num_timesteps": 20,
+    config = {**SMALL, "num_classes": 10, "label_dropout": 0.1, "num_timesteps": num_timesteps,
               "noise_schedule": "linear", "prediction": "eps"}
     save_checkpoint(path, state, config=config)
     return path
@@ -224,6 +228,38 @@ def test_generate_serves_the_committed_cfg_checkpoint(tmp_path):
               "--guidance-scale", "2.0", "--digit", "7", "--seed", "3")
     assert a["forwards"] == 2 and torch.equal(a["samples"], b["samples"])
     assert torch.isfinite(a["samples"]).all() and a["labels"] == [7] * 4
+
+
+def test_generate_counts_the_replayed_forwards_of_the_card_requests(tmp_path, capsys, stand_in):
+    """``chip_smoke.py``'s five serving requests (guidance 2, digit 7) on a
+    T = 1000 checkpoint, their chains replayed from stand-in graphs: the
+    forwards come from the chains' counts (a forward hook would fire at the
+    capture only), beside the captures and replays, as the card counts them."""
+    ckpt = _small_cfg_checkpoint(str(tmp_path / "cfg"), num_timesteps=1000)
+    init, mask = _pngs(tmp_path)
+    for name, flags in SERVE_REQUESTS.items():
+        flags = [init if f == "INIT" else mask if f == "MASK" else f for f in flags]
+        result = _main(ckpt, str(tmp_path / f"{name}.png"), "--guidance-scale", "2.0",
+                       "--digit", "7", *flags)
+        forwards = SERVE_FORWARDS[name]
+        assert (result["forwards"], result["captures"], result["replays"]) == (
+            forwards, 2 if name == "ddpm1000" else 1, forwards - GRAPH_WARMUP_STEPS), name
+        assert (f"{forwards} model forwards, {result['captures']} graph captures, "
+                f"{forwards - GRAPH_WARMUP_STEPS} replays") in capsys.readouterr().out
+
+
+def test_generate_laion_counts_the_replayed_forwards(tmp_path, stand_in):
+    """``generate_laion``'s first request, DDIM-4 on the committed checkpoint
+    with stand-in graphs: 4 forwards, 2 of them the warm-ups, the step
+    captured once and replayed twice; the decode's graph waits for the second
+    request (``--repeat 2``)."""
+    out = generate_laion.main(["--device", "cpu", "--out", str(tmp_path / "out.png"),
+                               "--checkpoint", LAION_CHECKPOINT, "--sampler", "ddim",
+                               "--sample-steps", "4", "--prompt", "a photo of a dog",
+                               "--dump-dir", str(tmp_path / "dump"), "--repeat", "2"])
+    assert (out["forwards"], out["captures"], out["replays"]) == (4, 1, 2)
+    assert [gens for _, gens in stand_in.captured] == [(), ()]  # DDIM at eta 0 draws nothing
+    assert len(out["dumped"]) == 2
 
 
 @pytest.mark.parametrize("flags, message", [

@@ -11,12 +11,19 @@ for t = T-1 .. 0, predicts eps and updates
 (Variance beta_t, not the posterior sigma-tilde^2, as in the reference.)
 DDIM and DPM-Solver++ step over a strided subsequence of the timesteps.
 
-The JAX package compiles each chain into one ``lax.scan``; here it is a
-Python loop over the steps that never reads a device value, so the host only
-queues work. The per-step coefficients are tables made before the loop (the
-DDPM ones from the schedule on its device; the DDIM and DPM-Solver++ ones on
-the host, in numpy, from one copy of ``alphas_cumprod``, and uploaded once),
-and indexing a table by a Python int gives a device scalar without a copy.
+The JAX package compiles each chain into one ``lax.scan``. Here each chain
+is a ``Chain``: its step written once, as the scan's body, over device
+buffers and indexed by a position tensor on the device that the body
+advances. The timesteps and the per-step coefficients are tables made
+before the chain (the DDPM ones from the schedule on its device; the DDIM
+and DPM-Solver++ ones on the host, in numpy, from one copy of
+``alphas_cumprod``), uploaded once in the chain's dtype; JAX's selects on
+``t > 0`` and on the final DDIM step are table values too, and DPM++'s
+``m_prev`` and the trajectory's frames are buffers the body writes. The
+functions below run the bodies eagerly from the host (the CPU's path, and
+the reference on a card); ``core.graphs.ChainRunner`` captures them in CUDA
+graphs and replays them. A DDPM step at t = 0 draws nothing, so it is a
+body of its own: the generator ends where the eager chain leaves it.
 
 Replay seams, as in JAX: ``x_init`` replaces the initial draw,
 ``noise_stream[i]`` the noise of step i (DDPM: step 0 is timestep T-1; DDIM:
@@ -40,27 +47,95 @@ from tinydiffusion_torch.core.schedule import DiffusionSchedule
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-class _Draws:
-    """The chain's noise: from the replay streams where given, else drawn
-    from ``generator`` in the order the steps ask."""
+class Chain:
+    """A reverse chain in JAX's scan form: its steps as bodies over device
+    buffers, each body indexed by the position ``pos``, a 0-d int64 tensor
+    on the device that the body advances itself. ``kinds[i]`` names the body
+    of step i (``"step"``; ``"last"`` for a final DDPM step at t = 0, which
+    draws nothing). A body reads its timestep and coefficients from tables
+    by ``pos``, the noise from the generator or from a replay stream at
+    ``pos``, and writes the carry ``x`` (and DPM++'s ``m_prev``, the
+    trajectory's ``frames``) in place. Nothing in a body reads a host value
+    that changes from step to step, so a CUDA graph can capture it
+    (``core.graphs.ChainRunner``); ``run_eagerly`` runs the same bodies from
+    the host.
 
-    def __init__(self, shape, generator, dtype, device, noise_stream=None, known_stream=None):
-        self.shape, self.generator, self.dtype, self.device = shape, generator, dtype, device
-        self.streams = {"noise": noise_stream, "known": known_stream}
+    ``inputs`` (name -> tensor on the device, in the chain's dtype, or
+    None): ``x_init``; ``noise`` and ``known``, the (steps, *shape) replay
+    streams; ``mask`` and ``x_known``. ``draws``: whether a body draws from
+    ``generator``."""
 
-    def normal(self) -> torch.Tensor:
-        if self.generator is None:
-            raise ValueError("the sampler needs a generator unless every draw is given "
-                             "(x_init, and noise_stream/known_stream where the chain uses them)")
-        return torch.randn(self.shape, generator=self.generator, device=self.device,
+    def __init__(self, shape, dtype, timesteps: np.ndarray, inputs: dict, device):
+        self.shape, self.dtype, self.inputs = tuple(shape), dtype, inputs
+        self.timesteps = torch.as_tensor(timesteps, dtype=torch.int64).to(device)
+        self.x = torch.empty(self.shape, dtype=dtype, device=device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.generator = None
+        self.kinds: list[str] = ["step"] * len(timesteps)
+        self.bodies: dict = {}
+        self.draws = False
+        self.carries: list[torch.Tensor] = []  # zeroed at the start (DPM++'s m_prev)
+        self.frames = None
+
+    def table(self, values) -> torch.Tensor:
+        """A per-step table on the device in the chain's dtype."""
+        return torch.as_tensor(values).to(self.x.device, self.dtype)
+
+    def at(self, table: torch.Tensor) -> torch.Tensor:
+        """Entry ``pos`` of a per-step table, as a (1,) tensor."""
+        return table.index_select(0, self.pos.view(1))
+
+    def t_vec(self) -> torch.Tensor:
+        return self.timesteps.index_select(0, self.pos.expand(self.shape[0]))
+
+    def draw(self, stream: str) -> torch.Tensor:
+        """This step's ``noise`` or ``known`` draw: the replay stream's entry
+        at ``pos``, else a normal from the generator."""
+        given = self.inputs.get(stream)
+        if given is not None:
+            return given.index_select(0, self.pos.view(1))[0]
+        return torch.randn(self.shape, generator=self.generator, device=self.x.device,
                            dtype=self.dtype)
 
-    def init(self, x_init) -> torch.Tensor:
-        return x_init.to(self.device, self.dtype) if x_init is not None else self.normal()
+    def start(self, generator) -> None:
+        """x from ``x_init`` or drawn from ``generator``; the position and
+        the carries to zero."""
+        if generator is None and (self.draws or self.inputs.get("x_init") is None):
+            raise ValueError("the sampler needs a generator unless every draw is given "
+                             "(x_init, and noise_stream/known_stream where the chain uses them)")
+        x_init = self.inputs.get("x_init")
+        self.x.copy_(x_init if x_init is not None else torch.randn(
+            self.shape, generator=generator, device=self.x.device, dtype=self.dtype))
+        self.pos.zero_()
+        for carry in self.carries:
+            carry.zero_()
 
-    def step(self, kind: str, i: int) -> torch.Tensor:
-        stream = self.streams[kind]
-        return stream[i].to(self.device, self.dtype) if stream is not None else self.normal()
+    def advance(self, x: torch.Tensor) -> None:
+        """The step's end: ``x`` into the carry (and the frame at ``pos``),
+        then the next position."""
+        self.x.copy_(x)
+        if self.frames is not None:
+            self.frames.index_copy_(0, self.pos.view(1), x.unsqueeze(0))
+        self.pos.add_(1)
+
+    def result(self) -> torch.Tensor:
+        return self.x if self.frames is None else self.frames
+
+    def run_eagerly(self, generator) -> torch.Tensor:
+        self.generator = generator
+        self.start(generator)
+        for kind in self.kinds:
+            self.bodies[kind]()
+        return self.result()
+
+
+def chain_inputs(device, dtype, x_init=None, noise_stream=None, known_stream=None, mask=None,
+                 x_known=None) -> dict:
+    """A chain's ``inputs`` from the samplers' arguments: on ``device``, in
+    the chain's ``dtype``."""
+    named = {"x_init": x_init, "noise": noise_stream, "known": known_stream, "mask": mask,
+             "x_known": x_known}
+    return {name: None if v is None else v.to(device, dtype) for name, v in named.items()}
 
 
 def _check_inpainting(mask, x_known) -> None:
@@ -76,10 +151,6 @@ def _composite(x, mask, x_known, c_known, c_noise, zk):
     return mask * known_t + (1.0 - mask) * x
 
 
-def _t_vec(x: torch.Tensor, t: int) -> torch.Tensor:
-    return torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-
-
 def _ddpm_tables(schedule: DiffusionSchedule) -> tuple[torch.Tensor, ...]:
     """(1/sqrt(alpha), (1-alpha)/sqrt(1-abar), sqrt(beta), and for inpainting
     sqrt(abar_{t-1}), sqrt(1-abar_{t-1}) with abar_{-1} = 1), (T,) each."""
@@ -93,27 +164,39 @@ def _ddpm_tables(schedule: DiffusionSchedule) -> tuple[torch.Tensor, ...]:
     )
 
 
-def _ddpm_chain(apply_fn, schedule, shape, generator, dtype, x_init, noise_stream, timesteps,
-                keep_frames: bool, mask=None, x_known=None, known_stream=None) -> torch.Tensor:
-    """Ancestral steps at ``timesteps``; the final x, or every x."""
+def ddpm_chain(apply_fn, schedule, shape, dtype, inputs: dict, timesteps,
+               keep_frames: bool = False) -> Chain:
+    """Ancestral steps at ``timesteps`` (descending): x_0, or every x as
+    ``frames``. A step at t > 0 adds its noise (and re-noises the known
+    region of an inpainting chain); the step at t = 0 draws nothing, and is
+    the body ``"last"``."""
     device = schedule.betas.device
-    c_x, c_eps, sigma, c_known, c_noise = _ddpm_tables(schedule)
-    draws = _Draws(shape, generator, dtype, device, noise_stream, known_stream)
-    x = draws.init(x_init)
-    if mask is not None:
-        mask, x_known = mask.to(device, dtype), x_known.to(device, dtype)
-    frames = []
-    for i, t in enumerate(timesteps):
-        eps_hat = apply_fn(x, _t_vec(x, t)).to(dtype)
-        x = c_x[t].to(dtype) * (x - c_eps[t].to(dtype) * eps_hat)
-        if t > 0:
-            x = x + sigma[t].to(dtype) * draws.step("noise", i)
-        if mask is not None:
-            zk = draws.step("known", i) if t > 0 else None
-            x = _composite(x, mask, x_known, c_known[t].to(dtype), c_noise[t].to(dtype), zk)
-        if keep_frames:
-            frames.append(x)
-    return torch.stack(frames) if keep_frames else x
+    chain = Chain(shape, dtype, np.asarray(timesteps, np.int64), inputs, device)
+    ts = chain.timesteps
+    c_x, c_eps, sigma, c_known, c_noise = (v[ts].to(dtype) for v in _ddpm_tables(schedule))
+    mask, x_known = inputs.get("mask"), inputs.get("x_known")
+    chain.kinds = ["step" if t > 0 else "last" for t in timesteps]
+    chain.draws = "step" in chain.kinds and (inputs.get("noise") is None or (
+        mask is not None and inputs.get("known") is None))
+    if keep_frames:
+        chain.frames = torch.empty((len(ts),) + chain.shape, dtype=dtype, device=device)
+
+    def body(last: bool):
+        def step():
+            x = chain.x
+            eps_hat = apply_fn(x, chain.t_vec()).to(dtype)
+            x = chain.at(c_x) * (x - chain.at(c_eps) * eps_hat)
+            if not last:
+                x = x + chain.at(sigma) * chain.draw("noise")
+            if mask is not None:
+                zk = None if last else chain.draw("known")
+                x = _composite(x, mask, x_known, chain.at(c_known), chain.at(c_noise), zk)
+            chain.advance(x)
+
+        return step
+
+    chain.bodies = {"step": body(False), "last": body(True)}
+    return chain
 
 
 @torch.inference_mode()
@@ -142,9 +225,10 @@ def ddpm_sample(
     (T, *shape) replays the zk draws (entry T-1, at t = 0, is unused).
     """
     _check_inpainting(mask, x_known)
+    inputs = chain_inputs(schedule.betas.device, dtype, x_init, noise_stream, known_stream,
+                          mask, x_known)
     timesteps = range(schedule.num_timesteps - 1, -1, -1)
-    return _ddpm_chain(apply_fn, schedule, shape, generator, dtype, x_init, noise_stream,
-                       timesteps, False, mask, x_known, known_stream)
+    return ddpm_chain(apply_fn, schedule, shape, dtype, inputs, timesteps).run_eagerly(generator)
 
 
 def ddim_timesteps(num_timesteps: int, num_steps: int, t_start: int | None = None) -> np.ndarray:
@@ -239,29 +323,45 @@ def ddim_sample(
     ``known_stream`` the inpainting noise; the last entry of each is unused.
     """
     _check_inpainting(mask, x_known)
-    device = schedule.betas.device
+    inputs = chain_inputs(schedule.betas.device, dtype, x_init, noise_stream, known_stream,
+                          mask, x_known)
+    return ddim_chain(apply_fn, schedule, shape, dtype, inputs, num_steps, eta,
+                      t_start).run_eagerly(generator)
+
+
+def ddim_chain(apply_fn, schedule, shape, dtype, inputs: dict, num_steps: int, eta: float,
+               t_start: int | None = None) -> Chain:
+    """The DDIM chain of ``ddim_sample``. The final step (s = -1) is a table
+    value, as JAX's select: it adds no eta noise and composites plain
+    ``x_known``, though each step draws alike."""
+    eta = float(eta)
     taus = ddim_timesteps(schedule.num_timesteps, num_steps, t_start)
-    host = _ddim_tables(_host_alphas_cumprod(schedule), taus, float(eta))
-    final = host.pop("final")
-    tab = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-    draws = _Draws(shape, generator, dtype, device, noise_stream, known_stream)
-    x = draws.init(x_init)
-    if mask is not None:
-        mask, x_known = mask.to(device, dtype), x_known.to(device, dtype)
-    for i, t in enumerate(taus.tolist()):
-        c = {k: v[i].to(dtype) for k, v in tab.items()}
-        eps_hat = apply_fn(x, _t_vec(x, t)).to(dtype)
+    chain = Chain(shape, dtype, taus, inputs, schedule.betas.device)
+    host = _ddim_tables(_host_alphas_cumprod(schedule), taus, eta)
+    final = torch.from_numpy(host.pop("final")).to(chain.x.device)
+    tab = {k: chain.table(v) for k, v in host.items()}
+    mask, x_known = inputs.get("mask"), inputs.get("x_known")
+    chain.draws = (eta > 0.0 and inputs.get("noise") is None) or (
+        mask is not None and inputs.get("known") is None)
+
+    def step():
+        x = chain.x
+        c = {k: chain.at(v) for k, v in tab.items()}
+        last = chain.at(final)
+        eps_hat = apply_fn(x, chain.t_vec()).to(dtype)
         x0_hat = (x - c["eps_in_x0"] * eps_hat) * c["x0_scale"]
         x = c["x0_out"] * x0_hat + c["eps_out"] * eps_hat
         if eta > 0.0:
-            z = draws.step("noise", i)
-            if not final[i]:
-                x = x + c["sigma"] * z
+            z = chain.draw("noise")
+            x = torch.where(last, x, x + c["sigma"] * z)
         if mask is not None:
-            zk = draws.step("known", i)
-            x = _composite(x, mask, x_known, c["x0_out"], c["known_noise"],
-                           None if final[i] else zk)
-    return x
+            zk = chain.draw("known")
+            known_t = torch.where(last, x_known, c["x0_out"] * x_known + c["known_noise"] * zk)
+            x = mask * known_t + (1.0 - mask) * x
+        chain.advance(x)
+
+    chain.bodies = {"step": step}
+    return chain
 
 
 def _dpmpp_coefficients(abar: np.ndarray, num_steps: int) -> tuple[np.ndarray, ...]:
@@ -311,17 +411,29 @@ def dpmpp_sample(
     with the coefficients of ``_dpmpp_coefficients``, made on the host in
     float64 and uploaded once in the chain's dtype. Deterministic given
     ``x_init`` (the only draw)."""
-    device = schedule.betas.device
+    inputs = chain_inputs(schedule.betas.device, dtype, x_init)
+    return dpmpp_chain(apply_fn, schedule, shape, dtype, inputs, num_steps).run_eagerly(generator)
+
+
+def dpmpp_chain(apply_fn, schedule, shape, dtype, inputs: dict, num_steps: int) -> Chain:
+    """The DPM-Solver++(2M) chain of ``dpmpp_sample``; ``m_prev`` is a
+    buffer that each step writes."""
     taus, *coeffs = _dpmpp_coefficients(_host_alphas_cumprod(schedule), num_steps)
-    a_t, s_t, c_x, c_d, c_2 = (torch.from_numpy(v).to(device, dtype) for v in coeffs)
-    x = _Draws(shape, generator, dtype, device).init(x_init)
-    m_prev = torch.zeros_like(x)
-    for i, t in enumerate(taus.tolist()):
-        eps_hat = apply_fn(x, _t_vec(x, t)).to(dtype)
-        m = (x - s_t[i] * eps_hat) / a_t[i]
-        x = c_x[i] * x + c_d[i] * m + c_2[i] * (m - m_prev)
-        m_prev = m
-    return x
+    chain = Chain(shape, dtype, taus, inputs, schedule.betas.device)
+    a_t, s_t, c_x, c_d, c_2 = (chain.table(v) for v in coeffs)
+    m_prev = torch.zeros_like(chain.x)
+    chain.carries = [m_prev]
+
+    def step():
+        x = chain.x
+        eps_hat = apply_fn(x, chain.t_vec()).to(dtype)
+        m = (x - chain.at(s_t) * eps_hat) / chain.at(a_t)
+        x = chain.at(c_x) * x + chain.at(c_d) * m + chain.at(c_2) * (m - m_prev)
+        m_prev.copy_(m)
+        chain.advance(x)
+
+    chain.bodies = {"step": step}
+    return chain
 
 
 @torch.inference_mode()
@@ -339,7 +451,13 @@ def ddpm_denoising_trajectory(
     ``visualize_denoising_process``): one reverse step at each t of
     T-stride, T-2*stride, .., >= 0, recording x after each. Returns
     (T // stride, *shape); ``noise_stream`` is (T // stride, *shape)."""
+    inputs = chain_inputs(schedule.betas.device, dtype, x_init, noise_stream)
+    return trajectory_chain(apply_fn, schedule, shape, dtype, inputs,
+                            stride).run_eagerly(generator)
+
+
+def trajectory_chain(apply_fn, schedule, shape, dtype, inputs: dict, stride: int) -> Chain:
+    """The chain of ``ddpm_denoising_trajectory``: its frames are the result."""
     stride = min(stride, schedule.num_timesteps)
     timesteps = range(schedule.num_timesteps - stride, -1, -stride)
-    return _ddpm_chain(apply_fn, schedule, shape, generator, dtype, x_init, noise_stream,
-                       timesteps, keep_frames=True)
+    return ddpm_chain(apply_fn, schedule, shape, dtype, inputs, timesteps, keep_frames=True)

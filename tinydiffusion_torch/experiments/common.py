@@ -13,18 +13,21 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import logging
 
 import numpy as np
 import torch
 from torch import nn
 
+from tinydiffusion_torch.core.graphs import ChainRunner
 from tinydiffusion_torch.core.process import eps_from_v
 from tinydiffusion_torch.core.sampler import (
-    ddim_sample,
-    ddpm_denoising_trajectory,
-    ddpm_sample,
-    dpmpp_sample,
+    chain_inputs,
+    ddim_chain,
+    ddpm_chain,
+    dpmpp_chain,
+    trajectory_chain,
 )
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.device import disable_tf32, resolve_device
@@ -177,9 +180,10 @@ def make_latent_pixel_sampler(loaded: dict, n: int, method: str = "ddpm",
     """The pixel-space sampler of a ``load_latent_checkpoint``: the latent
     reverse chain (``make_sampler``'s DDPM, DDIM or DPM++ over (n,
     latent_dim), the denoiser in the checkpoint's ``compute_dtype``, the
-    chain in ``dtype``) and the VAE's decode. ``fn(generator, y,
-    x_init=None, noise_stream=None) -> (n, 1, 28, 28)`` images in [-1, 1],
-    as the pixel models serve them."""
+    chain in ``dtype``) and the VAE's decode, a graph of its own on a card.
+    ``fn(generator, y, x_init=None, noise_stream=None) -> (n, 1, 28, 28)``
+    images in [-1, 1], as the pixel models serve them (``fn.eager`` and
+    ``fn.counts`` as ``make_sampler``'s)."""
     from tinydiffusion_torch.experiments.latent_diffusion import make_latent_sampler
 
     sampler = make_latent_sampler(
@@ -187,12 +191,12 @@ def make_latent_pixel_sampler(loaded: dict, n: int, method: str = "ddpm",
         dtype=dtype, prediction=loaded["prediction"], compute_dtype=loaded["compute_dtype"],
         method=method, sample_steps=sample_steps, eta=eta)
 
-    def sample_fn(generator, y, x_init=None, noise_stream=None):
-        x = sampler(generator, params=loaded["params"], y=y, x_init=x_init,
-                    noise_stream=noise_stream)
+    def sample(eager, generator, y, x_init=None, noise_stream=None):
+        x = (sampler.eager if eager else sampler)(generator, params=loaded["params"], y=y,
+                                                  x_init=x_init, noise_stream=noise_stream)
         return x * 2.0 - 1.0  # the decoder's [0, 1] to the pixel models' [-1, 1]
 
-    return sample_fn
+    return with_eager(sample, sampler.counts)
 
 
 @contextlib.contextmanager
@@ -205,28 +209,36 @@ def _eval_mode(model: nn.Module):
         model.train(was_training)
 
 
-def _denoiser(model, schedule, params, y, conditional, prediction, compute_dtype,
-              guidance_scale=1.0, null_label=None):
+def _condition(y, guided: bool, null_label):
+    """The model's conditioning: ``y``, or for guidance ``[y, null]``
+    stacked (the null condition a class index, or a tensor row broadcast
+    over ``y``'s rows: a text model's empty-string embedding)."""
+    if not guided:
+        return y
+    null = (null_label.to(y.dtype).expand_as(y) if isinstance(null_label, torch.Tensor)
+            else torch.full_like(y, null_label))
+    return torch.cat([y, null])
+
+
+def _denoiser(model, schedule, params, cond, conditional, prediction, compute_dtype,
+              guidance_scale=1.0):
     """``apply_fn(x, t) -> eps_hat`` over ``model`` in eval mode, with
     ``params`` (name -> tensor, e.g. an EMA shadow) in place of its own. The
-    model runs in ``compute_dtype`` (bfloat16: under ``torch.autocast``),
-    whatever the chain's dtype; its float32 output goes back to the chain.
+    model runs in ``compute_dtype`` (bfloat16: under ``torch.autocast``,
+    without its cache of cast weights, which may not outlive a CUDA graph's
+    capture), whatever the chain's dtype; its float32 output goes back to the
+    chain.
 
-    With guidance, the conditional and the null-label predictions come from
-    one forward at doubled batch (``[y, null]`` stacked; eval-mode BatchNorm
-    makes the rows independent): ``eps_n + s * (eps_c - eps_n)``. The null
-    condition is a class index, or a tensor row broadcast over ``y``'s rows
-    (a text model's empty-string embedding)."""
+    With guidance, ``cond`` is ``_condition``'s ``[y, null]`` stack: the
+    conditional and the null-label predictions come from one forward at
+    doubled batch (eval-mode BatchNorm makes the rows independent), ``eps_n
+    + s * (eps_c - eps_n)``."""
     guided = conditional and guidance_scale != 1.0
-    if guided:
-        null = (null_label.to(y.dtype).expand_as(y) if isinstance(null_label, torch.Tensor)
-                else torch.full_like(y, null_label))
-        y = torch.cat([y, null])
-    args = (y,) if conditional else ()
+    args = (cond,) if conditional else ()
 
     def forward(x, t_vec):
         with torch.autocast(x.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype != torch.float32):
+                            enabled=compute_dtype != torch.float32, cache_enabled=False):
             if params is None:
                 out = model(x, t_vec, *args)
             else:
@@ -241,6 +253,40 @@ def _denoiser(model, schedule, params, y, conditional, prediction, compute_dtype
         return eps_n + guidance_scale * (eps_c - eps_n)
 
     return apply_fn
+
+
+def _chain_sampler(model, schedule, conditional, dtype, prediction, compute_dtype,
+                   guidance_scale, null_label, chain_fn, decode, decode_reads, options=()):
+    """``(run, counts)`` over one ``ChainRunner``: ``run(eager, shape,
+    generator, params, y, x_init, noise_stream, known_stream, mask,
+    x_known)`` samples the chain of ``chain_fn(apply_fn, shape, inputs) ->
+    Chain`` and maps its end through ``decode`` (or not, if None): from
+    replayed CUDA graphs on a card, or, with ``eager``, from the host step by
+    step (the reference the graphs are held to). ``options`` (the method,
+    its steps, t_start, ...) join the graphs' key with the dtypes, the
+    guidance and the shape; ``counts`` are the runner's."""
+    guided = conditional and guidance_scale != 1.0
+    device = schedule.betas.device
+    runner = ChainRunner()
+
+    def run(eager, shape, generator, params, y, x_init, noise_stream, known_stream, mask,
+            x_known):
+        _check_labels(conditional, y, shape[0])
+        inputs = chain_inputs(device, dtype, x_init, noise_stream, known_stream, mask, x_known)
+        inputs["cond"] = _condition(y.to(device), guided, null_label) if conditional else None
+
+        def build(statics):
+            apply_fn = _denoiser(model, schedule, params, statics.get("cond"), conditional,
+                                 prediction, compute_dtype, guidance_scale)
+            return chain_fn(apply_fn, shape, statics)
+
+        key = (shape, options, dtype, compute_dtype, prediction, guidance_scale,
+               params is None)
+        with _eval_mode(model):
+            return runner.run(key, (params, model, schedule, decode_reads), build, device,
+                              generator, inputs, decode, eager)
+
+    return run, runner.counts
 
 
 def to_nhwc01(x: torch.Tensor) -> np.ndarray:
@@ -278,6 +324,8 @@ def make_sampler(
     mask: torch.Tensor | None = None,
     x_known: torch.Tensor | None = None,
     compute_dtype: torch.dtype = torch.float32,
+    decode=None,
+    decode_reads=None,
 ):
     """The sampler over ``model`` in eval mode: ``sample_fn(generator,
     params=None, y=None, n=None, x_init=None, noise_stream=None,
@@ -298,10 +346,24 @@ def make_sampler(
     - ``t_start`` (DDIM only) runs the img2img partial chain: pass the noised
       image as ``x_init``. ``mask``/``x_known`` inpaint (DDPM or DDIM).
 
+    - ``decode`` (or None) maps the chain's end to the result: a latent
+      model's decode, whose weights (a module, a codec) are ``decode_reads``.
+
     ``params`` replaces the model's parameters (an EMA shadow); the model's
     own buffers (BatchNorm statistics) are used, as JAX samples with the live
     ``batch_stats``. The arguments are checked here, on the host, with JAX's
-    ``ValueError``s."""
+    ``ValueError``s.
+
+    On a card the chain runs as JAX's one program does: as CUDA graphs, its
+    step captured once and replayed step by step and the decode a small
+    graph of its own (``core.graphs.ChainRunner``; a chain of at most
+    ``GRAPH_WARMUP_STEPS`` steps runs eagerly). The graphs of one shape
+    serve every later request whose inputs have the same shapes and whose
+    params, model and decode hold the same tensors; inputs, labels and
+    generators may change. ``sample_fn.eager`` runs the same chain from the
+    host, step by step (the CPU's path), and ``sample_fn.counts`` tallies
+    steps run ``eager``, graph ``captures`` and ``replays``, model
+    ``forwards`` and the host's ``capture_ms``."""
     if method not in ("ddpm", "ddim", "dpmpp"):
         raise ValueError(f"unknown sampler method {method!r}; use 'ddpm', 'ddim', or 'dpmpp'")
     _check_prediction(prediction)
@@ -313,25 +375,34 @@ def make_sampler(
         raise ValueError("guidance_scale != 1 needs null_label (a model trained with "
                          "label_dropout; the reserved null embedding row)")
 
-    def sample_fn(generator=None, params=None, y=None, n=None, x_init=None, noise_stream=None,
-                  known_stream=None):
-        shape = tuple(sample_shape) if n is None else (n,) + tuple(sample_shape[1:])
-        _check_labels(conditional, y, shape[0])
-        apply_fn = _denoiser(model, schedule, params, y, conditional, prediction, compute_dtype,
-                             guidance_scale, null_label)
-        with _eval_mode(model):
-            if method == "dpmpp":
-                return dpmpp_sample(apply_fn, schedule, shape, generator,
-                                    num_steps=sample_steps, dtype=dtype, x_init=x_init)
-            if method == "ddim":
-                return ddim_sample(apply_fn, schedule, shape, generator, num_steps=sample_steps,
-                                   eta=eta, dtype=dtype, x_init=x_init, t_start=t_start,
-                                   mask=mask, x_known=x_known, noise_stream=noise_stream,
-                                   known_stream=known_stream)
-            return ddpm_sample(apply_fn, schedule, shape, generator, dtype=dtype, x_init=x_init,
-                               noise_stream=noise_stream, mask=mask, x_known=x_known,
-                               known_stream=known_stream)
+    def chain_fn(apply_fn, shape, inputs):
+        if method == "dpmpp":
+            return dpmpp_chain(apply_fn, schedule, shape, dtype, inputs, sample_steps)
+        if method == "ddim":
+            return ddim_chain(apply_fn, schedule, shape, dtype, inputs, sample_steps, eta, t_start)
+        return ddpm_chain(apply_fn, schedule, shape, dtype, inputs,
+                          range(schedule.num_timesteps - 1, -1, -1))
 
+    run, counts = _chain_sampler(model, schedule, conditional, dtype, prediction, compute_dtype,
+                                 guidance_scale, null_label, chain_fn, decode, decode_reads,
+                                 (method, sample_steps, eta, t_start))
+
+    def sample(eager, generator=None, params=None, y=None, n=None, x_init=None,
+               noise_stream=None, known_stream=None):
+        shape = tuple(sample_shape) if n is None else (n,) + tuple(sample_shape[1:])
+        return run(eager, shape, generator, params, y, x_init, noise_stream, known_stream, mask,
+                   x_known)
+
+    return with_eager(sample, counts)
+
+
+def with_eager(sample, counts):
+    """``sample(eager, ...)`` as the sampler ``sample_fn(...)`` (the graphs
+    on a card), with ``sample_fn.eager(...)`` (the eager chain) and
+    ``sample_fn.counts`` (the runner's) beside it."""
+    sample_fn = functools.partial(sample, False)
+    sample_fn.eager = functools.partial(sample, True)
+    sample_fn.counts = counts
     return sample_fn
 
 
@@ -344,22 +415,28 @@ def make_trajectory_sampler(
     dtype: torch.dtype = torch.float32,
     prediction: str = "eps",
     compute_dtype: torch.dtype = torch.float32,
+    decode=None,
+    decode_reads=None,
 ):
     """The coarse denoising-trajectory sampler (the reference's
     ``visualize_denoising_process``): ``traj_fn(generator, params=None,
     y=None, x_init=None, noise_stream=None) -> (T // stride,
-    *sample_shape)``, the chain in ``dtype``, the model in ``compute_dtype``."""
+    *sample_shape)``, the chain in ``dtype``, the model in ``compute_dtype``;
+    ``decode`` (and ``traj_fn.eager``, ``traj_fn.counts``) as
+    ``make_sampler``'s, of the frames."""
     _check_prediction(prediction)
 
-    def traj_fn(generator=None, params=None, y=None, x_init=None, noise_stream=None):
-        _check_labels(conditional, y, sample_shape[0])
-        apply_fn = _denoiser(model, schedule, params, y, conditional, prediction, compute_dtype)
-        with _eval_mode(model):
-            return ddpm_denoising_trajectory(apply_fn, schedule, sample_shape, generator,
-                                             stride=stride, dtype=dtype, x_init=x_init,
-                                             noise_stream=noise_stream)
+    def chain_fn(apply_fn, shape, inputs):
+        return trajectory_chain(apply_fn, schedule, shape, dtype, inputs, stride)
 
-    return traj_fn
+    run, counts = _chain_sampler(model, schedule, conditional, dtype, prediction, compute_dtype,
+                                 1.0, None, chain_fn, decode, decode_reads, ("trajectory", stride))
+
+    def trajectory(eager, generator=None, params=None, y=None, x_init=None, noise_stream=None):
+        return run(eager, tuple(sample_shape), generator, params, y, x_init, noise_stream, None,
+                   None, None)
+
+    return with_eager(trajectory, counts)
 
 
 # The largest dataset that ``data_placement="auto"`` keeps in device memory:

@@ -77,6 +77,7 @@ from tinydiffusion_torch.experiments.common import (
     make_sampler,
     resolve_data_placement,
     resolve_dtype,
+    with_eager,
 )
 from tinydiffusion_torch.io.checkpoint import (
     BestKeeper,
@@ -231,29 +232,35 @@ def make_laion_sampler(model: torch.nn.Module, schedule: DiffusionSchedule, code
     (a model trained with caption dropout; ``null_embed`` is the empty-string
     embedding) takes the text and the null predictions from one forward at
     doubled batch: ``eps_n + s (eps_t - eps_n)``. Then the codec's decode in
-    float32, ``clip(x / 2 + 0.5, 0, 1)`` and non-finite pixels set to 0.
-    ``params`` replaces the model's parameters (an EMA shadow); ``x_init``
-    and ``noise_stream`` replace the chain's draws (``core.sampler``), the
-    seam through which the tests replay JAX's."""
+    float32, ``clip(x / 2 + 0.5, 0, 1)`` and non-finite pixels set to 0: on
+    a card one graph of its own after the chain's (``sample_fn.eager`` and
+    ``sample_fn.counts`` as ``make_sampler``'s). ``params`` replaces the
+    model's parameters (an EMA shadow); ``x_init`` and ``noise_stream``
+    replace the chain's draws (``core.sampler``), the seam through which the
+    tests replay JAX's."""
     if method not in ("ddpm", "ddim"):
         raise ValueError(f"unknown sampler method {method!r}; use 'ddpm' or 'ddim'")
     if guidance_scale != 1.0 and null_embed is None:
         raise ValueError("guidance_scale != 1 needs null_embed (a model trained with "
                          "caption_dropout; the empty-string embedding)")
+
+    def decode(latents):
+        images = torch.clamp(codec.decode(latents.float()) / 2 + 0.5, 0.0, 1.0)
+        return torch.where(torch.isfinite(images), images, torch.zeros_like(images))
+
     sampler = make_sampler(model, schedule, (n_samples, latent_channels, latent_size, latent_size),
                            conditional=True, dtype=dtype, method=method,
                            sample_steps=sample_steps, eta=eta, guidance_scale=guidance_scale,
-                           null_label=null_embed, compute_dtype=compute_dtype)
+                           null_label=null_embed, compute_dtype=compute_dtype, decode=decode,
+                           decode_reads=codec)
 
-    def sample_fn(generator, text_embeds: torch.Tensor, params=None, x_init=None,
-                  noise_stream=None) -> torch.Tensor:
-        latents = sampler(generator, params=params, y=text_embeds, x_init=x_init,
-                          noise_stream=noise_stream)
-        with torch.no_grad():
-            images = torch.clamp(codec.decode(latents.float()) / 2 + 0.5, 0.0, 1.0)
-        return torch.where(torch.isfinite(images), images, torch.zeros_like(images))
+    def sample(eager, generator, text_embeds: torch.Tensor, params=None, x_init=None,
+               noise_stream=None) -> torch.Tensor:
+        run = sampler.eager if eager else sampler
+        return run(generator, params=params, y=text_embeds, x_init=x_init,
+                   noise_stream=noise_stream)
 
-    return sample_fn
+    return with_eager(sample, sampler.counts)
 
 
 def to_nhwc(images: torch.Tensor) -> np.ndarray:

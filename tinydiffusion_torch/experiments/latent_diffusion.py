@@ -212,17 +212,15 @@ def make_latent_sampler(vae: VAEMnist, model: nn.Module, schedule: DiffusionSche
     noise_stream=None) -> (n, 1, 28, 28)`` pixel probabilities in [0, 1].
     The chain is ``make_sampler``'s over (n, latent_dim) (DDPM unless
     ``sampler_options`` say ``method``), the denoiser in ``compute_dtype``,
-    the decoder in float32."""
-    sampler = make_sampler(model, schedule, (n_samples, latent_dim), conditional=True,
-                           dtype=dtype, prediction=prediction, compute_dtype=compute_dtype,
-                           **sampler_options)
+    the decoder in float32: on a card the decode is a graph of its own after
+    the chain's (``sample_fn.eager`` and ``sample_fn.counts`` as there)."""
 
-    def sample_fn(generator=None, params=None, y=None, x_init=None, noise_stream=None):
-        z = sampler(generator, params=params, y=y, x_init=x_init, noise_stream=noise_stream)
-        with torch.no_grad():
-            return vae.decode(z.float()).reshape(-1, 1, 28, 28)
+    def decode(z):
+        return vae.decode(z.float()).reshape(-1, 1, 28, 28)
 
-    return sample_fn
+    return make_sampler(model, schedule, (n_samples, latent_dim), conditional=True, dtype=dtype,
+                        prediction=prediction, compute_dtype=compute_dtype, decode=decode,
+                        decode_reads=vae, **sampler_options)
 
 
 def make_latent_trajectory_sampler(vae: VAEMnist, model: nn.Module,
@@ -232,18 +230,17 @@ def make_latent_trajectory_sampler(vae: VAEMnist, model: nn.Module,
                                    compute_dtype: torch.dtype = torch.float32):
     """The coarse strided latent trajectory, each frame decoded
     (latent_diffusion.py:378-415): ``traj_fn(generator, params=None, y=None,
-    x_init=None, noise_stream=None) -> (T // stride, n, 1, 28, 28)`` in [0, 1]."""
-    traj = make_trajectory_sampler(model, schedule, (n_samples, latent_dim), stride=stride,
-                                   conditional=True, dtype=dtype, prediction=prediction,
-                                   compute_dtype=compute_dtype)
+    x_init=None, noise_stream=None) -> (T // stride, n, 1, 28, 28)`` in [0, 1].
+    On a card the decode of the frames is a graph of its own after the chain's
+    (``make_trajectory_sampler``)."""
 
-    def traj_fn(generator=None, params=None, y=None, x_init=None, noise_stream=None):
-        frames = traj(generator, params=params, y=y, x_init=x_init, noise_stream=noise_stream)
-        with torch.no_grad():
-            decoded = vae.decode(frames.reshape(-1, latent_dim).float())
+    def decode(frames):
+        decoded = vae.decode(frames.reshape(-1, latent_dim).float())
         return decoded.reshape(len(frames), n_samples, 1, 28, 28)
 
-    return traj_fn
+    return make_trajectory_sampler(model, schedule, (n_samples, latent_dim), stride=stride,
+                                   conditional=True, dtype=dtype, prediction=prediction,
+                                   compute_dtype=compute_dtype, decode=decode, decode_reads=vae)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -65,6 +65,7 @@ alone logs and writes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable
 
@@ -72,6 +73,7 @@ import numpy as np
 import torch
 
 from tinydiffusion_torch.compat.vgg import load_vgg16_perceptual
+from tinydiffusion_torch.core.graphs import GraphedCall
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data.laion import synthesize_image
 from tinydiffusion_torch.data.loader import BatchIterator
@@ -640,22 +642,40 @@ def _device_of(model: ConvVAE) -> torch.device:
     return next(model.parameters()).device
 
 
+# One CUDA graph each for serving, per model and batch (JAX jits both).
+_RECONSTRUCT, _SAMPLE_PRIOR = GraphedCall(), GraphedCall()
+
+
+def _graph_key(model: ConvVAE) -> tuple:
+    """What a serving graph of ``model`` depends on besides its tensors."""
+    return id(model), tuple((m.training, getattr(m, "use_flash", None)) for m in model.modules())
+
+
+def _reconstruct(model: ConvVAE, x01: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    mu, logvar = model.encode(x01)
+    return model.decode(reparameterize(mu, logvar, eps))
+
+
 @torch.inference_mode()
 def reconstruct(model: ConvVAE, x01: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     """Encode ``x01`` (B, C, S, S) in [0, 1], sample z with the noise ``eps``
-    (B, latent_dim), decode: the reconstruction (B, C, S, S) in [0, 1]."""
+    (B, latent_dim), decode: the reconstruction (B, C, S, S) in [0, 1]. On a
+    card one CUDA graph per model and batch, after one eager call
+    (``core.graphs.GraphedCall``); the flash forwards run inside it."""
     dev = _device_of(model)
-    mu, logvar = model.encode(x01.to(dev, torch.float32))
-    return model.decode(reparameterize(mu, logvar, eps.to(dev, torch.float32)))
+    return _RECONSTRUCT(functools.partial(_reconstruct, model), _graph_key(model), model,
+                        x01.to(dev, torch.float32), eps.to(dev, torch.float32))
 
 
 @torch.inference_mode()
 def sample_prior(model: ConvVAE, n: int, generator: torch.Generator) -> torch.Tensor:
     """Decode ``n`` latents z ~ N(0, I) drawn from ``generator`` (which lies on
-    the model's device): images (n, C, S, S) in [0, 1]."""
+    the model's device): images (n, C, S, S) in [0, 1]. The draw is eager;
+    on a card the decode is one CUDA graph per model and batch, as
+    ``reconstruct``'s."""
     dev = _device_of(model)
     z = torch.randn(n, model.latent_dim, generator=generator, device=dev)
-    return model.decode(z)
+    return _SAMPLE_PRIOR(model.decode, _graph_key(model), model, z)
 
 
 def main(argv=None) -> None:

@@ -95,35 +95,30 @@ def _labels(args, num_classes: int | None, generator, device) -> torch.Tensor | 
     return torch.randint(0, num_classes, (args.n,), generator=generator, device=device)
 
 
-def _serve(args, device: torch.device, model: torch.nn.Module, request) -> dict:
+def _serve(args, device: torch.device, counts: dict, request) -> dict:
     """Run ``request() -> (samples in [-1, 1], labels or None)`` timed to the
-    device's end and with ``model``'s forwards counted, write the grid, and
-    return ``main``'s result."""
-    forwards = 0
-
-    def count_forward(*_):
-        nonlocal forwards
-        forwards += 1
-
-    hook = model.register_forward_pre_hook(count_forward)
+    device's end, with the model forwards, graph captures and replays of its
+    sampler's ``counts``, write the grid, and return ``main``'s result."""
 
     def synchronize():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    before = dict(counts)
     synchronize()
     t0 = time.perf_counter()
     samples, y = request()
     synchronize()
     sample_seconds = time.perf_counter() - t0
-    hook.remove()
+    forwards, captures, replays = (counts[k] - before[k]
+                                   for k in ("forwards", "captures", "replays"))
 
     labels = None if y is None else y.tolist()
     save_image_grid(to_nhwc01(samples), args.out, nrow=max(int(np.sqrt(args.n)), 1), labels=labels)
     print(f"wrote {args.n} samples to {args.out} ({forwards} model forwards, "
-          f"{sample_seconds:.3f} s)")
-    return {"samples": samples, "labels": labels, "forwards": forwards,
-            "sample_seconds": sample_seconds, "out": args.out}
+          f"{captures} graph captures, {replays} replays, {sample_seconds:.3f} s)")
+    return {"samples": samples, "labels": labels, "forwards": forwards, "captures": captures,
+            "replays": replays, "sample_seconds": sample_seconds, "out": args.out}
 
 
 def _generate_latent(args, parser: argparse.ArgumentParser, device: torch.device) -> dict:
@@ -145,14 +140,15 @@ def _generate_latent(args, parser: argparse.ArgumentParser, device: torch.device
         y = _labels(args, loaded["num_classes"], generator, device)
         return sampler(generator, y), y
 
-    return _serve(args, device, loaded["model"], request)
+    return _serve(args, device, sampler.counts, request)
 
 
 def main(argv=None) -> dict:
     """Serve one request. Returns ``samples`` ((n, 1, 28, 28) in [-1, 1], on
     the device), ``labels`` (or None), ``forwards`` (model forwards run),
-    ``sample_seconds`` (the request's sampling time, synchronized) and
-    ``out``."""
+    ``captures`` and ``replays`` (the CUDA graphs the chain captured and
+    replayed; 0 on the CPU), ``sample_seconds`` (the request's sampling
+    time, synchronized) and ``out``."""
     parser = _parser()
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -214,7 +210,7 @@ def main(argv=None) -> dict:
         y = _labels(args, num_classes if conditional else None, generator, device)
         return sampler(generator, params=loaded["params"], y=y, x_init=x_init), y
 
-    return _serve(args, device, model, request)
+    return _serve(args, device, sampler.counts, request)
 
 
 if __name__ == "__main__":

@@ -122,6 +122,7 @@ def load_laion_checkpoint(path: str, device: str | torch.device = "cuda") -> dic
 def main(argv=None) -> dict:
     """Serve one request. Returns ``images`` ((n, 3, S, S) in [0, 1], on the
     device), ``prompts``, ``forwards`` (model forwards of the first batch),
+    ``captures`` and ``replays`` (its CUDA graphs; 0 on the CPU),
     ``sample_seconds`` (its sampling time, synchronized), ``out`` and
     ``dumped`` (the per-sample PNGs written)."""
     parser = _parser()
@@ -148,16 +149,9 @@ def main(argv=None) -> dict:
         compute_dtype=resolve_dtype(config.compute_dtype), guidance_scale=args.guidance_scale,
         null_embed=null_embed, method=args.sampler, sample_steps=args.sample_steps, eta=args.eta)
 
-    forwards = 0
-
-    def count_forward(*_):
-        nonlocal forwards
-        forwards += 1
-
     def sample(seed: int) -> torch.Tensor:
         return sampler(torch.Generator(device).manual_seed(seed), embeds)
 
-    hook = model.register_forward_pre_hook(count_forward)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -165,10 +159,11 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     sample_seconds = time.perf_counter() - t0
-    hook.remove()
+    counts = dict(sampler.counts)
     nrow = max(int(np.ceil(np.sqrt(len(prompts)))), 1)
     save_image_grid(to_nhwc(images), args.out, nrow=nrow, normalize=False, labels=prompts)
-    print(f"wrote {len(prompts)} samples to {args.out} ({forwards} model forwards, "
+    print(f"wrote {len(prompts)} samples to {args.out} ({counts['forwards']} model forwards, "
+          f"{counts['captures']} graph captures, {counts['replays']} replays, "
           f"{sample_seconds:.3f} s)")
 
     dumped = []
@@ -182,7 +177,8 @@ def main(argv=None) -> dict:
                 dumped.append(path)
             print(f"dumped batch {r + 1}/{args.repeat}")
         print(f"wrote {len(dumped)} individual PNGs to {args.dump_dir}")
-    return {"images": images, "prompts": prompts, "forwards": forwards,
+    return {"images": images, "prompts": prompts, "forwards": counts["forwards"],
+            "captures": counts["captures"], "replays": counts["replays"],
             "sample_seconds": sample_seconds, "out": args.out, "dumped": dumped}
 
 

@@ -22,7 +22,9 @@ images, the ceiling), drawn from ``np.random.default_rng(seed)`` in JAX's
 order, so they equal JAX's numbers. A conditional checkpoint's rows also
 report ``label_acc``, how often the classifier reads the requested digit;
 its labels and the chains' noise come from one ``torch.Generator`` seeded
-with ``--seed``.
+with ``--seed``. Each row builds one sampler, so on a card its chain is
+captured once and replayed across the row's batches (``main``'s
+``sample_counts``).
 """
 
 from __future__ import annotations
@@ -153,7 +155,7 @@ def main(argv=None) -> dict:
     print(f"loaded {args.checkpoint} (step {loaded['step']})")
 
     batch = args.sample_batch
-    sample_s = {}
+    sample_s, sample_counts = {}, {}
     for method, steps, dtype_name in variants:
         name = (f"{method}{steps if method != 'ddpm' else ''}"
                 + ("-bf16" if dtype_name == "bfloat16" else ""))
@@ -164,6 +166,8 @@ def main(argv=None) -> dict:
 
             def sampler(generator, y, _fn=latent_fn):
                 return _fn(generator, y)
+
+            counts = latent_fn.counts
         else:
             pixel_fn = make_sampler(
                 loaded["model"], loaded["schedule"], (batch, 1, 28, 28),
@@ -175,6 +179,8 @@ def main(argv=None) -> dict:
 
             def sampler(generator, y, _fn=pixel_fn):
                 return _fn(generator, params=loaded["params"], y=y)
+
+            counts = pixel_fn.counts
 
         generator = torch.Generator(device).manual_seed(args.seed)
         chunks, ys = [], []
@@ -189,6 +195,7 @@ def main(argv=None) -> dict:
                 ys.append(y.cpu().numpy())
             chunks.append(sampler(generator, y).float().permute(0, 2, 3, 1).cpu().numpy())
         sample_s[name] = time.perf_counter() - t0
+        sample_counts[name] = dict(counts)
         gen = np.clip(np.concatenate(chunks)[: args.n], -1.0, 1.0)
         # A conditional checkpoint: how often the classifier reads the
         # requested class, the fidelity axis FID cannot see.
@@ -200,7 +207,8 @@ def main(argv=None) -> dict:
         with open(args.json_out, "a") as f:
             for row in rows:
                 f.write(json.dumps(row) + "\n")
-    return {"rows": rows, "featurize_real_s": featurize_real_s, "sample_s": sample_s}
+    return {"rows": rows, "featurize_real_s": featurize_real_s, "sample_s": sample_s,
+            "sample_counts": sample_counts}
 
 
 if __name__ == "__main__":

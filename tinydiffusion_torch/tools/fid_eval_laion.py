@@ -15,8 +15,10 @@ each against the real set (``--n`` synthetic images):
 - ``vae_recon`` and ``vae_prior_decode``: the conv-VAE's reconstructions and
   prior samples (``experiments/vae_laion.py``: ``reconstruct``,
   ``sample_prior``) in batches of ``--batch``, its attention through the
-  CUDA flash forward on a card; the noise from one ``torch.Generator``
-  seeded ``seed + 1`` (each batch: eps, then the prior's z);
+  CUDA flash forward on a card, each of the two a CUDA graph captured at
+  the second batch and replayed across the rest; the noise from one
+  ``torch.Generator`` seeded ``seed + 1`` (each batch: eps, then the
+  prior's z);
 - ``samples_dir[n]``: the PNGs in ``--samples-dir`` (say, a
   ``generate_laion.py --dump-dir``), read as RGB and resized to
   ``--image-size`` as Pillow's ``convert("RGB").resize`` does.

@@ -51,11 +51,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tinydiffusion_torch.core.graphs import GRAPH_WARMUP_STEPS, capture, warm_up
 from tinydiffusion_torch.core.process import q_sample_with_noise, v_from_eps
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.io.from_jax import jax_variables
-from tinydiffusion_torch.ops import attention, qsample
 from tinydiffusion_torch.ops.qsample import q_sample_fused
 from tinydiffusion_torch.parallel.mesh import (
     DataParallel,
@@ -309,11 +309,6 @@ def make_train_step(
     return step
 
 
-# Eager steps before a capture, on a side stream: the first creates the
-# gradients and Adam's moments, and cuDNN settles its algorithms.
-GRAPH_WARMUP_STEPS = 2
-
-
 @dataclasses.dataclass
 class _Chunk:
     """Device buffers of a chunk of steps: its index batches, the position
@@ -345,8 +340,9 @@ def make_resident_steps(dataset: DeviceDataset, batch_step: Callable,
     state's generator, registered with the graph), a scheduled learning rate
     (computed on the device from the optimizer's step count) and the loss
     slot it writes. The first ``GRAPH_WARMUP_STEPS`` steps of a state run eagerly on
-    a side stream before the capture; a restore of the state (``restores``),
-    another state or a larger chunk captures again. A failed capture raises:
+    a side stream before the capture (``core.graphs.warm_up`` and
+    ``capture``, as the sampler chains' graphs do); a restore of the state
+    (``restores``), another state or a larger chunk captures again. A failed capture raises:
     there is no fallback to eager steps. The graph keeps the math mode of its
     capture, so the caller turns TF32 off first (``device.disable_tf32``),
     and the optimizer must be built with ``capturable=True`` (Adam's step
@@ -414,38 +410,22 @@ def make_resident_steps(dataset: DeviceDataset, batch_step: Callable,
         chunk.idxs[:k].copy_(idxs.pin_memory(), non_blocking=True)
         chunk.pos.zero_()
         done = 0
+        # The first steps of a state create its gradients and Adam's moments.
         while done < k and captured["warm"] < GRAPH_WARMUP_STEPS:
-            main = torch.cuda.current_stream(dataset.device)
-            side = torch.cuda.Stream(dataset.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                one_step(state, chunk)
-            main.wait_stream(side)
+            warm_up(lambda: one_step(state, chunk), dataset.device)
             captured["warm"] += 1
             done += 1
         counts["eager"] += done
         if done < k and "graph" not in captured:
-            graph = torch.cuda.CUDAGraph()
-            # The step draws from the state's own generator. A generator that
-            # is not registered fails the capture, or would replay the
-            # captured draws every step; registered, each replay advances it
-            # as an eager step does.
-            graph.register_generator_state(state.generator)
+            # The step draws from the state's own generator, registered with
+            # the graph, so that each replay advances it as an eager step does.
             # The graph keeps the math mode of this capture: TF32 is off by now.
-            before = qsample.qsample_captured
-            flash_before = dict(attention.captured)
-            with torch.cuda.graph(graph):
-                one_step(state, chunk)
-            captured["graph"] = graph
-            captured["qsample_per_replay"] = qsample.qsample_captured - before
-            captured["flash_per_replay"] = {k_: n - flash_before[k_]
-                                            for k_, n in attention.captured.items()}
+            captured["graph"] = capture(lambda: one_step(state, chunk), dataset.device,
+                                        (state.generator,))
             counts["captures"] += 1
-        for _ in range(k - done):
-            captured["graph"].replay()
+        if done < k:
+            captured["graph"].replay(k - done)
         counts["replays"] += k - done
-        qsample.count_replays(captured.get("qsample_per_replay", 0), k - done)
-        attention.count_replays(captured.get("flash_per_replay", {}), k - done)
         state.step += k
         return result(chunk, k)
 
