@@ -21,24 +21,26 @@ committed checkpoint and the reference-checkpoint importer. Phases, one JSON
 line each:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
-2. build: the kernels, built with one nvcc call from
-   ``tinydiffusion_torch/ops/csrc``: ptxas's registers, spills, shared
+2. build: the kernels, built from ``tinydiffusion_torch/ops/csrc`` by one
+   nvcc a source, all at once, and a link: ptxas's registers, spills, shared
    memory and performance remarks per kernel, the flash kernels' dynamic
    shared memory, and the tensor-core instructions (HMMA, HGMMA, and HGMMA
    by operand type) in each kernel's SASS (``cuobjdump``); fails if a flash
    forward or backward kernel has none, if a bfloat16 flash kernel has a
    tf32 HGMMA or no bf16 one, or if a bfloat16 flash kernel spills;
 3. kernel: the CUDA flash-attention forward against ``flash_fwd_reference``
-   at each shape the model gives it (B = 4) and at two ragged N, out and lse;
+   at each shape the 256² and 512² models give it and the 1024² model's
+   dec_attn0 (B = 4), every head width, and at ragged N, out and lse;
    two calls bit-equal; the times of kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it); the bound (products at the TF32 tensor-core peak or bytes at the
-   memory rate), the CUDA cores' fp32 bound and the exp unit's time beside it;
-   kernel_bf16: the same for the bfloat16 kernel on the operands rounded to
-   bf16, compared in float32 (within one bf16 ulp; the share of outputs
-   beyond one ulp, lse's error), SDPA in bf16 beside it (each site names
-   the backend torch picked), the bound at the bf16 tensor-core peak, and
-   ptxas's report and the dynamic shared memory of the kernel at the site;
+   it; not timed where its MATH backend's logits pass 16 GiB); the bound
+   (products at the TF32 tensor-core peak or bytes at the memory rate), the
+   CUDA cores' fp32 bound and the exp unit's time beside it; ptxas's report
+   and the dynamic shared memory of the kernel at the site; kernel_bf16: the
+   same for the bfloat16 kernel on the operands rounded to bf16, compared in
+   float32 (within one bf16 ulp; the share of outputs beyond one ulp, lse's
+   error), SDPA in bf16 beside it (each site names the backend torch
+   picked), the bound at the bf16 tensor-core peak;
 4. slice: reconstruct 4 synthetic images and decode 16 prior samples on the
    card (a first eager request of each, then the requests as their CUDA
    graphs replay them), with the kernel launches counted over exactly the
@@ -208,7 +210,7 @@ line each:
     --text-encoder clip --clip-local-dir DIR`` for 20 steps and ``python -m
     tinydiffusion_torch.generate_laion`` on its checkpoint, DDIM-50);
 14. flash_bwd_kernel: the CUDA flash backward against ``flash_bwd_reference``
-    at each flash site (B = 4) and at two ragged N, dq, dk and dv; two calls
+    at the kernel phase's sites, dq, dk and dv; two calls
     bit-equal; the times of kernel, plain version and the backward of
     ``scaled_dot_product_attention`` (a yardstick only), with the bounds of
     the ``kernel`` phase; flash_bwd_kernel_bf16: the bfloat16 kernel the same
@@ -233,6 +235,15 @@ line each:
 17. vae_train_parity: one clip + SGD step from ``vae_laion_best`` (256x256,
     B = 2) on the card against the CPU, cuDNN deterministic: loss
     components, gradients, params, BN statistics, spectral-norm u and sigma;
+    vae512_train and vae512_train_bf16: ``run()`` at 512² (every attention
+    site on the flash path, dec_attn0 on the (16, 128) kernels), 44 records,
+    2 epochs of 10 steps, resident with graph replays: warm step, images/s,
+    peak memory, losses, the flash launches by kernel and (D, C), all three
+    widths forward and backward, and the dq scratch by site; vae512_serve:
+    the float32 run's checkpoint, ``reconstruct`` and ``sample_prior`` at
+    B = 4, each call's graph bit-equal to eager with the generators equal,
+    and within CARD_VS_CPU_ATOL of the same calls with the flash sites on the
+    plain version (swapped here);
 18. the ``kernels`` line (the float32 flash kernels, with the launches of
     the conv-VAE run and of fid_laion beside; q_sample, with the launches of
     laion_sd_train beside, and the bfloat16 flash kernels with
@@ -248,7 +259,8 @@ requests replayed from their graphs, and eager beside them), over 3 warm
 conv-VAE train steps (eager, ``vae_train_steps``, and replayed from a graph over a resident
 set, ``vae_train_steps_graph``, and the same in bfloat16,
 ``vae_train_bf16_steps_graph``, its flash kernels by name from one profiler
-session), over 5 latent MLP UNet train steps replayed
+session; the same at 512², ``vae512_train_steps_graph`` and
+``vae512_train_bf16_steps_graph``), over 5 latent MLP UNet train steps replayed
 from a graph
 (``latent_train_steps_graph``) and over one DPM++-15 latent request on the
 DiT (``latent_serve_dpmpp15``), each with device time by kernel, the
@@ -385,10 +397,21 @@ CARD_VS_CPU_ATOL = 1e-3
 # C = 32) and enc_attn1 / dec_attn1 (64x64, C = 64). dec_attn0 (32x32,
 # N = 1024) takes the dense path, as in JAX.
 KERNEL_SITES = ((16384, 4, 32), (4096, 8, 64))
+# Beyond 256²: dec_attn0 (C = 128, d = 16) takes the flash path at 512²
+# (64x64, N = 4096) and 1024² (N = 16384); 512²'s enc_attn0 gives the
+# (4, 32) kernels N = 65536, 16 times the work of their 256² site, and its
+# enc_attn1 and dec_attn1 the (8, 64) kernels N = 16384.
+KERNEL_SITES_BEYOND_256 = ((4096, 16, 128), (16384, 16, 128), (65536, 4, 32),
+                           (16384, 8, 64))
 KERNEL_BATCH = 4
 # Ragged sites, B = 1: N = 1000 leaves keys and queries past a tile; N = 1001
-# is not a multiple of 4, so the kernels stage it 4 bytes a copy, not 16.
-RAGGED_SITES = ((1000, 4, 32), (1001, 8, 64))
+# and 1002 are not multiples of 4, so the kernels stage them 4 bytes a copy,
+# not 16 (the one-value paths, kVec = false).
+RAGGED_SITES = ((1000, 4, 32), (1001, 8, 64), (1000, 16, 128), (1002, 16, 128))
+# SDPA's MATH backend (its pick for bf16 at D = 4) holds B x N^2 float32
+# logits and their softmax: past this it would not fit beside the kernels'
+# operands (68.7 GB at B = 4, N = 65536), and its time is not taken.
+LIBRARY_MATH_MAX_BYTES = 16 * 2**30
 N_RECON, N_PRIOR = 4, 16
 
 # q_sample kernel vs plain version on the same Philox stream: z differs only
@@ -462,6 +485,21 @@ BF16_LOSS_RTOL, BF16_MIN_UPDATE_COS = 0.02, 0.9
 # replay of one captured graph: 2 eager warm-up steps, 1 capture, 38
 # replays over the run; the val pass runs eagerly.
 VAE_RECORDS, VAE_EPOCHS = 88, 2
+# The same recipe at 512x512 (vae512_train; every attention site on the
+# flash path, dec_attn0 on the (16, 128) kernels), once in float32 and once
+# in bfloat16: 44 records leave 40 for training (10 steps an epoch) and 4
+# for validation (1 batch), 2 epochs: 2 eager steps, 1 capture, 18 replays.
+VAE512_RECORDS = 44
+# The flash sites of one conv-VAE step by image size, by (D, C): each runs
+# one forward and one backward a train step.
+VAE_FLASH_SITES = {256: {(4, 32): 1, (8, 64): 2},
+                   512: {(4, 32): 1, (8, 64): 2, (16, 128): 1}}
+# vae512_serve: reconstruct and sample_prior at 512² from the checkpoint
+# vae512_train wrote, B = 4, on the kernels (each call its CUDA graph)
+# against the same weights and noise with the flash sites swapped for the
+# plain versions on the card: within slice's card-vs-CPU bound
+# (CARD_VS_CPU_ATOL, images in [0, 1]).
+VAE512_SERVE_BATCH = 4
 # vae_resident_parity: 10 resident steps (2 eager warm-ups, then 8 replays)
 # against the same 10 steps eager from the same state (vae_laion_best, B = 4,
 # Adam 1e-4, clip 10), beside a second eager run, in float32 and bfloat16,
@@ -857,26 +895,45 @@ def _attention_operands(rng, b: int, n: int, d: int, c: int):
 
 
 def _kernel_build(name: str, d: int, c: int) -> dict:
-    """What the build says of the bf16 kernel ``name`` at (d, c): ptxas's
+    """What the build says of the flash kernel ``name`` at (d, c): ptxas's
     registers, spills and remarks of its instantiations there (the vector and
     the one-value load paths) and its dynamic shared memory."""
     tag = f"ILi{d}ELi{c}E"
-    return {"ptxas": [r for r in _PTXAS[f"{name}_kernel"] if tag in r["kernel"]],
+    return {"ptxas": [r for r in _PTXAS[name] if tag in r["kernel"]],
             "dynamic_smem_bytes": getattr(_build.library(), f"tdt_{name}_smem_bytes")(d, c)}
+
+
+def _library_too_big(backend: str, b: int, n: int) -> str | None:
+    """Why SDPA is not timed at (b, n): its MATH backend's B x N^2 float32
+    logits pass LIBRARY_MATH_MAX_BYTES. None when it is timed."""
+    logits = 4 * b * n * n
+    if backend == "MATH" and logits > LIBRARY_MATH_MAX_BYTES:
+        return f"MATH would hold {logits / 1e9:.1f} GB of logits"
+    return None
+
+
+def _library_ms(fn, backend: str, b: int, n: int, iters: int) -> dict:
+    """The time of the library yardstick ``fn`` (SDPA), or null with the
+    reason (``_library_too_big``)."""
+    too_big = _library_too_big(backend, b, n)
+    if too_big:
+        return {"library_ms": None, "library_backend": backend, "library_not_timed": too_big}
+    return {"library_ms": cuda_ms(fn, iters=iters), "library_backend": backend}
 
 
 def phase_flash_bwd_kernel(dtype=torch.float32) -> list[dict]:
     """The CUDA backward against ``flash_bwd_reference`` at each flash site
-    (B = 4), with the forward's own lse and a random output gradient; two
-    calls bit-equal; two ragged N; kernel, plain and SDPA-backward times.
+    of 256² and beyond (B = 4), with the forward's own lse and a random
+    output gradient; two calls bit-equal; the ragged N; kernel, plain and
+    SDPA-backward times.
     ``dtype=torch.bfloat16``: the bf16 kernel on the same operands rounded to
     bf16 (``flash_bwd_kernel_bf16``)."""
     bf16 = dtype == torch.bfloat16
     phase = "flash_bwd_kernel_bf16" if bf16 else "flash_bwd_kernel"
     rng = np.random.default_rng(SEED + 11)
     sites = []
-    for n, d, c in KERNEL_SITES + RAGGED_SITES:
-        b = KERNEL_BATCH if (n, d, c) in KERNEL_SITES else 1
+    for n, d, c in KERNEL_SITES + KERNEL_SITES_BEYOND_256 + RAGGED_SITES:
+        b = 1 if (n, d, c) in RAGGED_SITES else KERNEL_BATCH
         qt, kt, vt = (x.to(dtype) for x in _attention_operands(rng, b, n, d, c))
         out_t, lse = attention.flash_fwd_reference(qt, kt, vt)
         dot = torch.from_numpy(rng.standard_normal((b, c, n), np.float32)).cuda().to(dtype)
@@ -907,23 +964,25 @@ def phase_flash_bwd_kernel(dtype=torch.float32) -> list[dict]:
                 **extra}
         if not deterministic:
             raise RuntimeError(f"{phase}: two calls differ at N = {n}")
-        if b == KERNEL_BATCH:
+        if (n, d, c) not in RAGGED_SITES:
             q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous().requires_grad_()
                           for x in (qt, kt, vt))
             g4 = dot.transpose(1, 2).unsqueeze(1).contiguous()
-            o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)  # outside the timing
+            backend = _sdpa_backend(q4, k4, v4)
+            o4 = (None if _library_too_big(backend, b, n)  # the forward, outside the timing
+                  else F.scaled_dot_product_attention(q4, k4, v4, scale=1.0))
             site["ms"] = cuda_ms(lambda: attention.flash_bwd(*args), iters=10)
             site["plain_ms"] = cuda_ms(lambda: attention.flash_bwd_reference(*args), iters=3)
-            site["library_ms"] = cuda_ms(
-                lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), iters=3)
-            site["library_backend"] = _sdpa_backend(q4, k4, v4)
+            site.update(_library_ms(
+                lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True),
+                backend, b, n, iters=3))
             site.update(flash_bwd_bound_ms(b, n, d, c, dtype))
             site["roofline_share"] = site["bound_ms"] / site["ms"]
             del q4, k4, v4, g4, o4
         tol = ({"atol": BWD_ATOL, "rtol": BF16_RTOL, "dq_ulps_of_max": BF16_DQ_ULPS_OF_MAX}
                if bf16 else {"atol": BWD_ATOL, "rtol": BWD_RTOL})
-        emit(phase, name="flash_bwd_bf16" if bf16 else "flash_bwd", **tol, **site,
-             **(_kernel_build("flash_bwd_bf16", d, c) if bf16 else {}))
+        name = "flash_bwd_bf16" if bf16 else "flash_bwd"
+        emit(phase, name=name, **tol, **site, **_kernel_build(name, d, c))
         sites.append(site)
         del qt, kt, vt, dot, out_t, lse, delta, got, again, want
         torch.cuda.empty_cache()
@@ -996,9 +1055,13 @@ def _tensor_core_counts(library: str) -> dict[str, dict[str, int]]:
     return counts
 
 
-# ptxas's report of the flash kernels of the build, by kernel name (set by
-# phase_build; the bf16 kernel phases add theirs to their lines).
+# ptxas's report of the flash kernels of the build, by wrapper kernel name
+# (set by phase_build; the kernel phases add each site's to their lines).
 _PTXAS: dict[str, list[dict]] = {}
+# The symbol of each flash kernel's pair kernel in the build.
+_KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_tc_kernel", "flash_bwd": "flash_bwd_tc_kernel",
+                   "flash_fwd_bf16": "flash_fwd_bf16_kernel",
+                   "flash_bwd_bf16": "flash_bwd_bf16_kernel"}
 
 
 def phase_build() -> None:
@@ -1016,16 +1079,21 @@ def phase_build() -> None:
     # The bf16 kernels run their products as bf16 wgmma (k16), none as tf32.
     bf16 = {k: v for k, v in flash.items() if "_bf16_kernel" in k}
     wrong = [k for k, v in bf16.items() if not v["HGMMA_BF16"] or v["HGMMA_TF32"] or v["HMMA"]]
-    if len(bf16) != 8 or wrong:
+    # Two instantiations (the vector and the one-value load paths) of each
+    # bf16 kernel at each head width.
+    if len(bf16) != 4 * len(attention.KERNEL_HEAD_WIDTHS) or wrong:
         raise RuntimeError(f"build: bf16 flash kernels not all bf16 wgmma: {wrong or sorted(bf16)}")
     reports = ptxas_report(build.log)
-    for kernel in ("flash_fwd_bf16_kernel", "flash_bwd_bf16_kernel"):
-        _PTXAS[kernel] = [{"kernel": k, **v} for k, v in sorted(reports.items())
-                          if k and kernel in k]
-        spills = [r["kernel"] for r in _PTXAS[kernel]
+    for name, kernel in _KERNEL_SYMBOLS.items():
+        _PTXAS[name] = [{"kernel": k, **v} for k, v in sorted(reports.items())
+                        if k and kernel in k]
+        if len(_PTXAS[name]) != 2 * len(attention.KERNEL_HEAD_WIDTHS):
+            raise RuntimeError(f"build: {kernel}: {len(_PTXAS[name])} instantiations")
+    for name in ("flash_fwd_bf16", "flash_bwd_bf16"):
+        spills = [r["kernel"] for r in _PTXAS[name]
                   if r.get("spill_stores") or r.get("spill_loads")]
-        if spills or not _PTXAS[kernel]:
-            raise RuntimeError(f"build: {kernel} spills registers or is missing: {spills}")
+        if spills:
+            raise RuntimeError(f"build: {name} spills registers: {spills}")
     lib = _build.library()
     smem = {f"{name} ({d}, {c})": getattr(lib, f"tdt_{name}_smem_bytes")(d, c)
             for name in _FLASH_KERNELS for d, c in sorted(attention.KERNEL_HEAD_WIDTHS)}
@@ -1035,16 +1103,17 @@ def phase_build() -> None:
 
 
 def phase_kernel(dtype=torch.float32) -> list[dict]:
-    """The CUDA forward against ``flash_fwd_reference`` at each flash site
-    (B = 4) and at two ragged N, out and lse; two calls bit-equal; kernel,
-    plain and SDPA times at the sites. ``dtype=torch.bfloat16``: the bf16
-    kernel on the same operands rounded to bf16 (``kernel_bf16``)."""
+    """The CUDA forward against ``flash_fwd_reference`` at each flash site of
+    256² and beyond (B = 4) and at the ragged N, out and lse; two calls
+    bit-equal; kernel, plain and SDPA times at the sites.
+    ``dtype=torch.bfloat16``: the bf16 kernel on the same operands rounded to
+    bf16 (``kernel_bf16``)."""
     bf16 = dtype == torch.bfloat16
     phase = "kernel_bf16" if bf16 else "kernel"
     rng = np.random.default_rng(SEED)
     sites = []
-    for n, d, c in KERNEL_SITES + RAGGED_SITES:
-        b = KERNEL_BATCH if (n, d, c) in KERNEL_SITES else 1
+    for n, d, c in KERNEL_SITES + KERNEL_SITES_BEYOND_256 + RAGGED_SITES:
+        b = 1 if (n, d, c) in RAGGED_SITES else KERNEL_BATCH
         qt, kt, vt = (x.to(dtype) for x in _attention_operands(rng, b, n, d, c))
         out_k, lse_k = attention.flash_fwd(qt, kt, vt)
         again = attention.flash_fwd(qt, kt, vt)
@@ -1066,22 +1135,22 @@ def phase_kernel(dtype=torch.float32) -> list[dict]:
                   (lse_k - lse_r).abs().max().item())
         site = {"B": b, "N": n, "D": d, "C": c, "max_abs_err": err,
                 "bit_equal_over_two_calls": True, **extra}
-        if b == KERNEL_BATCH:
+        if (n, d, c) not in RAGGED_SITES:
             # (B, 1, N, D) views for the library yardstick, made outside its timing.
             q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous() for x in (qt, kt, vt))
             site["ms"] = cuda_ms(lambda: attention.flash_fwd(qt, kt, vt), iters=20)
             site["plain_ms"] = cuda_ms(lambda: attention.flash_fwd_reference(qt, kt, vt),
                                        iters=5)
-            site["library_ms"] = cuda_ms(
-                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), iters=5)
-            site["library_backend"] = _sdpa_backend(q4, k4, v4)
+            site.update(_library_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0),
+                _sdpa_backend(q4, k4, v4), b, n, iters=5))
             site.update(flash_bound_ms(b, n, d, c, dtype))
             site["roofline_share"] = site["bound_ms"] / site["ms"]
             del q4, k4, v4
         tol = ({"atol": KERNEL_ATOL, "rtol": BF16_RTOL, "lse_rtol": KERNEL_RTOL} if bf16
                else {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL})
-        emit(phase, name="flash_fwd_bf16" if bf16 else "flash_fwd", **tol, **site,
-             **(_kernel_build("flash_fwd_bf16", d, c) if bf16 else {}))
+        name = "flash_fwd_bf16" if bf16 else "flash_fwd"
+        emit(phase, name=name, **tol, **site, **_kernel_build(name, d, c))
         sites.append(site)
         del qt, kt, vt, out_k, lse_k, again, out_r, lse_r
         torch.cuda.empty_cache()
@@ -1221,18 +1290,27 @@ def phase_slice() -> int:
     return launches
 
 
-_FLASH_KERNELS = ("flash_fwd", "flash_bwd", "flash_fwd_bf16", "flash_bwd_bf16")
+_FLASH_KERNELS = attention.KERNELS
 
 
 def _reset_launches() -> None:
     for kernel in _FLASH_KERNELS:
         setattr(attention, f"{kernel}_launches", 0)
+    for key in attention.launches_by_width:
+        attention.launches_by_width[key] = 0
     qsample.qsample_launches = 0
 
 
 def _launches() -> dict:
     return {**{k: getattr(attention, f"{k}_launches") for k in _FLASH_KERNELS},
             "qsample": qsample.qsample_launches}
+
+
+def _launches_by_width() -> dict[str, int]:
+    """The flash launches since the last reset by kernel and (D, C), those
+    launched."""
+    return {f"{k} ({d}, {c})": n for (k, d, c), n in sorted(attention.launches_by_width.items())
+            if n}
 
 
 def qsample_bound_ms(b: int, feat: int, num_timesteps: int) -> tuple[float, str]:
@@ -3496,20 +3574,26 @@ def _set_default_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32") -> dict:
+def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
+                    image_size: int = 256, checkpoint_dir: str | None = None) -> dict:
     """The conv-VAE's ``run()`` at full width on the card, with the kernel
     launches counted over exactly that run: ``vae_train`` (the default, the
     set resident and each step a graph replay), ``vae_train_host`` (batches
     streamed from the host) and ``vae_train_bf16`` (resident, bfloat16: the
-    bf16 kernels only)."""
+    bf16 kernels only); at ``image_size=512``, ``vae512_train`` and
+    ``vae512_train_bf16`` (resident), the checkpoint left in
+    ``checkpoint_dir`` when one is given."""
     phase = {("auto", "float32"): "vae_train", ("host", "float32"): "vae_train_host",
              ("auto", "bfloat16"): "vae_train_bf16"}[placement, compute_dtype]
+    if image_size != 256:
+        phase = phase.replace("vae_", f"vae{image_size}_")
+    records = VAE_RECORDS if image_size == 256 else VAE512_RECORDS
     with tempfile.TemporaryDirectory() as tmp:
         config = vae_laion.VAELaionConfig(
-            n_records=VAE_RECORDS, epochs=VAE_EPOCHS, log_interval=10,
+            image_size=image_size, n_records=records, epochs=VAE_EPOCHS, log_interval=10,
             data_placement=placement, compute_dtype=compute_dtype,
-            out_dir=os.path.join(tmp, "out"), checkpoint_dir=os.path.join(tmp, "ckpt"),
-            device="cuda")
+            out_dir=os.path.join(tmp, "out"),
+            checkpoint_dir=checkpoint_dir or os.path.join(tmp, "ckpt"), device="cuda")
         _set_default_tf32()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3519,11 +3603,12 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32") -> 
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = _launches()
+        by_width = dict(attention.launches_by_width)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if torch.backends.cudnn.allow_tf32:
             raise RuntimeError(f"{phase}: run() left cuDNN's TF32 on")
         steps = result["state"].step
-        per_epoch = VAE_RECORDS - VAE_RECORDS // 10
+        per_epoch = records - records // 10
         if steps != VAE_EPOCHS * (per_epoch // config.batch_size):
             raise RuntimeError(f"{phase}: {steps} steps")
         graph = result["graph"]
@@ -3532,14 +3617,22 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32") -> 
         if graph is not None and (graph["eager"] + graph["replays"] != steps
                                   or graph["captures"] != 1 or graph["replays"] == 0):
             raise RuntimeError(f"{phase}: {steps} steps, graph {graph}")
-        # Three flash sites a step, each one backward: launches per step times
+        # The flash sites of a step, each one backward: launches per step times
         # the steps run (eager ones and graph replays, which count in the
-        # launch counts through the graph's captured launches).
+        # launch counts through the graph's captured launches), at each head
+        # width; the forwards at least as many (the val pass and the samples
+        # add theirs).
         fwd, bwd = ("flash_fwd_bf16", "flash_bwd_bf16") if compute_dtype == "bfloat16" else (
             "flash_fwd", "flash_bwd")
         ran = steps if graph is None else graph["eager"] + graph["replays"]
-        if launches[bwd] != 3 * ran or launches[fwd] < 3 * ran:
+        sites = VAE_FLASH_SITES[image_size]
+        if launches[bwd] != sum(sites.values()) * ran or launches[fwd] < sum(sites.values()) * ran:
             raise RuntimeError(f"{phase}: {ran} steps run, launches {launches}")
+        for (kernel, d, c), n in by_width.items():
+            want = sites.get((d, c), 0) * ran if kernel in (fwd, bwd) else 0
+            if not (n >= want if kernel == fwd and want else n == want):
+                raise RuntimeError(f"{phase}: {ran} steps run, {kernel} ({d}, {c}) launched "
+                                   f"{n} times: {_launches_by_width()}")
         others = {k: v for k, v in launches.items() if k not in (fwd, bwd) and v}
         if others:
             raise RuntimeError(f"{phase}: other kernels launched: {others}")
@@ -3563,7 +3656,7 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32") -> 
         fields = {
             "image_size": config.image_size, "batch": config.batch_size, "steps": steps,
             "placement": placement, "compute_dtype": compute_dtype, "graph": graph,
-            "launches": launches, "wall_s": wall_s,
+            "launches": launches, "launches_by_width": _launches_by_width(), "wall_s": wall_s,
             "warm_step_ms": 1e3 * warm["train_seconds"] / warm["steps"],
             "warm_images_per_sec": warm["images_per_sec"],
             "first_epoch_images_per_sec": result["epochs"][0]["images_per_sec"],
@@ -3571,9 +3664,20 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32") -> 
             "last_loss": batches[-1]["batch_train_loss"],
             "components_last": {k: batches[-1][k] for k in keys[1:]},
             "test_losses": result["test_losses"], "peak_mem_gib": peak_gib,
+            "dq_part_gib_by_site": _dq_part_gib(config.batch_size, image_size, bwd),
         }
     emit(phase, **fields)
     return fields
+
+
+def _dq_part_gib(b: int, image_size: int, kernel: str) -> dict[str, float]:
+    """GiB of the backward kernel's dq scratch, (B, ceil(N / keys a block), D,
+    N) float32, at each flash site of a conv-VAE step: it grows as N^2."""
+    keys = (attention.FLASH_BWD_BF16_KEYS_PER_BLOCK if kernel == "flash_bwd_bf16"
+            else attention.FLASH_BWD_KEYS_PER_BLOCK)
+    sides = {(4, 32): image_size // 2, (8, 64): image_size // 4, (16, 128): image_size // 8}
+    return {f"({d}, {c}) N={sides[d, c] ** 2}": 4 * b * -(-sides[d, c] ** 2 // keys) * d
+            * sides[d, c] ** 2 / 2**30 for d, c in VAE_FLASH_SITES[image_size]}
 
 
 def _conv_vae(dtype: torch.dtype) -> "vae_laion.ConvVAE":
@@ -3760,6 +3864,93 @@ def phase_vae_train_parity() -> dict:
     return fields
 
 
+def _plain_flash_t(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
+    """The flash dispatch on the plain version, on the card: query-blocked, so
+    N = 65536 never builds an N x N matrix (dense attention would)."""
+    return attention.flash_fwd_reference(qt, kt, vt)[0]
+
+
+def phase_vae512_serve(checkpoint: str) -> dict:
+    """``reconstruct`` and ``sample_prior`` at 512² from the checkpoint
+    vae512_train wrote (B = 4): each call's CUDA graph against the same call
+    eager (bit-equal and the generators equal, cuDNN deterministic, as
+    chain_graph), the flash launches of one graphed request of each by
+    (D, C), and the images against the same weights and noise with every
+    flash site on the plain version (swapped here, not in the package)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    b = VAE512_SERVE_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    model = load_conv_vae(checkpoint, device="cuda")
+    if model.image_size != 512:
+        raise RuntimeError(f"vae512_serve: the checkpoint is {model.image_size}²")
+    x01 = _nchw(np.stack([synthesize_image(i, 512)[0] for i in range(b)])).cuda()
+    eps = torch.from_numpy(np.random.default_rng(SEED + 80).standard_normal(
+        (b, model.latent_dim)).astype(np.float32)).cuda()
+    seed = SEED + 81
+
+    def gen():
+        return torch.Generator("cuda").manual_seed(seed)
+
+    with torch.inference_mode():
+        cases = {
+            "reconstruct": _chain_graph_case(
+                lambda g: reconstruct(model, x01, eps),
+                lambda g: vae_laion._reconstruct(model, x01, eps),
+                vae_laion._RECONSTRUCT.counts, 1, seed),
+            "sample_prior": _chain_graph_case(
+                lambda g: sample_prior(model, b, g),
+                lambda g: model.decode(torch.randn(b, model.latent_dim, generator=g,
+                                                   device="cuda")),
+                vae_laion._SAMPLE_PRIOR.counts, 1, seed)}
+        # One graphed request of each, its launches counted.
+        _reset_launches()
+        recon = reconstruct(model, x01, eps)
+        prior = sample_prior(model, b, gen())
+        torch.cuda.synchronize()
+        launches, by_width = _launches(), _launches_by_width()
+        kernel_flash_t = attention._flash_t
+        attention._flash_t = _plain_flash_t
+        try:
+            recon_plain = vae_laion._reconstruct(model, x01, eps)
+            prior_plain = model.decode(torch.randn(b, model.latent_dim, generator=gen(),
+                                                   device="cuda"))
+            torch.cuda.synchronize()
+        finally:
+            attention._flash_t = kernel_flash_t
+    torch.backends.cudnn.deterministic = deterministic
+    problems = []
+    want = {"flash_fwd (4, 32)": 1, "flash_fwd (8, 64)": 3, "flash_fwd (16, 128)": 2}
+    if by_width != want or launches != {**{k: 0 for k in launches}, "flash_fwd": 6}:
+        problems.append(f"launches {launches}, by width {by_width}, want {want}")
+    gaps = {}
+    for name, got, plain in (("reconstruct", recon, recon_plain),
+                             ("sample_prior", prior, prior_plain)):
+        if tuple(got.shape) != (b, 3, 512, 512) or not torch.isfinite(got).all():
+            problems.append(f"{name}: shape {tuple(got.shape)} or non-finite values")
+        elif got.min().item() < 0.0 or got.max().item() > 1.0:
+            problems.append(f"{name} leaves [0, 1]")
+        gaps[name] = (got - plain).abs().max().item()
+        if not gaps[name] <= CARD_VS_CPU_ATOL:
+            problems.append(f"{name}: kernels vs plain {gaps[name]} > {CARD_VS_CPU_ATOL}")
+        c = cases[name]
+        if not (c["bit_equal"] and c["generator_equal"] and c["counts"]["captures"] >= 1
+                and c["counts"]["replays"] >= 1):
+            problems.append(f"{name}: graph vs eager {c}")
+    fields = {"checkpoint_image_size": model.image_size, "batch": b, "cases": cases,
+              "launches": launches, "launches_by_width": by_width,
+              "kernels_vs_plain_max_abs": gaps, "atol": CARD_VS_CPU_ATOL,
+              "recon_l1_to_input": (recon - x01).abs().mean().item(),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "cudnn_deterministic": True}
+    del model, recon, prior, recon_plain, prior_plain
+    torch.cuda.empty_cache()
+    if problems:
+        raise RuntimeError(f"vae512_serve: {problems}: {fields}")
+    emit("vae512_serve", **fields)
+    return fields
+
+
 def _profile_window(name: str, fn, expect_flash: int = 0, sessions: int = 3, warm: int = 1,
                     **fields) -> None:
     """Device time by kernel over one warm call of ``fn`` (after ``warm``
@@ -3813,8 +4004,31 @@ def _profile_window(name: str, fn, expect_flash: int = 0, sessions: int = 3, war
          top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, (ms, n) in top], **fields)
 
 
+def _profile_vae512_steps() -> None:
+    """3 replayed conv-VAE steps at 512² (B = 4, a seeded init, the set on
+    the card), float32 and bfloat16, as vae512_train takes them: four flash
+    sites, a forward, a backward and its dq sum each, 12 flash kernels a
+    step (``vae512_train_steps_graph``, ``vae512_train_bf16_steps_graph``)."""
+    images = np.random.default_rng(SEED + 30).integers(0, 256, (4 * 3, 512, 512, 3),
+                                                        dtype=np.uint8)
+    data = DeviceDataset(images, 4, seed=SEED, device="cuda", u8_normalize=(1.0 / 255.0, 0.0))
+    idxs = data.epoch_index_batches(0)
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        torch.manual_seed(SEED)
+        model = vae_laion.ConvVAE(image_size=512, dtype=dtype).cuda().train()
+        state = vae_laion.create_train_state(
+            model, vae_laion.make_optimizer(model, 1e-4, capturable=True), SEED)
+        step = vae_laion.make_conv_vae_resident_step(
+            PerceptualNet(seed=123, dtype=dtype).cuda(), 1.0, 10.0, data)
+        _profile_window(f"vae512_train{tag}_steps_graph", lambda: step(state, idxs),
+                        expect_flash=3 * 12, steps=3, batch=4, image_size=512,
+                        compute_dtype=str(dtype).split(".")[1])
+        del model, state, step
+        torch.cuda.empty_cache()
+
+
 def phase_profile() -> None:
-    """Fourteen windows: one warm reconstruct + one prior decode of the
+    """Sixteen windows: one warm reconstruct + one prior decode of the
     conv-VAE, replayed from their graphs and eager (``vae_requests_eager``);
     5 warm UNet28 train steps (batch 128, bfloat16, fused q_sample), eager
     and then replayed from a CUDA graph over a resident set; 20 steps
@@ -3823,7 +4037,8 @@ def phase_profile() -> None:
     graphs and eager (``_eager``); 3 warm conv-VAE train
     steps (256x256, batch 4, fp32, Adam) from ``vae_laion_best``, eager and
     replayed from a graph over a resident set, and the same replayed steps in
-    bfloat16 (all flash sites from one profiler session); 5 latent
+    bfloat16 (all flash sites from one profiler session); the replayed steps
+    at 512², float32 and bfloat16 (``_profile_vae512_steps``); 5 latent
     MLP UNet train steps replayed from a graph; one DPM++-15 latent serving
     request on the DiT, replayed and eager."""
     model = load_conv_vae(CHECKPOINT, device="cuda")
@@ -3910,6 +4125,7 @@ def phase_profile() -> None:
     _profile_window("vae_train_bf16_steps_graph",
                     lambda: bf16_vae_step(bf16_vae_state, vae_idxs), expect_flash=3 * 9,
                     steps=3, batch=4, compute_dtype="bfloat16")
+    _profile_vae512_steps()
 
     # 5 latent MLP UNet steps (B = 128, bf16, from latent_diffusion_best),
     # replayed from a graph over a resident set, as the default run takes them.
@@ -3932,6 +4148,12 @@ def phase_profile() -> None:
                     n=SERVE_N, warm=2)
     _profile_window("latent_serve_dpmpp15_eager", lambda: latent_serve.eager(sample_gen, y7),
                     steps=15, n=SERVE_N)
+
+
+def _kernel_widths(fields: dict, kernel: str) -> dict[str, int]:
+    """A phase's launches of ``kernel`` by (D, C)."""
+    return {k.split(" ", 1)[1]: n for k, n in fields["launches_by_width"].items()
+            if k.split(" ", 1)[0] == kernel}
 
 
 def main() -> int:
@@ -4002,6 +4224,12 @@ def main() -> int:
     phase_vae_resident_parity()
     phase_vae_resident_full()
     phase_vae_train_parity()
+    # The conv-VAE at 512²: every attention site on the flash path, dec_attn0
+    # on the (16, 128) kernels; the float32 run's checkpoint served after.
+    with tempfile.TemporaryDirectory() as vae512_dir:
+        vae512 = phase_vae_train("auto", "float32", image_size=512, checkpoint_dir=vae512_dir)
+        vae512_bf16 = phase_vae_train("auto", "bfloat16", image_size=512)
+        vae512_serve = phase_vae512_serve(os.path.join(vae512_dir, "vae_laion_best"))
     main_site = sites[0]  # N = 16384: the largest share of the kernel's work
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # fp32_core_bound_ms and sfu_ms are worked out, not measured: they stay in the
@@ -4019,6 +4247,9 @@ def main() -> int:
             "launches_vae_train": vae["launches"]["flash_fwd"],
             # The LAION FID tool's conv-VAE rows, at B = 32.
             "launches_fid_laion": fid_laion["launches"]["flash_fwd"],
+            # The 512² run and serving requests, by (D, C).
+            "launches_vae512_train": _kernel_widths(vae512, "flash_fwd"),
+            "launches_vae512_serve": _kernel_widths(vae512_serve, "flash_fwd"),
             # chain_graph's float32 conv-VAE requests (3 each: an eager first,
             # then a capture and replays).
             "launches_chain_graph": _chain_graph_flash(chain_graph, "flash_fwd"),
@@ -4062,6 +4293,7 @@ def main() -> int:
             "replaces": "tinydiffusion_tpu/ops/attention.py:193",
             # The default conv-VAE run (resident, graph replays).
             "launches": vae["launches"]["flash_bwd"],
+            "launches_vae512_train": _kernel_widths(vae512, "flash_bwd"),
             "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
             **{k: bwd_sites[0][k] for k in flash_keys},  # N = 16384
             "sites": [{k: v for k, v in s.items() if k not in context} for s in bwd_sites],
@@ -4074,6 +4306,7 @@ def main() -> int:
             "source": "tinydiffusion_torch/ops/csrc/flash_fwd_bf16.cu",
             "replaces": "tinydiffusion_tpu/ops/attention.py:113",
             "launches": vae_bf16["launches"]["flash_fwd_bf16"],
+            "launches_vae512_train": _kernel_widths(vae512_bf16, "flash_fwd_bf16"),
             # chain_graph's bfloat16 conv-VAE serving requests.
             "launches_chain_graph": _chain_graph_flash(chain_graph, "flash_fwd_bf16"),
             "max_abs_err": max(s["max_abs_err"] for s in bf16_sites),
@@ -4087,6 +4320,7 @@ def main() -> int:
             "source": "tinydiffusion_torch/ops/csrc/flash_bwd_bf16.cu",
             "replaces": "tinydiffusion_tpu/ops/attention.py:193",
             "launches": vae_bf16["launches"]["flash_bwd_bf16"],
+            "launches_vae512_train": _kernel_widths(vae512_bf16, "flash_bwd_bf16"),
             "max_abs_err": max(s["max_abs_err"] for s in bwd_bf16_sites),
             **{k: bwd_bf16_sites[0][k] for k in flash_keys},  # N = 16384
             "sites": [{k: v for k, v in s.items() if k not in context} for s in bwd_bf16_sites],

@@ -28,6 +28,11 @@ ATOL, RTOL = 2e-4, 5e-4
 DENSE_ATOL, DENSE_RTOL = 1e-5, 1e-5
 
 
+# Every (D, C) the conv-VAE's attention reaches (d = C // 8 at C = 32, 64, 128):
+# the widths the CUDA kernels are built for.
+HEAD_WIDTHS = [(4, 32), (8, 64), (16, 128)]
+
+
 def _qkv(b, n, d, c, seed):
     """q, k (B, N, D), v (B, N, C) float32, logits of std 2 (extremes ~ +-10)."""
     rng = np.random.default_rng(seed)
@@ -42,7 +47,7 @@ def _t(x):
     return np.ascontiguousarray(np.swapaxes(x, 1, 2))
 
 
-@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
 def test_flash_entry_points_match_jax_flash(d, c, monkeypatch):
     """N = 2048 with blocks 512/1024 (the port's DEFAULT_BLOCK_Q/K) takes the
     flash path on both sides."""
@@ -62,7 +67,7 @@ def test_flash_entry_points_match_jax_flash(d, c, monkeypatch):
     np.testing.assert_allclose(got_t.numpy(), _t(want), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
 def test_flash_fwd_out_and_lse_match_jax_fwd(d, c):
     q, k, v = _qkv(2, 2048, d, c, seed=10 + d)
     qt, kt, vt = (_t(x) for x in (q, k, v))
@@ -149,7 +154,7 @@ GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3
 SAME_ATOL, SAME_RTOL = 1e-5, 1e-5
 
 
-@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
 def test_flash_bwd_matches_jax_bwd(d, c):
     """The plain backward (what a CPU tensor runs) against JAX's ``_bwd``
     (its fused Pallas kernel in interpret mode) on JAX's own residuals."""
@@ -168,7 +173,7 @@ def test_flash_bwd_matches_jax_bwd(d, c):
 
 
 @pytest.mark.parametrize("entry", ["bnd", "bdn"])
-@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
 def test_flash_grads_match_jax_grad(entry, d, c, monkeypatch):
     """Gradients through both entry points (the autograd Function over
     ``flash_fwd`` and ``flash_bwd``) against ``jax.grad`` of JAX's ``_flash``
@@ -307,7 +312,7 @@ def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
 
 
-@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
 def test_3xtf32_products_keep_float32_accuracy(d, c):
     """The design's precision choice, checked before any card run: the plain
     forward with both products (logits and values) in emulated 3xTF32 stays
@@ -346,7 +351,7 @@ def _share_of_bound(got: torch.Tensor, want: torch.Tensor, atol: float) -> float
     return ((got - want).abs() / (atol + BF16_RTOL * want.abs())).max().item()
 
 
-@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
 def test_bf16_planes_keep_the_card_bounds(d, c):
     """The bf16 kernels' precision choice, checked before any card run: the
     plain forward and backward with P and dS taken as two bf16 planes (and q,
@@ -403,6 +408,71 @@ def test_wrapper_tile_constants_match_the_kernel_sources():
         assert "key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock" in launcher
 
 
+def test_head_widths_are_the_kernels_widths():
+    assert set(HEAD_WIDTHS) == attention.KERNEL_HEAD_WIDTHS
+
+
+_KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_fwd_bf16.cu", "flash_bwd_bf16.cu")
+
+
+@pytest.mark.parametrize("source", _KERNEL_SOURCES)
+def test_every_wrapper_width_is_instantiated_in_the_kernel_sources(source):
+    """Each (D, C) of KERNEL_HEAD_WIDTHS has its ``launch<D, C>`` line and its
+    ``_smem_bytes`` case in each of the four kernel sources, and no source
+    instantiates a width the wrapper refuses: else a width the wrapper lets
+    through would come back as cudaErrorInvalidValue on the card."""
+    text = (Path(_build._CSRC) / source).read_text()
+    launched = {(int(d), int(c)) for d, c in re.findall(
+        r"if \(d == (\d+) && c == (\d+)\) \{?\s*return launch<\1, \2>\(", text)}
+    smem = {(int(d), int(c)) for d, c in re.findall(
+        r"if \(d == (\d+) && c == (\d+)\) return static_cast<int>\(sizeof\(Smem<", text)}
+    assert launched == set(attention.KERNEL_HEAD_WIDTHS), (source, launched)
+    assert smem == set(attention.KERNEL_HEAD_WIDTHS), (source, smem)
+
+
+@pytest.mark.parametrize("d,c", [(2, 16), (16, 64), (8, 128), (32, 256)])
+def test_kernel_operand_check_refuses_other_widths(d, c):
+    """The card's wrapper raises on a width it has no kernel for (checked
+    before any launch, so it runs here on CPU tensors); no fallback."""
+    tensors = {"qt": torch.zeros(1, d, 64), "kt": torch.zeros(1, d, 64),
+               "vt": torch.zeros(1, c, 64)}
+    with pytest.raises(ValueError, match="is built for"):
+        attention._check_kernel_operands("flash_fwd", tensors)
+
+
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
+def test_kernel_operand_check_takes_every_built_width(d, c):
+    tensors = {"qt": torch.zeros(2, d, 64), "kt": torch.zeros(2, d, 64),
+               "vt": torch.zeros(2, c, 64)}
+    assert attention._check_kernel_operands("flash_fwd", tensors) == (2, d, 64, c)
+
+
+def test_launch_counts_by_width_follow_captures_and_replays(monkeypatch):
+    """A launch counts once by kernel and once by (kernel, D, C); under a
+    graph capture both go to ``captured``, and ``count_replays`` of the
+    capture's difference (as ``core/graphs.py`` takes it) adds both to the
+    launch counts at each replay. The wrapper's counting, without a card."""
+    for key in attention.launches_by_width:
+        monkeypatch.setitem(attention.launches_by_width, key, 0)
+    monkeypatch.setattr(attention, "flash_bwd_launches", 0)
+    monkeypatch.setattr(attention, "captured", dict.fromkeys(attention.captured, 0))
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    attention._count_launch("flash_bwd", 16, 128)
+    before = dict(attention.captured)
+    capturing[0] = True
+    attention._count_launch("flash_bwd", 16, 128)
+    attention._count_launch("flash_bwd", 4, 32)
+    per_replay = {k: n - before[k] for k, n in attention.captured.items()}
+    assert per_replay["flash_bwd"] == 2 and per_replay["flash_bwd", 16, 128] == 1
+    assert attention.flash_bwd_launches == 1
+    attention.count_replays(per_replay, replays=3)
+    assert attention.flash_bwd_launches == 1 + 6
+    assert attention.launches_by_width["flash_bwd", 16, 128] == 1 + 3
+    assert attention.launches_by_width["flash_bwd", 4, 32] == 3
+    assert sum(attention.launches_by_width.values()) == attention.flash_bwd_launches
+
+
 # --- bfloat16 operands -------------------------------------------------------------
 
 # bf16 operands: both sides compute in float32 (a product of two bf16 values is
@@ -427,7 +497,7 @@ def _f32(x) -> np.ndarray:
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
 def test_bf16_flash_fwd_matches_jax_fwd(d, c):
     """bf16 q/k/v at N = 2048 (B = 2): out in bf16, lse in float32, against
     JAX's ``_fwd`` in interpret mode (its single exact logit pass)."""
@@ -441,7 +511,7 @@ def test_bf16_flash_fwd_matches_jax_fwd(d, c):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("d,c", [(4, 32), (8, 64)])
+@pytest.mark.parametrize("d,c", HEAD_WIDTHS)
 def test_bf16_flash_bwd_matches_jax_bwd(d, c):
     """The plain bf16 backward against JAX's ``_bwd`` (its fused kernel in
     interpret mode, dq accumulated in bf16 over two 1024-key blocks) on

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels: ``nvcc`` -> shared library -> ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call into
+Every ``csrc/*.cu`` file is compiled by an ``nvcc`` of its own, all started
+together, and the objects are linked into
 ``tinydiffusion_torch/_build/<hash>/libtdt_kernels.so``, where ``<hash>``
 covers the sources, their ``csrc/*.cuh`` headers and the flags, so an
 edited source rebuilds and an unchanged one loads the library that is
@@ -27,8 +28,7 @@ _BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 _LIB_NAME = "libtdt_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 
@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 class Build:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output (ptxas registers / shared memory per kernel), kept beside the library
+    log: str  # the nvcc runs' output (ptxas registers and shared memory per kernel)
 
 
 def find_nvcc() -> str:
@@ -78,15 +78,31 @@ def build() -> Build:
         return Build(lib, 0.0, log_path.read_text() if log_path.exists() else "")
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = out_dir / f"{_LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    # One nvcc a source, all at once: the build takes as long as the slowest.
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate(timeout=900)[0] for proc in procs]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(cmd, proc.returncode) for cmd, proc in zip(cmds, procs) if proc.returncode]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True, timeout=900)
+        outputs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed.append((link, proc.returncode))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(outputs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        cmd, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return Build(lib, seconds, log)

@@ -27,7 +27,8 @@ the operands' dtype, as JAX's kernels do. bfloat16 runs kernels of its own,
 counted apart (``flash_fwd_bf16_launches``, ``flash_bwd_bf16_launches``):
 their logit products are one exact pass, as JAX's are for bf16 inputs, and
 their outputs are rounded where JAX rounds them, out once and dq once per
-1024-key block. A launch under a CUDA graph
+1024-key block. Every launch also counts by (kernel, D, C) in
+``launches_by_width``. A launch under a CUDA graph
 capture counts in ``captured``, and in the launch counts at each replay of
 the graph (``count_replays``).
 There is no fallback from a kernel to its plain version. ``_FlashT``, a
@@ -49,41 +50,52 @@ DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 1024
 _DENSE_N_THRESHOLD = 1024  # below this, dense attention is faster + simpler
 
-# (D, C) head widths the CUDA kernel is instantiated for: the conv-VAE's
-# d = C // 8 at the attention widths that take the flash path at 256x256
-# (C = 128 sees N = 1024 there, which is dense).
-KERNEL_HEAD_WIDTHS = frozenset({(4, 32), (8, 64)})
+# (D, C) head widths the CUDA kernels are instantiated for: every width the
+# conv-VAE can reach. Its SelfAttention2D sits only on C = 32, 64 and 128
+# (d = C // 8); C = 128 (dec_attn0) takes the flash path from 512x512 on.
+# Any other width raises on the card: there is no fallback.
+KERNEL_HEAD_WIDTHS = frozenset({(4, 32), (8, 64), (16, 128)})
 
 # The operand dtypes the kernels take, and the suffix of each one's launcher.
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
+KERNELS = ("flash_fwd", "flash_bwd", "flash_fwd_bf16", "flash_bwd_bf16")
 # Launches of the CUDA kernels since import (or since a caller reset them):
 # the float32 kernels, and the bfloat16 ones apart.
 flash_fwd_launches = 0
 flash_bwd_launches = 0
 flash_fwd_bf16_launches = 0
 flash_bwd_bf16_launches = 0
+# The same launches by (kernel, D, C).
+launches_by_width = {(k, d, c): 0 for k in KERNELS for d, c in sorted(KERNEL_HEAD_WIDTHS)}
 # Launches recorded into a CUDA graph while its stream was captured, by
-# kernel: the graph's owner adds them to the counts above at each replay
-# (``count_replays``), as ``ops.qsample`` does for its kernel.
-captured = {"flash_fwd": 0, "flash_bwd": 0, "flash_fwd_bf16": 0, "flash_bwd_bf16": 0}
+# kernel and by (kernel, D, C): the graph's owner adds them to the counts
+# above at each replay (``count_replays``), as ``ops.qsample`` does for its
+# kernel.
+captured = {**{k: 0 for k in KERNELS}, **{key: 0 for key in launches_by_width}}
 
 
-def _count_launch(kernel: str) -> None:
-    """One launch of ``kernel`` (a key of ``captured``): into
-    ``<kernel>_launches``, or into ``captured`` under a graph capture."""
+def _count_launch(kernel: str, d: int, c: int) -> None:
+    """One launch of ``kernel`` at (d, c): into ``<kernel>_launches`` and
+    ``launches_by_width``, or into ``captured`` under a graph capture."""
     if torch.cuda.is_current_stream_capturing():
         captured[kernel] += 1
+        captured[kernel, d, c] += 1
     else:
         globals()[f"{kernel}_launches"] += 1
+        launches_by_width[kernel, d, c] += 1
 
 
-def count_replays(per_replay: dict[str, int], replays: int = 1) -> None:
+def count_replays(per_replay: dict, replays: int = 1) -> None:
     """Add the launches of ``replays`` replays of a CUDA graph into which
-    ``per_replay`` launches (by kernel: a difference of ``captured`` across
-    the capture) were recorded to the ``<kernel>_launches`` counts."""
-    for kernel, n in per_replay.items():
-        globals()[f"{kernel}_launches"] += n * replays
+    ``per_replay`` launches (a difference of ``captured`` across the
+    capture: by kernel, and by (kernel, D, C)) were recorded to the
+    ``<kernel>_launches`` counts and to ``launches_by_width``."""
+    for key, n in per_replay.items():
+        if isinstance(key, tuple):
+            launches_by_width[key] += n * replays
+        else:
+            globals()[f"{key}_launches"] += n * replays
 
 # Keys per block of the backward kernels (``kKeysPerBlock`` in
 # csrc/flash_bwd.cu and csrc/flash_bwd_bf16.cu; a test ties them): it sizes
@@ -236,7 +248,7 @@ def flash_fwd(
         )
     if rc != 0:
         raise RuntimeError(f"flash_fwd ({dtype}) kernel launch failed: cudaError {rc}")
-    _count_launch("flash_fwd_bf16" if dtype == torch.bfloat16 else "flash_fwd")
+    _count_launch("flash_fwd_bf16" if dtype == torch.bfloat16 else "flash_fwd", d, c)
     return out_t, lse
 
 
@@ -287,7 +299,7 @@ def flash_bwd(
         )
     if rc != 0:
         raise RuntimeError(f"flash_bwd ({dtype}) kernel launch failed: cudaError {rc}")
-    _count_launch("flash_bwd_bf16" if dtype == torch.bfloat16 else "flash_bwd")
+    _count_launch("flash_bwd_bf16" if dtype == torch.bfloat16 else "flash_bwd", d, c)
     return dqt, dkt, dvt
 
 

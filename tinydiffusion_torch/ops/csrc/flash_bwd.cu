@@ -16,26 +16,27 @@
 // Design (one visit per (query, key) pair, as the TPU kernel). S^T = K Q^T
 // and the two products over C (dP^T and dV), which carry 2C + D of the pair's
 // 2C + 3D multiply-adds, run on the tensor cores by 3xTF32 wgmma (fragments,
-// split and accumulation rule in tf32_mma.cuh); dK and dQ, over D <= 8, run as
-// float32 FMAs on the CUDA cores.
+// split and accumulation rule in tf32_mma.cuh); dK and dQ, over D <= 16, run
+// as float32 FMAs on the CUDA cores.
 // - A block is one warpgroup and owns kKeysPerBlock = 64 keys, 16 a warp (the
 //   64 rows of wgmma). Its V, split, sits in shared memory as wgmma's A; each
 //   warp keeps its K fragment (split) and each thread its dK sums in
 //   registers, the warpgroup its dV sums in wgmma accumulators.
-// - Query tiles of kBlockQ queries: the D rows of q, the C rows of dO, lse and
-//   delta, contiguous in the (B, *, N) layout, are copied with cp.async into a
-//   staging buffer. After a barrier the block splits q and dO once into the
-//   layouts wgmma reads (below), takes lse to base 2 (+inf for queries past N)
-//   and copies q, lse and delta out of the staging buffer; after a second
-//   barrier it issues the copy of the next tile, which runs while the warps
-//   compute.
-// - Per tile: S^T = K Q^T (m64n64, k8 over d, K pre-scaled by log2(e)) and
-//   dP^T = V dO^T (m64n64, over C) are issued; P^T = 2^(S^T - lse log2(e))
-//   runs while dP^T computes; then, per k8 step of queries, dV += P^T dO
-//   (m64nC) is issued with P^T taken from registers by the key permutation of
-//   tf32_mma.cuh, and dS^T = P^T (dP^T - delta) and dK += dS^T Q by FMAs (per
-//   thread over its queries; the quad's four partial sums are added once, at
-//   the end) run while it computes.
+// - Query tiles of kBlockQ queries (64; 32 at C = 128, where dO's two split
+//   layouts for 64 queries beside V's planes would overflow shared memory):
+//   the D rows of q, the C rows of dO, lse and delta, contiguous in the
+//   (B, *, N) layout, are copied with cp.async into a staging buffer. After a
+//   barrier the block splits q and dO once into the layouts wgmma reads
+//   (below), takes lse to base 2 (+inf for queries past N) and copies q, lse
+//   and delta out of the staging buffer; after a second barrier it issues the
+//   copy of the next tile, which runs while the warps compute.
+// - Per tile: S^T = K Q^T (m64 x kBlockQ, k8 steps over d, K pre-scaled by
+//   log2(e)) and dP^T = V dO^T (m64 x kBlockQ, over C) are issued;
+//   P^T = 2^(S^T - lse log2(e)) runs while dP^T computes; then, per k8 step
+//   of queries, dV += P^T dO (m64nC) is issued with P^T taken from registers
+//   by the key permutation of tf32_mma.cuh, and dS^T = P^T (dP^T - delta) and
+//   dK += dS^T Q by FMAs (per thread over its queries; the quad's four partial
+//   sums are added once, at the end) run while it computes.
 // - dQ = dS K needs dS, not dS^T: the warps write dS^T into a shared (query,
 //   key) matrix; after a barrier each thread sums one query's dS row times the
 //   block's K (float32, its share of the D columns) over the block's 64 keys.
@@ -46,9 +47,10 @@
 //   lse = +inf, so p = 0, and are not stored.
 //
 // Bound on an H100: 2*B*N^2*(3D + 2C) FLOPs of products (N=16384, D=4, C=32,
-// B=4: 163 GFLOP, 0.330 ms at the 495 TFLOP/s TF32 tensor-core peak) and one
-// exp per pair (0.257 ms at the MUFU rate). The partials add 2 * 4 * B *
-// (N / 64) * D * N bytes (512 MiB moved at N=16384, D=4, B=4).
+// B=4: 163 GFLOP, 0.330 ms at the 495 TFLOP/s TF32 tensor-core peak; N=4096,
+// D=16, C=128: 40.8 GFLOP, 0.082 ms) and one exp per pair (0.257 ms at the MUFU
+// rate). The partials add 2 * 4 * B * (N / 64) * D * N bytes (512 MiB moved at
+// N=16384, D=4, B=4; 8 GiB at N=65536: the scratch grows as N^2).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,22 +65,28 @@ constexpr int kWarps = 4;  // one warpgroup
 constexpr int kThreads = 32 * kWarps;
 constexpr int kKeysPerBlock = 64;  // the wrapper's FLASH_BWD_KEYS_PER_BLOCK
 static_assert(kKeysPerBlock == 16 * kWarps, "one wgmma row tile of keys");
-constexpr int kBlockQ = 64;               // queries per staged tile
-// Staged rows: one 16-byte chunk past the tile (68 = 4 (mod 32) words,
-// conflict-free splits).
-constexpr int kQStride = kBlockQ + 4;
+// Queries per staged tile: at C = 128 the tile's dO planes and staging would
+// not fit beside V's planes for 64 queries.
+template <int C>
+constexpr int kBlockQFor = C == 128 ? 32 : 64;
 constexpr int kDsStride = kKeysPerBlock + 4;  // dS rows: conflict-free writes and float4 reads
-constexpr int kQuerySteps = kBlockQ / 8;
 constexpr int kCore = 32;  // one core matrix: 8 rows x 4 tf32 (128 bytes)
+// Core matrices of d (4 values each) a group of 8 queries: D = 4 padded to 8.
+template <int D>
+constexpr int kDChunks = D < 8 ? 2 : D / 4;
 
 template <int D, int C>
 struct Smem {
+  static constexpr int kBlockQ = kBlockQFor<C>;
+  // Staged rows: one 16-byte chunk past the tile (68 or 36 = 4 (mod 32) words,
+  // conflict-free splits).
+  static constexpr int kQStride = kBlockQ + 4;
   // Split for wgmma, in core matrices (tf32_mma.cuh):
   // V (A of dP): for each group of 8 keys, the c chunks of 4 in order.
   uint32_t v_hi[kKeysPerBlock * C], v_lo[kKeysPerBlock * C];
-  // q as B of S^T (K = d): for each group of 8 queries, d 0-3 then d 4-7
-  // (zero for D = 4).
-  uint32_t qd_hi[kBlockQ * 8], qd_lo[kBlockQ * 8];
+  // q as B of S^T (K = d): for each group of 8 queries, the d chunks of 4 in
+  // order (d 4-7 zero for D = 4).
+  uint32_t qd_hi[kBlockQ * 4 * kDChunks<D>], qd_lo[kBlockQ * 4 * kDChunks<D>];
   union {
     // dO as B of dP (K = c): for each group of 8 queries, the c chunks in
     // order. Dead once dP^T is done, when dS takes its place.
@@ -101,7 +109,7 @@ struct Smem {
 };
 
 // Blocks an SM must hold: at C = 32 the registers are capped for 3 (the shared
-// memory allows 3); at C = 64 the shared memory allows only 1.
+// memory allows 3); at C = 64 and 128 the shared memory allows only 1.
 template <int C>
 constexpr int kMinBlocks = C == 32 ? 3 : 1;
 
@@ -112,8 +120,12 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dkt, float* __restrict__ dvt,
                     float* __restrict__ dq_part, int n) {
-  static_assert(D == 4 || D == 8, "the dQ columns split evenly over the threads");
-  static_assert(C == 32 || C == 64, "dV is one m64n32 or m64n64");
+  static_assert(D == 4 || D == 8 || D == 16, "the logit product is one or two k8 steps");
+  static_assert(C == 32 || C == 64 || C == 128, "dV is one m64nC");
+  constexpr int kBlockQ = Smem<D, C>::kBlockQ, kQStride = Smem<D, C>::kQStride;
+  constexpr int kQuerySteps = kBlockQ / 8;
+  constexpr int kDSteps = kDChunks<D> / 2;
+  static_assert(D * kBlockQ % kThreads == 0, "the dQ columns split evenly over the threads");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<D, C>& sm = *reinterpret_cast<Smem<D, C>*>(smem_raw);
 
@@ -128,13 +140,19 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
   const float* kbp = kt + bn * D;
   const float* vb = vt + bn * C;
 
-  // This warp's K as A of S^T (rows = its 16 keys, columns = d), split once,
-  // in base 2, and the block's K and V in shared memory.
+  // This warp's K as A of S^T (rows = its 16 keys, columns = d 8s + t,
+  // 8s + t + 4 of k8 step s), split once, in base 2, and the block's K and V
+  // in shared memory.
   auto k_at = [&](int d, int key) {
     return (d < D && key < n) ? kbp[static_cast<size_t>(d) * n + key] * kLog2e : 0.f;
   };
-  const FragA8 ka = split_a8(k_at(t, key0), k_at(t, key0 + 8), k_at(t + 4, key0),
-                             k_at(t + 4, key0 + 8));
+  FragA8 ka[kDSteps];
+#pragma unroll
+  for (int ks = 0; ks < kDSteps; ++ks) {
+    const int d0 = 8 * ks + t;
+    ka[ks] = split_a8(k_at(d0, key0), k_at(d0, key0 + 8), k_at(d0 + 4, key0),
+                      k_at(d0 + 4, key0 + 8));
+  }
   for (int e = threadIdx.x; e < kKeysPerBlock * D; e += kThreads) {
     const int key = e % kKeysPerBlock, d = e / kKeysPerBlock;
     sm.k[key][d] =
@@ -205,7 +223,7 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
       *reinterpret_cast<uint4*>(sm.doq_lo + even) = make_uint4(e0.lo, e2.lo, e4.lo, e6.lo);
       *reinterpret_cast<uint4*>(sm.doq_lo + odd) = make_uint4(e1.lo, e3.lo, e5.lo, e7.lo);
     }
-    for (int e = threadIdx.x; e < 2 * kBlockQ; e += kThreads) {  // q, K = d
+    for (int e = threadIdx.x; e < kDChunks<D> * kBlockQ; e += kThreads) {  // q, K = d
       const int q = e % kBlockQ, dc = e / kBlockQ;
       float x[4] = {0.f, 0.f, 0.f, 0.f};
       if (4 * dc < D) {
@@ -213,7 +231,7 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
         for (int i = 0; i < 4; ++i) x[i] = sm.q[4 * dc + i][q];
       }
       const Tf32x2 a = split(x[0]), b1 = split(x[1]), c2 = split(x[2]), d3 = split(x[3]);
-      const int off = ((q / 8) * 2 + dc) * kCore + (q % 8) * 4;
+      const int off = ((q / 8) * kDChunks<D> + dc) * kCore + (q % 8) * 4;
       *reinterpret_cast<uint4*>(sm.qd_hi + off) = make_uint4(a.hi, b1.hi, c2.hi, d3.hi);
       *reinterpret_cast<uint4*>(sm.qd_lo + off) = make_uint4(a.lo, b1.lo, c2.lo, d3.lo);
     }
@@ -228,7 +246,7 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
     __syncthreads();      // the planes hold tile it; the staging buffer is free
     if (it + 1 < ntiles) stage(q0 + kBlockQ);
 
-    // S^T = K Q^T (m64 x kBlockQ, k8 over d, base 2) and dP^T = V dO^T (over
+    // S^T = K Q^T (m64 x kBlockQ, k8 steps over d, base 2) and dP^T = V dO^T (over
     // C): accumulator 4j + e is element e of the n8 tile j of the tile's
     // queries (key key0 + 8 (e >> 1), tile query 8j + 2t + (e & 1)). dP^T
     // runs while P^T is computed.
@@ -240,8 +258,13 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
       reg_fence(dp[i]);
     }
     wgmma_fence();
-    const uint64_t qd_hi = smem_desc(sm.qd_hi, kCoreBytes, 2 * kCoreBytes);
-    wgmma3_tf32<kBlockQ>(s_acc, ka, qd_hi, smem_desc(sm.qd_lo, kCoreBytes, 2 * kCoreBytes));
+#pragma unroll
+    for (int ks = 0; ks < kDSteps; ++ks) {  // q's d chunks 2ks and 2ks + 1
+      wgmma3_tf32<kBlockQ>(
+          s_acc, ka[ks],
+          smem_desc(sm.qd_hi + 2 * ks * kCore, kCoreBytes, kDChunks<D> * kCoreBytes),
+          smem_desc(sm.qd_lo + 2 * ks * kCore, kCoreBytes, kDChunks<D> * kCoreBytes));
+    }
     wgmma_commit();
 #pragma unroll
     for (int i = 0; i < C / 8; ++i) {  // c chunks 2i and 2i + 1
@@ -459,6 +482,9 @@ extern "C" int tdt_flash_bwd_f32(const void* qt, const void* kt, const void* vt,
   if (d == 8 && c == 64) {
     return launch<8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
   }
+  if (d == 16 && c == 128) {
+    return launch<16, 128>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -467,5 +493,6 @@ extern "C" int tdt_flash_bwd_f32(const void* qt, const void* kt, const void* vt,
 extern "C" int tdt_flash_bwd_smem_bytes(int d, int c) {
   if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<4, 32>));
   if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<8, 64>));
+  if (d == 16 && c == 128) return static_cast<int>(sizeof(Smem<16, 128>));
   return -1;
 }

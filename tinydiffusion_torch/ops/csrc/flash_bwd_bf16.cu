@@ -26,15 +26,17 @@
 //   dO read MN-major) are issued together; P^T = 2^(S^T log2(e) - lse log2(e))
 //   (one FFMA and an ex2 an element) runs while dP^T computes; dS^T = P^T
 //   (dP^T - delta).
-// - dV += P^T dO (m64nCk16) and dK += dS^T Q (m64n8k16, D padded to 8) take
+// - dV += P^T dO (m64nCk16) and dK += dS^T Q (m64n8k16, D padded to 8; m64n16
+//   at D = 16) take
 //   P^T and dS^T from registers as A, each as two bf16 planes (~2^-16 relative,
 //   float32's accuracy for the outputs), the accumulator fragment repacked in
 //   place; dO and q are the same staged tiles read K-major. dV accumulates in
 //   its wgmma accumulators over the tiles, dK's tile sum is added in float32.
 // - dQ = dS K: both consumers write their dS^T planes, bf16, into a shared
 //   (key, query) tile; after a named barrier the consumer whose turn it is
-//   (the tiles alternate) runs m64n8k16 over the block's 128 keys with dS read
-//   MN-major against the block's K (staged once), and writes the block's
+//   (the tiles alternate) runs m64n8k16 (m64n16 at D = 16) over the block's
+//   128 keys with dS read MN-major against the block's K (staged once), and
+//   writes the block's
 //   partial dq for the tile, float32, to scratch (B, N / 128, D, N). The dS
 //   tile is double-buffered, so the other consumer runs on.
 // - dq follows JAX's order of roundings (attention.py:225-229), which
@@ -46,9 +48,11 @@
 //   lse, delta), which makes their dv, ds and dk terms 0, and are not stored.
 //
 // Bound on an H100: 2*B*N^2*(3D + 2C) FLOPs of products (N=16384, D=4, C=32,
-// B=4: 163 GFLOP, 0.165 ms at the 989 TFLOP/s bf16 tensor-core peak) and one
-// exp per pair (0.257 ms at the MUFU rate). The partials add 2 * 4 * B *
-// (N / 128) * D * N bytes (256 MiB moved at N=16384, D=4, B=4).
+// B=4: 163 GFLOP, 0.165 ms at the 989 TFLOP/s bf16 tensor-core peak; N=4096,
+// D=16, C=128: 40.8 GFLOP, 0.041 ms) and one exp per pair (0.257 ms at the
+// MUFU rate). The partials add 2 * 4 * B * (N / 128) * D * N bytes (256 MiB
+// moved at N=16384, D=4, B=4; 4 GiB at N=65536). At C = 128 a consumer thread
+// holds V (32 registers) and dV (64) beside S^T, dP^T and the P and dS planes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,18 +71,21 @@ constexpr int kBlockQ = kTileTokens;  // queries per tile
 constexpr int kStages = 3;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr uint32_t kDsBarrier = 1;  // named barrier: both consumers' dS is written
+// The n of dK's and dQ's products: D padded to 8.
+template <int D>
+constexpr int kDn = D < 8 ? 8 : D;
 
-template <int C>
+template <int D, int C>
 struct Smem {
-  alignas(128) unsigned char q[kStages][2 * kRowGroupBytes];  // 16 rows: D, then zeros
+  alignas(128) unsigned char q[kStages][2 * kRowGroupBytes];  // 16 rows: D, then zeros to 16
   alignas(128) unsigned char dO[kStages][C / 8 * kRowGroupBytes];
   alignas(16) float lse[kStages][kBlockQ];
   alignas(16) float delta[kStages][kBlockQ];
   // dS of a tile, [buffer][plane hi, lo], keys as rows (MN-major A of dQ).
   alignas(128) unsigned char ds[2][2][kKeysPerBlock / 8 * kRowGroupBytes];
-  // The block's K as B of dQ: for each 8 keys, a core matrix of d 0..7 (zero
-  // from D) x 8 keys, read K-major.
-  alignas(128) unsigned char k[kKeysPerBlock / 8 * kTokenGroupBytes];
+  // The block's K as B of dQ, read K-major: for each 8 values of d (zero from
+  // D), the block's keys in core matrices of 8 keys.
+  alignas(128) unsigned char k[kDn<D> / 8][kKeysPerBlock / 8 * kTokenGroupBytes];
   uint64_t full[kStages], empty[kStages];
 };
 
@@ -89,10 +96,12 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       bf16* __restrict__ dkt, bf16* __restrict__ dvt,
                       float* __restrict__ dq_part, int n) {
-  static_assert(D == 4 || D == 8, "K and q padded to one k16 step, dK and dQ one n8 tile");
-  static_assert(C == 32 || C == 64, "dV is one m64n32 or m64n64");
+  static_assert(D == 4 || D == 8 || D == 16, "K and q padded to one k16 step");
+  static_assert(C == 32 || C == 64 || C == 128, "dV is one m64nC");
+  constexpr int kN = kDn<D>;  // dK's and dQ's n
+  constexpr uint32_t kKBytes = kKeysPerBlock / 8 * kTokenGroupBytes;  // a row group of sm.k
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<C>& sm = *reinterpret_cast<Smem<C>*>(smem_raw);
+  Smem<D, C>& sm = *reinterpret_cast<Smem<D, C>*>(smem_raw);
   const int b = blockIdx.y, kb = blockIdx.x;
   const int key_base = kb * kKeysPerBlock;
   const size_t bn = static_cast<size_t>(b) * n;
@@ -101,15 +110,18 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
 
   // q's rows D..15 stay zero; the producer writes rows below D. The block's K
   // for dQ, zero past D and past N.
-  for (int i = threadIdx.x; i < static_cast<int>(sizeof(sm.q) / 16); i += kThreads) {
-    reinterpret_cast<uint4*>(sm.q)[i] = make_uint4(0, 0, 0, 0);
+  if constexpr (D < 16) {
+    for (int i = threadIdx.x; i < static_cast<int>(sizeof(sm.q) / 16); i += kThreads) {
+      reinterpret_cast<uint4*>(sm.q)[i] = make_uint4(0, 0, 0, 0);
+    }
   }
-  for (int e = threadIdx.x; e < kKeysPerBlock * 8; e += kThreads) {
+  for (int e = threadIdx.x; e < kKeysPerBlock * kN; e += kThreads) {
     const int key = e % kKeysPerBlock, d = e / kKeysPerBlock;
     const uint32_t v =
         bf16_bits(kbp + static_cast<size_t>(d) * n + key_base + key, d < D && key_base + key < n);
-    *reinterpret_cast<unsigned short*>(sm.k + (key / 8) * kTokenGroupBytes + d * 16 +
-                                       (key % 8) * 2) = static_cast<unsigned short>(v);
+    *reinterpret_cast<unsigned short*>(sm.k[d / 8] + (key / 8) * kTokenGroupBytes +
+                                       (d % 8) * 16 + (key % 8) * 2) =
+        static_cast<unsigned short>(v);
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -148,14 +160,16 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
   const bool key_ok0 = key0 < n, key_ok1 = key0 + 8 < n;
   const bf16* vb = vt + bn * C;
 
-  // K as A of S^T (rows: keys; columns d = 2t, 2t + 1, zero from D) and V as
-  // A of dP^T (columns c, C / 16 k16 steps).
+  // K as A of S^T (rows: keys; columns d = 2t, 2t + 1 and 2t + 8, 2t + 9,
+  // zero from D) and V as A of dP^T (columns c, C / 16 k16 steps).
   auto bf16_pair = [&](const bf16* m, int row, int key, bool in) {
     const bf16* p = m + static_cast<size_t>(row) * n + key;
     return bf16_bits(p, in) | bf16_bits(p + n, in) << 16;
   };
   const uint32_t ka[4] = {bf16_pair(kbp, 2 * t, key0, 2 * t < D && key_ok0),
-                          bf16_pair(kbp, 2 * t, key0 + 8, 2 * t < D && key_ok1), 0u, 0u};
+                          bf16_pair(kbp, 2 * t, key0 + 8, 2 * t < D && key_ok1),
+                          bf16_pair(kbp, 2 * t + 8, key0, 2 * t + 8 < D && key_ok0),
+                          bf16_pair(kbp, 2 * t + 8, key0 + 8, 2 * t + 8 < D && key_ok1)};
   uint32_t va[C / 16][4];
 #pragma unroll
   for (int kk = 0; kk < C / 16; ++kk) {
@@ -168,8 +182,12 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
   float dv[C / 2];  // accumulator layout: element 4i + e of the n8 tile i of c
 #pragma unroll
   for (int i = 0; i < C / 2; ++i) dv[i] = 0.f;
-  float dk[4] = {0.f, 0.f, 0.f, 0.f};  // (key0, 2t), (key0, 2t + 1), (key0 + 8, ...)
-  float dk_t[4], dq[4];
+  // dK and dQ in accumulator layout: element 4i + e of the n8 tile i of d,
+  // e.g. dk (key0, 8i + 2t), (key0, 8i + 2t + 1), (key0 + 8, ...).
+  float dk[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) dk[i] = 0.f;
+  float dk_t[kN / 2], dq[kN / 2];
   float s[kBlockQ / 2], dp[kBlockQ / 2];  // S^T, then P^T; dP^T, then dS^T
   FragPlanes pa, dsa;
   float* part = dq_part + (static_cast<size_t>(b) * gridDim.x + kb) * D * n;
@@ -225,8 +243,8 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const uint64_t qd = desc_k(sm.q[st] + 2 * j * kTokenGroupBytes);
-      Wgmma16<8>::rs<0>(dk_t, dsa.lo[j], qd, j > 0);
-      Wgmma16<8>::rs<0>(dk_t, dsa.hi[j], qd, 1);
+      Wgmma16<kN>::template rs<0>(dk_t, dsa.lo[j], qd, j > 0);
+      Wgmma16<kN>::template rs<0>(dk_t, dsa.hi[j], qd, 1);
     }
     wgmma_commit();
 
@@ -250,9 +268,13 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < kKeysPerBlock / 16; ++j) {
-        const uint64_t kd = desc_k(sm.k + 2 * j * kTokenGroupBytes);
-        Wgmma16<8>::ss<1, 0>(dq, desc_mn(sm.ds[buf][1] + 2 * j * kRowGroupBytes), kd, j > 0);
-        Wgmma16<8>::ss<1, 0>(dq, desc_mn(sm.ds[buf][0] + 2 * j * kRowGroupBytes), kd, 1);
+        // K-major: the next 8 keys 128 bytes on, the next 8 values of d kKBytes.
+        const uint64_t kd = smem_desc(sm.k[0] + 2 * j * kTokenGroupBytes, kTokenGroupBytes,
+                                      kKBytes);
+        Wgmma16<kN>::template ss<1, 0>(dq, desc_mn(sm.ds[buf][1] + 2 * j * kRowGroupBytes), kd,
+                                       j > 0);
+        Wgmma16<kN>::template ss<1, 0>(dq, desc_mn(sm.ds[buf][0] + 2 * j * kRowGroupBytes), kd,
+                                       1);
       }
       wgmma_commit();
     }
@@ -264,33 +286,37 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
     reg_fence(dsa);
     release(&sm.empty[st], lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dk[i] += dk_t[i];
-    if (mine) {  // rows: tile queries warp * 16 + g (+ 8); columns d = 2t, 2t + 1
+    for (int i = 0; i < kN / 2; ++i) dk[i] += dk_t[i];
+    if (mine) {  // rows: tile queries warp * 16 + g (+ 8); columns d = 8i + 2t, + 1
       const int q = it * kBlockQ + warp * 16 + g;
-      if (2 * t < D) {
-        float* p0 = part + static_cast<size_t>(2 * t) * n;
+#pragma unroll
+      for (int i = 0; i < kN / 8; ++i) {
+        if (8 * i + 2 * t >= D) continue;
+        float* p0 = part + static_cast<size_t>(8 * i + 2 * t) * n;
         if (q < n) {
-          p0[q] = dq[0];
-          p0[n + q] = dq[1];
+          p0[q] = dq[4 * i + 0];
+          p0[n + q] = dq[4 * i + 1];
         }
         if (q + 8 < n) {
-          p0[q + 8] = dq[2];
-          p0[n + q + 8] = dq[3];
+          p0[q + 8] = dq[4 * i + 2];
+          p0[n + q + 8] = dq[4 * i + 3];
         }
       }
     }
   }
 
   bf16* dkb = dkt + bn * D;
-  if (2 * t < D) {
-    bf16* p0 = dkb + static_cast<size_t>(2 * t) * n;
+#pragma unroll
+  for (int i = 0; i < kN / 8; ++i) {
+    if (8 * i + 2 * t >= D) continue;
+    bf16* p0 = dkb + static_cast<size_t>(8 * i + 2 * t) * n;
     if (key_ok0) {
-      p0[key0] = __float2bfloat16_rn(dk[0]);
-      p0[n + key0] = __float2bfloat16_rn(dk[1]);
+      p0[key0] = __float2bfloat16_rn(dk[4 * i + 0]);
+      p0[n + key0] = __float2bfloat16_rn(dk[4 * i + 1]);
     }
     if (key_ok1) {
-      p0[key0 + 8] = __float2bfloat16_rn(dk[2]);
-      p0[n + key0 + 8] = __float2bfloat16_rn(dk[3]);
+      p0[key0 + 8] = __float2bfloat16_rn(dk[4 * i + 2]);
+      p0[n + key0 + 8] = __float2bfloat16_rn(dk[4 * i + 3]);
     }
   }
   bf16* dvb = dvt + bn * C;
@@ -342,7 +368,7 @@ template <int D, int C, bool kVec>
 cudaError_t launch_as(const void* qt, const void* kt, const void* vt, const void* dot,
                       const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
                       void* dq_part, int b, int n, cudaStream_t stream) {
-  constexpr int kSmem = sizeof(Smem<C>);  // above 48 KB a kernel must opt in
+  constexpr int kSmem = sizeof(Smem<D, C>);  // above 48 KB a kernel must opt in
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_bf16_kernel<D, C, kVec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -396,13 +422,17 @@ extern "C" int tdt_flash_bwd_bf16(const void* qt, const void* kt, const void* vt
   if (d == 8 && c == 64) {
     return launch<8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
   }
+  if (d == 16 && c == 128) {
+    return launch<16, 128>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 // The dynamic shared memory of the pair kernel at (d, c), in bytes (-1 for a
 // pair that is not instantiated), for reports.
 extern "C" int tdt_flash_bwd_bf16_smem_bytes(int d, int c) {
-  if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<32>));
-  if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<64>));
+  if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<4, 32>));
+  if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<8, 64>));
+  if (d == 16 && c == 128) return static_cast<int>(sizeof(Smem<16, 128>));
   return -1;
 }

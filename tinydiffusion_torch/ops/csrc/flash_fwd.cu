@@ -21,7 +21,8 @@
 //   splits the tile once into the hi and lo planes that wgmma reads; after a
 //   second barrier it issues the copy of the next tile, which runs while the
 //   warps compute on the planes.
-// - S = Q K^T: m64n64k8 (D = 4 padded to 8 with zeros).
+// - S = Q K^T: m64n64, one k8 step for each 8 values of d (D = 4 padded to 8
+//   with zeros; D = 16 two steps).
 // - Online softmax in base 2 on the accumulators: a thread holds rows g and
 //   g + 8 of its warp's 16; the row max is reduced over the quad with two
 //   shuffles. O = alpha O + P V once per key tile, P V from zero.
@@ -33,11 +34,13 @@
 //   and not stored. No atomics: two calls give the same bits.
 //
 // Bound on an H100: 2*B*N^2*(D+C) FLOPs of products (N=16384, D=4, C=32, B=4:
-// 77 GFLOP, 0.156 ms at the 495 TFLOP/s TF32 tensor-core peak) and one exp per
-// (query, key) pair (1.07e9 MUFU ops, 0.257 ms at 16 a clock per SM), against a
-// few MB of traffic. 3xTF32 issues three tensor-core products for each (and
-// pads D = 4 to 8), and the softmax's and the splits' fp32 work sits beside
-// them.
+// 77 GFLOP, 0.156 ms at the 495 TFLOP/s TF32 tensor-core peak; N=4096, D=16,
+// C=128: 19.3 GFLOP, 0.039 ms) and one exp per (query, key) pair (1.07e9 MUFU
+// ops, 0.257 ms at 16 a clock per SM), against a few MB of traffic. 3xTF32
+// issues three tensor-core products for each (and pads D = 4 to 8), and the
+// softmax's and the splits' fp32 work sits beside them. At C = 128 the P V
+// product and its planes double: the O and P V accumulators take 128 registers
+// a thread and the block ~110 KB of shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,14 +60,17 @@ constexpr int kBlockK = 64;              // keys per staged tile
 constexpr int kKStride = kBlockK + 4;
 constexpr int kKeySteps = kBlockK / 8;   // n8 tiles of S = k8 steps of P V
 constexpr int kCore = 32;                // one core matrix: 8 rows x 4 tf32 (128 bytes)
+// Core matrices of d (4 values each) a group of 8 keys: D = 4 padded to 8.
+template <int D>
+constexpr int kDChunks = D < 8 ? 2 : D / 4;
 
 template <int D, int C>
 struct Smem {
   // The tile split for wgmma, in core matrices (tf32_mma.cuh). K: for each
-  // group of 8 keys, d 0-3 then d 4-7 (zero for D = 4). V: for each group of
-  // 8 values of c, the tile's key chunks in order, P's key order within a k8
-  // step (split_v).
-  uint32_t k_hi[kKeySteps * 2 * kCore], k_lo[kKeySteps * 2 * kCore];
+  // group of 8 keys, the d chunks of 4 in order (d 4-7 zero for D = 4). V:
+  // for each group of 8 values of c, the tile's key chunks in order, P's key
+  // order within a k8 step (split_v).
+  uint32_t k_hi[kKeySteps * kDChunks<D> * kCore], k_lo[kKeySteps * kDChunks<D> * kCore];
   uint32_t v_hi[C * kBlockK], v_lo[C * kBlockK];
   float k[D][kKStride];  // the staging buffer cp.async fills
   float v[C][kKStride];
@@ -74,7 +80,7 @@ struct Smem {
 // holds 8 keys x 4 values of d.
 template <int D>
 __device__ __forceinline__ void split_k(const float (*k)[kKStride], uint32_t* hi, uint32_t* lo) {
-  for (int e = threadIdx.x; e < 2 * kBlockK; e += kThreads) {
+  for (int e = threadIdx.x; e < kDChunks<D> * kBlockK; e += kThreads) {
     const int key = e % kBlockK, dc = e / kBlockK;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (4 * dc < D) {
@@ -82,7 +88,7 @@ __device__ __forceinline__ void split_k(const float (*k)[kKStride], uint32_t* hi
       for (int i = 0; i < 4; ++i) x[i] = k[4 * dc + i][key];
     }
     const Tf32x2 a = split(x[0]), b = split(x[1]), c = split(x[2]), d = split(x[3]);
-    const int off = ((key / 8) * 2 + dc) * kCore + (key % 8) * 4;
+    const int off = ((key / 8) * kDChunks<D> + dc) * kCore + (key % 8) * 4;
     *reinterpret_cast<uint4*>(hi + off) = make_uint4(a.hi, b.hi, c.hi, d.hi);
     *reinterpret_cast<uint4*>(lo + off) = make_uint4(a.lo, b.lo, c.lo, d.lo);
   }
@@ -114,8 +120,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
                     const float* __restrict__ vt, float* __restrict__ out,
                     float* __restrict__ lse, int n) {
-  static_assert(D == 4 || D == 8, "the logit product is one k8 step");
-  static_assert(C == 32 || C == 64, "the value product is one m64n32 or m64n64");
+  static_assert(D == 4 || D == 8 || D == 16, "the logit product is one or two k8 steps");
+  static_assert(C == 32 || C == 64 || C == 128, "the value product is one m64nC");
+  constexpr int kDSteps = kDChunks<D> / 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<D, C>& sm = *reinterpret_cast<Smem<D, C>*>(smem_raw);
 
@@ -126,14 +133,25 @@ flash_fwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
   const size_t bn = static_cast<size_t>(b) * n;
   const float* qb = qt + bn * D;
 
-  // Q fragment (rows g, g + 8; columns d = t, t + 4), split once; in base 2.
+  // Q fragments (rows g, g + 8; columns d = 8s + t, 8s + t + 4 of k8 step s),
+  // split once; in base 2.
   auto q_at = [&](int d, int row) {
     return (d < D && row < n) ? qb[static_cast<size_t>(d) * n + row] * kLog2e : 0.f;
   };
-  const FragA8 qa = split_a8(q_at(t, row0), q_at(t, row0 + 8), q_at(t + 4, row0),
-                             q_at(t + 4, row0 + 8));
-  const uint64_t k_hi = smem_desc(sm.k_hi, kCore * 4, 2 * kCore * 4);
-  const uint64_t k_lo = smem_desc(sm.k_lo, kCore * 4, 2 * kCore * 4);
+  FragA8 qa[kDSteps];
+#pragma unroll
+  for (int ks = 0; ks < kDSteps; ++ks) {
+    const int d0 = 8 * ks + t;
+    qa[ks] = split_a8(q_at(d0, row0), q_at(d0, row0 + 8), q_at(d0 + 4, row0),
+                      q_at(d0 + 4, row0 + 8));
+  }
+  // K's planes as B of k8 step s: its d chunks 2s and 2s + 1.
+  uint64_t k_hi[kDSteps], k_lo[kDSteps];
+#pragma unroll
+  for (int ks = 0; ks < kDSteps; ++ks) {
+    k_hi[ks] = smem_desc(sm.k_hi + 2 * ks * kCore, kCore * 4, kDChunks<D> * kCore * 4);
+    k_lo[ks] = smem_desc(sm.k_lo + 2 * ks * kCore, kCore * 4, kDChunks<D> * kCore * 4);
+  }
 
   float o[C / 2];  // accumulator layout: element 4i + e of the n8 tile i of c
 #pragma unroll
@@ -161,7 +179,8 @@ flash_fwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
       cp_async_commit();
     }
 
-    // S = Q K^T (m64n64k8): accumulator 4j + e is element e of key tile j.
+    // S = Q K^T (m64n64, k8 steps over d): accumulator 4j + e is element e
+    // of key tile j.
     float s[kBlockK / 2];
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) {
@@ -169,7 +188,10 @@ flash_fwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
       reg_fence(s[i]);
     }
     wgmma_fence();
-    wgmma3_tf32<kBlockK>(s, qa, k_hi, k_lo);
+#pragma unroll
+    for (int ks = 0; ks < kDSteps; ++ks) {
+      wgmma3_tf32<kBlockK>(s, qa[ks], k_hi[ks], k_lo[ks]);
+    }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -308,6 +330,7 @@ extern "C" int tdt_flash_fwd_f32(const void* qt, const void* kt, const void* vt,
   if (b <= 0 || n <= 0 || b > 65535) return cudaErrorInvalidValue;
   if (d == 4 && c == 32) return launch<4, 32>(qt, kt, vt, out, lse, b, n, s);
   if (d == 8 && c == 64) return launch<8, 64>(qt, kt, vt, out, lse, b, n, s);
+  if (d == 16 && c == 128) return launch<16, 128>(qt, kt, vt, out, lse, b, n, s);
   return cudaErrorInvalidValue;
 }
 
@@ -316,5 +339,6 @@ extern "C" int tdt_flash_fwd_f32(const void* qt, const void* kt, const void* vt,
 extern "C" int tdt_flash_fwd_smem_bytes(int d, int c) {
   if (d == 4 && c == 32) return static_cast<int>(sizeof(Smem<4, 32>));
   if (d == 8 && c == 64) return static_cast<int>(sizeof(Smem<8, 64>));
+  if (d == 16 && c == 128) return static_cast<int>(sizeof(Smem<16, 128>));
   return -1;
 }

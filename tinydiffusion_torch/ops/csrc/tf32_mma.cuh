@@ -95,6 +95,17 @@ struct Wgmma<32> {
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
   }
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
 };
 
 template <>
@@ -132,6 +143,33 @@ struct Wgmma<64> {
   }
 };
 
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
 // d += A B in 3xTF32 over k8: A split in registers, B's hi and lo planes by
 // descriptor.
 template <int N>
@@ -164,45 +202,51 @@ __device__ __forceinline__ void reg_fence(FragA8& f) {
 // The copies of one (kRows, kCols) tile of a (kRows, n) row-major float
 // matrix into dst[kRows][kStride] (shared memory) by kThreads threads, 16
 // bytes each where kVec (n a multiple of 4 and src 16-byte aligned), else 4
-// bytes each. A thread's chunks are fixed, so their offsets are computed once;
-// issue(c0) copies columns [c0, c0 + kCols), zero-filling columns at or past n
-// (src-size 0 reads nothing). Does not commit.
+// bytes each. Thread i copies the chunk at column kWidth (i % kPerRow) of rows
+// i / kPerRow + r kRowsPerPass, r = 0, 1, ...: it keeps its first chunk's
+// addresses and steps from one to the next, so a tile of many rows (C = 128)
+// costs no registers a chunk. issue(c0) copies columns [c0, c0 + kCols),
+// zero-filling columns at or past n (src-size 0 reads nothing). Does not
+// commit.
 template <int kRows, int kCols, int kStride, int kThreads, bool kVec>
 struct TileCopy {
   using T = float;
   static constexpr int kWidth = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
-  static constexpr int kChunks = kRows * kCols / kWidth;
-  static constexpr int kPerThread = (kChunks + kThreads - 1) / kThreads;
+  static constexpr int kPerRow = kCols / kWidth;  // chunks a row
+  static_assert(kThreads % kPerRow == 0, "each thread keeps to one column");
+  static constexpr int kRowsPerPass = kThreads / kPerRow;
+  static constexpr int kPasses = (kRows + kRowsPerPass - 1) / kRowsPerPass;
   static_assert((kCols * sizeof(T)) % 16 == 0 && (kStride * sizeof(T)) % 16 == 0,
                 "16-byte rows");
-  const T* src[kPerThread];
-  uint32_t dst[kPerThread];  // shared-memory address
-  int col[kPerThread];
+  const T* src;   // this thread's first chunk
+  size_t step;    // elements from one of its chunks to the next
+  uint32_t dst;   // the first chunk's shared-memory address
+  int row, col;
 
   __device__ __forceinline__ TileCopy(T* smem, const T* g, int n) {
-#pragma unroll
-    for (int r = 0; r < kPerThread; ++r) {
-      const int e = threadIdx.x + r * kThreads;
-      const int row = e / (kCols / kWidth), c = kWidth * (e % (kCols / kWidth));
-      src[r] = g + static_cast<size_t>(row) * n + c;
-      dst[r] = static_cast<uint32_t>(__cvta_generic_to_shared(smem + row * kStride + c));
-      col[r] = c;
-    }
+    row = threadIdx.x / kPerRow;
+    col = kWidth * (threadIdx.x % kPerRow);
+    src = g + static_cast<size_t>(row) * n + col;
+    step = static_cast<size_t>(kRowsPerPass) * n;
+    dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem + row * kStride + col));
   }
 
   __device__ __forceinline__ void issue(int c0, int n) const {
+    const bool in = c0 + col < n;  // with kVec, all of the chunk in or all out
+    const T* s = src + c0;
+    uint32_t d = dst;
 #pragma unroll
-    for (int r = 0; r < kPerThread; ++r) {
-      if (kChunks % kThreads != 0 && threadIdx.x + r * kThreads >= kChunks) break;
-      const bool in = c0 + col[r] < n;  // with kVec, all of the chunk in or all out
-      const T* s = in ? src[r] + c0 : src[r];
+    for (int r = 0; r < kPasses; ++r) {
+      if (kRows % kRowsPerPass != 0 && row + r * kRowsPerPass >= kRows) break;
       if constexpr (kVec) {
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst[r]), "l"(s),
-                     "r"(in ? 16 : 0));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                     "l"(in ? s : src), "r"(in ? 16 : 0));
       } else {
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst[r]), "l"(s),
-                     "r"(in ? 4 : 0));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+                     "l"(in ? s : src), "r"(in ? 4 : 0));
       }
+      s += step;
+      d += kRowsPerPass * kStride * static_cast<uint32_t>(sizeof(T));
     }
   }
 };
