@@ -8,22 +8,29 @@ tar -x -C DIR``; only its ``tinydiffusion_torch/`` is read). The trees are timed
 in the order OLD, NEW, NEW, OLD, each in a process of its own, which builds
 that tree's kernels (into the tree's own ``_build/``) and times its
 ``flash_fwd`` and ``flash_bwd`` wrappers, float32 and bfloat16, at the
-conv-VAE's two flash sites, (N, D, C) = (16384, 4, 32) and (4096, 8, 64) at
-B = 4, on the operands ``chip_smoke.py`` draws (the same seed in every
-process). One JSON line per run:
+conv-VAE's flash sites at B = 4 (``SITES``: 256², 512² and 1024² images; the
+1024² sites only with ``--big``), on the operands ``chip_smoke.py`` draws
+(the same seed in every process). One JSON line per run:
 
 - ``ms``: by kernel and site, device time a call from CUDA events around 20
-  forward or 10 backward calls after two warm-ups (the backward's own
-  scratch and its dq sum included, as the wrapper launches them);
+  forward or 10 backward calls after two warm-ups (5 and 3 from N = 65536
+  on), the backward's scratch and any second kernel included, as the
+  wrapper launches them;
+- ``sha256``: by kernel and site, a digest of each output (out and lse; dq,
+  dk and dv), so that two trees' results can be compared bit for bit;
 - ``ptxas``: each flash kernel's registers, spills and ptxas remarks from
   the tree's nvcc log (``-Xptxas -v``), and its dynamic shared memory by
   (D, C).
 
-The card's name and power limit come first.
+The card's name and power limit come first; the last line, ``bit_equal``,
+says by kernel and site whether every output of NEW equals OLD's.
+
+    python3 chip_flash_ab.py [--big] OLD_TREE NEW_TREE
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -32,7 +39,10 @@ import sys
 import numpy as np
 import torch
 
-SITES = ((16384, 4, 32), (4096, 8, 64))
+# (N, D, C) of the conv-VAE's flash sites: 256² (enc_attn0, enc/dec_attn1),
+# 512² (the same at 4x N, and dec_attn0 at (16, 128)), 1024² (4x again).
+SITES = ((16384, 4, 32), (4096, 8, 64), (65536, 4, 32), (16384, 8, 64), (4096, 16, 128))
+BIG_SITES = ((262144, 4, 32), (65536, 8, 64), (16384, 16, 128))
 BATCH = 4
 SEED = 0
 
@@ -85,7 +95,13 @@ def ptxas_report(log: str) -> dict[str, dict]:
     return kernels
 
 
-def _time_tree(tree: str) -> dict:
+def _digest(x: torch.Tensor) -> str:
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _time_tree(tree: str, sites) -> dict:
     """One tree's timings, in this process: its package comes first on the path."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -97,29 +113,37 @@ def _time_tree(tree: str) -> dict:
     lib = _build.library()
     smem = {f"{name} ({d}, {c})": getattr(lib, f"tdt_{name}_smem_bytes")(d, c)
             for name in ("flash_fwd", "flash_bwd", "flash_fwd_bf16", "flash_bwd_bf16")
-            for _, d, c in SITES}
-    ms = {}
+            for _, d, c in sites}
+    ms, sha = {}, {}
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-        for n, d, c in SITES:
+        for n, d, c in sites:
             qt, kt, vt, dot = _operands(BATCH, n, d, c, dtype)
             out, lse = attention.flash_fwd(qt, kt, vt)
             delta = (dot.float() * out.float()).sum(1, keepdim=True)
-            site = f"N={n}"
+            grads = attention.flash_bwd(qt, kt, vt, dot, lse, delta)
+            site = f"N={n} D={d} C={c}"
+            sha.setdefault(f"flash_fwd{suffix}", {})[site] = [_digest(x) for x in (out, lse)]
+            sha.setdefault(f"flash_bwd{suffix}", {})[site] = [_digest(x) for x in grads]
+            del grads
+            big = n >= 65536
             ms.setdefault(f"flash_fwd{suffix}", {})[site] = _ms(
-                lambda: attention.flash_fwd(qt, kt, vt), iters=20)
+                lambda: attention.flash_fwd(qt, kt, vt), iters=5 if big else 20)
             ms.setdefault(f"flash_bwd{suffix}", {})[site] = _ms(
-                lambda: attention.flash_bwd(qt, kt, vt, dot, lse, delta), iters=10)
+                lambda: attention.flash_bwd(qt, kt, vt, dot, lse, delta), iters=3 if big else 10)
             del qt, kt, vt, dot, out, lse, delta
             torch.cuda.empty_cache()
-    return {"tree": tree, "ms": ms, "build_seconds": build.seconds,
+    return {"tree": tree, "ms": ms, "sha256": sha, "build_seconds": build.seconds,
             "ptxas": {k: v for k, v in ptxas_report(build.log).items() if k and "flash_" in k},
             "dynamic_smem_bytes": smem}
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 2 and argv[0] == "--tree":
-        print(json.dumps(_time_tree(argv[1])), flush=True)
+    if len(argv) == 3 and argv[0] == "--tree":
+        sites = SITES + BIG_SITES if argv[2] == "big" else SITES
+        print(json.dumps(_time_tree(argv[1], sites)), flush=True)
         return 0
+    big = argv[:1] == ["--big"]
+    argv = argv[1:] if big else argv
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -131,8 +155,18 @@ def main(argv: list[str]) -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     old, new = argv
+    runs = []
     for tree in (old, new, new, old):
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree], check=True)
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--tree", tree, "big" if big else "small"],
+            check=True, stdout=subprocess.PIPE, text=True).stdout
+        print(out, end="", flush=True)
+        runs.append(json.loads(out.strip().splitlines()[-1]))
+    equal = {kernel: {site: all(r["sha256"][kernel][site] == runs[0]["sha256"][kernel][site]
+                                for r in runs)
+                      for site in sites}
+             for kernel, sites in runs[0]["sha256"].items()}
+    print(json.dumps({"bit_equal": equal}), flush=True)
     return 0
 
 

@@ -86,11 +86,19 @@ line each:
    100 steps and the 93-batch val pass: q_sample launches at (128, 20),
    train and val apart, graph counts, the rate of each epoch, warm step,
    the digit-7 grid's seconds; for the DiT, a replayed step after the rate
-   is set on the device tensor against the same step eager; laion_train:
-   the LAION ``run()`` at the published recipe (``laion_diffusion_1000ep.json``:
+   is set on the device tensor against the same step eager; laion_loader:
+   the port's ``LAIONImageTextDataset`` and ``precache_dataset`` on this
+   machine (no Pillow, requests, urllib3 or datasets) over a loopback HTTP
+   server in a thread (a JPEG, the 4:4:4 JPEG and RGBA PNG of
+   ``tests/fixtures/``, a 503 then a 200, a 404, a black image, a short
+   body): the valid list, the requests, the cache files, the fixtures'
+   decodes against Pillow's digests, the failed-URL JSON and a warm re-read;
+   laion_train: the LAION ``run()`` at the published recipe (``laion_diffusion_1000ep.json``:
    256² images, 4x32x32 latents, time_dim 768, B = 8, bf16, Adam 1e-4 to
    1e-6 cosine over T_max 1000 steps, clip 10; resident, graph replays),
-   cut to 800 records (80 steps an epoch, 20 val batches) and 2 epochs:
+   cut to 800 records (80 steps an epoch, 20 val batches) and 2 epochs, the
+   records read through the JPEG cache in a temporary directory (each run of
+   a LAION entry point here keeps its cache there):
    q_sample launches at (8, 4096), train and val apart, graph counts, each
    epoch's rate against the host formula, warm step, samples/s, the val
    pass's and the grids' seconds, peak memory;
@@ -239,7 +247,11 @@ line each:
     site on the flash path, dec_attn0 on the (16, 128) kernels), 44 records,
     2 epochs of 10 steps, resident with graph replays: warm step, images/s,
     peak memory, losses, the flash launches by kernel and (D, C), all three
-    widths forward and backward, and the dq scratch by site; vae512_serve:
+    widths forward and backward, and the backward's scratch by site
+    (``attention.flash_bwd_scratch``: at most 0.016 GiB); vae1024_train and
+    vae1024_train_bf16: the same at 1024² (enc_attn0 at N = 262144), 40
+    records, 2 epochs of 3 steps (2 eager, 1 capture, 4 replays; the second
+    epoch all replays); vae512_serve:
     the float32 run's checkpoint, ``reconstruct`` and ``sample_prior`` at
     B = 4, each call's graph bit-equal to eager with the generators equal,
     and within CARD_VS_CPU_ATOL of the same calls with the flash sites on the
@@ -247,7 +259,8 @@ line each:
 18. the ``kernels`` line (the float32 flash kernels, with the launches of
     the conv-VAE run and of fid_laion beside; q_sample, with the launches of
     laion_sd_train beside, and the bfloat16 flash kernels with
-    launches from ``vae_train_bf16``), then
+    launches from ``vae_train_bf16``; every flash kernel with its launches
+    by (D, C) over the 512² and 1024² runs), then
     ``{"ok": true, "device": {...}}`` last.
 
 ``--profile`` adds phases before the last two lines: ``torch.profiler`` over
@@ -276,11 +289,14 @@ import argparse
 import dataclasses
 import functools
 import gc
+import hashlib
+import http.server
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -295,6 +311,8 @@ from tinydiffusion_torch.compat.clip import CLIPTextConfig, CLIPTextEncoder, CLI
 from tinydiffusion_torch.compat.clip_tokenizer import BOS_TOKEN, EOS_TOKEN, byte_to_unicode
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
+from tinydiffusion_torch.data import laion as laion_data
+from tinydiffusion_torch.data.jpeg import decode_jpeg, encode_jpeg
 from tinydiffusion_torch.data.laion import synthesize_caption, synthesize_image
 from tinydiffusion_torch.data.mnist import load_mnist
 from tinydiffusion_torch.device import disable_tf32
@@ -330,7 +348,13 @@ from tinydiffusion_torch.io.checkpoint import load_sidecar, restore_checkpoint, 
 from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.models.unet_latent import LatentUNet
 from tinydiffusion_torch.models.vae_conv import PerceptualNet
-from tinydiffusion_torch.obs.images import load_image28, save_image_grid, write_png
+from tinydiffusion_torch.obs.images import (
+    encode_png,
+    load_image28,
+    resize_u8,
+    save_image_grid,
+    write_png,
+)
 from tinydiffusion_torch.ops import _build, attention, qsample
 from tinydiffusion_torch.parallel.distributed import destroy, maybe_initialize_distributed
 from tinydiffusion_torch.parallel.mesh import make_mesh_for_batch
@@ -490,10 +514,23 @@ VAE_RECORDS, VAE_EPOCHS = 88, 2
 # in bfloat16: 44 records leave 40 for training (10 steps an epoch) and 4
 # for validation (1 batch), 2 epochs: 2 eager steps, 1 capture, 18 replays.
 VAE512_RECORDS = 44
+# The same recipe at 1024x1024 (vae1024_train, vae1024_train_bf16: enc_attn0
+# at N = 262144, where the backward's old per-key-block dq partials would
+# have taken 64 GiB): 40 records leave 36 for training and 4 for validation
+# (1 batch), 2 epochs of 3 steps: 2 eager steps, 1 capture, 4 replays, the
+# second epoch all replays (its step time is the warm one).
+VAE1024_RECORDS, VAE1024_STEPS = 40, 3
+# Records, epochs and steps an epoch (0: all) of the conv-VAE runs by image size.
+VAE_RUNS = {256: (VAE_RECORDS, VAE_EPOCHS, 0), 512: (VAE512_RECORDS, VAE_EPOCHS, 0),
+            1024: (VAE1024_RECORDS, VAE_EPOCHS, VAE1024_STEPS)}
 # The flash sites of one conv-VAE step by image size, by (D, C): each runs
 # one forward and one backward a train step.
 VAE_FLASH_SITES = {256: {(4, 32): 1, (8, 64): 2},
-                   512: {(4, 32): 1, (8, 64): 2, (16, 128): 1}}
+                   512: {(4, 32): 1, (8, 64): 2, (16, 128): 1},
+                   1024: {(4, 32): 1, (8, 64): 2, (16, 128): 1}}
+# The backward's scratch a flash site may hold (attention.flash_bwd_scratch):
+# O(B D N), 0.016 GiB at the 1024² enc_attn0 at most.
+DQ_SCRATCH_MAX_GIB = 0.016
 # vae512_serve: reconstruct and sample_prior at 512² from the checkpoint
 # vae512_train wrote, B = 4, on the kernels (each call its CUDA graph)
 # against the same weights and noise with the flash sites swapped for the
@@ -637,6 +674,11 @@ LAION_CHECKPOINT = os.path.join(REPO, "checkpoints", "laion_diffusion_1000ep")
 # image): 640 train (80 steps an epoch) and 160 val (20 batches), 2 epochs;
 # a mid-epoch grid every 50 batches, the epoch grid at the last epoch.
 LAION_RECORDS, LAION_EPOCHS, LAION_SAMPLE_EVERY = 800, 2, 50
+# laion_loader: the port's LAION dataset over a loopback HTTP server at this
+# image size, and Pillow's decodes of the two fixture files it serves (as
+# sha256 of their RGB bytes; a CPU test ties them to Pillow).
+LOADER_SIZE = 64
+LOADER_PILLOW = os.path.join(REPO, "tests", "fixtures", "laion_loader_pillow.json")
 LAION_TRAIN_STEPS, LAION_VAL_BATCHES = 80, 20
 # laion_parity: resident_parity's graph-vs-eager check on 10 LAION steps (B = 8, caption
 # dropout 0.1, EMA) from the committed weights, one step a call so that the
@@ -2568,9 +2610,158 @@ def _laion_recipe(**overrides) -> "conditional_diffusion_laion.LaionDiffusionCon
                                or config.num_epochs, device="cuda", **overrides)
 
 
+def _record_cache(tmp: str) -> dict:
+    """A run's LAION record cache and failed-URL list, in ``tmp``: nothing
+    lands in the tree."""
+    return {"image_cache_dir": os.path.join(tmp, "laion_cache"),
+            "failed_urls_cache": os.path.join(tmp, "failed_urls.json")}
+
+
 def _host_lr(count: int, t_max: int, lr: float, lr_min: float) -> float:
     """torch's CosineAnnealingLR at ``count``, in float64 on the host."""
     return lr_min + (lr - lr_min) * 0.5 * (1.0 + np.cos(np.pi * count / t_max))
+
+
+class _LoopbackServer:
+    """A ThreadingHTTPServer on 127.0.0.1 in a thread, serving ``routes``
+    (name -> callable(hit) -> (status, headers, body); a query string picks
+    no other route) and counting the requests a path, query included."""
+
+    def __init__(self, routes: dict):
+        self.hits = {}
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                outer.hits[self.path] = outer.hits.get(self.path, 0) + 1
+                route = routes.get(self.path.split("?")[0].strip("/"))
+                status, headers, body = (route(outer.hits[self.path]) if route
+                                         else (404, {}, b"missing"))
+                self.send_response(status)
+                for key, value in {"Content-Length": str(len(body)), **headers}.items():
+                    self.send_header(key, value)
+                self.end_headers()
+                self.wfile.write(body)
+                self.close_connection = True
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def _sha(x: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def phase_laion_loader() -> dict:
+    """The port's LAION loader on this machine (no Pillow, requests, urllib3
+    or datasets): ``LAIONImageTextDataset`` and ``precache_dataset`` over
+    two synthetic records and a loopback HTTP server that serves a JPEG
+    written by ``encode_jpeg``, the 4:4:4 JPEG and the RGBA PNG of
+    ``tests/fixtures/``, a 503 then a 200, a 404, a black image and a body
+    shorter than its Content-Length. Checks the valid list, the requests
+    (one retry after the 503), the cache files (each the quality-95 JPEG of
+    what was fetched, byte for byte ``encode_jpeg`` of the decode), the
+    fixtures' decodes and resizes against Pillow's (``LOADER_PILLOW``), the
+    failed-URL JSON, and a warm re-read by a second instance (each record
+    the decode of its cache file). Cache and list in a temporary directory."""
+    with open(LOADER_PILLOW) as f:
+        pillow = json.load(f)
+    fixtures = {name: open(os.path.join(REPO, "tests", "fixtures", name), "rb").read()
+                for name in ("laion_loader_444.jpg", "laion_loader_rgba.png")}
+    photo = encode_jpeg(synthesize_image(3, 96)[0][:80], 90)
+    black = encode_png(np.zeros((LOADER_SIZE, LOADER_SIZE, 3), np.uint8))
+    short = encode_jpeg(synthesize_image(5, 96)[0], 90)
+    routes = {
+        "photo.jpg": lambda hit: (200, {}, photo),
+        "photo444.jpg": lambda hit: (200, {}, fixtures["laion_loader_444.jpg"]),
+        "rgba.png": lambda hit: (200, {}, fixtures["laion_loader_rgba.png"]),
+        "flaky.jpg": lambda hit: (503, {}, b"busy") if hit == 1 else (200, {}, photo),
+        "black.png": lambda hit: (200, {}, black),
+        "short.jpg": lambda hit: (200, {"Content-Length": str(len(short))}, short[:len(short) // 2]),
+    }
+    server = _LoopbackServer(routes)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            names = ["photo.jpg", "photo444.jpg", "rgba.png", "flaky.jpg", "missing.jpg",
+                     "black.png", "short.jpg"]
+            records = laion_data.load_laion_dataset(2) + [
+                {"URL": f"{server.base}/{name}", "TEXT": f"web {name}"} for name in names]
+            cache = _record_cache(tmp)
+
+            def dataset():
+                return laion_data.LAIONImageTextDataset(
+                    records, cache_dir=cache["image_cache_dir"],
+                    failed_urls_cache=cache["failed_urls_cache"], image_size=LOADER_SIZE,
+                    normalize=True, on_error="raise", as_uint8=True)
+
+            t0 = time.perf_counter()
+            valid = laion_data.precache_dataset(dataset())
+            precache_s = time.perf_counter() - t0
+            problems = []
+            if valid != [0, 1, 2, 3, 4, 5]:
+                problems.append(f"valid {valid}")
+            want_hits = {"/photo.jpg": 1, "/photo444.jpg": 1, "/rgba.png": 1, "/flaky.jpg": 2,
+                         "/missing.jpg": 1, "/black.png": 1, "/short.jpg": 1}
+            if server.hits != want_hits:
+                problems.append(f"requests {server.hits}")
+            fetched = {"photo.jpg": photo, "photo444.jpg": fixtures["laion_loader_444.jpg"],
+                       "rgba.png": fixtures["laion_loader_rgba.png"], "flaky.jpg": photo,
+                       "black.png": black}
+            ds = dataset()
+            for record in records:
+                path = ds._cache_path(record["URL"])
+                name = record["URL"].rsplit("/", 1)[-1]
+                if record["URL"].startswith(laion_data.SYNTHETIC_SCHEME):
+                    source = synthesize_image(int(name), LOADER_SIZE)[0]
+                else:
+                    source = laion_data.decode_image(fetched[name]) if name in fetched else None
+                if source is None:
+                    if os.path.exists(path):
+                        problems.append(f"{name}: cached, but its fetch failed")
+                    continue
+                with open(path, "rb") as f:
+                    if f.read() != encode_jpeg(source):
+                        problems.append(f"{name}: the cache file is not encode_jpeg of the fetch")
+            for fixture in fixtures:
+                image = laion_data.decode_image(fixtures[fixture])
+                small = resize_u8(image, LOADER_SIZE, LOADER_SIZE, "bilinear")
+                if (_sha(image), _sha(small)) != (pillow[fixture]["rgb_sha256"],
+                                                  pillow[fixture]["rgb64_sha256"]):
+                    problems.append(f"{fixture}: decode or resize differs from Pillow's")
+            with open(cache["failed_urls_cache"]) as f:
+                failed = json.load(f)
+            if failed != sorted(f"{server.base}/{n}" for n in ("missing.jpg", "black.png",
+                                                             "short.jpg")):
+                problems.append(f"failed {failed}")
+            warm = dataset()
+            for i in valid:
+                with open(warm._cache_path(records[i]["URL"]), "rb") as f:
+                    want = decode_jpeg(f.read())
+                if want.shape[:2] != (LOADER_SIZE, LOADER_SIZE):
+                    want = resize_u8(want, LOADER_SIZE, LOADER_SIZE, "bilinear")
+                if not np.array_equal(warm[i][0], want):
+                    problems.append(f"record {i}: the warm read is not its cache's decode")
+            hits_after = dict(server.hits)
+            if hits_after != want_hits:  # the warm reads and the failed list ask no server
+                problems.append(f"warm requests {hits_after}")
+    finally:
+        server.close()
+    fields = {"records": len(records), "valid": valid, "requests": hits_after,
+              "failed": len(failed), "precache_s": precache_s, "image_size": LOADER_SIZE}
+    if problems:
+        raise RuntimeError(f"laion_loader: {problems}: {fields}")
+    emit("laion_loader", **fields)
+    return fields
 
 
 def phase_laion_train() -> dict:
@@ -2582,7 +2773,8 @@ def phase_laion_train() -> dict:
         config = _laion_recipe(
             num_epochs=LAION_EPOCHS, n_records=LAION_RECORDS,
             sample_every_batches=LAION_SAMPLE_EVERY, sample_every_epochs=LAION_EPOCHS,
-            out_dir=os.path.join(tmp, "out"), model_save_path=os.path.join(tmp, "ckpt"))
+            out_dir=os.path.join(tmp, "out"), model_save_path=os.path.join(tmp, "ckpt"),
+            **_record_cache(tmp))
         _set_default_tf32()  # run() must turn TF32 off itself
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2898,7 +3090,7 @@ def _laion_guided(tmp: str) -> dict:
         num_epochs=1, n_records=LAION_GUIDED_RECORDS, max_steps_per_epoch=LAION_GUIDED_STEPS,
         caption_dropout=0.1, guidance_scale=2.0, sample_every_batches=0,
         sample_every_epoch=False, out_dir=os.path.join(tmp, "guided"),
-        model_save_path=os.path.join(tmp, "guided", "ckpt"))
+        model_save_path=os.path.join(tmp, "guided", "ckpt"), **_record_cache(tmp))
     trained = conditional_diffusion_laion.run(config)
     argv = ["--checkpoint", config.model_save_path, "--device", "cuda", "--sampler", "ddim",
             "--sample-steps", "50", "--out", os.path.join(tmp, "guided.png")]
@@ -3538,7 +3730,9 @@ def phase_laion_clip_run(clip_dir: str) -> dict:
                  "--text-encoder", "clip", "--clip-local-dir", clip_dir, "--num-epochs", "1",
                  "--max-steps-per-epoch", str(LAION_CLIP_STEPS), "--n-records",
                  str(LAION_CLIP_RECORDS), "--sample-every-epoch", "false",
-                 "--out-dir", os.path.join(tmp, "out"), "--model-save-path", ckpt]
+                 "--out-dir", os.path.join(tmp, "out"), "--model-save-path", ckpt,
+                 *(f for k, v in _record_cache(tmp).items()
+                   for f in (f"--{k.replace('_', '-')}", v))]
         serve = [sys.executable, "-m", "tinydiffusion_torch.generate_laion", "--checkpoint", ckpt,
                  "--sampler", "ddim", "--sample-steps", "50", "--out",
                  os.path.join(tmp, "gen.png")]
@@ -3580,19 +3774,22 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
     launches counted over exactly that run: ``vae_train`` (the default, the
     set resident and each step a graph replay), ``vae_train_host`` (batches
     streamed from the host) and ``vae_train_bf16`` (resident, bfloat16: the
-    bf16 kernels only); at ``image_size=512``, ``vae512_train`` and
-    ``vae512_train_bf16`` (resident), the checkpoint left in
-    ``checkpoint_dir`` when one is given."""
+    bf16 kernels only); at ``image_size=512`` or ``1024``, ``vae512_train``
+    and ``vae512_train_bf16`` (resident), or ``vae1024_...``, the checkpoint
+    left in ``checkpoint_dir`` when one is given. The records' JPEG cache
+    and failed-URL list go into the run's temporary directory."""
     phase = {("auto", "float32"): "vae_train", ("host", "float32"): "vae_train_host",
              ("auto", "bfloat16"): "vae_train_bf16"}[placement, compute_dtype]
     if image_size != 256:
         phase = phase.replace("vae_", f"vae{image_size}_")
-    records = VAE_RECORDS if image_size == 256 else VAE512_RECORDS
+    n_records, n_epochs, max_steps = VAE_RUNS[image_size]
     with tempfile.TemporaryDirectory() as tmp:
         config = vae_laion.VAELaionConfig(
-            image_size=image_size, n_records=records, epochs=VAE_EPOCHS, log_interval=10,
-            data_placement=placement, compute_dtype=compute_dtype,
-            out_dir=os.path.join(tmp, "out"),
+            image_size=image_size, n_records=n_records, epochs=n_epochs, log_interval=10,
+            max_steps_per_epoch=max_steps, data_placement=placement,
+            compute_dtype=compute_dtype, out_dir=os.path.join(tmp, "out"),
+            image_cache_dir=os.path.join(tmp, "laion"),
+            failed_urls_cache=os.path.join(tmp, "failed_urls.json"),
             checkpoint_dir=checkpoint_dir or os.path.join(tmp, "ckpt"), device="cuda")
         _set_default_tf32()
         torch.cuda.synchronize()
@@ -3608,8 +3805,8 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
         if torch.backends.cudnn.allow_tf32:
             raise RuntimeError(f"{phase}: run() left cuDNN's TF32 on")
         steps = result["state"].step
-        per_epoch = records - records // 10
-        if steps != VAE_EPOCHS * (per_epoch // config.batch_size):
+        per_epoch = (n_records - n_records // 10) // config.batch_size
+        if steps != n_epochs * (min(per_epoch, max_steps) if max_steps else per_epoch):
             raise RuntimeError(f"{phase}: {steps} steps")
         graph = result["graph"]
         if (graph is None) != (placement == "host"):
@@ -3642,11 +3839,14 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
         epochs = [r for r in records if "test_loss" in r]
         keys = ("batch_train_loss", "bce", "perceptual", "kld", "logvar_max", "mu_absmax")
         values = [r[k] for r in batches for k in keys] + [r["test_loss"] for r in epochs]
-        if not batches or len(epochs) != VAE_EPOCHS or not np.all(np.isfinite(values)):
+        if not batches or len(epochs) != n_epochs or not np.all(np.isfinite(values)):
             raise RuntimeError(f"{phase}: metrics {records}")
         want = [os.path.join(config.out_dir, name) for name in (
             "generated_samples.png", *(f"original_vs_reconstructed_epoch_{e}.png"
-                                       for e in range(1, VAE_EPOCHS + 1)))]
+                                       for e in range(1, n_epochs + 1)))]
+        cached = len(os.listdir(config.image_cache_dir))
+        if cached != config.n_records:
+            raise RuntimeError(f"{phase}: {cached} cached records of {config.n_records}")
         want += [os.path.join(config.checkpoint_dir, "vae_laion_best" + ext)
                  for ext in (".pt", ".npz", ".json")]
         missing = [os.path.relpath(p, tmp) for p in want if not os.path.getsize(p) > 0]
@@ -3664,20 +3864,23 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
             "last_loss": batches[-1]["batch_train_loss"],
             "components_last": {k: batches[-1][k] for k in keys[1:]},
             "test_losses": result["test_losses"], "peak_mem_gib": peak_gib,
-            "dq_part_gib_by_site": _dq_part_gib(config.batch_size, image_size, bwd),
+            "dq_scratch_gib_by_site": _dq_scratch_gib(config.batch_size, image_size,
+                                                      vae_laion.COMPUTE_DTYPES[compute_dtype]),
         }
+    if max(fields["dq_scratch_gib_by_site"].values()) > DQ_SCRATCH_MAX_GIB:
+        raise RuntimeError(f"{phase}: dq scratch {fields['dq_scratch_gib_by_site']} GiB")
     emit(phase, **fields)
     return fields
 
 
-def _dq_part_gib(b: int, image_size: int, kernel: str) -> dict[str, float]:
-    """GiB of the backward kernel's dq scratch, (B, ceil(N / keys a block), D,
-    N) float32, at each flash site of a conv-VAE step: it grows as N^2."""
-    keys = (attention.FLASH_BWD_BF16_KEYS_PER_BLOCK if kernel == "flash_bwd_bf16"
-            else attention.FLASH_BWD_KEYS_PER_BLOCK)
+def _dq_scratch_gib(b: int, image_size: int, dtype: torch.dtype) -> dict[str, float]:
+    """GiB of the backward kernel's scratch (``attention.flash_bwd_scratch``,
+    what ``flash_bwd`` allocates: the dq counters, and the bf16 run sum) at
+    each flash site of a conv-VAE step: O(B D N)."""
     sides = {(4, 32): image_size // 2, (8, 64): image_size // 4, (16, 128): image_size // 8}
-    return {f"({d}, {c}) N={sides[d, c] ** 2}": 4 * b * -(-sides[d, c] ** 2 // keys) * d
-            * sides[d, c] ** 2 / 2**30 for d, c in VAE_FLASH_SITES[image_size]}
+    return {f"({d}, {c}) N={sides[d, c] ** 2}":
+            attention.flash_bwd_scratch_bytes(dtype, b, d, sides[d, c] ** 2, c) / 2**30
+            for d, c in VAE_FLASH_SITES[image_size]}
 
 
 def _conv_vae(dtype: torch.dtype) -> "vae_laion.ConvVAE":
@@ -4186,6 +4389,7 @@ def main() -> int:
     phase_vae_mnist_train(data_root)
     latents = {backbone: phase_latent_train(backbone, data_root)
                for backbone in LATENT_CHECKPOINTS}
+    phase_laion_loader()
     laion = phase_laion_train()
     phase_resident_parity()
     phase_resident_restore()
@@ -4230,6 +4434,10 @@ def main() -> int:
         vae512 = phase_vae_train("auto", "float32", image_size=512, checkpoint_dir=vae512_dir)
         vae512_bf16 = phase_vae_train("auto", "bfloat16", image_size=512)
         vae512_serve = phase_vae512_serve(os.path.join(vae512_dir, "vae_laion_best"))
+    # The conv-VAE at 1024²: enc_attn0 at N = 262144, which the backward's
+    # O(N) dq scratch lets train on the card.
+    vae1024 = phase_vae_train("auto", "float32", image_size=1024)
+    vae1024_bf16 = phase_vae_train("auto", "bfloat16", image_size=1024)
     main_site = sites[0]  # N = 16384: the largest share of the kernel's work
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # fp32_core_bound_ms and sfu_ms are worked out, not measured: they stay in the
@@ -4249,6 +4457,7 @@ def main() -> int:
             "launches_fid_laion": fid_laion["launches"]["flash_fwd"],
             # The 512² run and serving requests, by (D, C).
             "launches_vae512_train": _kernel_widths(vae512, "flash_fwd"),
+            "launches_vae1024_train": _kernel_widths(vae1024, "flash_fwd"),
             "launches_vae512_serve": _kernel_widths(vae512_serve, "flash_fwd"),
             # chain_graph's float32 conv-VAE requests (3 each: an eager first,
             # then a capture and replays).
@@ -4294,6 +4503,7 @@ def main() -> int:
             # The default conv-VAE run (resident, graph replays).
             "launches": vae["launches"]["flash_bwd"],
             "launches_vae512_train": _kernel_widths(vae512, "flash_bwd"),
+            "launches_vae1024_train": _kernel_widths(vae1024, "flash_bwd"),
             "max_abs_err": max(s["max_abs_err"] for s in bwd_sites),
             **{k: bwd_sites[0][k] for k in flash_keys},  # N = 16384
             "sites": [{k: v for k, v in s.items() if k not in context} for s in bwd_sites],
@@ -4307,6 +4517,7 @@ def main() -> int:
             "replaces": "tinydiffusion_tpu/ops/attention.py:113",
             "launches": vae_bf16["launches"]["flash_fwd_bf16"],
             "launches_vae512_train": _kernel_widths(vae512_bf16, "flash_fwd_bf16"),
+            "launches_vae1024_train": _kernel_widths(vae1024_bf16, "flash_fwd_bf16"),
             # chain_graph's bfloat16 conv-VAE serving requests.
             "launches_chain_graph": _chain_graph_flash(chain_graph, "flash_fwd_bf16"),
             "max_abs_err": max(s["max_abs_err"] for s in bf16_sites),
@@ -4321,6 +4532,7 @@ def main() -> int:
             "replaces": "tinydiffusion_tpu/ops/attention.py:193",
             "launches": vae_bf16["launches"]["flash_bwd_bf16"],
             "launches_vae512_train": _kernel_widths(vae512_bf16, "flash_bwd_bf16"),
+            "launches_vae1024_train": _kernel_widths(vae1024_bf16, "flash_bwd_bf16"),
             "max_abs_err": max(s["max_abs_err"] for s in bwd_bf16_sites),
             **{k: bwd_bf16_sites[0][k] for k in flash_keys},  # N = 16384
             "sites": [{k: v for k, v in s.items() if k not in context} for s in bwd_bf16_sites],

@@ -396,16 +396,60 @@ def _source_constant(name: str, source: str) -> int:
 
 
 def test_wrapper_tile_constants_match_the_kernel_sources():
-    """The backward's scratch holds ceil(N / keys per block) dq partials: the
-    wrapper's keys per block of each dtype (FLASH_BWD_KEYS_PER_BLOCK for
-    float32, FLASH_BWD_BF16_KEYS_PER_BLOCK for bfloat16) must be its kernel's
-    kKeysPerBlock, or every launch is refused (the launcher checks key_blocks)
-    or the scratch is sized wrong."""
+    """The backward's dq adds are ordered by one counter a (batch row, query
+    tile): the wrapper's queries a tile of each dtype
+    (FLASH_BWD_QUERIES_PER_TILE by C for float32, FLASH_BWD_BF16_QUERIES_PER_TILE
+    for bfloat16) must be its kernel's, or every launch is refused (the
+    launcher checks query_tiles) or the counters are sized wrong; its keys
+    per block (FLASH_BWD_KEYS_PER_BLOCK, FLASH_BWD_BF16_KEYS_PER_BLOCK) are
+    each kernel's kKeysPerBlock."""
     for keys, source in ((attention.FLASH_BWD_KEYS_PER_BLOCK, "flash_bwd.cu"),
                          (attention.FLASH_BWD_BF16_KEYS_PER_BLOCK, "flash_bwd_bf16.cu")):
         assert keys == _source_constant("kKeysPerBlock", source)
-        launcher = (Path(_build._CSRC) / source).read_text()
-        assert "key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock" in launcher
+    fp32 = (Path(_build._CSRC) / "flash_bwd.cu").read_text()
+    found = re.findall(r"constexpr int kBlockQFor = C == 128 \? (\d+) : (\d+);", fp32)
+    assert len(found) == 1, found
+    at128, other = map(int, found[0])
+    assert attention.FLASH_BWD_QUERIES_PER_TILE == {32: other, 64: other, 128: at128}
+    assert "if (query_tiles != tiles) return cudaErrorInvalidValue;" in fp32
+    bf16 = (Path(_build._CSRC) / "flash_bwd_bf16.cu").read_text()
+    assert "constexpr int kBlockQ = kTileTokens;" in bf16
+    assert attention.FLASH_BWD_BF16_QUERIES_PER_TILE == _source_constant(
+        "kTileTokens", "bf16_mma.cuh")
+    assert "if (query_tiles != (n + kBlockQ - 1) / kBlockQ) return cudaErrorInvalidValue;" in bf16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_scratch_is_linear_in_n(dtype):
+    """The backward's scratch (``flash_bwd_scratch``, which the wrapper
+    allocates and chip_smoke.py reports) holds at most one float32 (B, D, N)
+    run sum and one int32 counter a (batch row, query tile), in the order
+    the launcher takes them: at the 1024² conv-VAE's sites (B = 4) it is
+    at most 0.016 GiB, where per-key-block partials took up to 64 GiB."""
+    for d, c in HEAD_WIDTHS:
+        for n in (1000, 4096, 65536, 262144):
+            scratch = attention.flash_bwd_scratch(dtype, 4, d, n, c)
+            assert list(scratch)[-1] == "dq_count"
+            tile = (attention.FLASH_BWD_BF16_QUERIES_PER_TILE if dtype == torch.bfloat16
+                    else attention.FLASH_BWD_QUERIES_PER_TILE[c])
+            assert scratch["dq_count"] == ((4, -(-n // tile)), torch.int32)
+            run = 4 * d * n * 4 if dtype == torch.bfloat16 else 0
+            assert attention.flash_bwd_scratch_bytes(dtype, 4, d, n, c) == run + 4 * 4 * -(-n // tile)
+    sites = {(4, 32): 512**2, (8, 64): 256**2, (16, 128): 128**2}  # 1024² image
+    for (d, c), n in sites.items():
+        assert attention.flash_bwd_scratch_bytes(dtype, 4, d, n, c) / 2**30 <= 0.016
+
+
+def test_bwd_kernels_keep_no_per_key_block_partials():
+    """Neither backward source keeps the per-key-block dq partials or their
+    separate sum kernel; each orders its adds by the counters and zeroes them
+    on the stream at every launch (so a CUDA graph's replays start from 0)."""
+    for source in ("flash_bwd.cu", "flash_bwd_bf16.cu"):
+        text = (Path(_build._CSRC) / source).read_text()
+        assert "dq_part" not in text and "dq_sum" not in text, source
+        assert re.search(r"wait_count\(counts \+ [\w.]+, kb\)", text), source
+        assert re.search(r"release_count\(counts \+ [\w.]+, kb \+ 1\)", text), source
+        assert "cudaMemsetAsync(dq_count, 0, counts * sizeof(int), stream)" in text
 
 
 def test_head_widths_are_the_kernels_widths():

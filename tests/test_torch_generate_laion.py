@@ -206,7 +206,8 @@ def test_cli_serves_a_clip_checkpoint(tmp_path):
         device="cpu", num_epochs=1, max_steps_per_epoch=2, batch_size=2, n_records=12,
         image_size=64, log_every=1, num_timesteps=4, compute_dtype="float32",
         sample_every_batches=0, sample_every_epoch=False, text_encoder="clip",
-        clip_local_dir=str(clip_dir), out_dir=str(out), model_save_path=str(out / "ckpt")))
+        clip_local_dir=str(clip_dir), out_dir=str(out), model_save_path=str(out / "ckpt"),
+        image_cache_dir=str(out / "laion_cache"), failed_urls_cache=str(out / "failed.json")))
     loaded = generate_laion.load_laion_checkpoint(str(out / "ckpt"), "cpu")
     encoder = loaded["text_encoder"]
     assert isinstance(encoder, CLIPTextEncoder) and encoder.device == torch.device("cpu")

@@ -35,11 +35,13 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_laion_best")
-# The JAX stack and PIL, which the card's machine lacks, and what the CLIP and
-# SD-VAE seams of the JAX package and the reference reach for: regex, ftfy,
-# transformers, diffusers and safetensors.
+# The JAX stack and PIL, which the card's machine lacks, what the CLIP and
+# SD-VAE seams of the JAX package and the reference reach for (regex, ftfy,
+# transformers, diffusers and safetensors), and what JAX's LAION loader
+# fetches and lists records with (requests, urllib3, datasets).
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "PIL", "tinydiffusion_tpu",
-           "regex", "ftfy", "transformers", "diffusers", "safetensors")
+           "regex", "ftfy", "transformers", "diffusers", "safetensors", "requests", "urllib3",
+           "datasets")
 
 _REFUSE = textwrap.dedent("""
     import importlib, importlib.abc, os, pkgutil, sys
@@ -187,6 +189,36 @@ _CHILD_VAE_TRAIN_BF16 = _REFUSE + textwrap.dedent("""
                     "--epochs", "1", "--max-steps-per-epoch", "2", "--out-dir", path + "/out",
                     "--checkpoint-dir", path + "/ckpt", "--device", "cpu",
                     "--compute-dtype", "bfloat16", "--data-placement", "device"])
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("ISOLATED_OK")
+""")
+
+
+# The conv-VAE CLI twice on one record cache: the first run fills it (cold
+# reads: the synthesized bytes, each written as a quality-95 JPEG by the
+# port's encoder), the second reads it warm (the port's JPEG decoder), as
+# JAX's loader does; both train their two steps.
+_CHILD_VAE_WARM_CACHE = _REFUSE + textwrap.dedent("""
+    import numpy as np
+
+    from tinydiffusion_torch.data.jpeg import jpeg_round_trip
+    from tinydiffusion_torch.data.laion import synthesize_image
+    from tinydiffusion_torch.experiments import vae_laion
+
+    path = sys.argv[1]
+    flags = ["--image-size", "64", "--n-records", "12", "--batch-size", "2", "--epochs", "1",
+             "--max-steps-per-epoch", "2", "--device", "cpu", "--image-cache-dir",
+             path + "/cache", "--failed-urls-cache", path + "/failed.json"]
+    for run in ("cold", "warm"):
+        vae_laion.main(flags + ["--out-dir", path + "/" + run, "--checkpoint-dir",
+                                path + "/" + run + "_ckpt"])
+        assert len(os.listdir(path + "/cache")) == 12, os.listdir(path + "/cache")
+    images = vae_laion.load_images(vae_laion.VAELaionConfig(
+        image_size=64, n_records=12, image_cache_dir=path + "/cache",
+        failed_urls_cache=path + "/failed.json"))
+    want = jpeg_round_trip(np.stack([synthesize_image(i, 64)[0] for i in range(12)]))
+    assert np.array_equal(images, want)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("ISOLATED_OK")
@@ -432,6 +464,13 @@ def test_port_trains_the_conv_vae_without_the_jax_stack(tmp_path):
     for ext in (".pt", ".npz", ".json"):
         assert os.path.getsize(tmp_path / "ckpt" / f"vae_laion_best{ext}") > 0
     assert os.path.getsize(tmp_path / "out" / "generated_samples.png") > 0
+
+
+def test_port_trains_the_conv_vae_on_a_warm_cache_without_the_jax_stack(tmp_path):
+    _run_isolated(_CHILD_VAE_WARM_CACHE, str(tmp_path), str(tmp_path))
+    for run in ("cold", "warm"):
+        assert os.path.getsize(tmp_path / f"{run}_ckpt" / "vae_laion_best.npz") > 0
+    assert not (tmp_path / "data").exists()  # nothing in the default cache
 
 
 def test_port_trains_the_bf16_conv_vae_resident_without_the_jax_stack(tmp_path):

@@ -220,10 +220,17 @@ def test_hash_embeddings_are_jax_bits(monkeypatch):
         latent_codec.get_latent_codec("sd")
 
 
-def test_offline_records_and_valid_subset_are_jax_bits(tmp_path):
+def _cache_dirs(root) -> dict:
+    """A run's own JPEG cache and failed-URL list under ``root``: a cold
+    cache, shared with no other test."""
+    return {"image_cache_dir": str(root / "laion_cache"),
+            "failed_urls_cache": str(root / "failed_urls.json")}
+
+
+def test_offline_records_and_valid_subset_are_jax_bits(tmp_path, monkeypatch):
     """The synthetic records, the valid subset (an empty caption is dropped)
     and each image bit-equal: ``synthesize_image`` as JAX's dataset first
-    reads it, from a cold cache, and ``precache_records`` as a second JAX
+    reads it, from a cold cache, and the port's dataset as a second JAX
     read, which decodes the JPEG that the first one cached: what JAX's
     ``run`` stacks (after ``precache_dataset``'s read)."""
     n, size = 10, 64
@@ -240,14 +247,20 @@ def test_offline_records_and_valid_subset_are_jax_bits(tmp_path):
     assert valid == [i for i in range(n) if i != 3]
     ds = jax_dataset("cold")
     cold = [ds[i] for i in valid]
-    images, texts = laion.precache_records(records, size)
+    port = laion.LAIONImageTextDataset(
+        records, cache_dir=str(tmp_path / "port"), failed_urls_cache=str(tmp_path / "p.json"),
+        image_size=size, normalize=True, on_error="raise", as_uint8=True)
+    assert laion.precache_dataset(port) == valid
+    items = [port[i] for i in valid]
+    images, texts = np.stack([x for x, _ in items]), [t for _, t in items]
     assert texts == [text for _, text in cold]
     np.testing.assert_array_equal(np.stack([laion.synthesize_image(i, size)[0] for i in valid]),
                                   np.stack([x for x, _ in cold]))
     warm = np.stack([ds[i][0] for i in valid])
     np.testing.assert_array_equal(images, warm)
     assert not np.array_equal(warm, np.stack([x for x, _ in cold]))
-    with pytest.raises(NotImplementedError, match="offline=True"):
+    monkeypatch.setitem(sys.modules, "datasets", None)  # so nothing is fetched
+    with pytest.raises(RuntimeError, match="'datasets' package"):
         laion.load_laion_dataset(n, offline=False)
 
 
@@ -662,19 +675,22 @@ def test_config_takes_the_jax_flags():
 
 
 @pytest.mark.parametrize("field, value, error, match", [
-    pytest.param("offline", False, NotImplementedError, "offline=True",
+    pytest.param("offline", False, RuntimeError, "'datasets' package",
                  id="offline-False-offline=True"),
     pytest.param("latent_codec", "sd", ImportError, "SD-VAE", id="latent_codec-sd-SD-VAE"),
     pytest.param("text_encoder", "clip", ImportError, "CLIP", id="text_encoder-clip-CLIP")])
 def test_online_seams_raise(tmp_path, monkeypatch, field, value, error, match):
-    """What needs the network fails ``run``: the online loader is not ported
-    (``offline=False``), and the SD-VAE and CLIP without a local directory
-    go to ``from_pretrained``, which needs diffusers or transformers (both
-    refused here)."""
+    """What needs the network fails ``run`` where JAX's fails: the online
+    loader (``offline=False``) needs the ``datasets`` package, and the SD-VAE
+    and CLIP without a local directory go to ``from_pretrained``, which
+    needs diffusers or transformers (all three refused here, so nothing is
+    fetched)."""
     monkeypatch.setitem(sys.modules, "transformers", None)
     monkeypatch.setitem(sys.modules, "diffusers", None)
+    monkeypatch.setitem(sys.modules, "datasets", None)
     config = exp.LaionDiffusionConfig(device="cpu", n_records=4, out_dir=str(tmp_path),
-                                      model_save_path=str(tmp_path / "ckpt"), **{field: value})
+                                      model_save_path=str(tmp_path / "ckpt"),
+                                      **_cache_dirs(tmp_path), **{field: value})
     with pytest.raises(error, match=match):
         exp.run(config)
 
@@ -694,7 +710,7 @@ def test_run_alike_on_both_placements_and_resumes_in_its_codec_basis(tmp_path):
             image_size=64, time_dim=32, log_every=1, num_timesteps=4, compute_dtype="float32",
             sample_every_batches=2, caption_dropout=0.5, guidance_scale=2.0, ema_decay=0.9,
             data_placement=placement, out_dir=str(out), model_save_path=str(out / "ckpt"),
-            sample_every_epoch=placement == "device")
+            sample_every_epoch=placement == "device", **_cache_dirs(out))
         results[placement] = exp.run(config)
     host, resident = results["host"], results["device"]
     assert not host["resident"] and resident["resident"]
@@ -740,7 +756,8 @@ def test_run_trains_on_clip_embeddings(tmp_path):
         device="cpu", num_epochs=1, max_steps_per_epoch=2, batch_size=2, n_records=12,
         image_size=64, log_every=1, num_timesteps=4, compute_dtype="float32",
         sample_every_batches=0, sample_every_epoch=False, text_encoder="clip",
-        clip_local_dir=str(clip_dir), out_dir=str(out), model_save_path=str(out / "ckpt"))
+        clip_local_dir=str(clip_dir), out_dir=str(out), model_save_path=str(out / "ckpt"),
+        **_cache_dirs(out))
     assert exp.resolve_seams(config) == ("patch", "clip")
     assert exp.resolve_seams(dataclasses.replace(config, text_encoder="auto")) == ("patch", "clip")
     result = exp.run(config)

@@ -8,6 +8,7 @@ outputs, an exact ``--resume``, and the options it refuses.
 import dataclasses
 import json
 import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -59,7 +60,9 @@ def test_load_images_equals_jax_on_a_fresh_cache(tmp_path):
     config = JaxConfig(image_size=64, n_records=12, image_cache_dir=str(tmp_path / "cache"),
                        failed_urls_cache=str(tmp_path / "failed.json"))
     theirs = jax_load_images(config)
-    ours = load_images(VAELaionConfig(image_size=64, n_records=12))
+    ours = load_images(VAELaionConfig(image_size=64, n_records=12,
+                                      image_cache_dir=str(tmp_path / "port_cache"),
+                                      failed_urls_cache=str(tmp_path / "port_failed.json")))
     assert ours.dtype == theirs.dtype == np.uint8 and ours.shape == (12, 64, 64, 3)
     np.testing.assert_array_equal(ours, theirs)
 
@@ -124,9 +127,14 @@ def test_port_npz_has_the_keys_of_a_jax_npz_and_decodes_in_jax(tmp_path):
 
 
 def _run_config(tmp_path, **overrides) -> VAELaionConfig:
+    """A small run's config; each call its own cold record cache, so every
+    run trains on the synthesized bytes."""
+    os.makedirs(tmp_path, exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="laion_cache", dir=tmp_path)
     fields = dict(image_size=128, n_records=40, batch_size=4, epochs=2, max_steps_per_epoch=3,
                   log_interval=1, n_images_to_log=4, out_dir=str(tmp_path / "out"),
-                  checkpoint_dir=str(tmp_path / "ckpt"), device="cpu")
+                  checkpoint_dir=str(tmp_path / "ckpt"), device="cpu", image_cache_dir=cache,
+                  failed_urls_cache=os.path.join(cache, "failed_urls.json"))
     fields.update(overrides)
     return VAELaionConfig(**fields)
 
@@ -183,8 +191,8 @@ def test_run_needs_a_card_unless_asked_for_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("offline", False, "offline"),
     ("perceptual", "vgg19", "seeded"),
+    ("compute_dtype", "float16", "bfloat16"),
 ])
 def test_run_refuses_what_is_not_ported(field, value, match, tmp_path):
     with pytest.raises((NotImplementedError, ValueError), match=match):

@@ -161,6 +161,10 @@ def entry_configs(data_root: str, out: str, use_mesh: bool = True) -> dict:
     def paths(name: str) -> dict:
         return {"out_dir": os.path.join(out, name)}
 
+    # Each rank's and each run's own cold cache of the LAION records.
+    laion_cache = {"image_cache_dir": os.path.join(out, "laion_cache"),
+                   "failed_urls_cache": os.path.join(out, "failed_urls.json")}
+
     mnist = dict(device="cpu", data_root=data_root, use_mesh=use_mesh)
     pixel = dict(mnist, num_epochs=1, max_steps_per_epoch=2, batch_size=16, log_every=1,
                  num_timesteps=20, n_samples=4, denoising_stride=10, compute_dtype="float32",
@@ -192,13 +196,14 @@ def entry_configs(data_root: str, out: str, use_mesh: bool = True) -> dict:
         "vae_laion": (vae_laion.run, vae_laion.VAELaionConfig(
             device="cpu", use_mesh=use_mesh, image_size=64, n_records=30, batch_size=4,
             epochs=1, max_steps_per_epoch=2, log_interval=1, n_images_to_log=2,
-            **paths("vae_laion"), checkpoint_dir=os.path.join(out, "vae_laion", "ckpt"))),
+            **paths("vae_laion"), **laion_cache,
+            checkpoint_dir=os.path.join(out, "vae_laion", "ckpt"))),
         "conditional_diffusion_laion": (conditional_diffusion_laion.run,
                                         conditional_diffusion_laion.LaionDiffusionConfig(
             device="cpu", use_mesh=use_mesh, num_epochs=1, max_steps_per_epoch=2, batch_size=4,
             n_records=20, image_size=64, time_dim=32, log_every=1, num_timesteps=4,
             compute_dtype="float32", caption_dropout=0.5, guidance_scale=2.0,
-            sample_every_epoch=False, **paths("conditional_diffusion_laion"),
+            sample_every_epoch=False, **paths("conditional_diffusion_laion"), **laion_cache,
             model_save_path=os.path.join(out, "conditional_diffusion_laion", "ckpt"))),
     }
 

@@ -25,9 +25,11 @@ text encoder is the hash encoder (``compat/text_encoder.py``; ``"auto"``
 without a ``clip_local_dir``) or CLIP-L (``"clip"``, ``compat/clip.py``:
 from ``clip_local_dir``'s ``clip_text.pth``, ``vocab.json`` and
 ``merges.txt`` with no network, else ``from_pretrained``), run on the run's
-device. The records are synthetic (``data/laion.py``): ``offline=False``
-raises, as the online loader (HF ``datasets``, HTTP fetches, JPEG decoding)
-is not ported.
+device. The records come through ``data/laion.py``'s
+``LAIONImageTextDataset`` as in JAX: synthetic offline, the Hugging Face
+dataset and HTTP fetches with ``offline=False``; ``precache_dataset`` fills
+the JPEG cache and finds the valid records, and the training images are the
+second, warm read of each.
 
 Run on the card (the default) or, when asked, on the CPU::
 
@@ -49,10 +51,8 @@ draws come from the state's generator on the model's device (the SD codec's
 Gaussian, t, the q_sample seed, the caption dropout); the val pass's from
 ``np.random.default_rng([seed + 3, epoch * 10000 + i])`` (JAX:
 ``fold_in(PRNGKey(seed + 3), epoch * 10000 + i)``); the sampling chains from
-a generator seeded with ``seed + 2``. The images are synthesized, never read
-back from a JPEG cache, so ``image_cache_dir`` and ``failed_urls_cache`` are
-not used (``data/laion.py``); the host path steps one batch at a time, so
-``steps_per_dispatch`` sets only the resident chunk.
+a generator seeded with ``seed + 2``. The host path steps one batch at a
+time, so ``steps_per_dispatch`` sets only the resident chunk.
 """
 
 from __future__ import annotations
@@ -68,7 +68,11 @@ from tinydiffusion_torch.compat.latent_codec import get_latent_codec
 from tinydiffusion_torch.compat.text_encoder import get_text_encoder
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
-from tinydiffusion_torch.data.laion import load_laion_dataset, precache_records
+from tinydiffusion_torch.data.laion import (
+    LAIONImageTextDataset,
+    load_laion_dataset,
+    precache_dataset,
+)
 from tinydiffusion_torch.data.loader import BatchIterator
 from tinydiffusion_torch.device import disable_tf32, resolve_device
 from tinydiffusion_torch.experiments.common import (
@@ -89,7 +93,7 @@ from tinydiffusion_torch.models.unet_latent import LatentUNet
 from tinydiffusion_torch.obs.images import save_image_grid
 from tinydiffusion_torch.obs.metrics import MetricsLogger
 from tinydiffusion_torch.parallel.distributed import maybe_initialize_distributed
-from tinydiffusion_torch.parallel.mesh import is_main, make_mesh_for_batch, shard
+from tinydiffusion_torch.parallel.mesh import from_main, is_main, make_mesh_for_batch, shard
 from tinydiffusion_torch.ops import qsample
 from tinydiffusion_torch.train.trainer import (
     create_train_state,
@@ -119,9 +123,9 @@ class LaionDiffusionConfig:
     - ``model_save_path`` defaults under ``runs/``, not to the JAX default
       ``checkpoints/laion_diffusion_best``: the port's files would land
       beside the committed sidecars there.
-    - ``offline`` must stay True (the online loader is not ported);
-      ``image_cache_dir`` and ``failed_urls_cache`` are kept for the flags
-      and not used.
+    - ``image_cache_dir`` and ``failed_urls_cache``: the records' JPEG cache
+      and failed-URL list (``data/laion.py``), as in JAX; relative paths
+      are from the working directory.
     - ``use_mesh``: data parallelism over the processes of the group that
       ``main`` joins (``parallel/``; ``batch_size`` is the global batch), as
       in ``experiments.diffusion``; rank 0 alone samples, logs and writes.
@@ -293,6 +297,25 @@ def _restore_codec(config: LaionDiffusionConfig, codec, images: np.ndarray) -> N
     print(f"calibrated latent scaling factor: {sf:.4f}")
 
 
+def load_records(config: LaionDiffusionConfig) -> tuple[np.ndarray, list[str]]:
+    """The valid records as ``(images, texts)``: (N, S, S, 3) uint8 and their
+    captions, in record order, as JAX's ``run`` takes them
+    (conditional_diffusion_laion.py:391-402): ``precache_dataset`` reads each
+    record through the dataset (filling the JPEG cache) and keeps those with
+    a caption and an image not all black, then each valid record is read
+    again, from the now warm cache."""
+    records = load_laion_dataset(config.n_records, offline=config.offline)
+    ds = LAIONImageTextDataset(
+        records, cache_dir=config.image_cache_dir, failed_urls_cache=config.failed_urls_cache,
+        image_size=config.image_size, normalize=True, on_error="raise", as_uint8=True)
+    valid = precache_dataset(ds)
+    if not valid:
+        raise RuntimeError("No valid samples after pre-caching!")
+    print(f"Using {len(valid)} valid samples for training.")
+    items = [ds[i] for i in valid]
+    return np.stack([x for x, _ in items]), [t for _, t in items]
+
+
 def run(config: LaionDiffusionConfig) -> dict:
     """Train, validate, checkpoint and sample as the config says. Returns
     ``losses`` (the logged ones), ``val_losses`` (per epoch),
@@ -325,14 +348,10 @@ def run(config: LaionDiffusionConfig) -> dict:
     text_encoder = get_text_encoder(encoder_name, config.time_dim, config.clip_local_dir,
                                     device=device)
 
-    # Data: the valid subset and the 80/20 split (conditional_diffusion_laion.py:403-433).
-    # offline=False raises here: the online loader is not ported.
+    # Data: precache, the valid subset and the 80/20 split
+    # (conditional_diffusion_laion.py:403-433), read by rank 0 alone.
     data_t0 = time.perf_counter()
-    images, texts = precache_records(load_laion_dataset(config.n_records, config.offline),
-                                     config.image_size)
-    if not len(images):
-        raise RuntimeError("No valid samples after pre-caching!")
-    print(f"Using {len(images)} valid samples for training.")
+    images, texts = from_main(dp, lambda: load_records(config))
     embeds = text_encoder.encode(texts).astype(np.float32)
     data_seconds = time.perf_counter() - data_t0
     _restore_codec(config, codec, images)

@@ -50,16 +50,18 @@ Stated deviations from the JAX run (torch cannot draw JAX's bits):
 - the model's init is torch's default (JAX: flax init from ``PRNGKey(seed)``).
 
 Value parity with JAX goes through the seams instead: the step's ``eps``,
-the weight bridge (``io.from_jax``) and ``perceptual_state_dict``. The port
-has no JPEG cache: its images are the synthetic bytes, which equal what the
-JAX loader returns on a cold cache (on a warm one it returns the JPEG-95
-copy); JAX's ``run`` here reads each record once, so it trains on those bytes.
+the weight bridge (``io.from_jax``) and ``perceptual_state_dict``. The
+images are JAX's bytes: ``load_images`` reads each record once through the
+port's ``LAIONImageTextDataset`` and its JPEG cache (``--image-cache-dir``,
+``--failed-urls-cache``), so a cold cache gives the synthesized bytes and a
+warm one the cached JPEG's decode, as in JAX.
 
 Under ``torchrun --nproc_per_node N`` the run is data-parallel over N
 processes (``parallel/``; ``--batch-size`` is the global batch, and the
 reference's batch 4 spreads over up to 4 ranks by the gcd rule): the summed
 loss and its gradients are summed over the ranks before the clip, and rank 0
-alone logs and writes.
+alone reads the records (and writes their cache), logs and writes; the
+other ranks receive its images.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ import torch
 from tinydiffusion_torch.compat.vgg import load_vgg16_perceptual
 from tinydiffusion_torch.core.graphs import GraphedCall
 from tinydiffusion_torch.data.device import DeviceDataset
-from tinydiffusion_torch.data.laion import synthesize_image
+from tinydiffusion_torch.data.laion import LAIONImageTextDataset, load_laion_dataset
 from tinydiffusion_torch.data.loader import BatchIterator
 from tinydiffusion_torch.device import disable_tf32, resolve_device
 from tinydiffusion_torch.experiments.common import (
@@ -103,6 +105,7 @@ from tinydiffusion_torch.obs.metrics import LossAccumulator, MetricsLogger
 from tinydiffusion_torch.parallel.distributed import maybe_initialize_distributed
 from tinydiffusion_torch.parallel.mesh import (
     DataParallel,
+    from_main,
     global_batch,
     is_main,
     make_mesh_for_batch,
@@ -129,15 +132,16 @@ class VAELaionConfig:
       committed JAX weights.
     - ``use_mesh``: data parallelism over the processes of the group that
       ``main`` joins, as in ``experiments.diffusion``.
-    - ``hidden_channels``, ``image_cache_dir`` and ``failed_urls_cache``
-      have no effect: the JAX model ignores the first too, and the port
-      makes its images in memory, with no cache.
+    - ``hidden_channels`` has no effect: the JAX model ignores it too.
+    - ``image_cache_dir`` and ``failed_urls_cache``: the records' JPEG cache
+      and failed-URL list (``data/laion.py``), as in JAX; relative paths
+      are from the working directory.
     - ``data_placement``: JAX's rule; ``"auto"`` and ``"device"`` keep the
       train set (and an all-nonzero val split) on the device.
     - ``compute_dtype``: ``"float32"`` or ``"bfloat16"`` (the model's and
       the perceptual net's flax ``dtype``; the params stay float32).
-    - ``offline=False`` (the online LAION dataset) raises: the port has no
-      network path.
+    - ``offline=False`` reads the online LAION dataset (``datasets`` and
+      the network), as in JAX.
     """
 
     latent_dim: int = 128
@@ -182,10 +186,6 @@ def _check_config(config: VAELaionConfig) -> None:
     if config.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
             f"compute_dtype={config.compute_dtype!r}; choose 'float32' or 'bfloat16'")
-    if not config.offline:
-        raise NotImplementedError(
-            "offline=False loads the online LAION dataset, which the port does not have; "
-            "use offline=True (synthetic records)")
     if config.perceptual not in ("seeded", "vgg16"):
         raise ValueError(f"perceptual={config.perceptual!r}; choose 'seeded' or 'vgg16'")
 
@@ -356,12 +356,16 @@ def make_conv_vae_eval_step(perceptual: PerceptualNet, beta: float,
 
 
 def load_images(config: VAELaionConfig) -> np.ndarray:
-    """The offline record set as one (n_records, S, S, 3) uint8 array: the
-    synthetic images, made in memory (what the JAX loader returns on a cold
-    cache)."""
-    if not config.offline:
-        raise NotImplementedError("the port loads offline (synthetic) records only")
-    return np.stack([synthesize_image(i, config.image_size)[0] for i in range(config.n_records)])
+    """The record set as one (n_records, S, S, 3) uint8 array, each record
+    read once through ``LAIONImageTextDataset`` (JAX's ``load_images``,
+    vae_laion.py:198-213): on a cold cache the fetched (synthesized) bytes,
+    which it caches as JPEG; on a warm one the cached JPEG's decode; a
+    failed record as zeros (``on_error="zero"``)."""
+    records = load_laion_dataset(config.n_records, offline=config.offline)
+    ds = LAIONImageTextDataset(
+        records, cache_dir=config.image_cache_dir, failed_urls_cache=config.failed_urls_cache,
+        image_size=config.image_size, normalize=False, on_error="zero", as_uint8=True)
+    return np.stack([ds[i][0] for i in range(len(ds))])
 
 
 def split_train_val(images: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -420,7 +424,7 @@ def run(config: VAELaionConfig) -> dict:
                         use_flash_attention=config.use_flash_attention, dtype=dtype)
     model = model.to(device)
     perceptual = _perceptual_net(config).to(device)
-    train_images, val_images = split_train_val(load_images(config))
+    train_images, val_images = split_train_val(from_main(dp, lambda: load_images(config)))
     resident = resolve_data_placement(config.data_placement, train_images.nbytes, "vae_laion",
                                       config.batch_size, 1 if dp is None else dp.size)
     # A captured step needs Adam's step count on the device.

@@ -17,8 +17,9 @@ converts and resizes images with Pillow's own integer arithmetic:
 - ``to_grey``: Pillow's ``convert("L")``, ``(R 19595 + G 38470 + B 7471 +
   2^15) >> 16`` (its fixed-point ITU-R 601-2 luma), alpha dropped;
   ``to_rgb``: its ``convert("RGB")``, grey repeated, alpha dropped;
-- ``resize_u8``: Pillow's default ``resize`` filter (bicubic, a = -0.5, its
-  support widened by the scale when shrinking), in its 22-bit fixed point,
+- ``resize_u8``: Pillow's ``resize`` with its default filter (bicubic,
+  a = -0.5) or bilinear (the LAION loader's), the support widened by the
+  scale when shrinking, in its 22-bit fixed point,
   the horizontal pass first and rounded to uint8 before the vertical one,
   each channel of an RGB image alike.
 """
@@ -269,18 +270,28 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _resample_weights(in_size: int, out_size: int) -> np.ndarray:
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+# Pillow's filters by name: the function and its support at scale 1.
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}
+
+
+def _resample_weights(in_size: int, out_size: int, resample: str = "bicubic") -> np.ndarray:
     """(out_size, in_size) int64 fixed-point weights of Pillow's
-    ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the bicubic filter."""
+    ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the ``resample``
+    filter (its support widens by the scale when downscaling)."""
+    kernel, base_support = _FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = base_support * filterscale
     weights = np.zeros((out_size, in_size), np.int64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size)
-        k = _bicubic((np.arange(xmin, xmax) - center + 0.5) * (1.0 / filterscale))
+        k = kernel((np.arange(xmin, xmax) - center + 0.5) * (1.0 / filterscale))
         total = 0.0
         for v in k.tolist():  # in order, as Pillow sums them
             total += v
@@ -297,17 +308,19 @@ def _resample_pass(img: np.ndarray, weights: np.ndarray) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_u8(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
+def resize_u8(pixels: np.ndarray, width: int, height: int,
+              resample: str = "bicubic") -> np.ndarray:
     """(H, W) or (H, W, C) uint8 -> (height, width) or (height, width, C),
-    as Pillow's ``Image.resize((width, height))`` of an "L" or "RGB" image:
-    every channel by the same two passes."""
+    as Pillow's ``Image.resize((width, height), resample)`` of an "L" or
+    "RGB" image (``"bicubic"``, its default, or ``"bilinear"``): every
+    channel by the same two passes, horizontal first."""
     planes = np.moveaxis(pixels if pixels.ndim == 3 else pixels[..., None], -1, 0)
     h, w = planes.shape[1:]
     if w != width:
-        planes = _resample_pass(planes, _resample_weights(w, width))
+        planes = _resample_pass(planes, _resample_weights(w, width, resample))
     if h != height:
-        planes = np.swapaxes(
-            _resample_pass(np.swapaxes(planes, 1, 2), _resample_weights(h, height)), 1, 2)
+        planes = np.swapaxes(_resample_pass(np.swapaxes(planes, 1, 2),
+                                            _resample_weights(h, height, resample)), 1, 2)
     out = np.ascontiguousarray(np.moveaxis(planes, 0, -1))
     return out if pixels.ndim == 3 else out[..., 0]
 

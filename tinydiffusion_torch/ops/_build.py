@@ -119,10 +119,12 @@ SIGNATURES: dict[str, tuple] = {
     # qt, kt, vt, out, lse, batch, n, d, c, stream (float32; bfloat16 operands and out)
     "tdt_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tdt_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, batch, n, d, c, key_blocks, stream
-    # (float32; bfloat16 operands and gradients)
+    # qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_count, batch, n, d, c, query_tiles,
+    # stream (float32; the counters int32)
     "tdt_flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "tdt_flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same with dq_run (float32 run sums) before dq_count (bfloat16 operands and
+    # gradients)
+    "tdt_flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # d, c -> bytes of the kernel's dynamic shared memory (forward; backward pair
     # kernel), float32 and bfloat16
     "tdt_flash_fwd_smem_bytes": (_I, _I),

@@ -41,6 +41,7 @@ dense dispatch is plain torch, and autograd differentiates it.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -98,10 +99,37 @@ def count_replays(per_replay: dict, replays: int = 1) -> None:
             globals()[f"{key}_launches"] += n * replays
 
 # Keys per block of the backward kernels (``kKeysPerBlock`` in
-# csrc/flash_bwd.cu and csrc/flash_bwd_bf16.cu; a test ties them): it sizes
-# each kernel's scratch of per-key-block dq partials.
+# csrc/flash_bwd.cu and csrc/flash_bwd_bf16.cu; a test ties them): each key
+# block adds its dq partials into dq in key-block order.
 FLASH_BWD_KEYS_PER_BLOCK = 64
 FLASH_BWD_BF16_KEYS_PER_BLOCK = 128
+# Queries a tile of the backward kernels, by C for float32 (``kBlockQFor`` in
+# csrc/flash_bwd.cu) and for bfloat16 (``kTileTokens`` in csrc/bf16_mma.cuh;
+# a test ties them): one dq counter a (batch row, query tile).
+FLASH_BWD_QUERIES_PER_TILE = {32: 64, 64: 64, 128: 32}
+FLASH_BWD_BF16_QUERIES_PER_TILE = 64
+
+
+def flash_bwd_scratch(dtype: torch.dtype, b: int, d: int, n: int, c: int
+                      ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The backward kernel's scratch at (B, D, N, C), by the launcher's
+    argument names, as ``(shape, dtype)``: ``dq_count``, one int32 counter a
+    (batch row, query tile) that orders the key blocks' dq adds; for
+    bfloat16 also ``dq_run``, the float32 (B, D, N) sum of a run of
+    ``DEFAULT_BLOCK_K`` keys before it is rounded into dq. Float32 dq
+    accumulates in the output itself. O(B D N): no (query, key) term."""
+    tile = (FLASH_BWD_BF16_QUERIES_PER_TILE if dtype == torch.bfloat16
+            else FLASH_BWD_QUERIES_PER_TILE[c])
+    scratch = {"dq_count": ((b, -(-n // tile)), torch.int32)}
+    if dtype == torch.bfloat16:
+        scratch = {"dq_run": ((b, d, n), torch.float32), **scratch}
+    return scratch
+
+
+def flash_bwd_scratch_bytes(dtype: torch.dtype, b: int, d: int, n: int, c: int) -> int:
+    """Bytes of ``flash_bwd_scratch(dtype, b, d, n, c)``."""
+    return sum(math.prod(shape) * torch.tensor([], dtype=dt).element_size()
+               for shape, dt in flash_bwd_scratch(dtype, b, d, n, c).values())
 
 
 def flash_fwd_reference(
@@ -284,18 +312,17 @@ def flash_bwd(
     b, d, n, c = _check_kernel_operands(
         "flash_bwd", {"qt": qt, "kt": kt, "vt": vt, "dot": dot, "lse": lse, "delta": delta})
     launcher = getattr(_build.library(), f"tdt_flash_bwd_{KERNEL_DTYPES[dtype]}")
-    keys_per_block = (FLASH_BWD_BF16_KEYS_PER_BLOCK if dtype == torch.bfloat16
-                      else FLASH_BWD_KEYS_PER_BLOCK)
-    key_blocks = -(-n // keys_per_block)
     dqt, dkt = torch.empty_like(qt), torch.empty_like(kt)
     dvt = torch.empty_like(vt)
-    dq_part = torch.empty(b, key_blocks, d, n, dtype=torch.float32, device=qt.device)
+    scratch = [torch.empty(shape, dtype=dt, device=qt.device)
+               for shape, dt in flash_bwd_scratch(dtype, b, d, n, c).values()]
+    query_tiles = scratch[-1].shape[1]  # dq_count's
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream(qt.device).cuda_stream
         rc = launcher(
             qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), dot.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dqt.data_ptr(), dkt.data_ptr(), dvt.data_ptr(),
-            dq_part.data_ptr(), b, n, d, c, key_blocks, ctypes.c_void_p(stream),
+            *(x.data_ptr() for x in scratch), b, n, d, c, query_tiles, ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"flash_bwd ({dtype}) kernel launch failed: cudaError {rc}")

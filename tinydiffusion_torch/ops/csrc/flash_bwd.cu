@@ -11,7 +11,7 @@
 //
 // Layout, as the forward: qt, kt (B, D, N), vt, dOt (B, C, N), lse and delta
 // (B, 1, N), all contiguous; outputs dqt, dkt (B, D, N), dvt (B, C, N); all
-// float32, as is the dq scratch.
+// float32. The only scratch is one int counter a (batch row, query tile).
 //
 // Design (one visit per (query, key) pair, as the TPU kernel). S^T = K Q^T
 // and the two products over C (dP^T and dV), which carry 2C + D of the pair's
@@ -40,17 +40,27 @@
 // - dQ = dS K needs dS, not dS^T: the warps write dS^T into a shared (query,
 //   key) matrix; after a barrier each thread sums one query's dS row times the
 //   block's K (float32, its share of the D columns) over the block's 64 keys.
-// - That sum is the block's partial dq for the tile, written to scratch
-//   (B, N / kKeysPerBlock, D, N). A second kernel adds the partials of the
-//   key blocks in a fixed order. No atomics: two calls give the same bits.
+// - That sum is the block's partial dq for the tile, kept in shared memory
+//   for a group of kDqGroup tiles. The blocks add their partials into dqt
+//   itself in key-block order (sm90.cuh::wait_count): after a group's last
+//   tile the block of key block kb waits until each of the group's tile
+//   counters reads kb, reads the running dq from L2, adds its partials,
+//   fences and sets the counters to kb + 1 (key block 0 stores 0 + its
+//   partial). A group pays the round trips through L2 once for its tiles,
+//   which a tile's compute alone would not hide. The float32 sums are
+//   ((0 + p_0) + p_1) + ..., the order of the separate sum kernel this
+//   replaces, so dq keeps its bits, in O(B D N) memory where that kernel's
+//   partials took B (N / 64) D N floats (64 GiB at N = 262144, D = 4, B = 4).
+//   No atomics on dq: two calls give the same bits. The launcher zeroes the
+//   counters on the stream first, so a CUDA graph's replays start from zero.
 // - Keys past N weigh 0 (p forced to 0); queries past N are zero-filled, get
 //   lse = +inf, so p = 0, and are not stored.
 //
 // Bound on an H100: 2*B*N^2*(3D + 2C) FLOPs of products (N=16384, D=4, C=32,
 // B=4: 163 GFLOP, 0.330 ms at the 495 TFLOP/s TF32 tensor-core peak; N=4096,
 // D=16, C=128: 40.8 GFLOP, 0.082 ms) and one exp per pair (0.257 ms at the MUFU
-// rate). The partials add 2 * 4 * B * (N / 64) * D * N bytes (512 MiB moved at
-// N=16384, D=4, B=4; 8 GiB at N=65536: the scratch grows as N^2).
+// rate). The ordered adds move 2 * 4 * B * (N / 64) * D * N bytes through L2
+// (512 MiB at N=16384, D=4, B=4), but dq itself holds only B * D * N floats.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,8 +78,18 @@ static_assert(kKeysPerBlock == 16 * kWarps, "one wgmma row tile of keys");
 // Queries per staged tile: at C = 128 the tile's dO planes and staging would
 // not fit beside V's planes for 64 queries.
 template <int C>
-constexpr int kBlockQFor = C == 128 ? 32 : 64;
+constexpr int kBlockQFor = C == 128 ? 32 : 64;  // the wrapper's FLASH_BWD_QUERIES_PER_TILE
+// Query tiles whose dq partials are added to dq together: at C = 32 three
+// blocks share an SM's shared memory.
+template <int C>
+constexpr int kDqGroup = C == 32 ? 8 : 16;
+// Query tiles of a batch row: one dq counter each.
+template <int C>
+__host__ __device__ constexpr int num_query_tiles(int n) {
+  return (n + kBlockQFor<C> - 1) / kBlockQFor<C>;
+}
 constexpr int kDsStride = kKeysPerBlock + 4;  // dS rows: conflict-free writes and float4 reads
+
 constexpr int kCore = 32;  // one core matrix: 8 rows x 4 tf32 (128 bytes)
 // Core matrices of d (4 values each) a group of 8 queries: D = 4 padded to 8.
 template <int D>
@@ -106,6 +126,7 @@ struct Smem {
   float lse2[kBlockQ];    // lse * log2(e); +inf for queries past N
   float delta_s[kBlockQ];
   float k[kKeysPerBlock][D];              // the block's K, key-major, for dQ
+  float dq[kDqGroup<C>][D][kBlockQ];      // the block's dq partials of a group of tiles
 };
 
 // Blocks an SM must hold: at C = 32 the registers are capped for 3 (the shared
@@ -113,13 +134,50 @@ struct Smem {
 template <int C>
 constexpr int kMinBlocks = C == 32 ? 3 : 1;
 
+// The block adds the dq partials of tiles g0..last, kept in `part` (thread
+// (qi, h) holds its own), into this batch row's dq in key-block order: wait
+// until each tile's counter reads kb, add (key block 0 adds to 0), and set
+// the counters to kb + 1. Everything is computed here from the kernel's
+// parameters, so that nothing of it stays live in registers across the main
+// loop. The barrier makes every add visible to the releasing threads, whose
+// release is cumulative (the pattern of a cooperative grid barrier).
+template <int D, int C>
+__device__ __noinline__ void add_dq_group(float (*part)[D][kBlockQFor<C>], float* dqt,
+                                          int* dq_count, int g0, int last, int n) {
+  constexpr int kBlockQ = kBlockQFor<C>, kHalf = D * kBlockQ / kThreads;
+  const int qi = threadIdx.x % kBlockQ, h = threadIdx.x / kBlockQ;
+  const int kb = blockIdx.y, tiles = last - g0 + 1;
+  int* counts = dq_count + static_cast<size_t>(blockIdx.x) * num_query_tiles<C>(n) + g0;
+  if (threadIdx.x < tiles) wait_count(counts + threadIdx.x, kb);
+  __syncthreads();
+  float* rows = dqt + static_cast<size_t>(blockIdx.x) * D * n + qi + g0 * kBlockQ;
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) {
+    float* row = rows + static_cast<size_t>(h * kHalf + d) * n;
+    float prev[kDqGroup<C>];
+#pragma unroll
+    for (int j = 0; j < kDqGroup<C>; ++j) {  // the loads first, all in flight
+      const bool in = j < tiles && (g0 + j) * kBlockQ + qi < n;
+      prev[j] = in && kb > 0 ? __ldcg(row + j * kBlockQ) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kDqGroup<C>; ++j) {
+      if (j < tiles && (g0 + j) * kBlockQ + qi < n) {
+        __stcg(row + j * kBlockQ, prev[j] + part[j][h * kHalf + d][qi]);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < tiles) release_count(counts + threadIdx.x, kb + 1);
+}
+
 template <int D, int C, bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<C>)
 flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
                     const float* __restrict__ vt, const float* __restrict__ dot,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dkt, float* __restrict__ dvt,
-                    float* __restrict__ dq_part, int n) {
+                    float* __restrict__ dqt, float* __restrict__ dkt,
+                    float* __restrict__ dvt, int* __restrict__ dq_count, int n) {
   static_assert(D == 4 || D == 8 || D == 16, "the logit product is one or two k8 steps");
   static_assert(C == 32 || C == 64 || C == 128, "dV is one m64nC");
   constexpr int kBlockQ = Smem<D, C>::kBlockQ, kQStride = Smem<D, C>::kQStride;
@@ -129,8 +187,8 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<D, C>& sm = *reinterpret_cast<Smem<D, C>*>(smem_raw);
 
-  const int b = blockIdx.y;
-  const int kb = blockIdx.x;
+  const int b = blockIdx.x;  // batch rows fastest: a wave holds short chains of key blocks
+  const int kb = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int key_base = kb * kKeysPerBlock;
@@ -192,7 +250,6 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
   constexpr uint32_t kCoreBytes = kCore * 4;
 
   const int ntiles = (n + kBlockQ - 1) / kBlockQ;
-  float* part = dq_part + (static_cast<size_t>(b) * gridDim.x + kb) * D * n;
   stage(0);
   for (int it = 0; it < ntiles; ++it) {
     const int q0 = it * kBlockQ;
@@ -369,11 +426,13 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
           for (int d = 0; d < kHalf; ++d) acc[d] = fmaf(w[u], sm.k[j + u][h * kHalf + d], acc[d]);
         }
       }
-      if (q0 + qi < n) {
+      float* part = &sm.dq[it % kDqGroup<C>][h * kHalf][qi];
 #pragma unroll
-        for (int d = 0; d < kHalf; ++d) {
-          part[static_cast<size_t>(h * kHalf + d) * n + q0 + qi] = acc[d];
-        }
+      for (int d = 0; d < kHalf; ++d) part[d * kBlockQ] = acc[d];  // read back by this thread
+      // After a group's last tile: add its partials to dq once key block
+      // kb - 1 has added its own.
+      if (it % kDqGroup<C> == kDqGroup<C> - 1 || it == ntiles - 1) {
+        add_dq_group<D, C>(sm.dq, dqt, dq_count, it - it % kDqGroup<C>, it, n);
       }
     }
   }
@@ -411,79 +470,62 @@ flash_bwd_tc_kernel(const float* __restrict__ qt, const float* __restrict__ kt,
   }
 }
 
-// dqt[b, r] = sum over key blocks kb, in order, of dq_part[b, kb, r], where r
-// runs over the D * N elements of one batch row.
-__global__ void flash_bwd_dq_sum_kernel(const float* __restrict__ dq_part,
-                                        float* __restrict__ dqt, int b_total, int nkb,
-                                        int row) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<size_t>(b_total) * row) return;
-  const size_t b = idx / row, r = idx % row;
-  const float* p = dq_part + b * nkb * row + r;
-  float acc = 0.f;
-  for (int kb = 0; kb < nkb; ++kb) acc += p[static_cast<size_t>(kb) * row];
-  dqt[idx] = acc;
-}
-
 template <int D, int C, bool kVec>
 cudaError_t launch_as(const void* qt, const void* kt, const void* vt, const void* dot,
                       const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
-                      void* dq_part, int b, int n, cudaStream_t stream) {
+                      void* dq_count, int b, int n, cudaStream_t stream) {
   constexpr int kSmem = sizeof(Smem<D, C>);  // above 48 KB a kernel must opt in
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_tc_kernel<D, C, kVec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
+  const size_t counts = static_cast<size_t>(b) * num_query_tiles<C>(n);
+  err = cudaMemsetAsync(dq_count, 0, counts * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
   const int nkb = (n + kKeysPerBlock - 1) / kKeysPerBlock;
-  flash_bwd_tc_kernel<D, C, kVec><<<dim3(nkb, b), kThreads, kSmem, stream>>>(
+  flash_bwd_tc_kernel<D, C, kVec><<<dim3(b, nkb), kThreads, kSmem, stream>>>(
       static_cast<const float*>(qt), static_cast<const float*>(kt), static_cast<const float*>(vt),
       static_cast<const float*>(dot), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dkt), static_cast<float*>(dvt),
-      static_cast<float*>(dq_part), n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(b) * D * n;
-  constexpr int kSumThreads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + kSumThreads - 1) / kSumThreads);
-  flash_bwd_dq_sum_kernel<<<blocks, kSumThreads, 0, stream>>>(
-      static_cast<const float*>(dq_part), static_cast<float*>(dqt), b, nkb, D * n);
+      static_cast<const float*>(delta), static_cast<float*>(dqt), static_cast<float*>(dkt),
+      static_cast<float*>(dvt), static_cast<int*>(dq_count), n);
   return cudaGetLastError();
 }
 
 template <int D, int C>
 cudaError_t launch(const void* qt, const void* kt, const void* vt, const void* dot,
                    const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
-                   void* dq_part, int b, int n, cudaStream_t stream) {
+                   void* dq_count, int b, int n, cudaStream_t stream) {
   if (n % 4 == 0 && aligned16(qt) && aligned16(dot) && aligned16(lse) && aligned16(delta)) {
-    return launch_as<D, C, true>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
+    return launch_as<D, C, true>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_count, b, n,
                                  stream);
   }
-  return launch_as<D, C, false>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
+  return launch_as<D, C, false>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_count, b, n,
                                 stream);
 }
 
 }  // namespace
 
-// Launches the backward (the pair kernel, then the dq sum) on `stream` and
-// returns cudaGetLastError() (0 on success). dq_part is float32 scratch of
-// b * key_blocks * d * n floats, where key_blocks must equal
-// ceil(n / kKeysPerBlock), the kernel's keys per block. (d, c) must be one of
-// the instantiated head widths below; anything else returns
-// cudaErrorInvalidValue without launching. All tensors float32.
+// Launches the backward (the counters zeroed, then the pair kernel) on
+// `stream` and returns cudaGetLastError() (0 on success). dq_count is int32
+// scratch of b * query_tiles counters, where query_tiles must equal
+// ceil(n / kBlockQFor<c>), the kernel's queries a tile at c. (d, c) must be
+// one of the instantiated head widths below; anything else returns
+// cudaErrorInvalidValue without launching. All other tensors float32.
 extern "C" int tdt_flash_bwd_f32(const void* qt, const void* kt, const void* vt,
                                  const void* dot, const void* lse, const void* delta,
-                                 void* dqt, void* dkt, void* dvt, void* dq_part, int b, int n,
-                                 int d, int c, int key_blocks, void* stream) {
+                                 void* dqt, void* dkt, void* dvt, void* dq_count, int b, int n,
+                                 int d, int c, int query_tiles, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || n <= 0 || b > 65535) return cudaErrorInvalidValue;
-  if (key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock) return cudaErrorInvalidValue;
+  const int tiles = c == 128 ? num_query_tiles<128>(n) : num_query_tiles<32>(n);
+  if (query_tiles != tiles) return cudaErrorInvalidValue;
   if (d == 4 && c == 32) {
-    return launch<4, 32>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+    return launch<4, 32>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_count, b, n, s);
   }
   if (d == 8 && c == 64) {
-    return launch<8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+    return launch<8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_count, b, n, s);
   }
   if (d == 16 && c == 128) {
-    return launch<16, 128>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+    return launch<16, 128>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_count, b, n, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -11,7 +11,8 @@
 //
 // Layout: qt, kt (B, D, N), vt, dOt (B, C, N) bf16; lse and delta (B, 1, N)
 // float32; outputs dqt, dkt (B, D, N), dvt (B, C, N) bf16; all contiguous. The
-// dq scratch is float32.
+// scratch is one float32 (B, D, N) run sum and one int counter a (batch row,
+// query tile).
 //
 // Design (one visit per (query, key) pair, as the TPU kernel; bf16 wgmma k16,
 // fragments, tile layout and barriers in bf16_mma.cuh):
@@ -36,22 +37,30 @@
 //   (key, query) tile; after a named barrier the consumer whose turn it is
 //   (the tiles alternate) runs m64n8k16 (m64n16 at D = 16) over the block's
 //   128 keys with dS read MN-major against the block's K (staged once), and
-//   writes the block's
-//   partial dq for the tile, float32, to scratch (B, N / 128, D, N). The dS
-//   tile is double-buffered, so the other consumer runs on.
+//   keeps the block's partial dq for the tile in shared memory. The dS tile
+//   is double-buffered, so the other consumer runs on. After every
+//   kDqGroup tiles both consumers add the group's partials in key-block
+//   order (sm90.cuh::wait_count: they wait until each tile's counter reads
+//   kb, add, fence and set the counters to kb + 1), so that a group pays
+//   the round trips through L2 once for its tiles.
 // - dq follows JAX's order of roundings (attention.py:225-229), which
-//   accumulates dq in bf16 across its key blocks of kDqRunKeys = 1024: a
-//   second kernel adds the partials of each run of 1024 keys (8 blocks) in
-//   float32, in order, rounds that run's sum to bf16, and adds it to the bf16
-//   running dq, rounding again. No atomics: two calls give the same bits.
+//   accumulates dq in bf16 across its key blocks of kDqRunKeys = 1024: the
+//   partials of each run of 1024 keys (8 blocks) add in float32, in order,
+//   into the float32 run sum (its first block stores 0 + its partial), and
+//   the block that closes the run rounds that sum to bf16 and adds it to the
+//   bf16 running dq in dqt, rounding again. These are the sums and roundings
+//   of the separate sum kernel this replaces, so dq keeps its bits, in
+//   O(B D N) memory where its partials took B (N / 128) D N floats. No
+//   atomics on dq: two calls give the same bits. The launcher zeroes the
+//   counters on the stream first, so a CUDA graph's replays start from zero.
 // - Keys past N weigh 0 (p forced to 0). Queries past N are zero-filled (q, dO,
 //   lse, delta), which makes their dv, ds and dk terms 0, and are not stored.
 //
 // Bound on an H100: 2*B*N^2*(3D + 2C) FLOPs of products (N=16384, D=4, C=32,
 // B=4: 163 GFLOP, 0.165 ms at the 989 TFLOP/s bf16 tensor-core peak; N=4096,
 // D=16, C=128: 40.8 GFLOP, 0.041 ms) and one exp per pair (0.257 ms at the
-// MUFU rate). The partials add 2 * 4 * B * (N / 128) * D * N bytes (256 MiB
-// moved at N=16384, D=4, B=4; 4 GiB at N=65536). At C = 128 a consumer thread
+// MUFU rate). The ordered adds move 2 * 4 * B * (N / 128) * D * N bytes
+// through L2 (256 MiB at N=16384, D=4, B=4). At C = 128 a consumer thread
 // holds V (32 registers) and dV (64) beside S^T, dP^T and the P and dS planes.
 
 #include <cuda_runtime.h>
@@ -71,6 +80,21 @@ constexpr int kBlockQ = kTileTokens;  // queries per tile
 constexpr int kStages = 3;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr uint32_t kDsBarrier = 1;  // named barrier: both consumers' dS is written
+constexpr uint32_t kDqBarrier = 2;  // named barrier: both consumers' group dq add
+// Query tiles whose dq partials are added to dq together (a group's shared
+// memory: 32 KB at D = 4, 64 KB at D = 8 and 16).
+template <int D>
+constexpr int kDqGroup = D == 16 ? 16 : 32;
+// JAX's bf16 dq (attention.py:224-229): its kernel adds each 1024-key block's
+// float32 dq, rounded to bf16, to a bf16 running dq.
+constexpr int kDqRunKeys = 1024;
+static_assert(kDqRunKeys % kKeysPerBlock == 0, "a run is whole key blocks");
+constexpr int kRunBlocks = kDqRunKeys / kKeysPerBlock;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // The n of dK's and dQ's products: D padded to 8.
 template <int D>
 constexpr int kDn = D < 8 ? 8 : D;
@@ -86,23 +110,84 @@ struct Smem {
   // The block's K as B of dQ, read K-major: for each 8 values of d (zero from
   // D), the block's keys in core matrices of 8 keys.
   alignas(128) unsigned char k[kDn<D> / 8][kKeysPerBlock / 8 * kTokenGroupBytes];
+  alignas(16) float dq[kDqGroup<D>][D][kBlockQ];  // the block's dq partials of a group of tiles
   uint64_t full[kStages], empty[kStages];
 };
+
+// Both consumers (threadIdx.x 128-383) add the dq partials of tiles g0..last,
+// kept in `part`, into this batch row's dq in key-block order: wait until
+// each tile's counter reads kb, add, and set the counters to kb + 1. Within a
+// run of kDqRunKeys keys the partials add in float32 into dq_run (the run's
+// first block adds to 0); the block that closes a run rounds that sum to bf16
+// and adds it to the bf16 dq, rounding again (JAX's order, attention.py:
+// 224-229). Everything is computed here from the kernel's parameters, so
+// that nothing of it stays live in registers across the main loop. The
+// barrier makes every add visible to the releasing threads, whose release
+// is cumulative (the pattern of a cooperative grid barrier).
+template <int D>
+__device__ __noinline__ void add_dq_group(float (*part)[D][kBlockQ], bf16* dqt,
+                                          float* dq_run, int* dq_count, int g0, int last,
+                                          int n) {
+  constexpr int kBatch = 4;  // loads in flight a thread
+  const int ct = threadIdx.x - 128;
+  const int kb = blockIdx.y, tiles = last - g0 + 1;
+  const int ntiles = (n + kBlockQ - 1) / kBlockQ;
+  int* counts = dq_count + static_cast<size_t>(blockIdx.x) * ntiles + g0;
+  if (ct < tiles) wait_count(counts + ct, kb);
+  bar_sync(kDqBarrier, 2 * 128);  // the partials are written; the counters read kb
+  const size_t row = static_cast<size_t>(blockIdx.x) * D * n;
+  const bool run_first = kb % kRunBlocks == 0;
+  const bool run_last = kb % kRunBlocks == kRunBlocks - 1 || kb == gridDim.y - 1;
+  const int total = tiles * D * kBlockQ;
+  for (int e0 = ct; e0 < total; e0 += kBatch * 2 * 128) {
+    size_t off[kBatch];
+    float run[kBatch], prev[kBatch], add[kBatch];
+    bool in[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {  // the loads first, all in flight
+      const int e = e0 + u * 2 * 128;
+      const int j = e / (D * kBlockQ), d = e / kBlockQ % D, qt = e % kBlockQ;
+      const int q = (g0 + j) * kBlockQ + qt;
+      in[u] = e < total && q < n;
+      off[u] = row + static_cast<size_t>(d) * n + q;
+      add[u] = in[u] ? part[j][d][qt] : 0.f;
+      run[u] = in[u] && !run_first ? __ldcg(dq_run + off[u]) : 0.f;
+      prev[u] = in[u] && run_last && kb >= kRunBlocks
+                    ? __bfloat162float(__ushort_as_bfloat16(
+                          __ldcg(reinterpret_cast<const unsigned short*>(dqt + off[u]))))
+                    : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!in[u]) continue;
+      const float sum = run[u] + add[u];
+      if (run_last) {
+        __stcg(reinterpret_cast<unsigned short*>(dqt + off[u]),
+               __bfloat16_as_ushort(__float2bfloat16_rn(prev[u] + round_bf16(sum))));
+      } else {
+        __stcg(dq_run + off[u], sum);
+      }
+    }
+  }
+  bar_sync(kDqBarrier, 2 * 128);  // every add is done; the partials may be overwritten
+  if (ct < tiles) release_count(counts + ct, kb + 1);
+}
 
 template <int D, int C, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
                       const bf16* __restrict__ vt, const bf16* __restrict__ dot,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dkt, bf16* __restrict__ dvt,
-                      float* __restrict__ dq_part, int n) {
+                      bf16* __restrict__ dqt, bf16* __restrict__ dkt,
+                      bf16* __restrict__ dvt, float* __restrict__ dq_run,
+                      int* __restrict__ dq_count, int n) {
   static_assert(D == 4 || D == 8 || D == 16, "K and q padded to one k16 step");
   static_assert(C == 32 || C == 64 || C == 128, "dV is one m64nC");
   constexpr int kN = kDn<D>;  // dK's and dQ's n
   constexpr uint32_t kKBytes = kKeysPerBlock / 8 * kTokenGroupBytes;  // a row group of sm.k
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<D, C>& sm = *reinterpret_cast<Smem<D, C>*>(smem_raw);
-  const int b = blockIdx.y, kb = blockIdx.x;
+  const int b = blockIdx.x, kb = blockIdx.y;  // batch rows fastest: short chains a wave
   const int key_base = kb * kKeysPerBlock;
   const size_t bn = static_cast<size_t>(b) * n;
   const bf16* kbp = kt + bn * D;
@@ -190,7 +275,6 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
   float dk_t[kN / 2], dq[kN / 2];
   float s[kBlockQ / 2], dp[kBlockQ / 2];  // S^T, then P^T; dP^T, then dS^T
   FragPlanes pa, dsa;
-  float* part = dq_part + (static_cast<size_t>(b) * gridDim.x + kb) * D * n;
 
   for (int it = 0; it < ntiles; ++it) {
     const int st = it % kStages, buf = it & 1;
@@ -288,20 +372,21 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
 #pragma unroll
     for (int i = 0; i < kN / 2; ++i) dk[i] += dk_t[i];
     if (mine) {  // rows: tile queries warp * 16 + g (+ 8); columns d = 8i + 2t, + 1
-      const int q = it * kBlockQ + warp * 16 + g;
+      const int q = warp * 16 + g;
+      float(*part)[kBlockQ] = sm.dq[it % kDqGroup<D>];
 #pragma unroll
       for (int i = 0; i < kN / 8; ++i) {
         if (8 * i + 2 * t >= D) continue;
-        float* p0 = part + static_cast<size_t>(8 * i + 2 * t) * n;
-        if (q < n) {
-          p0[q] = dq[4 * i + 0];
-          p0[n + q] = dq[4 * i + 1];
-        }
-        if (q + 8 < n) {
-          p0[q + 8] = dq[4 * i + 2];
-          p0[n + q + 8] = dq[4 * i + 3];
-        }
+        part[8 * i + 2 * t][q] = dq[4 * i + 0];
+        part[8 * i + 2 * t + 1][q] = dq[4 * i + 1];
+        part[8 * i + 2 * t][q + 8] = dq[4 * i + 2];
+        part[8 * i + 2 * t + 1][q + 8] = dq[4 * i + 3];
       }
+    }
+    // After a group's last tile: both consumers add its partials once key
+    // block kb - 1 has added its own.
+    if (it % kDqGroup<D> == kDqGroup<D> - 1 || it == ntiles - 1) {
+      add_dq_group<D>(sm.dq, dqt, dq_run, dq_count, it - it % kDqGroup<D>, it, n);
     }
   }
 
@@ -334,96 +419,62 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ qt, const bf16* __restrict__ kt,
   }
 }
 
-// JAX's bf16 dq (attention.py:224-229): its kernel adds each 1024-key block's
-// float32 dq, rounded to bf16, to a bf16 running dq.
-constexpr int kDqRunKeys = 1024;
-static_assert(kDqRunKeys % kKeysPerBlock == 0, "a run is whole key blocks");
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// dqt: the partials of each run of kDqRunKeys keys added in order in float32,
-// and each run's sum, rounded to bf16, added to the running dq, which is
-// rounded to bf16 after each add.
-__global__ void flash_bwd_dq_sum_bf16_kernel(const float* __restrict__ dq_part,
-                                             bf16* __restrict__ dqt, int b_total, int nkb,
-                                             int row) {
-  constexpr int kRunBlocks = kDqRunKeys / kKeysPerBlock;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<size_t>(b_total) * row) return;
-  const size_t b = idx / row, r = idx % row;
-  const float* p = dq_part + b * nkb * row + r;
-  float dq = 0.f;
-  for (int kb0 = 0; kb0 < nkb; kb0 += kRunBlocks) {
-    const int kb1 = min(kb0 + kRunBlocks, nkb);
-    float acc = 0.f;
-    for (int kb = kb0; kb < kb1; ++kb) acc += p[static_cast<size_t>(kb) * row];
-    dq = round_bf16(dq + round_bf16(acc));
-  }
-  dqt[idx] = __float2bfloat16_rn(dq);
-}
-
 template <int D, int C, bool kVec>
 cudaError_t launch_as(const void* qt, const void* kt, const void* vt, const void* dot,
                       const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
-                      void* dq_part, int b, int n, cudaStream_t stream) {
+                      void* dq_run, void* dq_count, int b, int n, cudaStream_t stream) {
   constexpr int kSmem = sizeof(Smem<D, C>);  // above 48 KB a kernel must opt in
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_bf16_kernel<D, C, kVec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
+  const size_t counts = static_cast<size_t>(b) * ((n + kBlockQ - 1) / kBlockQ);
+  err = cudaMemsetAsync(dq_count, 0, counts * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
   const int nkb = (n + kKeysPerBlock - 1) / kKeysPerBlock;
-  flash_bwd_bf16_kernel<D, C, kVec><<<dim3(nkb, b), kThreads, kSmem, stream>>>(
+  flash_bwd_bf16_kernel<D, C, kVec><<<dim3(b, nkb), kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(qt), static_cast<const bf16*>(kt), static_cast<const bf16*>(vt),
       static_cast<const bf16*>(dot), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dkt), static_cast<bf16*>(dvt),
-      static_cast<float*>(dq_part), n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(b) * D * n;
-  constexpr int kSumThreads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + kSumThreads - 1) / kSumThreads);
-  flash_bwd_dq_sum_bf16_kernel<<<blocks, kSumThreads, 0, stream>>>(
-      static_cast<const float*>(dq_part), static_cast<bf16*>(dqt), b, nkb, D * n);
+      static_cast<const float*>(delta), static_cast<bf16*>(dqt), static_cast<bf16*>(dkt),
+      static_cast<bf16*>(dvt), static_cast<float*>(dq_run), static_cast<int*>(dq_count), n);
   return cudaGetLastError();
 }
 
 template <int D, int C>
 cudaError_t launch(const void* qt, const void* kt, const void* vt, const void* dot,
                    const void* lse, const void* delta, void* dqt, void* dkt, void* dvt,
-                   void* dq_part, int b, int n, cudaStream_t stream) {
+                   void* dq_run, void* dq_count, int b, int n, cudaStream_t stream) {
   if (n % 8 == 0 && aligned16(qt) && aligned16(dot) && aligned16(lse) && aligned16(delta)) {
-    return launch_as<D, C, true>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
-                                 stream);
+    return launch_as<D, C, true>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_run, dq_count,
+                                 b, n, stream);
   }
-  return launch_as<D, C, false>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n,
-                                stream);
+  return launch_as<D, C, false>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_run, dq_count,
+                                b, n, stream);
 }
 
 }  // namespace
 
-// Launches the backward (the pair kernel, then the dq sum) on `stream` and
-// returns cudaGetLastError() (0 on success). dq_part is float32 scratch of
-// b * key_blocks * d * n floats, where key_blocks must equal
-// ceil(n / kKeysPerBlock), the kernel's keys per block. (d, c) must be one of
-// the instantiated head widths below; anything else returns
-// cudaErrorInvalidValue without launching. qt, kt, vt, dot, dqt, dkt, dvt
-// bfloat16; lse, delta float32.
+// Launches the backward (the counters zeroed, then the pair kernel) on
+// `stream` and returns cudaGetLastError() (0 on success). dq_run is float32
+// scratch of b * d * n floats; dq_count int32 scratch of b * query_tiles
+// counters, where query_tiles must equal ceil(n / kBlockQ), the kernel's
+// queries a tile. (d, c) must be one of the instantiated head widths below;
+// anything else returns cudaErrorInvalidValue without launching. qt, kt, vt,
+// dot, dqt, dkt, dvt bfloat16; lse, delta float32.
 extern "C" int tdt_flash_bwd_bf16(const void* qt, const void* kt, const void* vt,
                                   const void* dot, const void* lse, const void* delta,
-                                  void* dqt, void* dkt, void* dvt, void* dq_part, int b, int n,
-                                  int d, int c, int key_blocks, void* stream) {
+                                  void* dqt, void* dkt, void* dvt, void* dq_run, void* dq_count,
+                                  int b, int n, int d, int c, int query_tiles, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || n <= 0 || b > 65535) return cudaErrorInvalidValue;
-  if (key_blocks != (n + kKeysPerBlock - 1) / kKeysPerBlock) return cudaErrorInvalidValue;
+  if (query_tiles != (n + kBlockQ - 1) / kBlockQ) return cudaErrorInvalidValue;
   if (d == 4 && c == 32) {
-    return launch<4, 32>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+    return launch<4, 32>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_run, dq_count, b, n, s);
   }
   if (d == 8 && c == 64) {
-    return launch<8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+    return launch<8, 64>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_run, dq_count, b, n, s);
   }
   if (d == 16 && c == 128) {
-    return launch<16, 128>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_part, b, n, s);
+    return launch<16, 128>(qt, kt, vt, dot, lse, delta, dqt, dkt, dvt, dq_run, dq_count, b, n, s);
   }
   return cudaErrorInvalidValue;
 }

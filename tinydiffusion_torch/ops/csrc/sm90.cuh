@@ -55,4 +55,25 @@ __device__ __forceinline__ void cp_async_wait() {
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// The backward's ordered dq accumulation (flash_bwd.cu, flash_bwd_bf16.cu):
+// the block of key block kb adds its dq of a query tile only once the tile's
+// counter reads kb, i.e. after block kb - 1 has added its own, so the float32
+// sums run in key-block order and two calls give the same bits. A block waits
+// only on blocks of lower linear index, which the hardware has already
+// started, so the waits cannot deadlock. A wait that outlasts 2^24 polls
+// (seconds; a real one lasts micro- to milliseconds) traps, so that a fault
+// shows as a launch error and not as a hung card.
+__device__ __forceinline__ void wait_count(const int* count, int want) {
+  int v;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(count) : "memory");
+    if (v == want) return;
+    if (polls == (1u << 24)) __trap();
+    __nanosleep(32);
+  }
+}
+__device__ __forceinline__ void release_count(int* count, int value) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(count), "r"(value) : "memory");
+}
+
 }  // namespace tdt

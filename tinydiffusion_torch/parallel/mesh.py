@@ -134,6 +134,20 @@ def is_main(dp: DataParallel | None) -> bool:
     return dp is None or dp.is_main
 
 
+def from_main(dp: DataParallel | None, load):
+    """``load()`` on rank 0 alone, its result sent to every rank of the group
+    (pickled, ``broadcast_object_list``); on one device ``load()``. A run's
+    records go through it: only rank 0 reads and writes the records' JPEG
+    cache, so ranks that share one never read a file another rank is
+    writing, nor some records warm and others cold, and every rank trains
+    on the one process's data."""
+    if dp is None or dp.size == 1:
+        return load()
+    box = [load() if dp.is_main else None]
+    dist.broadcast_object_list(box, src=0, group=dp.group)
+    return box[0]
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group; the backward sums the incoming gradients over the
     group as well, which carries every rank's loss back to each rank's
