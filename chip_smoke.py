@@ -92,7 +92,8 @@ line each:
    server in a thread (a JPEG, the 4:4:4 JPEG and RGBA PNG of
    ``tests/fixtures/``, a 503 then a 200, a 404, a black image, a short
    body): the valid list, the requests, the cache files, the fixtures'
-   decodes against Pillow's digests, the failed-URL JSON and a warm re-read;
+   decodes against Pillow's digests (each timed, two at 512² among them),
+   the failed-URL JSON, a warm re-read and the cold rate of two 512² records;
    laion_train: the LAION ``run()`` at the published recipe (``laion_diffusion_1000ep.json``:
    256² images, 4x32x32 latents, time_dim 768, B = 8, bf16, Adam 1e-4 to
    1e-6 cosine over T_max 1000 steps, clip 10; resident, graph replays),
@@ -132,7 +133,12 @@ line each:
    the non-DP graph step, beside a second non-DP run, to resident_parity's
    bfloat16 bounds; each step's ms a replay (CUDA events), its kernels a
    step (one profiler session) and the peak memory, DP and non-DP; the
-   group destroyed after;
+   group destroyed after; tp: the model axis, the full-width UNet28 at
+   (data, model) = (1, 2), two processes on the card over gloo, 5 eager
+   Adam steps in float32 and bfloat16, each against the one-process step
+   from the same gathered state (loss, update cosine, gradients leaf by
+   leaf), shard shapes, the whole tensors bit-equal on both ranks, and a
+   gather made to sum the head's whole gradient caught by the gradient check;
 10. unet_parity: the card against the port's CPU run, TF32 off: eps from the
     committed ``checkpoints/diffusion_final`` weights, one SGD step through
     the step's (t, noise) seam, and a 20-step replayed DDPM chain (float32
@@ -357,6 +363,7 @@ from tinydiffusion_torch.obs.images import (
 )
 from tinydiffusion_torch.ops import _build, attention, qsample
 from tinydiffusion_torch.parallel.distributed import destroy, maybe_initialize_distributed
+from tinydiffusion_torch.parallel import mesh as mesh_lib
 from tinydiffusion_torch.parallel.mesh import make_mesh_for_batch
 from tinydiffusion_torch.tools import fid_eval, fid_eval_laion, import_torch_checkpoint
 from tinydiffusion_torch.train.trainer import (
@@ -679,6 +686,9 @@ LAION_RECORDS, LAION_EPOCHS, LAION_SAMPLE_EVERY = 800, 2, 50
 # sha256 of their RGB bytes; a CPU test ties them to Pillow).
 LOADER_SIZE = 64
 LOADER_PILLOW = os.path.join(REPO, "tests", "fixtures", "laion_loader_pillow.json")
+# Fixtures at a web image's size (512², ~183 KiB each), fetched cold for the
+# loader's rate.
+LOADER_WEB_FIXTURES = ("laion_loader_512_progressive.jpg", "laion_loader_512_lossy.webp")
 LAION_TRAIN_STEPS, LAION_VAL_BATCHES = 80, 20
 # laion_parity: resident_parity's graph-vs-eager check on 10 LAION steps (B = 8, caption
 # dropout 0.1, EMA) from the committed weights, one step a call so that the
@@ -2670,14 +2680,20 @@ def phase_laion_loader() -> dict:
     ``tests/fixtures/``, a 503 then a 200, a 404, a black image and a body
     shorter than its Content-Length. Checks the valid list, the requests
     (one retry after the 503), the cache files (each the quality-95 JPEG of
-    what was fetched, byte for byte ``encode_jpeg`` of the decode), the
-    fixtures' decodes and resizes against Pillow's (``LOADER_PILLOW``), the
-    failed-URL JSON, and a warm re-read by a second instance (each record
-    the decode of its cache file). Cache and list in a temporary directory."""
+    what was fetched, byte for byte ``encode_jpeg`` of the decode), every
+    fixture's decode and resize against Pillow's (``LOADER_PILLOW``: JPEG
+    baseline, progressive and CMYK, PNG RGBA, Adam7 and 16-bit grey, GIF,
+    BMP, WebP lossless and lossy; each decode timed, 512² ones included), the
+    failed-URL JSON, a warm re-read by a second instance (each record
+    the decode of its cache file), and the cold ``precache_dataset`` time
+    of the two 512² fixtures (``LOADER_WEB_FIXTURES``) served over the same
+    loopback. Caches and lists in a temporary directory."""
     with open(LOADER_PILLOW) as f:
         pillow = json.load(f)
-    fixtures = {name: open(os.path.join(REPO, "tests", "fixtures", name), "rb").read()
-                for name in ("laion_loader_444.jpg", "laion_loader_rgba.png")}
+    fixtures = {}
+    for name in sorted(k for k in pillow if k != "note"):
+        with open(os.path.join(REPO, "tests", "fixtures", name), "rb") as f:
+            fixtures[name] = f.read()
     photo = encode_jpeg(synthesize_image(3, 96)[0][:80], 90)
     black = encode_png(np.zeros((LOADER_SIZE, LOADER_SIZE, 3), np.uint8))
     short = encode_jpeg(synthesize_image(5, 96)[0], 90)
@@ -2688,6 +2704,7 @@ def phase_laion_loader() -> dict:
         "flaky.jpg": lambda hit: (503, {}, b"busy") if hit == 1 else (200, {}, photo),
         "black.png": lambda hit: (200, {}, black),
         "short.jpg": lambda hit: (200, {"Content-Length": str(len(short))}, short[:len(short) // 2]),
+        **{name: (lambda hit, name=name: (200, {}, fixtures[name])) for name in LOADER_WEB_FIXTURES},
     }
     server = _LoopbackServer(routes)
     try:
@@ -2732,8 +2749,11 @@ def phase_laion_loader() -> dict:
                 with open(path, "rb") as f:
                     if f.read() != encode_jpeg(source):
                         problems.append(f"{name}: the cache file is not encode_jpeg of the fetch")
+            decode_s = {}
             for fixture in fixtures:
+                t1 = time.perf_counter()
                 image = laion_data.decode_image(fixtures[fixture])
+                decode_s[fixture] = time.perf_counter() - t1
                 small = resize_u8(image, LOADER_SIZE, LOADER_SIZE, "bilinear")
                 if (_sha(image), _sha(small)) != (pillow[fixture]["rgb_sha256"],
                                                   pillow[fixture]["rgb64_sha256"]):
@@ -2754,10 +2774,25 @@ def phase_laion_loader() -> dict:
             hits_after = dict(server.hits)
             if hits_after != want_hits:  # the warm reads and the failed list ask no server
                 problems.append(f"warm requests {hits_after}")
+            # The cold rate at a web image's size: the 512² progressive JPEG
+            # and lossy WebP, each fetched, decoded, resized and cached.
+            web = [f"{server.base}/{name}" for name in LOADER_WEB_FIXTURES]
+            t0 = time.perf_counter()
+            web_valid = laion_data.precache_dataset(laion_data.LAIONImageTextDataset(
+                [{"URL": url, "TEXT": url} for url in web],
+                cache_dir=os.path.join(tmp, "web_cache"),
+                failed_urls_cache=os.path.join(tmp, "web_failed.json"), image_size=LOADER_SIZE,
+                normalize=True, on_error="raise", as_uint8=True))
+            web_precache_s = time.perf_counter() - t0
+            if web_valid != list(range(len(web))):
+                problems.append(f"web-size records valid {web_valid}")
     finally:
         server.close()
     fields = {"records": len(records), "valid": valid, "requests": hits_after,
-              "failed": len(failed), "precache_s": precache_s, "image_size": LOADER_SIZE}
+              "failed": len(failed), "precache_s": precache_s, "image_size": LOADER_SIZE,
+              "fixtures_matched": len(fixtures), "decode_s": decode_s,
+              "web_precache_s": web_precache_s,
+              "web_records_per_s": len(LOADER_WEB_FIXTURES) / web_precache_s}
     if problems:
         raise RuntimeError(f"laion_loader: {problems}: {fields}")
     emit("laion_loader", **fields)
@@ -3056,6 +3091,244 @@ def phase_dp() -> dict:
         for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
             os.environ.pop(var, None)
     emit("dp", **fields)
+    return fields
+
+
+# tp: the UNet28 train step on a (data, model) = (1, 2) mesh, two processes
+# on the one card over gloo, each step against the one-process step taken
+# from the same state (the TP state gathered before it: params, BatchNorm
+# statistics, Adam's moments, the generator). Compared step by step, not as
+# two trajectories: in bfloat16 the partial input gradients are rounded
+# before the reduce-scatter sums them, and two trajectories that start 1e-5
+# apart part by 2.6 % in loss after four Adam steps (an H100 80GB HBM3 at 700 W).
+# Adam's update barely moves when every gradient is scaled alike, so each
+# step's gradients are held to the one-process step's too, leaf by leaf:
+# |TP - one| / |one|, |one| floored at TP_GRAD_FLOOR of the largest leaf's
+# norm (a conv bias ahead of a BatchNorm has a gradient of rounding noise).
+# The bounds: in float32 the largest gap read 4e-5 (a conv weight; 1.7e-4
+# with a floor of 1e-3) on an H100 80GB HBM3 at 700 W, summation order and
+# cuDNN's nondeterminism; bfloat16 rounds each layer's partial input
+# gradients once more (~4e-3 a rounding), and 0.1 is the relative gap at
+# which a cosine falls to ~0.995. A gather that sums the head's whole
+# gradient doubles every gradient above it: a gap of ~1.
+TP_STEPS, TP_BATCH, TP_LR = 5, 128, 1e-3
+TP_DTYPES = ("float32", "bfloat16")
+TP_GRAD_RTOL = {"float32": 1e-3, "bfloat16": 1e-1}
+TP_GRAD_FLOOR = 1e-2
+
+
+def _tp_batches() -> np.ndarray:
+    rng = np.random.default_rng(SEED + 60)
+    return rng.uniform(-1, 1, (TP_STEPS, TP_BATCH, 1, 28, 28)).astype(np.float32)
+
+
+def _gather_adam(optimizer, model, shardings, mesh) -> dict:
+    """Each parameter's Adam state, its moments gathered whole, by name."""
+    states = {n: optimizer.state[p] for n, p in model.named_parameters()
+              if optimizer.state.get(p)}
+    avg, sq = (mesh_lib.gather_state_dict({n: st[key] for n, st in states.items()}, shardings,
+                                          mesh) for key in ("exp_avg", "exp_avg_sq"))
+    return {n: {"step": st["step"].clone(), "exp_avg": avg[n], "exp_avg_sq": sq[n]}
+            for n, st in states.items()}
+
+
+def _grad_gap(got: dict, want: dict) -> tuple[float, str, float]:
+    """The largest leaf-by-leaf gap between two sets of gradients (see
+    TP_GRAD_RTOL), its leaf, and the ratio of their global norms."""
+    norms = {n: want[n].double().norm().item() for n in want}
+    floor = TP_GRAD_FLOOR * max(norms.values())
+    gap, leaf = max(((got[n].double() - want[n].double()).norm().item() / max(norms[n], floor), n)
+                    for n in want)
+    ratio = _flat(got[n].double() for n in want).norm() / _flat(
+        want[n].double() for n in want).norm()
+    return gap, leaf, ratio.item()
+
+
+def _tp_rank(rank: int, tmp: str) -> None:
+    """One rank of the tp phase: gloo over a file rendezvous, the (1, 2) mesh,
+    the full-width UNet28 sharded from the whole init, TP_STEPS eager Adam
+    steps in each dtype. Before each step the state is gathered whole, and
+    rank 0 takes the one-process step from it on a whole model of its own;
+    after it, the TP gradients are gathered whole beside that step's. In
+    float32 one more step runs with every consumer taken as sharded (the
+    head's gather then sums its whole gradient over the axis), which the
+    gradient check must catch. Results to ``tmp/tp_rank<rank>.pt``."""
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                                         rank=rank, world_size=2)
+    try:
+        disable_tf32()
+        mesh = mesh_lib.make_mesh(("data", "model"), (1, 2))
+        schedule = DiffusionSchedule.linear(1000).to("cuda")
+        whole = torch.load(os.path.join(tmp, "init.pt"))
+        batches = torch.from_numpy(_tp_batches()).cuda()
+        out = {"place": (mesh.data.rank, mesh.data.size, mesh.model.rank, mesh.model.size)}
+        for dtype in TP_DTYPES:
+            compute_dtype = getattr(torch, dtype)
+            model = UNet28().cuda()
+            shardings = mesh_lib.infer_state_sharding(model, mesh)
+            mesh_lib.apply_sharding(model, shardings, mesh, state_dict=whole)
+            state = create_train_state(model, torch.optim.Adam(model.parameters(), lr=TP_LR),
+                                       SEED)
+            step = make_train_step(schedule, compute_dtype=compute_dtype, mesh=mesh)
+            ref = UNet28().cuda() if rank == 0 else None
+            if ref is not None:
+                ref_state = create_train_state(ref, torch.optim.Adam(ref.parameters(), lr=TP_LR),
+                                               SEED)
+                ref_step = make_train_step(schedule, compute_dtype=compute_dtype)
+                names = [n for n, _ in ref.named_parameters()]
+
+            def compared_step(batch: torch.Tensor, into: dict) -> None:
+                """One TP step and, on rank 0, the one-process step from the
+                same gathered state: losses, ms, the update's cosine and the
+                gradients' gap and norm ratio appended to ``into``."""
+                before = mesh_lib.gather_state_dict(model.state_dict(), shardings, mesh)
+                adam = _gather_adam(state.optimizer, model, shardings, mesh)
+                if ref is not None:
+                    ref.load_state_dict(before)
+                    for name, p in ref.named_parameters():
+                        if name in adam:
+                            ref_state.optimizer.state[p] = adam[name]
+                    ref_state.generator.set_state(state.generator.get_state())
+                    params0 = _flat(before[n] for n in names)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    into["ref_losses"].append(ref_step(ref_state, batch).item())
+                    into["ref_ms"].append((time.perf_counter() - t0) * 1e3)
+                    ref_update = (_flat(ref.parameters()) - params0).double()
+                    ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+                torch.distributed.barrier()
+                launched = qsample.qsample_launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                into["losses"].append(step(state, batch).item())
+                into["tp_ms"].append((time.perf_counter() - t0) * 1e3)
+                into["qsample_launches"] += qsample.qsample_launches - launched
+                after = mesh_lib.gather_state_dict(model.state_dict(), shardings, mesh)
+                grads = mesh_lib.gather_state_dict(
+                    {n: p.grad for n, p in model.named_parameters()}, shardings, mesh)
+                if ref is not None:
+                    update = (_flat(after[n] for n in names) - params0).double()
+                    into["update_cos"].append(_cos(update, ref_update))
+                    gap, leaf, ratio = _grad_gap(grads, ref_grads)
+                    into["grad_gap"].append(gap)
+                    into["grad_gap_leaf"].append(leaf)
+                    into["grad_norm_ratio"].append(ratio)
+
+            def new_record() -> dict:
+                return {"losses": [], "ref_losses": [], "update_cos": [], "grad_gap": [],
+                        "grad_gap_leaf": [], "grad_norm_ratio": [], "tp_ms": [], "ref_ms": [],
+                        "qsample_launches": 0}
+
+            record = new_record()
+            for k in range(TP_STEPS):
+                compared_step(batches[k], record)
+            record.update(
+                shapes={k: tuple(v.shape) for k, v in model.state_dict().items()},
+                sharded=sorted(k for k, d in shardings.items() if d is not None),
+                replicated={k: v.detach().cpu() for k, v in model.state_dict().items()
+                            if shardings[k] is None})
+            if dtype == "float32":
+                planted = new_record()
+                keep = mesh_lib.out_sharded
+                mesh_lib.out_sharded = lambda layer: True
+                try:
+                    compared_step(batches[0], planted)
+                finally:
+                    mesh_lib.out_sharded = keep
+                record["planted_sum"] = planted
+            out[dtype] = record
+            del model, state, ref
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_tp() -> dict:
+    """The model axis: the full-width UNet28 (base width 64, time_dim 256,
+    B = 128) at (data, model) = (1, 2), two processes spawned on the one card
+    (``torch.multiprocessing``) over gloo with CUDA tensors, TP_STEPS eager
+    Adam steps in float32 and in bfloat16 with the q_sample kernel. Each
+    step against the one-process step from the same gathered state, on rank
+    0: the loss and the update's cosine within resident_parity's bounds,
+    the gradients within TP_GRAD_RTOL leaf by leaf; each rank's shards half
+    the whole shapes (the head whole), every tensor left whole bit-equal on
+    both ranks, TP_STEPS q_sample launches a rank, the TP step's ms beside
+    the one-process step's (the first step, cuDNN's warm-up, left out); and
+    the float32 step with the head's gather summing its whole gradient
+    caught by the gradient check. NCCL takes no two ranks on one device, so
+    the collectives here are gloo's, through the host: the ms are not what
+    NCCL between cards would give."""
+    import torch.multiprocessing as tmp_mp
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 61)
+        init = UNet28().state_dict()
+    fields = {"mesh": [1, 2], "backend": "gloo", "batch": TP_BATCH, "steps": TP_STEPS,
+              "bounds": {"loss_rtol": PARITY_LOSS_RTOL, "min_update_cos": PARITY_MIN_UPDATE_COS,
+                         "grad_rtol": TP_GRAD_RTOL, "grad_floor": TP_GRAD_FLOOR}}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(init, os.path.join(tmp, "init.pt"))
+        t0 = time.perf_counter()
+        tmp_mp.start_processes(_tp_rank, args=(tmp,), nprocs=2, start_method="spawn")
+        fields["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt")) for r in range(2)]
+    problems = []
+    if [r["place"] for r in ranks] != [(0, 1, 0, 2), (0, 1, 1, 2)]:
+        problems.append(f"places {[r['place'] for r in ranks]}")
+
+    def loss_rel(record: dict) -> float:
+        return max(abs(a - b) / abs(b) for a, b in zip(record["losses"], record["ref_losses"]))
+
+    for dtype in TP_DTYPES:
+        got, other = ranks[0][dtype], ranks[1][dtype]
+        half = all(got["shapes"][k][d] * 2 == init[k].shape[d] for k in got["sharded"]
+                   for d in [1 if k == "class_embedding.weight" else 0])
+        head_whole = (not any(k.startswith("final_conv.") for k in got["sharded"])
+                      and got["shapes"]["final_conv.weight"] == tuple(
+                          init["final_conv.weight"].shape))
+        same_keys = set(got["replicated"]) == set(other["replicated"])
+        out = {"losses": got["losses"], "one_process_losses": got["ref_losses"],
+               "loss_rel": loss_rel(got), "update_cos": got["update_cos"],
+               "grad_gap": got["grad_gap"], "grad_gap_leaf": got["grad_gap_leaf"],
+               "grad_norm_ratio": got["grad_norm_ratio"],
+               "ms_per_step": float(np.mean(got["tp_ms"][1:])),
+               "one_process_ms_per_step": float(np.mean(got["ref_ms"][1:])),
+               "qsample_launches": [got["qsample_launches"], other["qsample_launches"]],
+               "sharded_tensors": len(got["sharded"]),
+               "whole_tensors": len(init) - len(got["sharded"]),
+               "shards_half": half, "head_whole": head_whole,
+               "ranks_agree": got["losses"] == other["losses"],
+               "replicated_rank_gap": max(
+                   (got["replicated"][k].double() - other["replicated"][k].double()).abs().max()
+                   .item() for k in got["replicated"]) if same_keys else None}
+        fields[dtype] = out
+        if (out["loss_rel"] > PARITY_LOSS_RTOL[dtype]
+                or min(out["update_cos"]) < PARITY_MIN_UPDATE_COS[dtype]
+                or max(out["grad_gap"]) > TP_GRAD_RTOL[dtype]
+                or not (half and head_whole and out["ranks_agree"])
+                or out["replicated_rank_gap"] != 0.0
+                or out["qsample_launches"] != [TP_STEPS, TP_STEPS]):
+            problems.append(f"{dtype}: {out}")
+        print(f"tp: {dtype:<8s} (1, 2) step {out['ms_per_step']:.2f} ms (gloo, two processes on "
+              f"one card) vs {out['one_process_ms_per_step']:.2f} ms in one process; loss rel "
+              f"{out['loss_rel']:.2e}, update cos {min(out['update_cos']):.6f}, grad gap "
+              f"{max(out['grad_gap']):.2e}, replicated gap {out['replicated_rank_gap']}",
+              flush=True)
+    planted = ranks[0]["float32"]["planted_sum"]
+    fields["planted_sum"] = {"loss_rel": loss_rel(planted), "update_cos": planted["update_cos"],
+                             "grad_gap": planted["grad_gap"],
+                             "grad_norm_ratio": planted["grad_norm_ratio"]}
+    if planted["grad_gap"][0] <= TP_GRAD_RTOL["float32"]:
+        problems.append(f"the gradient check missed a gather that sums the head's whole "
+                        f"gradient: {fields['planted_sum']}")
+    print(f"tp: planted sum at the head's gather: grad gap {planted['grad_gap'][0]:.3f}, norm "
+          f"ratio {planted['grad_norm_ratio'][0]:.4f}, update cos {planted['update_cos'][0]:.6f}, "
+          f"loss rel {fields['planted_sum']['loss_rel']:.2e}", flush=True)
+    if problems:
+        raise RuntimeError(f"tp: {problems}: {fields}")
+    emit("tp", **fields)
     return fields
 
 
@@ -4397,6 +4670,7 @@ def main() -> int:
     phase_latent_parity()
     phase_laion_parity()
     dp = phase_dp()
+    tp = phase_tp()
     phase_unet_parity()
     phase_train_step_bf16()
     phase_sample()
@@ -4487,6 +4761,8 @@ def main() -> int:
             "launches_laion_sd_train": sd_launches,
             # The data-parallel graph steps at world size 1 (dp), each run's.
             "launches_dp": {k: dp[k]["qsample_launches_dp_run"] for k in ("unet28", "mlp_unet")},
+            # The tensor-parallel steps at (1, 2): each rank's, by dtype.
+            "launches_tp": {d: tp[d]["qsample_launches"] for d in TP_DTYPES},
             "max_abs_err": max([qsample_site["max_abs_err"]]
                                + [s["max_abs_err"] for s in qsample_site["latent_sites"]]),
             **{k: qsample_site[k] for k in keys + (

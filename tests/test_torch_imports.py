@@ -4,7 +4,8 @@ The CUDA machines that serve the port have torch, numpy and the standard
 library, and no jax, jaxlib, flax, optax, orbax, ml_dtypes or PIL. This test
 stands in for that machine on the CPU: a subprocess whose import system
 refuses those packages (and ``tinydiffusion_tpu``) imports every module of
-``tinydiffusion_torch``, ``chip_smoke`` and ``chip_flash_ab``, then loads a conv-VAE from an npz
+``tinydiffusion_torch``, ``chip_smoke``, ``chip_flash_ab`` and
+``chip_sdpa_sites``, then loads a conv-VAE from an npz
 of random weights and serves it on ``device="cpu"``; another trains, samples
 and checkpoints a small UNet28 on the CPU; a third trains the conv-VAE for
 two steps through its ``run``; a fourth trains a small class-conditional
@@ -66,6 +67,7 @@ _CHILD = _REFUSE + textwrap.dedent("""
         importlib.import_module(mod.name)
     import chip_smoke  # its work sits behind `if __name__ == "__main__"`
     import chip_flash_ab  # likewise
+    import chip_sdpa_sites  # likewise
     # Data parallelism and the JPEG round trip: no group without torchrun's
     # variables, and no Pillow.
     from tinydiffusion_torch.data.jpeg import jpeg_round_trip
@@ -526,3 +528,31 @@ def test_port_fid_tools_and_importer_run_without_the_jax_stack(tmp_path):
         assert os.path.getsize(tmp_path / f"clf{ext}") > 0
     for ext in (".pt", ".npz", ".json"):
         assert os.path.getsize(tmp_path / f"imported{ext}") > 0
+
+
+_CHILD_DECODERS = _REFUSE + textwrap.dedent("""
+    import hashlib, json
+
+    import numpy as np
+
+    from tinydiffusion_torch.data import bmp, gif, jpeg, laion, png, webp  # noqa: F401
+
+    fixtures = os.path.join(os.environ["PYTHONPATH"], "tests", "fixtures")
+    with open(os.path.join(fixtures, "laion_loader_pillow.json")) as f:
+        digests = json.load(f)
+    for name, want in digests.items():
+        if name == "note":
+            continue
+        with open(os.path.join(fixtures, name), "rb") as f:
+            image = laion.decode_image(f.read())
+        assert hashlib.sha256(image.tobytes()).hexdigest() == want["rgb_sha256"], name
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+    print("ISOLATED_OK")
+""")
+
+
+def test_port_decodes_every_fixture_format_without_pillow(tmp_path):
+    """The decoders of every format the loader reads (``data/jpeg.py``,
+    ``png.py``, ``gif.py``, ``bmp.py``, ``webp.py``) import and decode the
+    committed fixtures to Pillow's digests with PIL refused."""
+    _run_isolated(_CHILD_DECODERS, str(tmp_path), str(tmp_path))

@@ -404,12 +404,15 @@ def test_conditional_records_equal_jax(tmp_path):
 
 def test_loader_fixture_digests_are_pillows():
     """``chip_smoke.py``'s laion_loader phase holds the port's decodes and
-    resizes of the two fixtures to these digests on a machine without
-    Pillow: they are Pillow's."""
+    resizes of every fixture (one or more of each format the loader reads)
+    to these digests on a machine without Pillow: they are Pillow's."""
     import hashlib
 
     digests = json.loads((FIXTURES / "laion_loader_pillow.json").read_text())
-    for name in ("laion_loader_444.jpg", "laion_loader_rgba.png"):
+    names = sorted(k for k in digests if k != "note")
+    assert {"laion_loader_444.jpg", "laion_loader_rgba.png", "laion_loader.gif",
+            "laion_loader.bmp", "laion_loader_lossy.webp"} <= set(names)
+    for name in names:
         image = Image.open(FIXTURES / name).convert("RGB")
         small = image.resize((SIZE, SIZE), Image.BILINEAR)
         assert hashlib.sha256(np.asarray(image).tobytes()).hexdigest() == digests[name]["rgb_sha256"]

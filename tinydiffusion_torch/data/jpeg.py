@@ -25,13 +25,19 @@ quality=q)`` writes: SOI, a JFIF APP0, the two DQT tables, SOF0, the four
 standard Huffman tables (``jcparam.c``), one interleaved scan with
 ``jccoefct.c``'s dummy blocks at the right and bottom MCU edges, byte
 stuffing, the last byte filled with ones, and EOI. ``decode_jpeg`` reads any
-baseline (or extended sequential) Huffman-coded 8-bit file as
-``Image.open(f).convert("RGB")`` does: grayscale, YCbCr or Adobe RGB; luma
-sampled 1x1, 2x1, 1x2 or 2x2 against chroma 1x1, each with libjpeg-turbo's
-upsampling; any DQT and DHT tables (optimised ones included); one scan or a
-scan a component; restart intervals. Progressive, arithmetic-coded,
-lossless, 12-bit and four-component (CMYK, YCCK) files raise ``ValueError``
-with the reason, as do truncated or corrupt ones.
+baseline, extended sequential or progressive Huffman-coded 8-bit file as
+``Image.open(f).convert("RGB")`` does: grayscale, YCbCr, Adobe RGB, CMYK or
+YCCK; luma sampled 1x1, 2x1, 1x2 or 2x2 against chroma 1x1, each with
+libjpeg-turbo's upsampling; any DQT and DHT tables (optimised ones
+included); one scan or a scan a component; restart intervals. A progressive
+file (``jdphuff.c``: DC and AC first scans, their successive-approximation
+refinements, EOB runs) accumulates its coefficients over the scans, which
+then go through the same inverse DCT, upsampling and colour path (a complete
+file leaves libjpeg-turbo's block smoothing off). Four components are
+Adobe's inverted CMYK, or YCCK by the APP14 transform flag, converted to RGB
+as Pillow's ``CMYK;I`` raw mode and ``cmyk2rgb`` do. Arithmetic-coded,
+lossless and 12-bit files raise ``ValueError`` with the reason, as do
+truncated or corrupt ones.
 """
 
 from __future__ import annotations
@@ -215,14 +221,19 @@ def _upsample_h2v2_fancy(plane: np.ndarray) -> np.ndarray:
     return out.reshape(*colsum.shape[:-1], 2 * colsum.shape[-1])
 
 
-def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """jdcolor.c's ``ycc_rgb_convert``, its tables computed inline."""
+def _ycc_to_rgb_unclamped(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> list:
+    """jdcolor.c's YCbCr-to-RGB sums, its tables computed inline, before
+    the range limit."""
     half = 1 << 15
     x_cb, x_cr = cb - 128, cr - 128
-    r = y + ((_fix16(1.40200) * x_cr + half) >> 16)
-    g = y + ((-_fix16(0.34414) * x_cb + half - _fix16(0.71414) * x_cr) >> 16)
-    b = y + ((_fix16(1.77200) * x_cb + half) >> 16)
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    return [y + ((_fix16(1.40200) * x_cr + half) >> 16),
+            y + ((-_fix16(0.34414) * x_cb + half - _fix16(0.71414) * x_cr) >> 16),
+            y + ((_fix16(1.77200) * x_cb + half) >> 16)]
+
+
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c's ``ycc_rgb_convert``."""
+    return np.clip(np.stack(_ycc_to_rgb_unclamped(y, cb, cr), axis=-1), 0, 255).astype(np.uint8)
 
 
 def jpeg_round_trip(images: np.ndarray, quality: int = 95) -> np.ndarray:
@@ -599,7 +610,7 @@ def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
     return out.reshape(2 * plane.shape[0], plane.shape[1])
 
 
-_UNSUPPORTED_SOF = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+_UNSUPPORTED_SOF = {0xC3: "lossless", 0xC5: "differential sequential",
                     0xC6: "differential progressive", 0xC7: "differential lossless",
                     0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
                     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded",
@@ -607,8 +618,8 @@ _UNSUPPORTED_SOF = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential s
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """The (H, W, 3) uint8 RGB of a baseline or extended-sequential Huffman
-    JPEG, as ``Image.open(f).convert("RGB")`` gives it (Pillow 12.1,
+    """The (H, W, 3) uint8 RGB of a baseline, extended-sequential or
+    progressive Huffman JPEG, as ``Image.open(f).convert("RGB")`` gives it (Pillow 12.1,
     libjpeg-turbo). Raises ``ValueError`` on any other kind of file, and on
     truncated or corrupt data."""
     data = bytes(data)
@@ -670,15 +681,15 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             adobe = body[11]
         elif marker in _UNSUPPORTED_SOF:
             raise ValueError(f"{_UNSUPPORTED_SOF[marker]} JPEG files are not supported")
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise ValueError("corrupt JPEG file: two frames")
             precision, height = body[0], int.from_bytes(body[1:3], "big")
             width, nf = int.from_bytes(body[3:5], "big"), body[5]
             if precision != 8:
                 raise ValueError(f"{precision}-bit JPEG files are not supported")
-            if nf not in (1, 3):
-                raise ValueError(f"JPEG files of {nf} components (CMYK, YCCK) are not supported")
+            if nf not in (1, 3, 4):
+                raise ValueError(f"JPEG files of {nf} components are not supported")
             if height == 0 or width == 0:
                 raise ValueError("JPEG files whose height comes in a DNL marker are not supported")
             comps = [(body[6 + 3 * j], body[7 + 3 * j] >> 4, body[7 + 3 * j] & 15, body[8 + 3 * j])
@@ -691,6 +702,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
             frame = {"height": height, "width": width, "comps": comps, "hmax": hmax,
                      "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "done": False,
+                     "progressive": marker == 0xC2,
                      "coef": [np.zeros((mcuy * c[2], mcux * c[1], 64), np.int64) for c in comps],
                      "seen": [False] * nf}
         elif marker == 0xDA:
@@ -716,16 +728,26 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, luts: dict, qt
             raise ValueError("corrupt JPEG file: a scan of an unknown component")
         members.append((ids.index(cid), tables >> 4, tables & 15))
     ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahl) != (0, 63, 0):
-        raise ValueError("progressive JPEG files are not supported")
+    progressive = frame["progressive"]
+    if not progressive and (ss, se, ahl) != (0, 63, 0):
+        raise ValueError("corrupt JPEG file: a spectral selection in a sequential scan")
+    if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
+                        or (ss > 0 and ns != 1)):
+        raise ValueError(f"corrupt JPEG file: a progressive scan of {ss}-{se} over {ns} "
+                         "components")
     for ci, td, ta in members:
-        if (0, td) not in luts or (1, ta) not in luts:
+        # The tables the scan reads: DC for a first DC scan, AC for an AC scan.
+        if ((0, td) not in luts and (not progressive or (ss == 0 and ahl >> 4 == 0))
+                or (1, ta) not in luts and (not progressive or ss > 0)):
             raise ValueError("corrupt JPEG file: a scan names a Huffman table never defined")
         if ci not in latched:
             tq = frame["comps"][ci][3]
             if tq not in qtables:
                 raise ValueError("corrupt JPEG file: a component's DQT table is missing")
             latched[ci] = qtables[tq]
+    if progressive:
+        return _decode_progressive_scan(data, pos, members, (ss, se, ahl >> 4, ahl & 15),
+                                        frame, luts, restart)
     comps = frame["comps"]
     if ns == 1:  # non-interleaved: one block an MCU, the component's own blocks
         ci = members[0][0]
@@ -777,6 +799,198 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, luts: dict, qt
     return end
 
 
+def _scan_blocks(frame: dict, members: list) -> tuple[list, list]:
+    """The blocks of a scan in coding order, as (component, flat offset of
+    the block's 64 coefficients in ``frame["coef"][component]``), one list an
+    MCU: a non-interleaved scan's MCU is one block of the component's own
+    grid, an interleaved scan's the h x v blocks of each component in turn."""
+    comps, mcux = frame["comps"], frame["mcux"]
+    if len(members) == 1:
+        ci = members[0][0]
+        _, h, v, _ = comps[ci]
+        cols = frame["coef"][ci].shape[1]
+        bw = -(-(-(-frame["width"] * h // frame["hmax"])) // 8)
+        bh = -(-(-(-frame["height"] * v // frame["vmax"])) // 8)
+        return [[(ci, (r * cols + c) * 64)] for r in range(bh) for c in range(bw)], [ci]
+    mcus = []
+    for m in range(mcux * frame["mcuy"]):
+        mr, mc, blocks = m // mcux, m % mcux, []
+        for ci, _, _ in members:
+            _, h, v, _ = comps[ci]
+            cols = frame["coef"][ci].shape[1]
+            blocks += [(ci, ((mr * v + y) * cols + mc * h + x) * 64)
+                       for y in range(v) for x in range(h)]
+        mcus.append(blocks)
+    return mcus, [ci for ci, _, _ in members]
+
+
+def _decode_progressive_scan(data: bytes, pos: int, members: list, spectral: tuple,
+                             frame: dict, luts: dict, restart: int) -> int:
+    """Decode one progressive scan (``jdphuff.c``) into ``frame["coef"]``
+    (zigzag order): a DC first scan (the difference's bits shifted up by
+    ``al``), a DC refinement (one bit a block), an AC first scan (EOB runs
+    of up to 32767 blocks) or an AC refinement (a correction bit for each
+    coefficient already nonzero, new coefficients of +-1 << ``al``). Each
+    restart segment starts with no EOB run and DC predictions of 0. Returns
+    the position of the marker after the scan's data."""
+    ss, se, ah, al = spectral
+    mcus, scanned = _scan_blocks(frame, members)
+    flat = {ci: frame["coef"][ci].reshape(-1).tolist() for ci in scanned}
+    dc_lut = {ci: [x.tolist() for x in luts[0, td][:2]] for ci, td, _ in members
+              if ss == 0 and ah == 0}
+    ac_lut = [x.tolist() for x in luts[1, members[0][2]][:2]] if ss > 0 else None
+    p1, m1 = 1 << al, -1 << al
+    segments, end, ended = _entropy_segments(data, pos)
+    per = restart or len(mcus)
+    done = 0
+    for seg in segments:
+        if done >= len(mcus):
+            break
+        nbits = 8 * len(seg)
+        padded = np.concatenate([seg, np.zeros(5, np.uint8)]).astype(np.int64)
+        at = np.arange(nbits + 17)
+        i = at >> 3
+        win = (((padded[i] << 16 | padded[i + 1] << 8 | padded[i + 2]) >> (8 - (at & 7)))
+               & 0xFFFF).tolist()
+        p, eobrun, pred = 0, 0, dict.fromkeys(scanned, 0)
+        try:
+            for mcu in mcus[done:done + per]:
+                for ci, off in mcu:
+                    coef = flat[ci]
+                    if ss == 0 and ah == 0:  # DC first
+                        sym, length = dc_lut[ci]
+                        w = win[p]
+                        s, n = sym[w], length[w]
+                        if n == 0:
+                            raise ValueError("corrupt JPEG data: a bit pattern that is no "
+                                             "Huffman code")
+                        p += n
+                        diff = 0
+                        if s:
+                            diff = win[p] >> (16 - s)
+                            p += s
+                            if diff < 1 << (s - 1):
+                                diff -= (1 << s) - 1
+                        pred[ci] += diff
+                        coef[off] = pred[ci] << al
+                    elif ss == 0:  # DC refinement
+                        if win[p] >> 15:
+                            coef[off] |= p1
+                        p += 1
+                    elif ah == 0:  # AC first
+                        if eobrun:
+                            eobrun -= 1
+                            continue
+                        sym, length = ac_lut
+                        k = ss
+                        while k <= se:
+                            w = win[p]
+                            rs, n = sym[w], length[w]
+                            if n == 0:
+                                raise ValueError("corrupt JPEG data: a bit pattern that is no "
+                                                 "Huffman code")
+                            p += n
+                            r, s = rs >> 4, rs & 15
+                            if s:
+                                k += r
+                                v = win[p] >> (16 - s)
+                                p += s
+                                if v < 1 << (s - 1):
+                                    v -= (1 << s) - 1
+                                if k > 63:
+                                    raise ValueError("corrupt JPEG data: a coefficient past "
+                                                     "the block's 64")
+                                coef[off + k] = v << al
+                                k += 1
+                            elif r == 15:
+                                k += 16
+                            else:
+                                eobrun = 1 << r
+                                if r:
+                                    eobrun += win[p] >> (16 - r)
+                                    p += r
+                                eobrun -= 1
+                                break
+                    else:  # AC refinement
+                        k = ss
+                        if not eobrun:
+                            sym, length = ac_lut
+                            while k <= se:
+                                w = win[p]
+                                rs, n = sym[w], length[w]
+                                if n == 0:
+                                    raise ValueError("corrupt JPEG data: a bit pattern that is "
+                                                     "no Huffman code")
+                                p += n
+                                r, s = rs >> 4, rs & 15
+                                if s:
+                                    s = p1 if win[p] >> 15 else m1
+                                    p += 1
+                                elif r != 15:
+                                    eobrun = 1 << r
+                                    if r:
+                                        eobrun += win[p] >> (16 - r)
+                                        p += r
+                                    break
+                                # Past the coefficients already nonzero (a
+                                # correction bit each) and r zeros.
+                                while k <= se:
+                                    c = coef[off + k]
+                                    if c:
+                                        if win[p] >> 15 and not c & p1:
+                                            coef[off + k] = c + (p1 if c >= 0 else m1)
+                                        p += 1
+                                    else:
+                                        r -= 1
+                                        if r < 0:
+                                            break
+                                    k += 1
+                                if s:
+                                    if k > 63:
+                                        raise ValueError("corrupt JPEG data: a coefficient "
+                                                         "past the block's 64")
+                                    coef[off + k] = s
+                                k += 1
+                        if eobrun:
+                            while k <= se:
+                                c = coef[off + k]
+                                if c:
+                                    if win[p] >> 15 and not c & p1:
+                                        coef[off + k] = c + (p1 if c >= 0 else m1)
+                                    p += 1
+                                k += 1
+                            eobrun -= 1
+        except IndexError:
+            p = len(win)
+        if p > nbits:
+            raise ValueError("corrupt or truncated JPEG data: a scan segment ends early")
+        done += min(per, len(mcus) - done)
+    if done < len(mcus):
+        if ended:
+            raise ValueError("corrupt JPEG data: fewer restart segments than MCUs")
+        raise ValueError("truncated JPEG file")
+    for ci in scanned:
+        frame["coef"][ci][...] = np.array(flat[ci], np.int64).reshape(frame["coef"][ci].shape)
+        frame["seen"][ci] = True
+    frame["done"] = all(frame["seen"])
+    return end
+
+
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's ``cmyk2rgb`` of inverted (Adobe) CMYK, as ``CMYK;I`` reads it:
+    each of C, M, Y and K is ``255 - sample``, then ``nk - c * nk / 255``
+    with ``nk = 255 - k`` and Pillow's rounded ``MULDIV255``."""
+    c, m, y, k = (255 - cmyk[..., i].astype(np.int64) for i in range(4))
+    nk = 255 - k
+
+    def muldiv255(a, b):
+        t = a * b + 128
+        return ((t >> 8) + t) >> 8
+
+    return np.clip(np.stack([nk - muldiv255(v, nk) for v in (c, m, y)], axis=-1),
+                   0, 255).astype(np.uint8)
+
+
 def _pixels(frame: dict, latched: dict, jfif: bool, adobe) -> np.ndarray:
     """The inverse DCT, upsampling and colour conversion of a decoded frame."""
     height, width = frame["height"], frame["width"]
@@ -792,6 +1006,14 @@ def _pixels(frame: dict, latched: dict, jfif: bool, adobe) -> np.ndarray:
         planes.append(plane[:height, :width])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=-1).astype(np.uint8)
+    if len(planes) == 4:
+        # jdapimin.c: four components are CMYK, or YCCK where Adobe's
+        # transform flag says 2 (jdcolor.c's ycck_cmyk_convert: 255 less the
+        # YCbCr-to-RGB sums, clamped; K as it is).
+        if adobe == 2:
+            rgb = _ycc_to_rgb_unclamped(*planes[:3])
+            planes = [np.clip(255 - v, 0, 255) for v in rgb] + [planes[3]]
+        return _cmyk_to_rgb(np.stack(planes, axis=-1))
     ids = tuple(c[0] for c in frame["comps"])
     # jdapimin.c's default_decompress_parms: JFIF means YCbCr; else Adobe's
     # transform flag; else component ids 'R', 'G', 'B' mean RGB.

@@ -23,9 +23,11 @@ without its PIL, ``requests``, ``urllib3`` and JAX imports. Kept:
   502, 503, 504])``: connection errors and those statuses, and 413 with a
   ``Retry-After``; no backoff before a first retry; ``Retry-After`` slept as
   urllib3 sleeps it), failure after that retry, any other status, or a
-  short body. Bodies are read as JPEG (``decode_jpeg``) or PNG
-  (``data/png.py::decode_png``); other formats fail as Pillow fails on what
-  it cannot identify (ROADMAP Queue 3 lists the formats Pillow would read);
+  short body. Bodies are read by ``decode_image``: JPEG (``data/jpeg.py``,
+  progressive and CMYK included), PNG (``data/png.py``, Adam7 and 16-bit
+  included), GIF, BMP and WebP (``data/gif.py``, ``bmp.py``, ``webp.py``);
+  other formats fail as Pillow fails on what it cannot identify (ROADMAP
+  Queue 3 lists the formats Pillow would also read);
 - ``check_disk_space`` and ``precache_dataset`` (a ``ThreadPoolExecutor``
   of 8, 250 KB a sample checked first, the sorted valid indices).
 
@@ -51,9 +53,13 @@ from concurrent.futures import ThreadPoolExecutor, as_completed
 
 import numpy as np
 
+from tinydiffusion_torch.data.bmp import decode_bmp
+from tinydiffusion_torch.data.gif import SIGNATURES as GIF_SIGNATURES
+from tinydiffusion_torch.data.gif import decode_gif
 from tinydiffusion_torch.data.jpeg import decode_jpeg, encode_jpeg
 from tinydiffusion_torch.data.png import SIGNATURE as PNG_SIGNATURE
 from tinydiffusion_torch.data.png import decode_png
+from tinydiffusion_torch.data.webp import decode_webp
 from tinydiffusion_torch.obs.images import resize_u8
 
 SYNTHETIC_SCHEME = "synthetic://"
@@ -151,13 +157,21 @@ def check_disk_space(path: str, required_bytes: int) -> None:
 
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's (H, W, 3) uint8 RGB, as Pillow's
-    ``Image.open(f).convert("RGB")``: JPEG or PNG; anything else raises
-    ``ValueError``, as Pillow raises on what it cannot identify or load."""
+    ``Image.open(f).convert("RGB")``: JPEG, PNG, GIF (its first frame), BMP
+    or WebP (its first frame), told apart by their first bytes; anything
+    else raises ``ValueError``, as Pillow raises on what it cannot identify
+    or load."""
     if data[:2] == b"\xff\xd8":
         return decode_jpeg(data)
     if data[:8] == PNG_SIGNATURE:
         return decode_png(data)
-    raise ValueError("cannot identify image file (the port reads JPEG and PNG)")
+    if data[:6] in GIF_SIGNATURES:
+        return decode_gif(data)
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data)
+    raise ValueError("cannot identify image file (the port reads JPEG, PNG, GIF, BMP and WebP)")
 
 
 def _retry_after_seconds(value: str) -> float:

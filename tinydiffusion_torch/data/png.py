@@ -1,13 +1,14 @@
 """PNG decode with ``zlib`` and numpy, as ``Image.open(f).convert("RGB")`` gives it.
 
-Web images come as JPEG or PNG; the LAION loader (``data/laion.py``) reads
-both without Pillow. ``decode_png`` reads non-interlaced PNG files of every
-colour type: greyscale (bit depths 1, 2, 4 and 8; Pillow scales 1, 2 and 4
-bits to 0-255), RGB, palette (1, 2, 4 and 8 bits), greyscale + alpha and
-RGBA (8 bits; 16-bit RGB, RGBA and greyscale + alpha by their high bytes,
-as Pillow's raw modes read them), with alpha and ``tRNS`` dropped as
-``convert("RGB")`` drops them. Interlaced and 16-bit greyscale files raise
-``ValueError``, as do truncated or corrupt ones (bad CRCs included).
+The LAION loader (``data/laion.py``) reads web images without Pillow.
+``decode_png`` reads PNG files of every colour type, interlaced (Adam7) or
+not: greyscale (bit depths 1, 2, 4 and 8; Pillow scales 1, 2 and 4 bits to
+0-255; 16 bits as Pillow's ``I;16`` converts it, each value clamped to 255),
+RGB, palette (1, 2, 4 and 8 bits), greyscale + alpha and RGBA (8 bits;
+16-bit RGB, RGBA and greyscale + alpha by their high bytes, as Pillow's raw
+modes read them), with alpha and ``tRNS`` dropped as ``convert("RGB")``
+drops them. Truncated or corrupt files (bad CRCs included) raise
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 # Samples a pixel by colour type: grey, -, RGB, palette, grey + alpha, -, RGBA.
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7's seven passes: (first row, first column, row step, column step).
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+          (1, 0, 2, 1))
 
 
 def _chunks(data: bytes):
@@ -78,6 +82,26 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
     return out
 
 
+def _pass_samples(raw: np.ndarray, height: int, width: int, channels: int,
+                  depth: int) -> tuple[np.ndarray, int]:
+    """The (height, width * channels) samples of the scanlines at the start
+    of ``raw`` (16 bits kept whole; sub-byte depths unpacked), and the bytes
+    they took."""
+    stride = -(-width * channels * depth // 8)
+    used = height * (stride + 1)
+    if len(raw) < used:
+        raise ValueError("truncated PNG data")
+    rows = _unfilter(raw[:used], height, stride, max(1, channels * depth // 8))
+    if depth == 16:
+        samples = rows.reshape(height, width * channels, 2).astype(np.int64)
+        return samples[..., 0] << 8 | samples[..., 1], used
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(height, stride * 8 // depth, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        return (bits * weights).sum(-1)[:, :width], used
+    return rows.astype(np.int64), used
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """The (H, W, 3) uint8 RGB of a PNG file, as Pillow 12.1's
     ``Image.open(f).convert("RGB")`` gives it."""
@@ -100,33 +124,34 @@ def decode_png(data: bytes) -> np.ndarray:
     width, height, depth, color, compression, filtering, interlace = header
     if color not in _CHANNELS or compression or filtering or width == 0 or height == 0:
         raise ValueError(f"corrupt PNG file: colour type {color}")
-    if interlace:
-        raise ValueError("interlaced PNG files are not supported")
-    if depth == 16 and color == 0:
-        raise ValueError("16-bit greyscale PNG files are not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"corrupt PNG file: interlace method {interlace}")
     if depth not in ((1, 2, 4, 8, 16) if color == 0 else (1, 2, 4, 8) if color == 3 else (8, 16)):
         raise ValueError(f"corrupt PNG file: bit depth {depth} for colour type {color}")
     if color == 3 and palette is None:
         raise ValueError("corrupt PNG file: a palette image without PLTE")
     channels = _CHANNELS[color]
-    stride = -(-width * channels * depth // 8)
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"corrupt or truncated PNG data: {e}") from e
-    if len(raw) < height * (stride + 1):
-        raise ValueError("truncated PNG data")
-    rows = _unfilter(np.frombuffer(raw[:height * (stride + 1)], np.uint8), height, stride,
-                     max(1, channels * depth // 8))
-    if depth == 16:  # the high byte of each sample
-        samples = rows.reshape(height, width * channels, 2)[..., 0]
-    elif depth < 8:
-        bits = np.unpackbits(rows, axis=1).reshape(height, stride * 8 // depth, depth)
-        weights = 1 << np.arange(depth - 1, -1, -1)
-        samples = (bits * weights).sum(-1)[:, :width]
+    raw = np.frombuffer(raw, np.uint8)
+    if not interlace:
+        samples, _ = _pass_samples(raw, height, width, channels, depth)
     else:
-        samples = rows
+        # Each non-empty pass is a small image of its own scanlines, in turn.
+        samples = np.zeros((height, width * channels), np.int64)
+        for y0, x0, dy, dx in _ADAM7:
+            ph, pw = -(-(height - y0) // dy), -(-(width - x0) // dx)
+            if ph <= 0 or pw <= 0:
+                continue
+            part, used = _pass_samples(raw, ph, pw, channels, depth)
+            raw = raw[used:]
+            samples.reshape(height, width, channels)[y0::dy, x0::dx] = part.reshape(
+                ph, pw, channels)
     samples = samples.reshape(height, width, channels)
+    if depth == 16 and color != 0:  # Pillow's raw modes read the high bytes
+        samples = samples >> 8
     if color == 3:
         # Indices past the palette read black, as Pillow's padded palette does.
         table = np.zeros((256, 3), np.uint8)
@@ -136,5 +161,7 @@ def decode_png(data: bytes) -> np.ndarray:
         grey = samples[..., 0].astype(np.int64)
         if depth < 8:  # Pillow's "1", "L;2" and "L;4" raw modes: scaled to 0-255
             grey = grey * (255 // ((1 << depth) - 1))
+        elif depth == 16:  # I;16 to RGB: clamped
+            grey = np.minimum(grey, 255)
         return np.repeat(grey[..., None], 3, axis=-1).astype(np.uint8)
     return np.ascontiguousarray(samples[..., :3]).astype(np.uint8)

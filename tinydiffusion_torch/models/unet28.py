@@ -16,6 +16,16 @@ JAX ones (``time_embedding``, ``enc1.block1.conv``, ``time_proj1``, ...), so
   align-corners to 8/16/32, concat, double conv 4w/2w/w; resize 32 -> 28
   and a ``Conv(w -> out_channels)`` head.
 
+On the model axis (``parallel.mesh.apply_sharding``, tensor parallelism)
+every conv and dense layer holds a slice of its output channels and reads
+its whole input through ``parallel.mesh.to_full``: an all-gather before each
+layer (the two halves of each decoder concatenation gathered in one, in the
+global order ``[upsampled, skip]``), whose backward reduce-scatters the
+input gradient; BatchNorm, ReLU, the pool, the resizes and the time
+projection's add work per channel on the slice. The one-channel
+``final_conv`` stays whole on every rank, so its gathered input's gradient
+is taken, not summed. The output is then whole on every rank.
+
 The resizes and the pool are torch's native ``F.interpolate(bilinear,
 align_corners=True)`` and ``F.max_pool2d(ceil_mode=True)``, whose backward
 routes a tied window's gradient to its first maximum: the rule the JAX
@@ -31,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusion_torch.nn.layers import ConvBNRelu, DoubleConvBlock, TimeEmbedMLP
+from tinydiffusion_torch.parallel.mesh import to_full
 
 
 def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -49,6 +60,9 @@ class UNet28(nn.Module):
     ``num_classes=None`` -> unconditional; ``num_classes=10`` ->
     class-conditional (``forward`` then needs labels ``y``).
     """
+
+    supports_model_axis = True
+    model_parallel = None  # set by parallel.mesh.apply_sharding
 
     def __init__(
         self,
@@ -93,6 +107,7 @@ class UNet28(nn.Module):
         # too. The layers keep the layout of their input, so one copy here
         # sets it (a 1-channel input is both layouts at once, so the copy
         # comes after the stem).
+        mp = self.model_parallel
         x0 = self.initial_conv(x).contiguous(memory_format=torch.channels_last)
         e1 = self.enc1(x0)  # 28
         e2 = self.enc2(_pool(e1))  # 14
@@ -100,9 +115,9 @@ class UNet28(nn.Module):
         b = self.bottleneck(_pool(e3))  # 4
 
         def skip(e: torch.Tensor, proj: nn.Linear, size: int) -> torch.Tensor:
-            return _resize(e + proj(emb)[:, :, None, None], size)
+            return _resize(e + proj(to_full(mp, proj, emb))[:, :, None, None], size)
 
-        d3 = self.dec3(torch.cat([_resize(b, 8), skip(e3, self.time_proj3, 8)], dim=1))
-        d2 = self.dec2(torch.cat([_resize(d3, 16), skip(e2, self.time_proj2, 16)], dim=1))
-        d1 = self.dec1(torch.cat([_resize(d2, 32), skip(e1, self.time_proj1, 32)], dim=1))
-        return self.final_conv(_resize(d1, 28)).float()
+        d3 = self.dec3(_resize(b, 8), skip(e3, self.time_proj3, 8))
+        d2 = self.dec2(_resize(d3, 16), skip(e2, self.time_proj2, 16))
+        d1 = self.dec1(_resize(d2, 32), skip(e1, self.time_proj1, 32))
+        return self.final_conv(to_full(mp, self.final_conv, _resize(d1, 28))).float()

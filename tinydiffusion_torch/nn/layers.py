@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinydiffusion_torch.parallel.mesh import all_reduce_sum
+from tinydiffusion_torch.parallel.mesh import all_reduce_sum, to_full
 
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -204,27 +204,38 @@ class LayerNorm(nn.LayerNorm):
 
 
 class ConvBNRelu(nn.Module):
-    """``Conv2d(k=3, p=1) -> BatchNorm2d -> ReLU`` on NCHW."""
+    """``Conv2d(k=3, p=1) -> BatchNorm2d -> ReLU`` on NCHW.
+
+    ``forward(*parts)`` convolves the channel concatenation of ``parts``. On
+    the model axis (``parallel.mesh.apply_sharding``) each part is this
+    rank's channels, the conv holds its slice of output channels and reads
+    the whole input (``to_full``); the BatchNorm and the ReLU work per
+    channel, on the slice."""
+
+    # The model axis (``parallel.mesh.ModelParallel``); None: one process.
+    model_parallel = None
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, features, kernel_size, padding=kernel_size // 2)
         self.bn = BatchNorm2d(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, *parts: torch.Tensor) -> torch.Tensor:
+        x = to_full(self.model_parallel, self.conv, *parts)
         return F.relu(self.bn(self.conv(x)))
 
 
 class DoubleConvBlock(nn.Module):
-    """Two stacked ``ConvBNRelu`` at the same width: one UNet stage."""
+    """Two stacked ``ConvBNRelu`` at the same width: one UNet stage, on the
+    channel concatenation of its inputs."""
 
     def __init__(self, in_channels: int, features: int):
         super().__init__()
         self.block1 = ConvBNRelu(in_channels, features)
         self.block2 = ConvBNRelu(features, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.block2(self.block1(x))
+    def forward(self, *parts: torch.Tensor) -> torch.Tensor:
+        return self.block2(self.block1(*parts))
 
 
 class TimeEmbedMLP(nn.Module):
@@ -237,6 +248,8 @@ class TimeEmbedMLP(nn.Module):
     float32 and rounding the quotient would enter another value at 190 of
     the 1000 timesteps."""
 
+    model_parallel = None  # as ConvBNRelu's
+
     def __init__(self, dim: int, normalize: float | None = None):
         super().__init__()
         self.normalize = normalize
@@ -247,4 +260,4 @@ class TimeEmbedMLP(nn.Module):
         t = t.to(compute_dtype(self.fc1.weight))[:, None]
         if self.normalize is not None:
             t = t / self.normalize
-        return self.fc2(F.silu(self.fc1(t)))
+        return self.fc2(to_full(self.model_parallel, self.fc2, F.silu(self.fc1(t))))

@@ -39,6 +39,16 @@ too); the fused q_sample draws its rows of the global stream
 (``parallel.mesh.sync_batch_norm_``); and the gradients and the loss are
 reduced over the group in one collective before the clip and the optimizer.
 On a card the collectives are captured in the step's CUDA graph.
+
+The pixel-space steps (``make_train_step``, ``make_resident_multi_step``)
+also take a ``mesh`` (``parallel.mesh.make_mesh``): its data axis is ``dp``,
+and its model axis runs the UNet28 tensor-parallel, the state sharded by
+``parallel.mesh.apply_sharding`` (JAX's ``state_sharding``). The draws, the
+q_sample rows and the loss are the data row's, the same on every model
+rank; the gradients of sharded and replicated parameters alike are reduced
+over the data axis, and a replicated parameter's are first averaged over the
+model axis, so that its copies stay equal. Any other model on a model axis
+of more than one rank raises.
 """
 
 from __future__ import annotations
@@ -59,7 +69,10 @@ from tinydiffusion_torch.io.from_jax import jax_variables
 from tinydiffusion_torch.ops.qsample import q_sample_fused
 from tinydiffusion_torch.parallel.mesh import (
     DataParallel,
+    Mesh,
+    average_replicated_grads_,
     global_batch,
+    require_model_axis,
     row_offset,
     shard,
     sync_batch_norm_,
@@ -201,10 +214,16 @@ def _step_body(
     label_dropout: float = 0.0,
     null_label: int | None = None,
     dp: DataParallel | None = None,
+    mesh: Mesh | None = None,
 ) -> Callable:
     """``body(state, x0, y=None, t=None, noise=None, keep=None) -> loss``:
     one step's device work, without the host's ``state.step`` count, so that
     a CUDA graph can capture it."""
+    if mesh is not None:
+        if dp is not None:
+            raise ValueError("give the data axis as dp or in the mesh, not both")
+        dp = mesh.dp
+    mp = None if mesh is None else mesh.mp
     if prediction not in ("eps", "v"):
         raise ValueError(f"unknown prediction {prediction!r}; use 'eps' or 'v'")
     if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -215,6 +234,8 @@ def _step_body(
     def body(state: DiffusionTrainState, x0: torch.Tensor, y=None, t=None, noise=None,
              keep=None):
         model = state.model
+        if mp is not None:
+            check_model_axis(model, mesh)
         model.train()
         sync_batch_norm_(model, dp)
         if conditional and y is None:
@@ -252,6 +273,7 @@ def _step_body(
         loss = F.mse_loss(out.float(), target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        average_replicated_grads_(mp, model)
         loss = reduce_grads(dp, model, loss.detach())
         state.optimizer.step()
         if ema_decay is not None:
@@ -259,6 +281,15 @@ def _step_body(
         return loss
 
     return body
+
+
+def check_model_axis(model: nn.Module, mesh: Mesh) -> None:
+    """Raise unless ``model`` runs on ``mesh``'s model axis: a model the axis
+    is ported for, sharded by ``apply_sharding`` on this mesh."""
+    require_model_axis(model)
+    if getattr(model, "model_parallel", None) != mesh.model:
+        raise ValueError("the model is not sharded on this mesh: call "
+                         "parallel.mesh.apply_sharding before the step")
 
 
 def reduce_grads(dp: DataParallel | None, model: nn.Module, loss: torch.Tensor,
@@ -281,6 +312,7 @@ def make_train_step(
     label_dropout: float = 0.0,
     null_label: int | None = None,
     dp: DataParallel | None = None,
+    mesh: Mesh | None = None,
 ) -> Callable:
     """The train step ``step(state, x0, y=None, t=None, noise=None,
     keep=None) -> loss``.
@@ -296,9 +328,12 @@ def make_train_step(
     forward under ``torch.autocast``; the params and the loss stay float32.
     With ``dp``, ``x0`` and ``y`` are this rank's rows, the seams the global
     batch's, and the loss the global one (see the module's docstring).
+    ``mesh`` replaces ``dp`` with its data axis and adds its model axis, on
+    which the model must be sharded (``parallel.mesh.apply_sharding``: the
+    model carries its sharding, JAX's ``state_sharding``).
     """
     body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
-                      label_dropout, null_label, dp)
+                      label_dropout, null_label, dp, mesh)
 
     def step(state: DiffusionTrainState, x0: torch.Tensor, y=None, t=None, noise=None,
              keep=None):
@@ -443,6 +478,7 @@ def make_resident_multi_step(
     label_dropout: float = 0.0,
     null_label: int | None = None,
     dp: DataParallel | None = None,
+    mesh: Mesh | None = None,
 ) -> Callable:
     """Train over a resident dataset: ``step(state, idxs, t=None,
     noise=None, keep=None) -> losses`` (``make_resident_steps``).
@@ -453,12 +489,13 @@ def make_resident_multi_step(
     draws (t, the q_sample seed and the label dropout), in the same order,
     as the host path. On the CPU ``t`` (K, B), ``noise`` (K, B, C, H, W) and
     ``keep`` (K, B) may replace them. With ``dp``, ``idxs`` are this rank's
-    columns of the epoch's index batches.
+    columns of the epoch's index batches; ``mesh`` as in ``make_train_step``
+    (every model rank of a data row takes the same columns).
     """
     if conditional and dataset.labels is None:
         raise ValueError("a conditional resident step needs a DeviceDataset with labels")
     body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
-                      label_dropout, null_label, dp)
+                      label_dropout, null_label, dp, mesh)
 
     def batch_step(state, batch, t=None, noise=None, keep=None):
         x0, y = batch if conditional else (batch, None)
