@@ -292,6 +292,7 @@ exits 1 before printing any result. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -317,7 +318,10 @@ from tinydiffusion_torch.compat.clip import CLIPTextConfig, CLIPTextEncoder, CLI
 from tinydiffusion_torch.compat.clip_tokenizer import BOS_TOKEN, EOS_TOKEN, byte_to_unicode
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
+from tinydiffusion_torch.data import gif as gif_data
+from tinydiffusion_torch.data import jpeg as jpeg_data
 from tinydiffusion_torch.data import laion as laion_data
+from tinydiffusion_torch.data import webp as webp_data
 from tinydiffusion_torch.data.jpeg import decode_jpeg, encode_jpeg
 from tinydiffusion_torch.data.laion import synthesize_caption, synthesize_image
 from tinydiffusion_torch.data.mnist import load_mnist
@@ -1149,9 +1153,13 @@ def phase_build() -> None:
     lib = _build.library()
     smem = {f"{name} ({d}, {c})": getattr(lib, f"tdt_{name}_smem_bytes")(d, c)
             for name in _FLASH_KERNELS for d, c in sorted(attention.KERNEL_HEAD_WIDTHS)}
+    # The loader's C decoders, built by the host compiler (never nvcc).
+    decoders = _build.build(_build.DECODERS)
     emit("build", seconds=round(build.seconds, 3), cached=build.seconds == 0.0,
          library=os.path.relpath(build.path, REPO), ptxas=ptxas, tensor_core=tensor_core,
-         dynamic_smem_bytes=smem)
+         dynamic_smem_bytes=smem, decoders_library=os.path.relpath(decoders.path, REPO),
+         decoders_compiler=decoders.compiler or _build.find_cc(),
+         decoders_seconds=round(decoders.seconds, 3), decoders_cached=decoders.seconds == 0.0)
 
 
 def phase_kernel(dtype=torch.float32) -> list[dict]:
@@ -2672,6 +2680,18 @@ def _sha(x: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
 
 
+def _plain_decode(data: bytes) -> np.ndarray:
+    """``decode_image`` with the plain versions of the C decoders (PNG and
+    BMP have none: theirs is ``decode_image``'s)."""
+    if data[:2] == b"\xff\xd8":
+        return jpeg_data.decode_jpeg_reference(data)
+    if data[:6] in gif_data.SIGNATURES:
+        return gif_data.decode_gif_reference(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return webp_data.decode_webp_reference(data)
+    return laion_data.decode_image(data)
+
+
 def phase_laion_loader() -> dict:
     """The port's LAION loader on this machine (no Pillow, requests, urllib3
     or datasets): ``LAIONImageTextDataset`` and ``precache_dataset`` over
@@ -2749,7 +2769,7 @@ def phase_laion_loader() -> dict:
                 with open(path, "rb") as f:
                     if f.read() != encode_jpeg(source):
                         problems.append(f"{name}: the cache file is not encode_jpeg of the fetch")
-            decode_s = {}
+            decode_s, plain_decode_s = {}, {}
             for fixture in fixtures:
                 t1 = time.perf_counter()
                 image = laion_data.decode_image(fixtures[fixture])
@@ -2758,6 +2778,12 @@ def phase_laion_loader() -> dict:
                 if (_sha(image), _sha(small)) != (pillow[fixture]["rgb_sha256"],
                                                   pillow[fixture]["rgb64_sha256"]):
                     problems.append(f"{fixture}: decode or resize differs from Pillow's")
+                # The C decoders against their plain versions, byte for byte.
+                t1 = time.perf_counter()
+                plain = _plain_decode(fixtures[fixture])
+                plain_decode_s[fixture] = time.perf_counter() - t1
+                if plain.shape != image.shape or not np.array_equal(plain, image):
+                    problems.append(f"{fixture}: the C decode differs from the plain version's")
             with open(cache["failed_urls_cache"]) as f:
                 failed = json.load(f)
             if failed != sorted(f"{server.base}/{n}" for n in ("missing.jpg", "black.png",
@@ -2791,6 +2817,9 @@ def phase_laion_loader() -> dict:
     fields = {"records": len(records), "valid": valid, "requests": hits_after,
               "failed": len(failed), "precache_s": precache_s, "image_size": LOADER_SIZE,
               "fixtures_matched": len(fixtures), "decode_s": decode_s,
+              "plain_decode_s": plain_decode_s,
+              "web_decode_s": {k: decode_s[k] for k in LOADER_WEB_FIXTURES},
+              "web_plain_decode_s": {k: plain_decode_s[k] for k in LOADER_WEB_FIXTURES},
               "web_precache_s": web_precache_s,
               "web_records_per_s": len(LOADER_WEB_FIXTURES) / web_precache_s}
     if problems:
@@ -4041,6 +4070,58 @@ def _set_default_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+@contextlib.contextmanager
+def _timed_calls(targets: dict):
+    """Each ``(owner, attribute)`` of ``targets`` wrapped for the block: its
+    calls' seconds (the card synchronized before and after) and count under
+    its name. A name ending in ``()`` times the callable its factory returns."""
+    totals = {name.rstrip("()"): {"s": 0.0, "calls": 0} for name in targets}
+    saved = []
+
+    def timed(fn, total):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                total["s"] += time.perf_counter() - t0
+                total["calls"] += 1
+        return wrapper
+
+    for name, (owner, attr) in targets.items():
+        fn = getattr(owner, attr)
+        total = totals[name.rstrip("()")]
+        if name.endswith("()"):
+            new = functools.wraps(fn)(lambda *a, _fn=fn, _t=total, **k: timed(_fn(*a, **k), _t))
+        else:
+            new = timed(fn, total)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, new)
+    try:
+        yield totals
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+# What a conv-VAE run() spends outside its train steps, by part: the records'
+# load (inside it the synthetic fetches, the cache writes and reads), the val
+# passes, the reconstruction panels and samples, the PNGs and the checkpoints.
+_OUTSIDE_STEPS = {
+    "load_images": (vae_laion, "load_images"),
+    "fetch": (laion_data, "synthesize_image"),
+    "cache_write": (laion_data, "encode_jpeg"),
+    "cache_read": (laion_data, "decode_image"),
+    "val_pass()": (vae_laion, "make_resident_eval"),
+    "samples": (vae_laion, "sample_prior"),
+    "png": (vae_laion, "save_image_grid"),
+    "checkpoint": (vae_laion.BestKeeper, "update"),
+}
+
+
 def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
                     image_size: int = 256, checkpoint_dir: str | None = None) -> dict:
     """The conv-VAE's ``run()`` at full width on the card, with the kernel
@@ -4069,11 +4150,20 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         t0 = time.perf_counter()
-        result = vae_laion.run(config)
+        with _timed_calls(_OUTSIDE_STEPS) as parts:
+            result = vae_laion.run(config)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = _launches()
         by_width = dict(attention.launches_by_width)
+        train_s = sum(e["train_seconds"] for e in result["epochs"])
+        outside = {"wall_s": wall_s, "train_s": train_s, "outside_s": wall_s - train_s,
+                   **{f"{k}_s": v["s"] for k, v in parts.items()},
+                   "calls": {k: v["calls"] for k, v in parts.items()}}
+        # The rest: the model's set-up, the resident set's copy, the graph's
+        # warm-up and capture outside the timed epochs, the loggers.
+        outside["other_s"] = outside["outside_s"] - sum(
+            v["s"] for k, v in parts.items() if k not in ("fetch", "cache_write", "cache_read"))
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if torch.backends.cudnn.allow_tf32:
             raise RuntimeError(f"{phase}: run() left cuDNN's TF32 on")
@@ -4139,6 +4229,7 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
             "test_losses": result["test_losses"], "peak_mem_gib": peak_gib,
             "dq_scratch_gib_by_site": _dq_scratch_gib(config.batch_size, image_size,
                                                       vae_laion.COMPUTE_DTYPES[compute_dtype]),
+            "outside_steps": outside,
         }
     if max(fields["dq_scratch_gib_by_site"].values()) > DQ_SCRATCH_MAX_GIB:
         raise RuntimeError(f"{phase}: dq scratch {fields['dq_scratch_gib_by_site']} GiB")

@@ -24,6 +24,8 @@ gloo group (``torch.multiprocessing``, a ``file://`` rendezvous;
   gather's backward splits its gradient instead of reduce-scattering it.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,7 @@ from tinydiffusion_tpu.parallel.mesh import infer_state_sharding as jax_infer_st
 from tinydiffusion_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from tinydiffusion_tpu.train.trainer import _raw_step_fn
 from tinydiffusion_tpu.train.trainer import create_train_state as jax_create_train_state
+from tinydiffusion_tpu.train.trainer import make_train_step as jax_make_train_step
 from tinydiffusion_torch.io.checkpoint import load_weights_arrays, save_weights
 from tinydiffusion_torch.io.from_jax import jax_variables, unet28_state_dict
 from tinydiffusion_torch.models.unet28 import UNet28
@@ -65,13 +68,23 @@ NPZ_RTOL = 2.0**-7
 # params and running statistics part by more than one step's bounds (up to
 # 9e-5 absolute at (2, 2), 6e-6 relative at (1, 2), seen on the CPU).
 RESIDENT_ATOL, RESIDENT_STATS_RTOL = 2e-4, 1e-4
+# bfloat16 against JAX's bf16 step: the two frameworks round the bf16
+# forward in different places (JAX's step lies 4x farther from its float32
+# step than the port's), so one process and (1, 2) alike part from JAX's by
+# up to 3.2e-3 in a param after one SGD step at 1e-2, 9.2e-4 of the loss
+# and 0.46 of a BatchNorm variance of ~130 (seen on the CPU).
+BF16_LOSS_RTOL, BF16_PARAM_ATOL, BF16_STATS_RTOL, BF16_STATS_ATOL = 2e-3, 5e-3, 1e-2, 1e-2
+# The bf16 TP step against one process's: the norm of the params' gap after
+# one SGD step (1.1e-5 with float32 partials, 9.3e-5 with bf16-rounded ones,
+# seen on the CPU); and four Adam steps' losses (within 2.8e-4 relative).
+BF16_TP_NORM, BF16_TRAJECTORY_RTOL = 3e-5, 1e-3
 TO_NCHW = (0, 3, 1, 2)
 MESHES = {"m22": (2, 2), "m12": (1, 2)}
 
 
-def _jax_state(conditional: bool):
+def _jax_state(conditional: bool, dtype=jnp.float32):
     jmodel = JaxUNet28(**worker.UNET_SMALL, num_classes=worker.NUM_CLASSES if conditional else None,
-                       dtype=jnp.float32)
+                       dtype=dtype)
     tx = optax.sgd(worker.LR)
     example = (jnp.zeros((BATCH, 28, 28, 1)), jnp.zeros((BATCH,), jnp.int32))
     if conditional:
@@ -104,6 +117,32 @@ def _jax_step(conditional: bool, x0_nhwc: np.ndarray, y: np.ndarray) -> dict:
             "weights": {k: np.asarray(v) for k, v in after.items()}}
 
 
+def _jax_bf16_tp_step(x0_nhwc: np.ndarray) -> dict:
+    """JAX's bfloat16 UNet28 through ``make_train_step`` with
+    ``state_sharding=infer_state_sharding(...)`` on a (1, 2) mesh of the CPU's
+    devices, from the float32 test's init and on its draws (the same key):
+    the loss, the weights after, and each collective of the compiled program
+    as (op, result dtype, the op that feeds it)."""
+    jmodel, tx, jstate = _jax_state(False, jnp.bfloat16)
+    jmesh = jax_make_mesh(("data", "model"), shape=(1, 2), devices=jax.devices()[:2])
+    shardings = jax_infer_state_sharding(jstate, jmesh, "model")
+    step = jax_make_train_step(jmodel, tx, JaxSchedule.linear(1000), mesh=jmesh,
+                               state_sharding=shardings)
+    jstate, x0 = jax.device_put(jstate, shardings), jnp.asarray(x0_nhwc)
+    compiled = step.lower(jstate, x0).compile()
+    new, loss = compiled(jstate, x0)
+    after, _ = _flat_items({"params": new.params, "batch_stats": new.batch_stats})
+    ops = {}
+    for line in compiled.as_text().splitlines():
+        m = re.match(r"\s*(?:ROOT )?(%\S+) = (\w+)\[[^=]*? ([a-z\-]+)\((%[^,)\s]+)", line)
+        if m:
+            ops[m.group(1)] = (m.group(3), m.group(2), m.group(4))
+    collectives = [(op, dtype, ops.get(arg, ("?",))[0]) for op, dtype, arg in ops.values()
+                   if op.startswith(("all-reduce", "reduce-scatter", "all-gather"))]
+    return {"loss": float(loss), "weights": {k: np.asarray(v) for k, v in after.items()},
+            "collectives": collectives}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The inputs, JAX's steps, the one-process steps and every rank's
@@ -113,7 +152,8 @@ def runs(tmp_path_factory):
     x0 = rng.uniform(-1, 1, (BATCH, 28, 28, 1)).astype(np.float32)
     cond_x0 = rng.uniform(-1, 1, (BATCH, 28, 28, 1)).astype(np.float32)
     y = rng.integers(0, 10, BATCH).astype(np.int32)
-    jax_runs = {"unet": _jax_step(False, x0, y), "cond": _jax_step(True, cond_x0, y)}
+    jax_runs = {"unet": _jax_step(False, x0, y), "cond": _jax_step(True, cond_x0, y),
+                "unet_bf16_tp": _jax_bf16_tp_step(x0)}
     assert jax_runs["cond"]["keep"].any() and not jax_runs["cond"]["keep"].all()
     torch.save(jax_runs["unet"]["state_dict"], tmp / "unet.pt")
     torch.save(jax_runs["cond"]["state_dict"], tmp / "cond.pt")
@@ -137,6 +177,7 @@ def runs(tmp_path_factory):
         one = {case: worker.step(inputs, case) for case in worker.CASES}
         one["resident"] = worker.resident_steps(inputs)
         one["narrow"] = worker.narrow_step(inputs)
+        one["bf16_trajectory"] = worker.bf16_trajectory(inputs)
         del one["narrow"]["sharded"]
         save_weights(str(tmp / "one_cond"), {k: v for k, v in one["cond"].items()
                                              if k != "loss" and not k.startswith("shape/")})
@@ -385,3 +426,73 @@ def test_make_mesh_without_a_group_and_bad_shapes():
         mesh_lib.make_mesh(("data", "model"), (1, 2))
     with pytest.raises(ValueError, match="axes"):
         mesh_lib.make_mesh(("model", "data"))
+
+
+def _params_gap_norm(got: dict, want: dict) -> float:
+    """The norm of the parameters' difference, every leaf together."""
+    return float(np.sqrt(sum(((got[k] - want[k]) ** 2).sum() for k in want
+                             if k.startswith("params/"))))
+
+
+def _assert_bf16_close(got: dict, want_loss: float, want: dict) -> None:
+    np.testing.assert_allclose(got["loss"], want_loss, rtol=BF16_LOSS_RTOL)
+    assert set(want) <= set(got)
+    for key in sorted(want):
+        rtol, atol = ((BF16_STATS_RTOL, BF16_STATS_ATOL) if key.startswith("batch_stats/")
+                      else (0, BF16_PARAM_ATOL))
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=atol, err_msg=key)
+
+
+def test_bf16_tp_step_equals_jax_bf16_tp_step(runs):
+    """JAX's bf16 UNet28 step on its (1, 2) mesh (``make_train_step`` with
+    ``state_sharding``) against the port's bf16 TP step at (1, 2) on the same
+    draws (SGD): the loss, the params and the BatchNorm statistics within the
+    bf16 bounds, which the port's one-process bf16 step meets as well."""
+    want = runs["jax"]["unet_bf16_tp"]
+    for got in [_case(r, "m12/unet_bf16_jax") for r in _ranks_of(runs, "m12")] + [
+            runs["one"]["unet_bf16_jax"]]:
+        gaps = {"loss_rel": abs(got["loss"] - want["loss"]) / want["loss"],
+                "params": max(np.abs(got[k] - v).max() for k, v in want["weights"].items()
+                              if k.startswith("params/")),
+                "stats": max(np.abs(got[k] - v).max() for k, v in want["weights"].items()
+                             if k.startswith("batch_stats/"))}
+        print("bf16 step vs JAX's bf16 (1, 2) step:", gaps)
+        _assert_bf16_close(got, want["loss"], want["weights"])
+
+
+def test_bf16_tp_sums_float32_partials_as_jax_does(runs):
+    """JAX's compiled bf16 (1, 2) step runs every collective in float32, each
+    all-reduce fed by a float32 convolution (or dot) of the bf16 operands:
+    the partial input gradients are summed unrounded. The port's sharded
+    layers give float32 partials too (``parallel.mesh.apply_full``): its bf16
+    TP step stays within ``BF16_TP_NORM`` of its one-process step, where the
+    same step with each partial rounded to bf16 before the sum (the port
+    before) does not."""
+    collectives = runs["jax"]["unet_bf16_tp"]["collectives"]
+    assert collectives and all(dtype == "f32" for _, dtype, _ in collectives), collectives
+    fed = [source for op, _, source in collectives if op.startswith("all-reduce")]
+    assert fed and all(source in ("convolution", "dot", "fusion") for source in fed), fed
+    assert "convolution" in fed
+    one = runs["one"]["unet_bf16_jax"]
+    for rank in _ranks_of(runs, "m12"):
+        repaired = _params_gap_norm(_case(rank, "m12/unet_bf16_jax"), one)
+        rounded = _params_gap_norm(_case(rank, "m12/bf16_rounded"), one)
+        print("bf16 (1, 2) step vs one process, params gap norm: float32 partials",
+              repaired, "bf16-rounded partials", rounded)
+        assert repaired < BF16_TP_NORM < rounded
+
+
+def test_bf16_tp_adam_trajectory_stays_near_one_process(runs):
+    """Four bf16 Adam steps at (1, 2) (the step's own draws) against the
+    same steps in one process: each loss within ``BF16_TRAJECTORY_RTOL``
+    (Adam's scale-free update carries the summation-order gaps forward), with
+    float32 partials and, for the record, rounded ones."""
+    one = runs["one"]["bf16_trajectory"]
+    for rank in _ranks_of(runs, "m12"):
+        gaps = {}
+        for name in ("bf16_trajectory", "bf16_trajectory_rounded"):
+            got = _case(rank, f"m12/{name}")
+            gaps[name] = (np.abs(got["loss"] - one["loss"]) / one["loss"],
+                          _params_gap_norm(got, one))
+        print("bf16 (1, 2) trajectory vs one process: loss rel, params gap norm", gaps)
+        assert gaps["bf16_trajectory"][0].max() < BF16_TRAJECTORY_RTOL, gaps

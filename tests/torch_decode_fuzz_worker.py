@@ -1,0 +1,107 @@
+"""Seeded corruptions of one image file through the port's C decoders and
+their plain versions, in a process of its own.
+
+``tests/test_torch_native_decode.py`` runs it as a subprocess, so that a
+crash in the C library fails that test instead of killing a pytest worker:
+
+    python -m tests.torch_decode_fuzz_worker FILE SEED COUNT
+
+Each mutant of ``FILE`` (a truncation at a random length, or one to three
+random bytes replaced) must raise ``ValueError`` in ``decode_image`` exactly
+where the plain version raises it, and otherwise give the plain version's
+bytes. The size fields of the headers are left alone (``size_fields``), so
+that no mutant asks the plain version for a huge image; truncations cover
+them. Prints one JSON line: the mutants, how many each decoder refused, and
+the first disagreement, if any; exits 1 on a disagreement.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+
+from tinydiffusion_torch.data import gif, jpeg, laion, webp
+
+
+def plain(data: bytes) -> np.ndarray:
+    """``decode_image`` with the plain versions of the C decoders."""
+    if data[:2] == b"\xff\xd8":
+        return jpeg.decode_jpeg_reference(data)
+    if data[:6] in gif.SIGNATURES:
+        return gif.decode_gif_reference(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return webp.decode_webp_reference(data)
+    return laion.decode_image(data)
+
+
+def size_fields(data: bytes) -> set[int]:
+    """The byte offsets of the header fields that give the image's size:
+    JPEG's SOF height and width, GIF's screen and first image descriptor,
+    a VP8X canvas, VP8's and VP8L's frame sizes."""
+    found = set()
+    if data[:2] == b"\xff\xd8":  # the marker segments up to the frame's
+        k = 2
+        while k + 9 <= len(data) and data[k] == 0xFF:
+            if data[k + 1] in (0xC0, 0xC1, 0xC2):
+                found |= set(range(k + 5, k + 9))
+                break
+            k += 2 + int.from_bytes(data[k + 2:k + 4], "big")
+    elif data[:6] in gif.SIGNATURES:
+        found |= set(range(6, 10))
+        k = 13 + ((3 << ((data[10] & 7) + 1)) if data[10] & 128 else 0)
+        while k < len(data) and data[k] == 0x21:  # extensions: a label, then sub-blocks
+            k += 2
+            while k < len(data) and data[k]:
+                k += 1 + data[k]
+            k += 1
+        if k < len(data) and data[k] == 0x2C:
+            found |= set(range(k + 1, k + 9))
+    else:
+        for tag, first, last in ((b"VP8X", 12, 18), (b"VP8 ", 14, 18), (b"VP8L", 9, 13)):
+            k = data.find(tag)
+            if k >= 0:
+                found |= set(range(k + first, k + last))
+    return found
+
+
+def mutants(data: bytes, seed: int, count: int):
+    rng = np.random.default_rng(seed)
+    fixed = size_fields(data)
+    free = np.array([k for k in range(len(data)) if k not in fixed])
+    for i in range(count):
+        if i % 2 == 0:
+            yield f"truncated to {(n := int(rng.integers(0, len(data))))}", data[:n]
+        else:
+            out = bytearray(data)
+            for k in rng.choice(free, int(rng.integers(1, 4)), replace=False):
+                out[k] = int(rng.integers(0, 256))
+            yield "bytes replaced", bytes(out)
+
+
+def main(path: str, seed: int, count: int) -> int:
+    with open(path, "rb") as f:
+        data = f.read()
+    refused = {"c": 0, "plain": 0}
+    disagreement = None
+    for what, mutant in mutants(data, seed, count):
+        results = {}
+        for name, decode in (("c", laion.decode_image), ("plain", plain)):
+            try:
+                results[name] = decode(mutant)
+            except ValueError:
+                results[name] = None
+                refused[name] += 1
+        c, ref = results["c"], results["plain"]
+        same = (c is None and ref is None) or (c is not None and ref is not None
+                                               and c.shape == ref.shape and np.array_equal(c, ref))
+        if not same and disagreement is None:
+            disagreement = {"mutant": what, "c": None if c is None else list(c.shape),
+                            "plain": None if ref is None else list(ref.shape)}
+    print(json.dumps({"mutants": count, "refused": refused, "disagreement": disagreement}))
+    return 1 if disagreement else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3])))

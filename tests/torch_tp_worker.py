@@ -7,8 +7,10 @@ meshes (the last with a UNet28 of base width 2), then
 ranks 0 and 1 join a world of two for ``(1, 2)``. On each mesh it takes one
 SGD step of the small UNet28 (unconditional, and class-conditional with
 label dropout and an EMA) from the test's weights, with the step's own
-draws and with JAX's draws through the seams, three resident steps
-(``make_resident_multi_step``), and once more with the
+draws and with JAX's draws through the seams (and the unconditional one in
+bfloat16 on JAX's draws, also as it was before its float32 partial input
+gradients: rounded to bf16 before the model axis sums them), three
+resident steps (``make_resident_multi_step``), and once more with the
 gather's backward made to split its gradient instead of reduce-scattering
 it, and once with the one-channel head's gather made to sum its whole
 gradient over the model axis (the checks with teeth). It records the loss,
@@ -35,7 +37,9 @@ from tinydiffusion_torch.train import trainer
 LR = 1e-2
 UNET_SMALL = {"time_dim": 32, "base_width": 8}
 NUM_CLASSES, NULL_LABEL, LABEL_DROPOUT, EMA_DECAY = 11, 10, 0.5, 0.9
-CASES = ("unet", "unet_jax", "cond", "cond_jax")
+# unet_bf16_jax: the bfloat16 step (autocast) on JAX's draws, held to JAX's
+# bf16 step on its own (1, 2) mesh.
+CASES = ("unet", "unet_jax", "cond", "cond_jax", "unet_bf16_jax")
 RESIDENT_STEPS = 3
 
 
@@ -59,6 +63,7 @@ def step(inputs: dict, case: str, mesh: mesh_lib.Mesh | None = None) -> dict:
     batch): the loss, the shards' shapes and the whole weights after it."""
     conditional = case.startswith("cond")
     jax_draws = case.endswith("_jax")
+    compute_dtype = torch.bfloat16 if "_bf16" in case else torch.float32
     model = _model(conditional)
     weights = torch.load(inputs["cond_weights" if conditional else "unet_weights"])
     shardings = None
@@ -71,7 +76,8 @@ def step(inputs: dict, case: str, mesh: mesh_lib.Mesh | None = None) -> dict:
                                        ema=conditional)
     kw = dict(conditional=True, label_dropout=LABEL_DROPOUT, null_label=NULL_LABEL,
               ema_decay=EMA_DECAY) if conditional else {}
-    train_step = trainer.make_train_step(_schedule(inputs), mesh=mesh, **kw)
+    train_step = trainer.make_train_step(_schedule(inputs), mesh=mesh,
+                                         compute_dtype=compute_dtype, **kw)
     prefix = "cond" if conditional else "unet"
     dp = None if mesh is None else mesh.dp
     x0 = mesh_lib.shard(dp, torch.from_numpy(np.array(inputs[f"{prefix}_x0"])))
@@ -124,6 +130,36 @@ def resident_steps(inputs: dict, mesh: mesh_lib.Mesh | None = None) -> dict:
     return out
 
 
+TRAJECTORY_STEPS, TRAJECTORY_LR = 4, 1e-3
+
+
+def bf16_trajectory(inputs: dict, mesh: mesh_lib.Mesh | None = None) -> dict:
+    """TRAJECTORY_STEPS bfloat16 Adam steps of the small UNet28 on the whole
+    batch with the step's own draws, sharded on ``mesh`` or in one process:
+    each step's loss and the whole weights after them."""
+    model = _model(False)
+    weights = torch.load(inputs["unet_weights"])
+    shardings = None
+    if mesh is not None:
+        shardings = mesh_lib.infer_state_sharding(model, mesh)
+        mesh_lib.apply_sharding(model, shardings, mesh, state_dict=weights)
+    else:
+        model.load_state_dict(weights)
+    state = trainer.create_train_state(
+        model, torch.optim.Adam(model.parameters(), lr=TRAJECTORY_LR), 0)
+    step = trainer.make_train_step(_schedule(inputs), mesh=mesh, compute_dtype=torch.bfloat16)
+    x0 = torch.from_numpy(np.array(inputs["unet_x0"]))
+    losses = [step(state, x0).item() for _ in range(TRAJECTORY_STEPS)]
+    if mesh is not None:
+        whole = _model(False)
+        whole.load_state_dict(mesh_lib.gather_state_dict(model.state_dict(), shardings, mesh))
+        state = trainer.DiffusionTrainState(whole, state.optimizer, state.generator, None,
+                                            state.step)
+    out = {"loss": np.asarray(losses)}
+    out.update({k: v for k, v in state.jax_weights().items() if k != "step"})
+    return out
+
+
 NARROW = {"time_dim": 32, "base_width": 2}
 
 
@@ -160,7 +196,7 @@ def _split_backward(ctx, grad):
     grad = grad.movedim(1, -1)
     blocks = grad.split([w * mp.size for w in widths], -1)
     mine = torch.cat([b.split(w, -1)[mp.rank] for b, w in zip(blocks, widths)], -1)
-    return (None, None, *[g.movedim(-1, 1) for g in mine.split(widths, -1)])
+    return (None, None, None, *[g.movedim(-1, 1) for g in mine.split(widths, -1)])
 
 
 def _run_mesh(inputs: dict, mesh: mesh_lib.Mesh, tag: str, out_dir: str, rank: int) -> dict:
@@ -177,6 +213,19 @@ def _run_mesh(inputs: dict, mesh: mesh_lib.Mesh, tag: str, out_dir: str, rank: i
             results.update({f"{tag}/teeth/{k}": v for k, v in step(inputs, "unet", mesh).items()})
         finally:
             mesh_lib._ToFull.backward = keep
+        results.update({f"{tag}/bf16_trajectory/{k}": v
+                        for k, v in bf16_trajectory(inputs, mesh).items()})
+        # The bf16 step and trajectory as before the repair: each sharded
+        # layer's input gradient rounded to bf16 before the model axis sums it.
+        keep = mesh_lib._Float32InputGrad.apply
+        mesh_lib._Float32InputGrad.apply = staticmethod(lambda x, w, b, layer: layer(x))
+        try:
+            results.update({f"{tag}/bf16_rounded/{k}": v
+                             for k, v in step(inputs, "unet_bf16_jax", mesh).items()})
+            results.update({f"{tag}/bf16_trajectory_rounded/{k}": v
+                            for k, v in bf16_trajectory(inputs, mesh).items()})
+        finally:
+            mesh_lib._Float32InputGrad.apply = keep
         keep = mesh_lib.out_sharded
         mesh_lib.out_sharded = lambda layer: True  # every consumer taken as sharded
         try:

@@ -1,0 +1,426 @@
+/* JPEG entropy decoding (T.81 Huffman, libjpeg-turbo's jdhuff.c and
+   jdphuff.c), the counterpart of data/jpeg.py's plain _decode_segment and
+   _decode_progressive_scan.
+
+   tdt_jpeg_scan decodes one scan: its restart segments (unstuffed, one after
+   another in `data`, segment s at data[seg_start[s]:seg_start[s + 1]]) into
+   the zigzag-ordered int64 coefficient blocks of the frame. A segment is
+   read MSB first with zeros past its end, and fails when its MCUs take more
+   bits than it holds. Each segment starts with DC predictions of 0 (one a
+   component) and no EOB run. Huffman codes are looked up in the plain
+   version's table of every 16-bit window (length << 8 | symbol; length 0:
+   no code starts the window), with a 9-bit table in front of it.
+
+   geom (int64), as data/jpeg.py::_scan_geometry writes it:
+     [0] MCUs in the scan, [1] MCUs a segment, [2] members (0-4),
+     [3] MCUs a row (a one-component scan: that component's blocks a row),
+     [4] progressive, [5] Ss, [6] Se, [7] Ah, [8] Al,
+     then for each member: component (0-3), offset of the component's first
+     coefficient in `coef`, its blocks a row in `coef`, h, v (1 for a
+     one-component scan), DC table, AC table (indices into `luts`, -1: none). */
+#include <stdlib.h>
+
+#include "decode.h"
+
+#define GEOM_HEAD 9
+#define GEOM_MEMBER 7
+#define MAX_LUTS 8
+
+typedef struct {
+    const uint8_t *p;
+    int64_t nbytes, nbits, pos;
+} bits_t;
+
+typedef struct {
+    const uint16_t *lut;
+    uint16_t fast[512];
+} huff_t;
+
+typedef struct {
+    int64_t comp, base, cols, h, v;
+    const huff_t *dc, *ac;
+} member_t;
+
+/* The 16 bits from bit `pos` on, zeros past the end. */
+static inline uint32_t peek16(const bits_t *b) {
+    int64_t i = b->pos >> 3;
+    uint32_t w;
+    if (i + 2 < b->nbytes) {
+        w = (uint32_t)b->p[i] << 16 | (uint32_t)b->p[i + 1] << 8 | b->p[i + 2];
+    } else {
+        w = 0;
+        for (int k = 0; k < 3; k++) w = w << 8 | (i + k < b->nbytes ? b->p[i + k] : 0);
+    }
+    return (w >> (8 - (b->pos & 7))) & 0xFFFF;
+}
+
+static inline int64_t get_bits(bits_t *b, int n) {
+    if (n == 0) return 0;
+    int64_t v = peek16(b) >> (16 - n);
+    b->pos += n;
+    return v;
+}
+
+static inline int64_t extend(int64_t v, int s) {
+    return s == 0 ? 0 : v < ((int64_t)1 << (s - 1)) ? v - ((int64_t)1 << s) + 1 : v;
+}
+
+static void huff_init(huff_t *h, const uint16_t *lut) {
+    h->lut = lut;
+    for (int i = 0; i < 512; i++) {
+        uint16_t e = lut[i << 7];
+        int len = e >> 8;
+        h->fast[i] = len >= 1 && len <= 9 ? e : 0xFFFF;
+    }
+}
+
+/* The next symbol, or -1 where no code starts. */
+static inline int huff_decode(bits_t *b, const huff_t *h) {
+    uint32_t w = peek16(b);
+    uint16_t e = h->fast[w >> 7];
+    if (e == 0xFFFF) e = h->lut[w];
+    if (!(e >> 8)) return -1;
+    b->pos += e >> 8;
+    return e & 255;
+}
+
+/* One block of a sequential scan. */
+static int block_sequential(bits_t *b, const member_t *m, int64_t *pred, int64_t *c) {
+    int s = huff_decode(b, m->dc);
+    if (s < 0 || s > 15) return TDT_ERR_CODE;
+    pred[m->comp] += extend(get_bits(b, s), s);
+    c[0] = pred[m->comp];
+    for (int k = 1; k < 64; k++) {
+        int rs = huff_decode(b, m->ac);
+        if (rs < 0) return TDT_ERR_CODE;
+        if (rs == 0) break;
+        k += rs >> 4;
+        int size = rs & 15;
+        if (size) {
+            if (k > 63) return TDT_ERR_RANGE;
+            c[k] = extend(get_bits(b, size), size);
+        }
+    }
+    return TDT_OK;
+}
+
+/* Corrections for the nonzero coefficients of c[k..se] while `r` zeros
+   are skipped (r < 0: to se); returns the k it stops at. */
+static inline int refine_until(bits_t *b, int64_t *c, int k, int se, int *r, int64_t p1,
+                               int64_t m1) {
+    for (; k <= se; k++) {
+        int64_t v = c[k];
+        if (v) {
+            if (get_bits(b, 1) && !(v & p1)) c[k] = v + (v >= 0 ? p1 : m1);
+        } else if (*r >= 0 && --*r < 0) {
+            break;
+        }
+    }
+    return k;
+}
+
+/* One block of a progressive scan. */
+static int block_progressive(bits_t *b, const member_t *m, int ss, int se, int ah, int al,
+                             int64_t *pred, int64_t *eobrun, int64_t *c) {
+    int64_t p1 = (int64_t)1 << al, m1 = -p1;
+    if (ss == 0 && ah == 0) { /* DC first */
+        int s = huff_decode(b, m->dc);
+        if (s < 0 || s > 15) return TDT_ERR_CODE;
+        pred[m->comp] += extend(get_bits(b, s), s);
+        c[0] = pred[m->comp] * p1;
+        return TDT_OK;
+    }
+    if (ss == 0) { /* DC refinement */
+        if (get_bits(b, 1)) c[0] |= p1;
+        return TDT_OK;
+    }
+    if (ah == 0) { /* AC first */
+        if (*eobrun) {
+            --*eobrun;
+            return TDT_OK;
+        }
+        for (int k = ss; k <= se;) {
+            int rs = huff_decode(b, m->ac);
+            if (rs < 0) return TDT_ERR_CODE;
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                k += r;
+                int64_t v = extend(get_bits(b, s), s);
+                if (k > 63) return TDT_ERR_RANGE;
+                c[k++] = v * p1;
+            } else if (r == 15) {
+                k += 16;
+            } else {
+                *eobrun = ((int64_t)1 << r) + get_bits(b, r) - 1;
+                break;
+            }
+        }
+        return TDT_OK;
+    }
+    /* AC refinement */
+    int k = ss;
+    if (!*eobrun) {
+        while (k <= se) {
+            int rs = huff_decode(b, m->ac);
+            if (rs < 0) return TDT_ERR_CODE;
+            int r = rs >> 4, s = rs & 15;
+            int64_t v = 0;
+            if (s) {
+                v = get_bits(b, 1) ? p1 : m1;
+            } else if (r != 15) {
+                *eobrun = ((int64_t)1 << r) + get_bits(b, r);
+                break;
+            }
+            k = refine_until(b, c, k, se, &r, p1, m1);
+            if (v) {
+                if (k > 63) return TDT_ERR_RANGE;
+                c[k] = v;
+            }
+            k++;
+        }
+    }
+    if (*eobrun) {
+        int none = -1;
+        refine_until(b, c, k, se, &none, p1, m1);
+        --*eobrun;
+    }
+    return TDT_OK;
+}
+
+int tdt_jpeg_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
+                  const uint16_t *luts, int64_t n_luts, const int64_t *geom, int64_t n_geom,
+                  int64_t *coef, int64_t coef_len) {
+    if (n_geom < GEOM_HEAD || n_segs < 0 || n_luts < 0 || n_luts > MAX_LUTS) return TDT_ERR_ARGS;
+    int64_t n_mcus = geom[0], per = geom[1], n_members = geom[2], mcux = geom[3];
+    int progressive = geom[4] != 0;
+    int64_t ss = geom[5], se = geom[6], ah = geom[7], al = geom[8];
+    if (n_mcus < 0 || per <= 0 || mcux <= 0 || n_members < 0 || n_members > 4
+        || n_geom < GEOM_HEAD + GEOM_MEMBER * n_members || ss < 0 || se > 63 || ss > se
+        || ah < 0 || ah > 15 || al < 0 || al > 15)
+        return TDT_ERR_ARGS;
+    huff_t tables[MAX_LUTS];
+    for (int64_t t = 0; t < n_luts; t++) huff_init(&tables[t], luts + (t << 16));
+    member_t members[4];
+    for (int64_t j = 0; j < n_members; j++) {
+        const int64_t *g = geom + GEOM_HEAD + GEOM_MEMBER * j;
+        member_t *m = &members[j];
+        m->comp = g[0], m->base = g[1], m->cols = g[2], m->h = g[3], m->v = g[4];
+        if (m->comp < 0 || m->comp > 3 || m->base < 0 || m->cols <= 0 || m->h < 1 || m->h > 4
+            || m->v < 1 || m->v > 4 || g[5] < -1 || g[5] >= n_luts || g[6] < -1
+            || g[6] >= n_luts)
+            return TDT_ERR_ARGS;
+        m->dc = g[5] < 0 ? NULL : &tables[g[5]];
+        m->ac = g[6] < 0 ? NULL : &tables[g[6]];
+        /* The tables this kind of scan reads. */
+        int dc_read = !progressive || (ss == 0 && ah == 0);
+        int ac_read = !progressive || ss > 0;
+        if ((dc_read && !m->dc) || (ac_read && !m->ac)) return TDT_ERR_ARGS;
+    }
+    int64_t done = 0;
+    for (int64_t s = 0; s < n_segs && done < n_mcus; s++) {
+        if (seg_start[s] < 0 || seg_start[s + 1] < seg_start[s]) return TDT_ERR_ARGS;
+        bits_t b = {data + seg_start[s], seg_start[s + 1] - seg_start[s], 0, 0};
+        b.nbits = 8 * b.nbytes;
+        int64_t count = per < n_mcus - done ? per : n_mcus - done;
+        int64_t pred[4] = {0, 0, 0, 0}, eobrun = 0;
+        for (int64_t i = done; i < done + count; i++) {
+            int64_t mr = i / mcux, mc = i % mcux;
+            for (int64_t j = 0; j < n_members; j++) {
+                const member_t *m = &members[j];
+                for (int64_t y = 0; y < m->v; y++) {
+                    for (int64_t x = 0; x < m->h; x++) {
+                        int64_t off = m->base + ((mr * m->v + y) * m->cols + mc * m->h + x) * 64;
+                        if (off < 0 || off > coef_len - 64) return TDT_ERR_ARGS;
+                        int rc = progressive
+                            ? block_progressive(&b, m, (int)ss, (int)se, (int)ah, (int)al, pred,
+                                                &eobrun, coef + off)
+                            : block_sequential(&b, m, pred, coef + off);
+                        if (rc) return rc;
+                        /* The position only grows: past the end is final. */
+                        if (b.pos > b.nbits) return TDT_ERR_TRUNCATED;
+                    }
+                }
+            }
+        }
+        done += count;
+    }
+    return done < n_mcus ? TDT_ERR_SEGMENTS : TDT_OK;
+}
+
+/* ---- the pixels: data/jpeg.py::_pixels ------------------------------------ */
+
+static const int ZIGZAG[64] = {
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+enum { MODE_GREY, MODE_YCC, MODE_RGB, MODE_CMYK, MODE_YCCK };
+#define PIX_HEAD 6
+#define PIX_COMP 5
+
+/* jidctint.c's jpeg_idct_islow, one pass over eight values d[0], d[s], ...
+   (int64 as in the plain version), descaled by `shift`. */
+static inline void idct_1d(int64_t *d, int s, int shift) {
+    int64_t z1 = (d[2 * s] + d[6 * s]) * 4433;
+    int64_t tmp2 = z1 - d[6 * s] * 15137, tmp3 = z1 + d[2 * s] * 6270;
+    int64_t tmp0 = (d[0] + d[4 * s]) * 8192, tmp1 = (d[0] - d[4 * s]) * 8192;
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    int64_t t0 = d[7 * s], t1 = d[5 * s], t2 = d[3 * s], t3 = d[s];
+    int64_t w1 = t0 + t3, w2 = t1 + t2, w3 = t0 + t2, w4 = t1 + t3;
+    int64_t w5 = (w3 + w4) * 9633;
+    t0 *= 2446, t1 *= 16819, t2 *= 25172, t3 *= 12299;
+    w1 *= -7373, w2 *= -20995;
+    w3 = w3 * -16069 + w5, w4 = w4 * -3196 + w5;
+    t0 += w1 + w3, t1 += w2 + w4, t2 += w2 + w3, t3 += w1 + w4;
+    int64_t half = (int64_t)1 << (shift - 1);
+    int64_t out[8] = {tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                      tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3};
+    for (int k = 0; k < 8; k++) d[k * s] = (out[k] + half) >> shift;
+}
+
+/* jdmaster.c's range limit of value + 128, indexed by value & 1023. */
+static inline uint8_t idct_limit(int64_t v) {
+    int64_t i = v & 1023;
+    return i < 128 ? (uint8_t)(i + 128) : i < 512 ? 255 : i < 896 ? 0 : (uint8_t)(i - 896);
+}
+
+/* A component's blocks (rows x cols, zigzag) -> samples (8 rows x 8 cols). */
+static void idct_plane(const int64_t *coef, const int64_t *q, int64_t rows, int64_t cols,
+                       uint8_t *plane) {
+    int64_t stride = cols * 8;
+    for (int64_t r = 0; r < rows; r++) {
+        for (int64_t c = 0; c < cols; c++) {
+            const int64_t *in = coef + (r * cols + c) * 64;
+            int64_t d[64];
+            for (int k = 0; k < 64; k++) d[ZIGZAG[k]] = in[k];
+            for (int k = 0; k < 64; k++) d[k] *= q[k];
+            for (int x = 0; x < 8; x++) idct_1d(d + x, 8, 11);       /* columns */
+            for (int y = 0; y < 8; y++) idct_1d(d + 8 * y, 1, 18);   /* rows */
+            uint8_t *out = plane + r * 8 * stride + c * 8;
+            for (int y = 0; y < 8; y++)
+                for (int x = 0; x < 8; x++) out[y * stride + x] = idct_limit(d[8 * y + x]);
+        }
+    }
+}
+
+/* jdsample.c's upsampling of src (ph x pw, row stride `stride`) by (fh, fv),
+   the result cropped to dst (h x w): h2v2 and h2v1 fancy where the plane is
+   over 2 columns wide (else replication), h1v2 fancy, or a copy. */
+static void upsample(const uint8_t *src, int64_t ph, int64_t pw, int64_t stride, int fh, int fv,
+                     uint8_t *dst, int64_t h, int64_t w) {
+    for (int64_t y = 0; y < h; y++) {
+        int64_t i = y / fv;
+        const uint8_t *row = src + i * stride;
+        const uint8_t *near = fv == 2 ? src + (y & 1 ? (i + 1 < ph ? i + 1 : i) : (i > 0 ? i - 1 : 0)) * stride
+                                      : row;
+        uint8_t *out = dst + y * w;
+        for (int64_t x = 0; x < w; x++) {
+            int64_t j = x / fh;
+            int v;
+            if (fh == 1 && fv == 1) {
+                v = row[j];
+            } else if (fh == 2 && pw <= 2) {
+                v = row[j];
+            } else if (fh == 1) { /* h1v2: 3/4 of this row, 1/4 of the nearer one */
+                v = (3 * row[j] + near[j] + (y & 1 ? 2 : 1)) >> 2;
+            } else {
+                int64_t jn = x & 1 ? (j + 1 < pw ? j + 1 : j) : (j > 0 ? j - 1 : 0);
+                if (fv == 1) { /* h2v1 */
+                    v = (3 * row[j] + row[jn] + (x & 1 ? 2 : 1)) >> 2;
+                } else { /* h2v2: the column sums first, then along the row */
+                    int c = 3 * row[j] + near[j], cn = 3 * row[jn] + near[jn];
+                    v = (3 * c + cn + (x & 1 ? 7 : 8)) >> 4;
+                }
+            }
+            out[x] = (uint8_t)v;
+        }
+    }
+}
+
+static inline int clamp255(int64_t v) { return v < 0 ? 0 : v > 255 ? 255 : (int)v; }
+
+static inline int muldiv255(int a, int b) {
+    int t = a * b + 128;
+    return ((t >> 8) + t) >> 8;
+}
+
+/* The inverse DCT, upsampling and colour conversion of a decoded frame.
+   geom: height, width, hmax, vmax, components (1, 3 or 4), mode, then for
+   each component: offset of its first coefficient, block rows, block
+   columns, h, v. qtables: 64 natural-order int64 a component. */
+int tdt_jpeg_pixels(const int64_t *coef, int64_t coef_len, const int64_t *qtables,
+                    const int64_t *geom, int64_t n_geom, uint8_t *rgb, int64_t rgb_len) {
+    if (n_geom < PIX_HEAD) return TDT_ERR_ARGS;
+    int64_t height = geom[0], width = geom[1], hmax = geom[2], vmax = geom[3], n = geom[4];
+    int mode = (int)geom[5];
+    if (height <= 0 || width <= 0 || hmax < 1 || vmax < 1 || (n != 1 && n != 3 && n != 4)
+        || n_geom < PIX_HEAD + PIX_COMP * n || rgb_len != height * width * 3 || mode < 0
+        || mode > MODE_YCCK)
+        return TDT_ERR_ARGS;
+    uint8_t *planes[4] = {NULL, NULL, NULL, NULL};
+    uint8_t *samples = NULL;
+    int rc = TDT_OK;
+    for (int64_t ci = 0; ci < n && rc == TDT_OK; ci++) {
+        const int64_t *g = geom + PIX_HEAD + PIX_COMP * ci;
+        int64_t base = g[0], rows = g[1], cols = g[2], h = g[3], v = g[4];
+        if (base < 0 || rows <= 0 || cols <= 0 || h < 1 || v < 1 || hmax % h || vmax % v
+            || rows * cols * 64 > coef_len - base) {
+            rc = TDT_ERR_ARGS;
+            break;
+        }
+        int fh = (int)(hmax / h), fv = (int)(vmax / v);
+        int64_t ph = (height * v + vmax - 1) / vmax, pw = (width * h + hmax - 1) / hmax;
+        if (fh > 2 || fv > 2 || ph > rows * 8 || pw > cols * 8 || ph * fv < height
+            || pw * fh < width) {
+            rc = TDT_ERR_ARGS;
+            break;
+        }
+        samples = malloc((size_t)(rows * cols * 64));
+        planes[ci] = malloc((size_t)(height * width));
+        if (!samples || !planes[ci]) {
+            rc = TDT_ERR_MEMORY;
+            break;
+        }
+        idct_plane(coef + base, qtables + 64 * ci, rows, cols, samples);
+        upsample(samples, ph, pw, cols * 8, fh, fv, planes[ci], height, width);
+        free(samples);
+        samples = NULL;
+    }
+    if (rc == TDT_OK) {
+        int64_t npix = height * width;
+        for (int64_t i = 0; i < npix; i++) {
+            uint8_t *out = rgb + 3 * i;
+            if (mode == MODE_GREY) {
+                out[0] = out[1] = out[2] = planes[0][i];
+                continue;
+            }
+            if (mode == MODE_RGB) {
+                for (int k = 0; k < 3; k++) out[k] = planes[k][i];
+                continue;
+            }
+            int64_t y = planes[0][i], cb = planes[1][i] - 128, cr = planes[2][i] - 128;
+            int64_t half = 1 << 15;
+            int64_t r = y + ((91881 * cr + half) >> 16);
+            int64_t gg = y + ((-22554 * cb + half - 46802 * cr) >> 16);
+            int64_t b = y + ((116130 * cb + half) >> 16);
+            if (mode == MODE_YCC) {
+                out[0] = (uint8_t)clamp255(r), out[1] = (uint8_t)clamp255(gg),
+                out[2] = (uint8_t)clamp255(b);
+                continue;
+            }
+            /* CMYK (Adobe's inverted), or YCCK: 255 less the YCbCr sums. */
+            int cmy[3];
+            if (mode == MODE_YCCK) {
+                cmy[0] = clamp255(255 - r), cmy[1] = clamp255(255 - gg), cmy[2] = clamp255(255 - b);
+            } else {
+                for (int k = 0; k < 3; k++) cmy[k] = planes[k][i];
+            }
+            int nk = 255 - (255 - planes[3][i]);
+            for (int k = 0; k < 3; k++) out[k] = (uint8_t)clamp255(nk - muldiv255(255 - cmy[k], nk));
+        }
+    }
+    free(samples);
+    for (int k = 0; k < 4; k++) free(planes[k]);
+    return rc;
+}

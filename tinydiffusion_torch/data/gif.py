@@ -1,4 +1,4 @@
-"""GIF decode in Python and numpy, as ``Image.open(f).convert("RGB")`` gives it.
+"""GIF decode, as ``Image.open(f).convert("RGB")`` gives it.
 
 JAX's LAION loader reads every web image with Pillow; the port reads GIF
 here. Pillow opens a GIF at its first frame (``GifImagePlugin``), and so
@@ -12,12 +12,15 @@ up in the frame's local palette, else the global one (black past its
 entries). As in Pillow, a file without a palette, or whose palette is the
 grey ramp, reads as greyscale: each index its own grey. Transparency is dropped as
 ``convert("RGB")`` drops it. Later frames of an animation are not read.
-Truncated or corrupt files raise ``ValueError``.
+Truncated or corrupt files raise ``ValueError``. ``decode_gif`` decodes the
+LZW data in C (``data/csrc/gif.c``); ``decode_gif_reference`` in Python.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from tinydiffusion_torch.data import native
 
 SIGNATURES = (b"GIF87a", b"GIF89a")
 
@@ -34,6 +37,18 @@ def _sub_blocks(data: bytes, pos: int) -> tuple[bytes, int]:
             return b"".join(parts), pos + 1
         parts.append(data[pos + 1:pos + 1 + n])
         pos += 1 + n
+
+
+def _lzw_native(data: bytes, min_size: int, count: int) -> bytes:
+    """``_lzw_decode`` in C (``data/csrc/gif.c``)."""
+    src = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
+    out = np.empty(max(count, 1), np.uint8)
+    written = np.zeros(1, np.int64)
+    native.check(native.library().tdt_gif_lzw(native.ptr(src), len(data), min_size, native.ptr(out),
+                                              count, native.ptr(written)), "GIF",
+                 {native.ERR_CORRUPT: f"corrupt GIF file: an LZW code size of {min_size}",
+                  native.ERR_CODE: "corrupt GIF data: an LZW code past the table"})
+    return out[:int(written[0])].tobytes()
 
 
 def _lzw_decode(data: bytes, min_size: int, count: int) -> bytes:
@@ -100,8 +115,25 @@ def _palette(raw: bytes) -> np.ndarray:
 
 def decode_gif(data: bytes) -> np.ndarray:
     """The (H, W, 3) uint8 RGB of a GIF file's first frame, as Pillow 12.1's
-    ``Image.open(f).convert("RGB")`` gives it."""
-    data = bytes(data)
+    ``Image.open(f).convert("RGB")`` gives it; the LZW data decoded by the C
+    library (``data/csrc/gif.c``, built at the first call)."""
+    return _decode(data, _lzw_native)
+
+
+def decode_gif_reference(data: bytes) -> np.ndarray:
+    """The plain version of ``decode_gif``: its LZW decoded in Python. The
+    tests and ``chip_smoke.py`` hold the C library to it."""
+    return _decode(data, _lzw_decode)
+
+
+def _decode(data: bytes, lzw_decode) -> np.ndarray:
+    try:
+        return _decode_blocks(bytes(data), lzw_decode)
+    except IndexError as e:  # a block that ends inside its header
+        raise ValueError("truncated GIF file") from e
+
+
+def _decode_blocks(data: bytes, lzw_decode) -> np.ndarray:
     if data[:6] not in SIGNATURES or len(data) < 13:
         raise ValueError("not a GIF file")
     width, height = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little")
@@ -149,7 +181,7 @@ def decode_gif(data: bytes) -> np.ndarray:
     if width == 0 or height == 0:
         raise ValueError("corrupt GIF file: an empty image")
     canvas = np.full((height, width), 0 if transparency is None else transparency, np.uint8)
-    pixels = np.frombuffer(_lzw_decode(lzw, min_size, w * h), np.uint8)
+    pixels = np.frombuffer(lzw_decode(lzw, min_size, w * h), np.uint8)
     if len(pixels) < w * h:
         raise ValueError("truncated GIF data")
     frame = pixels.reshape(h, w)

@@ -1,4 +1,4 @@
-"""Baseline JPEG in numpy, as Pillow's libjpeg-turbo writes and reads it.
+"""JPEG as Pillow's libjpeg-turbo writes and reads it: the encoder in numpy, the decoder in C.
 
 JAX's LAION loader caches each image as ``image.save(path, "JPEG",
 quality=95)`` and reads the cache back with Pillow (``tinydiffusion_tpu/
@@ -38,6 +38,10 @@ Adobe's inverted CMYK, or YCCK by the APP14 transform flag, converted to RGB
 as Pillow's ``CMYK;I`` raw mode and ``cmyk2rgb`` do. Arithmetic-coded,
 lossless and 12-bit files raise ``ValueError`` with the reason, as do
 truncated or corrupt ones.
+
+``decode_jpeg`` parses the markers here and decodes each scan, the inverse
+DCT, the upsampling and the colour in C (``data/csrc/jpeg.c``), step for step
+what ``decode_jpeg_reference`` does in Python and numpy.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+
+from tinydiffusion_torch.data import native as _native
 
 # jcparam.c's standard tables (ITU T.81 Annex K), natural (row-major) order.
 _STD_LUMINANCE = np.array([
@@ -448,18 +454,27 @@ def encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
 
 
 @functools.lru_cache(maxsize=64)
+def _packed_lut(counts: tuple, symbols: bytes) -> np.ndarray:
+    """For each 16-bit window, the code that starts it as ``length << 8 |
+    symbol`` (0: no code starts the window), uint16: the table both the C
+    decoder and the plain one read. A symbol given twice keeps its last code."""
+    code, size = _huffman_codes(counts, symbols)
+    table = np.zeros(1 << 16, np.uint16)
+    for s in symbols:
+        lo = int(code[s]) << (16 - int(size[s]))
+        table[lo:lo + (1 << (16 - int(size[s])))] = int(size[s]) << 8 | s
+    return table
+
+
+@functools.lru_cache(maxsize=64)
 def _decode_lut(tc: int, counts: tuple, symbols: bytes) -> tuple[np.ndarray, ...]:
     """A table of class ``tc`` (0 DC, 1 AC) for each 16-bit window that starts
     with one of its codes: the symbol, the code's length (0: no code starts
     the window), the bits to the next symbol (the code and the extra bits the
     symbol announces) and, for AC, the symbol's advance in its block (run + 1;
     64 for EOB, which ends the block, and for no code)."""
-    code, size = _huffman_codes(counts, symbols)
-    sym, length = np.zeros(1 << 16, np.int64), np.zeros(1 << 16, np.int64)
-    for s in symbols:
-        lo = int(code[s]) << (16 - int(size[s]))
-        sym[lo:lo + (1 << (16 - int(size[s])))] = s
-        length[lo:lo + (1 << (16 - int(size[s])))] = size[s]
+    packed = _packed_lut(counts, symbols).astype(np.int64)
+    sym, length = packed & 255, packed >> 8
     skip = length + (sym if tc == 0 else sym & 15)
     adv = np.where((sym == 0) | (length == 0), 64, (sym >> 4) + 1)
     return sym, length, skip, adv
@@ -553,8 +568,12 @@ def _decode_segment(seg: np.ndarray, plan: list, n_mcus: int,
         kk[live] += adv[ac_t[live], at_live]
         cur[live] = nxt[ac_t[live], at_live]
         live = live[kk[live] < 64]
-    order = np.argsort(np.concatenate(found_block), kind="stable")
+    found_block = np.concatenate(found_block)
+    order = np.argsort(found_block, kind="stable")
     ac_pos = np.concatenate(found_pos)[order]
+    # Each symbol's block as the walk found it (a bit pattern that is no code
+    # does not advance, so a position alone may name the next block).
+    block = found_block[order]
     dc_pos = np.array(dc_pos, np.int64)
     n_blocks = len(dc_pos)
     # DC: the size, then the bits of the difference.
@@ -566,7 +585,6 @@ def _decode_segment(seg: np.ndarray, plan: list, n_mcus: int,
         dlen[sel] = luts[dc_table][1][dc_w[sel]]
     dc = _extend(window[dc_pos + dlen] >> (16 - dsize), dsize)
     # AC: each symbol's block, its coefficient index after the run, its value.
-    block = np.searchsorted(dc_pos, ac_pos, side="right") - 1
     ac_w = window[ac_pos]
     asym, alen = np.empty(len(ac_pos), np.int64), np.empty(len(ac_pos), np.int64)
     for ac_table in {ac for _, ac in plan}:
@@ -621,11 +639,29 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     """The (H, W, 3) uint8 RGB of a baseline, extended-sequential or
     progressive Huffman JPEG, as ``Image.open(f).convert("RGB")`` gives it (Pillow 12.1,
     libjpeg-turbo). Raises ``ValueError`` on any other kind of file, and on
-    truncated or corrupt data."""
-    data = bytes(data)
+    truncated or corrupt data. The entropy-coded scans and the pixels are
+    decoded by the C library (``data/csrc/jpeg.c``, built at the first call)."""
+    return _decode(data, native=True)
+
+
+def decode_jpeg_reference(data: bytes) -> np.ndarray:
+    """The plain version of ``decode_jpeg``: the same file, its scans and
+    pixels decoded in Python and numpy. The tests and ``chip_smoke.py`` hold
+    the C library to it."""
+    return _decode(data, native=False)
+
+
+def _decode(data: bytes, native: bool) -> np.ndarray:
+    try:
+        return _decode_markers(bytes(data), native)
+    except (IndexError, ZeroDivisionError) as e:  # a marker segment shorter than it says
+        raise ValueError(f"corrupt JPEG file: {e!r}") from e
+
+
+def _decode_markers(data: bytes, native: bool) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
-    qtables, luts = {}, {}
+    qtables, tables = {}, {}
     frame, restart, adobe, jfif = None, 0, None, False
     latched = {}  # component -> its quantisation table, fixed at its first scan
     pos = 2
@@ -669,9 +705,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 tc, th = body[i] >> 4, body[i] & 15
                 counts = tuple(body[i + 1:i + 17])
                 symbols = body[i + 17:i + 17 + sum(counts)]
-                if len(counts) != 16 or len(symbols) != sum(counts) or tc > 1:
+                if (len(counts) != 16 or len(symbols) != sum(counts) or tc > 1
+                        or (tc == 0 and any(v > 15 for v in symbols))):
+                    # jdhuff.c refuses a DC symbol over 15 (no DC difference is wider).
                     raise ValueError("corrupt JPEG file: a bad DHT table")
-                luts[tc, th] = _decode_lut(tc, counts, bytes(symbols))
+                tables[tc, th] = (counts, bytes(symbols))
                 i += 17 + sum(counts)
         elif marker == 0xDD:
             restart = int.from_bytes(body[:2], "big")
@@ -700,33 +738,40 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 raise ValueError(f"JPEG sampling factors {[c[1:3] for c in comps]} are not "
                                  "supported")
             mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+            # Every component's blocks in one buffer, zigzag order.
+            shapes = [(mcuy * c[2], mcux * c[1], 64) for c in comps]
+            bases = np.cumsum([0] + [int(np.prod(shape)) for shape in shapes])
+            coef = np.zeros(int(bases[-1]), np.int64)
             frame = {"height": height, "width": width, "comps": comps, "hmax": hmax,
                      "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "done": False,
-                     "progressive": marker == 0xC2,
-                     "coef": [np.zeros((mcuy * c[2], mcux * c[1], 64), np.int64) for c in comps],
+                     "progressive": marker == 0xC2, "coef_all": coef,
+                     "coef_base": [int(b) for b in bases[:-1]],
+                     "coef": [coef[b:b + int(np.prod(shape))].reshape(shape)
+                              for b, shape in zip(bases, shapes)],
                      "seen": [False] * nf}
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("corrupt JPEG file: a scan before the frame")
-            pos = _decode_scan(data, pos, body, frame, luts, qtables, latched, restart)
+            pos = _decode_scan(data, pos, body, frame, tables, qtables, latched, restart, native)
         # APPn, COM and the rest carry nothing the pixels depend on.
     if frame is None or not all(frame["seen"]):
         raise ValueError("truncated JPEG file: a component was never scanned")
-    return _pixels(frame, latched, jfif, adobe)
+    return _pixels(frame, latched, jfif, adobe, native)
 
 
-def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, luts: dict, qtables: dict,
-                 latched: dict, restart: int) -> int:
-    """Decode one sequential scan into ``frame["coef"]``; returns the position
-    of the marker after its data."""
+def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, qtables: dict,
+                 latched: dict, restart: int, native: bool) -> int:
+    """Decode one scan into ``frame["coef"]`` (in C when ``native``); returns
+    the position of the marker after its data. ``tables``: (class, id) ->
+    (counts, symbols) of each Huffman table defined so far."""
     ns = body[0]
     ids = [c[0] for c in frame["comps"]]
     members = []
     for j in range(ns):
-        cid, tables = body[1 + 2 * j], body[2 + 2 * j]
+        cid, selectors = body[1 + 2 * j], body[2 + 2 * j]
         if cid not in ids:
             raise ValueError("corrupt JPEG file: a scan of an unknown component")
-        members.append((ids.index(cid), tables >> 4, tables & 15))
+        members.append((ids.index(cid), selectors >> 4, selectors & 15))
     ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
     progressive = frame["progressive"]
     if not progressive and (ss, se, ahl) != (0, 63, 0):
@@ -737,14 +782,18 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, luts: dict, qt
                          "components")
     for ci, td, ta in members:
         # The tables the scan reads: DC for a first DC scan, AC for an AC scan.
-        if ((0, td) not in luts and (not progressive or (ss == 0 and ahl >> 4 == 0))
-                or (1, ta) not in luts and (not progressive or ss > 0)):
+        if ((0, td) not in tables and (not progressive or (ss == 0 and ahl >> 4 == 0))
+                or (1, ta) not in tables and (not progressive or ss > 0)):
             raise ValueError("corrupt JPEG file: a scan names a Huffman table never defined")
         if ci not in latched:
             tq = frame["comps"][ci][3]
             if tq not in qtables:
                 raise ValueError("corrupt JPEG file: a component's DQT table is missing")
             latched[ci] = qtables[tq]
+    if native:
+        return _native_scan(data, pos, members, (ss, se, ahl >> 4, ahl & 15), frame, tables,
+                            restart)
+    luts = {key: _decode_lut(key[0], *table) for key, table in tables.items()}
     if progressive:
         return _decode_progressive_scan(data, pos, members, (ss, se, ahl >> 4, ahl & 15),
                                         frame, luts, restart)
@@ -793,6 +842,65 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, luts: dict, qt
         if ended:
             raise ValueError("corrupt JPEG data: fewer restart segments than MCUs")
         raise ValueError("truncated JPEG file")
+    for ci, _, _ in members:
+        frame["seen"][ci] = True
+    frame["done"] = all(frame["seen"])
+    return end
+
+
+_SCAN_ERRORS = {
+    _native.ERR_TRUNCATED: "corrupt or truncated JPEG data: a scan segment ends early",
+    _native.ERR_CODE: "corrupt JPEG data: a bit pattern that is no Huffman code",
+    _native.ERR_RANGE: "corrupt JPEG data: a coefficient past the block's 64",
+}
+
+
+def _native_scan(data: bytes, pos: int, members: list, spectral: tuple, frame: dict,
+                 tables: dict, restart: int) -> int:
+    """One scan through the C library's ``tdt_jpeg_scan``: what
+    ``_decode_progressive_scan`` and the sequential path of ``_decode_scan``
+    compute, into the same ``frame["coef"]``."""
+    ss, se, ah, al = spectral
+    progressive = frame["progressive"]
+    comps = frame["comps"]
+    if len(members) == 1:  # one block an MCU, the component's own grid
+        ci = members[0][0]
+        _, h, v, _ = comps[ci]
+        across = -(-(-(-frame["width"] * h // frame["hmax"])) // 8)
+        down = -(-(-(-frame["height"] * v // frame["vmax"])) // 8)
+        n_mcus, shape = across * down, {ci: (1, 1)}
+    else:
+        across, n_mcus = frame["mcux"], frame["mcux"] * frame["mcuy"]
+        shape = {ci: (comps[ci][1], comps[ci][2]) for ci, _, _ in members}
+    # The tables each kind of scan reads; a progressive DC scan reads a
+    # component's table from its last member, as the plain version does.
+    last_dc = {ci: td for ci, td, _ in members}
+    keys = []
+    geom = [n_mcus, restart or n_mcus, len(members), across, int(progressive), ss, se, ah, al]
+    for ci, td, ta in members:
+        dc = (0, last_dc[ci] if progressive else td) if not progressive or (
+            ss == 0 and ah == 0) else None
+        ac = (1, ta) if not progressive or ss > 0 else None
+        slots = []
+        for key in (dc, ac):
+            if key is not None and key not in keys:
+                keys.append(key)
+            slots.append(-1 if key is None else keys.index(key))
+        geom += [ci, frame["coef_base"][ci], frame["coef"][ci].shape[1], *shape[ci], *slots]
+    luts = (np.stack([_packed_lut(*tables[key]) for key in keys]) if keys
+            else np.zeros((1, 1 << 16), np.uint16))
+    segments, end, ended = _entropy_segments(data, pos)
+    starts = np.cumsum([0] + [len(seg) for seg in segments]).astype(np.int64)
+    buf = np.concatenate(segments) if segments else np.zeros(1, np.uint8)
+    geom = np.asarray(geom, np.int64)
+    coef = frame["coef_all"]
+    rc = _native.library().tdt_jpeg_scan(
+        _native.ptr(buf), _native.ptr(starts), len(segments), _native.ptr(luts), len(keys),
+        _native.ptr(geom), len(geom), _native.ptr(coef), len(coef))
+    if rc == _native.ERR_SEGMENTS:
+        raise ValueError("corrupt JPEG data: fewer restart segments than MCUs" if ended
+                         else "truncated JPEG file")
+    _native.check(rc, "JPEG", _SCAN_ERRORS)
     for ci, _, _ in members:
         frame["seen"][ci] = True
     frame["done"] = all(frame["seen"])
@@ -991,9 +1099,43 @@ def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
                    0, 255).astype(np.uint8)
 
 
-def _pixels(frame: dict, latched: dict, jfif: bool, adobe) -> np.ndarray:
-    """The inverse DCT, upsampling and colour conversion of a decoded frame."""
+_MODES = ("grey", "ycc", "rgb", "cmyk", "ycck")  # jpeg.c's colour modes, in order
+
+
+def _color_mode(frame: dict, jfif: bool, adobe) -> str:
+    """How the components become RGB. jdapimin.c's default_decompress_parms:
+    one component is grey; four are CMYK, or YCCK where Adobe's transform
+    flag says 2; three are YCbCr where JFIF says so, else by Adobe's flag,
+    else RGB where the component ids are 'R', 'G', 'B'."""
+    n = len(frame["comps"])
+    if n == 1:
+        return "grey"
+    if n == 4:
+        return "ycck" if adobe == 2 else "cmyk"
+    ids = tuple(c[0] for c in frame["comps"])
+    rgb = (not jfif) and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
+    return "rgb" if rgb else "ycc"
+
+
+def _pixels(frame: dict, latched: dict, jfif: bool, adobe, native: bool) -> np.ndarray:
+    """The inverse DCT, upsampling and colour conversion of a decoded frame
+    (in C, ``tdt_jpeg_pixels``, when ``native``)."""
     height, width = frame["height"], frame["width"]
+    mode = _color_mode(frame, jfif, adobe)
+    if native:
+        geom = [height, width, frame["hmax"], frame["vmax"], len(frame["comps"]),
+                _MODES.index(mode)]
+        for ci, (_, h, v, _) in enumerate(frame["comps"]):
+            geom += [frame["coef_base"][ci], *frame["coef"][ci].shape[:2], h, v]
+        geom = np.asarray(geom, np.int64)
+        qtables = np.stack([latched[ci].reshape(64) for ci in range(len(frame["comps"]))])
+        qtables = np.ascontiguousarray(qtables, np.int64)
+        rgb = np.empty((height, width, 3), np.uint8)
+        coef = frame["coef_all"]
+        _native.check(_native.library().tdt_jpeg_pixels(
+            _native.ptr(coef), len(coef), _native.ptr(qtables), _native.ptr(geom), len(geom),
+            _native.ptr(rgb), rgb.size), "JPEG")
+        return rgb
     planes = []
     for ci, (cid, h, v, _) in enumerate(frame["comps"]):
         coef = frame["coef"][ci]
@@ -1004,20 +1146,15 @@ def _pixels(frame: dict, latched: dict, jfif: bool, adobe) -> np.ndarray:
         pw = -(-width * h // frame["hmax"])
         plane = _upsample(samples[:ph, :pw], frame["hmax"] // h, frame["vmax"] // v)
         planes.append(plane[:height, :width])
-    if len(planes) == 1:
+    if mode == "grey":
         return np.repeat(planes[0][..., None], 3, axis=-1).astype(np.uint8)
-    if len(planes) == 4:
-        # jdapimin.c: four components are CMYK, or YCCK where Adobe's
-        # transform flag says 2 (jdcolor.c's ycck_cmyk_convert: 255 less the
-        # YCbCr-to-RGB sums, clamped; K as it is).
-        if adobe == 2:
+    if mode in ("cmyk", "ycck"):
+        # jdcolor.c's ycck_cmyk_convert: 255 less the YCbCr-to-RGB sums,
+        # clamped; K as it is.
+        if mode == "ycck":
             rgb = _ycc_to_rgb_unclamped(*planes[:3])
             planes = [np.clip(255 - v, 0, 255) for v in rgb] + [planes[3]]
         return _cmyk_to_rgb(np.stack(planes, axis=-1))
-    ids = tuple(c[0] for c in frame["comps"])
-    # jdapimin.c's default_decompress_parms: JFIF means YCbCr; else Adobe's
-    # transform flag; else component ids 'R', 'G', 'B' mean RGB.
-    rgb = (not jfif) and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
-    if rgb:
+    if mode == "rgb":
         return np.stack(planes, axis=-1).astype(np.uint8)
     return _ycc_to_rgb(*planes)

@@ -1,4 +1,4 @@
-"""WebP decode in Python and numpy, as ``Image.open(f).convert("RGB")`` gives it.
+"""WebP decode, as ``Image.open(f).convert("RGB")`` gives it.
 
 JAX's LAION loader reads every web image with Pillow, whose WebP reader is
 libwebp's animation decoder (``WebPAnimDecoder``, RGBA). The port reads WebP
@@ -26,11 +26,17 @@ here, with libwebp's integer arithmetic:
 
 The constant tables are RFC 6386's (sections 9.6, 13.4, 13.5 and 14.1) and
 RFC 9649's distance map. Truncated or corrupt files raise ``ValueError``.
+
+``decode_webp`` reads the container here and decodes each frame in C
+(``data/csrc/vp8.c``, ``vp8l.c``), step for step what
+``decode_webp_reference`` does in Python and numpy.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from tinydiffusion_torch.data import native as _native
 
 _DC_TABLE = [
     4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16, 17, 17,
@@ -149,8 +155,26 @@ def _chunks(data: bytes, start: int, end: int):
 
 def decode_webp(data: bytes) -> np.ndarray:
     """The (H, W, 3) uint8 RGB of a WebP file (its first frame), as Pillow
-    12.1's ``Image.open(f).convert("RGB")`` gives it."""
-    data = bytes(data)
+    12.1's ``Image.open(f).convert("RGB")`` gives it; each VP8 or VP8L frame
+    decoded by the C library (``data/csrc/vp8.c``, ``vp8l.c``, built at the
+    first call)."""
+    return _decode(data, native=True)
+
+
+def decode_webp_reference(data: bytes) -> np.ndarray:
+    """The plain version of ``decode_webp``: its frames decoded in Python and
+    numpy. The tests and ``chip_smoke.py`` hold the C library to it."""
+    return _decode(data, native=False)
+
+
+def _decode(data: bytes, native: bool) -> np.ndarray:
+    try:
+        return _decode_container(bytes(data), native)
+    except IndexError as e:  # a bit stream read past its end
+        raise ValueError("truncated WebP file") from e
+
+
+def _decode_container(data: bytes, native: bool) -> np.ndarray:
     if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
         raise ValueError("not a WebP file")
     end = min(len(data), 8 + int.from_bytes(data[4:8], "little"))
@@ -159,14 +183,14 @@ def decode_webp(data: bytes) -> np.ndarray:
         raise ValueError("truncated WebP file")
     kind, body = chunks[0]
     if kind in (b"VP8 ", b"VP8L"):
-        return _decode_frame(kind, body)
+        return _decode_frame(kind, body, native)
     if kind != b"VP8X" or len(body) < 10:
         raise ValueError(f"corrupt WebP file: a first chunk {kind!r}")
     width, height = _u24(body, 4) + 1, _u24(body, 7) + 1
     canvas = np.zeros((height, width, 3), np.uint8)
     for kind, sub in chunks[1:]:
         if kind in (b"VP8 ", b"VP8L"):  # a still image: the whole canvas
-            frame = _decode_frame(kind, sub)
+            frame = _decode_frame(kind, sub, native)
             if frame.shape[:2] != (height, width):
                 raise ValueError("corrupt WebP file: the image is not the canvas's size")
             return frame
@@ -175,7 +199,7 @@ def decode_webp(data: bytes) -> np.ndarray:
             w, h = _u24(sub, 6) + 1, _u24(sub, 9) + 1
             for inner, frame_data in _chunks(sub, 16, len(sub)):
                 if inner in (b"VP8 ", b"VP8L"):
-                    frame = _decode_frame(inner, frame_data)
+                    frame = _decode_frame(inner, frame_data, native)
                     if frame.shape[:2] != (h, w) or x0 + w > width or y0 + h > height:
                         raise ValueError("corrupt WebP file: a frame outside the canvas")
                     canvas[y0:y0 + h, x0:x0 + w] = frame
@@ -184,7 +208,30 @@ def decode_webp(data: bytes) -> np.ndarray:
     raise ValueError("corrupt WebP file: no image")
 
 
-def _decode_frame(kind: bytes, body: bytes) -> np.ndarray:
+def _native_frame(kind: bytes, body: bytes) -> np.ndarray:
+    """A VP8L or VP8 frame through ``tdt_vp8l_decode`` or ``tdt_vp8_decode``:
+    the RGB allocated here from the header's size."""
+    if kind == b"VP8L":
+        if len(body) < 5 or body[0] != 0x2F:
+            raise ValueError("corrupt WebP (VP8L) data: no signature")
+        bits = int.from_bytes(body[1:5], "little")
+        width, height = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+        fn, fmt = _native.library().tdt_vp8l_decode, "WebP (VP8L)"
+    else:
+        if len(body) < 10:
+            raise ValueError("truncated WebP (VP8) data")
+        width = int.from_bytes(body[6:8], "little") & 0x3FFF
+        height = int.from_bytes(body[8:10], "little") & 0x3FFF
+        fn, fmt = _native.library().tdt_vp8_decode, "WebP (VP8)"
+    src = np.frombuffer(body, np.uint8)
+    rgb = np.empty((max(height, 1), max(width, 1), 3), np.uint8)
+    _native.check(fn(_native.ptr(src), len(body), _native.ptr(rgb), width, height), fmt)
+    return rgb
+
+
+def _decode_frame(kind: bytes, body: bytes, native: bool) -> np.ndarray:
+    if native:
+        return _native_frame(kind, body)
     if kind == b"VP8L":
         argb = _vp8l_decode(body)
         return np.stack([(argb >> 16) & 255, (argb >> 8) & 255, argb & 255],

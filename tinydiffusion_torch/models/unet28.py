@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusion_torch.nn.layers import ConvBNRelu, DoubleConvBlock, TimeEmbedMLP
-from tinydiffusion_torch.parallel.mesh import to_full
+from tinydiffusion_torch.parallel.mesh import apply_full
 
 
 def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -115,9 +115,9 @@ class UNet28(nn.Module):
         b = self.bottleneck(_pool(e3))  # 4
 
         def skip(e: torch.Tensor, proj: nn.Linear, size: int) -> torch.Tensor:
-            return _resize(e + proj(to_full(mp, proj, emb))[:, :, None, None], size)
+            return _resize(e + apply_full(mp, proj, emb)[:, :, None, None], size)
 
         d3 = self.dec3(_resize(b, 8), skip(e3, self.time_proj3, 8))
         d2 = self.dec2(_resize(d3, 16), skip(e2, self.time_proj2, 16))
         d1 = self.dec1(_resize(d2, 32), skip(e1, self.time_proj1, 32))
-        return self.final_conv(to_full(mp, self.final_conv, _resize(d1, 28))).float()
+        return apply_full(mp, self.final_conv, _resize(d1, 28)).float()

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinydiffusion_torch.parallel.mesh import all_reduce_sum, to_full
+from tinydiffusion_torch.parallel.mesh import all_reduce_sum, apply_full
 
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -209,7 +209,7 @@ class ConvBNRelu(nn.Module):
     ``forward(*parts)`` convolves the channel concatenation of ``parts``. On
     the model axis (``parallel.mesh.apply_sharding``) each part is this
     rank's channels, the conv holds its slice of output channels and reads
-    the whole input (``to_full``); the BatchNorm and the ReLU work per
+    the whole input (``apply_full``); the BatchNorm and the ReLU work per
     channel, on the slice."""
 
     # The model axis (``parallel.mesh.ModelParallel``); None: one process.
@@ -221,8 +221,7 @@ class ConvBNRelu(nn.Module):
         self.bn = BatchNorm2d(features)
 
     def forward(self, *parts: torch.Tensor) -> torch.Tensor:
-        x = to_full(self.model_parallel, self.conv, *parts)
-        return F.relu(self.bn(self.conv(x)))
+        return F.relu(self.bn(apply_full(self.model_parallel, self.conv, *parts)))
 
 
 class DoubleConvBlock(nn.Module):
@@ -260,4 +259,4 @@ class TimeEmbedMLP(nn.Module):
         t = t.to(compute_dtype(self.fc1.weight))[:, None]
         if self.normalize is not None:
             t = t / self.normalize
-        return self.fc2(to_full(self.model_parallel, self.fc2, F.silu(self.fc1(t))))
+        return apply_full(self.model_parallel, self.fc2, F.silu(self.fc1(t)))

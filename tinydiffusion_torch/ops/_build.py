@@ -1,15 +1,26 @@
-"""Build and load the port's CUDA kernels: ``nvcc`` -> shared library -> ctypes.
+"""Build and load the port's native libraries: compiler -> shared library -> ctypes.
 
-Every ``csrc/*.cu`` file is compiled by an ``nvcc`` of its own, all started
-together, and the objects are linked into
-``tinydiffusion_torch/_build/<hash>/libtdt_kernels.so``, where ``<hash>``
-covers the sources, their ``csrc/*.cuh`` headers and the flags, so an
-edited source rebuilds and an unchanged one loads the library that is
-there. The sources have a plain C interface and include no PyTorch header,
-which keeps the build to seconds (a ``torch.utils.cpp_extension`` build takes
-minutes). The build runs on the
-first launch of a kernel, never at import: a machine without ``nvcc`` (the
-CPU test machines) imports this module and never calls it.
+Two libraries go through the one code path here:
+
+- ``KERNELS``, the CUDA kernels: every ``ops/csrc/*.cu`` file compiled by an
+  ``nvcc`` of its own (``sm_90a``), all started together, and the objects
+  linked into ``tinydiffusion_torch/_build/<hash>/libtdt_kernels.so``. The
+  sources have a plain C interface and include no PyTorch header, which
+  keeps the build to seconds (a ``torch.utils.cpp_extension`` build takes
+  minutes).
+- ``DECODERS``, the LAION loader's image decoders on the host: every
+  ``data/csrc/*.c`` file (C11, libc only) compiled by the host C compiler
+  (``$CC``, else ``cc``, else ``gcc``) into ``_build/<hash>/libtdt_decode.so``.
+  Every machine builds it, the CPU test machines included.
+
+``<hash>`` covers the library's name, the compiler's flags, its sources and
+their headers, so an edited source rebuilds and an unchanged one loads the
+library that is there. A build writes under names of its own process and
+thread, then renames the library into place (atomic), so processes that
+build at once (pytest's workers) never load half a file. A library is built
+at its first use, never at import: a machine without ``nvcc`` (the CPU test
+machines) imports this module and never builds the kernels. A missing
+compiler or a failed build raises ``RuntimeError`` with the compiler's output.
 """
 
 from __future__ import annotations
@@ -20,23 +31,28 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import Callable
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+_DATA_CSRC = Path(__file__).resolve().parents[1] / "data" / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
-_LIB_NAME = "libtdt_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
+# -fwrapv: signed integers wrap as numpy's int64 does in the plain versions.
+CC_FLAGS = ("-std=c11", "-O2", "-fPIC", "-fwrapv", "-Wall")
 
 
 @dataclasses.dataclass(frozen=True)
 class Build:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # the nvcc runs' output (ptxas registers and shared memory per kernel)
+    log: str  # the compilers' output (for the kernels: ptxas registers and shared memory)
+    compiler: str = ""  # the compiler's path ("" when the library was already built)
 
 
 def find_nvcc() -> str:
@@ -55,40 +71,66 @@ def find_nvcc() -> str:
     )
 
 
-def _sources() -> list[Path]:
-    return sorted(_CSRC.glob("*.cu"))
+def find_cc() -> str:
+    """The host C compiler: ``$CC``, else ``cc``, else ``gcc`` on ``PATH``."""
+    for name in (os.environ.get("CC"), "cc", "gcc"):
+        path = name and shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError(
+        "no C compiler found ($CC, cc, gcc); the image decoders cannot be built"
+    )
 
 
-def _digest(sources: list[Path]) -> str:
-    """Hash of the flags, the sources and the headers they include."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [*sources, *sorted(_CSRC.glob("*.cuh"))]:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return h.hexdigest()[:16]
+@dataclasses.dataclass(frozen=True)
+class Library:
+    """One shared library: its sources, headers, compiler and flags."""
+
+    name: str
+    csrc: Path
+    source_glob: str
+    header_glob: str
+    flags: tuple
+    find_compiler: Callable[[], str]
+    log_name: str
+
+    def sources(self) -> list[Path]:
+        return sorted(self.csrc.glob(self.source_glob))
+
+    def digest(self) -> str:
+        """Hash of the name, the flags, the sources and their headers."""
+        h = hashlib.sha256(" ".join((self.name, *self.flags)).encode())
+        for src in [*self.sources(), *sorted(self.csrc.glob(self.header_glob))]:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        return h.hexdigest()[:16]
 
 
-def build() -> Build:
-    """Compile the kernels unless a library for these sources exists."""
-    sources = _sources()
-    out_dir = _BUILD_ROOT / _digest(sources)
-    lib = out_dir / _LIB_NAME
-    log_path = out_dir / "nvcc.log"
-    if lib.exists():
-        return Build(lib, 0.0, log_path.read_text() if log_path.exists() else "")
-    nvcc = find_nvcc()
+KERNELS = Library("libtdt_kernels.so", _CSRC, "*.cu", "*.cuh", NVCC_FLAGS, find_nvcc, "nvcc.log")
+DECODERS = Library("libtdt_decode.so", _DATA_CSRC, "*.c", "*.h", CC_FLAGS, find_cc, "cc.log")
+
+
+def build(lib: Library = KERNELS) -> Build:
+    """Compile ``lib`` unless a library for these sources exists."""
+    sources = lib.sources()
+    out_dir = _BUILD_ROOT / lib.digest()
+    path = out_dir / lib.name
+    log_path = out_dir / lib.log_name
+    if path.exists():
+        return Build(path, 0.0, log_path.read_text() if log_path.exists() else "")
+    compiler = lib.find_compiler()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
-    tmp = out_dir / f"{_LIB_NAME}.{tag}"
+    tmp = out_dir / f"{lib.name}.{tag}"
     t0 = time.perf_counter()
-    # One nvcc a source, all at once: the build takes as long as the slowest.
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    # One compiler a source, all at once: the build takes as long as the slowest.
+    cmds = [[compiler, *lib.flags, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
     outputs = [proc.communicate(timeout=900)[0] for proc in procs]
-    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    link = [compiler, *lib.flags, "-shared", "-o", str(tmp), *map(str, objs)]
     failed = [(cmd, proc.returncode) for cmd, proc in zip(cmds, procs) if proc.returncode]
     if not failed:
         proc = subprocess.run(link, capture_output=True, text=True, timeout=900)
@@ -102,10 +144,10 @@ def build() -> Build:
     if failed:
         tmp.unlink(missing_ok=True)
         cmd, rc = failed[0]
-        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed ({rc}): {' '.join(cmd)}\n{log}")
     log_path.write_text(log)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return Build(lib, seconds, log)
+    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    return Build(path, seconds, log, compiler)
 
 
 _P, _I, _U32, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint64
@@ -137,17 +179,40 @@ SIGNATURES: dict[str, tuple] = {
     "tdt_qsample_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _U64, _U32, _P),
 }
 
-_lib: ctypes.CDLL | None = None
+# The ctypes signature of every ``tdt_*`` function in ``data/csrc/``. Each
+# returns an int: 0, or a negative code the Python side turns into
+# ``ValueError``. Buffers are numpy arrays' pointers; every one comes with
+# its length, which the C side never reads or writes past.
+_I64 = ctypes.c_int64
+DECODE_SIGNATURES: dict[str, tuple] = {
+    # data, seg_start (n_segs + 1 byte offsets), n_segs, luts (n_luts x 65536
+    # uint16: length << 8 | symbol), n_luts, geom (int64, data/jpeg.py::_scan_geometry),
+    # n_geom, coef (int64, zigzag order), coef_len
+    "tdt_jpeg_scan": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64),
+    # coef, coef_len, qtables (64 int64 a component), geom (data/jpeg.py::_pixels),
+    # n_geom, rgb (uint8), rgb_len
+    "tdt_jpeg_pixels": (_P, _I64, _P, _P, _I64, _P, _I64),
+    # data, n, min_size, out (uint8 indices), count, written (int64, set)
+    "tdt_gif_lzw": (_P, _I64, _I64, _P, _I64, _P),
+    # data, n, rgb (uint8, height x width x 3), width, height (from the header)
+    "tdt_vp8_decode": (_P, _I64, _P, _I64, _I64),
+    "tdt_vp8l_decode": (_P, _I64, _P, _I64, _I64),
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), argtypes declared."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build().path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = _I
-        _lib = lib
-    return _lib
+def library(lib: Library = KERNELS) -> ctypes.CDLL:
+    """The loaded library (built on first call), argtypes declared."""
+    if lib.name not in _libs:
+        with _lock:  # threads of one process build and load it once
+            if lib.name not in _libs:
+                handle = ctypes.CDLL(str(build(lib).path))
+                table = SIGNATURES if lib is KERNELS else DECODE_SIGNATURES
+                for name, argtypes in table.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = _I
+                _libs[lib.name] = handle
+    return _libs[lib.name]

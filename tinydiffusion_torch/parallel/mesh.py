@@ -46,6 +46,7 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -393,13 +394,16 @@ class _ToFull(torch.autograd.Function):
     when it is replicated (each rank's gradient is already whole)."""
 
     @staticmethod
-    def forward(ctx, mp: ModelParallel, reduce: bool, *parts: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, mp: ModelParallel, reduce: bool, float32: bool,
+                *parts: torch.Tensor) -> torch.Tensor:
         ctx.mp, ctx.reduce = mp, reduce
         ctx.widths = [p.shape[1] for p in parts]
         local = torch.cat([p.movedim(1, -1) for p in parts], -1)
         gathered = [g.split(ctx.widths, -1) for g in mp.all_gather(local)]
         whole = torch.cat([g[k] for k in range(len(parts)) for g in gathered], -1)
-        return whole.movedim(-1, 1)
+        # float32: the whole input upcast (exact), so that its gradient, the
+        # consumer's float32 partials, reaches the backward unrounded.
+        return whole.movedim(-1, 1).float() if float32 else whole.movedim(-1, 1)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
@@ -413,7 +417,7 @@ class _ToFull(torch.autograd.Function):
             mine = mp.reduce_scatter([p.float() for p in per_rank]).to(grad.dtype)
         else:
             mine = per_rank[mp.rank]
-        return (None, None, *[g.movedim(-1, 1) for g in mine.split(widths, -1)])
+        return (None, None, None, *[g.movedim(-1, 1) for g in mine.split(widths, -1)])
 
 
 class _SumGradients(torch.autograd.Function):
@@ -421,17 +425,18 @@ class _SumGradients(torch.autograd.Function):
     input that a sharded layer reads: each rank's gradient is partial)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, mp: ModelParallel, float32: bool) -> torch.Tensor:
         ctx.mp = mp
-        return x.view_as(x)
+        return x.float() if float32 and x.dtype != torch.float32 else x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         total = ctx.mp.all_reduce_(grad.to(torch.float32, copy=True).contiguous())
-        return total.to(grad.dtype), None
+        return total.to(grad.dtype), None, None
 
 
-def to_full(mp: ModelParallel | None, consumer: nn.Module, *parts: torch.Tensor) -> torch.Tensor:
+def to_full(mp: ModelParallel | None, consumer: nn.Module, *parts: torch.Tensor,
+            float32: bool = False) -> torch.Tensor:
     """The input of ``consumer`` (a Conv2d or Linear) made whole on the model
     axis: ``parts`` (this rank's channels of each, or whole ones) concatenated
     on dim 1 in their global order. One process, or whole parts: the plain
@@ -442,8 +447,57 @@ def to_full(mp: ModelParallel | None, consumer: nn.Module, *parts: torch.Tensor)
     sharded = out_sharded(consumer)
     if width == _in_width(consumer):
         x = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
-        return _SumGradients.apply(x, mp) if sharded and x.requires_grad else x
+        return _SumGradients.apply(x, mp, float32) if sharded and x.requires_grad else x
     if width * mp.size != _in_width(consumer):
         raise ValueError(f"an input of {width} channels on {mp.size} model ranks for a layer of "
                          f"{_in_width(consumer)}")
-    return _ToFull.apply(mp, sharded, *parts)
+    return _ToFull.apply(mp, sharded, float32 and sharded, *parts)
+
+
+def _layer_forward(layer: nn.Module, x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor | None) -> torch.Tensor:
+    if isinstance(layer, nn.Conv2d):
+        return layer._conv_forward(x, weight, bias)
+    return F.linear(x, weight, bias)
+
+
+class _Float32InputGrad(torch.autograd.Function):
+    """A sharded conv's or linear's forward under autocast, as autocast runs
+    it; the backward gives its weight and bias gradients as autocast's would
+    and its input gradient in float32, from the same low-precision operands
+    (products exact, sums in float32): this rank's partial of the whole
+    input's gradient, unrounded."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                layer: nn.Module) -> torch.Tensor:
+        ctx.layer, ctx.device = layer, x.device.type
+        ctx.dtype = torch.get_autocast_dtype(ctx.device)
+        ctx.save_for_backward(x, weight, bias)
+        return _layer_forward(layer, x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, weight, bias = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in (weight, bias) if t is not None]
+        with torch.enable_grad(), torch.autocast(ctx.device, dtype=ctx.dtype):
+            out = _layer_forward(ctx.layer, x.detach(), *leaves, *([None] * (bias is None)))
+            param_grads = torch.autograd.grad(out, leaves, grad)
+        with torch.enable_grad(), torch.autocast(ctx.device, enabled=False):
+            x32 = x.detach().to(ctx.dtype).float().requires_grad_()
+            out = _layer_forward(ctx.layer, x32, weight.detach().to(ctx.dtype).float(), None)
+            (x_grad,) = torch.autograd.grad(out, x32, grad.float())
+        return x_grad, param_grads[0], param_grads[1] if bias is not None else None, None
+
+
+def apply_full(mp: ModelParallel | None, consumer: nn.Module, *parts: torch.Tensor) -> torch.Tensor:
+    """``consumer(to_full(mp, consumer, *parts))``. Under autocast (bfloat16)
+    on a model axis, a sharded consumer computes its input gradient in
+    float32 and the model axis sums those float32 partials, rounding to the
+    activations' dtype once after the sum: JAX's GSPMD step feeds each of its
+    (float32) all-reduces from a float32 convolution of the bf16 operands."""
+    autocast = mp is not None and torch.is_autocast_enabled(parts[0].device.type)
+    if not (autocast and out_sharded(consumer) and torch.is_grad_enabled()):
+        return consumer(to_full(mp, consumer, *parts))
+    x = to_full(mp, consumer, *parts, float32=True)
+    return _Float32InputGrad.apply(x, consumer.weight, consumer.bias, consumer)
