@@ -28,6 +28,12 @@ line each:
    by operand type) in each kernel's SASS (``cuobjdump``); fails if a flash
    forward or backward kernel has none, if a bfloat16 flash kernel has a
    tf32 HGMMA or no bf16 one, or if a bfloat16 flash kernel spills;
+   bf16_layers: every bfloat16 layer of the port (conv and dense with their
+   biases, the UNet28's and LatentUNet's resizes, ``ConvBNRelu``,
+   ``TimeEmbedMLP``, the DiT's block, the MLP UNet's dense block) on the card
+   against the port's CPU run of it: the share of outputs and input
+   gradients that differ (``BF16_LAYER_SHARES``), and whether cuDNN's conv
+   and cuBLASLt's linear add their bias apart;
 3. kernel: the CUDA flash-attention forward against ``flash_fwd_reference``
    at each shape the 256² and 512² models give it and the 1024² model's
    dec_attn0 (B = 4), every head width, and at ragged N, out and lse;
@@ -143,7 +149,7 @@ line each:
     committed ``checkpoints/diffusion_final`` weights, one SGD step through
     the step's (t, noise) seam, and a 20-step replayed DDPM chain (float32
     forward);
-11. train_step_bf16: the main path's step (bfloat16 autocast, Adam) on the
+11. train_step_bf16: the main path's step (bfloat16, Adam) on the
     card against the float32 step on the CPU, 3 steps at batch 128 from
     ``diffusion_final`` through the seam: losses and the direction of the
     weights' update;
@@ -293,6 +299,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -321,6 +328,7 @@ from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data import gif as gif_data
 from tinydiffusion_torch.data import jpeg as jpeg_data
 from tinydiffusion_torch.data import laion as laion_data
+from tinydiffusion_torch.data import tiff as tiff_data
 from tinydiffusion_torch.data import webp as webp_data
 from tinydiffusion_torch.data.jpeg import decode_jpeg, encode_jpeg
 from tinydiffusion_torch.data.laion import synthesize_caption, synthesize_image
@@ -1118,6 +1126,152 @@ _PTXAS: dict[str, list[dict]] = {}
 _KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_tc_kernel", "flash_bwd": "flash_bwd_tc_kernel",
                    "flash_fwd_bf16": "flash_fwd_bf16_kernel",
                    "flash_bwd_bf16": "flash_bwd_bf16_kernel"}
+
+
+# bf16_layers: the share of a bf16 layer's outputs (and input gradients) in
+# which the card may differ from the port's CPU run on the same inputs. The
+# outputs: 0.1 %, the CPU tests' bound against JAX's eager layers
+# (tests/test_torch_bf16_layers.py), where two implementations' float32
+# summation orders part the same way; a wrong rounding point moves 20-50 %
+# (the fused bias, F.interpolate's resize). A BatchNorm's or LayerNorm's
+# input gradient is two paths, each rounded to bf16 and then added (flax's),
+# which turns order gaps into flips, and a conv or dense after it spreads
+# them: on an H100 80GB HBM3 the blocks' gradients read 0.6-1.4 % against the
+# CPU (cuDNN's and cuBLAS's orders), beyond the CPU tests' 0.2-1.5 %; 3 %.
+BF16_LAYER_SHARES = {"conv": 1e-3, "dense": 1e-3, "resize": 1e-3, "conv_bn_relu": 1e-3,
+                     "conv_bn_relu_grad": 0.03, "time_embed_mlp": 1e-3,
+                     "time_embed_mlp_grad": 5e-3, "transformer_block": 1e-3,
+                     "transformer_block_grad": 0.03, "dense_bn_relu": 1e-3,
+                     "dense_bn_relu_grad": 0.03}
+
+
+def _bf16_flips(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(share of elements that differ, most bf16 ulps apart at the larger
+    value) of two bf16 tensors, compared on the CPU."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    diff = (g - w).abs()
+    ulps = diff / _bf16_ulp(torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126))
+    return (diff > 0).float().mean().item(), ulps.max().item()
+
+
+def _bf16_layer_cases() -> list:
+    """(name, module, inputs, cotangent) of every bf16 layer the CPU tests
+    hold to JAX's, at their shapes: a conv and a dense with their nonzero
+    default biases, the resizes of the UNet28 and the LatentUNet,
+    ``ConvBNRelu`` and the MLP UNet's dense block in train mode,
+    ``TimeEmbedMLP`` raw and ``/ 1000``, the DiT's block at one token and at
+    four."""
+    from tinydiffusion_torch.models.dit import TransformerBlock
+    from tinydiffusion_torch.models.mlp_unet import DenseBNRelu
+    from tinydiffusion_torch.nn.layers import Conv2d, ConvBNRelu, Linear, TimeEmbedMLP
+    from tinydiffusion_torch.nn.resize import align_corners_matrix, resize_bilinear_align_corners
+
+    class Resize(torch.nn.Module):
+        def __init__(self, n_in: int, n_out: int):
+            super().__init__()
+            self.register_buffer("m", torch.from_numpy(align_corners_matrix(n_in, n_out)))
+
+        def forward(self, x):
+            return resize_bilinear_align_corners(x, self.m, self.m)
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 40)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen).to(bf16)
+
+    torch.manual_seed(SEED + 41)
+    cases = [("conv", Conv2d(128, 128, 3, padding=1, dtype=bf16), [normal(16, 128, 14, 14)],
+              normal(16, 128, 14, 14)),
+             ("dense", Linear(256, 256, dtype=bf16), [normal(64, 256)], normal(64, 256))]
+    for n_in, n_out in ((4, 8), (7, 8), (14, 16), (28, 32), (32, 28), (8, 16), (16, 32)):
+        cases.append((f"resize_{n_in}_{n_out}", Resize(n_in, n_out), [normal(8, 64, n_in, n_in)],
+                      normal(8, 64, n_out, n_out)))
+    cases += [
+        ("conv_bn_relu", ConvBNRelu(64, 64, dtype=bf16).train(), [normal(16, 64, 14, 14)],
+         normal(16, 64, 14, 14)),
+        ("time_embed_mlp", TimeEmbedMLP(256, dtype=bf16),
+         [torch.randint(0, 1000, (64,), generator=gen)], normal(64, 256)),
+        ("time_embed_mlp_dit", TimeEmbedMLP(256, normalize=1000.0, dtype=bf16),
+         [torch.randint(0, 1000, (64,), generator=gen)], normal(64, 256)),
+        ("transformer_block", TransformerBlock(256, 4, 1024, dtype=bf16).eval(),
+         [normal(32, 1, 256)], normal(32, 1, 256)),
+        ("transformer_block_s4", TransformerBlock(256, 4, 1024, dtype=bf16).eval(),
+         [normal(32, 4, 256)], normal(32, 4, 256)),
+        ("dense_bn_relu", DenseBNRelu(512, 256, dtype=bf16).train(), [normal(128, 512)],
+         normal(128, 256)),
+    ]
+    return cases
+
+
+def _bf16_layer_run(module, inputs: list, cotangent: torch.Tensor, device: str):
+    """``module``'s output and its inputs' gradients (the first parameter's
+    where the input is an integer) on ``device``."""
+    module = module.to(device)
+    xs = [x.detach().clone().to(device).requires_grad_(x.is_floating_point()) for x in inputs]
+    out = module(*xs)
+    out.backward(cotangent.to(device))
+    grads = [x.grad for x in xs if x.is_floating_point()]
+    if not grads:
+        grads = [next(module.parameters()).grad]
+    return out.detach().cpu(), [g.cpu() for g in grads]
+
+
+def _fused_bias_flips(bf16_conv: bool) -> dict:
+    """Whether the card's library adds a conv's (cuDNN) or a linear's
+    (cuBLASLt) bias apart from the product, in bf16: the fused call against
+    the product then ``+ bias`` (two roundings, flax's) and against the
+    float32 product and bias rounded once."""
+    gen = torch.Generator().manual_seed(SEED + 42)
+    if bf16_conv:
+        x, w, b = (torch.randn(s, generator=gen).to(torch.bfloat16).cuda()
+                   for s in ((16, 128, 14, 14), (128, 128, 3, 3), (128,)))
+
+        def product(x, w, b=None):
+            return F.conv2d(x, w, b, padding=1)
+
+        view = b[:, None, None]
+    else:
+        x, w, b = (torch.randn(s, generator=gen).to(torch.bfloat16).cuda()
+                   for s in ((64, 256), (256, 256), (256,)))
+        product, view = F.linear, b
+    fused = product(x, w, b)
+    apart = product(x, w) + view
+    once = (product(x.float(), w.float()) + view.float()).to(torch.bfloat16)
+    return {"fused_vs_apart_share": _bf16_flips(fused, apart)[0],
+            "fused_vs_one_rounding_share": _bf16_flips(fused, once)[0],
+            "bias_added_apart": bool(torch.equal(fused, apart))}
+
+
+def phase_bf16_layers() -> dict:
+    """Every bf16 layer of the port (``nn.layers``, ``nn.resize``: flax's
+    ``dtype=``, each layer rounding where flax's code rounds) on the card
+    against the port's CPU run of the same module on the same inputs,
+    weights and cotangents, TF32 off: the share of outputs and of input
+    gradients that differ, held to ``BF16_LAYER_SHARES``, and the most ulps
+    apart; and whether cuDNN's convolution and cuBLASLt's linear add their
+    bias apart in bf16 (what the port's split bias replaces)."""
+    disable_tf32()
+    layers, problems = {}, []
+    for name, module, inputs, cotangent in _bf16_layer_cases():
+        card_module = copy.deepcopy(module)
+        cpu_out, cpu_grads = _bf16_layer_run(module, inputs, cotangent, "cpu")
+        out, grads = _bf16_layer_run(card_module, inputs, cotangent, "cuda")
+        kind = name.split("_s4")[0].replace("_dit", "")
+        kind = "resize" if kind.startswith("resize") else kind
+        share, ulps = _bf16_flips(out, cpu_out)
+        grad_share, grad_ulps = max(_bf16_flips(g, c) for g, c in zip(grads, cpu_grads))
+        layers[name] = {"share": share, "ulps": ulps, "grad_share": grad_share,
+                        "grad_ulps": grad_ulps}
+        grad_bound = BF16_LAYER_SHARES.get(f"{kind}_grad", BF16_LAYER_SHARES[kind])
+        if share > BF16_LAYER_SHARES[kind] or grad_share > grad_bound:
+            problems.append(f"{name}: {layers[name]}")
+    fields = {"layers": layers, "conv_bias": _fused_bias_flips(True),
+              "linear_bias": _fused_bias_flips(False)}
+    if problems:
+        raise RuntimeError(f"bf16_layers: {problems}: {fields}")
+    emit("bf16_layers", **fields)
+    return fields
 
 
 def phase_build() -> None:
@@ -2681,14 +2835,16 @@ def _sha(x: np.ndarray) -> str:
 
 
 def _plain_decode(data: bytes) -> np.ndarray:
-    """``decode_image`` with the plain versions of the C decoders (PNG and
-    BMP have none: theirs is ``decode_image``'s)."""
+    """``decode_image`` with the plain versions of the C decoders (PNG, BMP
+    and ICO have none: theirs is ``decode_image``'s)."""
     if data[:2] == b"\xff\xd8":
         return jpeg_data.decode_jpeg_reference(data)
     if data[:6] in gif_data.SIGNATURES:
         return gif_data.decode_gif_reference(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return webp_data.decode_webp_reference(data)
+    if data[:4] in tiff_data.SIGNATURES:
+        return tiff_data.decode_tiff_reference(data)
     return laion_data.decode_image(data)
 
 
@@ -2703,7 +2859,9 @@ def phase_laion_loader() -> dict:
     what was fetched, byte for byte ``encode_jpeg`` of the decode), every
     fixture's decode and resize against Pillow's (``LOADER_PILLOW``: JPEG
     baseline, progressive and CMYK, PNG RGBA, Adam7 and 16-bit grey, GIF,
-    BMP, WebP lossless and lossy; each decode timed, 512² ones included), the
+    BMP, WebP lossless and lossy, TIFF of every compression the loader reads
+    (tiles, planar and big-endian ones too), ICO and CUR; each decode timed,
+    512² ones included, and held to the plain decoders byte for byte), the
     failed-URL JSON, a warm re-read by a second instance (each record
     the decode of its cache file), and the cold ``precache_dataset`` time
     of the two 512² fixtures (``LOADER_WEB_FIXTURES``) served over the same
@@ -4737,6 +4895,7 @@ def main() -> int:
     os.chdir(REPO)  # the committed latent sidecars name their VAE from the repo root
     device = phase_device()
     phase_build()
+    phase_bf16_layers()
     sites = phase_kernel()
     bf16_sites = phase_kernel(torch.bfloat16)
     _reset_launches()

@@ -434,9 +434,10 @@ def test_decode_image_dispatches_by_magic_and_refuses_the_rest():
     rgb = _image((9, 11), 10)
     image = Image.fromarray(rgb)
     for fmt, kw in (("JPEG", {"progressive": True}), ("PNG", {}), ("GIF", {}), ("BMP", {}),
-                    ("WEBP", {"lossless": True}), ("WEBP", {"quality": 60})):
+                    ("WEBP", {"lossless": True}), ("WEBP", {"quality": 60}), ("TIFF", {}),
+                    ("ICO", {"sizes": [(11, 9)]})):
         _assert_pillows(_saved(image, fmt, **kw))
-    for data in (b"", b"<html>not an image</html>", _saved(image, "TIFF"), b"RIFF\0\0\0\0WAVE"):
+    for data in (b"", b"<html>not an image</html>", _saved(image, "PPM"), b"RIFF\0\0\0\0WAVE"):
         with pytest.raises(ValueError, match="cannot identify"):
             laion.decode_image(data)
 

@@ -50,6 +50,7 @@ from tinydiffusion_torch.experiments import conditional_diffusion_laion as exp
 from tinydiffusion_torch.io.checkpoint import load_sidecar, load_weights_arrays
 from tinydiffusion_torch.io.from_jax import jax_variables, state_dict_by_name
 from tinydiffusion_torch.models.unet_latent import LatentUNet
+from tinydiffusion_torch.nn.layers import computing_in
 from tinydiffusion_torch.ops import qsample
 from tinydiffusion_torch.train.trainer import (
     _scheduled_lr_,
@@ -67,11 +68,12 @@ PROMPTS = exp.SAMPLE_PROMPTS
 # order over up to 2304 terms a layer (3x3 convs of 256 channels), outputs of
 # order 1.
 F32_ATOL = 1e-4
-# bfloat16 (JAX's model dtype against the port's autocast): the two round
-# different intermediates to bfloat16's 8 bits (flax keeps BatchNorm's
-# output and the skip sums in bfloat16 where autocast keeps some in
-# float32). Bounded on the mean |diff|; eps is of order 1.
-BF16_MEAN_ABS = 0.03
+# bfloat16 against JAX's model dtype run eagerly: the port rounds where
+# flax's code rounds (``nn.layers``); the convolutions' float32 summation
+# orders still part in ~0.01 % of a layer's outputs, and each flip spreads
+# through the next 3x3 convs, so 28 % of the eps differ, by a mean |diff| of
+# 1.8e-3 (seen on the CPU; 7.5e-3 under autocast). eps is of order 1.
+BF16_MEAN_ABS = 4e-3
 # One Adam step (clip 10, the cosine rate) from the committed weights at
 # B = 2, float32: the loss 1e-5 relative; the update's direction by its
 # cosine; the BN running statistics 1e-4 relative (flax's batch variance is
@@ -180,17 +182,19 @@ def test_eval_forward_matches_jax_in_float32():
 
 
 def test_eval_forward_matches_jax_in_bfloat16():
-    """JAX's ``LatentUNet(dtype=bfloat16)`` against the port under bfloat16
-    autocast, which casts the sinusoid and the context to bfloat16 as flax
-    does (adding a float32 context would give a float32 sum)."""
+    """JAX's ``LatentUNet(dtype=bfloat16)`` against the port's
+    (``computing_in``), which casts the sinusoid and the context to bfloat16
+    as flax does (adding a float32 context would give a float32 sum)."""
     jmodel = JaxLatentUNet(dtype=jnp.bfloat16)
     variables = _jax_variables(jmodel)
     z, t, ctx = _latents(1, 4)
     want = np.asarray(jmodel.apply(variables, z, t, ctx, train=False)).transpose(0, 3, 1, 2)
-    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
-        got = _port_model().eval()(_nchw(z), torch.from_numpy(t).long(),
-                                   torch.from_numpy(ctx)).numpy()
+    model = _port_model().eval()
+    with torch.no_grad(), computing_in(model, torch.bfloat16):
+        got = model(_nchw(z), torch.from_numpy(t).long(), torch.from_numpy(ctx)).numpy()
     mean_abs = np.abs(got - want).mean()
+    print(f"LatentUNet bf16 eval vs JAX: mean |diff| {mean_abs:.3e}, "
+          f"max {np.abs(got - want).max():.3e}")
     assert mean_abs <= BF16_MEAN_ABS, mean_abs
     assert mean_abs > 0  # bfloat16 did run
 

@@ -46,7 +46,7 @@ from tinydiffusion_torch.io.checkpoint import (
 from tinydiffusion_torch.io.from_jax import dit_state_dict, jax_variables, state_dict_by_name
 from tinydiffusion_torch.models.dit import DiT
 from tinydiffusion_torch.models.mlp_unet import MLPUNetLatent
-from tinydiffusion_torch.nn.layers import TimeEmbedMLP
+from tinydiffusion_torch.nn.layers import TimeEmbedMLP, computing_in
 from tinydiffusion_torch.ops import qsample
 from tinydiffusion_torch.train.trainer import (
     create_train_state,
@@ -64,14 +64,14 @@ VAE_CHECKPOINT = os.path.join(REPO, "checkpoints", "vae_mnist_best")
 # float32 eps of the full-width denoisers on the committed weights:
 # summation order over up to 1024 terms a layer, outputs of order 1.
 F32_ATOL, F32_RTOL = 1e-5, 1e-5
-# bfloat16 (JAX's model dtype against the port's autocast): the two round
-# different intermediates to bfloat16's 8 bits (JAX keeps the class
-# embedding, BatchNorm and residual sums in bfloat16 where autocast keeps
-# some in float32). Bounded on the mean and the largest difference, relative
-# to the largest |eps| (~4): read 0.07-0.09 % and 0.39-0.68 % at 32 inputs,
-# about what separates JAX's bfloat16 from the port's float32 (0.06-0.08 %,
-# 0.34-0.45 %).
-BF16_MEAN_REL, BF16_MAX_REL = 0.003, 0.02
+# bfloat16, relative to the largest |eps| (~4): the port rounds where flax's
+# code rounds (``nn.layers``), so against JAX run eagerly it differs in
+# under 1 % of 32 inputs' outputs, by a mean of 3-5e-6 and at most 0.08-0.1 %
+# (seen on the CPU; under autocast 0.07-0.08 % and 0.41-0.68 %). JAX's
+# jitted forward rounds some ops elsewhere (XLA's fusions) and lies
+# 0.08 % / 0.56-0.68 % from its own eager one; against it the old bounds.
+BF16_MEAN_REL, BF16_MAX_REL = 2e-5, 3e-3
+BF16_JIT_MEAN_REL, BF16_JIT_MAX_REL = 0.003, 0.02
 # One SGD step (lr 0.1) at B = 16, float32: loss 1e-5 relative, params
 # 1e-5; the MLP UNet's BN running statistics 1e-4 relative (flax's batch
 # variance is E[x^2] - E[x]^2, the port's two-pass).
@@ -161,23 +161,29 @@ def test_eval_forward_matches_jax_in_float32(backbone):
 
 @pytest.mark.parametrize("backbone", ["mlp_unet", "dit"])
 def test_eval_forward_matches_jax_in_bfloat16(backbone):
-    """JAX's model dtype bfloat16 against the port under bfloat16 autocast."""
+    """JAX's model dtype bfloat16 against the port's (``computing_in``), run
+    eagerly and jitted."""
     jmodel = _jax_model(backbone, dtype=jnp.bfloat16)
     variables = _jax_variables(backbone, jmodel)
     z, t, y = _inputs(1, n=32)
-    want = np.asarray(jax.jit(lambda v: jmodel.apply(v, z, t, y, train=False))(variables))
     model = _port_model(backbone).eval()
-    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+    with torch.no_grad(), computing_in(model, torch.bfloat16):
         got = model(*_torch(z, t, y)).numpy()
-    scale = np.abs(want).max()
-    diff = np.abs(got - want)
-    assert diff.mean() <= BF16_MEAN_REL * scale, (diff.mean(), scale)
-    assert diff.max() <= BF16_MAX_REL * scale, (diff.max(), scale)
+    jitted = np.asarray(jax.jit(lambda v: jmodel.apply(v, z, t, y, train=False))(variables))
+    eager = np.asarray(jmodel.apply(variables, z, t, y, train=False))
+    scale = np.abs(jitted).max()
+    for name, want, mean_rel, max_rel in (("eager", eager, BF16_MEAN_REL, BF16_MAX_REL),
+                                          ("jit", jitted, BF16_JIT_MEAN_REL, BF16_JIT_MAX_REL)):
+        diff = np.abs(got - want)
+        print(f"{backbone} bf16 eval vs JAX {name}: mean {diff.mean() / scale:.3e}, "
+              f"max {diff.max() / scale:.3e} of max|eps|")
+        assert diff.mean() <= mean_rel * scale, (name, diff.mean(), scale)
+        assert diff.max() <= max_rel * scale, (name, diff.max(), scale)
 
 
 def test_bf16_time_embedding_rounds_t_before_dividing():
     """JAX casts t to the model dtype and then divides: in bfloat16, t = 999
-    rounds to 1000 and enters as exactly 1.0. The port under autocast does
+    rounds to 1000 and enters as exactly 1.0. The port in bfloat16 does
     the same at every timestep; dividing in float32 and rounding afterwards
     would differ at 190 of the 1000 (t = 257, 261, ...)."""
     jmlp = JaxTimeEmbedMLP(16, normalize=1000.0, dtype=jnp.bfloat16)
@@ -188,7 +194,7 @@ def test_bf16_time_embedding_rounds_t_before_dividing():
     mlp.load_state_dict(state_dict_by_name({k: np.asarray(v) for k, v in flat.items()}))
     seen = []
     mlp.fc1.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
-    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+    with torch.no_grad(), computing_in(mlp, torch.bfloat16):
         got = mlp(torch.from_numpy(t).long())
     assert seen[0].dtype == torch.bfloat16 and seen[0][999, 0].item() == 1.0
     want_in = np.asarray(jnp.asarray(t).astype(jnp.bfloat16) / 1000.0, np.float32)

@@ -22,7 +22,11 @@ import sys
 
 import numpy as np
 
-from tinydiffusion_torch.data import gif, jpeg, laion, webp
+from tinydiffusion_torch.data import gif, ico, jpeg, laion, tiff, webp
+
+# The TIFF fields that size the samples' array: width, length, bits per
+# sample, samples per pixel, rows per strip, tile width and length.
+_TIFF_SIZE_TAGS = (256, 257, 258, 277, 278, 322, 323)
 
 
 def plain(data: bytes) -> np.ndarray:
@@ -33,13 +37,16 @@ def plain(data: bytes) -> np.ndarray:
         return gif.decode_gif_reference(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return webp.decode_webp_reference(data)
+    if data[:4] in tiff.SIGNATURES:
+        return tiff.decode_tiff_reference(data)
     return laion.decode_image(data)
 
 
 def size_fields(data: bytes) -> set[int]:
     """The byte offsets of the header fields that give the image's size:
     JPEG's SOF height and width, GIF's screen and first image descriptor,
-    a VP8X canvas, VP8's and VP8L's frame sizes."""
+    a VP8X canvas, VP8's and VP8L's frame sizes, TIFF's size fields (and
+    where its IFD is), an icon's entry offsets and its DIBs' sizes."""
     found = set()
     if data[:2] == b"\xff\xd8":  # the marker segments up to the frame's
         k = 2
@@ -58,6 +65,18 @@ def size_fields(data: bytes) -> set[int]:
             k += 1
         if k < len(data) and data[k] == 0x2C:
             found |= set(range(k + 1, k + 9))
+    elif data[:4] in tiff.SIGNATURES:  # the IFD's place, its count and the size fields
+        order = "little" if data[:2] == b"II" else "big"
+        at = int.from_bytes(data[4:8], order)
+        found |= set(range(4, 8)) | {at, at + 1}
+        for i in range(int.from_bytes(data[at:at + 2], order)):
+            entry = at + 2 + 12 * i
+            if int.from_bytes(data[entry:entry + 2], order) in _TIFF_SIZE_TAGS:
+                found |= set(range(entry, entry + 12))
+    elif data[:4] in ico.SIGNATURES:  # each entry's offset and its DIB's width and height
+        for i in range(int.from_bytes(data[4:6], "little")):
+            offset = int.from_bytes(data[18 + 16 * i:22 + 16 * i], "little")
+            found |= set(range(18 + 16 * i, 22 + 16 * i)) | set(range(offset + 4, offset + 12))
     else:
         for tag, first, last in ((b"VP8X", 12, 18), (b"VP8 ", 14, 18), (b"VP8L", 9, 13)):
             k = data.find(tag)

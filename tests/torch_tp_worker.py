@@ -37,7 +37,7 @@ from tinydiffusion_torch.train import trainer
 LR = 1e-2
 UNET_SMALL = {"time_dim": 32, "base_width": 8}
 NUM_CLASSES, NULL_LABEL, LABEL_DROPOUT, EMA_DECAY = 11, 10, 0.5, 0.9
-# unet_bf16_jax: the bfloat16 step (autocast) on JAX's draws, held to JAX's
+# unet_bf16_jax: the bfloat16 step (flax's dtype=) on JAX's draws, held to JAX's
 # bf16 step on its own (1, 2) mesh.
 CASES = ("unet", "unet_jax", "cond", "cond_jax", "unet_bf16_jax")
 RESIDENT_STEPS = 3

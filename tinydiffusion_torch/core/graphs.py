@@ -39,8 +39,9 @@ leaves it, whatever else drew from it before (a FID row draws its labels
 from the generator of its chains).
 
 A graph keeps the math mode of its capture (the callers turn TF32 off first:
-``device.disable_tf32``), and autocast's cache of cast weights must be off
-inside a capture (``experiments.common._denoiser``).
+``device.disable_tf32``) and the compute dtype its model ran in then
+(``nn.layers.computing_in``; each weight is cast inside the graph, at every
+replay).
 """
 
 from __future__ import annotations

@@ -56,9 +56,13 @@ import numpy as np
 from tinydiffusion_torch.data.bmp import decode_bmp
 from tinydiffusion_torch.data.gif import SIGNATURES as GIF_SIGNATURES
 from tinydiffusion_torch.data.gif import decode_gif
+from tinydiffusion_torch.data.ico import SIGNATURES as ICO_SIGNATURES
+from tinydiffusion_torch.data.ico import decode_ico
 from tinydiffusion_torch.data.jpeg import decode_jpeg, encode_jpeg
 from tinydiffusion_torch.data.png import SIGNATURE as PNG_SIGNATURE
 from tinydiffusion_torch.data.png import decode_png
+from tinydiffusion_torch.data.tiff import SIGNATURES as TIFF_SIGNATURES
+from tinydiffusion_torch.data.tiff import decode_tiff
 from tinydiffusion_torch.data.webp import decode_webp
 from tinydiffusion_torch.obs.images import resize_u8
 
@@ -157,10 +161,11 @@ def check_disk_space(path: str, required_bytes: int) -> None:
 
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's (H, W, 3) uint8 RGB, as Pillow's
-    ``Image.open(f).convert("RGB")``: JPEG, PNG, GIF (its first frame), BMP
-    or WebP (its first frame), told apart by their first bytes; anything
-    else raises ``ValueError``, as Pillow raises on what it cannot identify
-    or load."""
+    ``Image.open(f).convert("RGB")``: JPEG, PNG, GIF (its first frame), BMP,
+    WebP (its first frame), TIFF (its first image) or ICO and CUR (the
+    image Pillow picks), told apart by their first bytes; anything else
+    raises ``ValueError``, as Pillow raises on what it cannot identify or
+    load."""
     if data[:2] == b"\xff\xd8":
         return decode_jpeg(data)
     if data[:8] == PNG_SIGNATURE:
@@ -171,7 +176,12 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_bmp(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return decode_webp(data)
-    raise ValueError("cannot identify image file (the port reads JPEG, PNG, GIF, BMP and WebP)")
+    if data[:4] in TIFF_SIGNATURES:
+        return decode_tiff(data)
+    if data[:4] in ICO_SIGNATURES:
+        return decode_ico(data)
+    raise ValueError("cannot identify image file (the port reads JPEG, PNG, GIF, BMP, WebP, "
+                     "TIFF and ICO)")
 
 
 def _retry_after_seconds(value: str) -> float:

@@ -1,0 +1,361 @@
+"""TIFF decode, as ``Image.open(f).convert("RGB")`` gives it.
+
+JAX's LAION loader reads every web image with Pillow; the port reads TIFF
+here, the first image of the file as Pillow opens it (``TiffImagePlugin``):
+
+- little- and big-endian files (``II*\\0``, ``MM\\0*``), the first IFD;
+- strips or tiles, planar configuration 1 (samples interleaved) or 2 (a
+  plane a sample), rows and tiles padded as the file says;
+- compression none, PackBits, LZW (libtiff's: codes most significant bit
+  first, the code width growing one code early) and Deflate (both tags),
+  each with or without the horizontal predictor (2);
+- the modes of Pillow's ``OPEN_INFO`` that a web file carries: bilevel,
+  grey of 2, 4 and 8 bits (min-is-black, or min-is-white, inverted) and of
+  16 bits (clamped to 255, as Pillow converts ``I;16``), grey with alpha;
+  palette of 1 to 8 bits (the colour map's high bytes); RGB of 8 or 16 bits
+  a sample, with an extra sample (alpha or other: dropped, as
+  ``convert("RGB")`` drops it; associated alpha first divided out, as
+  Pillow's ``RGBa`` unpacking does); CMYK of 8 bits, with Pillow's
+  ``cmyk2rgb``.
+
+JPEG-in-TIFF (compressions 6 and 7), CCITT fax (2, 3, 4), the other
+compressions, YCbCr and CIELab, signed or floating-point samples, fill
+order 2, the floating-point predictor and BigTIFF raise ``ValueError``
+naming what they are, as do truncated or corrupt files. ``decode_tiff``
+decodes LZW and PackBits in C (``data/csrc/tiff.c``);
+``decode_tiff_reference`` in Python.
+"""
+
+from __future__ import annotations
+
+import math
+import zlib
+
+import numpy as np
+
+from tinydiffusion_torch.data import native
+from tinydiffusion_torch.data.jpeg import _cmyk_to_rgb
+
+SIGNATURES = (b"II*\x00", b"MM\x00*")
+
+# Field types: bytes a value, numpy dtype code.
+_TYPES = {1: (1, "u1"), 2: (1, "u1"), 3: (2, "u2"), 4: (4, "u4"), 6: (1, "i1"), 7: (1, "u1"),
+          8: (2, "i2"), 9: (4, "i4"), 5: (8, "u4"), 10: (8, "i4"), 11: (4, "f4"), 12: (8, "f8")}
+_REFUSED_COMPRESSION = {2: "CCITT fax (modified Huffman)", 3: "CCITT fax (group 3)",
+                        4: "CCITT fax (group 4)", 6: "JPEG-in-TIFF (old-style JPEG)",
+                        7: "JPEG-in-TIFF"}
+NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 8, 32946, 32773
+# Pillow refuses an image of more pixels (twice ``Image.MAX_IMAGE_PIXELS``:
+# a decompression bomb).
+MAX_PIXELS = 2 * 89478485
+# Pillow's MAX_SAMPLESPERPIXEL: it refuses a pixel of more samples.
+MAX_SAMPLES = 6
+
+
+def _lzw_decode(data: bytes, count: int) -> bytes:
+    """At most ``count`` bytes of a TIFF LZW strip or tile (libtiff's new
+    style): 9- to 12-bit codes, most significant bit first; 256 clears the
+    table, 257 ends the data; the code width grows when the next entry
+    would be the last of the current width."""
+    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
+        raise ValueError("unsupported TIFF compression: old-style (LSB-first) LZW")
+    base = [bytes([i]) for i in range(256)] + [b"", b""]
+    table, size, prev = list(base), 9, None
+    out = bytearray()
+    acc = nacc = pos = 0
+    while len(out) < count:
+        while nacc < size and pos < len(data):
+            acc = (acc << 8) | data[pos]
+            nacc += 8
+            pos += 1
+        if nacc < size:
+            break  # the data ends without an end code
+        code = (acc >> (nacc - size)) & ((1 << size) - 1)
+        nacc -= size
+        acc &= (1 << nacc) - 1
+        if code == 256:
+            table, size, prev = list(base), 9, None
+            continue
+        if code == 257:
+            break
+        if code < len(table):
+            entry = table[code]
+            added = None if prev is None else prev + entry[:1]
+        elif code == len(table) and prev is not None:
+            entry = added = prev + prev[:1]
+        else:
+            raise ValueError("corrupt TIFF data: an LZW code past the table")
+        if added is not None and len(table) < 4096:
+            table.append(added)
+            if len(table) == (1 << size) - 1 and size < 12:
+                size += 1
+        out += entry
+        prev = entry
+    return bytes(out[:count])
+
+
+def _packbits_decode(data: bytes, count: int) -> bytes:
+    """At most ``count`` bytes of PackBits data: a header byte n, then n + 1
+    literal bytes (n < 128) or one byte repeated 257 - n times (n > 128);
+    128 is skipped."""
+    out = bytearray()
+    pos = 0
+    while len(out) < count and pos < len(data):
+        n = data[pos]
+        pos += 1
+        if n < 128:
+            if pos + n + 1 > len(data):
+                raise ValueError("truncated TIFF data: a PackBits literal run")
+            out += data[pos:pos + n + 1]
+            pos += n + 1
+        elif n > 128:
+            if pos >= len(data):
+                raise ValueError("truncated TIFF data: a PackBits repeat")
+            out += data[pos:pos + 1] * (257 - n)
+            pos += 1
+    return bytes(out[:count])
+
+
+def _native(fn_name: str):
+    def decode(data: bytes, count: int) -> bytes:
+        src = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
+        out = np.empty(max(count, 1), np.uint8)
+        written = np.zeros(1, np.int64)
+        native.check(getattr(native.library(), fn_name)(
+            native.ptr(src), len(data), native.ptr(out), count, native.ptr(written)), "TIFF",
+            {native.ERR_CODE: "corrupt TIFF data: an LZW code past the table",
+             native.ERR_CORRUPT: "unsupported TIFF compression: old-style (LSB-first) LZW",
+             native.ERR_TRUNCATED: "truncated TIFF data: a PackBits run"})
+        return out[:int(written[0])].tobytes()
+
+    return decode
+
+
+_NATIVE = {LZW: _native("tdt_tiff_lzw"), PACKBITS: _native("tdt_tiff_packbits")}
+_PLAIN = {LZW: _lzw_decode, PACKBITS: _packbits_decode}
+
+
+def decode_tiff(data: bytes) -> np.ndarray:
+    """The (H, W, 3) uint8 RGB of a TIFF file's first image, as Pillow 12.1's
+    ``Image.open(f).convert("RGB")`` gives it; LZW and PackBits decoded by
+    the C library (``data/csrc/tiff.c``, built at the first call)."""
+    return _decode(bytes(data), _NATIVE)
+
+
+def decode_tiff_reference(data: bytes) -> np.ndarray:
+    """The plain version of ``decode_tiff``: LZW and PackBits in Python. The
+    tests and ``chip_smoke.py`` hold the C library to it."""
+    return _decode(bytes(data), _PLAIN)
+
+
+def _ifd(data: bytes, order: str) -> dict[int, np.ndarray]:
+    """The first IFD's fields: tag -> values (integers as int64)."""
+    if len(data) < 8:
+        raise ValueError("truncated TIFF file")
+    pos = int.from_bytes(data[4:8], order)
+    if pos + 2 > len(data):
+        raise ValueError("truncated TIFF file: no image directory")
+    n = int.from_bytes(data[pos:pos + 2], order)
+    if pos + 2 + 12 * n > len(data):
+        raise ValueError("truncated TIFF file: the image directory")
+    end = "<" if order == "little" else ">"
+    fields = {}
+    for i in range(n):
+        entry = data[pos + 2 + 12 * i:pos + 14 + 12 * i]
+        tag, kind = int.from_bytes(entry[0:2], order), int.from_bytes(entry[2:4], order)
+        count = int.from_bytes(entry[4:8], order)
+        if kind not in _TYPES:
+            continue  # Pillow skips a field of an unknown type
+        size, code = _TYPES[kind]
+        total = size * count
+        if total <= 4:
+            raw = entry[8:8 + total]
+        else:
+            at = int.from_bytes(entry[8:12], order)
+            raw = data[at:at + total]
+            if len(raw) < total:
+                raise ValueError(f"truncated TIFF file: field {tag}")
+        values = np.frombuffer(raw, end + code)
+        if kind in (5, 10):  # rationals: numerator / denominator
+            values = values.reshape(-1, 2)
+        fields[tag] = values.astype(np.int64) if kind not in (11, 12) else values
+    return fields
+
+
+def _field(fields: dict, tag: int, default=None):
+    if tag in fields:
+        return [int(v) for v in np.asarray(fields[tag]).reshape(-1)]
+    if default is None:
+        raise ValueError(f"corrupt TIFF file: no field {tag}")
+    return default
+
+
+def _decode(data: bytes, codecs: dict) -> np.ndarray:
+    if data[:4] not in SIGNATURES:
+        if data[:4] in (b"II+\x00", b"MM\x00+"):
+            raise ValueError("unsupported TIFF file: BigTIFF")
+        raise ValueError("not a TIFF file")
+    order = "little" if data[:2] == b"II" else "big"
+    fields = _ifd(data, order)
+    width, height = _field(fields, 256)[0], _field(fields, 257)[0]
+    spp = _field(fields, 277, [1])[0]
+    bps = _field(fields, 258, [1])
+    bps = bps * spp if len(bps) == 1 and spp > 1 else bps
+    photometric = _field(fields, 262)[0]
+    compression = _field(fields, 259, [NONE])[0]
+    predictor = _field(fields, 317, [1])[0]
+    planar = _field(fields, 284, [1])[0]
+    extra = _field(fields, 338, [])
+    sample_format = _field(fields, 339, [1])[0]
+    if not 0 < spp <= MAX_SAMPLES:
+        raise ValueError(f"corrupt TIFF file: {spp} samples a pixel")
+    if width <= 0 or height <= 0 or len(bps) != spp:
+        raise ValueError(f"corrupt TIFF file: {width}x{height}, {spp} samples, {len(bps)} depths")
+    if compression in _REFUSED_COMPRESSION:
+        raise ValueError(f"unsupported TIFF compression: {_REFUSED_COMPRESSION[compression]}")
+    if compression not in (NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS):
+        raise ValueError(f"unsupported TIFF compression {compression}")
+    if predictor not in (1, 2):
+        raise ValueError(f"unsupported TIFF predictor {predictor}")
+    if _field(fields, 266, [1])[0] != 1:
+        raise ValueError("unsupported TIFF fill order (least significant bit first)")
+    if sample_format != 1:
+        raise ValueError(f"unsupported TIFF sample format {sample_format} (signed or floating)")
+    if planar not in (1, 2):
+        raise ValueError(f"corrupt TIFF file: planar configuration {planar}")
+    if len(set(bps)) != 1 or bps[0] not in (1, 2, 4, 8, 16):
+        raise ValueError(f"unsupported TIFF sample depths {bps}")
+    bits = bps[0]
+    if predictor == 2 and bits < 8:
+        raise ValueError("corrupt TIFF file: a horizontal predictor on sub-byte samples")
+    samples = _samples(data, fields, order, width, height, spp, bits, compression, predictor,
+                       planar, codecs)
+    return _to_rgb(samples, fields, photometric, spp, bits, extra, order)
+
+
+def _chunks(fields: dict, width: int, height: int):
+    """Each chunk's (offset, byte count) and geometry: ``(tiled, chunk
+    width, chunk height, across)``."""
+    if 322 in fields or 324 in fields:
+        tw, th = _field(fields, 322)[0], _field(fields, 323)[0]
+        offsets, counts = _field(fields, 324), _field(fields, 325)
+        if tw <= 0 or th <= 0:
+            raise ValueError(f"corrupt TIFF file: tiles of {tw}x{th}")
+        return offsets, counts, (True, tw, th, math.ceil(width / tw))
+    rows = min(_field(fields, 278, [2**32 - 1])[0], height)
+    if rows <= 0:
+        raise ValueError("corrupt TIFF file: no rows a strip")
+    return _field(fields, 273), _field(fields, 279), (False, width, rows, 1)
+
+
+def _samples(data, fields, order, width, height, spp, bits, compression, predictor, planar,
+             codecs) -> np.ndarray:
+    """The image's samples, (H, W, spp): uint8, or uint16 for 16 bits, or
+    the unpacked values of sub-byte samples."""
+    offsets, counts, (tiled, cw, ch, across) = _chunks(fields, width, height)
+    planes = spp if planar == 2 else 1
+    per_pixel = 1 if planar == 2 else spp
+    down = math.ceil(height / ch)
+    if down * ch * across * cw > MAX_PIXELS:
+        raise ValueError(f"TIFF image too large: {across * cw}x{down * ch} pixels, tiles included")
+    per_plane = across * down
+    if len(offsets) < per_plane * planes or len(counts) < len(offsets):
+        raise ValueError(f"corrupt TIFF file: {len(offsets)} chunks for {per_plane * planes}")
+    row_bytes = (cw * per_pixel * bits + 7) // 8
+    dtype = np.dtype(("<" if order == "little" else ">") + "u2") if bits == 16 else np.uint8
+    out = np.zeros((down * ch, across * cw, spp), np.uint16 if bits == 16 else np.uint8)
+    for plane in range(planes):
+        for index in range(per_plane):
+            rows = ch if tiled else min(ch, height - index * ch)
+            expected = rows * row_bytes
+            at, n = offsets[plane * per_plane + index], counts[plane * per_plane + index]
+            raw = data[at:at + n]
+            if len(raw) < n:
+                raise ValueError("truncated TIFF file: a strip or tile")
+            chunk = _decompress(raw, compression, expected, codecs)
+            if len(chunk) < expected:
+                raise ValueError("truncated TIFF data: a strip or tile decodes short")
+            block = np.frombuffer(chunk[:expected], np.uint8).reshape(rows, row_bytes)
+            if bits == 16:
+                values = block.view(dtype).reshape(rows, cw, per_pixel).astype(np.uint16)
+            elif bits == 8:
+                values = block.reshape(rows, cw, per_pixel)
+            else:
+                unpacked = np.unpackbits(block, axis=1).reshape(rows, -1, bits)
+                unpacked = (unpacked * (1 << np.arange(bits - 1, -1, -1))).sum(-1)
+                values = unpacked[:, :cw * per_pixel].reshape(rows, cw, per_pixel)
+            if predictor == 2:  # each sample the running sum of the row's differences
+                values = np.cumsum(values, axis=1, dtype=values.dtype)
+            y, x = (index // across) * ch, (index % across) * cw
+            channels = slice(plane, plane + 1) if planar == 2 else slice(0, spp)
+            out[y:y + rows, x:x + cw, channels] = values
+    return out[:height, :width]
+
+
+def _decompress(raw: bytes, compression: int, expected: int, codecs: dict) -> bytes:
+    if compression == NONE:
+        return raw
+    if compression in (DEFLATE, ADOBE_DEFLATE):
+        try:
+            return zlib.decompressobj().decompress(raw, expected)
+        except zlib.error as e:
+            raise ValueError(f"corrupt TIFF data: {e}") from e
+    return codecs[compression](raw, expected)
+
+
+def _palette(fields: dict) -> np.ndarray:
+    """The 256 colours of the colour map: its 16-bit entries' high bytes
+    (Pillow's ``b // 256``), reds, then greens, then blues (``RGB;L``);
+    black past them."""
+    raw = np.asarray(fields.get(320, np.zeros(0)), np.int64).reshape(-1)
+    n = min(raw.size // 3, 256)
+    if n == 0:
+        raise ValueError("corrupt TIFF file: a palette image without a colour map")
+    table = np.zeros((256, 3), np.uint8)
+    table[:n] = (raw[:3 * (raw.size // 3)].reshape(3, -1)[:, :n].T // 256).astype(np.uint8)
+    return table
+
+
+# Pillow's OPEN_INFO for RGB and CMYK: the extra samples each sample count
+# may carry at 8 and 16 bits (0 other, 1 associated alpha, 2 alpha; 999 is
+# Corel Draw's), past the three or four colour samples.
+_RGB_EXTRA = {(8, 3): ((),), (8, 4): ((), (0,), (1,), (2,), (999,)),
+              (8, 5): ((0, 0), (1, 0), (2, 0)), (8, 6): ((0, 0, 0), (1, 0, 0), (2, 0, 0)),
+              (16, 3): ((),), (16, 4): ((), (0,), (2,))}
+_CMYK_EXTRA = {4: ((),), 5: ((0,),), 6: ((0, 0),)}
+
+
+def _to_rgb(s: np.ndarray, fields: dict, photometric: int, spp: int, bits: int, extra: list,
+            order: str) -> np.ndarray:
+    """Pillow's mode for (photometric, depths, extra samples), then its
+    conversion to RGB."""
+    extra = tuple(extra)
+    if photometric in (0, 1) and spp == 1:
+        v = s[..., 0]
+        if bits == 16:
+            if photometric == 0 and order == "big":
+                raise ValueError("unsupported TIFF image: big-endian 16-bit min-is-white grey")
+            grey = np.minimum(v, 255).astype(np.uint8)  # I;16 to RGB: clamped
+        else:
+            grey = (v.astype(np.int64) * 255 // ((1 << bits) - 1)).astype(np.uint8)
+            if photometric == 0:
+                grey = 255 - grey
+        return np.repeat(grey[..., None], 3, axis=2)
+    if photometric == 1 and spp == 2 and bits == 8 and extra == (2,):
+        return np.repeat(s[..., :1], 3, axis=2)
+    if photometric == 3 and bits <= 8 and (spp == 1 or (spp == 2 and extra in ((0,), (2,)))):
+        return _palette(fields)[s[..., 0]]
+    if photometric == 2 and extra in _RGB_EXTRA.get((bits, spp), ()):
+        rgb = (s[..., :3] >> 8).astype(np.uint8) if bits == 16 else s[..., :3]
+        if extra[:1] == (1,):  # associated alpha: Pillow's RGBa unpacking divides it out
+            a = s[..., 3:4].astype(np.int64)
+            scaled = np.minimum(rgb.astype(np.int64) * 255 // np.maximum(a, 1), 255)
+            rgb = np.where(a == 0, 0, np.where(a == 255, rgb, scaled)).astype(np.uint8)
+        return np.ascontiguousarray(rgb)
+    if photometric == 5 and bits == 8 and extra in _CMYK_EXTRA.get(spp, ()):
+        return _cmyk_to_rgb(255 - s[..., :4])
+    names = {6: "YCbCr", 8: "CIELab", 9: "ICC Lab", 10: "ITU Lab", 32844: "LogL",
+             32845: "LogLuv"}
+    what = names.get(photometric, f"photometric {photometric}")
+    raise ValueError(f"unsupported TIFF image: {what}, {spp} samples of {bits} bits, "
+                     f"extra {extra}")

@@ -34,6 +34,7 @@ from tinydiffusion_torch.device import disable_tf32, resolve_device
 from tinydiffusion_torch.io.checkpoint import load_sidecar, load_weights_arrays, weights_exist
 from tinydiffusion_torch.io.from_jax import state_dict_by_name
 from tinydiffusion_torch.models.unet28 import UNet28
+from tinydiffusion_torch.nn.layers import computing_in
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -224,10 +225,9 @@ def _denoiser(model, schedule, params, cond, conditional, prediction, compute_dt
               guidance_scale=1.0):
     """``apply_fn(x, t) -> eps_hat`` over ``model`` in eval mode, with
     ``params`` (name -> tensor, e.g. an EMA shadow) in place of its own. The
-    model runs in ``compute_dtype`` (bfloat16: under ``torch.autocast``,
-    without its cache of cast weights, which may not outlive a CUDA graph's
-    capture), whatever the chain's dtype; its float32 output goes back to the
-    chain.
+    model runs in ``compute_dtype`` (``nn.layers.computing_in``: flax's
+    ``dtype=``), whatever the chain's dtype; its float32 output goes back to
+    the chain.
 
     With guidance, ``cond`` is ``_condition``'s ``[y, null]`` stack: the
     conditional and the null-label predictions come from one forward at
@@ -237,8 +237,7 @@ def _denoiser(model, schedule, params, cond, conditional, prediction, compute_dt
     args = (cond,) if conditional else ()
 
     def forward(x, t_vec):
-        with torch.autocast(x.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype != torch.float32, cache_enabled=False):
+        with computing_in(model, compute_dtype):
             if params is None:
                 out = model(x, t_vec, *args)
             else:

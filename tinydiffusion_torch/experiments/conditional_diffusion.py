@@ -78,7 +78,7 @@ class ConditionalDiffusionConfig:
     one, below), plus ``device`` and ``base_width``.
 
     - ``compute_dtype`` is the model's (train, val and sampling forwards,
-      bfloat16 under ``torch.autocast``); the sampling chain runs in
+      flax's ``dtype=``, ``nn.layers.computing_in``); the sampling chain runs in
       ``sample_dtype``. On a card ``run`` turns TF32 off for the process.
     - ``data_placement``: JAX's rule (``experiments.common.resolve_data_placement``);
       ``"auto"`` keeps both splits on the device.

@@ -63,7 +63,7 @@ class DiffusionConfig:
     plus ``device`` and ``base_width``.
 
     - ``compute_dtype``: ``"bfloat16"`` (the JAX default) runs the model's
-      forward, in training and in sampling, under ``torch.autocast``;
+      forward, in training and in sampling, in bfloat16 as flax's ``dtype=``;
       ``"float32"`` runs it in full float32. The sampling chain runs in
       ``sample_dtype``, as in JAX. On a card ``run`` turns TF32 off for the
       process, whatever the dtypes, so float32 is full float32.

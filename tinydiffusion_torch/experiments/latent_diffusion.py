@@ -110,7 +110,7 @@ class LatentDiffusionConfig:
       its stage A writes; the committed VAE is
       ``checkpoints/vae_mnist_best``, passed by name.
     - ``compute_dtype`` is the denoiser's (train, val and sampling forwards,
-      bfloat16 under ``torch.autocast``); the frozen VAE runs in float32
+      flax's ``dtype=``, ``nn.layers.computing_in``); the frozen VAE runs in float32
       and the sampling chain in ``sample_dtype``. On a card ``run`` turns
       TF32 off for the process.
     - ``data_placement``: JAX's rule; ``"auto"`` keeps both splits on the device.
@@ -193,7 +193,7 @@ def load_vae(config: LatentDiffusionConfig, device: str | torch.device = "cuda")
 
 def build_denoiser(config: LatentDiffusionConfig, latent_dim: int) -> nn.Module:
     """The backbone of ``config`` at its widths, float32 params on the CPU
-    (the compute dtype is the forward's autocast)."""
+    (the steps and the sampler run it in their compute dtype)."""
     if config.backbone == "dit":
         return DiT(time_dim=config.time_dim, num_classes=config.num_classes,
                    latent_dim=latent_dim)

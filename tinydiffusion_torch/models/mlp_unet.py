@@ -10,8 +10,8 @@ JAX ones, so ``io.from_jax.mlp_unet_state_dict`` maps them by name.
 The decoder quirk is kept: time is added to the decoder's input before the
 encoder skip is concatenated, ``dec3(cat(b + t1, e3))``,
 ``dec2(cat(d3 + t2, e2))``, ``dec1(cat(d2 + t3, e1))``, unlike the pixel
-UNet, which adds it to the skip. The output is float32 whatever the compute
-dtype (bfloat16 under ``torch.autocast``).
+UNet, which adds it to the skip. ``dtype`` is flax's ``dtype=`` (``nn.layers``);
+the output is float32 whatever it is.
 """
 
 from __future__ import annotations
@@ -20,49 +20,53 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinydiffusion_torch.nn.layers import BatchNorm1d, TimeEmbedMLP
+from tinydiffusion_torch.nn.layers import BatchNorm1d, FlaxDtype, Linear, TimeEmbedMLP
 
 
 class DenseBNRelu(nn.Module):
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc = nn.Linear(in_features, features)
-        self.bn = BatchNorm1d(features)
+        self.fc = Linear(in_features, features, dtype=dtype)
+        self.bn = BatchNorm1d(features, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.fc(x)))
 
 
 class DoubleDenseBlock(nn.Module):
-    def __init__(self, in_features: int, hidden: int, out: int):
+    def __init__(self, in_features: int, hidden: int, out: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.block1 = DenseBNRelu(in_features, hidden)
-        self.block2 = DenseBNRelu(hidden, out)
+        self.block1 = DenseBNRelu(in_features, hidden, dtype)
+        self.block2 = DenseBNRelu(hidden, out, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block2(self.block1(x))
 
 
-class MLPUNetLatent(nn.Module):
-    def __init__(self, time_dim: int = 256, num_classes: int = 10, latent_dim: int = 20):
+class MLPUNetLatent(FlaxDtype, nn.Module):
+    def __init__(self, time_dim: int = 256, num_classes: int = 10, latent_dim: int = 20,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.time_embedding = TimeEmbedMLP(time_dim)
+        self.dtype = dtype
+        self.time_embedding = TimeEmbedMLP(time_dim, dtype=dtype)
         self.class_embedding = nn.Embedding(num_classes, time_dim)  # N(0, 1) init
-        self.initial_fc = nn.Linear(latent_dim, 512)
-        self.enc1 = DoubleDenseBlock(512, 512, 256)
-        self.enc2 = DoubleDenseBlock(256, 256, 128)
-        self.enc3 = DoubleDenseBlock(128, 128, 64)
-        self.bottleneck = DenseBNRelu(64, 64)
-        self.time_proj1 = nn.Linear(time_dim, 64)
-        self.time_proj2 = nn.Linear(time_dim, 128)
-        self.time_proj3 = nn.Linear(time_dim, 256)
-        self.dec3 = DoubleDenseBlock(128, 128, 128)
-        self.dec2 = DoubleDenseBlock(256, 256, 256)
-        self.dec1 = DoubleDenseBlock(512, 512, 512)
-        self.final_fc = nn.Linear(512, latent_dim)
+        self.initial_fc = Linear(latent_dim, 512, dtype=dtype)
+        self.enc1 = DoubleDenseBlock(512, 512, 256, dtype)
+        self.enc2 = DoubleDenseBlock(256, 256, 128, dtype)
+        self.enc3 = DoubleDenseBlock(128, 128, 64, dtype)
+        self.bottleneck = DenseBNRelu(64, 64, dtype)
+        self.time_proj1 = Linear(time_dim, 64, dtype=dtype)
+        self.time_proj2 = Linear(time_dim, 128, dtype=dtype)
+        self.time_proj3 = Linear(time_dim, 256, dtype=dtype)
+        self.dec3 = DoubleDenseBlock(128, 128, 128, dtype)
+        self.dec2 = DoubleDenseBlock(256, 256, 256, dtype)
+        self.dec1 = DoubleDenseBlock(512, 512, 512, dtype)
+        self.final_fc = Linear(512, latent_dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        emb = self.time_embedding(t) + self.class_embedding(y)
+        x = x.to(self.dtype)
+        emb = self.time_embedding(t) + self.class_embedding(y).to(self.dtype)
         e1 = self.enc1(self.initial_fc(x))
         e2 = self.enc2(e1)
         e3 = self.enc3(e2)

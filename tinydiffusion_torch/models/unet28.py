@@ -26,12 +26,14 @@ projection's add work per channel on the slice. The one-channel
 ``final_conv`` stays whole on every rank, so its gathered input's gradient
 is taken, not summed. The output is then whole on every rank.
 
-The resizes and the pool are torch's native ``F.interpolate(bilinear,
-align_corners=True)`` and ``F.max_pool2d(ceil_mode=True)``, whose backward
-routes a tied window's gradient to its first maximum: the rule the JAX
-package's custom VJP copies. Inputs and outputs are NCHW; inside, the
-activations are kept channels-last. The output is float32 whatever the
-compute type (``torch.autocast`` runs the convs in bfloat16 when asked).
+``dtype`` is flax's ``dtype=``: every layer computes in it and rounds where
+flax's rounds (``nn.layers``), the parameters stay float32. The resizes are
+JAX's two products on its interpolation matrices in the activations' dtype
+(``nn.resize``; the matrices of the five resizes are buffers), and the pool
+is torch's ``F.max_pool2d(ceil_mode=True)``, whose backward routes a tied
+window's gradient to its first maximum: the rule the JAX package's custom
+VJP copies. Inputs and outputs are NCHW; inside, the activations are kept
+channels-last. The output is float32 whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -40,21 +42,31 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinydiffusion_torch.nn.layers import ConvBNRelu, DoubleConvBlock, TimeEmbedMLP
+from tinydiffusion_torch.nn.layers import (
+    Conv2d,
+    ConvBNRelu,
+    DoubleConvBlock,
+    FlaxDtype,
+    Linear,
+    TimeEmbedMLP,
+)
+from tinydiffusion_torch.nn.resize import (
+    register_resize_matrices,
+    resize_bilinear_align_corners,
+    resize_matrix,
+)
 from tinydiffusion_torch.parallel.mesh import apply_full
 
-
-def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
-    if x.shape[-1] == size and x.shape[-2] == size:
-        return x
-    return F.interpolate(x, size=(size, size), mode="bilinear", align_corners=True)
+# (from, to) of every resize of a 28x28 input: the 2x upsamples, the skips'
+# resizes and the head's 32 -> 28.
+RESIZES = ((4, 8), (7, 8), (8, 16), (14, 16), (16, 32), (28, 32), (32, 28))
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
 
 
-class UNet28(nn.Module):
+class UNet28(FlaxDtype, nn.Module):
     """UNet denoiser for (B, C, 28, 28) images; eps- (or v-) prediction.
 
     ``num_classes=None`` -> unconditional; ``num_classes=10`` ->
@@ -71,34 +83,42 @@ class UNet28(nn.Module):
         in_channels: int = 1,
         out_channels: int = 1,
         base_width: int = 64,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         w = base_width
         self.num_classes = num_classes
-        self.time_embedding = TimeEmbedMLP(time_dim)
+        self.dtype = dtype
+        self.time_embedding = TimeEmbedMLP(time_dim, dtype=dtype)
         if num_classes is not None:
             self.class_embedding = nn.Embedding(num_classes, time_dim)  # N(0, 1) init
-        self.initial_conv = nn.Conv2d(in_channels, w, 3, padding=1)
-        self.enc1 = DoubleConvBlock(w, 2 * w)
-        self.enc2 = DoubleConvBlock(2 * w, 4 * w)
-        self.enc3 = DoubleConvBlock(4 * w, 8 * w)
-        self.bottleneck = ConvBNRelu(8 * w, 8 * w)
-        self.time_proj1 = nn.Linear(time_dim, 2 * w)
-        self.time_proj2 = nn.Linear(time_dim, 4 * w)
-        self.time_proj3 = nn.Linear(time_dim, 8 * w)
-        self.dec3 = DoubleConvBlock(16 * w, 4 * w)
-        self.dec2 = DoubleConvBlock(8 * w, 2 * w)
-        self.dec1 = DoubleConvBlock(4 * w, w)
-        self.final_conv = nn.Conv2d(w, out_channels, 3, padding=1)
+        self.initial_conv = Conv2d(in_channels, w, 3, padding=1, dtype=dtype)
+        self.enc1 = DoubleConvBlock(w, 2 * w, dtype)
+        self.enc2 = DoubleConvBlock(2 * w, 4 * w, dtype)
+        self.enc3 = DoubleConvBlock(4 * w, 8 * w, dtype)
+        self.bottleneck = ConvBNRelu(8 * w, 8 * w, dtype=dtype)
+        self.time_proj1 = Linear(time_dim, 2 * w, dtype=dtype)
+        self.time_proj2 = Linear(time_dim, 4 * w, dtype=dtype)
+        self.time_proj3 = Linear(time_dim, 8 * w, dtype=dtype)
+        self.dec3 = DoubleConvBlock(16 * w, 4 * w, dtype)
+        self.dec2 = DoubleConvBlock(8 * w, 2 * w, dtype)
+        self.dec1 = DoubleConvBlock(4 * w, w, dtype)
+        self.final_conv = Conv2d(w, out_channels, 3, padding=1, dtype=dtype)
+        register_resize_matrices(self, RESIZES)
+
+    def _resize(self, x: torch.Tensor, size: int) -> torch.Tensor:
+        m = resize_matrix(self, x.shape[-1], size)
+        return resize_bilinear_align_corners(x, m, m)
 
     def forward(
         self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor | None = None
     ) -> torch.Tensor:
+        x = x.to(self.dtype)
         emb = self.time_embedding(t)
         if self.num_classes is not None:
             if y is None:
                 raise ValueError("class-conditional model requires labels y")
-            emb = emb + self.class_embedding(y)
+            emb = emb + self.class_embedding(y).to(self.dtype)  # flax Embed's dtype
 
         # NHWC inside, as in JAX: torch's NCHW bilinear-resize kernel on the
         # card loops over batch x channels in each thread, which at the 4x4-
@@ -114,10 +134,10 @@ class UNet28(nn.Module):
         e3 = self.enc3(_pool(e2))  # 7
         b = self.bottleneck(_pool(e3))  # 4
 
-        def skip(e: torch.Tensor, proj: nn.Linear, size: int) -> torch.Tensor:
-            return _resize(e + apply_full(mp, proj, emb)[:, :, None, None], size)
+        def skip(e: torch.Tensor, proj: Linear, size: int) -> torch.Tensor:
+            return self._resize(e + apply_full(mp, proj, emb)[:, :, None, None], size)
 
-        d3 = self.dec3(_resize(b, 8), skip(e3, self.time_proj3, 8))
-        d2 = self.dec2(_resize(d3, 16), skip(e2, self.time_proj2, 16))
-        d1 = self.dec1(_resize(d2, 32), skip(e1, self.time_proj1, 32))
-        return apply_full(mp, self.final_conv, _resize(d1, 28)).float()
+        d3 = self.dec3(self._resize(b, 8), skip(e3, self.time_proj3, 8))
+        d2 = self.dec2(self._resize(d3, 16), skip(e2, self.time_proj2, 16))
+        d1 = self.dec1(self._resize(d2, 32), skip(e1, self.time_proj1, 32))
+        return apply_full(mp, self.final_conv, self._resize(d1, 28)).float()

@@ -15,90 +15,80 @@ so ``io.from_jax.state_dict_by_name`` maps one onto the other by name.
 - decoder: align-corners bilinear 2x upsample, concat (widths 16w/12w/6w),
   double conv 8w/4w/2w; a ``Conv(2w -> C)`` head.
 
-The upsample is JAX's (``tinydiffusion_tpu/nn/resize.py``): two products
-with the dense (2n, n) align-corners interpolation matrix, along H and then
-along W, in the compute dtype (bfloat16 under autocast: the matrix and the
-intermediate rounded as flax rounds them). It equals
-``F.interpolate(bilinear, align_corners=True)`` in float32, and its backward
-is two products, where that op's CUDA backward adds with atomics: so the
-bfloat16 train step is bit-reproducible on a card (``chip_smoke.py``'s
-``laion_parity``; in float32 cuDNN's default convolution algorithms are
-not). The matrices of the
-latent grid's three upsamples (``latent_size`` 32: 4, 8 and 16 up) are
-buffers on the model's device.
+The upsample is JAX's (``nn.resize``): two products with the dense (2n, n)
+align-corners interpolation matrix, along H and then along W, in the compute
+dtype (in bfloat16 the matrix and the intermediate rounded as flax rounds
+them). It equals ``F.interpolate(bilinear, align_corners=True)`` in float32,
+and its backward is two products, where that op's CUDA backward adds with
+atomics: so the bfloat16 train step is bit-reproducible on a card
+(``chip_smoke.py``'s ``laion_parity``; in float32 cuDNN's default
+convolution algorithms are not). The matrices of the latent grid's three
+upsamples (``latent_size`` 32: 4, 8 and 16 up) are buffers on the model's
+device.
 
-As in JAX the sinusoid and the context enter in the compute dtype: under
-bfloat16 autocast ``time_mlp_fc2``'s output is bfloat16, and adding a
-float32 context to it would promote the sum to float32 where flax rounds it
-to bfloat16, so both are cast explicitly (``nn.layers.compute_dtype``).
-The output is float32.
+``dtype`` is flax's ``dtype=`` (``nn.layers``). As in JAX the sinusoid and
+the context enter in it: ``time_mlp_fc2``'s output is in ``dtype``, and the
+context is cast to it before the sum, where a float32 context would promote
+the sum. The output is float32.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusion_torch.core.embeddings import sinusoidal_frequencies, sinusoidal_time_embedding
-from tinydiffusion_torch.nn.layers import ConvBNRelu, DoubleConvBlock, compute_dtype
+from tinydiffusion_torch.nn.layers import (
+    Conv2d,
+    ConvBNRelu,
+    DoubleConvBlock,
+    FlaxDtype,
+    Linear,
+    silu,
+)
+from tinydiffusion_torch.nn.resize import (
+    register_resize_matrices,
+    resize_matrix,
+    upsample_bilinear_2x,
+)
 
 
-def align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """The (n_out, n_in) float32 matrix of 1-D align-corners bilinear
-    interpolation, built in float64 as JAX builds it."""
-    w = np.zeros((n_out, n_in), np.float64)
-    scale = (n_in - 1) / (n_out - 1)
-    for i in range(n_out):
-        src = i * scale
-        lo = min(int(np.floor(src)), n_in - 1)
-        hi = min(lo + 1, n_in - 1)
-        w[i, lo] += 1.0 - (src - lo)
-        w[i, hi] += src - lo
-    return w.astype(np.float32)
-
-
-def upsample_bilinear_2x(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """(B, C, n, n) -> (B, C, 2n, 2n) with ``m = align_corners_matrix(n, 2n)``:
-    along H, then along W."""
-    return torch.matmul(torch.matmul(m, x), m.T)
-
-
-class LatentUNet(nn.Module):
+class LatentUNet(FlaxDtype, nn.Module):
     """(B, C, S, S) latents, (B,) timesteps and (B, time_dim) context -> eps."""
 
     def __init__(self, time_dim: int = 768, in_channels: int = 4, base_width: int = 32,
-                 latent_size: int = 32):
+                 latent_size: int = 32, dtype: torch.dtype = torch.float32):
         super().__init__()
         w = base_width
         self.time_dim = time_dim
+        self.dtype = dtype
         # The sinusoid's table and the upsample matrices, on the model's
         # device; not weights.
         self.register_buffer("freqs", sinusoidal_frequencies(time_dim), persistent=False)
-        for n in (latent_size // 8, latent_size // 4, latent_size // 2):
-            self.register_buffer(f"up{n}", torch.from_numpy(align_corners_matrix(n, 2 * n)),
-                                 persistent=False)
-        self.time_mlp_fc1 = nn.Linear(time_dim, time_dim)
-        self.time_mlp_fc2 = nn.Linear(time_dim, time_dim)
-        self.initial_conv = nn.Conv2d(in_channels, w, 3, padding=1)
-        self.enc1 = DoubleConvBlock(w, 2 * w)
-        self.enc2 = DoubleConvBlock(2 * w, 4 * w)
-        self.enc3 = DoubleConvBlock(4 * w, 8 * w)
-        self.bottleneck = ConvBNRelu(8 * w, 8 * w)
-        self.time_proj1 = nn.Linear(time_dim, 2 * w)
-        self.time_proj2 = nn.Linear(time_dim, 4 * w)
-        self.time_proj3 = nn.Linear(time_dim, 8 * w)
-        self.dec3 = DoubleConvBlock(16 * w, 8 * w)
-        self.dec2 = DoubleConvBlock(12 * w, 4 * w)
-        self.dec1 = DoubleConvBlock(6 * w, 2 * w)
-        self.final_conv = nn.Conv2d(2 * w, in_channels, 3, padding=1)
+        register_resize_matrices(self, [(n, 2 * n) for n in (latent_size // 8, latent_size // 4,
+                                                             latent_size // 2)])
+        self.time_mlp_fc1 = Linear(time_dim, time_dim, dtype=dtype)
+        self.time_mlp_fc2 = Linear(time_dim, time_dim, dtype=dtype)
+        self.initial_conv = Conv2d(in_channels, w, 3, padding=1, dtype=dtype)
+        self.enc1 = DoubleConvBlock(w, 2 * w, dtype)
+        self.enc2 = DoubleConvBlock(2 * w, 4 * w, dtype)
+        self.enc3 = DoubleConvBlock(4 * w, 8 * w, dtype)
+        self.bottleneck = ConvBNRelu(8 * w, 8 * w, dtype=dtype)
+        self.time_proj1 = Linear(time_dim, 2 * w, dtype=dtype)
+        self.time_proj2 = Linear(time_dim, 4 * w, dtype=dtype)
+        self.time_proj3 = Linear(time_dim, 8 * w, dtype=dtype)
+        self.dec3 = DoubleConvBlock(16 * w, 8 * w, dtype)
+        self.dec2 = DoubleConvBlock(12 * w, 4 * w, dtype)
+        self.dec1 = DoubleConvBlock(6 * w, 2 * w, dtype)
+        self.final_conv = Conv2d(2 * w, in_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        dtype = compute_dtype(self.time_mlp_fc1.weight)
+        dtype = self.dtype
+        x = x.to(dtype)
         t_emb = sinusoidal_time_embedding(t, self.time_dim, self.freqs).to(dtype)
-        t_emb = self.time_mlp_fc2(F.silu(self.time_mlp_fc1(t_emb)))
-        emb = t_emb + context.to(t_emb.dtype)
+        t_emb = self.time_mlp_fc2(silu(self.time_mlp_fc1(t_emb)))
+        emb = t_emb + context.to(dtype)
 
         x0 = self.initial_conv(x)
         e1 = self.enc1(x0)  # 32
@@ -106,11 +96,12 @@ class LatentUNet(nn.Module):
         e3 = self.enc3(F.max_pool2d(e2, 2))  # 8
         b = self.bottleneck(F.max_pool2d(e3, 2))  # 4
 
-        def skip(e: torch.Tensor, proj: nn.Linear) -> torch.Tensor:
+        def skip(e: torch.Tensor, proj: Linear) -> torch.Tensor:
             return e + proj(emb)[:, :, None, None]
 
         def _up(x: torch.Tensor) -> torch.Tensor:
-            return upsample_bilinear_2x(x, getattr(self, f"up{x.shape[-1]}"))
+            n = x.shape[-1]
+            return upsample_bilinear_2x(x, resize_matrix(self, n, 2 * n))
 
         d3 = self.dec3(torch.cat([_up(b), skip(e3, self.time_proj3)], dim=1))
         d2 = self.dec2(torch.cat([_up(d3), skip(e2, self.time_proj2)], dim=1))

@@ -8,7 +8,7 @@ sigmoid. Module names are the JAX ones (``fc1``, ``fc21``, ``fc22``,
 other by name.
 
 The model runs in float32 in every caller, as JAX's ``VAEMnist()`` does: the
-frozen encoder of latent diffusion too, outside the denoiser's autocast.
+frozen encoder of latent diffusion too, whatever the denoiser's dtype.
 The noise ``eps`` is an argument, never drawn here: the caller draws it from
 its own generator (or replays JAX's).
 """

@@ -3,19 +3,183 @@
 Counterpart of ``tinydiffusion_tpu/nn/layers.py``: the UNet blocks
 (``ConvBNRelu``, ``DoubleConvBlock``, ``TimeEmbedMLP``), ``BatchNorm2d`` and
 ``BatchNorm1d`` that keep flax's running statistics, flax's ``LayerNorm``,
-and the spectral-norm wrapper of the conv-VAE. Convolutions and dense layers
-are torch's own ``nn.Conv2d`` and ``nn.Linear``: their default init
-(kaiming_uniform(a=sqrt(5)) weights, U(+-1/sqrt(fan_in)) biases) is the one
-the JAX package copies.
+and the spectral-norm wrapper of the conv-VAE.
+
+A module of flax's ``dtype=`` computes in that dtype while its parameters
+stay float32, and rounds where flax's code rounds: ``Conv2d`` and ``Linear``
+(torch's, with the default init the JAX package copies) cast the input and
+the weight, take the product without the bias and then add the bias cast to
+the compute dtype, as flax's ``Conv`` and ``Dense`` do; ``silu``, ``gelu``
+and ``softmax`` are the op sequences XLA runs for ``jax.nn.silu``,
+``jax.nn.gelu(approximate=False)`` and ``jax.nn.softmax``, each op rounded,
+with JAX's backward; the norms are flax's ops. Every such module carries
+its ``dtype``; ``computing_in(model, dtype)`` makes all of a model's compute
+in another inside a block (the train steps' and the sampler's
+``compute_dtype``). Nothing reads ``torch.autocast``, so a model rounds the
+same way on the CPU and on a card.
 """
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusion_torch.parallel.mesh import all_reduce_sum, apply_full
+
+
+class FlaxDtype:
+    """A module that computes in ``self.dtype``, flax's ``dtype=``."""
+
+    dtype: torch.dtype = torch.float32
+
+
+@contextlib.contextmanager
+def computing_in(model: nn.Module, dtype: torch.dtype):
+    """Every ``FlaxDtype`` module of ``model`` computes in ``dtype`` inside
+    the block, and in its own dtype again after it."""
+    modules = [m for m in model.modules() if isinstance(m, FlaxDtype)]
+    saved = [m.dtype for m in modules]
+    for m in modules:
+        m.dtype = dtype
+    try:
+        yield model
+    finally:
+        for m, d in zip(modules, saved):
+            m.dtype = d
+
+
+def flax_affine(layer, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+    """flax's ``Conv``/``Dense`` of ``dtype`` (default ``layer.dtype``): the
+    input and the weight cast, the product without the bias, then the bias
+    cast and added (a second rounding in bfloat16)."""
+    dt = layer.dtype if dtype is None else dtype
+    y = layer.product(x.to(dt), weight.to(dt))
+    return y if bias is None else y + layer.bias_view(bias.to(dt))
+
+
+class Conv2d(FlaxDtype, nn.Conv2d):
+    """``nn.Conv2d`` as flax's ``Conv`` of ``dtype`` (``flax_affine``); the
+    parameters stay float32."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def product(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, weight, None)
+
+    @staticmethod
+    def bias_view(bias: torch.Tensor) -> torch.Tensor:
+        return bias[:, None, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return flax_affine(self, x, self.weight, self.bias)
+
+
+class Linear(FlaxDtype, nn.Linear):
+    """``nn.Linear`` as flax's ``Dense`` of ``dtype`` (``flax_affine``)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    @staticmethod
+    def product(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, weight)
+
+    @staticmethod
+    def bias_view(bias: torch.Tensor) -> torch.Tensor:
+        return bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return flax_affine(self, x, self.weight, self.bias)
+
+
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu``: XLA runs ``x * (1 / (1 + exp(-x)))`` rounding after
+    each op; the backward is JAX's, ``g * s + (g * x) * (s * (1 - s))``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return _Silu.apply(x)
+
+
+def constant(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX casts a constant to the
+    operand's dtype; a Python number, so that no tensor is made in a CUDA
+    graph's capture."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu(approximate=False)``: ``(0.5 * x) * erfc(-x *
+    sqrt(0.5))``, each op rounded, the constants in ``x``'s dtype; the
+    backward is the one JAX's autodiff writes (erfc's derivative through
+    ``-2/sqrt(pi)`` in ``x``'s dtype)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.sqrt_half = constant(np.sqrt(0.5), x.dtype)
+        half_x = 0.5 * x
+        u = -x * ctx.sqrt_half
+        erfc = torch.special.erfc(u)
+        ctx.save_for_backward(half_x, erfc, torch.exp(-(u * u)))
+        return half_x * erfc
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        half_x, erfc, gauss = ctx.saved_tensors
+        slope = constant(-2.0 / np.sqrt(np.pi), g.dtype)
+        through_erfc = ((slope * (half_x * g)) * gauss) * ctx.sqrt_half
+        return -through_erfc + 0.5 * (g * erfc)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return _Gelu.apply(x)
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` over the last dim: ``s = exp(x - max)``, the sum
+    of ``s`` in float32 rounded to x's dtype, ``s / sum``. The backward is
+    the one JAX's autodiff writes, each op rounded in x's dtype:
+    ``((g / w) - sum((g * w**-2) * s)) * s``, the sum taken in order, each
+    add rounded (XLA's sum of a low-precision transpose)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        s = torch.exp(x - x.amax(-1, keepdim=True))
+        w = s.float().sum(-1, keepdim=True).to(x.dtype)
+        ctx.save_for_backward(s, w)
+        return s / w
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        s, w = ctx.saved_tensors
+        z = (g * torch.reciprocal(w * w)) * s
+        total = z[..., :1]
+        for k in range(1, z.shape[-1]):
+            total = total + z[..., k:k + 1]
+        return (g / w - total) * s
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    return _Softmax.apply(x)
 
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -93,46 +257,67 @@ def _move_running_stats(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor,
 
 def _flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                      dims: tuple[int, ...]) -> torch.Tensor:
-    """Train mode: normalise over ``dims`` with the batch statistics and move
-    the running ones flax's way (see ``BatchNorm2d``). Under data
-    parallelism (``bn.data_parallel``) the batch is the global one."""
-    if bn.data_parallel is not None:
-        return _global_batch_norm(bn, x, dims, bn.data_parallel)
+    """flax's ``BatchNorm``; in train mode: normalise over ``dims`` with the
+    batch statistics, ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    float32 and the result in x's dtype, and move the running statistics
+    flax's way (see ``BatchNorm2d``).
+
+    As in flax, x enters float32 twice, once for the statistics and once for
+    ``x - mean``: in bfloat16 the two paths' input gradients round apart and
+    add in bfloat16, as JAX's transposed converts do. The statistics are
+    flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, from per-channel sums
+    taken in float64: in float32 the difference loses a few ulps of the
+    variance where the mean is large (4 ulps on a variance of 391 in the
+    small UNet28's decoder). Under data parallelism (``bn.data_parallel``)
+    the sums are summed over the group in one collective, differentiably
+    (``parallel.mesh.all_reduce_sum``), so the batch is the global one and
+    the backward carries the statistics' gradient terms of every rank's
+    loss. Eval mode normalises with the running statistics, in the same
+    ops."""
+    dp = bn.data_parallel
+    if bn.fused and dp is None:
+        return _fused_batch_norm(bn, x, dims)
+    if not bn.training:
+        return _flax_normalize(bn, x, bn.running_mean, bn.running_var)
+    xs = x.float()
+    c = xs.shape[1]
+    count = xs.numel() // c * (1 if dp is None else dp.size)
+    sums = torch.cat([xs.sum(dims, dtype=torch.float64),
+                      (xs * xs).sum(dims, dtype=torch.float64)])
+    if dp is not None:
+        sums = all_reduce_sum(sums, dp)
+    mean64 = sums[:c] / count
+    var = torch.clamp(sums[c:] / count - mean64 * mean64, min=0.0).float()
+    mean = mean64.float()
+    _move_running_stats(bn, mean.detach(), var.detach())
+    return _flax_normalize(bn, x, mean, var)
+
+
+def _fused_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                      dims: tuple[int, ...]) -> torch.Tensor:
+    """``bn.fused``: torch's own batch norm, one kernel, normalising with its
+    statistics in its own order; the running statistics moved flax's way
+    from a two-pass ``var_mean``."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
+                            bn.eps)
     with torch.no_grad():
         var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
     _move_running_stats(bn, mean, var)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
-def _global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
-                       dims: tuple[int, ...], dp) -> torch.Tensor:
-    """``_flax_batch_norm`` over the group's global batch, as flax's
-    BatchNorm under GSPMD: the per-channel sum and sum of squares of the
-    float32 input are summed over the group in one collective, and the mean
-    and biased variance ``E[x^2] - E[x]^2`` (flax's fast variance, floored at
-    0) of the global batch normalise ``x`` and move the running statistics.
-    The sums accumulate in float64: in float32 the difference loses a few
-    ulps of the variance where the mean is large (4 ulps on a variance of
-    391 in the small UNet28's decoder), where one process's two-pass
-    ``var_mean`` loses none. The sum is differentiable across ranks
-    (``parallel.mesh.all_reduce_sum``), so the backward carries the
-    statistics' gradient terms of every rank's loss."""
-    xf = x.float()
-    c = xf.shape[1]
-    count = xf.numel() // c * dp.size
-    sums = all_reduce_sum(torch.cat([xf.sum(dims, dtype=torch.float64),
-                                     (xf * xf).sum(dims, dtype=torch.float64)]), dp)
-    mean64 = sums[:c] / count
-    var = torch.clamp(sums[c:] / count - mean64 * mean64, min=0.0).float()
-    mean = mean64.float()
-    _move_running_stats(bn, mean.detach(), var.detach())
-    shape = [1, c] + [1] * (xf.dim() - 2)
-    scale = torch.rsqrt(var + bn.eps) * bn.weight.float()
-    y = (xf - mean.view(shape)) * scale.view(shape) + bn.bias.float().view(shape)
+def _flax_normalize(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, mean: torch.Tensor,
+                    var: torch.Tensor) -> torch.Tensor:
+    """flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` in float32 over channel dim 1, in x's dtype."""
+    shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (x.float() - mean.view(shape)) * mul.view(shape) + bn.bias.float().view(shape)
     return y.to(x.dtype)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
+class BatchNorm2d(FlaxDtype, nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax ``BatchNorm(momentum=0.9, epsilon=1e-5)``'s
     running statistics.
 
@@ -142,69 +327,67 @@ class BatchNorm2d(nn.BatchNorm2d):
     of 8 the two differ by N/(N-1) = 1.6 %. This class follows flax, so the
     statistics after a step equal the JAX package's:
     ``running = 0.9 * running + 0.1 * batch`` for the mean and the biased
-    variance, computed in float32. ``num_batches_tracked`` is kept for
+    variance, float32 from float64 sums. ``num_batches_tracked`` is kept for
     ``state_dict`` compatibility and never advanced (the momentum is fixed).
-    Eval mode is torch's, which is flax's.
+    Both modes normalise in flax's ops (``_flax_batch_norm``), or, with
+    ``fused``, in torch's one batch-norm kernel (the conv-VAE's, whose large
+    activations keep it; its rounding there is not flax's).
 
     A bfloat16 input (a flax BatchNorm of ``dtype=bfloat16`` after a bf16
     conv) is normalised with float32 statistics, scale and bias, and the
-    output comes back in bfloat16, as flax's does.
+    output comes back in ``dtype``, as flax's does.
     """
 
     # The data axis whose global batch train mode normalises over
     # (``parallel.mesh.sync_batch_norm_``); None: this process's batch.
     data_parallel = None
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
+                 fused: bool = False):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.dtype = dtype
+        self.fused = fused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        return _flax_batch_norm(self, x, (0, 2, 3))
+        return _flax_batch_norm(self, x, (0, 2, 3)).to(self.dtype)
 
 
-class BatchNorm1d(nn.BatchNorm1d):
+class BatchNorm1d(FlaxDtype, nn.BatchNorm1d):
     """``BatchNorm2d``'s flax statistics over (B, C) features: the MLP UNet's
     ``Dense -> BatchNorm`` blocks."""
 
     data_parallel = None  # as BatchNorm2d's
+    fused = False
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        return _flax_batch_norm(self, x, (0,))
+        return _flax_batch_norm(self, x, (0,)).to(self.dtype)
 
 
-def compute_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype a flax module of the model's dtype computes in: autocast's
-    when it is on for ``x``'s device, else ``x``'s own."""
-    device = x.device.type
-    return torch.get_autocast_dtype(device) if torch.is_autocast_enabled(device) else x.dtype
-
-
-class LayerNorm(nn.LayerNorm):
+class LayerNorm(FlaxDtype, nn.LayerNorm):
     """flax ``LayerNorm(epsilon=1e-5)`` over the last dim: the statistics in
     float32 with flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, then
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, returned in the
-    compute dtype (``compute_dtype``), as a flax module of that dtype does."""
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, returned in
+    ``dtype``, as a flax module of that dtype does. x enters float32 twice,
+    as in ``_flax_batch_norm``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=1e-5)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
-        return y.to(compute_dtype(x))
+        xs = x.float()
+        mean = xs.mean(-1, keepdim=True)
+        var = ((xs * xs).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((x.float() - mean) * mul + self.bias.float()).to(self.dtype)
 
 
 class ConvBNRelu(nn.Module):
-    """``Conv2d(k=3, p=1) -> BatchNorm2d -> ReLU`` on NCHW.
+    """``Conv2d(k=3, p=1) -> BatchNorm2d -> ReLU`` on NCHW, in ``dtype``.
 
     ``forward(*parts)`` convolves the channel concatenation of ``parts``. On
     the model axis (``parallel.mesh.apply_sharding``) each part is this
@@ -215,10 +398,12 @@ class ConvBNRelu(nn.Module):
     # The model axis (``parallel.mesh.ModelParallel``); None: one process.
     model_parallel = None
 
-    def __init__(self, in_channels: int, features: int, kernel_size: int = 3):
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, kernel_size, padding=kernel_size // 2)
-        self.bn = BatchNorm2d(features)
+        self.conv = Conv2d(in_channels, features, kernel_size, padding=kernel_size // 2,
+                           dtype=dtype)
+        self.bn = BatchNorm2d(features, dtype)
 
     def forward(self, *parts: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(apply_full(self.model_parallel, self.conv, *parts)))
@@ -228,35 +413,37 @@ class DoubleConvBlock(nn.Module):
     """Two stacked ``ConvBNRelu`` at the same width: one UNet stage, on the
     channel concatenation of its inputs."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.block1 = ConvBNRelu(in_channels, features)
-        self.block2 = ConvBNRelu(features, features)
+        self.block1 = ConvBNRelu(in_channels, features, dtype=dtype)
+        self.block2 = ConvBNRelu(features, features, dtype=dtype)
 
     def forward(self, *parts: torch.Tensor) -> torch.Tensor:
         return self.block2(self.block1(*parts))
 
 
-class TimeEmbedMLP(nn.Module):
-    """``Linear(1, D) -> SiLU -> Linear(D, D)`` time embedding. The integer
-    timestep enters as a raw float, as in the reference, or, with
-    ``normalize``, divided by it (the DiT's ``t / 1000``).
+class TimeEmbedMLP(FlaxDtype, nn.Module):
+    """``Linear(1, D) -> SiLU -> Linear(D, D)`` time embedding in ``dtype``.
+    The integer timestep enters as a raw float, as in the reference, or,
+    with ``normalize``, divided by it (the DiT's ``t / 1000``).
 
-    As in JAX, t is cast to the compute dtype before the division: under
-    bfloat16 autocast t = 999 rounds to 1000 and enters as 1.0. Dividing in
-    float32 and rounding the quotient would enter another value at 190 of
-    the 1000 timesteps."""
+    As in JAX, t is cast to the compute dtype before the division: in
+    bfloat16 t = 999 rounds to 1000 and enters as 1.0. Dividing in float32
+    and rounding the quotient would enter another value at 190 of the 1000
+    timesteps."""
 
     model_parallel = None  # as ConvBNRelu's
 
-    def __init__(self, dim: int, normalize: float | None = None):
+    def __init__(self, dim: int, normalize: float | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.normalize = normalize
-        self.fc1 = nn.Linear(1, dim)
-        self.fc2 = nn.Linear(dim, dim)
+        self.dtype = dtype
+        self.fc1 = Linear(1, dim, dtype=dtype)
+        self.fc2 = Linear(dim, dim, dtype=dtype)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        t = t.to(compute_dtype(self.fc1.weight))[:, None]
+        t = t.to(self.dtype)[:, None]
         if self.normalize is not None:
             t = t / self.normalize
-        return apply_full(self.model_parallel, self.fc2, F.silu(self.fc1(t)))
+        return apply_full(self.model_parallel, self.fc2, silu(self.fc1(t)))

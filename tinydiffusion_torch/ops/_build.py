@@ -194,6 +194,9 @@ DECODE_SIGNATURES: dict[str, tuple] = {
     "tdt_jpeg_pixels": (_P, _I64, _P, _P, _I64, _P, _I64),
     # data, n, min_size, out (uint8 indices), count, written (int64, set)
     "tdt_gif_lzw": (_P, _I64, _I64, _P, _I64, _P),
+    # data, n, out (uint8), count, written (int64, set)
+    "tdt_tiff_lzw": (_P, _I64, _P, _I64, _P),
+    "tdt_tiff_packbits": (_P, _I64, _P, _I64, _P),
     # data, n, rgb (uint8, height x width x 3), width, height (from the header)
     "tdt_vp8_decode": (_P, _I64, _P, _I64, _I64),
     "tdt_vp8l_decode": (_P, _I64, _P, _I64, _I64),

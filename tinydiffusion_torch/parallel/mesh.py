@@ -46,7 +46,6 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
 
 
@@ -454,50 +453,52 @@ def to_full(mp: ModelParallel | None, consumer: nn.Module, *parts: torch.Tensor,
     return _ToFull.apply(mp, sharded, float32 and sharded, *parts)
 
 
-def _layer_forward(layer: nn.Module, x: torch.Tensor, weight: torch.Tensor,
-                   bias: torch.Tensor | None) -> torch.Tensor:
-    if isinstance(layer, nn.Conv2d):
-        return layer._conv_forward(x, weight, bias)
-    return F.linear(x, weight, bias)
-
-
 class _Float32InputGrad(torch.autograd.Function):
-    """A sharded conv's or linear's forward under autocast, as autocast runs
-    it; the backward gives its weight and bias gradients as autocast's would
-    and its input gradient in float32, from the same low-precision operands
-    (products exact, sums in float32): this rank's partial of the whole
-    input's gradient, unrounded."""
+    """A sharded conv's or linear's forward in its compute dtype (its own
+    forward, ``nn.layers.flax_affine``); the backward gives its weight and
+    bias gradients as that forward's would and its input gradient in
+    float32, from the same low-precision operands (products exact, sums in
+    float32): this rank's partial of the whole input's gradient, unrounded."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
                 layer: nn.Module) -> torch.Tensor:
-        ctx.layer, ctx.device = layer, x.device.type
-        ctx.dtype = torch.get_autocast_dtype(ctx.device)
+        # The dtype of this forward: the backward runs after the caller's
+        # ``computing_in`` block has given the layer its own dtype back.
+        ctx.layer, ctx.dtype = layer, layer.dtype
         ctx.save_for_backward(x, weight, bias)
-        return _layer_forward(layer, x, weight, bias)
+        return _affine(layer, x, weight, bias, ctx.dtype)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         x, weight, bias = ctx.saved_tensors
+        layer, dtype = ctx.layer, ctx.dtype
         leaves = [t.detach().requires_grad_() for t in (weight, bias) if t is not None]
-        with torch.enable_grad(), torch.autocast(ctx.device, dtype=ctx.dtype):
-            out = _layer_forward(ctx.layer, x.detach(), *leaves, *([None] * (bias is None)))
+        with torch.enable_grad():
+            out = _affine(layer, x.detach(), *leaves, *([None] * (bias is None)), dtype)
             param_grads = torch.autograd.grad(out, leaves, grad)
-        with torch.enable_grad(), torch.autocast(ctx.device, enabled=False):
-            x32 = x.detach().to(ctx.dtype).float().requires_grad_()
-            out = _layer_forward(ctx.layer, x32, weight.detach().to(ctx.dtype).float(), None)
+            x32 = x.detach().to(dtype).float().requires_grad_()
+            out = layer.product(x32, weight.detach().to(dtype).float())
             (x_grad,) = torch.autograd.grad(out, x32, grad.float())
         return x_grad, param_grads[0], param_grads[1] if bias is not None else None, None
 
 
+def _affine(layer: nn.Module, x: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    from tinydiffusion_torch.nn.layers import flax_affine  # nn.layers imports this module
+
+    return flax_affine(layer, x, weight, bias, dtype)
+
+
 def apply_full(mp: ModelParallel | None, consumer: nn.Module, *parts: torch.Tensor) -> torch.Tensor:
-    """``consumer(to_full(mp, consumer, *parts))``. Under autocast (bfloat16)
-    on a model axis, a sharded consumer computes its input gradient in
-    float32 and the model axis sums those float32 partials, rounding to the
-    activations' dtype once after the sum: JAX's GSPMD step feeds each of its
-    (float32) all-reduces from a float32 convolution of the bf16 operands."""
-    autocast = mp is not None and torch.is_autocast_enabled(parts[0].device.type)
-    if not (autocast and out_sharded(consumer) and torch.is_grad_enabled()):
+    """``consumer(to_full(mp, consumer, *parts))``. For a bfloat16 consumer
+    (its ``dtype``) on a model axis, a sharded consumer computes its input
+    gradient in float32 and the model axis sums those float32 partials,
+    rounding to the activations' dtype once after the sum: JAX's GSPMD step
+    feeds each of its (float32) all-reduces from a float32 convolution of
+    the bf16 operands."""
+    low = mp is not None and consumer.dtype != torch.float32
+    if not (low and out_sharded(consumer) and torch.is_grad_enabled()):
         return consumer(to_full(mp, consumer, *parts))
     x = to_full(mp, consumer, *parts, float32=True)
     return _Float32InputGrad.apply(x, consumer.weight, consumer.bias, consumer)

@@ -66,6 +66,7 @@ from tinydiffusion_torch.core.process import q_sample_with_noise, v_from_eps
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.io.from_jax import jax_variables
+from tinydiffusion_torch.nn.layers import computing_in
 from tinydiffusion_torch.ops.qsample import q_sample_fused
 from tinydiffusion_torch.parallel.mesh import (
     DataParallel,
@@ -262,12 +263,7 @@ def _step_body(
                                   device=y.device) < 1.0 - label_dropout
             y = y.masked_fill(~shard(dp, keep), null_label)
         args = (y,) if conditional else ()
-        # cache_enabled=False: autocast's cache of cast weights may not
-        # outlive a CUDA graph capture; each weight is cast once a step anyway.
-        with torch.autocast(
-            x0.device.type, dtype=compute_dtype, enabled=compute_dtype != torch.float32,
-            cache_enabled=False,
-        ):
+        with computing_in(model, compute_dtype):
             out = model(x_t, t, *args)
         target = v_from_eps(schedule, x0, noise, t) if prediction == "v" else noise
         loss = F.mse_loss(out.float(), target)
@@ -325,7 +321,8 @@ def make_train_step(
     package the same step. ``label_dropout`` > 0 replaces each label by
     ``null_label`` where ``keep`` is False (drawn as JAX's Bernoulli of
     1 - ``label_dropout``). ``compute_dtype=torch.bfloat16`` runs the
-    forward under ``torch.autocast``; the params and the loss stay float32.
+    model in bfloat16 as flax's ``dtype=`` does (``nn.layers.computing_in``);
+    the params and the loss stay float32.
     With ``dp``, ``x0`` and ``y`` are this rank's rows, the seams the global
     batch's, and the loss the global one (see the module's docstring).
     ``mesh`` replaces ``dp`` with its data axis and adds its model axis, on
@@ -539,8 +536,7 @@ def _eval_loss(model: nn.Module, schedule: DiffusionSchedule, x0: torch.Tensor,
     was_training = model.training
     model.eval()
     try:
-        with torch.autocast(x0.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype != torch.float32):
+        with computing_in(model, compute_dtype):
             out = model(x_t, t, *args)
     finally:
         model.train(was_training)
@@ -652,8 +648,7 @@ def _latent_step_body(vae: nn.Module, schedule: DiffusionSchedule, ema_decay: fl
             # (B, S, D) have a row a sample.
             options["dropout_masks"] = None if masks is None else [
                 (attn, shard(dp, out), shard(dp, ff)) for attn, out, ff in masks]
-        with torch.autocast(z0.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype != torch.float32, cache_enabled=False):
+        with computing_in(model, compute_dtype):
             out = model(z_t, t, y, **options)
         target = v_from_eps(schedule, z0, noise, t) if prediction == "v" else noise
         loss = F.mse_loss(out.float(), target)
@@ -784,8 +779,8 @@ def _laion_step_body(codec, schedule: DiffusionSchedule, lr_schedule: Callable,
         n = global_batch(dp, images.shape[0])
         # The draws from the state's generator: the codec's Gaussian (the SD
         # codec's only; the patch codec draws nothing), t, the q_sample seed,
-        # then the caption dropout. The encode runs in float32, outside the
-        # autocast, on the codec's float32 weights.
+        # then the caption dropout. The encode runs in float32, on the
+        # codec's float32 weights, whatever the denoiser's compute dtype.
         if dp is not None and enc_noise is None:
             shape = codec.noise_shape(images)
             if shape is not None:
@@ -807,8 +802,7 @@ def _laion_step_body(codec, schedule: DiffusionSchedule, lr_schedule: Callable,
             if keep is None:
                 keep = torch.rand(n, generator=gen, device=embeds.device) < 1.0 - caption_dropout
             embeds = torch.where(shard(dp, keep)[:, None], embeds, null_embed.to(embeds.dtype))
-        with torch.autocast(x0.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype != torch.float32, cache_enabled=False):
+        with computing_in(model, compute_dtype):
             out = model(x_t, t, embeds)
         loss = F.mse_loss(out.float(), noise)
         state.optimizer.zero_grad(set_to_none=True)
