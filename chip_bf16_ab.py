@@ -1,28 +1,31 @@
 #!/usr/bin/env python3
-"""Time the bf16 UNet28 train step and a DPM++-15 serving request of two
-checkouts of this repo on one CUDA card.
+"""Time the UNet28 train step, a DPM++-15 serving request and the conv-VAE's
+bf16 train step of two checkouts of this repo on one CUDA card.
 
     python3 chip_bf16_ab.py OLD_TREE NEW_TREE
 
 Each tree is the root of a checkout (``git archive <commit> | tar -x -C DIR``)
-with its ``chip_smoke.py`` and ``tinydiffusion_torch/``; the checkpoints are
-read from this script's checkout. The trees run in the order OLD, NEW, NEW,
-OLD, each in a process of its own, which builds that tree's kernels and
-times, as ``chip_smoke.py --profile`` runs them:
+with its ``chip_smoke.py`` and ``tinydiffusion_torch/``; a tree without its
+``checkpoints/`` reads this script's checkout's (a link is made). The trees
+run in the order OLD, NEW, NEW, OLD, each in a process of its own, which
+builds that tree's kernels and takes, with that tree's own
+``chip_smoke.py`` helpers:
 
-- ``train``: the main path's resident UNet28 step (width 64, B = 128,
-  bfloat16 compute, Adam, fused q_sample, a seeded init), 5 steps replayed
-  from one captured CUDA graph: ms a step from CUDA events over 10 calls of
-  5 steps, and from one profiler session over 5 steps the device's busy
-  share, the kernels a step and the 15 kernels of most device time;
-- ``serve``: the chain of one DPM++-15 request on
+- ``train_steps_graph`` (bfloat16) and ``train_steps_graph_f32``: the main
+  path's resident UNet28 step (width 64, B = 128, Adam, fused q_sample, a
+  seeded init), 5 steps replayed from one captured CUDA graph;
+- ``serve_dpmpp15``: the chain of one DPM++-15 request on
   ``conditional_cfg_ema_best`` (guidance 2 at doubled batch, n = 16, the
-  bf16 forward on the EMA shadow), replayed from its graphs: ms a request
-  over 5 requests, and the busy share, kernels a step and top kernels from
-  one session.
+  bf16 forward on the EMA shadow), replayed from its graphs;
+- ``vae_train_bf16_steps_graph``: 3 replayed conv-VAE steps at 256² (B = 4,
+  ``vae_laion_best``, model and perceptual net in bfloat16).
 
-The card's name and power limit come first; one JSON line a run, and a last
-line with each tree's runs side by side.
+Each is timed by CUDA events (``chip_smoke.cuda_ms``: 10 calls, 5 for a
+request and a conv-VAE call) and profiled by ``chip_smoke._profile_window``,
+whose ``profile`` line (busy share, kernels, top kernels) the process
+prints. The card's name and power limit come first; then each process's
+lines, each with its tree, and a last line with each tree's times side by
+side.
 """
 
 from __future__ import annotations
@@ -31,56 +34,36 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-STEPS, SERVE_STEPS, SERVE_N = 5, 15, 16
-
-
-def _window(fn, steps: int) -> dict:
-    """One profiler session over ``fn()``: the device's busy share of the
-    window and the kernels a step (device events, user annotations out)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        window_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.self_device_time_total > 0 and not getattr(ev, "is_user_annotation", False)]
-    busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
-    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:15]
-    return {"window_ms": window_ms, "busy_share": busy_ms / window_ms,
-            "kernels_per_step": sum(ev.count for ev in kernels) / steps,
-            "top": [{"kernel": ev.key[:90], "ms_per_step": ev.self_device_time_total / 1e3 / steps,
-                     "calls_per_step": ev.count / steps} for ev in top]}
+STEPS, SERVE_STEPS, SERVE_N, VAE_STEPS = 5, 15, 16, 3
 
 
 def measure(tree: str) -> dict:
-    """This process's measurements of ``tree``'s port."""
+    """This process's times of ``tree``'s port; its profile lines go to
+    stdout as ``chip_smoke.emit`` prints them."""
     sys.path.insert(0, tree)
     import chip_smoke as cs  # the tree's own
 
     assert os.path.dirname(os.path.abspath(cs.__file__)) == os.path.abspath(tree)
     cs.disable_tf32()
+    ms = {}
     schedule = cs.DiffusionSchedule.linear(1000).to("cuda")
     images = np.random.default_rng(cs.SEED + 16).integers(0, 256, (128 * STEPS, 28, 28, 1),
                                                           dtype=np.uint8)
-    state, dataset = cs._resident_state(images)
-    step = cs.make_resident_multi_step(schedule, dataset, compute_dtype=torch.bfloat16)
-    idxs = dataset.epoch_index_batches(0)
-    train_ms = cs.cuda_ms(lambda: step(state, idxs), iters=10) / STEPS
-    train = {"step_ms": train_ms, **_window(lambda: step(state, idxs), STEPS)}
+    for dtype, name in ((torch.bfloat16, "train_steps_graph"),
+                        (torch.float32, "train_steps_graph_f32")):
+        state, dataset = cs._resident_state(images)
+        step = cs.make_resident_multi_step(schedule, dataset, compute_dtype=dtype)
+        idxs = dataset.epoch_index_batches(0)
+        ms[name] = cs.cuda_ms(lambda: step(state, idxs), iters=10) / STEPS
+        cs._profile_window(name, lambda: step(state, idxs), steps=STEPS)
+        del state, dataset, step
 
-    cfg = cs.load_pixel_checkpoint(os.path.join(REPO, "checkpoints", "conditional_cfg_ema_best"),
-                                   "cuda")
+    cfg = cs.load_pixel_checkpoint(cs.CFG_CHECKPOINT, "cuda")
     serve = cs.make_sampler(cfg["model"], cfg["schedule"], (SERVE_N, 1, 28, 28), conditional=True,
                             method="dpmpp", sample_steps=SERVE_STEPS, guidance_scale=2.0,
                             null_label=cs.NULL_LABEL, compute_dtype=torch.bfloat16)
@@ -91,9 +74,25 @@ def measure(tree: str) -> dict:
         return serve(gen, params=cfg["params"], y=y7)
 
     request()  # the first request captures the chain
-    serve_ms = cs.cuda_ms(request, iters=5)
-    return {"tree": tree, "train": train,
-            "serve": {"request_ms": serve_ms, **_window(request, SERVE_STEPS)}}
+    ms["serve_dpmpp15"] = cs.cuda_ms(request, iters=5)
+    cs._profile_window("serve_dpmpp15", request, steps=SERVE_STEPS, n=SERVE_N)
+
+    vae = cs._conv_vae(torch.bfloat16)
+    vae_state = cs.vae_laion.create_train_state(
+        vae, cs.vae_laion.make_optimizer(vae, 1e-4, capturable=True), cs.SEED)
+    vae_images = np.random.default_rng(cs.SEED + 29).integers(0, 256, (4 * VAE_STEPS, 256, 256, 3),
+                                                               dtype=np.uint8)
+    vae_data = cs.DeviceDataset(vae_images, 4, seed=cs.SEED, device="cuda",
+                                u8_normalize=(1.0 / 255.0, 0.0))
+    vae_step = cs.vae_laion.make_conv_vae_resident_step(
+        cs.PerceptualNet(seed=123, dtype=torch.bfloat16).cuda(), 1.0, 10.0, vae_data)
+    vae_idxs = vae_data.epoch_index_batches(0)
+    ms["vae_train_bf16_steps_graph"] = cs.cuda_ms(lambda: vae_step(vae_state, vae_idxs),
+                                                  iters=5) / VAE_STEPS
+    # A forward and a backward launch at each of the three attention sites.
+    cs._profile_window("vae_train_bf16_steps_graph", lambda: vae_step(vae_state, vae_idxs),
+                       expect_flash=VAE_STEPS * 6, steps=VAE_STEPS, batch=4)
+    return {"tree": tree, "ms": ms}
 
 
 def main() -> int:
@@ -109,6 +108,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     old, new = (os.path.abspath(t) for t in sys.argv[1:])
+    for tree in (old, new):
+        checkpoints = os.path.join(tree, "checkpoints")
+        if os.path.isdir(checkpoints) and not os.listdir(checkpoints):
+            os.rmdir(checkpoints)
+        if not os.path.exists(checkpoints):
+            os.symlink(os.path.join(REPO, "checkpoints"), checkpoints)
     runs = []
     for tree in (old, new, new, old):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree],
@@ -116,10 +121,11 @@ def main() -> int:
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
             return 1
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(json.dumps(line), flush=True)
-        runs.append(line)
-    print(json.dumps({tag: [r for r in runs if r["tree"] == tree]
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        for line in lines[:-1]:
+            print(json.dumps({"tree": tree, **line}), flush=True)
+        runs.append(lines[-1])
+    print(json.dumps({tag: [r["ms"] for r in runs if r["tree"] == tree]
                       for tag, tree in (("old", old), ("new", new))}), flush=True)
     return 0
 

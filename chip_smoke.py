@@ -472,8 +472,8 @@ QSAMPLE_OPS_PER_ELEMENT = 35
 # Resident step, graph against eager, from the same trained weights on the
 # card: 2 eager warm-up steps, then replays. Only the order of floating-point
 # atomics (the bilinear resize's backward adds with them) differs, run to run
-# as between the two. It moves the losses by float32 rounding that bfloat16
-# autocast can round up to a bfloat16 step in a few activations; Adam turns
+# as between the two. It moves the losses by float32 rounding that the
+# bfloat16 compute can round up to a bfloat16 step in a few activations; Adam turns
 # the rounding noise of gradients that are zero in exact arithmetic (conv
 # biases ahead of a BatchNorm) into +-lr, so the weights are held by the
 # cosine of their updates, as in train_step_bf16. From a fresh init, whose
@@ -481,7 +481,9 @@ QSAMPLE_OPS_PER_ELEMENT = 35
 # bfloat16 runs part in the second step, before any replay, and by far within
 # a few: that start cannot tell a fault from this noise. From the trained
 # weights the second step (eager in both runs) already differs in bfloat16,
-# and 10 steps' updates reached a cosine of 0.9985 (H100 80GB HBM3): the
+# and 10 steps' updates reached a cosine of 0.9985 (H100 80GB HBM3, read
+# when the bf16 forward still ran under torch.autocast; the rounding of
+# flax's dtype= has kept the phase inside the same bounds): the
 # bfloat16 bound sits below that noise, the float32 one at 0.999 (read
 # 0.99999). The losses range 0.2-0.35 over these steps, with t; and a replay
 # that reused its draws would leave the generator's state, which must equal
@@ -618,11 +620,13 @@ SERVE_REQUESTS = {
 SERVE_FORWARDS = {"ddpm1000": 1000, "ddim50": 50, "dpmpp15": 15, "img2img": 50, "inpaint": 50}
 # DDIM-10 and DPM++-10 chains at n = 4 (guidance 2.0, a fixed x_init): the
 # card's float32 forward against the CPU's, TF32 off, within 1e-3. With the
-# bfloat16 forward (autocast) on the card against float32 on the CPU, the
-# bounds were set before the first card reading, from CPU runs of the same
-# chains (bf16 autocast against float32, both on the CPU): mean |diff| 0.0060
-# / 0.0191 and max 0.128 / 0.690 for DDIM / DPM++ at this x_init (0.0029 /
-# 0.0118 and 0.026 / 0.085 at another), samples in [-1.96, 1.35]. The largest
+# bfloat16 forward on the card against float32 on the CPU, the bounds were
+# set before the first card reading, from CPU runs of the same chains when
+# the bf16 forward ran under torch.autocast (bf16 against float32, both on
+# the CPU): mean |diff| 0.0060 / 0.0191 and max 0.128 / 0.690 for DDIM /
+# DPM++ at this x_init (0.0029 / 0.0118 and 0.026 / 0.085 at another),
+# samples in [-1.96, 1.35]; the card's bf16 forward in flax's dtype= read
+# mean 0.0097 / 0.0199 and max 0.284 / 0.838 (H100 80GB HBM3). The largest
 # difference is one pixel of a chaotic chain and heavy-tailed, so the mean
 # carries the check (about 3 times the CPU's) and the max only catches a
 # chain gone wrong.
@@ -676,9 +680,11 @@ LATENT_SERVE_REQUESTS = {
 # DDIM-10 decoded images at n = 4 from a fixed x_init: the card's float32
 # forward against the CPU's within 1e-3. The card's bfloat16 forward against
 # the CPU's float32: bounds set before any card reading, from CPU runs of the
-# same chains (bf16 autocast against float32, both on the CPU): mean |diff|
-# 0.0030 / 0.0023 and max 0.062 / 0.079 for the MLP UNet / DiT at this
-# x_init (0.0045 / 0.0084 and 0.096 / 0.35 at another); pixels in [-1, 1].
+# same chains when the bf16 forward ran under torch.autocast (bf16 against
+# float32, both on the CPU): mean |diff| 0.0030 / 0.0023 and max 0.062 /
+# 0.079 for the MLP UNet / DiT at this x_init (0.0045 / 0.0084 and 0.096 /
+# 0.35 at another); pixels in [-1, 1]. The card's bf16 forward in flax's
+# dtype= read mean 0.0051 / 0.0036 and max 0.134 / 0.194 (H100 80GB HBM3).
 # The mean carries the check, the max only catches a chain gone wrong.
 LATENT_SERVE_F32_ATOL = 1e-3
 LATENT_SERVE_BF16_MEAN_ABS, LATENT_SERVE_BF16_MAX_ABS = 0.03, 1.0
@@ -1138,8 +1144,10 @@ _KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_tc_kernel", "flash_bwd": "flash_bwd_t
 # which turns order gaps into flips, and a conv or dense after it spreads
 # them: on an H100 80GB HBM3 the blocks' gradients read 0.6-1.4 % against the
 # CPU (cuDNN's and cuBLAS's orders), beyond the CPU tests' 0.2-1.5 %; 3 %.
+# In eval mode (serving) the BatchNorm is one float32 kernel on both sides,
+# one rounding, one path back: 0.1 % both ways.
 BF16_LAYER_SHARES = {"conv": 1e-3, "dense": 1e-3, "resize": 1e-3, "conv_bn_relu": 1e-3,
-                     "conv_bn_relu_grad": 0.03, "time_embed_mlp": 1e-3,
+                     "conv_bn_relu_grad": 0.03, "conv_bn_relu_eval": 1e-3, "time_embed_mlp": 1e-3,
                      "time_embed_mlp_grad": 5e-3, "transformer_block": 1e-3,
                      "transformer_block_grad": 0.03, "dense_bn_relu": 1e-3,
                      "dense_bn_relu_grad": 0.03}
@@ -1159,8 +1167,9 @@ def _bf16_layer_cases() -> list:
     hold to JAX's, at their shapes: a conv and a dense with their nonzero
     default biases, the resizes of the UNet28 and the LatentUNet,
     ``ConvBNRelu`` and the MLP UNet's dense block in train mode,
-    ``TimeEmbedMLP`` raw and ``/ 1000``, the DiT's block at one token and at
-    four."""
+    ``ConvBNRelu`` in eval mode with running statistics away from their
+    init, ``TimeEmbedMLP`` raw and ``/ 1000``, the DiT's block at one token
+    and at four."""
     from tinydiffusion_torch.models.dit import TransformerBlock
     from tinydiffusion_torch.models.mlp_unet import DenseBNRelu
     from tinydiffusion_torch.nn.layers import Conv2d, ConvBNRelu, Linear, TimeEmbedMLP
@@ -1180,6 +1189,14 @@ def _bf16_layer_cases() -> list:
     def normal(*shape):
         return torch.randn(shape, generator=gen).to(bf16)
 
+    def with_running_stats(block):
+        bn = block.bn
+        with torch.no_grad():
+            for t, low, high in ((bn.running_mean, -1.0, 1.0), (bn.running_var, 0.5, 4.0),
+                                 (bn.weight, 0.5, 1.5), (bn.bias, -0.5, 0.5)):
+                t.copy_(torch.rand(t.shape, generator=gen) * (high - low) + low)
+        return block.eval()
+
     torch.manual_seed(SEED + 41)
     cases = [("conv", Conv2d(128, 128, 3, padding=1, dtype=bf16), [normal(16, 128, 14, 14)],
               normal(16, 128, 14, 14)),
@@ -1190,15 +1207,17 @@ def _bf16_layer_cases() -> list:
     cases += [
         ("conv_bn_relu", ConvBNRelu(64, 64, dtype=bf16).train(), [normal(16, 64, 14, 14)],
          normal(16, 64, 14, 14)),
+        ("conv_bn_relu_eval", with_running_stats(ConvBNRelu(64, 64, dtype=bf16)),
+         [normal(16, 64, 14, 14)], normal(16, 64, 14, 14)),
         ("time_embed_mlp", TimeEmbedMLP(256, dtype=bf16),
          [torch.randint(0, 1000, (64,), generator=gen)], normal(64, 256)),
         ("time_embed_mlp_dit", TimeEmbedMLP(256, normalize=1000.0, dtype=bf16),
          [torch.randint(0, 1000, (64,), generator=gen)], normal(64, 256)),
-        ("transformer_block", TransformerBlock(256, 4, 1024, dtype=bf16).eval(),
+        ("transformer_block", TransformerBlock(256, 4, 1024).eval(),
          [normal(32, 1, 256)], normal(32, 1, 256)),
-        ("transformer_block_s4", TransformerBlock(256, 4, 1024, dtype=bf16).eval(),
+        ("transformer_block_s4", TransformerBlock(256, 4, 1024).eval(),
          [normal(32, 4, 256)], normal(32, 4, 256)),
-        ("dense_bn_relu", DenseBNRelu(512, 256, dtype=bf16).train(), [normal(128, 512)],
+        ("dense_bn_relu", DenseBNRelu(512, 256).train(), [normal(128, 512)],
          normal(128, 256)),
     ]
     return cases
@@ -1206,11 +1225,15 @@ def _bf16_layer_cases() -> list:
 
 def _bf16_layer_run(module, inputs: list, cotangent: torch.Tensor, device: str):
     """``module``'s output and its inputs' gradients (the first parameter's
-    where the input is an integer) on ``device``."""
+    where the input is an integer) on ``device``, computing in bfloat16 as
+    the train steps run it (``computing_in``)."""
+    from tinydiffusion_torch.nn.layers import computing_in
+
     module = module.to(device)
     xs = [x.detach().clone().to(device).requires_grad_(x.is_floating_point()) for x in inputs]
-    out = module(*xs)
-    out.backward(cotangent.to(device))
+    with computing_in(module, torch.bfloat16):
+        out = module(*xs)
+        out.backward(cotangent.to(device))
     grads = [x.grad for x in xs if x.is_floating_point()]
     if not grads:
         grads = [next(module.parameters()).grad]

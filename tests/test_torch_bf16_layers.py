@@ -30,7 +30,7 @@ from tinydiffusion_tpu.nn.resize import resize_bilinear_align_corners as jax_res
 from tinydiffusion_torch.io.from_jax import jax_variables
 from tinydiffusion_torch.models.dit import TransformerBlock
 from tinydiffusion_torch.models.mlp_unet import DenseBNRelu
-from tinydiffusion_torch.nn.layers import Conv2d, ConvBNRelu, Linear, TimeEmbedMLP
+from tinydiffusion_torch.nn.layers import Conv2d, ConvBNRelu, Linear, TimeEmbedMLP, computing_in
 from tinydiffusion_torch.nn.resize import align_corners_matrix, resize_bilinear_align_corners
 
 BF16 = torch.bfloat16
@@ -105,10 +105,13 @@ def jax_eager(fn, inputs, cotangent):
 
 
 def port_run(module, inputs, cotangent_nhwc: np.ndarray, nchw: bool = False):
-    out = module(*inputs)
+    """``module``'s output and input gradients, computing in bfloat16 as the
+    train steps run it (``computing_in``)."""
     cot = torch.from_numpy(np.ascontiguousarray(
         cotangent_nhwc.transpose(0, 3, 1, 2) if nchw else cotangent_nhwc)).to(BF16)
-    out.backward(cot)
+    with computing_in(module, BF16):
+        out = module(*inputs)
+        out.backward(cot)
     return out, [x.grad for x in inputs]
 
 
@@ -230,6 +233,17 @@ def _conv_bn_relu(rng):
     return block, JaxConvBNRelu(64, dtype=jnp.bfloat16), x, cot
 
 
+def _with_running_stats(block: ConvBNRelu, rng) -> ConvBNRelu:
+    """``block`` with running statistics of a trained model (mean ~0.3,
+    variance ~2) and a scale and bias away from their init."""
+    bn = block.bn
+    with torch.no_grad():
+        for t, low, high in ((bn.running_mean, -1.0, 1.0), (bn.running_var, 0.5, 4.0),
+                             (bn.weight, 0.5, 1.5), (bn.bias, -0.5, 0.5)):
+            t.copy_(torch.from_numpy(rng.uniform(low, high, t.shape).astype(np.float32)))
+    return block
+
+
 def test_conv_bn_relu_train_rounds_as_flax():
     block, jax_block, x, cot = _conv_bn_relu(np.random.default_rng(2))
     variables = flax_variables(block)
@@ -249,6 +263,28 @@ def test_conv_bn_relu_train_rounds_as_flax():
     # backward spreads each flip over its 3x3 neighbours: ~1 %.
     assert_rounds_as_jax("ConvBNRelu input grad", from_nhwc(grad), ref_grad,
                          max_share=0.015, max_ulps=None)
+
+
+def test_conv_bn_relu_eval_rounds_as_flax():
+    """Eval mode (serving): torch's one batch-norm kernel normalises with the
+    running statistics in float32 and rounds once, as flax's ops do."""
+    rng = np.random.default_rng(6)
+    block, jax_block, x, cot = _conv_bn_relu(rng)
+    block = _with_running_stats(block, rng).eval()
+    variables = flax_variables(block)
+    ref, (ref_grad,) = jax_eager(lambda x: jax_block.apply(variables, x, train=False),
+                                 [to_jax(x)], to_jax(cot))
+    xt = to_port(x, True)
+    out, (grad,) = port_run(block, [xt], cot, nchw=True)
+    # A one-ulp flip of the conv's bf16 output (float32 summation order)
+    # comes out scaled by the BatchNorm's multiplier: its ulp is taken at the
+    # conv's output in the block's output units.
+    bn = block.bn
+    with torch.no_grad():
+        mul = (bn.weight * torch.rsqrt(bn.running_var + bn.eps)).abs()
+        pre = block.conv(xt.detach()).float().abs() * mul[:, None, None]
+    assert_rounds_as_jax("ConvBNRelu eval out", from_nhwc(out), ref, pre=from_nhwc(pre))
+    assert_rounds_as_jax("ConvBNRelu eval input grad", from_nhwc(grad), ref_grad, max_ulps=4)
 
 
 def test_jax_jit_rounds_conv_bn_relu_apart_from_eager():
@@ -292,7 +328,7 @@ def test_transformer_block_rounds_as_flax(tokens):
     biases, q over sqrt(head_dim) in bf16, jax.nn.softmax), the exact GELU
     and the LayerNorms, at one token (the reference's) and at four."""
     torch.manual_seed(0)
-    block = TransformerBlock(256, 4, 1024, dtype=BF16).eval()
+    block = TransformerBlock(256, 4, 1024).eval()
     rng = np.random.default_rng(4)
     x, cot = bf16(rng, (32, tokens, 256)), bf16(rng, (32, tokens, 256))
     variables = flax_variables(block)
@@ -309,7 +345,7 @@ def test_transformer_block_rounds_as_flax(tokens):
 def test_dense_bn_relu_train_rounds_as_flax():
     """The MLP UNet's ``Dense -> BatchNorm -> ReLU`` block in train mode."""
     torch.manual_seed(0)
-    block = DenseBNRelu(512, 256, dtype=BF16).train()
+    block = DenseBNRelu(512, 256).train()
     rng = np.random.default_rng(5)
     x, cot = bf16(rng, (128, 512)), bf16(rng, (128, 256))
     variables = flax_variables(block)

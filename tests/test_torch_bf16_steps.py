@@ -5,22 +5,27 @@ through the port's seams, for the MLP UNet and the DiT (latent diffusion on
 the MNIST VAE) and the LAION ``LatentUNet`` (patch codec, clip 10). Four
 steps per model: the port's; JAX's run eagerly (op by op: the rounding
 flax's code writes down); JAX's jitted (XLA's fusions round some of it
-elsewhere); and JAX's eager step with its broadcasts' transposes summed in
-float32 (``float32_broadcast_sums``). The gaps between pairs are printed
-(``pytest -s``): the loss's, relative; the largest parameter gap; the
-largest gap of a BatchNorm running statistic, relative to it.
+elsewhere); and, as a diagnostic only, JAX's eager step with its
+broadcasts' transposes summed in float32 (``float32_broadcast_sums``). The
+gaps between pairs are printed (``pytest -s``): the loss's, relative; the
+largest parameter gap; the largest gap of a BatchNorm running statistic,
+relative to it.
+
+The port is held to JAX's steps as they are, eager and jitted: the largest
+parameter gap to each within a bound a model (``PARAM_BOUNDS``, about twice
+the gap read on the CPU), the loss within JAX's own eager-to-jit gap of the
+eager step and within twice it of the jitted one.
 
 The transpose of a broadcast (the gradient of a bias, of the time
 projection added to a skip, of the DiT's positions) is a sum over the
 broadcast axes. In bf16 XLA's CPU backend adds it in bf16, each add
 rounded, in order over up to B*H*W terms: so JAX's bias gradients there
 lose most of their bits. The port sums in float32 and rounds once, and
-does not copy a backend's order of additions. With that sum in float32 on
-JAX's side too, the port's step lies as close to JAX's eager step as JAX's
-eager step lies to its own jitted one (held here); against JAX's step as it
-is, the loss's gap is held to twice JAX's own eager-to-jit gap. The pixel
-UNet28's whole step is held in ``tests/test_torch_tensor_parallel.py``, in
-one process and at (1, 2).
+does not copy a backend's order of additions. That sum holds the largest
+parameter gap of the UNet28 and the LatentUNet (their one-layer heads'
+biases); the patched run shows how far the rest lies. The pixel UNet28's
+whole step is held in ``tests/test_torch_tensor_parallel.py``, in one
+process and at (1, 2).
 """
 
 import contextlib
@@ -55,10 +60,16 @@ from tinydiffusion_torch.train.trainer import (
 )
 
 LATENT_LR, LAION_LR, LAION_CLIP = 0.1, 1e-2, 10.0
-# The port's gap to JAX's jitted step, against JAX's eager step's gap to it
-# (the parameters, and the loss): at most this many times, plus the floor
-# of a float32 summation-order gap.
-JIT_RATIO, PARAM_FLOOR, LOSS_FLOOR = 2.0, 1e-6, 1e-6
+# The port's loss against JAX's jitted step, against JAX's eager step's gap
+# to it: at most this many times, plus the floor of a float32
+# summation-order gap.
+JIT_RATIO, LOSS_FLOOR = 2.0, 1e-6
+# The largest parameter gap after one step to JAX's (eager, jitted) step,
+# about twice the gap read on the CPU (eager / jitted): MLP UNet 9.8e-5 /
+# 1.0e-3; DiT 4.9e-4 / 2.4e-4 (one and two bf16 ulps of its bf16
+# ``pos_encoding``; 4.9e-5 with float32 broadcast sums); LatentUNet 4.8e-4 /
+# 4.8e-4 (the head's bias; 2.0e-5 with float32 broadcast sums).
+PARAM_BOUNDS = {"mlp_unet": (2e-4, 2e-3), "dit": (1e-3, 5e-4), "latent_unet": (1e-3, 1e-3)}
 
 
 @contextlib.contextmanager
@@ -184,19 +195,23 @@ def _laion_steps():
             (float(jit_loss), _flat(jit_state)), (float(sums_loss), _flat(sums_state)))
 
 
-def check_bf16_step(name: str, port: tuple, eager: tuple, jitted: tuple, sums: tuple) -> None:
-    """Print the gaps and hold the port (see the module's docstring)."""
+def check_bf16_step(name: str, port: tuple, eager: tuple, jitted: tuple, sums: tuple,
+                    param_bounds: tuple[float, float]) -> None:
+    """Print the gaps and hold the port to JAX's eager and jitted steps (see
+    the module's docstring); ``param_bounds``: (eager, jitted)."""
     eager_to_jit = gaps(eager, jitted)
-    to_sums = gaps(port, sums)
+    to_eager = gaps(port, eager)
     to_jit = gaps(port, jitted)
-    print(f"{name} bf16 step: port vs JAX eager {gaps(port, eager)}; port vs JAX jit {to_jit}; "
-          f"port vs JAX eager, float32 broadcast sums {to_sums}; "
+    print(f"{name} bf16 step: port vs JAX eager {to_eager}; port vs JAX jit {to_jit}; "
+          f"port vs JAX eager, float32 broadcast sums {gaps(port, sums)}; "
           f"JAX eager vs JAX jit {eager_to_jit}")
-    assert to_sums["params"] <= eager_to_jit["params"] + PARAM_FLOOR, name
-    assert to_sums["loss_rel"] <= eager_to_jit["loss_rel"] + LOSS_FLOOR, name
+    assert to_eager["params"] <= param_bounds[0], (name, to_eager)
+    assert to_jit["params"] <= param_bounds[1], (name, to_jit)
+    assert to_eager["loss_rel"] <= eager_to_jit["loss_rel"] + LOSS_FLOOR, name
     assert to_jit["loss_rel"] <= JIT_RATIO * eager_to_jit["loss_rel"] + LOSS_FLOOR, name
 
 
 @pytest.mark.parametrize("model", ["mlp_unet", "dit", "latent_unet"])
 def test_bf16_step_rounds_as_jax(model):
-    check_bf16_step(model, *(_laion_steps() if model == "latent_unet" else _latent_steps(model)))
+    check_bf16_step(model, *(_laion_steps() if model == "latent_unet" else _latent_steps(model)),
+                    PARAM_BOUNDS[model])

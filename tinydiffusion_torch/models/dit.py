@@ -17,7 +17,8 @@ the JAX ones, so ``io.from_jax.dit_state_dict`` maps them by name.
 The attention is written out as products and a softmax, as JAX computes it
 outside any kernel: q divided by ``sqrt(head_dim)`` cast to the compute
 dtype, softmax over keys as ``jax.nn.softmax`` (``nn.layers.softmax``),
-each step rounded in it. ``dtype`` is flax's ``dtype=`` (``nn.layers``).
+each step rounded in it. The model computes in its ``dtype``, flax's
+``dtype=`` (float32, or what ``nn.layers.computing_in`` sets).
 The reference feeds ONE token (``num_tokens = 1``), so the softmax is
 exactly 1 and attention reduces to the value and output projections;
 ``num_tokens > 1`` splits the latent into tokens, as in JAX.
@@ -55,14 +56,13 @@ class MultiHeadAttention(FlaxDtype, nn.Module):
     ``out`` are (dim, dim) ``nn.Linear``s; flax keeps their kernels as
     (dim, heads, head_dim) and (heads, head_dim, dim) (``io.from_jax``)."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.dtype = dtype
-        self.query = Linear(dim, dim, dtype=dtype)
-        self.key = Linear(dim, dim, dtype=dtype)
-        self.value = Linear(dim, dim, dtype=dtype)
-        self.out = Linear(dim, dim, dtype=dtype)
+        self.query = Linear(dim, dim)
+        self.key = Linear(dim, dim)
+        self.value = Linear(dim, dim)
+        self.out = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None,
                 keep_prob: float = 1.0) -> torch.Tensor:
@@ -89,15 +89,14 @@ def _dropout(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float) -> to
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout: float = 0.1):
         super().__init__()
         self.keep_prob = 1.0 - dropout
-        self.attention = MultiHeadAttention(dim, num_heads, dtype)
-        self.norm1 = LayerNorm(dim, dtype)
-        self.ff1 = Linear(dim, ff_dim, dtype=dtype)
-        self.ff2 = Linear(ff_dim, dim, dtype=dtype)
-        self.norm2 = LayerNorm(dim, dtype)
+        self.attention = MultiHeadAttention(dim, num_heads)
+        self.norm1 = LayerNorm(dim)
+        self.ff1 = Linear(dim, ff_dim)
+        self.ff2 = Linear(ff_dim, dim)
+        self.norm2 = LayerNorm(dim)
 
     def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
         """``masks``: ``(attention (1, 1, S, S), output (B, S, D), ff (B, S,
@@ -112,25 +111,24 @@ class TransformerBlock(nn.Module):
 class DiT(FlaxDtype, nn.Module):
     def __init__(self, time_dim: int = 256, num_classes: int = 10, latent_dim: int = 20,
                  num_heads: int = 4, num_layers: int = 4, dropout: float = 0.05,
-                 num_tokens: int = 1, dtype: torch.dtype = torch.float32):
+                 num_tokens: int = 1):
         super().__init__()
-        self.dtype = dtype
         if latent_dim % num_tokens:
             raise ValueError(f"latent_dim {latent_dim} does not split into {num_tokens} tokens")
         self.latent_dim = latent_dim
         self.num_tokens = num_tokens
         self.time_dim = time_dim
         self.dropout = dropout
-        self.time_embedding = TimeEmbedMLP(time_dim, normalize=1000.0, dtype=dtype)
+        self.time_embedding = TimeEmbedMLP(time_dim, normalize=1000.0)
         self.class_embedding = nn.Embedding(num_classes, time_dim)  # N(0, 1) init
-        self.input_proj = Linear(latent_dim // num_tokens, time_dim, dtype=dtype)
+        self.input_proj = Linear(latent_dim // num_tokens, time_dim)
         self.pos_encoding = nn.Parameter(torch.randn(1, num_tokens, time_dim))
         self.num_layers = num_layers
         for i in range(num_layers):  # flax's names: block0, block1, ...
             self.add_module(f"block{i}", TransformerBlock(time_dim, num_heads, 4 * time_dim,
-                                                          dropout, dtype))
-        self.final_norm = LayerNorm(time_dim, dtype)
-        self.final_proj = Linear(time_dim, latent_dim // num_tokens, dtype=dtype)
+                                                          dropout))
+        self.final_norm = LayerNorm(time_dim)
+        self.final_proj = Linear(time_dim, latent_dim // num_tokens)
 
     def draw_dropout_masks(self, batch: int, generator: torch.Generator) -> list | None:
         """One train step's keep masks, per block ``(attention (1, 1, S, S),

@@ -10,8 +10,9 @@ JAX ones, so ``io.from_jax.mlp_unet_state_dict`` maps them by name.
 The decoder quirk is kept: time is added to the decoder's input before the
 encoder skip is concatenated, ``dec3(cat(b + t1, e3))``,
 ``dec2(cat(d3 + t2, e2))``, ``dec1(cat(d2 + t3, e1))``, unlike the pixel
-UNet, which adds it to the skip. ``dtype`` is flax's ``dtype=`` (``nn.layers``);
-the output is float32 whatever it is.
+UNet, which adds it to the skip. The model computes in its ``dtype``, flax's
+``dtype=`` (float32, or what ``nn.layers.computing_in`` sets); the output is
+float32 whatever it is.
 """
 
 from __future__ import annotations
@@ -24,45 +25,42 @@ from tinydiffusion_torch.nn.layers import BatchNorm1d, FlaxDtype, Linear, TimeEm
 
 
 class DenseBNRelu(nn.Module):
-    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.fc = Linear(in_features, features, dtype=dtype)
-        self.bn = BatchNorm1d(features, dtype)
+        self.fc = Linear(in_features, features)
+        self.bn = BatchNorm1d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.fc(x)))
 
 
 class DoubleDenseBlock(nn.Module):
-    def __init__(self, in_features: int, hidden: int, out: int,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, in_features: int, hidden: int, out: int):
         super().__init__()
-        self.block1 = DenseBNRelu(in_features, hidden, dtype)
-        self.block2 = DenseBNRelu(hidden, out, dtype)
+        self.block1 = DenseBNRelu(in_features, hidden)
+        self.block2 = DenseBNRelu(hidden, out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block2(self.block1(x))
 
 
 class MLPUNetLatent(FlaxDtype, nn.Module):
-    def __init__(self, time_dim: int = 256, num_classes: int = 10, latent_dim: int = 20,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, time_dim: int = 256, num_classes: int = 10, latent_dim: int = 20):
         super().__init__()
-        self.dtype = dtype
-        self.time_embedding = TimeEmbedMLP(time_dim, dtype=dtype)
+        self.time_embedding = TimeEmbedMLP(time_dim)
         self.class_embedding = nn.Embedding(num_classes, time_dim)  # N(0, 1) init
-        self.initial_fc = Linear(latent_dim, 512, dtype=dtype)
-        self.enc1 = DoubleDenseBlock(512, 512, 256, dtype)
-        self.enc2 = DoubleDenseBlock(256, 256, 128, dtype)
-        self.enc3 = DoubleDenseBlock(128, 128, 64, dtype)
-        self.bottleneck = DenseBNRelu(64, 64, dtype)
-        self.time_proj1 = Linear(time_dim, 64, dtype=dtype)
-        self.time_proj2 = Linear(time_dim, 128, dtype=dtype)
-        self.time_proj3 = Linear(time_dim, 256, dtype=dtype)
-        self.dec3 = DoubleDenseBlock(128, 128, 128, dtype)
-        self.dec2 = DoubleDenseBlock(256, 256, 256, dtype)
-        self.dec1 = DoubleDenseBlock(512, 512, 512, dtype)
-        self.final_fc = Linear(512, latent_dim, dtype=dtype)
+        self.initial_fc = Linear(latent_dim, 512)
+        self.enc1 = DoubleDenseBlock(512, 512, 256)
+        self.enc2 = DoubleDenseBlock(256, 256, 128)
+        self.enc3 = DoubleDenseBlock(128, 128, 64)
+        self.bottleneck = DenseBNRelu(64, 64)
+        self.time_proj1 = Linear(time_dim, 64)
+        self.time_proj2 = Linear(time_dim, 128)
+        self.time_proj3 = Linear(time_dim, 256)
+        self.dec3 = DoubleDenseBlock(128, 128, 128)
+        self.dec2 = DoubleDenseBlock(256, 256, 256)
+        self.dec1 = DoubleDenseBlock(512, 512, 512)
+        self.final_fc = Linear(512, latent_dim)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)

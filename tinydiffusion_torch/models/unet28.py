@@ -26,8 +26,9 @@ projection's add work per channel on the slice. The one-channel
 ``final_conv`` stays whole on every rank, so its gathered input's gradient
 is taken, not summed. The output is then whole on every rank.
 
-``dtype`` is flax's ``dtype=``: every layer computes in it and rounds where
-flax's rounds (``nn.layers``), the parameters stay float32. The resizes are
+The model computes in its ``dtype``, flax's ``dtype=`` (float32, or what
+``nn.layers.computing_in`` sets): every layer rounds where flax's rounds
+(``nn.layers``), the parameters stay float32. The resizes are
 JAX's two products on its interpolation matrices in the activations' dtype
 (``nn.resize``; the matrices of the five resizes are buffers), and the pool
 is torch's ``F.max_pool2d(ceil_mode=True)``, whose backward routes a tied
@@ -83,27 +84,25 @@ class UNet28(FlaxDtype, nn.Module):
         in_channels: int = 1,
         out_channels: int = 1,
         base_width: int = 64,
-        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         w = base_width
         self.num_classes = num_classes
-        self.dtype = dtype
-        self.time_embedding = TimeEmbedMLP(time_dim, dtype=dtype)
+        self.time_embedding = TimeEmbedMLP(time_dim)
         if num_classes is not None:
             self.class_embedding = nn.Embedding(num_classes, time_dim)  # N(0, 1) init
-        self.initial_conv = Conv2d(in_channels, w, 3, padding=1, dtype=dtype)
-        self.enc1 = DoubleConvBlock(w, 2 * w, dtype)
-        self.enc2 = DoubleConvBlock(2 * w, 4 * w, dtype)
-        self.enc3 = DoubleConvBlock(4 * w, 8 * w, dtype)
-        self.bottleneck = ConvBNRelu(8 * w, 8 * w, dtype=dtype)
-        self.time_proj1 = Linear(time_dim, 2 * w, dtype=dtype)
-        self.time_proj2 = Linear(time_dim, 4 * w, dtype=dtype)
-        self.time_proj3 = Linear(time_dim, 8 * w, dtype=dtype)
-        self.dec3 = DoubleConvBlock(16 * w, 4 * w, dtype)
-        self.dec2 = DoubleConvBlock(8 * w, 2 * w, dtype)
-        self.dec1 = DoubleConvBlock(4 * w, w, dtype)
-        self.final_conv = Conv2d(w, out_channels, 3, padding=1, dtype=dtype)
+        self.initial_conv = Conv2d(in_channels, w, 3, padding=1)
+        self.enc1 = DoubleConvBlock(w, 2 * w)
+        self.enc2 = DoubleConvBlock(2 * w, 4 * w)
+        self.enc3 = DoubleConvBlock(4 * w, 8 * w)
+        self.bottleneck = ConvBNRelu(8 * w, 8 * w)
+        self.time_proj1 = Linear(time_dim, 2 * w)
+        self.time_proj2 = Linear(time_dim, 4 * w)
+        self.time_proj3 = Linear(time_dim, 8 * w)
+        self.dec3 = DoubleConvBlock(16 * w, 4 * w)
+        self.dec2 = DoubleConvBlock(8 * w, 2 * w)
+        self.dec1 = DoubleConvBlock(4 * w, w)
+        self.final_conv = Conv2d(w, out_channels, 3, padding=1)
         register_resize_matrices(self, RESIZES)
 
     def _resize(self, x: torch.Tensor, size: int) -> torch.Tensor:

@@ -26,7 +26,8 @@ convolution algorithms are not). The matrices of the latent grid's three
 upsamples (``latent_size`` 32: 4, 8 and 16 up) are buffers on the model's
 device.
 
-``dtype`` is flax's ``dtype=`` (``nn.layers``). As in JAX the sinusoid and
+The model computes in its ``dtype``, flax's ``dtype=`` (float32, or what
+``nn.layers.computing_in`` sets). As in JAX the sinusoid and
 the context enter in it: ``time_mlp_fc2``'s output is in ``dtype``, and the
 context is cast to it before the sum, where a float32 context would promote
 the sum. The output is float32.
@@ -58,30 +59,29 @@ class LatentUNet(FlaxDtype, nn.Module):
     """(B, C, S, S) latents, (B,) timesteps and (B, time_dim) context -> eps."""
 
     def __init__(self, time_dim: int = 768, in_channels: int = 4, base_width: int = 32,
-                 latent_size: int = 32, dtype: torch.dtype = torch.float32):
+                 latent_size: int = 32):
         super().__init__()
         w = base_width
         self.time_dim = time_dim
-        self.dtype = dtype
         # The sinusoid's table and the upsample matrices, on the model's
         # device; not weights.
         self.register_buffer("freqs", sinusoidal_frequencies(time_dim), persistent=False)
         register_resize_matrices(self, [(n, 2 * n) for n in (latent_size // 8, latent_size // 4,
                                                              latent_size // 2)])
-        self.time_mlp_fc1 = Linear(time_dim, time_dim, dtype=dtype)
-        self.time_mlp_fc2 = Linear(time_dim, time_dim, dtype=dtype)
-        self.initial_conv = Conv2d(in_channels, w, 3, padding=1, dtype=dtype)
-        self.enc1 = DoubleConvBlock(w, 2 * w, dtype)
-        self.enc2 = DoubleConvBlock(2 * w, 4 * w, dtype)
-        self.enc3 = DoubleConvBlock(4 * w, 8 * w, dtype)
-        self.bottleneck = ConvBNRelu(8 * w, 8 * w, dtype=dtype)
-        self.time_proj1 = Linear(time_dim, 2 * w, dtype=dtype)
-        self.time_proj2 = Linear(time_dim, 4 * w, dtype=dtype)
-        self.time_proj3 = Linear(time_dim, 8 * w, dtype=dtype)
-        self.dec3 = DoubleConvBlock(16 * w, 8 * w, dtype)
-        self.dec2 = DoubleConvBlock(12 * w, 4 * w, dtype)
-        self.dec1 = DoubleConvBlock(6 * w, 2 * w, dtype)
-        self.final_conv = Conv2d(2 * w, in_channels, 3, padding=1, dtype=dtype)
+        self.time_mlp_fc1 = Linear(time_dim, time_dim)
+        self.time_mlp_fc2 = Linear(time_dim, time_dim)
+        self.initial_conv = Conv2d(in_channels, w, 3, padding=1)
+        self.enc1 = DoubleConvBlock(w, 2 * w)
+        self.enc2 = DoubleConvBlock(2 * w, 4 * w)
+        self.enc3 = DoubleConvBlock(4 * w, 8 * w)
+        self.bottleneck = ConvBNRelu(8 * w, 8 * w)
+        self.time_proj1 = Linear(time_dim, 2 * w)
+        self.time_proj2 = Linear(time_dim, 4 * w)
+        self.time_proj3 = Linear(time_dim, 8 * w)
+        self.dec3 = DoubleConvBlock(16 * w, 8 * w)
+        self.dec2 = DoubleConvBlock(12 * w, 4 * w)
+        self.dec1 = DoubleConvBlock(6 * w, 2 * w)
+        self.final_conv = Conv2d(2 * w, in_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype

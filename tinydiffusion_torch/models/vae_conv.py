@@ -106,10 +106,10 @@ class ResidualBlockSN(nn.Module):
         super().__init__()
         self.conv1 = SpectralNorm(nn.Conv2d(features, features, 3, padding=1, bias=False),
                                   dtype=dtype)
-        self.bn1 = BatchNorm2d(features, dtype, fused=True)
+        self.bn1 = BatchNorm2d(features, dtype, fast_variance=False)
         self.conv2 = SpectralNorm(nn.Conv2d(features, features, 3, padding=1, bias=False),
                                   dtype=dtype)
-        self.bn2 = BatchNorm2d(features, dtype, fused=True)
+        self.bn2 = BatchNorm2d(features, dtype, fast_variance=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.bn1(self.conv1(x)))

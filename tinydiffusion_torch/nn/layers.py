@@ -158,8 +158,11 @@ class _Softmax(torch.autograd.Function):
     """``jax.nn.softmax`` over the last dim: ``s = exp(x - max)``, the sum
     of ``s`` in float32 rounded to x's dtype, ``s / sum``. The backward is
     the one JAX's autodiff writes, each op rounded in x's dtype:
-    ``((g / w) - sum((g * w**-2) * s)) * s``, the sum taken in order, each
-    add rounded (XLA's sum of a low-precision transpose)."""
+    ``((g / w) - sum((g * w**-2) * s)) * s``, the sum over the S keys taken
+    in order, each add rounded, as XLA sums it: at S = 4 a float32 sum
+    rounded once moves 8.6 % of the DiT block's input gradients off JAX's
+    (``tests/test_torch_bf16_layers.py``), 0.22 % with the adds rounded. At one
+    token, the reference's, there is no add."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor) -> torch.Tensor:
@@ -255,63 +258,72 @@ def _move_running_stats(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor,
         bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
 
 
-def _flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
-                     dims: tuple[int, ...]) -> torch.Tensor:
-    """flax's ``BatchNorm``; in train mode: normalise over ``dims`` with the
-    batch statistics, ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
-    float32 and the result in x's dtype, and move the running statistics
+def _batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                dims: tuple[int, ...]) -> torch.Tensor:
+    """flax's ``BatchNorm`` over ``dims``, the running statistics moved
     flax's way (see ``BatchNorm2d``).
 
-    As in flax, x enters float32 twice, once for the statistics and once for
-    ``x - mean``: in bfloat16 the two paths' input gradients round apart and
-    add in bfloat16, as JAX's transposed converts do. The statistics are
-    flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, from per-channel sums
-    taken in float64: in float32 the difference loses a few ulps of the
-    variance where the mean is large (4 ulps on a variance of 391 in the
-    small UNet28's decoder). Under data parallelism (``bn.data_parallel``)
-    the sums are summed over the group in one collective, differentiably
-    (``parallel.mesh.all_reduce_sum``), so the batch is the global one and
-    the backward carries the statistics' gradient terms of every rank's
-    loss. Eval mode normalises with the running statistics, in the same
-    ops."""
-    dp = bn.data_parallel
-    if bn.fused and dp is None:
-        return _fused_batch_norm(bn, x, dims)
-    if not bn.training:
-        return _flax_normalize(bn, x, bn.running_mean, bn.running_var)
-    xs = x.float()
-    c = xs.shape[1]
-    count = xs.numel() // c * (1 if dp is None else dp.size)
-    sums = torch.cat([xs.sum(dims, dtype=torch.float64),
-                      (xs * xs).sum(dims, dtype=torch.float64)])
-    if dp is not None:
-        sums = all_reduce_sum(sums, dp)
-    mean64 = sums[:c] / count
-    var = torch.clamp(sums[c:] / count - mean64 * mean64, min=0.0).float()
-    mean = mean64.float()
-    _move_running_stats(bn, mean.detach(), var.detach())
-    return _flax_normalize(bn, x, mean, var)
-
-
-def _fused_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
-                      dims: tuple[int, ...]) -> torch.Tensor:
-    """``bn.fused``: torch's own batch norm, one kernel, normalising with its
-    statistics in its own order; the running statistics moved flax's way
-    from a two-pass ``var_mean``."""
+    Eval mode is torch's one batch-norm kernel: flax normalises with the
+    running statistics in float32 and rounds the result once, as the kernel
+    does. Train mode follows flax's statistic: its fast variance (the
+    default) runs flax's ops (``_flax_train_batch_norm``), whose input
+    gradient is also flax's two bf16 paths in bfloat16; its two-pass
+    variance (``fast_variance`` false, the conv-VAE's) is the kernel's own
+    statistic and runs the kernel (with flax's ops the conv-VAE's bf16 step
+    parts farther from JAX's:
+    ``tests/test_torch_vae_train.py::test_bf16_train_step_matches_jax``
+    holds the kernel, not them). Under data parallelism train mode runs
+    flax's ops, over the global batch."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
                             bn.eps)
+    if bn.fast_variance or bn.data_parallel is not None:
+        return _flax_train_batch_norm(bn, x, dims)
     with torch.no_grad():
         var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
     _move_running_stats(bn, mean, var)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
-def _flax_normalize(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, mean: torch.Tensor,
-                    var: torch.Tensor) -> torch.Tensor:
-    """flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) +
-    bias`` in float32 over channel dim 1, in x's dtype."""
-    shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+def _flax_train_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                           dims: tuple[int, ...]) -> torch.Tensor:
+    """flax's train-mode ``BatchNorm`` in its own ops: ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in float32 with the batch
+    statistics, the result in x's dtype.
+
+    As in flax, x enters float32 twice, once for the statistics and once for
+    ``x - mean``: in bfloat16 the two paths' input gradients round apart and
+    add in bfloat16, as JAX's transposed converts do. The statistics are
+    flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, or with
+    ``bn.fast_variance`` false (flax's ``use_fast_variance=False``, the
+    conv-VAE's) the two-pass ``E[(x - E[x])^2]``, from per-channel sums
+    taken in float64: in float32 the fast difference loses a few ulps of the
+    variance where the mean is large (4 ulps on a variance of 391 in the
+    small UNet28's decoder). Under data parallelism (``bn.data_parallel``)
+    the sums are summed over the group, in one collective (two for the
+    two-pass variance), differentiably (``parallel.mesh.all_reduce_sum``),
+    so the batch is the global one and the backward carries the statistics'
+    gradient terms of every rank's loss."""
+    dp = bn.data_parallel
+    xs = x.float()
+    c = xs.shape[1]
+    count = xs.numel() // c * (1 if dp is None else dp.size)
+    shape = [1, c] + [1] * (x.dim() - 2)
+
+    def global_sums(*terms: torch.Tensor) -> torch.Tensor:
+        sums = torch.cat([t.sum(dims, dtype=torch.float64) for t in terms])
+        return sums if dp is None else all_reduce_sum(sums, dp)
+
+    if bn.fast_variance:
+        sums = global_sums(xs, xs * xs)
+        mean64 = sums[:c] / count
+        var = torch.clamp(sums[c:] / count - mean64 * mean64, min=0.0).float()
+        mean = mean64.float()
+    else:
+        mean = (global_sums(xs) / count).float()
+        centred = xs - mean.view(shape)
+        var = (global_sums(centred * centred) / count).float()
+    _move_running_stats(bn, mean.detach(), var.detach())
     mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
     y = (x.float() - mean.view(shape)) * mul.view(shape) + bn.bias.float().view(shape)
     return y.to(x.dtype)
@@ -327,11 +339,11 @@ class BatchNorm2d(FlaxDtype, nn.BatchNorm2d):
     of 8 the two differ by N/(N-1) = 1.6 %. This class follows flax, so the
     statistics after a step equal the JAX package's:
     ``running = 0.9 * running + 0.1 * batch`` for the mean and the biased
-    variance, float32 from float64 sums. ``num_batches_tracked`` is kept for
+    variance (float32, from a two-pass ``var_mean`` or, in flax's ops, from
+    float64 sums). ``num_batches_tracked`` is kept for
     ``state_dict`` compatibility and never advanced (the momentum is fixed).
-    Both modes normalise in flax's ops (``_flax_batch_norm``), or, with
-    ``fused``, in torch's one batch-norm kernel (the conv-VAE's, whose large
-    activations keep it; its rounding there is not flax's).
+    ``_batch_norm`` says which modes run torch's batch-norm kernel and which
+    flax's ops.
 
     A bfloat16 input (a flax BatchNorm of ``dtype=bfloat16`` after a bf16
     conv) is normalised with float32 statistics, scale and bias, and the
@@ -343,13 +355,13 @@ class BatchNorm2d(FlaxDtype, nn.BatchNorm2d):
     data_parallel = None
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
-                 fused: bool = False):
+                 fast_variance: bool = True):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.dtype = dtype
-        self.fused = fused
+        self.fast_variance = fast_variance  # flax's use_fast_variance
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _flax_batch_norm(self, x, (0, 2, 3)).to(self.dtype)
+        return _batch_norm(self, x, (0, 2, 3)).to(self.dtype)
 
 
 class BatchNorm1d(FlaxDtype, nn.BatchNorm1d):
@@ -357,14 +369,14 @@ class BatchNorm1d(FlaxDtype, nn.BatchNorm1d):
     ``Dense -> BatchNorm`` blocks."""
 
     data_parallel = None  # as BatchNorm2d's
-    fused = False
+    fast_variance = True
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _flax_batch_norm(self, x, (0,)).to(self.dtype)
+        return _batch_norm(self, x, (0,)).to(self.dtype)
 
 
 class LayerNorm(FlaxDtype, nn.LayerNorm):
@@ -372,7 +384,7 @@ class LayerNorm(FlaxDtype, nn.LayerNorm):
     float32 with flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, then
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, returned in
     ``dtype``, as a flax module of that dtype does. x enters float32 twice,
-    as in ``_flax_batch_norm``."""
+    as in ``_flax_train_batch_norm``."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=1e-5)
