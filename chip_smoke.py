@@ -362,7 +362,13 @@ from tinydiffusion_torch.experiments.common import (
 )
 from tinydiffusion_torch.experiments.diffusion import DiffusionConfig, run
 from tinydiffusion_torch.experiments.vae_laion import load_conv_vae, reconstruct, sample_prior
-from tinydiffusion_torch.io.checkpoint import load_sidecar, restore_checkpoint, save_checkpoint
+from tinydiffusion_torch.io.checkpoint import (
+    load_sidecar,
+    load_weights_arrays,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from tinydiffusion_torch.io.from_jax import state_dict_by_name
 from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.models.unet_latent import LatentUNet
 from tinydiffusion_torch.models.vae_conv import PerceptualNet
@@ -2950,13 +2956,14 @@ def phase_laion_loader() -> dict:
                 with open(path, "rb") as f:
                     if f.read() != encode_jpeg(source):
                         problems.append(f"{name}: the cache file is not encode_jpeg of the fetch")
-            decode_s, plain_decode_s = {}, {}
+            decode_s, plain_decode_s, digests = {}, {}, {}
             for fixture in fixtures:
                 t1 = time.perf_counter()
                 image = laion_data.decode_image(fixtures[fixture])
                 decode_s[fixture] = time.perf_counter() - t1
                 small = resize_u8(image, LOADER_SIZE, LOADER_SIZE, "bilinear")
-                if (_sha(image), _sha(small)) != (pillow[fixture]["rgb_sha256"],
+                digests[fixture] = _sha(image)
+                if (digests[fixture], _sha(small)) != (pillow[fixture]["rgb_sha256"],
                                                   pillow[fixture]["rgb64_sha256"]):
                     problems.append(f"{fixture}: decode or resize differs from Pillow's")
                 # The C decoders against their plain versions, byte for byte.
@@ -2997,7 +3004,7 @@ def phase_laion_loader() -> dict:
         server.close()
     fields = {"records": len(records), "valid": valid, "requests": hits_after,
               "failed": len(failed), "precache_s": precache_s, "image_size": LOADER_SIZE,
-              "fixtures_matched": len(fixtures), "decode_s": decode_s,
+              "fixtures_matched": len(fixtures), "digests": digests, "decode_s": decode_s,
               "plain_decode_s": plain_decode_s,
               "web_decode_s": {k: decode_s[k] for k in LOADER_WEB_FIXTURES},
               "web_plain_decode_s": {k: plain_decode_s[k] for k in LOADER_WEB_FIXTURES},
@@ -3325,11 +3332,34 @@ TP_STEPS, TP_BATCH, TP_LR = 5, 128, 1e-3
 TP_DTYPES = ("float32", "bfloat16")
 TP_GRAD_RTOL = {"float32": 1e-3, "bfloat16": 1e-1}
 TP_GRAD_FLOOR = 1e-2
+# The latent denoisers that JAX's make_train_step trains, at the latent
+# experiment's full width from the committed weights (time_dim 256, latent
+# 20, B = 128; the MLP UNet 512 wide, the DiT of 4 heads and 4 layers at
+# dropout 0.05, its masks drawn whole from the step's generator), the same
+# steps and bounds as the UNet28's: every tensor of both splits two ways,
+# so none is left whole. Then one DiT step with q, k and v split
+# contiguously by head (whole heads to a rank, where JAX splits head_dim):
+# the gradient check must catch it.
+TP_LATENT_MODELS = ("mlp_unet", "dit")
 
 
 def _tp_batches() -> np.ndarray:
     rng = np.random.default_rng(SEED + 60)
     return rng.uniform(-1, 1, (TP_STEPS, TP_BATCH, 1, 28, 28)).astype(np.float32)
+
+
+def _tp_latent_batches() -> list[tuple[np.ndarray, np.ndarray]]:
+    """TP_STEPS (latents, labels) batches: N(0, 1) latents, as the VAE's."""
+    rng = np.random.default_rng(SEED + 62)
+    return [(rng.standard_normal((TP_BATCH, 20)).astype(np.float32),
+             rng.integers(0, 10, TP_BATCH)) for _ in range(TP_STEPS)]
+
+
+def _tp_latent_model(name: str):
+    from tinydiffusion_torch.models.dit import DiT
+    from tinydiffusion_torch.models.mlp_unet import MLPUNetLatent
+
+    return DiT() if name == "dit" else MLPUNetLatent()
 
 
 def _gather_adam(optimizer, model, shardings, mesh) -> dict:
@@ -3354,15 +3384,118 @@ def _grad_gap(got: dict, want: dict) -> tuple[float, str, float]:
     return gap, leaf, ratio.item()
 
 
+def _tp_new_record() -> dict:
+    return {"losses": [], "ref_losses": [], "update_cos": [], "grad_gap": [],
+            "grad_gap_leaf": [], "grad_norm_ratio": [], "tp_ms": [], "ref_ms": [],
+            "qsample_launches": 0}
+
+
+def _tp_run(rank: int, mesh, schedule, make_model, whole: dict, dtype: str, batches: list,
+            conditional: bool = False, planted=None) -> dict:
+    """One model's TP steps in ``dtype`` (one a batch of ``batches``, each a
+    tuple of the step's data arguments on the card), each against the
+    one-process step on rank 0 from the same gathered state; then, with
+    ``planted`` (a context manager), one more step on the first batch with
+    it active, recorded as ``planted``."""
+    compute_dtype = getattr(torch, dtype)
+    model = make_model().cuda()
+    shardings = mesh_lib.infer_state_sharding(model, mesh)
+    mesh_lib.apply_sharding(model, shardings, mesh, state_dict=whole)
+    state = create_train_state(model, torch.optim.Adam(model.parameters(), lr=TP_LR), SEED)
+    step = make_train_step(schedule, compute_dtype=compute_dtype, mesh=mesh,
+                           conditional=conditional)
+    ref = make_model().cuda() if rank == 0 else None
+    if ref is not None:
+        ref_state = create_train_state(ref, torch.optim.Adam(ref.parameters(), lr=TP_LR), SEED)
+        ref_step = make_train_step(schedule, compute_dtype=compute_dtype, conditional=conditional)
+        names = [n for n, _ in ref.named_parameters()]
+
+    def compared_step(args: tuple, into: dict) -> None:
+        """One TP step and, on rank 0, the one-process step from the same
+        gathered state: losses, ms, the update's cosine and the gradients'
+        gap and norm ratio appended to ``into``."""
+        before = mesh_lib.gather_state_dict(model.state_dict(), shardings, mesh)
+        adam = _gather_adam(state.optimizer, model, shardings, mesh)
+        if ref is not None:
+            ref.load_state_dict(before)
+            for name, p in ref.named_parameters():
+                if name in adam:
+                    ref_state.optimizer.state[p] = adam[name]
+            ref_state.generator.set_state(state.generator.get_state())
+            params0 = _flat(before[n] for n in names)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            into["ref_losses"].append(ref_step(ref_state, *args).item())
+            into["ref_ms"].append((time.perf_counter() - t0) * 1e3)
+            ref_update = (_flat(ref.parameters()) - params0).double()
+            ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+        torch.distributed.barrier()
+        launched = qsample.qsample_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        into["losses"].append(step(state, *args).item())
+        into["tp_ms"].append((time.perf_counter() - t0) * 1e3)
+        into["qsample_launches"] += qsample.qsample_launches - launched
+        after = mesh_lib.gather_state_dict(model.state_dict(), shardings, mesh)
+        grads = mesh_lib.gather_state_dict(
+            {n: p.grad for n, p in model.named_parameters()}, shardings, mesh)
+        if ref is not None:
+            update = (_flat(after[n] for n in names) - params0).double()
+            into["update_cos"].append(_cos(update, ref_update))
+            gap, leaf, ratio = _grad_gap(grads, ref_grads)
+            into["grad_gap"].append(gap)
+            into["grad_gap_leaf"].append(leaf)
+            into["grad_norm_ratio"].append(ratio)
+
+    record = _tp_new_record()
+    for args in batches:
+        compared_step(args, record)
+    record.update(
+        shapes={k: tuple(v.shape) for k, v in model.state_dict().items()},
+        sharded=sorted(k for k, d in shardings.items() if d is not None),
+        replicated={k: v.detach().cpu() for k, v in model.state_dict().items()
+                    if shardings[k] is None})
+    if planted is not None:
+        record["planted"] = _tp_new_record()
+        with planted():
+            compared_step(batches[0], record["planted"])
+    return record
+
+
+@contextlib.contextmanager
+def _planted_sum():
+    """Every consumer taken as sharded: the head's gather then sums its
+    whole gradient over the model axis."""
+    keep = mesh_lib.out_sharded
+    mesh_lib.out_sharded = lambda layer: True
+    try:
+        yield
+    finally:
+        mesh_lib.out_sharded = keep
+
+
+@contextlib.contextmanager
+def _planted_head_split():
+    """The sharding rule with no head split: q, k and v cut contiguously."""
+    keep = mesh_lib._heads
+    mesh_lib._heads = lambda modules, owner: None
+    try:
+        yield
+    finally:
+        mesh_lib._heads = keep
+
+
 def _tp_rank(rank: int, tmp: str) -> None:
     """One rank of the tp phase: gloo over a file rendezvous, the (1, 2) mesh,
     the full-width UNet28 sharded from the whole init, TP_STEPS eager Adam
-    steps in each dtype. Before each step the state is gathered whole, and
-    rank 0 takes the one-process step from it on a whole model of its own;
-    after it, the TP gradients are gathered whole beside that step's. In
-    float32 one more step runs with every consumer taken as sharded (the
-    head's gather then sums its whole gradient over the axis), which the
-    gradient check must catch. Results to ``tmp/tp_rank<rank>.pt``."""
+    steps in each dtype (``_tp_run``), then the MLP UNet and the DiT on
+    latents. Before each step the state is gathered whole, and rank 0 takes
+    the one-process step from it on a whole model of its own; after it, the
+    TP gradients are gathered whole beside that step's. In float32 one more
+    UNet28 step runs with every consumer taken as sharded (the head's
+    gather then sums its whole gradient over the axis), and one DiT step
+    with q, k and v split by head, which the gradient check must catch.
+    Results to ``tmp/tp_rank<rank>.pt``."""
     torch.cuda.set_device(0)
     torch.distributed.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
                                          rank=rank, world_size=2)
@@ -3371,105 +3504,94 @@ def _tp_rank(rank: int, tmp: str) -> None:
         mesh = mesh_lib.make_mesh(("data", "model"), (1, 2))
         schedule = DiffusionSchedule.linear(1000).to("cuda")
         whole = torch.load(os.path.join(tmp, "init.pt"))
-        batches = torch.from_numpy(_tp_batches()).cuda()
+        batches = [(b,) for b in torch.from_numpy(_tp_batches()).cuda()]
         out = {"place": (mesh.data.rank, mesh.data.size, mesh.model.rank, mesh.model.size)}
         for dtype in TP_DTYPES:
-            compute_dtype = getattr(torch, dtype)
-            model = UNet28().cuda()
-            shardings = mesh_lib.infer_state_sharding(model, mesh)
-            mesh_lib.apply_sharding(model, shardings, mesh, state_dict=whole)
-            state = create_train_state(model, torch.optim.Adam(model.parameters(), lr=TP_LR),
-                                       SEED)
-            step = make_train_step(schedule, compute_dtype=compute_dtype, mesh=mesh)
-            ref = UNet28().cuda() if rank == 0 else None
-            if ref is not None:
-                ref_state = create_train_state(ref, torch.optim.Adam(ref.parameters(), lr=TP_LR),
-                                               SEED)
-                ref_step = make_train_step(schedule, compute_dtype=compute_dtype)
-                names = [n for n, _ in ref.named_parameters()]
-
-            def compared_step(batch: torch.Tensor, into: dict) -> None:
-                """One TP step and, on rank 0, the one-process step from the
-                same gathered state: losses, ms, the update's cosine and the
-                gradients' gap and norm ratio appended to ``into``."""
-                before = mesh_lib.gather_state_dict(model.state_dict(), shardings, mesh)
-                adam = _gather_adam(state.optimizer, model, shardings, mesh)
-                if ref is not None:
-                    ref.load_state_dict(before)
-                    for name, p in ref.named_parameters():
-                        if name in adam:
-                            ref_state.optimizer.state[p] = adam[name]
-                    ref_state.generator.set_state(state.generator.get_state())
-                    params0 = _flat(before[n] for n in names)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    into["ref_losses"].append(ref_step(ref_state, batch).item())
-                    into["ref_ms"].append((time.perf_counter() - t0) * 1e3)
-                    ref_update = (_flat(ref.parameters()) - params0).double()
-                    ref_grads = {n: p.grad for n, p in ref.named_parameters()}
-                torch.distributed.barrier()
-                launched = qsample.qsample_launches
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                into["losses"].append(step(state, batch).item())
-                into["tp_ms"].append((time.perf_counter() - t0) * 1e3)
-                into["qsample_launches"] += qsample.qsample_launches - launched
-                after = mesh_lib.gather_state_dict(model.state_dict(), shardings, mesh)
-                grads = mesh_lib.gather_state_dict(
-                    {n: p.grad for n, p in model.named_parameters()}, shardings, mesh)
-                if ref is not None:
-                    update = (_flat(after[n] for n in names) - params0).double()
-                    into["update_cos"].append(_cos(update, ref_update))
-                    gap, leaf, ratio = _grad_gap(grads, ref_grads)
-                    into["grad_gap"].append(gap)
-                    into["grad_gap_leaf"].append(leaf)
-                    into["grad_norm_ratio"].append(ratio)
-
-            def new_record() -> dict:
-                return {"losses": [], "ref_losses": [], "update_cos": [], "grad_gap": [],
-                        "grad_gap_leaf": [], "grad_norm_ratio": [], "tp_ms": [], "ref_ms": [],
-                        "qsample_launches": 0}
-
-            record = new_record()
-            for k in range(TP_STEPS):
-                compared_step(batches[k], record)
-            record.update(
-                shapes={k: tuple(v.shape) for k, v in model.state_dict().items()},
-                sharded=sorted(k for k, d in shardings.items() if d is not None),
-                replicated={k: v.detach().cpu() for k, v in model.state_dict().items()
-                            if shardings[k] is None})
-            if dtype == "float32":
-                planted = new_record()
-                keep = mesh_lib.out_sharded
-                mesh_lib.out_sharded = lambda layer: True
-                try:
-                    compared_step(batches[0], planted)
-                finally:
-                    mesh_lib.out_sharded = keep
-                record["planted_sum"] = planted
+            record = _tp_run(rank, mesh, schedule, UNet28, whole, dtype, batches,
+                             planted=_planted_sum if dtype == "float32" else None)
+            if "planted" in record:
+                record["planted_sum"] = record.pop("planted")
             out[dtype] = record
-            del model, state, ref
             torch.cuda.empty_cache()
+        latent_start = time.perf_counter()
+        latent_batches = [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+                          for x, y in _tp_latent_batches()]
+        for name in TP_LATENT_MODELS:
+            whole = torch.load(os.path.join(tmp, f"{name}.pt"))
+            make_model = functools.partial(_tp_latent_model, name)
+            out[name] = {dtype: _tp_run(rank, mesh, schedule, make_model, whole, dtype,
+                                        latent_batches, conditional=True)
+                         for dtype in TP_DTYPES}
+            if name == "dit":
+                with _planted_head_split():
+                    out["planted_heads"] = _tp_run(rank, mesh, schedule, make_model, whole,
+                                                   "float32", latent_batches[:1],
+                                                   conditional=True)
+            torch.cuda.empty_cache()
+        out["latent_s"] = time.perf_counter() - latent_start
         torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _tp_summary(got: dict, other: dict) -> dict:
+    """The fields of one model's run in one dtype, from both ranks' records."""
+    same_keys = set(got["replicated"]) == set(other["replicated"])
+    return {"losses": got["losses"], "one_process_losses": got["ref_losses"],
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got["losses"], got["ref_losses"])),
+            "update_cos": got["update_cos"], "grad_gap": got["grad_gap"],
+            "grad_gap_leaf": got["grad_gap_leaf"], "grad_norm_ratio": got["grad_norm_ratio"],
+            "ms_per_step": float(np.mean(got["tp_ms"][1:])),
+            "one_process_ms_per_step": float(np.mean(got["ref_ms"][1:])),
+            "qsample_launches": [got["qsample_launches"], other["qsample_launches"]],
+            "sharded_tensors": len(got["sharded"]),
+            "whole_tensors": len(got["shapes"]) - len(got["sharded"]),
+            "ranks_agree": got["losses"] == other["losses"],
+            "replicated_rank_gap": max(
+                ((got["replicated"][k].double() - other["replicated"][k].double()).abs().max()
+                 .item() for k in got["replicated"]), default=0.0) if same_keys else None}
+
+
+def _tp_problems(dtype: str, out: dict) -> bool:
+    return (out["loss_rel"] > PARITY_LOSS_RTOL[dtype]
+            or min(out["update_cos"]) < PARITY_MIN_UPDATE_COS[dtype]
+            or max(out["grad_gap"]) > TP_GRAD_RTOL[dtype]
+            or not out["ranks_agree"]
+            or out["replicated_rank_gap"] != 0.0
+            or out["qsample_launches"] != [TP_STEPS, TP_STEPS])
+
+
+def _tp_print(name: str, dtype: str, out: dict) -> None:
+    print(f"tp: {name:<8s} {dtype:<8s} (1, 2) step {out['ms_per_step']:.2f} ms (gloo, two "
+          f"processes on one card) vs {out['one_process_ms_per_step']:.2f} ms in one process; "
+          f"loss rel {out['loss_rel']:.2e}, update cos {min(out['update_cos']):.6f}, grad gap "
+          f"{max(out['grad_gap']):.2e}, replicated gap {out['replicated_rank_gap']}", flush=True)
+
+
+def _tp_planted(record: dict) -> dict:
+    return {"loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(record["losses"], record["ref_losses"])),
+            "update_cos": record["update_cos"], "grad_gap": record["grad_gap"],
+            "grad_norm_ratio": record["grad_norm_ratio"]}
 
 
 def phase_tp() -> dict:
     """The model axis: the full-width UNet28 (base width 64, time_dim 256,
     B = 128) at (data, model) = (1, 2), two processes spawned on the one card
     (``torch.multiprocessing``) over gloo with CUDA tensors, TP_STEPS eager
-    Adam steps in float32 and in bfloat16 with the q_sample kernel. Each
-    step against the one-process step from the same gathered state, on rank
-    0: the loss and the update's cosine within resident_parity's bounds,
-    the gradients within TP_GRAD_RTOL leaf by leaf; each rank's shards half
-    the whole shapes (the head whole), every tensor left whole bit-equal on
-    both ranks, TP_STEPS q_sample launches a rank, the TP step's ms beside
-    the one-process step's (the first step, cuDNN's warm-up, left out); and
-    the float32 step with the head's gather summing its whole gradient
-    caught by the gradient check. NCCL takes no two ranks on one device, so
-    the collectives here are gloo's, through the host: the ms are not what
-    NCCL between cards would give."""
+    Adam steps in float32 and in bfloat16 with the q_sample kernel; then the
+    MLP UNet and the DiT the same way on (B, 20) latents (TP_LATENT_MODELS).
+    Each step against the one-process step from the same gathered state, on
+    rank 0: the loss and the update's cosine within resident_parity's
+    bounds, the gradients within TP_GRAD_RTOL leaf by leaf; each rank's
+    shards half the whole shapes (the UNet28's head whole), every tensor
+    left whole bit-equal on both ranks, TP_STEPS q_sample launches a rank,
+    the TP step's ms beside the one-process step's (the first step, the
+    warm-up, left out); and the float32 UNet28 step with the head's gather
+    summing its whole gradient, and the DiT step with q, k and v split by
+    head, caught by the gradient check. NCCL takes no two ranks on one
+    device, so the collectives here are gloo's, through the host: the ms
+    are not what NCCL between cards would give."""
     import torch.multiprocessing as tmp_mp
 
     with torch.random.fork_rng(devices=[]):
@@ -3480,16 +3602,20 @@ def phase_tp() -> dict:
                          "grad_rtol": TP_GRAD_RTOL, "grad_floor": TP_GRAD_FLOOR}}
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(init, os.path.join(tmp, "init.pt"))
+        latent_init = {}
+        for name in TP_LATENT_MODELS:
+            latent_init[name] = state_dict_by_name(load_weights_arrays(LATENT_CHECKPOINTS[name]))
+            torch.save(latent_init[name], os.path.join(tmp, f"{name}.pt"))
         t0 = time.perf_counter()
         tmp_mp.start_processes(_tp_rank, args=(tmp,), nprocs=2, start_method="spawn")
         fields["ranks_s"] = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt")) for r in range(2)]
+    # The latent models' share of the ranks' seconds (rank 0 also runs the
+    # one-process steps).
+    fields["latent_s"] = ranks[0]["latent_s"]
     problems = []
     if [r["place"] for r in ranks] != [(0, 1, 0, 2), (0, 1, 1, 2)]:
         problems.append(f"places {[r['place'] for r in ranks]}")
-
-    def loss_rel(record: dict) -> float:
-        return max(abs(a - b) / abs(b) for a, b in zip(record["losses"], record["ref_losses"]))
 
     for dtype in TP_DTYPES:
         got, other = ranks[0][dtype], ranks[1][dtype]
@@ -3498,44 +3624,37 @@ def phase_tp() -> dict:
         head_whole = (not any(k.startswith("final_conv.") for k in got["sharded"])
                       and got["shapes"]["final_conv.weight"] == tuple(
                           init["final_conv.weight"].shape))
-        same_keys = set(got["replicated"]) == set(other["replicated"])
-        out = {"losses": got["losses"], "one_process_losses": got["ref_losses"],
-               "loss_rel": loss_rel(got), "update_cos": got["update_cos"],
-               "grad_gap": got["grad_gap"], "grad_gap_leaf": got["grad_gap_leaf"],
-               "grad_norm_ratio": got["grad_norm_ratio"],
-               "ms_per_step": float(np.mean(got["tp_ms"][1:])),
-               "one_process_ms_per_step": float(np.mean(got["ref_ms"][1:])),
-               "qsample_launches": [got["qsample_launches"], other["qsample_launches"]],
-               "sharded_tensors": len(got["sharded"]),
-               "whole_tensors": len(init) - len(got["sharded"]),
-               "shards_half": half, "head_whole": head_whole,
-               "ranks_agree": got["losses"] == other["losses"],
-               "replicated_rank_gap": max(
-                   (got["replicated"][k].double() - other["replicated"][k].double()).abs().max()
-                   .item() for k in got["replicated"]) if same_keys else None}
+        out = dict(_tp_summary(got, other), shards_half=half, head_whole=head_whole,
+                   whole_tensors=len(init) - len(got["sharded"]))
         fields[dtype] = out
-        if (out["loss_rel"] > PARITY_LOSS_RTOL[dtype]
-                or min(out["update_cos"]) < PARITY_MIN_UPDATE_COS[dtype]
-                or max(out["grad_gap"]) > TP_GRAD_RTOL[dtype]
-                or not (half and head_whole and out["ranks_agree"])
-                or out["replicated_rank_gap"] != 0.0
-                or out["qsample_launches"] != [TP_STEPS, TP_STEPS]):
+        if _tp_problems(dtype, out) or not (half and head_whole):
             problems.append(f"{dtype}: {out}")
-        print(f"tp: {dtype:<8s} (1, 2) step {out['ms_per_step']:.2f} ms (gloo, two processes on "
-              f"one card) vs {out['one_process_ms_per_step']:.2f} ms in one process; loss rel "
-              f"{out['loss_rel']:.2e}, update cos {min(out['update_cos']):.6f}, grad gap "
-              f"{max(out['grad_gap']):.2e}, replicated gap {out['replicated_rank_gap']}",
-              flush=True)
-    planted = ranks[0]["float32"]["planted_sum"]
-    fields["planted_sum"] = {"loss_rel": loss_rel(planted), "update_cos": planted["update_cos"],
-                             "grad_gap": planted["grad_gap"],
-                             "grad_norm_ratio": planted["grad_norm_ratio"]}
-    if planted["grad_gap"][0] <= TP_GRAD_RTOL["float32"]:
-        problems.append(f"the gradient check missed a gather that sums the head's whole "
-                        f"gradient: {fields['planted_sum']}")
-    print(f"tp: planted sum at the head's gather: grad gap {planted['grad_gap'][0]:.3f}, norm "
-          f"ratio {planted['grad_norm_ratio'][0]:.4f}, update cos {planted['update_cos'][0]:.6f}, "
-          f"loss rel {fields['planted_sum']['loss_rel']:.2e}", flush=True)
+        _tp_print("unet28", dtype, out)
+    for name in TP_LATENT_MODELS:
+        fields[name] = {}
+        for dtype in TP_DTYPES:
+            got, other = ranks[0][name][dtype], ranks[1][name][dtype]
+            whole = latent_init[name]
+            # Every float tensor of both models splits two ways: a rank holds
+            # half of each (a head split's too, on its torch dimension 0).
+            half = (set(got["sharded"]) == {k for k, v in whole.items() if v.is_floating_point()}
+                    and all(2 * np.prod(got["shapes"][k]) == whole[k].numel()
+                            for k in got["sharded"]))
+            out = dict(_tp_summary(got, other), shards_half=bool(half))
+            fields[name][dtype] = out
+            if _tp_problems(dtype, out) or not half:
+                problems.append(f"{name} {dtype}: {out}")
+            _tp_print(name, dtype, out)
+    for key, record, what in (("planted_sum", ranks[0]["float32"]["planted_sum"],
+                               "a gather that sums the head's whole gradient"),
+                              ("planted_heads", ranks[0]["planted_heads"],
+                               "q, k and v split by head")):
+        fields[key] = _tp_planted(record)
+        if record["grad_gap"][0] <= TP_GRAD_RTOL["float32"]:
+            problems.append(f"the gradient check missed {what}: {fields[key]}")
+        print(f"tp: {key}: grad gap {record['grad_gap'][0]:.3f}, norm ratio "
+              f"{record['grad_norm_ratio'][0]:.4f}, update cos {record['update_cos'][0]:.6f}, "
+              f"loss rel {fields[key]['loss_rel']:.2e}", flush=True)
     if problems:
         raise RuntimeError(f"tp: {problems}: {fields}")
     emit("tp", **fields)
@@ -5034,8 +5153,11 @@ def main() -> int:
             "launches_laion_sd_train": sd_launches,
             # The data-parallel graph steps at world size 1 (dp), each run's.
             "launches_dp": {k: dp[k]["qsample_launches_dp_run"] for k in ("unet28", "mlp_unet")},
-            # The tensor-parallel steps at (1, 2): each rank's, by dtype.
+            # The tensor-parallel steps at (1, 2): each rank's, by dtype; the
+            # latent denoisers' by model and dtype.
             "launches_tp": {d: tp[d]["qsample_launches"] for d in TP_DTYPES},
+            "launches_tp_latent": {m: {d: tp[m][d]["qsample_launches"] for d in TP_DTYPES}
+                                   for m in TP_LATENT_MODELS},
             "max_abs_err": max([qsample_site["max_abs_err"]]
                                + [s["max_abs_err"] for s in qsample_site["latent_sites"]]),
             **{k: qsample_site[k] for k in keys + (

@@ -425,17 +425,19 @@ def test_a_gather_that_sums_a_whole_gradient_would_fail(runs, tag):
 
 
 def test_other_models_refuse_a_model_axis():
-    """The MLP UNet and the DiT on a model axis of two raise, naming what is
-    ported; at model size 1 they shard nothing."""
-    from tinydiffusion_torch.models.dit import DiT
-    from tinydiffusion_torch.models.mlp_unet import MLPUNetLatent
+    """The models whose model axis is still to port (the MNIST VAE, the
+    conv-VAE, the LAION LatentUNet) raise on a model axis of two, naming
+    what is ported; at model size 1 they shard nothing."""
+    from tinydiffusion_torch.models.unet_latent import LatentUNet
+    from tinydiffusion_torch.models.vae_conv import ConvVAE
+    from tinydiffusion_torch.models.vae_mnist import VAEMnist
 
     mesh = mesh_lib.Mesh((1, 2), mesh_lib.DataParallel(0, 1), mesh_lib.ModelParallel(0, 2))
-    for model in (MLPUNetLatent(), DiT()):
+    for model in (VAEMnist(), ConvVAE(image_size=64), LatentUNet(time_dim=32, base_width=8)):
         with pytest.raises(NotImplementedError, match="ported for the UNet28"):
             mesh_lib.apply_sharding(model, mesh_lib.infer_state_sharding(model, 2), mesh)
     one = mesh_lib.Mesh((1, 1), mesh_lib.DataParallel(0, 1), mesh_lib.ModelParallel(0, 1))
-    model = MLPUNetLatent()
+    model = VAEMnist()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     mesh_lib.apply_sharding(model, mesh_lib.infer_state_sharding(model, one), one)
     assert all(torch.equal(before[k], v) for k, v in model.state_dict().items())

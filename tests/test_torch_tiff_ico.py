@@ -14,7 +14,12 @@
 - TIFF's LZW and PackBits in C (``data/csrc/tiff.c``) equal to the plain
   Python versions, and seeded corruptions refused by both alike
   (``tests/torch_decode_fuzz_worker.py``, in a subprocess);
-- the refusals: JPEG-in-TIFF and CCITT fax by name;
+- JPEG-in-TIFF (compression 7) of every photometric the loader reads
+  (grey, RGB, YCbCr at 1 x 1, 2 x 1 and 2 x 2), in strips and tiles, with
+  the C JPEG decoder equal to the plain one; corrupt streams and sampling
+  factors the file contradicts refused;
+- the refusals: old-style JPEG-in-TIFF, CMYK JPEG-in-TIFF and CCITT fax by
+  name;
 - a TIFF and an ICO record through both packages' ``LAIONImageTextDataset``
   over a loopback HTTP server.
 """
@@ -127,17 +132,47 @@ def packbits_encode(data: bytes) -> bytes:
     return bytes(out)
 
 
+def jpeg_in_tiff_stream(block: np.ndarray, photometric: int, sampling=(1, 1),
+                        quality: int = 90) -> tuple[bytes, bytes]:
+    """``(tables, stream)`` of a strip or tile as libtiff writes JPEG-in-TIFF:
+    Pillow's baseline JPEG of ``block`` (rows, cols, spp uint8; YCbCr from
+    RGB at the luma's ``sampling`` (h, v) for photometric 6, the RGB
+    components as they are for 2, grey for 1) cut into an abbreviated
+    tables stream (SOI, its DQT and DHT segments, EOI) and the rest (SOI,
+    the frame, the scan, EOI), its APPn segments dropped."""
+    image = Image.fromarray(np.ascontiguousarray(block[..., 0] if photometric == 1 else block))
+    options = {"quality": quality}
+    if photometric == 2:
+        options["keep_rgb"] = True
+    elif photometric == 6:
+        options["subsampling"] = {(1, 1): 0, (2, 1): 1, (2, 2): 2}[tuple(sampling)]
+    data = _saved(image, "JPEG", **options)
+    tables, rest, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while data[pos + 1] != 0xDA:
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if data[pos + 1] in (0xDB, 0xC4):
+            tables += data[pos:end]
+        elif data[pos + 1] in (0xC0, 0xC1):
+            rest += data[pos:end]
+        pos = end
+    return bytes(tables + b"\xff\xd9"), bytes(rest + data[pos:])
+
+
 def write_tiff(samples: np.ndarray, photometric: int, *, big_endian=False, bits=8,
                compression=1, predictor=1, planar=1, tile=None, rows_per_strip=None,
-               extra=(), colormap=None) -> bytes:
+               extra=(), colormap=None, sampling=(1, 1), subsampling_field=True) -> bytes:
     """A one-image TIFF of ``samples`` (H, W, spp; values fitting ``bits``),
     in strips (``rows_per_strip``) or ``tile`` (w, h) tiles, planar 1 or 2,
-    compressed and predicted as asked."""
+    compressed and predicted as asked. JPEG (compression 7): each chunk
+    ``jpeg_in_tiff_stream``'s, the tables in the ``JPEGTables`` field, and
+    for YCbCr the luma's ``sampling`` in the stream and, unless
+    ``subsampling_field`` is False, in ``YCbCrSubsampling`` (it may say
+    otherwise: a tuple)."""
     order = ">" if big_endian else "<"
     h, w, spp = samples.shape
     tw, th = tile if tile else (w, rows_per_strip or h)
     planes = [samples[..., k:k + 1] for k in range(spp)] if planar == 2 else [samples]
-    chunks = []
+    chunks, tables = [], set()
     for plane in planes:
         for y in range(0, h, th):
             for x in range(0, w, tw) if tile else [0]:
@@ -146,6 +181,12 @@ def write_tiff(samples: np.ndarray, photometric: int, *, big_endian=False, bits=
                     pad = np.zeros((th, tw, block.shape[2]), block.dtype)
                     pad[:block.shape[0], :block.shape[1]] = block
                     block = pad
+                if compression == 7:
+                    table, stream = jpeg_in_tiff_stream(block.astype(np.uint8), photometric,
+                                                        sampling)
+                    tables.add(table)
+                    chunks.append(stream)
+                    continue
                 block = block.astype(np.int64)
                 if predictor == 2:
                     block = np.concatenate([block[:, :1], np.diff(block, axis=1)], 1) % (1 << bits)
@@ -171,6 +212,11 @@ def write_tiff(samples: np.ndarray, photometric: int, *, big_endian=False, bits=
         fields[338] = (3, list(extra))
     if colormap is not None:
         fields[320] = (3, list(colormap))
+    if compression == 7:
+        assert len(tables) == 1  # one JPEGTables field serves every chunk
+        fields[347] = (7, list(tables.pop()))
+        if photometric == 6 and subsampling_field:
+            fields[530] = (3, list(sampling if subsampling_field is True else subsampling_field))
     body = bytearray(8)
     offsets = []
     for chunk in chunks:
@@ -178,7 +224,7 @@ def write_tiff(samples: np.ndarray, photometric: int, *, big_endian=False, bits=
         body += chunk + b"\0" * (len(chunk) % 2)
     fields[324 if tile else 273] = (4, offsets)
     fields[325 if tile else 279] = (4, [len(c) for c in chunks])
-    codes = {3: "H", 4: "I"}
+    codes = {3: "H", 4: "I", 7: "B"}
     blobs = {}
     for tag, (kind, values) in sorted(fields.items()):
         packed = np.asarray(values, order + codes[kind]).tobytes()
@@ -303,8 +349,86 @@ def test_jpeg_in_tiff_and_fax_are_refused_by_name(compression, name):
 
 
 def test_pillow_jpeg_in_tiff_is_refused():
+    """Of the JPEG-in-TIFF files Pillow writes, CMYK's (photometric 5) is the
+    one the loader refuses, by name."""
     with pytest.raises(ValueError, match="JPEG-in-TIFF"):
-        laion.decode_image(_saved(Image.fromarray(_rgb()), "TIFF", compression="jpeg"))
+        laion.decode_image(_saved(Image.fromarray(_rgb()).convert("CMYK"), "TIFF",
+                                  compression="jpeg"))
+
+
+# --- JPEG-in-TIFF ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quality", (75, 95))
+@pytest.mark.parametrize("mode", ("RGB", "YCbCr", "L"))
+def test_pillow_jpeg_in_tiff_equals_pillow(mode, quality):
+    """Pillow's JPEG-in-TIFF (libtiff's: the tables in ``JPEGTables``, an
+    abbreviated stream a strip; YCbCr at 1 x 1), in one strip and in strips
+    of 16 rows: Pillow's pixels, the C decoder's equal to the plain one's."""
+    image = Image.fromarray(_rgb()).convert(mode)
+    for strip_size in (65536, 16 * len(mode) * image.width):
+        data = _saved(image, "TIFF", compression="jpeg", quality=quality, strip_size=strip_size)
+        assert 347 in Image.open(io.BytesIO(data)).tag_v2
+        _assert_pillows(data)
+
+
+JPEG_TIFF_CASES = {
+    "rgb_tiles": dict(photometric=2, tile=(32, 16)),
+    "ycc420_tiles": dict(photometric=6, tile=(32, 32), sampling=(2, 2)),
+    "ycc420_strips_be": dict(photometric=6, rows_per_strip=16, sampling=(2, 2), big_endian=True),
+    "ycc422_strips": dict(photometric=6, rows_per_strip=8, sampling=(2, 1)),
+    "ycc420_no_field": dict(photometric=6, rows_per_strip=32, sampling=(2, 2),
+                            subsampling_field=False),
+    "grey_tiles": dict(photometric=1, tile=(16, 16)),
+}
+
+
+def _jpeg_tiff(case: str, shape=(45, 61)) -> bytes:
+    options = dict(JPEG_TIFF_CASES[case])
+    rgb = _rgb(14, shape)
+    samples = rgb[..., :1] if options["photometric"] == 1 else rgb
+    return write_tiff(samples, options.pop("photometric"), compression=7, **options)
+
+
+@pytest.mark.parametrize("case", sorted(JPEG_TIFF_CASES))
+def test_written_jpeg_in_tiff_equals_pillow(case):
+    """JPEG-in-TIFF that Pillow does not write: tiles, YCbCr with its chroma
+    at half width (2 x 1) or half size (2 x 2), strips whose last is short,
+    big-endian, no ``YCbCrSubsampling`` field (the stream's sampling
+    governs): Pillow's pixels through libtiff."""
+    _assert_pillows(_jpeg_tiff(case))
+
+
+def test_jpeg_in_tiff_refuses_what_libtiff_refuses():
+    """A ``YCbCrSubsampling`` field that the stream contradicts, a strip
+    whose stream is taller than the strip, and tables without their SOI
+    raise ``ValueError`` in both decoders, where Pillow fails too. A
+    truncated stream raises as well, as the loader's other decoders do,
+    where libjpeg warns and pads with zeros; tables without their EOI are
+    read to their end, as libtiff reads them."""
+    rgb = _rgb(14)
+    good = write_tiff(rgb, 6, compression=7, tile=(32, 32), sampling=(2, 2))
+    tables = good.index(b"\xff\xd8\xff\xdb")
+    eoi = good.index(b"\xff\xd9", tables)
+    counts = struct.pack("<HHI", 325, 4, 4)
+    at = struct.unpack("<I", good[good.index(counts) + 8:good.index(counts) + 12])[0]
+    half = struct.unpack("<I", good[at:at + 4])[0] // 2
+    pillow_fails = {
+        "sampling": write_tiff(rgb, 6, compression=7, rows_per_strip=16, sampling=(2, 2),
+                               subsampling_field=(1, 1)),
+        "size": write_tiff(rgb, 2, compression=7, rows_per_strip=16).replace(
+            struct.pack("<HHII", 278, 4, 1, 16), struct.pack("<HHII", 278, 4, 1, 8)),
+        "tables_soi": good[:tables] + b"\0\0" + good[tables + 2:],
+    }
+    truncated = good[:at] + struct.pack("<I", half) + good[at + 4:]
+    for name, data in [*pillow_fails.items(), ("truncated", truncated)]:
+        if name in pillow_fails:
+            with pytest.raises(Exception):
+                _pillow(data)
+        for decode in (tiff.decode_tiff, tiff.decode_tiff_reference):
+            with pytest.raises(ValueError):
+                decode(data)
+    _assert_pillows(good[:eoi] + b"\xff\xff" + good[eoi + 2:])  # fill bytes, no EOI
 
 
 def test_lzw_and_packbits_in_c_equal_the_plain_versions():
@@ -426,6 +550,9 @@ def _fixture_bytes(name: str) -> bytes:
                                                         predictor=2, tile=(16, 16)),
         "laion_loader_planar.tif": lambda: write_tiff(alpha4, 2, planar=2, compression=32773,
                                                       rows_per_strip=16, extra=(2,)),
+        "laion_loader_jpeg.tif": lambda: _saved(_pillow_image("YCbCr"), "TIFF",
+                                                compression="jpeg", strip_size=16 * 3 * 61),
+        "laion_loader_jpeg_tiles.tif": lambda: _jpeg_tiff("ycc420_tiles"),
         "laion_loader.ico": lambda: _saved(Image.fromarray(_image((48, 48), 21)).convert("RGBA"),
                                            "ICO", sizes=[(16, 16), (32, 32), (48, 48)]),
         "laion_loader_bmp.ico": lambda: _saved(Image.fromarray(_image((32, 32), 22)).quantize(30),
@@ -441,7 +568,8 @@ TIFF_ICO_FIXTURES = ("laion_loader_lzw.tif", "laion_loader_predictor.tif",
                      "laion_loader_packbits.tif", "laion_loader_deflate.tif",
                      "laion_loader_cmyk.tif", "laion_loader_bilevel.tif",
                      "laion_loader_grey16.tif", "laion_loader_tiles_be.tif",
-                     "laion_loader_planar.tif", "laion_loader.ico", "laion_loader_bmp.ico",
+                     "laion_loader_planar.tif", "laion_loader_jpeg.tif",
+                     "laion_loader_jpeg_tiles.tif", "laion_loader.ico", "laion_loader_bmp.ico",
                      "laion_loader.cur")
 
 
@@ -463,6 +591,8 @@ FUZZ = {"lzw.tif": lambda: write_tiff(_rgb(5, (37, 45)), 2, compression=5, predi
                                       rows_per_strip=12),
         "packbits.tif": lambda: write_tiff(_rgb(6, (37, 45))[..., :1], 1, compression=32773,
                                            tile=(16, 16)),
+        "jpeg.tif": lambda: write_tiff(_rgb(8, (37, 45)), 6, compression=7, tile=(16, 16),
+                                       sampling=(2, 2)),
         "bmp.ico": lambda: _saved(Image.fromarray(_image((32, 32), 7)).quantize(12), "ICO",
                                   sizes=[(16, 16), (32, 32)], bitmap_format="bmp")}
 FUZZ_MUTANTS = 160

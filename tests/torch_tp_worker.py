@@ -30,6 +30,8 @@ import torch.distributed as dist
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.io.checkpoint import save_weights
+from tinydiffusion_torch.models.dit import DiT
+from tinydiffusion_torch.models.mlp_unet import MLPUNetLatent
 from tinydiffusion_torch.models.unet28 import UNet28
 from tinydiffusion_torch.parallel import mesh as mesh_lib
 from tinydiffusion_torch.train import trainer
@@ -193,10 +195,10 @@ def _split_backward(ctx, grad):
     """The gather's backward with the reduce-scatter taken out: each rank
     keeps its own slice of its partial gradient."""
     mp, widths = ctx.mp, ctx.widths
-    grad = grad.movedim(1, -1)
+    grad = grad.movedim(ctx.dim, -1)
     blocks = grad.split([w * mp.size for w in widths], -1)
     mine = torch.cat([b.split(w, -1)[mp.rank] for b, w in zip(blocks, widths)], -1)
-    return (None, None, None, *[g.movedim(-1, 1) for g in mine.split(widths, -1)])
+    return (None,) * 5 + tuple(g.movedim(-1, ctx.dim) for g in mine.split(widths, -1))
 
 
 def _run_mesh(inputs: dict, mesh: mesh_lib.Mesh, tag: str, out_dir: str, rank: int) -> dict:
@@ -272,3 +274,183 @@ def run_rank(rank: int, init_dir: str, inputs_path: str, out_dir: str) -> None:
         finally:
             dist.destroy_process_group()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **results)
+
+
+# --- the latent denoisers -----------------------------------------------------------
+
+# The small latent models, as JAX's test builds them too: name -> (class, options).
+LATENT_MODELS = {
+    "mlp": (MLPUNetLatent, {"time_dim": 32, "num_classes": 10, "latent_dim": 20}),
+    "dit": (DiT, {"time_dim": 32, "num_classes": 10, "latent_dim": 20, "num_heads": 4,
+                  "num_layers": 2, "dropout": 0.05}),
+    "dit4": (DiT, {"time_dim": 32, "num_classes": 10, "latent_dim": 20, "num_heads": 4,
+                   "num_layers": 2, "dropout": 0.3, "num_tokens": 4}),
+}
+# Each case: model, then ``_jax`` (JAX's draws through the seams) and ``_bf16``.
+LATENT_CASES = ("mlp", "dit", "dit4", "mlp_jax", "dit_jax", "dit4_jax", "mlp_bf16_jax",
+                "dit_bf16_jax")
+
+
+def latent_model(name: str):
+    cls, options = LATENT_MODELS[name]
+    return cls(**options)
+
+
+def jax_masks(inputs: dict, name: str) -> list | None:
+    """JAX's dropout masks of ``name``'s step, in ``draw_dropout_masks``'s
+    layout, from the inputs' ``<name>_mask<block>_<i>`` arrays."""
+    blocks = sorted({int(k.split("_mask")[1].split("_")[0]) for k in inputs
+                     if k.startswith(f"{name}_mask")})
+    if not blocks:
+        return None
+    return [tuple(torch.from_numpy(np.array(inputs[f"{name}_mask{b}_{i}"])) for i in range(3))
+            for b in blocks]
+
+
+def _whole_weights(model, state, shardings, mesh, name: str) -> dict:
+    """The state's weights in JAX's npz keys, gathered whole on a mesh."""
+    if mesh is not None:
+        whole = latent_model(name)
+        whole.load_state_dict(mesh_lib.gather_state_dict(model.state_dict(), shardings, mesh))
+        state = trainer.DiffusionTrainState(whole, state.optimizer, state.generator, None,
+                                            state.step)
+    return {k: v for k, v in state.jax_weights().items() if k != "step"}
+
+
+def _sharded_latent(name: str, weights: dict, mesh: mesh_lib.Mesh | None):
+    model = latent_model(name)
+    shardings = None
+    if mesh is not None:
+        shardings = mesh_lib.infer_state_sharding(model, mesh)
+        mesh_lib.apply_sharding(model, shardings, mesh, state_dict=weights)
+    else:
+        model.load_state_dict(weights)
+    return model, shardings
+
+
+def latent_step(inputs: dict, case: str, mesh: mesh_lib.Mesh | None = None) -> dict:
+    """One SGD step of ``case`` (``LATENT_CASES``) on ``mesh`` (None: one
+    process, the whole batch) through ``make_train_step``: the loss, the
+    shards' shapes, the tensors left whole, and the whole weights after."""
+    name = case.split("_")[0]
+    bf16 = "_bf16" in case
+    weights = torch.load(inputs[f"{name}_{'bf16_' if bf16 else ''}weights"])
+    model, shardings = _sharded_latent(name, weights, mesh)
+    state = trainer.create_train_state(model, torch.optim.SGD(model.parameters(), lr=LR), 0)
+    step = trainer.make_train_step(_schedule(inputs), conditional=True, mesh=mesh,
+                                   compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+    dp = None if mesh is None else mesh.dp
+    x0 = mesh_lib.shard(dp, torch.from_numpy(np.array(inputs["latent_x0"])))
+    y = mesh_lib.shard(dp, torch.from_numpy(np.array(inputs["latent_y"])).long())
+    seams = {}
+    if case.endswith("_jax"):
+        seams = {"t": torch.from_numpy(np.array(inputs[f"{name}_t"])),
+                 "noise": torch.from_numpy(np.array(inputs[f"{name}_noise"])),
+                 "masks": jax_masks(inputs, name)}
+    loss = step(state, x0, y, **seams)
+    out = {"loss": np.asarray(loss.item())}
+    out.update({f"shape/{k}": np.asarray(v.shape) for k, v in model.state_dict().items()})
+    if mesh is not None:
+        out.update(_replicated(model, shardings))
+    out.update(_whole_weights(model, state, shardings, mesh, name))
+    return out
+
+
+def latent_resident_steps(inputs: dict, name: str, mesh: mesh_lib.Mesh | None = None) -> dict:
+    """RESIDENT_STEPS steps of ``make_resident_multi_step`` over a resident
+    set of (N, 20) uint8 rows and labels (the step's own draws), sharded on
+    ``mesh`` or in one process: the losses and the whole weights after."""
+    model, shardings = _sharded_latent(name, torch.load(inputs[f"{name}_weights"]), mesh)
+    state = trainer.create_train_state(model, torch.optim.SGD(model.parameters(), lr=LR), 5)
+    dataset = DeviceDataset(np.array(inputs["latent_rows"]), len(inputs["latent_x0"]), seed=4,
+                            device="cpu", labels=np.array(inputs["latent_row_labels"]))
+    step = trainer.make_resident_multi_step(_schedule(inputs), dataset, conditional=True,
+                                            mesh=mesh)
+    idxs = dataset.epoch_index_batches(0)[:RESIDENT_STEPS]
+    losses = step(state, mesh_lib.shard(None if mesh is None else mesh.dp, idxs, dim=1))
+    out = {"loss": losses.numpy()}
+    out.update(_whole_weights(model, state, shardings, mesh, name))
+    return out
+
+
+def latent_eager_steps(inputs: dict, name: str) -> dict:
+    """The steps of ``latent_resident_steps`` in one process, each a
+    ``make_train_step`` call on the batch the resident step gathers, from a
+    generator of the same seed."""
+    model, _ = _sharded_latent(name, torch.load(inputs[f"{name}_weights"]), None)
+    state = trainer.create_train_state(model, torch.optim.SGD(model.parameters(), lr=LR), 5)
+    dataset = DeviceDataset(np.array(inputs["latent_rows"]), len(inputs["latent_x0"]), seed=4,
+                            device="cpu", labels=np.array(inputs["latent_row_labels"]))
+    step = trainer.make_train_step(_schedule(inputs), conditional=True)
+    losses = [step(state, *dataset.gather(torch.from_numpy(idx))).item()
+              for idx in dataset.epoch_index_batches(0)[:RESIDENT_STEPS]]
+    out = {"loss": np.asarray(losses, np.float32)}
+    out.update(_whole_weights(model, state, None, None, name))
+    return out
+
+
+def _contiguous_heads(modules, owner):
+    """The sharding rule with no head split: q, k and v cut contiguously,
+    whole heads to a rank."""
+    return None
+
+
+def _run_latent_mesh(inputs: dict, mesh: mesh_lib.Mesh, tag: str, out_dir: str,
+                     rank: int) -> dict:
+    results = {f"{tag}/place": np.asarray([mesh.data.rank, mesh.data.size, mesh.model.rank,
+                                           mesh.model.size])}
+    cases = LATENT_CASES if tag == "m12" else ("mlp", "dit", "dit4")
+    for case in cases:
+        results.update({f"{tag}/{case}/{k}": v for k, v in latent_step(inputs, case, mesh).items()})
+    for name in ("mlp", "dit"):
+        # The model axis is checked once for the model, not at each step.
+        checks = []
+        keep = trainer.check_model_axis
+        trainer.check_model_axis = lambda *args: (checks.append(1), keep(*args))
+        try:
+            got = latent_resident_steps(inputs, name, mesh)
+        finally:
+            trainer.check_model_axis = keep
+        got["model_axis_checks"] = np.asarray(len(checks))
+        results.update({f"{tag}/resident_{name}/{k}": v for k, v in got.items()})
+    if tag == "m12":
+        keep = mesh_lib._heads
+        mesh_lib._heads = _contiguous_heads
+        try:
+            for case in ("dit_jax", "dit4_jax"):
+                results.update({f"{tag}/heads_{case}/{k}": v
+                                for k, v in latent_step(inputs, case, mesh).items()})
+        finally:
+            mesh_lib._heads = keep
+    if rank == 0:
+        save_weights(os.path.join(out_dir, f"{tag}_dit"),
+                     {k.split("/", 2)[2]: v for k, v in results.items()
+                      if k.startswith(f"{tag}/dit_jax/") and k.split("/")[2].startswith(
+                          ("params", "batch_stats"))})
+    return results
+
+
+def run_latent_rank(rank: int, init_dir: str, inputs_path: str, out_dir: str) -> None:
+    """Rank ``rank`` of four: the ``(2, 2)`` mesh, then (ranks 0 and 1) the
+    ``(1, 2)`` one; results to ``out_dir/latent_rank<rank>.npz``."""
+    torch.set_num_threads(1)
+    inputs = dict(np.load(inputs_path, allow_pickle=True))
+    inputs = {k: (v.item() if v.dtype == object or v.dtype.kind == "U" else v)
+              for k, v in inputs.items()}
+    results = {}
+    dist.init_process_group("gloo", init_method=f"file://{init_dir}/latent4", rank=rank,
+                            world_size=4)
+    try:
+        results.update(_run_latent_mesh(inputs, mesh_lib.make_mesh(("data", "model"), (2, 2)),
+                                        "m22", out_dir, rank))
+    finally:
+        dist.destroy_process_group()
+    if rank < 2:
+        dist.init_process_group("gloo", init_method=f"file://{init_dir}/latent2", rank=rank,
+                                world_size=2)
+        try:
+            results.update(_run_latent_mesh(inputs, mesh_lib.make_mesh(("data", "model"), (1, 2)),
+                                            "m12", out_dir, rank))
+        finally:
+            dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"latent_rank{rank}.npz"), **results)

@@ -651,14 +651,48 @@ def decode_jpeg_reference(data: bytes) -> np.ndarray:
     return _decode(data, native=False)
 
 
-def _decode(data: bytes, native: bool) -> np.ndarray:
+def decode_jpeg_as(data: bytes, color: str, native: bool = True) -> np.ndarray:
+    """``decode_jpeg`` (``native``) or ``decode_jpeg_reference`` of a stream
+    whose colour transform its container gives (a JPEG-in-TIFF strip's
+    photometric): ``color`` is ``"grey"``, ``"rgb"`` (the components as they
+    are, libjpeg's ``JCS_UNKNOWN``) or ``"ycc"`` (YCbCr to RGB), in place of
+    libjpeg's guess from the markers."""
+    if color not in ("grey", "rgb", "ycc"):
+        raise ValueError(f"unknown JPEG colour transform {color!r}")
+    return _decode(data, native, color)
+
+
+def frame_header(data: bytes) -> tuple[int, int, list[tuple[int, int, int]]]:
+    """The frame of a JPEG stream, read from its first SOF marker segment:
+    ``(height, width, [(component id, h, v), ...])``. Raises ``ValueError``
+    where there is none."""
+    pos = 2 if data[:2] == b"\xff\xd8" else None
+    while pos is not None and pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker, length = data[pos + 1], int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker in (0xC0, 0xC1, 0xC2) or marker in _UNSUPPORTED_SOF:
+            body = data[pos + 4:pos + 2 + length]
+            if length < 8 or len(body) < 6 + 3 * body[5]:
+                break
+            comps = [(body[6 + 3 * j], body[7 + 3 * j] >> 4, body[7 + 3 * j] & 15)
+                     for j in range(body[5])]
+            return int.from_bytes(body[1:3], "big"), int.from_bytes(body[3:5], "big"), comps
+        if marker in (0xD9, 0xDA) or length < 2:
+            break
+        pos += 2 + length
+    raise ValueError("corrupt JPEG file: no frame header")
+
+
+def _decode(data: bytes, native: bool, color: str | None = None) -> np.ndarray:
     try:
-        return _decode_markers(bytes(data), native)
+        return _decode_markers(bytes(data), native, color)
     except (IndexError, ZeroDivisionError) as e:  # a marker segment shorter than it says
         raise ValueError(f"corrupt JPEG file: {e!r}") from e
 
 
-def _decode_markers(data: bytes, native: bool) -> np.ndarray:
+def _decode_markers(data: bytes, native: bool, color: str | None = None) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qtables, tables = {}, {}
@@ -756,7 +790,9 @@ def _decode_markers(data: bytes, native: bool) -> np.ndarray:
         # APPn, COM and the rest carry nothing the pixels depend on.
     if frame is None or not all(frame["seen"]):
         raise ValueError("truncated JPEG file: a component was never scanned")
-    return _pixels(frame, latched, jfif, adobe, native)
+    if color is not None and len(frame["comps"]) != (1 if color == "grey" else 3):
+        raise ValueError(f"a {color} JPEG stream of {len(frame['comps'])} components")
+    return _pixels(frame, latched, jfif, adobe, native, color)
 
 
 def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, qtables: dict,
@@ -1117,11 +1153,13 @@ def _color_mode(frame: dict, jfif: bool, adobe) -> str:
     return "rgb" if rgb else "ycc"
 
 
-def _pixels(frame: dict, latched: dict, jfif: bool, adobe, native: bool) -> np.ndarray:
-    """The inverse DCT, upsampling and colour conversion of a decoded frame
-    (in C, ``tdt_jpeg_pixels``, when ``native``)."""
+def _pixels(frame: dict, latched: dict, jfif: bool, adobe, native: bool,
+            color: str | None = None) -> np.ndarray:
+    """The inverse DCT, upsampling and colour conversion (``color``, else
+    ``_color_mode``'s) of a decoded frame (in C, ``tdt_jpeg_pixels``, when
+    ``native``)."""
     height, width = frame["height"], frame["width"]
-    mode = _color_mode(frame, jfif, adobe)
+    mode = color or _color_mode(frame, jfif, adobe)
     if native:
         geom = [height, width, frame["hmax"], frame["vmax"], len(frame["comps"]),
                 _MODES.index(mode)]

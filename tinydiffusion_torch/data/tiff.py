@@ -18,12 +18,20 @@ here, the first image of the file as Pillow opens it (``TiffImagePlugin``):
   Pillow's ``RGBa`` unpacking does); CMYK of 8 bits, with Pillow's
   ``cmyk2rgb``.
 
-JPEG-in-TIFF (compressions 6 and 7), CCITT fax (2, 3, 4), the other
-compressions, YCbCr and CIELab, signed or floating-point samples, fill
-order 2, the floating-point predictor and BigTIFF raise ``ValueError``
-naming what they are, as do truncated or corrupt files. ``decode_tiff``
-decodes LZW and PackBits in C (``data/csrc/tiff.c``);
-``decode_tiff_reference`` in Python.
+JPEG-in-TIFF (compression 7, libtiff's) is read as Pillow reads it through
+libtiff: each strip's or tile's abbreviated JPEG stream, the
+``JPEGTables`` field's tables (tag 347) in front of it, through
+``data/jpeg.py``'s decoder, for 8-bit grey (photometric 1), RGB (2: the
+components as they are) and YCbCr (6: converted to RGB by libjpeg's
+upsampling and colour conversion, the stream's own sampling, which a
+``YCbCrSubsampling`` field (tag 530) must agree with), strips or tiles,
+planar configuration 1. Old-style JPEG (compression 6), CCITT fax (2, 3,
+4), the other compressions, YCbCr and CIELab without JPEG, signed or
+floating-point samples, fill order 2, the floating-point predictor and
+BigTIFF raise ``ValueError`` naming what they are, as do truncated or
+corrupt files. ``decode_tiff`` decodes LZW, PackBits and JPEG in C
+(``data/csrc/tiff.c``, ``data/csrc/jpeg.c``); ``decode_tiff_reference`` in
+Python.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import zlib
 
 import numpy as np
 
-from tinydiffusion_torch.data import native
+from tinydiffusion_torch.data import jpeg, native
 from tinydiffusion_torch.data.jpeg import _cmyk_to_rgb
 
 SIGNATURES = (b"II*\x00", b"MM\x00*")
@@ -42,9 +50,10 @@ SIGNATURES = (b"II*\x00", b"MM\x00*")
 _TYPES = {1: (1, "u1"), 2: (1, "u1"), 3: (2, "u2"), 4: (4, "u4"), 6: (1, "i1"), 7: (1, "u1"),
           8: (2, "i2"), 9: (4, "i4"), 5: (8, "u4"), 10: (8, "i4"), 11: (4, "f4"), 12: (8, "f8")}
 _REFUSED_COMPRESSION = {2: "CCITT fax (modified Huffman)", 3: "CCITT fax (group 3)",
-                        4: "CCITT fax (group 4)", 6: "JPEG-in-TIFF (old-style JPEG)",
-                        7: "JPEG-in-TIFF"}
-NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 8, 32946, 32773
+                        4: "CCITT fax (group 4)", 6: "JPEG-in-TIFF (old-style JPEG)"}
+NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 7, 8, 32946, 32773
+# JPEG-in-TIFF: (photometric, samples a pixel) -> the streams' colour transform.
+_JPEG_COLORS = {(1, 1): "grey", (2, 3): "rgb", (6, 3): "ycc"}
 # Pillow refuses an image of more pixels (twice ``Image.MAX_IMAGE_PIXELS``:
 # a decompression bomb).
 MAX_PIXELS = 2 * 89478485
@@ -131,20 +140,23 @@ def _native(fn_name: str):
     return decode
 
 
-_NATIVE = {LZW: _native("tdt_tiff_lzw"), PACKBITS: _native("tdt_tiff_packbits")}
-_PLAIN = {LZW: _lzw_decode, PACKBITS: _packbits_decode}
+_NATIVE = {LZW: _native("tdt_tiff_lzw"), PACKBITS: _native("tdt_tiff_packbits"),
+           JPEG: lambda stream, color: jpeg.decode_jpeg_as(stream, color, native=True)}
+_PLAIN = {LZW: _lzw_decode, PACKBITS: _packbits_decode,
+          JPEG: lambda stream, color: jpeg.decode_jpeg_as(stream, color, native=False)}
 
 
 def decode_tiff(data: bytes) -> np.ndarray:
     """The (H, W, 3) uint8 RGB of a TIFF file's first image, as Pillow 12.1's
-    ``Image.open(f).convert("RGB")`` gives it; LZW and PackBits decoded by
-    the C library (``data/csrc/tiff.c``, built at the first call)."""
+    ``Image.open(f).convert("RGB")`` gives it; LZW, PackBits and JPEG decoded
+    by the C library (``data/csrc/tiff.c``, ``jpeg.c``, built at the first
+    call)."""
     return _decode(bytes(data), _NATIVE)
 
 
 def decode_tiff_reference(data: bytes) -> np.ndarray:
-    """The plain version of ``decode_tiff``: LZW and PackBits in Python. The
-    tests and ``chip_smoke.py`` hold the C library to it."""
+    """The plain version of ``decode_tiff``: LZW, PackBits and JPEG in
+    Python. The tests and ``chip_smoke.py`` hold the C library to it."""
     return _decode(bytes(data), _PLAIN)
 
 
@@ -213,8 +225,15 @@ def _decode(data: bytes, codecs: dict) -> np.ndarray:
         raise ValueError(f"corrupt TIFF file: {width}x{height}, {spp} samples, {len(bps)} depths")
     if compression in _REFUSED_COMPRESSION:
         raise ValueError(f"unsupported TIFF compression: {_REFUSED_COMPRESSION[compression]}")
-    if compression not in (NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS):
+    if compression not in (NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS):
         raise ValueError(f"unsupported TIFF compression {compression}")
+    color = None
+    if compression == JPEG:
+        color = _JPEG_COLORS.get((photometric, spp))
+        if color is None or bps != [8] * spp or planar != 1 or predictor != 1:
+            raise ValueError(f"unsupported JPEG-in-TIFF image: photometric {photometric}, "
+                             f"{spp} samples of {bps} bits, planar {planar}, predictor "
+                             f"{predictor}")
     if predictor not in (1, 2):
         raise ValueError(f"unsupported TIFF predictor {predictor}")
     if _field(fields, 266, [1])[0] != 1:
@@ -229,7 +248,9 @@ def _decode(data: bytes, codecs: dict) -> np.ndarray:
     if predictor == 2 and bits < 8:
         raise ValueError("corrupt TIFF file: a horizontal predictor on sub-byte samples")
     samples = _samples(data, fields, order, width, height, spp, bits, compression, predictor,
-                       planar, codecs)
+                       planar, codecs, color)
+    if color == "ycc":  # libjpeg converted the YCbCr samples to RGB
+        photometric = 2
     return _to_rgb(samples, fields, photometric, spp, bits, extra, order)
 
 
@@ -249,9 +270,10 @@ def _chunks(fields: dict, width: int, height: int):
 
 
 def _samples(data, fields, order, width, height, spp, bits, compression, predictor, planar,
-             codecs) -> np.ndarray:
+             codecs, color=None) -> np.ndarray:
     """The image's samples, (H, W, spp): uint8, or uint16 for 16 bits, or
-    the unpacked values of sub-byte samples."""
+    the unpacked values of sub-byte samples; a JPEG-in-TIFF image's decoded
+    with the colour transform ``color``."""
     offsets, counts, (tiled, cw, ch, across) = _chunks(fields, width, height)
     planes = spp if planar == 2 else 1
     per_pixel = 1 if planar == 2 else spp
@@ -272,6 +294,12 @@ def _samples(data, fields, order, width, height, spp, bits, compression, predict
             raw = data[at:at + n]
             if len(raw) < n:
                 raise ValueError("truncated TIFF file: a strip or tile")
+            y, x = (index // across) * ch, (index % across) * cw
+            if compression == JPEG:
+                last = not tiled and index == per_plane - 1
+                out[y:y + rows, x:x + cw] = _jpeg_chunk(raw, fields, color, cw, rows, last,
+                                                        codecs[JPEG])
+                continue
             chunk = _decompress(raw, compression, expected, codecs)
             if len(chunk) < expected:
                 raise ValueError("truncated TIFF data: a strip or tile decodes short")
@@ -286,10 +314,42 @@ def _samples(data, fields, order, width, height, spp, bits, compression, predict
                 values = unpacked[:, :cw * per_pixel].reshape(rows, cw, per_pixel)
             if predictor == 2:  # each sample the running sum of the row's differences
                 values = np.cumsum(values, axis=1, dtype=values.dtype)
-            y, x = (index // across) * ch, (index % across) * cw
             channels = slice(plane, plane + 1) if planar == 2 else slice(0, spp)
             out[y:y + rows, x:x + cw, channels] = values
     return out[:height, :width]
+
+
+def _jpeg_chunk(raw: bytes, fields: dict, color: str, width: int, rows: int, last: bool,
+                decode) -> np.ndarray:
+    """A JPEG-in-TIFF strip's or tile's (rows, width, spp) samples: its
+    abbreviated stream with the ``JPEGTables`` stream's tables in front
+    (``SOI tables EOI`` and ``SOI frame scans EOI`` made one stream), decoded
+    by ``decode(stream, color)``, which refuses a truncated or corrupt one
+    (where libjpeg warns and pads with zeros). As libtiff, the stream's size must be the
+    chunk's (a last strip's may be taller, and is cut); RGB and grey streams
+    have every component at full resolution, and a YCbCr stream's chroma at
+    1 x 1 and its luma at the ``YCbCrSubsampling`` field's factors where
+    the file gives one."""
+    stream = raw
+    if 347 in fields:
+        tables = np.asarray(fields[347], np.uint8).tobytes()
+        if tables[:2] != b"\xff\xd8" or raw[:2] != b"\xff\xd8":
+            raise ValueError("corrupt TIFF file: JPEG tables or a JPEG strip without SOI")
+        # libtiff's tables source ends the tables at their end, EOI or not.
+        stream = tables[:-2 if tables.endswith(b"\xff\xd9") else None] + raw[2:]
+    height, stream_width, comps = jpeg.frame_header(stream)
+    if stream_width != width or height < rows or (height > rows and not last):
+        raise ValueError(f"corrupt TIFF file: a JPEG strip or tile of {stream_width}x{height} "
+                         f"for {width}x{rows}")
+    factors = [c[1:] for c in comps]
+    want = [(1, 1)] * len(comps)
+    if color == "ycc":
+        want[0] = tuple(_field(fields, 530, list(factors[0])))
+    if factors != want:
+        raise ValueError(f"unsupported JPEG-in-TIFF sampling factors {factors} (the file says "
+                         f"{want})")
+    pixels = decode(stream, color)
+    return pixels[:rows, :, :1] if color == "grey" else pixels[:rows]
 
 
 def _decompress(raw: bytes, compression: int, expected: int, codecs: dict) -> bytes:

@@ -32,6 +32,21 @@ them from a caller's generator), so a step's draws all come from its
 state's generator, whether it runs eagerly or replayed in a CUDA graph, and
 a test can hand it JAX's masks. Kept elements are divided by
 ``1 - dropout`` cast to the compute dtype, flax's arithmetic.
+
+On the model axis (``parallel.mesh.apply_sharding``: JAX's
+``infer_state_sharding`` of the flax leaves) the residual stream is split
+on its width D, as are ``pos_encoding``, the norms, ``out``, ``ff2`` and
+``input_proj``; ``ff1`` is split on 4 D, and ``query``, ``key`` and
+``value`` on head_dim (flax keeps their kernels as (D, heads, head_dim): a
+rank holds head_dim / m of every head, ``parallel.mesh.HeadSplit``). Each
+``Linear`` reads its whole input (``parallel.mesh.apply_full``); q, k and
+v are made whole in one gather that undoes the head interleave, and every
+rank computes the softmax and its product with v whole (the scores need
+whole heads), then its slice of ``out``. ``LayerNorm`` gathers its input
+for the statistics. The dropout masks are drawn whole and each rank keeps
+its features, so that a (1, m) step equals one process. ``final_proj``'s
+output (split where the axis divides ``latent_dim / num_tokens``) is
+gathered whole for the loss.
 """
 
 from __future__ import annotations
@@ -48,6 +63,13 @@ from tinydiffusion_torch.nn.layers import (
     gelu,
     softmax,
 )
+from tinydiffusion_torch.parallel.mesh import (
+    apply_full,
+    apply_full_each,
+    gather_last,
+    gather_output,
+    out_sharded,
+)
 
 
 class MultiHeadAttention(FlaxDtype, nn.Module):
@@ -55,6 +77,8 @@ class MultiHeadAttention(FlaxDtype, nn.Module):
     over (B, S, dim) tokens, self-attention. ``query``/``key``/``value`` and
     ``out`` are (dim, dim) ``nn.Linear``s; flax keeps their kernels as
     (dim, heads, head_dim) and (heads, head_dim, dim) (``io.from_jax``)."""
+
+    model_parallel = None  # set by parallel.mesh.apply_sharding
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -67,28 +91,43 @@ class MultiHeadAttention(FlaxDtype, nn.Module):
     def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None,
                 keep_prob: float = 1.0) -> torch.Tensor:
         """``keep`` (1, 1, S, S) bool masks the attention weights (train mode)."""
-        b, s, d = x.shape
-        h = self.num_heads
-        q = self.query(x).view(b, s, h, d // h)
-        k = self.key(x).view(b, s, h, d // h)
-        v = self.value(x).view(b, s, h, d // h)
+        mp = self.model_parallel
+        b, s = x.shape[:2]
+        d, h = self.out.in_features, self.num_heads
+        q, k, v = apply_full_each(mp, (self.query, self.key, self.value), x)
+        if mp is not None and out_sharded(self.query):
+            q, k, v = gather_last(mp, q, k, v, heads=h).split(d, -1)
+        q = q.view(b, s, h, d // h)
+        k = k.view(b, s, h, d // h)
+        v = v.view(b, s, h, d // h)
         q = q / constant((d // h) ** 0.5, q.dtype)
         weights = softmax(torch.einsum("bqhd,bkhd->bhqk", q, k))
         if keep is not None:
             weights = weights * (keep.to(weights.dtype) / constant(keep_prob, weights.dtype))
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, s, d)
-        return self.out(out)
+        return apply_full(mp, self.out, out)
 
 
 def _dropout(x: torch.Tensor, keep: torch.Tensor | None, keep_prob: float) -> torch.Tensor:
     """flax ``Dropout``: ``x / keep_prob`` (in x's dtype) where kept, 0
-    elsewhere."""
+    elsewhere. ``keep`` may be the whole width's mask where ``x`` holds a
+    model rank's features of it: its ``local_features``."""
     if keep is None:
         return x
     return torch.where(keep, x / constant(keep_prob, x.dtype), torch.zeros_like(x))
 
 
+def local_features(mp, keep: torch.Tensor | None, width: int) -> torch.Tensor | None:
+    """This model rank's ``width`` features of a whole-width mask (the last
+    dimension), or the mask itself where it is that width."""
+    if keep is None or keep.shape[-1] == width:
+        return keep
+    return keep.narrow(-1, mp.rank * width, width)
+
+
 class TransformerBlock(nn.Module):
+    model_parallel = None  # set by parallel.mesh.apply_sharding
+
     def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout: float = 0.1):
         super().__init__()
         self.keep_prob = 1.0 - dropout
@@ -101,14 +140,20 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
         """``masks``: ``(attention (1, 1, S, S), output (B, S, D), ff (B, S,
         D))`` bool keep masks, or None (no dropout)."""
+        mp = self.model_parallel
         attn_keep, out_keep, ff_keep = masks if masks is not None else (None, None, None)
         attn = self.attention(x, attn_keep, self.keep_prob)
+        out_keep = local_features(mp, out_keep, attn.shape[-1])
         x = self.norm1(x + _dropout(attn, out_keep, self.keep_prob))
-        h = self.ff2(gelu(self.ff1(x)))
+        h = apply_full(mp, self.ff2, gelu(apply_full(mp, self.ff1, x)))
+        ff_keep = local_features(mp, ff_keep, h.shape[-1])
         return self.norm2(x + _dropout(h, ff_keep, self.keep_prob))
 
 
 class DiT(FlaxDtype, nn.Module):
+    supports_model_axis = True
+    model_parallel = None  # set by parallel.mesh.apply_sharding
+
     def __init__(self, time_dim: int = 256, num_classes: int = 10, latent_dim: int = 20,
                  num_heads: int = 4, num_layers: int = 4, dropout: float = 0.05,
                  num_tokens: int = 1):
@@ -158,14 +203,16 @@ class DiT(FlaxDtype, nn.Module):
         elif dropout_masks is None:
             raise ValueError("a train-mode DiT forward with dropout needs dropout_masks "
                              "(draw_dropout_masks, from the step's generator)")
+        mp = self.model_parallel
         batch = x.shape[0]
         dtype = self.dtype
         x = x.to(dtype)
         emb = self.time_embedding(t) + self.class_embedding(y).to(dtype)
-        tokens = self.input_proj(x.reshape(batch, self.num_tokens, -1))
+        tokens = apply_full(mp, self.input_proj, x.reshape(batch, self.num_tokens, -1))
         tokens = tokens + emb[:, None, :] + self.pos_encoding.to(dtype)
         for i in range(self.num_layers):
             tokens = getattr(self, f"block{i}")(
                 tokens, None if dropout_masks is None else dropout_masks[i])
-        out = self.final_proj(self.final_norm(tokens))
+        out = apply_full(mp, self.final_proj, self.final_norm(tokens))
+        out = gather_output(mp, self.final_proj, out)
         return out.reshape(batch, self.latent_dim).float()

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinydiffusion_torch.parallel.mesh import all_reduce_sum, apply_full
+from tinydiffusion_torch.parallel.mesh import all_reduce_sum, apply_full, gather_last
 
 
 class FlaxDtype:
@@ -384,7 +384,15 @@ class LayerNorm(FlaxDtype, nn.LayerNorm):
     float32 with flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, then
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, returned in
     ``dtype``, as a flax module of that dtype does. x enters float32 twice,
-    as in ``_flax_train_batch_norm``."""
+    as in ``_flax_train_batch_norm``.
+
+    On the model axis (its scale and bias split, and its input this rank's
+    features) the statistics need the whole width: the float32 input is
+    gathered for them (``gather_last``; the backward sums each rank's
+    float32 partial gradient over the axis), and this rank's features are
+    normalised with its slices of scale and bias."""
+
+    model_parallel = None  # as ConvBNRelu's
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=1e-5)
@@ -392,6 +400,8 @@ class LayerNorm(FlaxDtype, nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xs = x.float()
+        if self.model_parallel is not None and self.weight.shape[0] < self.normalized_shape[0]:
+            xs = gather_last(self.model_parallel, xs, reduce=True)
         mean = xs.mean(-1, keepdim=True)
         var = ((xs * xs).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()

@@ -19,18 +19,22 @@ device) goes to each train step, which then
 The ``model`` axis is tensor parallelism (``make_mesh``, ``Mesh``): JAX's
 ``infer_state_sharding`` shards every float leaf on its last dimension where
 the axis divides it, and GSPMD derives the collectives. Here
-``infer_state_sharding`` names each tensor's sharded torch dimension (flax's
-last: dim 0 of a conv or linear weight, of a bias and of the BatchNorm
-vectors; dim 1 of an embedding), ``apply_sharding`` keeps each rank's slice,
-and a sharded model (the UNet28) makes each layer's input whole with
-``to_full`` before it computes its slice of output channels: an all-gather
-whose backward reduce-scatters the partial input gradients of a sharded
-consumer, and only takes its own slice for a replicated one (whose gradient
-is already whole on every model rank). A tensor left whole (the one-channel
-head) has its gradient computed on every model rank; the step averages it
-over the axis (``average_replicated_grads_``), so that the copies stay
-equal where a card's backward is not deterministic. ``gather_state_dict``
-makes the sharded state whole again for a checkpoint.
+``infer_state_sharding`` names, for each tensor, the torch dimension of
+flax's last one (dim 0 of a conv or linear weight, of a bias and of the
+norms' vectors; dim 1 of an embedding; the last of a parameter kept in
+flax's layout, the DiT's ``pos_encoding``), or a ``HeadSplit`` where flax
+keeps that dimension as (heads, head_dim) and JAX splits head_dim (the
+DiT's query, key and value); ``apply_sharding`` keeps each rank's slice.
+A sharded model (the UNet28, the MLP UNet, the DiT) makes each layer's
+input whole with ``to_full`` before it computes its slice of output
+features: an all-gather whose backward reduce-scatters the partial input
+gradients of a sharded consumer, and only takes its own slice for a
+replicated one (whose gradient is already whole on every model rank).
+A tensor left whole (the UNet28's one-channel head) has its gradient
+computed on every model rank; the step averages it over the axis
+(``average_replicated_grads_``), so that the copies stay equal where a
+card's backward is not deterministic. ``gather_state_dict`` makes the
+sharded state whole again for a checkpoint.
 
 The collectives are plain ``torch.distributed`` calls on the current
 stream, so a step captured in a CUDA graph captures them too (NCCL supports
@@ -270,28 +274,76 @@ def make_mesh(axes: Sequence[str] = ("data", "model"), shape: Sequence[int] | No
 def require_model_axis(model: nn.Module) -> None:
     if not getattr(model, "supports_model_axis", False):
         raise NotImplementedError(
-            f"the model axis is ported for the UNet28 train step (unconditional and "
-            f"class-conditional); {type(model).__name__} takes the data axis only")
+            f"the model axis is ported for the UNet28 (unconditional and class-conditional), "
+            f"the MLP UNet and the DiT; {type(model).__name__} takes the data axis only")
 
 
-def _sharded_dim(module: nn.Module, attr: str) -> int:
-    """The torch dimension of flax's last one for ``module.<attr>``."""
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """A split of torch dimension ``dim`` that flax keeps as (heads,
+    head_dim) and JAX splits on head_dim: each rank holds head_dim / m of
+    every head, a strided slice in torch's layout (a DiT query, key or value
+    weight: flax's (D, heads, head_dim) kernel, torch's (heads * head_dim, D)
+    weight)."""
+
+    dim: int
+    heads: int
+
+
+def _dim_groups(spec: int | HeadSplit) -> tuple[int, int]:
+    return (spec.dim, spec.heads) if isinstance(spec, HeadSplit) else (spec, 1)
+
+
+def shard_of(tensor: torch.Tensor, spec: int | HeadSplit, rank: int, size: int) -> torch.Tensor:
+    """Rank ``rank``'s slice of a whole ``tensor`` split ``spec`` ways over
+    ``size`` ranks: a view."""
+    dim, groups = _dim_groups(spec)
+    grouped = tensor.unflatten(dim, (groups, -1))
+    part = grouped.shape[dim + 1] // size
+    return grouped.narrow(dim + 1, rank * part, part).flatten(dim, dim + 1)
+
+
+def join_shards(parts: Sequence[torch.Tensor], spec: int | HeadSplit) -> torch.Tensor:
+    """The whole tensor of every rank's slice (``shard_of``), in rank order."""
+    dim, groups = _dim_groups(spec)
+    return torch.cat([p.unflatten(dim, (groups, -1)) for p in parts], dim + 1).flatten(dim, dim + 1)
+
+
+def _heads(modules: dict, owner: str) -> int | None:
+    """The head count of a Linear whose output flax keeps as (heads,
+    head_dim): the query, key and value of an attention module (one with
+    ``num_heads``, as ``io.from_jax.jax_variables`` reads it); None
+    elsewhere."""
+    parent, _, own = owner.rpartition(".")
+    heads = getattr(modules.get(parent), "num_heads", None)
+    return heads if heads is not None and own in ("query", "key", "value") else None
+
+
+def _flax_last(modules: dict, owner: str, attr: str, tensor: torch.Tensor) -> int | HeadSplit:
+    """The torch dimension (or head split) of flax's last one for
+    ``<owner>.<attr>``."""
+    module, heads = modules[owner], _heads(modules, owner)
     if isinstance(module, nn.Embedding):
         return 1
+    if isinstance(module, nn.Linear) and heads is not None:
+        return HeadSplit(0, heads)
     if isinstance(module, (nn.Conv2d, nn.Linear, nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
         return 0
+    if attr in module._parameters:  # a module's own parameter, in flax's layout
+        return tensor.dim() - 1
     raise NotImplementedError(f"no model-axis rule for {type(module).__name__}.{attr}: the axis "
-                              "is ported for Conv2d, Linear, Embedding and the norms")
+                              "is ported for Conv2d, Linear, Embedding, the norms and "
+                              "parameters in flax's layout")
 
 
-def infer_state_sharding(model: nn.Module, mesh: Mesh | int) -> dict[str, int | None]:
+def infer_state_sharding(model: nn.Module, mesh: Mesh | int) -> dict[str, int | HeadSplit | None]:
     """JAX's ``infer_state_sharding`` in torch's layout: for each tensor of
-    ``model.state_dict()``, the dimension it is split on over the model
-    axis, or None (replicated). A float tensor is split on flax's last
-    dimension where that size is at least the axis size and divisible by it;
-    everything else is replicated, and everything at size 1. Adam's moments
-    and an EMA shadow follow their parameter's entry. ``mesh`` may be the
-    axis size."""
+    ``model.state_dict()``, how it is split over the model axis (a torch
+    dimension, or a ``HeadSplit``), or None (replicated). A float tensor is
+    split on flax's last dimension where that size is at least the axis
+    size and divisible by it; everything else is replicated, and everything
+    at size 1. Adam's moments and an EMA shadow follow their parameter's
+    entry. ``mesh`` may be the axis size."""
     m = mesh if isinstance(mesh, int) else mesh.model.size
     if m > 1:
         require_model_axis(model)
@@ -302,18 +354,19 @@ def infer_state_sharding(model: nn.Module, mesh: Mesh | int) -> dict[str, int | 
         if m == 1 or not tensor.is_floating_point() or tensor.dim() == 0:
             out[name] = None
             continue
-        dim = _sharded_dim(modules[owner], attr)
-        size = tensor.shape[dim]
-        out[name] = dim if size >= m and size % m == 0 else None
+        spec = _flax_last(modules, owner, attr, tensor)
+        dim, groups = _dim_groups(spec)
+        size = tensor.shape[dim] // groups
+        out[name] = spec if size >= m and size % m == 0 else None
     return out
 
 
-def apply_sharding(model: nn.Module, shardings: dict[str, int | None], mesh: Mesh,
+def apply_sharding(model: nn.Module, shardings: dict[str, int | HeadSplit | None], mesh: Mesh,
                    state_dict: dict[str, torch.Tensor] | None = None) -> nn.Module:
     """Keep this rank's slice of every sharded tensor of ``model``, in place,
     and point the model at the model axis (its forward then makes each
     layer's input whole, ``to_full``). ``state_dict``, a whole one (the
-    converter's ``io.from_jax.unet28_state_dict`` of JAX weights, say), is
+    converter's ``io.from_jax.state_dict_by_name`` of JAX weights, say), is
     loaded first. Build the optimizer and the EMA after this: they then hold
     only this rank's shards. Each parameter left whole is marked
     (``average_replicated_grads_``). Returns ``model``."""
@@ -326,16 +379,15 @@ def apply_sharding(model: nn.Module, shardings: dict[str, int | None], mesh: Mes
         model.load_state_dict(state_dict)
     modules = dict(model.named_modules())
     with torch.no_grad():
-        for name, dim in shardings.items():
+        for name, spec in shardings.items():
             owner, _, attr = name.rpartition(".")
-            if dim is None:
+            if spec is None:
                 if mp.size > 1 and attr in modules[owner]._parameters:
                     modules[owner]._parameters[attr].replicated = True
                 continue
             module = modules[owner]
             tensor = getattr(module, attr)
-            part = tensor.shape[dim] // mp.size
-            piece = tensor.narrow(dim, mp.rank * part, part).clone()
+            piece = shard_of(tensor, spec, mp.rank, mp.size).clone()
             if attr in module._parameters:
                 module._parameters[attr] = nn.Parameter(piece, tensor.requires_grad)
             else:
@@ -353,28 +405,35 @@ def average_replicated_grads_(mp: ModelParallel | None, model: nn.Module) -> Non
     same whole inputs, but a card's backward need not give the same bits
     twice (cuDNN's weight gradients are not deterministic): the mean keeps
     the copies equal step after step."""
-    if mp is not None:
-        mp.all_reduce_grads_([p for p in model.parameters() if getattr(p, "replicated", False)])
+    replicated = [p for p in model.parameters() if getattr(p, "replicated", False)]
+    if mp is not None and replicated:
+        mp.all_reduce_grads_(replicated)
 
 
-def gather_state_dict(tensors: dict[str, torch.Tensor], shardings: dict[str, int | None],
+def gather_state_dict(tensors: dict[str, torch.Tensor],
+                      shardings: dict[str, int | HeadSplit | None],
                       mesh: Mesh) -> dict[str, torch.Tensor]:
     """The whole tensors of a sharded ``tensors`` (a state dict, or an EMA
     shadow by parameter name): every sharded one gathered over the model
     axis, on every rank of it. Every rank must call it."""
     out = {}
     for name, tensor in tensors.items():
-        dim = shardings.get(name)
-        if dim is None or mesh.model.size == 1:
+        spec = shardings.get(name)
+        if spec is None or mesh.model.size == 1:
             out[name] = tensor.detach().clone()
             continue
-        parts = mesh.model.all_gather(tensor.detach().movedim(dim, -1))
-        out[name] = torch.cat(parts, -1).movedim(-1, dim).contiguous()
+        out[name] = join_shards(mesh.model.all_gather(tensor.detach()), spec).contiguous()
     return out
 
 
 def _in_width(layer: nn.Module) -> int:
     return layer.in_channels if isinstance(layer, nn.Conv2d) else layer.in_features
+
+
+def _feature_dim(layer: nn.Module) -> int:
+    """The dimension of a layer's input and output features: 1 of an NCHW
+    conv's, the last of a linear's (B, D) or (B, S, D)."""
+    return 1 if isinstance(layer, nn.Conv2d) else -1
 
 
 def out_sharded(layer: nn.Module) -> bool:
@@ -384,39 +443,54 @@ def out_sharded(layer: nn.Module) -> bool:
     return layer.weight.shape[0] < whole
 
 
+def _rank_slices(x: torch.Tensor, groups: int, size: int) -> list[torch.Tensor]:
+    """Each rank's slice of a whole last dimension that ``_interleave`` built."""
+    grouped = x.unflatten(-1, (groups, size, -1))
+    return [grouped.select(-2, r).flatten(-2) for r in range(size)]
+
+
+def _interleave(pieces: list[torch.Tensor], groups: int) -> torch.Tensor:
+    """The whole last dimension of every rank's slice of it, in rank order:
+    of each of ``groups`` groups, rank 0's part, rank 1's, ..."""
+    return torch.cat([p.unflatten(-1, (groups, -1)) for p in pieces], -1).flatten(-2)
+
+
 class _ToFull(torch.autograd.Function):
-    """The whole channels (dim 1) of ``parts`` concatenated in their global
-    order ``[part 0 of ranks 0..m-1, part 1 of ranks 0..m-1, ...]``: one
-    all-gather. Backward: the incoming gradient cut back into each rank's
-    slices, then summed over the model axis when the consumer is sharded
-    (each rank's gradient there is partial: a reduce-scatter) or only taken
-    when it is replicated (each rank's gradient is already whole)."""
+    """The whole features (dimension ``dim``) of ``parts`` concatenated in
+    their global order ``[part 0 of ranks 0..m-1, part 1 of ranks 0..m-1,
+    ...]``: one all-gather. With ``groups`` > 1 each part is a head split
+    (``HeadSplit``): of each group, every rank's slice in rank order.
+    Backward: the incoming gradient cut back into each rank's slices, then
+    summed over the model axis when the consumer is sharded (each rank's
+    gradient there is partial: a reduce-scatter) or only taken when it is
+    replicated (each rank's gradient is already whole)."""
 
     @staticmethod
-    def forward(ctx, mp: ModelParallel, reduce: bool, float32: bool,
+    def forward(ctx, mp: ModelParallel, reduce: bool, float32: bool, dim: int, groups: int,
                 *parts: torch.Tensor) -> torch.Tensor:
-        ctx.mp, ctx.reduce = mp, reduce
-        ctx.widths = [p.shape[1] for p in parts]
-        local = torch.cat([p.movedim(1, -1) for p in parts], -1)
+        ctx.mp, ctx.reduce, ctx.dim, ctx.groups = mp, reduce, dim, groups
+        ctx.widths = [p.shape[dim] for p in parts]
+        local = torch.cat([p.movedim(dim, -1) for p in parts], -1)
         gathered = [g.split(ctx.widths, -1) for g in mp.all_gather(local)]
-        whole = torch.cat([g[k] for k in range(len(parts)) for g in gathered], -1)
+        whole = torch.cat([_interleave([g[k] for g in gathered], groups)
+                           for k in range(len(parts))], -1)
         # float32: the whole input upcast (exact), so that its gradient, the
         # consumer's float32 partials, reaches the backward unrounded.
-        return whole.movedim(-1, 1).float() if float32 else whole.movedim(-1, 1)
+        return whole.movedim(-1, dim).float() if float32 else whole.movedim(-1, dim)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         mp, widths = ctx.mp, ctx.widths
-        grad = grad.movedim(1, -1)
-        blocks = grad.split([w * mp.size for w in widths], -1)
-        per_rank = [torch.cat([b.split(w, -1)[r] for b, w in zip(blocks, widths)], -1)
-                    for r in range(mp.size)]
+        grad = grad.movedim(ctx.dim, -1)
+        blocks = [_rank_slices(b, ctx.groups, mp.size)
+                  for b in grad.split([w * mp.size for w in widths], -1)]
+        per_rank = [torch.cat([b[r] for b in blocks], -1) for r in range(mp.size)]
         if ctx.reduce:
             # Summed in float32: a bfloat16 activation's m partials round once.
             mine = mp.reduce_scatter([p.float() for p in per_rank]).to(grad.dtype)
         else:
             mine = per_rank[mp.rank]
-        return (None, None, None, *[g.movedim(-1, 1) for g in mine.split(widths, -1)])
+        return (None,) * 5 + tuple(g.movedim(-1, ctx.dim) for g in mine.split(widths, -1))
 
 
 class _SumGradients(torch.autograd.Function):
@@ -437,20 +511,43 @@ class _SumGradients(torch.autograd.Function):
 def to_full(mp: ModelParallel | None, consumer: nn.Module, *parts: torch.Tensor,
             float32: bool = False) -> torch.Tensor:
     """The input of ``consumer`` (a Conv2d or Linear) made whole on the model
-    axis: ``parts`` (this rank's channels of each, or whole ones) concatenated
-    on dim 1 in their global order. One process, or whole parts: the plain
+    axis: ``parts`` (this rank's features of each, or whole ones)
+    concatenated on the feature dimension (1 of a conv's NCHW, the last of a
+    linear's) in their global order. One process, or whole parts: the plain
     concatenation."""
-    width = sum(p.shape[1] for p in parts)
+    dim = _feature_dim(consumer)
+    width = sum(p.shape[dim] for p in parts)
     if mp is None:
-        return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
     sharded = out_sharded(consumer)
     if width == _in_width(consumer):
-        x = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
         return _SumGradients.apply(x, mp, float32) if sharded and x.requires_grad else x
     if width * mp.size != _in_width(consumer):
-        raise ValueError(f"an input of {width} channels on {mp.size} model ranks for a layer of "
+        raise ValueError(f"an input of {width} features on {mp.size} model ranks for a layer of "
                          f"{_in_width(consumer)}")
-    return _ToFull.apply(mp, sharded, float32 and sharded, *parts)
+    return _ToFull.apply(mp, sharded, float32 and sharded, dim, 1, *parts)
+
+
+def gather_last(mp: ModelParallel | None, *parts: torch.Tensor, reduce: bool = False,
+                heads: int = 1) -> torch.Tensor:
+    """This rank's slices of the last dimension of ``parts`` made whole and
+    concatenated (``_ToFull``): a head split of ``heads`` heads when
+    ``heads`` > 1. ``reduce``: the whole tensor's consumer is sharded (its
+    gradient on each rank is partial, and is summed over the axis);
+    otherwise the consumer runs whole on every rank (a softmax over whole
+    heads, the loss) and each rank's gradient is its slice of a whole one.
+    One process: the concatenation."""
+    if mp is None:
+        return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+    return _ToFull.apply(mp, reduce, False, -1, heads, *parts)
+
+
+def gather_output(mp: ModelParallel | None, layer: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """The whole output of ``layer`` (a linear) from this rank's features of
+    it, for a consumer that runs whole on every model rank (the loss):
+    ``y`` itself where the layer is replicated or on one process."""
+    return y if mp is None or not out_sharded(layer) else gather_last(mp, y)
 
 
 class _Float32InputGrad(torch.autograd.Function):
@@ -490,15 +587,27 @@ def _affine(layer: nn.Module, x: torch.Tensor, weight: torch.Tensor,
     return flax_affine(layer, x, weight, bias, dtype)
 
 
+def apply_full_each(mp: ModelParallel | None, consumers: Sequence[nn.Module],
+                    *parts: torch.Tensor) -> list[torch.Tensor]:
+    """Each of ``consumers`` (layers of one input width, all sharded or all
+    whole) on the input ``to_full`` makes whole once. For a bfloat16
+    consumer (its ``dtype``) on a model axis, a sharded consumer computes
+    its input gradient in float32 and the model axis sums those float32
+    partials, rounding to the activations' dtype once after the sum: JAX's
+    GSPMD step feeds each of its (float32) all-reduces from a float32
+    convolution of the bf16 operands."""
+    first = consumers[0]
+    if mp is not None and len({out_sharded(c) for c in consumers}) > 1:
+        raise ValueError("consumers of one gathered input must all be sharded or all whole")
+    low = mp is not None and first.dtype != torch.float32
+    if not (low and out_sharded(first) and torch.is_grad_enabled()):
+        x = to_full(mp, first, *parts)
+        return [c(x) for c in consumers]
+    x = to_full(mp, first, *parts, float32=True)
+    return [_Float32InputGrad.apply(x, c.weight, c.bias, c) for c in consumers]
+
+
 def apply_full(mp: ModelParallel | None, consumer: nn.Module, *parts: torch.Tensor) -> torch.Tensor:
-    """``consumer(to_full(mp, consumer, *parts))``. For a bfloat16 consumer
-    (its ``dtype``) on a model axis, a sharded consumer computes its input
-    gradient in float32 and the model axis sums those float32 partials,
-    rounding to the activations' dtype once after the sum: JAX's GSPMD step
-    feeds each of its (float32) all-reduces from a float32 convolution of
-    the bf16 operands."""
-    low = mp is not None and consumer.dtype != torch.float32
-    if not (low and out_sharded(consumer) and torch.is_grad_enabled()):
-        return consumer(to_full(mp, consumer, *parts))
-    x = to_full(mp, consumer, *parts, float32=True)
-    return _Float32InputGrad.apply(x, consumer.weight, consumer.bias, consumer)
+    """``consumer(to_full(mp, consumer, *parts))``, with the float32 input
+    gradient of ``apply_full_each`` in bfloat16."""
+    return apply_full_each(mp, (consumer,), *parts)[0]

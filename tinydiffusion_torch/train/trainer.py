@@ -40,20 +40,23 @@ too); the fused q_sample draws its rows of the global stream
 reduced over the group in one collective before the clip and the optimizer.
 On a card the collectives are captured in the step's CUDA graph.
 
-The pixel-space steps (``make_train_step``, ``make_resident_multi_step``)
-also take a ``mesh`` (``parallel.mesh.make_mesh``): its data axis is ``dp``,
-and its model axis runs the UNet28 tensor-parallel, the state sharded by
-``parallel.mesh.apply_sharding`` (JAX's ``state_sharding``). The draws, the
-q_sample rows and the loss are the data row's, the same on every model
-rank; the gradients of sharded and replicated parameters alike are reduced
-over the data axis, and a replicated parameter's are first averaged over the
-model axis, so that its copies stay equal. Any other model on a model axis
-of more than one rank raises.
+The generic steps (``make_train_step``, ``make_resident_multi_step``: NCHW
+images, or (B, D) latents as JAX's ``make_train_step`` takes them) also take
+a ``mesh`` (``parallel.mesh.make_mesh``): its data axis is ``dp``, and its
+model axis runs the model tensor-parallel (the UNet28, the MLP UNet, the
+DiT), the state sharded by ``parallel.mesh.apply_sharding`` (JAX's
+``state_sharding``). The draws, the q_sample rows and the loss are the data
+row's, the same on every model rank; the gradients of sharded and
+replicated parameters alike are reduced over the data axis, and a
+replicated parameter's are first averaged over the model axis, so that its
+copies stay equal. Any other model on a model axis of more than one rank
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -217,9 +220,9 @@ def _step_body(
     dp: DataParallel | None = None,
     mesh: Mesh | None = None,
 ) -> Callable:
-    """``body(state, x0, y=None, t=None, noise=None, keep=None) -> loss``:
-    one step's device work, without the host's ``state.step`` count, so that
-    a CUDA graph can capture it."""
+    """``body(state, x0, y=None, t=None, noise=None, keep=None, masks=None)
+    -> loss``: one step's device work, without the host's ``state.step``
+    count, so that a CUDA graph can capture it."""
     if mesh is not None:
         if dp is not None:
             raise ValueError("give the data axis as dp or in the mesh, not both")
@@ -231,17 +234,21 @@ def _step_body(
         raise ValueError(f"compute dtype {compute_dtype} is not float32 or bfloat16")
     if label_dropout > 0 and (not conditional or null_label is None):
         raise ValueError("label_dropout requires conditional=True and a null_label")
+    checked = weakref.WeakSet()  # the models seen sharded on the mesh
 
     def body(state: DiffusionTrainState, x0: torch.Tensor, y=None, t=None, noise=None,
-             keep=None):
+             keep=None, masks=None):
         model = state.model
-        if mp is not None:
+        if mp is not None and model not in checked:
             check_model_axis(model, mesh)
+            checked.add(model)
         model.train()
         sync_batch_norm_(model, dp)
         if conditional and y is None:
             raise ValueError("a conditional step needs labels y")
         n = global_batch(dp, x0.shape[0])
+        # The draws in JAX's split order (t_key, noise_key, drop_key,
+        # ldrop_key), all from the state's generator on the device.
         if t is None:
             t = torch.randint(0, schedule.num_timesteps, (n,), generator=state.generator,
                               device=x0.device)
@@ -250,11 +257,11 @@ def _step_body(
             noise = shard(dp, noise)
             x_t = q_sample_with_noise(schedule, x0, t, noise)
         else:
-            # After t, from the same generator (JAX: t_key, then noise_key):
-            # a device value that the kernel reads, never the host.
+            # A device value that the kernel reads, never the host.
             seed = torch.randint(0, 2**31 - 1, (), generator=state.generator,
                                  device=x0.device)
             x_t, noise = q_sample_fused(schedule, x0, t, seed, row_offset(dp, x0.shape[0]))
+        options = _dropout_options(model, masks, n, state.generator, dp)
         if label_dropout > 0:
             # JAX's bernoulli(1 - p): a label is kept where its uniform
             # falls below 1 - p, and becomes the null class elsewhere.
@@ -264,7 +271,7 @@ def _step_body(
             y = y.masked_fill(~shard(dp, keep), null_label)
         args = (y,) if conditional else ()
         with computing_in(model, compute_dtype):
-            out = model(x_t, t, *args)
+            out = model(x_t, t, *args, **options)
         target = v_from_eps(schedule, x0, noise, t) if prediction == "v" else noise
         loss = F.mse_loss(out.float(), target)
         state.optimizer.zero_grad(set_to_none=True)
@@ -277,6 +284,22 @@ def _step_body(
         return loss
 
     return body
+
+
+def _dropout_options(model: nn.Module, masks, n: int, generator: torch.Generator,
+                     dp: DataParallel | None) -> dict:
+    """The model's ``dropout_masks`` keyword (the DiT's; {} for a model
+    without them): ``masks``, or the global batch of ``n``'s drawn from
+    ``generator`` (``draw_dropout_masks``), this rank's rows of them. The
+    attention masks (1, 1, S, S) are the batch's; the others (B, S, D) have
+    a row a sample (and a model rank keeps its features of them)."""
+    draw_masks = getattr(model, "draw_dropout_masks", None)
+    if draw_masks is None:
+        return {}
+    if masks is None:
+        masks = draw_masks(n, generator)
+    return {"dropout_masks": None if masks is None else [
+        (attn, shard(dp, out), shard(dp, ff)) for attn, out, ff in masks]}
 
 
 def check_model_axis(model: nn.Module, mesh: Mesh) -> None:
@@ -311,14 +334,17 @@ def make_train_step(
     mesh: Mesh | None = None,
 ) -> Callable:
     """The train step ``step(state, x0, y=None, t=None, noise=None,
-    keep=None) -> loss``.
+    keep=None, masks=None) -> loss`` (JAX's ``make_train_step``).
 
-    ``x0`` (B, C, H, W) float32 on the model's device, and for a
-    ``conditional`` model its integer labels ``y`` (B,). ``state`` is
-    updated in place; the loss is a 0-d float32 device tensor (reading it
-    syncs). ``t``, ``noise`` and ``keep`` (B,) bool, when given, replace the
-    step's own draws: the seam the tests use to give the port and the JAX
-    package the same step. ``label_dropout`` > 0 replaces each label by
+    ``x0`` (B, C, H, W) float32 images or (B, D) latents on the model's
+    device, and for a ``conditional`` model its integer labels ``y`` (B,).
+    ``state`` is updated in place; the loss is a 0-d float32 device tensor
+    (reading it syncs). The draws come from ``state.generator`` in JAX's
+    order: t, the q_sample seed, the DiT's dropout masks
+    (``draw_dropout_masks``, where the model has them), the kept labels.
+    ``t``, ``noise``, ``masks`` (the ``draw_dropout_masks`` layout) and
+    ``keep`` (B,) bool, when given, replace them: the seam the tests use to
+    give the port and the JAX package the same step. ``label_dropout`` > 0 replaces each label by
     ``null_label`` where ``keep`` is False (drawn as JAX's Bernoulli of
     1 - ``label_dropout``). ``compute_dtype=torch.bfloat16`` runs the
     model in bfloat16 as flax's ``dtype=`` does (``nn.layers.computing_in``);
@@ -333,8 +359,8 @@ def make_train_step(
                       label_dropout, null_label, dp, mesh)
 
     def step(state: DiffusionTrainState, x0: torch.Tensor, y=None, t=None, noise=None,
-             keep=None):
-        loss = body(state, x0, y, t, noise, keep)
+             keep=None, masks=None):
+        loss = body(state, x0, y, t, noise, keep, masks)
         state.step += 1
         return loss
 
@@ -478,14 +504,16 @@ def make_resident_multi_step(
     mesh: Mesh | None = None,
 ) -> Callable:
     """Train over a resident dataset: ``step(state, idxs, t=None,
-    noise=None, keep=None) -> losses`` (``make_resident_steps``).
+    noise=None, keep=None, masks=None) -> losses`` (``make_resident_steps``).
 
-    Each of the K steps gathers its uint8 batch (NHWC, as in JAX) and, for a
-    ``conditional`` model, its label row from ``dataset``, normalises it
-    inside the step and runs ``make_train_step``'s per-batch logic: the same
-    draws (t, the q_sample seed and the label dropout), in the same order,
-    as the host path. On the CPU ``t`` (K, B), ``noise`` (K, B, C, H, W) and
-    ``keep`` (K, B) may replace them. With ``dp``, ``idxs`` are this rank's
+    Each of the K steps gathers its uint8 batch (NHWC images, as in JAX, or
+    (N, D) rows, normalised to (B, D) latents) and, for a ``conditional``
+    model, its label row from ``dataset``, normalises it inside the step and
+    runs ``make_train_step``'s per-batch logic: the same draws (t, the
+    q_sample seed, the DiT's dropout masks and the label dropout), in the
+    same order, as the host path. On the CPU ``t`` (K, B), ``noise`` (K, B,
+    ...), ``masks`` (K of the ``draw_dropout_masks`` layout) and ``keep``
+    (K, B) may replace them. With ``dp``, ``idxs`` are this rank's
     columns of the epoch's index batches; ``mesh`` as in ``make_train_step``
     (every model rank of a data row takes the same columns).
     """
@@ -494,9 +522,11 @@ def make_resident_multi_step(
     body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
                       label_dropout, null_label, dp, mesh)
 
-    def batch_step(state, batch, t=None, noise=None, keep=None):
+    def batch_step(state, batch, t=None, noise=None, keep=None, masks=None):
         x0, y = batch if conditional else (batch, None)
-        return body(state, x0.permute(0, 3, 1, 2), y, t, noise, keep)  # NCHW: C = 1, a view
+        if x0.dim() == 4:
+            x0 = x0.permute(0, 3, 1, 2)  # NCHW: C = 1, a view
+        return body(state, x0, y, t, noise, keep, masks)
 
     return make_resident_steps(dataset, batch_step)
 
@@ -639,15 +669,7 @@ def _latent_step_body(vae: nn.Module, schedule: DiffusionSchedule, ema_decay: fl
         else:
             seed = torch.randint(0, 2**31 - 1, (), generator=gen, device=z0.device)
             z_t, noise = q_sample_fused(schedule, z0, t, seed, row_offset(dp, z0.shape[0]))
-        options = {}
-        draw_masks = getattr(model, "draw_dropout_masks", None)  # the DiT's
-        if draw_masks is not None:
-            if masks is None:
-                masks = draw_masks(n, gen)
-            # The attention masks (1, 1, S, S) are the batch's; the others
-            # (B, S, D) have a row a sample.
-            options["dropout_masks"] = None if masks is None else [
-                (attn, shard(dp, out), shard(dp, ff)) for attn, out, ff in masks]
+        options = _dropout_options(model, masks, n, gen, dp)
         with computing_in(model, compute_dtype):
             out = model(z_t, t, y, **options)
         target = v_from_eps(schedule, z0, noise, t) if prediction == "v" else noise
