@@ -713,6 +713,7 @@ LOADER_PILLOW = os.path.join(REPO, "tests", "fixtures", "laion_loader_pillow.jso
 # Fixtures at a web image's size (512², ~183 KiB each), fetched cold for the
 # loader's rate.
 LOADER_WEB_FIXTURES = ("laion_loader_512_progressive.jpg", "laion_loader_512_lossy.webp")
+LOADER_JP2_512 = "laion_loader_512.jp2"
 LAION_TRAIN_STEPS, LAION_VAL_BATCHES = 80, 20
 # laion_parity: resident_parity's graph-vs-eager check on 10 LAION steps (B = 8, caption
 # dropout 0.1, EMA) from the committed weights, one step a call so that the
@@ -2889,8 +2890,10 @@ def phase_laion_loader() -> dict:
     fixture's decode and resize against Pillow's (``LOADER_PILLOW``: JPEG
     baseline, progressive and CMYK, PNG RGBA, Adam7 and 16-bit grey, GIF,
     BMP, WebP lossless and lossy, TIFF of every compression the loader reads
-    (tiles, planar and big-endian ones too), ICO and CUR; each decode timed,
-    512² ones included, and held to the plain decoders byte for byte), the
+    (tiles, planar and big-endian ones too), ICO and CUR, JPEG 2000 (JP2 and
+    J2K, both wavelets, every progression order, the modes Pillow writes);
+    each decode timed, 512² ones included, and held to the plain decoders
+    byte for byte where there are any), the
     failed-URL JSON, a warm re-read by a second instance (each record
     the decode of its cache file), and the cold ``precache_dataset`` time
     of the two 512² fixtures (``LOADER_WEB_FIXTURES``) served over the same
@@ -3007,6 +3010,10 @@ def phase_laion_loader() -> dict:
               "fixtures_matched": len(fixtures), "digests": digests, "decode_s": decode_s,
               "plain_decode_s": plain_decode_s,
               "web_decode_s": {k: decode_s[k] for k in LOADER_WEB_FIXTURES},
+              # A 512² JPEG 2000 (9/7, 12:1) beside the 512² JPEG and WebP.
+              "jp2_512_decode_s": decode_s[LOADER_JP2_512],
+              "jpeg2000_decode_s": {k: v for k, v in decode_s.items()
+                                    if k.endswith((".jp2", ".j2k"))},
               "web_plain_decode_s": {k: plain_decode_s[k] for k in LOADER_WEB_FIXTURES},
               "web_precache_s": web_precache_s,
               "web_records_per_s": len(LOADER_WEB_FIXTURES) / web_precache_s}
@@ -3327,7 +3334,17 @@ def phase_dp() -> dict:
 # cuDNN's nondeterminism; bfloat16 rounds each layer's partial input
 # gradients once more (~4e-3 a rounding), and 0.1 is the relative gap at
 # which a cosine falls to ~0.995. A gather that sums the head's whole
-# gradient doubles every gradient above it: a gap of ~1.
+# gradient doubles every gradient above it: a gap of ~1. The one-process
+# step computes each conv and dense product as the ranks do, in their output
+# slices (``_shard_width_products``): cuDNN picks its algorithms by the
+# problem's shape and layout, so a rank's half-width conv rounds otherwise
+# than the whole one; the LatentUNet from its trained weights at B = 8
+# turned that into a 4 % gradient gap and a first-update cosine of 0.9877 in
+# bfloat16 against the plain one-process step, and the one-process step with
+# sliced products alone does the same (PERF.md §6); in float32 the
+# slices' summation orders alone parted a conv weight's gradient behind a
+# BatchNorm by up to 2.2e-3. ``shard_width_reference`` reports the plain
+# one-process step's gap to the sliced one.
 TP_STEPS, TP_BATCH, TP_LR = 5, 128, 1e-3
 TP_DTYPES = ("float32", "bfloat16")
 TP_GRAD_RTOL = {"float32": 1e-3, "bfloat16": 1e-1}
@@ -3339,8 +3356,14 @@ TP_GRAD_FLOOR = 1e-2
 # steps and bounds as the UNet28's: every tensor of both splits two ways,
 # so none is left whole. Then one DiT step with q, k and v split
 # contiguously by head (whole heads to a rank, where JAX splits head_dim):
-# the gradient check must catch it.
-TP_LATENT_MODELS = ("mlp_unet", "dit")
+# the gradient check must catch it. And the LAION text-conditional
+# LatentUNet from laion_diffusion_1000ep at its full width (time_dim 768,
+# base width 32, (B, 4, 32, 32) latents, the recipe's B = 8, the hash
+# encoder's (B, 768) context as y; its 4-channel head splits two ways too),
+# with one float32 step whose head gather sums the loss's whole gradient
+# over the axis (each rank's is whole already), which the check must catch.
+TP_LATENT_MODELS = ("mlp_unet", "dit", "latent_unet")
+TP_LAION_BATCH = 8
 
 
 def _tp_batches() -> np.ndarray:
@@ -3348,9 +3371,17 @@ def _tp_batches() -> np.ndarray:
     return rng.uniform(-1, 1, (TP_STEPS, TP_BATCH, 1, 28, 28)).astype(np.float32)
 
 
-def _tp_latent_batches() -> list[tuple[np.ndarray, np.ndarray]]:
-    """TP_STEPS (latents, labels) batches: N(0, 1) latents, as the VAE's."""
+def _tp_latent_batches(name: str) -> list[tuple[np.ndarray, np.ndarray]]:
+    """TP_STEPS batches of ``name``'s data arguments: N(0, 1) latents, as the
+    VAE's, and labels; for the LatentUNet (B, 4, 32, 32) N(0, 1) latents and
+    the hash encoder's contexts of synthetic captions."""
     rng = np.random.default_rng(SEED + 62)
+    if name == "latent_unet":
+        encoder = text_encoder.get_text_encoder("hash", 768)
+        return [(rng.standard_normal((TP_LAION_BATCH, 4, 32, 32)).astype(np.float32),
+                 encoder.encode([synthesize_caption(int(i))
+                                 for i in rng.integers(0, 1000, TP_LAION_BATCH)]))
+                for _ in range(TP_STEPS)]
     return [(rng.standard_normal((TP_BATCH, 20)).astype(np.float32),
              rng.integers(0, 10, TP_BATCH)) for _ in range(TP_STEPS)]
 
@@ -3359,7 +3390,7 @@ def _tp_latent_model(name: str):
     from tinydiffusion_torch.models.dit import DiT
     from tinydiffusion_torch.models.mlp_unet import MLPUNetLatent
 
-    return DiT() if name == "dit" else MLPUNetLatent()
+    return {"dit": DiT, "mlp_unet": MLPUNetLatent, "latent_unet": LatentUNet}[name]()
 
 
 def _gather_adam(optimizer, model, shardings, mesh) -> dict:
@@ -3382,6 +3413,113 @@ def _grad_gap(got: dict, want: dict) -> tuple[float, str, float]:
     ratio = _flat(got[n].double() for n in want).norm() / _flat(
         want[n].double() for n in want).norm()
     return gap, leaf, ratio.item()
+
+
+class _ShardWidthProduct(torch.autograd.Function):
+    """A conv's or dense's product in the one-process reference step, computed
+    as the model axis's ranks compute theirs: in ``parts`` output slices, each
+    on a channels-last input where the ranks read a gathered one (every input
+    the model made, not the data), concatenated; backward, each slice's
+    weight gradient, and the input gradient as the sum of the slices'
+    partials (in float32 for a low-precision product, as the ranks'
+    ``apply_full`` sums them). cuDNN picks its algorithms by the problem's
+    shape and layout, and its sums round by them: a 64-channel 32 x 32
+    bfloat16 conv at half width rounds 1.8e-4 of its outputs one ulp apart
+    from the whole one (an H100 80GB HBM3 at 700 W), which a trained model
+    at a small batch amplifies into its gradients. The slices are the
+    plain model's products: no gather, scatter or rule of the model axis
+    runs here."""
+
+    @staticmethod
+    def forward(ctx, x, weight, product, parts, dim):
+        if x.dim() == 4 and x.requires_grad:
+            x = x.contiguous(memory_format=torch.channels_last)
+        ctx.save_for_backward(x, weight)
+        ctx.product, ctx.parts, ctx.dim = product, parts, dim
+        return torch.cat([product(x, w) for w in weight.chunk(parts, 0)], dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        product, needs_x, needs_w = ctx.product, *ctx.needs_input_grad[:2]
+        low = x.dtype != torch.float32
+        dx, dws = None, []
+        for w, g in zip(weight.chunk(ctx.parts, 0), grad.chunk(ctx.parts, ctx.dim)):
+            with torch.enable_grad():
+                if needs_w:
+                    leaf = w.detach().requires_grad_()
+                    dws.append(torch.autograd.grad(product(x.detach(), leaf), leaf, g)[0])
+                if needs_x:
+                    xs = (x.detach().float() if low else x.detach()).requires_grad_()
+                    out = product(xs, w.detach().float() if low else w.detach())
+                    part = torch.autograd.grad(out, xs, g.float() if low else g)[0]
+                    dx = part if dx is None else dx + part
+        return (dx.to(x.dtype) if needs_x else None, torch.cat(dws, 0) if needs_w else None,
+                None, None, None)
+
+
+@contextlib.contextmanager
+def _shard_width_products(parts: int):
+    """Every ``nn.layers`` conv and dense product of the block as the model
+    axis's ``parts`` ranks compute it (``_ShardWidthProduct``), where
+    ``parts`` divides the layer's outputs, as ``infer_state_sharding`` splits
+    them; the whole product elsewhere, as the ranks compute a layer left
+    whole."""
+    from tinydiffusion_torch.nn import layers
+
+    saved = {cls: cls.__dict__["product"] for cls in (layers.Conv2d, layers.Linear)}
+    conv_product, linear_product = layers.Conv2d.product, layers.Linear.product
+
+    def sliced(product, x, w, dim):
+        if w.shape[0] % parts:
+            return product(x, w)
+        return _ShardWidthProduct.apply(x, w, product, parts, dim)
+
+    layers.Conv2d.product = lambda self, x, w: sliced(functools.partial(conv_product, self), x, w,
+                                                      1)
+    layers.Linear.product = staticmethod(lambda x, w: sliced(linear_product, x, w, -1))
+    try:
+        yield
+    finally:
+        for cls, product in saved.items():
+            setattr(cls, "product", product)
+
+
+def _shard_width_gap(name: str, dtype: str) -> dict:
+    """One Adam step of ``name`` in one process from its committed weights on
+    the first of its tp batches, its products in two ranks' slices
+    (``_shard_width_products``) against the plain step: the loss's gap, the
+    update's cosine and the gradients' gap (``_grad_gap``), cuDNN
+    deterministic as in ``_tp_rank``."""
+    disable_tf32()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _shard_width_runs(name, dtype)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _shard_width_runs(name: str, dtype: str) -> dict:
+    schedule = DiffusionSchedule.linear(1000).to("cuda")
+    path = LAION_CHECKPOINT if name == "latent_unet" else LATENT_CHECKPOINTS[name]
+    whole = state_dict_by_name(load_weights_arrays(path))
+    args = tuple(torch.from_numpy(a).cuda() for a in _tp_latent_batches(name)[0])
+    runs = []
+    for widths in (contextlib.nullcontext(), _shard_width_products(2)):
+        model = _tp_latent_model(name).cuda()
+        model.load_state_dict(whole)
+        state = create_train_state(model, torch.optim.Adam(model.parameters(), lr=TP_LR), SEED)
+        step = make_train_step(schedule, compute_dtype=getattr(torch, dtype), conditional=True)
+        params0 = _flat(model.parameters()).clone()
+        with widths:
+            loss = step(state, *args).item()
+        runs.append((loss, {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                     (_flat(model.parameters()) - params0).double()))
+    (plain_loss, plain_grads, plain_update), (loss, grads, update) = runs
+    gap, leaf, _ = _grad_gap(grads, plain_grads)
+    return {"loss_rel": abs(loss - plain_loss) / abs(plain_loss),
+            "update_cos": _cos(update, plain_update), "grad_gap": gap, "grad_gap_leaf": leaf}
 
 
 def _tp_new_record() -> dict:
@@ -3425,7 +3563,8 @@ def _tp_run(rank: int, mesh, schedule, make_model, whole: dict, dtype: str, batc
             params0 = _flat(before[n] for n in names)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            into["ref_losses"].append(ref_step(ref_state, *args).item())
+            with _shard_width_products(mesh.model.size):
+                into["ref_losses"].append(ref_step(ref_state, *args).item())
             into["ref_ms"].append((time.perf_counter() - t0) * 1e3)
             ref_update = (_flat(ref.parameters()) - params0).double()
             ref_grads = {n: p.grad for n, p in ref.named_parameters()}
@@ -3475,6 +3614,26 @@ def _planted_sum():
 
 
 @contextlib.contextmanager
+def _planted_laion_head_sum():
+    """The LatentUNet's head gathered with a backward that sums the loss's
+    whole gradient over the model axis (as for a sharded consumer), where
+    each rank's is already whole: every gradient above the head doubles."""
+    from tinydiffusion_torch.models import unet_latent
+
+    def summed(mp, layer, y):
+        if mp is None:  # the one-process reference step
+            return y
+        return mesh_lib._ToFull.apply(mp, True, False, 1, 1, y)
+
+    keep = unet_latent.gather_output
+    unet_latent.gather_output = summed
+    try:
+        yield
+    finally:
+        unet_latent.gather_output = keep
+
+
+@contextlib.contextmanager
 def _planted_head_split():
     """The sharding rule with no head split: q, k and v cut contiguously."""
     keep = mesh_lib._heads
@@ -3501,6 +3660,12 @@ def _tp_rank(rank: int, tmp: str) -> None:
                                          rank=rank, world_size=2)
     try:
         disable_tf32()
+        # cuDNN's nondeterministic convolution algorithms add in an order of
+        # their own at each call: two float32 LatentUNet steps from one state
+        # parted by up to 1.6e-3 in a conv weight's gradient behind a
+        # BatchNorm, where the TP and one-process steps otherwise agree to
+        # ~5e-6. Both steps here run cuDNN deterministic.
+        torch.backends.cudnn.deterministic = True
         mesh = mesh_lib.make_mesh(("data", "model"), (1, 2))
         schedule = DiffusionSchedule.linear(1000).to("cuda")
         whole = torch.load(os.path.join(tmp, "init.pt"))
@@ -3514,13 +3679,16 @@ def _tp_rank(rank: int, tmp: str) -> None:
             out[dtype] = record
             torch.cuda.empty_cache()
         latent_start = time.perf_counter()
-        latent_batches = [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
-                          for x, y in _tp_latent_batches()]
         for name in TP_LATENT_MODELS:
+            start = time.perf_counter()
+            latent_batches = [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+                              for x, y in _tp_latent_batches(name)]
             whole = torch.load(os.path.join(tmp, f"{name}.pt"))
             make_model = functools.partial(_tp_latent_model, name)
+            planted = _planted_laion_head_sum if name == "latent_unet" else None
             out[name] = {dtype: _tp_run(rank, mesh, schedule, make_model, whole, dtype,
-                                        latent_batches, conditional=True)
+                                        latent_batches, conditional=True,
+                                        planted=planted if dtype == "float32" else None)
                          for dtype in TP_DTYPES}
             if name == "dit":
                 with _planted_head_split():
@@ -3528,6 +3696,7 @@ def _tp_rank(rank: int, tmp: str) -> None:
                                                    "float32", latent_batches[:1],
                                                    conditional=True)
             torch.cuda.empty_cache()
+            out[f"{name}_s"] = time.perf_counter() - start
         out["latent_s"] = time.perf_counter() - latent_start
         torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
     finally:
@@ -3580,16 +3749,21 @@ def phase_tp() -> dict:
     B = 128) at (data, model) = (1, 2), two processes spawned on the one card
     (``torch.multiprocessing``) over gloo with CUDA tensors, TP_STEPS eager
     Adam steps in float32 and in bfloat16 with the q_sample kernel; then the
-    MLP UNet and the DiT the same way on (B, 20) latents (TP_LATENT_MODELS).
+    MLP UNet and the DiT the same way on (B, 20) latents, and the LAION
+    LatentUNet on (8, 4, 32, 32) latents with their (8, 768) contexts
+    (TP_LATENT_MODELS).
     Each step against the one-process step from the same gathered state, on
     rank 0: the loss and the update's cosine within resident_parity's
     bounds, the gradients within TP_GRAD_RTOL leaf by leaf; each rank's
     shards half the whole shapes (the UNet28's head whole), every tensor
     left whole bit-equal on both ranks, TP_STEPS q_sample launches a rank,
+    the one-process step's products computed in the ranks' slices (see
+    TP_STEPS; the LatentUNet's one-process step so against the plain one
+    beside, ``shard_width_reference``, reported, not bounded),
     the TP step's ms beside the one-process step's (the first step, the
-    warm-up, left out); and the float32 UNet28 step with the head's gather
-    summing its whole gradient, and the DiT step with q, k and v split by
-    head, caught by the gradient check. NCCL takes no two ranks on one
+    warm-up, left out); and the float32 UNet28 and LatentUNet steps with the
+    head's gather summing its whole gradient, and the DiT step with q, k and
+    v split by head, caught by the gradient check. NCCL takes no two ranks on one
     device, so the collectives here are gloo's, through the host: the ms
     are not what NCCL between cards would give."""
     import torch.multiprocessing as tmp_mp
@@ -3597,22 +3771,30 @@ def phase_tp() -> dict:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED + 61)
         init = UNet28().state_dict()
+    reference = {dtype: _shard_width_gap("latent_unet", dtype) for dtype in TP_DTYPES}
+    for dtype, gap in reference.items():
+        print(f"tp: latent_unet {dtype} one-process step at the shard widths vs plain: loss rel "
+              f"{gap['loss_rel']:.2e}, update cos {gap['update_cos']:.6f}, grad gap "
+              f"{gap['grad_gap']:.2e} ({gap['grad_gap_leaf']})", flush=True)
     fields = {"mesh": [1, 2], "backend": "gloo", "batch": TP_BATCH, "steps": TP_STEPS,
+              "shard_width_reference": reference,
               "bounds": {"loss_rtol": PARITY_LOSS_RTOL, "min_update_cos": PARITY_MIN_UPDATE_COS,
                          "grad_rtol": TP_GRAD_RTOL, "grad_floor": TP_GRAD_FLOOR}}
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(init, os.path.join(tmp, "init.pt"))
         latent_init = {}
         for name in TP_LATENT_MODELS:
-            latent_init[name] = state_dict_by_name(load_weights_arrays(LATENT_CHECKPOINTS[name]))
+            path = LAION_CHECKPOINT if name == "latent_unet" else LATENT_CHECKPOINTS[name]
+            latent_init[name] = state_dict_by_name(load_weights_arrays(path))
             torch.save(latent_init[name], os.path.join(tmp, f"{name}.pt"))
         t0 = time.perf_counter()
         tmp_mp.start_processes(_tp_rank, args=(tmp,), nprocs=2, start_method="spawn")
         fields["ranks_s"] = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt")) for r in range(2)]
     # The latent models' share of the ranks' seconds (rank 0 also runs the
-    # one-process steps).
+    # one-process steps), and each model's.
     fields["latent_s"] = ranks[0]["latent_s"]
+    fields["model_s"] = {name: ranks[0][f"{name}_s"] for name in TP_LATENT_MODELS}
     problems = []
     if [r["place"] for r in ranks] != [(0, 1, 0, 2), (0, 1, 1, 2)]:
         problems.append(f"places {[r['place'] for r in ranks]}")
@@ -3635,8 +3817,9 @@ def phase_tp() -> dict:
         for dtype in TP_DTYPES:
             got, other = ranks[0][name][dtype], ranks[1][name][dtype]
             whole = latent_init[name]
-            # Every float tensor of both models splits two ways: a rank holds
-            # half of each (a head split's too, on its torch dimension 0).
+            # Every float tensor of the three models splits two ways: a rank
+            # holds half of each (a head split's too, on its torch dimension
+            # 0); only the LatentUNet's BatchNorm counters stay whole.
             half = (set(got["sharded"]) == {k for k, v in whole.items() if v.is_floating_point()}
                     and all(2 * np.prod(got["shapes"][k]) == whole[k].numel()
                             for k in got["sharded"]))
@@ -3648,7 +3831,9 @@ def phase_tp() -> dict:
     for key, record, what in (("planted_sum", ranks[0]["float32"]["planted_sum"],
                                "a gather that sums the head's whole gradient"),
                               ("planted_heads", ranks[0]["planted_heads"],
-                               "q, k and v split by head")):
+                               "q, k and v split by head"),
+                              ("planted_laion_head", ranks[0]["latent_unet"]["float32"]["planted"],
+                               "a LatentUNet head gather that sums the whole gradient")):
         fields[key] = _tp_planted(record)
         if record["grad_gap"][0] <= TP_GRAD_RTOL["float32"]:
             problems.append(f"the gradient check missed {what}: {fields[key]}")

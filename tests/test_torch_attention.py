@@ -8,6 +8,7 @@ kernel itself is held against the same plain version on the card by
 ``chip_smoke.py``.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import re
 from pathlib import Path
 

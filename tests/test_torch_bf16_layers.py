@@ -14,6 +14,7 @@ Under ``jit`` XLA fuses a BatchNorm's ops and rounds them elsewhere
 cannot follow and a TPU's compiler would make differently again.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp

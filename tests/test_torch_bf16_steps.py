@@ -28,6 +28,7 @@ whole step is held in ``tests/test_torch_tensor_parallel.py``, in one
 process and at (1, 2).
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import contextlib
 
 import jax

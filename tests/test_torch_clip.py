@@ -13,6 +13,7 @@ CLIP branches. Weights are random: seeded torch inits, or
 ``chip_smoke.write_synthetic_clip`` for CLIP-L.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import sys
 import unicodedata

@@ -8,6 +8,7 @@ Small models are base width 8, time dim 32, float32; JAX's draws reach the
 port through its replay seams.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import json
 import os

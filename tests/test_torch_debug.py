@@ -11,6 +11,7 @@ JAX's; the four ``LossAccumulator`` methods to JAX's contract
 (``tests/test_obs.py``).
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import math
 import re
 

@@ -15,6 +15,7 @@ a progressive-JPEG and a WebP record go through both packages'
 ``LAIONImageTextDataset`` over a loopback server, cold and warm.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import io
 import struct
 import zlib

@@ -8,6 +8,7 @@ its replay seams: the step's ``t``/``noise``, the sampler's ``x_init``/
 The last tests drive the port's ``run()`` end to end on the CPU.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import gzip
 import json

@@ -9,6 +9,7 @@ params and batch; ``train_feature_net`` learning the synthetic digits;
 ``load_mnist`` equal to JAX's, value for value.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import os
 
 import jax

@@ -10,6 +10,7 @@ against the test set, no sampling) to the port's CPU rows on the same
 synthetic MNIST set.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import os
 

@@ -8,6 +8,7 @@ commands are in the file). This test holds the fixture to what
 numpy noise against the synthetic real set, at 256²) to the port's CPU rows.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import os
 

@@ -11,6 +11,7 @@ draws through the port's ``reconstruct``; the PNG reading of
 ``diffusion_final`` (DDIM-2, n = 16).
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import importlib.util
 import json
 import os

@@ -8,6 +8,7 @@ committed CFG checkpoint, and its parser errors, which are the root
 ``generate.py``'s.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import io
 import os
 import struct

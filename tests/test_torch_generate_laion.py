@@ -11,6 +11,7 @@ shadow and guidance of a caption-dropout checkpoint, its parser errors, a
 checkpoint trained on CLIP embeddings, and one whose codec is the SD-VAE.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import os
 import shutil

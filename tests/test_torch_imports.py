@@ -26,6 +26,7 @@ scoring a random conv-VAE and a PNG directory, ``import_torch_checkpoint`` on
 a ``.pth``.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import os
 import subprocess

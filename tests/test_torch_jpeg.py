@@ -7,6 +7,7 @@ computes the pixels of the round trip; Pillow (libjpeg-turbo) is the oracle
 here, and the port never imports it.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import io
 import os
 

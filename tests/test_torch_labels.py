@@ -9,6 +9,7 @@ samples first and labels the grid after, so a prompt it could not label
 used to lose the whole request.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import numpy as np
 import pytest
 from PIL import Image, ImageDraw, ImageFont

@@ -15,6 +15,7 @@ records are the JPEG decodes that JAX's ``run`` stacks from a warm
 ``image_cache_dir`` (``data/laion.py``).
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import json
 import os

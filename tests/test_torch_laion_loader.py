@@ -12,6 +12,7 @@ own. Pillow is an oracle here; the port never imports it, nor requests,
 urllib3 or datasets.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import io
 import json
 import os

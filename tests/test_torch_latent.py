@@ -10,6 +10,7 @@ per-epoch cosine learning rate against optax, the resident latent step, and
 ``experiments/latent_diffusion.py::run`` on both paths.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import json
 import os

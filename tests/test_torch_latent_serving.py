@@ -8,6 +8,7 @@ key splits and handed to the port as ``x_init`` / ``noise_stream``), and the
 latent branch of ``tinydiffusion_torch.generate`` with its parser errors.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import os
 import shutil

@@ -21,6 +21,7 @@ Held here:
   compiler or on a compile error) and the refused kinds of JPEG.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import io
 import json

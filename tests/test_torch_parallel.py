@@ -20,6 +20,7 @@ Also: the validation loss reduced over the ranks, the gcd rule of
 fused q_sample's row offset.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

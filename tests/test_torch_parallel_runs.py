@@ -9,6 +9,7 @@ losses and val or test losses equal one process's on the whole batches, rank
 batch that the ranks do not divide leaves rank 1 idle.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import os
 
 import numpy as np

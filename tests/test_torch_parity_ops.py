@@ -2,6 +2,7 @@
 (SURVEY.md section 4: align_corners bilinear resize, ceil-mode max pool,
 sinusoidal embedding)."""
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import numpy as np
 import pytest
 

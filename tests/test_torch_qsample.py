@@ -10,6 +10,7 @@ JAX ``q_sample_with_noise``) and the distribution (the checks of
 ``tests/test_qsample_fused.py``).
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import re
 from pathlib import Path
 

@@ -10,6 +10,7 @@ the port through the step's ``(t, noise)`` seam. Models are small (base
 width 8, time dim 32) and float32.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

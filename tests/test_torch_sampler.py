@@ -10,6 +10,7 @@ holds the chain arithmetic alone, and a UNet28 at base width 8 (time dim 32)
 carried across from a JAX init. Both schedules hold JAX's own tables.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

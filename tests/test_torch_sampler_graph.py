@@ -15,6 +15,7 @@ stays with ``tests/test_torch_sampler.py``, whose eager chains run the same
 bodies.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import functools
 
 import numpy as np

@@ -10,6 +10,7 @@ diffusers-named state dict (``tests/torch_sdvae_ref.py``) loaded ``strict``,
 ``io/from_jax.py``'s ``sdvae_from_jax``, and ``get_latent_codec("sd")``.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import os
 import sys

@@ -24,6 +24,7 @@ gloo group (``torch.multiprocessing``, a ``file://`` rendezvous;
   gather's backward splits its gradient instead of reduce-scattering it.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import contextlib
 import re
 
@@ -425,16 +426,15 @@ def test_a_gather_that_sums_a_whole_gradient_would_fail(runs, tag):
 
 
 def test_other_models_refuse_a_model_axis():
-    """The models whose model axis is still to port (the MNIST VAE, the
-    conv-VAE, the LAION LatentUNet) raise on a model axis of two, naming
-    what is ported; at model size 1 they shard nothing."""
-    from tinydiffusion_torch.models.unet_latent import LatentUNet
+    """The models JAX's steps shard on no model axis (the MNIST VAE and the
+    conv-VAE: their steps take no ``state_sharding``) raise on a model axis
+    of two, naming what is ported; at model size 1 they shard nothing."""
     from tinydiffusion_torch.models.vae_conv import ConvVAE
     from tinydiffusion_torch.models.vae_mnist import VAEMnist
 
     mesh = mesh_lib.Mesh((1, 2), mesh_lib.DataParallel(0, 1), mesh_lib.ModelParallel(0, 2))
-    for model in (VAEMnist(), ConvVAE(image_size=64), LatentUNet(time_dim=32, base_width=8)):
-        with pytest.raises(NotImplementedError, match="ported for the UNet28"):
+    for model in (VAEMnist(), ConvVAE(image_size=64)):
+        with pytest.raises(NotImplementedError, match="ported for every denoiser.*UNet28"):
             mesh_lib.apply_sharding(model, mesh_lib.infer_state_sharding(model, 2), mesh)
     one = mesh_lib.Mesh((1, 1), mesh_lib.DataParallel(0, 1), mesh_lib.ModelParallel(0, 1))
     model = VAEMnist()

@@ -31,6 +31,7 @@ dropout-0.05 DiT (JAX's default) on one process, equal to JAX's step on the
 committed weights with JAX's draws replayed.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import contextlib
 
 import jax

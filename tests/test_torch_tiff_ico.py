@@ -24,6 +24,7 @@
   over a loopback HTTP server.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import io
 import json
 import struct

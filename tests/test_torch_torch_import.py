@@ -14,6 +14,7 @@ a dict with ``model_state_dict`` and ``config``) and writes checkpoints that
 ``load_pixel_checkpoint`` and ``load_latent_checkpoint`` serve.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import re
 
 import jax

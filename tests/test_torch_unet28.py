@@ -6,6 +6,7 @@ made with numpy. The port runs NCHW, JAX NHWC: the tests transpose at the
 boundary. The JAX models run in float32.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import os
 
 import flax.linen as flax_nn

@@ -20,6 +20,7 @@ logits at ``enc_attn0``, 17 GB a row. The 64² model tests in
 ``test_torch_vae_conv.py`` cover the rest of the model.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ BatchNorms keep flax's running statistics (``nn.layers.BatchNorm2d``); the
 train-mode update is held here, the train step in ``test_torch_vae_train``.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import copy
 import os
 

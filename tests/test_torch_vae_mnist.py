@@ -7,6 +7,7 @@ host and the resident path. JAX's reparameterising noise reaches the port as
 ``eps``; everything runs in float32.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import json
 import os

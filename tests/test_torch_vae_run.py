@@ -5,6 +5,7 @@ npz a port run writes, read by the JAX package) and ``run`` end to end: its
 outputs, an exact ``--resume``, and the options it refuses.
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import json
 import os

@@ -10,6 +10,7 @@ plain versions (the CUDA kernels are held against those on the card by
 ``chip_smoke.py``).
 """
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import copy
 
 import jax

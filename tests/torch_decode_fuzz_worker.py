@@ -22,7 +22,7 @@ import sys
 
 import numpy as np
 
-from tinydiffusion_torch.data import gif, ico, jpeg, laion, tiff, webp
+from tinydiffusion_torch.data import gif, ico, jpeg, jpeg2000, laion, tiff, webp
 
 # The TIFF fields that size the samples' array: width, length, bits per
 # sample, samples per pixel, rows per strip, tile width and length.
@@ -30,7 +30,9 @@ _TIFF_SIZE_TAGS = (256, 257, 258, 277, 278, 322, 323)
 
 
 def plain(data: bytes) -> np.ndarray:
-    """``decode_image`` with the plain versions of the C decoders."""
+    """``decode_image`` with the plain versions of the C decoders. A format
+    with none (PNG, BMP, ICO, JPEG 2000) goes through ``decode_image``
+    itself: its mutants must raise ``ValueError`` or decode, never crash."""
     if data[:2] == b"\xff\xd8":
         return jpeg.decode_jpeg_reference(data)
     if data[:6] in gif.SIGNATURES:
@@ -46,7 +48,8 @@ def size_fields(data: bytes) -> set[int]:
     """The byte offsets of the header fields that give the image's size:
     JPEG's SOF height and width, GIF's screen and first image descriptor,
     a VP8X canvas, VP8's and VP8L's frame sizes, TIFF's size fields (and
-    where its IFD is), an icon's entry offsets and its DIBs' sizes."""
+    where its IFD is), an icon's entry offsets and its DIBs' sizes, JPEG
+    2000's JP2 header size and its SIZ segment."""
     found = set()
     if data[:2] == b"\xff\xd8":  # the marker segments up to the frame's
         k = 2
@@ -73,6 +76,13 @@ def size_fields(data: bytes) -> set[int]:
             entry = at + 2 + 12 * i
             if int.from_bytes(data[entry:entry + 2], order) in _TIFF_SIZE_TAGS:
                 found |= set(range(entry, entry + 12))
+    elif data[:12] == jpeg2000.JP2_SIGNATURE or data[:4] == jpeg2000.J2K_SIGNATURE:
+        k = data.find(b"ihdr")  # a JP2 header's height and width
+        if k >= 0:
+            found |= set(range(k + 4, k + 12))
+        k = data.find(b"\xff\x51")  # SIZ: the image, tile and component geometry
+        if k >= 0:
+            found |= set(range(k + 2, k + 2 + int.from_bytes(data[k + 2:k + 4], "big")))
     elif data[:4] in ico.SIGNATURES:  # each entry's offset and its DIB's width and height
         for i in range(int.from_bytes(data[4:6], "little")):
             offset = int.from_bytes(data[18 + 16 * i:22 + 16 * i], "little")

@@ -1,4 +1,5 @@
-"""The steps that ``tests/test_torch_tensor_parallel.py`` runs in each rank of
+"""The steps that ``tests/test_torch_tensor_parallel.py`` (and its latent and
+LAION siblings: ``run_latent_rank``, ``run_laion_rank``) runs in each rank of
 a gloo group and, for comparison, in one process.
 
 It imports torch and the port only, so that the ranks start quickly. Each
@@ -21,6 +22,7 @@ rank 0 writes the gathered checkpoint's npz.
 
 from __future__ import annotations
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 import os
 
 import numpy as np
@@ -31,8 +33,10 @@ from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.io.checkpoint import save_weights
 from tinydiffusion_torch.models.dit import DiT
+from tinydiffusion_torch.models import unet_latent
 from tinydiffusion_torch.models.mlp_unet import MLPUNetLatent
 from tinydiffusion_torch.models.unet28 import UNet28
+from tinydiffusion_torch.models.unet_latent import LatentUNet
 from tinydiffusion_torch.parallel import mesh as mesh_lib
 from tinydiffusion_torch.train import trainer
 
@@ -292,6 +296,10 @@ LATENT_CASES = ("mlp", "dit", "dit4", "mlp_jax", "dit_jax", "dit4_jax", "mlp_bf1
 
 
 def latent_model(name: str):
+    """The small model ``name``: one of ``LATENT_MODELS``, or ``"laion"``,
+    the LatentUNet of ``LAION_MODEL``."""
+    if name == "laion":
+        return LatentUNet(**LAION_MODEL)
     cls, options = LATENT_MODELS[name]
     return cls(**options)
 
@@ -454,3 +462,144 @@ def run_latent_rank(rank: int, init_dir: str, inputs_path: str, out_dir: str) ->
         finally:
             dist.destroy_process_group()
     np.savez(os.path.join(out_dir, f"latent_rank{rank}.npz"), **results)
+
+
+# --- the LAION LatentUNet -------------------------------------------------------------
+
+# The small text-conditional LatentUNet (8x8 latents of 4 channels, a 32-wide
+# context), as JAX's test builds it too.
+LAION_MODEL = {"time_dim": 32, "in_channels": 4, "base_width": 8, "latent_size": 8}
+# ``_jax``: JAX's t and noise through the seams; ``_bf16``: flax's bfloat16.
+LAION_CASES = ("laion", "laion_jax", "laion_bf16_jax")
+
+
+def laion_step(inputs: dict, case: str, mesh: mesh_lib.Mesh | None = None) -> dict:
+    """One SGD step of ``case`` (``LAION_CASES``) on ``mesh`` (None: one
+    process, the whole batch) through ``make_train_step(conditional=True)``
+    with the (B, 32) context as ``y``: the loss, the shards' shapes, the
+    tensors left whole and the whole weights after."""
+    bf16 = "_bf16" in case
+    model, shardings = _sharded_latent(
+        "laion", torch.load(inputs["laion_bf16_weights" if bf16 else "laion_weights"]), mesh)
+    state = trainer.create_train_state(model, torch.optim.SGD(model.parameters(), lr=LR), 0)
+    step = trainer.make_train_step(_schedule(inputs), conditional=True, mesh=mesh,
+                                   compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+    dp = None if mesh is None else mesh.dp
+    x0 = mesh_lib.shard(dp, torch.from_numpy(np.array(inputs["laion_x0"])))
+    context = mesh_lib.shard(dp, torch.from_numpy(np.array(inputs["laion_context"])))
+    seams = {}
+    if case.endswith("_jax"):
+        seams = {name: torch.from_numpy(np.array(inputs[f"laion_{name}"]))
+                 for name in ("t", "noise")}
+    loss = step(state, x0, context, **seams)
+    out = {"loss": np.asarray(loss.item())}
+    out.update({f"shape/{k}": np.asarray(v.shape) for k, v in model.state_dict().items()})
+    if mesh is not None:
+        out.update(_replicated(model, shardings))
+    out.update(_whole_weights(model, state, shardings, mesh, "laion"))
+    return out
+
+
+def _laion_dataset(inputs: dict) -> DeviceDataset:
+    return DeviceDataset(np.array(inputs["laion_rows"]), len(inputs["laion_x0"]), seed=4,
+                         device="cpu", embeds=np.array(inputs["laion_row_context"]))
+
+
+def laion_resident_steps(inputs: dict, mesh: mesh_lib.Mesh | None = None) -> dict:
+    """RESIDENT_STEPS steps of ``make_resident_multi_step`` over a resident
+    set of (N, 8, 8, 4) uint8 latents and their (N, 32) contexts (the step's
+    own draws), sharded on ``mesh`` or in one process: the losses and the
+    whole weights after."""
+    model, shardings = _sharded_latent("laion", torch.load(inputs["laion_weights"]), mesh)
+    state = trainer.create_train_state(model, torch.optim.SGD(model.parameters(), lr=LR), 5)
+    dataset = _laion_dataset(inputs)
+    step = trainer.make_resident_multi_step(_schedule(inputs), dataset, conditional=True,
+                                            mesh=mesh)
+    idxs = dataset.epoch_index_batches(0)[:RESIDENT_STEPS]
+    losses = step(state, mesh_lib.shard(None if mesh is None else mesh.dp, idxs, dim=1))
+    out = {"loss": losses.numpy()}
+    out.update(_whole_weights(model, state, shardings, mesh, "laion"))
+    return out
+
+
+def laion_eager_steps(inputs: dict) -> dict:
+    """The steps of ``laion_resident_steps`` in one process, each a
+    ``make_train_step`` call on the batch the resident step gathers (NHWC
+    made NCHW), from a generator of the same seed."""
+    model, _ = _sharded_latent("laion", torch.load(inputs["laion_weights"]), None)
+    state = trainer.create_train_state(model, torch.optim.SGD(model.parameters(), lr=LR), 5)
+    dataset = _laion_dataset(inputs)
+    step = trainer.make_train_step(_schedule(inputs), conditional=True)
+    losses = []
+    for idx in dataset.epoch_index_batches(0)[:RESIDENT_STEPS]:
+        x0, context = dataset.gather(torch.from_numpy(idx))
+        losses.append(step(state, x0.permute(0, 3, 1, 2), context).item())
+    out = {"loss": np.asarray(losses, np.float32)}
+    out.update(_whole_weights(model, state, None, None, "laion"))
+    return out
+
+
+def summed_head_gather(mp, layer, y):
+    """The planted fault: the head's output gathered with a backward that sums
+    the loss's whole gradient over the model axis (as for a sharded
+    consumer) where each rank's is already whole."""
+    if mp is None or not mesh_lib.out_sharded(layer):
+        return y
+    return mesh_lib._ToFull.apply(mp, True, False, 1, 1, y)
+
+
+def _run_laion_mesh(inputs: dict, mesh: mesh_lib.Mesh, tag: str, out_dir: str,
+                    rank: int) -> dict:
+    results = {f"{tag}/place": np.asarray([mesh.data.rank, mesh.data.size, mesh.model.rank,
+                                           mesh.model.size])}
+    for case in (LAION_CASES if tag == "m12" else ("laion",)):
+        results.update({f"{tag}/{case}/{k}": v for k, v in laion_step(inputs, case, mesh).items()})
+    checks = []  # the model axis is checked once for the model, not at each step
+    keep = trainer.check_model_axis
+    trainer.check_model_axis = lambda *args: (checks.append(1), keep(*args))
+    try:
+        got = laion_resident_steps(inputs, mesh)
+    finally:
+        trainer.check_model_axis = keep
+    got["model_axis_checks"] = np.asarray(len(checks))
+    results.update({f"{tag}/resident/{k}": v for k, v in got.items()})
+    if tag == "m12":
+        keep = unet_latent.gather_output
+        unet_latent.gather_output = summed_head_gather
+        try:
+            results.update({f"{tag}/teeth_sum/{k}": v
+                            for k, v in laion_step(inputs, "laion", mesh).items()})
+        finally:
+            unet_latent.gather_output = keep
+    if rank == 0:
+        save_weights(os.path.join(out_dir, f"{tag}_laion"),
+                     {k.split("/", 2)[2]: v for k, v in results.items()
+                      if k.startswith(f"{tag}/laion_jax/") and k.split("/")[2].startswith(
+                          ("params", "batch_stats"))})
+    return results
+
+
+def run_laion_rank(rank: int, init_dir: str, inputs_path: str, out_dir: str) -> None:
+    """Rank ``rank`` of four: the ``(2, 2)`` mesh, then (ranks 0 and 1) the
+    ``(1, 2)`` one; results to ``out_dir/laion_rank<rank>.npz``."""
+    torch.set_num_threads(1)
+    inputs = dict(np.load(inputs_path, allow_pickle=True))
+    inputs = {k: (v.item() if v.dtype == object or v.dtype.kind == "U" else v)
+              for k, v in inputs.items()}
+    results = {}
+    dist.init_process_group("gloo", init_method=f"file://{init_dir}/laion4", rank=rank,
+                            world_size=4)
+    try:
+        results.update(_run_laion_mesh(inputs, mesh_lib.make_mesh(("data", "model"), (2, 2)),
+                                       "m22", out_dir, rank))
+    finally:
+        dist.destroy_process_group()
+    if rank < 2:
+        dist.init_process_group("gloo", init_method=f"file://{init_dir}/laion2", rank=rank,
+                                world_size=2)
+        try:
+            results.update(_run_laion_mesh(inputs, mesh_lib.make_mesh(("data", "model"), (1, 2)),
+                                           "m12", out_dir, rank))
+        finally:
+            dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"laion_rank{rank}.npz"), **results)

@@ -1,4 +1,5 @@
-/* Shared by the host image decoders (jpeg.c, vp8.c, vp8l.c, gif.c, tiff.c).
+/* Shared by the host image decoders (jpeg.c, vp8.c, vp8l.c, gif.c, tiff.c,
+   jpeg2000.c).
 
    Every entry point returns 0 or one of the negative codes below, which
    data/native.py turns into ValueError. Every buffer comes with its length:

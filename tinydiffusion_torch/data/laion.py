@@ -25,7 +25,8 @@ without its PIL, ``requests``, ``urllib3`` and JAX imports. Kept:
   urllib3 sleeps it), failure after that retry, any other status, or a
   short body. Bodies are read by ``decode_image``: JPEG (``data/jpeg.py``,
   progressive and CMYK included), PNG (``data/png.py``, Adam7 and 16-bit
-  included), GIF, BMP and WebP (``data/gif.py``, ``bmp.py``, ``webp.py``);
+  included), GIF, BMP, WebP, TIFF, ICO and CUR (``data/gif.py``, ``bmp.py``,
+  ``webp.py``, ``tiff.py``, ``ico.py``) and JPEG 2000 (``data/jpeg2000.py``);
   other formats fail as Pillow fails on what it cannot identify (ROADMAP
   Queue 3 lists the formats Pillow would also read);
 - ``check_disk_space`` and ``precache_dataset`` (a ``ThreadPoolExecutor``
@@ -59,6 +60,7 @@ from tinydiffusion_torch.data.gif import decode_gif
 from tinydiffusion_torch.data.ico import SIGNATURES as ICO_SIGNATURES
 from tinydiffusion_torch.data.ico import decode_ico
 from tinydiffusion_torch.data.jpeg import decode_jpeg, encode_jpeg
+from tinydiffusion_torch.data.jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
 from tinydiffusion_torch.data.png import SIGNATURE as PNG_SIGNATURE
 from tinydiffusion_torch.data.png import decode_png
 from tinydiffusion_torch.data.tiff import SIGNATURES as TIFF_SIGNATURES
@@ -162,8 +164,9 @@ def check_disk_space(path: str, required_bytes: int) -> None:
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's (H, W, 3) uint8 RGB, as Pillow's
     ``Image.open(f).convert("RGB")``: JPEG, PNG, GIF (its first frame), BMP,
-    WebP (its first frame), TIFF (its first image) or ICO and CUR (the
-    image Pillow picks), told apart by their first bytes; anything else
+    WebP (its first frame), TIFF (its first image), ICO and CUR (the
+    image Pillow picks) or JPEG 2000 (a JP2 file or a raw codestream), told
+    apart by their first bytes; anything else
     raises ``ValueError``, as Pillow raises on what it cannot identify or
     load."""
     if data[:2] == b"\xff\xd8":
@@ -180,8 +183,10 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_tiff(data)
     if data[:4] in ICO_SIGNATURES:
         return decode_ico(data)
+    if data[:12] == JP2_SIGNATURE or data[:4] == J2K_SIGNATURE:
+        return decode_jpeg2000(data)
     raise ValueError("cannot identify image file (the port reads JPEG, PNG, GIF, BMP, WebP, "
-                     "TIFF and ICO)")
+                     "TIFF, ICO and JPEG 2000)")
 
 
 def _retry_after_seconds(value: str) -> float:

@@ -3,7 +3,8 @@
 JAX's loader decodes every record with Pillow, which is C. The port's
 counterparts of Pillow's entropy decoders are the C functions in
 ``data/csrc/``: JPEG's Huffman scans (``jpeg.c``), VP8 (``vp8.c``), VP8L
-(``vp8l.c``) and GIF's LZW (``gif.c``). ``library()`` builds them with the
+(``vp8l.c``), GIF's LZW (``gif.c``), TIFF's LZW and PackBits (``tiff.c``)
+and JPEG 2000's tiles (``jpeg2000.c``). ``library()`` builds them with the
 host C compiler at the first decode (``ops/_build.py``, ``DECODERS``), never
 at import, and loads them with ctypes, which lets go of the GIL for each
 call, so ``precache_dataset``'s threads decode at once. A missing compiler

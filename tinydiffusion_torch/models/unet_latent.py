@@ -26,6 +26,19 @@ convolution algorithms are not). The matrices of the latent grid's three
 upsamples (``latent_size`` 32: 4, 8 and 16 up) are buffers on the model's
 device.
 
+On the model axis (``parallel.mesh.apply_sharding``, tensor parallelism)
+every conv and dense layer holds a slice of its output channels, as JAX's
+``infer_state_sharding`` splits their flax leaves (``final_conv``'s four
+channels too), and reads its whole input through ``parallel.mesh.apply_full``:
+an all-gather before each layer (each decoder concatenation gathered in one,
+in the global order ``[upsampled, skip + time]``) whose backward
+reduce-scatters the input gradient. The sinusoid is computed whole on every
+rank and feeds ``time_mlp_fc1`` as it is; ``emb = t_emb + context`` adds the
+rank's features of the whole context to its slice of ``t_emb``
+(``parallel.mesh.own_features``); BatchNorm, ReLU, the pools, the upsamples
+and the skips' time adds work per channel on the slice; the head's output is
+gathered whole for the loss (``gather_output``).
+
 The model computes in its ``dtype``, flax's ``dtype=`` (float32, or what
 ``nn.layers.computing_in`` sets). As in JAX the sinusoid and
 the context enter in it: ``time_mlp_fc2``'s output is in ``dtype``, and the
@@ -53,10 +66,14 @@ from tinydiffusion_torch.nn.resize import (
     resize_matrix,
     upsample_bilinear_2x,
 )
+from tinydiffusion_torch.parallel.mesh import apply_full, gather_output, own_features
 
 
 class LatentUNet(FlaxDtype, nn.Module):
     """(B, C, S, S) latents, (B,) timesteps and (B, time_dim) context -> eps."""
+
+    supports_model_axis = True
+    model_parallel = None  # set by parallel.mesh.apply_sharding
 
     def __init__(self, time_dim: int = 768, in_channels: int = 4, base_width: int = 32,
                  latent_size: int = 32):
@@ -84,11 +101,11 @@ class LatentUNet(FlaxDtype, nn.Module):
         self.final_conv = Conv2d(2 * w, in_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        dtype = self.dtype
+        dtype, mp = self.dtype, self.model_parallel
         x = x.to(dtype)
         t_emb = sinusoidal_time_embedding(t, self.time_dim, self.freqs).to(dtype)
-        t_emb = self.time_mlp_fc2(silu(self.time_mlp_fc1(t_emb)))
-        emb = t_emb + context.to(dtype)
+        t_emb = apply_full(mp, self.time_mlp_fc2, silu(self.time_mlp_fc1(t_emb)))
+        emb = t_emb + own_features(mp, self.time_mlp_fc2, context).to(dtype)
 
         x0 = self.initial_conv(x)
         e1 = self.enc1(x0)  # 32
@@ -97,13 +114,14 @@ class LatentUNet(FlaxDtype, nn.Module):
         b = self.bottleneck(F.max_pool2d(e3, 2))  # 4
 
         def skip(e: torch.Tensor, proj: Linear) -> torch.Tensor:
-            return e + proj(emb)[:, :, None, None]
+            return e + apply_full(mp, proj, emb)[:, :, None, None]
 
         def _up(x: torch.Tensor) -> torch.Tensor:
             n = x.shape[-1]
             return upsample_bilinear_2x(x, resize_matrix(self, n, 2 * n))
 
-        d3 = self.dec3(torch.cat([_up(b), skip(e3, self.time_proj3)], dim=1))
-        d2 = self.dec2(torch.cat([_up(d3), skip(e2, self.time_proj2)], dim=1))
-        d1 = self.dec1(torch.cat([_up(d2), skip(e1, self.time_proj1)], dim=1))
-        return self.final_conv(d1).float()
+        d3 = self.dec3(_up(b), skip(e3, self.time_proj3))
+        d2 = self.dec2(_up(d3), skip(e2, self.time_proj2))
+        d1 = self.dec1(_up(d2), skip(e1, self.time_proj1))
+        out = apply_full(mp, self.final_conv, d1)
+        return gather_output(mp, self.final_conv, out).float()

@@ -44,7 +44,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 # -fwrapv: signed integers wrap as numpy's int64 does in the plain versions.
-CC_FLAGS = ("-std=c11", "-O2", "-fPIC", "-fwrapv", "-Wall")
+# -ffp-contract=off: no product and sum fused into one rounding (an FMA), so
+# that the JPEG 2000 9/7 wavelet and ICT round as OpenJPEG's float32 code.
+CC_FLAGS = ("-std=c11", "-O2", "-fPIC", "-fwrapv", "-ffp-contract=off", "-Wall")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +202,9 @@ DECODE_SIGNATURES: dict[str, tuple] = {
     # data, n, rgb (uint8, height x width x 3), width, height (from the header)
     "tdt_vp8_decode": (_P, _I64, _P, _I64, _I64),
     "tdt_vp8l_decode": (_P, _I64, _P, _I64, _I64),
+    # data (a tile's packets), n, params (int64, data/jpeg2000.py::_tile_params),
+    # n_params, out (int32, every tile component in turn), out_len
+    "tdt_j2k_tile": (_P, _I64, _P, _I64, _P, _I64),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -25,7 +25,7 @@ norms' vectors; dim 1 of an embedding; the last of a parameter kept in
 flax's layout, the DiT's ``pos_encoding``), or a ``HeadSplit`` where flax
 keeps that dimension as (heads, head_dim) and JAX splits head_dim (the
 DiT's query, key and value); ``apply_sharding`` keeps each rank's slice.
-A sharded model (the UNet28, the MLP UNet, the DiT) makes each layer's
+A sharded model (the UNet28, the MLP UNet, the DiT, the LatentUNet) makes each layer's
 input whole with ``to_full`` before it computes its slice of output
 features: an all-gather whose backward reduce-scatters the partial input
 gradients of a sharded consumer, and only takes its own slice for a
@@ -274,8 +274,10 @@ def make_mesh(axes: Sequence[str] = ("data", "model"), shape: Sequence[int] | No
 def require_model_axis(model: nn.Module) -> None:
     if not getattr(model, "supports_model_axis", False):
         raise NotImplementedError(
-            f"the model axis is ported for the UNet28 (unconditional and class-conditional), "
-            f"the MLP UNet and the DiT; {type(model).__name__} takes the data axis only")
+            f"the model axis is ported for every denoiser JAX's make_train_step shards (the "
+            f"UNet28, unconditional and class-conditional, the MLP UNet, the DiT and the LAION "
+            f"LatentUNet); {type(model).__name__} takes the data axis only, as JAX's steps for "
+            f"it take no state_sharding")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -544,10 +546,22 @@ def gather_last(mp: ModelParallel | None, *parts: torch.Tensor, reduce: bool = F
 
 
 def gather_output(mp: ModelParallel | None, layer: nn.Module, y: torch.Tensor) -> torch.Tensor:
-    """The whole output of ``layer`` (a linear) from this rank's features of
-    it, for a consumer that runs whole on every model rank (the loss):
-    ``y`` itself where the layer is replicated or on one process."""
-    return y if mp is None or not out_sharded(layer) else gather_last(mp, y)
+    """The whole output of ``layer`` (a conv or a linear) from this rank's
+    features of it, for a consumer that runs whole on every model rank (the
+    loss): ``y`` itself where the layer is replicated or on one process."""
+    if mp is None or not out_sharded(layer):
+        return y
+    return _ToFull.apply(mp, False, False, _feature_dim(layer), 1, y)
+
+
+def own_features(mp: ModelParallel | None, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of the last dimension of a whole ``x`` that is added
+    to ``layer``'s (a linear's) output: the features ``layer`` computes here,
+    all of ``x`` where the layer is replicated or on one process. (The
+    LatentUNet's text context, added to ``time_mlp_fc2``'s output.)"""
+    if mp is None or not out_sharded(layer):
+        return x
+    return shard_of(x, x.dim() - 1, mp.rank, mp.size)
 
 
 class _Float32InputGrad(torch.autograd.Function):

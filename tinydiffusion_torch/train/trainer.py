@@ -337,7 +337,8 @@ def make_train_step(
     keep=None, masks=None) -> loss`` (JAX's ``make_train_step``).
 
     ``x0`` (B, C, H, W) float32 images or (B, D) latents on the model's
-    device, and for a ``conditional`` model its integer labels ``y`` (B,).
+    device, and for a ``conditional`` model its integer labels ``y`` (B,),
+    or its (B, D) float context (the LatentUNet's text embeddings).
     ``state`` is updated in place; the loss is a 0-d float32 device tensor
     (reading it syncs). The draws come from ``state.generator`` in JAX's
     order: t, the q_sample seed, the DiT's dropout masks
@@ -508,7 +509,8 @@ def make_resident_multi_step(
 
     Each of the K steps gathers its uint8 batch (NHWC images, as in JAX, or
     (N, D) rows, normalised to (B, D) latents) and, for a ``conditional``
-    model, its label row from ``dataset``, normalises it inside the step and
+    model, its label row (or its float embedding row, the LatentUNet's
+    context) from ``dataset``, normalises it inside the step and
     runs ``make_train_step``'s per-batch logic: the same draws (t, the
     q_sample seed, the DiT's dropout masks and the label dropout), in the
     same order, as the host path. On the CPU ``t`` (K, B), ``noise`` (K, B,
@@ -517,15 +519,16 @@ def make_resident_multi_step(
     columns of the epoch's index batches; ``mesh`` as in ``make_train_step``
     (every model rank of a data row takes the same columns).
     """
-    if conditional and dataset.labels is None:
-        raise ValueError("a conditional resident step needs a DeviceDataset with labels")
+    if conditional and dataset.labels is None and dataset.embeds is None:
+        raise ValueError("a conditional resident step needs a DeviceDataset with labels or "
+                         "embeds")
     body = _step_body(schedule, ema_decay, prediction, compute_dtype, conditional,
                       label_dropout, null_label, dp, mesh)
 
     def batch_step(state, batch, t=None, noise=None, keep=None, masks=None):
         x0, y = batch if conditional else (batch, None)
         if x0.dim() == 4:
-            x0 = x0.permute(0, 3, 1, 2)  # NCHW: C = 1, a view
+            x0 = x0.permute(0, 3, 1, 2).contiguous()  # NCHW (a view where C = 1)
         return body(state, x0, y, t, noise, keep, masks)
 
     return make_resident_steps(dataset, batch_step)
