@@ -104,8 +104,9 @@ line each:
    256² images, 4x32x32 latents, time_dim 768, B = 8, bf16, Adam 1e-4 to
    1e-6 cosine over T_max 1000 steps, clip 10; resident, graph replays),
    cut to 800 records (80 steps an epoch, 20 val batches) and 2 epochs, the
-   records read through the JPEG cache in a temporary directory (each run of
-   a LAION entry point here keeps its cache there):
+   records read through the JPEG cache in a temporary directory (the LAION
+   runs at 256² share one: laion_train fills it, the guided and CLIP runs
+   read it warm):
    q_sample launches at (8, 4096), train and val apart, graph counts, each
    epoch's rate against the host formula, warm step, samples/s, the val
    pass's and the grids' seconds, peak memory;
@@ -140,7 +141,7 @@ line each:
    bfloat16 bounds; each step's ms a replay (CUDA events), its kernels a
    step (one profiler session) and the peak memory, DP and non-DP; the
    group destroyed after; tp: the model axis, the full-width UNet28 at
-   (data, model) = (1, 2), two processes on the card over gloo, 5 eager
+   (data, model) = (1, 2), two processes on the card over gloo, 3 eager
    Adam steps in float32 and bfloat16, each against the one-process step
    from the same gathered state (loss, update cosine, gradients leaf by
    leaf), shard shapes, the whole tensors bit-equal on both ranks, and a
@@ -257,13 +258,14 @@ line each:
     components, gradients, params, BN statistics, spectral-norm u and sigma;
     vae512_train and vae512_train_bf16: ``run()`` at 512² (every attention
     site on the flash path, dec_attn0 on the (16, 128) kernels), 44 records,
-    2 epochs of 10 steps, resident with graph replays: warm step, images/s,
-    peak memory, losses, the flash launches by kernel and (D, C), all three
-    widths forward and backward, and the backward's scratch by site
+    2 epochs (bf16: 1) of 10 steps, resident with graph replays: warm step,
+    images/s, peak memory, losses, the flash launches by kernel and (D, C),
+    all three widths forward and backward, and the backward's scratch by site
     (``attention.flash_bwd_scratch``: at most 0.016 GiB); vae1024_train and
     vae1024_train_bf16: the same at 1024² (enc_attn0 at N = 262144), 40
-    records, 2 epochs of 3 steps (2 eager, 1 capture, 4 replays; the second
-    epoch all replays); vae512_serve:
+    records, 1 epoch of 6 steps (2 eager, 1 capture, 4 replays); the later
+    run at each size reads the first one's record cache, warm (its
+    ``outside_steps`` time the cache's decodes); vae512_serve:
     the float32 run's checkpoint, ``reconstruct`` and ``sample_prior`` at
     B = 4, each call's graph bit-equal to eager with the generators equal,
     and within CARD_VS_CPU_ATOL of the same calls with the flash sites on the
@@ -539,17 +541,26 @@ VAE_RECORDS, VAE_EPOCHS = 88, 2
 # The same recipe at 512x512 (vae512_train; every attention site on the
 # flash path, dec_attn0 on the (16, 128) kernels), once in float32 and once
 # in bfloat16: 44 records leave 40 for training (10 steps an epoch) and 4
-# for validation (1 batch), 2 epochs: 2 eager steps, 1 capture, 18 replays.
-VAE512_RECORDS = 44
+# for validation (1 batch); float32 2 epochs (2 eager steps, 1 capture, 18
+# replays; the second epoch's step time the warm one), bfloat16 1 epoch (2
+# eager, 1 capture, 8 replays: one checkpoint write, 104 M parameters).
+VAE512_RECORDS, VAE512_BF16_EPOCHS = 44, 1
 # The same recipe at 1024x1024 (vae1024_train, vae1024_train_bf16: enc_attn0
 # at N = 262144, where the backward's old per-key-block dq partials would
 # have taken 64 GiB): 40 records leave 36 for training and 4 for validation
-# (1 batch), 2 epochs of 3 steps: 2 eager steps, 1 capture, 4 replays, the
-# second epoch all replays (its step time is the warm one).
-VAE1024_RECORDS, VAE1024_STEPS = 40, 3
-# Records, epochs and steps an epoch (0: all) of the conv-VAE runs by image size.
-VAE_RUNS = {256: (VAE_RECORDS, VAE_EPOCHS, 0), 512: (VAE512_RECORDS, VAE_EPOCHS, 0),
-            1024: (VAE1024_RECORDS, VAE_EPOCHS, VAE1024_STEPS)}
+# (1 batch), 1 epoch of 6 steps: 2 eager steps, 1 capture, 4 replays (its
+# step time has the eager steps and the capture in it). One epoch writes one
+# checkpoint: the 407 M-parameter model's is 5.7 GB (its .pt with Adam's
+# moments), 22 s a write on the card's machine; two epochs wrote two.
+VAE1024_RECORDS, VAE1024_EPOCHS, VAE1024_STEPS = 40, 1, 6
+# Records, epochs and steps an epoch (0: all) of the conv-VAE runs by image
+# size and compute dtype.
+VAE_RUNS = {(256, "float32"): (VAE_RECORDS, VAE_EPOCHS, 0),
+            (256, "bfloat16"): (VAE_RECORDS, VAE_EPOCHS, 0),
+            (512, "float32"): (VAE512_RECORDS, VAE_EPOCHS, 0),
+            (512, "bfloat16"): (VAE512_RECORDS, VAE512_BF16_EPOCHS, 0),
+            (1024, "float32"): (VAE1024_RECORDS, VAE1024_EPOCHS, VAE1024_STEPS),
+            (1024, "bfloat16"): (VAE1024_RECORDS, VAE1024_EPOCHS, VAE1024_STEPS)}
 # The flash sites of one conv-VAE step by image size, by (D, C): each runs
 # one forward and one backward a train step.
 VAE_FLASH_SITES = {256: {(4, 32): 1, (8, 64): 2},
@@ -714,6 +725,14 @@ LOADER_PILLOW = os.path.join(REPO, "tests", "fixtures", "laion_loader_pillow.jso
 # loader's rate.
 LOADER_WEB_FIXTURES = ("laion_loader_512_progressive.jpg", "laion_loader_512_lossy.webp")
 LOADER_JP2_512 = "laion_loader_512.jp2"
+# 512² files of the arithmetic-coded JPEG and the YCbCr formats, timed
+# beside the 512² JPEG; the arithmetic-coded one in C only (its plain
+# decoder is bit-serial Python, held to the C one on the small arithmetic
+# fixtures).
+LOADER_NEW_512 = {"arith_progressive": "laion_loader_512_arith_progressive.jpg",
+                  "ycbcr_jp2": "laion_loader_512_ycbcr.jp2",
+                  "ycbcr_tiff": "laion_loader_512_ycbcr.tif"}
+LOADER_C_ONLY = {LOADER_NEW_512["arith_progressive"]}
 LAION_TRAIN_STEPS, LAION_VAL_BATCHES = 80, 20
 # laion_parity: resident_parity's graph-vs-eager check on 10 LAION steps (B = 8, caption
 # dropout 0.1, EMA) from the committed weights, one step a call so that the
@@ -879,7 +898,18 @@ def write_synthetic_clip(directory: str, seed: int, config: CLIPTextConfig = CLI
         f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
 
 
+# Each phase's wall seconds, printed as the line before the kernels line: the
+# seconds since the previous line go to the phase that prints the line (a
+# phase of several lines sums them; main's work between two phases goes to
+# the next one).
+PHASE_SECONDS: dict[str, float] = {}
+_last_emit = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + now - _last_emit[0]
+    _last_emit[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -2812,10 +2842,11 @@ def _laion_recipe(**overrides) -> "conditional_diffusion_laion.LaionDiffusionCon
                                or config.num_epochs, device="cuda", **overrides)
 
 
-def _record_cache(tmp: str) -> dict:
-    """A run's LAION record cache and failed-URL list, in ``tmp``: nothing
-    lands in the tree."""
-    return {"image_cache_dir": os.path.join(tmp, "laion_cache"),
+def _record_cache(tmp: str, shared: str | None = None) -> dict:
+    """A run's LAION record cache (``shared``, one the LAION runs at 256²
+    fill and read in turn, or its own in ``tmp``) and its failed-URL list,
+    in ``tmp``: nothing lands in the tree."""
+    return {"image_cache_dir": shared or os.path.join(tmp, "laion_cache"),
             "failed_urls_cache": os.path.join(tmp, "failed_urls.json")}
 
 
@@ -2890,10 +2921,13 @@ def phase_laion_loader() -> dict:
     fixture's decode and resize against Pillow's (``LOADER_PILLOW``: JPEG
     baseline, progressive and CMYK, PNG RGBA, Adam7 and 16-bit grey, GIF,
     BMP, WebP lossless and lossy, TIFF of every compression the loader reads
-    (tiles, planar and big-endian ones too), ICO and CUR, JPEG 2000 (JP2 and
-    J2K, both wavelets, every progression order, the modes Pillow writes);
+    (tiles, planar and big-endian ones too; YCbCr at 1 x 1, 2 x 2 and 4 x 2),
+    ICO and CUR, JPEG 2000 (JP2 and J2K, both wavelets, every progression
+    order, the modes Pillow writes, YCbCr and sYCC), arithmetic-coded JPEG
+    (sequential and progressive, restarts, DAC);
     each decode timed, 512² ones included, and held to the plain decoders
-    byte for byte where there are any), the
+    byte for byte where there are any, but for the 512² arithmetic-coded
+    one, ``LOADER_C_ONLY``), the
     failed-URL JSON, a warm re-read by a second instance (each record
     the decode of its cache file), and the cold ``precache_dataset`` time
     of the two 512² fixtures (``LOADER_WEB_FIXTURES``) served over the same
@@ -2970,6 +3004,8 @@ def phase_laion_loader() -> dict:
                                                   pillow[fixture]["rgb64_sha256"]):
                     problems.append(f"{fixture}: decode or resize differs from Pillow's")
                 # The C decoders against their plain versions, byte for byte.
+                if fixture in LOADER_C_ONLY:
+                    continue
                 t1 = time.perf_counter()
                 plain = _plain_decode(fixtures[fixture])
                 plain_decode_s[fixture] = time.perf_counter() - t1
@@ -3012,6 +3048,9 @@ def phase_laion_loader() -> dict:
               "web_decode_s": {k: decode_s[k] for k in LOADER_WEB_FIXTURES},
               # A 512² JPEG 2000 (9/7, 12:1) beside the 512² JPEG and WebP.
               "jp2_512_decode_s": decode_s[LOADER_JP2_512],
+              # The arithmetic-coded progressive JPEG (C only), the YCbCr JP2
+              # and the 2 x 2 YCbCr TIFF, each 512².
+              "new_512_decode_s": {k: decode_s[v] for k, v in LOADER_NEW_512.items()},
               "jpeg2000_decode_s": {k: v for k, v in decode_s.items()
                                     if k.endswith((".jp2", ".j2k"))},
               "web_plain_decode_s": {k: plain_decode_s[k] for k in LOADER_WEB_FIXTURES},
@@ -3023,7 +3062,7 @@ def phase_laion_loader() -> dict:
     return fields
 
 
-def phase_laion_train() -> dict:
+def phase_laion_train(cache_dir: str | None = None) -> dict:
     """``experiments.conditional_diffusion_laion.run`` at the published
     recipe (``laion_diffusion_1000ep.json``), resident with graph replays,
     cut to 800 records and 2 epochs; the q_sample kernel's launches counted
@@ -3033,7 +3072,7 @@ def phase_laion_train() -> dict:
             num_epochs=LAION_EPOCHS, n_records=LAION_RECORDS,
             sample_every_batches=LAION_SAMPLE_EVERY, sample_every_epochs=LAION_EPOCHS,
             out_dir=os.path.join(tmp, "out"), model_save_path=os.path.join(tmp, "ckpt"),
-            **_record_cache(tmp))
+            **_record_cache(tmp, cache_dir))
         _set_default_tf32()  # run() must turn TF32 off itself
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3345,7 +3384,7 @@ def phase_dp() -> dict:
 # slices' summation orders alone parted a conv weight's gradient behind a
 # BatchNorm by up to 2.2e-3. ``shard_width_reference`` reports the plain
 # one-process step's gap to the sliced one.
-TP_STEPS, TP_BATCH, TP_LR = 5, 128, 1e-3
+TP_STEPS, TP_BATCH, TP_LR = 3, 128, 1e-3
 TP_DTYPES = ("float32", "bfloat16")
 TP_GRAD_RTOL = {"float32": 1e-3, "bfloat16": 1e-1}
 TP_GRAD_FLOOR = 1e-2
@@ -3869,7 +3908,7 @@ def _laion_serve_chains() -> dict:
             "bf16_mean_abs": bf16.mean().item(), "range": [ref.min().item(), ref.max().item()]}
 
 
-def _laion_guided(tmp: str) -> dict:
+def _laion_guided(tmp: str, cache_dir: str | None = None) -> dict:
     """A checkpoint trained for a few steps at the recipe with caption
     dropout 0.1, served with guidance 2 (DDIM-50): the guided grid against
     the same request at guidance 1."""
@@ -3877,7 +3916,7 @@ def _laion_guided(tmp: str) -> dict:
         num_epochs=1, n_records=LAION_GUIDED_RECORDS, max_steps_per_epoch=LAION_GUIDED_STEPS,
         caption_dropout=0.1, guidance_scale=2.0, sample_every_batches=0,
         sample_every_epoch=False, out_dir=os.path.join(tmp, "guided"),
-        model_save_path=os.path.join(tmp, "guided", "ckpt"), **_record_cache(tmp))
+        model_save_path=os.path.join(tmp, "guided", "ckpt"), **_record_cache(tmp, cache_dir))
     trained = conditional_diffusion_laion.run(config)
     argv = ["--checkpoint", config.model_save_path, "--device", "cuda", "--sampler", "ddim",
             "--sample-steps", "50", "--out", os.path.join(tmp, "guided.png")]
@@ -3894,7 +3933,7 @@ def _laion_guided(tmp: str) -> dict:
             "mean_abs_vs_unguided": (images - plain["images"]).abs().mean().item()}
 
 
-def phase_laion_serve() -> dict:
+def phase_laion_serve(cache_dir: str | None = None) -> dict:
     """``generate_laion.main`` on the committed checkpoint (the four
     prompts, bf16 forward, fp32 chain): each request twice, the warm latency
     and model forwards; DDIM-10 chains card against CPU; then a guided
@@ -3928,7 +3967,7 @@ def phase_laion_serve() -> dict:
         fields["chains"] = chains
         if any(_launches().values()):
             problems.append(f"LAION serving launched a hand-written kernel: {_launches()}")
-        fields["guided"] = _laion_guided(tmp)
+        fields["guided"] = _laion_guided(tmp, cache_dir)
         if not fields["guided"]["ok"]:
             problems.append(f"guided checkpoint: {fields['guided']}")
     fields.update(f32_atol=LAION_SERVE_F32_ATOL, bf16_mean_abs_bound=LAION_SERVE_BF16_MEAN_ABS)
@@ -4505,7 +4544,7 @@ def phase_laion_sd_serve(model, schedule, codec, clip_encoder) -> dict:
     return fields
 
 
-def phase_laion_clip_run(clip_dir: str) -> dict:
+def phase_laion_clip_run(clip_dir: str, cache_dir: str | None = None) -> dict:
     """The normal entry points on CLIP: ``python -m
     tinydiffusion_torch.experiments.conditional_diffusion_laion
     --text-encoder clip --clip-local-dir DIR`` cut to 1 epoch of 20 steps,
@@ -4518,7 +4557,7 @@ def phase_laion_clip_run(clip_dir: str) -> dict:
                  "--max-steps-per-epoch", str(LAION_CLIP_STEPS), "--n-records",
                  str(LAION_CLIP_RECORDS), "--sample-every-epoch", "false",
                  "--out-dir", os.path.join(tmp, "out"), "--model-save-path", ckpt,
-                 *(f for k, v in _record_cache(tmp).items()
+                 *(f for k, v in _record_cache(tmp, cache_dir).items()
                    for f in (f"--{k.replace('_', '-')}", v))]
         serve = [sys.executable, "-m", "tinydiffusion_torch.generate_laion", "--checkpoint", ckpt,
                  "--sampler", "ddim", "--sample-steps", "50", "--out",
@@ -4608,7 +4647,8 @@ _OUTSIDE_STEPS = {
 
 
 def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
-                    image_size: int = 256, checkpoint_dir: str | None = None) -> dict:
+                    image_size: int = 256, checkpoint_dir: str | None = None,
+                    cache_dir: str | None = None) -> dict:
     """The conv-VAE's ``run()`` at full width on the card, with the kernel
     launches counted over exactly that run: ``vae_train`` (the default, the
     set resident and each step a graph replay), ``vae_train_host`` (batches
@@ -4616,20 +4656,24 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
     bf16 kernels only); at ``image_size=512`` or ``1024``, ``vae512_train``
     and ``vae512_train_bf16`` (resident), or ``vae1024_...``, the checkpoint
     left in ``checkpoint_dir`` when one is given. The records' JPEG cache
-    and failed-URL list go into the run's temporary directory."""
+    goes into ``cache_dir`` (a run of its size before may have filled it:
+    the records are then read warm, decoded) or else into the run's
+    temporary directory, as does the failed-URL list."""
     phase = {("auto", "float32"): "vae_train", ("host", "float32"): "vae_train_host",
              ("auto", "bfloat16"): "vae_train_bf16"}[placement, compute_dtype]
     if image_size != 256:
         phase = phase.replace("vae_", f"vae{image_size}_")
-    n_records, n_epochs, max_steps = VAE_RUNS[image_size]
+    n_records, n_epochs, max_steps = VAE_RUNS[image_size, compute_dtype]
     with tempfile.TemporaryDirectory() as tmp:
         config = vae_laion.VAELaionConfig(
             image_size=image_size, n_records=n_records, epochs=n_epochs, log_interval=10,
             max_steps_per_epoch=max_steps, data_placement=placement,
             compute_dtype=compute_dtype, out_dir=os.path.join(tmp, "out"),
-            image_cache_dir=os.path.join(tmp, "laion"),
+            image_cache_dir=cache_dir or os.path.join(tmp, "laion"),
             failed_urls_cache=os.path.join(tmp, "failed_urls.json"),
             checkpoint_dir=checkpoint_dir or os.path.join(tmp, "ckpt"), device="cuda")
+        warm_cache = (os.path.isdir(config.image_cache_dir)
+                      and len(os.listdir(config.image_cache_dir)) == n_records)
         _set_default_tf32()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4695,18 +4739,27 @@ def phase_vae_train(placement: str = "auto", compute_dtype: str = "float32",
         cached = len(os.listdir(config.image_cache_dir))
         if cached != config.n_records:
             raise RuntimeError(f"{phase}: {cached} cached records of {config.n_records}")
+        # A warm cache: every record its cache file's decode, nothing fetched.
+        reads = {k: parts[k]["calls"] for k in ("fetch", "cache_write", "cache_read")}
+        if reads != ({"fetch": 0, "cache_write": 0, "cache_read": n_records} if warm_cache
+                     else {"fetch": n_records, "cache_write": n_records, "cache_read": 0}):
+            raise RuntimeError(f"{phase}: warm cache {warm_cache}, record reads {reads}")
         want += [os.path.join(config.checkpoint_dir, "vae_laion_best" + ext)
                  for ext in (".pt", ".npz", ".json")]
         missing = [os.path.relpath(p, tmp) for p in want if not os.path.getsize(p) > 0]
         if missing:
             raise RuntimeError(f"{phase}: missing outputs {missing}")
-        warm = result["epochs"][-1]
+        # A run of one epoch has no warm epoch: its steps hold the eager
+        # warm-ups and the capture (epoch_step_ms has them all).
+        warm = result["epochs"][-1] if n_epochs > 1 else None
         fields = {
             "image_size": config.image_size, "batch": config.batch_size, "steps": steps,
             "placement": placement, "compute_dtype": compute_dtype, "graph": graph,
             "launches": launches, "launches_by_width": _launches_by_width(), "wall_s": wall_s,
-            "warm_step_ms": 1e3 * warm["train_seconds"] / warm["steps"],
-            "warm_images_per_sec": warm["images_per_sec"],
+            "warm_cache": warm_cache,
+            "epoch_step_ms": [1e3 * e["train_seconds"] / e["steps"] for e in result["epochs"]],
+            "warm_step_ms": warm and 1e3 * warm["train_seconds"] / warm["steps"],
+            "warm_images_per_sec": warm and warm["images_per_sec"],
             "first_epoch_images_per_sec": result["epochs"][0]["images_per_sec"],
             "first_loss": batches[0]["batch_train_loss"],
             "last_loss": batches[-1]["batch_train_loss"],
@@ -5218,7 +5271,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
+    t_start = _last_emit[0] = time.perf_counter()
     os.chdir(REPO)  # the committed latent sidecars name their VAE from the repo root
     device = phase_device()
     phase_build()
@@ -5240,7 +5293,10 @@ def main() -> int:
     latents = {backbone: phase_latent_train(backbone, data_root)
                for backbone in LATENT_CHECKPOINTS}
     phase_laion_loader()
-    laion = phase_laion_train()
+    # One LAION record cache at 256² for the LAION runs, filled by the first
+    # (cold: each record fetched and encoded), read warm by the later ones.
+    laion_records = tempfile.TemporaryDirectory()
+    laion = phase_laion_train(laion_records.name)
     phase_resident_parity()
     phase_resident_restore()
     phase_cond_parity()
@@ -5253,7 +5309,7 @@ def main() -> int:
     phase_sample()
     phase_serve()
     phase_latent_serve()
-    phase_laion_serve()
+    phase_laion_serve(laion_records.name)
     chain_graph = phase_chain_graph()
     phase_fid_mnist(data_root)
     data_dir.cleanup()
@@ -5269,26 +5325,33 @@ def main() -> int:
         sd_launches = sd_train["qsample_launches"]
         phase_laion_sd_serve(sd_train["model"], sd_train["schedule"], sd_codec, clip["encoder"])
         del sd_train, clip
-        phase_laion_clip_run(clip_dir)
+        phase_laion_clip_run(clip_dir, laion_records.name)
+    laion_records.cleanup()
     bwd_sites = phase_flash_bwd_kernel()
     bwd_bf16_sites = phase_flash_bwd_kernel(torch.bfloat16)
     phase_flash_autograd()
-    vae = phase_vae_train()
-    phase_vae_train("host")
-    vae_bf16 = phase_vae_train("auto", "bfloat16")
+    # One record cache a conv-VAE image size: the first run of a size fills
+    # it, the later ones read it warm.
+    vae_records = tempfile.TemporaryDirectory()
+    cache = {size: os.path.join(vae_records.name, str(size)) for size, _ in VAE_RUNS}
+    vae = phase_vae_train(cache_dir=cache[256])
+    phase_vae_train("host", cache_dir=cache[256])
+    vae_bf16 = phase_vae_train("auto", "bfloat16", cache_dir=cache[256])
     phase_vae_resident_parity()
     phase_vae_resident_full()
     phase_vae_train_parity()
     # The conv-VAE at 512²: every attention site on the flash path, dec_attn0
     # on the (16, 128) kernels; the float32 run's checkpoint served after.
     with tempfile.TemporaryDirectory() as vae512_dir:
-        vae512 = phase_vae_train("auto", "float32", image_size=512, checkpoint_dir=vae512_dir)
-        vae512_bf16 = phase_vae_train("auto", "bfloat16", image_size=512)
+        vae512 = phase_vae_train("auto", "float32", image_size=512, checkpoint_dir=vae512_dir,
+                                 cache_dir=cache[512])
+        vae512_bf16 = phase_vae_train("auto", "bfloat16", image_size=512, cache_dir=cache[512])
         vae512_serve = phase_vae512_serve(os.path.join(vae512_dir, "vae_laion_best"))
     # The conv-VAE at 1024²: enc_attn0 at N = 262144, which the backward's
     # O(N) dq scratch lets train on the card.
-    vae1024 = phase_vae_train("auto", "float32", image_size=1024)
-    vae1024_bf16 = phase_vae_train("auto", "bfloat16", image_size=1024)
+    vae1024 = phase_vae_train("auto", "float32", image_size=1024, cache_dir=cache[1024])
+    vae1024_bf16 = phase_vae_train("auto", "bfloat16", image_size=1024, cache_dir=cache[1024])
+    vae_records.cleanup()
     main_site = sites[0]  # N = 16384: the largest share of the kernel's work
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # fp32_core_bound_ms and sfu_ms are worked out, not measured: they stay in the
@@ -5397,6 +5460,7 @@ def main() -> int:
     if args.profile:
         phase_profile()
     emit("done", total_s=time.perf_counter() - t_start)
+    print(json.dumps({"phase": "phase_seconds", **PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

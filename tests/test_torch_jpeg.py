@@ -154,8 +154,10 @@ def test_decode_jpeg_takes_1x2_luma_sampling():
 def test_decode_jpeg_round_trips_the_encoder_and_refuses_other_files():
     """``decode_jpeg(encode_jpeg(x))`` is ``jpeg_round_trip(x)``; progressive
     and CMYK files decode as Pillow decodes them (``test_torch_decoders.py``
-    holds every variant); arithmetic-coded, lossless, 12-bit, truncated and
-    non-JPEG data raise ValueError with the reason."""
+    holds every variant); arithmetic-coded lossless, lossless, 12-bit,
+    truncated and non-JPEG data raise ValueError with the reason
+    (arithmetic-coded sequential and progressive files decode:
+    ``test_torch_arith_jpeg.py``)."""
     image = laion.synthesize_image(3, 96)[0]
     np.testing.assert_array_equal(decode_jpeg(encode_jpeg(image)), jpeg_round_trip(image))
     progressive = _pillow_file(image, progressive=True)
@@ -165,7 +167,7 @@ def test_decode_jpeg_round_trips_the_encoder_and_refuses_other_files():
     np.testing.assert_array_equal(decode_jpeg(cmyk.getvalue()), _pillow_read(cmyk.getvalue()))
     baseline = encode_jpeg(image)
     sof = baseline.index(b"\xff\xc0")
-    for marker, reason in ((0xC9, "arithmetic-coded"), (0xC3, "lossless")):
+    for marker, reason in ((0xCB, "arithmetic-coded lossless"), (0xC3, "lossless")):
         with pytest.raises(ValueError, match=reason):
             decode_jpeg(baseline[:sof + 1] + bytes([marker]) + baseline[sof + 2:])
     with pytest.raises(ValueError, match="12-bit"):

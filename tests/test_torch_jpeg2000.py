@@ -171,13 +171,17 @@ def test_decode_image_dispatches_both_signatures():
 
 
 def test_what_the_port_refuses_it_names():
-    """Pillow reads a YCbCr JPEG 2000 (an sYCC colour space) through its own
-    YCbCr conversion, which the port does not carry: refused by name, as are
-    the BYPASS code-block style and a progression order change (POC)."""
-    ycc = _saved(Image.fromarray(_image((21, 30), 21)).convert("YCbCr"))
-    assert Image.open(io.BytesIO(ycc)).convert("RGB").size == (30, 21)
-    with pytest.raises(ValueError, match="sycc colour space"):
-        laion.decode_image(ycc)
+    """An e-sYCC JPEG 2000 (a YCbCr JP2's ``colr`` box patched to 24),
+    which Pillow refuses too ("broken data stream"), is refused by name, as
+    are the BYPASS code-block style and a progression order change (POC).
+    (A YCbCr JP2, sYCC, is read since: ``test_torch_ycbcr.py``.)"""
+    ycc = bytearray(_saved(Image.fromarray(_image((21, 30), 21)).convert("YCbCr")))
+    at = ycc.index(b"colr")
+    ycc[at + 7:at + 11] = (24).to_bytes(4, "big")
+    with pytest.raises(OSError, match="broken data stream"):
+        Image.open(io.BytesIO(bytes(ycc))).convert("RGB")
+    with pytest.raises(ValueError, match="eycc colour space"):
+        laion.decode_image(bytes(ycc))
     j2k = bytearray(_saved(Image.fromarray(_image((21, 30), 21)), no_jp2=True))
     cod = j2k.find(b"\xff\x52")
     j2k[cod + 4 + 8] |= 0x01  # SPcod's code-block style: BYPASS

@@ -54,7 +54,7 @@ def size_fields(data: bytes) -> set[int]:
     if data[:2] == b"\xff\xd8":  # the marker segments up to the frame's
         k = 2
         while k + 9 <= len(data) and data[k] == 0xFF:
-            if data[k + 1] in (0xC0, 0xC1, 0xC2):
+            if data[k + 1] in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
                 found |= set(range(k + 5, k + 9))
                 break
             k += 2 + int.from_bytes(data[k + 2:k + 4], "big")

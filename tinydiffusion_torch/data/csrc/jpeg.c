@@ -19,6 +19,7 @@
      coefficient in `coef`, its blocks a row in `coef`, h, v (1 for a
      one-component scan), DC table, AC table (indices into `luts`, -1: none). */
 #include <stdlib.h>
+#include <string.h>
 
 #include "decode.h"
 
@@ -242,6 +243,303 @@ int tdt_jpeg_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
                 }
             }
         }
+        done += count;
+    }
+    return done < n_mcus ? TDT_ERR_SEGMENTS : TDT_OK;
+}
+
+/* ---- arithmetic coding: data/jpeg.py::_decode_arith_scan --------------------
+
+   tdt_jpeg_arith_scan decodes one arithmetic-coded scan (libjpeg's jdarith.c:
+   T.81 Annex D's QM decoder, F.1.4.4 and G.1.3) into the same coefficient
+   blocks as tdt_jpeg_scan, from the same segments and geom, whose DC and AC
+   table slots here name conditioning tables (0-15, -1: none). cond: L of each
+   of the 16 DC tables, U of each, Kx of each AC table (DAC). Each scan and
+   restart segment starts with zeroed statistics, DC predictions and
+   conditioning of 0 and two fresh bytes; past a segment's end the decoder
+   reads zeros (the marker that ends it), unless last_open says the file
+   itself ends after the last segment: a read past it is then
+   TDT_ERR_TRUNCATED. fetched[s]: the bytes segment s's decoder asked for
+   (past its length: it read the marker), for the caller's check of where
+   libjpeg read. */
+
+/* jaricom.c's jpeg_aritab: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7
+   | Next_Index_LPS; entry 113 is the fixed estimate of 0.5. */
+static const uint32_t ARITAB[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
+#define ARITH_FIXED 113
+#define DC_BINS 64
+#define AC_BINS 256
+#define ARITH_TABLES 16
+
+typedef struct {
+    const uint8_t *p;
+    int64_t n, pos;
+    int open_end;
+    int64_t c, a;
+    int ct;
+    int err; /* set once: a read past an open end */
+} arith_t;
+
+static void arith_init(arith_t *d, const uint8_t *p, int64_t n, int open_end) {
+    d->p = p, d->n = n, d->pos = 0, d->open_end = open_end;
+    d->c = 0, d->a = 0, d->ct = -16, d->err = 0;
+}
+
+/* jdarith.c's arith_decode: one binary decision from the bin *st. */
+static int arith_decode(arith_t *d, uint8_t *st) {
+    while (d->a < 0x8000) {
+        if (--d->ct < 0) {
+            int byte = 0;
+            if (d->pos < d->n) {
+                byte = d->p[d->pos];
+            } else if (d->open_end) {
+                d->err = 1;
+            }
+            d->pos++;
+            d->c = (d->c << 8) | byte;
+            if ((d->ct += 8) < 0 && ++d->ct == 0) d->a = 0x8000;
+        }
+        d->a <<= 1;
+    }
+    int sv = *st;
+    uint32_t e = ARITAB[sv & 0x7F];
+    int64_t qe = e >> 16;
+    uint8_t nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    int64_t temp = d->a - qe;
+    d->a = temp;
+    temp <<= d->ct;
+    if (d->c >= temp) {
+        d->c -= temp;
+        if (d->a < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+        d->a = qe;
+    } else if (d->a < 0x8000) {
+        if (d->a < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+static inline int64_t wrap16(int64_t v) { return (int64_t)(int16_t)(uint16_t)(v & 0xFFFF); }
+
+/* A DC difference (F.19, F.21-F.24); sets *ctx by its size against L and U.
+   Returns TDT_ERR_CORRUPT on a magnitude past 15 bits. */
+static int arith_dc(arith_t *d, uint8_t *stats, int *ctx, int lower, int upper, int64_t *v) {
+    uint8_t *st = stats + *ctx;
+    if (!arith_decode(d, st)) {
+        *ctx = 0;
+        *v = 0;
+        return TDT_OK;
+    }
+    int sign = arith_decode(d, st + 1);
+    st += 2 + sign;
+    int m = arith_decode(d, st);
+    if (m) {
+        st = stats + 20;
+        while (arith_decode(d, st)) {
+            if ((m <<= 1) == 0x8000) return TDT_ERR_CORRUPT;
+            st++;
+        }
+    }
+    if (m < (1 << lower) >> 1)
+        *ctx = 0;
+    else if (m > (1 << upper) >> 1)
+        *ctx = 12 + sign * 4;
+    else
+        *ctx = 4 + sign * 4;
+    int val = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(d, st)) val |= m;
+    *v = sign ? -(int64_t)(val + 1) : (int64_t)(val + 1);
+    return TDT_OK;
+}
+
+/* An AC value whose nonzero decision was read at bin st (F.21-F.24). */
+static int arith_ac(arith_t *d, uint8_t *stats, uint8_t *fixed, uint8_t *st, int k, int kx,
+                    int64_t *v) {
+    int sign = arith_decode(d, fixed);
+    st += 2;
+    int m = arith_decode(d, st);
+    if (m && arith_decode(d, st)) {
+        m <<= 1;
+        st = stats + (k <= kx ? 189 : 217);
+        while (arith_decode(d, st)) {
+            if ((m <<= 1) == 0x8000) return TDT_ERR_CORRUPT;
+            st++;
+        }
+    }
+    int val = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(d, st)) val |= m;
+    *v = sign ? -(int64_t)(val + 1) : (int64_t)(val + 1);
+    return TDT_OK;
+}
+
+typedef struct {
+    int64_t comp, base, cols, h, v;
+    int dc, ac; /* conditioning tables, -1: none */
+} arith_member_t;
+
+/* One block of an arithmetic scan; j is its member's place in the scan. */
+static int arith_block(arith_t *d, const arith_member_t *m, int j, int progressive, int ss,
+                       int se, int ah, int al, uint8_t (*dc_stats)[DC_BINS],
+                       uint8_t (*ac_stats)[AC_BINS], uint8_t *fixed, const int64_t *cond,
+                       int64_t *last_dc, int *ctx, int64_t *c) {
+    int64_t p1 = (int64_t)1 << al, m1 = -p1, v;
+    if (!progressive || (ss == 0 && ah == 0)) {
+        int rc = arith_dc(d, dc_stats[m->dc], &ctx[j], (int)cond[m->dc],
+                          (int)cond[ARITH_TABLES + m->dc], &v);
+        if (rc) return rc;
+        last_dc[j] = (last_dc[j] + v) & 0xFFFF;
+        c[0] = wrap16(last_dc[j] << al);
+        if (progressive) return TDT_OK;
+        uint8_t *stats = ac_stats[m->ac];
+        int kx = (int)cond[2 * ARITH_TABLES + m->ac];
+        int k = 0;
+        do {
+            uint8_t *st = stats + 3 * k;
+            if (arith_decode(d, st)) break;
+            for (;;) {
+                k++;
+                if (arith_decode(d, st + 1)) break;
+                st += 3;
+                if (k >= 63) return TDT_ERR_RANGE;
+            }
+            rc = arith_ac(d, stats, fixed, st, k, kx, &v);
+            if (rc) return rc;
+            c[k] = wrap16(v);
+        } while (k < 63);
+        return TDT_OK;
+    }
+    if (ss == 0) { /* DC refinement */
+        if (arith_decode(d, fixed)) c[0] |= p1;
+        return TDT_OK;
+    }
+    uint8_t *stats = ac_stats[m->ac];
+    int kx = (int)cond[2 * ARITH_TABLES + m->ac];
+    if (ah == 0) { /* AC first */
+        for (int k = ss; k <= se; k++) {
+            uint8_t *st = stats + 3 * (k - 1);
+            if (arith_decode(d, st)) break;
+            while (!arith_decode(d, st + 1)) {
+                st += 3;
+                if (++k > se) return TDT_ERR_RANGE;
+            }
+            int rc = arith_ac(d, stats, fixed, st, k, kx, &v);
+            if (rc) return rc;
+            c[k] = wrap16(v * p1);
+        }
+        return TDT_OK;
+    }
+    /* AC refinement: EOB decisions past the previous stage's last nonzero */
+    int kex = se;
+    while (kex > 0 && !c[kex]) kex--;
+    for (int k = ss; k <= se; k++) {
+        uint8_t *st = stats + 3 * (k - 1);
+        if (k > kex && arith_decode(d, st)) break;
+        for (;;) {
+            int64_t now = c[k];
+            if (now) {
+                if (arith_decode(d, st + 2)) c[k] = wrap16(now + (now < 0 ? m1 : p1));
+                break;
+            }
+            if (arith_decode(d, st + 1)) {
+                c[k] = arith_decode(d, fixed) ? m1 : p1;
+                break;
+            }
+            st += 3;
+            if (++k > se) return TDT_ERR_RANGE;
+        }
+    }
+    return TDT_OK;
+}
+
+int tdt_jpeg_arith_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
+                        const int64_t *cond, int64_t last_open, const int64_t *geom,
+                        int64_t n_geom, int64_t *coef, int64_t coef_len, int64_t *fetched) {
+    if (n_geom < GEOM_HEAD || n_segs < 0) return TDT_ERR_ARGS;
+    int64_t n_mcus = geom[0], per = geom[1], n_members = geom[2], mcux = geom[3];
+    int progressive = geom[4] != 0;
+    int64_t ss = geom[5], se = geom[6], ah = geom[7], al = geom[8];
+    if (n_mcus < 0 || per <= 0 || mcux <= 0 || n_members < 1 || n_members > 4
+        || n_geom < GEOM_HEAD + GEOM_MEMBER * n_members || ss < 0 || se > 63 || ss > se
+        || ah < 0 || ah > 13 || al < 0 || al > 13 || (progressive && ss > 0 && n_members != 1))
+        return TDT_ERR_ARGS;
+    for (int t = 0; t < 3 * ARITH_TABLES; t++)
+        if (cond[t] < 0 || cond[t] > 255 || (t < 2 * ARITH_TABLES && cond[t] > 15))
+            return TDT_ERR_ARGS;
+    int dc_read = !progressive || (ss == 0 && ah == 0), ac_read = !progressive || ss > 0;
+    arith_member_t members[4];
+    for (int64_t j = 0; j < n_members; j++) {
+        const int64_t *g = geom + GEOM_HEAD + GEOM_MEMBER * j;
+        arith_member_t *m = &members[j];
+        m->comp = g[0], m->base = g[1], m->cols = g[2], m->h = g[3], m->v = g[4];
+        m->dc = (int)g[5], m->ac = (int)g[6];
+        if (m->comp < 0 || m->comp > 3 || m->base < 0 || m->cols <= 0 || m->h < 1 || m->h > 4
+            || m->v < 1 || m->v > 4 || m->dc < -1 || m->dc >= ARITH_TABLES || m->ac < -1
+            || m->ac >= ARITH_TABLES || (dc_read && m->dc < 0) || (ac_read && m->ac < 0))
+            return TDT_ERR_ARGS;
+    }
+    uint8_t dc_stats[ARITH_TABLES][DC_BINS], ac_stats[ARITH_TABLES][AC_BINS];
+    int64_t done = 0;
+    for (int64_t s = 0; s < n_segs && done < n_mcus; s++) {
+        if (seg_start[s] < 0 || seg_start[s + 1] < seg_start[s]) return TDT_ERR_ARGS;
+        arith_t d;
+        arith_init(&d, data + seg_start[s], seg_start[s + 1] - seg_start[s],
+                   last_open && s == n_segs - 1);
+        for (int64_t j = 0; j < n_members; j++) {
+            if (dc_read) memset(dc_stats[members[j].dc], 0, DC_BINS);
+            if (ac_read) memset(ac_stats[members[j].ac], 0, AC_BINS);
+        }
+        uint8_t fixed = ARITH_FIXED;
+        int64_t last_dc[4] = {0, 0, 0, 0};
+        int ctx[4] = {0, 0, 0, 0};
+        int64_t count = per < n_mcus - done ? per : n_mcus - done;
+        for (int64_t i = done; i < done + count; i++) {
+            int64_t mr = i / mcux, mc = i % mcux;
+            for (int64_t j = 0; j < n_members; j++) {
+                const arith_member_t *m = &members[j];
+                for (int64_t y = 0; y < m->v; y++) {
+                    for (int64_t x = 0; x < m->h; x++) {
+                        int64_t off = m->base + ((mr * m->v + y) * m->cols + mc * m->h + x) * 64;
+                        if (off < 0 || off > coef_len - 64) return TDT_ERR_ARGS;
+                        int rc = arith_block(&d, m, (int)j, progressive, (int)ss, (int)se,
+                                             (int)ah, (int)al, dc_stats, ac_stats, &fixed, cond,
+                                             last_dc, ctx, coef + off);
+                        if (d.err) return TDT_ERR_TRUNCATED;
+                        if (rc) return rc;
+                    }
+                }
+            }
+        }
+        fetched[s] = d.pos;
         done += count;
     }
     return done < n_mcus ? TDT_ERR_SEGMENTS : TDT_OK;

@@ -35,13 +35,20 @@ refinements, EOB runs) accumulates its coefficients over the scans, which
 then go through the same inverse DCT, upsampling and colour path (a complete
 file leaves libjpeg-turbo's block smoothing off). Four components are
 Adobe's inverted CMYK, or YCCK by the APP14 transform flag, converted to RGB
-as Pillow's ``CMYK;I`` raw mode and ``cmyk2rgb`` do. Arithmetic-coded,
-lossless and 12-bit files raise ``ValueError`` with the reason, as do
-truncated or corrupt ones.
+as Pillow's ``CMYK;I`` raw mode and ``cmyk2rgb`` do. Arithmetic-coded
+files (SOF9 sequential, SOF10 progressive; ``jdarith.c``: T.81 Annex D's QM
+decoder, the DC and AC statistics bins, DAC's conditioning, statistics reset
+at each restart) decode to the same coefficients, then the same pixels;
+Pillow hands libjpeg a file in 64 KiB blocks and libjpeg's arithmetic
+decoder cannot wait for the next block, so a scan that reads across one
+raises ``ValueError`` as Pillow raises. Lossless (SOF3, SOF11), hierarchical
+and 12-bit files raise ``ValueError`` with the reason, as do truncated or
+corrupt ones.
 
-``decode_jpeg`` parses the markers here and decodes each scan, the inverse
-DCT, the upsampling and the colour in C (``data/csrc/jpeg.c``), step for step
-what ``decode_jpeg_reference`` does in Python and numpy.
+``decode_jpeg`` parses the markers here and decodes each scan (Huffman:
+``tdt_jpeg_scan``; arithmetic: ``tdt_jpeg_arith_scan``), the inverse DCT, the
+upsampling and the colour in C (``data/csrc/jpeg.c``), step for step what
+``decode_jpeg_reference`` does in Python and numpy.
 """
 
 from __future__ import annotations
@@ -486,10 +493,14 @@ def _extend(extra: np.ndarray, size: np.ndarray) -> np.ndarray:
     return np.where(size == 0, 0, np.where(extra < half, extra - 2 * half + 1, extra))
 
 
-def _entropy_segments(data: bytes, pos: int) -> tuple[list[np.ndarray], int, bool]:
+def _entropy_segments(data: bytes, pos: int, reach: list | None = None
+                      ) -> tuple[list[np.ndarray], int, bool]:
     """The entropy-coded data of the scan that starts at ``pos``: its
     segments between RST markers, unstuffed, and the position of the marker
-    that ends it (``len(data)`` and False when the file ends first)."""
+    that ends it (``len(data)`` and False when the file ends first). Into
+    ``reach``, where given, goes for each segment where libjpeg's reading
+    of it stands in the file: after each of its bytes (past a stuffed zero),
+    and after the marker that ends it (None: the file ends first)."""
     arr = np.frombuffer(data, np.uint8, offset=pos)
     ff = np.nonzero(arr[:-1] == 0xFF)[0]
     nxt = arr[ff + 1]
@@ -500,11 +511,19 @@ def _entropy_segments(data: bytes, pos: int) -> tuple[list[np.ndarray], int, boo
     bounds = [0, *[int(m) for m in marks[is_rst] if m < end]]
     segments = []
     for i, start in enumerate(bounds):
-        seg = arr[start + (2 if i else 0):bounds[i + 1] if i + 1 < len(bounds) else end]
+        first = start + (2 if i else 0)
+        last = bounds[i + 1] if i + 1 < len(bounds) else end
+        seg = arr[first:last]
         while len(seg) and seg[-1] == 0xFF:  # fill bytes before the marker
             seg = seg[:-1]
         ff = np.nonzero(seg[:-1] == 0xFF)[0]
-        segments.append(np.delete(seg, ff[seg[ff + 1] == 0] + 1))  # stuffed zeros
+        stuffed = ff[seg[ff + 1] == 0] + 1
+        segments.append(np.delete(seg, stuffed))  # stuffed zeros
+        if reach is not None:
+            kept = np.delete(np.arange(len(seg)), stuffed)
+            marked = i + 1 < len(bounds) or bool(len(stop))
+            reach.append((pos + first + kept + np.isin(kept + 1, stuffed) + 1,
+                          pos + last + 2 if marked else None))
     return segments, pos + end, bool(len(stop))
 
 
@@ -628,27 +647,35 @@ def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
     return out.reshape(2 * plane.shape[0], plane.shape[1])
 
 
+# The frames read: baseline, extended sequential and progressive, Huffman
+# (SOF0-2) or arithmetic-coded (SOF9, SOF10).
+_SOF = (0xC0, 0xC1, 0xC2, 0xC9, 0xCA)
+_PROGRESSIVE_SOF, _ARITHMETIC_SOF = (0xC2, 0xCA), (0xC9, 0xCA)
 _UNSUPPORTED_SOF = {0xC3: "lossless", 0xC5: "differential sequential",
                     0xC6: "differential progressive", 0xC7: "differential lossless",
-                    0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
-                    0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded",
-                    0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded"}
+                    0xCB: "arithmetic-coded lossless",
+                    0xCD: "arithmetic-coded differential sequential",
+                    0xCE: "arithmetic-coded differential progressive",
+                    0xCF: "arithmetic-coded differential lossless"}
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """The (H, W, 3) uint8 RGB of a baseline, extended-sequential or
-    progressive Huffman JPEG, as ``Image.open(f).convert("RGB")`` gives it (Pillow 12.1,
-    libjpeg-turbo). Raises ``ValueError`` on any other kind of file, and on
-    truncated or corrupt data. The entropy-coded scans and the pixels are
-    decoded by the C library (``data/csrc/jpeg.c``, built at the first call)."""
-    return _decode(data, native=True)
+    progressive JPEG, Huffman or arithmetic-coded, as
+    ``Image.open(f).convert("RGB")`` gives it (Pillow 12.1, libjpeg-turbo).
+    Raises ``ValueError`` on any other kind of file, on truncated or corrupt
+    data, and where Pillow refuses an arithmetic-coded scan that crosses one
+    of its 64 KiB reads (``_check_pillow_blocks``). The entropy-coded scans
+    and the pixels are decoded by the C library (``data/csrc/jpeg.c``, built
+    at the first call)."""
+    return _decode(data, native=True, in_blocks=True)
 
 
 def decode_jpeg_reference(data: bytes) -> np.ndarray:
     """The plain version of ``decode_jpeg``: the same file, its scans and
     pixels decoded in Python and numpy. The tests and ``chip_smoke.py`` hold
     the C library to it."""
-    return _decode(data, native=False)
+    return _decode(data, native=False, in_blocks=True)
 
 
 def decode_jpeg_as(data: bytes, color: str, native: bool = True) -> np.ndarray:
@@ -672,7 +699,7 @@ def frame_header(data: bytes) -> tuple[int, int, list[tuple[int, int, int]]]:
         if marker == 0xFF:
             pos += 1
             continue
-        if marker in (0xC0, 0xC1, 0xC2) or marker in _UNSUPPORTED_SOF:
+        if marker in _SOF or marker in _UNSUPPORTED_SOF:
             body = data[pos + 4:pos + 2 + length]
             if length < 8 or len(body) < 6 + 3 * body[5]:
                 break
@@ -685,17 +712,23 @@ def frame_header(data: bytes) -> tuple[int, int, list[tuple[int, int, int]]]:
     raise ValueError("corrupt JPEG file: no frame header")
 
 
-def _decode(data: bytes, native: bool, color: str | None = None) -> np.ndarray:
+def _decode(data: bytes, native: bool, color: str | None = None,
+            in_blocks: bool = False) -> np.ndarray:
+    """``in_blocks``: the file as Pillow's JPEG plugin reads it, in 64 KiB
+    blocks (``_check_pillow_blocks``), not a stream libtiff holds whole."""
     try:
-        return _decode_markers(bytes(data), native, color)
+        return _decode_markers(bytes(data), native, color, in_blocks)
     except (IndexError, ZeroDivisionError) as e:  # a marker segment shorter than it says
         raise ValueError(f"corrupt JPEG file: {e!r}") from e
 
 
-def _decode_markers(data: bytes, native: bool, color: str | None = None) -> np.ndarray:
+def _decode_markers(data: bytes, native: bool, color: str | None = None,
+                    in_blocks: bool = False) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qtables, tables = {}, {}
+    # DAC's conditioning: L and U of each DC table, Kx of each AC table.
+    lower, upper, kx = ([d] * 16 for d in ARITH_DEFAULTS)
     frame, restart, adobe, jfif = None, 0, None, False
     latched = {}  # component -> its quantisation table, fixed at its first scan
     pos = 2
@@ -747,13 +780,25 @@ def _decode_markers(data: bytes, native: bool, color: str | None = None) -> np.n
                 i += 17 + sum(counts)
         elif marker == 0xDD:
             restart = int.from_bytes(body[:2], "big")
+        elif marker == 0xCC:  # DAC, as jdmarker.c's get_dac reads it
+            if len(body) % 2:
+                raise ValueError("corrupt JPEG file: a DAC segment of odd length")
+            for index, value in zip(body[::2], body[1::2]):
+                if index >= 32:
+                    raise ValueError(f"corrupt JPEG file: DAC table {index}")
+                if index >= 16:
+                    kx[index - 16] = value
+                elif value & 15 > value >> 4:
+                    raise ValueError(f"corrupt JPEG file: DAC L > U ({value:#04x})")
+                else:
+                    lower[index], upper[index] = value & 15, value >> 4
         elif marker == 0xE0 and body.startswith(b"JFIF\x00"):
             jfif = True
         elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
             adobe = body[11]
         elif marker in _UNSUPPORTED_SOF:
             raise ValueError(f"{_UNSUPPORTED_SOF[marker]} JPEG files are not supported")
-        elif marker in (0xC0, 0xC1, 0xC2):
+        elif marker in _SOF:
             if frame is not None:
                 raise ValueError("corrupt JPEG file: two frames")
             precision, height = body[0], int.from_bytes(body[1:3], "big")
@@ -778,7 +823,8 @@ def _decode_markers(data: bytes, native: bool, color: str | None = None) -> np.n
             coef = np.zeros(int(bases[-1]), np.int64)
             frame = {"height": height, "width": width, "comps": comps, "hmax": hmax,
                      "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "done": False,
-                     "progressive": marker == 0xC2, "coef_all": coef,
+                     "progressive": marker in _PROGRESSIVE_SOF,
+                     "arithmetic": marker in _ARITHMETIC_SOF, "coef_all": coef,
                      "coef_base": [int(b) for b in bases[:-1]],
                      "coef": [coef[b:b + int(np.prod(shape))].reshape(shape)
                               for b, shape in zip(bases, shapes)],
@@ -786,7 +832,9 @@ def _decode_markers(data: bytes, native: bool, color: str | None = None) -> np.n
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("corrupt JPEG file: a scan before the frame")
-            pos = _decode_scan(data, pos, body, frame, tables, qtables, latched, restart, native)
+            conditioning = (tuple(lower), tuple(upper), tuple(kx))
+            pos = _decode_scan(data, pos, body, frame, tables, qtables, latched, restart, native,
+                               conditioning, in_blocks)
         # APPn, COM and the rest carry nothing the pixels depend on.
     if frame is None or not all(frame["seen"]):
         raise ValueError("truncated JPEG file: a component was never scanned")
@@ -796,10 +844,12 @@ def _decode_markers(data: bytes, native: bool, color: str | None = None) -> np.n
 
 
 def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, qtables: dict,
-                 latched: dict, restart: int, native: bool) -> int:
+                 latched: dict, restart: int, native: bool, conditioning: tuple,
+                 in_blocks: bool = False) -> int:
     """Decode one scan into ``frame["coef"]`` (in C when ``native``); returns
     the position of the marker after its data. ``tables``: (class, id) ->
-    (counts, symbols) of each Huffman table defined so far."""
+    (counts, symbols) of each Huffman table defined so far; ``conditioning``:
+    the arithmetic coder's DAC values in force."""
     ns = body[0]
     ids = [c[0] for c in frame["comps"]]
     members = []
@@ -816,9 +866,17 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, 
                         or (ss > 0 and ns != 1)):
         raise ValueError(f"corrupt JPEG file: a progressive scan of {ss}-{se} over {ns} "
                          "components")
+    arithmetic = frame["arithmetic"]
+    if arithmetic and progressive and ((ahl >> 4 and ahl & 15 != (ahl >> 4) - 1)
+                                       or ahl & 15 > 13):
+        # jdarith.c's start_pass: a refinement's Al is its Ah less one, Al <= 13.
+        raise ValueError(f"corrupt JPEG file: a progressive scan with Ah {ahl >> 4}, Al "
+                         f"{ahl & 15}")
     for ci, td, ta in members:
-        # The tables the scan reads: DC for a first DC scan, AC for an AC scan.
-        if ((0, td) not in tables and (not progressive or (ss == 0 and ahl >> 4 == 0))
+        # The Huffman tables the scan reads: DC for a first DC scan, AC for an
+        # AC scan (an arithmetic scan's conditioning tables all have defaults).
+        if not arithmetic and (
+                (0, td) not in tables and (not progressive or (ss == 0 and ahl >> 4 == 0))
                 or (1, ta) not in tables and (not progressive or ss > 0)):
             raise ValueError("corrupt JPEG file: a scan names a Huffman table never defined")
         if ci not in latched:
@@ -826,13 +884,20 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, 
             if tq not in qtables:
                 raise ValueError("corrupt JPEG file: a component's DQT table is missing")
             latched[ci] = qtables[tq]
+    spectral = (ss, se, ahl >> 4, ahl & 15)
+    if arithmetic:
+        reach = []
+        segments, end, ended = _entropy_segments(data, pos, reach)
+        scan = _native_arith_scan if native else _decode_arith_scan
+        fetched = scan(segments, ended, members, spectral, frame, conditioning, restart)
+        if in_blocks:
+            _check_pillow_blocks(pos, reach, fetched)
+        return end
     if native:
-        return _native_scan(data, pos, members, (ss, se, ahl >> 4, ahl & 15), frame, tables,
-                            restart)
+        return _native_scan(data, pos, members, spectral, frame, tables, restart)
     luts = {key: _decode_lut(key[0], *table) for key, table in tables.items()}
     if progressive:
-        return _decode_progressive_scan(data, pos, members, (ss, se, ahl >> 4, ahl & 15),
-                                        frame, luts, restart)
+        return _decode_progressive_scan(data, pos, members, spectral, frame, luts, restart)
     comps = frame["comps"]
     if ns == 1:  # non-interleaved: one block an MCU, the component's own blocks
         ci = members[0][0]
@@ -891,13 +956,11 @@ _SCAN_ERRORS = {
 }
 
 
-def _native_scan(data: bytes, pos: int, members: list, spectral: tuple, frame: dict,
-                 tables: dict, restart: int) -> int:
-    """One scan through the C library's ``tdt_jpeg_scan``: what
-    ``_decode_progressive_scan`` and the sequential path of ``_decode_scan``
-    compute, into the same ``frame["coef"]``."""
-    ss, se, ah, al = spectral
-    progressive = frame["progressive"]
+def _scan_geometry(frame: dict, members: list, spectral: tuple, restart: int,
+                   slots: list) -> np.ndarray:
+    """``tdt_jpeg_scan``'s and ``tdt_jpeg_arith_scan``'s geom of a scan:
+    its MCUs, then each member's component, place and tables (``slots``:
+    a (DC, AC) pair a member, -1 for a table the scan does not read)."""
     comps = frame["comps"]
     if len(members) == 1:  # one block an MCU, the component's own grid
         ci = members[0][0]
@@ -908,27 +971,45 @@ def _native_scan(data: bytes, pos: int, members: list, spectral: tuple, frame: d
     else:
         across, n_mcus = frame["mcux"], frame["mcux"] * frame["mcuy"]
         shape = {ci: (comps[ci][1], comps[ci][2]) for ci, _, _ in members}
+    geom = [n_mcus, restart or n_mcus, len(members), across, int(frame["progressive"]),
+            *spectral]
+    for (ci, _, _), pair in zip(members, slots):
+        geom += [ci, frame["coef_base"][ci], frame["coef"][ci].shape[1], *shape[ci], *pair]
+    return np.asarray(geom, np.int64)
+
+
+def _segment_buffer(segments: list) -> tuple[np.ndarray, np.ndarray]:
+    """The segments one after another, and where each starts (and the end)."""
+    starts = np.cumsum([0] + [len(seg) for seg in segments]).astype(np.int64)
+    return (np.concatenate(segments) if segments else np.zeros(1, np.uint8)), starts
+
+
+def _native_scan(data: bytes, pos: int, members: list, spectral: tuple, frame: dict,
+                 tables: dict, restart: int) -> int:
+    """One scan through the C library's ``tdt_jpeg_scan``: what
+    ``_decode_progressive_scan`` and the sequential path of ``_decode_scan``
+    compute, into the same ``frame["coef"]``."""
+    ss, se, ah, al = spectral
+    progressive = frame["progressive"]
     # The tables each kind of scan reads; a progressive DC scan reads a
     # component's table from its last member, as the plain version does.
     last_dc = {ci: td for ci, td, _ in members}
-    keys = []
-    geom = [n_mcus, restart or n_mcus, len(members), across, int(progressive), ss, se, ah, al]
+    keys, slots = [], []
     for ci, td, ta in members:
         dc = (0, last_dc[ci] if progressive else td) if not progressive or (
             ss == 0 and ah == 0) else None
         ac = (1, ta) if not progressive or ss > 0 else None
-        slots = []
+        pair = []
         for key in (dc, ac):
             if key is not None and key not in keys:
                 keys.append(key)
-            slots.append(-1 if key is None else keys.index(key))
-        geom += [ci, frame["coef_base"][ci], frame["coef"][ci].shape[1], *shape[ci], *slots]
+            pair.append(-1 if key is None else keys.index(key))
+        slots.append(pair)
+    geom = _scan_geometry(frame, members, spectral, restart, slots)
     luts = (np.stack([_packed_lut(*tables[key]) for key in keys]) if keys
             else np.zeros((1, 1 << 16), np.uint16))
     segments, end, ended = _entropy_segments(data, pos)
-    starts = np.cumsum([0] + [len(seg) for seg in segments]).astype(np.int64)
-    buf = np.concatenate(segments) if segments else np.zeros(1, np.uint8)
-    geom = np.asarray(geom, np.int64)
+    buf, starts = _segment_buffer(segments)
     coef = frame["coef_all"]
     rc = _native.library().tdt_jpeg_scan(
         _native.ptr(buf), _native.ptr(starts), len(segments), _native.ptr(luts), len(keys),
@@ -1118,6 +1199,340 @@ def _decode_progressive_scan(data: bytes, pos: int, members: list, spectral: tup
         frame["seen"][ci] = True
     frame["done"] = all(frame["seen"])
     return end
+
+
+# --- arithmetic coding: T.81 Annex D's QM decoder, F.1.4.4 and G.1.3 (jdarith.c) ----
+
+# Table D.2 (jaricom.c's jpeg_aritab): each state's Qe, its next state after
+# an LPS and after an MPS, and whether an LPS switches the MPS sense. State
+# 113 is T.851's fixed estimate of 0.5, which codes the signs of AC values and
+# the refinement bits of DC and new AC coefficients.
+_ARITH_STATES = (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0),
+)
+# A statistics bin holds its state in bits 0-6 and the MPS in bit 7; an
+# LPS's next state carries the switch in bit 7, as jaricom.c packs them.
+_QE = tuple(s[0] for s in _ARITH_STATES)
+_NEXT_LPS = tuple(s[1] | s[3] << 7 for s in _ARITH_STATES)
+_NEXT_MPS = tuple(s[2] for s in _ARITH_STATES)
+ARITH_FIXED_STATE = 113
+# Statistics bins a DC and an AC conditioning table (jdarith.c), and DAC's
+# defaults (L, U for DC; Kx for AC).
+_DC_BINS, _AC_BINS = 64, 256
+ARITH_DEFAULTS = (0, 1, 5)
+
+
+def _wrap16(v: int) -> int:
+    """libjpeg's store of an int into a JCOEF (16 bits, two's complement)."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+class _ArithDecoder:
+    """jdarith.c's ``arith_decode`` over one restart segment (unstuffed): the
+    C and A registers and the bit counter CT, two bytes read first. Past the
+    segment's end it reads zeros, as libjpeg does once it meets the marker
+    that ends the segment; where the file itself ends there (``open_end``)
+    a read past it is the truncation libjpeg cannot suspend over."""
+
+    def __init__(self, seg: np.ndarray, open_end: bool):
+        self.seg, self.n, self.pos, self.open_end = seg.tolist(), len(seg), 0, open_end
+        self.c, self.a, self.ct = 0, 0, -16
+
+    def __call__(self, stats: list, i: int) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:  # renormalization and data input, D.2.6
+            ct -= 1
+            if ct < 0:
+                if self.pos < self.n:
+                    byte = self.seg[self.pos]
+                elif self.open_end:
+                    raise ValueError("truncated JPEG file")
+                else:
+                    byte = 0
+                self.pos += 1
+                c = c << 8 | byte
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:  # the two first bytes read
+                        a = 0x8000
+            a <<= 1
+        sv = stats[i]
+        qe = _QE[sv & 127]
+        a -= qe
+        temp = a << ct
+        if c >= temp:  # D.2.4 and D.2.5, with the conditional exchanges
+            c -= temp
+            if a < qe:
+                stats[i] = (sv & 128) ^ _NEXT_MPS[sv & 127]
+            else:
+                stats[i] = (sv & 128) ^ _NEXT_LPS[sv & 127]
+                sv ^= 128
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                stats[i] = (sv & 128) ^ _NEXT_LPS[sv & 127]
+                sv ^= 128
+            else:
+                stats[i] = (sv & 128) ^ _NEXT_MPS[sv & 127]
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+_MAGNITUDE_ERROR = "corrupt JPEG data: an arithmetic-coded magnitude past 15 bits"
+_SPECTRAL_ERROR = "corrupt JPEG data: a coefficient past the block's 64"
+
+
+def _arith_dc(dec, stats: list, context: list, j: int, lower: int, upper: int) -> int:
+    """A DC difference (F.1.4.4.1, Figures F.19 and F.21-F.24), from the bins
+    of ``stats`` at the member's conditioning ``context[j]``, which it then
+    sets by the difference's size against ``(1 << L) >> 1`` and ``(1 << U) >> 1``."""
+    st = context[j]
+    if not dec(stats, st):
+        context[j] = 0
+        return 0
+    sign = dec(stats, st + 1)
+    st += 2 + sign
+    m = dec(stats, st)
+    if m:
+        st = 20
+        while dec(stats, st):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError(_MAGNITUDE_ERROR)
+            st += 1
+    context[j] = 0 if m < (1 << lower) >> 1 else (12 if m > (1 << upper) >> 1 else 4) + 4 * sign
+    v = m
+    st += 14
+    m >>= 1
+    while m:
+        if dec(stats, st):
+            v |= m
+        m >>= 1
+    return -(v + 1) if sign else v + 1
+
+
+def _arith_ac(dec, stats: list, fixed: list, st: int, k: int, kx: int) -> int:
+    """An AC value (F.1.4.4.2, Figures F.21-F.24) whose nonzero decision was
+    read at bin ``st``: the sign at the fixed estimate, the magnitude's
+    category from ``st + 2`` and then bin 189 (k <= Kx) or 217, its bits."""
+    sign = dec(fixed, 0)
+    st += 2
+    m = dec(stats, st)
+    if m and dec(stats, st):
+        m <<= 1
+        st = 189 if k <= kx else 217
+        while dec(stats, st):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError(_MAGNITUDE_ERROR)
+            st += 1
+    v = m
+    st += 14
+    m >>= 1
+    while m:
+        if dec(stats, st):
+            v |= m
+        m >>= 1
+    return -(v + 1) if sign else v + 1
+
+
+def _decode_arith_scan(segments: list, ended: bool, members: list, spectral: tuple,
+                       frame: dict, conditioning: tuple, restart: int) -> list[int]:
+    """Decode one arithmetic-coded scan (``jdarith.c``) from its restart
+    segments (``_entropy_segments``) into ``frame["coef"]`` (zigzag order):
+    sequential (DC and AC of each block), or one of the four progressive
+    kinds (DC first, DC refinement, AC first, AC refinement). Each scan and
+    each restart segment starts with zeroed statistics of the tables it
+    reads, DC predictions and conditioning of 0 and two fresh bytes in the
+    decoder. ``conditioning``: the DAC values, (L of each of the 16 DC
+    tables, U of each, Kx of each AC table). Returns the bytes each segment
+    decoded asked for (past its length: it read the marker)."""
+    ss, se, ah, al = spectral
+    lower, upper, kx = conditioning
+    progressive = frame["progressive"]
+    mcus, scanned = _scan_blocks(frame, members)
+    flat = {ci: frame["coef"][ci].reshape(-1).tolist() for ci in scanned}
+    slot = {ci: j for j, (ci, _, _) in enumerate(members)}
+    dc_of = {ci: td for ci, td, _ in members}
+    ac_of = {ci: ta for ci, _, ta in members}
+    reads_dc = not progressive or (ss == 0 and ah == 0)
+    reads_ac = not progressive or ss > 0
+    p1, m1 = 1 << al, -1 << al
+    per = restart or len(mcus)
+    done, fetched = 0, []
+    for s, seg in enumerate(segments):
+        if done >= len(mcus):
+            break
+        dec = _ArithDecoder(seg, not ended and s == len(segments) - 1)
+        dc_stats = {dc_of[ci]: [0] * _DC_BINS for ci in scanned} if reads_dc else {}
+        ac_stats = {ac_of[ci]: [0] * _AC_BINS for ci in scanned} if reads_ac else {}
+        fixed = [ARITH_FIXED_STATE]
+        last_dc, context = [0] * len(members), [0] * len(members)
+        for mcu in mcus[done:done + per]:
+            for ci, off in mcu:
+                coef, j = flat[ci], slot[ci]
+                if not progressive or (ss == 0 and ah == 0):
+                    td = dc_of[ci]
+                    diff = _arith_dc(dec, dc_stats[td], context, j, lower[td], upper[td])
+                    last_dc[j] = (last_dc[j] + diff) & 0xFFFF
+                    coef[off] = _wrap16(last_dc[j] << al)
+                    if progressive:
+                        continue
+                    stats, k = ac_stats[ac_of[ci]], 0
+                    while k < 63:
+                        st = 3 * k
+                        if dec(stats, st):
+                            break
+                        while True:
+                            k += 1
+                            if dec(stats, st + 1):
+                                break
+                            st += 3
+                            if k >= 63:
+                                raise ValueError(_SPECTRAL_ERROR)
+                        coef[off + k] = _wrap16(_arith_ac(dec, stats, fixed, st, k,
+                                                          kx[ac_of[ci]]))
+                elif ss == 0:  # DC refinement: the next bit of each DC value
+                    if dec(fixed, 0):
+                        coef[off] |= p1
+                elif ah == 0:  # AC first
+                    stats, k = ac_stats[ac_of[ci]], ss
+                    while k <= se:
+                        st = 3 * (k - 1)
+                        if dec(stats, st):
+                            break
+                        while not dec(stats, st + 1):
+                            st += 3
+                            k += 1
+                            if k > se:
+                                raise ValueError(_SPECTRAL_ERROR)
+                        coef[off + k] = _wrap16(
+                            _arith_ac(dec, stats, fixed, st, k, kx[ac_of[ci]]) << al)
+                        k += 1
+                else:  # AC refinement: past the previous stage's last nonzero, EOB decisions
+                    stats, k, kex = ac_stats[ac_of[ci]], ss, se
+                    while kex > 0 and not coef[off + kex]:
+                        kex -= 1
+                    while k <= se:
+                        st = 3 * (k - 1)
+                        if k > kex and dec(stats, st):
+                            break
+                        while True:
+                            c = coef[off + k]
+                            if c:  # a correction bit
+                                if dec(stats, st + 2):
+                                    coef[off + k] = _wrap16(c + (m1 if c < 0 else p1))
+                                break
+                            if dec(stats, st + 1):  # newly nonzero
+                                coef[off + k] = m1 if dec(fixed, 0) else p1
+                                break
+                            st += 3
+                            k += 1
+                            if k > se:
+                                raise ValueError(_SPECTRAL_ERROR)
+                        k += 1
+        fetched.append(dec.pos)
+        done += min(per, len(mcus) - done)
+    if done < len(mcus):
+        if ended:
+            raise ValueError("corrupt JPEG data: fewer restart segments than MCUs")
+        raise ValueError("truncated JPEG file")
+    for ci in scanned:
+        frame["coef"][ci][...] = np.array(flat[ci], np.int64).reshape(frame["coef"][ci].shape)
+        frame["seen"][ci] = True
+    frame["done"] = all(frame["seen"])
+    return fetched
+
+
+_ARITH_ERRORS = {_native.ERR_TRUNCATED: "truncated JPEG file",
+                 _native.ERR_RANGE: _SPECTRAL_ERROR, _native.ERR_CORRUPT: _MAGNITUDE_ERROR}
+
+
+def _native_arith_scan(segments: list, ended: bool, members: list, spectral: tuple,
+                       frame: dict, conditioning: tuple, restart: int) -> list[int]:
+    """One arithmetic-coded scan through the C library's
+    ``tdt_jpeg_arith_scan``: what ``_decode_arith_scan`` computes, into the
+    same ``frame["coef"]``, and the same bytes asked of each segment."""
+    ss, _, ah, _ = spectral
+    progressive = frame["progressive"]
+    reads_dc = not progressive or (ss == 0 and ah == 0)
+    reads_ac = not progressive or ss > 0
+    slots = [(td if reads_dc else -1, ta if reads_ac else -1) for _, td, ta in members]
+    geom = _scan_geometry(frame, members, spectral, restart, slots)
+    buf, starts = _segment_buffer(segments)
+    cond = np.asarray([v for table in conditioning for v in table], np.int64)
+    fetched = np.zeros(max(len(segments), 1), np.int64)
+    coef = frame["coef_all"]
+    rc = _native.library().tdt_jpeg_arith_scan(
+        _native.ptr(buf), _native.ptr(starts), len(segments), _native.ptr(cond), int(not ended),
+        _native.ptr(geom), len(geom), _native.ptr(coef), len(coef), _native.ptr(fetched))
+    if rc == _native.ERR_SEGMENTS:
+        raise ValueError("corrupt JPEG data: fewer restart segments than MCUs" if ended
+                         else "truncated JPEG file")
+    _native.check(rc, "JPEG", _ARITH_ERRORS)
+    for ci, _, _ in members:
+        frame["seen"][ci] = True
+    frame["done"] = all(frame["seen"])
+    used = -(-int(geom[0]) // int(geom[1]))
+    return [int(n) for n in fetched[:used]]
+
+
+# Pillow's ImageFile.MAXBLOCK: ``load()`` hands the JPEG decoder the file in
+# blocks of this many bytes, a block more each time libjpeg suspends.
+PILLOW_BLOCK = 65536
+
+
+def _check_pillow_blocks(pos: int, reach: list, fetched: list[int]) -> None:
+    """Refuse an arithmetic-coded scan that Pillow refuses: libjpeg's
+    arithmetic decoder cannot suspend for more data (``jdarith.c``'s
+    ``get_byte``: JERR_CANT_SUSPEND), so a scan that reads past the end of
+    the blocks Pillow has handed over when it starts fails with "broken data
+    stream". The marker reader suspends: at a scan whose data starts at
+    ``pos`` the blocks reach ``pos`` rounded up to a whole block. The scan
+    reads each segment's bytes as far as its decoder asked (``fetched``;
+    past them, the marker), and the RST marker after every segment but its
+    last (``reach``: ``_entropy_segments``'s)."""
+    blocks_end = max(PILLOW_BLOCK, -(-pos // PILLOW_BLOCK) * PILLOW_BLOCK)
+    read_to = pos
+    for s, n in enumerate(fetched):
+        after, marker = reach[s]
+        if n > len(after) or s + 1 < len(fetched):
+            read_to = max(read_to, marker)
+        elif n:
+            read_to = max(read_to, int(after[n - 1]))
+    if read_to > blocks_end:
+        raise ValueError(f"an arithmetic-coded JPEG scan that reads across byte {blocks_end}: "
+                         "Pillow hands libjpeg the file in 64 KiB blocks, and the arithmetic "
+                         "decoder cannot wait for the next one (Pillow refuses the file)")
 
 
 def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:

@@ -17,9 +17,12 @@ wrap), and the mode converted to RGB as ``convert("RGB")`` does (``I;16``
 clamped at 255, ``LA`` and ``RGBA`` their colour channels, ``CMYK`` through
 Pillow's ``cmyk2rgb``).
 
-Pillow writes JPEG 2000 in the modes L, LA, RGB, RGBA, I;16 and CMYK, and
-those are read. Refused with ``ValueError``, named: palettes (``pclr``),
-sYCC and other colour spaces Pillow's unpackers do not pair with the mode,
+Pillow writes JPEG 2000 in the modes L, LA, RGB, RGBA, I;16, CMYK and
+YCbCr, and those are read. A JP2 whose colour space is sYCC (enumerated 18,
+what Pillow writes for YCbCr) is read as RGB or RGBA through Pillow's own
+YCbCr to RGB (``j2ku_sycc_rgb``, ``j2ku_sycca_rgba``: ``data/ycbcr.py``).
+Refused with ``ValueError``, named: palettes (``pclr``), e-sYCC (24) and
+other colour spaces Pillow's unpackers do not pair with the mode,
 subsampled components, precisions over 16 bits, progression changes
 (POC), packed packet headers (PPM, PPT), the code-block styles BYPASS and
 VSC, and High Throughput codestreams. Truncated or corrupt files raise
@@ -35,6 +38,7 @@ import numpy as np
 from tinydiffusion_torch.data import native
 from tinydiffusion_torch.data.jpeg import _cmyk_to_rgb
 from tinydiffusion_torch.data.tiff import MAX_PIXELS  # Pillow's decompression-bomb limit
+from tinydiffusion_torch.data.ycbcr import pillow_ycbcr_to_rgb
 
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
@@ -52,7 +56,8 @@ C_FIELDS = C_MANT + MAX_BANDS
 _COLOURS = {16: "srgb", 17: "gray", 18: "sycc", 24: "eycc", 12: "cmyk"}
 # Pillow's unpackers this module has: (mode, colour space, components).
 _UNPACKERS = {("L", "gray", 1), ("I;16", "gray", 1), ("LA", "gray", 2), ("RGB", "srgb", 3),
-              ("RGB", "srgb", 4), ("RGBA", "srgb", 4), ("CMYK", "cmyk", 4)}
+              ("RGB", "srgb", 4), ("RGBA", "srgb", 4), ("CMYK", "cmyk", 4), ("RGB", "sycc", 3),
+              ("RGB", "sycc", 4), ("RGBA", "sycc", 4)}
 _STYLES = {0x01: "BYPASS (selective arithmetic coding bypass)",
            0x08: "VSC (vertically causal context)", 0x40: "HT (High Throughput)"}
 
@@ -420,4 +425,6 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=-1)
     if mode == "CMYK":
         return _cmyk_to_rgb(255 - np.moveaxis(planes, 0, -1).astype(np.int64))
+    if colour == "sycc":  # j2ku_sycc_rgb / j2ku_sycca_rgba: Pillow's YCbCr to RGB
+        return pillow_ycbcr_to_rgb(*planes[:3])
     return np.ascontiguousarray(np.moveaxis(planes[:3], 0, -1).astype(np.uint8))

@@ -163,12 +163,13 @@ def check_disk_space(path: str, required_bytes: int) -> None:
 
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's (H, W, 3) uint8 RGB, as Pillow's
-    ``Image.open(f).convert("RGB")``: JPEG, PNG, GIF (its first frame), BMP,
-    WebP (its first frame), TIFF (its first image), ICO and CUR (the
-    image Pillow picks) or JPEG 2000 (a JP2 file or a raw codestream), told
-    apart by their first bytes; anything else
-    raises ``ValueError``, as Pillow raises on what it cannot identify or
-    load."""
+    ``Image.open(f).convert("RGB")``: JPEG (Huffman or arithmetic-coded,
+    sequential or progressive), PNG, GIF (its first frame), BMP, WebP (its
+    first frame), TIFF (its first image; YCbCr through libtiff's conversion
+    too), ICO and CUR (the image Pillow picks) or JPEG 2000 (a JP2 file or a
+    raw codestream; sYCC too), told apart by their first bytes; anything
+    else raises ``ValueError``, as Pillow raises on what it cannot identify
+    or load."""
     if data[:2] == b"\xff\xd8":
         return decode_jpeg(data)
     if data[:8] == PNG_SIGNATURE:
@@ -185,8 +186,9 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_ico(data)
     if data[:12] == JP2_SIGNATURE or data[:4] == J2K_SIGNATURE:
         return decode_jpeg2000(data)
-    raise ValueError("cannot identify image file (the port reads JPEG, PNG, GIF, BMP, WebP, "
-                     "TIFF, ICO and JPEG 2000)")
+    raise ValueError("cannot identify image file (the port reads JPEG, Huffman or "
+                     "arithmetic-coded, PNG, GIF, BMP, WebP, TIFF, YCbCr TIFF too, ICO and "
+                     "JPEG 2000, sYCC too)")
 
 
 def _retry_after_seconds(value: str) -> float:

@@ -7,8 +7,9 @@ here, the first image of the file as Pillow opens it (``TiffImagePlugin``):
 - strips or tiles, planar configuration 1 (samples interleaved) or 2 (a
   plane a sample), rows and tiles padded as the file says;
 - compression none, PackBits, LZW (libtiff's: codes most significant bit
-  first, the code width growing one code early) and Deflate (both tags),
-  each with or without the horizontal predictor (2);
+  first, the code width growing one code early) and Deflate (both tags);
+  LZW and Deflate with or without the horizontal predictor (2), which
+  libtiff's other codecs and Pillow's raw reader ignore;
 - the modes of Pillow's ``OPEN_INFO`` that a web file carries: bilevel,
   grey of 2, 4 and 8 bits (min-is-black, or min-is-white, inverted) and of
   16 bits (clamped to 255, as Pillow converts ``I;16``), grey with alpha;
@@ -25,8 +26,11 @@ libtiff: each strip's or tile's abbreviated JPEG stream, the
 components as they are) and YCbCr (6: converted to RGB by libjpeg's
 upsampling and colour conversion, the stream's own sampling, which a
 ``YCbCrSubsampling`` field (tag 530) must agree with), strips or tiles,
-planar configuration 1. Old-style JPEG (compression 6), CCITT fax (2, 3,
-4), the other compressions, YCbCr and CIELab without JPEG, signed or
+planar configuration 1. YCbCr without JPEG (LZW, Deflate or PackBits) is
+read as Pillow reads it through libtiff's RGBA interface: the sampling
+blocks of any subsampling libtiff converts (``_ycbcr``), then libtiff's
+YCbCr to RGB (``data/ycbcr.py``). Old-style JPEG (compression 6), CCITT fax
+(2, 3, 4), the other compressions, uncompressed YCbCr, CIELab, signed or
 floating-point samples, fill order 2, the floating-point predictor and
 BigTIFF raise ``ValueError`` naming what they are, as do truncated or
 corrupt files. ``decode_tiff`` decodes LZW, PackBits and JPEG in C
@@ -43,6 +47,7 @@ import numpy as np
 
 from tinydiffusion_torch.data import jpeg, native
 from tinydiffusion_torch.data.jpeg import _cmyk_to_rgb
+from tinydiffusion_torch.data.ycbcr import LIBTIFF_LUMA, LIBTIFF_REFERENCE, LibtiffYCbCr
 
 SIGNATURES = (b"II*\x00", b"MM\x00*")
 
@@ -52,6 +57,9 @@ _TYPES = {1: (1, "u1"), 2: (1, "u1"), 3: (2, "u2"), 4: (4, "u4"), 6: (1, "i1"), 
 _REFUSED_COMPRESSION = {2: "CCITT fax (modified Huffman)", 3: "CCITT fax (group 3)",
                         4: "CCITT fax (group 4)", 6: "JPEG-in-TIFF (old-style JPEG)"}
 NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 7, 8, 32946, 32773
+# The compressions whose libtiff codec takes the horizontal predictor (and
+# Pillow reads through libtiff): elsewhere the predictor field is ignored.
+_PREDICTED = (LZW, DEFLATE, ADOBE_DEFLATE)
 # JPEG-in-TIFF: (photometric, samples a pixel) -> the streams' colour transform.
 _JPEG_COLORS = {(1, 1): "grey", (2, 3): "rgb", (6, 3): "ycc"}
 # Pillow refuses an image of more pixels (twice ``Image.MAX_IMAGE_PIXELS``:
@@ -247,6 +255,9 @@ def _decode(data: bytes, codecs: dict) -> np.ndarray:
     bits = bps[0]
     if predictor == 2 and bits < 8:
         raise ValueError("corrupt TIFF file: a horizontal predictor on sub-byte samples")
+    if photometric == 6 and compression != JPEG:
+        return _ycbcr(data, fields, order, width, height, spp, bps, planar, extra, compression,
+                      predictor, codecs)
     samples = _samples(data, fields, order, width, height, spp, bits, compression, predictor,
                        planar, codecs, color)
     if color == "ycc":  # libjpeg converted the YCbCr samples to RGB
@@ -312,7 +323,8 @@ def _samples(data, fields, order, width, height, spp, bits, compression, predict
                 unpacked = np.unpackbits(block, axis=1).reshape(rows, -1, bits)
                 unpacked = (unpacked * (1 << np.arange(bits - 1, -1, -1))).sum(-1)
                 values = unpacked[:, :cw * per_pixel].reshape(rows, cw, per_pixel)
-            if predictor == 2:  # each sample the running sum of the row's differences
+            if predictor == 2 and compression in _PREDICTED:
+                # each sample the running sum of the row's differences
                 values = np.cumsum(values, axis=1, dtype=values.dtype)
             channels = slice(plane, plane + 1) if planar == 2 else slice(0, spp)
             out[y:y + rows, x:x + cw, channels] = values
@@ -361,6 +373,122 @@ def _decompress(raw: bytes, compression: int, expected: int, codecs: dict) -> by
         except zlib.error as e:
             raise ValueError(f"corrupt TIFF data: {e}") from e
     return codecs[compression](raw, expected)
+
+
+# The YCbCrSubsampling fields (horizontal, vertical) that libtiff's RGBA
+# interface reads (tif_getimage.c's putcontig8bitYCbCr{44,42,41,22,21,12,11}tile).
+_YCBCR_SAMPLINGS = {(4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1)}
+
+
+def _rationals(fields: dict, tag: int, count: int):
+    """A RATIONAL field's values as libtiff reads them into floats
+    (``(float)num / (float)den``, 0 where the denominator is 0), or None."""
+    if tag not in fields:
+        return None
+    pairs = np.asarray(fields[tag]).reshape(-1, 2) if np.asarray(fields[tag]).ndim == 2 else None
+    if pairs is None or len(pairs) != count:
+        raise ValueError(f"unsupported TIFF file: field {tag} is not {count} rationals")
+    num, den = pairs[:, 0].astype(np.float32), pairs[:, 1].astype(np.float32)
+    return [float(n / d) if d else 0.0 for n, d in zip(num, den)]
+
+
+def _ycbcr(data: bytes, fields: dict, order: str, width: int, height: int, spp: int, bps: list,
+           planar: int, extra: list, compression: int, predictor: int,
+           codecs: dict) -> np.ndarray:
+    """A YCbCr image that is not JPEG, as Pillow reads it: through libtiff's
+    RGBA interface (``TIFFRGBAImageGet``), for Pillow's one ``OPEN_INFO``
+    key of photometric 6 (8-bit, 3 samples, no extra sample). Each strip or
+    tile is a run of sampling blocks, each the block's h x v Y samples, then
+    its Cb and Cr: Y a pixel, the chroma replicated over the block, edge
+    blocks clipped; then ``TIFFYCbCrtoRGB``. As libtiff:
+
+    - a strip is read for ``TIFFScanlineSize`` (the blocks of a row of
+      blocks over v, rounded down) times its rows rounded up to v, the bytes
+      past that zero (a 4 x 4 strip of an odd count of blocks a row loses its
+      last block's chroma);
+    - the horizontal predictor accumulates rows of that size (a tile's: its
+      width times 3), stride 3; where the size does not divide as
+      ``horAcc8`` and ``PredictorDecodeTile`` need, the rows stay as decoded
+      (libtiff reports the error, and Pillow's reader goes on); PackBits
+      takes no predictor (``_PREDICTED``);
+    - a tile clipped at the right edge skips its blocks past the edge at
+      each row of blocks, and ``putcontig8bitYCbCr44tile`` counts 10 bytes a
+      skipped block, not 18: a 4 x 4 tile clipped by 4 or more pixels is read
+      from the wrong place after its first row of blocks;
+    - in planes (planar configuration 2) only 1 x 1 subsampling converts
+      (``putseparate8bitYCbCr11tile``: a sample of each plane a pixel).
+
+    Uncompressed YCbCr is refused: Pillow reads it raw as RGBX, 4 bytes a
+    pixel, and finds the file truncated (in planes it gives the raw bytes as
+    RGB, which the port does not copy)."""
+    if spp != 3 or bps != [8, 8, 8] or extra:
+        raise ValueError(f"unsupported TIFF image: YCbCr, {spp} samples of {bps} bits, planar "
+                         f"{planar}, extra {tuple(extra)}")
+    if compression == NONE:
+        raise ValueError("unsupported TIFF image: uncompressed YCbCr (Pillow reads it as RGBX "
+                         "and refuses it as truncated)")
+    h, v = (_field(fields, 530, [2, 2]) + [0, 0])[:2]
+    if (h, v) not in _YCBCR_SAMPLINGS:
+        raise ValueError(f"unsupported TIFF YCbCr subsampling {h}x{v}")
+    luma = _rationals(fields, 529, 3)
+    reference = _rationals(fields, 532, 6)
+    convert = LibtiffYCbCr(luma or LIBTIFF_LUMA, reference or LIBTIFF_REFERENCE)
+    if planar == 2:
+        if (h, v) != (1, 1):
+            raise ValueError(f"unsupported TIFF image: YCbCr in planes at {h}x{v} subsampling")
+        planes = _samples(data, fields, order, width, height, 3, 8, compression, predictor, 2,
+                          codecs)
+        return convert(planes[..., 0], planes[..., 1], planes[..., 2])
+    offsets, counts, (tiled, cw, ch, across) = _chunks(fields, width, height)
+    down = math.ceil(height / ch)
+    if down * ch * across * cw > MAX_PIXELS:
+        raise ValueError(f"TIFF image too large: {across * cw}x{down * ch} pixels, tiles included")
+    if len(offsets) < across * down or len(counts) < len(offsets):
+        raise ValueError(f"corrupt TIFF file: {len(offsets)} chunks for {across * down}")
+    if tiled and (cw % h or ch % v):
+        raise ValueError(f"unsupported TIFF file: {cw}x{ch} tiles of {h}x{v} YCbCr blocks")
+    block = h * v + 2
+    across_blocks = -(-cw // h)
+    out = np.zeros((height, width, 3), np.uint8)
+    for index in range(across * down):
+        rows = ch if tiled else min(ch, height - index * ch)
+        block_rows = -(-rows // v)
+        full = block_rows * across_blocks * block
+        if tiled:
+            row_size = cw * 3  # TIFFTileRowSize
+            asked = full
+        else:
+            row_size = across_blocks * block // v  # TIFFScanlineSize
+            asked = block_rows * v * row_size
+        at, n = offsets[index], counts[index]
+        raw = data[at:at + n]
+        if len(raw) < n:
+            raise ValueError("truncated TIFF file: a strip or tile")
+        chunk = _decompress(raw, compression, asked, codecs)
+        if len(chunk) < asked:
+            raise ValueError("truncated TIFF data: a strip or tile decodes short")
+        flat = np.zeros(full, np.uint8)
+        flat[:asked] = np.frombuffer(chunk[:asked], np.uint8)
+        if (predictor == 2 and compression in _PREDICTED and row_size % 3 == 0
+                and asked % row_size == 0):
+            head = flat[:asked].reshape(-1, row_size // 3, 3)
+            flat[:asked] = np.cumsum(head, axis=1, dtype=np.uint8).reshape(-1)
+        # The put function's walk: each row of blocks shown, then the blocks
+        # of the chunk's clipped columns skipped, at the put's own count of
+        # bytes a block (putcontig8bitYCbCr44tile counts 10 for 4 x 4's 18).
+        top, left = (index // across) * ch, (index % across) * cw
+        shown, cols = min(rows, height - top), min(cw, width - left)
+        used = -(-cols // h)
+        skip = (cw - cols) // h * (10 if (h, v) == (4, 4) else block)
+        at = (np.arange(-(-shown // v))[:, None] * (used * block + skip)
+              + np.arange(used * block)[None, :])
+        blocks = flat[at].reshape(len(at), used, block)
+        luma_samples = blocks[..., :h * v].reshape(len(at), used, v, h)
+        y = luma_samples.transpose(0, 2, 1, 3).reshape(len(at) * v, used * h)
+        cb, cr = (np.repeat(np.repeat(blocks[..., k], v, axis=0), h, axis=1)
+                  for k in (h * v, h * v + 1))
+        out[top:top + shown, left:left + cols] = convert(y, cb, cr)[:shown, :cols]
+    return out[:height, :width]
 
 
 def _palette(fields: dict) -> np.ndarray:

@@ -191,6 +191,10 @@ DECODE_SIGNATURES: dict[str, tuple] = {
     # uint16: length << 8 | symbol), n_luts, geom (int64, data/jpeg.py::_scan_geometry),
     # n_geom, coef (int64, zigzag order), coef_len
     "tdt_jpeg_scan": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64),
+    # data, seg_start, n_segs, cond (int64: L, U of the 16 DC tables, Kx of the 16
+    # AC tables), last_open, geom (data/jpeg.py::_scan_geometry), n_geom, coef,
+    # coef_len, fetched (int64, n_segs: the bytes each segment's decoder asked for)
+    "tdt_jpeg_arith_scan": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _P),
     # coef, coef_len, qtables (64 int64 a component), geom (data/jpeg.py::_pixels),
     # n_geom, rgb (uint8), rgb_len
     "tdt_jpeg_pixels": (_P, _I64, _P, _P, _I64, _P, _I64),
