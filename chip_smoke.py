@@ -328,8 +328,11 @@ from tinydiffusion_torch.compat.clip_tokenizer import BOS_TOKEN, EOS_TOKEN, byte
 from tinydiffusion_torch.core.schedule import DiffusionSchedule
 from tinydiffusion_torch.data.device import DeviceDataset
 from tinydiffusion_torch.data import gif as gif_data
+from tinydiffusion_torch.data import identify as identify_data
 from tinydiffusion_torch.data import jpeg as jpeg_data
 from tinydiffusion_torch.data import laion as laion_data
+from tinydiffusion_torch.data import qoi as qoi_data
+from tinydiffusion_torch.data import tga as tga_data
 from tinydiffusion_torch.data import tiff as tiff_data
 from tinydiffusion_torch.data import webp as webp_data
 from tinydiffusion_torch.data.jpeg import decode_jpeg, encode_jpeg
@@ -725,13 +728,15 @@ LOADER_PILLOW = os.path.join(REPO, "tests", "fixtures", "laion_loader_pillow.jso
 # loader's rate.
 LOADER_WEB_FIXTURES = ("laion_loader_512_progressive.jpg", "laion_loader_512_lossy.webp")
 LOADER_JP2_512 = "laion_loader_512.jp2"
-# 512² files of the arithmetic-coded JPEG and the YCbCr formats, timed
-# beside the 512² JPEG; the arithmetic-coded one in C only (its plain
-# decoder is bit-serial Python, held to the C one on the small arithmetic
-# fixtures).
+# 512² files of the arithmetic-coded JPEG, the YCbCr formats, 8-bit
+# lossless JPEG, run-length TGA and QOI, timed beside the 512² JPEG; the
+# arithmetic-coded one in C only (its plain decoder is bit-serial Python,
+# held to the C one on the small arithmetic fixtures).
 LOADER_NEW_512 = {"arith_progressive": "laion_loader_512_arith_progressive.jpg",
                   "ycbcr_jp2": "laion_loader_512_ycbcr.jp2",
-                  "ycbcr_tiff": "laion_loader_512_ycbcr.tif"}
+                  "ycbcr_tiff": "laion_loader_512_ycbcr.tif",
+                  "lossless_jpeg": "laion_loader_512_lossless.jpg",
+                  "rle_tga": "laion_loader_512_rle.tga", "qoi": "laion_loader_512.qoi"}
 LOADER_C_ONLY = {LOADER_NEW_512["arith_progressive"]}
 LAION_TRAIN_STEPS, LAION_VAL_BATCHES = 80, 20
 # laion_parity: resident_parity's graph-vs-eager check on 10 LAION steps (B = 8, caption
@@ -2895,17 +2900,20 @@ def _sha(x: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
 
 
+# The plain versions of the C decoders, by the format identify_data names.
+_PLAIN_DECODERS = {"JPEG": lambda data, header: jpeg_data.decode_jpeg_reference(data),
+                   "GIF": lambda data, header: gif_data.decode_gif_reference(data),
+                   "WEBP": lambda data, header: webp_data.decode_webp_reference(data),
+                   "TIFF": lambda data, header: tiff_data.decode_tiff_reference(data),
+                   "TGA": tga_data.decode_tga_reference, "QOI": qoi_data.decode_qoi_reference}
+
+
 def _plain_decode(data: bytes) -> np.ndarray:
-    """``decode_image`` with the plain versions of the C decoders (PNG, BMP
-    and ICO have none: theirs is ``decode_image``'s)."""
-    if data[:2] == b"\xff\xd8":
-        return jpeg_data.decode_jpeg_reference(data)
-    if data[:6] in gif_data.SIGNATURES:
-        return gif_data.decode_gif_reference(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return webp_data.decode_webp_reference(data)
-    if data[:4] in tiff_data.SIGNATURES:
-        return tiff_data.decode_tiff_reference(data)
+    """``decode_image`` with the plain versions of the C decoders (PNG, BMP,
+    DIB, ICO, JPEG 2000 and Netpbm have none: theirs is ``decode_image``'s)."""
+    plugin, header = identify_data.open_image(data)
+    if plugin.name in _PLAIN_DECODERS:
+        return _PLAIN_DECODERS[plugin.name](data, header)
     return laion_data.decode_image(data)
 
 
@@ -2924,7 +2932,8 @@ def phase_laion_loader() -> dict:
     (tiles, planar and big-endian ones too; YCbCr at 1 x 1, 2 x 2 and 4 x 2),
     ICO and CUR, JPEG 2000 (JP2 and J2K, both wavelets, every progression
     order, the modes Pillow writes, YCbCr and sYCC), arithmetic-coded JPEG
-    (sequential and progressive, restarts, DAC);
+    (sequential and progressive, restarts, DAC), 8-bit lossless JPEG, TGA
+    (every mode, raw and run-length), DIB, Netpbm and QOI;
     each decode timed, 512² ones included, and held to the plain decoders
     byte for byte where there are any, but for the 512² arithmetic-coded
     one, ``LOADER_C_ONLY``), the
@@ -3048,9 +3057,12 @@ def phase_laion_loader() -> dict:
               "web_decode_s": {k: decode_s[k] for k in LOADER_WEB_FIXTURES},
               # A 512² JPEG 2000 (9/7, 12:1) beside the 512² JPEG and WebP.
               "jp2_512_decode_s": decode_s[LOADER_JP2_512],
-              # The arithmetic-coded progressive JPEG (C only), the YCbCr JP2
-              # and the 2 x 2 YCbCr TIFF, each 512².
+              # The arithmetic-coded progressive JPEG (C only), the YCbCr JP2,
+              # the 2 x 2 YCbCr TIFF, the lossless JPEG, the run-length TGA
+              # and the QOI, each 512², and their plain decodes.
               "new_512_decode_s": {k: decode_s[v] for k, v in LOADER_NEW_512.items()},
+              "new_512_plain_decode_s": {k: plain_decode_s[v] for k, v in LOADER_NEW_512.items()
+                                         if v in plain_decode_s},
               "jpeg2000_decode_s": {k: v for k, v in decode_s.items()
                                     if k.endswith((".jp2", ".j2k"))},
               "web_plain_decode_s": {k: plain_decode_s[k] for k in LOADER_WEB_FIXTURES},

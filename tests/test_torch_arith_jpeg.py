@@ -17,9 +17,9 @@ several scan scripts:
 - truncations and flipped bytes: the C decoder refuses exactly what the
   plain one refuses, and gives its bytes otherwise
   (``tests/torch_decode_fuzz_worker.py``, in a subprocess);
-- SOF11 (arithmetic lossless) is refused, as are the lossless (SOF3) and
-  12-bit (SOF1, P = 12) files the Huffman writer here makes, which Pillow
-  refuses too.
+- SOF11 (arithmetic lossless) is refused, as is a 12-bit (SOF1, P = 12)
+  file, which Pillow refuses too; the lossless (SOF3) files the writer here
+  makes (``lossless_jpeg``) decode as Pillow decodes them.
 """
 
 from tests import torch_threads  # noqa: F401  (this process's share of the cores)
@@ -567,45 +567,115 @@ def test_a_large_arithmetic_file_is_refused_as_pillow_refuses():
 
 
 
-def lossless_jpeg(grey: np.ndarray) -> bytes:
-    """An 8-bit lossless JPEG (SOF3) of a grey image: predictor 1 (the left
-    neighbour; the row above in the first column, 128 first), point transform
-    0, the differences Huffman-coded with the standard luminance DC table,
-    as T.81 Annex H codes them."""
-    g = grey.astype(np.int64)
-    pred = np.empty_like(g)
-    pred[0, 0], pred[0, 1:], pred[1:, 0], pred[1:, 1:] = 128, g[0, :-1], g[:-1, 0], g[1:, :-1]
-    code, size = jpeg._huffman_codes(*jpeg._STD_HUFFMAN[0, 0])
-    acc = nbits = 0
-    out = bytearray()
-    for v in (g - pred).reshape(-1).tolist():
-        cat = abs(v).bit_length()
-        for value, width in ((int(code[cat]), int(size[cat])),
-                             (v if v >= 0 else v + (1 << cat) - 1, cat)):
-            acc, nbits = acc << width | value, nbits + width
-        while nbits >= 8:
-            nbits -= 8
-            out.append(acc >> nbits & 255)
-            if out[-1] == 0xFF:
-                out.append(0)
-        acc &= (1 << nbits) - 1
-    if nbits:
-        out.append((acc << (8 - nbits) | (1 << (8 - nbits)) - 1) & 255)
-        if out[-1] == 0xFF:
-            out.append(0)
-    h, w = g.shape
-    counts, symbols = jpeg._STD_HUFFMAN[0, 0]
-    frame = bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes([1, 1, 0x11, 0])
-    return (b"\xff\xd8" + _segment(0xC3, frame) + _segment(0xC4, bytes([0, *counts]) + symbols)
-            + _segment(0xDA, bytes([1, 1, 0, 1, 0, 0])) + bytes(out) + b"\xff\xd9")
+def lossless_jpeg(planes, predictor: int = 1, pt: int = 0, restart: int = 0,
+                  sampling=None, marker: str = "", ids=None, interleaved: bool = True,
+                  table=None, size=None) -> bytes:
+    """An 8-bit lossless JPEG (SOF3), as T.81 Annex H codes it: ``planes``
+    a grey image, or one array a component (each at its sampling factors'
+    share of the image; the first's shape sets the image's, else ``size``,
+    (height, width)), coded as they
+    are (no colour transform). Each sample less ``pt`` low bits is predicted
+    by ``predictor`` (1-7; the first row from the left, its first sample from
+    2^(7 - pt), every first column from above), the prediction reset at each
+    of the restart intervals of ``restart`` MCUs; the differences, mod 2^16,
+    Huffman-coded with ``table`` ((counts, symbols); the standard luminance
+    DC table by default), the samples past a component's edge in an
+    interleaved MCU coded as 0. ``sampling``: (h, v) a component (1x1);
+    ``marker``: "jfif", "adobe0" or "adobe1" (an Adobe APP14 and its
+    transform flag), or none; ``ids``: the component ids (1, 2, ...);
+    ``interleaved``: one scan of all components, else a scan each."""
+    planes = [np.asarray(p) for p in planes] if isinstance(planes, (list, tuple)) else [planes]
+    n = len(planes)
+    sampling = sampling or [(1, 1)] * n
+    ids = ids or list(range(1, n + 1))
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    height, width = size or (planes[0].shape[0] * vmax // sampling[0][1],
+                             planes[0].shape[1] * hmax // sampling[0][0])
+    counts, symbols = table or jpeg._STD_HUFFMAN[0, 0]
+    code, size = jpeg._huffman_codes(counts, symbols)
+
+    def predict(x, r, c, first):
+        if first:
+            return (1 << (7 - pt)) if c == 0 else x[r, c - 1]
+        if c == 0:
+            return x[r - 1, 0]
+        ra, rb, rc = x[r, c - 1], x[r - 1, c], x[r - 1, c - 1]
+        return (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                (ra + rb) >> 1)[predictor - 1]
+
+    def scan(members):
+        one = len(members) == 1
+        grids = {ci: (1, 1) if one else sampling[ci] for ci in members}
+        if one:
+            mcux, mcuy = planes[members[0]].shape[1], planes[members[0]].shape[0]
+        else:
+            mcux, mcuy = -(-width // hmax), -(-height // vmax)
+        x = {ci: (planes[ci].astype(np.int64) >> pt) for ci in members}
+        reset_every = restart // mcux if restart else 0
+        out, acc, nbits = bytearray(), 0, 0
+
+        def put(value, width_):
+            nonlocal acc, nbits
+            acc, nbits = acc << width_ | value, nbits + width_
+            while nbits >= 8:
+                nbits -= 8
+                out.append(acc >> nbits & 255)
+                if out[-1] == 0xFF:
+                    out.append(0)
+            acc &= (1 << nbits) - 1
+
+        def flush():
+            nonlocal acc, nbits
+            if nbits:
+                put((1 << (8 - nbits)) - 1, 8 - nbits)
+
+        for m in range(mcux * mcuy):
+            if restart and m and m % restart == 0:
+                flush()
+                out.extend(bytes([0xFF, 0xD0 + (m // restart - 1) % 8]))
+            mr, mc = divmod(m, mcux)
+            for ci in members:
+                h, v = grids[ci]
+                for y in range(v):
+                    for xx in range(h):
+                        r, c = mr * v + y, mc * h + xx
+                        plane = x[ci]
+                        if r >= plane.shape[0] or c >= plane.shape[1]:
+                            diff = 0
+                        else:
+                            band = r // v
+                            first = r == 0 or (r % v == 0 and reset_every
+                                               and band % reset_every == 0)
+                            diff = (int(plane[r, c]) - int(predict(plane, r, c, first))) % 65536
+                            diff = diff - 65536 if diff > 32768 else diff
+                        cat = 16 if diff == 32768 else abs(diff).bit_length()
+                        put(int(code[cat]), int(size[cat]))
+                        if 0 < cat < 16:
+                            put(diff if diff >= 0 else diff + (1 << cat) - 1, cat)
+        flush()
+        header = bytes([len(members)]) + b"".join(bytes([ids[ci], 0]) for ci in members)
+        return (_segment(0xDA, header + bytes([predictor, 0, pt])) + bytes(out))
+
+    frame = bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big") + bytes([n])
+    frame += b"".join(bytes([ids[ci], sampling[ci][0] << 4 | sampling[ci][1], 0])
+                      for ci in range(n))
+    app = {"": b"", "jfif": _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"),
+           "adobe0": _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00"),
+           "adobe1": _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x01")}[marker]
+    dri = _segment(0xDD, restart.to_bytes(2, "big")) if restart else b""
+    scans = [scan(list(range(n)))] if interleaved else [scan([ci]) for ci in range(n)]
+    return (b"\xff\xd8" + app + _segment(0xC3, frame)
+            + _segment(0xC4, bytes([0, *counts]) + bytes(symbols)) + dri + b"".join(scans)
+            + b"\xff\xd9")
 
 
 def test_lossless_12_bit_and_arithmetic_lossless_files_are_refused_by_name():
-    """SOF11 (arithmetic lossless) and a 12-bit extended-sequential file
+    """SOF11 (arithmetic lossless: libjpeg-turbo reads none, and Pillow
+    refuses it, "broken data stream") and a 12-bit extended-sequential file
     (SOF1, P = 12: Pillow's JPEG plugin refuses it too, "cannot identify")
     raise ``ValueError`` by name in both decoders. An 8-bit lossless file
-    (SOF3) is refused by name as well; Pillow reads that one (libjpeg-turbo
-    3), which ``ROADMAP.md`` Queue 3 keeps as the next fault."""
+    (SOF3), which Pillow reads (libjpeg-turbo 3), decodes to Pillow's bytes
+    in both (``tests/test_torch_lossless_jpeg.py`` holds every kind)."""
     data = source("420")
     sof = data.index(b"\xff\xc0")
     twelve = data[:sof + 1] + b"\xc1" + data[sof + 2:sof + 4] + bytes([12]) + data[sof + 5:]
@@ -614,6 +684,8 @@ def test_lossless_12_bit_and_arithmetic_lossless_files_are_refused_by_name():
     _, arith = case_file("420_sequential")
     sof = arith.index(b"\xff\xc9")
     lossless_arith = arith[:sof + 1] + b"\xcb" + arith[sof + 2:]
+    with pytest.raises(OSError, match="broken data stream"):
+        _pillow(lossless_arith)
     grey = np.asarray(Image.fromarray(_image((45, 61), 12)).convert("L"))
     lossless = lossless_jpeg(grey)
     np.testing.assert_array_equal(_pillow(lossless)[..., 0], grey)  # Pillow's oracle
@@ -622,8 +694,7 @@ def test_lossless_12_bit_and_arithmetic_lossless_files_are_refused_by_name():
             decode(twelve)
         with pytest.raises(ValueError, match="arithmetic-coded lossless"):
             decode(lossless_arith)
-        with pytest.raises(ValueError, match="lossless JPEG"):
-            decode(lossless)
+        np.testing.assert_array_equal(decode(lossless), _pillow(lossless))
 
 
 @pytest.mark.parametrize("name", ["420_sequential_restart_dac", "422_split_dac",

@@ -432,13 +432,17 @@ def test_animated_webp_reads_its_first_frame(lossless):
 
 
 def test_decode_image_dispatches_by_magic_and_refuses_the_rest():
+    """Each format the loader reads (PPM too, since the port reads Netpbm)
+    decodes as Pillow's; what Pillow cannot identify (PAM among it) is
+    refused so."""
     rgb = _image((9, 11), 10)
     image = Image.fromarray(rgb)
     for fmt, kw in (("JPEG", {"progressive": True}), ("PNG", {}), ("GIF", {}), ("BMP", {}),
                     ("WEBP", {"lossless": True}), ("WEBP", {"quality": 60}), ("TIFF", {}),
-                    ("ICO", {"sizes": [(11, 9)]})):
+                    ("ICO", {"sizes": [(11, 9)]}), ("PPM", {})):
         _assert_pillows(_saved(image, fmt, **kw))
-    for data in (b"", b"<html>not an image</html>", _saved(image, "PPM"), b"RIFF\0\0\0\0WAVE"):
+    pam = b"P7\nWIDTH 11\nHEIGHT 9\nDEPTH 3\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n" + rgb.tobytes()
+    for data in (b"", b"<html>not an image</html>", pam, b"RIFF\0\0\0\0WAVE"):
         with pytest.raises(ValueError, match="cannot identify"):
             laion.decode_image(data)
 

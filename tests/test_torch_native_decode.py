@@ -211,13 +211,19 @@ def test_no_compiler_or_a_failed_build_raises(tmp_path, monkeypatch):
         _build.build(dataclasses.replace(_build.DECODERS, csrc=broken))
 
 
-@pytest.mark.parametrize("marker", sorted(jpeg._UNSUPPORTED_SOF))
+# A DCT file relabelled lossless (SOF3) is refused as a lossless scan of
+# predictor 0, which libjpeg-turbo refuses too.
+_REFUSED_SOF = {**jpeg._UNSUPPORTED_SOF, 0xC3: "lossless"}
+
+
+@pytest.mark.parametrize("marker", sorted(_REFUSED_SOF))
 def test_both_jpeg_decoders_refuse_the_same_kinds(marker):
-    """Arithmetic-coded, lossless and differential frames: ``ValueError``
-    with the kind, from the C path and the plain one alike."""
+    """Arithmetic-coded lossless and differential frames, and a DCT scan
+    under a lossless frame: ``ValueError`` with the kind, from the C path
+    and the plain one alike."""
     data = bytearray(_saved(_photo(16, 2), "JPEG"))
     sof = data.index(b"\xff\xc0")
     data[sof + 1] = marker
     for decode in (jpeg.decode_jpeg, jpeg.decode_jpeg_reference):
-        with pytest.raises(ValueError, match=jpeg._UNSUPPORTED_SOF[marker]):
+        with pytest.raises(ValueError, match=_REFUSED_SOF[marker]):
             decode(bytes(data))

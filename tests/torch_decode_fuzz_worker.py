@@ -22,25 +22,30 @@ import sys
 
 import numpy as np
 
-from tinydiffusion_torch.data import gif, ico, jpeg, jpeg2000, laion, tiff, webp
+from tinydiffusion_torch.data import gif, ico, identify, jpeg, jpeg2000, laion, netpbm, qoi, tga
+from tinydiffusion_torch.data import tiff, webp
 
 # The TIFF fields that size the samples' array: width, length, bits per
 # sample, samples per pixel, rows per strip, tile width and length.
 _TIFF_SIZE_TAGS = (256, 257, 258, 277, 278, 322, 323)
 
 
+# The plain versions of the C decoders, by the format ``identify`` names.
+_PLAIN = {"JPEG": lambda data, header: jpeg.decode_jpeg_reference(data),
+          "GIF": lambda data, header: gif.decode_gif_reference(data),
+          "WEBP": lambda data, header: webp.decode_webp_reference(data),
+          "TIFF": lambda data, header: tiff.decode_tiff_reference(data),
+          "TGA": tga.decode_tga_reference, "QOI": qoi.decode_qoi_reference}
+
+
 def plain(data: bytes) -> np.ndarray:
     """``decode_image`` with the plain versions of the C decoders. A format
-    with none (PNG, BMP, ICO, JPEG 2000) goes through ``decode_image``
-    itself: its mutants must raise ``ValueError`` or decode, never crash."""
-    if data[:2] == b"\xff\xd8":
-        return jpeg.decode_jpeg_reference(data)
-    if data[:6] in gif.SIGNATURES:
-        return gif.decode_gif_reference(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return webp.decode_webp_reference(data)
-    if data[:4] in tiff.SIGNATURES:
-        return tiff.decode_tiff_reference(data)
+    with none (PNG, BMP, DIB, ICO, JPEG 2000, Netpbm) goes through
+    ``decode_image`` itself: its mutants must raise ``ValueError`` or
+    decode, never crash."""
+    plugin, header = identify.open_image(data)
+    if plugin.name in _PLAIN:
+        return _PLAIN[plugin.name](data, header)
     return laion.decode_image(data)
 
 
@@ -49,12 +54,25 @@ def size_fields(data: bytes) -> set[int]:
     JPEG's SOF height and width, GIF's screen and first image descriptor,
     a VP8X canvas, VP8's and VP8L's frame sizes, TIFF's size fields (and
     where its IFD is), an icon's entry offsets and its DIBs' sizes, JPEG
-    2000's JP2 header size and its SIZ segment."""
+    2000's JP2 header size and its SIZ segment, a TGA's, a QOI's and a DIB's
+    width and height, a Netpbm file's header."""
     found = set()
+    if data[:4] == b"qoif":
+        found |= set(range(4, 12))
+    elif data[:1] == b"P" and netpbm.accept(data[:2]):
+        try:
+            found |= set(range(netpbm.open_ppm(data).info["pixels_at"]))
+        except ValueError:
+            pass
+    elif data[:4] in (b"\x28\x00\x00\x00", b"\x0c\x00\x00\x00"):
+        found |= set(range(4, 12))
+    elif data[1:3] in (b"\x00\x02", b"\x00\x0a", b"\x01\x01", b"\x01\x09", b"\x00\x03",
+                       b"\x00\x0b"):  # a TGA: its size fields
+        found |= set(range(12, 16))
     if data[:2] == b"\xff\xd8":  # the marker segments up to the frame's
         k = 2
         while k + 9 <= len(data) and data[k] == 0xFF:
-            if data[k + 1] in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            if data[k + 1] in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
                 found |= set(range(k + 5, k + 9))
                 break
             k += 2 + int.from_bytes(data[k + 2:k + 4], "big")

@@ -722,3 +722,132 @@ int tdt_jpeg_pixels(const int64_t *coef, int64_t coef_len, const int64_t *qtable
     for (int k = 0; k < 4; k++) free(planes[k]);
     return rc;
 }
+
+/* ---- lossless (SOF3): data/jpeg.py::_decode_lossless_scan -------------------
+
+   tdt_jpeg_lossless_scan decodes one Huffman-coded lossless scan (T.81
+   Annex H, as libjpeg-turbo 3's jdlhuff.c, jddiffct.c and jdlossls.c read
+   it) into the undifferenced samples of its components, before the point
+   transform. Each sample is a DC-style difference: a category 0-15 and
+   that many extra bits, or 16 with none (32768). The differences of a scan
+   are decoded first (a member's MCU holds h x v of its samples, in raster
+   order; an interleaved scan's samples past the component's width are
+   decoded and dropped), then undifferenced row by row, mod 2^16: the first
+   row of the scan, and the first row of each MCU row a restart interval
+   starts (prediction resets there), from the left neighbour, its first
+   sample from 2^(P - Pt - 1); every other row's first sample from the one
+   above, the rest by the scan's predictor (1-7) of the left (Ra), upper (Rb)
+   and upper-left (Rc) neighbours.
+
+   geom (int64), as data/jpeg.py::_lossless_geometry writes it:
+     [0] MCUs in the scan, [1] MCUs a segment, [2] members (1-4), [3] MCUs a
+     row, [4] predictor, [5] the first row's initial prediction, [6] MCU rows
+     between prediction resets (0: none after the first),
+     then for each member: offset of its first sample in `planes`, its row
+     stride, the samples a row and rows to undifference, h, v (1 for a
+     one-component scan), its table (an index into `luts`). */
+#define GEOM_LL_HEAD 7
+#define GEOM_LL_MEMBER 7
+
+int tdt_jpeg_lossless_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
+                           const uint16_t *luts, int64_t n_luts, const int64_t *geom,
+                           int64_t n_geom, int64_t *planes, int64_t planes_len) {
+    if (n_geom < GEOM_LL_HEAD || n_segs < 0 || n_luts < 1 || n_luts > MAX_LUTS)
+        return TDT_ERR_ARGS;
+    int64_t n_mcus = geom[0], per = geom[1], n_members = geom[2], mcux = geom[3];
+    int64_t predictor = geom[4], initial = geom[5], reset_rows = geom[6];
+    if (n_mcus < 0 || per <= 0 || mcux <= 0 || n_members < 1 || n_members > 4
+        || n_geom < GEOM_LL_HEAD + GEOM_LL_MEMBER * n_members || predictor < 1 || predictor > 7
+        || reset_rows < 0)
+        return TDT_ERR_ARGS;
+    huff_t tables[MAX_LUTS];
+    for (int64_t t = 0; t < n_luts; t++) huff_init(&tables[t], luts + (t << 16));
+    int64_t mcu_rows = (n_mcus + mcux - 1) / mcux;
+    int64_t base[4], stride[4], width[4], rows[4], h[4], v[4], dbase[4], total = 0;
+    const huff_t *table[4];
+    for (int64_t j = 0; j < n_members; j++) {
+        const int64_t *g = geom + GEOM_LL_HEAD + GEOM_LL_MEMBER * j;
+        base[j] = g[0], stride[j] = g[1], width[j] = g[2], rows[j] = g[3], h[j] = g[4];
+        v[j] = g[5];
+        if (base[j] < 0 || width[j] < 1 || rows[j] < 1 || h[j] < 1 || h[j] > 4 || v[j] < 1
+            || v[j] > 4 || g[6] < 0 || g[6] >= n_luts || width[j] > mcux * h[j]
+            || rows[j] > mcu_rows * v[j] || stride[j] < width[j]
+            || base[j] + (rows[j] - 1) * stride[j] + width[j] > planes_len)
+            return TDT_ERR_ARGS;
+        table[j] = &tables[g[6]];
+        dbase[j] = total;
+        total += mcu_rows * v[j] * mcux * h[j];
+    }
+    int32_t *diff = malloc((size_t)(total ? total : 1) * sizeof(int32_t));
+    if (!diff) return TDT_ERR_MEMORY;
+    int rc = TDT_OK;
+    int64_t done = 0;
+    for (int64_t s = 0; s < n_segs && done < n_mcus && rc == TDT_OK; s++) {
+        if (seg_start[s] < 0 || seg_start[s + 1] < seg_start[s]) {
+            rc = TDT_ERR_ARGS;
+            break;
+        }
+        bits_t b = {data + seg_start[s], seg_start[s + 1] - seg_start[s], 0, 0};
+        b.nbits = 8 * b.nbytes;
+        int64_t count = per < n_mcus - done ? per : n_mcus - done;
+        for (int64_t i = done; i < done + count && rc == TDT_OK; i++) {
+            int64_t mr = i / mcux, mc = i % mcux;
+            for (int64_t j = 0; j < n_members && rc == TDT_OK; j++) {
+                int64_t cols = mcux * h[j];
+                for (int64_t y = 0; y < v[j] && rc == TDT_OK; y++) {
+                    for (int64_t x = 0; x < h[j]; x++) {
+                        int sym = huff_decode(&b, table[j]);
+                        if (sym < 0 || sym > 16) {
+                            rc = TDT_ERR_CODE;
+                            break;
+                        }
+                        int32_t d = sym == 16 ? 32768 : (int32_t)extend(get_bits(&b, sym), sym);
+                        diff[dbase[j] + (mr * v[j] + y) * cols + mc * h[j] + x] = d;
+                        if (b.pos > b.nbits) {
+                            rc = TDT_ERR_TRUNCATED;
+                            break;
+                        }
+                    }
+                }
+            }
+        }
+        done += count;
+    }
+    if (rc == TDT_OK && done < n_mcus) rc = TDT_ERR_SEGMENTS;
+    for (int64_t j = 0; j < n_members && rc == TDT_OK; j++) {
+        int64_t cols = mcux * h[j];
+        for (int64_t r = 0; r < rows[j]; r++) {
+            const int32_t *d = diff + dbase[j] + r * cols;
+            int64_t *out = planes + base[j] + r * stride[j];
+            const int64_t *prev = out - stride[j];
+            int64_t band = r / v[j];
+            int first = r == 0 || (r % v[j] == 0 && reset_rows && band % reset_rows == 0);
+            int64_t ra, rb, rc_ = 0;
+            if (first) {
+                ra = (d[0] + initial) & 0xFFFF;
+                out[0] = ra;
+                for (int64_t c = 1; c < width[j]; c++) out[c] = ra = (d[c] + ra) & 0xFFFF;
+                continue;
+            }
+            rb = prev[0];
+            out[0] = ra = (d[0] + rb) & 0xFFFF;
+            for (int64_t c = 1; c < width[j]; c++) {
+                rc_ = rb;
+                rb = prev[c];
+                int64_t p;
+                switch (predictor) {
+                    case 1: p = ra; break;
+                    case 2: p = rb; break;
+                    case 3: p = rc_; break;
+                    case 4: p = ra + rb - rc_; break;
+                    case 5: p = ra + ((rb - rc_) >> 1); break;
+                    case 6: p = rb + ((ra - rc_) >> 1); break;
+                    default: p = (ra + rb) >> 1; break;
+                }
+                out[c] = ra = (d[c] + p) & 0xFFFF;
+            }
+        }
+    }
+    free(diff);
+    return rc;
+}

@@ -41,12 +41,19 @@ decoder, the DC and AC statistics bins, DAC's conditioning, statistics reset
 at each restart) decode to the same coefficients, then the same pixels;
 Pillow hands libjpeg a file in 64 KiB blocks and libjpeg's arithmetic
 decoder cannot wait for the next block, so a scan that reads across one
-raises ``ValueError`` as Pillow raises. Lossless (SOF3, SOF11), hierarchical
-and 12-bit files raise ``ValueError`` with the reason, as do truncated or
-corrupt ones.
+raises ``ValueError`` as Pillow raises. 8-bit lossless files (SOF3; T.81
+Annex H as libjpeg-turbo 3's ``jdlhuff.c``, ``jddiffct.c`` and
+``jdlossls.c`` read it: Huffman-coded differences of categories 0-16,
+predictors 1-7, the point transform, prediction reset at each restart
+interval of whole MCU rows) decode to their samples, replicated up by
+whole sampling factors, with libjpeg-turbo's colour rules for lossless
+files: grey, RGB or CMYK, and no YCbCr (refused, as Pillow refuses it).
+Arithmetic-coded lossless (SOF11), hierarchical and 12-bit files raise
+``ValueError`` with the reason, as do truncated or corrupt ones.
 
 ``decode_jpeg`` parses the markers here and decodes each scan (Huffman:
-``tdt_jpeg_scan``; arithmetic: ``tdt_jpeg_arith_scan``), the inverse DCT, the
+``tdt_jpeg_scan``; arithmetic: ``tdt_jpeg_arith_scan``; lossless:
+``tdt_jpeg_lossless_scan``, its colour in numpy), the inverse DCT, the
 upsampling and the colour in C (``data/csrc/jpeg.c``), step for step what
 ``decode_jpeg_reference`` does in Python and numpy.
 """
@@ -648,10 +655,11 @@ def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
 
 
 # The frames read: baseline, extended sequential and progressive, Huffman
-# (SOF0-2) or arithmetic-coded (SOF9, SOF10).
-_SOF = (0xC0, 0xC1, 0xC2, 0xC9, 0xCA)
-_PROGRESSIVE_SOF, _ARITHMETIC_SOF = (0xC2, 0xCA), (0xC9, 0xCA)
-_UNSUPPORTED_SOF = {0xC3: "lossless", 0xC5: "differential sequential",
+# (SOF0-2) or arithmetic-coded (SOF9, SOF10), and Huffman-coded lossless (SOF3).
+_SOF = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
+_PROGRESSIVE_SOF, _ARITHMETIC_SOF, _LOSSLESS_SOF = (0xC2, 0xCA), (0xC9, 0xCA), (0xC3,)
+# libjpeg-turbo 3 reads no arithmetic-coded lossless file (Pillow refuses one).
+_UNSUPPORTED_SOF = {0xC5: "differential sequential",
                     0xC6: "differential progressive", 0xC7: "differential lossless",
                     0xCB: "arithmetic-coded lossless",
                     0xCD: "arithmetic-coded differential sequential",
@@ -661,7 +669,7 @@ _UNSUPPORTED_SOF = {0xC3: "lossless", 0xC5: "differential sequential",
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """The (H, W, 3) uint8 RGB of a baseline, extended-sequential or
-    progressive JPEG, Huffman or arithmetic-coded, as
+    progressive JPEG, Huffman or arithmetic-coded, or an 8-bit lossless one, as
     ``Image.open(f).convert("RGB")`` gives it (Pillow 12.1, libjpeg-turbo).
     Raises ``ValueError`` on any other kind of file, on truncated or corrupt
     data, and where Pillow refuses an arithmetic-coded scan that crosses one
@@ -773,8 +781,9 @@ def _decode_markers(data: bytes, native: bool, color: str | None = None,
                 counts = tuple(body[i + 1:i + 17])
                 symbols = body[i + 17:i + 17 + sum(counts)]
                 if (len(counts) != 16 or len(symbols) != sum(counts) or tc > 1
-                        or (tc == 0 and any(v > 15 for v in symbols))):
-                    # jdhuff.c refuses a DC symbol over 15 (no DC difference is wider).
+                        or (tc == 0 and any(v > 16 for v in symbols))):
+                    # jdhuff.c refuses a DC symbol over 16 (no difference is wider; a
+                    # DCT scan that reads a 16 is refused in _decode_scan).
                     raise ValueError("corrupt JPEG file: a bad DHT table")
                 tables[tc, th] = (counts, bytes(symbols))
                 i += 17 + sum(counts)
@@ -811,7 +820,12 @@ def _decode_markers(data: bytes, native: bool, color: str | None = None,
                 raise ValueError("JPEG files whose height comes in a DNL marker are not supported")
             comps = [(body[6 + 3 * j], body[7 + 3 * j] >> 4, body[7 + 3 * j] & 15, body[8 + 3 * j])
                      for j in range(nf)]
+            if any(not 1 <= c[1] <= 4 or not 1 <= c[2] <= 4 for c in comps):
+                raise ValueError(f"corrupt JPEG file: sampling factors {[c[1:3] for c in comps]}")
             hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+            if marker in _LOSSLESS_SOF:
+                frame = _lossless_frame(height, width, comps)
+                continue
             if any((hmax // c[1], vmax // c[2]) not in ((1, 1), (2, 1), (1, 2), (2, 2))
                    or hmax % c[1] or vmax % c[2] for c in comps):
                 raise ValueError(f"JPEG sampling factors {[c[1:3] for c in comps]} are not "
@@ -828,7 +842,7 @@ def _decode_markers(data: bytes, native: bool, color: str | None = None,
                      "coef_base": [int(b) for b in bases[:-1]],
                      "coef": [coef[b:b + int(np.prod(shape))].reshape(shape)
                               for b, shape in zip(bases, shapes)],
-                     "seen": [False] * nf}
+                     "seen": [False] * nf, "lossless": False}
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("corrupt JPEG file: a scan before the frame")
@@ -840,6 +854,8 @@ def _decode_markers(data: bytes, native: bool, color: str | None = None,
         raise ValueError("truncated JPEG file: a component was never scanned")
     if color is not None and len(frame["comps"]) != (1 if color == "grey" else 3):
         raise ValueError(f"a {color} JPEG stream of {len(frame['comps'])} components")
+    if frame["lossless"]:
+        return _lossless_pixels(frame, jfif, adobe, color)
     return _pixels(frame, latched, jfif, adobe, native, color)
 
 
@@ -859,6 +875,12 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, 
             raise ValueError("corrupt JPEG file: a scan of an unknown component")
         members.append((ids.index(cid), selectors >> 4, selectors & 15))
     ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
+    if ns > 1 and sum(frame["comps"][ci][1] * frame["comps"][ci][2] for ci, _, _ in members) > 10:
+        # jdinput.c's per_scan_setup: at most 10 blocks an MCU (JERR_BAD_MCU_SIZE).
+        raise ValueError("corrupt JPEG file: an interleaved scan of over 10 blocks an MCU")
+    if frame["lossless"]:
+        return _decode_lossless_scan(data, pos, members, (ss, se, ahl >> 4, ahl & 15), frame,
+                                     tables, restart, native)
     progressive = frame["progressive"]
     if not progressive and (ss, se, ahl) != (0, 63, 0):
         raise ValueError("corrupt JPEG file: a spectral selection in a sequential scan")
@@ -875,10 +897,13 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, 
     for ci, td, ta in members:
         # The Huffman tables the scan reads: DC for a first DC scan, AC for an
         # AC scan (an arithmetic scan's conditioning tables all have defaults).
+        dc_read = not progressive or (ss == 0 and ahl >> 4 == 0)
         if not arithmetic and (
-                (0, td) not in tables and (not progressive or (ss == 0 and ahl >> 4 == 0))
+                (0, td) not in tables and dc_read
                 or (1, ta) not in tables and (not progressive or ss > 0)):
             raise ValueError("corrupt JPEG file: a scan names a Huffman table never defined")
+        if not arithmetic and dc_read and max(tables[0, td][1], default=0) > 15:
+            raise ValueError("corrupt JPEG file: a bad DHT table (a DC symbol of 16)")
         if ci not in latched:
             tq = frame["comps"][ci][3]
             if tq not in qtables:
@@ -1611,3 +1636,200 @@ def _pixels(frame: dict, latched: dict, jfif: bool, adobe, native: bool,
     if mode == "rgb":
         return np.stack(planes, axis=-1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
+
+
+# --- lossless (SOF3: T.81 Annex H, as libjpeg-turbo 3 reads it) ----------------------
+
+
+def _lossless_frame(height: int, width: int, comps: list) -> dict:
+    """A lossless frame: each component's undifferenced samples in one int64
+    buffer, a plane of (MCU rows x v) x (MCUs a row x h) samples each (an
+    MCU is hmax x vmax pixels; a "block" is one sample). Sampling factors
+    must divide the largest (libjpeg-turbo upsamples by whole factors)."""
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    if any(hmax % c[1] or vmax % c[2] for c in comps):
+        raise ValueError(f"lossless JPEG sampling factors {[c[1:3] for c in comps]} are not "
+                         "supported (libjpeg-turbo: fractional sampling)")
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    shapes = [(mcuy * c[2], mcux * c[1]) for c in comps]
+    bases = np.cumsum([0] + [r * c for r, c in shapes])
+    planes = np.zeros(int(bases[-1]), np.int64)
+    return {"height": height, "width": width, "comps": comps, "hmax": hmax, "vmax": vmax,
+            "mcux": mcux, "mcuy": mcuy, "done": False, "progressive": False,
+            "arithmetic": False, "lossless": True, "plane_all": planes,
+            "plane_base": [int(b) for b in bases[:-1]],
+            "planes": [planes[b:b + r * c].reshape(r, c) for b, (r, c) in zip(bases, shapes)],
+            "pt": [0] * len(comps), "seen": [False] * len(comps)}
+
+
+def _lossless_geometry(frame: dict, members: list, spectral: tuple, restart: int,
+                       slots: list) -> np.ndarray:
+    """``tdt_jpeg_lossless_scan``'s geom of a scan (``slots``: each member's
+    table index): a one-component scan is one sample an MCU over the
+    component's own grid; an interleaved one h x v samples a member."""
+    ss, _, _, al = spectral
+    comps = frame["comps"]
+    sides = {ci: (-(-frame["width"] * comps[ci][1] // frame["hmax"]),
+                  -(-frame["height"] * comps[ci][2] // frame["vmax"])) for ci, _, _ in members}
+    if len(members) == 1:
+        ci = members[0][0]
+        mcux, n_mcus, shape = sides[ci][0], sides[ci][0] * sides[ci][1], {ci: (1, 1)}
+    else:
+        mcux, n_mcus = frame["mcux"], frame["mcux"] * frame["mcuy"]
+        shape = {ci: comps[ci][1:3] for ci, _, _ in members}
+    if restart % mcux:
+        raise ValueError(f"a lossless JPEG restart interval of {restart} MCUs, not whole rows "
+                         f"of {mcux} MCUs (libjpeg-turbo refuses it)")
+    geom = [n_mcus, restart or n_mcus, len(members), mcux, ss, 1 << (7 - al), restart // mcux]
+    for (ci, _, _), slot in zip(members, slots):
+        geom += [frame["plane_base"][ci], frame["planes"][ci].shape[1], *sides[ci], *shape[ci],
+                 slot]
+    return np.asarray(geom, np.int64)
+
+
+def _decode_lossless_scan(data: bytes, pos: int, members: list, spectral: tuple, frame: dict,
+                          tables: dict, restart: int, native: bool) -> int:
+    """One lossless scan into ``frame["planes"]`` (in C when ``native``,
+    ``tdt_jpeg_lossless_scan``; else ``_lossless_reference``); returns the
+    position of the marker after its data."""
+    ss, se, ah, al = spectral
+    if not 1 <= ss <= 7 or se != 0 or ah != 0 or al >= 8:
+        raise ValueError(f"corrupt lossless JPEG file: a scan of predictor {ss}, Se {se}, Ah {ah}, "
+                         f"Al {al}")
+    keys = []
+    for _, td, _ in members:
+        if (0, td) not in tables:
+            raise ValueError("corrupt JPEG file: a scan names a Huffman table never defined")
+        if (0, td) not in keys:
+            keys.append((0, td))
+    slots = [keys.index((0, td)) for _, td, _ in members]
+    geom = _lossless_geometry(frame, members, spectral, restart, slots)
+    segments, end, ended = _entropy_segments(data, pos)
+    if native:
+        luts = np.stack([_packed_lut(*tables[key]) for key in keys])
+        buf, starts = _segment_buffer(segments)
+        planes = frame["plane_all"]
+        rc = _native.library().tdt_jpeg_lossless_scan(
+            _native.ptr(buf), _native.ptr(starts), len(segments), _native.ptr(luts), len(keys),
+            _native.ptr(geom), len(geom), _native.ptr(planes), len(planes))
+    else:
+        rc = _lossless_reference(segments, geom, [tables[key] for key in keys],
+                                 frame["plane_all"])
+    if rc == _native.ERR_SEGMENTS:
+        raise ValueError("corrupt JPEG data: fewer restart segments than MCUs" if ended
+                         else "truncated JPEG file")
+    _native.check(rc, "JPEG", _SCAN_ERRORS)
+    for ci, _, _ in members:
+        frame["pt"][ci] = al
+        frame["seen"][ci] = True
+    frame["done"] = all(frame["seen"])
+    return end
+
+
+def _lossless_reference(segments: list, geom: np.ndarray, tables: list,
+                        planes: np.ndarray) -> int:
+    """The plain version of ``tdt_jpeg_lossless_scan`` (see data/csrc/jpeg.c),
+    with its return codes: each segment's differences read a symbol at a
+    time from a table of every 16-bit window, then undifferenced row by
+    row."""
+    g = [int(v) for v in geom]
+    n_mcus, per, n_members, mcux, predictor, initial, reset_rows = g[:7]
+    members = [g[7 + 7 * j:14 + 7 * j] for j in range(n_members)]
+    luts = [_decode_lut(0, *table)[:2] for table in tables]
+    mcu_rows = -(-n_mcus // mcux)
+    diffs = [[0] * (mcu_rows * m[5] * mcux * m[4]) for m in members]
+    done = 0
+    for seg in segments:
+        if done >= n_mcus:
+            break
+        count = min(per, n_mcus - done)
+        nbits = 8 * len(seg)
+        padded = np.concatenate([seg, np.zeros(8, np.uint8)]).astype(np.int64)
+        p = np.arange(nbits + 40)
+        i = p >> 3
+        window = (((padded[i] << 16 | padded[i + 1] << 8 | padded[i + 2]) >> (8 - (p & 7)))
+                  & 0xFFFF).tolist()
+        pos = 0
+        for mcu in range(done, done + count):
+            mr, mc = divmod(mcu, mcux)
+            for m, diff in zip(members, diffs):
+                h, v, (sym, length) = m[4], m[5], luts[m[6]]
+                cols = mcux * h
+                for y in range(v):
+                    at = (mr * v + y) * cols + mc * h
+                    for x in range(h):
+                        w = window[pos]
+                        s, n = int(sym[w]), int(length[w])
+                        if n == 0 or s > 16:
+                            return _native.ERR_CODE
+                        pos += n
+                        if s == 16:
+                            d = 32768
+                        elif s:
+                            e = window[pos] >> (16 - s)
+                            d = e if e >= 1 << (s - 1) else e - (1 << s) + 1
+                            pos += s
+                        else:
+                            d = 0
+                        if pos > nbits:
+                            return _native.ERR_TRUNCATED
+                        diff[at + x] = d
+        done += count
+    if done < n_mcus:
+        return _native.ERR_SEGMENTS
+    for (base, stride, width, rows, h, v, _), diff in zip(members, diffs):
+        cols = mcux * h
+        prev = None
+        for r in range(rows):
+            d = diff[r * cols:r * cols + width]
+            out = [0] * width
+            if r == 0 or (r % v == 0 and reset_rows and (r // v) % reset_rows == 0):
+                ra = initial
+                for c in range(width):
+                    out[c] = ra = (d[c] + ra) & 0xFFFF
+            else:
+                rb = prev[0]
+                out[0] = ra = (d[0] + rb) & 0xFFFF
+                for c in range(1, width):
+                    rc, rb = rb, prev[c]
+                    pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                            rb + ((ra - rc) >> 1), (ra + rb) >> 1)[predictor - 1]
+                    out[c] = ra = (d[c] + pred) & 0xFFFF
+            planes[base + r * stride:base + r * stride + width] = out
+            prev = out
+    return 0
+
+
+def _lossless_pixels(frame: dict, jfif: bool, adobe, color: str | None) -> np.ndarray:
+    """The RGB of a lossless frame: each component's samples shifted back by
+    its point transform and kept to 8 bits (libjpeg-turbo's scaler), its
+    planes replicated up to the image (lossless files get no fancy
+    upsampling), and libjpeg-turbo's colour rules for lossless files, which
+    convert no colour: 1 component is grey, 3 are RGB (JFIF or an Adobe
+    transform flag other than 0 would ask YCbCr, and are refused, as Pillow
+    refuses them), 4 are Pillow's inverted CMYK (YCCK refused)."""
+    height, width, comps = frame["height"], frame["width"], frame["comps"]
+    n = len(comps)
+    if color is not None:
+        mode = color
+    elif n == 1:
+        mode = "grey"
+    elif n == 3:
+        mode = "ycc" if jfif or adobe not in (None, 0) else "rgb"
+    else:
+        mode = "ycck" if adobe == 2 else "cmyk"
+    if mode in ("ycc", "ycck"):
+        raise ValueError(f"a lossless JPEG whose markers ask a {mode.upper()} to RGB conversion: "
+                         "libjpeg-turbo converts no colour of a lossless file (Pillow refuses it)")
+    planes = []
+    for ci, (_, h, v, _) in enumerate(comps):
+        cw = -(-width * h // frame["hmax"])
+        ch = -(-height * v // frame["vmax"])
+        samples = ((frame["planes"][ci][:ch, :cw] << frame["pt"][ci]) & 0xFF).astype(np.uint8)
+        samples = samples.repeat(frame["vmax"] // v, axis=0).repeat(frame["hmax"] // h, axis=1)
+        planes.append(samples[:height, :width])
+    if mode == "grey":
+        return np.repeat(planes[0][..., None], 3, axis=-1)
+    if mode == "cmyk":
+        return _cmyk_to_rgb(np.stack(planes, axis=-1))
+    return np.stack(planes, axis=-1)

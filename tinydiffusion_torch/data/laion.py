@@ -23,12 +23,15 @@ without its PIL, ``requests``, ``urllib3`` and JAX imports. Kept:
   502, 503, 504])``: connection errors and those statuses, and 413 with a
   ``Retry-After``; no backoff before a first retry; ``Retry-After`` slept as
   urllib3 sleeps it), failure after that retry, any other status, or a
-  short body. Bodies are read by ``decode_image``: JPEG (``data/jpeg.py``,
-  progressive and CMYK included), PNG (``data/png.py``, Adam7 and 16-bit
-  included), GIF, BMP, WebP, TIFF, ICO and CUR (``data/gif.py``, ``bmp.py``,
-  ``webp.py``, ``tiff.py``, ``ico.py``) and JPEG 2000 (``data/jpeg2000.py``);
-  other formats fail as Pillow fails on what it cannot identify (ROADMAP
-  Queue 3 lists the formats Pillow would also read);
+  short body. Bodies are read by ``decode_image``, in the format Pillow's
+  ``Image.open`` picks (``data/identify.py``): JPEG (``data/jpeg.py``,
+  progressive, CMYK and lossless included), PNG (``data/png.py``, Adam7 and
+  16-bit included), GIF, BMP and DIB, WebP, TIFF, ICO and CUR
+  (``data/gif.py``, ``bmp.py``, ``webp.py``, ``tiff.py``, ``ico.py``), JPEG
+  2000 (``data/jpeg2000.py``), TGA, Netpbm and QOI (``data/tga.py``,
+  ``netpbm.py``, ``qoi.py``); other formats fail as Pillow fails on what it
+  cannot identify, or by the name Pillow gives them (ROADMAP Queue 3 lists
+  the formats Pillow would also read);
 - ``check_disk_space`` and ``precache_dataset`` (a ``ThreadPoolExecutor``
   of 8, 250 KB a sample checked first, the sorted valid indices).
 
@@ -54,18 +57,8 @@ from concurrent.futures import ThreadPoolExecutor, as_completed
 
 import numpy as np
 
-from tinydiffusion_torch.data.bmp import decode_bmp
-from tinydiffusion_torch.data.gif import SIGNATURES as GIF_SIGNATURES
-from tinydiffusion_torch.data.gif import decode_gif
-from tinydiffusion_torch.data.ico import SIGNATURES as ICO_SIGNATURES
-from tinydiffusion_torch.data.ico import decode_ico
-from tinydiffusion_torch.data.jpeg import decode_jpeg, encode_jpeg
-from tinydiffusion_torch.data.jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
-from tinydiffusion_torch.data.png import SIGNATURE as PNG_SIGNATURE
-from tinydiffusion_torch.data.png import decode_png
-from tinydiffusion_torch.data.tiff import SIGNATURES as TIFF_SIGNATURES
-from tinydiffusion_torch.data.tiff import decode_tiff
-from tinydiffusion_torch.data.webp import decode_webp
+from tinydiffusion_torch.data import identify
+from tinydiffusion_torch.data.jpeg import encode_jpeg
 from tinydiffusion_torch.obs.images import resize_u8
 
 SYNTHETIC_SCHEME = "synthetic://"
@@ -163,32 +156,17 @@ def check_disk_space(path: str, required_bytes: int) -> None:
 
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's (H, W, 3) uint8 RGB, as Pillow's
-    ``Image.open(f).convert("RGB")``: JPEG (Huffman or arithmetic-coded,
-    sequential or progressive), PNG, GIF (its first frame), BMP, WebP (its
-    first frame), TIFF (its first image; YCbCr through libtiff's conversion
-    too), ICO and CUR (the image Pillow picks) or JPEG 2000 (a JP2 file or a
-    raw codestream; sYCC too), told apart by their first bytes; anything
-    else raises ``ValueError``, as Pillow raises on what it cannot identify
+    ``Image.open(f).convert("RGB")``. The format is the one Pillow 12.1's
+    ``Image.open`` picks (``data/identify.py``: its plugins in their order,
+    a failed open passed on to the next); the port reads JPEG (Huffman or
+    arithmetic-coded, sequential, progressive or 8-bit lossless), PNG, GIF
+    (its first frame), BMP and DIB, WebP (its first frame), TIFF (its first
+    image; YCbCr through libtiff's conversion too), ICO and CUR (the image
+    Pillow picks), JPEG 2000 (a JP2 file or a raw codestream; sYCC too), TGA,
+    Netpbm (PBM, PGM, PPM, PFM) and QOI. Any other format Pillow identifies
+    raises ``ValueError`` by its name, as does what Pillow cannot identify
     or load."""
-    if data[:2] == b"\xff\xd8":
-        return decode_jpeg(data)
-    if data[:8] == PNG_SIGNATURE:
-        return decode_png(data)
-    if data[:6] in GIF_SIGNATURES:
-        return decode_gif(data)
-    if data[:2] == b"BM":
-        return decode_bmp(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return decode_webp(data)
-    if data[:4] in TIFF_SIGNATURES:
-        return decode_tiff(data)
-    if data[:4] in ICO_SIGNATURES:
-        return decode_ico(data)
-    if data[:12] == JP2_SIGNATURE or data[:4] == J2K_SIGNATURE:
-        return decode_jpeg2000(data)
-    raise ValueError("cannot identify image file (the port reads JPEG, Huffman or "
-                     "arithmetic-coded, PNG, GIF, BMP, WebP, TIFF, YCbCr TIFF too, ICO and "
-                     "JPEG 2000, sYCC too)")
+    return identify.decode(data)
 
 
 def _retry_after_seconds(value: str) -> float:

@@ -2,9 +2,10 @@
 
 JAX's loader decodes every record with Pillow, which is C. The port's
 counterparts of Pillow's entropy decoders are the C functions in
-``data/csrc/``: JPEG's Huffman scans (``jpeg.c``), VP8 (``vp8.c``), VP8L
-(``vp8l.c``), GIF's LZW (``gif.c``), TIFF's LZW and PackBits (``tiff.c``)
-and JPEG 2000's tiles (``jpeg2000.c``). ``library()`` builds them with the
+``data/csrc/``: JPEG's Huffman, arithmetic and lossless scans (``jpeg.c``),
+VP8 (``vp8.c``), VP8L (``vp8l.c``), GIF's LZW (``gif.c``), TIFF's LZW and
+PackBits (``tiff.c``), JPEG 2000's tiles (``jpeg2000.c``), TGA's run-length
+packets and QOI's ops (``raster.c``). ``library()`` builds them with the
 host C compiler at the first decode (``ops/_build.py``, ``DECODERS``), never
 at import, and loads them with ctypes, which lets go of the GIL for each
 call, so ``precache_dataset``'s threads decode at once. A missing compiler

@@ -195,6 +195,9 @@ DECODE_SIGNATURES: dict[str, tuple] = {
     # AC tables), last_open, geom (data/jpeg.py::_scan_geometry), n_geom, coef,
     # coef_len, fetched (int64, n_segs: the bytes each segment's decoder asked for)
     "tdt_jpeg_arith_scan": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _P),
+    # data, seg_start, n_segs, luts, n_luts, geom (int64, data/jpeg.py::_lossless_geometry),
+    # n_geom, planes (int64 samples), planes_len
+    "tdt_jpeg_lossless_scan": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64),
     # coef, coef_len, qtables (64 int64 a component), geom (data/jpeg.py::_pixels),
     # n_geom, rgb (uint8), rgb_len
     "tdt_jpeg_pixels": (_P, _I64, _P, _P, _I64, _P, _I64),
@@ -209,6 +212,11 @@ DECODE_SIGNATURES: dict[str, tuple] = {
     # data (a tile's packets), n, params (int64, data/jpeg2000.py::_tile_params),
     # n_params, out (int32, every tile component in turn), out_len
     "tdt_j2k_tile": (_P, _I64, _P, _I64, _P, _I64),
+    # data (a TGA's run-length packets), n, depth (bytes a pixel), out (uint8, rows x
+    # row_bytes), row_bytes, rows
+    "tdt_tga_rle": (_P, _I64, _I64, _P, _I64, _I64),
+    # data (a QOI's ops, from byte 14), n, rgb (uint8, pixels x 3), pixels
+    "tdt_qoi_decode": (_P, _I64, _P, _I64),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
