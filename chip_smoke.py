@@ -331,6 +331,7 @@ from tinydiffusion_torch.data import gif as gif_data
 from tinydiffusion_torch.data import identify as identify_data
 from tinydiffusion_torch.data import jpeg as jpeg_data
 from tinydiffusion_torch.data import laion as laion_data
+from tinydiffusion_torch.data import pcx as pcx_data
 from tinydiffusion_torch.data import qoi as qoi_data
 from tinydiffusion_torch.data import tga as tga_data
 from tinydiffusion_torch.data import tiff as tiff_data
@@ -729,14 +730,17 @@ LOADER_PILLOW = os.path.join(REPO, "tests", "fixtures", "laion_loader_pillow.jso
 LOADER_WEB_FIXTURES = ("laion_loader_512_progressive.jpg", "laion_loader_512_lossy.webp")
 LOADER_JP2_512 = "laion_loader_512.jp2"
 # 512² files of the arithmetic-coded JPEG, the YCbCr formats, 8-bit
-# lossless JPEG, run-length TGA and QOI, timed beside the 512² JPEG; the
+# lossless JPEG, run-length TGA, QOI, a damaged progressive JPEG (cut in
+# its sixth scan: block smoothing) and PCX, timed beside the 512² JPEG; the
 # arithmetic-coded one in C only (its plain decoder is bit-serial Python,
 # held to the C one on the small arithmetic fixtures).
 LOADER_NEW_512 = {"arith_progressive": "laion_loader_512_arith_progressive.jpg",
                   "ycbcr_jp2": "laion_loader_512_ycbcr.jp2",
                   "ycbcr_tiff": "laion_loader_512_ycbcr.tif",
                   "lossless_jpeg": "laion_loader_512_lossless.jpg",
-                  "rle_tga": "laion_loader_512_rle.tga", "qoi": "laion_loader_512.qoi"}
+                  "rle_tga": "laion_loader_512_rle.tga", "qoi": "laion_loader_512.qoi",
+                  "damaged_progressive_jpeg": "laion_loader_512_damaged_progressive.jpg",
+                  "pcx": "laion_loader_512.pcx"}
 LOADER_C_ONLY = {LOADER_NEW_512["arith_progressive"]}
 LAION_TRAIN_STEPS, LAION_VAL_BATCHES = 80, 20
 # laion_parity: resident_parity's graph-vs-eager check on 10 LAION steps (B = 8, caption
@@ -2905,7 +2909,8 @@ _PLAIN_DECODERS = {"JPEG": lambda data, header: jpeg_data.decode_jpeg_reference(
                    "GIF": lambda data, header: gif_data.decode_gif_reference(data),
                    "WEBP": lambda data, header: webp_data.decode_webp_reference(data),
                    "TIFF": lambda data, header: tiff_data.decode_tiff_reference(data),
-                   "TGA": tga_data.decode_tga_reference, "QOI": qoi_data.decode_qoi_reference}
+                   "TGA": tga_data.decode_tga_reference, "QOI": qoi_data.decode_qoi_reference,
+                   "PCX": pcx_data.decode_pcx_reference}
 
 
 def _plain_decode(data: bytes) -> np.ndarray:
@@ -2933,7 +2938,9 @@ def phase_laion_loader() -> dict:
     ICO and CUR, JPEG 2000 (JP2 and J2K, both wavelets, every progression
     order, the modes Pillow writes, YCbCr and sYCC), arithmetic-coded JPEG
     (sequential and progressive, restarts, DAC), 8-bit lossless JPEG, TGA
-    (every mode, raw and run-length), DIB, Netpbm and QOI;
+    (every mode, raw and run-length), DIB, Netpbm, QOI, damaged JPEG scans
+    (a bad code, a run past the block, wild coefficients, restart resync,
+    a progressive file cut short) and PCX (every mode);
     each decode timed, 512² ones included, and held to the plain decoders
     byte for byte where there are any, but for the 512² arithmetic-coded
     one, ``LOADER_C_ONLY``), the
@@ -3058,8 +3065,9 @@ def phase_laion_loader() -> dict:
               # A 512² JPEG 2000 (9/7, 12:1) beside the 512² JPEG and WebP.
               "jp2_512_decode_s": decode_s[LOADER_JP2_512],
               # The arithmetic-coded progressive JPEG (C only), the YCbCr JP2,
-              # the 2 x 2 YCbCr TIFF, the lossless JPEG, the run-length TGA
-              # and the QOI, each 512², and their plain decodes.
+              # the 2 x 2 YCbCr TIFF, the lossless JPEG, the run-length TGA,
+              # the QOI, the damaged progressive JPEG and the PCX, each 512²,
+              # and their plain decodes.
               "new_512_decode_s": {k: decode_s[v] for k, v in LOADER_NEW_512.items()},
               "new_512_plain_decode_s": {k: plain_decode_s[v] for k, v in LOADER_NEW_512.items()
                                          if v in plain_decode_s},

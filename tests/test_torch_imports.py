@@ -4,8 +4,8 @@ The CUDA machines that serve the port have torch, numpy and the standard
 library, and no jax, jaxlib, flax, optax, orbax, ml_dtypes or PIL. This test
 stands in for that machine on the CPU: a subprocess whose import system
 refuses those packages (and ``tinydiffusion_tpu``) imports every module of
-``tinydiffusion_torch``, ``chip_smoke``, ``chip_flash_ab`` and
-``chip_sdpa_sites``, then loads a conv-VAE from an npz
+``tinydiffusion_torch``, ``chip_smoke``, ``chip_flash_ab``,
+``chip_decode_ab`` and ``chip_sdpa_sites``, then loads a conv-VAE from an npz
 of random weights and serves it on ``device="cpu"``; another trains, samples
 and checkpoints a small UNet28 on the CPU; a third trains the conv-VAE for
 two steps through its ``run``; a fourth trains a small class-conditional
@@ -68,6 +68,7 @@ _CHILD = _REFUSE + textwrap.dedent("""
         importlib.import_module(mod.name)
     import chip_smoke  # its work sits behind `if __name__ == "__main__"`
     import chip_flash_ab  # likewise
+    import chip_decode_ab  # likewise
     import chip_sdpa_sites  # likewise
     # Data parallelism and the JPEG round trip: no group without torchrun's
     # variables, and no Pillow.

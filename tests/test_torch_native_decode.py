@@ -16,6 +16,8 @@ Held here:
   each mutant refused with ``ValueError`` exactly where the plain version
   refuses it, else the plain version's bytes;
 - four threads decoding at once get the serial bytes;
+- ``chip_decode_ab.py``'s worker times every 512² fixture with this tree's
+  loader;
 - the ctypes table against the C sources, the build (its path, a second
   build loading the first, no build at import, ``RuntimeError`` without a
   compiler or on a compile error) and the refused kinds of JPEG.
@@ -164,6 +166,21 @@ def test_four_threads_decode_at_once():
         results = list(pool.map(laion.decode_image, jobs))
     for i, got in enumerate(results):
         np.testing.assert_array_equal(got, serial[i % len(files)])
+
+
+def test_the_decode_ab_worker_times_every_512_fixture(monkeypatch):
+    """``chip_decode_ab.measure`` on this tree: each 512² loader fixture
+    decodes (none refused) and gets a median and a least time."""
+    monkeypatch.setattr(sys, "path", [str(REPO), *sys.path])  # measure() adds the tree too
+    import chip_decode_ab
+
+    monkeypatch.setattr(chip_decode_ab, "REPEATS", 2)
+    times = chip_decode_ab.measure(str(REPO))["s"]
+    names = {p.name for p in (REPO / "tests" / "fixtures").glob("laion_loader_512*")} - {
+        "laion_loader_pillow.json"}
+    assert set(times) == names and len(names) >= 11
+    for name, t in times.items():
+        assert t is not None and 0 < t["min_s"] <= t["median_s"], name
 
 
 def test_every_decoder_has_a_ctypes_signature():

@@ -22,8 +22,8 @@ import sys
 
 import numpy as np
 
-from tinydiffusion_torch.data import gif, ico, identify, jpeg, jpeg2000, laion, netpbm, qoi, tga
-from tinydiffusion_torch.data import tiff, webp
+from tinydiffusion_torch.data import gif, ico, identify, jpeg, jpeg2000, laion, netpbm, pcx, qoi
+from tinydiffusion_torch.data import tga, tiff, webp
 
 # The TIFF fields that size the samples' array: width, length, bits per
 # sample, samples per pixel, rows per strip, tile width and length.
@@ -35,7 +35,8 @@ _PLAIN = {"JPEG": lambda data, header: jpeg.decode_jpeg_reference(data),
           "GIF": lambda data, header: gif.decode_gif_reference(data),
           "WEBP": lambda data, header: webp.decode_webp_reference(data),
           "TIFF": lambda data, header: tiff.decode_tiff_reference(data),
-          "TGA": tga.decode_tga_reference, "QOI": qoi.decode_qoi_reference}
+          "TGA": tga.decode_tga_reference, "QOI": qoi.decode_qoi_reference,
+          "PCX": pcx.decode_pcx_reference}
 
 
 def plain(data: bytes) -> np.ndarray:
@@ -55,10 +56,13 @@ def size_fields(data: bytes) -> set[int]:
     a VP8X canvas, VP8's and VP8L's frame sizes, TIFF's size fields (and
     where its IFD is), an icon's entry offsets and its DIBs' sizes, JPEG
     2000's JP2 header size and its SIZ segment, a TGA's, a QOI's and a DIB's
-    width and height, a Netpbm file's header."""
+    width and height, a Netpbm file's header, a PCX's bounding box, bits a
+    pixel and planes."""
     found = set()
     if data[:4] == b"qoif":
         found |= set(range(4, 12))
+    elif pcx.accept(data[:2]):
+        found |= {*range(1, 12), 65}
     elif data[:1] == b"P" and netpbm.accept(data[:2]):
         try:
             found |= set(range(netpbm.open_ppm(data).info["pixels_at"]))

@@ -17,9 +17,8 @@ enum {
     TDT_ERR_TRUNCATED = -2, /* the data ends before what it announces */
     TDT_ERR_CODE = -3,      /* a bit pattern that is no prefix code */
     TDT_ERR_RANGE = -4,     /* a coefficient, copy or index outside its bounds */
-    TDT_ERR_SEGMENTS = -5,  /* fewer restart segments than MCUs */
-    TDT_ERR_CORRUPT = -6,   /* anything else the format forbids */
-    TDT_ERR_MEMORY = -7     /* an allocation failed */
+    TDT_ERR_CORRUPT = -5,   /* anything else the format forbids */
+    TDT_ERR_MEMORY = -6     /* an allocation failed */
 };
 
 #endif

@@ -2,17 +2,32 @@
    jdphuff.c), the counterpart of data/jpeg.py's plain _decode_segment and
    _decode_progressive_scan.
 
-   tdt_jpeg_scan decodes one scan: its restart segments (unstuffed, one after
-   another in `data`, segment s at data[seg_start[s]:seg_start[s + 1]]) into
-   the zigzag-ordered int64 coefficient blocks of the frame. A segment is
-   read MSB first with zeros past its end, and fails when its MCUs take more
-   bits than it holds. Each segment starts with DC predictions of 0 (one a
-   component) and no EOB run. Huffman codes are looked up in the plain
-   version's table of every 16-bit window (length << 8 | symbol; length 0:
-   no code starts the window), with a 9-bit table in front of it.
+   tdt_jpeg_scan decodes one scan into the zigzag-ordered int64 coefficient
+   blocks of the frame, from its restart intervals: span s (spans[3 s ..])
+   is interval s's data in `data` (start, end; unstuffed, data/jpeg.py::
+   _scan_spans) and its flags. Damaged data reads as libjpeg reads it:
+
+   - the data is read MSB first with zero bits past its end (libjpeg feeds
+     zeros once it meets the marker that ends it);
+   - a bit pattern that starts no code is libjpeg's bad code: 17 bits and
+     symbol 0 (the Huffman tables hold it, data/jpeg.py::BAD_CODE);
+   - a run past a block's 64th coefficient stores on the 64th (libjpeg's
+     jpeg_natural_order is padded with 63s);
+   - DC predictions wrap as an int, stored values as 16-bit JCOEFs;
+   - the MCU whose bits run past its interval's end is decoded in full (from
+     those zeros) and the interval's later MCUs are left as they are
+     (insufficient_data), as are the next intervals' until one whose marker
+     was taken (SPAN_FRESH); past an interval that the file ends
+     (SPAN_OPEN) it is truncation.
+
+   Each interval starts with DC predictions of 0 (one a component) and no
+   EOB run. Huffman codes are looked up in the plain version's table of
+   every 16-bit window (length << 8 | symbol), with a 9-bit table in front.
+   last_good: the last MCU begun before the data ran short (block smoothing
+   reads its iMCU row).
 
    geom (int64), as data/jpeg.py::_scan_geometry writes it:
-     [0] MCUs in the scan, [1] MCUs a segment, [2] members (0-4),
+     [0] MCUs in the scan, [1] MCUs an interval, [2] members (0-4),
      [3] MCUs a row (a one-component scan: that component's blocks a row),
      [4] progressive, [5] Ss, [6] Se, [7] Ah, [8] Al,
      then for each member: component (0-3), offset of the component's first
@@ -26,6 +41,8 @@
 #define GEOM_HEAD 9
 #define GEOM_MEMBER 7
 #define MAX_LUTS 8
+#define SPAN_FRESH 1
+#define SPAN_OPEN 2
 
 typedef struct {
     const uint8_t *p;
@@ -66,6 +83,18 @@ static inline int64_t extend(int64_t v, int s) {
     return s == 0 ? 0 : v < ((int64_t)1 << (s - 1)) ? v - ((int64_t)1 << s) + 1 : v;
 }
 
+static inline int64_t wrap16(int64_t v) { return (int64_t)(int16_t)(uint16_t)(v & 0xFFFF); }
+static inline int64_t wrap32(int64_t v) { return (int64_t)(int32_t)(uint32_t)(v & 0xFFFFFFFF); }
+
+/* Span s of n_spans in a buffer of n_data bytes; 0 or TDT_ERR_ARGS. */
+static int span_bits(const uint8_t *data, int64_t n_data, const int64_t *spans, int64_t s,
+                     bits_t *b) {
+    int64_t start = spans[3 * s], end = spans[3 * s + 1];
+    if (start < 0 || end < start || end > n_data) return TDT_ERR_ARGS;
+    b->p = data + start, b->nbytes = end - start, b->nbits = 8 * b->nbytes, b->pos = 0;
+    return TDT_OK;
+}
+
 static void huff_init(huff_t *h, const uint16_t *lut) {
     h->lut = lut;
     for (int i = 0; i < 512; i++) {
@@ -75,12 +104,11 @@ static void huff_init(huff_t *h, const uint16_t *lut) {
     }
 }
 
-/* The next symbol, or -1 where no code starts. */
+/* The next symbol (a bad code: 17 bits, symbol 0). */
 static inline int huff_decode(bits_t *b, const huff_t *h) {
     uint32_t w = peek16(b);
     uint16_t e = h->fast[w >> 7];
     if (e == 0xFFFF) e = h->lut[w];
-    if (!(e >> 8)) return -1;
     b->pos += e >> 8;
     return e & 255;
 }
@@ -88,18 +116,19 @@ static inline int huff_decode(bits_t *b, const huff_t *h) {
 /* One block of a sequential scan. */
 static int block_sequential(bits_t *b, const member_t *m, int64_t *pred, int64_t *c) {
     int s = huff_decode(b, m->dc);
-    if (s < 0 || s > 15) return TDT_ERR_CODE;
-    pred[m->comp] += extend(get_bits(b, s), s);
-    c[0] = pred[m->comp];
+    if (s > 15) return TDT_ERR_CODE;
+    pred[m->comp] = wrap32(pred[m->comp] + extend(get_bits(b, s), s));
+    c[0] = wrap16(pred[m->comp]);
     for (int k = 1; k < 64; k++) {
         int rs = huff_decode(b, m->ac);
-        if (rs < 0) return TDT_ERR_CODE;
-        if (rs == 0) break;
-        k += rs >> 4;
-        int size = rs & 15;
+        int r = rs >> 4, size = rs & 15;
         if (size) {
-            if (k > 63) return TDT_ERR_RANGE;
-            c[k] = extend(get_bits(b, size), size);
+            k += r;
+            c[k > 63 ? 63 : k] = extend(get_bits(b, size), size);
+        } else if (r == 15) {
+            k += 15;
+        } else {
+            break;
         }
     }
     return TDT_OK;
@@ -112,7 +141,7 @@ static inline int refine_until(bits_t *b, int64_t *c, int k, int se, int *r, int
     for (; k <= se; k++) {
         int64_t v = c[k];
         if (v) {
-            if (get_bits(b, 1) && !(v & p1)) c[k] = v + (v >= 0 ? p1 : m1);
+            if (get_bits(b, 1) && !(v & p1)) c[k] = wrap16(v + (v >= 0 ? p1 : m1));
         } else if (*r >= 0 && --*r < 0) {
             break;
         }
@@ -126,9 +155,9 @@ static int block_progressive(bits_t *b, const member_t *m, int ss, int se, int a
     int64_t p1 = (int64_t)1 << al, m1 = -p1;
     if (ss == 0 && ah == 0) { /* DC first */
         int s = huff_decode(b, m->dc);
-        if (s < 0 || s > 15) return TDT_ERR_CODE;
-        pred[m->comp] += extend(get_bits(b, s), s);
-        c[0] = pred[m->comp] * p1;
+        if (s > 15) return TDT_ERR_CODE;
+        pred[m->comp] = wrap32(pred[m->comp] + extend(get_bits(b, s), s));
+        c[0] = wrap16(pred[m->comp] * p1);
         return TDT_OK;
     }
     if (ss == 0) { /* DC refinement */
@@ -142,13 +171,12 @@ static int block_progressive(bits_t *b, const member_t *m, int ss, int se, int a
         }
         for (int k = ss; k <= se;) {
             int rs = huff_decode(b, m->ac);
-            if (rs < 0) return TDT_ERR_CODE;
             int r = rs >> 4, s = rs & 15;
             if (s) {
                 k += r;
                 int64_t v = extend(get_bits(b, s), s);
-                if (k > 63) return TDT_ERR_RANGE;
-                c[k++] = v * p1;
+                c[k > 63 ? 63 : k] = wrap16(v * p1);
+                k++;
             } else if (r == 15) {
                 k += 16;
             } else {
@@ -163,7 +191,6 @@ static int block_progressive(bits_t *b, const member_t *m, int ss, int se, int a
     if (!*eobrun) {
         while (k <= se) {
             int rs = huff_decode(b, m->ac);
-            if (rs < 0) return TDT_ERR_CODE;
             int r = rs >> 4, s = rs & 15;
             int64_t v = 0;
             if (s) {
@@ -173,10 +200,7 @@ static int block_progressive(bits_t *b, const member_t *m, int ss, int se, int a
                 break;
             }
             k = refine_until(b, c, k, se, &r, p1, m1);
-            if (v) {
-                if (k > 63) return TDT_ERR_RANGE;
-                c[k] = v;
-            }
+            if (v) c[k > 63 ? 63 : k] = v;
             k++;
         }
     }
@@ -188,16 +212,16 @@ static int block_progressive(bits_t *b, const member_t *m, int ss, int se, int a
     return TDT_OK;
 }
 
-int tdt_jpeg_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
+int tdt_jpeg_scan(const uint8_t *data, int64_t n_data, const int64_t *spans, int64_t n_spans,
                   const uint16_t *luts, int64_t n_luts, const int64_t *geom, int64_t n_geom,
-                  int64_t *coef, int64_t coef_len) {
-    if (n_geom < GEOM_HEAD || n_segs < 0 || n_luts < 0 || n_luts > MAX_LUTS) return TDT_ERR_ARGS;
+                  int64_t *coef, int64_t coef_len, int64_t *last_good) {
+    if (n_geom < GEOM_HEAD || n_data < 0 || n_luts < 0 || n_luts > MAX_LUTS) return TDT_ERR_ARGS;
     int64_t n_mcus = geom[0], per = geom[1], n_members = geom[2], mcux = geom[3];
     int progressive = geom[4] != 0;
     int64_t ss = geom[5], se = geom[6], ah = geom[7], al = geom[8];
     if (n_mcus < 0 || per <= 0 || mcux <= 0 || n_members < 0 || n_members > 4
         || n_geom < GEOM_HEAD + GEOM_MEMBER * n_members || ss < 0 || se > 63 || ss > se
-        || ah < 0 || ah > 15 || al < 0 || al > 15)
+        || ah < 0 || ah > 15 || al < 0 || al > 15 || n_spans != (n_mcus + per - 1) / per)
         return TDT_ERR_ARGS;
     huff_t tables[MAX_LUTS];
     for (int64_t t = 0; t < n_luts; t++) huff_init(&tables[t], luts + (t << 16));
@@ -217,14 +241,18 @@ int tdt_jpeg_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
         int ac_read = !progressive || ss > 0;
         if ((dc_read && !m->dc) || (ac_read && !m->ac)) return TDT_ERR_ARGS;
     }
-    int64_t done = 0;
-    for (int64_t s = 0; s < n_segs && done < n_mcus; s++) {
-        if (seg_start[s] < 0 || seg_start[s + 1] < seg_start[s]) return TDT_ERR_ARGS;
-        bits_t b = {data + seg_start[s], seg_start[s + 1] - seg_start[s], 0, 0};
-        b.nbits = 8 * b.nbytes;
-        int64_t count = per < n_mcus - done ? per : n_mcus - done;
+    int short_ = 0;
+    *last_good = 0;
+    for (int64_t s = 0; s < n_spans; s++) {
+        bits_t b;
+        if (span_bits(data, n_data, spans, s, &b)) return TDT_ERR_ARGS;
+        int64_t flags = spans[3 * s + 2];
+        if (flags & SPAN_FRESH) short_ = 0;
+        if (short_) continue;
+        int64_t first = s * per, count = per < n_mcus - first ? per : n_mcus - first;
         int64_t pred[4] = {0, 0, 0, 0}, eobrun = 0;
-        for (int64_t i = done; i < done + count; i++) {
+        for (int64_t i = first; i < first + count && b.pos <= b.nbits; i++) {
+            *last_good = i;
             int64_t mr = i / mcux, mc = i % mcux;
             for (int64_t j = 0; j < n_members; j++) {
                 const member_t *m = &members[j];
@@ -237,31 +265,31 @@ int tdt_jpeg_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
                                                 &eobrun, coef + off)
                             : block_sequential(&b, m, pred, coef + off);
                         if (rc) return rc;
-                        /* The position only grows: past the end is final. */
-                        if (b.pos > b.nbits) return TDT_ERR_TRUNCATED;
                     }
                 }
             }
         }
-        done += count;
+        short_ = b.pos > b.nbits;
+        if (short_ && (flags & SPAN_OPEN)) return TDT_ERR_TRUNCATED;
     }
-    return done < n_mcus ? TDT_ERR_SEGMENTS : TDT_OK;
+    return TDT_OK;
 }
 
 /* ---- arithmetic coding: data/jpeg.py::_decode_arith_scan --------------------
 
    tdt_jpeg_arith_scan decodes one arithmetic-coded scan (libjpeg's jdarith.c:
    T.81 Annex D's QM decoder, F.1.4.4 and G.1.3) into the same coefficient
-   blocks as tdt_jpeg_scan, from the same segments and geom, whose DC and AC
+   blocks as tdt_jpeg_scan, from the same spans and geom, whose DC and AC
    table slots here name conditioning tables (0-15, -1: none). cond: L of each
    of the 16 DC tables, U of each, Kx of each AC table (DAC). Each scan and
-   restart segment starts with zeroed statistics, DC predictions and
-   conditioning of 0 and two fresh bytes; past a segment's end the decoder
-   reads zeros (the marker that ends it), unless last_open says the file
-   itself ends after the last segment: a read past it is then
-   TDT_ERR_TRUNCATED. fetched[s]: the bytes segment s's decoder asked for
-   (past its length: it read the marker), for the caller's check of where
-   libjpeg read. */
+   restart interval starts with zeroed statistics, DC predictions and
+   conditioning of 0 and two fresh bytes; past an interval's data the
+   decoder reads zeros (the marker that ends it), unless the file itself
+   ends there (SPAN_OPEN): a read past it is then TDT_ERR_TRUNCATED. A
+   magnitude past 15 bits or a coefficient past the band is libjpeg's
+   warning JWRN_ARITH_BAD_CODE: the interval decodes nothing more.
+   fetched[s]: the bytes interval s's decoder asked for (past its length: it
+   read the marker), for the caller's check of where libjpeg read. */
 
 /* jaricom.c's jpeg_aritab: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7
    | Next_Index_LPS; entry 113 is the fixed estimate of 0.5. */
@@ -344,8 +372,6 @@ static int arith_decode(arith_t *d, uint8_t *st) {
     }
     return sv >> 7;
 }
-
-static inline int64_t wrap16(int64_t v) { return (int64_t)(int16_t)(uint16_t)(v & 0xFFFF); }
 
 /* A DC difference (F.19, F.21-F.24); sets *ctx by its size against L and U.
    Returns TDT_ERR_CORRUPT on a magnitude past 15 bits. */
@@ -481,16 +507,17 @@ static int arith_block(arith_t *d, const arith_member_t *m, int j, int progressi
     return TDT_OK;
 }
 
-int tdt_jpeg_arith_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
-                        const int64_t *cond, int64_t last_open, const int64_t *geom,
-                        int64_t n_geom, int64_t *coef, int64_t coef_len, int64_t *fetched) {
-    if (n_geom < GEOM_HEAD || n_segs < 0) return TDT_ERR_ARGS;
+int tdt_jpeg_arith_scan(const uint8_t *data, int64_t n_data, const int64_t *spans,
+                        int64_t n_spans, const int64_t *cond, const int64_t *geom, int64_t n_geom,
+                        int64_t *coef, int64_t coef_len, int64_t *fetched) {
+    if (n_geom < GEOM_HEAD || n_data < 0) return TDT_ERR_ARGS;
     int64_t n_mcus = geom[0], per = geom[1], n_members = geom[2], mcux = geom[3];
     int progressive = geom[4] != 0;
     int64_t ss = geom[5], se = geom[6], ah = geom[7], al = geom[8];
     if (n_mcus < 0 || per <= 0 || mcux <= 0 || n_members < 1 || n_members > 4
         || n_geom < GEOM_HEAD + GEOM_MEMBER * n_members || ss < 0 || se > 63 || ss > se
-        || ah < 0 || ah > 13 || al < 0 || al > 13 || (progressive && ss > 0 && n_members != 1))
+        || ah < 0 || ah > 13 || al < 0 || al > 13 || (progressive && ss > 0 && n_members != 1)
+        || n_spans != (n_mcus + per - 1) / per)
         return TDT_ERR_ARGS;
     for (int t = 0; t < 3 * ARITH_TABLES; t++)
         if (cond[t] < 0 || cond[t] > 255 || (t < 2 * ARITH_TABLES && cond[t] > 15))
@@ -508,12 +535,11 @@ int tdt_jpeg_arith_scan(const uint8_t *data, const int64_t *seg_start, int64_t n
             return TDT_ERR_ARGS;
     }
     uint8_t dc_stats[ARITH_TABLES][DC_BINS], ac_stats[ARITH_TABLES][AC_BINS];
-    int64_t done = 0;
-    for (int64_t s = 0; s < n_segs && done < n_mcus; s++) {
-        if (seg_start[s] < 0 || seg_start[s + 1] < seg_start[s]) return TDT_ERR_ARGS;
+    for (int64_t s = 0; s < n_spans; s++) {
+        bits_t span;
+        if (span_bits(data, n_data, spans, s, &span)) return TDT_ERR_ARGS;
         arith_t d;
-        arith_init(&d, data + seg_start[s], seg_start[s + 1] - seg_start[s],
-                   last_open && s == n_segs - 1);
+        arith_init(&d, span.p, span.nbytes, (spans[3 * s + 2] & SPAN_OPEN) != 0);
         for (int64_t j = 0; j < n_members; j++) {
             if (dc_read) memset(dc_stats[members[j].dc], 0, DC_BINS);
             if (ac_read) memset(ac_stats[members[j].ac], 0, AC_BINS);
@@ -521,28 +547,29 @@ int tdt_jpeg_arith_scan(const uint8_t *data, const int64_t *seg_start, int64_t n
         uint8_t fixed = ARITH_FIXED;
         int64_t last_dc[4] = {0, 0, 0, 0};
         int ctx[4] = {0, 0, 0, 0};
-        int64_t count = per < n_mcus - done ? per : n_mcus - done;
-        for (int64_t i = done; i < done + count; i++) {
+        int64_t first = s * per, count = per < n_mcus - first ? per : n_mcus - first;
+        int rc = TDT_OK;
+        /* A bad code (rc) is libjpeg's JWRN_ARITH_BAD_CODE: nothing more is
+           decoded before the next restart. */
+        for (int64_t i = first; i < first + count && rc == TDT_OK; i++) {
             int64_t mr = i / mcux, mc = i % mcux;
-            for (int64_t j = 0; j < n_members; j++) {
+            for (int64_t j = 0; j < n_members && rc == TDT_OK; j++) {
                 const arith_member_t *m = &members[j];
-                for (int64_t y = 0; y < m->v; y++) {
-                    for (int64_t x = 0; x < m->h; x++) {
+                for (int64_t y = 0; y < m->v && rc == TDT_OK; y++) {
+                    for (int64_t x = 0; x < m->h && rc == TDT_OK; x++) {
                         int64_t off = m->base + ((mr * m->v + y) * m->cols + mc * m->h + x) * 64;
                         if (off < 0 || off > coef_len - 64) return TDT_ERR_ARGS;
-                        int rc = arith_block(&d, m, (int)j, progressive, (int)ss, (int)se,
-                                             (int)ah, (int)al, dc_stats, ac_stats, &fixed, cond,
-                                             last_dc, ctx, coef + off);
+                        rc = arith_block(&d, m, (int)j, progressive, (int)ss, (int)se, (int)ah,
+                                         (int)al, dc_stats, ac_stats, &fixed, cond, last_dc, ctx,
+                                         coef + off);
                         if (d.err) return TDT_ERR_TRUNCATED;
-                        if (rc) return rc;
                     }
                 }
             }
         }
         fetched[s] = d.pos;
-        done += count;
     }
-    return done < n_mcus ? TDT_ERR_SEGMENTS : TDT_OK;
+    return TDT_OK;
 }
 
 /* ---- the pixels: data/jpeg.py::_pixels ------------------------------------ */
@@ -557,33 +584,39 @@ enum { MODE_GREY, MODE_YCC, MODE_RGB, MODE_CMYK, MODE_YCCK };
 #define PIX_HEAD 6
 #define PIX_COMP 5
 
-/* jidctint.c's jpeg_idct_islow, one pass over eight values d[0], d[s], ...
-   (int64 as in the plain version), descaled by `shift`. */
-static inline void idct_1d(int64_t *d, int s, int shift) {
-    int64_t z1 = (d[2 * s] + d[6 * s]) * 4433;
-    int64_t tmp2 = z1 - d[6 * s] * 15137, tmp3 = z1 + d[2 * s] * 6270;
-    int64_t tmp0 = (d[0] + d[4 * s]) * 8192, tmp1 = (d[0] - d[4 * s]) * 8192;
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    int64_t t0 = d[7 * s], t1 = d[5 * s], t2 = d[3 * s], t3 = d[s];
-    int64_t w1 = t0 + t3, w2 = t1 + t2, w3 = t0 + t2, w4 = t1 + t3;
-    int64_t w5 = (w3 + w4) * 9633;
-    t0 *= 2446, t1 *= 16819, t2 *= 25172, t3 *= 12299;
-    w1 *= -7373, w2 *= -20995;
-    w3 = w3 * -16069 + w5, w4 = w4 * -3196 + w5;
-    t0 += w1 + w3, t1 += w2 + w4, t2 += w2 + w3, t3 += w1 + w4;
-    int64_t half = (int64_t)1 << (shift - 1);
-    int64_t out[8] = {tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-                      tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3};
-    for (int k = 0; k < 8; k++) d[k * s] = (out[k] + half) >> shift;
+/* One pass of libjpeg-turbo's SIMD islow IDCT (jidctint-avx2.asm, -sse2:
+   jidctint.c's sums regrouped into pairs of 16-bit products) over eight
+   16-bit words d[0], d[s], ...: in0 + in4, in0 - in4, in7 + in3 and in5 +
+   in1 are 16-bit sums, every other sum 32-bit, and each output, descaled by
+   `shift`, is saturated to 16 bits. Pillow's x86-64 wheels run it; on a
+   valid file it gives jidctint.c's values. */
+static inline void idct_pass(int64_t *d, int s, int shift) {
+    int64_t in0 = d[0], in1 = d[s], in2 = d[2 * s], in3 = d[3 * s], in4 = d[4 * s];
+    int64_t in5 = d[5 * s], in6 = d[6 * s], in7 = d[7 * s];
+    int64_t tmp3 = wrap32(in2 * (4433 + 6270) + in6 * 4433);
+    int64_t tmp2 = wrap32(in2 * 4433 + in6 * (4433 - 15137));
+    int64_t tmp0 = wrap16(in0 + in4) * 8192, tmp1 = wrap16(in0 - in4) * 8192;
+    int64_t t10 = wrap32(tmp0 + tmp3), t13 = wrap32(tmp0 - tmp3);
+    int64_t t11 = wrap32(tmp1 + tmp2), t12 = wrap32(tmp1 - tmp2);
+    int64_t z3 = wrap16(in7 + in3), z4 = wrap16(in5 + in1);
+    int64_t w3 = wrap32(z3 * (9633 - 16069) + z4 * 9633);
+    int64_t w4 = wrap32(z3 * 9633 + z4 * (9633 - 3196));
+    int64_t o0 = wrap32(wrap32(in7 * (2446 - 7373) - in1 * 7373) + w3);
+    int64_t o3 = wrap32(wrap32(-in7 * 7373 + in1 * (12299 - 7373)) + w4);
+    int64_t o1 = wrap32(wrap32(in5 * (16819 - 20995) - in3 * 20995) + w4);
+    int64_t o2 = wrap32(wrap32(-in5 * 20995 + in3 * (25172 - 20995)) + w3);
+    int64_t out[8] = {t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2,
+                      t10 - o3};
+    for (int k = 0; k < 8; k++) {
+        int64_t v = wrap32(wrap32(out[k]) + ((int64_t)1 << (shift - 1))) >> shift;
+        d[k * s] = v < -32768 ? -32768 : v > 32767 ? 32767 : v;
+    }
 }
 
-/* jdmaster.c's range limit of value + 128, indexed by value & 1023. */
-static inline uint8_t idct_limit(int64_t v) {
-    int64_t i = v & 1023;
-    return i < 128 ? (uint8_t)(i + 128) : i < 512 ? 255 : i < 896 ? 0 : (uint8_t)(i - 896);
-}
-
-/* A component's blocks (rows x cols, zigzag) -> samples (8 rows x 8 cols). */
+/* A component's blocks (rows x cols, zigzag) -> samples (8 rows x 8 cols),
+   as data/jpeg.py::_idct_islow: the dequantisation a 16-bit product, pass
+   1's shortcut where rows 1-7 are zero (the DC products shifted left by 2
+   in 16 bits), and the range limit a clamp. */
 static void idct_plane(const int64_t *coef, const int64_t *q, int64_t rows, int64_t cols,
                        uint8_t *plane) {
     int64_t stride = cols * 8;
@@ -591,13 +624,28 @@ static void idct_plane(const int64_t *coef, const int64_t *q, int64_t rows, int6
         for (int64_t c = 0; c < cols; c++) {
             const int64_t *in = coef + (r * cols + c) * 64;
             int64_t d[64];
-            for (int k = 0; k < 64; k++) d[ZIGZAG[k]] = in[k];
-            for (int k = 0; k < 64; k++) d[k] *= q[k];
-            for (int x = 0; x < 8; x++) idct_1d(d + x, 8, 11);       /* columns */
-            for (int y = 0; y < 8; y++) idct_1d(d + 8 * y, 1, 18);   /* rows */
+            int ac_rows = 0;
+            for (int k = 0; k < 64; k++) {
+                int64_t v = wrap16(in[k]);
+                d[ZIGZAG[k]] = wrap16(v * q[ZIGZAG[k]]);
+                if (v && ZIGZAG[k] >= 8) ac_rows = 1;
+            }
+            if (ac_rows) {
+                for (int x = 0; x < 8; x++) idct_pass(d + x, 8, 11); /* columns */
+            } else {
+                for (int x = 0; x < 8; x++) {
+                    int64_t dc = wrap16(d[x] * 4);
+                    for (int y = 0; y < 8; y++) d[8 * y + x] = dc;
+                }
+            }
+            for (int y = 0; y < 8; y++) idct_pass(d + 8 * y, 1, 18); /* rows */
             uint8_t *out = plane + r * 8 * stride + c * 8;
-            for (int y = 0; y < 8; y++)
-                for (int x = 0; x < 8; x++) out[y * stride + x] = idct_limit(d[8 * y + x]);
+            for (int y = 0; y < 8; y++) {
+                for (int x = 0; x < 8; x++) {
+                    int64_t v = d[8 * y + x];
+                    out[y * stride + x] = (uint8_t)((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+                }
+            }
         }
     }
 }
@@ -730,100 +778,113 @@ int tdt_jpeg_pixels(const int64_t *coef, int64_t coef_len, const int64_t *qtable
    it) into the undifferenced samples of its components, before the point
    transform. Each sample is a DC-style difference: a category 0-15 and
    that many extra bits, or 16 with none (32768). The differences of a scan
-   are decoded first (a member's MCU holds h x v of its samples, in raster
-   order; an interleaved scan's samples past the component's width are
-   decoded and dropped), then undifferenced row by row, mod 2^16: the first
-   row of the scan, and the first row of each MCU row a restart interval
-   starts (prediction resets there), from the left neighbour, its first
-   sample from 2^(P - Pt - 1); every other row's first sample from the one
-   above, the rest by the scan's predictor (1-7) of the left (Ra), upper (Rb)
-   and upper-left (Rc) neighbours.
+   are decoded first, an MCU row at a time from its restart interval's span
+   (a member's MCU holds h x v of its samples, in raster order; an
+   interleaved scan's samples past the component's width are decoded and
+   dropped). Damaged data reads as in tdt_jpeg_scan (zero bits past the
+   span, a bad code is 17 bits and difference 0), but libjpeg checks for
+   data that ran short once an MCU row: the row whose bits run out is
+   decoded in full, and each later row of the interval keeps zero
+   differences and restarts the prediction. Then the samples are
+   undifferenced row by row, mod 2^16: the first row of each iMCU row in
+   which the prediction restarted (the scan's first, each whose rows hold a
+   restart, each with a row that ran short) from the left neighbour, its
+   first sample from 2^(P - Pt - 1); every other row's first sample from
+   the one above, the rest by the scan's predictor (1-7) of the left (Ra),
+   upper (Rb) and upper-left (Rc) neighbours.
 
    geom (int64), as data/jpeg.py::_lossless_geometry writes it:
-     [0] MCUs in the scan, [1] MCUs a segment, [2] members (1-4), [3] MCUs a
-     row, [4] predictor, [5] the first row's initial prediction, [6] MCU rows
-     between prediction resets (0: none after the first),
+     [0] MCUs in the scan, [1] MCUs an interval (whole MCU rows), [2] members
+     (1-4), [3] MCUs a row, [4] predictor, [5] the first row's initial
+     prediction, [6] MCU rows an iMCU row (1, or a one-component scan's v),
      then for each member: offset of its first sample in `planes`, its row
      stride, the samples a row and rows to undifference, h, v (1 for a
-     one-component scan), its table (an index into `luts`). */
+     one-component scan), its table (an index into `luts`), its component's
+     sample rows an iMCU row. */
 #define GEOM_LL_HEAD 7
-#define GEOM_LL_MEMBER 7
+#define GEOM_LL_MEMBER 8
 
-int tdt_jpeg_lossless_scan(const uint8_t *data, const int64_t *seg_start, int64_t n_segs,
-                           const uint16_t *luts, int64_t n_luts, const int64_t *geom,
-                           int64_t n_geom, int64_t *planes, int64_t planes_len) {
-    if (n_geom < GEOM_LL_HEAD || n_segs < 0 || n_luts < 1 || n_luts > MAX_LUTS)
+int tdt_jpeg_lossless_scan(const uint8_t *data, int64_t n_data, const int64_t *spans,
+                           int64_t n_spans, const uint16_t *luts, int64_t n_luts,
+                           const int64_t *geom, int64_t n_geom, int64_t *planes,
+                           int64_t planes_len) {
+    if (n_geom < GEOM_LL_HEAD || n_data < 0 || n_luts < 1 || n_luts > MAX_LUTS)
         return TDT_ERR_ARGS;
     int64_t n_mcus = geom[0], per = geom[1], n_members = geom[2], mcux = geom[3];
-    int64_t predictor = geom[4], initial = geom[5], reset_rows = geom[6];
-    if (n_mcus < 0 || per <= 0 || mcux <= 0 || n_members < 1 || n_members > 4
+    int64_t predictor = geom[4], initial = geom[5], band = geom[6];
+    if (n_mcus < 0 || per <= 0 || mcux <= 0 || per % mcux || n_members < 1 || n_members > 4
         || n_geom < GEOM_LL_HEAD + GEOM_LL_MEMBER * n_members || predictor < 1 || predictor > 7
-        || reset_rows < 0)
+        || band < 1 || band > 4 || n_spans != (n_mcus + per - 1) / per)
         return TDT_ERR_ARGS;
     huff_t tables[MAX_LUTS];
     for (int64_t t = 0; t < n_luts; t++) huff_init(&tables[t], luts + (t << 16));
     int64_t mcu_rows = (n_mcus + mcux - 1) / mcux;
-    int64_t base[4], stride[4], width[4], rows[4], h[4], v[4], dbase[4], total = 0;
+    int64_t base[4], stride[4], width[4], rows[4], h[4], v[4], vs[4], dbase[4], total = 0;
     const huff_t *table[4];
     for (int64_t j = 0; j < n_members; j++) {
         const int64_t *g = geom + GEOM_LL_HEAD + GEOM_LL_MEMBER * j;
         base[j] = g[0], stride[j] = g[1], width[j] = g[2], rows[j] = g[3], h[j] = g[4];
-        v[j] = g[5];
+        v[j] = g[5], vs[j] = g[7];
         if (base[j] < 0 || width[j] < 1 || rows[j] < 1 || h[j] < 1 || h[j] > 4 || v[j] < 1
-            || v[j] > 4 || g[6] < 0 || g[6] >= n_luts || width[j] > mcux * h[j]
-            || rows[j] > mcu_rows * v[j] || stride[j] < width[j]
+            || v[j] > 4 || g[6] < 0 || g[6] >= n_luts || vs[j] < 1 || vs[j] > 4
+            || width[j] > mcux * h[j] || rows[j] > mcu_rows * v[j] || stride[j] < width[j]
             || base[j] + (rows[j] - 1) * stride[j] + width[j] > planes_len)
             return TDT_ERR_ARGS;
         table[j] = &tables[g[6]];
         dbase[j] = total;
         total += mcu_rows * v[j] * mcux * h[j];
     }
-    int32_t *diff = malloc((size_t)(total ? total : 1) * sizeof(int32_t));
-    if (!diff) return TDT_ERR_MEMORY;
+    int64_t imcu_rows = (mcu_rows + band - 1) / band;
+    int32_t *diff = calloc((size_t)(total ? total : 1), sizeof(int32_t));
+    uint8_t *reset = calloc((size_t)imcu_rows + 1, 1);
     int rc = TDT_OK;
-    int64_t done = 0;
-    for (int64_t s = 0; s < n_segs && done < n_mcus && rc == TDT_OK; s++) {
-        if (seg_start[s] < 0 || seg_start[s + 1] < seg_start[s]) {
+    if (!diff || !reset) rc = TDT_ERR_MEMORY;
+    int short_ = 0;
+    reset[0] = 1;
+    for (int64_t s = 0; s < n_spans && rc == TDT_OK; s++) {
+        bits_t b;
+        if (span_bits(data, n_data, spans, s, &b)) {
             rc = TDT_ERR_ARGS;
             break;
         }
-        bits_t b = {data + seg_start[s], seg_start[s + 1] - seg_start[s], 0, 0};
-        b.nbits = 8 * b.nbytes;
-        int64_t count = per < n_mcus - done ? per : n_mcus - done;
-        for (int64_t i = done; i < done + count && rc == TDT_OK; i++) {
-            int64_t mr = i / mcux, mc = i % mcux;
-            for (int64_t j = 0; j < n_members && rc == TDT_OK; j++) {
-                int64_t cols = mcux * h[j];
-                for (int64_t y = 0; y < v[j] && rc == TDT_OK; y++) {
-                    for (int64_t x = 0; x < h[j]; x++) {
-                        int sym = huff_decode(&b, table[j]);
-                        if (sym < 0 || sym > 16) {
-                            rc = TDT_ERR_CODE;
-                            break;
-                        }
-                        int32_t d = sym == 16 ? 32768 : (int32_t)extend(get_bits(&b, sym), sym);
-                        diff[dbase[j] + (mr * v[j] + y) * cols + mc * h[j] + x] = d;
-                        if (b.pos > b.nbits) {
-                            rc = TDT_ERR_TRUNCATED;
-                            break;
+        int64_t flags = spans[3 * s + 2];
+        if (flags & SPAN_FRESH) short_ = 0;
+        int64_t first = s * per / mcux, last = (s + 1) * per / mcux;
+        reset[first / band] = 1; /* jddiffct.c's process_restart restarts the prediction */
+        for (int64_t mr = first; mr < last && mr < mcu_rows && rc == TDT_OK; mr++) {
+            if (short_) { /* jdlhuff.c: zero differences, the prediction restarted */
+                reset[mr / band] = 1;
+                continue;
+            }
+            for (int64_t mc = 0; mc < mcux && rc == TDT_OK; mc++) {
+                for (int64_t j = 0; j < n_members && rc == TDT_OK; j++) {
+                    int64_t cols = mcux * h[j];
+                    for (int64_t y = 0; y < v[j] && rc == TDT_OK; y++) {
+                        for (int64_t x = 0; x < h[j]; x++) {
+                            int sym = huff_decode(&b, table[j]);
+                            if (sym > 16) {
+                                rc = TDT_ERR_CODE;
+                                break;
+                            }
+                            int32_t d = sym == 16 ? 32768
+                                                  : (int32_t)extend(get_bits(&b, sym), sym);
+                            diff[dbase[j] + (mr * v[j] + y) * cols + mc * h[j] + x] = d;
                         }
                     }
                 }
             }
+            short_ = b.pos > b.nbits;
+            if (short_ && (flags & SPAN_OPEN)) rc = TDT_ERR_TRUNCATED;
         }
-        done += count;
     }
-    if (rc == TDT_OK && done < n_mcus) rc = TDT_ERR_SEGMENTS;
     for (int64_t j = 0; j < n_members && rc == TDT_OK; j++) {
         int64_t cols = mcux * h[j];
         for (int64_t r = 0; r < rows[j]; r++) {
             const int32_t *d = diff + dbase[j] + r * cols;
             int64_t *out = planes + base[j] + r * stride[j];
             const int64_t *prev = out - stride[j];
-            int64_t band = r / v[j];
-            int first = r == 0 || (r % v[j] == 0 && reset_rows && band % reset_rows == 0);
             int64_t ra, rb, rc_ = 0;
-            if (first) {
+            if (r % vs[j] == 0 && r / vs[j] < imcu_rows && reset[r / vs[j]]) {
                 ra = (d[0] + initial) & 0xFFFF;
                 out[0] = ra;
                 for (int64_t c = 1; c < width[j]; c++) out[c] = ra = (d[c] + ra) & 0xFFFF;
@@ -849,5 +910,6 @@ int tdt_jpeg_lossless_scan(const uint8_t *data, const int64_t *seg_start, int64_
         }
     }
     free(diff);
+    free(reset);
     return rc;
 }

@@ -1,6 +1,6 @@
-/* The simple raster formats' packet streams: TGA's run-length packets and
-   QOI's op stream, the counterparts of data/tga.py's _rle_reference and
-   data/qoi.py's _ops_reference.
+/* The simple raster formats' packet streams: TGA's and PCX's run-length
+   packets and QOI's op stream, the counterparts of data/tga.py's and
+   data/pcx.py's _rle_reference and data/qoi.py's _ops_reference.
 
    tdt_tga_rle expands the packets of an RLE TGA image (Pillow's
    TgaRleDecode.c, as it reads): a header byte, its low 7 bits + 1 pixels of
@@ -17,7 +17,14 @@
    gives (0, 0, 0, 0), and every op but a run writes its pixel to the slot of
    its hash (r * 3 + g * 5 + b * 7 + a * 11) % 64; a run past the last pixel
    is cut there. An op whose bytes the file does not hold is
-   TDT_ERR_TRUNCATED. */
+   TDT_ERR_TRUNCATED.
+
+   tdt_pcx_rle expands a PCX image's packets (Pillow's PcxDecode.c) into
+   `rows` lines of `line` bytes: a byte whose top two bits are set repeats
+   the next byte its low six bits times, any other byte is itself. A run
+   that would cross the end of its line is Pillow's overrun
+   (TDT_ERR_RANGE); the packets end where the last line is full, and a file
+   that ends first is TDT_ERR_TRUNCATED. */
 #include <string.h>
 
 #include "decode.h"
@@ -77,6 +84,27 @@ int tdt_qoi_decode(const uint8_t *data, int64_t n, uint8_t *rgb, int64_t pixels)
         }
         memcpy(seen[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64], px, 4);
         memcpy(rgb + 3 * done++, px, 3);
+    }
+    return TDT_OK;
+}
+
+int tdt_pcx_rle(const uint8_t *data, int64_t n, uint8_t *out, int64_t line, int64_t rows) {
+    if (n < 0 || line < 1 || rows < 1) return TDT_ERR_ARGS;
+    int64_t total = line * rows, at = 0, pos = 0;
+    while (at < total) {
+        if (pos >= n) return TDT_ERR_TRUNCATED;
+        int b = data[pos];
+        if ((b & 0xC0) == 0xC0) {
+            if (pos + 1 >= n) return TDT_ERR_TRUNCATED;
+            int64_t count = b & 0x3F;
+            if (at % line + count > line) return TDT_ERR_RANGE;
+            memset(out + at, data[pos + 1], (size_t)count);
+            at += count;
+            pos += 2;
+        } else {
+            out[at++] = (uint8_t)b;
+            pos++;
+        }
     }
     return TDT_OK;
 }

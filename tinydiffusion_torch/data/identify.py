@@ -26,8 +26,8 @@ away, since every TGA walks through them, and GBR's, whose accept test
 takes a QOI of width 1 or 2.
 
 Known gap: a file that such a refused format's ``_accept`` takes, whose
-``_open`` fails, and which a later plugin reads (say a TGA with a 10-byte ID
-field, which PCX's accept takes) is refused here where Pillow reads it. The
+``_open`` fails, and which a later plugin reads (say an MSP file whose
+damaged header fails MSP's ``_open``) is refused here where Pillow reads it. The
 open steps of JPEG (marker walk, sample precision, component count), PNG,
 GIF, WebP, TIFF and JPEG 2000 check less than Pillow's ``_open`` does; what
 they let through their decoders refuse, and no later plugin would read it.
@@ -42,8 +42,8 @@ from typing import Callable
 
 import numpy as np
 
-from tinydiffusion_torch.data import bmp, gif, ico, jpeg, jpeg2000, netpbm, png, qoi, tga, tiff
-from tinydiffusion_torch.data import webp
+from tinydiffusion_torch.data import bmp, gif, ico, jpeg, jpeg2000, netpbm, pcx, png, qoi, tga
+from tinydiffusion_torch.data import tiff, webp
 from tinydiffusion_torch.data.header import Header, NotThisFormat, open_as
 
 # Pillow's Image.MAX_IMAGE_PIXELS; over twice it, Image.open raises.
@@ -369,7 +369,7 @@ PLUGINS = (
     Plugin("BLP", _starts(b"BLP1", b"BLP2")),
     Plugin("BUFR", _starts(b"BUFR", b"ZCZC")),
     Plugin("CUR", _starts(ico.SIGNATURES[1]), ico.open_cur, ico.decode_ico),
-    Plugin("PCX", lambda p: len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5)),
+    Plugin("PCX", pcx.accept, pcx.open_pcx, pcx.decode_pcx),
     Plugin("DCX", lambda p: len(p) >= 4 and _i32le(p) == 0x3ADE68B1),
     Plugin("DDS", _starts(b"DDS ")),
     Plugin("EPS", lambda p: p.startswith(b"%!PS") or (len(p) >= 4 and _i32le(p) == 0xC6D3D0C5)),

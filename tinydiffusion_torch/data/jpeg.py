@@ -49,7 +49,26 @@ interval of whole MCU rows) decode to their samples, replicated up by
 whole sampling factors, with libjpeg-turbo's colour rules for lossless
 files: grey, RGB or CMYK, and no YCbCr (refused, as Pillow refuses it).
 Arithmetic-coded lossless (SOF11), hierarchical and 12-bit files raise
-``ValueError`` with the reason, as do truncated or corrupt ones.
+``ValueError`` with the reason, as do truncated files and the corrupt ones
+libjpeg-turbo refuses.
+
+Damaged data reads as Pillow's libjpeg-turbo 3.1 recovers from it with a
+warning Pillow never shows. The source is read as libjpeg reads it: a run
+of 0xFF bytes and a zero is one 0xFF data byte, any other byte after them
+a marker, after which the decoders read zero bits. A bad Huffman code is
+17 bits and symbol 0; a zero run past a block's 64th coefficient lands on
+it; DC predictions wrap as an ``int`` and coefficients as 16-bit
+``JCOEF``s. An interval whose bits run out finishes the MCU in hand from
+zeros and leaves the rest of the interval as it was (a lossless scan: the
+rest of its MCU row, then zero differences and the prediction restarted).
+An arithmetic scan's bad code stops its interval. At each restart the
+expected RSTn is taken, or another marker dealt with by
+jpeg_resync_to_restart's rules (``_resync``). Markers after a scan are
+read by jdmarker.c's rules (``_marker_segment``); an EOI before the last
+scan of a DCT file leaves what it has (components never scanned grey), and
+a progressive file cut so gets libjpeg's block smoothing (``_smoothed``).
+The IDCT is libjpeg-turbo's SIMD one in Pillow's x86-64 wheels, whose
+16-bit lanes show on out-of-range coefficients (``_idct_islow``).
 
 ``decode_jpeg`` parses the markers here and decodes each scan (Huffman:
 ``tdt_jpeg_scan``; arithmetic: ``tdt_jpeg_arith_scan``; lossless:
@@ -190,41 +209,55 @@ def _quantize(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
     return np.where(coef < 0, -q, q)
 
 
-def _idct_1d(d: list, out_shift: int) -> list:
-    """One pass of jidctint.c's ``jpeg_idct_islow`` on eight arrays."""
-    z1 = (d[2] + d[6]) * _F0541
-    tmp2 = z1 - d[6] * _F1847
-    tmp3 = z1 + d[2] * _F0765
-    tmp0 = (d[0] + d[4]) << _CONST_BITS
-    tmp1 = (d[0] - d[4]) << _CONST_BITS
-    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
-    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-    t0, t1, t2, t3 = d[7], d[5], d[3], d[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * _F1175
-    t0, t1, t2, t3 = t0 * _F0298, t1 * _F2053, t2 * _F3072, t3 * _F1501
-    z1, z2 = z1 * -_F0899, z2 * -_F2562
-    z3, z4 = z3 * -_F1961 + z5, z4 * -_F0390 + z5
-    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
-    return [_descale(v, out_shift) for v in (
-        tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-        tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+def _w16(x):
+    """A store into a 16-bit lane (libjpeg's JCOEF, a SIMD word): two's complement wrap."""
+    return ((x + 32768) & 0xFFFF) - 32768
 
 
-# jdmaster.c's post-IDCT range limit, indexed by ``value & 1023``: value +
-# 128 clamped to [0, 255] for values in [-512, 511].
-_IDCT_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384, np.int64),
-                              np.arange(0, 128)]).astype(np.int64)
+def _w32(x):
+    """A 32-bit lane's wrap (a SIMD doubleword)."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _idct_pass(d: list, shift: int) -> list:
+    """One pass of libjpeg-turbo's SIMD islow IDCT (``jidctint-avx2.asm``,
+    ``-sse2``: jidctint.c's sums regrouped into pairs of 16-bit products,
+    ``pmaddwd``) on eight arrays of 16-bit words: in0 + in4, in0 - in4, in7 +
+    in3 and in5 + in1 are 16-bit sums, every other sum 32-bit, and each
+    output, descaled by ``shift``, is saturated to 16 bits."""
+    in0, in1, in2, in3, in4, in5, in6, in7 = d
+    tmp3 = _w32(in2 * (_F0541 + _F0765) + in6 * _F0541)
+    tmp2 = _w32(in2 * _F0541 + in6 * (_F0541 - _F1847))
+    tmp0, tmp1 = _w16(in0 + in4) << _CONST_BITS, _w16(in0 - in4) << _CONST_BITS
+    t10, t13, t11, t12 = _w32(tmp0 + tmp3), _w32(tmp0 - tmp3), _w32(tmp1 + tmp2), _w32(tmp1 - tmp2)
+    z3, z4 = _w16(in7 + in3), _w16(in5 + in1)
+    z3, z4 = (_w32(z3 * (_F1175 - _F1961) + z4 * _F1175),
+              _w32(z3 * _F1175 + z4 * (_F1175 - _F0390)))
+    o0 = _w32(_w32(in7 * (_F0298 - _F0899) - in1 * _F0899) + z3)
+    o3 = _w32(_w32(-in7 * _F0899 + in1 * (_F1501 - _F0899)) + z4)
+    o1 = _w32(_w32(in5 * (_F2053 - _F2562) - in3 * _F2562) + z4)
+    o2 = _w32(_w32(-in5 * _F2562 + in3 * (_F3072 - _F2562)) + z3)
+    return [np.clip(_w32(_w32(v) + (1 << (shift - 1))) >> shift, -32768, 32767) for v in (
+        t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2, t10 - o3)]
 
 
 def _idct_islow(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
-    """(..., 8, 8) quantised coefficients -> (..., 8, 8) samples 0-255."""
-    deq = coef * qtable
-    cols = np.stack(_idct_1d([deq[..., k, :] for k in range(8)], _CONST_BITS - _PASS1_BITS),
+    """(..., 8, 8) quantised coefficients -> (..., 8, 8) samples 0-255, as
+    Pillow's libjpeg-turbo computes them on x86-64: its SIMD islow IDCT,
+    which on a valid file gives jidctint.c's samples. Where coefficients are
+    out of range (damaged data) its 16-bit lanes show: the dequantisation
+    is a 16-bit product, a block whose rows 1-7 are zero takes pass 1's
+    shortcut (the DC products shifted left by 2 in 16 bits), each pass
+    saturates its outputs to 16 bits, and the range limit clamps."""
+    coef = _w16(coef)
+    d = _w16(coef * qtable)
+    cols = np.stack(_idct_pass([d[..., k, :] for k in range(8)], _CONST_BITS - _PASS1_BITS),
                     axis=-2)
-    rows = np.stack(_idct_1d([cols[..., k] for k in range(8)],
-                             _CONST_BITS + _PASS1_BITS + 3), axis=-1)
-    return _IDCT_LIMIT[rows & 1023]
+    dc_only = ~(coef[..., 1:, :] != 0).any(axis=(-2, -1))
+    cols = np.where(dc_only[..., None, None], _w16(d[..., :1, :] << _PASS1_BITS), cols)
+    rows = np.stack(_idct_pass([cols[..., k] for k in range(8)], _CONST_BITS + _PASS1_BITS + 3),
+                    axis=-1)
+    return np.clip(rows, -128, 127) + 128
 
 
 def _upsample_h2v2_fancy(plane: np.ndarray) -> np.ndarray:
@@ -467,30 +500,54 @@ def encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
     return b"".join(header) + _huffman_encode(*_encoder_scan(image, quality)) + b"\xff\xd9"
 
 
+# jdhuff.c's answer to a bit pattern that no code of the table starts: it
+# reads bits up to jpeg_huff_decode's sentinel length, 17, and decodes
+# symbol 0 ("fake a zero"; a DC difference of 0, an AC end of block).
+BAD_CODE = 17 << 8
+
+
 @functools.lru_cache(maxsize=64)
 def _packed_lut(counts: tuple, symbols: bytes) -> np.ndarray:
     """For each 16-bit window, the code that starts it as ``length << 8 |
-    symbol`` (0: no code starts the window), uint16: the table both the C
-    decoder and the plain one read. A symbol given twice keeps its last code."""
-    code, size = _huffman_codes(counts, symbols)
-    table = np.zeros(1 << 16, np.uint16)
-    for s in symbols:
-        lo = int(code[s]) << (16 - int(size[s]))
-        table[lo:lo + (1 << (16 - int(size[s])))] = int(size[s]) << 8 | s
+    symbol``, uint16 (``BAD_CODE`` where none does): the table both the C
+    decoder and the plain one read."""
+    table = np.full(1 << 16, BAD_CODE, np.uint16)
+    c = p = 0
+    for length, count in enumerate(counts, start=1):
+        for _ in range(count):
+            lo = c << (16 - length)
+            table[lo:lo + (1 << (16 - length))] = length << 8 | symbols[p]
+            c += 1
+            p += 1
+        c <<= 1
     return table
+
+
+def _check_table(counts: tuple, symbols: bytes, dc_max: int | None) -> None:
+    """jdhuff.c's jpeg_make_d_derived_tbl, run on each table a scan reads:
+    no code may be all ones, and a DC table (``dc_max`` given) holds no
+    symbol over ``dc_max`` (15; 16 in a lossless scan)."""
+    code = 0
+    for length, count in enumerate(counts, start=1):
+        code += count
+        if code >= 1 << length:
+            raise ValueError("corrupt JPEG file: a bad DHT table (its codes overflow)")
+        code <<= 1
+    if dc_max is not None and max(symbols, default=0) > dc_max:
+        raise ValueError(f"corrupt JPEG file: a bad DHT table (a DC symbol over {dc_max})")
 
 
 @functools.lru_cache(maxsize=64)
 def _decode_lut(tc: int, counts: tuple, symbols: bytes) -> tuple[np.ndarray, ...]:
-    """A table of class ``tc`` (0 DC, 1 AC) for each 16-bit window that starts
-    with one of its codes: the symbol, the code's length (0: no code starts
-    the window), the bits to the next symbol (the code and the extra bits the
-    symbol announces) and, for AC, the symbol's advance in its block (run + 1;
-    64 for EOB, which ends the block, and for no code)."""
+    """A table of class ``tc`` (0 DC, 1 AC) for each 16-bit window: the
+    symbol, the code's length (17 for no code), the bits to the next symbol
+    (the code and the extra bits the symbol announces) and, for AC, the
+    symbol's advance in its block (run + 1; 64 for an end of block: size 0
+    and a run other than 15)."""
     packed = _packed_lut(counts, symbols).astype(np.int64)
     sym, length = packed & 255, packed >> 8
     skip = length + (sym if tc == 0 else sym & 15)
-    adv = np.where((sym == 0) | (length == 0), 64, (sym >> 4) + 1)
+    adv = np.where((sym & 15 == 0) & (sym != 0xF0), 64, (sym >> 4) + 1)
     return sym, length, skip, adv
 
 
@@ -500,63 +557,166 @@ def _extend(extra: np.ndarray, size: np.ndarray) -> np.ndarray:
     return np.where(size == 0, 0, np.where(extra < half, extra - 2 * half + 1, extra))
 
 
-def _entropy_segments(data: bytes, pos: int, reach: list | None = None
-                      ) -> tuple[list[np.ndarray], int, bool]:
-    """The entropy-coded data of the scan that starts at ``pos``: its
-    segments between RST markers, unstuffed, and the position of the marker
-    that ends it (``len(data)`` and False when the file ends first). Into
-    ``reach``, where given, goes for each segment where libjpeg's reading
-    of it stands in the file: after each of its bytes (past a stuffed zero),
-    and after the marker that ends it (None: the file ends first)."""
+_RST = range(0xD0, 0xD8)
+
+
+def _scan_data(data: bytes, pos: int, reach: bool = False) -> tuple[list, list]:
+    """The entropy-coded data from ``pos`` as libjpeg's source reads it
+    (jdhuff.c's jpeg_fill_bit_buffer, jdarith.c's get_byte, jdmarker.c's
+    next_marker): a run of 0xFF bytes and a zero is one 0xFF data byte; a
+    run of 0xFF bytes and any other byte is a marker. Returns the chunks of
+    data between markers, unstuffed, and the marker that ends each, as
+    (code, where its 0xFF run starts, where it ends), or None where the file
+    ends first. It stops at the first marker no resync passes (one from
+    SOF0 up that is no RSTn: jpeg_resync_to_restart). With ``reach`` each
+    chunk is (bytes, where libjpeg stands in the file after each byte)."""
     arr = np.frombuffer(data, np.uint8, offset=pos)
-    ff = np.nonzero(arr[:-1] == 0xFF)[0]
-    nxt = arr[ff + 1]
-    marks = ff[(nxt != 0) & (nxt != 0xFF)]
-    is_rst = (arr[marks + 1] >= 0xD0) & (arr[marks + 1] <= 0xD7)
-    stop = np.nonzero(~is_rst)[0]
-    end = int(marks[stop[0]]) if len(stop) else len(arr)
-    bounds = [0, *[int(m) for m in marks[is_rst] if m < end]]
-    segments = []
-    for i, start in enumerate(bounds):
-        first = start + (2 if i else 0)
-        last = bounds[i + 1] if i + 1 < len(bounds) else end
-        seg = arr[first:last]
-        while len(seg) and seg[-1] == 0xFF:  # fill bytes before the marker
-            seg = seg[:-1]
-        ff = np.nonzero(seg[:-1] == 0xFF)[0]
-        stuffed = ff[seg[ff + 1] == 0] + 1
-        segments.append(np.delete(seg, stuffed))  # stuffed zeros
-        if reach is not None:
-            kept = np.delete(np.arange(len(seg)), stuffed)
-            marked = i + 1 < len(bounds) or bool(len(stop))
-            reach.append((pos + first + kept + np.isin(kept + 1, stuffed) + 1,
-                          pos + last + 2 if marked else None))
-    return segments, pos + end, bool(len(stop))
+    ff = arr == 0xFF
+    last = np.nonzero(ff[:-1] & ~ff[1:])[0]  # the last 0xFF of each run with a byte after
+    mark_at = last[arr[last + 1] != 0]
+    codes = arr[mark_at + 1]
+    final = np.nonzero((codes >= 0xC0) & ((codes < 0xD0) | (codes > 0xD7)))[0]
+    if len(final):
+        mark_at, codes = mark_at[:final[0] + 1], codes[:final[0] + 1]
+    run_start = np.nonzero(ff & ~np.concatenate([[False], ff[:-1]]))[0]
+    starts = run_start[np.searchsorted(run_start, mark_at, "right") - 1]
+    markers = [(int(c), int(b), int(m) + 2) for c, b, m in zip(codes, starts, mark_at)]
+    bounds = [0] + [m[2] for m in markers]
+    ends = [m[1] for m in markers]
+    if not len(final):  # the file ends inside the last chunk
+        tail = len(arr)
+        while tail > bounds[-1] and arr[tail - 1] == 0xFF:
+            tail -= 1
+        ends.append(tail)
+        markers.append(None)
+    chunks = []
+    for first, end in zip(bounds, ends):
+        seg = arr[first:end]
+        prev_ff = np.concatenate([[False], seg[:-1] == 0xFF])
+        keep = ~(prev_ff & ((seg == 0xFF) | (seg == 0)))
+        if not reach:
+            chunks.append(seg[keep])
+            continue
+        # After a kept 0xFF libjpeg stands past the zero that ends its run.
+        idx = np.nonzero(keep)[0]
+        other = np.nonzero(seg != 0xFF)[0]
+        after = np.where(seg[idx] == 0xFF,
+                         other[np.minimum(np.searchsorted(other, idx), len(other) - 1)]
+                         if len(other) else idx, idx) + 1
+        chunks.append((seg[keep], pos + first + after))
+    return chunks, [None if m is None else (m[0], pos + m[1], pos + m[2]) for m in markers]
+
+
+def _resync(markers: list, n_intervals: int) -> tuple[list, int]:
+    """Which chunk each restart interval of a scan reads, as libjpeg's
+    read_restart_marker and jpeg_resync_to_restart decide at each restart:
+    the expected RSTn is taken; so is a marker the decoder should not see
+    (another RSTn, or one before the last two or past the next two);
+    a marker below SOF0, or an RSTn one or two behind, is skipped with the
+    data after it; any other marker (a non-RST from SOF0 up, or one of the
+    next two RSTn) is left for the next restart, and the interval reads no
+    data (-1). Returns each interval's chunk and the marker that stands
+    after the scan (its index; ``len(markers) - 1`` may be None: the file
+    ends) and the last marker a restart read (-1: none). The file ending
+    where a marker is needed is the truncation Pillow refuses."""
+    plan, at, expected, read = [0], 0, 0, -1
+    for _ in range(1, n_intervals):
+        while True:
+            read = at
+            if markers[at] is None:
+                raise ValueError("truncated JPEG file")
+            code = markers[at][0]
+            if code == 0xD0 + expected:
+                action = 1
+            elif code < 0xC0:
+                action = 2
+            elif code not in _RST or code in (0xD0 + (expected + 1) % 8, 0xD0 + (expected + 2) % 8):
+                action = 3
+            elif code in (0xD0 + (expected - 1) % 8, 0xD0 + (expected - 2) % 8):
+                action = 2
+            else:
+                action = 1
+            if action != 2:
+                break
+            at += 1
+        expected = (expected + 1) % 8
+        if action == 1:
+            at += 1
+            plan.append(at)
+        else:
+            plan.append(-1)
+    return plan, at, read
+
+
+# A span's flags (spans: each restart interval's data in the scan's buffer).
+SPAN_FRESH, SPAN_OPEN = 1, 2
+
+
+def _scan_spans(data: bytes, pos: int, n_intervals: int, reach: bool = False) -> dict:
+    """A scan's restart intervals as the decoders read them: ``buf`` (the
+    chunks they read, one after another) and ``spans`` (n_intervals x 3
+    int64: start and end in ``buf``, flags: ``SPAN_FRESH`` where the marker
+    before the interval was taken, which clears jdhuff.c's
+    insufficient_data, ``SPAN_OPEN`` where the file ends after the data,
+    where reading past it is truncation), ``end`` (where the marker after
+    the scan starts, ``len(data)`` at the file's end) and, with ``reach``,
+    each interval's chunk as ``_scan_data`` gives it (None: no data), the
+    marker after it, and the end of the last marker a restart read."""
+    chunks, markers = _scan_data(data, pos, reach)
+    plan, at, read = _resync(markers, n_intervals)
+    used = sorted({c for c in plan if c >= 0})
+    pieces = [chunks[c][0] if reach else chunks[c] for c in used]
+    starts = np.cumsum([0] + [len(x) for x in pieces]).astype(np.int64)
+    where = {c: i for i, c in enumerate(used)}
+    spans = np.zeros((n_intervals, 3), np.int64)
+    for i, c in enumerate(plan):
+        if c >= 0:
+            spans[i] = (starts[where[c]], starts[where[c] + 1],
+                        SPAN_FRESH | (SPAN_OPEN if markers[c] is None else 0))
+        else:
+            spans[i] = (starts[-1], starts[-1], 0)
+    scan = {"buf": np.concatenate(pieces) if pieces else np.zeros(1, np.uint8), "spans": spans,
+            "end": len(data) if markers[at] is None else markers[at][1]}
+    if reach:
+        scan["reach"] = [chunks[c] if c >= 0 else None for c in plan]
+        scan["restart_end"] = markers[read][2] if read >= 0 else 0
+        scan["markers"] = [markers[c] if c >= 0 else None for c in plan]
+    return scan
+
+
+def _segments(scan: dict) -> list:
+    """Each restart interval's bytes and flags, from ``_scan_spans``."""
+    return [(scan["buf"][a:b], flags) for a, b, flags in scan["spans"].tolist()]
 
 
 def _decode_segment(seg: np.ndarray, plan: list, n_mcus: int,
-                    luts: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Huffman-decode ``n_mcus`` MCUs of one segment. ``plan``: (DC table,
-    AC table) of each block of an MCU. Returns each block's DC difference,
-    its AC coefficients as (block, zigzag index, value) rows, and each
-    block's place in its MCU."""
+                    luts: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray, int, bool]:
+    """Huffman-decode up to ``n_mcus`` MCUs of one restart interval's data,
+    read with zero bits past its end as libjpeg reads them once it meets a
+    marker. ``plan``: (DC table, AC table) of each block of an MCU. The MCU
+    whose bits run past the end is decoded in full (from those zeros); the
+    MCUs after it are not (jdhuff.c's insufficient_data). Returns each
+    decoded block's DC difference, its AC coefficients as (block, zigzag
+    index, value) rows (a run past the 64th lands on the 64th: libjpeg's
+    jpeg_natural_order is padded with 63s), each block's place in its MCU,
+    the MCUs decoded and whether the bits ran out."""
     nbits = 8 * len(seg)
-    size = nbits + 17  # every bit position, 16 bits of zeros past the end, and a sink
+    past = nbits + 1  # every position past the end reads zeros: one sink
+    size = nbits + 2
     padded = np.concatenate([seg, np.zeros(5, np.uint8)]).astype(np.int64)
     p = np.arange(size)
     i = p >> 3
     window = ((padded[i] << 16 | padded[i + 1] << 8 | padded[i + 2]) >> (8 - (p & 7))) & 0xFFFF
+    window[nbits:] = 0
     tables = sorted({t for pair in plan for t in pair})
     # Per table and bit position: the position after the symbol there and its
-    # extra bits (past the end: the sink, size - 1); for AC tables packed with
-    # the symbol's advance in the block.
+    # extra bits; for AC tables packed with the symbol's advance in the block.
     nxt = np.empty((len(tables), size), np.int64)
     adv = np.empty((len(tables), size), np.int64)
     walk_of = {}
     for j, t in enumerate(tables):
         _, _, skip, step = luts[t]
-        nxt[j] = np.minimum(p + skip[window], size - 1)
-        nxt[j, -1] = size - 1
+        nxt[j] = np.where(p + skip[window] > nbits, past, p + skip[window])
         if t[0] == 0:
             walk_of[t] = (memoryview(nxt[j]),)
             continue
@@ -567,8 +727,8 @@ def _decode_segment(seg: np.ndarray, plan: list, n_mcus: int,
     dc_pos, ac_start = [], []
     dc_add, ac_add = dc_pos.append, ac_start.append
     walk = [(*walk_of[dc], *walk_of[ac]) for dc, ac in plan]
-    at = 0
-    for _ in range(n_mcus):
+    at = decoded = 0
+    while decoded < n_mcus and at <= nbits:
         for dc_next, one in walk:
             dc_add(at)
             at = dc_next[at]
@@ -578,14 +738,14 @@ def _decode_segment(seg: np.ndarray, plan: list, n_mcus: int,
                 v = one[at]
                 k += v & 127
                 at = v >> 7
-    if at > nbits:
-        raise ValueError("corrupt or truncated JPEG data: a scan segment ends early")
+        decoded += 1
+    n_blocks = len(dc_pos)
     # Every block's AC symbols, walked for all blocks at once.
-    kinds = np.tile(np.arange(len(plan)), n_mcus)
+    kinds = np.tile(np.arange(len(plan)), decoded)
     ac_t = np.array([tables.index(ac) for _, ac in plan])[kinds]
     cur = np.array(ac_start, np.int64)
     kk = np.ones(len(cur), np.int64)
-    found_block, found_pos = [], []
+    found_block, found_pos = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
     live = np.arange(len(cur))
     while len(live):
         at_live = cur[live]
@@ -597,11 +757,8 @@ def _decode_segment(seg: np.ndarray, plan: list, n_mcus: int,
     found_block = np.concatenate(found_block)
     order = np.argsort(found_block, kind="stable")
     ac_pos = np.concatenate(found_pos)[order]
-    # Each symbol's block as the walk found it (a bit pattern that is no code
-    # does not advance, so a position alone may name the next block).
     block = found_block[order]
     dc_pos = np.array(dc_pos, np.int64)
-    n_blocks = len(dc_pos)
     # DC: the size, then the bits of the difference.
     dc_w = window[dc_pos]
     dsize, dlen = np.empty(n_blocks, np.int64), np.empty(n_blocks, np.int64)
@@ -609,7 +766,7 @@ def _decode_segment(seg: np.ndarray, plan: list, n_mcus: int,
         sel = np.isin(kinds, [m for m, (dc, _) in enumerate(plan) if dc == dc_table])
         dsize[sel] = luts[dc_table][0][dc_w[sel]]
         dlen[sel] = luts[dc_table][1][dc_w[sel]]
-    dc = _extend(window[dc_pos + dlen] >> (16 - dsize), dsize)
+    dc = _extend(window[np.minimum(dc_pos + dlen, past)] >> (16 - dsize), dsize)
     # AC: each symbol's block, its coefficient index after the run, its value.
     ac_w = window[ac_pos]
     asym, alen = np.empty(len(ac_pos), np.int64), np.empty(len(ac_pos), np.int64)
@@ -617,19 +774,17 @@ def _decode_segment(seg: np.ndarray, plan: list, n_mcus: int,
         sel = ac_t[block] == tables.index(ac_table)
         asym[sel] = luts[ac_table][0][ac_w[sel]]
         alen[sel] = luts[ac_table][1][ac_w[sel]]
-    if (dlen == 0).any() or (alen == 0).any():
-        raise ValueError("corrupt JPEG data: a bit pattern that is no Huffman code")
-    step = np.where(asym == 0, 0, (asym >> 4) + 1)
+    eob = (asym & 15 == 0) & (asym != 0xF0)
+    step = np.where(eob, 0, (asym >> 4) + 1)
     csum = np.cumsum(step)
     first = np.searchsorted(block, np.arange(n_blocks))  # each block's first AC symbol
     start = np.concatenate([[0], csum])[first]  # advances before the block
     k = 1 + csum - step - start[block] + (asym >> 4)
     asize = asym & 15
     keep = asize > 0
-    if (k[keep] > 63).any():
-        raise ValueError("corrupt JPEG data: a coefficient past the block's 64")
-    value = _extend(window[ac_pos + alen] >> (16 - asize), asize)
-    return dc, np.stack([block[keep], k[keep], value[keep]], axis=1), kinds
+    value = _extend(window[np.minimum(ac_pos + alen, past)] >> (16 - asize), asize)
+    return (dc, np.stack([block[keep], np.minimum(k[keep], 63), value[keep]], axis=1), kinds,
+            decoded, at > nbits)
 
 
 def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
@@ -730,133 +885,256 @@ def _decode(data: bytes, native: bool, color: str | None = None,
         raise ValueError(f"corrupt JPEG file: {e!r}") from e
 
 
+def _next_marker(data: bytes, pos: int) -> int:
+    """jdmarker.c's next_marker: where the next marker's 0xFF starts from
+    ``pos`` on, past any other bytes and 0xFF 0x00 pairs (``len(data)``:
+    none before the file ends)."""
+    while True:
+        pos = data.find(b"\xff", pos)
+        if pos < 0:
+            return len(data)
+        end = pos
+        while end < len(data) and data[end] == 0xFF:
+            end += 1
+        if end == len(data):
+            return len(data)
+        if data[end]:
+            return end - 1
+        pos = end + 1
+
+
+# The markers libjpeg's read_markers knows; any other is JERR_UNKNOWN_MARKER.
+_KNOWN = {*_SOF, *_UNSUPPORTED_SOF, 0xC4, 0xC8, 0xCC, 0xD8, 0xD9, 0xDA, 0xDB, 0xDC, 0xDD, 0xFE,
+          0x01, *range(0xD0, 0xD8), *range(0xE0, 0xF0)}
+
+
+class _Suspend(Exception):
+    """The file ends where libjpeg reads on: its data source suspends."""
+
+
+class _Reader:
+    """Bytes of a marker segment as jdmarker.c reads them, one at a time:
+    ``_Suspend`` where the file ends first."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.pos = data, pos
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise _Suspend
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def two(self) -> int:
+        return self.byte() << 8 | self.byte()
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise _Suspend
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+
 def _decode_markers(data: bytes, native: bool, color: str | None = None,
                     in_blocks: bool = False) -> np.ndarray:
+    """The markers as libjpeg's read_markers takes them (Pillow's JPEG
+    plugin reads those before the first scan too), each scan decoded as it
+    comes. Where the file ends early: before the first scan and in a
+    multi-scan file Pillow refuses it (libjpeg suspends; Pillow has no more
+    data); after a one-pass file's scan every pixel is out, and Pillow
+    keeps the image. A stream libtiff holds (not ``in_blocks``) ends in an
+    EOI of libtiff's own."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
-    qtables, tables = {}, {}
-    # DAC's conditioning: L and U of each DC table, Kx of each AC table.
-    lower, upper, kx = ([d] * 16 for d in ARITH_DEFAULTS)
-    frame, restart, adobe, jfif = None, 0, None, False
-    latched = {}  # component -> its quantisation table, fixed at its first scan
+    state = {"qtables": {}, "tables": {}, "frame": None, "restart": 0, "adobe": None,
+             "jfif": False, "latched": {},  # component -> its table, fixed at its first scan
+             # DAC's conditioning: L and U of each DC table, Kx of each AC table.
+             "dac": tuple([d] * 16 for d in ARITH_DEFAULTS)}
     pos = 2
     while True:
-        while pos + 1 < len(data) and data[pos] == 0xFF and data[pos + 1] == 0xFF:
-            pos += 1  # fill bytes
-        if pos + 2 > len(data):
-            if frame is not None and frame["done"]:
-                break  # every block decoded; only the EOI is missing
-            raise ValueError("truncated JPEG file")
-        if data[pos] != 0xFF:
-            raise ValueError(f"corrupt JPEG file: no marker at byte {pos}")
-        marker = data[pos + 1]
-        pos += 2
-        if marker == 0xD9:
+        frame = state["frame"]
+        try:
+            pos = _marker_segment(data, pos, state, native, in_blocks)
+        except _Suspend:
+            if frame is not None and frame["scans_read"] and (frame["one_pass"] or not in_blocks):
+                break
+            raise ValueError("truncated JPEG file") from None
+        if pos is None:
             break
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
-            continue
-        if pos + 2 > len(data):
-            raise ValueError("truncated JPEG file")
-        length = int.from_bytes(data[pos:pos + 2], "big")
-        body = data[pos + 2:pos + length]
-        if length < 2 or len(body) < length - 2:
-            raise ValueError("truncated JPEG file")
-        pos += length
-        if marker == 0xDB:
-            i = 0
-            while i < len(body):
-                wide, tq = body[i] >> 4, body[i] & 15
-                n = 128 if wide else 64
-                raw = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if wide else np.uint8)
-                if len(raw) != 64:
-                    raise ValueError("corrupt JPEG file: a short DQT table")
-                table = np.zeros(64, np.int64)
-                table[_ZIGZAG] = raw
-                qtables[tq] = table.reshape(8, 8)
-                i += 1 + n
-        elif marker == 0xC4:
-            i = 0
-            while i < len(body):
-                tc, th = body[i] >> 4, body[i] & 15
-                counts = tuple(body[i + 1:i + 17])
-                symbols = body[i + 17:i + 17 + sum(counts)]
-                if (len(counts) != 16 or len(symbols) != sum(counts) or tc > 1
-                        or (tc == 0 and any(v > 16 for v in symbols))):
-                    # jdhuff.c refuses a DC symbol over 16 (no difference is wider; a
-                    # DCT scan that reads a 16 is refused in _decode_scan).
-                    raise ValueError("corrupt JPEG file: a bad DHT table")
-                tables[tc, th] = (counts, bytes(symbols))
-                i += 17 + sum(counts)
-        elif marker == 0xDD:
-            restart = int.from_bytes(body[:2], "big")
-        elif marker == 0xCC:  # DAC, as jdmarker.c's get_dac reads it
-            if len(body) % 2:
-                raise ValueError("corrupt JPEG file: a DAC segment of odd length")
-            for index, value in zip(body[::2], body[1::2]):
-                if index >= 32:
-                    raise ValueError(f"corrupt JPEG file: DAC table {index}")
-                if index >= 16:
-                    kx[index - 16] = value
-                elif value & 15 > value >> 4:
-                    raise ValueError(f"corrupt JPEG file: DAC L > U ({value:#04x})")
-                else:
-                    lower[index], upper[index] = value & 15, value >> 4
-        elif marker == 0xE0 and body.startswith(b"JFIF\x00"):
-            jfif = True
-        elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
-            adobe = body[11]
-        elif marker in _UNSUPPORTED_SOF:
-            raise ValueError(f"{_UNSUPPORTED_SOF[marker]} JPEG files are not supported")
-        elif marker in _SOF:
-            if frame is not None:
-                raise ValueError("corrupt JPEG file: two frames")
-            precision, height = body[0], int.from_bytes(body[1:3], "big")
-            width, nf = int.from_bytes(body[3:5], "big"), body[5]
-            if precision != 8:
-                raise ValueError(f"{precision}-bit JPEG files are not supported")
-            if nf not in (1, 3, 4):
-                raise ValueError(f"JPEG files of {nf} components are not supported")
-            if height == 0 or width == 0:
-                raise ValueError("JPEG files whose height comes in a DNL marker are not supported")
-            comps = [(body[6 + 3 * j], body[7 + 3 * j] >> 4, body[7 + 3 * j] & 15, body[8 + 3 * j])
-                     for j in range(nf)]
-            if any(not 1 <= c[1] <= 4 or not 1 <= c[2] <= 4 for c in comps):
-                raise ValueError(f"corrupt JPEG file: sampling factors {[c[1:3] for c in comps]}")
-            hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
-            if marker in _LOSSLESS_SOF:
-                frame = _lossless_frame(height, width, comps)
-                continue
-            if any((hmax // c[1], vmax // c[2]) not in ((1, 1), (2, 1), (1, 2), (2, 2))
-                   or hmax % c[1] or vmax % c[2] for c in comps):
-                raise ValueError(f"JPEG sampling factors {[c[1:3] for c in comps]} are not "
-                                 "supported")
-            mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
-            # Every component's blocks in one buffer, zigzag order.
-            shapes = [(mcuy * c[2], mcux * c[1], 64) for c in comps]
-            bases = np.cumsum([0] + [int(np.prod(shape)) for shape in shapes])
-            coef = np.zeros(int(bases[-1]), np.int64)
-            frame = {"height": height, "width": width, "comps": comps, "hmax": hmax,
-                     "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "done": False,
-                     "progressive": marker in _PROGRESSIVE_SOF,
-                     "arithmetic": marker in _ARITHMETIC_SOF, "coef_all": coef,
-                     "coef_base": [int(b) for b in bases[:-1]],
-                     "coef": [coef[b:b + int(np.prod(shape))].reshape(shape)
-                              for b, shape in zip(bases, shapes)],
-                     "seen": [False] * nf, "lossless": False}
-        elif marker == 0xDA:
-            if frame is None:
-                raise ValueError("corrupt JPEG file: a scan before the frame")
-            conditioning = (tuple(lower), tuple(upper), tuple(kx))
-            pos = _decode_scan(data, pos, body, frame, tables, qtables, latched, restart, native,
-                               conditioning, in_blocks)
-        # APPn, COM and the rest carry nothing the pixels depend on.
-    if frame is None or not all(frame["seen"]):
+    frame = state["frame"]
+    if frame is None or not frame["scans_read"]:
+        raise ValueError("truncated JPEG file: no scan")
+    if frame["lossless"] and not all(frame["seen"]):
+        # libjpeg-turbo refuses a lossless file whose EOI comes before a
+        # component's scan; a DCT file decodes that component as 0s.
         raise ValueError("truncated JPEG file: a component was never scanned")
     if color is not None and len(frame["comps"]) != (1 if color == "grey" else 3):
         raise ValueError(f"a {color} JPEG stream of {len(frame['comps'])} components")
     if frame["lossless"]:
-        return _lossless_pixels(frame, jfif, adobe, color)
-    return _pixels(frame, latched, jfif, adobe, native, color)
+        return _lossless_pixels(frame, state["jfif"], state["adobe"], color)
+    return _pixels(frame, state["latched"], state["jfif"], state["adobe"], native, color)
+
+
+def _marker_segment(data: bytes, pos: int, state: dict, native: bool,
+                    in_blocks: bool) -> int | None:
+    """Read the marker at or after ``pos`` and its segment (a scan too);
+    returns where the next marker search starts, None at EOI."""
+    # Pillow's JPEG plugin (up to the first scan) and libjpeg both pass over
+    # bytes that are no marker.
+    pos = _next_marker(data, pos)
+    if pos + 2 > len(data):
+        raise _Suspend
+    marker = data[pos + 1]
+    frame = state["frame"]
+    scanned = frame is not None and frame["scans_read"]
+    if marker not in _KNOWN or (marker == 0x01 and not scanned):
+        raise ValueError(f"corrupt JPEG file: marker 0xFF{marker:02X}")
+    if marker == 0xD8:
+        raise ValueError("corrupt JPEG file: a second SOI marker")
+    if marker == 0xD9:
+        return None
+    read = _Reader(data, pos + 2)
+    if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+        return read.pos
+    qtables, tables, kx = state["qtables"], state["tables"], state["dac"][2]
+    lower, upper = state["dac"][:2]
+    if marker == 0xDB:  # jdmarker.c's get_dqt
+        length = read.two() - 2
+        while length > 0:
+            n = read.byte()
+            wide, tq = n >> 4, n & 15
+            if tq >= 4:
+                raise ValueError(f"corrupt JPEG file: DQT table {tq}")
+            raw = np.frombuffer(read.take(128 if wide else 64), ">u2" if wide else np.uint8)
+            table = np.zeros(64, np.int64)
+            table[_ZIGZAG] = raw
+            qtables[tq] = table.reshape(8, 8)
+            length -= 129 if wide else 65
+        if length:
+            raise ValueError("corrupt JPEG file: a DQT segment of the wrong length")
+        return read.pos
+    if marker == 0xC4:  # get_dht
+        length = read.two() - 2
+        while length > 16:
+            index = read.byte()
+            counts = tuple(read.byte() for _ in range(16))
+            length -= 17
+            if sum(counts) > 256 or sum(counts) > length:
+                raise ValueError("corrupt JPEG file: a bad DHT table")
+            symbols = read.take(sum(counts))
+            length -= sum(counts)
+            tc, th = (1, index - 0x10) if index & 0x10 else (0, index)
+            if th >= 4:
+                raise ValueError(f"corrupt JPEG file: DHT table {index:#04x}")
+            tables[tc, th] = (counts, bytes(symbols))
+        if length:
+            raise ValueError("corrupt JPEG file: a DHT segment of the wrong length")
+        return read.pos
+    if marker == 0xDD:  # get_dri
+        if read.two() != 4:
+            raise ValueError("corrupt JPEG file: a DRI segment of the wrong length")
+        state["restart"] = read.two()
+        return read.pos
+    if marker == 0xCC:  # get_dac
+        length = read.two() - 2
+        while length > 0:
+            index, value = read.byte(), read.byte()
+            length -= 2
+            if index >= 32:
+                raise ValueError(f"corrupt JPEG file: DAC table {index}")
+            if index >= 16:
+                kx[index - 16] = value
+            elif value & 15 > value >> 4:
+                raise ValueError(f"corrupt JPEG file: DAC L > U ({value:#04x})")
+            else:
+                lower[index], upper[index] = value & 15, value >> 4
+        if length:
+            raise ValueError("corrupt JPEG file: a DAC segment of odd length")
+        return read.pos
+    if marker in (*range(0xE0, 0xF0), 0xFE, 0xDC):  # APPn, COM, DNL: skipped
+        length = read.two() - 2
+        body = data[read.pos:read.pos + max(length, 0)]
+        if marker == 0xE0 and body.startswith(b"JFIF\x00") and not scanned:
+            state["jfif"] = True  # libjpeg picks the colour transform at the first scan
+        if marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12 and not scanned:
+            state["adobe"] = body[11]
+        read.take(max(length, 0))
+        return read.pos
+    if marker in _SOF or marker in _UNSUPPORTED_SOF or marker == 0xC8:
+        if marker == 0xC8:
+            raise ValueError("corrupt JPEG file: a JPG marker")
+        if frame is not None:  # get_sof checks before it reads
+            raise ValueError("corrupt JPEG file: two frames")
+        body = read.take(read.two() - 2)
+        return _frame_marker(marker, body, state, read.pos)
+    # SOS: get_sos's checks as it reads, then the scan
+    if frame is None:
+        raise ValueError("corrupt JPEG file: a scan before the frame")
+    start, length, ns = read.pos + 2, read.two(), read.byte()
+    if length != 2 * ns + 6 or not 1 <= ns <= 4:
+        raise ValueError("corrupt JPEG file: an SOS segment of the wrong length")
+    taken = []
+    for _ in range(ns):
+        cid = read.byte()
+        read.byte()
+        free = [ci for ci, c in enumerate(frame["comps"]) if c[0] == cid and ci not in taken]
+        if not free:
+            raise ValueError("corrupt JPEG file: a scan of an unknown component")
+        taken.append(free[0])
+    read.take(3)
+    body = data[start:read.pos]
+    if scanned and frame["one_pass"]:
+        # jdinput.c: a file whose first scan holds every component
+        # sequentially is read in one pass (JERR_EOI_EXPECTED).
+        raise ValueError("corrupt JPEG file: a scan after a one-pass file's scan")
+    conditioning = tuple(tuple(t) for t in state["dac"])
+    pos = _decode_scan(data, read.pos, body, frame, tables, qtables, state["latched"],
+                       state["restart"], native, conditioning, in_blocks)
+    frame["one_pass"] = frame["one_pass"] or (
+        not frame["scans_read"] and all(frame["seen"]) and not frame["progressive"])
+    frame["scans_read"] += 1
+    return pos
+
+
+def _frame_marker(marker: int, body: bytes, state: dict, pos: int) -> int:
+    """An SOF segment's frame into ``state["frame"]``; returns ``pos``."""
+    if marker in _UNSUPPORTED_SOF:
+        raise ValueError(f"{_UNSUPPORTED_SOF[marker]} JPEG files are not supported")
+    precision, height = body[0], int.from_bytes(body[1:3], "big")
+    width, nf = int.from_bytes(body[3:5], "big"), body[5]
+    if precision != 8:
+        raise ValueError(f"{precision}-bit JPEG files are not supported")
+    if nf not in (1, 3, 4):
+        raise ValueError(f"JPEG files of {nf} components are not supported")
+    if height == 0 or width == 0:
+        raise ValueError("JPEG files whose height comes in a DNL marker are not supported")
+    comps = [(body[6 + 3 * j], body[7 + 3 * j] >> 4, body[7 + 3 * j] & 15, body[8 + 3 * j])
+             for j in range(nf)]
+    if any(not 1 <= c[1] <= 4 or not 1 <= c[2] <= 4 for c in comps):
+        raise ValueError(f"corrupt JPEG file: sampling factors {[c[1:3] for c in comps]}")
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    if marker in _LOSSLESS_SOF:
+        state["frame"] = _lossless_frame(height, width, comps)
+        return pos
+    if any((hmax // c[1], vmax // c[2]) not in ((1, 1), (2, 1), (1, 2), (2, 2))
+           or hmax % c[1] or vmax % c[2] for c in comps):
+        raise ValueError(f"JPEG sampling factors {[c[1:3] for c in comps]} are not supported")
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    # Every component's blocks in one buffer, zigzag order.
+    shapes = [(mcuy * c[2], mcux * c[1], 64) for c in comps]
+    bases = np.cumsum([0] + [int(np.prod(shape)) for shape in shapes])
+    coef = np.zeros(int(bases[-1]), np.int64)
+    state["frame"] = {
+        "height": height, "width": width, "comps": comps, "hmax": hmax, "vmax": vmax,
+        "mcux": mcux, "mcuy": mcuy, "imcu_rows": mcuy, "scans_read": 0, "one_pass": False,
+        "progressive": marker in _PROGRESSIVE_SOF, "arithmetic": marker in _ARITHMETIC_SOF,
+        "coef_all": coef, "coef_base": [int(b) for b in bases[:-1]],
+        "coef": [coef[b:b + int(np.prod(shape))].reshape(shape) for b, shape in zip(bases, shapes)],
+        "seen": [False] * nf, "lossless": False,
+        # jdphuff.c's progression bookkeeping, which block smoothing reads.
+        "scans": 0, "coef_bits": np.full((nf, 64), -1, np.int64),
+        "prev_bits": np.zeros((nf, 64), np.int64), "last_good_row": mcuy - 1}
+    return pos
 
 
 def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, qtables: dict,
@@ -889,46 +1167,106 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, 
         raise ValueError(f"corrupt JPEG file: a progressive scan of {ss}-{se} over {ns} "
                          "components")
     arithmetic = frame["arithmetic"]
-    if arithmetic and progressive and ((ahl >> 4 and ahl & 15 != (ahl >> 4) - 1)
-                                       or ahl & 15 > 13):
-        # jdarith.c's start_pass: a refinement's Al is its Ah less one, Al <= 13.
+    if progressive and ((ahl >> 4 and ahl & 15 != (ahl >> 4) - 1) or ahl & 15 > 13):
+        # jdphuff.c's and jdarith.c's start_pass: a refinement's Al is its Ah
+        # less one, Al <= 13.
         raise ValueError(f"corrupt JPEG file: a progressive scan with Ah {ahl >> 4}, Al "
                          f"{ahl & 15}")
+    if not progressive and not arithmetic:
+        # jdhuff.c fills table slots 0 and 1 that no DHT defined with the
+        # standard tables (Motion JPEG's); jdphuff.c does not.
+        for key in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            tables.setdefault(key, _STD_HUFFMAN[key])
     for ci, td, ta in members:
         # The Huffman tables the scan reads: DC for a first DC scan, AC for an
         # AC scan (an arithmetic scan's conditioning tables all have defaults).
         dc_read = not progressive or (ss == 0 and ahl >> 4 == 0)
+        ac_read = not progressive or ss > 0
         if not arithmetic and (
-                (0, td) not in tables and dc_read
-                or (1, ta) not in tables and (not progressive or ss > 0)):
+                (0, td) not in tables and dc_read or (1, ta) not in tables and ac_read):
             raise ValueError("corrupt JPEG file: a scan names a Huffman table never defined")
-        if not arithmetic and dc_read and max(tables[0, td][1], default=0) > 15:
-            raise ValueError("corrupt JPEG file: a bad DHT table (a DC symbol of 16)")
+        if not arithmetic and dc_read:
+            _check_table(*tables[0, td], dc_max=15)
+        if not arithmetic and ac_read:
+            _check_table(*tables[1, ta], dc_max=None)
         if ci not in latched:
             tq = frame["comps"][ci][3]
             if tq not in qtables:
                 raise ValueError("corrupt JPEG file: a component's DQT table is missing")
             latched[ci] = qtables[tq]
     spectral = (ss, se, ahl >> 4, ahl & 15)
-    if arithmetic:
-        reach = []
-        segments, end, ended = _entropy_segments(data, pos, reach)
-        scan = _native_arith_scan if native else _decode_arith_scan
-        fetched = scan(segments, ended, members, spectral, frame, conditioning, restart)
-        if in_blocks:
-            _check_pillow_blocks(pos, reach, fetched)
-        return end
-    if native:
-        return _native_scan(data, pos, members, spectral, frame, tables, restart)
-    luts = {key: _decode_lut(key[0], *table) for key, table in tables.items()}
     if progressive:
-        return _decode_progressive_scan(data, pos, members, spectral, frame, luts, restart)
+        _progression(frame, members, spectral)
+    if arithmetic:
+        scan = _scan_spans(data, pos, _intervals(frame, members, restart), reach=True)
+        decode = _native_arith_scan if native else _decode_arith_scan
+        fetched = decode(scan, members, spectral, frame, conditioning, restart)
+        if in_blocks:
+            _check_pillow_blocks(pos, scan, fetched)
+        frame["last_good_row"] = frame["imcu_rows"] - 1  # jdarith.c never runs short
+        frame["scan_end"] = scan["end"]
+    elif native:
+        _native_scan(data, pos, members, spectral, frame, tables, restart)
+    elif progressive:
+        luts = {key: _decode_lut(key[0], *table) for key, table in tables.items()}
+        _decode_progressive_scan(data, pos, members, spectral, frame, luts, restart)
+    else:
+        _decode_sequential_scan(data, pos, members, frame, tables, restart)
+    for ci, _, _ in members:
+        frame["seen"][ci] = True
+    return frame["scan_end"]
+
+
+def _blocks_of(frame: dict, ci: int) -> tuple[int, int]:
+    """Component ``ci``'s blocks across and down that hold image samples
+    (a non-interleaved scan's MCUs)."""
+    _, h, v, _ = frame["comps"][ci]
+    return (-(-(-(-frame["width"] * h // frame["hmax"])) // 8),
+            -(-(-(-frame["height"] * v // frame["vmax"])) // 8))
+
+
+def _intervals(frame: dict, members: list, restart: int) -> int:
+    """The restart intervals of a scan (one without a restart interval)."""
+    if len(members) == 1:  # one block an MCU, the component's own grid
+        across, down = _blocks_of(frame, members[0][0])
+        n_mcus = across * down
+    else:
+        n_mcus = frame["mcux"] * frame["mcuy"]
+    return -(-n_mcus // restart) if restart else 1
+
+
+def _progression(frame: dict, members: list, spectral: tuple) -> None:
+    """jdphuff.c's start_pass bookkeeping, which block smoothing reads: each
+    component's coef_bits (the low bits still unknown of each coefficient,
+    -1 never scanned) and, for coefficients 1-9, their values when the
+    component's last scan started (0 in the file's first scan)."""
+    ss, se, _, al = spectral
+    for ci, _, _ in members:
+        bits, prev = frame["coef_bits"][ci], frame["prev_bits"][ci]
+        span = slice(min(ss, 1), max(se, 9) + 1)
+        prev[span] = bits[span] if frame["scans"] else 0
+        bits[ss:se + 1] = al
+    frame["scans"] += 1
+
+
+def _mcu_row(frame: dict, members: list, mcu: int) -> int:
+    """The iMCU row (a row of the frame's MCUs) of a scan's MCU ``mcu``."""
+    if len(members) > 1:
+        return mcu // frame["mcux"]
+    ci = members[0][0]
+    return mcu // _blocks_of(frame, ci)[0] // frame["comps"][ci][2]
+
+
+def _decode_sequential_scan(data: bytes, pos: int, members: list, frame: dict, tables: dict,
+                            restart: int) -> None:
+    """The plain version of a sequential Huffman scan (``tdt_jpeg_scan``):
+    each restart interval's MCUs from its data (``_decode_segment``); once
+    an interval's bits run out, its later MCUs stay as they are."""
+    luts = {key: _decode_lut(key[0], *table) for key, table in tables.items()}
     comps = frame["comps"]
-    if ns == 1:  # non-interleaved: one block an MCU, the component's own blocks
+    if len(members) == 1:  # non-interleaved: one block an MCU, the component's own blocks
         ci = members[0][0]
-        _, h, v, _ = comps[ci]
-        bw = -(-(-(-frame["width"] * h // frame["hmax"])) // 8)
-        bh = -(-(-(-frame["height"] * v // frame["vmax"])) // 8)
+        bw, bh = _blocks_of(frame, ci)
         n_mcus, plan = bw * bh, [((0, members[0][1]), (1, members[0][2]))]
         where = [(ci, lambda m: (m // bw, m % bw))]
     else:
@@ -941,44 +1279,36 @@ def _decode_scan(data: bytes, pos: int, body: bytes, frame: dict, tables: dict, 
                     plan.append(((0, td), (1, ta)))
                     where.append((ci, lambda m, y=y, x=x, h=h, v=v: (
                         m // frame["mcux"] * v + y, m % frame["mcux"] * h + x)))
-    segments, end, ended = _entropy_segments(data, pos)
     per = restart or n_mcus
-    done = 0
-    for seg in segments:
-        if done >= n_mcus:
-            break
+    scan = _scan_spans(data, pos, -(-n_mcus // per))
+    done, short = 0, False
+    for seg, flags in _segments(scan):
         count = min(per, n_mcus - done)
-        dc_diff, ac, kinds = _decode_segment(seg, plan, count, luts)
-        mcu = done + np.arange(count).repeat(len(plan))
-        for kind, (ci, place) in enumerate(where):
-            sel = kinds == kind
-            rows, cols = place(mcu[sel])
-            coef = frame["coef"][ci]
-            # DC predictions restart at 0 in each segment, per component.
-            same = [k for k, (cj, _) in enumerate(where) if cj == ci]
-            comp_blocks = np.isin(kinds, same)
-            dc = np.cumsum(dc_diff[comp_blocks])[np.nonzero(sel[comp_blocks])[0]]
-            coef[rows, cols, 0] = dc
-            mine = sel[ac[:, 0]]
-            blk = ac[mine, 0]
-            index = np.searchsorted(np.nonzero(sel)[0], blk)
-            coef[rows[index], cols[index], ac[mine, 1]] = ac[mine, 2]
+        short = short and not flags & SPAN_FRESH
+        if not short:
+            dc_diff, ac, kinds, decoded, short = _decode_segment(seg, plan, count, luts)
+            if short and flags & SPAN_OPEN:
+                raise ValueError("truncated JPEG file")
+            mcu = done + np.arange(decoded).repeat(len(plan))
+            for kind, (ci, place) in enumerate(where):
+                sel = kinds == kind
+                rows, cols = place(mcu[sel])
+                coef = frame["coef"][ci]
+                # DC predictions restart at 0 in each interval, per component.
+                same = [k for k, (cj, _) in enumerate(where) if cj == ci]
+                comp_blocks = np.isin(kinds, same)
+                dc = np.cumsum(dc_diff[comp_blocks])[np.nonzero(sel[comp_blocks])[0]]
+                coef[rows, cols, 0] = _w16(dc)
+                mine = sel[ac[:, 0]]
+                blk = ac[mine, 0]
+                index = np.searchsorted(np.nonzero(sel)[0], blk)
+                coef[rows[index], cols[index], ac[mine, 1]] = ac[mine, 2]
         done += count
-    if done < n_mcus:
-        if ended:
-            raise ValueError("corrupt JPEG data: fewer restart segments than MCUs")
-        raise ValueError("truncated JPEG file")
-    for ci, _, _ in members:
-        frame["seen"][ci] = True
-    frame["done"] = all(frame["seen"])
-    return end
+    frame["scan_end"] = scan["end"]
 
 
-_SCAN_ERRORS = {
-    _native.ERR_TRUNCATED: "corrupt or truncated JPEG data: a scan segment ends early",
-    _native.ERR_CODE: "corrupt JPEG data: a bit pattern that is no Huffman code",
-    _native.ERR_RANGE: "corrupt JPEG data: a coefficient past the block's 64",
-}
+_SCAN_ERRORS = {_native.ERR_TRUNCATED: "truncated JPEG file",
+                _native.ERR_CODE: "corrupt JPEG data: a lossless difference of over 16 bits"}
 
 
 def _scan_geometry(frame: dict, members: list, spectral: tuple, restart: int,
@@ -989,9 +1319,7 @@ def _scan_geometry(frame: dict, members: list, spectral: tuple, restart: int,
     comps = frame["comps"]
     if len(members) == 1:  # one block an MCU, the component's own grid
         ci = members[0][0]
-        _, h, v, _ = comps[ci]
-        across = -(-(-(-frame["width"] * h // frame["hmax"])) // 8)
-        down = -(-(-(-frame["height"] * v // frame["vmax"])) // 8)
+        across, down = _blocks_of(frame, ci)
         n_mcus, shape = across * down, {ci: (1, 1)}
     else:
         across, n_mcus = frame["mcux"], frame["mcux"] * frame["mcuy"]
@@ -1003,17 +1331,11 @@ def _scan_geometry(frame: dict, members: list, spectral: tuple, restart: int,
     return np.asarray(geom, np.int64)
 
 
-def _segment_buffer(segments: list) -> tuple[np.ndarray, np.ndarray]:
-    """The segments one after another, and where each starts (and the end)."""
-    starts = np.cumsum([0] + [len(seg) for seg in segments]).astype(np.int64)
-    return (np.concatenate(segments) if segments else np.zeros(1, np.uint8)), starts
-
-
 def _native_scan(data: bytes, pos: int, members: list, spectral: tuple, frame: dict,
-                 tables: dict, restart: int) -> int:
+                 tables: dict, restart: int) -> None:
     """One scan through the C library's ``tdt_jpeg_scan``: what
-    ``_decode_progressive_scan`` and the sequential path of ``_decode_scan``
-    compute, into the same ``frame["coef"]``."""
+    ``_decode_progressive_scan`` and ``_decode_sequential_scan`` compute,
+    into the same ``frame["coef"]``."""
     ss, se, ah, al = spectral
     progressive = frame["progressive"]
     # The tables each kind of scan reads; a progressive DC scan reads a
@@ -1033,20 +1355,16 @@ def _native_scan(data: bytes, pos: int, members: list, spectral: tuple, frame: d
     geom = _scan_geometry(frame, members, spectral, restart, slots)
     luts = (np.stack([_packed_lut(*tables[key]) for key in keys]) if keys
             else np.zeros((1, 1 << 16), np.uint16))
-    segments, end, ended = _entropy_segments(data, pos)
-    buf, starts = _segment_buffer(segments)
+    scan = _scan_spans(data, pos, -(-int(geom[0]) // int(geom[1])))
+    buf, spans = scan["buf"], scan["spans"]
     coef = frame["coef_all"]
+    last_good = np.zeros(1, np.int64)
     rc = _native.library().tdt_jpeg_scan(
-        _native.ptr(buf), _native.ptr(starts), len(segments), _native.ptr(luts), len(keys),
-        _native.ptr(geom), len(geom), _native.ptr(coef), len(coef))
-    if rc == _native.ERR_SEGMENTS:
-        raise ValueError("corrupt JPEG data: fewer restart segments than MCUs" if ended
-                         else "truncated JPEG file")
+        _native.ptr(buf), len(buf), _native.ptr(spans), len(spans), _native.ptr(luts), len(keys),
+        _native.ptr(geom), len(geom), _native.ptr(coef), len(coef), _native.ptr(last_good))
     _native.check(rc, "JPEG", _SCAN_ERRORS)
-    for ci, _, _ in members:
-        frame["seen"][ci] = True
-    frame["done"] = all(frame["seen"])
-    return end
+    frame["last_good_row"] = _mcu_row(frame, members, int(last_good[0]))
+    frame["scan_end"] = scan["end"]
 
 
 def _scan_blocks(frame: dict, members: list) -> tuple[list, list]:
@@ -1057,10 +1375,8 @@ def _scan_blocks(frame: dict, members: list) -> tuple[list, list]:
     comps, mcux = frame["comps"], frame["mcux"]
     if len(members) == 1:
         ci = members[0][0]
-        _, h, v, _ = comps[ci]
         cols = frame["coef"][ci].shape[1]
-        bw = -(-(-(-frame["width"] * h // frame["hmax"])) // 8)
-        bh = -(-(-(-frame["height"] * v // frame["vmax"])) // 8)
+        bw, bh = _blocks_of(frame, ci)
         return [[(ci, (r * cols + c) * 64)] for r in range(bh) for c in range(bw)], [ci]
     mcus = []
     for m in range(mcux * frame["mcuy"]):
@@ -1074,15 +1390,31 @@ def _scan_blocks(frame: dict, members: list) -> tuple[list, list]:
     return mcus, [ci for ci, _, _ in members]
 
 
+def _windows(seg: np.ndarray) -> list:
+    """The 16 bits from each bit position of ``seg`` on, zeros past its end,
+    as a list: one entry per position to one past the end, then enough
+    zeros for what a decoder reads between two of its clamps to that
+    position (a symbol, its extra bits and a refinement's correction bits)."""
+    nbits = 8 * len(seg)
+    padded = np.concatenate([seg, np.zeros(5, np.uint8)]).astype(np.int64)
+    at = np.arange(nbits + 1)
+    i = at >> 3
+    win = ((padded[i] << 16 | padded[i + 1] << 8 | padded[i + 2]) >> (8 - (at & 7))) & 0xFFFF
+    return win.tolist() + [0] * 256
+
+
 def _decode_progressive_scan(data: bytes, pos: int, members: list, spectral: tuple,
-                             frame: dict, luts: dict, restart: int) -> int:
+                             frame: dict, luts: dict, restart: int) -> None:
     """Decode one progressive scan (``jdphuff.c``) into ``frame["coef"]``
     (zigzag order): a DC first scan (the difference's bits shifted up by
     ``al``), a DC refinement (one bit a block), an AC first scan (EOB runs
     of up to 32767 blocks) or an AC refinement (a correction bit for each
     coefficient already nonzero, new coefficients of +-1 << ``al``). Each
-    restart segment starts with no EOB run and DC predictions of 0. Returns
-    the position of the marker after the scan's data."""
+    restart interval starts with no EOB run and DC predictions of 0. Damaged
+    data reads as libjpeg reads it: a bad code is symbol 0, a run past the
+    block lands on its last coefficient, values are stored as 16-bit
+    JCOEFs, and an interval whose bits run out finishes the MCU in hand from
+    zero bits and leaves its later MCUs as they are."""
     ss, se, ah, al = spectral
     mcus, scanned = _scan_blocks(frame, members)
     flat = {ci: frame["coef"][ci].reshape(-1).tolist() for ci in scanned}
@@ -1090,140 +1422,126 @@ def _decode_progressive_scan(data: bytes, pos: int, members: list, spectral: tup
               if ss == 0 and ah == 0}
     ac_lut = [x.tolist() for x in luts[1, members[0][2]][:2]] if ss > 0 else None
     p1, m1 = 1 << al, -1 << al
-    segments, end, ended = _entropy_segments(data, pos)
     per = restart or len(mcus)
-    done = 0
-    for seg in segments:
-        if done >= len(mcus):
-            break
+    scan = _scan_spans(data, pos, -(-len(mcus) // per))
+    short, last_good = False, 0
+    for s, (seg, flags) in enumerate(_segments(scan)):
+        short = short and not flags & SPAN_FRESH
+        if short:
+            continue
         nbits = 8 * len(seg)
-        padded = np.concatenate([seg, np.zeros(5, np.uint8)]).astype(np.int64)
-        at = np.arange(nbits + 17)
-        i = at >> 3
-        win = (((padded[i] << 16 | padded[i + 1] << 8 | padded[i + 2]) >> (8 - (at & 7)))
-               & 0xFFFF).tolist()
+        past = nbits + 1
+        win = _windows(seg)
         p, eobrun, pred = 0, 0, dict.fromkeys(scanned, 0)
-        try:
-            for mcu in mcus[done:done + per]:
-                for ci, off in mcu:
-                    coef = flat[ci]
-                    if ss == 0 and ah == 0:  # DC first
-                        sym, length = dc_lut[ci]
+        for m in range(s * per, min((s + 1) * per, len(mcus))):
+            if p > nbits:
+                break
+            last_good = m
+            for ci, off in mcus[m]:
+                coef = flat[ci]
+                if p > nbits:
+                    p = past
+                if ss == 0 and ah == 0:  # DC first
+                    sym, length = dc_lut[ci]
+                    w = win[p]
+                    s_, n = sym[w], length[w]
+                    p += n
+                    diff = 0
+                    if s_:
+                        diff = win[p] >> (16 - s_)
+                        p += s_
+                        if diff < 1 << (s_ - 1):
+                            diff -= (1 << s_) - 1
+                    pred[ci] += diff
+                    coef[off] = _w16(pred[ci] << al)
+                elif ss == 0:  # DC refinement
+                    if win[p] >> 15:
+                        coef[off] |= p1
+                    p += 1
+                elif ah == 0:  # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    sym, length = ac_lut
+                    k = ss
+                    while k <= se:
+                        if p > nbits:
+                            p = past
                         w = win[p]
-                        s, n = sym[w], length[w]
-                        if n == 0:
-                            raise ValueError("corrupt JPEG data: a bit pattern that is no "
-                                             "Huffman code")
+                        rs, n = sym[w], length[w]
                         p += n
-                        diff = 0
-                        if s:
-                            diff = win[p] >> (16 - s)
-                            p += s
-                            if diff < 1 << (s - 1):
-                                diff -= (1 << s) - 1
-                        pred[ci] += diff
-                        coef[off] = pred[ci] << al
-                    elif ss == 0:  # DC refinement
-                        if win[p] >> 15:
-                            coef[off] |= p1
-                        p += 1
-                    elif ah == 0:  # AC first
-                        if eobrun:
+                        r, s_ = rs >> 4, rs & 15
+                        if s_:
+                            k += r
+                            v = win[p] >> (16 - s_)
+                            p += s_
+                            if v < 1 << (s_ - 1):
+                                v -= (1 << s_) - 1
+                            coef[off + min(k, 63)] = _w16(v << al)
+                            k += 1
+                        elif r == 15:
+                            k += 16
+                        else:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += win[p] >> (16 - r)
+                                p += r
                             eobrun -= 1
-                            continue
+                            break
+                else:  # AC refinement
+                    k = ss
+                    if not eobrun:
                         sym, length = ac_lut
-                        k = ss
                         while k <= se:
+                            if p > nbits:
+                                p = past
                             w = win[p]
                             rs, n = sym[w], length[w]
-                            if n == 0:
-                                raise ValueError("corrupt JPEG data: a bit pattern that is no "
-                                                 "Huffman code")
                             p += n
-                            r, s = rs >> 4, rs & 15
-                            if s:
-                                k += r
-                                v = win[p] >> (16 - s)
-                                p += s
-                                if v < 1 << (s - 1):
-                                    v -= (1 << s) - 1
-                                if k > 63:
-                                    raise ValueError("corrupt JPEG data: a coefficient past "
-                                                     "the block's 64")
-                                coef[off + k] = v << al
-                                k += 1
-                            elif r == 15:
-                                k += 16
-                            else:
+                            r, s_ = rs >> 4, rs & 15
+                            if s_:
+                                s_ = p1 if win[p] >> 15 else m1
+                                p += 1
+                            elif r != 15:
                                 eobrun = 1 << r
                                 if r:
                                     eobrun += win[p] >> (16 - r)
                                     p += r
-                                eobrun -= 1
                                 break
-                    else:  # AC refinement
-                        k = ss
-                        if not eobrun:
-                            sym, length = ac_lut
-                            while k <= se:
-                                w = win[p]
-                                rs, n = sym[w], length[w]
-                                if n == 0:
-                                    raise ValueError("corrupt JPEG data: a bit pattern that is "
-                                                     "no Huffman code")
-                                p += n
-                                r, s = rs >> 4, rs & 15
-                                if s:
-                                    s = p1 if win[p] >> 15 else m1
-                                    p += 1
-                                elif r != 15:
-                                    eobrun = 1 << r
-                                    if r:
-                                        eobrun += win[p] >> (16 - r)
-                                        p += r
-                                    break
-                                # Past the coefficients already nonzero (a
-                                # correction bit each) and r zeros.
-                                while k <= se:
-                                    c = coef[off + k]
-                                    if c:
-                                        if win[p] >> 15 and not c & p1:
-                                            coef[off + k] = c + (p1 if c >= 0 else m1)
-                                        p += 1
-                                    else:
-                                        r -= 1
-                                        if r < 0:
-                                            break
-                                    k += 1
-                                if s:
-                                    if k > 63:
-                                        raise ValueError("corrupt JPEG data: a coefficient "
-                                                         "past the block's 64")
-                                    coef[off + k] = s
-                                k += 1
-                        if eobrun:
+                            # Past the coefficients already nonzero (a
+                            # correction bit each) and r zeros.
                             while k <= se:
                                 c = coef[off + k]
                                 if c:
                                     if win[p] >> 15 and not c & p1:
-                                        coef[off + k] = c + (p1 if c >= 0 else m1)
+                                        coef[off + k] = _w16(c + (p1 if c >= 0 else m1))
                                     p += 1
+                                else:
+                                    r -= 1
+                                    if r < 0:
+                                        break
                                 k += 1
-                            eobrun -= 1
-        except IndexError:
-            p = len(win)
-        if p > nbits:
-            raise ValueError("corrupt or truncated JPEG data: a scan segment ends early")
-        done += min(per, len(mcus) - done)
-    if done < len(mcus):
-        if ended:
-            raise ValueError("corrupt JPEG data: fewer restart segments than MCUs")
-        raise ValueError("truncated JPEG file")
+                            if s_:
+                                coef[off + min(k, 63)] = s_
+                            k += 1
+                    if eobrun:
+                        if p > nbits:
+                            p = past
+                        while k <= se:
+                            c = coef[off + k]
+                            if c:
+                                if win[p] >> 15 and not c & p1:
+                                    coef[off + k] = _w16(c + (p1 if c >= 0 else m1))
+                                p += 1
+                            k += 1
+                        eobrun -= 1
+        short = p > nbits
+        if short and flags & SPAN_OPEN:
+            raise ValueError("truncated JPEG file")
     for ci in scanned:
         frame["coef"][ci][...] = np.array(flat[ci], np.int64).reshape(frame["coef"][ci].shape)
-        frame["seen"][ci] = True
-    frame["done"] = all(frame["seen"])
-    return end
+    frame["last_good_row"] = _mcu_row(frame, members, last_good)
+    frame["scan_end"] = scan["end"]
 
 
 # --- arithmetic coding: T.81 Annex D's QM decoder, F.1.4.4 and G.1.3 (jdarith.c) ----
@@ -1273,11 +1591,6 @@ ARITH_FIXED_STATE = 113
 # defaults (L, U for DC; Kx for AC).
 _DC_BINS, _AC_BINS = 64, 256
 ARITH_DEFAULTS = (0, 1, 5)
-
-
-def _wrap16(v: int) -> int:
-    """libjpeg's store of an int into a JCOEF (16 bits, two's complement)."""
-    return ((v + 32768) & 0xFFFF) - 32768
 
 
 class _ArithDecoder:
@@ -1332,8 +1645,10 @@ class _ArithDecoder:
         return sv >> 7
 
 
-_MAGNITUDE_ERROR = "corrupt JPEG data: an arithmetic-coded magnitude past 15 bits"
-_SPECTRAL_ERROR = "corrupt JPEG data: a coefficient past the block's 64"
+class _ArithStop(Exception):
+    """jdarith.c's JWRN_ARITH_BAD_CODE (a magnitude past 15 bits, or a
+    coefficient past the band): a warning, after which the decoder does
+    nothing until the next restart (its ``ct = -1``)."""
 
 
 def _arith_dc(dec, stats: list, context: list, j: int, lower: int, upper: int) -> int:
@@ -1352,7 +1667,7 @@ def _arith_dc(dec, stats: list, context: list, j: int, lower: int, upper: int) -
         while dec(stats, st):
             m <<= 1
             if m == 0x8000:
-                raise ValueError(_MAGNITUDE_ERROR)
+                raise _ArithStop
             st += 1
     context[j] = 0 if m < (1 << lower) >> 1 else (12 if m > (1 << upper) >> 1 else 4) + 4 * sign
     v = m
@@ -1378,7 +1693,7 @@ def _arith_ac(dec, stats: list, fixed: list, st: int, k: int, kx: int) -> int:
         while dec(stats, st):
             m <<= 1
             if m == 0x8000:
-                raise ValueError(_MAGNITUDE_ERROR)
+                raise _ArithStop
             st += 1
     v = m
     st += 14
@@ -1390,19 +1705,19 @@ def _arith_ac(dec, stats: list, fixed: list, st: int, k: int, kx: int) -> int:
     return -(v + 1) if sign else v + 1
 
 
-def _decode_arith_scan(segments: list, ended: bool, members: list, spectral: tuple,
-                       frame: dict, conditioning: tuple, restart: int) -> list[int]:
+def _decode_arith_scan(scan: dict, members: list, spectral: tuple, frame: dict,
+                       conditioning: tuple, restart: int) -> list[int]:
     """Decode one arithmetic-coded scan (``jdarith.c``) from its restart
-    segments (``_entropy_segments``) into ``frame["coef"]`` (zigzag order):
+    intervals (``_scan_spans``) into ``frame["coef"]`` (zigzag order):
     sequential (DC and AC of each block), or one of the four progressive
     kinds (DC first, DC refinement, AC first, AC refinement). Each scan and
     each restart segment starts with zeroed statistics of the tables it
     reads, DC predictions and conditioning of 0 and two fresh bytes in the
     decoder. ``conditioning``: the DAC values, (L of each of the 16 DC
-    tables, U of each, Kx of each AC table). Returns the bytes each segment
-    decoded asked for (past its length: it read the marker)."""
-    ss, se, ah, al = spectral
-    lower, upper, kx = conditioning
+    tables, U of each, Kx of each AC table). A bad code (``_ArithStop``)
+    ends its interval's decoding. Returns the bytes each interval's decoder
+    asked for (past its length: it read the marker)."""
+    ss, _, ah, _ = spectral
     progressive = frame["progressive"]
     mcus, scanned = _scan_blocks(frame, members)
     flat = {ci: frame["coef"][ci].reshape(-1).tolist() for ci in scanned}
@@ -1411,124 +1726,118 @@ def _decode_arith_scan(segments: list, ended: bool, members: list, spectral: tup
     ac_of = {ci: ta for ci, _, ta in members}
     reads_dc = not progressive or (ss == 0 and ah == 0)
     reads_ac = not progressive or ss > 0
-    p1, m1 = 1 << al, -1 << al
     per = restart or len(mcus)
-    done, fetched = 0, []
-    for s, seg in enumerate(segments):
-        if done >= len(mcus):
-            break
-        dec = _ArithDecoder(seg, not ended and s == len(segments) - 1)
+    fetched = []
+    for s, (seg, flags) in enumerate(_segments(scan)):
+        dec = _ArithDecoder(seg, bool(flags & SPAN_OPEN))
         dc_stats = {dc_of[ci]: [0] * _DC_BINS for ci in scanned} if reads_dc else {}
         ac_stats = {ac_of[ci]: [0] * _AC_BINS for ci in scanned} if reads_ac else {}
         fixed = [ARITH_FIXED_STATE]
         last_dc, context = [0] * len(members), [0] * len(members)
-        for mcu in mcus[done:done + per]:
-            for ci, off in mcu:
-                coef, j = flat[ci], slot[ci]
-                if not progressive or (ss == 0 and ah == 0):
-                    td = dc_of[ci]
-                    diff = _arith_dc(dec, dc_stats[td], context, j, lower[td], upper[td])
-                    last_dc[j] = (last_dc[j] + diff) & 0xFFFF
-                    coef[off] = _wrap16(last_dc[j] << al)
-                    if progressive:
-                        continue
-                    stats, k = ac_stats[ac_of[ci]], 0
-                    while k < 63:
-                        st = 3 * k
-                        if dec(stats, st):
-                            break
-                        while True:
-                            k += 1
-                            if dec(stats, st + 1):
-                                break
-                            st += 3
-                            if k >= 63:
-                                raise ValueError(_SPECTRAL_ERROR)
-                        coef[off + k] = _wrap16(_arith_ac(dec, stats, fixed, st, k,
-                                                          kx[ac_of[ci]]))
-                elif ss == 0:  # DC refinement: the next bit of each DC value
-                    if dec(fixed, 0):
-                        coef[off] |= p1
-                elif ah == 0:  # AC first
-                    stats, k = ac_stats[ac_of[ci]], ss
-                    while k <= se:
-                        st = 3 * (k - 1)
-                        if dec(stats, st):
-                            break
-                        while not dec(stats, st + 1):
-                            st += 3
-                            k += 1
-                            if k > se:
-                                raise ValueError(_SPECTRAL_ERROR)
-                        coef[off + k] = _wrap16(
-                            _arith_ac(dec, stats, fixed, st, k, kx[ac_of[ci]]) << al)
-                        k += 1
-                else:  # AC refinement: past the previous stage's last nonzero, EOB decisions
-                    stats, k, kex = ac_stats[ac_of[ci]], ss, se
-                    while kex > 0 and not coef[off + kex]:
-                        kex -= 1
-                    while k <= se:
-                        st = 3 * (k - 1)
-                        if k > kex and dec(stats, st):
-                            break
-                        while True:
-                            c = coef[off + k]
-                            if c:  # a correction bit
-                                if dec(stats, st + 2):
-                                    coef[off + k] = _wrap16(c + (m1 if c < 0 else p1))
-                                break
-                            if dec(stats, st + 1):  # newly nonzero
-                                coef[off + k] = m1 if dec(fixed, 0) else p1
-                                break
-                            st += 3
-                            k += 1
-                            if k > se:
-                                raise ValueError(_SPECTRAL_ERROR)
-                        k += 1
+        try:
+            _arith_interval(dec, mcus[s * per:(s + 1) * per], flat, slot, dc_of, ac_of,
+                            dc_stats, ac_stats, fixed, last_dc, context, spectral,
+                            progressive, conditioning)
+        except _ArithStop:
+            pass
         fetched.append(dec.pos)
-        done += min(per, len(mcus) - done)
-    if done < len(mcus):
-        if ended:
-            raise ValueError("corrupt JPEG data: fewer restart segments than MCUs")
-        raise ValueError("truncated JPEG file")
     for ci in scanned:
         frame["coef"][ci][...] = np.array(flat[ci], np.int64).reshape(frame["coef"][ci].shape)
-        frame["seen"][ci] = True
-    frame["done"] = all(frame["seen"])
     return fetched
 
 
-_ARITH_ERRORS = {_native.ERR_TRUNCATED: "truncated JPEG file",
-                 _native.ERR_RANGE: _SPECTRAL_ERROR, _native.ERR_CORRUPT: _MAGNITUDE_ERROR}
+def _arith_interval(dec, mcus: list, flat: dict, slot: dict, dc_of: dict, ac_of: dict,
+                    dc_stats: dict, ac_stats: dict, fixed: list, last_dc: list, context: list,
+                    spectral: tuple, progressive: bool, conditioning: tuple) -> None:
+    """The MCUs of one arithmetic-coded restart interval."""
+    ss, se, ah, al = spectral
+    lower, upper, kx = conditioning
+    p1, m1 = 1 << al, -1 << al
+    for mcu in mcus:
+        for ci, off in mcu:
+            coef, j = flat[ci], slot[ci]
+            if not progressive or (ss == 0 and ah == 0):
+                td = dc_of[ci]
+                diff = _arith_dc(dec, dc_stats[td], context, j, lower[td], upper[td])
+                last_dc[j] = (last_dc[j] + diff) & 0xFFFF
+                coef[off] = _w16(last_dc[j] << al)
+                if progressive:
+                    continue
+                stats, k = ac_stats[ac_of[ci]], 0
+                while k < 63:
+                    st = 3 * k
+                    if dec(stats, st):
+                        break
+                    while True:
+                        k += 1
+                        if dec(stats, st + 1):
+                            break
+                        st += 3
+                        if k >= 63:
+                            raise _ArithStop
+                    coef[off + k] = _w16(_arith_ac(dec, stats, fixed, st, k,
+                                                      kx[ac_of[ci]]))
+            elif ss == 0:  # DC refinement: the next bit of each DC value
+                if dec(fixed, 0):
+                    coef[off] |= p1
+            elif ah == 0:  # AC first
+                stats, k = ac_stats[ac_of[ci]], ss
+                while k <= se:
+                    st = 3 * (k - 1)
+                    if dec(stats, st):
+                        break
+                    while not dec(stats, st + 1):
+                        st += 3
+                        k += 1
+                        if k > se:
+                            raise _ArithStop
+                    coef[off + k] = _w16(
+                        _arith_ac(dec, stats, fixed, st, k, kx[ac_of[ci]]) << al)
+                    k += 1
+            else:  # AC refinement: past the previous stage's last nonzero, EOB decisions
+                stats, k, kex = ac_stats[ac_of[ci]], ss, se
+                while kex > 0 and not coef[off + kex]:
+                    kex -= 1
+                while k <= se:
+                    st = 3 * (k - 1)
+                    if k > kex and dec(stats, st):
+                        break
+                    while True:
+                        c = coef[off + k]
+                        if c:  # a correction bit
+                            if dec(stats, st + 2):
+                                coef[off + k] = _w16(c + (m1 if c < 0 else p1))
+                            break
+                        if dec(stats, st + 1):  # newly nonzero
+                            coef[off + k] = m1 if dec(fixed, 0) else p1
+                            break
+                        st += 3
+                        k += 1
+                        if k > se:
+                            raise _ArithStop
+                    k += 1
 
 
-def _native_arith_scan(segments: list, ended: bool, members: list, spectral: tuple,
-                       frame: dict, conditioning: tuple, restart: int) -> list[int]:
+def _native_arith_scan(scan: dict, members: list, spectral: tuple, frame: dict,
+                       conditioning: tuple, restart: int) -> list[int]:
     """One arithmetic-coded scan through the C library's
     ``tdt_jpeg_arith_scan``: what ``_decode_arith_scan`` computes, into the
-    same ``frame["coef"]``, and the same bytes asked of each segment."""
+    same ``frame["coef"]``, and the same bytes asked of each interval."""
     ss, _, ah, _ = spectral
     progressive = frame["progressive"]
     reads_dc = not progressive or (ss == 0 and ah == 0)
     reads_ac = not progressive or ss > 0
     slots = [(td if reads_dc else -1, ta if reads_ac else -1) for _, td, ta in members]
     geom = _scan_geometry(frame, members, spectral, restart, slots)
-    buf, starts = _segment_buffer(segments)
+    buf, spans = scan["buf"], scan["spans"]
     cond = np.asarray([v for table in conditioning for v in table], np.int64)
-    fetched = np.zeros(max(len(segments), 1), np.int64)
+    fetched = np.zeros(len(spans), np.int64)
     coef = frame["coef_all"]
     rc = _native.library().tdt_jpeg_arith_scan(
-        _native.ptr(buf), _native.ptr(starts), len(segments), _native.ptr(cond), int(not ended),
+        _native.ptr(buf), len(buf), _native.ptr(spans), len(spans), _native.ptr(cond),
         _native.ptr(geom), len(geom), _native.ptr(coef), len(coef), _native.ptr(fetched))
-    if rc == _native.ERR_SEGMENTS:
-        raise ValueError("corrupt JPEG data: fewer restart segments than MCUs" if ended
-                         else "truncated JPEG file")
-    _native.check(rc, "JPEG", _ARITH_ERRORS)
-    for ci, _, _ in members:
-        frame["seen"][ci] = True
-    frame["done"] = all(frame["seen"])
-    used = -(-int(geom[0]) // int(geom[1]))
-    return [int(n) for n in fetched[:used]]
+    _native.check(rc, "JPEG", {_native.ERR_TRUNCATED: "truncated JPEG file"})
+    return [int(n) for n in fetched]
 
 
 # Pillow's ImageFile.MAXBLOCK: ``load()`` hands the JPEG decoder the file in
@@ -1536,24 +1845,23 @@ def _native_arith_scan(segments: list, ended: bool, members: list, spectral: tup
 PILLOW_BLOCK = 65536
 
 
-def _check_pillow_blocks(pos: int, reach: list, fetched: list[int]) -> None:
+def _check_pillow_blocks(pos: int, scan: dict, fetched: list[int]) -> None:
     """Refuse an arithmetic-coded scan that Pillow refuses: libjpeg's
     arithmetic decoder cannot suspend for more data (``jdarith.c``'s
     ``get_byte``: JERR_CANT_SUSPEND), so a scan that reads past the end of
     the blocks Pillow has handed over when it starts fails with "broken data
     stream". The marker reader suspends: at a scan whose data starts at
     ``pos`` the blocks reach ``pos`` rounded up to a whole block. The scan
-    reads each segment's bytes as far as its decoder asked (``fetched``;
-    past them, the marker), and the RST marker after every segment but its
-    last (``reach``: ``_entropy_segments``'s)."""
+    reads each marker its restarts take or pass (``scan["restart_end"]``)
+    and its last interval's bytes as far as its decoder asked (``fetched``;
+    past them, the marker after them)."""
     blocks_end = max(PILLOW_BLOCK, -(-pos // PILLOW_BLOCK) * PILLOW_BLOCK)
-    read_to = pos
-    for s, n in enumerate(fetched):
-        after, marker = reach[s]
-        if n > len(after) or s + 1 < len(fetched):
-            read_to = max(read_to, marker)
-        elif n:
-            read_to = max(read_to, int(after[n - 1]))
+    read_to = max(pos, scan["restart_end"])
+    chunk, marker, n = scan["reach"][-1], scan["markers"][-1], fetched[-1]
+    if chunk is not None and n > len(chunk[1]) and marker is not None:
+        read_to = max(read_to, marker[2])
+    elif chunk is not None and n:
+        read_to = max(read_to, int(chunk[1][min(n, len(chunk[1])) - 1]))
     if read_to > blocks_end:
         raise ValueError(f"an arithmetic-coded JPEG scan that reads across byte {blocks_end}: "
                          "Pillow hands libjpeg the file in 64 KiB blocks, and the arithmetic "
@@ -1593,13 +1901,121 @@ def _color_mode(frame: dict, jfif: bool, adobe) -> str:
     return "rgb" if rgb else "ycc"
 
 
+# jdcoefct.c's block smoothing: the natural position of zigzag coefficients
+# 1-9, which it estimates from the DC values of the 5 x 5 blocks around.
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+_K = np.array
+# Each estimate's kernel over those DC values (rows up two to down two,
+# columns left two to right two): with some AC data known (K.8 of T.81 on a
+# 5 x 5 window), then with none (it also re-estimates the DC).
+_SMOOTH_KERNELS = {
+    False: [_K([[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-7, 50, 0, -50, 7], [0] * 5, [0] * 5]),
+            _K([[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0] * 5, [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]]),
+            _K([[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0], [0, 0, 13, 0, 0],
+                [0, 0, -1, 0, 0]]),
+            _K([[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5, [1, -10, 0, 10, -1],
+                [0, 1, 0, -1, 0]]),
+            _K([[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5])],
+    True: [_K([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3],
+               [-1, -1, 0, 1, 1]]),
+           _K([[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0] * 5, [1, -13, -38, -13, 1],
+               [1, 3, 3, 3, 1]]),
+           _K([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0], [0, 2, 7, 2, 0],
+               [0, 0, 1, 0, 0]]),
+           _K([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5, [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]]),
+           _K([[0] * 5, [0, 2, -5, 2, 0], [1, 7, -14, 7, 1], [0, 2, -5, 2, 0], [0] * 5]),
+           _K([[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0], [0] * 5]),
+           _K([[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0], [0] * 5]),
+           _K([[0] * 5, [0, 1, 0, -1, 0], [0, -3, 0, 3, 0], [0, 1, 0, -1, 0], [0] * 5]),
+           _K([[0] * 5, [0, 1, 2, 1, 0], [0] * 5, [0, -1, -2, -1, 0], [0] * 5]),
+           _K([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+               [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]])],
+}
+
+
+def _smoothing(frame: dict, latched: dict) -> tuple | None:
+    """jdcoefct.c's smoothing_ok: libjpeg smooths a progressive file's blocks
+    when every component has its quantisation table and DC data, the table's
+    DC and first 9 AC values are nonzero, and some coefficient 1-9 is still
+    inexact (the file ended before its last scans). Returns each
+    component's coef_bits for coefficients 0-9 and their values when its last
+    scan started (-1 where the file has one scan), else None."""
+    if not frame["progressive"]:
+        return None
+    bits = frame["coef_bits"][:, :10]
+    for ci in range(len(frame["comps"])):
+        if ci not in latched or bits[ci, 0] < 0:
+            return None
+        if not latched[ci].reshape(64)[[0, *_SMOOTH_POS]].all():
+            return None
+    if not bits[:, 1:].any():
+        return None
+    prev = frame["prev_bits"][:, :10] if frame["scans"] > 1 else np.full_like(bits, -1)
+    return bits, prev
+
+
+def _smoothed(frame: dict, latched: dict, latches: tuple) -> np.ndarray:
+    """The coefficients libjpeg's decompress_smooth_data hands its IDCT: in
+    each block, each coefficient 1-9 that is 0 and not exact estimated from
+    the DC values around (``_SMOOTH_KERNELS``; rounded, and kept below
+    1 << its coef_bits where those are over 0), and where no AC data is known
+    at all, the DC too. Rows of iMCU rows past the last one its last scan
+    decoded whole read the coef_bits from before that scan."""
+    coef_all = frame["coef_all"].copy()
+    rows_i = frame["imcu_rows"]
+    for ci, (_, h, v, _) in enumerate(frame["comps"]):
+        coef = coef_all[frame["coef_base"][ci]:][:frame["coef"][ci].size].reshape(
+            frame["coef"][ci].shape)
+        wb, hb = _blocks_of(frame, ci)
+        dc = coef[..., 0].copy()
+        r = np.arange(hb)
+        imcu, br = r // v, r % v
+        block_rows = np.where(imcu < rows_i - 1, v, hb % v or v)
+        ibr, ibrs = imcu * block_rows + br, block_rows * rows_i
+        up1 = np.where(ibr > 0, r - 1, r)
+        up2 = np.where(ibr > 1, r - 2, up1)
+        dn1 = np.where(ibr < ibrs - 1, r + 1, r)
+        dn2 = np.where(ibr < ibrs - 2, r + 2, dn1)
+        c = np.arange(wb)
+        near_cols = [np.clip(c + d, 0, wb - 1) for d in range(-2, 3)]
+        window = np.stack([np.stack([dc[rr][:, cc] for cc in near_cols], -1)
+                           for rr in (up2, up1, r, dn1, dn2)], -2)  # (hb, wb, 5, 5)
+        q = latched[ci].reshape(64).astype(np.int64)
+        cur, prev = latches[0][ci], latches[1][ci]
+        stale = (imcu > frame["last_good_row"])[:, None]
+        for rows_bits, sel in ((cur, ~stale), (prev, stale)):
+            change_dc = bool((rows_bits[1:] == -1).all())
+            for j, kernel in enumerate(_SMOOTH_KERNELS[change_dc]):
+                zz = j + 1 if j < 9 else 0
+                pos = _SMOOTH_POS[j] if j < 9 else 0
+                al = int(rows_bits[zz]) if zz else 0
+                if zz and al == 0:
+                    continue
+                num = q[0] * (window * kernel).sum(axis=(-2, -1))
+                qk = q[pos]
+                pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+                if al > 0:
+                    pred = np.minimum(pred, (1 << al) - 1)
+                pred = np.where(num >= 0, pred, -pred)
+                block = coef[:hb, :wb, zz]
+                apply = sel & (block == 0) if zz else np.broadcast_to(sel, block.shape)
+                coef[:hb, :wb, zz] = np.where(apply, _w16(pred), block)
+    return coef_all
+
+
 def _pixels(frame: dict, latched: dict, jfif: bool, adobe, native: bool,
             color: str | None = None) -> np.ndarray:
     """The inverse DCT, upsampling and colour conversion (``color``, else
     ``_color_mode``'s) of a decoded frame (in C, ``tdt_jpeg_pixels``, when
-    ``native``)."""
+    ``native``), block smoothing first where libjpeg smooths (``_smoothing``).
+    A component the file never scanned has no table latched, and libjpeg's
+    IDCT multiplies it by zeros."""
     height, width = frame["height"], frame["width"]
     mode = color or _color_mode(frame, jfif, adobe)
+    zero = np.zeros((8, 8), np.int64)
+    latched = {ci: latched.get(ci, zero) for ci in range(len(frame["comps"]))}
+    latches = _smoothing(frame, latched)
+    coef_all = frame["coef_all"] if latches is None else _smoothed(frame, latched, latches)
     if native:
         geom = [height, width, frame["hmax"], frame["vmax"], len(frame["comps"]),
                 _MODES.index(mode)]
@@ -1609,14 +2025,14 @@ def _pixels(frame: dict, latched: dict, jfif: bool, adobe, native: bool,
         qtables = np.stack([latched[ci].reshape(64) for ci in range(len(frame["comps"]))])
         qtables = np.ascontiguousarray(qtables, np.int64)
         rgb = np.empty((height, width, 3), np.uint8)
-        coef = frame["coef_all"]
         _native.check(_native.library().tdt_jpeg_pixels(
-            _native.ptr(coef), len(coef), _native.ptr(qtables), _native.ptr(geom), len(geom),
-            _native.ptr(rgb), rgb.size), "JPEG")
+            _native.ptr(coef_all), len(coef_all), _native.ptr(qtables), _native.ptr(geom),
+            len(geom), _native.ptr(rgb), rgb.size), "JPEG")
         return rgb
     planes = []
     for ci, (cid, h, v, _) in enumerate(frame["comps"]):
-        coef = frame["coef"][ci]
+        base = frame["coef_base"][ci]
+        coef = coef_all[base:base + frame["coef"][ci].size].reshape(frame["coef"][ci].shape)
         natural = np.zeros_like(coef)
         natural[..., _ZIGZAG] = coef
         samples = _unblocks(_idct_islow(natural.reshape(*coef.shape[:2], 8, 8), latched[ci]))
@@ -1655,7 +2071,7 @@ def _lossless_frame(height: int, width: int, comps: list) -> dict:
     bases = np.cumsum([0] + [r * c for r, c in shapes])
     planes = np.zeros(int(bases[-1]), np.int64)
     return {"height": height, "width": width, "comps": comps, "hmax": hmax, "vmax": vmax,
-            "mcux": mcux, "mcuy": mcuy, "done": False, "progressive": False,
+            "mcux": mcux, "mcuy": mcuy, "scans_read": 0, "one_pass": False, "progressive": False,
             "arithmetic": False, "lossless": True, "plane_all": planes,
             "plane_base": [int(b) for b in bases[:-1]],
             "planes": [planes[b:b + r * c].reshape(r, c) for b, (r, c) in zip(bases, shapes)],
@@ -1666,7 +2082,8 @@ def _lossless_geometry(frame: dict, members: list, spectral: tuple, restart: int
                        slots: list) -> np.ndarray:
     """``tdt_jpeg_lossless_scan``'s geom of a scan (``slots``: each member's
     table index): a one-component scan is one sample an MCU over the
-    component's own grid; an interleaved one h x v samples a member."""
+    component's own grid, its iMCU row v MCU rows; an interleaved one h x v
+    samples a member, its iMCU row one MCU row."""
     ss, _, _, al = spectral
     comps = frame["comps"]
     sides = {ci: (-(-frame["width"] * comps[ci][1] // frame["hmax"]),
@@ -1674,16 +2091,18 @@ def _lossless_geometry(frame: dict, members: list, spectral: tuple, restart: int
     if len(members) == 1:
         ci = members[0][0]
         mcux, n_mcus, shape = sides[ci][0], sides[ci][0] * sides[ci][1], {ci: (1, 1)}
+        band = comps[ci][2]
     else:
         mcux, n_mcus = frame["mcux"], frame["mcux"] * frame["mcuy"]
         shape = {ci: comps[ci][1:3] for ci, _, _ in members}
+        band = 1
     if restart % mcux:
         raise ValueError(f"a lossless JPEG restart interval of {restart} MCUs, not whole rows "
                          f"of {mcux} MCUs (libjpeg-turbo refuses it)")
-    geom = [n_mcus, restart or n_mcus, len(members), mcux, ss, 1 << (7 - al), restart // mcux]
+    geom = [n_mcus, restart or n_mcus, len(members), mcux, ss, 1 << (7 - al), band]
     for (ci, _, _), slot in zip(members, slots):
         geom += [frame["plane_base"][ci], frame["planes"][ci].shape[1], *sides[ci], *shape[ci],
-                 slot]
+                 slot, comps[ci][2]]
     return np.asarray(geom, np.int64)
 
 
@@ -1700,90 +2119,85 @@ def _decode_lossless_scan(data: bytes, pos: int, members: list, spectral: tuple,
     for _, td, _ in members:
         if (0, td) not in tables:
             raise ValueError("corrupt JPEG file: a scan names a Huffman table never defined")
+        _check_table(*tables[0, td], dc_max=16)
         if (0, td) not in keys:
             keys.append((0, td))
     slots = [keys.index((0, td)) for _, td, _ in members]
     geom = _lossless_geometry(frame, members, spectral, restart, slots)
-    segments, end, ended = _entropy_segments(data, pos)
+    scan = _scan_spans(data, pos, -(-int(geom[0]) // int(geom[1])))
+    buf, spans = scan["buf"], scan["spans"]
     if native:
         luts = np.stack([_packed_lut(*tables[key]) for key in keys])
-        buf, starts = _segment_buffer(segments)
         planes = frame["plane_all"]
         rc = _native.library().tdt_jpeg_lossless_scan(
-            _native.ptr(buf), _native.ptr(starts), len(segments), _native.ptr(luts), len(keys),
-            _native.ptr(geom), len(geom), _native.ptr(planes), len(planes))
+            _native.ptr(buf), len(buf), _native.ptr(spans), len(spans), _native.ptr(luts),
+            len(keys), _native.ptr(geom), len(geom), _native.ptr(planes), len(planes))
     else:
-        rc = _lossless_reference(segments, geom, [tables[key] for key in keys],
+        rc = _lossless_reference(buf, spans, geom, [tables[key] for key in keys],
                                  frame["plane_all"])
-    if rc == _native.ERR_SEGMENTS:
-        raise ValueError("corrupt JPEG data: fewer restart segments than MCUs" if ended
-                         else "truncated JPEG file")
     _native.check(rc, "JPEG", _SCAN_ERRORS)
     for ci, _, _ in members:
         frame["pt"][ci] = al
         frame["seen"][ci] = True
-    frame["done"] = all(frame["seen"])
-    return end
+    return scan["end"]
 
 
-def _lossless_reference(segments: list, geom: np.ndarray, tables: list,
+def _lossless_reference(buf: np.ndarray, spans: np.ndarray, geom: np.ndarray, tables: list,
                         planes: np.ndarray) -> int:
     """The plain version of ``tdt_jpeg_lossless_scan`` (see data/csrc/jpeg.c),
-    with its return codes: each segment's differences read a symbol at a
+    with its return codes: each MCU row's differences read a symbol at a
     time from a table of every 16-bit window, then undifferenced row by
     row."""
     g = [int(v) for v in geom]
-    n_mcus, per, n_members, mcux, predictor, initial, reset_rows = g[:7]
-    members = [g[7 + 7 * j:14 + 7 * j] for j in range(n_members)]
+    n_mcus, per, n_members, mcux, predictor, initial, band = g[:7]
+    members = [g[7 + 8 * j:15 + 8 * j] for j in range(n_members)]
     luts = [_decode_lut(0, *table)[:2] for table in tables]
     mcu_rows = -(-n_mcus // mcux)
     diffs = [[0] * (mcu_rows * m[5] * mcux * m[4]) for m in members]
-    done = 0
-    for seg in segments:
-        if done >= n_mcus:
-            break
-        count = min(per, n_mcus - done)
+    resets, short = {0}, False  # the iMCU rows whose first rows restart the prediction
+    for s, (a, b, flags) in enumerate(spans.tolist()):
+        seg = buf[a:b]
+        short = short and not flags & SPAN_FRESH
         nbits = 8 * len(seg)
-        padded = np.concatenate([seg, np.zeros(8, np.uint8)]).astype(np.int64)
-        p = np.arange(nbits + 40)
-        i = p >> 3
-        window = (((padded[i] << 16 | padded[i + 1] << 8 | padded[i + 2]) >> (8 - (p & 7)))
-                  & 0xFFFF).tolist()
+        win = _windows(seg)
         pos = 0
-        for mcu in range(done, done + count):
-            mr, mc = divmod(mcu, mcux)
-            for m, diff in zip(members, diffs):
-                h, v, (sym, length) = m[4], m[5], luts[m[6]]
-                cols = mcux * h
-                for y in range(v):
-                    at = (mr * v + y) * cols + mc * h
-                    for x in range(h):
-                        w = window[pos]
-                        s, n = int(sym[w]), int(length[w])
-                        if n == 0 or s > 16:
-                            return _native.ERR_CODE
-                        pos += n
-                        if s == 16:
-                            d = 32768
-                        elif s:
-                            e = window[pos] >> (16 - s)
-                            d = e if e >= 1 << (s - 1) else e - (1 << s) + 1
-                            pos += s
-                        else:
-                            d = 0
-                        if pos > nbits:
-                            return _native.ERR_TRUNCATED
-                        diff[at + x] = d
-        done += count
-    if done < n_mcus:
-        return _native.ERR_SEGMENTS
-    for (base, stride, width, rows, h, v, _), diff in zip(members, diffs):
+        first = s * per // mcux
+        resets.add(first // band)  # jddiffct.c's process_restart: the predictor too
+        for row in range(first, min((s + 1) * per // mcux, mcu_rows)):
+            if short:  # jdlhuff.c: zero differences, and the predictor reset
+                resets.add(row // band)
+                continue
+            for mc in range(mcux):
+                for m, diff in zip(members, diffs):
+                    h, v, (sym, length) = m[4], m[5], luts[m[6]]
+                    cols = mcux * h
+                    for y in range(v):
+                        at = (row * v + y) * cols + mc * h
+                        for x in range(h):
+                            if pos > nbits:
+                                pos = nbits + 1
+                            w = win[pos]
+                            sv, n = sym[w], length[w]
+                            pos += n
+                            if sv == 16:
+                                d = 32768
+                            elif sv:
+                                e = win[pos] >> (16 - sv)
+                                d = e if e >= 1 << (sv - 1) else e - (1 << sv) + 1
+                                pos += sv
+                            else:
+                                d = 0
+                            diff[at + x] = d
+            short = pos > nbits
+            if short and flags & SPAN_OPEN:
+                return _native.ERR_TRUNCATED
+    for (base, stride, width, rows, h, v, _, vs), diff in zip(members, diffs):
         cols = mcux * h
         prev = None
         for r in range(rows):
             d = diff[r * cols:r * cols + width]
             out = [0] * width
-            if r == 0 or (r % v == 0 and reset_rows and (r // v) % reset_rows == 0):
+            if r % vs == 0 and r // vs in resets:
                 ra = initial
                 for c in range(width):
                     out[c] = ra = (d[c] + ra) & 0xFFFF

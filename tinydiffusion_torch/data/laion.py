@@ -28,8 +28,8 @@ without its PIL, ``requests``, ``urllib3`` and JAX imports. Kept:
   progressive, CMYK and lossless included), PNG (``data/png.py``, Adam7 and
   16-bit included), GIF, BMP and DIB, WebP, TIFF, ICO and CUR
   (``data/gif.py``, ``bmp.py``, ``webp.py``, ``tiff.py``, ``ico.py``), JPEG
-  2000 (``data/jpeg2000.py``), TGA, Netpbm and QOI (``data/tga.py``,
-  ``netpbm.py``, ``qoi.py``); other formats fail as Pillow fails on what it
+  2000 (``data/jpeg2000.py``), TGA, Netpbm, QOI and PCX (``data/tga.py``,
+  ``netpbm.py``, ``qoi.py``, ``pcx.py``); other formats fail as Pillow fails on what it
   cannot identify, or by the name Pillow gives them (ROADMAP Queue 3 lists
   the formats Pillow would also read);
 - ``check_disk_space`` and ``precache_dataset`` (a ``ThreadPoolExecutor``
@@ -159,11 +159,12 @@ def decode_image(data: bytes) -> np.ndarray:
     ``Image.open(f).convert("RGB")``. The format is the one Pillow 12.1's
     ``Image.open`` picks (``data/identify.py``: its plugins in their order,
     a failed open passed on to the next); the port reads JPEG (Huffman or
-    arithmetic-coded, sequential, progressive or 8-bit lossless), PNG, GIF
+    arithmetic-coded, sequential, progressive or 8-bit lossless; damaged
+    scans as libjpeg-turbo recovers from them), PNG, GIF
     (its first frame), BMP and DIB, WebP (its first frame), TIFF (its first
     image; YCbCr through libtiff's conversion too), ICO and CUR (the image
     Pillow picks), JPEG 2000 (a JP2 file or a raw codestream; sYCC too), TGA,
-    Netpbm (PBM, PGM, PPM, PFM) and QOI. Any other format Pillow identifies
+    Netpbm (PBM, PGM, PPM, PFM), QOI and PCX. Any other format Pillow identifies
     raises ``ValueError`` by its name, as does what Pillow cannot identify
     or load."""
     return identify.decode(data)

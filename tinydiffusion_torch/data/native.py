@@ -24,14 +24,12 @@ import numpy as np
 from tinydiffusion_torch.ops import _build
 
 # decode.h's return codes.
-ERR_ARGS, ERR_TRUNCATED, ERR_CODE, ERR_RANGE, ERR_SEGMENTS, ERR_CORRUPT, ERR_MEMORY = range(-1, -8,
-                                                                                           -1)
+ERR_ARGS, ERR_TRUNCATED, ERR_CODE, ERR_RANGE, ERR_CORRUPT, ERR_MEMORY = range(-1, -7, -1)
 _MESSAGES = {
     ERR_ARGS: "sizes the decoder cannot take",
     ERR_TRUNCATED: "the data ends early",
     ERR_CODE: "a bit pattern that is no prefix code",
     ERR_RANGE: "a value outside its bounds",
-    ERR_SEGMENTS: "fewer restart segments than MCUs",
     ERR_CORRUPT: "data the format forbids",
     ERR_MEMORY: "out of memory",
 }

@@ -187,17 +187,18 @@ SIGNATURES: dict[str, tuple] = {
 # its length, which the C side never reads or writes past.
 _I64 = ctypes.c_int64
 DECODE_SIGNATURES: dict[str, tuple] = {
-    # data, seg_start (n_segs + 1 byte offsets), n_segs, luts (n_luts x 65536
-    # uint16: length << 8 | symbol), n_luts, geom (int64, data/jpeg.py::_scan_geometry),
-    # n_geom, coef (int64, zigzag order), coef_len
-    "tdt_jpeg_scan": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64),
-    # data, seg_start, n_segs, cond (int64: L, U of the 16 DC tables, Kx of the 16
-    # AC tables), last_open, geom (data/jpeg.py::_scan_geometry), n_geom, coef,
-    # coef_len, fetched (int64, n_segs: the bytes each segment's decoder asked for)
-    "tdt_jpeg_arith_scan": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _P),
-    # data, seg_start, n_segs, luts, n_luts, geom (int64, data/jpeg.py::_lossless_geometry),
-    # n_geom, planes (int64 samples), planes_len
-    "tdt_jpeg_lossless_scan": (_P, _P, _I64, _P, _I64, _P, _I64, _P, _I64),
+    # data, n_data, spans (int64, n_spans x 3: each restart interval's start, end
+    # and flags, data/jpeg.py::_scan_spans), n_spans, luts (n_luts x 65536 uint16:
+    # length << 8 | symbol), n_luts, geom (int64, data/jpeg.py::_scan_geometry),
+    # n_geom, coef (int64, zigzag order), coef_len, last_good (int64, set)
+    "tdt_jpeg_scan": (_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _P),
+    # data, n_data, spans, n_spans, cond (int64: L, U of the 16 DC tables, Kx of the
+    # 16 AC tables), geom (data/jpeg.py::_scan_geometry), n_geom, coef, coef_len,
+    # fetched (int64, n_spans: the bytes each interval's decoder asked for)
+    "tdt_jpeg_arith_scan": (_P, _I64, _P, _I64, _P, _P, _I64, _P, _I64, _P),
+    # data, n_data, spans, n_spans, luts, n_luts, geom (int64,
+    # data/jpeg.py::_lossless_geometry), n_geom, planes (int64 samples), planes_len
+    "tdt_jpeg_lossless_scan": (_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _I64),
     # coef, coef_len, qtables (64 int64 a component), geom (data/jpeg.py::_pixels),
     # n_geom, rgb (uint8), rgb_len
     "tdt_jpeg_pixels": (_P, _I64, _P, _P, _I64, _P, _I64),
@@ -217,6 +218,8 @@ DECODE_SIGNATURES: dict[str, tuple] = {
     "tdt_tga_rle": (_P, _I64, _I64, _P, _I64, _I64),
     # data (a QOI's ops, from byte 14), n, rgb (uint8, pixels x 3), pixels
     "tdt_qoi_decode": (_P, _I64, _P, _I64),
+    # data (a PCX's packets, from byte 128), n, out (uint8, rows x line), line, rows
+    "tdt_pcx_rle": (_P, _I64, _P, _I64, _I64),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
